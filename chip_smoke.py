@@ -8,22 +8,30 @@ prints its traceback and exits non-zero without the final ok line:
 
 1. device: needs CUDA (exits 1 without it); prints torch/CUDA versions,
    ``nvcc --version`` and the card's name and power limit;
-2. build: compiles K1/K2 from pypwt_tpu_torch/csrc/ with nvcc;
+2. build: compiles every kernel (K1/K2, K3/K4, K10a/K10b) from
+   pypwt_tpu_torch/csrc/ with nvcc, one process per source, and prints each
+   kernel's registers and spills;
 3. K1/K2 against their plain torch versions on the card, over banks hlen
    2..40 and shapes up to 4096^2 (max-abs <= 2e-5 on uniform [0,1) data:
    the two differ only in summation order and FMA contraction), and
    against the float64 numpy oracle tests/oracle.py on a small plane;
-4. main path: Wavelets(img, "db2", 3, device="cuda") forward ->
-   soft_threshold(10) -> inverse on a 2048^2 0..255 frame, held against
-   the same calls on the CPU plain path (coefficients within
-   3e-4 * 2^level, image within 7e-4) and counted: exactly 3 K1 and 3 K2
-   launches, 0 declined.  Then the plain roundtrip (< 7e-4), the (8, 2048,
-   2048) stack through wavedec2/waverec2, and haar;
+   then K3/K4/K10a/K10b the same way, over the banks, an odd-length bank
+   for K10, rows from (1, 8) to (2048, 2048) and one 4 Mi-sample signal,
+   every SWT level the signal allows, and a wrap wider than the signal;
+4. main paths, each held against the same calls on the CPU plain path
+   (coefficients within 3e-4 * 2^level, image within 7e-4) and counted
+   (exact launches of every kernel, 0 declined): Wavelets(img, "db2", 3,
+   device="cuda") forward -> soft_threshold(10) -> inverse on a 2048^2
+   0..255 frame (3 K1, 3 K2), then the plain roundtrip, the (8, 2048, 2048)
+   stack through wavedec2/waverec2, and haar; then the 1D plans: a 2048 x
+   2048 sinogram as batched 1D (ndim=1), DWT (3 K3, 3 K4) and SWT (3 K10a,
+   3 K10b), one 4 Mi-sample signal (DWT L5, SWT L3), and haar batched 1D;
 5. times (CUDA events, warm-up, median of 21 samples): level-0 K1/K2
    against their plain versions at 2048^2 (device time), and the L3
    roundtrip in frames/s, kernel path against plain path, at 2048^2 and on
    the stack, both as device time and as wall time (host launch overhead
-   included).
+   included); then level 0 of K3/K4/K10a/K10b at 2048 x 2048 against their
+   plain versions, and the batched-1D and 4 Mi-signal roundtrips.
 
 The line before the last is one JSON object with each kernel's route,
 source, the TPU kernel it replaces, its launches in the main-path run, its
@@ -55,6 +63,11 @@ FRAME = (2048, 2048)
 STACK = 8
 SAMPLES = 21
 SLEEP_CYCLES = 20_000_000  # ~10 ms at the H100's 1.98 GHz boost clock
+SHAPES_1D = ((1, 8), (3, 64), (64, 1024), FRAME, (1, 4 * 1024 * 1024))
+SIGNAL = 4 * 1024 * 1024   # one 16 MiB signal
+# an odd-length bank for the a-trous kernels, which take every hlen
+ODD_TAPS = ([0.1, -0.3, 0.7, 0.25, -0.05], [0.2, 0.5, -0.6, 0.1, 0.3],
+            [-0.15, 0.35, 0.6, 0.2, 0.05], [0.4, -0.2, 0.1, 0.55, -0.3])
 
 
 def card_line():
@@ -149,10 +162,7 @@ def phase_kernels(port, dev):
             worst["K1"] = max(worst["K1"], e1)
             worst["K2"] = max(worst["K2"], e2)
     # the float64 scalar oracle of the reference kernels, small plane
-    spec = importlib.util.spec_from_file_location(
-        "oracle", ROOT / "tests" / "oracle.py")
-    oracle = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(oracle)
+    oracle = load_oracle()
     rng = np.random.default_rng(SEED)
     for name in BANKS:
         fb = port.get_filter_bank(name)
@@ -172,6 +182,122 @@ def phase_kernels(port, dev):
     return worst
 
 
+def load_oracle():
+    spec = importlib.util.spec_from_file_location(
+        "oracle", ROOT / "tests" / "oracle.py")
+    oracle = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(oracle)
+    return oracle
+
+
+def banks_1d(port):
+    """The banks of phase 3, and an odd-length one (K10 only)."""
+    odd = port.FilterBank("odd5", *(np.asarray(t, np.float64)
+                                    for t in ODD_TAPS))
+    return [port.get_filter_bank(n) for n in BANKS] + [odd]
+
+
+def launched_once(kernel, call):
+    n = kernel.launches
+    got = call()
+    if kernel.launches != n + 1:
+        raise AssertionError(f"{kernel.__name__}: launch count did not move")
+    return got
+
+
+def phase_kernels_1d(port, dev):
+    fd = port.ops.fused_dwt
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    worst = {"K3": 0.0, "K4": 0.0, "K10a": 0.0, "K10b": 0.0}
+
+    def note(key, err, what):
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"{key} {what}: kernel vs plain {err:.3e} "
+                                 f"> {KERNEL_TOL}")
+        worst[key] = max(worst[key], err)
+
+    for fb in banks_1d(port):
+        for shape in SHAPES_1D:
+            x = torch.rand(shape, generator=gen, device=dev)
+            a, d = (torch.rand(shape, generator=gen, device=dev)
+                    for _ in range(2))
+            if fb.hlen % 2 == 0:
+                got = launched_once(fd.dwt1d_fused,
+                                    lambda: fd.dwt1d_fused(x, fb))
+                note("K3", max_err(got, fd.dwt1d_plain(x, fb)),
+                     (fb.name, shape))
+                half = (shape[0], shape[1] // 2)
+                ca, cd = a[:, :half[1]].contiguous(), d[:, :half[1]].contiguous()
+                got = launched_once(fd.idwt1d_fused, lambda: fd.idwt1d_fused(
+                    ca, cd, fb, shape[1]))
+                note("K4", max_err(got, fd.idwt1d_plain(ca, cd, fb, shape[1])),
+                     (fb.name, shape))
+            top = port.shapes.clamp_levels(99, shape, fb.hlen, 1)
+            for level in range(1, top + 1):
+                got = launched_once(fd.swt1d_fused,
+                                    lambda: fd.swt1d_fused(x, fb, level))
+                note("K10a", max_err(got, fd.swt1d_plain(x, fb, level)),
+                     (fb.name, shape, level))
+                got = launched_once(fd.iswt1d_fused, lambda: fd.iswt1d_fused(
+                    a, d, fb, level))
+                note("K10b", max_err(got, fd.iswt1d_plain(a, d, fb, level)),
+                     (fb.name, shape, level))
+            torch.cuda.synchronize()
+            print(f"kernel-vs-plain 1D {fb.name:8s} hlen={fb.hlen:2d} "
+                  f"{str(shape):14s} SWT levels 1..{top:2d}  worst so far "
+                  + "  ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    # a wrap wider than the signal, through the routed level function:
+    # sym8 at level 3 spans 60 samples of a 16-sample row
+    fb = port.get_filter_bank("sym8")
+    x = torch.rand((4, 16), generator=gen, device=dev)
+    got = launched_once(fd.swt1d_fused, lambda: port.swt.swt1d_level(x, fb, 3))
+    note("K10a", max_err(got, fd.swt1d_plain(x, fb, 3)), "sym8 (4, 16) L3")
+    back = launched_once(fd.iswt1d_fused,
+                         lambda: port.swt.iswt1d_level(*got, fb, 3))
+    note("K10b", max_err(back, fd.iswt1d_plain(*got, fb, 3)),
+         "sym8 (4, 16) L3")
+    print(f"wrap wider than the row: sym8 level 3 on (4, 16) through "
+          f"swt1d_level/iswt1d_level")
+
+    oracle = load_oracle()
+    rng = np.random.default_rng(SEED)
+    for fb in banks_1d(port):
+        x = rng.random((3, 24), dtype=np.float32)
+        c = [rng.random((3, 12), dtype=np.float32) for _ in range(2)]
+        xt = torch.from_numpy(x).to(dev)
+        errs = {}
+        if fb.hlen % 2 == 0:
+            a, d = (t.cpu().numpy() for t in fd.dwt1d_fused(xt, fb))
+            out = fd.idwt1d_fused(*(torch.from_numpy(s).to(dev) for s in c),
+                                  fb, 24).cpu().numpy()
+            errs["K3"] = max(
+                float(np.abs(a[r] - oracle.ref_analysis_1d(x[r], fb.dec_lo))
+                      .max()) for r in range(3))
+            errs["K3"] = max(errs["K3"], max(
+                float(np.abs(d[r] - oracle.ref_analysis_1d(x[r], fb.dec_hi))
+                      .max()) for r in range(3)))
+            errs["K4"] = max(float(np.abs(out[r] - oracle.ref_synthesis_1d(
+                c[0][r], c[1][r], fb.rec_lo, fb.rec_hi, 24)).max())
+                for r in range(3))
+        a, d = (t.cpu().numpy() for t in fd.swt1d_fused(xt, fb, 2))
+        errs["K10a"] = max(max(
+            float(np.abs(a[r] - oracle.ref_swt_analysis_1d(x[r], fb.dec_lo, 2))
+                  .max()),
+            float(np.abs(d[r] - oracle.ref_swt_analysis_1d(x[r], fb.dec_hi, 2))
+                  .max())) for r in range(3))
+        sa, sd = (rng.random((3, 24), dtype=np.float32) for _ in range(2))
+        out = fd.iswt1d_fused(torch.from_numpy(sa).to(dev),
+                              torch.from_numpy(sd).to(dev), fb, 2).cpu().numpy()
+        errs["K10b"] = max(float(np.abs(out[r] - oracle.ref_swt_synthesis_1d(
+            sa[r], sd[r], fb.rec_lo, fb.rec_hi, 2)).max()) for r in range(3))
+        print(f"kernel-vs-oracle 1D {fb.name:8s} "
+              + "  ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        if max(errs.values()) > ORACLE_TOL:
+            raise AssertionError(f"{fb.name}: 1D kernel vs oracle "
+                                 f"{max(errs.values()):.3e} > {ORACLE_TOL}")
+    return worst
+
+
 def frame(shape, seed=SEED):
     return (np.random.default_rng(seed).random(shape) * 255).astype(
         np.float32)
@@ -183,7 +309,10 @@ def check_pyramid(got, ref, what):
     worst = 0.0
     pairs = [(got[0], ref[0], levels)]
     for lev in range(1, levels + 1):
-        pairs += [(g, r, lev) for g, r in zip(got[lev], ref[lev])]
+        if isinstance(ref[lev], np.ndarray):  # 1D pyramid: one array
+            pairs.append((got[lev], ref[lev], lev))
+        else:
+            pairs += [(g, r, lev) for g, r in zip(got[lev], ref[lev])]
     for g, r, lev in pairs:
         err = float(np.abs(np.asarray(g) - np.asarray(r)).max())
         if not np.all(np.isfinite(g)) or err > COEFF_TOL * 2 ** lev:
@@ -265,6 +394,66 @@ def phase_main_path(port, dev):
     print(f"haar L3 {FRAME}: forward vs cpu butterfly {eh:.3e}, "
           f"roundtrip {ehr:.3e}")
     return launches
+
+
+def expect_launches(fd, want, what):
+    """Exactly ``want`` launches per kernel name (others 0), 0 declined."""
+    got = {k.__name__: k.launches for k in fd.KERNELS}
+    declined = sum(k.declined for k in fd.KERNELS)
+    expect = {name: want.get(name, 0) for name in got}
+    if got != expect or declined:
+        raise AssertionError(f"{what}: launches {got}, declined {declined}; "
+                             f"expected {expect}, declined 0")
+
+
+def drive_1d(port, dev, img, wname, levels, want_fwd, want, what, **kw):
+    """Wavelets forward -> soft_threshold(10) -> inverse on the card,
+    counted from 0, against the same calls on the CPU plain path."""
+    fd = port.ops.fused_dwt
+    ref = port.Wavelets(img, wname, levels, device="cpu", **kw)
+    ref.forward()
+    ref_coeffs = ref.coeffs
+    ref.soft_threshold(10.0)
+    ref.inverse()
+
+    fd.reset_counts()
+    W = port.Wavelets(img, wname, levels, device=dev, **kw)
+    W.forward()
+    coeffs = W.coeffs
+    expect_launches(fd, want_fwd, f"{what} forward")
+    W.soft_threshold(10.0)
+    W.inverse()
+    out = W.image
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in fd.KERNELS if k.launches}
+    expect_launches(fd, want, what)
+    ec = check_pyramid(coeffs, ref_coeffs, f"{what} forward")
+    ei = check_image(out, ref.image, f"{what} denoised image")
+    print(f"main path {what}: forward vs cpu {ec:.3e}, denoised image vs "
+          f"cpu {ei:.3e}, launches {launches}, declined 0")
+    return launches
+
+
+def phase_main_paths_1d(port, dev):
+    sino = frame(FRAME, SEED + 2)   # detector rows x projection angles
+    sig = frame((SIGNAL,), SEED + 3)
+    k3k4 = drive_1d(port, dev, sino, "db2", 3, {"dwt1d_fused": 3},
+                    {"dwt1d_fused": 3, "idwt1d_fused": 3},
+                    f"batched-1D db2 L3 {FRAME}", ndim=1)
+    k10 = drive_1d(port, dev, sino, "db2", 3, {"swt1d_fused": 3},
+                   {"swt1d_fused": 3, "iswt1d_fused": 3},
+                   f"batched-1D SWT db2 L3 {FRAME}", ndim=1, do_swt=1)
+    drive_1d(port, dev, sig, "db2", 5, {"dwt1d_fused": 5},
+             {"dwt1d_fused": 5, "idwt1d_fused": 5},
+             f"signal db2 L5 ({SIGNAL},)")
+    drive_1d(port, dev, sig, "db2", 3, {"swt1d_fused": 3},
+             {"swt1d_fused": 3, "iswt1d_fused": 3},
+             f"signal SWT db2 L3 ({SIGNAL},)", do_swt=1)
+    drive_1d(port, dev, sino, "haar", 3, {"dwt1d_fused": 3},
+             {"dwt1d_fused": 3, "idwt1d_fused": 3},
+             f"batched-1D haar L3 {FRAME}", ndim=1)
+    return {"K3": k3k4["dwt1d_fused"], "K4": k3k4["idwt1d_fused"],
+            "K10a": k10["swt1d_fused"], "K10b": k10["iswt1d_fused"]}
 
 
 def cuda_ms(fn, reps, device_only):
@@ -363,6 +552,68 @@ def phase_times(port, dev, card):
     return {"K1": (k1_ms, k1_plain), "K2": (k2_ms, k2_plain)}
 
 
+def phase_times_1d(port, dev, card):
+    fd = port.ops.fused_dwt
+    dwt, swt = port.dwt, port.swt
+    fb = port.get_filter_bank("db2")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    # inputs that together exceed the 50 MB L2, as in phase_times
+    rows = [torch.rand(FRAME, generator=gen, device=dev) * 255
+            for _ in range(4)]
+    nx = itertools.cycle(rows).__next__
+    dcoef = itertools.cycle([fd.dwt1d_fused(r, fb) for r in rows]).__next__
+    scoef = itertools.cycle([fd.swt1d_fused(r, fb, 1) for r in rows]).__next__
+    n = FRAME[1]
+    cases = (
+        ("K3", "K3 dwt1d", 32, lambda: fd.dwt1d_plain(nx(), fb),
+         lambda: fd.dwt1d_fused(nx(), fb)),
+        ("K4", "K4 idwt1d", 32, lambda: fd.idwt1d_plain(*dcoef(), fb, n),
+         lambda: fd.idwt1d_fused(*dcoef(), fb, n)),
+        ("K10a", "K10a swt1d", 48, lambda: fd.swt1d_plain(nx(), fb, 1),
+         lambda: fd.swt1d_fused(nx(), fb, 1)),
+        ("K10b", "K10b iswt1d", 48, lambda: fd.iswt1d_plain(*scoef(), fb, 1),
+         lambda: fd.iswt1d_fused(*scoef(), fb, 1)),
+    )
+    times = {}
+    for key, name, mib, plain, kernel in cases:
+        ms, plain_ms = turns(plain, kernel, 10, True)
+        times[key] = (ms, plain_ms)
+        gbs = mib * 2 ** 20 / (ms * 1e-3) / 1e9
+        print(f"time {name} level 0 db2 {FRAME} rows, device: kernel "
+              f"{ms * 1e3:.1f} us ({gbs:.0f} GB/s, {gbs / 3350:.1%} of "
+              f"3.35 TB/s, {mib} MiB), plain {plain_ms * 1e3:.1f} us  "
+              f"[{card}]")
+
+    def dwt_rt(levels):
+        return lambda x: dwt.waverec1(dwt.wavedec1(x, fb, levels), fb,
+                                      x.shape[-1])
+
+    def swt_rt(levels):
+        return lambda x: swt.iswt1d(swt.swt1d(x, fb, levels), fb)
+
+    def with_mode(mode, rt, src):
+        def run():
+            dwt.set_kernels(mode)
+            rt(src())
+        return run
+
+    sigs = itertools.cycle([torch.rand((SIGNAL,), generator=gen, device=dev)
+                            * 255 for _ in range(4)]).__next__
+    for label, rt, src, unit in (
+            (f"batched-1D DWT L3 db2 {FRAME}", dwt_rt(3), nx, "frames"),
+            (f"batched-1D SWT L3 db2 {FRAME}", swt_rt(3), nx, "frames"),
+            (f"signal DWT L5 db2 ({SIGNAL},)", dwt_rt(5), sigs, "signals"),
+            (f"signal SWT L3 db2 ({SIGNAL},)", swt_rt(3), sigs, "signals")):
+        for clock, device_only in (("device", True), ("wall", False)):
+            ms, plain = turns(with_mode("torch", rt, src),
+                              with_mode("cuda", rt, src), 3, device_only)
+            print(f"time roundtrip {label}, {clock}: kernel path {ms:.3f} ms "
+                  f"({1e3 / ms:.0f} {unit}/s), plain path {plain:.3f} ms "
+                  f"({1e3 / plain:.0f} {unit}/s)  [{card}]")
+    dwt.set_kernels("auto")
+    return times
+
+
 def main():
     card = phase_device()
     port = import_port()
@@ -371,8 +622,11 @@ def main():
     t0 = time.perf_counter()
     phase_build(_build)
     worst = phase_kernels(port, dev)
+    worst.update(phase_kernels_1d(port, dev))
     launches = phase_main_path(port, dev)
+    launches.update(phase_main_paths_1d(port, dev))
     times = phase_times(port, dev, card)
+    times.update(phase_times_1d(port, dev, card))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "pypwt_tpu.")))
     if leaked:
@@ -390,6 +644,17 @@ def main():
          "launches": launches["K2"], "max_abs_err": worst["K2"],
          "ms": times["K2"][0], "plain_ms": times["K2"][1]},
     ]
+    for key, name, source, line in (
+            ("K3", "dwt1d (K3)", "dwt1d.cu", 2064),
+            ("K4", "idwt1d (K4)", "idwt1d.cu", 2104),
+            ("K10a", "swt1d (K10a)", "swt1d.cu", 2159),
+            ("K10b", "iswt1d (K10b)", "swt1d.cu", 2213)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"pypwt_tpu_torch/csrc/{source}",
+            "replaces": f"pypwt_tpu/ops/pallas_dwt.py:{line}",
+            "launches": launches[key], "max_abs_err": worst[key],
+            "ms": times[key][0], "plain_ms": times[key][1]})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,11 @@ kernels for NVIDIA Hopper (H100).
 The port of ``pypwt_tpu`` (JAX/Pallas on TPU), which stays beside it as
 the reference.  Ported so far: the separable, decimated multi-level 2D
 DWT and its inverse (``core.dwt``, ``core.haar``) with its two level
-kernels K1/K2 (``ops.fused_dwt``, ``csrc/``), the threshold operators
-(``core.thresh``) and the ``Wavelets`` class for that transform.  This
+kernels K1/K2; the 1D and batched-1D DWT (``core.dwt``, ``core.haar``)
+with K3/K4 and the 1D and batched-1D stationary transform (``core.swt``)
+with K10a/K10b (all in ``ops.fused_dwt``, sources in ``csrc/``); the
+threshold operators (``core.thresh``); and the ``Wavelets`` class for
+those transforms.  This
 package imports neither jax nor pypwt_tpu, and builds its kernels at their
 first launch, never at import.
 
@@ -24,7 +27,7 @@ from .api import Wavelets  # noqa: F401
 from .filters import FilterBank, get_filter_bank, wavelist  # noqa: F401
 from .version import __version__  # noqa: F401
 from . import core  # noqa: F401
-from .core import conv, dwt, haar, shapes, thresh  # noqa: F401
+from .core import conv, dwt, haar, shapes, swt, thresh  # noqa: F401
 
 __all__ = [
     "Wavelets",

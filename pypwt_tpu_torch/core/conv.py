@@ -1,5 +1,6 @@
-"""Periodized filtering primitives in plain torch ops (the 2D-DWT part of
-``pypwt_tpu.core.conv``).
+"""Periodized filtering primitives in plain torch ops (the port of
+``pypwt_tpu.core.conv`` without its long-signal folding helpers, a TPU
+lane-layout fix: on CUDA a single signal is a ``(1, n)`` batch).
 
 These restate the reference CUDA kernels' index algebra with tensor
 slicing and elementwise multiply-adds, in the same tap order as the JAX
@@ -15,6 +16,10 @@ package:
   (separable.cu:246-328 "w_kern_inverse_pass1/2"): each output parity p
   reads the coefficients once with the phase-p polyphase component of the
   filter, with the reference's even/odd half-length centering rules.
+
+* stationary (a-trous) analysis and synthesis (separable.cu:409-448,
+  :553-626): the filters virtually upsampled by 2^(level-1), no
+  decimation, a plain mod-N wrap, and one 1/2 in the synthesis.
 
 All functions operate on the last axis; callers transpose for other axes.
 ``F.conv1d`` is deliberately not used: on a GPU it runs through cuDNN in
@@ -160,3 +165,51 @@ def synthesis_last(lo, hi, rec_lo, rec_hi, n_out: int):
     lop = periodic_pad_last(lo, lpad, rpad)
     hip = periodic_pad_last(hi, lpad, rpad)
     return synthesis_core(lop, hip, rec_lo, rec_hi, n_out, L, lpad)
+
+
+def swt_analysis_last(x, dec_lo, dec_hi, level: int):
+    """Single-level stationary (a-trous) analysis along the last axis.
+
+    The filters are virtually upsampled by factor = 2^(level-1); no
+    decimation.  Plain mod-N periodic wrap (separable.cu:409-448):
+    lo[i] = sum_k dec_lo[k] * x[(i + (s-k)*factor) mod N], s = hlen//2.
+    """
+    n = x.shape[-1]
+    hlen = len(dec_lo)
+    s = hlen // 2
+    factor = 1 << (level - 1)
+    # slice offsets are lpad + (s-k)*factor for k = 0..hlen-1
+    lpad, rpad = (hlen - 1 - s) * factor, s * factor
+    xp = periodic_pad_last(x, lpad, rpad)
+    flo = _as_taps(dec_lo, x.dtype)
+    fhi = _as_taps(dec_hi, x.dtype)
+    lo = None
+    hi = None
+    for k in range(hlen):
+        ofs = lpad + (s - k) * factor
+        seg = xp[..., ofs: ofs + n]
+        lo = seg * flo[k] if lo is None else lo + seg * flo[k]
+        hi = seg * fhi[k] if hi is None else hi + seg * fhi[k]
+    return lo, hi
+
+
+def swt_synthesis_last(lo, hi, rec_lo, rec_hi, level: int):
+    """Single-level stationary synthesis along the last axis, with the
+    reference's 1/2 rescale of one axis (separable.cu:581-584)."""
+    n = lo.shape[-1]
+    hlen = len(rec_lo)
+    s = hlen // 2 - 1 if hlen % 2 == 0 else hlen // 2
+    factor = 1 << (level - 1)
+    lpad = (hlen - 1 - s) * factor
+    rpad = max(s, 0) * factor
+    lop = periodic_pad_last(lo, lpad, rpad)
+    hip = periodic_pad_last(hi, lpad, rpad)
+    # taps rounded to the data dtype, then halved: exact
+    flo = [0.5 * v for v in _as_taps(rec_lo, lo.dtype)]
+    fhi = [0.5 * v for v in _as_taps(rec_hi, lo.dtype)]
+    out = None
+    for k in range(hlen):
+        ofs = lpad + (s - k) * factor
+        seg = lop[..., ofs: ofs + n] * flo[k] + hip[..., ofs: ofs + n] * fhi[k]
+        out = seg if out is None else out + seg
+    return out

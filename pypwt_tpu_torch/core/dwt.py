@@ -1,17 +1,19 @@
-"""Multi-level separable 2D DWT, forward and inverse (the 2D part of
-``pypwt_tpu.core.dwt``).
+"""Multi-level separable DWT (1D, batched-1D, 2D), forward and inverse
+(the port of ``pypwt_tpu.core.dwt``).
 
-The coefficient pyramid is a plain list -- ``[A, (H1, V1, D1), ...,
-(Hn, Vn, Dn)]`` -- of tensors on the input's device, the same layout as
-the JAX package.  Axis convention (matches the reference): the last axis
-is filtered by pass 1, the second-to-last by pass 2.  Inputs may be one
-plane ``(Nr, Nc)`` or a stack ``(B, Nr, Nc)``.
+The coefficient pyramid is a plain list of tensors on the input's device,
+the same layout as the JAX package: 2D ``[A, (H1, V1, D1), ..., (Hn, Vn,
+Dn)]``, 1D ``[A, D1, ..., Dn]``.  Axis convention (matches the
+reference): the last axis is filtered by pass 1, the second-to-last by
+pass 2.  2D inputs may be one plane ``(Nr, Nc)`` or a stack ``(B, Nr,
+Nc)``; 1D inputs one signal ``(n,)`` or rows ``(R, n)`` filtered one by
+one (the reference's batched-1D mode, pypwt.pyx:146-151).
 
 Kernel routing (``set_kernels``), decided per level before launch from
 dtype, device and shape, never by catching an error:
 
-* ``"auto"`` (default): a CUDA tensor that K1/K2 cover launches the
-  kernel; an uncovered level on a CUDA tensor (odd size, float64, ...)
+* ``"auto"`` (default): a CUDA tensor that the level's kernel (K1/K2 in
+  2D, K3/K4 in 1D, K10 for ``core.swt``) covers launches it; an uncovered level on a CUDA tensor (odd size, float64, ...)
   runs the plain torch version on the same device and adds one to the
   kernel's ``declined`` count; a CPU tensor runs the plain version.
 * ``"cuda"``: the kernel, or an error (CPU tensor, uncovered level).
@@ -32,7 +34,7 @@ _KERNEL_MODE = "auto"
 
 def set_kernels(mode: str):
     """Select the compute path: 'auto', 'torch' (plain ops) or 'cuda'
-    (K1/K2 only)."""
+    (the CUDA kernels only)."""
     global _KERNEL_MODE
     if mode not in _MODES:
         raise ValueError("kernel mode must be auto|torch|cuda")
@@ -68,6 +70,34 @@ def use_k2(a, h, v, d, fb, out_shape) -> bool:
     """Routing decision for one synthesis level (see module docstring)."""
     return _route(fused_dwt.idwt2d_fused, a,
                   fused_dwt.idwt2d_unsupported(a, h, v, d, fb, out_shape))
+
+
+def use_k3(x, fb) -> bool:
+    """Routing decision for one 1D analysis level."""
+    return _route(fused_dwt.dwt1d_fused, x,
+                  fused_dwt.dwt1d_unsupported(x, fb))
+
+
+def use_k4(a, d, fb, n_out) -> bool:
+    """Routing decision for one 1D synthesis level."""
+    return _route(fused_dwt.idwt1d_fused, a,
+                  fused_dwt.idwt1d_unsupported(a, d, fb, n_out))
+
+
+def dwt1d(x, fb):
+    """One analysis level along the last axis -> (a, d), for one signal
+    ``(n,)`` (a ``(1, n)`` batch to K3, at any length) or rows ``(R, n)``."""
+    if use_k3(x, fb):
+        return fused_dwt.dwt1d_fused(x.contiguous(), fb)
+    return fused_dwt.dwt1d_plain(x, fb)
+
+
+def idwt1d(a, d, fb, n_out):
+    """One synthesis level along the last axis -> ``n_out`` samples."""
+    if use_k4(a, d, fb, n_out):
+        return fused_dwt.idwt1d_fused(a.contiguous(), d.contiguous(), fb,
+                                      n_out)
+    return fused_dwt.idwt1d_plain(a, d, fb, n_out)
 
 
 def dwt2d(x, fb):
@@ -107,6 +137,29 @@ def waverec2(coeffs, fb, shape):
     for lev in range(levels, 0, -1):
         h, v, d = coeffs[lev]
         a = idwt2d(a, h, v, d, fb, sizes[lev - 1])
+    return a
+
+
+def wavedec1(x, fb, levels: int):
+    """Multi-level (batched) 1D forward transform along the last axis."""
+    a = x
+    details = []
+    for _ in range(levels):
+        a, d = dwt1d(a, fb)
+        details.append(d)
+    return [a] + details
+
+
+def waverec1(coeffs, fb, n: int):
+    """Multi-level (batched) 1D inverse along the last axis; ``n`` is the
+    signal length, per-level lengths follow the div2 chain."""
+    levels = len(coeffs) - 1
+    sizes = [n]
+    for _ in range(levels):
+        sizes.append(div2(sizes[-1]))
+    a = coeffs[0]
+    for lev in range(levels, 0, -1):
+        a = idwt1d(a, coeffs[lev], fb, sizes[lev - 1])
     return a
 
 

@@ -1,4 +1,6 @@
-// Shared pieces of the separable 2D DWT level kernels (dwt2d.cu, idwt2d.cu).
+// Shared pieces of the level kernels: the 2D DWT pair (dwt2d.cu,
+// idwt2d.cu), the 1D DWT pair (dwt1d.cu, idwt1d.cu) and the 1D stationary
+// pair (swt1d.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -7,6 +9,7 @@ namespace pypwt {
 
 // MAX_FILTER_WIDTH of the filter registry (pypwt_tpu_torch/filters).
 constexpr int kMaxTaps = 40;
+constexpr int kHalfTaps = kMaxTaps / 2;
 constexpr int kThreads = 256;
 
 // The bank's two filters of one direction, float32, passed to the kernel by
@@ -31,6 +34,54 @@ __device__ __forceinline__ int wrap(int k, int n) {
   if (static_cast<unsigned>(k) < static_cast<unsigned>(n)) return k;
   k %= n;
   return k < 0 ? k + n : k;
+}
+
+// Decimating analysis, one axis (conv.analysis_pads / analysis_core):
+//   out[i] = sum_{j < hlen} dec[hlen-1-j] * x[(2i + j - lpad) mod N],
+//   lpad = hlen - 1 - hlen/2.
+__host__ __device__ __forceinline__ int analysis_lpad(int hlen) {
+  return hlen - 1 - hlen / 2;
+}
+
+// f[j] = dec[hlen-1-j], the analysis taps in window order, into shared
+// memory (the caller synchronises before reading them).
+__device__ __forceinline__ void load_reversed_taps(const Taps& taps, int hlen,
+                                                   float* f_lo, float* f_hi) {
+  const int tid = threadIdx.x;
+  if (tid < hlen) {
+    f_lo[tid] = taps.lo[hlen - 1 - tid];
+    f_hi[tid] = taps.hi[hlen - 1 - tid];
+  }
+}
+
+// Polyphase synthesis, one axis (conv.synthesis_core, the reference's
+// separable.cu:252-287): output n = 2m + p of L coefficients is
+//   sum_{j < h2} rec_lo[tap(p, j)] * lo[(m + delta(p) + j - c) mod L]
+//              + rec_hi[tap(p, j)] * hi[(m + delta(p) + j - c) mod L],
+// with h2 = hlen/2, c = h2/2, sigma = (h2 even),
+// delta(p) = (p + sigma) >> 1, off(p) = 1 - ((p + sigma) & 1) and
+// tap(p, j) = hlen - 1 - 2j - off(p).
+struct Polyphase {
+  int h2, c, sigma;
+  __host__ __device__ explicit Polyphase(int hlen)
+      : h2(hlen >> 1), c((hlen >> 1) >> 1), sigma(((hlen >> 1) & 1) ? 0 : 1) {}
+  __host__ __device__ int delta(int p) const { return (p + sigma) >> 1; }
+  __host__ __device__ int tap(int p, int j) const {
+    return 2 * h2 - 1 - 2 * j - (1 - ((p + sigma) & 1));
+  }
+};
+
+// g[p * kHalfTaps + j] = rec[tap(p, j)] for both parities, into shared
+// memory (the caller synchronises before reading them).
+__device__ __forceinline__ void load_polyphase_taps(const Taps& taps, int hlen,
+                                                    float* g_lo, float* g_hi) {
+  const Polyphase ph(hlen);
+  const int tid = threadIdx.x;
+  if (tid < 2 * ph.h2) {
+    const int p = tid / ph.h2, j = tid - p * ph.h2;
+    g_lo[p * kHalfTaps + j] = taps.lo[ph.tap(p, j)];
+    g_hi[p * kHalfTaps + j] = taps.hi[ph.tap(p, j)];
+  }
 }
 
 }  // namespace pypwt

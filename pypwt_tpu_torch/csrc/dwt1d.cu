@@ -1,0 +1,101 @@
+// K3: one periodized batched-1D analysis level, float32.
+//
+// Replaces the TPU kernel pypwt_tpu/ops/pallas_dwt.py::dwt1d_fused
+// (_build_dwt1d, :2064), and computes the map of the folded long-signal
+// kernel ::dwt1d_long_fused (_build_dwt1d_long, :2438) on a (1, n) view.
+//
+// Map (pypwt_tpu/core/conv.py:78-118, analysis_last), for x of (R, n) with
+// even n and even hlen <= 40, each row on its own:
+//   lo[r, i] = sum_j dec_lo[hlen-1-j] * x[r, (2i + j - lpad) mod n],
+//   hi the same with dec_hi, lpad = hlen - 1 - hlen/2 (common.cuh).
+//
+// Bound: per input sample a level reads 4 bytes and writes 4 (half a lo
+// and half a hi output) and does hlen FMAs: hlen/4 flop per byte, under the
+// H100's float32 ridge of ~20 flop per byte (67 TFLOP/s over 3.35 TB/s)
+// for every hlen <= 40, so memory-bound.
+//
+// Design: the grid is one flat axis of (row, tile) pairs, so a single
+// signal of 4 Mi samples and a 2048 x 2048 stack both give thousands of
+// blocks (grid y and z, limited to 65535, are not used). Each block owns TC
+// outputs of one row; it stages its input window (2 TC + hlen - 2 samples,
+// with a true periodic wrap, and an in-range fast path) into shared memory
+// once, split into even and odd samples so that the decimating taps read
+// consecutive words (no bank conflicts), as K1 does along its last axis.
+// Row offsets are 64-bit.
+
+#include "common.cuh"
+
+namespace pypwt {
+namespace {
+
+constexpr int TC = 1024;  // outputs per block
+constexpr int kWinHalf = TC + kHalfTaps;  // window samples of one parity
+
+__global__ void __launch_bounds__(kThreads)
+dwt1d_kernel(const float* __restrict__ x, float* __restrict__ a,
+             float* __restrict__ d, int n, int tiles, Taps taps, int hlen) {
+  extern __shared__ float smem[];
+  float* s_ev = smem;             // [kWinHalf] even window samples
+  float* s_od = s_ev + kWinHalf;  // [kWinHalf] odd window samples
+  float* f_lo = s_od + kWinHalf;  // reversed taps: f[j] = dec[hlen-1-j]
+  float* f_hi = f_lo + kMaxTaps;
+
+  const int tid = threadIdx.x;
+  const int row = blockIdx.x / tiles;
+  const int c0 = (blockIdx.x - row * tiles) * TC;
+  const int len = n >> 1;
+  const int cnt = min(TC, len - c0);    // outputs of this block
+  const int wc = 2 * (cnt + hlen / 2 - 1);  // window samples
+  const int col0 = 2 * c0 - analysis_lpad(hlen);
+  const float* xr = x + static_cast<long long>(row) * n;
+
+  load_reversed_taps(taps, hlen, f_lo, f_hi);
+  if (col0 >= 0 && col0 + wc <= n) {
+    for (int i = tid; i < wc; i += kThreads)
+      (i & 1 ? s_od : s_ev)[i >> 1] = xr[col0 + i];
+  } else {
+    for (int i = tid; i < wc; i += kThreads)
+      (i & 1 ? s_od : s_ev)[i >> 1] = xr[wrap(col0 + i, n)];
+  }
+  __syncthreads();
+
+  // Window sample 2i + j feeds output i.
+  const long long ob = static_cast<long long>(row) * len + c0;
+  for (int i = tid; i < cnt; i += kThreads) {
+    const float* ev = s_ev + i;
+    const float* od = s_od + i;
+    float lo = 0.f, hi = 0.f;
+    for (int j = 0; j < hlen; j += 2) {
+      const float e = ev[j >> 1], o = od[j >> 1];
+      lo = fmaf(e, f_lo[j], lo);
+      hi = fmaf(e, f_hi[j], hi);
+      lo = fmaf(o, f_lo[j + 1], lo);
+      hi = fmaf(o, f_hi[j + 1], hi);
+    }
+    a[ob + i] = lo;
+    d[ob + i] = hi;
+  }
+}
+
+}  // namespace
+}  // namespace pypwt
+
+// Returns a cudaError_t; launches on `stream`, does not synchronise and
+// allocates nothing. dec_lo/dec_hi are host arrays of hlen floats.
+extern "C" int pypwt_dwt1d(const float* x, float* a, float* d, int rows,
+                           int n, const float* dec_lo, const float* dec_hi,
+                           int hlen, int device, void* stream) {
+  using namespace pypwt;
+  const int tiles = (n / 2 + TC - 1) / TC;
+  if (hlen < 2 || hlen > kMaxTaps || (hlen & 1) || n < 2 || (n & 1) ||
+      n > 0x3fffffff || rows < 1 ||
+      static_cast<long long>(rows) * tiles > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = sizeof(float) * (2 * kWinHalf + 2 * kMaxTaps);
+  dwt1d_kernel<<<rows * tiles, kThreads, smem,
+                 static_cast<cudaStream_t>(stream)>>>(
+      x, a, d, n, tiles, make_taps(dec_lo, dec_hi, hlen), hlen);
+  return static_cast<int>(cudaGetLastError());
+}

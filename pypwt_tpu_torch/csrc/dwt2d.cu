@@ -58,14 +58,11 @@ dwt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
   const int tid = threadIdx.x;
   const int lr = nr >> 1, lc = nc >> 1;
   const int r0 = blockIdx.y * TR, c0 = blockIdx.x * TC;
-  const int lpad = hlen - 1 - hlen / 2;
+  const int lpad = analysis_lpad(hlen);
   const float* xb = x + static_cast<long long>(blockIdx.z) * nr * nc;
   const long long ob = static_cast<long long>(blockIdx.z) * lr * lc;
 
-  if (tid < hlen) {
-    f_lo[tid] = taps.lo[hlen - 1 - tid];
-    f_hi[tid] = taps.hi[hlen - 1 - tid];
-  }
+  load_reversed_taps(taps, hlen, f_lo, f_hi);
   const int row0 = 2 * r0 - lpad, col0 = 2 * c0 - lpad;
   for (int i = tid; i < wr * wc; i += kThreads) {
     const int r = i / wc, c = i - r * wc;

@@ -35,11 +35,10 @@ namespace {
 
 constexpr int TR = 32;  // coefficient rows per block (2TR output rows)
 constexpr int TC = 32;  // coefficient columns per block (2TC output columns)
-constexpr int kHalf = kMaxTaps / 2;
 
 inline size_t smem_bytes(int hlen) {
   const size_t h2 = hlen / 2, wr = TR + h2, ww = TC + h2;
-  return sizeof(float) * (4 * wr * ww + 2 * (2 * TR) * ww + 4 * kHalf);
+  return sizeof(float) * (4 * wr * ww + 2 * (2 * TR) * ww + 4 * kHalfTaps);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -47,7 +46,8 @@ idwt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
               const float* __restrict__ v, const float* __restrict__ d,
               float* __restrict__ out, int lr, int lc, Taps taps, int hlen) {
   extern __shared__ float smem[];
-  const int h2 = hlen >> 1, c = h2 >> 1, sigma = (h2 & 1) ? 0 : 1;
+  const Polyphase ph(hlen);
+  const int h2 = ph.h2, c = ph.c;
   const int wr = TR + h2, ww = TC + h2;
   float* s_a = smem;               // [wr][ww] coefficient windows
   float* s_h = s_a + wr * ww;
@@ -55,8 +55,8 @@ idwt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
   float* s_d = s_v + wr * ww;
   float* t1 = s_d + wr * ww;       // [2TR][ww] axis -2 synthesis of (a, h)
   float* t2 = t1 + 2 * TR * ww;    // [2TR][ww] axis -2 synthesis of (v, d)
-  float* g_lo = t2 + 2 * TR * ww;  // [2][kHalf] polyphase taps per parity
-  float* g_hi = g_lo + 2 * kHalf;
+  float* g_lo = t2 + 2 * TR * ww;  // [2][kHalfTaps] polyphase taps per parity
+  float* g_hi = g_lo + 2 * kHalfTaps;
 
   const int tid = threadIdx.x;
   const int nr = 2 * lr, nc = 2 * lc;
@@ -64,12 +64,7 @@ idwt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
   const long long ib = static_cast<long long>(blockIdx.z) * lr * lc;
   const long long obase = static_cast<long long>(blockIdx.z) * nr * nc;
 
-  if (tid < 2 * h2) {
-    const int p = tid / h2, j = tid - p * h2;
-    const int off = 1 - ((p + sigma) & 1);
-    g_lo[p * kHalf + j] = taps.lo[hlen - 1 - 2 * j - off];
-    g_hi[p * kHalf + j] = taps.hi[hlen - 1 - 2 * j - off];
-  }
+  load_polyphase_taps(taps, hlen, g_lo, g_hi);
   // window origin: coefficient (r0 - c, c0 - c)
   for (int i = tid; i < wr * ww; i += kThreads) {
     const int r = i / ww, q = i - r * ww;
@@ -86,9 +81,9 @@ idwt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
   for (int i = tid; i < 2 * TR * ww; i += kThreads) {
     const int q = i / ww, w = i - q * ww;
     const int p = q & 1;
-    const int base = ((q >> 1) + ((p + sigma) >> 1)) * ww + w;
-    const float* gl = g_lo + p * kHalf;
-    const float* gh = g_hi + p * kHalf;
+    const int base = ((q >> 1) + ph.delta(p)) * ww + w;
+    const float* gl = g_lo + p * kHalfTaps;
+    const float* gh = g_hi + p * kHalfTaps;
     float x1 = 0.f, x2 = 0.f;
     for (int j = 0; j < h2; ++j) {
       const int k = base + j * ww;
@@ -108,9 +103,9 @@ idwt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
     const int orow = 2 * r0 + q, ocol = 2 * c0 + n;
     if (orow >= nr || ocol >= nc) continue;
     const int p = n & 1;
-    const int base = q * ww + (n >> 1) + ((p + sigma) >> 1);
-    const float* gl = g_lo + p * kHalf;
-    const float* gh = g_hi + p * kHalf;
+    const int base = q * ww + (n >> 1) + ph.delta(p);
+    const float* gl = g_lo + p * kHalfTaps;
+    const float* gh = g_hi + p * kHalfTaps;
     float s = 0.f;
     for (int j = 0; j < h2; ++j) {
       s = fmaf(t1[base + j], gl[j], s);

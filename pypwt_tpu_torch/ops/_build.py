@@ -1,9 +1,9 @@
 """Build and load the hand-written CUDA level kernels.
 
 The sources in ``pypwt_tpu_torch/csrc/`` are compiled by ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface,
-loaded with ``ctypes``.  No PyTorch headers are involved, so a build takes
-seconds.  The library lands in the git-ignored ``pypwt_tpu_torch/_build/``
+Hopper (``sm_90a``), one process per source, all started together, and
+linked into one shared library with a plain C interface, loaded with
+``ctypes``.  No PyTorch headers are involved, so a build takes seconds.  The library lands in the git-ignored ``pypwt_tpu_torch/_build/``
 under a name keyed on a hash of the sources and flags; a later process
 with the same sources loads it without compiling.
 
@@ -27,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-O3", "-Xcompiler", "-fPIC",
               # register / shared-memory report of each kernel, kept in
               # build_log (no effect on the code generated)
               "-Xptxas", "-v")
@@ -41,6 +41,14 @@ _SIGNATURES = {
     "pypwt_dwt2d": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P],
     # a, h, v, d, out, batch, lr, lc, rec_lo, rec_hi, hlen, device, stream
     "pypwt_idwt2d": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P],
+    # x, a, d, rows, n, dec_lo, dec_hi, hlen, device, stream
+    "pypwt_dwt1d": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P],
+    # a, d, out, rows, len, rec_lo, rec_hi, hlen, device, stream
+    "pypwt_idwt1d": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P],
+    # x, a, d, rows, n, level, dec_lo, dec_hi, hlen, device, stream
+    "pypwt_swt1d": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P],
+    # a, d, out, rows, n, level, rec_lo, rec_hi, hlen, device, stream
+    "pypwt_iswt1d": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P],
 }
 
 _lib = None
@@ -82,23 +90,35 @@ def library_path() -> Path:
 def _compile(out: Path):
     global build_seconds, build_log
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    nvcc = _nvcc()
-    cmd = [nvcc or "nvcc", *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources())]
-    if nvcc is None:
+    nvcc = _nvcc() or "nvcc"
+    objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in sources()]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                for s, o in zip(sources(), objs)]
+    link = [nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objs)]
+    if _nvcc() is None:
         raise RuntimeError(
             "nvcc not found (PATH, CUDA_HOME): cannot build the CUDA "
-            "kernels; tried: " + " ".join(cmd))
+            "kernels; tried: " + " ".join(compiles[0]))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {res.returncode}): {' '.join(cmd)}\n"
-            + build_log)
-    os.replace(tmp, out)
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        logs = [p.communicate()[0] for p in procs]
+        build_log = "".join(logs)
+        runs = [(cmd, p.returncode, log)
+                for cmd, p, log in zip(compiles, procs, logs)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        runs.append((link, res.returncode, res.stdout + res.stderr))
+        for cmd, rc, log in runs:
+            if rc != 0:
+                raise RuntimeError(
+                    f"nvcc failed (exit {rc}): {' '.join(cmd)}\n{log}")
+        os.replace(tmp, out)
+    finally:
+        for o in (tmp, *objs):
+            o.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
 
 

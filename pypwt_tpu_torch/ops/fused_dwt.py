@@ -1,12 +1,25 @@
-"""Separable 2D DWT level kernels K1/K2: wrappers, plain versions, counts.
+"""The DWT and SWT level kernels: wrappers, plain versions, counts.
 
-K1 (``csrc/dwt2d.cu``) is one analysis level and replaces
-``pypwt_tpu/ops/pallas_dwt.py::dwt2d_fused``; K2 (``csrc/idwt2d.cu``) is
-one synthesis level and replaces ``::idwt2d_fused``.  Beside each kernel:
+Each kernel replaces a TPU kernel of ``pypwt_tpu/ops/pallas_dwt.py``:
 
-* its plain PyTorch version (``dwt2d_plain``/``idwt2d_plain``): the
-  ``core.conv`` primitives composed for one level, exactly as the JAX
-  package's ``core/dwt.py`` fallback composes them;
+* K1 ``dwt2d_fused`` (``csrc/dwt2d.cu``): one separable 2D analysis level
+  (``::dwt2d_fused``); K2 ``idwt2d_fused`` (``csrc/idwt2d.cu``): one 2D
+  synthesis level (``::idwt2d_fused``);
+* K3 ``dwt1d_fused`` (``csrc/dwt1d.cu``) and K4 ``idwt1d_fused``
+  (``csrc/idwt1d.cu``): one batched-1D analysis / synthesis level
+  (``::dwt1d_fused``, ``::idwt1d_fused``);
+* K10a ``swt1d_fused`` and K10b ``iswt1d_fused`` (``csrc/swt1d.cu``): one
+  batched-1D stationary level and its inverse (``::swt1d_level_fused``,
+  ``::iswt1d_level_fused``).
+
+The 1D kernels take rows ``(R, n)`` or one signal ``(n,)``, which they
+view as ``(1, n)``: that also covers the TPU's folded long-signal kernels
+(``::dwt1d_long_fused`` and its kin), whose folding only fixed the TPU's
+lane layout.  Beside each kernel:
+
+* its plain PyTorch version (``*_plain``): the ``core.conv`` primitives
+  composed for one level, exactly as the JAX package's ``core/dwt.py`` and
+  ``core/swt.py`` fallbacks compose them;
 * ``*_unsupported``, which says before launch, from dtype, rank, shape and
   bank, why the kernel cannot take a call (None if it can) -- the port's
   form of the JAX wrappers returning None;
@@ -183,12 +196,205 @@ def idwt2d_fused(a, h, v, d, fb, out_shape):
     return out
 
 
-dwt2d_fused.launches = 0
-dwt2d_fused.declined = 0
-idwt2d_fused.launches = 0
-idwt2d_fused.declined = 0
+# -- batched-1D levels: K3, K4, K10a, K10b --------------------------------
 
-KERNELS = (dwt2d_fused, idwt2d_fused)
+_TILE_1D = 1024  # per block: K3/K10 outputs, K4 coefficients (csrc/*1d.cu)
+_MAX_SAMPLES = 1 << 30  # samples per row: int indices in the kernels
+_MAX_BLOCKS = (1 << 31) - 1  # grid x limit: (row, tile) pairs
+
+
+def dwt1d_plain(x, fb):
+    """One analysis level along the last axis in torch ops -> (a, d)."""
+    return conv.analysis_last(x, fb.dec_lo, fb.dec_hi)
+
+
+def idwt1d_plain(a, d, fb, n_out):
+    """One synthesis level along the last axis in torch ops -> n_out
+    samples per row."""
+    return conv.synthesis_last(a, d, fb.rec_lo, fb.rec_hi, n_out)
+
+
+def swt1d_plain(x, fb, level):
+    """One stationary analysis level along the last axis -> (a, d)."""
+    return conv.swt_analysis_last(x, fb.dec_lo, fb.dec_hi, level)
+
+
+def iswt1d_plain(a, d, fb, level):
+    """One stationary synthesis level along the last axis."""
+    return conv.swt_synthesis_last(a, d, fb.rec_lo, fb.rec_hi, level)
+
+
+def _rows(t):
+    return t.shape[0] if t.ndim == 2 else 1
+
+
+def _rows_unsupported(t, what, tile=_TILE_1D):
+    """Why rows ``t`` (``(R, n)`` or ``(n,)``) cannot go to a 1D kernel
+    whose blocks each cover ``tile`` samples of a row, or None."""
+    if t.dtype != torch.float32:
+        return f"{what} dtype {t.dtype} (float32 only)"
+    if t.ndim not in (1, 2):
+        return f"{what} rank {t.ndim} (1 or 2)"
+    n = t.shape[-1]
+    if n < 1 or _rows(t) < 1:
+        return f"empty {what}"
+    if n >= _MAX_SAMPLES:
+        return f"{n} samples per row (below {_MAX_SAMPLES})"
+    if _rows(t) * -(-n // tile) > _MAX_BLOCKS:
+        return f"{_rows(t)} rows (too many tiles for the grid)"
+    return None
+
+
+def _pair_unsupported(a, d):
+    if a.shape != d.shape:
+        return "coefficients of different shapes"
+    if a.dtype != d.dtype:
+        return "coefficients of different dtypes"
+    if a.device != d.device:
+        return "coefficients on different devices"
+    return None
+
+
+def _level_unsupported(level):
+    if level < 1:
+        return f"level {level} (1 or more)"
+    return None
+
+
+def dwt1d_unsupported(x, fb):
+    """Why K3 cannot take ``x`` with bank ``fb``, or None if it can."""
+    why = _rows_unsupported(x, "input", 2 * _TILE_1D) or _bank_unsupported(fb)
+    if why:
+        return why
+    if x.shape[-1] % 2:
+        return f"length {x.shape[-1]} (even lengths only)"
+    return None
+
+
+def idwt1d_unsupported(a, d, fb, n_out):
+    """Why K4 cannot take these coefficients, or None if it can."""
+    why = (_rows_unsupported(a, "coefficient") or _pair_unsupported(a, d)
+           or _bank_unsupported(fb))
+    if why:
+        return why
+    if n_out != 2 * a.shape[-1]:
+        return (f"output length {n_out} is not twice the {a.shape[-1]} "
+                "coefficients (odd-size level)")
+    return None
+
+
+def _swt_bank_unsupported(fb):
+    if not 1 <= fb.hlen <= MAX_FILTER_WIDTH:
+        return f"filter length {fb.hlen} (1..{MAX_FILTER_WIDTH})"
+    return None
+
+
+def swt1d_unsupported(x, fb, level):
+    """Why K10a cannot take ``x`` at ``level``, or None if it can."""
+    return (_rows_unsupported(x, "input") or _swt_bank_unsupported(fb)
+            or _level_unsupported(level))
+
+
+def iswt1d_unsupported(a, d, fb, level):
+    """Why K10b cannot take these coefficients, or None if it can."""
+    return (_rows_unsupported(a, "coefficient") or _pair_unsupported(a, d)
+            or _swt_bank_unsupported(fb) or _level_unsupported(level))
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dwt1d_fused(x, fb):
+    """K3: one batched-1D analysis level -> (a, d), each ``(R?, n/2)``.
+    CPU tensor: the plain version."""
+    if x.device.type == "cpu":
+        return dwt1d_plain(x, fb)
+    _require(x.is_cuda, "K3 (dwt1d)", f"device {x.device}")
+    why = dwt1d_unsupported(x, fb)
+    _require(why is None, "K3 (dwt1d)", why)
+    _require(x.is_contiguous(), "K3 (dwt1d)", "non-contiguous input")
+    lib = _build.load_library()
+    n = x.shape[-1]
+    shape = (*x.shape[:-1], n // 2)
+    a, d = (torch.empty(shape, dtype=x.dtype, device=x.device)
+            for _ in range(2))
+    lo, hi = _host_taps(fb.dec_lo), _host_taps(fb.dec_hi)
+    err = lib.pypwt_dwt1d(x.data_ptr(), a.data_ptr(), d.data_ptr(), _rows(x),
+                          n, lo.ctypes.data, hi.ctypes.data, fb.hlen,
+                          x.device.index, _stream(x))
+    _check_launch(lib, err, "K3 (dwt1d)")
+    dwt1d_fused.launches += 1
+    return a, d
+
+
+def idwt1d_fused(a, d, fb, n_out):
+    """K4: one batched-1D synthesis level -> ``(R?, n_out)``.  CPU
+    tensors: the plain version."""
+    if a.device.type == "cpu":
+        return idwt1d_plain(a, d, fb, n_out)
+    _require(a.is_cuda, "K4 (idwt1d)", f"device {a.device}")
+    why = idwt1d_unsupported(a, d, fb, n_out)
+    _require(why is None, "K4 (idwt1d)", why)
+    _require(a.is_contiguous() and d.is_contiguous(), "K4 (idwt1d)",
+             "non-contiguous input")
+    lib = _build.load_library()
+    length = a.shape[-1]
+    out = torch.empty((*a.shape[:-1], 2 * length), dtype=a.dtype,
+                      device=a.device)
+    lo, hi = _host_taps(fb.rec_lo), _host_taps(fb.rec_hi)
+    err = lib.pypwt_idwt1d(a.data_ptr(), d.data_ptr(), out.data_ptr(),
+                           _rows(a), length, lo.ctypes.data, hi.ctypes.data,
+                           fb.hlen, a.device.index, _stream(a))
+    _check_launch(lib, err, "K4 (idwt1d)")
+    idwt1d_fused.launches += 1
+    return out
+
+
+def swt1d_fused(x, fb, level):
+    """K10a: one batched-1D stationary analysis level -> (a, d), each of
+    the input's shape.  CPU tensor: the plain version."""
+    if x.device.type == "cpu":
+        return swt1d_plain(x, fb, level)
+    _require(x.is_cuda, "K10a (swt1d)", f"device {x.device}")
+    why = swt1d_unsupported(x, fb, level)
+    _require(why is None, "K10a (swt1d)", why)
+    _require(x.is_contiguous(), "K10a (swt1d)", "non-contiguous input")
+    lib = _build.load_library()
+    a, d = torch.empty_like(x), torch.empty_like(x)
+    lo, hi = _host_taps(fb.dec_lo), _host_taps(fb.dec_hi)
+    err = lib.pypwt_swt1d(x.data_ptr(), a.data_ptr(), d.data_ptr(), _rows(x),
+                          x.shape[-1], level, lo.ctypes.data, hi.ctypes.data,
+                          fb.hlen, x.device.index, _stream(x))
+    _check_launch(lib, err, "K10a (swt1d)")
+    swt1d_fused.launches += 1
+    return a, d
+
+
+def iswt1d_fused(a, d, fb, level):
+    """K10b: one batched-1D stationary synthesis level -> the
+    coefficients' shape.  CPU tensors: the plain version."""
+    if a.device.type == "cpu":
+        return iswt1d_plain(a, d, fb, level)
+    _require(a.is_cuda, "K10b (iswt1d)", f"device {a.device}")
+    why = iswt1d_unsupported(a, d, fb, level)
+    _require(why is None, "K10b (iswt1d)", why)
+    _require(a.is_contiguous() and d.is_contiguous(), "K10b (iswt1d)",
+             "non-contiguous input")
+    lib = _build.load_library()
+    out = torch.empty_like(a)
+    lo, hi = _host_taps(fb.rec_lo), _host_taps(fb.rec_hi)
+    err = lib.pypwt_iswt1d(a.data_ptr(), d.data_ptr(), out.data_ptr(),
+                           _rows(a), a.shape[-1], level, lo.ctypes.data,
+                           hi.ctypes.data, fb.hlen, a.device.index,
+                           _stream(a))
+    _check_launch(lib, err, "K10b (iswt1d)")
+    iswt1d_fused.launches += 1
+    return out
+
+
+KERNELS = (dwt2d_fused, idwt2d_fused, dwt1d_fused, idwt1d_fused,
+           swt1d_fused, iswt1d_fused)
 
 
 def reset_counts():
@@ -196,3 +402,6 @@ def reset_counts():
     for k in KERNELS:
         k.launches = 0
         k.declined = 0
+
+
+reset_counts()
