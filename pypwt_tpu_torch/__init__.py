@@ -5,10 +5,12 @@ The port of ``pypwt_tpu`` (JAX/Pallas on TPU), which stays beside it as
 the reference.  Ported so far: the separable, decimated multi-level 2D
 DWT and its inverse (``core.dwt``, ``core.haar``) with its two level
 kernels K1/K2; the 1D and batched-1D DWT (``core.dwt``, ``core.haar``)
-with K3/K4 and the 1D and batched-1D stationary transform (``core.swt``)
-with K10a/K10b (all in ``ops.fused_dwt``, sources in ``csrc/``); the
-threshold operators (``core.thresh``); and the ``Wavelets`` class for
-those transforms.  This
+with K3/K4; the stationary transform (``core.swt``), 1D and batched-1D
+with K10a/K10b and 2D with K8/K9 (all in ``ops.fused_dwt``); the
+non-separable 2D transforms (``core.nonsep``), whose stationary levels run
+on K18a/K18b (``ops.nonsep``; sources in ``csrc/``); the threshold
+operators (``core.thresh``); and the ``Wavelets`` class for all of
+them.  This
 package imports neither jax nor pypwt_tpu, and builds its kernels at their
 first launch, never at import.
 
@@ -27,7 +29,8 @@ from .api import Wavelets  # noqa: F401
 from .filters import FilterBank, get_filter_bank, wavelist  # noqa: F401
 from .version import __version__  # noqa: F401
 from . import core  # noqa: F401
-from .core import conv, dwt, haar, shapes, swt, thresh  # noqa: F401
+from .core import conv, dwt, haar, nonsep, shapes, swt, thresh  # noqa: F401
+from . import ops  # noqa: F401
 
 __all__ = [
     "Wavelets",

@@ -1,20 +1,22 @@
-"""Reference-compatible ``Wavelets`` class on PyTorch (the separable DWT
-and the 1D SWT of ``pypwt_tpu.api``).
+"""Reference-compatible ``Wavelets`` class on PyTorch (the port of
+``pypwt_tpu.api``).
 
 Mirrors the Cython class (src/pypwt.pyx:64-615) and the C++ plan object
 (pdwt/src/wt.cu:84-305): the constructor puts the image on ``device``,
 ``forward()``/``inverse()`` run the level loops of ``core.dwt``,
-``core.haar`` and ``core.swt`` (on a CUDA device through the level kernels:
-K1/K2 in 2D, K3/K4 for the 1D DWT, K10 for the 1D SWT), coefficients live
-on the device and are copied back on access, and the reference's state
-machine (coefficients are declared invalid after ``inverse()``) is kept.
+``core.haar``, ``core.swt`` and ``core.nonsep`` (on a CUDA device through
+the level kernels: K1/K2 for the 2D DWT, K8/K9 for the 2D SWT, K3/K4 for
+the 1D DWT, K10 for the 1D SWT, K18a/K18b for the non-separable SWT of a
+custom 2D bank), coefficients live on the device and are copied back on
+access, and the reference's state machine (coefficients are declared
+invalid after ``inverse()``) is kept.
 
-Ported so far: the separable, decimated 2D transform, and every 1D plan --
-one signal, or the rows of a 2D image with ``ndim=1`` (batched 1D), DWT or
-SWT -- with any of the 72 banks or a custom separable bank; thresholds,
-norms, ``add_wavelet`` and cycle spinning.  The 2D SWT and the
-non-separable 2D transform raise ``NotImplementedError`` naming the
-ROADMAP.md item that brings them.
+Every plan is ported: 2D, batched 1D (``ndim=1``) and one signal, DWT or
+SWT, separable or not (``do_separable=0``, 2D only), with any of the 72
+banks, a custom separable bank or a custom 2D bank; thresholds, norms,
+``add_wavelet`` and cycle spinning.  One mode has no CUDA kernel yet: the
+non-separable DWT of a custom 2D bank that does not factor (K16/K17) raises
+``NotImplementedError`` on a CUDA device.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from .filters import FilterBank, MAX_FILTER_WIDTH, get_filter_bank
-from .core import dwt, haar, swt, thresh
+from .core import dwt, haar, nonsep, swt, thresh
 from .core.shapes import clamp_levels, div2, level_shapes_1d, level_shapes_2d
 from .version import __version__
 
@@ -34,12 +36,6 @@ W_INVERSE = "INVERSE"
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.float64): torch.float64}
-
-
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to pypwt_tpu_torch yet (ROADMAP.md queue 1: "
-        f"{item}); pypwt_tpu.Wavelets has it")
 
 
 class Wavelets:
@@ -82,19 +78,16 @@ class Wavelets:
 
         if self._eff_ndim == 1:
             do_separable = 1  # wt.cu:138-142
-        elif do_swt:
-            raise _not_ported("The 2D stationary transform (do_swt=1 on a "
-                              "2D image)", "'2D SWT (K8, K9, K11)'")
-        if not do_separable:
-            raise _not_ported("The non-separable transform (do_separable=0)",
-                              "'core/nonsep.py'")
 
         self.wname = wname
-        self.do_separable = 1
+        self.do_separable = int(bool(do_separable))
         self.do_cycle_spinning = int(bool(do_cycle_spinning))
         self.do_swt = int(bool(do_swt))
 
         self._fb = get_filter_bank(wname)
+        # the non-separable plan's 2D bank (pypwt_tpu/api.py:180-182)
+        self._f2d = (None if self.do_separable
+                     else nonsep.Filters2D.from_bank(self._fb))
         self.hlen = self._fb.hlen
         self.levels = clamp_levels(int(levels), (self.Nr, self.Nc),
                                    self._fb.hlen, self._eff_ndim)
@@ -167,8 +160,9 @@ class Wavelets:
     def _use_haar(self):
         # the butterfly serves the decimated transform only
         # (pypwt_tpu/api.py:58, wt.cu:248, :255); a haar SWT runs the
-        # a-trous levels
-        return self._fb.hlen == 2 and not self.do_swt
+        # a-trous levels; a custom 2D bank (no 1D bank) never takes it
+        return (self._fb is not None and self._fb.hlen == 2
+                and not self.do_swt)
 
     def _forward_pyramid(self, x):
         fb, levels = self._fb, self.levels
@@ -180,6 +174,12 @@ class Wavelets:
             return dwt.wavedec1(x, fb, levels)
         if self._use_haar():
             return haar.haar_wavedec2(x, levels)
+        if not self.do_separable:
+            if self.do_swt:
+                return nonsep.ns_swt2d(x, self._f2d, levels)
+            return nonsep.ns_wavedec2(x, self._f2d, levels)
+        if self.do_swt:
+            return swt.swt2d(x, fb, levels)
         return dwt.wavedec2(x, fb, levels)
 
     def _inverse_pyramid(self, coeffs):
@@ -192,6 +192,12 @@ class Wavelets:
             return dwt.waverec1(coeffs, fb, self.Nc)
         if self._use_haar():
             return haar.haar_waverec2(coeffs, self.shape)
+        if not self.do_separable:
+            if self.do_swt:
+                return nonsep.ins_swt2d(coeffs, self._f2d)
+            return nonsep.ns_waverec2(coeffs, self._f2d, self.shape)
+        if self.do_swt:
+            return swt.iswt2d(coeffs, fb)
         return dwt.waverec2(coeffs, fb, self.shape)
 
     # ------------------------------------------------------------------
@@ -396,17 +402,39 @@ class Wavelets:
     # ------------------------------------------------------------------
 
     def set_wavelets_filters(self, filter_name, lowpass, highpass,
-                             i_lowpass, i_highpass):
-        """Install a custom separable filter bank (pypwt.pyx:487-576):
-        four 1D arrays (dec_lo, dec_hi, rec_lo, rec_hi)."""
+                             i_lowpass, i_highpass, LH=None, HL=None,
+                             i_LH=None, i_HL=None):
+        """Install a custom filter bank (pypwt.pyx:487-576).
+
+        Separable: four 1D arrays (dec_lo, dec_hi, rec_lo, rec_hi).
+        Non-separable: lowpass/highpass are the LL/HH 2D filters plus the
+        LH/HL ones (and their inverses), all squares of one size.
+        """
         lowpass = np.asarray(lowpass, dtype=np.float64)
-        if any(len(a) != len(lowpass)
-               for a in (highpass, i_lowpass, i_highpass)):
+        arrays = [lowpass, highpass, i_lowpass, i_highpass, LH, HL, i_LH,
+                  i_HL]
+        if any(a is not None and len(a) != len(lowpass) for a in arrays):
             raise ValueError("All filters must have the same length")
         if len(lowpass) > MAX_FILTER_WIDTH:
             raise ValueError("filter too long (max %d)" % MAX_FILTER_WIDTH)
-        self._fb = FilterBank.custom(filter_name, lowpass, highpass,
-                                     i_lowpass, i_highpass)
+        if not self.do_separable and lowpass.ndim != 2:
+            raise ValueError(
+                "non-separable custom filters must be 2D square arrays "
+                "(pypwt.pyx:487-576 passes LL/LH/HL/HH planes)")
+
+        if self.do_separable:
+            self._fb = FilterBank.custom(filter_name, lowpass, highpass,
+                                         i_lowpass, i_highpass)
+        else:
+            if LH is None or HL is None or i_LH is None or i_HL is None:
+                raise ValueError(
+                    "Expected LH and HL filters for non-separable transform")
+            dec = [np.asarray(a, dtype=np.float64)
+                   for a in (lowpass, LH, HL, highpass)]
+            rec = [np.asarray(a, dtype=np.float64)
+                   for a in (i_lowpass, i_LH, i_HL, i_highpass)]
+            self._f2d = nonsep.Filters2D(dec, rec, name=filter_name)
+            self._fb = None
         self.wname = filter_name
         self.hlen = len(lowpass)
         # the reference keeps the existing plan: levels stay unchanged

@@ -67,6 +67,22 @@ def _odd_extend_last(x):
     return x
 
 
+def _pad2_periodic(x, lpad, rpad):
+    """Periodic padding of the last two axes, ``lpad``/``rpad`` on each."""
+    x = periodic_pad_last(x, lpad, rpad)
+    xt = x.transpose(-1, -2)
+    xt = periodic_pad_last(xt, lpad, rpad)
+    return xt.transpose(-1, -2)
+
+
+def _odd_extend_2d(x):
+    """``_odd_extend_last`` on each of the last two axes."""
+    x = _odd_extend_last(x)
+    xt = x.transpose(-1, -2)
+    xt = _odd_extend_last(xt)
+    return xt.transpose(-1, -2)
+
+
 def analysis_pads(hlen: int):
     """(lpad, rpad) of the periodic padding used by ``analysis_last``."""
     s = hlen // 2
@@ -167,6 +183,13 @@ def synthesis_last(lo, hi, rec_lo, rec_hi, n_out: int):
     return synthesis_core(lop, hip, rec_lo, rec_hi, n_out, L, lpad)
 
 
+def swt_centre(hlen: int, inverse: bool) -> int:
+    """The a-trous centre s: tap k reads sample i + (s - k) * 2^(level-1).
+    hlen//2 in analysis; in synthesis hlen//2 - 1 for even hlen, hlen//2 for
+    odd.  The stationary kernels (K8/K9, K18a/K18b) take it from here."""
+    return hlen // 2 - 1 if (inverse and hlen % 2 == 0) else hlen // 2
+
+
 def swt_analysis_last(x, dec_lo, dec_hi, level: int):
     """Single-level stationary (a-trous) analysis along the last axis.
 
@@ -176,7 +199,7 @@ def swt_analysis_last(x, dec_lo, dec_hi, level: int):
     """
     n = x.shape[-1]
     hlen = len(dec_lo)
-    s = hlen // 2
+    s = swt_centre(hlen, False)
     factor = 1 << (level - 1)
     # slice offsets are lpad + (s-k)*factor for k = 0..hlen-1
     lpad, rpad = (hlen - 1 - s) * factor, s * factor
@@ -198,7 +221,7 @@ def swt_synthesis_last(lo, hi, rec_lo, rec_hi, level: int):
     reference's 1/2 rescale of one axis (separable.cu:581-584)."""
     n = lo.shape[-1]
     hlen = len(rec_lo)
-    s = hlen // 2 - 1 if hlen % 2 == 0 else hlen // 2
+    s = swt_centre(hlen, True)
     factor = 1 << (level - 1)
     lpad = (hlen - 1 - s) * factor
     rpad = max(s, 0) * factor

@@ -13,11 +13,15 @@ Kernel routing (``set_kernels``), decided per level before launch from
 dtype, device and shape, never by catching an error:
 
 * ``"auto"`` (default): a CUDA tensor that the level's kernel (K1/K2 in
-  2D, K3/K4 in 1D, K10 for ``core.swt``) covers launches it; an uncovered level on a CUDA tensor (odd size, float64, ...)
+  2D, K3/K4 in 1D, K10 and K8/K9 for ``core.swt``, K18a/K18b for
+  ``core.nonsep``) covers launches it; a CPU tensor runs the plain
+  version.  An uncovered level on a CUDA tensor (odd size, float64, ...)
   runs the plain torch version on the same device and adds one to the
-  kernel's ``declined`` count; a CPU tensor runs the plain version.
+  kernel's ``declined`` count for K1-K4 and K10; the 2D stationary kernels
+  K8/K9 and K18a/K18b take every float32 level and never decline: there
+  an uncovered level (float64, ...) raises.
 * ``"cuda"``: the kernel, or an error (CPU tensor, uncovered level).
-* ``"torch"``: always the plain version.
+* ``"torch"``: always the plain version, on the tensor's device.
 """
 
 from __future__ import annotations
@@ -41,9 +45,11 @@ def set_kernels(mode: str):
     _KERNEL_MODE = mode
 
 
-def _route(kernel, tensor, why):
+def _route(kernel, tensor, why, strict=False):
     """True if ``kernel`` takes this level.  ``why`` is the kernel's
-    reason to refuse the call (None if it covers it)."""
+    reason to refuse the call (None if it covers it).  A ``strict`` kernel
+    never declines: an uncovered level on a CUDA tensor raises, unless
+    kernel mode ``"torch"`` asks for the plain version."""
     if _KERNEL_MODE == "torch":
         return False
     if not tensor.is_cuda:
@@ -56,6 +62,10 @@ def _route(kernel, tensor, why):
         return True
     if _KERNEL_MODE == "cuda":
         raise ValueError(f"kernel mode 'cuda': kernel does not cover {why}")
+    if strict:
+        raise ValueError(
+            f"{kernel.__name__}: the CUDA kernel does not cover {why}; "
+            "set_kernels('torch') runs the plain version on the device")
     kernel.declined += 1
     return False
 

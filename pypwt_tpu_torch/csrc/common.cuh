@@ -1,9 +1,12 @@
 // Shared pieces of the level kernels: the 2D DWT pair (dwt2d.cu,
-// idwt2d.cu), the 1D DWT pair (dwt1d.cu, idwt1d.cu) and the 1D stationary
-// pair (swt1d.cu).
+// idwt2d.cu), the 1D DWT pair (dwt1d.cu, idwt1d.cu), the 1D stationary
+// pair (swt1d.cu), the 2D stationary pair (swt2d.cu) and the non-separable
+// stationary pair (nonsep_swt2d.cu).
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 namespace pypwt {
 
@@ -34,6 +37,31 @@ __device__ __forceinline__ int wrap(int k, int n) {
   if (static_cast<unsigned>(k) < static_cast<unsigned>(n)) return k;
   k %= n;
   return k < 0 ? k + n : k;
+}
+
+// Per-tap read offsets of one a-trous axis: tap k reads sample
+// i + (s - k) * 2^(level-1), here reduced mod n into [0, n) on the host, so
+// that the kernel wraps i + k[tap] once (i < n) at any level, and a wrap
+// wider than the axis costs nothing more.
+struct TapOffsets {
+  int k[kMaxTaps];
+};
+
+// 2^(level-1) mod n, exact at any level >= 1.
+inline long long dilation_mod(int level, int n) {
+  long long fm = 1 % n;
+  for (int l = 1; l < level; ++l) fm = (2 * fm) % n;
+  return fm;
+}
+
+inline TapOffsets dilated_offsets(int hlen, int s, int level, int n) {
+  TapOffsets t{};
+  const long long fm = dilation_mod(level, n);
+  for (int k = 0; k < hlen; ++k) {
+    const long long o = ((s - k) * fm) % n;
+    t.k[k] = static_cast<int>(o < 0 ? o + n : o);
+  }
+  return t;
 }
 
 // Decimating analysis, one axis (conv.analysis_pads / analysis_core):
@@ -82,6 +110,27 @@ __device__ __forceinline__ void load_polyphase_taps(const Taps& taps, int hlen,
     g_lo[p * kHalfTaps + j] = taps.lo[ph.tap(p, j)];
     g_hi[p * kHalfTaps + j] = taps.hi[ph.tap(p, j)];
   }
+}
+
+// Grid y and z hold at most 65535 blocks. The 2D stationary kernels
+// (swt2d.cu, nonsep_swt2d.cu) put column blocks on x, row blocks on y and
+// planes on z; launch_chunks issues a level with more row blocks or planes
+// than that as several launches, calling launch(grid, y0, z0) with the
+// first row block and plane of each, so no grid limit bounds a batch, a
+// plane size or a level. One launch in every other case.
+constexpr int kMaxGridYZ = 65535;
+
+template <class Launch>
+void launch_chunks(int col_blocks, int row_blocks, int planes,
+                   Launch launch) {
+  for (long long z0 = 0; z0 < planes; z0 += kMaxGridYZ)
+    for (long long y0 = 0; y0 < row_blocks; y0 += kMaxGridYZ)
+      launch(dim3(col_blocks,
+                  static_cast<unsigned>(
+                      std::min<long long>(row_blocks - y0, kMaxGridYZ)),
+                  static_cast<unsigned>(
+                      std::min<long long>(planes - z0, kMaxGridYZ))),
+             static_cast<int>(y0), static_cast<int>(z0));
 }
 
 }  // namespace pypwt

@@ -1,0 +1,297 @@
+// K8 / K9: one periodized separable 2D stationary (a-trous) level and its
+// inverse, float32.
+//
+// Replace the TPU kernels pypwt_tpu/ops/pallas_dwt.py::swt2d_level_fused
+// (_build_swt2d, :1912) and ::iswt2d_level_fused (_build_iswt2d, :2004).
+//
+// Maps (pypwt_tpu/core/swt.py:143-170 on conv.swt_analysis_last and
+// swt_synthesis_last), planes of (B?, Nr, Nc), any hlen <= 40 (odd
+// included), level l >= 1, factor f = 2^(l-1); on either axis tap k reads
+// sample i + (s - k) * f, wrapped mod the axis length, with the centre s
+// given by the caller (conv.swt_centre):
+//   K8: lo/hi along the last axis (s = hlen/2), then along axis -2:
+//       a = lo(lo), h = hi(lo), v = lo(hi), d = hi(hi),
+//       so h is the high-pass along axis -2 and the low-pass along the last
+//       axis (the names of the JAX fallback, not of the Pallas kernel's
+//       internal order);
+//   K9: out = syn_-2(syn_-1(a, v), syn_-1(h, d)) with
+//       syn(p, q)[i] = sum_k rec_lo[k]/2 * p[j] + rec_hi[k]/2 * q[j],
+//       j = i + (s - k) * f, s = hlen/2 - 1 for even hlen and hlen/2 for
+//       odd: the fallback's two axis passes in the other order (the map is
+//       linear and separable), 1/2 per pass.
+//
+// Bound: a 2048^2 level of K8 reads 16 MiB and writes 64 MiB (K9 the
+// reverse) and does 2 hlen + 4 hlen FMAs per pixel: 6 hlen / 20 flop per
+// byte, under the H100's float32 ridge of ~20 for every hlen <= 40, so the
+// kernels are bound by device memory.
+//
+// Design: the dilated support spans (hlen-1) * f samples on both axes, too
+// wide at deep levels for a staged 2D window (sym20 at level 6: 1248).
+// Along axis -2 a block therefore owns output rows of one residue class
+// mod f: rows rho + f*m for TR consecutive m. Their taps then read only
+// TR + hlen - 1 rows of the same class, at any level, and rows are separate
+// cache lines, so this costs no coalescing. Phase 1 filters those rows along
+// the last axis into shared memory: each of TC consecutive output columns
+// reads its hlen taps straight from memory through the read-only cache (a
+// warp reads 32 consecutive words per tap, at an offset reduced mod Nc on
+// the host, so any level and any wrap wider than the plane take one
+// conditional subtraction). Phase 2 filters the staged rows along axis -2
+// and writes the four subbands (K8) or the image (K9). The row-filtered
+// intermediate never leaves the SM. Where the factor reaches Nr, every row
+// is its own class. Row blocks run on the grid's y axis and planes on its z
+// axis; a level with more of either than a launch holds goes in chunks
+// (launch_chunks in common.cuh), so no grid limit bounds a batch, a plane
+// or a level. Plane offsets are 64-bit.
+
+#include <algorithm>
+
+#include "common.cuh"
+
+namespace pypwt {
+namespace {
+
+constexpr int TR = 32;  // output rows per block, of one residue class
+constexpr int TC = 32;  // output columns per block
+constexpr int kStageRows = TR + kMaxTaps - 1;
+
+// Row tiling of one level: residue classes rho < cls, output rows
+// rho + cls * m; `tr` rows per block and `tiles` blocks per class.
+struct RowPlan {
+  int cls;
+  int tr;
+  int tiles;
+  int back;       // hlen - 1 - s: staged row q serves taps with q - back
+  long long fm;   // factor mod nr
+};
+
+RowPlan row_plan(int hlen, int s, int level, int nr) {
+  RowPlan p{};
+  const bool every_row = level > 31 || (1LL << (level - 1)) >= nr;
+  p.cls = every_row ? nr : (1 << (level - 1));
+  const int per = (nr + p.cls - 1) / p.cls;  // rows of class 0, the longest
+  p.tr = std::min(TR, per);
+  p.tiles = (per + p.tr - 1) / p.tr;
+  p.back = hlen - 1 - s;
+  p.fm = dilation_mod(level, nr);
+  return p;
+}
+
+// Plane row held in staged row q of the block (rho, m0).
+__device__ __forceinline__ int staged_row(const RowPlan& p, int rho, int m0,
+                                          int q, int nr) {
+  long long r = rho + static_cast<long long>(p.cls) * m0 +
+                static_cast<long long>(q - p.back) * p.fm;
+  r %= nr;
+  return static_cast<int>(r < 0 ? r + nr : r);
+}
+
+// Last-axis sample j = col + off, wrapped once (col < nc, off < nc).
+__device__ __forceinline__ float col_tap(const float* __restrict__ row,
+                                         int col, int off, int nc) {
+  int j = col + off;
+  if (j >= nc) j -= nc;
+  return __ldg(row + j);
+}
+
+__global__ void __launch_bounds__(kThreads)
+swt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
+             float* __restrict__ h, float* __restrict__ v,
+             float* __restrict__ d, int nr, int nc, RowPlan rp, Taps taps,
+             TapOffsets coff, int hlen, unsigned y0) {
+  __shared__ float s_lo[kStageRows * TC];
+  __shared__ float s_hi[kStageRows * TC];
+  __shared__ float f_lo[kMaxTaps], f_hi[kMaxTaps];
+  __shared__ int s_off[kMaxTaps];
+  __shared__ int s_row[kStageRows];
+
+  const int tid = threadIdx.x;
+  const unsigned by = y0 + blockIdx.y;  // unsigned: the cheaper division
+  const int rho = by / rp.tiles;
+  const int m0 = (by - rho * rp.tiles) * rp.tr;
+  const int c0 = blockIdx.x * TC;
+  const int rows = rp.tr + hlen - 1;
+  const long long plane = static_cast<long long>(nr) * nc;
+  const float* xb = x + blockIdx.z * plane;
+
+  if (tid < hlen) {
+    f_lo[tid] = taps.lo[tid];
+    f_hi[tid] = taps.hi[tid];
+    s_off[tid] = coff.k[tid];
+  }
+  if (tid < rows) s_row[tid] = staged_row(rp, rho, m0, tid, nr);
+  __syncthreads();
+
+  // Phase 1, last axis, on the staged rows.
+  for (int i = tid; i < rows * TC; i += kThreads) {
+    const int q = i / TC, col = c0 + i - q * TC;
+    float lo = 0.f, hi = 0.f;
+    if (col < nc) {
+      const float* xr = xb + static_cast<long long>(s_row[q]) * nc;
+      for (int k = 0; k < hlen; ++k) {
+        const float val = col_tap(xr, col, s_off[k], nc);
+        lo = fmaf(val, f_lo[k], lo);
+        hi = fmaf(val, f_hi[k], hi);
+      }
+    }
+    s_lo[i] = lo;
+    s_hi[i] = hi;
+  }
+  __syncthreads();
+
+  // Phase 2, axis -2: output p, tap k reads staged row p + hlen - 1 - k.
+  for (int i = tid; i < rp.tr * TC; i += kThreads) {
+    const int p = i / TC, c = i - p * TC;
+    const long long orow = rho + static_cast<long long>(rp.cls) * (m0 + p);
+    const int col = c0 + c;
+    if (orow >= nr || col >= nc) continue;
+    float sa = 0.f, sh = 0.f, sv = 0.f, sd = 0.f;
+    for (int k = 0; k < hlen; ++k) {
+      const int q = (p + hlen - 1 - k) * TC + c;
+      const float l = s_lo[q], g = s_hi[q];
+      sa = fmaf(l, f_lo[k], sa);
+      sh = fmaf(l, f_hi[k], sh);
+      sv = fmaf(g, f_lo[k], sv);
+      sd = fmaf(g, f_hi[k], sd);
+    }
+    const long long o = blockIdx.z * plane + orow * nc + col;
+    a[o] = sa;
+    h[o] = sh;
+    v[o] = sv;
+    d[o] = sd;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+iswt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
+              const float* __restrict__ v, const float* __restrict__ d,
+              float* __restrict__ out, int nr, int nc, RowPlan rp,
+              Taps half_taps, TapOffsets coff, int hlen, unsigned y0) {
+  __shared__ float s_p[kStageRows * TC];  // syn_-1(a, v) on staged rows
+  __shared__ float s_q[kStageRows * TC];  // syn_-1(h, d)
+  __shared__ float g_lo[kMaxTaps], g_hi[kMaxTaps];
+  __shared__ int s_off[kMaxTaps];
+  __shared__ int s_row[kStageRows];
+
+  const int tid = threadIdx.x;
+  const unsigned by = y0 + blockIdx.y;  // unsigned: the cheaper division
+  const int rho = by / rp.tiles;
+  const int m0 = (by - rho * rp.tiles) * rp.tr;
+  const int c0 = blockIdx.x * TC;
+  const int rows = rp.tr + hlen - 1;
+  const long long plane = static_cast<long long>(nr) * nc;
+  const long long pb = blockIdx.z * plane;
+
+  if (tid < hlen) {
+    g_lo[tid] = half_taps.lo[tid];
+    g_hi[tid] = half_taps.hi[tid];
+    s_off[tid] = coff.k[tid];
+  }
+  if (tid < rows) s_row[tid] = staged_row(rp, rho, m0, tid, nr);
+  __syncthreads();
+
+  for (int i = tid; i < rows * TC; i += kThreads) {
+    const int q = i / TC, col = c0 + i - q * TC;
+    float sp = 0.f, sq = 0.f;
+    if (col < nc) {
+      const long long rb = pb + static_cast<long long>(s_row[q]) * nc;
+      const float *ar = a + rb, *hr = h + rb, *vr = v + rb, *dr = d + rb;
+      for (int k = 0; k < hlen; ++k) {
+        const int off = s_off[k];
+        sp = fmaf(col_tap(ar, col, off, nc), g_lo[k], sp);
+        sp = fmaf(col_tap(vr, col, off, nc), g_hi[k], sp);
+        sq = fmaf(col_tap(hr, col, off, nc), g_lo[k], sq);
+        sq = fmaf(col_tap(dr, col, off, nc), g_hi[k], sq);
+      }
+    }
+    s_p[i] = sp;
+    s_q[i] = sq;
+  }
+  __syncthreads();
+
+  for (int i = tid; i < rp.tr * TC; i += kThreads) {
+    const int p = i / TC, c = i - p * TC;
+    const long long orow = rho + static_cast<long long>(rp.cls) * (m0 + p);
+    const int col = c0 + c;
+    if (orow >= nr || col >= nc) continue;
+    float s = 0.f;
+    for (int k = 0; k < hlen; ++k) {
+      const int q = (p + hlen - 1 - k) * TC + c;
+      s = fmaf(s_p[q], g_lo[k], s);
+      s = fmaf(s_q[q], g_hi[k], s);
+    }
+    out[pb + orow * nc + col] = s;
+  }
+}
+
+// The level's row tiling and column offsets, or false if the arguments are
+// out of range. Its blocks: (nc + TC - 1) / TC columns x rp.cls * rp.tiles
+// rows (at most 2 nr) x batch planes.
+bool plan_level(int batch, int nr, int nc, int level, int s, int hlen,
+                RowPlan* rp, TapOffsets* coff) {
+  if (hlen < 1 || hlen > kMaxTaps || s < 0 || s >= hlen || nr < 1 ||
+      nc < 1 || nr > 0x3fffffff || nc > 0x3fffffff || level < 1 || batch < 1)
+    return false;
+  *rp = row_plan(hlen, s, level, nr);
+  *coff = dilated_offsets(hlen, s, level, nc);
+  return true;
+}
+
+}  // namespace
+}  // namespace pypwt
+
+// Both return a cudaError_t; they launch on `stream`, do not synchronise
+// and allocate nothing. The filters are host arrays of hlen floats; `centre`
+// is the a-trous centre s of the direction.
+extern "C" int pypwt_swt2d(const float* x, float* a, float* h, float* v,
+                           float* d, int batch, int nr, int nc, int level,
+                           int centre, const float* dec_lo,
+                           const float* dec_hi, int hlen, int device,
+                           void* stream) {
+  using namespace pypwt;
+  RowPlan rp;
+  TapOffsets coff;
+  if (!plan_level(batch, nr, nc, level, centre, hlen, &rp, &coff))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Taps taps = make_taps(dec_lo, dec_hi, hlen);
+  launch_chunks((nc + TC - 1) / TC, rp.cls * rp.tiles, batch,
+                [&](dim3 grid, int y0, int z0) {
+                  const long long p = static_cast<long long>(z0) * nr * nc;
+                  swt2d_kernel<<<grid, kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+                      x + p, a + p, h + p, v + p, d + p, nr, nc, rp, taps,
+                      coff, hlen, y0);
+                });
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int pypwt_iswt2d(const float* a, const float* h, const float* v,
+                            const float* d, float* out, int batch, int nr,
+                            int nc, int level, int centre,
+                            const float* rec_lo, const float* rec_hi,
+                            int hlen, int device, void* stream) {
+  using namespace pypwt;
+  RowPlan rp;
+  TapOffsets coff;
+  if (!plan_level(batch, nr, nc, level, centre, hlen, &rp, &coff))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // rec / 2 is exact in float32: the 1/2 of each axis pass
+  float lo2[kMaxTaps], hi2[kMaxTaps];
+  for (int k = 0; k < hlen; ++k) {
+    lo2[k] = 0.5f * rec_lo[k];
+    hi2[k] = 0.5f * rec_hi[k];
+  }
+  const Taps taps = make_taps(lo2, hi2, hlen);
+  launch_chunks((nc + TC - 1) / TC, rp.cls * rp.tiles, batch,
+                [&](dim3 grid, int y0, int z0) {
+                  const long long p = static_cast<long long>(z0) * nr * nc;
+                  iswt2d_kernel<<<grid, kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+                      a + p, h + p, v + p, d + p, out + p, nr, nc, rp, taps,
+                      coff, hlen, y0);
+                });
+  return static_cast<int>(cudaGetLastError());
+}

@@ -3,7 +3,8 @@
 The sources in ``pypwt_tpu_torch/csrc/`` are compiled by ``nvcc`` for
 Hopper (``sm_90a``), one process per source, all started together, and
 linked into one shared library with a plain C interface, loaded with
-``ctypes``.  No PyTorch headers are involved, so a build takes seconds.  The library lands in the git-ignored ``pypwt_tpu_torch/_build/``
+``ctypes``.  No PyTorch headers are involved, so a build takes seconds.
+The library lands in the git-ignored ``pypwt_tpu_torch/_build/``
 under a name keyed on a hash of the sources and flags; a later process
 with the same sources loads it without compiling.
 
@@ -49,6 +50,18 @@ _SIGNATURES = {
     "pypwt_swt1d": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P],
     # a, d, out, rows, n, level, rec_lo, rec_hi, hlen, device, stream
     "pypwt_iswt1d": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P],
+    # x, a, h, v, d, batch, nr, nc, level, centre, dec_lo, dec_hi, hlen,
+    # device, stream
+    "pypwt_swt2d": [_P] * 5 + [_I] * 5 + [_P, _P, _I, _I, _P],
+    # a, h, v, d, out, batch, nr, nc, level, centre, rec_lo, rec_hi, hlen,
+    # device, stream
+    "pypwt_iswt2d": [_P] * 5 + [_I] * 5 + [_P, _P, _I, _I, _P],
+    # x, a, h, v, d, batch, nr, nc, level, centre, dec (4 hlen^2), hlen,
+    # device, stream
+    "pypwt_ns_swt2d": [_P] * 5 + [_I] * 5 + [_P, _I, _I, _P],
+    # a, h, v, d, out, batch, nr, nc, level, centre, rec (4 hlen^2), hlen,
+    # device, stream
+    "pypwt_ins_swt2d": [_P] * 5 + [_I] * 5 + [_P, _I, _I, _P],
 }
 
 _lib = None

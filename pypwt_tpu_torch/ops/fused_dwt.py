@@ -10,12 +10,17 @@ Each kernel replaces a TPU kernel of ``pypwt_tpu/ops/pallas_dwt.py``:
   (``::dwt1d_fused``, ``::idwt1d_fused``);
 * K10a ``swt1d_fused`` and K10b ``iswt1d_fused`` (``csrc/swt1d.cu``): one
   batched-1D stationary level and its inverse (``::swt1d_level_fused``,
-  ``::iswt1d_level_fused``).
+  ``::iswt1d_level_fused``);
+* K8 ``swt2d_fused`` and K9 ``iswt2d_fused`` (``csrc/swt2d.cu``): one
+  separable 2D stationary level and its inverse (``::swt2d_level_fused``,
+  ``::iswt2d_level_fused``), on a plane ``(Nr, Nc)`` or a stack
+  ``(B, Nr, Nc)``.
 
-The 1D kernels take rows ``(R, n)`` or one signal ``(n,)``, which they
-view as ``(1, n)``: that also covers the TPU's folded long-signal kernels
-(``::dwt1d_long_fused`` and its kin), whose folding only fixed the TPU's
-lane layout.  Beside each kernel:
+The non-separable stationary kernels K18a/K18b are in ``ops.nonsep``;
+``ops.KERNELS`` lists all of them.  The 1D kernels take rows ``(R, n)`` or
+one signal ``(n,)``, which they view as ``(1, n)``: that also covers the
+TPU's folded long-signal kernels (``::dwt1d_long_fused`` and its kin),
+whose folding only fixed the TPU's lane layout.  Beside each kernel:
 
 * its plain PyTorch version (``*_plain``): the ``core.conv`` primitives
   composed for one level, exactly as the JAX package's ``core/dwt.py`` and
@@ -25,7 +30,8 @@ lane layout.  Beside each kernel:
   form of the JAX wrappers returning None;
 * counts on the wrapper: ``launches`` (kernel launches) and ``declined``
   (levels on a CUDA tensor that the dispatcher in ``core.dwt`` sent to the
-  plain version because the kernel does not cover them).
+  plain version because the kernel does not cover them; K1-K4 and K10
+  only: K8/K9 never decline, an uncovered level raises).
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises.  Taps are float32, rounded once from the
@@ -83,6 +89,10 @@ def _plane_unsupported(t, what):
     if t.ndim == 3 and not 1 <= t.shape[0] <= _MAX_GRID:
         return f"batch {t.shape[0]} (1..{_MAX_GRID})"
     return None
+
+
+def _batch(t):
+    return t.shape[0] if t.ndim == 3 else 1
 
 
 def dwt2d_unsupported(x, fb):
@@ -156,14 +166,13 @@ def dwt2d_fused(x, fb):
     _require(x.is_contiguous(), "K1 (dwt2d)", "non-contiguous input")
     lib = _build.load_library()
     nr, nc = x.shape[-2], x.shape[-1]
-    batch = x.shape[0] if x.ndim == 3 else 1
     shape = (*x.shape[:-2], nr // 2, nc // 2)
     a, h, v, d = (torch.empty(shape, dtype=x.dtype, device=x.device)
                   for _ in range(4))
     lo, hi = _host_taps(fb.dec_lo), _host_taps(fb.dec_hi)
     err = lib.pypwt_dwt2d(
         x.data_ptr(), a.data_ptr(), h.data_ptr(), v.data_ptr(), d.data_ptr(),
-        batch, nr, nc, lo.ctypes.data, hi.ctypes.data, fb.hlen,
+        _batch(x), nr, nc, lo.ctypes.data, hi.ctypes.data, fb.hlen,
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     _check_launch(lib, err, "K1 (dwt2d)")
     dwt2d_fused.launches += 1
@@ -182,13 +191,12 @@ def idwt2d_fused(a, h, v, d, fb, out_shape):
              "non-contiguous input")
     lib = _build.load_library()
     lr, lc = a.shape[-2], a.shape[-1]
-    batch = a.shape[0] if a.ndim == 3 else 1
     out = torch.empty((*a.shape[:-2], 2 * lr, 2 * lc), dtype=a.dtype,
                       device=a.device)
     lo, hi = _host_taps(fb.rec_lo), _host_taps(fb.rec_hi)
     err = lib.pypwt_idwt2d(
         a.data_ptr(), h.data_ptr(), v.data_ptr(), d.data_ptr(),
-        out.data_ptr(), batch, lr, lc, lo.ctypes.data, hi.ctypes.data,
+        out.data_ptr(), _batch(a), lr, lc, lo.ctypes.data, hi.ctypes.data,
         fb.hlen, a.device.index,
         torch.cuda.current_stream(a.device).cuda_stream)
     _check_launch(lib, err, "K2 (idwt2d)")
@@ -393,15 +401,113 @@ def iswt1d_fused(a, d, fb, level):
     return out
 
 
+# -- 2D stationary levels: K8, K9 ------------------------------------------
+
+
+def swt2d_plain(x, fb, level):
+    """One stationary 2D analysis level in torch ops -> (a, h, v, d), each
+    of the input's shape: the last axis first, then axis -2, as the JAX
+    fallback (h: high-pass along axis -2)."""
+    t1, t2 = conv.swt_analysis_last(x, fb.dec_lo, fb.dec_hi, level)
+    t1 = t1.transpose(-1, -2)
+    t2 = t2.transpose(-1, -2)
+    a, h = conv.swt_analysis_last(t1, fb.dec_lo, fb.dec_hi, level)
+    v, d = conv.swt_analysis_last(t2, fb.dec_lo, fb.dec_hi, level)
+    return tuple(s.transpose(-1, -2).contiguous() for s in (a, h, v, d))
+
+
+def iswt2d_plain(a, h, v, d, fb, level):
+    """One stationary 2D synthesis level in torch ops (axis -2 first, then
+    the last axis; 1/2 per axis pass)."""
+    at, ht, vt, dt = (s.transpose(-1, -2) for s in (a, h, v, d))
+    t1 = conv.swt_synthesis_last(at, ht, fb.rec_lo, fb.rec_hi, level)
+    t2 = conv.swt_synthesis_last(vt, dt, fb.rec_lo, fb.rec_hi, level)
+    t1 = t1.transpose(-1, -2)
+    t2 = t2.transpose(-1, -2)
+    return conv.swt_synthesis_last(t1, t2, fb.rec_lo, fb.rec_hi,
+                                   level).contiguous()
+
+
+def swt2d_plane_unsupported(t, what, level):
+    """Why a plane or stack ``t`` cannot go to a 2D stationary kernel (K8,
+    K9, K18a, K18b) at ``level``, or None.  A level with more row blocks or
+    planes than a grid holds is launched in chunks, so no batch, plane size
+    or level meets a grid
+    limit: only dtype, rank, an empty input and the 32-bit sizes refuse."""
+    if t.dtype != torch.float32:
+        return f"{what} dtype {t.dtype} (float32 only)"
+    if t.ndim not in (2, 3):
+        return f"{what} rank {t.ndim} (2 or 3)"
+    if t.numel() == 0:
+        return f"empty {what}"
+    nr, nc = t.shape[-2], t.shape[-1]
+    if max(nr, nc) >= _MAX_SAMPLES:
+        return f"plane {nr}x{nc} (each size below {_MAX_SAMPLES})"
+    return _level_unsupported(level)
+
+
+def swt2d_unsupported(x, fb, level):
+    """Why K8 cannot take ``x`` at ``level``, or None if it can."""
+    return (swt2d_plane_unsupported(x, "input", level)
+            or _swt_bank_unsupported(fb))
+
+
+def iswt2d_unsupported(a, h, v, d, fb, level):
+    """Why K9 cannot take these coefficients, or None if it can."""
+    return (swt2d_plane_unsupported(a, "coefficient", level)
+            or _pair_unsupported(a, h) or _pair_unsupported(a, v)
+            or _pair_unsupported(a, d) or _swt_bank_unsupported(fb))
+
+
+def swt2d_fused(x, fb, level):
+    """K8: one stationary 2D analysis level -> (a, h, v, d), each of the
+    input's shape ``(B?, Nr, Nc)``.  CPU tensor: the plain version."""
+    if x.device.type == "cpu":
+        return swt2d_plain(x, fb, level)
+    _require(x.is_cuda, "K8 (swt2d)", f"device {x.device}")
+    why = swt2d_unsupported(x, fb, level)
+    _require(why is None, "K8 (swt2d)", why)
+    _require(x.is_contiguous(), "K8 (swt2d)", "non-contiguous input")
+    lib = _build.load_library()
+    a, h, v, d = (torch.empty_like(x) for _ in range(4))
+    lo, hi = _host_taps(fb.dec_lo), _host_taps(fb.dec_hi)
+    err = lib.pypwt_swt2d(
+        x.data_ptr(), a.data_ptr(), h.data_ptr(), v.data_ptr(), d.data_ptr(),
+        _batch(x), x.shape[-2], x.shape[-1], level,
+        conv.swt_centre(fb.hlen, False), lo.ctypes.data, hi.ctypes.data,
+        fb.hlen, x.device.index, _stream(x))
+    _check_launch(lib, err, "K8 (swt2d)")
+    swt2d_fused.launches += 1
+    return a, h, v, d
+
+
+def iswt2d_fused(a, h, v, d, fb, level):
+    """K9: one stationary 2D synthesis level -> the coefficients' shape.
+    CPU tensors: the plain version."""
+    if a.device.type == "cpu":
+        return iswt2d_plain(a, h, v, d, fb, level)
+    _require(a.is_cuda, "K9 (iswt2d)", f"device {a.device}")
+    why = iswt2d_unsupported(a, h, v, d, fb, level)
+    _require(why is None, "K9 (iswt2d)", why)
+    _require(all(s.is_contiguous() for s in (a, h, v, d)), "K9 (iswt2d)",
+             "non-contiguous input")
+    lib = _build.load_library()
+    out = torch.empty_like(a)
+    lo, hi = _host_taps(fb.rec_lo), _host_taps(fb.rec_hi)
+    err = lib.pypwt_iswt2d(
+        a.data_ptr(), h.data_ptr(), v.data_ptr(), d.data_ptr(),
+        out.data_ptr(), _batch(a), a.shape[-2], a.shape[-1], level,
+        conv.swt_centre(fb.hlen, True), lo.ctypes.data, hi.ctypes.data,
+        fb.hlen, a.device.index, _stream(a))
+    _check_launch(lib, err, "K9 (iswt2d)")
+    iswt2d_fused.launches += 1
+    return out
+
+
 KERNELS = (dwt2d_fused, idwt2d_fused, dwt1d_fused, idwt1d_fused,
-           swt1d_fused, iswt1d_fused)
+           swt1d_fused, iswt1d_fused, swt2d_fused, iswt2d_fused)
 
-
-def reset_counts():
-    """Set every kernel's ``launches`` and ``declined`` count to 0."""
-    for k in KERNELS:
-        k.launches = 0
-        k.declined = 0
-
-
-reset_counts()
+# counts start at 0; ``ops.reset_counts`` zeroes them with K18a/K18b's
+for _k in KERNELS:
+    _k.launches = 0
+    _k.declined = 0

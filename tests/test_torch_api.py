@@ -1,10 +1,11 @@
 """The port's Wavelets(..., device="cpu") against pypwt_tpu.Wavelets on
-0..255 float32 data: the 2D plan at 256^2, db2, 3 levels, and the 1D
-plans -- one signal and the rows of a 2D image (ndim=1), DWT and SWT --
-over haar, db2, sym8, sym20 and bior3.5: transforms, thresholds, the
-coeff_only indexing, the state machine, norms, set_coeff, add_wavelet,
-cycle spinning with the same seed (hence the same shifts), circshift and
-info()."""
+0..255 float32 data: the 2D plan at 256^2, db2, 3 levels; the 1D plans --
+one signal and the rows of a 2D image (ndim=1), DWT and SWT -- over haar,
+db2, sym8, sym20 and bior3.5; and the other 2D plans -- SWT, and the
+non-separable mode with a built-in name or a custom 2D bank, DWT and SWT:
+transforms, thresholds, the coeff_only indexing, the state machine, norms,
+set_coeff, add_wavelet, cycle spinning with the same seed (hence the same
+shifts), circshift, info() and the refusals of set_wavelets_filters."""
 
 import numpy as np
 import pytest
@@ -180,13 +181,23 @@ def test_odd_size_matches():
     assert np.abs(t.image - img).max() <= IMAGE_TOL
 
 
-# the 2D modes still to port; ids as before the 1D plans were ported
-@pytest.mark.parametrize("kw, match", [
-    pytest.param(dict(do_swt=1), "2D SWT", id="kw0-swt"),
-    pytest.param(dict(do_separable=0), "nonsep", id="kw2-nonsep")])
-def test_unported_modes_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        pypwt_tpu_torch.Wavelets(_img(), "db2", 3, device="cpu", **kw)
+# Once the 2D modes that raised; now each is held against the JAX package
+# (name and ids kept from then).
+@pytest.mark.parametrize("kw", [
+    pytest.param(dict(do_swt=1), id="kw0-swt"),
+    pytest.param(dict(do_separable=0), id="kw2-nonsep")])
+def test_unported_modes_raise(kw):
+    j, t = _pair(**kw)
+    assert (t.do_swt, t.do_separable) == (j.do_swt, j.do_separable)
+    assert (t.levels, t.sizes) == (j.levels, j.sizes)
+    j.forward()
+    t.forward()
+    _assert_coeffs(t, j)
+    j.soft_threshold(10.0)
+    t.soft_threshold(10.0)
+    j.inverse()
+    t.inverse()
+    assert np.abs(t.image - j.image).max() <= IMAGE_TOL
 
 
 def test_batched_1d_plan_matches_jax():
@@ -392,3 +403,183 @@ def test_custom_filters():
     with pytest.raises(ValueError, match="same length"):
         t.set_wavelets_filters("bad", np.ones(4), np.ones(6), np.ones(4),
                                np.ones(4))
+
+
+# ---------------------------------------------------------------------------
+# 2D stationary and non-separable plans, built-in and custom 2D banks
+# ---------------------------------------------------------------------------
+
+SHAPE_2D = (96, 128)
+PARTS = (("lo", "lo"), ("hi", "lo"), ("lo", "hi"), ("hi", "hi"))
+
+
+def _cross_bank():
+    """db3(rows) x coif1(cols): a 2D bank that does not factor into one
+    isotropic 1D bank, as (LL, HH, iLL, iHH, LH, HL, iLH, iHL)."""
+    fr, fc = pypwt_tpu.get_filter_bank("db3"), pypwt_tpu.get_filter_bank(
+        "coif1")
+    dec = [np.outer(getattr(fr, "dec_" + p), getattr(fc, "dec_" + q))
+           for p, q in PARTS]
+    rec = [np.outer(getattr(fr, "rec_" + p), getattr(fc, "rec_" + q))
+           for p, q in PARTS]
+    return (dec[0], dec[3], rec[0], rec[3]), dict(
+        LH=dec[1], HL=dec[2], i_LH=rec[1], i_HL=rec[2])
+
+
+MODES_2D = {
+    "swt": (dict(do_swt=1), False),
+    "nonsep": (dict(do_separable=0), False),
+    "nonsep-swt": (dict(do_separable=0, do_swt=1), False),
+    "custom2d": (dict(do_separable=0), True),
+    "custom2d-swt": (dict(do_separable=0, do_swt=1), True),
+}
+
+
+def _pair_2d(mode, img=None, **kw):
+    flags, custom = MODES_2D[mode]
+    j, t = _pair(_img(0, SHAPE_2D) if img is None else img,
+                 **dict(flags, **kw))
+    if custom:
+        args, kw2d = _cross_bank()
+        for w in (j, t):
+            w.set_wavelets_filters("db3xcoif1", *args, **kw2d)
+    return j, t
+
+
+@pytest.mark.parametrize("mode", MODES_2D)
+def test_2d_modes_forward_threshold_inverse(mode):
+    j, t = _pair_2d(mode)
+    assert (t.levels, t.hlen, t.sizes, t.do_swt, t.do_separable) == (
+        j.levels, j.hlen, j.sizes, j.do_swt, j.do_separable)
+    j.forward()
+    t.forward()
+    _assert_coeffs(t, j)
+    if t.do_swt:
+        assert all(s.shape == SHAPE_2D for c in t.coeffs[1:] for s in c)
+    j.soft_threshold(10.0)
+    t.soft_threshold(10.0)
+    _assert_coeffs(t, j)
+    j.inverse()
+    t.inverse()
+    assert t.image.shape == SHAPE_2D
+    assert np.abs(t.image - j.image).max() <= IMAGE_TOL
+
+
+@pytest.mark.parametrize("mode", MODES_2D)
+def test_2d_modes_thresholds_and_norms(mode):
+    j, t = _pair_2d(mode)
+    for op, args in (("hard_threshold", (10.0, 1, 1)),
+                     ("group_soft_threshold", (10.0, 1, 0)),
+                     ("proj_linf", (5.0, 1)), ("shrink", (0.5,)),
+                     ("soft_threshold", (3.0, 0, 1))):
+        for w in (j, t):
+            w.forward()
+            getattr(w, op)(*args)
+        _assert_coeffs(t, j)
+    assert t.norm1() == pytest.approx(j.norm1(), rel=1e-5)
+    assert t.norm2sq() == pytest.approx(j.norm2sq(), rel=1e-5)
+
+
+@pytest.mark.parametrize("mode", MODES_2D)
+def test_2d_modes_coeff_only_and_set_coeff(mode):
+    j, t = _pair_2d(mode)
+    for w in (j, t):
+        w.forward()
+    tc = t.coeffs
+    for num in range(3 * t.levels + 1):
+        got, ref = t.coeff_only(num), j.coeff_only(num)
+        assert got.shape == ref.shape
+        expect = tc[0] if num == 0 else tc[(num - 1) // 3 + 1][(num - 1) % 3]
+        np.testing.assert_array_equal(got, expect)
+    for w in (j, t):
+        w.set_coeff(np.zeros_like(w.coeff_only(1)), 1, check=True)
+        w.set_coeff(w.coeff_only(0) * 0.5, 0)
+        with pytest.raises(ValueError, match="Invalid coefficient shape"):
+            w.set_coeff(np.zeros((3, 3), np.float32), 2, check=True)
+    _assert_coeffs(t, j)
+    for w in (j, t):
+        w.inverse()
+    assert np.abs(t.image - j.image).max() <= IMAGE_TOL
+
+
+@pytest.mark.parametrize("mode", MODES_2D)
+def test_2d_modes_add_wavelet(mode):
+    j1, t1 = _pair_2d(mode, _img(1, SHAPE_2D))
+    j2, t2 = _pair_2d(mode, _img(2, SHAPE_2D))
+    for a, b in ((j1, j2), (t1, t2)):
+        a.forward()
+        b.forward()
+        assert a.add_wavelet(b, 0.5) == 0
+    _assert_coeffs(t1, j1)
+    if t1.do_swt:  # against the decimated plan of the same bank
+        base = mode[:-len("-swt")] if mode.endswith("-swt") else None
+        _, t3 = (_pair_2d(base) if base else _pair(_img(1, SHAPE_2D)))
+        t3.forward()
+        with pytest.raises(ValueError, match="both use SWT or DWT"):
+            t1.add_wavelet(t3)
+
+
+@pytest.mark.parametrize("mode", MODES_2D)
+def test_2d_modes_cycle_spinning(mode, capsys):
+    j, t = _pair_2d(mode, do_cycle_spinning=1, seed=5)
+    warned = "makes little sense" in capsys.readouterr().out
+    assert warned == bool(t.do_swt)
+    for _ in range(2):
+        j.forward()
+        t.forward()
+        assert t.current_shift == j.current_shift
+        _assert_coeffs(t, j)
+        j.soft_threshold(5.0)
+        t.soft_threshold(5.0)
+        j.inverse()
+        t.inverse()
+        assert np.abs(t.image - j.image).max() <= IMAGE_TOL
+
+
+@pytest.mark.parametrize("mode", MODES_2D)
+def test_2d_modes_info_matches_jax(mode):
+    j, t = _pair_2d(mode)
+    device_line = "Running on device"
+    tl = [x for x in t._info_str().splitlines() if device_line not in x]
+    jl = [x for x in j._info_str().splitlines() if device_line not in x]
+    assert tl == jl
+    sep = "no" if mode.startswith(("nonsep", "custom")) else "yes"
+    assert f"Separable transform : {sep}" in tl
+    assert ("Stationary WT : yes" in tl) == mode.endswith("swt")
+
+
+def test_custom_2d_bank_replaces_the_1d_bank():
+    j, t = _pair_2d("custom2d")
+    for w in (j, t):
+        assert w._fb is None and w.hlen == 6 and w.wname == "db3xcoif1"
+        assert w._f2d.separable_bank() is None
+    np.testing.assert_array_equal(t._f2d.dec[1], j._f2d.dec[1])
+    # a built-in name in non-separable mode factors back to its 1D bank
+    _, t = _pair(do_separable=0, do_swt=1)
+    assert t._f2d.separable_bank() is not None
+
+
+def test_set_wavelets_filters_refusals():
+    (ll, hh, ill, ihh), kw2d = _cross_bank()
+    fb = pypwt_tpu.get_filter_bank("db3")
+    _, sep = _pair()
+    _, t = _pair(do_separable=0)
+    for w in (t, pypwt_tpu.Wavelets(_img(), "db2", 3, do_separable=0)):
+        with pytest.raises(ValueError, match="2D square arrays"):
+            w.set_wavelets_filters("bad", fb.dec_lo, fb.dec_hi, fb.rec_lo,
+                                   fb.rec_hi)
+        with pytest.raises(ValueError, match="Expected LH and HL"):
+            w.set_wavelets_filters("bad", ll, hh, ill, ihh)
+        with pytest.raises(ValueError, match="same length"):
+            w.set_wavelets_filters("bad", ll, hh, ill, ihh,
+                                   **dict(kw2d, LH=np.ones((4, 4))))
+        with pytest.raises(ValueError, match="too long"):
+            w.set_wavelets_filters("bad", *(np.ones((42, 42)),) * 4,
+                                   **{k: np.ones((42, 42)) for k in kw2d})
+        with pytest.raises(ValueError, match="square"):
+            w.set_wavelets_filters("bad", ll, hh, ill, ihh[:, :5],
+                                   **kw2d)
+    with pytest.raises(ValueError, match="same length"):
+        sep.set_wavelets_filters("bad", fb.dec_lo, fb.dec_hi, fb.rec_lo,
+                                 fb.rec_hi, LH=np.ones(3))
+    assert t._fb is not None  # untouched by the refused calls

@@ -43,6 +43,25 @@ def test_import_loads_no_jax_and_builds_nothing():
     assert res.stdout.strip() == "ok 72"
 
 
+def test_2d_swt_and_nonsep_on_cpu_load_no_jax():
+    code = (
+        "import sys\n"
+        "import numpy as np, pypwt_tpu_torch as P\n"
+        "img = np.random.default_rng(0).random((32, 48)).astype('float32')\n"
+        "for kw in (dict(do_swt=1), dict(do_separable=0, do_swt=1),\n"
+        "           dict(do_separable=0)):\n"
+        "    W = P.Wavelets(img, 'db2', 2, device='cpu', **kw)\n"
+        "    W.forward(); W.inverse()\n"
+        "    assert abs(W.image - img).max() < 7e-4\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pypwt_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    res = _run(["-c", code], ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def _imports(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
