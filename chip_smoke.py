@@ -10,23 +10,27 @@ prints its traceback and exits non-zero without the final ok line:
 1. device: needs CUDA (exits 1 without it); prints torch/CUDA versions,
    ``nvcc --version`` and the card's name and power limit;
 2. build: compiles every kernel (K1/K2, K3/K4, K10a/K10b, K8/K9,
-   K18a/K18b) from pypwt_tpu_torch/csrc/ with nvcc, one process per source,
-   and prints each kernel's registers and spills;
+   K16/K17, K18a/K18b, K19/K20) from pypwt_tpu_torch/csrc/ with nvcc, one
+   process per source, and prints each kernel's registers and spills;
 3. K1/K2 against their plain torch versions on the card, over banks hlen
-   2..40 and shapes up to 4096^2 (max-abs <= 2e-5 on uniform [0,1) data:
-   the two differ only in summation order and FMA contraction), and
-   against the float64 numpy oracle tests/oracle.py on a small plane;
-   then K3/K4/K10a/K10b the same way, over the banks, an odd-length bank
-   for K10, rows from (1, 8) to (2048, 2048) and one 4 Mi-sample signal,
-   every SWT level the signal allows, and a wrap wider than the signal;
-   then K8/K9 over the banks and the odd one, planes (8, 8), (33, 47),
-   (2, 256, 512) and 2048^2, every level the clamp allows (at 2048^2 for
-   db2 and sym20), a wrap wider than the plane and the oracle; then
-   K18a/K18b on three custom 2D banks that do not factor, levels 1-3, at
-   (64, 128) and 2048^2;
+   2..40 and an odd 5-tap bank, even and odd shapes up to 4096^2 (max-abs
+   <= 2e-5 on uniform [0,1) data: the two differ only in summation order
+   and FMA contraction), and against the float64 numpy oracle
+   tests/oracle.py on a small plane; then K3/K4/K10a/K10b the same way,
+   over the banks and the odd one, rows from (1, 8) to (2048, 2048), odd
+   lengths and one 4 Mi-sample signal, every SWT level the signal allows,
+   and a wrap wider than the signal; then K8/K9 over the banks and the odd
+   one, planes (8, 8), (33, 47), (2, 256, 512) and 2048^2, every level the
+   clamp allows (at 2048^2 for db2 and sym20), a wrap wider than the plane
+   and the oracle; then K16/K17 and K18a/K18b on three custom 2D banks that
+   do not factor, levels 1-3, at (64, 128), an odd plane and 2048^2; then
+   K19/K20 over the banks, shifts (0, 0), odd, (127, 1) and one wider than
+   the plane, with and without the threshold epilogue and the
+   accumulator, at 2048^2 and an odd plane, and K23's map (K19 once per
+   spin, K20 accumulating);
 4. main paths, each held against the same calls on the CPU plain path
    (coefficients within 3e-4 * 2^level, image within 7e-4) and counted
-   (exact launches of every kernel, 0 declined): Wavelets(img, "db2", 3,
+   (exact launches of every kernel): Wavelets(img, "db2", 3,
    device="cuda") forward -> soft_threshold(10) -> inverse on a 2048^2
    0..255 frame (3 K1, 3 K2), then the plain roundtrip, the (8, 2048, 2048)
    stack through wavedec2/waverec2, and haar; then the 1D plans: a 2048 x
@@ -35,7 +39,12 @@ prints its traceback and exits non-zero without the final ok line:
    then the 2D SWT (3 K8, 3 K9), the stack through swt2d/iswt2d (its first
    and last frames against the CPU), do_separable=0 with db2, DWT (on
    K1/K2) and SWT (on K8/K9), and do_separable=0, do_swt=1 with the custom
-   db3 x coif1 bank (3 K18a, 3 K18b);
+   db3 x coif1 bank (3 K18a, 3 K18b); then the denoising pipelines on the
+   frame (db2, L3, beta 10, soft): the 4-spin static cycle spinning (4
+   K19, 4 K20, 8 K1, 8 K2), the 8-spin random one from a seeded generator
+   (24 K19, 24 K20), denoise2d (3 K1, 3 K2) and with do_swt (3 K8, 3 K9),
+   do_separable=0 with the db3 x coif1 bank, DWT (3 K16, 3 K17), and a
+   2047^2 frame through Wavelets (3 K1, 3 K2);
 5. times (CUDA events, warm-up, median of 21 samples): level-0 K1/K2
    against their plain versions at 2048^2 (device time), and the L3
    roundtrip in frames/s, kernel path against plain path, at 2048^2 and on
@@ -43,11 +52,19 @@ prints its traceback and exits non-zero without the final ok line:
    included); then level 0 of K3/K4/K10a/K10b at 2048 x 2048 against their
    plain versions, and the batched-1D and 4 Mi-signal roundtrips; then
    K8/K9 at levels 1 and 3 and K18a/K18b at level 1, 2048^2, and the 2D
-   SWT L3 roundtrip.
+   SWT L3 roundtrip; then K16/K17 (db3 x coif1) and K19 (soft epilogue) /
+   K20 (accumulating) at level 0 of 2048^2, and the 4-spin static and
+   8-spin random cycle spinning in frames/s, kernel path against plain
+   path; last, beside each kernel, one PyTorch call that computes the same
+   function (library_ms: a strided, transposed or dilated convolution in
+   full float32, on an input padded outside the timed window), checked
+   against the kernel's output.
 
 The line before the last is one JSON object with each kernel's route,
 source, the TPU kernel it replaces, its launches in the main-path run, its
-worst error in phase 3 and its times; before it, the card's name and power
+worst error in phase 3, its times, the library call's time and its bound
+(the larger of its bytes over 3.35 TB/s and its flops over 67 TFLOP/s
+fp32, from the timed call's shapes); before it, the card's name and power
 limit.  The last line is {"ok": true, "device": {...}}.
 
 ``--sweep`` times the 2D stationary kernels on a 2048^2 frame by level
@@ -66,11 +83,13 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 SEED = 1234
 BANKS = ("haar", "db2", "db8", "sym20", "bior3.5")
-SHAPES = ((8, 8), (64, 128), (2, 256, 512), (2048, 2048), (4096, 4096))
+SHAPES = ((8, 8), (64, 128), (2, 256, 512), (2048, 2048), (4096, 4096),
+          (33, 47), (3, 255, 257), (2047, 2047))
 KERNEL_TOL = 2e-5      # kernel vs plain, uniform [0,1) data
 COEFF_TOL = 3e-4       # x 2^level, 0..255 data (BASELINE.md envelope)
 ROUNDTRIP_TOL = 7e-4   # bench.py:64 envelope
@@ -79,13 +98,24 @@ FRAME = (2048, 2048)
 STACK = 8
 SAMPLES = 21
 SLEEP_CYCLES = 20_000_000  # ~10 ms at the H100's 1.98 GHz boost clock
-SHAPES_1D = ((1, 8), (3, 64), (64, 1024), FRAME, (1, 4 * 1024 * 1024))
+SHAPES_1D = ((1, 8), (3, 64), (64, 1024), FRAME, (1, 4 * 1024 * 1024),
+             (5, 2047), (1, 4 * 1024 * 1024 - 1))
 SIGNAL = 4 * 1024 * 1024   # one 16 MiB signal
 SHAPES_SWT2D = ((8, 8), (33, 47), (2, 256, 512), FRAME)
 SWEEP_WIDTHS = ("haar", "db2", "db4", "db8", "coif5", "sym20")
 SWEEP_LEVELS = (("db2", 11), ("sym8", 7), ("sym20", 6))  # bank, top level
 SWEEP_HLENS = (2, 4, 6, 8, 12, 16)
-# an odd-length bank for the a-trous kernels, which take every hlen
+ODD_FRAME = (2047, 2047)
+ODD_PLANE = (1023, 777)
+# K19/K20: no shift, odd ones, a row shift the TPU kernel declined, and
+# one wider than the plane (reduced mod its size by the wrapper)
+SHIFTS = ((0, 0), (3, 5), (127, 1), (4101, 4099))
+THRESH_BETA = 0.3     # K19's epilogue on [0,1) data
+HARD_MARGIN = 1e-5    # |coefficient| this close to beta: either side is right
+LIBRARY_TOL = 1e-3    # library call vs kernel, 0..255 data
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
+PEAK_FLOPS = 67e12    # H100 SXM float32 outside the tensor cores, flop/s
+# an odd-length bank for every kernel
 ODD_TAPS = ([0.1, -0.3, 0.7, 0.25, -0.05], [0.2, 0.5, -0.6, 0.1, 0.3],
             [-0.15, 0.35, 0.6, 0.2, 0.05], [0.4, -0.2, 0.1, 0.55, -0.3])
 
@@ -150,27 +180,25 @@ def max_err(got, ref):
     return max(float((g - r).abs().max()) for g, r in zip(got, ref))
 
 
+def half(shape):
+    """The coefficient shape of a decimating level of ``shape``."""
+    return (*shape[:-2], (shape[-2] + 1) // 2, (shape[-1] + 1) // 2)
+
+
 def phase_kernels(port, dev):
     fd = port.ops.fused_dwt
     k1, k2 = fd.dwt2d_fused, fd.idwt2d_fused
     gen = torch.Generator(device=dev).manual_seed(SEED)
     worst = {"K1": 0.0, "K2": 0.0}
-    for name in BANKS:
-        fb = port.get_filter_bank(name)
+    for fb in banks_1d(port):
+        name = fb.name
         for shape in SHAPES:
             x = torch.rand(shape, generator=gen, device=dev)
-            n = k1.launches
-            got = k1(x, fb)
-            if k1.launches != n + 1:
-                raise AssertionError("K1 launch count did not move")
+            got = launched_once(k1, lambda: k1(x, fb))
             e1 = max_err(got, fd.dwt2d_plain(x, fb))
-            cshape = (*shape[:-2], shape[-2] // 2, shape[-1] // 2)
-            c = [torch.rand(cshape, generator=gen, device=dev)
+            c = [torch.rand(half(shape), generator=gen, device=dev)
                  for _ in range(4)]
-            n = k2.launches
-            out = k2(*c, fb, shape)
-            if k2.launches != n + 1:
-                raise AssertionError("K2 launch count did not move")
+            out = launched_once(k2, lambda: k2(*c, fb, shape))
             e2 = max_err(out, fd.idwt2d_plain(*c, fb, shape))
             torch.cuda.synchronize()
             print(f"kernel-vs-plain {name:8s} hlen={fb.hlen:2d} "
@@ -211,8 +239,7 @@ def load_oracle():
 
 
 def banks_1d(port):
-    """The banks of phase 3, and an odd-length one (the a-trous kernels
-    only: K10, K8/K9)."""
+    """The banks of phase 3, and an odd-length one."""
     odd = port.FilterBank("odd5", *(np.asarray(t, np.float64)
                                     for t in ODD_TAPS))
     return [port.get_filter_bank(n) for n in BANKS] + [odd]
@@ -242,17 +269,14 @@ def phase_kernels_1d(port, dev):
             x = torch.rand(shape, generator=gen, device=dev)
             a, d = (torch.rand(shape, generator=gen, device=dev)
                     for _ in range(2))
-            if fb.hlen % 2 == 0:
-                got = launched_once(fd.dwt1d_fused,
-                                    lambda: fd.dwt1d_fused(x, fb))
-                note("K3", max_err(got, fd.dwt1d_plain(x, fb)),
-                     (fb.name, shape))
-                half = (shape[0], shape[1] // 2)
-                ca, cd = a[:, :half[1]].contiguous(), d[:, :half[1]].contiguous()
-                got = launched_once(fd.idwt1d_fused, lambda: fd.idwt1d_fused(
-                    ca, cd, fb, shape[1]))
-                note("K4", max_err(got, fd.idwt1d_plain(ca, cd, fb, shape[1])),
-                     (fb.name, shape))
+            got = launched_once(fd.dwt1d_fused, lambda: fd.dwt1d_fused(x, fb))
+            note("K3", max_err(got, fd.dwt1d_plain(x, fb)), (fb.name, shape))
+            m = (shape[1] + 1) // 2
+            ca, cd = a[:, :m].contiguous(), d[:, :m].contiguous()
+            got = launched_once(fd.idwt1d_fused, lambda: fd.idwt1d_fused(
+                ca, cd, fb, shape[1]))
+            note("K4", max_err(got, fd.idwt1d_plain(ca, cd, fb, shape[1])),
+                 (fb.name, shape))
             top = port.shapes.clamp_levels(99, shape, fb.hlen, 1)
             for level in range(1, top + 1):
                 got = launched_once(fd.swt1d_fused,
@@ -436,7 +460,32 @@ def banks_2d(port):
 def phase_kernels_nonsep(port, dev):
     kn = port.ops.nonsep
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    worst = {"K18a": 0.0, "K18b": 0.0}
+    worst = {"K16": 0.0, "K17": 0.0, "K18a": 0.0, "K18b": 0.0}
+    # K16/K17: three levels down from each plane, every level's analysis
+    # of the last one's approximation and a synthesis back to its shape
+    for f2d in banks_2d(port):
+        for shape in ((64, 128), ODD_PLANE, FRAME):
+            x = torch.rand(shape, generator=gen, device=dev)
+            for level in (1, 2, 3):
+                got = launched_once(kn.nsdwt2d_fused,
+                                    lambda: kn.nsdwt2d_fused(x, f2d))
+                e16 = max_err(got, kn.nsdwt2d_plain(x, f2d))
+                c = [torch.rand(got[0].shape, generator=gen, device=dev)
+                     for _ in range(4)]
+                out = launched_once(kn.insdwt2d_fused, lambda: (
+                    kn.insdwt2d_fused(*c, f2d, x.shape)))
+                e17 = max_err(out, kn.insdwt2d_plain(*c, f2d, x.shape))
+                torch.cuda.synchronize()
+                print(f"kernel-vs-plain non-separable DWT {f2d.name:9s} "
+                      f"{str(tuple(x.shape)):12s} L{level}  K16 {e16:.3e}  "
+                      f"K17 {e17:.3e}")
+                if max(e16, e17) > KERNEL_TOL:
+                    raise AssertionError(
+                        f"{f2d.name} {tuple(x.shape)} L{level}: K16/K17 vs "
+                        f"plain {max(e16, e17):.3e} > {KERNEL_TOL}")
+                worst["K16"] = max(worst["K16"], e16)
+                worst["K17"] = max(worst["K17"], e17)
+                x = got[0]
     for f2d in banks_2d(port):
         for shape in ((64, 128), FRAME):
             for level in (1, 2, 3):
@@ -459,6 +508,82 @@ def phase_kernels_nonsep(port, dev):
                         f"{max(ea, eb):.3e} > {KERNEL_TOL}")
                 worst["K18a"] = max(worst["K18a"], ea)
                 worst["K18b"] = max(worst["K18b"], eb)
+    return worst
+
+
+def thresh_err(got, ref, bare, beta):
+    """max-abs of a thresholded subband against its plain version, over
+    the coefficients not within HARD_MARGIN of beta (``bare``: the plain
+    coefficients before the threshold), where a hard threshold may fall
+    on either side in float32."""
+    keep = ((bare.abs() - beta).abs() > HARD_MARGIN)
+    return float(((got - ref).abs() * keep).max())
+
+
+def phase_kernels_shifted(port, dev):
+    """K19/K20 against their plain versions over the banks, the shifts of
+    SHIFTS, the three epilogues (none, soft, hard), with and without the
+    accumulator, at 2048^2 and an odd plane; then K23's map."""
+    ks, fd = port.ops.shifted, port.ops.fused_dwt
+    k19, k20 = ks.dwt2d_shifted_fused, ks.idwt2d_unshift_fused
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    worst = {"K19": 0.0, "K20": 0.0}
+
+    def note(key, err, what):
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"{key} {what}: kernel vs plain {err:.3e} "
+                                 f"> {KERNEL_TOL}")
+        worst[key] = max(worst[key], err)
+
+    for name in BANKS:
+        fb = port.get_filter_bank(name)
+        for shape in (FRAME, ODD_PLANE):
+            x = torch.rand(shape, generator=gen, device=dev)
+            c = [torch.rand(half(shape), generator=gen, device=dev)
+                 for _ in range(4)]
+            acc = torch.rand(shape, generator=gen, device=dev)
+            for sr, sc in SHIFTS:
+                what = (name, shape, (sr, sc))
+                bare = ks.dwt2d_shifted_plain(x, fb, sr, sc)
+                got = launched_once(k19, lambda: k19(x, fb, sr, sc))
+                note("K19", max_err(got, bare), what)
+                for mode in ("soft", "hard"):
+                    got = launched_once(k19, lambda: k19(
+                        x, fb, sr, sc, mode, THRESH_BETA))
+                    ref = ks.dwt2d_shifted_plain(x, fb, sr, sc, mode,
+                                                 THRESH_BETA)
+                    note("K19", max(thresh_err(g, r, b, THRESH_BETA)
+                                    for g, r, b in zip(got, ref, bare)),
+                         what + (mode,))
+                got = launched_once(k20, lambda: k20(*c, fb, shape, sr, sc))
+                note("K20", max_err(got, ks.idwt2d_unshift_plain(
+                    *c, fb, shape, sr, sc)), what)
+                got = launched_once(k20, lambda: k20(*c, fb, shape, sr, sc,
+                                                     acc, 0.25))
+                note("K20", max_err(got, ks.idwt2d_unshift_plain(
+                    *c, fb, shape, sr, sc, acc, 0.25)), what + ("acc",))
+            torch.cuda.synchronize()
+            print(f"kernel-vs-plain shifted {name:8s} {str(shape):13s} "
+                  f"shifts {SHIFTS}  worst so far K19 {worst['K19']:.3e}  "
+                  f"K20 {worst['K20']:.3e}")
+    # K23's map: the mean of n unshifted syntheses of n shifted analyses,
+    # as K19 once per spin and K20 accumulating
+    fb = port.get_filter_bank("db2")
+    x = torch.rand(FRAME, generator=gen, device=dev)
+    shifts = ((0, 0), (2, 1), (4, 2), (6, 3))
+    acc = ref = None
+    for k, (sr, sc) in enumerate(shifts):
+        coeffs = k19(x, fb, sr, sc)
+        scale = 1.0 / len(shifts) if k == len(shifts) - 1 else 1.0
+        acc = k20(*coeffs, fb, FRAME, sr, sc, acc, scale)
+        y = torch.roll(fd.idwt2d_plain(*coeffs, fb, FRAME), (-sr, -sc),
+                       (-2, -1))
+        ref = y if ref is None else ref + y
+    e23 = max_err(acc, ref / len(shifts))
+    note("K20", e23, "K23 map")
+    print(f"K23's map (4 spins of K19, K20 accumulating) vs the mean of the "
+          f"rolled plain syntheses: {e23:.3e}; vs the image: "
+          f"{max_err(acc, x):.3e}")
     return worst
 
 
@@ -495,11 +620,10 @@ def check_image(got, ref, what):
 
 
 def expect_counts(fd, k1, k2, what):
-    got = (fd.dwt2d_fused.launches, fd.idwt2d_fused.launches,
-           fd.dwt2d_fused.declined + fd.idwt2d_fused.declined)
-    if got != (k1, k2, 0):
-        raise AssertionError(f"{what}: K1/K2 launches, declined = {got}, "
-                             f"expected ({k1}, {k2}, 0)")
+    got = (fd.dwt2d_fused.launches, fd.idwt2d_fused.launches)
+    if got != (k1, k2):
+        raise AssertionError(f"{what}: K1/K2 launches {got}, expected "
+                             f"({k1}, {k2})")
 
 
 def phase_main_path(port, dev):
@@ -527,7 +651,7 @@ def phase_main_path(port, dev):
     ec = check_pyramid(coeffs, ref_coeffs, "main path forward")
     ei = check_image(out, ref.image, "main path denoised image")
     print(f"main path db2 L3 {FRAME}: forward vs cpu {ec:.3e}, denoised "
-          f"image vs cpu {ei:.3e}, launches {launches}, declined 0")
+          f"image vs cpu {ei:.3e}, launches {launches}")
 
     port.ops.reset_counts()
     W = port.Wavelets(img, "db2", 3, device=dev)
@@ -561,13 +685,11 @@ def phase_main_path(port, dev):
 
 
 def expect_launches(ops, want, what):
-    """Exactly ``want`` launches per kernel name (others 0), 0 declined."""
+    """Exactly ``want`` launches per kernel name (others 0)."""
     got = {k.__name__: k.launches for k in ops.KERNELS}
-    declined = sum(k.declined for k in ops.KERNELS)
     expect = {name: want.get(name, 0) for name in got}
-    if got != expect or declined:
-        raise AssertionError(f"{what}: launches {got}, declined {declined}; "
-                             f"expected {expect}, declined 0")
+    if got != expect:
+        raise AssertionError(f"{what}: launches {got}; expected {expect}")
 
 
 def drive(port, dev, img, wname, levels, want_fwd, want, what, setup=None,
@@ -599,7 +721,7 @@ def drive(port, dev, img, wname, levels, want_fwd, want, what, setup=None,
     ec = check_pyramid(coeffs, ref_coeffs, f"{what} forward")
     ei = check_image(out, ref.image, f"{what} denoised image")
     print(f"main path {what}: forward vs cpu {ec:.3e}, denoised image vs "
-          f"cpu {ei:.3e}, launches {launches}, declined 0")
+          f"cpu {ei:.3e}, launches {launches}")
     return launches
 
 
@@ -662,7 +784,7 @@ def phase_main_paths_2d_swt(port, dev):
     gib = sum(s.numel() for c in pyr[1:] for s in c) * 4 / 2 ** 30
     print(f"main path 2D SWT db2 L3 {(STACK, *FRAME)}: frames 0 and "
           f"{STACK - 1} vs cpu {ec:.3e}, roundtrip {er:.3e}, details "
-          f"{gib:.2f} GiB, launches 3 + 3, declined 0")
+          f"{gib:.2f} GiB, launches 3 + 3")
     del xs, pyr, rec
 
     drive(port, dev, img, "db2", 3, {"dwt2d_fused": 3},
@@ -680,23 +802,87 @@ def phase_main_paths_2d_swt(port, dev):
             "K18a": k18["ns_swt2d_fused"], "K18b": k18["ins_swt2d_fused"]}
 
 
-def cuda_ms(fn, reps, device_only):
-    """Median over SAMPLES of the time per call of ``reps`` back-to-back
-    calls between two CUDA events, after a warm-up.
+STATIC_SPINS = ((0, 0), (1, 1), (2, 2), (3, 3))
+RANDOM_SPINS = 8
+BETA = 10.0
+
+
+def denoise_calls(port):
+    """The pipeline paths of phases 4 and 5 on an image tensor, by name:
+    (call, launches on the card at 2048^2, db2, L3)."""
+    pipe = port.pipeline
+    return {
+        "4-spin static cycle spinning": (
+            lambda x: pipe.denoise2d_cycle_spinning(
+                x, "db2", 3, BETA, shifts=STATIC_SPINS),
+            {"dwt2d_shifted_fused": 4, "idwt2d_unshift_fused": 4,
+             "dwt2d_fused": 8, "idwt2d_fused": 8}),
+        f"{RANDOM_SPINS}-spin random cycle spinning": (
+            lambda x: pipe.denoise2d_cycle_spinning(
+                x, "db2", 3, BETA, n_spins=RANDOM_SPINS,
+                generator=torch.Generator().manual_seed(SEED)),
+            {"dwt2d_shifted_fused": 3 * RANDOM_SPINS,
+             "idwt2d_unshift_fused": 3 * RANDOM_SPINS}),
+        "denoise2d": (lambda x: pipe.denoise2d(x, "db2", 3, BETA),
+                      {"dwt2d_fused": 3, "idwt2d_fused": 3}),
+        "denoise2d do_swt": (
+            lambda x: pipe.denoise2d(x, "db2", 3, BETA, do_swt=True),
+            {"swt2d_fused": 3, "iswt2d_fused": 3}),
+    }
+
+
+def phase_main_paths_pipeline(port, dev):
+    """The denoising pipelines, the custom-bank non-separable DWT and an
+    odd frame, each against the same call on the CPU plain path, with
+    exact launches."""
+    img = frame(FRAME, SEED + 6)
+    launches = {}
+    for what, (call, want) in denoise_calls(port).items():
+        ref = call(torch.from_numpy(img)).numpy()
+        port.ops.reset_counts()
+        out = call(torch.from_numpy(img).to(dev))
+        torch.cuda.synchronize()
+        got = {k.__name__: k.launches for k in port.ops.KERNELS if k.launches}
+        expect_launches(port.ops, want, what)
+        err = check_image(out.cpu().numpy(), ref, what)
+        print(f"main path {what} db2 L3 beta {BETA} {FRAME}: image vs cpu "
+              f"{err:.3e}, launches {got}")
+        launches.update({k: v for k, v in got.items()
+                         if k in ("dwt2d_shifted_fused",
+                                  "idwt2d_unshift_fused")
+                         and what.startswith("4-spin")})
+    cross = banks_2d(port)[0]
+    k16 = drive(port, dev, img, "db2", 3, {"nsdwt2d_fused": 3},
+                {"nsdwt2d_fused": 3, "insdwt2d_fused": 3},
+                f"non-separable DWT {cross.name} L3 {FRAME}",
+                setup=install_bank(cross), do_separable=0)
+    drive(port, dev, frame(ODD_FRAME, SEED + 7), "db2", 3,
+          {"dwt2d_fused": 3}, {"dwt2d_fused": 3, "idwt2d_fused": 3},
+          f"db2 L3 {ODD_FRAME}")
+    return {"K19": launches["dwt2d_shifted_fused"],
+            "K20": launches["idwt2d_unshift_fused"],
+            "K16": k16["nsdwt2d_fused"], "K17": k16["insdwt2d_fused"]}
+
+
+def cuda_ms(fn, reps, device_only, samples=SAMPLES, required=True):
+    """Median over ``samples`` of the time per call of ``reps``
+    back-to-back calls between two CUDA events, after a warm-up.
 
     device_only: a sleep kernel queued first keeps the device busy while
     the host enqueues the calls, so the interval holds their device time
     and none of the host's launch overhead (a sample in which the device
     caught up with the host is taken again with a longer sleep).
     Otherwise the interval is what a caller feels: the host's launch
-    overhead counts wherever it exceeds the device time.
+    overhead counts wherever it exceeds the device time.  A call of more
+    launches than the device's launch queue holds blocks the host behind
+    the sleep, so it has no device-only time: None unless ``required``.
     """
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    samples = []
+    times = []
     sleep = SLEEP_CYCLES
-    while len(samples) < SAMPLES:
+    while len(times) < samples:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         if device_only:
@@ -708,22 +894,25 @@ def cuda_ms(fn, reps, device_only):
         caught_up = device_only and start.query()
         end.synchronize()
         if caught_up:
-            if sleep > 100 * SLEEP_CYCLES:
+            if sleep > 100 * SLEEP_CYCLES or not required and sleep > (
+                    8 * SLEEP_CYCLES):
+                if not required:
+                    return None
                 raise RuntimeError("the host cannot enqueue ahead of the "
                                    "device: no device-only time")
             sleep *= 2
             continue
-        samples.append(start.elapsed_time(end) / reps)
-    return statistics.median(samples)
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
 
 
-def turns(plain, kernel, reps, device_only):
+def turns(plain, kernel, reps, device_only, samples=SAMPLES):
     """plain, kernel, kernel, plain: (kernel ms, plain ms), each the mean
     of its two medians."""
-    p1 = cuda_ms(plain, reps, device_only)
-    k1 = cuda_ms(kernel, reps, device_only)
-    k2 = cuda_ms(kernel, reps, device_only)
-    p2 = cuda_ms(plain, reps, device_only)
+    p1 = cuda_ms(plain, reps, device_only, samples)
+    k1 = cuda_ms(kernel, reps, device_only, samples)
+    k2 = cuda_ms(kernel, reps, device_only, samples)
+    p2 = cuda_ms(plain, reps, device_only, samples)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -892,6 +1081,231 @@ def phase_times_2d_swt(port, dev, card):
     return times
 
 
+def phase_times_slice(port, dev, card):
+    """K16/K17 (db3 x coif1) and K19 (soft epilogue) / K20 (accumulating)
+    at level 0 of 2048^2 against their plain versions, and the cycle
+    spinning paths in frames/s, kernel path against plain path."""
+    ks, kn = port.ops.shifted, port.ops.nonsep
+    fb = port.get_filter_bank("db2")
+    cross = banks_2d(port)[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    # inputs that together exceed the 50 MB L2, as in phase_times
+    frames = [torch.rand(FRAME, generator=gen, device=dev) * 255
+              for _ in range(4)]
+    nx = itertools.cycle(frames).__next__
+    ncoef = itertools.cycle([kn.nsdwt2d_fused(f, cross)
+                             for f in frames]).__next__
+    scoef = itertools.cycle([ks.dwt2d_shifted_fused(f, fb, 1, 1)
+                             for f in frames]).__next__
+    times = {
+        "K16": turns(lambda: kn.nsdwt2d_plain(nx(), cross),
+                     lambda: kn.nsdwt2d_fused(nx(), cross), 3, True),
+        "K17": turns(lambda: kn.insdwt2d_plain(*ncoef(), cross, FRAME),
+                     lambda: kn.insdwt2d_fused(*ncoef(), cross, FRAME), 3,
+                     True),
+        "K19": turns(lambda: ks.dwt2d_shifted_plain(nx(), fb, 1, 1, "soft",
+                                                    BETA),
+                     lambda: ks.dwt2d_shifted_fused(nx(), fb, 1, 1, "soft",
+                                                    BETA), 10, True),
+        "K20": turns(lambda: ks.idwt2d_unshift_plain(*scoef(), fb, FRAME, 1,
+                                                     1, nx(), 0.25),
+                     lambda: ks.idwt2d_unshift_fused(*scoef(), fb, FRAME, 1,
+                                                     1, nx(), 0.25), 10,
+                     True),
+    }
+    for key, what, mib in (("K16", f"K16 nsdwt2d {cross.name}", 32),
+                           ("K17", f"K17 insdwt2d {cross.name}", 32),
+                           ("K19", "K19 dwt2d_shifted db2 (1, 1) soft", 32),
+                           ("K20", "K20 idwt2d_unshift db2 (1, 1) acc", 48)):
+        ms, plain = times[key]
+        gbs = mib * 2 ** 20 / (ms * 1e-3) / 1e9
+        print(f"time {what} level 0 {FRAME}, device: kernel "
+              f"{ms * 1e3:.1f} us ({gbs:.0f} GB/s, {gbs / 3350:.1%} of "
+              f"3.35 TB/s, {mib} MiB), plain {plain * 1e3:.1f} us  [{card}]")
+
+    def with_mode(mode, call):
+        def run():
+            port.dwt.set_kernels(mode)
+            call(nx())
+        return run
+
+    calls = denoise_calls(port)
+    for what in ("4-spin static cycle spinning",
+                 f"{RANDOM_SPINS}-spin random cycle spinning"):
+        kernel = with_mode("cuda", calls[what][0])
+        plain = with_mode("torch", calls[what][0])
+        ms = cuda_ms(kernel, 1, True, 7)
+        plain_ms = cuda_ms(plain, 1, True, 3, required=False)
+        shown = ("not measured (its launches overflow the launch queue "
+                 "behind the sleep)" if plain_ms is None else
+                 f"{plain_ms:.3f} ms ({1e3 / plain_ms:.1f} frames/s)")
+        print(f"time {what} db2 L3 {FRAME}, device: kernel path {ms:.3f} ms "
+              f"({1e3 / ms:.1f} frames/s), plain path {shown}  [{card}]")
+        ms, plain_ms = turns(plain, kernel, 1, False, samples=7)
+        print(f"time {what} db2 L3 {FRAME}, wall: kernel path {ms:.3f} ms "
+              f"({1e3 / ms:.1f} frames/s), plain path {plain_ms:.3f} ms "
+              f"({1e3 / plain_ms:.1f} frames/s)  [{card}]")
+    port.dwt.set_kernels("auto")
+    return times
+
+
+def phase_library(port, dev, card):
+    """library_ms: beside each kernel, one PyTorch call that computes the
+    same function at the kernel's timed shape, a strided, transposed or
+    dilated convolution in full float32 (cudnn.allow_tf32 off, set in
+    phase_device) on inputs padded (and, for K19/K20, rolled) outside the
+    timed window; each checked against the kernel's output.  The port
+    never calls them.  A call that waits for the device within itself (it
+    leaves the host no way ahead of a sleep) is timed by wall clock, and
+    says so.  K19's epilogue and K20's accumulator are outside
+    the convolution: those two time the level alone.  cuDNN picks each
+    call's fastest algorithm (cudnn.benchmark) in the check's call."""
+    torch.backends.cudnn.benchmark = True
+    try:
+        return _library_calls(port, dev, card)
+    finally:
+        torch.backends.cudnn.benchmark = False
+
+
+def _library_calls(port, dev, card):
+    fd, kn, ks = port.ops.fused_dwt, port.ops.nonsep, port.ops.shifted
+    conv = port.conv
+    fb = port.get_filter_bank("db2")
+    sep = port.nonsep.Filters2D.from_bank(fb)
+    cross = banks_2d(port)[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    frames = [torch.rand(FRAME, generator=gen, device=dev) * 255
+              for _ in range(4)]
+
+    def weights(filters, flip):
+        w = torch.tensor(np.stack(filters), dtype=torch.float32, device=dev)
+        return w.flip(-1, -2) if flip else w
+
+    def synthesis_offset(hlen):
+        # y[n] = z[n + T + 2P] for the transposed convolution z of the
+        # coefficients padded by P (the polyphase centring of
+        # conv.synthesis_core folded into one offset)
+        h2 = hlen // 2
+        return hlen - 2 + (1 - h2 % 2) - 2 * (h2 // 2)
+
+    def timed(key, inputs, call, kernel_out, crop=lambda z: z):
+        """Time ``call`` over the padded ``inputs``, after checking its
+        first output against the kernel's."""
+        err = max_err(crop(call(inputs[0])), kernel_out)
+        if not err <= LIBRARY_TOL:
+            raise AssertionError(f"{key}: library call vs kernel {err:.3e} "
+                                 f"> {LIBRARY_TOL}")
+        nx = itertools.cycle(inputs).__next__
+        ms = cuda_ms(lambda: call(nx()), 10, True, required=False)
+        clock = "device"
+        if ms is None:  # the call waits for the device: time it as it is
+            ms, clock = cuda_ms(lambda: call(nx()), 10, False), "wall"
+        print(f"library {key}: {ms * 1e3:.1f} us {clock} (vs kernel "
+              f"{err:.1e})  [{card}]")
+        return ms
+
+    def analysis(key, f2d, kernel, sr=0, sc=0):
+        lp, rp = conv.analysis_pads(f2d.hlen)
+        w = weights(f2d.dec, True)[:, None]
+        padded = [conv._pad2_periodic(torch.roll(f, (sr, sc), (-2, -1)),
+                                      lp, rp)[None, None] for f in frames]
+        return timed(key, padded, lambda x: F.conv2d(x, w, stride=2)[0],
+                     torch.stack(kernel(frames[0])))
+
+    def synthesis(key, f2d, coeffs, out, sr=0, sc=0):
+        pad = f2d.hlen
+        o = synthesis_offset(f2d.hlen) + 2 * pad
+        w = weights(f2d.rec, False)[:, None]
+        padded = [conv._pad2_periodic(torch.stack(c), pad, pad)[None]
+                  for c in coeffs]
+        n, m = FRAME
+        return timed(key, padded,
+                     lambda c: F.conv_transpose2d(c, w, stride=2),
+                     out, lambda z: z[0, 0, o + sr:o + sr + n,
+                                      o + sc:o + sc + m])
+
+    def stationary(key, f2d, level, kernel_out, inputs, inverse):
+        f = 1 << (level - 1)
+        s = conv.swt_centre(f2d.hlen, inverse)
+        lp, rp = (f2d.hlen - 1 - s) * f, s * f
+        if inverse:
+            w = 0.25 * weights(f2d.rec, True)[None]
+            padded = [conv._pad2_periodic(torch.stack(c), lp, rp)[None]
+                      for c in inputs]
+            return timed(key, padded,
+                         lambda c: F.conv2d(c, w, dilation=f)[0, 0],
+                         kernel_out)
+        w = weights(f2d.dec, True)[:, None]
+        padded = [conv._pad2_periodic(x, lp, rp)[None, None] for x in inputs]
+        return timed(key, padded, lambda x: F.conv2d(x, w, dilation=f)[0],
+                     torch.stack(kernel_out))
+
+    lib = {}
+    lib["K1"] = analysis("K1 conv2d stride 2", sep,
+                         lambda x: fd.dwt2d_fused(x, fb))
+    lib["K19"] = analysis("K19 conv2d stride 2, rolled (1, 1)", sep,
+                          lambda x: ks.dwt2d_shifted_fused(x, fb, 1, 1), 1, 1)
+    lib["K16"] = analysis(f"K16 conv2d stride 2 {cross.name}", cross,
+                          lambda x: kn.nsdwt2d_fused(x, cross))
+    coeffs = [fd.dwt2d_fused(f, fb) for f in frames]
+    lib["K2"] = synthesis("K2 conv_transpose2d stride 2", sep, coeffs,
+                          fd.idwt2d_fused(*coeffs[0], fb, FRAME))
+    lib["K20"] = synthesis("K20 conv_transpose2d stride 2, unrolled (1, 1)",
+                           sep, coeffs, ks.idwt2d_unshift_fused(
+                               *coeffs[0], fb, FRAME, 1, 1), 1, 1)
+    ncoeffs = [kn.nsdwt2d_fused(f, cross) for f in frames]
+    lib["K17"] = synthesis(f"K17 conv_transpose2d stride 2 {cross.name}",
+                           cross, ncoeffs,
+                           kn.insdwt2d_fused(*ncoeffs[0], cross, FRAME))
+    lib["K8"] = stationary("K8 conv2d dilation 1", sep, 1,
+                           fd.swt2d_fused(frames[0], fb, 1), frames, False)
+    scoeffs = [fd.swt2d_fused(f, fb, 1) for f in frames[:2]]
+    lib["K9"] = stationary("K9 conv2d dilation 1", sep, 1,
+                           fd.iswt2d_fused(*scoeffs[0], fb, 1), scoeffs, True)
+    del scoeffs
+    lib["K18a"] = stationary(f"K18a conv2d dilation 1 {cross.name}", cross,
+                             1, kn.ns_swt2d_fused(frames[0], cross, 1),
+                             frames, False)
+    scoeffs = [kn.ns_swt2d_fused(f, cross, 1) for f in frames[:2]]
+    lib["K18b"] = stationary(f"K18b conv2d dilation 1 {cross.name}", cross,
+                             1, kn.ins_swt2d_fused(*scoeffs[0], cross, 1),
+                             scoeffs, True)
+    del scoeffs
+
+    # 1D rows (2048 x 2048): conv1d over the rows as a batch
+    lp, rp = conv.analysis_pads(fb.hlen)
+    w1 = weights([fb.dec_lo, fb.dec_hi], False).flip(-1)[:, None]
+    rows = [conv.periodic_pad_last(f, lp, rp)[:, None] for f in frames]
+    lib["K3"] = timed("K3 conv1d stride 2", rows,
+                      lambda x: F.conv1d(x, w1, stride=2).transpose(0, 1),
+                      torch.stack(fd.dwt1d_fused(frames[0], fb)))
+    pad = fb.hlen
+    o = synthesis_offset(fb.hlen) + 2 * pad
+    wr = weights([fb.rec_lo, fb.rec_hi], False)[:, None]
+    c1 = [conv.periodic_pad_last(torch.stack(fd.dwt1d_fused(f, fb), 1), pad,
+                                 pad) for f in frames]
+    lib["K4"] = timed("K4 conv_transpose1d stride 2", c1,
+                      lambda c: F.conv_transpose1d(c, wr, stride=2),
+                      fd.idwt1d_fused(*fd.dwt1d_fused(frames[0], fb), fb,
+                                      FRAME[1]),
+                      lambda z: z[:, 0, o:o + FRAME[1]])
+    s = conv.swt_centre(fb.hlen, False)
+    rows = [conv.periodic_pad_last(f, fb.hlen - 1 - s, s)[:, None]
+            for f in frames]
+    lib["K10a"] = timed("K10a conv1d dilation 1", rows,
+                        lambda x: F.conv1d(x, w1).transpose(0, 1),
+                        torch.stack(fd.swt1d_fused(frames[0], fb, 1)))
+    s = conv.swt_centre(fb.hlen, True)
+    wb = 0.5 * weights([fb.rec_lo, fb.rec_hi], False).flip(-1)[None]
+    c1 = [conv.periodic_pad_last(torch.stack(fd.swt1d_fused(f, fb, 1), 1),
+                                 fb.hlen - 1 - s, s) for f in frames]
+    lib["K10b"] = timed("K10b conv1d dilation 1", c1,
+                        lambda c: F.conv1d(c, wb)[:, 0],
+                        fd.iswt1d_fused(*fd.swt1d_fused(frames[0], fb, 1),
+                                        fb, 1))
+    return lib
+
+
 def phase_sweep_2d_swt(port, dev, card):
     """Device time of K8/K9 and K18a/K18b on a 2048^2 frame, as the
     module docstring says (CUDA events, sleep-primed, median of 21)."""
@@ -944,6 +1358,54 @@ def phase_sweep_2d_swt(port, dev, card):
               f"K9 {k9[0] * 1e3:.1f} us (plain {k9[1] * 1e3:.1f})  [{card}]")
 
 
+_PK, _NSP = "ops/pallas_dwt.py", "ops/nonsep_pallas.py"
+# key, name, source under pypwt_tpu_torch/csrc/, the TPU kernel's call
+KERNEL_ROWS = (
+    ("K1", "dwt2d (K1)", "dwt2d.cu", f"{_PK}:287"),
+    ("K2", "idwt2d (K2)", "idwt2d.cu", f"{_PK}:477"),
+    ("K3", "dwt1d (K3)", "dwt1d.cu", f"{_PK}:2064"),
+    ("K4", "idwt1d (K4)", "idwt1d.cu", f"{_PK}:2104"),
+    ("K10a", "swt1d (K10a)", "swt1d.cu", f"{_PK}:2159"),
+    ("K10b", "iswt1d (K10b)", "swt1d.cu", f"{_PK}:2213"),
+    ("K8", "swt2d (K8)", "swt2d.cu", f"{_PK}:1912"),
+    ("K9", "iswt2d (K9)", "swt2d.cu", f"{_PK}:2004"),
+    ("K16", "nsdwt2d (K16)", "nonsep_dwt2d.cu", f"{_NSP}:147"),
+    ("K17", "insdwt2d (K17)", "nonsep_dwt2d.cu", f"{_NSP}:238"),
+    ("K18a", "ns_swt2d (K18a)", "nonsep_swt2d.cu", f"{_NSP}:344"),
+    ("K18b", "ins_swt2d (K18b)", "nonsep_swt2d.cu", f"{_NSP}:344"),
+    ("K19", "dwt2d_shifted (K19)", "dwt2d.cu", f"{_PK}:609"),
+    ("K20", "idwt2d_unshift (K20)", "idwt2d.cu", f"{_PK}:721"),
+)
+
+
+def timed_work(port):
+    """(bytes, flops) of each kernel's timed call: every input read once,
+    every output written once, two flops per FMA of its map.  2D at
+    2048^2 (db2; K16-K18 the db3 x coif1 bank), 1D on 2048 rows of 2048;
+    K20 with its accumulator."""
+    n2 = FRAME[0] * FRAME[1]
+    h = port.get_filter_bank("db2").hlen
+    hx = banks_2d(port)[0].hlen
+    return {
+        "K1": (8 * n2, 4 * h * n2), "K2": (8 * n2, 4 * h * n2),
+        "K3": (8 * n2, 2 * h * n2), "K4": (8 * n2, 2 * h * n2),
+        "K10a": (12 * n2, 4 * h * n2), "K10b": (12 * n2, 4 * h * n2),
+        "K8": (20 * n2, 12 * h * n2), "K9": (20 * n2, 12 * h * n2),
+        "K16": (8 * n2, 2 * hx * hx * n2), "K17": (8 * n2, 2 * hx * hx * n2),
+        "K18a": (20 * n2, 8 * hx * hx * n2),
+        "K18b": (20 * n2, 8 * hx * hx * n2),
+        "K19": (8 * n2, 4 * h * n2), "K20": (12 * n2, 4 * h * n2),
+    }
+
+
+def bound(nbytes, flops):
+    """The least time of a call, in ms: the larger of its bytes over the
+    card's memory rate and its flops over its float32 rate."""
+    t_bytes, t_flops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS
+    return (max(t_bytes, t_flops) * 1e3,
+            "bytes" if t_bytes >= t_flops else "operations")
+
+
 def main():
     if sys.argv[1:] not in ([], ["--sweep"]):
         print("usage: python3 chip_smoke.py [--sweep]", file=sys.stderr)
@@ -962,45 +1424,33 @@ def main():
     worst.update(phase_kernels_1d(port, dev))
     worst.update(phase_kernels_swt2d(port, dev))
     worst.update(phase_kernels_nonsep(port, dev))
+    worst.update(phase_kernels_shifted(port, dev))
     launches = phase_main_path(port, dev)
     launches.update(phase_main_paths_1d(port, dev))
     launches.update(phase_main_paths_2d_swt(port, dev))
+    launches.update(phase_main_paths_pipeline(port, dev))
     times = phase_times(port, dev, card)
     times.update(phase_times_1d(port, dev, card))
     times.update(phase_times_2d_swt(port, dev, card))
+    times.update(phase_times_slice(port, dev, card))
+    library = phase_library(port, dev, card)
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "pypwt_tpu.")))
     if leaked:
         raise AssertionError(f"JAX modules loaded: {leaked[:5]}")
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
-    kernels = [
-        {"name": "dwt2d (K1)", "route": "cuda",
-         "source": "pypwt_tpu_torch/csrc/dwt2d.cu",
-         "replaces": "pypwt_tpu/ops/pallas_dwt.py:287",
-         "launches": launches["K1"], "max_abs_err": worst["K1"],
-         "ms": times["K1"][0], "plain_ms": times["K1"][1]},
-        {"name": "idwt2d (K2)", "route": "cuda",
-         "source": "pypwt_tpu_torch/csrc/idwt2d.cu",
-         "replaces": "pypwt_tpu/ops/pallas_dwt.py:477",
-         "launches": launches["K2"], "max_abs_err": worst["K2"],
-         "ms": times["K2"][0], "plain_ms": times["K2"][1]},
-    ]
-    pk, nsp = "ops/pallas_dwt.py", "ops/nonsep_pallas.py"
-    for key, name, source, tpu in (
-            ("K3", "dwt1d (K3)", "dwt1d.cu", f"{pk}:2064"),
-            ("K4", "idwt1d (K4)", "idwt1d.cu", f"{pk}:2104"),
-            ("K10a", "swt1d (K10a)", "swt1d.cu", f"{pk}:2159"),
-            ("K10b", "iswt1d (K10b)", "swt1d.cu", f"{pk}:2213"),
-            ("K8", "swt2d (K8)", "swt2d.cu", f"{pk}:1912"),
-            ("K9", "iswt2d (K9)", "swt2d.cu", f"{pk}:2004"),
-            ("K18a", "ns_swt2d (K18a)", "nonsep_swt2d.cu", f"{nsp}:344"),
-            ("K18b", "ins_swt2d (K18b)", "nonsep_swt2d.cu", f"{nsp}:344")):
+    work = timed_work(port)
+    kernels = []
+    for key, name, source, tpu in KERNEL_ROWS:
+        bound_ms, bound_by = bound(*work[key])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"pypwt_tpu_torch/csrc/{source}",
             "replaces": f"pypwt_tpu/{tpu}",
             "launches": launches[key], "max_abs_err": worst[key],
-            "ms": times[key][0], "plain_ms": times[key][1]})
+            "ms": times[key][0], "plain_ms": times[key][1],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library.get(key)})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -7,12 +7,14 @@ DWT and its inverse (``core.dwt``, ``core.haar``) with its two level
 kernels K1/K2; the 1D and batched-1D DWT (``core.dwt``, ``core.haar``)
 with K3/K4; the stationary transform (``core.swt``), 1D and batched-1D
 with K10a/K10b and 2D with K8/K9 (all in ``ops.fused_dwt``); the
-non-separable 2D transforms (``core.nonsep``), whose stationary levels run
-on K18a/K18b (``ops.nonsep``; sources in ``csrc/``); the threshold
-operators (``core.thresh``); and the ``Wavelets`` class for all of
-them.  This
-package imports neither jax nor pypwt_tpu, and builds its kernels at their
-first launch, never at import.
+non-separable 2D transforms (``core.nonsep``), whose levels run on
+K16/K17 (DWT) and K18a/K18b (SWT) (``ops.nonsep``; sources in
+``csrc/``); the threshold operators (``core.thresh``); the ``Wavelets``
+class for all of them; and the denoising pipelines (``pipeline``:
+``denoise2d`` and the cycle-spinning ``denoise2d_cycle_spinning``, whose
+shifted levels run on K19/K20, ``ops.shifted``).  This package imports
+neither jax nor pypwt_tpu, and builds its kernels at their first launch,
+never at import.
 
 Quick start (mirrors the reference README):
 
@@ -31,6 +33,7 @@ from .version import __version__  # noqa: F401
 from . import core  # noqa: F401
 from .core import conv, dwt, haar, nonsep, shapes, swt, thresh  # noqa: F401
 from . import ops  # noqa: F401
+from . import pipeline  # noqa: F401
 
 __all__ = [
     "Wavelets",
@@ -38,5 +41,6 @@ __all__ = [
     "get_filter_bank",
     "wavelist",
     "core",
+    "pipeline",
     "__version__",
 ]

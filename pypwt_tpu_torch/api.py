@@ -6,17 +6,16 @@ Mirrors the Cython class (src/pypwt.pyx:64-615) and the C++ plan object
 ``forward()``/``inverse()`` run the level loops of ``core.dwt``,
 ``core.haar``, ``core.swt`` and ``core.nonsep`` (on a CUDA device through
 the level kernels: K1/K2 for the 2D DWT, K8/K9 for the 2D SWT, K3/K4 for
-the 1D DWT, K10 for the 1D SWT, K18a/K18b for the non-separable SWT of a
-custom 2D bank), coefficients live on the device and are copied back on
-access, and the reference's state machine (coefficients are declared
-invalid after ``inverse()``) is kept.
+the 1D DWT, K10 for the 1D SWT, K16/K17 and K18a/K18b for the
+non-separable DWT and SWT of a custom 2D bank), coefficients live on the
+device and are copied back on access, and the reference's state machine
+(coefficients are declared invalid after ``inverse()``) is kept.
 
-Every plan is ported: 2D, batched 1D (``ndim=1``) and one signal, DWT or
-SWT, separable or not (``do_separable=0``, 2D only), with any of the 72
-banks, a custom separable bank or a custom 2D bank; thresholds, norms,
-``add_wavelet`` and cycle spinning.  One mode has no CUDA kernel yet: the
-non-separable DWT of a custom 2D bank that does not factor (K16/K17) raises
-``NotImplementedError`` on a CUDA device.
+Every plan is ported and runs on the card: 2D, batched 1D (``ndim=1``) and
+one signal, DWT or SWT, separable or not (``do_separable=0``, 2D only),
+with any of the 72 banks, a custom separable bank or a custom 2D bank;
+thresholds, norms, ``add_wavelet`` and cycle spinning.  The denoising
+pipelines are in ``pipeline``.
 """
 
 from __future__ import annotations

@@ -12,14 +12,13 @@ one (the reference's batched-1D mode, pypwt.pyx:146-151).
 Kernel routing (``set_kernels``), decided per level before launch from
 dtype, device and shape, never by catching an error:
 
-* ``"auto"`` (default): a CUDA tensor that the level's kernel (K1/K2 in
-  2D, K3/K4 in 1D, K10 and K8/K9 for ``core.swt``, K18a/K18b for
-  ``core.nonsep``) covers launches it; a CPU tensor runs the plain
-  version.  An uncovered level on a CUDA tensor (odd size, float64, ...)
-  runs the plain torch version on the same device and adds one to the
-  kernel's ``declined`` count for K1-K4 and K10; the 2D stationary kernels
-  K8/K9 and K18a/K18b take every float32 level and never decline: there
-  an uncovered level (float64, ...) raises.
+* ``"auto"`` (default): a CUDA tensor launches the level's kernel (K1/K2
+  in 2D, K3/K4 in 1D, K19/K20 for the shifted levels of cycle spinning;
+  K10 and K8/K9 for ``core.swt``, K16/K17 and K18a/K18b for
+  ``core.nonsep``); a CPU tensor runs the plain version.  Every kernel
+  takes every float32 level its plain version takes (odd sizes and filter
+  lengths included), so none declines: a level it does not cover on a
+  CUDA tensor (float64, ...) raises ``ValueError``.
 * ``"cuda"``: the kernel, or an error (CPU tensor, uncovered level).
 * ``"torch"``: always the plain version, on the tensor's device.
 """
@@ -29,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import fused_dwt
+from ..ops import fused_dwt, shifted
 from .shapes import div2
 
 _MODES = ("auto", "torch", "cuda")
@@ -45,11 +44,11 @@ def set_kernels(mode: str):
     _KERNEL_MODE = mode
 
 
-def _route(kernel, tensor, why, strict=False):
+def _route(kernel, tensor, why):
     """True if ``kernel`` takes this level.  ``why`` is the kernel's
-    reason to refuse the call (None if it covers it).  A ``strict`` kernel
-    never declines: an uncovered level on a CUDA tensor raises, unless
-    kernel mode ``"torch"`` asks for the plain version."""
+    reason to refuse the call (None if it covers it).  No kernel declines:
+    an uncovered level on a CUDA tensor raises, unless kernel mode
+    ``"torch"`` asks for the plain version."""
     if _KERNEL_MODE == "torch":
         return False
     if not tensor.is_cuda:
@@ -60,14 +59,9 @@ def _route(kernel, tensor, why, strict=False):
         return False
     if why is None:
         return True
-    if _KERNEL_MODE == "cuda":
-        raise ValueError(f"kernel mode 'cuda': kernel does not cover {why}")
-    if strict:
-        raise ValueError(
-            f"{kernel.__name__}: the CUDA kernel does not cover {why}; "
-            "set_kernels('torch') runs the plain version on the device")
-    kernel.declined += 1
-    return False
+    raise ValueError(
+        f"{kernel.__name__}: the CUDA kernel does not cover {why}; "
+        "set_kernels('torch') runs the plain version on the device")
 
 
 def use_k1(x, fb) -> bool:
@@ -92,6 +86,19 @@ def use_k4(a, d, fb, n_out) -> bool:
     """Routing decision for one 1D synthesis level."""
     return _route(fused_dwt.idwt1d_fused, a,
                   fused_dwt.idwt1d_unsupported(a, d, fb, n_out))
+
+
+def use_k19(x, fb, mode=None) -> bool:
+    """Routing decision for one shifted analysis level."""
+    return _route(shifted.dwt2d_shifted_fused, x,
+                  shifted.dwt2d_shifted_unsupported(x, fb, mode))
+
+
+def use_k20(a, h, v, d, fb, out_shape, acc=None) -> bool:
+    """Routing decision for one unshifting synthesis level."""
+    return _route(shifted.idwt2d_unshift_fused, a,
+                  shifted.idwt2d_unshift_unsupported(a, h, v, d, fb,
+                                                     out_shape, acc))
 
 
 def dwt1d(x, fb):
@@ -124,6 +131,27 @@ def idwt2d(a, h, v, d, fb, out_shape):
                                       v.contiguous(), d.contiguous(), fb,
                                       out_shape)
     return fused_dwt.idwt2d_plain(a, h, v, d, fb, out_shape)
+
+
+def dwt2d_shifted(x, fb, sr, sc, mode=None, beta=0.0):
+    """One analysis level of ``roll(x, (sr, sc), (-2, -1))`` -> (a, h, v,
+    d); ``mode`` "soft" or "hard" thresholds h, v and d by ``beta``."""
+    if use_k19(x, fb, mode):
+        return shifted.dwt2d_shifted_fused(x.contiguous(), fb, sr, sc, mode,
+                                           beta)
+    return shifted.dwt2d_shifted_plain(x, fb, sr, sc, mode, beta)
+
+
+def idwt2d_unshift(a, h, v, d, fb, out_shape, sr, sc, acc=None, scale=1.0):
+    """One synthesis level of ``out_shape``, rolled back by (sr, sc), added
+    to ``acc`` (if given) and scaled: ``scale * (roll(y, (-sr, -sc))
+    [+ acc])``."""
+    if use_k20(a, h, v, d, fb, out_shape, acc):
+        return shifted.idwt2d_unshift_fused(
+            *(t.contiguous() for t in (a, h, v, d)), fb, out_shape, sr, sc,
+            None if acc is None else acc.contiguous(), scale)
+    return shifted.idwt2d_unshift_plain(a, h, v, d, fb, out_shape, sr, sc,
+                                        acc, scale)
 
 
 def wavedec2(image, fb, levels: int):

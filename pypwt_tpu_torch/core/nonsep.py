@@ -13,28 +13,25 @@ Routing:
   ``ins_swt2d``) send a bank that factors into one isotropic 1D bank to
   the separable path (``core.dwt``: K1/K2; ``core.swt``: K8/K9), as the
   JAX package does;
-* ``ns_swt2d_level``/``ins_swt2d_level`` route through
-  ``core.dwt.set_kernels`` to K18a/K18b (``ops.nonsep``) on a CUDA tensor,
-  which take every float32 level and never decline (float64 raises there,
-  unless kernel mode ``"torch"`` asks for the plain version);
-* ``nsdwt2d``/``insdwt2d`` are the plain slice formulation.  Their TPU
-  kernels K16/K17 are not ported yet: on a CUDA tensor a bank that factors
-  runs its level on K1/K2, and one that does not raises
-  ``NotImplementedError`` (ROADMAP.md queue 1, item 6), unless kernel mode
-  ``"torch"`` asks for the plain version.
+* the level functions ``nsdwt2d``/``insdwt2d`` and
+  ``ns_swt2d_level``/``ins_swt2d_level`` route through
+  ``core.dwt.set_kernels`` to K16/K17 and K18a/K18b (``ops.nonsep``) on a
+  CUDA tensor, which take every float32 level of every bank and never
+  decline (float64 raises there, unless kernel mode ``"torch"`` asks for
+  the plain version).
 
-The plain versions use the slice formulation at every filter size (the JAX
-package switches to ``lax.conv_general_dilated`` above 12 taps; a torch
-convolution would run through cuDNN in TF32 on a GPU).
+The plain versions (in ``ops.nonsep``) use the slice formulation at every
+filter size (the JAX package switches to ``lax.conv_general_dilated``
+above 12 taps; a torch convolution would run through cuDNN in TF32 on a
+GPU).
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..ops import nonsep as kernels
-from . import conv, dwt, swt
+from . import dwt, swt
 from .shapes import div2
 
 
@@ -144,136 +141,46 @@ def filters2d_from_numpy(name, dec, rec):
     return Filters2D(dec, rec, name=name)
 
 
-def _separable_on_cuda(t, f2d):
-    """The factored bank for a DWT level on a CUDA tensor (its level runs
-    on K1/K2); None where the plain version runs (CPU tensor, or kernel
-    mode "torch").  K16/K17 are not ported: a bank that does not factor
-    raises on a CUDA tensor."""
-    if not t.is_cuda or dwt._KERNEL_MODE == "torch":
-        return None
-    fb = f2d.separable_bank()
-    if fb is None:
-        raise NotImplementedError(
-            f"the non-separable DWT level of the non-factorable bank "
-            f"{f2d.name!r} has no CUDA kernel yet (K16/K17, ROADMAP.md "
-            "queue 1 item 6); set_kernels('torch') runs the plain version "
-            "on the device")
-    return fb
+def use_k16(x, f2d) -> bool:
+    """Routing decision for one non-separable analysis level."""
+    return dwt._route(kernels.nsdwt2d_fused, x,
+                      kernels.nsdwt2d_unsupported(x, f2d))
 
 
-def _weights(F, dtype):
-    return [conv._as_taps(row, dtype) for row in np.asarray(F)]
+def use_k17(a, h, v, d, f2d, out_shape) -> bool:
+    """Routing decision for one non-separable synthesis level."""
+    return dwt._route(kernels.insdwt2d_fused, a,
+                      kernels.insdwt2d_unsupported(a, h, v, d, f2d,
+                                                   out_shape))
 
 
 def nsdwt2d(x, f2d: Filters2D):
     """One non-separable 2D analysis level -> (a, h, v, d), each of size
-    div2 of the input's, in the slice formulation."""
-    fb = _separable_on_cuda(x, f2d)
-    if fb is not None:
-        return dwt.dwt2d(x, fb)
-    hlen = f2d.hlen
-    s = hlen // 2
-    xe = conv._odd_extend_2d(x)
-    xp = conv._pad2_periodic(xe, hlen - 1 - s, max(s - 1, 0))
-    L_r = xe.shape[-2] // 2
-    L_c = xe.shape[-1] // 2
-    frev = [_weights(np.asarray(f)[::-1, ::-1], x.dtype) for f in f2d.dec]
-    outs = [None] * 4
-    for k in range(hlen):
-        slab = xp[..., k: k + 2 * L_r: 2, :]
-        for l in range(hlen):
-            seg = slab[..., :, l: l + 2 * L_c: 2]
-            for si in range(4):
-                w = frev[si][k][l]
-                if w == 0.0:
-                    continue
-                t = seg * w
-                outs[si] = t if outs[si] is None else outs[si] + t
-    return tuple(outs)
+    div2 of the input's."""
+    if use_k16(x, f2d):
+        return kernels.nsdwt2d_fused(x.contiguous(), f2d)
+    return kernels.nsdwt2d_plain(x, f2d)
 
 
 def insdwt2d(a, h, v, d, f2d: Filters2D, out_shape):
     """One non-separable 2D synthesis level (4-phase polyphase inverse,
     nonseparable.cu:176-225) -> image of ``out_shape``."""
-    fb = _separable_on_cuda(a, f2d)
-    if fb is not None:
-        return dwt.idwt2d(a, h, v, d, fb, out_shape)
-    nr, nc = out_shape[-2], out_shape[-1]
-    L_r = a.shape[-2]
-    hlen = f2d.hlen
-    hlen2 = hlen // 2
-    sigma = 1 if hlen2 % 2 == 0 else 0
-    c = hlen2 // 2
-    Lout_r, Lout_c = (nr + 1) // 2, (nc + 1) // 2
-
-    coeffs = torch.stack([a, h, v, d], dim=-3)  # (..., 4, L_r, L_c)
-
-    # phase-dependent pads (same recipe as the 1D synthesis)
-    def pad_for(p, L, Lout):
-        pp = (p + sigma) & 1
-        delta = (p + sigma) >> 1
-        start = delta - c
-        lpad = max(-start, 0)
-        rpad = max(start + Lout + hlen2 - 1 - L, 0)
-        return pp, start + lpad, lpad, rpad
-
-    # all four phases share delta/lpad per parity; pad once with the max
-    pads = {p: pad_for(p, L_r, Lout_r) for p in (0, 1)}
-    lpad = max(pads[0][2], pads[1][2])
-    rpad = max(pads[0][3], pads[1][3])
-    xp = conv._pad2_periodic(coeffs, lpad, rpad)
-
-    # rhs[(py*2+px), b, jy, jx] = F_b[hlen-1-2jy-offy, hlen-1-2jx-offx]
-    rhs = np.zeros((4, 4, hlen2, hlen2))
-    offs = {p: 1 - ((p + sigma) & 1) for p in (0, 1)}
-    js = np.arange(hlen2)
-    for py in (0, 1):
-        for px in (0, 1):
-            ty = hlen - 1 - 2 * js - offs[py]
-            tx = hlen - 1 - 2 * js - offs[px]
-            for b, F in enumerate(f2d.rec):
-                rhs[py * 2 + px, b] = F[np.ix_(ty, tx)]
-
-    outs = {}
-    for py in (0, 1):
-        by = pads[py][1] + lpad - pads[py][2]
-        for px in (0, 1):
-            bx = pads[px][1] + lpad - pads[px][2]
-            win = xp[..., by: by + Lout_r + hlen2 - 1,
-                     bx: bx + Lout_c + hlen2 - 1]
-            acc = None
-            for b in range(4):
-                wb = win[..., b, :, :]
-                taps = _weights(rhs[py * 2 + px, b], a.dtype)
-                for jy in range(hlen2):
-                    for jx in range(hlen2):
-                        w = taps[jy][jx]
-                        if w == 0.0:
-                            continue
-                        t = wb[..., jy: jy + Lout_r, jx: jx + Lout_c] * w
-                        acc = t if acc is None else acc + t
-            outs[(py, px)] = acc
-
-    top = torch.stack([outs[(0, 0)], outs[(0, 1)]], dim=-1)
-    bot = torch.stack([outs[(1, 0)], outs[(1, 1)]], dim=-1)
-    top = top.reshape(*top.shape[:-2], 2 * Lout_c)
-    bot = bot.reshape(*bot.shape[:-2], 2 * Lout_c)
-    out = torch.stack([top, bot], dim=-2).reshape(
-        *top.shape[:-2], 2 * Lout_r, 2 * Lout_c)
-    return out[..., :nr, :nc].contiguous()
+    if use_k17(a, h, v, d, f2d, out_shape):
+        return kernels.insdwt2d_fused(*(s.contiguous() for s in (a, h, v, d)),
+                                      f2d, out_shape)
+    return kernels.insdwt2d_plain(a, h, v, d, f2d, out_shape)
 
 
 def use_k18a(x, f2d, level) -> bool:
     """Routing decision for one non-separable stationary analysis level."""
     return dwt._route(kernels.ns_swt2d_fused, x,
-                      kernels.ns_swt2d_unsupported(x, f2d, level), strict=True)
+                      kernels.ns_swt2d_unsupported(x, f2d, level))
 
 
 def use_k18b(a, h, v, d, f2d, level) -> bool:
     """Routing decision for one non-separable stationary synthesis level."""
     return dwt._route(kernels.ins_swt2d_fused, a,
-                      kernels.ins_swt2d_unsupported(a, h, v, d, f2d, level),
-                      strict=True)
+                      kernels.ins_swt2d_unsupported(a, h, v, d, f2d, level))
 
 
 def ns_swt2d_level(x, f2d: Filters2D, level: int):

@@ -54,14 +54,13 @@ def iswt1d_level(a, d, fb, level):
 def use_k8(x, fb, level) -> bool:
     """Routing decision for one stationary 2D analysis level."""
     return dwt._route(fused_dwt.swt2d_fused, x,
-                      fused_dwt.swt2d_unsupported(x, fb, level), strict=True)
+                      fused_dwt.swt2d_unsupported(x, fb, level))
 
 
 def use_k9(a, h, v, d, fb, level) -> bool:
     """Routing decision for one stationary 2D synthesis level."""
     return dwt._route(fused_dwt.iswt2d_fused, a,
-                      fused_dwt.iswt2d_unsupported(a, h, v, d, fb, level),
-                      strict=True)
+                      fused_dwt.iswt2d_unsupported(a, h, v, d, fb, level))
 
 
 def swt2d_level(x, fb, level):

@@ -1,7 +1,7 @@
-// Shared pieces of the level kernels: the 2D DWT pair (dwt2d.cu,
-// idwt2d.cu), the 1D DWT pair (dwt1d.cu, idwt1d.cu), the 1D stationary
-// pair (swt1d.cu), the 2D stationary pair (swt2d.cu) and the non-separable
-// stationary pair (nonsep_swt2d.cu).
+// Shared pieces of the level kernels: the 2D DWT pair and its shifted
+// forms (dwt2d.cu, idwt2d.cu), the 1D DWT pair (dwt1d.cu, idwt1d.cu), the
+// 1D stationary pair (swt1d.cu), the 2D stationary pair (swt2d.cu) and the
+// non-separable pairs (nonsep_dwt2d.cu, nonsep_swt2d.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,12 +31,35 @@ inline Taps make_taps(const float* lo, const float* hi, int hlen) {
   return t;
 }
 
+// The analysis taps of a decimating level. An odd hlen = 2m + 1 gets a zero
+// tap in front (hlen + 1 taps): the analysis left pad hlen - 1 - hlen/2 is m
+// for both lengths, so the map is the same and the kernels need only handle
+// even lengths. Returns the kernel's tap count.
+inline int make_analysis_taps(const float* lo, const float* hi, int hlen,
+                              Taps* t) {
+  *t = Taps{};
+  const int z = hlen & 1;
+  for (int k = 0; k < hlen; ++k) {
+    t->lo[k + z] = lo[k];
+    t->hi[k + z] = hi[k];
+  }
+  return hlen + z;
+}
+
 // k mod n in [0, n) for any k. A single wrap is not enough: at deep levels
 // or on small planes the periodic pad is wider than the plane itself.
 __device__ __forceinline__ int wrap(int k, int n) {
   if (static_cast<unsigned>(k) < static_cast<unsigned>(n)) return k;
   k %= n;
   return k < 0 ? k + n : k;
+}
+
+// Sample k of an axis of n samples in a decimating level: the reference's
+// virtual extension of an odd axis repeats its last sample (conv.py's
+// _odd_extend_last, separable.cu:116-121), so the axis has period n + 1 and
+// sample n is sample n - 1. For an even axis this is wrap(k, n).
+__device__ __forceinline__ int wrap_ext(int k, int n) {
+  return min(wrap(k, n + (n & 1)), n - 1);
 }
 
 // Per-tap read offsets of one a-trous axis: tap k reads sample
@@ -88,14 +111,15 @@ __device__ __forceinline__ void load_reversed_taps(const Taps& taps, int hlen,
 //              + rec_hi[tap(p, j)] * hi[(m + delta(p) + j - c) mod L],
 // with h2 = hlen/2, c = h2/2, sigma = (h2 even),
 // delta(p) = (p + sigma) >> 1, off(p) = 1 - ((p + sigma) & 1) and
-// tap(p, j) = hlen - 1 - 2j - off(p).
+// tap(p, j) = hlen - 1 - 2j - off(p) (an odd hlen never reads tap 0).
 struct Polyphase {
-  int h2, c, sigma;
+  int hlen, h2, c, sigma;
   __host__ __device__ explicit Polyphase(int hlen)
-      : h2(hlen >> 1), c((hlen >> 1) >> 1), sigma(((hlen >> 1) & 1) ? 0 : 1) {}
+      : hlen(hlen), h2(hlen >> 1), c((hlen >> 1) >> 1),
+        sigma(((hlen >> 1) & 1) ? 0 : 1) {}
   __host__ __device__ int delta(int p) const { return (p + sigma) >> 1; }
   __host__ __device__ int tap(int p, int j) const {
-    return 2 * h2 - 1 - 2 * j - (1 - ((p + sigma) & 1));
+    return hlen - 1 - 2 * j - (1 - ((p + sigma) & 1));
   }
 };
 
@@ -112,10 +136,28 @@ __device__ __forceinline__ void load_polyphase_taps(const Taps& taps, int hlen,
   }
 }
 
-// Grid y and z hold at most 65535 blocks. The 2D stationary kernels
-// (swt2d.cu, nonsep_swt2d.cu) put column blocks on x, row blocks on y and
-// planes on z; launch_chunks issues a level with more row blocks or planes
-// than that as several launches, calling launch(grid, y0, z0) with the
+// Four hlen x hlen filters of a non-separable bank, interleaved [k][l][b]
+// (b fastest), passed to the kernel by value (kernel parameter space, up to
+// 25,600 bytes at hlen 40): no device copy of the bank per call.
+struct Bank2D {
+  float f[4 * kMaxTaps * kMaxTaps];
+};
+
+// filters: host array of 4 * hlen * hlen floats, [b][k][l]; the bank
+// interleaves them to [k][l][b], each scaled by `scale`.
+inline Bank2D make_bank(const float* filters, int hlen, float scale) {
+  Bank2D bank{};
+  const int n2 = hlen * hlen;
+  for (int b = 0; b < 4; ++b)
+    for (int i = 0; i < n2; ++i)
+      bank.f[4 * i + b] = scale * filters[b * n2 + i];
+  return bank;
+}
+
+// Grid y and z hold at most 65535 blocks. The 2D level kernels put column
+// blocks on x, row blocks on y and planes on z; launch_chunks issues a
+// level with more row blocks or planes than that as several launches,
+// calling launch(grid, y0, z0) with the
 // first row block and plane of each, so no grid limit bounds a batch, a
 // plane size or a level. One launch in every other case.
 constexpr int kMaxGridYZ = 65535;

@@ -4,10 +4,13 @@
 // (_build_dwt1d, :2064), and computes the map of the folded long-signal
 // kernel ::dwt1d_long_fused (_build_dwt1d_long, :2438) on a (1, n) view.
 //
-// Map (pypwt_tpu/core/conv.py:78-118, analysis_last), for x of (R, n) with
-// even n and even hlen <= 40, each row on its own:
-//   lo[r, i] = sum_j dec_lo[hlen-1-j] * x[r, (2i + j - lpad) mod n],
-//   hi the same with dec_hi, lpad = hlen - 1 - hlen/2 (common.cuh).
+// Map (pypwt_tpu/core/conv.py:78-118, analysis_last), for x of (R, n) and
+// any hlen <= 40 (an odd one padded by make_analysis_taps), each row on its
+// own:
+//   lo[r, i] = sum_j dec_lo[hlen-1-j] * x[r, (2i + j - lpad) mod M],
+//   hi the same with dec_hi, lpad = hlen - 1 - hlen/2 (common.cuh), where an
+// odd row is extended by its last sample (M = n + 1, wrap_ext) and an even
+// one has M = n; ceil(n/2) outputs per row.
 //
 // Bound: per input sample a level reads 4 bytes and writes 4 (half a lo
 // and half a hi output) and does hlen FMAs: hlen/4 flop per byte, under the
@@ -16,7 +19,8 @@
 //
 // Design: the grid is one flat axis of (row, tile) pairs, so a single
 // signal of 4 Mi samples and a 2048 x 2048 stack both give thousands of
-// blocks (grid y and z, limited to 65535, are not used). Each block owns TC
+// blocks (grid y and z, limited to 65535, are not used; rows past the grid's
+// 2^31 - 1 blocks go in further launches). Each block owns TC
 // outputs of one row; it stages its input window (2 TC + hlen - 2 samples,
 // with a true periodic wrap, and an in-range fast path) into shared memory
 // once, split into even and odd samples so that the decimating taps read
@@ -33,7 +37,8 @@ constexpr int kWinHalf = TC + kHalfTaps;  // window samples of one parity
 
 __global__ void __launch_bounds__(kThreads)
 dwt1d_kernel(const float* __restrict__ x, float* __restrict__ a,
-             float* __restrict__ d, int n, int tiles, Taps taps, int hlen) {
+             float* __restrict__ d, int n, int tiles, Taps taps, int hlen,
+             long long row0) {
   extern __shared__ float smem[];
   float* s_ev = smem;             // [kWinHalf] even window samples
   float* s_od = s_ev + kWinHalf;  // [kWinHalf] odd window samples
@@ -41,13 +46,14 @@ dwt1d_kernel(const float* __restrict__ x, float* __restrict__ a,
   float* f_hi = f_lo + kMaxTaps;
 
   const int tid = threadIdx.x;
-  const int row = blockIdx.x / tiles;
-  const int c0 = (blockIdx.x - row * tiles) * TC;
-  const int len = n >> 1;
+  const int bt = blockIdx.x / tiles;
+  const int c0 = (blockIdx.x - bt * tiles) * TC;
+  const long long row = row0 + bt;
+  const int len = (n + 1) >> 1;
   const int cnt = min(TC, len - c0);    // outputs of this block
   const int wc = 2 * (cnt + hlen / 2 - 1);  // window samples
   const int col0 = 2 * c0 - analysis_lpad(hlen);
-  const float* xr = x + static_cast<long long>(row) * n;
+  const float* xr = x + row * n;
 
   load_reversed_taps(taps, hlen, f_lo, f_hi);
   if (col0 >= 0 && col0 + wc <= n) {
@@ -55,12 +61,12 @@ dwt1d_kernel(const float* __restrict__ x, float* __restrict__ a,
       (i & 1 ? s_od : s_ev)[i >> 1] = xr[col0 + i];
   } else {
     for (int i = tid; i < wc; i += kThreads)
-      (i & 1 ? s_od : s_ev)[i >> 1] = xr[wrap(col0 + i, n)];
+      (i & 1 ? s_od : s_ev)[i >> 1] = xr[wrap_ext(col0 + i, n)];
   }
   __syncthreads();
 
   // Window sample 2i + j feeds output i.
-  const long long ob = static_cast<long long>(row) * len + c0;
+  const long long ob = row * len + c0;
   for (int i = tid; i < cnt; i += kThreads) {
     const float* ev = s_ev + i;
     const float* od = s_od + i;
@@ -86,16 +92,20 @@ extern "C" int pypwt_dwt1d(const float* x, float* a, float* d, int rows,
                            int n, const float* dec_lo, const float* dec_hi,
                            int hlen, int device, void* stream) {
   using namespace pypwt;
-  const int tiles = (n / 2 + TC - 1) / TC;
-  if (hlen < 2 || hlen > kMaxTaps || (hlen & 1) || n < 2 || (n & 1) ||
-      n > 0x3fffffff || rows < 1 ||
-      static_cast<long long>(rows) * tiles > 0x7fffffffLL)
+  const int tiles = ((n + 1) / 2 + TC - 1) / TC;
+  if (hlen < 1 || hlen > kMaxTaps || n < 1 || n > 0x3fffffff || rows < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  Taps taps;
+  hlen = make_analysis_taps(dec_lo, dec_hi, hlen, &taps);
   const size_t smem = sizeof(float) * (2 * kWinHalf + 2 * kMaxTaps);
-  dwt1d_kernel<<<rows * tiles, kThreads, smem,
-                 static_cast<cudaStream_t>(stream)>>>(
-      x, a, d, n, tiles, make_taps(dec_lo, dec_hi, hlen), hlen);
+  const long long chunk = 0x7fffffffLL / tiles;  // rows per launch
+  for (long long r0 = 0; r0 < rows; r0 += chunk) {
+    const long long nrows = std::min<long long>(rows - r0, chunk);
+    dwt1d_kernel<<<static_cast<unsigned>(nrows * tiles), kThreads, smem,
+                   static_cast<cudaStream_t>(stream)>>>(
+        x, a, d, n, tiles, taps, hlen, r0);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -49,11 +49,6 @@ constexpr int BR = 8;   // output rows per block
 constexpr int BC = 32;  // output columns per block: one warp per row
 static_assert(BR * BC == kThreads, "one thread per output pixel");
 
-// Four hlen x hlen filters, interleaved [k][l][b] (b fastest).
-struct Bank2D {
-  float f[4 * kMaxTaps * kMaxTaps];
-};
-
 __device__ __forceinline__ int wrap_once(int i, int n) {
   return i >= n ? i - n : i;
 }
@@ -149,17 +144,6 @@ bool plan_level(int batch, int nr, int nc, int level, int s, int hlen,
   *roff = dilated_offsets(hlen, s, level, nr);
   *coff = dilated_offsets(hlen, s, level, nc);
   return true;
-}
-
-// filters: host array of 4 * hlen * hlen floats, [b][k][l]; the bank
-// interleaves them to [k][l][b].
-Bank2D make_bank(const float* filters, int hlen, float scale) {
-  Bank2D bank{};
-  const int n2 = hlen * hlen;
-  for (int b = 0; b < 4; ++b)
-    for (int i = 0; i < n2; ++i)
-      bank.f[4 * i + b] = scale * filters[b * n2 + i];
-  return bank;
 }
 
 }  // namespace

@@ -35,17 +35,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C interface of csrc/*.cu: every pointer and the stream as c_void_p, so
 # that ctypes does not cut them to 32 bits.
 _SIGNATURES = {
     # x, a, h, v, d, batch, nr, nc, dec_lo, dec_hi, hlen, device, stream
     "pypwt_dwt2d": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P],
-    # a, h, v, d, out, batch, lr, lc, rec_lo, rec_hi, hlen, device, stream
-    "pypwt_idwt2d": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P],
+    # x, a, h, v, d, batch, nr, nc, sr, sc, mode, beta, dec_lo, dec_hi,
+    # hlen, device, stream
+    "pypwt_dwt2d_shifted": [_P] * 5 + [_I] * 6 + [_F, _P, _P, _I, _I, _P],
+    # a, h, v, d, out, batch, lr, lc, nr, nc, rec_lo, rec_hi, hlen, device,
+    # stream
+    "pypwt_idwt2d": [_P] * 5 + [_I] * 5 + [_P, _P, _I, _I, _P],
+    # a, h, v, d, acc, out, batch, lr, lc, nr, nc, sr, sc, scale, rec_lo,
+    # rec_hi, hlen, device, stream
+    "pypwt_idwt2d_unshift": [_P] * 6 + [_I] * 7 + [_F, _P, _P, _I, _I, _P],
     # x, a, d, rows, n, dec_lo, dec_hi, hlen, device, stream
     "pypwt_dwt1d": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P],
-    # a, d, out, rows, len, rec_lo, rec_hi, hlen, device, stream
-    "pypwt_idwt1d": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P],
+    # a, d, out, rows, len, n_out, rec_lo, rec_hi, hlen, device, stream
+    "pypwt_idwt1d": [_P] * 3 + [_I] * 3 + [_P, _P, _I, _I, _P],
     # x, a, d, rows, n, level, dec_lo, dec_hi, hlen, device, stream
     "pypwt_swt1d": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P],
     # a, d, out, rows, n, level, rec_lo, rec_hi, hlen, device, stream
@@ -62,6 +70,11 @@ _SIGNATURES = {
     # a, h, v, d, out, batch, nr, nc, level, centre, rec (4 hlen^2), hlen,
     # device, stream
     "pypwt_ins_swt2d": [_P] * 5 + [_I] * 5 + [_P, _I, _I, _P],
+    # x, a, h, v, d, batch, nr, nc, dec (4 hlen^2), hlen, device, stream
+    "pypwt_ns_dwt2d": [_P] * 5 + [_I] * 3 + [_P, _I, _I, _P],
+    # a, h, v, d, out, batch, lr, lc, nr, nc, rec (4 hlen^2), hlen, device,
+    # stream
+    "pypwt_ins_dwt2d": [_P] * 5 + [_I] * 5 + [_P, _I, _I, _P],
 }
 
 _lib = None

@@ -27,11 +27,13 @@ whose folding only fixed the TPU's lane layout.  Beside each kernel:
   ``core/swt.py`` fallbacks compose them;
 * ``*_unsupported``, which says before launch, from dtype, rank, shape and
   bank, why the kernel cannot take a call (None if it can) -- the port's
-  form of the JAX wrappers returning None;
-* counts on the wrapper: ``launches`` (kernel launches) and ``declined``
-  (levels on a CUDA tensor that the dispatcher in ``core.dwt`` sent to the
-  plain version because the kernel does not cover them; K1-K4 and K10
-  only: K8/K9 never decline, an uncovered level raises).
+  form of the JAX wrappers returning None.  Every kernel takes every
+  float32 level its plain version takes: odd sizes (the reference's
+  virtual extension, in the kernels' index), odd filter lengths, odd
+  synthesis outputs, and any batch or row count (levels past a grid's
+  limits go in several launches); only another dtype or rank, an empty or
+  over-long (2^30 samples) axis and an over-long filter refuse;
+* ``launches`` on the wrapper, its count of kernel launches.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises.  Taps are float32, rounded once from the
@@ -45,11 +47,11 @@ import numpy as np
 import torch
 
 from ..core import conv
+from ..core.shapes import div2
 from ..filters import MAX_FILTER_WIDTH
 from . import _build
 
-_MAX_GRID = 65535  # grid y and z limit (rows of tiles, batch)
-_TILE = 32         # coefficient rows per block in both kernels
+_MAX_SAMPLES = 1 << 30  # samples per axis: int indices in the kernels
 
 
 def dwt2d_plain(x, fb):
@@ -75,9 +77,20 @@ def idwt2d_plain(a, h, v, d, fb, out_shape):
     return conv.synthesis_last(t1, t2, fb.rec_lo, fb.rec_hi, nc).contiguous()
 
 
-def _bank_unsupported(fb):
-    if fb.hlen % 2 or not 2 <= fb.hlen <= MAX_FILTER_WIDTH:
-        return f"filter length {fb.hlen} (even, 2..{MAX_FILTER_WIDTH})"
+def _bank_unsupported(fb, lowest=1):
+    """Why a decimating kernel cannot take bank ``fb``: analysis takes
+    1..40 taps, synthesis (``lowest`` 2) 2..40; the plain synthesis has no
+    polyphase tap below 2."""
+    if not lowest <= fb.hlen <= MAX_FILTER_WIDTH:
+        return f"filter length {fb.hlen} ({lowest}..{MAX_FILTER_WIDTH})"
+    return None
+
+
+def _sizes_unsupported(sizes, what):
+    if min(sizes) < 1:
+        return f"empty {what}"
+    if max(sizes) >= _MAX_SAMPLES:
+        return f"{what} sizes {tuple(sizes)} (each below {_MAX_SAMPLES})"
     return None
 
 
@@ -86,9 +99,9 @@ def _plane_unsupported(t, what):
         return f"{what} dtype {t.dtype} (float32 only)"
     if t.ndim not in (2, 3):
         return f"{what} rank {t.ndim} (2 or 3)"
-    if t.ndim == 3 and not 1 <= t.shape[0] <= _MAX_GRID:
-        return f"batch {t.shape[0]} (1..{_MAX_GRID})"
-    return None
+    if t.numel() == 0:
+        return f"empty {what}"
+    return _sizes_unsupported(t.shape[-2:], what)
 
 
 def _batch(t):
@@ -97,20 +110,13 @@ def _batch(t):
 
 def dwt2d_unsupported(x, fb):
     """Why K1 cannot take ``x`` with bank ``fb``, or None if it can."""
-    why = _plane_unsupported(x, "input") or _bank_unsupported(fb)
-    if why:
-        return why
-    nr, nc = x.shape[-2], x.shape[-1]
-    if nr < 2 or nc < 2 or nr % 2 or nc % 2:
-        return f"plane {nr}x{nc} (even sizes only)"
-    if -(-(nr // 2) // _TILE) > _MAX_GRID:
-        return f"{nr} rows (too many tiles for the grid)"
-    return None
+    return _plane_unsupported(x, "input") or _bank_unsupported(fb)
 
 
-def idwt2d_unsupported(a, h, v, d, fb, out_shape):
-    """Why K2 cannot take these coefficients, or None if it can."""
-    why = _plane_unsupported(a, "coefficient") or _bank_unsupported(fb)
+def subbands_unsupported(a, h, v, d, out_shape):
+    """Why four subbands and an output shape cannot go to a 2D synthesis
+    kernel (K2, K17, K20), or None."""
+    why = _plane_unsupported(a, "coefficient")
     if why:
         return why
     if not (a.shape == h.shape == v.shape == d.shape):
@@ -119,15 +125,13 @@ def idwt2d_unsupported(a, h, v, d, fb, out_shape):
         return "subbands of different dtypes"
     if not (a.device == h.device == v.device == d.device):
         return "subbands on different devices"
-    lr, lc = a.shape[-2], a.shape[-1]
-    if lr < 1 or lc < 1:
-        return "empty subbands"
-    if (out_shape[-2], out_shape[-1]) != (2 * lr, 2 * lc):
-        return (f"output {tuple(out_shape[-2:])} is not twice the "
-                f"coefficients {lr}x{lc} (odd-size level)")
-    if -(-lr // _TILE) > _MAX_GRID:
-        return f"{lr} coefficient rows (too many tiles for the grid)"
-    return None
+    return _sizes_unsupported(tuple(out_shape[-2:]), "output")
+
+
+def idwt2d_unsupported(a, h, v, d, fb, out_shape):
+    """Why K2 cannot take these coefficients, or None if it can."""
+    return (subbands_unsupported(a, h, v, d, out_shape)
+            or _bank_unsupported(fb, 2))
 
 
 _HOST_TAPS: dict = {}
@@ -155,60 +159,61 @@ def _require(cond, name, why):
         raise ValueError(f"{name} does not take this input: {why}")
 
 
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_inputs(name, why, *ts):
+    """Raise unless kernel ``name`` can take ``ts`` (CUDA, contiguous);
+    ``why`` is its ``*_unsupported`` answer."""
+    _require(ts[0].is_cuda, name, f"device {ts[0].device}")
+    _require(why is None, name, why)
+    _require(all(t.is_contiguous() for t in ts), name, "non-contiguous input")
+
+
 def dwt2d_fused(x, fb):
     """K1: one separable analysis level -> (a, h, v, d), each
-    (B?, Nr/2, Nc/2).  CPU tensor: the plain version."""
+    (B?, div2(Nr), div2(Nc)).  CPU tensor: the plain version."""
     if x.device.type == "cpu":
         return dwt2d_plain(x, fb)
-    _require(x.is_cuda, "K1 (dwt2d)", f"device {x.device}")
-    why = dwt2d_unsupported(x, fb)
-    _require(why is None, "K1 (dwt2d)", why)
-    _require(x.is_contiguous(), "K1 (dwt2d)", "non-contiguous input")
+    _check_inputs("K1 (dwt2d)", dwt2d_unsupported(x, fb), x)
     lib = _build.load_library()
     nr, nc = x.shape[-2], x.shape[-1]
-    shape = (*x.shape[:-2], nr // 2, nc // 2)
+    shape = (*x.shape[:-2], div2(nr), div2(nc))
     a, h, v, d = (torch.empty(shape, dtype=x.dtype, device=x.device)
                   for _ in range(4))
     lo, hi = _host_taps(fb.dec_lo), _host_taps(fb.dec_hi)
     err = lib.pypwt_dwt2d(
         x.data_ptr(), a.data_ptr(), h.data_ptr(), v.data_ptr(), d.data_ptr(),
         _batch(x), nr, nc, lo.ctypes.data, hi.ctypes.data, fb.hlen,
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+        x.device.index, _stream(x))
     _check_launch(lib, err, "K1 (dwt2d)")
     dwt2d_fused.launches += 1
     return a, h, v, d
 
 
 def idwt2d_fused(a, h, v, d, fb, out_shape):
-    """K2: one separable synthesis level -> (B?, 2Lr, 2Lc).  CPU tensors:
-    the plain version."""
+    """K2: one separable synthesis level -> (B?, *out_shape[-2:]).  CPU
+    tensors: the plain version."""
     if a.device.type == "cpu":
         return idwt2d_plain(a, h, v, d, fb, out_shape)
-    _require(a.is_cuda, "K2 (idwt2d)", f"device {a.device}")
-    why = idwt2d_unsupported(a, h, v, d, fb, out_shape)
-    _require(why is None, "K2 (idwt2d)", why)
-    _require(all(s.is_contiguous() for s in (a, h, v, d)), "K2 (idwt2d)",
-             "non-contiguous input")
+    _check_inputs("K2 (idwt2d)", idwt2d_unsupported(a, h, v, d, fb, out_shape),
+                  a, h, v, d)
     lib = _build.load_library()
-    lr, lc = a.shape[-2], a.shape[-1]
-    out = torch.empty((*a.shape[:-2], 2 * lr, 2 * lc), dtype=a.dtype,
-                      device=a.device)
+    nr, nc = out_shape[-2], out_shape[-1]
+    out = torch.empty((*a.shape[:-2], nr, nc), dtype=a.dtype, device=a.device)
     lo, hi = _host_taps(fb.rec_lo), _host_taps(fb.rec_hi)
     err = lib.pypwt_idwt2d(
         a.data_ptr(), h.data_ptr(), v.data_ptr(), d.data_ptr(),
-        out.data_ptr(), _batch(a), lr, lc, lo.ctypes.data, hi.ctypes.data,
-        fb.hlen, a.device.index,
-        torch.cuda.current_stream(a.device).cuda_stream)
+        out.data_ptr(), _batch(a), a.shape[-2], a.shape[-1], nr, nc,
+        lo.ctypes.data, hi.ctypes.data, fb.hlen, a.device.index,
+        _stream(a))
     _check_launch(lib, err, "K2 (idwt2d)")
     idwt2d_fused.launches += 1
     return out
 
 
 # -- batched-1D levels: K3, K4, K10a, K10b --------------------------------
-
-_TILE_1D = 1024  # per block: K3/K10 outputs, K4 coefficients (csrc/*1d.cu)
-_MAX_SAMPLES = 1 << 30  # samples per row: int indices in the kernels
-_MAX_BLOCKS = (1 << 31) - 1  # grid x limit: (row, tile) pairs
 
 
 def dwt1d_plain(x, fb):
@@ -236,9 +241,9 @@ def _rows(t):
     return t.shape[0] if t.ndim == 2 else 1
 
 
-def _rows_unsupported(t, what, tile=_TILE_1D):
-    """Why rows ``t`` (``(R, n)`` or ``(n,)``) cannot go to a 1D kernel
-    whose blocks each cover ``tile`` samples of a row, or None."""
+def _rows_unsupported(t, what):
+    """Why rows ``t`` (``(R, n)`` or ``(n,)``) cannot go to a 1D kernel, or
+    None.  Rows past a grid's limit go in several launches."""
     if t.dtype != torch.float32:
         return f"{what} dtype {t.dtype} (float32 only)"
     if t.ndim not in (1, 2):
@@ -248,8 +253,6 @@ def _rows_unsupported(t, what, tile=_TILE_1D):
         return f"empty {what}"
     if n >= _MAX_SAMPLES:
         return f"{n} samples per row (below {_MAX_SAMPLES})"
-    if _rows(t) * -(-n // tile) > _MAX_BLOCKS:
-        return f"{_rows(t)} rows (too many tiles for the grid)"
     return None
 
 
@@ -271,60 +274,38 @@ def _level_unsupported(level):
 
 def dwt1d_unsupported(x, fb):
     """Why K3 cannot take ``x`` with bank ``fb``, or None if it can."""
-    why = _rows_unsupported(x, "input", 2 * _TILE_1D) or _bank_unsupported(fb)
-    if why:
-        return why
-    if x.shape[-1] % 2:
-        return f"length {x.shape[-1]} (even lengths only)"
-    return None
+    return _rows_unsupported(x, "input") or _bank_unsupported(fb)
 
 
 def idwt1d_unsupported(a, d, fb, n_out):
     """Why K4 cannot take these coefficients, or None if it can."""
-    why = (_rows_unsupported(a, "coefficient") or _pair_unsupported(a, d)
-           or _bank_unsupported(fb))
-    if why:
-        return why
-    if n_out != 2 * a.shape[-1]:
-        return (f"output length {n_out} is not twice the {a.shape[-1]} "
-                "coefficients (odd-size level)")
-    return None
-
-
-def _swt_bank_unsupported(fb):
-    if not 1 <= fb.hlen <= MAX_FILTER_WIDTH:
-        return f"filter length {fb.hlen} (1..{MAX_FILTER_WIDTH})"
-    return None
+    return (_rows_unsupported(a, "coefficient") or _pair_unsupported(a, d)
+            or _bank_unsupported(fb, 2)
+            or _sizes_unsupported((n_out,), "output"))
 
 
 def swt1d_unsupported(x, fb, level):
     """Why K10a cannot take ``x`` at ``level``, or None if it can."""
-    return (_rows_unsupported(x, "input") or _swt_bank_unsupported(fb)
+    return (_rows_unsupported(x, "input") or _bank_unsupported(fb)
             or _level_unsupported(level))
 
 
 def iswt1d_unsupported(a, d, fb, level):
     """Why K10b cannot take these coefficients, or None if it can."""
     return (_rows_unsupported(a, "coefficient") or _pair_unsupported(a, d)
-            or _swt_bank_unsupported(fb) or _level_unsupported(level))
-
-
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+            or _bank_unsupported(fb) or _level_unsupported(level))
 
 
 def dwt1d_fused(x, fb):
-    """K3: one batched-1D analysis level -> (a, d), each ``(R?, n/2)``.
+    """K3: one batched-1D analysis level -> (a, d), each
+    ``(R?, div2(n))``.
     CPU tensor: the plain version."""
     if x.device.type == "cpu":
         return dwt1d_plain(x, fb)
-    _require(x.is_cuda, "K3 (dwt1d)", f"device {x.device}")
-    why = dwt1d_unsupported(x, fb)
-    _require(why is None, "K3 (dwt1d)", why)
-    _require(x.is_contiguous(), "K3 (dwt1d)", "non-contiguous input")
+    _check_inputs("K3 (dwt1d)", dwt1d_unsupported(x, fb), x)
     lib = _build.load_library()
     n = x.shape[-1]
-    shape = (*x.shape[:-1], n // 2)
+    shape = (*x.shape[:-1], div2(n))
     a, d = (torch.empty(shape, dtype=x.dtype, device=x.device)
             for _ in range(2))
     lo, hi = _host_taps(fb.dec_lo), _host_taps(fb.dec_hi)
@@ -341,19 +322,14 @@ def idwt1d_fused(a, d, fb, n_out):
     tensors: the plain version."""
     if a.device.type == "cpu":
         return idwt1d_plain(a, d, fb, n_out)
-    _require(a.is_cuda, "K4 (idwt1d)", f"device {a.device}")
-    why = idwt1d_unsupported(a, d, fb, n_out)
-    _require(why is None, "K4 (idwt1d)", why)
-    _require(a.is_contiguous() and d.is_contiguous(), "K4 (idwt1d)",
-             "non-contiguous input")
+    _check_inputs("K4 (idwt1d)", idwt1d_unsupported(a, d, fb, n_out), a, d)
     lib = _build.load_library()
-    length = a.shape[-1]
-    out = torch.empty((*a.shape[:-1], 2 * length), dtype=a.dtype,
-                      device=a.device)
+    out = torch.empty((*a.shape[:-1], n_out), dtype=a.dtype, device=a.device)
     lo, hi = _host_taps(fb.rec_lo), _host_taps(fb.rec_hi)
     err = lib.pypwt_idwt1d(a.data_ptr(), d.data_ptr(), out.data_ptr(),
-                           _rows(a), length, lo.ctypes.data, hi.ctypes.data,
-                           fb.hlen, a.device.index, _stream(a))
+                           _rows(a), a.shape[-1], n_out, lo.ctypes.data,
+                           hi.ctypes.data, fb.hlen, a.device.index,
+                           _stream(a))
     _check_launch(lib, err, "K4 (idwt1d)")
     idwt1d_fused.launches += 1
     return out
@@ -364,10 +340,7 @@ def swt1d_fused(x, fb, level):
     the input's shape.  CPU tensor: the plain version."""
     if x.device.type == "cpu":
         return swt1d_plain(x, fb, level)
-    _require(x.is_cuda, "K10a (swt1d)", f"device {x.device}")
-    why = swt1d_unsupported(x, fb, level)
-    _require(why is None, "K10a (swt1d)", why)
-    _require(x.is_contiguous(), "K10a (swt1d)", "non-contiguous input")
+    _check_inputs("K10a (swt1d)", swt1d_unsupported(x, fb, level), x)
     lib = _build.load_library()
     a, d = torch.empty_like(x), torch.empty_like(x)
     lo, hi = _host_taps(fb.dec_lo), _host_taps(fb.dec_hi)
@@ -384,11 +357,7 @@ def iswt1d_fused(a, d, fb, level):
     coefficients' shape.  CPU tensors: the plain version."""
     if a.device.type == "cpu":
         return iswt1d_plain(a, d, fb, level)
-    _require(a.is_cuda, "K10b (iswt1d)", f"device {a.device}")
-    why = iswt1d_unsupported(a, d, fb, level)
-    _require(why is None, "K10b (iswt1d)", why)
-    _require(a.is_contiguous() and d.is_contiguous(), "K10b (iswt1d)",
-             "non-contiguous input")
+    _check_inputs("K10b (iswt1d)", iswt1d_unsupported(a, d, fb, level), a, d)
     lib = _build.load_library()
     out = torch.empty_like(a)
     lo, hi = _host_taps(fb.rec_lo), _host_taps(fb.rec_hi)
@@ -432,31 +401,22 @@ def swt2d_plane_unsupported(t, what, level):
     """Why a plane or stack ``t`` cannot go to a 2D stationary kernel (K8,
     K9, K18a, K18b) at ``level``, or None.  A level with more row blocks or
     planes than a grid holds is launched in chunks, so no batch, plane size
-    or level meets a grid
-    limit: only dtype, rank, an empty input and the 32-bit sizes refuse."""
-    if t.dtype != torch.float32:
-        return f"{what} dtype {t.dtype} (float32 only)"
-    if t.ndim not in (2, 3):
-        return f"{what} rank {t.ndim} (2 or 3)"
-    if t.numel() == 0:
-        return f"empty {what}"
-    nr, nc = t.shape[-2], t.shape[-1]
-    if max(nr, nc) >= _MAX_SAMPLES:
-        return f"plane {nr}x{nc} (each size below {_MAX_SAMPLES})"
-    return _level_unsupported(level)
+    or level meets a grid limit: only dtype, rank, an empty input and the
+    32-bit sizes refuse."""
+    return _plane_unsupported(t, what) or _level_unsupported(level)
 
 
 def swt2d_unsupported(x, fb, level):
     """Why K8 cannot take ``x`` at ``level``, or None if it can."""
     return (swt2d_plane_unsupported(x, "input", level)
-            or _swt_bank_unsupported(fb))
+            or _bank_unsupported(fb))
 
 
 def iswt2d_unsupported(a, h, v, d, fb, level):
     """Why K9 cannot take these coefficients, or None if it can."""
     return (swt2d_plane_unsupported(a, "coefficient", level)
             or _pair_unsupported(a, h) or _pair_unsupported(a, v)
-            or _pair_unsupported(a, d) or _swt_bank_unsupported(fb))
+            or _pair_unsupported(a, d) or _bank_unsupported(fb))
 
 
 def swt2d_fused(x, fb, level):
@@ -464,10 +424,7 @@ def swt2d_fused(x, fb, level):
     input's shape ``(B?, Nr, Nc)``.  CPU tensor: the plain version."""
     if x.device.type == "cpu":
         return swt2d_plain(x, fb, level)
-    _require(x.is_cuda, "K8 (swt2d)", f"device {x.device}")
-    why = swt2d_unsupported(x, fb, level)
-    _require(why is None, "K8 (swt2d)", why)
-    _require(x.is_contiguous(), "K8 (swt2d)", "non-contiguous input")
+    _check_inputs("K8 (swt2d)", swt2d_unsupported(x, fb, level), x)
     lib = _build.load_library()
     a, h, v, d = (torch.empty_like(x) for _ in range(4))
     lo, hi = _host_taps(fb.dec_lo), _host_taps(fb.dec_hi)
@@ -486,11 +443,8 @@ def iswt2d_fused(a, h, v, d, fb, level):
     CPU tensors: the plain version."""
     if a.device.type == "cpu":
         return iswt2d_plain(a, h, v, d, fb, level)
-    _require(a.is_cuda, "K9 (iswt2d)", f"device {a.device}")
-    why = iswt2d_unsupported(a, h, v, d, fb, level)
-    _require(why is None, "K9 (iswt2d)", why)
-    _require(all(s.is_contiguous() for s in (a, h, v, d)), "K9 (iswt2d)",
-             "non-contiguous input")
+    _check_inputs("K9 (iswt2d)", iswt2d_unsupported(a, h, v, d, fb, level),
+                  a, h, v, d)
     lib = _build.load_library()
     out = torch.empty_like(a)
     lo, hi = _host_taps(fb.rec_lo), _host_taps(fb.rec_hi)
@@ -507,7 +461,6 @@ def iswt2d_fused(a, h, v, d, fb, level):
 KERNELS = (dwt2d_fused, idwt2d_fused, dwt1d_fused, idwt1d_fused,
            swt1d_fused, iswt1d_fused, swt2d_fused, iswt2d_fused)
 
-# counts start at 0; ``ops.reset_counts`` zeroes them with K18a/K18b's
+# counts start at 0; ``ops.reset_counts`` zeroes them with the others
 for _k in KERNELS:
     _k.launches = 0
-    _k.declined = 0

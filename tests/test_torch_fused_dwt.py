@@ -66,7 +66,7 @@ def test_auto_on_cpu_takes_plain_and_counts_nothing():
         assert torch.equal(g, p) and torch.equal(g, w)
     assert torch.equal(rec, rec_w)
     for k in fd.KERNELS:
-        assert (k.launches, k.declined) == (0, 0)
+        assert k.launches == 0
 
 
 def test_cuda_mode_raises_on_cpu_tensor():
@@ -102,24 +102,66 @@ def test_set_kernels_rejects_unknown():
 
 
 def test_k1_coverage_rules():
+    """K1 takes every float32 level its plain version takes: odd sizes and
+    odd filter lengths included, no grid limit; only dtype, rank, an empty
+    plane and an over-long filter refuse."""
     fb = get_filter_bank("db2")
     ok = torch.zeros(64, 128)
     assert fd.dwt2d_unsupported(ok, fb) is None
     assert fd.dwt2d_unsupported(torch.zeros(3, 64, 128), fb) is None
     assert "float32" in fd.dwt2d_unsupported(ok.double(), fb)
-    assert "even" in fd.dwt2d_unsupported(torch.zeros(63, 128), fb)
-    assert "even" in fd.dwt2d_unsupported(torch.zeros(64, 127), fb)
+    assert fd.dwt2d_unsupported(torch.zeros(63, 128), fb) is None
+    assert fd.dwt2d_unsupported(torch.zeros(64, 127), fb) is None
+    assert fd.dwt2d_unsupported(torch.zeros(1, 1), fb) is None
+    assert fd.dwt2d_unsupported(torch.zeros(70000, 2, 2), fb) is None
     assert "rank" in fd.dwt2d_unsupported(torch.zeros(2, 2, 64, 128), fb)
+    assert "empty" in fd.dwt2d_unsupported(torch.zeros(0, 8, 8), fb)
     odd = FilterBank("odd", *(np.ones(3) for _ in range(4)))
-    assert "filter length" in fd.dwt2d_unsupported(ok, odd)
+    assert fd.dwt2d_unsupported(ok, odd) is None
+    wide = FilterBank("wide", *(np.ones(41) for _ in range(4)))
+    assert "filter length" in fd.dwt2d_unsupported(ok, wide)
 
 
 def test_k2_coverage_rules():
     fb = get_filter_bank("sym20")
     c = [torch.zeros(32, 64) for _ in range(4)]
     assert fd.idwt2d_unsupported(*c, fb, (64, 128)) is None
-    assert "odd-size" in fd.idwt2d_unsupported(*c, fb, (63, 128))
+    assert fd.idwt2d_unsupported(*c, fb, (63, 128)) is None
+    assert fd.idwt2d_unsupported(*c, fb, (64, 127)) is None
     assert "shapes" in fd.idwt2d_unsupported(*c[:3], torch.zeros(32, 63), fb,
                                              (64, 128))
     assert "float32" in fd.idwt2d_unsupported(
         *(s.double() for s in c), fb, (64, 128))
+    one = FilterBank("one", *(np.ones(1) for _ in range(4)))
+    assert "filter length" in fd.idwt2d_unsupported(*c, one, (64, 128))
+
+
+@pytest.mark.parametrize("wname", ["db2", "bior3.5", "odd3"])
+@pytest.mark.parametrize("shape", [(63, 47), (2, 33, 64), (1, 5)], ids=str)
+def test_odd_levels_plain_match_jax(wname, shape):
+    """The odd levels K1/K2 now take (odd sizes, an odd filter length)
+    against the JAX package's jnp path, which the Pallas kernels leave
+    them to."""
+    from pypwt_tpu.core import dwt as jdwt
+    from pypwt_tpu.filters import FilterBank as JBank
+    if wname == "odd3":
+        taps = [np.asarray(v) for v in ([0.3, 0.6, 0.1], [0.2, -0.7, 0.5],
+                                        [0.4, 0.5, 0.1], [-0.3, 0.6, -0.2])]
+        jfb, tfb = JBank("odd3", *taps), FilterBank("odd3", *taps)
+    else:
+        jfb, tfb = jbank(wname), get_filter_bank(wname)
+    x = _rand(shape)
+    jdwt.set_kernels("jnp")
+    try:
+        ref = jdwt.dwt2d(jnp.asarray(x), jfb)
+        c = [np.array(r) for r in ref]
+        jrec = jdwt.idwt2d(*(jnp.asarray(s) for s in c), jfb, shape)
+    finally:
+        jdwt.set_kernels("auto")
+    got = fd.dwt2d_fused(torch.from_numpy(x), tfb)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert np.abs(g.numpy() - np.asarray(r)).max() <= TOL
+    rec = fd.idwt2d_fused(*(torch.from_numpy(s) for s in c), tfb, shape)
+    assert rec.shape == shape
+    assert np.abs(rec.numpy() - np.asarray(jrec)).max() <= TOL

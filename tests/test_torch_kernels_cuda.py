@@ -1,7 +1,8 @@
-"""K1/K2, K3/K4, K10a/K10b, K8/K9 and K18a/K18b against their plain
-versions on the GPU, at small sizes (the kernel phase of chip_smoke.py),
-plus the auto/cuda routing on CUDA tensors and the Wavelets plans on the
-card.
+"""K1/K2, K3/K4, K10a/K10b, K8/K9, K16/K17, K18a/K18b and K19/K20 against
+their plain versions on the GPU, at small sizes (the kernel phase of
+chip_smoke.py), odd sizes and odd filter lengths included, plus the
+auto/cuda routing on CUDA tensors, the Wavelets plans and the denoising
+pipelines on the card.
 
 Needs an NVIDIA GPU and nvcc; skips without a GPU.  Imports no JAX, and
 needs none of the conftest's JAX set-up, so on the GPU run it without it:
@@ -14,18 +15,20 @@ import numpy as np
 import pytest
 import torch
 
-from pypwt_tpu_torch import Wavelets, ops
+from pypwt_tpu_torch import Wavelets, ops, pipeline
 from pypwt_tpu_torch.core import dwt, nonsep, swt
 from pypwt_tpu_torch.core.nonsep import Filters2D
 from pypwt_tpu_torch.filters import FilterBank, get_filter_bank
 from pypwt_tpu_torch.ops import fused_dwt as fd
 from pypwt_tpu_torch.ops import nonsep as kn
+from pypwt_tpu_torch.ops import shifted as ks
 
 pytestmark = pytest.mark.cuda
 
 TOL = 2e-5  # kernel vs plain on [0, 1): summation order and FMA only
-BANKS = ["haar", "db2", "db8", "sym20", "bior3.5"]
-SHAPES = [(8, 8), (64, 128), (2, 96, 64), (130, 258)]
+BANKS = ["haar", "db2", "db8", "sym20", "bior3.5", "odd5"]
+SHAPES = [(8, 8), (64, 128), (2, 96, 64), (130, 258), (33, 47),
+          (2, 31, 22), (1, 1)]
 
 
 @pytest.fixture
@@ -41,10 +44,23 @@ def _rand(shape, dev, seed=0):
     return torch.rand(shape, generator=g, device=dev)
 
 
+ODD = FilterBank("odd5", *(np.asarray(v) for v in (
+    [0.1, -0.3, 0.7, 0.25, -0.05], [0.2, 0.5, -0.6, 0.1, 0.3],
+    [-0.15, 0.35, 0.6, 0.2, 0.05], [0.4, -0.2, 0.1, 0.55, -0.3])))
+
+
+def _bank(wname):
+    return ODD if wname == "odd5" else get_filter_bank(wname)
+
+
+def _half(shape):
+    return (*shape[:-2], (shape[-2] + 1) // 2, (shape[-1] + 1) // 2)
+
+
 @pytest.mark.parametrize("wname", BANKS)
 @pytest.mark.parametrize("shape", SHAPES)
 def test_k1_matches_plain(dev, wname, shape):
-    fb = get_filter_bank(wname)
+    fb = _bank(wname)
     x = _rand(shape, dev)
     n = fd.dwt2d_fused.launches
     got = fd.dwt2d_fused(x, fb)
@@ -57,9 +73,8 @@ def test_k1_matches_plain(dev, wname, shape):
 @pytest.mark.parametrize("wname", BANKS)
 @pytest.mark.parametrize("shape", SHAPES)
 def test_k2_matches_plain(dev, wname, shape):
-    fb = get_filter_bank(wname)
-    cshape = (*shape[:-2], shape[-2] // 2, shape[-1] // 2)
-    c = [_rand(cshape, dev, s) for s in range(4)]
+    fb = _bank(wname)
+    c = [_rand(_half(shape), dev, s) for s in range(4)]
     n = fd.idwt2d_fused.launches
     out = fd.idwt2d_fused(*c, fb, shape)
     assert fd.idwt2d_fused.launches == n + 1
@@ -69,19 +84,31 @@ def test_k2_matches_plain(dev, wname, shape):
 @pytest.mark.parametrize("shape, dtype", [((31, 22), torch.float32),
                                           ((64, 64), torch.float64)])
 def test_auto_declines_uncovered_levels(dev, shape, dtype):
+    """No level is declined: an odd float32 plane launches K1, float64
+    raises in modes "auto" and "cuda", and mode "torch" runs the plain
+    version on the device."""
     fb = get_filter_bank("db2")
     x = _rand(shape, dev).to(dtype)
     ops.reset_counts()
-    got = dwt.dwt2d(x, fb)
-    assert (fd.dwt2d_fused.launches, fd.dwt2d_fused.declined) == (0, 1)
-    for g, r in zip(got, fd.dwt2d_plain(x, fb)):
-        assert torch.equal(g, r)
-    dwt.set_kernels("cuda")
+    if dtype == torch.float32:
+        _close(dwt.dwt2d(x, fb), fd.dwt2d_plain(x, fb))
+        assert fd.dwt2d_fused.launches == 1
+        return
+    for mode in ("auto", "cuda"):
+        dwt.set_kernels(mode)
+        try:
+            with pytest.raises(ValueError, match="does not cover"):
+                dwt.dwt2d(x, fb)
+        finally:
+            dwt.set_kernels("auto")
+    dwt.set_kernels("torch")
     try:
-        with pytest.raises(ValueError, match="does not cover"):
-            dwt.dwt2d(x, fb)
+        got = dwt.dwt2d(x, fb)
     finally:
         dwt.set_kernels("auto")
+    for g, r in zip(got, fd.dwt2d_plain(x, fb)):
+        assert g.is_cuda and torch.equal(g, r)
+    assert fd.dwt2d_fused.launches == 0
 
 
 def test_wavelets_cuda_matches_cpu(dev):
@@ -99,10 +126,8 @@ def test_wavelets_cuda_matches_cpu(dev):
     assert "Running on device : NVIDIA" in repr(W)
 
 
-SHAPES_1D = [(8,), (3, 64), (2, 2100), (1, 4098)]
-ODD = FilterBank("odd5", *(np.asarray(v) for v in (
-    [0.1, -0.3, 0.7, 0.25, -0.05], [0.2, 0.5, -0.6, 0.1, 0.3],
-    [-0.15, 0.35, 0.6, 0.2, 0.05], [0.4, -0.2, 0.1, 0.55, -0.3])))
+SHAPES_1D = [(8,), (3, 64), (2, 2100), (1, 4098), (7,), (3, 63),
+             (2, 2101)]
 
 
 def _close(got, ref):
@@ -116,11 +141,11 @@ def _close(got, ref):
 @pytest.mark.parametrize("wname", BANKS)
 @pytest.mark.parametrize("shape", SHAPES_1D)
 def test_k3_k4_match_plain(dev, wname, shape):
-    fb = get_filter_bank(wname)
+    fb = _bank(wname)
     x = _rand(shape, dev)
     n3, n4 = fd.dwt1d_fused.launches, fd.idwt1d_fused.launches
     _close(fd.dwt1d_fused(x, fb), fd.dwt1d_plain(x, fb))
-    cshape = (*shape[:-1], shape[-1] // 2)
+    cshape = (*shape[:-1], (shape[-1] + 1) // 2)
     a, d = _rand(cshape, dev, 1), _rand(cshape, dev, 2)
     _close(fd.idwt1d_fused(a, d, fb, shape[-1]),
            fd.idwt1d_plain(a, d, fb, shape[-1]))
@@ -128,12 +153,12 @@ def test_k3_k4_match_plain(dev, wname, shape):
                                                                    n4 + 1)
 
 
-@pytest.mark.parametrize("wname", BANKS + ["odd5"])
+@pytest.mark.parametrize("wname", BANKS)
 @pytest.mark.parametrize("shape, level", [((8,), 3), ((4, 16), 3),
                                           ((3, 64), 1), ((2, 3000), 6),
                                           ((2, 3000), 9), ((1, 4100), 12)])
 def test_k10_match_plain(dev, wname, shape, level):
-    fb = ODD if wname == "odd5" else get_filter_bank(wname)
+    fb = _bank(wname)
     x = _rand(shape, dev)
     n = fd.swt1d_fused.launches + fd.iswt1d_fused.launches
     _close(fd.swt1d_fused(x, fb, level), fd.swt1d_plain(x, fb, level))
@@ -146,19 +171,17 @@ def test_k10_match_plain(dev, wname, shape, level):
 @pytest.mark.parametrize("shape, dtype", [((4, 31), torch.float32),
                                           ((4, 64), torch.float64)])
 def test_auto_declines_uncovered_1d_levels(dev, shape, dtype):
+    """An odd float32 row launches K3; float64 raises."""
     fb = get_filter_bank("db2")
     x = _rand(shape, dev).to(dtype)
     ops.reset_counts()
-    got = dwt.dwt1d(x, fb)
-    assert (fd.dwt1d_fused.launches, fd.dwt1d_fused.declined) == (0, 1)
-    for g, r in zip(got, fd.dwt1d_plain(x, fb)):
-        assert torch.equal(g, r)
-    dwt.set_kernels("cuda")
-    try:
-        with pytest.raises(ValueError, match="does not cover"):
-            dwt.dwt1d(x, fb)
-    finally:
-        dwt.set_kernels("auto")
+    if dtype == torch.float32:
+        _close(dwt.dwt1d(x, fb), fd.dwt1d_plain(x, fb))
+        assert fd.dwt1d_fused.launches == 1
+        return
+    with pytest.raises(ValueError, match="does not cover"):
+        dwt.dwt1d(x, fb)
+    assert fd.dwt1d_fused.launches == 0
 
 
 @pytest.mark.parametrize("shape", [(2048,), (16, 512)],
@@ -178,7 +201,6 @@ def test_wavelets_1d_cuda_matches_cpu(dev, shape, do_swt):
     fwd, inv = ((fd.swt1d_fused, fd.iswt1d_fused) if do_swt
                 else (fd.dwt1d_fused, fd.idwt1d_fused))
     assert (fwd.launches, inv.launches) == (3, 3)
-    assert sum(k.declined for k in fd.KERNELS) == 0
 
 
 # -- 2D stationary (K8/K9) and non-separable stationary (K18a/K18b) -------
@@ -186,11 +208,11 @@ def test_wavelets_1d_cuda_matches_cpu(dev, shape, do_swt):
 SHAPES_2D = [(8, 8), (33, 47), (2, 64, 96), (130, 258)]
 
 
-@pytest.mark.parametrize("wname", BANKS + ["odd5"])
+@pytest.mark.parametrize("wname", BANKS)
 @pytest.mark.parametrize("shape", SHAPES_2D, ids=str)
 @pytest.mark.parametrize("level", [1, 2, 4])
 def test_k8_k9_match_plain(dev, wname, shape, level):
-    fb = ODD if wname == "odd5" else get_filter_bank(wname)
+    fb = _bank(wname)
     x = _rand(shape, dev)
     n = fd.swt2d_fused.launches + fd.iswt2d_fused.launches
     _close(fd.swt2d_fused(x, fb, level), fd.swt2d_plain(x, fb, level))
@@ -262,10 +284,18 @@ def test_wavelets_2d_modes_cuda_match_cpu(dev, mode):
             "custom2d-swt": ("ns_swt2d_fused", "ins_swt2d_fused")}[mode]
     got = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
     assert got == {want[0]: 3, want[1]: 3}
-    assert sum(k.declined for k in ops.KERNELS) == 0
 
 
 ROUTES_2D_SWT = {
+    "K1": lambda x, fb, f2d: dwt.dwt2d(x, fb),
+    "K2": lambda x, fb, f2d: dwt.idwt2d(x, x, x, x, fb, (31, 47)),
+    "K3": lambda x, fb, f2d: dwt.dwt1d(x, fb),
+    "K4": lambda x, fb, f2d: dwt.idwt1d(x, x, fb, 47),
+    "K16": lambda x, fb, f2d: nonsep.nsdwt2d(x, f2d),
+    "K17": lambda x, fb, f2d: nonsep.insdwt2d(x, x, x, x, f2d, (32, 48)),
+    "K19": lambda x, fb, f2d: dwt.dwt2d_shifted(x, fb, 3, 1, "soft", 0.1),
+    "K20": lambda x, fb, f2d: dwt.idwt2d_unshift(x, x, x, x, fb, (32, 48), 1,
+                                                  5, x.new_zeros(32, 48)),
     "K8": lambda x, fb, f2d: swt.swt2d_level(x, fb, 2),
     "K9": lambda x, fb, f2d: swt.iswt2d_level(x, x, x, x, fb, 2),
     "K18a": lambda x, fb, f2d: nonsep.ns_swt2d_level(x, f2d, 2),
@@ -275,8 +305,8 @@ ROUTES_2D_SWT = {
 
 @pytest.mark.parametrize("route", sorted(ROUTES_2D_SWT))
 def test_2d_swt_routes_raise_on_float64(dev, route):
-    """K8/K9/K18a/K18b never decline: float64 on the card raises in mode
-    "auto", and mode "torch" runs the plain version on the device."""
+    """No kernel declines: float64 on the card raises in mode "auto", and
+    mode "torch" runs the plain version on the device."""
     call = ROUTES_2D_SWT[route]
     fb, f2d = get_filter_bank("db2"), _f2d("db3xcoif1")
     x = _rand((16, 24), dev).double()
@@ -292,7 +322,7 @@ def test_2d_swt_routes_raise_on_float64(dev, route):
     for g, w in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
         assert g.is_cuda and float((g.cpu() - w).abs().max()) <= 1e-12
-    assert sum(k.launches + k.declined for k in ops.KERNELS) == 0
+    assert sum(k.launches for k in ops.KERNELS) == 0
 
 
 @pytest.mark.parametrize("shape, level", [((70000, 2, 3), 2),
@@ -316,24 +346,116 @@ def test_2d_swt_kernels_past_the_grid_axis_limits(dev, shape, level):
 
 
 def test_non_factorable_dwt_level_raises_on_cuda(dev):
+    """The DWT of a bank that does not factor runs on K16/K17 (it raised
+    before they were ported); float64 raises."""
     f2d = _f2d("db3xcoif1")
     x = _rand((32, 48), dev)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        nonsep.nsdwt2d(x, f2d)
+    ops.reset_counts()
+    _close(nonsep.nsdwt2d(x, f2d), kn.nsdwt2d_plain(x, f2d))
     c = [_rand((16, 24), dev, s) for s in range(4)]
-    with pytest.raises(NotImplementedError, match="K16/K17"):
-        nonsep.insdwt2d(*c, f2d, (32, 48))
-    W = Wavelets(np.zeros((32, 48), np.float32), "db2", 2, device=dev,
-                 do_separable=0)
+    _close(nonsep.insdwt2d(*c, f2d, (32, 48)),
+           kn.insdwt2d_plain(*c, f2d, (32, 48)))
+    W = Wavelets(x.cpu().numpy(), "db2", 2, device=dev, do_separable=0)
     W.set_wavelets_filters(f2d.name, f2d.dec[0], f2d.dec[3], f2d.rec[0],
                            f2d.rec[3], LH=f2d.dec[1], HL=f2d.dec[2],
                            i_LH=f2d.rec[1], i_HL=f2d.rec[2])
-    with pytest.raises(NotImplementedError, match="K16/K17"):
-        W.forward()
-    dwt.set_kernels("torch")
-    try:
-        got = nonsep.nsdwt2d(x, f2d)
-    finally:
-        dwt.set_kernels("auto")
-    for g, r in zip(got, nonsep.nsdwt2d(x.cpu(), f2d)):
-        assert float((g.cpu() - r).abs().max()) <= TOL
+    W.forward()
+    W.inverse()
+    assert np.abs(W.image - x.cpu().numpy()).max() < 7e-4
+    assert (kn.nsdwt2d_fused.launches, kn.insdwt2d_fused.launches) == (3, 3)
+    with pytest.raises(ValueError, match="float64"):
+        nonsep.nsdwt2d(x.double(), f2d)
+
+
+@pytest.mark.parametrize("name", ["db3xcoif1", "dense8", "dense5"])
+@pytest.mark.parametrize("shape", [(8, 8), (64, 128), (2, 33, 47), (7, 1)],
+                         ids=str)
+def test_k16_k17_match_plain(dev, name, shape):
+    if name == "dense5":
+        g = np.random.default_rng(5)
+        f2d = Filters2D(list(g.random((4, 5, 5)) / 5),
+                        list(g.random((4, 5, 5)) / 5), name)
+    else:
+        f2d = _f2d(name)
+    x = _rand(shape, dev)
+    n = kn.nsdwt2d_fused.launches + kn.insdwt2d_fused.launches
+    _close(kn.nsdwt2d_fused(x, f2d), kn.nsdwt2d_plain(x, f2d))
+    c = [_rand(_half(shape), dev, s) for s in range(1, 5)]
+    _close(kn.insdwt2d_fused(*c, f2d, shape),
+           kn.insdwt2d_plain(*c, f2d, shape))
+    assert kn.nsdwt2d_fused.launches + kn.insdwt2d_fused.launches == n + 2
+
+
+SHIFTS = [(0, 0), (1, 1), (2, 3), (7, 5), (8, 8), (1, 127), (6, 77),
+          (127, 1), (300, 301)]
+
+
+@pytest.mark.parametrize("wname", ["db2", "sym4", "haar", "odd5"])
+@pytest.mark.parametrize("shape", [(128, 128), (65, 47), (2, 64, 96)],
+                         ids=str)
+@pytest.mark.parametrize("shift", SHIFTS, ids=str)
+def test_k19_k20_match_plain(dev, wname, shape, shift):
+    fb = _bank(wname)
+    sr, sc = shift
+    x = _rand(shape, dev)
+    n = ks.dwt2d_shifted_fused.launches + ks.idwt2d_unshift_fused.launches
+    for mode in (None, "soft", "hard"):
+        _close(ks.dwt2d_shifted_fused(x, fb, sr, sc, mode, 0.3),
+               ks.dwt2d_shifted_plain(x, fb, sr, sc, mode, 0.3))
+    c = [_rand(_half(shape), dev, s) for s in range(1, 5)]
+    acc = _rand(shape, dev, 9)
+    _close(ks.idwt2d_unshift_fused(*c, fb, shape, sr, sc),
+           ks.idwt2d_unshift_plain(*c, fb, shape, sr, sc))
+    _close(ks.idwt2d_unshift_fused(*c, fb, shape, sr, sc, acc, 0.25),
+           ks.idwt2d_unshift_plain(*c, fb, shape, sr, sc, acc, 0.25))
+    assert (ks.dwt2d_shifted_fused.launches
+            + ks.idwt2d_unshift_fused.launches) == n + 5
+
+
+def test_k23_map_is_k19_per_spin_and_k20_accumulating(dev):
+    """The multi-shift map: K19 once per spin, K20 accumulating, equals the
+    mean of the spins' rolled plain syntheses."""
+    fb = get_filter_bank("db2")
+    x = _rand((128, 128), dev)
+    shifts = ((0, 0), (2, 1), (4, 2), (6, 3))
+    acc = ref = None
+    for k, (sr, sc) in enumerate(shifts):
+        c = ks.dwt2d_shifted_fused(x, fb, sr, sc)
+        scale = 0.25 if k == len(shifts) - 1 else 1.0
+        acc = ks.idwt2d_unshift_fused(*c, fb, x.shape, sr, sc, acc, scale)
+        y = torch.roll(fd.idwt2d_plain(*c, fb, x.shape), (-sr, -sc), (-2, -1))
+        ref = y if ref is None else ref + y
+    _close(acc, ref * 0.25)
+    _close(acc, x)
+
+
+@pytest.mark.parametrize("mode", ["static", "random", "denoise", "odd"])
+def test_pipeline_cuda_matches_cpu(dev, mode):
+    img = (np.random.default_rng(0).random((128, 128)) * 255).astype(
+        np.float32)
+    if mode == "odd":
+        img = img[:127, :101].copy()
+
+    def run(device):
+        x = torch.from_numpy(img).to(device)
+        if mode == "denoise":
+            return pipeline.denoise2d(x, "db2", 3, 10.0)
+        if mode in ("static", "odd"):
+            return pipeline.denoise2d_cycle_spinning(
+                x, "db2", 3, 10.0, shifts=((0, 0), (1, 1), (2, 2), (3, 3)))
+        return pipeline.denoise2d_cycle_spinning(
+            x, "db2", 3, 10.0, generator=torch.Generator().manual_seed(7),
+            n_spins=4)
+    ref = run("cpu")
+    ops.reset_counts()
+    got = run(dev)
+    assert got.is_cuda and float((got.cpu() - ref).abs().max()) < 7e-4
+    counts = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+    want = {"static": {"dwt2d_shifted_fused": 4, "idwt2d_unshift_fused": 4,
+                       "dwt2d_fused": 8, "idwt2d_fused": 8},
+            "odd": {"dwt2d_shifted_fused": 4, "idwt2d_unshift_fused": 4,
+                    "dwt2d_fused": 8, "idwt2d_fused": 8},
+            "random": {"dwt2d_shifted_fused": 12,
+                       "idwt2d_unshift_fused": 12},
+            "denoise": {"dwt2d_fused": 3, "idwt2d_fused": 3}}[mode]
+    assert counts == want

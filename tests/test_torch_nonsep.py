@@ -4,12 +4,15 @@ CPU.
 ``Filters2D.from_bank``/``separable_bank`` array for array (the factored
 bank bit-identical); the plain non-separable levels against JAX's jnp path
 (its slice form up to 12 taps, its ``lax.conv`` form above: db8 x sym8),
-odd sizes and stacks included; K18a/K18b's plain versions against the JAX
-Pallas ``nonsep_pallas.ns_swt2d_fused``/``ins_swt2d_fused`` (interpret mode
-on the CPU); max-abs 2e-5 on [0, 1) float32 data.  The drivers route a
-bank that factors to the separable path.  That a non-factorable bank's DWT
-level raises on a CUDA tensor (K16/K17 are not ported) is a card-only test
-in tests/test_torch_kernels_cuda.py, which imports no JAX.
+odd sizes, odd filter sizes and stacks included; K16/K17's and
+K18a/K18b's plain versions against the JAX Pallas
+``nonsep_pallas.nsdwt2d_fused``/``insdwt2d_fused`` and
+``ns_swt2d_fused``/``ins_swt2d_fused`` (interpret mode on the CPU) where
+those cover the level; max-abs 2e-5 on [0, 1) float32 data.  The drivers
+route a bank that factors to the separable path; the level functions route
+every bank to K16/K17 and K18a/K18b on a CUDA tensor, and raise on a level
+those do not cover (float64).  The kernels themselves run in
+tests/test_torch_kernels_cuda.py, which imports no JAX.
 """
 
 import numpy as np
@@ -159,6 +162,86 @@ def test_ns_swt_levels_match_jax(name, shape):
         assert out.shape == shape and _err(out, ref) <= KERNEL_TOL, level
 
 
+def _dense8():
+    """The dense random 8 x 8 bank of chip_smoke.banks_2d."""
+    rng = np.random.default_rng(1234)
+    return list(rng.random((4, 8, 8)) / 8), list(rng.random((4, 8, 8)) / 8)
+
+
+BANKS_2D["dense8"] = _dense8
+
+
+@pytest.mark.parametrize("name", ["db3xcoif1", "rank2mix", "dense8"])
+@pytest.mark.parametrize("shape", [(64, 128), (2, 32, 64)], ids=str)
+def test_k16_k17_plain_match_pallas(name, shape):
+    jf, tf = _pair(name)
+    x = _rand(shape, 31)
+    ref = nsp.nsdwt2d_fused(jnp.asarray(x), jf)
+    assert ref is not None
+    got = kn.nsdwt2d_plain(torch.from_numpy(x), tf)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and _err(g, r) <= KERNEL_TOL
+    half = (*shape[:-2], shape[-2] // 2, shape[-1] // 2)
+    c = [_rand(half, 40 + s) for s in range(4)]
+    ref = nsp.insdwt2d_fused(*(jnp.asarray(s) for s in c), jf, shape)
+    assert ref is not None
+    got = kn.insdwt2d_plain(*(torch.from_numpy(s) for s in c), tf, shape)
+    assert got.shape == shape and _err(got, ref) <= KERNEL_TOL
+
+
+@pytest.mark.parametrize("name", ["dense5", "dense8", "rank2mix"])
+@pytest.mark.parametrize("shape", [(33, 47), (1, 7), (2, 15, 16)], ids=str)
+def test_k16_k17_plain_odd_levels_match_jax(name, shape):
+    """Odd planes and an odd filter size, which the Pallas kernels
+    decline, against JAX's jnp path."""
+    jf, tf = _pair(name)
+    x = _rand(shape, 32)
+    ref = _jnp(jns.nsdwt2d, jnp.asarray(x), jf)
+    got = kn.nsdwt2d_plain(torch.from_numpy(x), tf)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and _err(g, r) <= KERNEL_TOL
+    c = [_rand(got[0].shape, 50 + s) for s in range(4)]
+    ref = _jnp(jns.insdwt2d, *(jnp.asarray(s) for s in c), jf, shape)
+    out = kn.insdwt2d_plain(*(torch.from_numpy(s) for s in c), tf, shape)
+    assert out.shape == shape and _err(out, ref) <= KERNEL_TOL
+
+
+def test_k16_k17_coverage_rules():
+    _, tf = _pair("db3xcoif1")
+    x = torch.zeros(33, 47)
+    assert kn.nsdwt2d_unsupported(x, tf) is None
+    assert kn.nsdwt2d_unsupported(torch.zeros(70000, 1, 2), tf) is None
+    c = [torch.zeros(17, 24) for _ in range(4)]
+    assert kn.insdwt2d_unsupported(*c, tf, (33, 47)) is None
+    assert kn.insdwt2d_unsupported(*c, tf, (34, 48)) is None
+    _, odd = _pair("dense5")
+    assert kn.nsdwt2d_unsupported(x, odd) is None
+    assert kn.insdwt2d_unsupported(*c, odd, (33, 47)) is None
+    assert "float32" in kn.nsdwt2d_unsupported(x.double(), tf)
+    assert "rank" in kn.nsdwt2d_unsupported(torch.zeros(4), tf)
+    assert "empty" in kn.nsdwt2d_unsupported(torch.zeros(0, 4), tf)
+    assert "shapes" in kn.insdwt2d_unsupported(*c[:3], torch.zeros(17, 23),
+                                               tf, (33, 47))
+    wide = nonsep.Filters2D([np.ones((41, 41))] * 4, [np.ones((41, 41))] * 4)
+    assert "filter size" in kn.nsdwt2d_unsupported(x, wide)
+
+
+def test_cuda_mode_raises_on_cpu_tensor():
+    """Kernel mode "cuda" on a CPU tensor raises for the non-separable DWT
+    levels, which have their kernels now (they raised NotImplementedError
+    on a CUDA tensor before K16/K17 were ported)."""
+    _, tf = _pair("db3xcoif1")
+    x = torch.from_numpy(_rand((16, 24)))
+    dwt.set_kernels("cuda")
+    try:
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            nonsep.nsdwt2d(x, tf)
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            nonsep.insdwt2d(x, x, x, x, tf, (32, 48))
+    finally:
+        dwt.set_kernels("auto")
+
+
 @pytest.mark.parametrize("name", ["db3xcoif1", "rank2mix"])
 @pytest.mark.parametrize("level", [1, 2])
 def test_k18_plain_matches_pallas(name, level):
@@ -235,7 +318,7 @@ def test_auto_on_cpu_takes_plain_and_counts_nothing():
     assert torch.equal(nonsep.ins_swt2d_level(*got, tf, 2),
                        kn.ins_swt2d_fused(*got, tf, 2))
     for k in kn.KERNELS:
-        assert (k.launches, k.declined) == (0, 0)
+        assert k.launches == 0
 
 
 def test_k18_coverage_rules():
@@ -262,19 +345,21 @@ def test_k18_coverage_rules():
     assert "empty" in kn.ns_swt2d_unsupported(torch.zeros(4, 0), tf, 1)
 
 
-@pytest.mark.parametrize("direction", ["analysis", "synthesis"])
+@pytest.mark.parametrize("direction", ["analysis", "synthesis",
+                                       "dwt-analysis", "dwt-synthesis"])
 def test_k18_route_raises_on_uncovered_cuda_level(monkeypatch, direction):
-    """K18a/K18b never decline: a float64 level on a CUDA tensor raises,
-    and kernel mode "torch" runs the plain version.  A CPU tensor poses as
-    a CUDA one, so that the routing runs without a card."""
+    """K18a/K18b and K16/K17 never decline: a float64 level on a CUDA
+    tensor raises, and kernel mode "torch" runs the plain version.  A CPU
+    tensor poses as a CUDA one, so that the routing runs without a card."""
     _, tf = _pair("db3xcoif1")
     x = torch.from_numpy(_rand((16, 24))).double()
-    if direction == "analysis":
-        def call():
-            return nonsep.ns_swt2d_level(x, tf, 2)
-    else:
-        def call():
-            return nonsep.ins_swt2d_level(x, x, x, x, tf, 2)
+    calls = {
+        "analysis": lambda: nonsep.ns_swt2d_level(x, tf, 2),
+        "synthesis": lambda: nonsep.ins_swt2d_level(x, x, x, x, tf, 2),
+        "dwt-analysis": lambda: nonsep.nsdwt2d(x, tf),
+        "dwt-synthesis": lambda: nonsep.insdwt2d(x, x, x, x, tf, (31, 48)),
+    }
+    call = calls[direction]
     want = call()
     ops.reset_counts()
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
@@ -290,4 +375,4 @@ def test_k18_route_raises_on_uncovered_cuda_level(monkeypatch, direction):
                     want if isinstance(want, tuple) else (want,)):
         assert torch.equal(g, w)
     for k in ops.KERNELS:
-        assert (k.launches, k.declined) == (0, 0)
+        assert k.launches == 0

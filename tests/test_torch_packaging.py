@@ -62,6 +62,28 @@ def test_2d_swt_and_nonsep_on_cpu_load_no_jax():
     assert res.stdout.strip() == "ok"
 
 
+def test_pipeline_on_cpu_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import numpy as np, torch\n"
+        "from pypwt_tpu_torch import pipeline\n"
+        "img = np.random.default_rng(0).random((32, 48)).astype('float32')\n"
+        "a = pipeline.denoise2d_cycle_spinning(img, 'db2', 2, 0.1,\n"
+        "    shifts=((0, 0), (1, 1)), device='cpu')\n"
+        "b = pipeline.denoise2d_cycle_spinning(img, 'db2', 2, 0.1,\n"
+        "    generator=torch.Generator().manual_seed(0), n_spins=2,\n"
+        "    device='cpu')\n"
+        "c = pipeline.denoise2d(img, 'db2', 2, 0.1, device='cpu')\n"
+        "assert a.shape == b.shape == c.shape == (32, 48)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pypwt_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    res = _run(["-c", code], ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def _imports(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
