@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (pypwt_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py           # the smoke run below
-    python3 chip_smoke.py --sweep   # build, then only the 2D SWT sweep
+    python3 chip_smoke.py --sweep   # build, then only the sweeps
 
 Run from the root of a checkout.  Phases, in order; any failure raises,
 prints its traceback and exits non-zero without the final ok line:
@@ -10,8 +10,9 @@ prints its traceback and exits non-zero without the final ok line:
 1. device: needs CUDA (exits 1 without it); prints torch/CUDA versions,
    ``nvcc --version`` and the card's name and power limit;
 2. build: compiles every kernel (K1/K2, K3/K4, K10a/K10b, K8/K9,
-   K16/K17, K18a/K18b, K19/K20) from pypwt_tpu_torch/csrc/ with nvcc, one
-   process per source, and prints each kernel's registers and spills;
+   K16/K17, K18a/K18b, K19/K20, and the tensor-core forms K5/K6, K11a/K11b)
+   from pypwt_tpu_torch/csrc/ with nvcc, one process per source, and prints
+   each kernel's registers and spills;
 3. K1/K2 against their plain torch versions on the card, over banks hlen
    2..40 and an odd 5-tap bank, even and odd shapes up to 4096^2 (max-abs
    <= 2e-5 on uniform [0,1) data: the two differ only in summation order
@@ -27,7 +28,12 @@ prints its traceback and exits non-zero without the final ok line:
    K19/K20 over the banks, shifts (0, 0), odd, (127, 1) and one wider than
    the plane, with and without the threshold epilogue and the
    accumulator, at 2048^2 and an odd plane, and K23's map (K19 once per
-   spin, K20 accumulating);
+   spin, K20 accumulating); then the tensor-core forms K5/K6 and K11a/K11b
+   in both precisions ("highest": within 2e-5 of their plain versions;
+   "bf16": the rule of mxu_close) over banks db2..sym20, planes 2048^2,
+   1024 x 4096, 4096 x 1024, (3, 256, 512) and 64 x 128, SWT levels 1-4
+   (a level whose support passes the plane goes to K8/K9 through the
+   router, in mode "mxu"), and against the oracle;
 4. main paths, each held against the same calls on the CPU plain path
    (coefficients within 3e-4 * 2^level, image within 7e-4) and counted
    (exact launches of every kernel): Wavelets(img, "db2", 3,
@@ -44,7 +50,12 @@ prints its traceback and exits non-zero without the final ok line:
    K19, 4 K20, 8 K1, 8 K2), the 8-spin random one from a seeded generator
    (24 K19, 24 K20), denoise2d (3 K1, 3 K2) and with do_swt (3 K8, 3 K9),
    do_separable=0 with the db3 x coif1 bank, DWT (3 K16, 3 K17), and a
-   2047^2 frame through Wavelets (3 K1, 3 K2);
+   2047^2 frame through Wavelets (3 K1, 3 K2); then, under
+   set_kernels("mxu") and in both precisions, Wavelets(img, "sym8", 3) on
+   the frame, DWT (3 K5, 3 K6, no K1/K2) and SWT (3 K11a, 3 K11b), and the
+   stack through wavedec2/waverec2 and swt2d/iswt2d ("bf16" held to JAX's
+   loose gate, RMS error <= 1 % of the reference's RMS per subband, at
+   level 1, doubling per level, images at the pyramid's depth: rms_gate);
 5. times (CUDA events, warm-up, median of 21 samples): level-0 K1/K2
    against their plain versions at 2048^2 (device time), and the L3
    roundtrip in frames/s, kernel path against plain path, at 2048^2 and on
@@ -55,7 +66,9 @@ prints its traceback and exits non-zero without the final ok line:
    SWT L3 roundtrip; then K16/K17 (db3 x coif1) and K19 (soft epilogue) /
    K20 (accumulating) at level 0 of 2048^2, and the 4-spin static and
    8-spin random cycle spinning in frames/s, kernel path against plain
-   path; last, beside each kernel, one PyTorch call that computes the same
+   path; then K5 against K1 and K6 against K2 at sym8 level 0, K11a against
+   K8 and K11b against K9 at sym8 level 1, each with its plain version and
+   its "bf16" time; last, beside each kernel, one PyTorch call that computes the same
    function (library_ms: a strided, transposed or dilated convolution in
    full float32, on an input padded outside the timed window), checked
    against the kernel's output.
@@ -69,7 +82,10 @@ limit.  The last line is {"ok": true, "device": {...}}.
 
 ``--sweep`` times the 2D stationary kernels on a 2048^2 frame by level
 (K8/K9), by filter size (K18a/K18b on dense random banks) and by bank
-width (K8/K9 against their plain versions), and prints no ok line.
+width (K8/K9 against their plain versions), then the crossover of the
+tensor-core forms: K5/K6 against K1/K2 (level l on a (2048 / 2^(l-1))^2
+plane) and K11a/K11b against K8/K9 (level l of 2048^2) by hlen (4, 8, 16,
+20, 40) and level (1-4), both precisions; it prints no ok line.
 """
 
 import importlib.util
@@ -115,6 +131,11 @@ HARD_MARGIN = 1e-5    # |coefficient| this close to beta: either side is right
 LIBRARY_TOL = 1e-3    # library call vs kernel, 0..255 data
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_FLOPS = 67e12    # H100 SXM float32 outside the tensor cores, flop/s
+MXU_BANKS = ("db2", "db4", "sym8", "coif3", "bior4.4", "db10", "sym20")
+SHAPES_MXU = (FRAME, (1024, 4096), (4096, 1024), (3, 256, 512), (64, 128))
+PRECISIONS = ("highest", "bf16")
+BF16_RMS = 0.01       # the "bf16" gate at level 1 (rms_gate)
+SWEEP_MXU = ("db2", "db4", "sym8", "db10", "sym20")  # hlen 4, 8, 16, 20, 40
 # an odd-length bank for every kernel
 ODD_TAPS = ([0.1, -0.3, 0.7, 0.25, -0.05], [0.2, 0.5, -0.6, 0.1, 0.3],
             [-0.15, 0.35, 0.6, 0.2, 0.05], [0.4, -0.2, 0.1, 0.55, -0.3])
@@ -587,6 +608,167 @@ def phase_kernels_shifted(port, dev):
     return worst
 
 
+def mxu_close(got, ref, prec):
+    """The worst error of a tensor-core kernel against its plain version,
+    or AssertionError.  "highest" (3xTF32): KERNEL_TOL.  "bf16": kernel
+    and plain sum the same exact products of bf16 operands in another
+    order, so an intermediate may round to its other bf16 neighbour, which
+    moves an output by at most a tap times one bf16 ulp (2^-8 relative):
+    max-abs within 2^-6 of the largest output, RMS within 1e-3 of the
+    output's RMS."""
+    if isinstance(got, torch.Tensor):
+        got, ref = (got,), (ref,)
+    worst = 0.0
+    for g, r in zip(got, ref):
+        err = (g - r).abs()
+        e = float(err.max())
+        if prec == "highest":
+            ok = e <= KERNEL_TOL
+        else:
+            ok = (e <= 2 ** -6 * float(r.abs().max())
+                  and float(err.pow(2).mean().sqrt())
+                  <= 1e-3 * float(r.pow(2).mean().sqrt()))
+        if not ok:
+            raise AssertionError(f"{prec}: kernel vs plain {e:.3e}")
+        worst = max(worst, e)
+    return worst
+
+
+def rms_gate(got, ref, what, level=1):
+    """The "bf16" gate: RMS error <= 1 % of the reference's RMS (JAX's,
+    ops/mxu_dwt.py:19-21) at level 1, doubling per level as the reference's
+    envelope 3e-4 * 2^level does; an image of an L-level roundtrip at level
+    L.  bf16 taps do not cancel the approximation's mean in a detail
+    subband, and that mean doubles per level on 0..255 data (sym8 L3 on the
+    CPU plain path: 0.57, 1.18, 2.37 % at levels 1-3; 0.28-0.60 % on
+    zero-mean data); a roundtrip carries it through every level and back
+    (db4 L3: 1.38 %).  Returns the relative RMS error."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    rel = float(np.sqrt(np.mean((got - ref) ** 2))
+                / np.sqrt(np.mean(ref ** 2)))
+    limit = BF16_RMS * 2 ** (level - 1)
+    if not np.all(np.isfinite(got)) or rel > limit:
+        raise AssertionError(f"{what}: RMS error {rel:.3e} of the "
+                             f"reference's RMS > {limit}")
+    return rel
+
+
+def phase_kernels_mxu(port, dev):
+    """K5/K6 and K11a/K11b against their plain versions in both precisions
+    over MXU_BANKS and SHAPES_MXU, SWT levels 1-4 (a level whose support
+    passes the plane goes to K8/K9 through the router in mode "mxu"), and
+    against the float64 oracle.  The worst "highest" errors go to the
+    kernels line; the "bf16" ones are printed."""
+    km, kms, fd = port.ops.mxu_dwt, port.ops.mxu_swt, port.ops.fused_dwt
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    worst = {p: {"K5": 0.0, "K6": 0.0, "K11a": 0.0, "K11b": 0.0}
+             for p in PRECISIONS}
+    routed = 0
+    for name in MXU_BANKS:
+        fb = port.get_filter_bank(name)
+        for shape in SHAPES_MXU:
+            x = torch.rand(shape, generator=gen, device=dev)
+            c = [torch.rand(half(shape), generator=gen, device=dev)
+                 for _ in range(4)]
+            s = [torch.rand(shape, generator=gen, device=dev)
+                 for _ in range(4)]
+            for prec in PRECISIONS:
+                w = worst[prec]
+
+                def note(key, got, ref, what):
+                    try:
+                        w[key] = max(w[key], mxu_close(got, ref, prec))
+                    except AssertionError as e:
+                        raise AssertionError(f"{key} {what}: {e}") from None
+
+                what = (name, shape, prec)
+                got = launched_once(km.dwt2d_mxu_fused,
+                                    lambda: km.dwt2d_mxu_fused(x, fb, prec))
+                note("K5", got, km.dwt2d_mxu_plain(x, fb, prec), what)
+                got = launched_once(km.idwt2d_mxu_fused, lambda: (
+                    km.idwt2d_mxu_fused(*c, fb, shape, prec)))
+                note("K6", got, km.idwt2d_mxu_plain(*c, fb, shape, prec),
+                     what)
+                for level in (1, 2, 3, 4):
+                    if kms.swt2d_mxu_unsupported(x, fb, level):
+                        continue
+                    got = launched_once(kms.swt2d_mxu_fused, lambda: (
+                        kms.swt2d_mxu_fused(x, fb, level, prec)))
+                    note("K11a", got, kms.swt2d_mxu_plain(x, fb, level, prec),
+                         what + (level,))
+                    got = launched_once(kms.iswt2d_mxu_fused, lambda: (
+                        kms.iswt2d_mxu_fused(*s, fb, level, prec)))
+                    note("K11b", got,
+                         kms.iswt2d_mxu_plain(*s, fb, level, prec),
+                         what + (level,))
+            # levels whose support passes the plane: K8/K9 in mode "mxu"
+            for level in (1, 2, 3, 4):
+                if not kms.swt2d_mxu_unsupported(x, fb, level):
+                    continue
+                port.dwt.set_kernels("mxu")
+                try:
+                    got = launched_once(fd.swt2d_fused, lambda: (
+                        port.swt.swt2d_level(x, fb, level)))
+                    back = launched_once(fd.iswt2d_fused, lambda: (
+                        port.swt.iswt2d_level(*s, fb, level)))
+                finally:
+                    port.dwt.set_kernels("auto")
+                err = max(max_err(got, fd.swt2d_plain(x, fb, level)),
+                          max_err(back, fd.iswt2d_plain(*s, fb, level)))
+                if err > KERNEL_TOL:
+                    raise AssertionError(f"{name} {shape} L{level} on K8/K9 "
+                                         f"in mode mxu: {err:.3e}")
+                routed += 1
+            del x, c, s
+            torch.cuda.synchronize()
+            print(f"kernel-vs-plain tensor cores {name:8s} hlen={fb.hlen:2d} "
+                  f"{str(shape):16s} worst so far "
+                  + "  ".join(f"{k} {v:.2e}/{worst['bf16'][k]:.2e}"
+                              for k, v in worst["highest"].items())
+                  + "  (highest/bf16)")
+    print(f"SWT levels whose support passes the plane, routed to K8/K9 in "
+          f"mode mxu: {routed}")
+
+    oracle = load_oracle()
+    rng = np.random.default_rng(SEED)
+    for name in MXU_BANKS:
+        fb = port.get_filter_bank(name)
+        x = rng.random((16, 24), dtype=np.float32)
+        c = [rng.random((8, 12), dtype=np.float32) for _ in range(4)]
+        xs = rng.random((48, 64), dtype=np.float32)
+        cs = [rng.random((48, 64), dtype=np.float32) for _ in range(4)]
+        refs = {"K5": oracle.ref_analysis_2d(x, fb.dec_lo, fb.dec_hi),
+                "K6": [oracle.ref_synthesis_2d(*c, fb.rec_lo, fb.rec_hi, 16,
+                                               24)],
+                "K11a": swt2d_oracle(oracle, xs, fb, 2),
+                "K11b": [iswt2d_oracle(oracle, *cs, fb, 2)]}
+        dev_t = [torch.from_numpy(t).to(dev) for t in (x, xs, *c, *cs)]
+        tx, txs, tc, tcs = dev_t[0], dev_t[1], dev_t[2:6], dev_t[6:]
+        line = []
+        for prec in PRECISIONS:
+            gots = {"K5": km.dwt2d_mxu_fused(tx, fb, prec),
+                    "K6": [km.idwt2d_mxu_fused(*tc, fb, (16, 24), prec)],
+                    "K11a": kms.swt2d_mxu_fused(txs, fb, 2, prec),
+                    "K11b": [kms.iswt2d_mxu_fused(*tcs, fb, 2, prec)]}
+            for key, got in gots.items():
+                got = [g.cpu().numpy() for g in got]
+                if prec == "highest":
+                    e = max(float(np.abs(g - r).max())
+                            for g, r in zip(got, refs[key]))
+                    if e > ORACLE_TOL:
+                        raise AssertionError(f"{name} {key}: kernel vs "
+                                             f"oracle {e:.3e} > {ORACLE_TOL}")
+                else:
+                    e = max(rms_gate(g, r, f"{name} {key} bf16 vs oracle")
+                            for g, r in zip(got, refs[key]))
+                line.append(f"{key} {prec} {e:.2e}")
+        print(f"kernel-vs-oracle tensor cores {name:8s} " + "  ".join(line)
+              + "  (bf16: relative RMS)")
+    for key, e in worst["bf16"].items():
+        print(f"worst bf16 kernel-vs-plain {key}: {e:.3e}")
+    return worst["highest"]
+
+
 def frame(shape, seed=SEED):
     return (np.random.default_rng(seed).random(shape) * 255).astype(
         np.float32)
@@ -862,6 +1044,126 @@ def phase_main_paths_pipeline(port, dev):
     return {"K19": launches["dwt2d_shifted_fused"],
             "K20": launches["idwt2d_unshift_fused"],
             "K16": k16["nsdwt2d_fused"], "K17": k16["insdwt2d_fused"]}
+
+
+def drive_mxu(port, dev, img, prec, do_swt, want, what):
+    """Wavelets(img, "sym8", 3) forward -> soft_threshold(10) -> inverse on
+    the card in mode "mxu" at ``prec``, counted from 0, then a plain
+    roundtrip; held against the CPU plain path of mode "auto": "highest"
+    within the reference envelope, "bf16" within JAX's loose gate."""
+    ops, dwt = port.ops, port.dwt
+    ref = port.Wavelets(img, "sym8", 3, device="cpu", do_swt=do_swt)
+    ref.forward()
+    ref_coeffs = ref.coeffs
+    ref.soft_threshold(10.0)
+    ref.inverse()
+    fwd = {k: v for k, v in want.items() if not k.startswith("i")}
+    dwt.set_kernels("mxu")
+    dwt.set_mxu_precision(prec)
+    try:
+        W = port.Wavelets(img, "sym8", 3, device=dev, do_swt=do_swt)
+        ops.reset_counts()
+        W.forward()
+        coeffs = W.coeffs
+        expect_launches(ops, fwd, f"{what} forward")
+        W.soft_threshold(10.0)
+        W.inverse()
+        out = W.image
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in ops.KERNELS
+                    if k.launches}
+        expect_launches(ops, want, what)
+        R = port.Wavelets(img, "sym8", 3, device=dev, do_swt=do_swt)
+        R.forward()
+        R.inverse()
+        back = R.image
+    finally:
+        dwt.set_kernels("auto")
+        dwt.set_mxu_precision("highest")
+    levels = len(coeffs) - 1
+    if prec == "highest":
+        ec = check_pyramid(coeffs, ref_coeffs, f"{what} forward")
+        ei = check_image(out, ref.image, f"{what} denoised image")
+        er = check_image(back, img, f"{what} roundtrip")
+        kind = "max-abs"
+    else:
+        flat = [(coeffs[0], ref_coeffs[0], levels)] + [
+            (g, r, lev) for lev in range(1, levels + 1)
+            for g, r in zip(coeffs[lev], ref_coeffs[lev])]
+        ec = max(rms_gate(g, r, f"{what} level {lev}", lev)
+                 for g, r, lev in flat)
+        ei = rms_gate(out, ref.image, f"{what} denoised image", levels)
+        er = rms_gate(back, img, f"{what} roundtrip", levels)
+        kind = "relative RMS"
+    print(f"main path {what}: forward vs cpu {ec:.3e}, denoised image vs "
+          f"cpu {ei:.3e}, roundtrip {er:.3e} ({kind}), launches {launches}")
+    return launches
+
+
+def phase_main_paths_mxu(port, dev):
+    """Mode "mxu", both precisions: the sym8 L3 frame through Wavelets, DWT
+    (3 K5, 3 K6) and SWT (3 K11a, 3 K11b), and the (8, 2048, 2048) stack
+    through wavedec2/waverec2 and swt2d/iswt2d, its first and last frames
+    against the CPU plain path."""
+    dwt, swt = port.dwt, port.swt
+    img = frame(FRAME, SEED + 12)
+    want_d = {"dwt2d_mxu_fused": 3, "idwt2d_mxu_fused": 3}
+    want_s = {"swt2d_mxu_fused": 3, "iswt2d_mxu_fused": 3}
+    launches = {}
+    for prec in PRECISIONS:
+        got = drive_mxu(port, dev, img, prec, 0, want_d,
+                        f"mxu {prec} sym8 L3 {FRAME}")
+        got.update(drive_mxu(port, dev, img, prec, 1, want_s,
+                             f"mxu {prec} 2D SWT sym8 L3 {FRAME}"))
+        if prec == "highest":
+            launches = got
+
+    fb = port.get_filter_bank("sym8")
+    stack = frame((STACK, *FRAME), SEED + 13)
+    ends = [0, STACK - 1]
+    cpu = torch.from_numpy(stack[ends])
+    refs = {"DWT": dwt.pyramid_to_numpy(dwt.wavedec2(cpu, fb, 3)),
+            "SWT": dwt.pyramid_to_numpy(swt.swt2d(cpu, fb, 3))}
+    xs = torch.from_numpy(stack).to(dev)
+    runs = {"DWT": (lambda: dwt.wavedec2(xs, fb, 3),
+                    lambda p: dwt.waverec2(p, fb, xs.shape), want_d),
+            "SWT": (lambda: swt.swt2d(xs, fb, 3), lambda p: swt.iswt2d(p, fb),
+                    want_s)}
+    for prec in PRECISIONS:
+        for kind, (fwd, inv, want) in runs.items():
+            dwt.set_kernels("mxu")
+            dwt.set_mxu_precision(prec)
+            try:
+                port.ops.reset_counts()
+                pyr = fwd()
+                rec = inv(pyr)
+                torch.cuda.synchronize()
+                expect_launches(port.ops, want, f"stack {kind} mxu {prec}")
+            finally:
+                dwt.set_kernels("auto")
+                dwt.set_mxu_precision("highest")
+            got = dwt.pyramid_to_numpy(
+                [pyr[0][ends]] + [tuple(s[ends] for s in c) for c in pyr[1:]])
+            rec = rec.cpu().numpy()
+            what = f"stack {kind} mxu {prec} sym8 L3 {(STACK, *FRAME)}"
+            if prec == "highest":
+                ec = check_pyramid(got, refs[kind], what)
+                er = check_image(rec, stack, f"{what} roundtrip")
+            else:
+                ref = refs[kind]
+                ec = max([rms_gate(got[0], ref[0], what, 3)] + [
+                    rms_gate(g, r, f"{what} level {lev}", lev)
+                    for lev in range(1, 4)
+                    for g, r in zip(got[lev], ref[lev])])
+                er = rms_gate(rec, stack, f"{what} roundtrip", 3)
+            print(f"main path {what}: frames 0 and {STACK - 1} vs cpu "
+                  f"{ec:.3e}, roundtrip {er:.3e}, launches 3 + 3")
+            del pyr, rec
+    del xs
+    return {"K5": launches["dwt2d_mxu_fused"],
+            "K6": launches["idwt2d_mxu_fused"],
+            "K11a": launches["swt2d_mxu_fused"],
+            "K11b": launches["iswt2d_mxu_fused"]}
 
 
 def cuda_ms(fn, reps, device_only, samples=SAMPLES, required=True):
@@ -1149,6 +1451,64 @@ def phase_times_slice(port, dev, card):
     return times
 
 
+def in_turns(calls, reps, samples=SAMPLES):
+    """Device time of each call (ms): the calls in order, then in reverse
+    (a, b, c, c, b, a), each the mean of its two medians."""
+    seen = {k: [] for k in calls}
+    for key in list(calls) + list(reversed(calls)):
+        seen[key].append(cuda_ms(calls[key], reps[key], True, samples))
+    return {k: sum(v) / 2 for k, v in seen.items()}
+
+
+def phase_times_mxu(port, dev, card):
+    """K5 against K1 and K6 against K2 at sym8 level 0, K11a against K8
+    and K11b against K9 at sym8 level 1, 2048^2, each with its plain
+    version ("highest") and its "bf16" time, in turns within this call."""
+    km, kms, fd = port.ops.mxu_dwt, port.ops.mxu_swt, port.ops.fused_dwt
+    fb = port.get_filter_bank("sym8")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    frames = [torch.rand(FRAME, generator=gen, device=dev) * 255
+              for _ in range(4)]
+    nx = itertools.cycle(frames).__next__
+    dc = itertools.cycle([km.dwt2d_mxu_fused(f, fb) for f in frames]).__next__
+    sc = itertools.cycle([kms.swt2d_mxu_fused(f, fb, 1)
+                          for f in frames]).__next__
+    cases = {
+        "K5": ("K1", 32, {
+            "plain": lambda: km.dwt2d_mxu_plain(nx(), fb),
+            "highest": lambda: km.dwt2d_mxu_fused(nx(), fb),
+            "bf16": lambda: km.dwt2d_mxu_fused(nx(), fb, "bf16"),
+            "tap": lambda: fd.dwt2d_fused(nx(), fb)}),
+        "K6": ("K2", 32, {
+            "plain": lambda: km.idwt2d_mxu_plain(*dc(), fb, FRAME),
+            "highest": lambda: km.idwt2d_mxu_fused(*dc(), fb, FRAME),
+            "bf16": lambda: km.idwt2d_mxu_fused(*dc(), fb, FRAME, "bf16"),
+            "tap": lambda: fd.idwt2d_fused(*dc(), fb, FRAME)}),
+        "K11a": ("K8", 80, {
+            "plain": lambda: kms.swt2d_mxu_plain(nx(), fb, 1),
+            "highest": lambda: kms.swt2d_mxu_fused(nx(), fb, 1),
+            "bf16": lambda: kms.swt2d_mxu_fused(nx(), fb, 1, "bf16"),
+            "tap": lambda: fd.swt2d_fused(nx(), fb, 1)}),
+        "K11b": ("K9", 80, {
+            "plain": lambda: kms.iswt2d_mxu_plain(*sc(), fb, 1),
+            "highest": lambda: kms.iswt2d_mxu_fused(*sc(), fb, 1),
+            "bf16": lambda: kms.iswt2d_mxu_fused(*sc(), fb, 1, "bf16"),
+            "tap": lambda: fd.iswt2d_fused(*sc(), fb, 1)}),
+    }
+    reps = {"plain": 3, "highest": 10, "bf16": 10, "tap": 10}
+    times = {}
+    for key, (tap, mib, calls) in cases.items():
+        t = in_turns(calls, reps)
+        times[key] = (t["highest"], t["plain"])
+        gbs = mib * 2 ** 20 / (t["highest"] * 1e-3) / 1e9
+        print(f"time {key} sym8 level {0 if key in ('K5', 'K6') else 1} "
+              f"{FRAME}, device: kernel {t['highest'] * 1e3:.1f} us "
+              f"({gbs:.0f} GB/s, {gbs / 3350:.1%} of 3.35 TB/s, {mib} MiB), "
+              f"bf16 {t['bf16'] * 1e3:.1f} us, {tap} {t['tap'] * 1e3:.1f} "
+              f"us, plain {t['plain'] * 1e3:.1f} us  [{card}]")
+    return times
+
+
 def phase_library(port, dev, card):
     """library_ms: beside each kernel, one PyTorch call that computes the
     same function at the kernel's timed shape, a strided, transposed or
@@ -1272,6 +1632,24 @@ def _library_calls(port, dev, card):
                              scoeffs, True)
     del scoeffs
 
+    # the tensor-core forms at sym8: the same maps as K1/K2 and K8/K9
+    km, kms = port.ops.mxu_dwt, port.ops.mxu_swt
+    fw = port.get_filter_bank("sym8")
+    wide = port.nonsep.Filters2D.from_bank(fw)
+    lib["K5"] = analysis("K5 conv2d stride 2 sym8", wide,
+                         lambda x: km.dwt2d_mxu_fused(x, fw))
+    coeffs = [km.dwt2d_mxu_fused(f, fw) for f in frames]
+    lib["K6"] = synthesis("K6 conv_transpose2d stride 2 sym8", wide, coeffs,
+                          km.idwt2d_mxu_fused(*coeffs[0], fw, FRAME))
+    lib["K11a"] = stationary("K11a conv2d dilation 1 sym8", wide, 1,
+                             kms.swt2d_mxu_fused(frames[0], fw, 1), frames,
+                             False)
+    scoeffs = [kms.swt2d_mxu_fused(f, fw, 1) for f in frames[:2]]
+    lib["K11b"] = stationary("K11b conv2d dilation 1 sym8", wide, 1,
+                             kms.iswt2d_mxu_fused(*scoeffs[0], fw, 1),
+                             scoeffs, True)
+    del scoeffs, coeffs
+
     # 1D rows (2048 x 2048): conv1d over the rows as a batch
     lp, rp = conv.analysis_pads(fb.hlen)
     w1 = weights([fb.dec_lo, fb.dec_hi], False).flip(-1)[:, None]
@@ -1358,6 +1736,52 @@ def phase_sweep_2d_swt(port, dev, card):
               f"K9 {k9[0] * 1e3:.1f} us (plain {k9[1] * 1e3:.1f})  [{card}]")
 
 
+def phase_sweep_mxu(port, dev, card):
+    """The crossover of the tensor-core forms: device time of K5/K6 and K1/K2
+    at level l (a (2048 / 2^(l-1))^2 plane) and of K11a/K11b and K8/K9 at
+    level l of 2048^2, by bank (hlen 4, 8, 16, 20, 40), both precisions,
+    in turns (CUDA events, sleep-primed, median of 11)."""
+    km, kms, fd = port.ops.mxu_dwt, port.ops.mxu_swt, port.ops.fused_dwt
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    frames = [torch.rand(FRAME, generator=gen, device=dev) for _ in range(4)]
+    dwt_keys = ("K5", "K5 bf16", "K1", "K6", "K6 bf16", "K2")
+    swt_keys = ("K11a", "K11a bf16", "K8", "K11b", "K11b bf16", "K9")
+    for wname in SWEEP_MXU:
+        fb = port.get_filter_bank(wname)
+        for level in (1, 2, 3, 4):
+            n = FRAME[0] >> (level - 1)
+            planes = [f[:n, :n].contiguous() for f in frames]
+            nx = itertools.cycle(planes).__next__
+            dc = itertools.cycle([fd.dwt2d_fused(p, fb)
+                                  for p in planes]).__next__
+            fx = itertools.cycle(frames).__next__
+            sc = itertools.cycle([fd.swt2d_fused(f, fb, level)
+                                  for f in frames]).__next__
+            t = in_turns({
+                "K5": lambda: km.dwt2d_mxu_fused(nx(), fb),
+                "K5 bf16": lambda: km.dwt2d_mxu_fused(nx(), fb, "bf16"),
+                "K1": lambda: fd.dwt2d_fused(nx(), fb),
+                "K6": lambda: km.idwt2d_mxu_fused(*dc(), fb, (n, n)),
+                "K6 bf16": lambda: km.idwt2d_mxu_fused(*dc(), fb, (n, n),
+                                                       "bf16"),
+                "K2": lambda: fd.idwt2d_fused(*dc(), fb, (n, n)),
+                "K11a": lambda: kms.swt2d_mxu_fused(fx(), fb, level),
+                "K11a bf16": lambda: kms.swt2d_mxu_fused(fx(), fb, level,
+                                                         "bf16"),
+                "K8": lambda: fd.swt2d_fused(fx(), fb, level),
+                "K11b": lambda: kms.iswt2d_mxu_fused(*sc(), fb, level),
+                "K11b bf16": lambda: kms.iswt2d_mxu_fused(*sc(), fb, level,
+                                                          "bf16"),
+                "K9": lambda: fd.iswt2d_fused(*sc(), fb, level)},
+                dict.fromkeys(dwt_keys + swt_keys, 10), 11)
+            print(f"sweep crossover {wname} (hlen {fb.hlen}) L{level}, device "
+                  f"us: DWT on {n}^2 "
+                  + ", ".join(f"{k} {t[k] * 1e3:.1f}" for k in dwt_keys)
+                  + f"; SWT on {FRAME[0]}^2 "
+                  + ", ".join(f"{k} {t[k] * 1e3:.1f}" for k in swt_keys)
+                  + f"  [{card}]")
+
+
 _PK, _NSP = "ops/pallas_dwt.py", "ops/nonsep_pallas.py"
 # key, name, source under pypwt_tpu_torch/csrc/, the TPU kernel's call
 KERNEL_ROWS = (
@@ -1375,18 +1799,27 @@ KERNEL_ROWS = (
     ("K18b", "ins_swt2d (K18b)", "nonsep_swt2d.cu", f"{_NSP}:344"),
     ("K19", "dwt2d_shifted (K19)", "dwt2d.cu", f"{_PK}:609"),
     ("K20", "idwt2d_unshift (K20)", "idwt2d.cu", f"{_PK}:721"),
+    ("K5", "dwt2d_mxu (K5)", "tc_dwt2d.cu", "ops/mxu_dwt.py:251"),
+    ("K6", "idwt2d_mxu (K6)", "tc_dwt2d.cu", "ops/mxu_dwt.py:347"),
+    ("K11a", "swt2d_mxu (K11a)", "tc_swt2d.cu", "ops/mxu_swt.py:315"),
+    ("K11b", "iswt2d_mxu (K11b)", "tc_swt2d.cu", "ops/mxu_swt.py:410"),
 )
 
 
 def timed_work(port):
     """(bytes, flops) of each kernel's timed call: every input read once,
     every output written once, two flops per FMA of its map.  2D at
-    2048^2 (db2; K16-K18 the db3 x coif1 bank), 1D on 2048 rows of 2048;
-    K20 with its accumulator."""
+    2048^2 (db2; K16-K18 the db3 x coif1 bank; K5/K6 and K11a/K11b sym8,
+    whose bound is that of K1/K2 and K8/K9 at sym8: the same bytes, the
+    map's flops over the float32 rate), 1D on 2048 rows of 2048; K20 with
+    its accumulator."""
     n2 = FRAME[0] * FRAME[1]
     h = port.get_filter_bank("db2").hlen
     hx = banks_2d(port)[0].hlen
+    hw = port.get_filter_bank("sym8").hlen
     return {
+        "K5": (8 * n2, 4 * hw * n2), "K6": (8 * n2, 4 * hw * n2),
+        "K11a": (20 * n2, 12 * hw * n2), "K11b": (20 * n2, 12 * hw * n2),
         "K1": (8 * n2, 4 * h * n2), "K2": (8 * n2, 4 * h * n2),
         "K3": (8 * n2, 2 * h * n2), "K4": (8 * n2, 2 * h * n2),
         "K10a": (12 * n2, 4 * h * n2), "K10b": (12 * n2, 4 * h * n2),
@@ -1396,6 +1829,30 @@ def timed_work(port):
         "K18b": (20 * n2, 8 * hx * hx * n2),
         "K19": (8 * n2, 4 * h * n2), "K20": (12 * n2, 4 * h * n2),
     }
+
+
+def path_bounds():
+    """Bound (ms) of the paths that hold the covered TPU kernels: the bytes
+    their level kernels must move (each input read once, each output
+    written once; the thresholds' passes not counted) over 3.35 TB/s, from
+    the shapes of phase 4.  K13: the 4 Mi-sample DWT L5 roundtrip (8 bytes
+    per input sample per level, each way); K14: its SWT L3 roundtrip (12
+    per sample per level, each way); K21: the 8-spin random cycle spinning
+    and K23 the 4-spin static one at 2048^2, db2 L3 (per spin 8 bytes per
+    input pixel of each analysis level, 8 per output pixel of each synthesis
+    level, 12 at level 0 where K20 adds the accumulator); K22: one K19
+    level at 2048^2."""
+    n, n2 = SIGNAL, FRAME[0] * FRAME[1]
+    levels = [n2 / 4 ** lev for lev in range(3)]
+    spin = 8 * sum(levels) + 8 * sum(levels[1:]) + 12 * n2
+    paths = {
+        "K13": 16 * sum(n / 2 ** lev for lev in range(5)),
+        "K14": 24 * n * 3,
+        "K21": RANDOM_SPINS * spin,
+        "K22": 8 * n2,
+        "K23": len(STATIC_SPINS) * spin,
+    }
+    return {k: b / PEAK_BYTES * 1e3 for k, b in paths.items()}
 
 
 def bound(nbytes, flops):
@@ -1418,6 +1875,7 @@ def main():
     phase_build(_build)
     if sys.argv[1:] == ["--sweep"]:
         phase_sweep_2d_swt(port, dev, card)
+        phase_sweep_mxu(port, dev, card)
         print(f"sweep done in {time.perf_counter() - t0:.1f} s")
         return
     worst = phase_kernels(port, dev)
@@ -1425,20 +1883,25 @@ def main():
     worst.update(phase_kernels_swt2d(port, dev))
     worst.update(phase_kernels_nonsep(port, dev))
     worst.update(phase_kernels_shifted(port, dev))
+    worst.update(phase_kernels_mxu(port, dev))
     launches = phase_main_path(port, dev)
     launches.update(phase_main_paths_1d(port, dev))
     launches.update(phase_main_paths_2d_swt(port, dev))
     launches.update(phase_main_paths_pipeline(port, dev))
+    launches.update(phase_main_paths_mxu(port, dev))
     times = phase_times(port, dev, card)
     times.update(phase_times_1d(port, dev, card))
     times.update(phase_times_2d_swt(port, dev, card))
     times.update(phase_times_slice(port, dev, card))
+    times.update(phase_times_mxu(port, dev, card))
     library = phase_library(port, dev, card)
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "pypwt_tpu.")))
     if leaked:
         raise AssertionError(f"JAX modules loaded: {leaked[:5]}")
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
+    for key, ms in path_bounds().items():
+        print(f"bound of the path holding {key}: {ms * 1e3:.1f} us (bytes)")
     work = timed_work(port)
     kernels = []
     for key, name, source, tpu in KERNEL_ROWS:

@@ -12,9 +12,12 @@ K16/K17 (DWT) and K18a/K18b (SWT) (``ops.nonsep``; sources in
 ``csrc/``); the threshold operators (``core.thresh``); the ``Wavelets``
 class for all of them; and the denoising pipelines (``pipeline``:
 ``denoise2d`` and the cycle-spinning ``denoise2d_cycle_spinning``, whose
-shifted levels run on K19/K20, ``ops.shifted``).  This package imports
-neither jax nor pypwt_tpu, and builds its kernels at their first launch,
-never at import.
+shifted levels run on K19/K20, ``ops.shifted``); and the tensor-core
+path of wide banks, ``core.dwt.set_kernels("mxu")`` with
+``set_mxu_precision("highest"|"bf16")``, whose 2D DWT levels run on
+K5/K6 (``ops.mxu_dwt``) and 2D SWT levels on K11a/K11b (``ops.mxu_swt``).
+This package imports neither jax nor pypwt_tpu, and builds its kernels at
+their first launch, never at import.
 
 Quick start (mirrors the reference README):
 

@@ -21,6 +21,20 @@ dtype, device and shape, never by catching an error:
   CUDA tensor (float64, ...) raises ``ValueError``.
 * ``"cuda"``: the kernel, or an error (CPU tensor, uncovered level).
 * ``"torch"``: always the plain version, on the tensor's device.
+* ``"mxu"``: the tensor-core forms where they cover a level, JAX's
+  ``set_kernels("mxu")``: a 2D DWT level of float32 planes of even sizes
+  and an even bank of 4 or more taps goes to K5/K6 (``ops.mxu_dwt``), a 2D
+  SWT level whose dilated support fits in the plane to K11a/K11b
+  (``ops.mxu_swt``, through ``core.swt``); every other level goes where
+  ``"auto"`` sends it (K1/K2, K8/K9, ...), as JAX sends it to its VPU
+  kernels.  On a CPU tensor the tensor-core forms' banded plain versions
+  run, as JAX runs its MXU kernels in interpret mode there.
+  ``set_mxu_precision("highest"|"bf16")`` picks their precision.
+
+``"auto"`` never takes the tensor-core forms: JAX's crossovers
+(``_MXU_MIN_HLEN``, the SWT support cliffs) were measured on a TPU, and a
+tensor-core form becomes a default route only once the H100 has shown it
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -28,27 +42,43 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import fused_dwt, shifted
+from ..ops import fused_dwt, mxu_dwt, shifted
 from .shapes import div2
 
-_MODES = ("auto", "torch", "cuda")
+_MODES = ("auto", "torch", "cuda", "mxu")
 _KERNEL_MODE = "auto"
+_MXU_PRECISION = "highest"
 
 
 def set_kernels(mode: str):
-    """Select the compute path: 'auto', 'torch' (plain ops) or 'cuda'
-    (the CUDA kernels only)."""
+    """Select the compute path: 'auto', 'torch' (plain ops), 'cuda' (the
+    CUDA kernels only) or 'mxu' (the tensor-core forms where they cover a
+    level)."""
     global _KERNEL_MODE
     if mode not in _MODES:
-        raise ValueError("kernel mode must be auto|torch|cuda")
+        raise ValueError("kernel mode must be auto|torch|cuda|mxu")
     _KERNEL_MODE = mode
+
+
+def set_mxu_precision(prec: str):
+    """Select the tensor-core forms' precision: 'highest' (3xTF32, about
+    float32, the default) or 'bf16' (one bf16 product, about 1 % RMS
+    error)."""
+    global _MXU_PRECISION
+    mxu_dwt.check_precision(prec)
+    _MXU_PRECISION = prec
+
+
+def mxu_precision() -> str:
+    return _MXU_PRECISION
 
 
 def _route(kernel, tensor, why):
     """True if ``kernel`` takes this level.  ``why`` is the kernel's
     reason to refuse the call (None if it covers it).  No kernel declines:
     an uncovered level on a CUDA tensor raises, unless kernel mode
-    ``"torch"`` asks for the plain version."""
+    ``"torch"`` asks for the plain version ("mxu" routes as "auto" for
+    the levels the tensor-core forms do not take)."""
     if _KERNEL_MODE == "torch":
         return False
     if not tensor.is_cuda:
@@ -62,6 +92,24 @@ def _route(kernel, tensor, why):
     raise ValueError(
         f"{kernel.__name__}: the CUDA kernel does not cover {why}; "
         "set_kernels('torch') runs the plain version on the device")
+
+
+def use_mxu(why) -> bool:
+    """True if a level goes to a tensor-core form (K5, K6, K11a, K11b):
+    kernel mode "mxu" and a level the form covers (``why`` None), decided
+    from shape and dtype before launch.  Its wrapper launches the kernel on
+    a CUDA tensor and runs its banded plain version on the CPU."""
+    return _KERNEL_MODE == "mxu" and why is None
+
+
+def use_k5(x, fb) -> bool:
+    """Routing decision for one analysis level in mode "mxu"."""
+    return use_mxu(mxu_dwt.dwt2d_mxu_unsupported(x, fb))
+
+
+def use_k6(a, h, v, d, fb, out_shape) -> bool:
+    """Routing decision for one synthesis level in mode "mxu"."""
+    return use_mxu(mxu_dwt.idwt2d_mxu_unsupported(a, h, v, d, fb, out_shape))
 
 
 def use_k1(x, fb) -> bool:
@@ -119,6 +167,8 @@ def idwt1d(a, d, fb, n_out):
 
 def dwt2d(x, fb):
     """One separable 2D analysis level -> (a, h, v, d)."""
+    if use_k5(x, fb):
+        return mxu_dwt.dwt2d_mxu_fused(x.contiguous(), fb, _MXU_PRECISION)
     if use_k1(x, fb):
         return fused_dwt.dwt2d_fused(x.contiguous(), fb)
     return fused_dwt.dwt2d_plain(x, fb)
@@ -126,6 +176,10 @@ def dwt2d(x, fb):
 
 def idwt2d(a, h, v, d, fb, out_shape):
     """One separable 2D synthesis level -> image of ``out_shape``."""
+    if use_k6(a, h, v, d, fb, out_shape):
+        return mxu_dwt.idwt2d_mxu_fused(
+            *(s.contiguous() for s in (a, h, v, d)), fb, out_shape,
+            _MXU_PRECISION)
     if use_k2(a, h, v, d, fb, out_shape):
         return fused_dwt.idwt2d_fused(a.contiguous(), h.contiguous(),
                                       v.contiguous(), d.contiguous(), fb,

@@ -15,12 +15,16 @@ tensor to K10a/K10b (1D) or K8/K9 (2D, ``ops.fused_dwt``), which take
 every float32 level, odd filter lengths and wraps wider than the signal
 or plane included; elsewhere to their plain versions.  K8/K9 never
 decline: a level they do not cover on a CUDA tensor (float64) raises,
-unless kernel mode ``"torch"`` asks for the plain version.
+unless kernel mode ``"torch"`` asks for the plain version.  In kernel mode
+``"mxu"`` a 2D level whose dilated support fits in the plane goes to the
+tensor-core forms K11a/K11b (``ops.mxu_swt``, at
+``core.dwt.mxu_precision()``; their banded plain versions on a CPU
+tensor), every other one to K8/K9, as JAX's ``swt2d_level`` routes them.
 """
 
 from __future__ import annotations
 
-from ..ops import fused_dwt
+from ..ops import fused_dwt, mxu_swt
 from . import dwt
 
 
@@ -51,6 +55,18 @@ def iswt1d_level(a, d, fb, level):
     return fused_dwt.iswt1d_plain(a, d, fb, level)
 
 
+def use_k11a(x, fb, level) -> bool:
+    """Routing decision for one stationary 2D analysis level in mode
+    "mxu"."""
+    return dwt.use_mxu(mxu_swt.swt2d_mxu_unsupported(x, fb, level))
+
+
+def use_k11b(a, h, v, d, fb, level) -> bool:
+    """Routing decision for one stationary 2D synthesis level in mode
+    "mxu"."""
+    return dwt.use_mxu(mxu_swt.iswt2d_mxu_unsupported(a, h, v, d, fb, level))
+
+
 def use_k8(x, fb, level) -> bool:
     """Routing decision for one stationary 2D analysis level."""
     return dwt._route(fused_dwt.swt2d_fused, x,
@@ -65,6 +81,9 @@ def use_k9(a, h, v, d, fb, level) -> bool:
 
 def swt2d_level(x, fb, level):
     """One stationary 2D analysis level -> (a, h, v, d)."""
+    if use_k11a(x, fb, level):
+        return mxu_swt.swt2d_mxu_fused(x.contiguous(), fb, level,
+                                       dwt.mxu_precision())
     if use_k8(x, fb, level):
         return fused_dwt.swt2d_fused(x.contiguous(), fb, level)
     return fused_dwt.swt2d_plain(x, fb, level)
@@ -72,6 +91,10 @@ def swt2d_level(x, fb, level):
 
 def iswt2d_level(a, h, v, d, fb, level):
     """One stationary 2D synthesis level."""
+    if use_k11b(a, h, v, d, fb, level):
+        return mxu_swt.iswt2d_mxu_fused(
+            *(s.contiguous() for s in (a, h, v, d)), fb, level,
+            dwt.mxu_precision())
     if use_k9(a, h, v, d, fb, level):
         return fused_dwt.iswt2d_fused(
             *(s.contiguous() for s in (a, h, v, d)), fb, level)

@@ -154,6 +154,28 @@ inline Bank2D make_bank(const float* filters, int hlen, float scale) {
   return bank;
 }
 
+// Copy kN elements with the block's threads: element i = tid + j kThreads
+// is store(i, load(i)). kBatch loads per thread are in flight before their
+// stores, so a staging loop waits for device memory once per batch, not
+// once per element (the tensor-core kernels' windows).
+template <int kN, int kBatch, class Load, class Store>
+__device__ __forceinline__ void batched_copy(Load load, Store store) {
+  constexpr int kIters = (kN + kThreads - 1) / kThreads;
+  for (int j0 = 0; j0 < kIters; j0 += kBatch) {
+    decltype(load(0)) v[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = threadIdx.x + (j0 + j) * kThreads;
+      if (i < kN) v[j] = load(i);
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = threadIdx.x + (j0 + j) * kThreads;
+      if (i < kN) store(i, v[j]);
+    }
+  }
+}
+
 // Grid y and z hold at most 65535 blocks. The 2D level kernels put column
 // blocks on x, row blocks on y and planes on z; launch_chunks issues a
 // level with more row blocks or planes than that as several launches,

@@ -1,0 +1,393 @@
+// K5 / K6: one periodized separable 2D DWT level, analysis (K5) and
+// polyphase synthesis (K6), float32, as banded products on the tensor cores.
+//
+// K5 replaces the TPU kernel pypwt_tpu/ops/mxu_dwt.py::dwt2d_fused_mxu
+// (_build_dwt2d_mxu, call :251), K6 ::idwt2d_fused_mxu (_build_idwt2d_mxu,
+// :347): both run each separable pass as banded MXU dots D @ x.
+//
+// Maps (the port's plain versions in ops/mxu_dwt.py), for planes
+// (B?, Nr, Nc) with Nr and Nc even and an even hlen of 4..40 (JAX's
+// coverage; the router sends every other level to K1/K2):
+//   K5: the decimating analysis lo[i] = sum_j f[j] x[(2i + j - lpad) mod N],
+//       f[j] = dec[hlen-1-j], lpad = hlen - 1 - hlen/2, first along axis -2
+//       (lo_r, hi_r), then along the last axis: a = lo(lo_r), v = hi(lo_r),
+//       h = lo(hi_r), d = hi(hi_r) (the subbands of K1, in JAX's pass
+//       order, which "bf16" rounding makes visible);
+//   K6: along axis -2 t1 = syn(a, h), t2 = syn(v, d), then along the last
+//       axis out = syn(t1, t2), with the polyphase synthesis of
+//       common.cuh's Polyphase: y[2m + p] = sum_{j < h2} g_p_lo[j]
+//       lo[(m + delta_p + j - c) mod L] + g_p_hi[j] hi[...].
+//
+// Bound: the bytes of K1/K2, 8 per input pixel (16 MiB in and 16 MiB out at
+// 2048^2: 10 us at 3.35 TB/s). The products cost more flops than the taps
+// (a tile of 8 outputs spans kSteps k-steps of 8 or 16 window samples,
+// 14 + hlen of them non-zero), 3x in "highest": at sym8 and 2048^2 about
+// 1.2 GFLOP of TF32, 2.5 us at 495 TFLOP/s, so the tensor cores leave the
+// kernel memory-bound; "bf16" is one pass at twice the rate.
+//
+// Design: each block owns a tile of kTile x kTile outputs (of each subband
+// for K5; of coefficients, so 2kTile x 2kTile pixels, for K6). It stages
+// the window in shared memory once (batched_copy: several loads in flight
+// per thread) with a true periodic wrap, and zero past
+// the window's extent, where the band's zero entries meet it (so a NaN
+// outside an output's support cannot reach it). Pass 1 runs along axis -2
+// as the window read transposed (A: columns x rows) times the band B (rows
+// x outputs) and leaves its result in shared memory; pass 2 runs along the
+// last axis as that result (rows x columns) times the band. Nothing else
+// goes to device memory. The band of a decimating filter is the same for
+// every 8-output tile when the tile's k-range starts at window sample 2 n0
+// (K6: coefficient n0 / 2): B[k][n] = f[k - 2n] (K6: the polyphase taps of
+// output parity n & 1 at k - n/2 - delta). So each thread builds its B
+// fragments once, in registers, for both filters and every k-step, and both
+// passes reuse them. Warps take (16-row, 8-column) product tiles in turn.
+// Row tiles run on the grid's y axis, planes on z, in chunks past a grid's
+// limits (launch_chunks).
+
+#include "common.cuh"
+#include "mma.cuh"
+
+namespace pypwt {
+namespace {
+
+constexpr int kTile = 32;
+constexpr int kWarps = kThreads / 32;
+
+using mma::band;
+using mma::Instance;
+using mma::round16;
+
+// One sample of each of the four subbands.
+struct Quad {
+  float v[4];
+};
+
+// K5's shared-memory geometry: kSteps k-steps of kK samples cover the
+// 14 + hlen window samples of an 8-output tile.
+template <class P, int kSteps>
+struct AnaGeom {
+  static constexpr int kSpan = kSteps * P::kK;
+  static constexpr int kWin = 2 * kTile - 16 + kSpan;  // window rows read
+  static constexpr int kWinC = round16(kWin);          // window columns
+  static constexpr int kLdW = mma::lead_dim<P>(kWinC, true);
+  static constexpr int kLdT = mma::lead_dim<P>(kWinC, false);
+  static constexpr size_t kSmem =
+      sizeof(float) * (kWin * kLdW + 2 * kTile * kLdT + 2 * kMaxTaps);
+};
+
+template <class P, int kSteps>
+__global__ void __launch_bounds__(kThreads)
+tc_dwt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
+                float* __restrict__ h, float* __restrict__ v,
+                float* __restrict__ d, int nr, int nc, Taps taps, int hlen,
+                int y0) {
+  using G = AnaGeom<P, kSteps>;
+  extern __shared__ float smem[];
+  float* s_w = smem;                       // [kWin][kLdW] input window
+  float* s_t = s_w + G::kWin * G::kLdW;    // [2 kTile][kLdT]: lo_r, hi_r
+  float* f_lo = s_t + 2 * kTile * G::kLdT;  // taps in window order
+  float* f_hi = f_lo + kMaxTaps;
+
+  const int warp = threadIdx.x >> 5;
+  const int lr = nr >> 1, lc = nc >> 1;
+  const int r0 = (y0 + blockIdx.y) * kTile, c0 = blockIdx.x * kTile;
+  const int ext = 2 * kTile + hlen - 2;  // the window's extent
+  const int row0 = 2 * r0 - analysis_lpad(hlen);
+  const int col0 = 2 * c0 - analysis_lpad(hlen);
+  const float* xb = x + blockIdx.z * static_cast<long long>(nr) * nc;
+
+  load_reversed_taps(taps, hlen, f_lo, f_hi);
+  batched_copy<G::kWin * G::kWinC, 8>(
+      [&](int i) {
+        const int r = i / G::kWinC, c = i - r * G::kWinC;
+        return r < ext && c < ext
+                   ? xb[static_cast<long long>(wrap(row0 + r, nr)) * nc +
+                        wrap(col0 + c, nc)]
+                   : 0.f;
+      },
+      [&](int i, float v) {
+        const int r = i / G::kWinC;
+        s_w[r * G::kLdW + i - r * G::kWinC] = v;
+      });
+  __syncthreads();
+
+  typename P::B b_lo[kSteps], b_hi[kSteps];
+  mma::band_fragments<P>(
+      b_lo, [&](int k, int n) { return band(f_lo, k - 2 * n, hlen); });
+  mma::band_fragments<P>(
+      b_hi, [&](int k, int n) { return band(f_hi, k - 2 * n, hlen); });
+
+  // Pass 1, axis -2: (window columns x window rows) x band.
+  constexpr int kN = kTile / 8;
+  for (int task = warp; task < G::kWinC / 16 * kN; task += kWarps) {
+    const int m0 = task / kN * 16, n0 = task % kN * 8;
+    float clo[4] = {0.f, 0.f, 0.f, 0.f}, chi[4] = {0.f, 0.f, 0.f, 0.f};
+    const float* w = s_w + 2 * n0 * G::kLdW + m0;
+    mma::band_product<P>(
+        clo, chi, [&](int k, int m) { return w[k * G::kLdW + m]; }, b_lo,
+        b_hi);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = (n0 + mma::c_col(i)) * G::kLdT + m0 + mma::c_row(i);
+      s_t[t] = clo[i];
+      s_t[kTile * G::kLdT + t] = chi[i];
+    }
+  }
+  __syncthreads();
+
+  // Pass 2, last axis: (lo_r and hi_r rows x window columns) x band.
+  const long long ob = blockIdx.z * static_cast<long long>(lr) * lc;
+  for (int task = warp; task < 2 * kTile / 16 * kN; task += kWarps) {
+    const int m0 = task / kN * 16, n0 = task % kN * 8;
+    float clo[4] = {0.f, 0.f, 0.f, 0.f}, chi[4] = {0.f, 0.f, 0.f, 0.f};
+    const float* t = s_t + m0 * G::kLdT + 2 * n0;
+    mma::band_product<P>(
+        clo, chi, [&](int k, int m) { return t[m * G::kLdT + k]; }, b_lo,
+        b_hi);
+    const bool low = m0 < kTile;  // a 16-row tile lies in one half
+    float* out_lo = low ? a : h;
+    float* out_hi = low ? v : d;
+    const int rbase = r0 + (low ? m0 : m0 - kTile);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int orow = rbase + mma::c_row(i), ocol = c0 + n0 + mma::c_col(i);
+      if (orow < lr && ocol < lc) {
+        const long long o = ob + static_cast<long long>(orow) * lc + ocol;
+        out_lo[o] = clo[i];
+        out_hi[o] = chi[i];
+      }
+    }
+  }
+}
+
+// K6's geometry: an 8-output tile reads 4 coefficients and the h2 taps of
+// their phases, h2 + 4 samples, in kSteps k-steps.
+template <class P, int kSteps>
+struct SynGeom {
+  static constexpr int kSpan = kSteps * P::kK;
+  static constexpr int kWin = kTile - 4 + kSpan;  // coefficient rows read
+  static constexpr int kWinC = round16(kWin);     // coefficient columns
+  static constexpr int kLdW = mma::lead_dim<P>(kWinC, true);
+  static constexpr int kLdT = mma::lead_dim<P>(kWinC, false);
+  static constexpr size_t kSmem =
+      sizeof(float) * (4 * kWin * kLdW + 2 * 2 * kTile * kLdT + 4 * kHalfTaps);
+};
+
+template <class P, int kSteps>
+__global__ void __launch_bounds__(kThreads)
+tc_idwt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
+                 const float* __restrict__ v, const float* __restrict__ d,
+                 float* __restrict__ out, int lr, int lc, Taps taps, int hlen,
+                 int y0) {
+  using G = SynGeom<P, kSteps>;
+  constexpr int kPlane = G::kWin * G::kLdW;
+  constexpr int kT = 2 * kTile * G::kLdT;
+  extern __shared__ float smem[];
+  float* s_in = smem;            // a, h, v, d windows, [kWin][kLdW] each
+  float* s_t = s_in + 4 * kPlane;  // t1, t2: [2 kTile][kLdT] each
+  float* g_lo = s_t + 2 * kT;      // [2][kHalfTaps] taps per output parity
+  float* g_hi = g_lo + 2 * kHalfTaps;
+
+  const Polyphase ph(hlen);
+  const int warp = threadIdx.x >> 5;
+  const int nr = 2 * lr, nc = 2 * lc;
+  const int q0r = (y0 + blockIdx.y) * kTile, q0c = blockIdx.x * kTile;
+  const int ext = kTile + ph.h2;  // the window's extent
+  const long long ib = blockIdx.z * static_cast<long long>(lr) * lc;
+  const float* planes[4] = {a, h, v, d};
+
+  load_polyphase_taps(taps, hlen, g_lo, g_hi);
+  // window origin: coefficient (q0r - c, q0c - c)
+  batched_copy<G::kWin * G::kWinC, 4>(
+      [&](int i) {
+        const int r = i / G::kWinC, c = i - r * G::kWinC;
+        Quad q{{0.f, 0.f, 0.f, 0.f}};
+        if (r < ext && c < ext) {
+          const long long o =
+              ib + static_cast<long long>(wrap(q0r - ph.c + r, lr)) * lc +
+              wrap(q0c - ph.c + c, lc);
+#pragma unroll
+          for (int p = 0; p < 4; ++p) q.v[p] = planes[p][o];
+        }
+        return q;
+      },
+      [&](int i, const Quad& q) {
+        const int r = i / G::kWinC, c = i - r * G::kWinC;
+#pragma unroll
+        for (int p = 0; p < 4; ++p) s_in[p * kPlane + r * G::kLdW + c] = q.v[p];
+      });
+  __syncthreads();
+
+  // Output n of an 8-output tile: coefficient n / 2 of the tile, phase
+  // n & 1, which reads window sample n / 2 + delta + j with tap g_p[j].
+  typename P::B b_lo[kSteps], b_hi[kSteps];
+  mma::band_fragments<P>(b_lo, [&](int k, int n) {
+    return band(g_lo + (n & 1) * kHalfTaps, k - (n >> 1) - ph.delta(n & 1),
+                ph.h2);
+  });
+  mma::band_fragments<P>(b_hi, [&](int k, int n) {
+    return band(g_hi + (n & 1) * kHalfTaps, k - (n >> 1) - ph.delta(n & 1),
+                ph.h2);
+  });
+
+  // Pass 1, axis -2: t1 = syn(a, h), t2 = syn(v, d), on window columns.
+  constexpr int kM1 = G::kWinC / 16, kN = 2 * kTile / 8;
+  for (int task = warp; task < 2 * kM1 * kN; task += kWarps) {
+    const int pair = task / (kM1 * kN), rest = task - pair * kM1 * kN;
+    const int m0 = rest / kN * 16, n0 = rest % kN * 8;
+    const float* lo = s_in + (2 * pair) * kPlane + (n0 >> 1) * G::kLdW + m0;
+    const float* hi = lo + kPlane;
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    mma::band_product_pair<P>(
+        c, [&](int k, int m) { return lo[k * G::kLdW + m]; },
+        [&](int k, int m) { return hi[k * G::kLdW + m]; }, b_lo, b_hi);
+    float* t = s_t + pair * kT;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      t[(n0 + mma::c_col(i)) * G::kLdT + m0 + mma::c_row(i)] = c[i];
+  }
+  __syncthreads();
+
+  // Pass 2, last axis: out = syn(t1, t2), on the 2 kTile output rows.
+  const long long ob = blockIdx.z * static_cast<long long>(nr) * nc;
+  const int R0 = 2 * q0r, C0 = 2 * q0c;
+  for (int task = warp; task < 2 * kTile / 16 * kN; task += kWarps) {
+    const int m0 = task / kN * 16, n0 = task % kN * 8;
+    const float* t1 = s_t + m0 * G::kLdT + (n0 >> 1);
+    const float* t2 = t1 + kT;
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    mma::band_product_pair<P>(
+        c, [&](int k, int m) { return t1[m * G::kLdT + k]; },
+        [&](int k, int m) { return t2[m * G::kLdT + k]; }, b_lo, b_hi);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int orow = R0 + m0 + mma::c_row(i), ocol = C0 + n0 + mma::c_col(i);
+      if (orow < nr && ocol < nc)
+        out[ob + static_cast<long long>(orow) * nc + ocol] = c[i];
+    }
+  }
+}
+
+using DwtKernel = void (*)(const float*, float*, float*, float*, float*, int,
+                           int, Taps, int, int);
+using IdwtKernel = void (*)(const float*, const float*, const float*,
+                            const float*, float*, int, int, Taps, int, int);
+
+template <class P, int S>
+Instance<DwtKernel> dwt_instance() {
+  return {tc_dwt2d_kernel<P, S>, AnaGeom<P, S>::kSmem};
+}
+
+template <class P, int S>
+Instance<IdwtKernel> idwt_instance() {
+  return {tc_idwt2d_kernel<P, S>, SynGeom<P, S>::kSmem};
+}
+
+// kSteps = ceil((14 + hlen) / kK): 3..7 (TF32), 2..4 (BF16) for hlen 4..40.
+Instance<DwtKernel> pick_dwt(bool bf16, int hlen) {
+  if (bf16) {
+    switch ((14 + hlen + 15) / 16) {
+      case 2: return dwt_instance<mma::Bf16, 2>();
+      case 3: return dwt_instance<mma::Bf16, 3>();
+      case 4: return dwt_instance<mma::Bf16, 4>();
+    }
+  } else {
+    switch ((14 + hlen + 7) / 8) {
+      case 3: return dwt_instance<mma::Tf32, 3>();
+      case 4: return dwt_instance<mma::Tf32, 4>();
+      case 5: return dwt_instance<mma::Tf32, 5>();
+      case 6: return dwt_instance<mma::Tf32, 6>();
+      case 7: return dwt_instance<mma::Tf32, 7>();
+    }
+  }
+  return {nullptr, 0};
+}
+
+// kSteps = ceil((hlen/2 + 4) / kK): 1..3 (TF32), 1..2 (BF16).
+Instance<IdwtKernel> pick_idwt(bool bf16, int hlen) {
+  if (bf16) {
+    switch ((hlen / 2 + 4 + 15) / 16) {
+      case 1: return idwt_instance<mma::Bf16, 1>();
+      case 2: return idwt_instance<mma::Bf16, 2>();
+    }
+  } else {
+    switch ((hlen / 2 + 4 + 7) / 8) {
+      case 1: return idwt_instance<mma::Tf32, 1>();
+      case 2: return idwt_instance<mma::Tf32, 2>();
+      case 3: return idwt_instance<mma::Tf32, 3>();
+    }
+  }
+  return {nullptr, 0};
+}
+
+bool level_ok(int batch, int nr, int nc, int hlen) {
+  return hlen >= 4 && hlen <= kMaxTaps && hlen % 2 == 0 && batch >= 1 &&
+         nr >= 2 && nc >= 2 && nr % 2 == 0 && nc % 2 == 0 &&
+         nr <= 0x3fffffff && nc <= 0x3fffffff;
+}
+
+template <class Kernel>
+cudaError_t prepare(const Instance<Kernel>& inst, int device) {
+  if (inst.kernel == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(inst.kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(inst.smem));
+}
+
+}  // namespace
+}  // namespace pypwt
+
+// Both return a cudaError_t; they launch on `stream`, do not synchronise
+// and allocate nothing. The filters are host arrays of hlen floats; bf16 is
+// 1 for the "bf16" precision, 0 for "highest" (3xTF32).
+// K5: a, h, v, d of (batch, nr/2, nc/2).
+extern "C" int pypwt_tc_dwt2d(const float* x, float* a, float* h, float* v,
+                              float* d, int batch, int nr, int nc,
+                              const float* dec_lo, const float* dec_hi,
+                              int hlen, int bf16, int device, void* stream) {
+  using namespace pypwt;
+  if (!level_ok(batch, nr, nc, hlen))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto inst = pick_dwt(bf16 != 0, hlen);
+  cudaError_t err = prepare(inst, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Taps taps = make_taps(dec_lo, dec_hi, hlen);
+  const int lr = nr / 2, lc = nc / 2;
+  launch_chunks((lc + kTile - 1) / kTile, (lr + kTile - 1) / kTile, batch,
+                [&](dim3 grid, int y0, int z0) {
+                  const long long pi = static_cast<long long>(z0) * nr * nc;
+                  const long long po = static_cast<long long>(z0) * lr * lc;
+                  inst.kernel<<<grid, kThreads, inst.smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+                      x + pi, a + po, h + po, v + po, d + po, nr, nc, taps,
+                      hlen, y0);
+                });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6: out of (batch, 2 lr, 2 lc) from coefficients of (batch, lr, lc).
+extern "C" int pypwt_tc_idwt2d(const float* a, const float* h, const float* v,
+                               const float* d, float* out, int batch, int lr,
+                               int lc, const float* rec_lo,
+                               const float* rec_hi, int hlen, int bf16,
+                               int device, void* stream) {
+  using namespace pypwt;
+  if (lr > 0x1fffffff || lc > 0x1fffffff ||
+      !level_ok(batch, 2 * lr, 2 * lc, hlen))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto inst = pick_idwt(bf16 != 0, hlen);
+  cudaError_t err = prepare(inst, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Taps taps = make_taps(rec_lo, rec_hi, hlen);
+  launch_chunks((lc + kTile - 1) / kTile, (lr + kTile - 1) / kTile, batch,
+                [&](dim3 grid, int y0, int z0) {
+                  const long long pi = static_cast<long long>(z0) * lr * lc;
+                  const long long po = 4 * pi;
+                  inst.kernel<<<grid, kThreads, inst.smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+                      a + pi, h + pi, v + pi, d + pi, out + po, lr, lc, taps,
+                      hlen, y0);
+                });
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,446 @@
+// K11a / K11b: one periodized separable 2D stationary (a-trous) level and
+// its inverse, float32, as banded products on the tensor cores.
+//
+// K11a replaces the TPU kernel pypwt_tpu/ops/mxu_swt.py::
+// swt2d_level_fused_mxu (_build_swt2d_mxu, call :315), K11b
+// ::iswt2d_level_fused_mxu (_build_iswt2d_mxu, :410): banded (or, at deep
+// levels, polyphase) MXU dots D @ x on each axis.
+//
+// Maps (the port's plain versions in ops/mxu_swt.py), planes (B?, Nr, Nc),
+// any hlen <= 40, level l >= 1, dilation t = 2^(l-1); on either axis tap k
+// reads sample i + (s - k) t, wrapped mod the axis length, with the centre s
+// given by the caller (conv.swt_centre):
+//   K11a: lo/hi along axis -2 (lo_r, hi_r), then along the last axis:
+//         a = lo(lo_r), v = hi(lo_r), h = lo(hi_r), d = hi(hi_r) (K8's
+//         subbands, in JAX's pass order);
+//   K11b: along axis -2 t1 = syn(a, h), t2 = syn(v, d), then along the last
+//         axis out = syn(t1, t2), syn(p, q)[i] = sum_k rec_lo[k]/2 p[j] +
+//         rec_hi[k]/2 q[j], j = i + (s - k) t (1/2 per pass).
+// The router gives them only levels whose dilated support fits in the
+// plane (JAX's coverage); the index arithmetic here wraps at any level.
+//
+// Bound: the bytes of K8/K9, 20 per pixel (16 MiB in, 64 MiB out at 2048^2
+// for K11a, the reverse for K11b: 25 us at 3.35 TB/s). A tile of 8 outputs
+// spans kSteps k-steps of 8 or 16 samples (hlen + 7 of them non-zero), 3
+// products each in "highest": at sym8 and 2048^2 about 2.4 GFLOP of TF32,
+// 5 us at 495 TFLOP/s, so the kernels stay memory-bound.
+//
+// Design: along each axis a block owns outputs of one residue class mod t:
+// rows rho_r + t m for kTile consecutive m and columns rho_c + t q for kTile
+// consecutive q, as K8 does for its rows. Their taps then read samples of
+// the same class only, kTile + hlen - 1 of them per axis at any level, so
+// one compact (level-1) band serves every level: out[n] = sum_j f[j] w[n + j]
+// with f[j] = tap[hlen-1-j] on the staged window w. The block stages that
+// window in shared memory once (zero past its extent, where the band's zero
+// entries meet it), runs pass 1 along axis -2 as the window read transposed
+// times the band, keeps the result in shared memory, and runs pass 2 along
+// the last axis as that result times the band; the band's fragments are
+// built once per thread, in registers, and serve both passes. Blocks of
+// neighbouring column classes are neighbours on the grid, so the sectors of
+// a strided gather or store meet in L2. Column blocks run on the grid's x
+// axis, row blocks on y, planes on z, in chunks past a grid's limits.
+
+#include "common.cuh"
+#include "mma.cuh"
+
+namespace pypwt {
+namespace {
+
+constexpr int kTile = 32;
+constexpr int kWarps = kThreads / 32;
+
+using mma::band;
+using mma::Instance;
+using mma::round16;
+
+// Tiling of one axis of n samples at a level: residue classes rho < cls
+// (the dilation, or n where the dilation reaches it) hold samples
+// rho + cls * m; `tiles` tiles of kTile per class (of class 0, the longest).
+struct AxisPlan {
+  int n;
+  int cls;
+  int tiles;
+  int back;      // hlen - 1 - s: window sample w serves offset w - back
+  long long fm;  // dilation mod n
+};
+
+AxisPlan axis_plan(int hlen, int s, int level, int n) {
+  AxisPlan p{};
+  p.n = n;
+  const bool every = level > 31 || (1LL << (level - 1)) >= n;
+  p.cls = every ? n : (1 << (level - 1));
+  const int per = (n + p.cls - 1) / p.cls;
+  p.tiles = (per + kTile - 1) / kTile;
+  p.back = hlen - 1 - s;
+  p.fm = dilation_mod(level, n);
+  return p;
+}
+
+// Axis sample held in window sample w of the block (rho, m0).
+__device__ __forceinline__ int window_index(const AxisPlan& p, int rho, int m0,
+                                            int w) {
+  long long i = rho + static_cast<long long>(p.cls) * m0 +
+                static_cast<long long>(w - p.back) * p.fm;
+  i %= p.n;
+  return static_cast<int>(i < 0 ? i + p.n : i);
+}
+
+// Shared-memory geometry: kSteps k-steps of kK samples cover the hlen + 7
+// window samples of an 8-output tile.
+template <class P, int kSteps, int kInputs>
+struct SwtGeom {
+  static constexpr int kSpan = kSteps * P::kK;
+  static constexpr int kWin = kTile - 8 + kSpan;  // window rows read
+  static constexpr int kWinC = round16(kWin);     // window columns
+  static constexpr int kLdW = mma::lead_dim<P>(kWinC, true);
+  static constexpr int kLdT = mma::lead_dim<P>(kWinC, false);
+  static constexpr size_t kSmem =
+      sizeof(float) * (kInputs * kWin * kLdW + 2 * kTile * kLdT +
+                       2 * kMaxTaps) +
+      sizeof(int) * (kWin + kWinC);
+};
+
+// Block coordinates of one level: the residue class and first member of
+// its rows and columns.
+struct Block {
+  int rho_r, m0, rho_c, q0;
+  __device__ Block(const AxisPlan& pr, const AxisPlan& pc, int y0) {
+    const int bx = blockIdx.x, by = y0 + blockIdx.y;
+    rho_c = bx % pc.cls;
+    q0 = bx / pc.cls * kTile;
+    rho_r = by % pr.cls;
+    m0 = by / pr.cls * kTile;
+  }
+};
+
+// One window sample of each staged plane.
+template <int kInputs>
+struct Samples {
+  float v[kInputs];
+};
+
+// Stage the window of `kInputs` planes (the same rows and columns of each,
+// batched_copy: several loads in flight per thread) and the taps in window
+// order; the caller synchronises.
+template <int kInputs, int kWin, int kWinC, int kLdW>
+__device__ __forceinline__ void stage(const float* const (&planes)[kInputs],
+                                      float* s_in, int* s_row, int* s_col,
+                                      const AxisPlan& pr, const AxisPlan& pc,
+                                      const Block& blk, int hlen,
+                                      const Taps& taps, float* f_lo,
+                                      float* f_hi) {
+  const int tid = threadIdx.x;
+  const int ext = kTile + hlen - 1;  // the window's extent
+  if (tid < kWin) s_row[tid] = window_index(pr, blk.rho_r, blk.m0, tid);
+  if (tid < kWinC) s_col[tid] = window_index(pc, blk.rho_c, blk.q0, tid);
+  load_reversed_taps(taps, hlen, f_lo, f_hi);
+  __syncthreads();
+  batched_copy<kWin * kWinC, 8 / kInputs>(
+      [&](int i) {
+        const int r = i / kWinC, c = i - r * kWinC;
+        Samples<kInputs> q{};
+        if (r < ext && c < ext) {
+          const long long o =
+              static_cast<long long>(s_row[r]) * pc.n + s_col[c];
+#pragma unroll
+          for (int p = 0; p < kInputs; ++p) q.v[p] = __ldg(planes[p] + o);
+        }
+        return q;
+      },
+      [&](int i, const Samples<kInputs>& q) {
+        const int r = i / kWinC, c = i - r * kWinC;
+#pragma unroll
+        for (int p = 0; p < kInputs; ++p)
+          s_in[p * kWin * kLdW + r * kLdW + c] = q.v[p];
+      });
+}
+
+// The compact band of both filters, B[k][n] = f[k - n].
+template <class P, int kSteps>
+struct Band {
+  typename P::B lo[kSteps], hi[kSteps];
+  __device__ __forceinline__ Band(const float* f_lo, const float* f_hi,
+                                  int hlen) {
+    mma::band_fragments<P>(
+        lo, [&](int k, int n) { return band(f_lo, k - n, hlen); });
+    mma::band_fragments<P>(
+        hi, [&](int k, int n) { return band(f_hi, k - n, hlen); });
+  }
+};
+
+// Output (row, column) of product row m and column n of a pass-2 tile, or
+// false past the plane.
+struct Store {
+  long long row, col;
+  __device__ bool at(const AxisPlan& pr, const AxisPlan& pc, const Block& blk,
+                     int m, int n) {
+    row = blk.rho_r + static_cast<long long>(pr.cls) * (blk.m0 + m);
+    col = blk.rho_c + static_cast<long long>(pc.cls) * (blk.q0 + n);
+    return row < pr.n && col < pc.n;
+  }
+};
+
+template <class P, int kSteps>
+__global__ void __launch_bounds__(kThreads)
+tc_swt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
+                float* __restrict__ h, float* __restrict__ v,
+                float* __restrict__ d, AxisPlan pr, AxisPlan pc, Taps taps,
+                int hlen, int y0) {
+  using G = SwtGeom<P, kSteps, 1>;
+  extern __shared__ float smem[];
+  float* s_w = smem;                        // [kWin][kLdW] input window
+  float* s_t = s_w + G::kWin * G::kLdW;     // [2 kTile][kLdT]: lo_r, hi_r
+  float* f_lo = s_t + 2 * kTile * G::kLdT;  // taps in window order
+  float* f_hi = f_lo + kMaxTaps;
+  int* s_row = reinterpret_cast<int*>(f_hi + kMaxTaps);
+  int* s_col = s_row + G::kWin;
+
+  const int warp = threadIdx.x >> 5;
+  const Block blk(pr, pc, y0);
+  const long long plane = static_cast<long long>(pr.n) * pc.n;
+  const float* const in[1] = {x + blockIdx.z * plane};
+  stage<1, G::kWin, G::kWinC, G::kLdW>(in, s_w, s_row, s_col, pr, pc, blk,
+                                       hlen, taps, f_lo, f_hi);
+  __syncthreads();
+  const Band<P, kSteps> b(f_lo, f_hi, hlen);
+
+  // Pass 1, axis -2: (window columns x window rows) x band.
+  constexpr int kN = kTile / 8;
+  for (int task = warp; task < G::kWinC / 16 * kN; task += kWarps) {
+    const int m0 = task / kN * 16, n0 = task % kN * 8;
+    float clo[4] = {0.f, 0.f, 0.f, 0.f}, chi[4] = {0.f, 0.f, 0.f, 0.f};
+    const float* w = s_w + n0 * G::kLdW + m0;
+    mma::band_product<P>(
+        clo, chi, [&](int k, int m) { return w[k * G::kLdW + m]; }, b.lo,
+        b.hi);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = (n0 + mma::c_col(i)) * G::kLdT + m0 + mma::c_row(i);
+      s_t[t] = clo[i];
+      s_t[kTile * G::kLdT + t] = chi[i];
+    }
+  }
+  __syncthreads();
+
+  // Pass 2, last axis: (lo_r and hi_r rows x window columns) x band.
+  const long long ob = blockIdx.z * plane;
+  for (int task = warp; task < 2 * kTile / 16 * kN; task += kWarps) {
+    const int m0 = task / kN * 16, n0 = task % kN * 8;
+    float clo[4] = {0.f, 0.f, 0.f, 0.f}, chi[4] = {0.f, 0.f, 0.f, 0.f};
+    const float* t = s_t + m0 * G::kLdT + n0;
+    mma::band_product<P>(
+        clo, chi, [&](int k, int m) { return t[m * G::kLdT + k]; }, b.lo,
+        b.hi);
+    const bool low = m0 < kTile;
+    float* out_lo = low ? a : h;
+    float* out_hi = low ? v : d;
+    const int mbase = low ? m0 : m0 - kTile;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      Store st;
+      if (st.at(pr, pc, blk, mbase + mma::c_row(i), n0 + mma::c_col(i))) {
+        const long long o = ob + st.row * pc.n + st.col;
+        out_lo[o] = clo[i];
+        out_hi[o] = chi[i];
+      }
+    }
+  }
+}
+
+template <class P, int kSteps>
+__global__ void __launch_bounds__(kThreads)
+tc_iswt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
+                 const float* __restrict__ v, const float* __restrict__ d,
+                 float* __restrict__ out, AxisPlan pr, AxisPlan pc,
+                 Taps half_taps, int hlen, int y0) {
+  using G = SwtGeom<P, kSteps, 4>;
+  constexpr int kPlane = G::kWin * G::kLdW;
+  constexpr int kT = kTile * G::kLdT;
+  extern __shared__ float smem[];
+  float* s_in = smem;              // a, h, v, d windows, [kWin][kLdW] each
+  float* s_t = s_in + 4 * kPlane;  // t1, t2: [kTile][kLdT] each
+  float* f_lo = s_t + 2 * kT;      // rec / 2 in window order
+  float* f_hi = f_lo + kMaxTaps;
+  int* s_row = reinterpret_cast<int*>(f_hi + kMaxTaps);
+  int* s_col = s_row + G::kWin;
+
+  const int warp = threadIdx.x >> 5;
+  const Block blk(pr, pc, y0);
+  const long long plane = static_cast<long long>(pr.n) * pc.n;
+  const long long pb = blockIdx.z * plane;
+  const float* const in[4] = {a + pb, h + pb, v + pb, d + pb};
+  stage<4, G::kWin, G::kWinC, G::kLdW>(in, s_in, s_row, s_col, pr, pc, blk,
+                                       hlen, half_taps, f_lo, f_hi);
+  __syncthreads();
+  const Band<P, kSteps> b(f_lo, f_hi, hlen);
+
+  // Pass 1, axis -2: t1 = syn(a, h), t2 = syn(v, d), on window columns.
+  constexpr int kM1 = G::kWinC / 16, kN = kTile / 8;
+  for (int task = warp; task < 2 * kM1 * kN; task += kWarps) {
+    const int pair = task / (kM1 * kN), rest = task - pair * kM1 * kN;
+    const int m0 = rest / kN * 16, n0 = rest % kN * 8;
+    const float* lo = s_in + (2 * pair) * kPlane + n0 * G::kLdW + m0;
+    const float* hi = lo + kPlane;
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    mma::band_product_pair<P>(
+        c, [&](int k, int m) { return lo[k * G::kLdW + m]; },
+        [&](int k, int m) { return hi[k * G::kLdW + m]; }, b.lo, b.hi);
+    float* t = s_t + pair * kT;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      t[(n0 + mma::c_col(i)) * G::kLdT + m0 + mma::c_row(i)] = c[i];
+  }
+  __syncthreads();
+
+  // Pass 2, last axis: out = syn(t1, t2).
+  for (int task = warp; task < kTile / 16 * kN; task += kWarps) {
+    const int m0 = task / kN * 16, n0 = task % kN * 8;
+    const float* t1 = s_t + m0 * G::kLdT + n0;
+    const float* t2 = t1 + kT;
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    mma::band_product_pair<P>(
+        c, [&](int k, int m) { return t1[m * G::kLdT + k]; },
+        [&](int k, int m) { return t2[m * G::kLdT + k]; }, b.lo, b.hi);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      Store st;
+      if (st.at(pr, pc, blk, m0 + mma::c_row(i), n0 + mma::c_col(i)))
+        out[pb + st.row * pc.n + st.col] = c[i];
+    }
+  }
+}
+
+using SwtKernel = void (*)(const float*, float*, float*, float*, float*,
+                           AxisPlan, AxisPlan, Taps, int, int);
+using IswtKernel = void (*)(const float*, const float*, const float*,
+                            const float*, float*, AxisPlan, AxisPlan, Taps,
+                            int, int);
+
+template <class P, int S>
+Instance<SwtKernel> swt_instance() {
+  return {tc_swt2d_kernel<P, S>, SwtGeom<P, S, 1>::kSmem};
+}
+
+template <class P, int S>
+Instance<IswtKernel> iswt_instance() {
+  return {tc_iswt2d_kernel<P, S>, SwtGeom<P, S, 4>::kSmem};
+}
+
+// kSteps = ceil((hlen + 7) / kK): 1..6 (TF32), 1..3 (BF16) for hlen 1..40.
+Instance<SwtKernel> pick_swt(bool bf16, int hlen) {
+  if (bf16) {
+    switch ((hlen + 7 + 15) / 16) {
+      case 1: return swt_instance<mma::Bf16, 1>();
+      case 2: return swt_instance<mma::Bf16, 2>();
+      case 3: return swt_instance<mma::Bf16, 3>();
+    }
+  } else {
+    switch ((hlen + 7 + 7) / 8) {
+      case 1: return swt_instance<mma::Tf32, 1>();
+      case 2: return swt_instance<mma::Tf32, 2>();
+      case 3: return swt_instance<mma::Tf32, 3>();
+      case 4: return swt_instance<mma::Tf32, 4>();
+      case 5: return swt_instance<mma::Tf32, 5>();
+      case 6: return swt_instance<mma::Tf32, 6>();
+    }
+  }
+  return {nullptr, 0};
+}
+
+Instance<IswtKernel> pick_iswt(bool bf16, int hlen) {
+  if (bf16) {
+    switch ((hlen + 7 + 15) / 16) {
+      case 1: return iswt_instance<mma::Bf16, 1>();
+      case 2: return iswt_instance<mma::Bf16, 2>();
+      case 3: return iswt_instance<mma::Bf16, 3>();
+    }
+  } else {
+    switch ((hlen + 7 + 7) / 8) {
+      case 1: return iswt_instance<mma::Tf32, 1>();
+      case 2: return iswt_instance<mma::Tf32, 2>();
+      case 3: return iswt_instance<mma::Tf32, 3>();
+      case 4: return iswt_instance<mma::Tf32, 4>();
+      case 5: return iswt_instance<mma::Tf32, 5>();
+      case 6: return iswt_instance<mma::Tf32, 6>();
+    }
+  }
+  return {nullptr, 0};
+}
+
+// Launch one level: the plans of both axes, the kernel's attribute, and
+// column blocks (classes fastest) x row blocks x planes.
+template <class Kernel, class Call>
+int launch_level(const Instance<Kernel>& inst, int batch, int nr, int nc,
+                 int level, int centre, int hlen, int device, Call call) {
+  if (hlen < 1 || hlen > kMaxTaps || centre < 0 || centre >= hlen ||
+      nr < 1 || nc < 1 || nr > 0x3fffffff || nc > 0x3fffffff || level < 1 ||
+      batch < 1 || inst.kernel == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(inst.kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(inst.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const AxisPlan pr = axis_plan(hlen, centre, level, nr);
+  const AxisPlan pc = axis_plan(hlen, centre, level, nc);
+  launch_chunks(pc.cls * pc.tiles, pr.cls * pr.tiles, batch,
+                [&](dim3 grid, int y0, int z0) {
+                  call(grid, static_cast<long long>(z0) * nr * nc, pr, pc,
+                       y0);
+                });
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace pypwt
+
+// Both return a cudaError_t; they launch on `stream`, do not synchronise
+// and allocate nothing. The filters are host arrays of hlen floats,
+// `centre` the a-trous centre s of the direction, bf16 1 for the "bf16"
+// precision and 0 for "highest" (3xTF32).
+// K11a: a, h, v, d of the input's shape (batch, nr, nc).
+extern "C" int pypwt_tc_swt2d(const float* x, float* a, float* h, float* v,
+                              float* d, int batch, int nr, int nc, int level,
+                              int centre, const float* dec_lo,
+                              const float* dec_hi, int hlen, int bf16,
+                              int device, void* stream) {
+  using namespace pypwt;
+  if (hlen < 1 || hlen > kMaxTaps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto inst = pick_swt(bf16 != 0, hlen);
+  const Taps taps = make_taps(dec_lo, dec_hi, hlen);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return launch_level(
+      inst, batch, nr, nc, level, centre, hlen, device,
+      [&](dim3 grid, long long p, AxisPlan pr, AxisPlan pc, int y0) {
+        inst.kernel<<<grid, kThreads, inst.smem, st>>>(
+            x + p, a + p, h + p, v + p, d + p, pr, pc, taps, hlen, y0);
+      });
+}
+
+// K11b: out of the coefficients' shape.
+extern "C" int pypwt_tc_iswt2d(const float* a, const float* h, const float* v,
+                               const float* d, float* out, int batch, int nr,
+                               int nc, int level, int centre,
+                               const float* rec_lo, const float* rec_hi,
+                               int hlen, int bf16, int device, void* stream) {
+  using namespace pypwt;
+  if (hlen < 1 || hlen > kMaxTaps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto inst = pick_iswt(bf16 != 0, hlen);
+  // rec / 2 is exact in float32: the 1/2 of each axis pass
+  float lo2[kMaxTaps], hi2[kMaxTaps];
+  for (int k = 0; k < hlen; ++k) {
+    lo2[k] = 0.5f * rec_lo[k];
+    hi2[k] = 0.5f * rec_hi[k];
+  }
+  const Taps taps = make_taps(lo2, hi2, hlen);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return launch_level(
+      inst, batch, nr, nc, level, centre, hlen, device,
+      [&](dim3 grid, long long p, AxisPlan pr, AxisPlan pc, int y0) {
+        inst.kernel<<<grid, kThreads, inst.smem, st>>>(
+            a + p, h + p, v + p, d + p, out + p, pr, pc, taps, hlen, y0);
+      });
+}

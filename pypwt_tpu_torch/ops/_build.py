@@ -75,6 +75,18 @@ _SIGNATURES = {
     # a, h, v, d, out, batch, lr, lc, nr, nc, rec (4 hlen^2), hlen, device,
     # stream
     "pypwt_ins_dwt2d": [_P] * 5 + [_I] * 5 + [_P, _I, _I, _P],
+    # x, a, h, v, d, batch, nr, nc, dec_lo, dec_hi, hlen, bf16, device,
+    # stream
+    "pypwt_tc_dwt2d": [_P] * 5 + [_I] * 3 + [_P, _P, _I, _I, _I, _P],
+    # a, h, v, d, out, batch, lr, lc, rec_lo, rec_hi, hlen, bf16, device,
+    # stream
+    "pypwt_tc_idwt2d": [_P] * 5 + [_I] * 3 + [_P, _P, _I, _I, _I, _P],
+    # x, a, h, v, d, batch, nr, nc, level, centre, dec_lo, dec_hi, hlen,
+    # bf16, device, stream
+    "pypwt_tc_swt2d": [_P] * 5 + [_I] * 5 + [_P, _P, _I, _I, _I, _P],
+    # a, h, v, d, out, batch, nr, nc, level, centre, rec_lo, rec_hi, hlen,
+    # bf16, device, stream
+    "pypwt_tc_iswt2d": [_P] * 5 + [_I] * 5 + [_P, _P, _I, _I, _I, _P],
 }
 
 _lib = None

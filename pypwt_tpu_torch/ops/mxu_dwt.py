@@ -1,0 +1,292 @@
+"""K5 and K6: one separable 2D DWT level as banded products on the tensor
+cores (the port of ``pypwt_tpu.ops.mxu_dwt``'s 2D kernels).
+
+* K5 ``dwt2d_mxu_fused`` (``csrc/tc_dwt2d.cu``) replaces
+  ``pypwt_tpu/ops/mxu_dwt.py::dwt2d_fused_mxu`` (``_build_dwt2d_mxu``): one
+  analysis level, ``(B?, Nr, Nc)`` -> a, h, v, d of ``(B?, Nr/2, Nc/2)``;
+* K6 ``idwt2d_mxu_fused`` (same source) replaces ``::idwt2d_fused_mxu``
+  (``_build_idwt2d_mxu``): one polyphase synthesis level -> ``(B?, 2Lr,
+  2Lc)``.
+
+Each pass is the banded map of the JAX kernels: a block of ``b`` outputs
+of (lo, hi) is ``D (2b, K) @ xp[2bk : 2bk + K]`` (analysis) and of ``2m``
+outputs ``S (2m, 2Kp) @ [lop; hip]`` (synthesis), on planes padded by
+``core.conv`` (``periodic_pad_last``, ``analysis_pads``,
+``synthesis_pads``), first along axis -2, then along the last axis, as
+JAX's kernels order them.  The matrices are built in float64 numpy from
+the reference index algebra and cast once to float32, as in JAX
+(``analysis_matrix``, ``synthesis_matrix`` and the block sizes are copies).
+
+Two precisions (``core.dwt.set_mxu_precision``):
+
+* ``"highest"``: float32 products (the kernels: 3xTF32, ~21 bits);
+* ``"bf16"``: both operands of each pass rounded to bfloat16, products
+  summed in float32 (the kernels: one bf16 tensor-core product), JAX's
+  DEFAULT dots; about 1 % RMS error.
+
+The plain versions (``*_plain``) need full float32 matrix products
+(PyTorch's default, ``torch.backends.cuda.matmul.allow_tf32`` False).
+``*_unsupported`` is JAX's coverage as shape and dtype logic: float32
+planes or stacks of even sizes and an even bank of 4..40 taps; the router
+(``core.dwt``) sends every other level to K1/K2.  A wrapper given a CPU
+tensor runs the plain version; given a CUDA tensor it launches the kernel
+or raises; ``launches`` counts its launches.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..core import conv
+from ..filters import MAX_FILTER_WIDTH
+from . import _build
+from .fused_dwt import (_batch, _check_inputs, _check_launch, _host_taps,
+                        _plane_unsupported, _stream, subbands_unsupported)
+
+PRECISIONS = ("highest", "bf16")
+
+
+# -- banded block matrices (float64 numpy, cast once to float32) ----------
+
+
+def analysis_matrix(dec_lo, dec_hi, b):
+    """D (2b, K), K = 2b + hlen - 2: rows [lo_b; hi_b] of the decimating
+    analysis map out[i] = sum_j f[hlen-1-j] xp[2i+j] (conv.analysis_core /
+    separable.cu:91-131)."""
+    flo = np.asarray(dec_lo, np.float64)
+    fhi = np.asarray(dec_hi, np.float64)
+    hlen = len(flo)
+    K = 2 * b + hlen - 2
+    D = np.zeros((2 * b, K), np.float64)
+    for i in range(b):
+        for j in range(hlen):
+            D[i, 2 * i + j] += flo[hlen - 1 - j]
+            D[b + i, 2 * i + j] += fhi[hlen - 1 - j]
+    return np.ascontiguousarray(D, np.float32), K
+
+
+def synthesis_matrix(rec_lo, rec_hi, m):
+    """S (2m, 2*Kp), Kp = m + hlen//2: the polyphase synthesis map from
+    stacked [lop_slice; hip_slice] to 2m interleaved outputs
+    (conv.synthesis_core / separable.cu:246-328).  Input slices start at
+    coefficient q0 of planes padded with lpad = c on the left."""
+    flo = np.asarray(rec_lo, np.float64)
+    fhi = np.asarray(rec_hi, np.float64)
+    hlen = len(flo)
+    h2 = hlen // 2
+    sigma = 1 if h2 % 2 == 0 else 0
+    # slice indices r = delta + j + q reach m + h2 - 2 + max(delta), and
+    # max(delta) = sigma (conv.synthesis_core phase rules)
+    Kp = m + h2 - 1 + sigma
+    S = np.zeros((2 * m, 2 * Kp), np.float64)
+    for p in (0, 1):
+        pp = (p + sigma) & 1
+        delta = (p + sigma) >> 1
+        off = 1 - pp
+        for q in range(m):
+            for j in range(h2):
+                tap = hlen - 1 - 2 * j - off
+                r = delta + j + q
+                S[2 * q + p, r] += flo[tap]
+                S[2 * q + p, Kp + r] += fhi[tap]
+    return np.ascontiguousarray(S, np.float32), Kp
+
+
+def _ana_blocks(hlen):
+    """Full-block size b with K = 2b + hlen - 2 = 128 (one MXU K-tile)."""
+    return (130 - hlen) // 2
+
+
+def _syn_blocks(hlen):
+    """Full-block size m with 2*Kp <= 128 (one MXU K-tile when the two
+    plane slices are stacked)."""
+    h2 = hlen // 2
+    sigma = 1 if h2 % 2 == 0 else 0
+    return 64 - (h2 - 1 + sigma)
+
+
+# -- plain versions ---------------------------------------------------------
+
+
+def check_precision(prec):
+    if prec not in PRECISIONS:
+        raise ValueError("mxu precision must be highest|bf16")
+
+
+@functools.lru_cache(maxsize=256)
+def _matrix(build, lo, hi, args, device, dtype, prec):
+    m, k = build(np.asarray(lo), np.asarray(hi), *args)
+    return operand(torch.from_numpy(m).to(device, dtype), prec), k
+
+
+def matrix(like, prec, build, lo, hi, *args):
+    """``build(lo, hi, *args)``, float32 values, as a tensor of ``like``'s
+    device and dtype (rounded to bf16 in "bf16"), and its K.  Kept per
+    device: a host-to-device copy in each call would wait for the device."""
+    return _matrix(build, tuple(float(v) for v in lo),
+                   tuple(float(v) for v in hi), args, like.device,
+                   like.dtype, prec)
+
+
+def operand(t, prec):
+    """A product's operand: as it is ("highest"), or rounded to bfloat16."""
+    return t.to(torch.bfloat16).to(t.dtype) if prec == "bf16" else t
+
+
+def _ana_last(x, fb, prec):
+    """Banded analysis along the last axis (ops/mxu_dwt.py::_ana_dots on the
+    padded plane) -> lo, hi, each (..., n/2)."""
+    hlen = fb.hlen
+    L = x.shape[-1] // 2
+    xp = operand(conv.periodic_pad_last(x, *conv.analysis_pads(hlen)), prec)
+    b = _ana_blocks(hlen)
+    nfull, r = divmod(L, b)
+    los, his = [], []
+    if nfull:
+        D, K = matrix(x, prec, analysis_matrix, fb.dec_lo, fb.dec_hi, b)
+        y = xp.unfold(-1, K, 2 * b) @ D.T        # (..., nfull, 2b)
+        los.append(y[..., :b].flatten(-2))
+        his.append(y[..., b:].flatten(-2))
+    if r:
+        D, K = matrix(x, prec, analysis_matrix, fb.dec_lo, fb.dec_hi, r)
+        y = xp[..., 2 * b * nfull: 2 * b * nfull + K] @ D.T
+        los.append(y[..., :r])
+        his.append(y[..., r:])
+    return torch.cat(los, -1), torch.cat(his, -1)
+
+
+def _syn_last(lo, hi, fb, prec):
+    """Banded polyphase synthesis along the last axis (ops/mxu_dwt.py::
+    _syn_dots) -> (..., 2L)."""
+    hlen = fb.hlen
+    L = lo.shape[-1]
+    pads = conv.synthesis_pads(hlen, L, 2 * L)
+    lop = operand(conv.periodic_pad_last(lo, *pads), prec)
+    hip = operand(conv.periodic_pad_last(hi, *pads), prec)
+    m = _syn_blocks(hlen)
+    nfull, r = divmod(L, m)
+    outs = []
+    if nfull:
+        S, Kp = matrix(lo, prec, synthesis_matrix, fb.rec_lo, fb.rec_hi, m)
+        z = torch.cat([lop.unfold(-1, Kp, m), hip.unfold(-1, Kp, m)], -1)
+        outs.append((z @ S.T).flatten(-2))
+    if r:
+        S, Kp = matrix(lo, prec, synthesis_matrix, fb.rec_lo, fb.rec_hi, r)
+        s0 = m * nfull
+        z = torch.cat([lop[..., s0: s0 + Kp], hip[..., s0: s0 + Kp]], -1)
+        outs.append(z @ S.T)
+    return torch.cat(outs, -1)
+
+
+def dwt2d_mxu_plain(x, fb, prec="highest"):
+    """One analysis level as banded products -> (a, h, v, d): along axis
+    -2 (lo_r, hi_r), then the last axis; a = lo(lo_r), v = hi(lo_r),
+    h = lo(hi_r), d = hi(hi_r), K1's subbands."""
+    check_precision(prec)
+    lo_r, hi_r = (t.transpose(-1, -2)
+                  for t in _ana_last(x.transpose(-1, -2), fb, prec))
+    a, v = _ana_last(lo_r, fb, prec)
+    h, d = _ana_last(hi_r, fb, prec)
+    return a, h, v, d
+
+
+def idwt2d_mxu_plain(a, h, v, d, fb, out_shape, prec="highest"):
+    """One synthesis level as banded products -> (B?, *out_shape[-2:]):
+    along axis -2 t1 = syn(a, h), t2 = syn(v, d), then the last axis."""
+    check_precision(prec)
+    del out_shape  # (2 Lr, 2 Lc): the coverage rule holds it
+    t1, t2 = (_syn_last(p.transpose(-1, -2), q.transpose(-1, -2), fb,
+                        prec).transpose(-1, -2) for p, q in ((a, h), (v, d)))
+    return _syn_last(t1, t2, fb, prec)
+
+
+# -- coverage and wrappers ---------------------------------------------------
+
+
+def _even_bank_unsupported(fb):
+    if fb.hlen % 2 or not 4 <= fb.hlen <= MAX_FILTER_WIDTH:
+        return (f"filter length {fb.hlen} (an even length of "
+                f"4..{MAX_FILTER_WIDTH})")
+    return None
+
+
+def dwt2d_mxu_unsupported(x, fb):
+    """Why K5 cannot take ``x`` with bank ``fb``, or None if it can (JAX's
+    ``_covers`` and ``_build_dwt2d_mxu``: float32, even sizes, an even bank
+    of 4 or more taps)."""
+    why = _plane_unsupported(x, "input") or _even_bank_unsupported(fb)
+    if why:
+        return why
+    nr, nc = x.shape[-2:]
+    if nr % 2 or nc % 2:
+        return f"plane {nr} x {nc} (even sizes only)"
+    return None
+
+
+def idwt2d_mxu_unsupported(a, h, v, d, fb, out_shape):
+    """Why K6 cannot take these coefficients, or None if it can (JAX's
+    ``idwt2d_fused_mxu``: an output of exactly twice their size, an even
+    bank of 4 or more taps)."""
+    why = (subbands_unsupported(a, h, v, d, out_shape)
+           or _even_bank_unsupported(fb))
+    if why:
+        return why
+    want = (2 * a.shape[-2], 2 * a.shape[-1])
+    if tuple(out_shape[-2:]) != want:
+        return f"output {tuple(out_shape[-2:])} (twice the coefficients: {want})"
+    return None
+
+
+def dwt2d_mxu_fused(x, fb, prec="highest"):
+    """K5: one analysis level on the tensor cores -> (a, h, v, d), each
+    ``(B?, Nr/2, Nc/2)``.  CPU tensor: the plain version."""
+    check_precision(prec)
+    if x.device.type == "cpu":
+        return dwt2d_mxu_plain(x, fb, prec)
+    _check_inputs("K5 (dwt2d_mxu)", dwt2d_mxu_unsupported(x, fb), x)
+    lib = _build.load_library()
+    nr, nc = x.shape[-2:]
+    shape = (*x.shape[:-2], nr // 2, nc // 2)
+    a, h, v, d = (torch.empty(shape, dtype=x.dtype, device=x.device)
+                  for _ in range(4))
+    lo, hi = _host_taps(fb.dec_lo), _host_taps(fb.dec_hi)
+    err = lib.pypwt_tc_dwt2d(
+        x.data_ptr(), a.data_ptr(), h.data_ptr(), v.data_ptr(), d.data_ptr(),
+        _batch(x), nr, nc, lo.ctypes.data, hi.ctypes.data, fb.hlen,
+        int(prec == "bf16"), x.device.index, _stream(x))
+    _check_launch(lib, err, "K5 (dwt2d_mxu)")
+    dwt2d_mxu_fused.launches += 1
+    return a, h, v, d
+
+
+def idwt2d_mxu_fused(a, h, v, d, fb, out_shape, prec="highest"):
+    """K6: one synthesis level on the tensor cores -> ``(B?, 2Lr, 2Lc)``.
+    CPU tensors: the plain version."""
+    check_precision(prec)
+    if a.device.type == "cpu":
+        return idwt2d_mxu_plain(a, h, v, d, fb, out_shape, prec)
+    _check_inputs("K6 (idwt2d_mxu)",
+                  idwt2d_mxu_unsupported(a, h, v, d, fb, out_shape),
+                  a, h, v, d)
+    lib = _build.load_library()
+    lr, lc = a.shape[-2:]
+    out = torch.empty((*a.shape[:-2], 2 * lr, 2 * lc), dtype=a.dtype,
+                      device=a.device)
+    lo, hi = _host_taps(fb.rec_lo), _host_taps(fb.rec_hi)
+    err = lib.pypwt_tc_idwt2d(
+        a.data_ptr(), h.data_ptr(), v.data_ptr(), d.data_ptr(),
+        out.data_ptr(), _batch(a), lr, lc, lo.ctypes.data, hi.ctypes.data,
+        fb.hlen, int(prec == "bf16"), a.device.index, _stream(a))
+    _check_launch(lib, err, "K6 (idwt2d_mxu)")
+    idwt2d_mxu_fused.launches += 1
+    return out
+
+
+KERNELS = (dwt2d_mxu_fused, idwt2d_mxu_fused)
+
+# counts start at 0; ``ops.reset_counts`` zeroes them with the others
+for _k in KERNELS:
+    _k.launches = 0

@@ -1,8 +1,9 @@
-"""K1/K2, K3/K4, K10a/K10b, K8/K9, K16/K17, K18a/K18b and K19/K20 against
-their plain versions on the GPU, at small sizes (the kernel phase of
+"""K1/K2, K3/K4, K10a/K10b, K8/K9, K16/K17, K18a/K18b, K19/K20 and the
+tensor-core forms K5/K6 and K11a/K11b (both precisions) against their
+plain versions on the GPU, at small sizes (the kernel phase of
 chip_smoke.py), odd sizes and odd filter lengths included, plus the
-auto/cuda routing on CUDA tensors, the Wavelets plans and the denoising
-pipelines on the card.
+auto/cuda/mxu routing on CUDA tensors, the Wavelets plans and the
+denoising pipelines on the card.
 
 Needs an NVIDIA GPU and nvcc; skips without a GPU.  Imports no JAX, and
 needs none of the conftest's JAX set-up, so on the GPU run it without it:
@@ -20,6 +21,8 @@ from pypwt_tpu_torch.core import dwt, nonsep, swt
 from pypwt_tpu_torch.core.nonsep import Filters2D
 from pypwt_tpu_torch.filters import FilterBank, get_filter_bank
 from pypwt_tpu_torch.ops import fused_dwt as fd
+from pypwt_tpu_torch.ops import mxu_dwt as km
+from pypwt_tpu_torch.ops import mxu_swt as kms
 from pypwt_tpu_torch.ops import nonsep as kn
 from pypwt_tpu_torch.ops import shifted as ks
 
@@ -459,3 +462,177 @@ def test_pipeline_cuda_matches_cpu(dev, mode):
                        "idwt2d_unshift_fused": 12},
             "denoise": {"dwt2d_fused": 3, "idwt2d_fused": 3}}[mode]
     assert counts == want
+
+
+# -- the tensor-core forms: K5/K6, K11a/K11b ------------------------------
+
+# the banks and planes of chip_smoke.py's tensor-core phase, and small
+# and odd ones
+MXU_BANKS = ["db2", "db4", "sym8", "coif3", "bior4.4", "db10", "sym20"]
+MXU_SHAPES = [(2048, 2048), (1024, 4096), (4096, 1024), (3, 256, 512),
+              (64, 128)]
+
+
+def _close_prec(got, ref, prec):
+    """"highest" (3xTF32): TOL.  "bf16": both operands rounded to bf16 in
+    each pass; kernel and plain sum the same exact products in another
+    order, so an intermediate may round to the other neighbour, which moves
+    an output by at most a tap times one bf16 ulp (2^-8 relative) of it:
+    max-abs within 2^-6 of the largest output, RMS within 1e-3 of the
+    output's RMS."""
+    if isinstance(got, torch.Tensor):
+        got, ref = (got,), (ref,)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        err = (g - r).abs()
+        if prec == "highest":
+            assert float(err.max()) <= TOL
+        else:
+            assert float(err.max()) <= 2 ** -6 * float(r.abs().max())
+            assert float(err.pow(2).mean().sqrt()) <= 1e-3 * float(
+                r.pow(2).mean().sqrt())
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+@pytest.mark.parametrize("wname", MXU_BANKS)
+@pytest.mark.parametrize("shape", MXU_SHAPES + [(2, 96, 64), (130, 258),
+                                                (6, 10), (2, 2)], ids=str)
+def test_k5_k6_match_plain(dev, wname, shape, prec):
+    fb = get_filter_bank(wname)
+    x = _rand(shape, dev)
+    n = km.dwt2d_mxu_fused.launches + km.idwt2d_mxu_fused.launches
+    _close_prec(km.dwt2d_mxu_fused(x, fb, prec),
+                km.dwt2d_mxu_plain(x, fb, prec), prec)
+    c = [_rand(_half(shape), dev, s) for s in range(1, 5)]
+    _close_prec(km.idwt2d_mxu_fused(*c, fb, shape, prec),
+                km.idwt2d_mxu_plain(*c, fb, shape, prec), prec)
+    assert km.dwt2d_mxu_fused.launches + km.idwt2d_mxu_fused.launches == n + 2
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+@pytest.mark.parametrize("wname", MXU_BANKS + ["haar", "odd5"])
+@pytest.mark.parametrize("shape", MXU_SHAPES + [(2, 33, 47), (130, 258)],
+                         ids=str)
+@pytest.mark.parametrize("level", [1, 2, 3, 4])
+def test_k11_match_plain(dev, wname, shape, level, prec):
+    """Every level whose support fits in the plane runs on K11a/K11b; a
+    wider one is refused before launch."""
+    fb = _bank(wname)
+    x = _rand(shape, dev)
+    c = [_rand(shape, dev, s) for s in range(1, 5)]
+    n = kms.swt2d_mxu_fused.launches + kms.iswt2d_mxu_fused.launches
+    if kms.swt2d_mxu_unsupported(x, fb, level):
+        with pytest.raises(ValueError, match="wider than the plane"):
+            kms.swt2d_mxu_fused(x, fb, level, prec)
+        return
+    _close_prec(kms.swt2d_mxu_fused(x, fb, level, prec),
+                kms.swt2d_mxu_plain(x, fb, level, prec), prec)
+    _close_prec(kms.iswt2d_mxu_fused(*c, fb, level, prec),
+                kms.iswt2d_mxu_plain(*c, fb, level, prec), prec)
+    assert (kms.swt2d_mxu_fused.launches
+            + kms.iswt2d_mxu_fused.launches) == n + 2
+
+
+def _mxu(mode, prec="highest"):
+    dwt.set_kernels(mode)
+    dwt.set_mxu_precision(prec)
+
+
+@pytest.mark.parametrize("mode", ["auto", "mxu"])
+@pytest.mark.parametrize("do_swt", [0, 1], ids=["dwt", "swt"])
+def test_sym8_paths_route_by_mode(dev, mode, do_swt):
+    """"auto" launches no tensor-core kernel on the sym8 paths; "mxu"
+    launches K5/K6 (K11a/K11b) once per level and nothing else."""
+    img = (np.random.default_rng(0).random((256, 192)) * 255).astype(
+        np.float32)  # sym8 keeps 3 levels (the clamp)
+    ref = Wavelets(img, "sym8", 3, device="cpu", do_swt=do_swt).forward()
+    try:
+        _mxu(mode)
+        ops.reset_counts()
+        W = Wavelets(img, "sym8", 3, device=dev, do_swt=do_swt).forward()
+        coeffs = W.coeffs
+        W.inverse()
+    finally:
+        _mxu("auto")
+    for lev in range(1, 4):
+        for a, b in zip(coeffs[lev], ref.coeffs[lev]):
+            assert np.abs(a - b).max() <= 3e-4 * 2 ** lev
+    assert np.abs(W.image - img).max() < 7e-4
+    names = {("auto", 0): ("dwt2d_fused", "idwt2d_fused"),
+             ("auto", 1): ("swt2d_fused", "iswt2d_fused"),
+             ("mxu", 0): ("dwt2d_mxu_fused", "idwt2d_mxu_fused"),
+             ("mxu", 1): ("swt2d_mxu_fused", "iswt2d_mxu_fused")}[
+                 (mode, do_swt)]
+    got = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+    assert got == {names[0]: 3, names[1]: 3}
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+def test_mxu_mode_stack_and_bf16_gate(dev, prec):
+    """A stack through wavedec2/waverec2 and swt2d/iswt2d in mode "mxu":
+    "highest" within the reference envelope of the plain path, "bf16"
+    within JAX's loose gate (RMS error <= 1 % of the reference's RMS per
+    subband at level 1, doubling per level as the reference's envelope
+    does; the roundtrip at its depth)."""
+    fb = get_filter_bank("sym8")
+    x = torch.from_numpy((np.random.default_rng(1).random((3, 64, 96))
+                          * 255).astype(np.float32))
+    refs = (dwt.wavedec2(x, fb, 3), swt.swt2d(x, fb, 3))
+    try:
+        _mxu("mxu", prec)
+        ops.reset_counts()
+        xd = x.to(dev)
+        pyrs = (dwt.wavedec2(xd, fb, 3), swt.swt2d(xd, fb, 3))
+        backs = (dwt.waverec2(pyrs[0], fb, xd.shape), swt.iswt2d(pyrs[1], fb))
+    finally:
+        _mxu("auto")
+    for pyr, ref, back in zip(pyrs, refs, backs):
+        pairs = [(pyr[0], ref[0], 3)] + [
+            (g, r, lev) for lev in range(1, 4)
+            for g, r in zip(pyr[lev], ref[lev])]
+        for g, r, lev in pairs:
+            g = g.cpu()
+            if prec == "highest":
+                assert float((g - r).abs().max()) <= 3e-4 * 2 ** lev
+            else:
+                assert float((g - r).pow(2).mean().sqrt()) <= (
+                    0.01 * 2 ** (lev - 1) * float(r.pow(2).mean().sqrt()))
+        err = (back.cpu() - x)
+        if prec == "highest":
+            assert float(err.abs().max()) < 7e-4
+        else:  # the roundtrip of 3 levels: the gate of level 3
+            assert float(err.pow(2).mean().sqrt()) <= 0.04 * float(
+                x.pow(2).mean().sqrt())
+    got = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+    assert got == {"dwt2d_mxu_fused": 3, "idwt2d_mxu_fused": 3,
+                   "swt2d_mxu_fused": 3, "iswt2d_mxu_fused": 3}
+
+
+@pytest.mark.parametrize("case", ["haar", "odd-plane", "wide-support",
+                                  "float64"])
+def test_mxu_mode_sends_uncovered_levels_to_jax_route(dev, case):
+    """Mode "mxu" sends what K5/K6/K11 do not cover where JAX sends it:
+    hlen 2 and odd planes to K1/K2, a dilated support wider than the plane
+    to K8/K9; float64 raises."""
+    fb = get_filter_bank("haar" if case == "haar" else "sym8")
+    shape = (31, 22) if case == "odd-plane" else (32, 48)
+    x = _rand(shape, dev)
+    try:
+        _mxu("mxu")
+        ops.reset_counts()
+        if case == "float64":
+            with pytest.raises(ValueError, match="float64"):
+                dwt.dwt2d(x.double(), fb)
+            assert sum(k.launches for k in ops.KERNELS) == 0
+            return
+        if case == "wide-support":
+            _close(swt.swt2d_level(x, fb, 4), fd.swt2d_plain(x, fb, 4))
+            want = {"swt2d_fused": 1}
+        else:
+            c = dwt.dwt2d(x, fb)
+            _close(c, fd.dwt2d_plain(x, fb))
+            _close(dwt.idwt2d(*c, fb, shape), fd.idwt2d_plain(*c, fb, shape))
+            want = {"dwt2d_fused": 1, "idwt2d_fused": 1}
+    finally:
+        _mxu("auto")
+    assert {k.__name__: k.launches for k in ops.KERNELS if k.launches} == want

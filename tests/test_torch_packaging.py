@@ -84,6 +84,32 @@ def test_pipeline_on_cpu_loads_no_jax():
     assert res.stdout.strip() == "ok"
 
 
+def test_tensor_core_mode_on_cpu_loads_no_jax():
+    """set_kernels("mxu") in both precisions: the banded plain versions of
+    K5/K6 and K11a/K11b (ops.mxu_dwt, ops.mxu_swt) run without JAX."""
+    code = (
+        "import sys\n"
+        "import numpy as np, pypwt_tpu_torch as P\n"
+        "from pypwt_tpu_torch.core import dwt\n"
+        "from pypwt_tpu_torch.ops import mxu_dwt, mxu_swt\n"
+        "img = np.random.default_rng(0).random((64, 96)).astype('float32')\n"
+        "dwt.set_kernels('mxu')\n"
+        "for prec in ('highest', 'bf16'):\n"
+        "    dwt.set_mxu_precision(prec)\n"
+        "    for swt in (0, 1):\n"
+        "        W = P.Wavelets(img, 'sym8', 2, device='cpu', do_swt=swt)\n"
+        "        W.forward(); W.inverse()\n"
+        "        assert abs(W.image - img).max() < (7e-4 if prec == "
+        "'highest' else 0.05)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pypwt_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    res = _run(["-c", code], ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def _imports(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
