@@ -10,8 +10,9 @@ prints its traceback and exits non-zero without the final ok line:
 1. device: needs CUDA (exits 1 without it); prints torch/CUDA versions,
    ``nvcc --version`` and the card's name and power limit;
 2. build: compiles every kernel (K1/K2, K3/K4, K10a/K10b, K8/K9,
-   K16/K17, K18a/K18b, K19/K20, and the tensor-core forms K5/K6, K11a/K11b)
-   from pypwt_tpu_torch/csrc/ with nvcc, one process per source, and prints
+   K16/K17, K18a/K18b, K19/K20, the float64 instances of the tap loops, and
+   the tensor-core forms K5/K6, K7a/K7b, K11a/K11b, K12a/K12b) from
+   pypwt_tpu_torch/csrc/ with nvcc, one process per source, and prints
    each kernel's registers and spills;
 3. K1/K2 against their plain torch versions on the card, over banks hlen
    2..40 and an odd 5-tap bank, even and odd shapes up to 4096^2 (max-abs
@@ -33,7 +34,12 @@ prints its traceback and exits non-zero without the final ok line:
    "bf16": the rule of mxu_close) over banks db2..sym20, planes 2048^2,
    1024 x 4096, 4096 x 1024, (3, 256, 512) and 64 x 128, SWT levels 1-4
    (a level whose support passes the plane goes to K8/K9 through the
-   router, in mode "mxu"), and against the oracle;
+   router, in mode "mxu"), and against the oracle; then K7a/K7b and
+   K12a/K12b (levels 1-4) in both precisions on 2048 rows of 2048 and a
+   (1, 4 Mi) row at db2, sym8 and sym20, and against the oracle; then the
+   float64 instance of every tap-loop kernel (K1-K4, K10, K8/K9, K16-K18)
+   against its float64 plain version (<= 1e-12) on 2048^2 and an odd
+   plane, and against the FFT oracle tests/fft_oracle.py;
 4. main paths, each held against the same calls on the CPU plain path
    (coefficients within 3e-4 * 2^level, image within 7e-4) and counted
    (exact launches of every kernel): Wavelets(img, "db2", 3,
@@ -56,6 +62,13 @@ prints its traceback and exits non-zero without the final ok line:
    stack through wavedec2/waverec2 and swt2d/iswt2d ("bf16" held to JAX's
    loose gate, RMS error <= 1 % of the reference's RMS per subband, at
    level 1, doubling per level, images at the pyramid's depth: rms_gate);
+   then, in mode "mxu" and both precisions, the sinogram as batched 1D at
+   sym8 L3, DWT (3 K7a, 3 K7b) and SWT (3 K12a, 3 K12b), and the signal,
+   DWT L5 (5 + 5) and SWT L3 (3 + 3), against the CPU plans; then float64
+   plans in mode "auto" (db4 L3: the 2D DWT and SWT, batched 1D DWT and
+   SWT, the non-separable DWT and SWT of the db3 x coif1 bank, each 3 + 3
+   launches of the float64 instances, roundtrip < 1e-10) and denoise2d on
+   a float64 frame;
 5. times (CUDA events, warm-up, median of 21 samples): level-0 K1/K2
    against their plain versions at 2048^2 (device time), and the L3
    roundtrip in frames/s, kernel path against plain path, at 2048^2 and on
@@ -68,7 +81,10 @@ prints its traceback and exits non-zero without the final ok line:
    8-spin random cycle spinning in frames/s, kernel path against plain
    path; then K5 against K1 and K6 against K2 at sym8 level 0, K11a against
    K8 and K11b against K9 at sym8 level 1, each with its plain version and
-   its "bf16" time; last, beside each kernel, one PyTorch call that computes the same
+   its "bf16" time; K7a/K7b against K3/K4 and K12a/K12b against K10 at
+   sym8, levels 1-3 of the sinogram and levels 1-5 (DWT) and 1-3 (SWT) of
+   the signal; the float64 instances of K1-K4 against their float32 ones;
+   last, beside each kernel, one PyTorch call that computes the same
    function (library_ms: a strided, transposed or dilated convolution in
    full float32, on an input padded outside the timed window), checked
    against the kernel's output.
@@ -85,7 +101,9 @@ limit.  The last line is {"ok": true, "device": {...}}.
 width (K8/K9 against their plain versions), then the crossover of the
 tensor-core forms: K5/K6 against K1/K2 (level l on a (2048 / 2^(l-1))^2
 plane) and K11a/K11b against K8/K9 (level l of 2048^2) by hlen (4, 8, 16,
-20, 40) and level (1-4), both precisions; it prints no ok line.
+20, 40) and level (1-4), both precisions, and the same for the 1D forms:
+K7a/K7b against K3/K4 (level l: 2048 rows of 2048 / 2^(l-1)) and
+K12a/K12b against K10 (level l of 2048 x 2048); it prints no ok line.
 """
 
 import importlib.util
@@ -136,6 +154,10 @@ SHAPES_MXU = (FRAME, (1024, 4096), (4096, 1024), (3, 256, 512), (64, 128))
 PRECISIONS = ("highest", "bf16")
 BF16_RMS = 0.01       # the "bf16" gate at level 1 (rms_gate)
 SWEEP_MXU = ("db2", "db4", "sym8", "db10", "sym20")  # hlen 4, 8, 16, 20, 40
+MXU1D_BANKS = ("db2", "sym8", "sym20")  # hlen 4, 16, 40
+SHAPES_MXU1D = (FRAME, (1, SIGNAL))     # sinogram rows, one signal
+F64_TOL = 1e-12       # float64 kernel vs float64 plain or oracle, [0,1) data
+F64_PLAN_TOL = 1e-10  # float64 plans, 0..255 data (JAX's float64 gate)
 # an odd-length bank for every kernel
 ODD_TAPS = ([0.1, -0.3, 0.7, 0.25, -0.05], [0.2, 0.5, -0.6, 0.1, 0.3],
             [-0.15, 0.35, 0.6, 0.2, 0.05], [0.4, -0.2, 0.1, 0.55, -0.3])
@@ -264,6 +286,15 @@ def banks_1d(port):
     odd = port.FilterBank("odd5", *(np.asarray(t, np.float64)
                                     for t in ODD_TAPS))
     return [port.get_filter_bank(n) for n in BANKS] + [odd]
+
+
+def launched_one(kernels, call, what):
+    """call(), which must launch exactly one of ``kernels``."""
+    before = sum(k.launches for k in kernels)
+    got = call()
+    if sum(k.launches for k in kernels) != before + 1:
+        raise AssertionError(f"{what}: not one launch")
+    return got
 
 
 def launched_once(kernel, call):
@@ -1681,6 +1712,38 @@ def _library_calls(port, dev, card):
                         lambda c: F.conv1d(c, wb)[:, 0],
                         fd.iswt1d_fused(*fd.swt1d_fused(frames[0], fb, 1),
                                         fb, 1))
+
+    # the 1D tensor-core forms at sym8: the same maps as K3/K4 and K10
+    lp, rp = conv.analysis_pads(fw.hlen)
+    w1 = weights([fw.dec_lo, fw.dec_hi], False).flip(-1)[:, None]
+    rows = [conv.periodic_pad_last(f, lp, rp)[:, None] for f in frames]
+    lib["K7a"] = timed("K7a conv1d stride 2 sym8", rows,
+                       lambda x: F.conv1d(x, w1, stride=2).transpose(0, 1),
+                       torch.stack(km.dwt1d_mxu_fused(frames[0], fw)))
+    pad = fw.hlen
+    o = synthesis_offset(fw.hlen) + 2 * pad
+    wr = weights([fw.rec_lo, fw.rec_hi], False)[:, None]
+    coef = [km.dwt1d_mxu_fused(f, fw) for f in frames]
+    c1 = [conv.periodic_pad_last(torch.stack(c, 1), pad, pad) for c in coef]
+    lib["K7b"] = timed("K7b conv_transpose1d stride 2 sym8", c1,
+                       lambda c: F.conv_transpose1d(c, wr, stride=2),
+                       km.idwt1d_mxu_fused(*coef[0], fw, FRAME[1]),
+                       lambda z: z[:, 0, o:o + FRAME[1]])
+    s = conv.swt_centre(fw.hlen, False)
+    rows = [conv.periodic_pad_last(f, fw.hlen - 1 - s, s)[:, None]
+            for f in frames]
+    lib["K12a"] = timed("K12a conv1d dilation 1 sym8", rows,
+                        lambda x: F.conv1d(x, w1).transpose(0, 1),
+                        torch.stack(kms.swt1d_mxu_fused(frames[0], fw, 1)))
+    s = conv.swt_centre(fw.hlen, True)
+    wb = 0.5 * weights([fw.rec_lo, fw.rec_hi], False).flip(-1)[None]
+    coef = [kms.swt1d_mxu_fused(f, fw, 1) for f in frames]
+    c1 = [conv.periodic_pad_last(torch.stack(c, 1), fw.hlen - 1 - s, s)
+          for c in coef]
+    lib["K12b"] = timed("K12b conv1d dilation 1 sym8", c1,
+                        lambda c: F.conv1d(c, wb)[:, 0],
+                        kms.iswt1d_mxu_fused(*coef[0], fw, 1))
+    del coef, c1, rows
     return lib
 
 
@@ -1782,6 +1845,573 @@ def phase_sweep_mxu(port, dev, card):
                   + f"  [{card}]")
 
 
+def load_fft_oracle():
+    spec = importlib.util.spec_from_file_location(
+        "fft_oracle", ROOT / "tests" / "fft_oracle.py")
+    fft = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fft)
+    return fft
+
+
+def phase_kernels_mxu1d(port, dev):
+    """K7a/K7b and K12a/K12b (levels 1-4) against their banded plain
+    versions in both precisions on 2048 rows of 2048 and a (1, 4 Mi) row, at
+    db2, sym8 and sym20 (hlen 4, 16, 40), each launch counted; then against
+    the float64 oracle on small rows.  The worst "highest" errors go to the
+    kernels line; the "bf16" ones are printed."""
+    km, kms = port.ops.mxu_dwt, port.ops.mxu_swt
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    worst = {p: {"K7a": 0.0, "K7b": 0.0, "K12a": 0.0, "K12b": 0.0}
+             for p in PRECISIONS}
+    for name in MXU1D_BANKS:
+        fb = port.get_filter_bank(name)
+        for shape in SHAPES_MXU1D:
+            x = torch.rand(shape, generator=gen, device=dev)
+            half = (shape[0], shape[1] // 2)
+            c = [torch.rand(half, generator=gen, device=dev)
+                 for _ in range(2)]
+            s = [torch.rand(shape, generator=gen, device=dev)
+                 for _ in range(2)]
+            for prec in PRECISIONS:
+                w = worst[prec]
+
+                def note(key, got, ref, what):
+                    try:
+                        w[key] = max(w[key], mxu_close(got, ref, prec))
+                    except AssertionError as e:
+                        raise AssertionError(f"{key} {what}: {e}") from None
+
+                what = (name, shape, prec)
+                got = launched_once(km.dwt1d_mxu_fused,
+                                    lambda: km.dwt1d_mxu_fused(x, fb, prec))
+                note("K7a", got, km.dwt1d_mxu_plain(x, fb, prec), what)
+                got = launched_once(km.idwt1d_mxu_fused, lambda: (
+                    km.idwt1d_mxu_fused(*c, fb, shape[1], prec)))
+                note("K7b", got, km.idwt1d_mxu_plain(*c, fb, shape[1], prec),
+                     what)
+                for level in (1, 2, 3, 4):
+                    if kms.swt1d_mxu_unsupported(x, fb, level):
+                        continue
+                    got = launched_once(kms.swt1d_mxu_fused, lambda: (
+                        kms.swt1d_mxu_fused(x, fb, level, prec)))
+                    note("K12a", got, kms.swt1d_mxu_plain(x, fb, level, prec),
+                         what + (level,))
+                    got = launched_once(kms.iswt1d_mxu_fused, lambda: (
+                        kms.iswt1d_mxu_fused(*s, fb, level, prec)))
+                    note("K12b", got,
+                         kms.iswt1d_mxu_plain(*s, fb, level, prec),
+                         what + (level,))
+            del x, c, s
+            torch.cuda.synchronize()
+            print(f"kernel-vs-plain 1D tensor cores {name:6s} "
+                  f"hlen={fb.hlen:2d} {str(shape):14s} worst so far "
+                  + "  ".join(f"{k} {v:.2e}/{worst['bf16'][k]:.2e}"
+                              for k, v in worst["highest"].items())
+                  + "  (highest/bf16)")
+    oracle = load_oracle()
+    rng = np.random.default_rng(SEED)
+    for name in MXU1D_BANKS:
+        fb = port.get_filter_bank(name)
+        x = rng.random((3, 96), dtype=np.float32)
+        c = [rng.random((3, 48), dtype=np.float32) for _ in range(2)]
+        s = [rng.random((3, 96), dtype=np.float32) for _ in range(2)]
+        refs = {"K7a": [np.stack([oracle.ref_analysis_1d(r, f) for r in x])
+                        for f in (fb.dec_lo, fb.dec_hi)],
+                "K7b": [np.stack([oracle.ref_synthesis_1d(
+                    a, d, fb.rec_lo, fb.rec_hi, 96) for a, d in zip(*c)])],
+                "K12a": [np.stack([oracle.ref_swt_analysis_1d(r, f, 2)
+                                   for r in x])
+                         for f in (fb.dec_lo, fb.dec_hi)],
+                "K12b": [np.stack([oracle.ref_swt_synthesis_1d(
+                    a, d, fb.rec_lo, fb.rec_hi, 2) for a, d in zip(*s)])]}
+        tx = torch.from_numpy(x).to(dev)
+        tc = [torch.from_numpy(t).to(dev) for t in c]
+        ts = [torch.from_numpy(t).to(dev) for t in s]
+        line = []
+        for prec in PRECISIONS:
+            gots = {"K7a": km.dwt1d_mxu_fused(tx, fb, prec),
+                    "K7b": [km.idwt1d_mxu_fused(*tc, fb, 96, prec)],
+                    "K12a": kms.swt1d_mxu_fused(tx, fb, 2, prec),
+                    "K12b": [kms.iswt1d_mxu_fused(*ts, fb, 2, prec)]}
+            for key, got in gots.items():
+                got = [g.cpu().numpy() for g in got]
+                if prec == "highest":
+                    e = max(float(np.abs(g - r).max())
+                            for g, r in zip(got, refs[key]))
+                    if e > ORACLE_TOL:
+                        raise AssertionError(f"{name} {key}: kernel vs "
+                                             f"oracle {e:.3e} > {ORACLE_TOL}")
+                else:
+                    e = max(rms_gate(g, r, f"{name} {key} bf16 vs oracle")
+                            for g, r in zip(got, refs[key]))
+                line.append(f"{key} {prec} {e:.2e}")
+        print(f"kernel-vs-oracle 1D tensor cores {name:6s} " + "  ".join(line)
+              + "  (bf16: relative RMS)")
+    for key, e in worst["bf16"].items():
+        print(f"worst bf16 kernel-vs-plain {key}: {e:.3e}")
+    return worst["highest"]
+
+
+def f64_calls(port, fb, f2d, x, c2, c1, level):
+    """Each float64 instance's call and its float64 plain version, by
+    kernel: x a plane (2D) or rows (1D), c2 four subbands and c1 two
+    coefficient rows of a decimated level, at SWT level ``level``."""
+    fd, kn = port.ops.fused_dwt, port.ops.nonsep
+    nr, nc = x.shape[-2:]
+    return {
+        "K1": (lambda: fd.dwt2d_fused(x, fb), lambda: fd.dwt2d_plain(x, fb)),
+        "K2": (lambda: fd.idwt2d_fused(*c2, fb, (nr, nc)),
+               lambda: fd.idwt2d_plain(*c2, fb, (nr, nc))),
+        "K3": (lambda: fd.dwt1d_fused(x, fb), lambda: fd.dwt1d_plain(x, fb)),
+        "K4": (lambda: fd.idwt1d_fused(*c1, fb, nc),
+               lambda: fd.idwt1d_plain(*c1, fb, nc)),
+        "K10a": (lambda: fd.swt1d_fused(x, fb, level),
+                 lambda: fd.swt1d_plain(x, fb, level)),
+        "K10b": (lambda: fd.iswt1d_fused(x, x, fb, level),
+                 lambda: fd.iswt1d_plain(x, x, fb, level)),
+        "K8": (lambda: fd.swt2d_fused(x, fb, level),
+               lambda: fd.swt2d_plain(x, fb, level)),
+        "K9": (lambda: fd.iswt2d_fused(x, x, x, x, fb, level),
+               lambda: fd.iswt2d_plain(x, x, x, x, fb, level)),
+        "K16": (lambda: kn.nsdwt2d_fused(x, f2d),
+                lambda: kn.nsdwt2d_plain(x, f2d)),
+        "K17": (lambda: kn.insdwt2d_fused(*c2, f2d, (nr, nc)),
+                lambda: kn.insdwt2d_plain(*c2, f2d, (nr, nc))),
+        "K18a": (lambda: kn.ns_swt2d_fused(x, f2d, level),
+                 lambda: kn.ns_swt2d_plain(x, f2d, level)),
+        "K18b": (lambda: kn.ins_swt2d_fused(x, x, x, x, f2d, level),
+                 lambda: kn.ins_swt2d_plain(x, x, x, x, f2d, level)),
+    }
+
+
+def phase_kernels_f64(port, dev):
+    """The float64 instance of every tap-loop kernel (K1-K4, K10a/K10b,
+    K8/K9, K16/K17, K18a/K18b) against its float64 plain version (the
+    bank's float64 values) on 2048^2 and odd planes and rows, levels 1 and
+    3, over db2, db8, sym20 and the odd bank (the non-separable kernels on
+    the custom 2D banks), and the separable ones against the float64 FFT
+    oracle tests/fft_oracle.py."""
+    kernels = port.ops.KERNELS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    worst = {}
+    banks = [port.get_filter_bank(n) for n in ("db2", "db8", "sym20")]
+    banks.append(banks_1d(port)[-1])
+    f2ds = banks_2d(port)
+    for shape in (FRAME, ODD_PLANE):
+        for i, fb in enumerate(banks):
+            f2d = f2ds[i % len(f2ds)]
+            x = torch.rand(shape, generator=gen, device=dev,
+                           dtype=torch.float64)
+            hs = half(shape)
+            c2 = [torch.rand(hs, generator=gen, device=dev,
+                             dtype=torch.float64) for _ in range(4)]
+            c1 = [torch.rand((shape[0], hs[1]), generator=gen, device=dev,
+                             dtype=torch.float64) for _ in range(2)]
+            for level in (1, 3):
+                for key, (kernel, plain) in f64_calls(
+                        port, fb, f2d, x, c2, c1, level).items():
+                    if level == 3 and key not in ("K10a", "K10b", "K8",
+                                                  "K9", "K18a", "K18b"):
+                        continue
+                    got = launched_one(kernels, kernel, f"{key} float64")
+                    got = got if isinstance(got, tuple) else (got,)
+                    if any(g.dtype != torch.float64 for g in got):
+                        raise AssertionError(f"{key}: float64 in, "
+                                             f"{got[0].dtype} out")
+                    want = plain()
+                    err = max_err(got, want if isinstance(want, tuple)
+                                  else (want,))
+                    if not err <= F64_TOL:
+                        raise AssertionError(
+                            f"{key} float64 {fb.name} {shape} L{level}: "
+                            f"kernel vs plain {err:.3e} > {F64_TOL}")
+                    worst[key] = max(worst.get(key, 0.0), err)
+            del x, c2, c1
+        torch.cuda.synchronize()
+        print(f"kernel-vs-plain float64 {str(shape):12s} worst so far "
+              + "  ".join(f"{k} {v:.1e}" for k, v in worst.items()))
+    fft = load_fft_oracle()
+    rng = np.random.default_rng(SEED)
+    for fb in banks:
+        x = rng.random((24, 40))
+        c = [rng.random((12, 20)) for _ in range(4)]
+        tx = torch.from_numpy(x).to(dev)
+        tc = [torch.from_numpy(t).to(dev) for t in c]
+        fd = port.ops.fused_dwt
+
+        def rows(fn, t, *args):  # along axis -2
+            return np.swapaxes(fn(np.swapaxes(t, -1, -2), *args), -1, -2)
+
+        lo = fft.fft_swt_analysis_1d(x, fb.dec_lo, 2)
+        hi = fft.fft_swt_analysis_1d(x, fb.dec_hi, 2)
+        # a, h, v, d: lo and hi of lo, then of hi, along axis -2
+        k8 = [rows(fft.fft_swt_analysis_1d, t, f, 2)
+              for t in (lo, hi) for f in (fb.dec_lo, fb.dec_hi)]
+
+        def syn2(p, q):  # axis -2
+            return np.swapaxes(fft.fft_swt_synthesis_1d(
+                np.swapaxes(p, -1, -2), np.swapaxes(q, -1, -2), fb.rec_lo,
+                fb.rec_hi, 2), -1, -2)
+        s = [rng.random((24, 40)) for _ in range(4)]
+        k9 = fft.fft_swt_synthesis_1d(syn2(s[0], s[1]), syn2(s[2], s[3]),
+                                      fb.rec_lo, fb.rec_hi, 2)
+        checks = {
+            "K1": (fd.dwt2d_fused(tx, fb), fft.fft_dwt2d(x, fb)),
+            "K2": (fd.idwt2d_fused(*tc, fb, (24, 40)),
+                   fft.fft_waverec2([c[0], tuple(c[1:])], fb, (24, 40))),
+            "K3": (fd.dwt1d_fused(tx, fb),
+                   (fft.fft_analysis_1d(x, fb.dec_lo),
+                    fft.fft_analysis_1d(x, fb.dec_hi))),
+            "K4": (fd.idwt1d_fused(tc[0][:, :20].contiguous(),
+                                   tc[1][:, :20].contiguous(), fb, 40),
+                   fft.fft_synthesis_1d(c[0][:, :20], c[1][:, :20],
+                                        fb.rec_lo, fb.rec_hi, 40)),
+            "K10a": (fd.swt1d_fused(tx, fb, 2), (lo, hi)),
+            "K10b": (fd.iswt1d_fused(tx, tx, fb, 2),
+                     fft.fft_swt_synthesis_1d(x, x, fb.rec_lo, fb.rec_hi, 2)),
+            "K8": (fd.swt2d_fused(tx, fb, 2), k8),
+            "K9": (fd.iswt2d_fused(*(torch.from_numpy(t).to(dev) for t in s),
+                                   fb, 2), k9),
+        }
+        if fb.hlen % 2:  # the oracle's synthesis centring is for even hlen
+            del checks["K2"], checks["K4"]
+        errs = {}
+        for key, (got, ref) in checks.items():
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, (tuple, list)) else (ref,)
+            errs[key] = max(float(np.abs(g.cpu().numpy() - np.asarray(r))
+                                  .max()) for g, r in zip(got, ref))
+        print(f"kernel-vs-fft-oracle float64 {fb.name:6s} "
+              + "  ".join(f"{k} {v:.1e}" for k, v in errs.items()))
+        if max(errs.values()) > F64_TOL:
+            raise AssertionError(f"{fb.name}: float64 kernel vs FFT oracle "
+                                 f"{max(errs.values()):.3e} > {F64_TOL}")
+    return worst
+
+
+def drive_mxu1d(port, dev, img, wname, levels, prec, want, what, **kw):
+    """Wavelets(img, wname, levels, **kw) forward -> soft_threshold(10) ->
+    inverse on the card in mode "mxu" at ``prec``, counted from 0, then a
+    plain roundtrip; held against the CPU plain path of mode "auto" as
+    drive_mxu holds the 2D path."""
+    ops, dwt = port.ops, port.dwt
+    ref = port.Wavelets(img, wname, levels, device="cpu", **kw)
+    ref.forward()
+    ref_coeffs = ref.coeffs
+    ref.soft_threshold(10.0)
+    ref.inverse()
+    fwd = {k: v for k, v in want.items() if not k.startswith("i")}
+    dwt.set_kernels("mxu")
+    dwt.set_mxu_precision(prec)
+    try:
+        W = port.Wavelets(img, wname, levels, device=dev, **kw)
+        ops.reset_counts()
+        W.forward()
+        coeffs = W.coeffs
+        expect_launches(ops, fwd, f"{what} forward")
+        W.soft_threshold(10.0)
+        W.inverse()
+        out = W.image
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in ops.KERNELS
+                    if k.launches}
+        expect_launches(ops, want, what)
+        R = port.Wavelets(img, wname, levels, device=dev, **kw)
+        R.forward()
+        R.inverse()
+        back = R.image.reshape(img.shape)
+    finally:
+        dwt.set_kernels("auto")
+        dwt.set_mxu_precision("highest")
+    levels = len(coeffs) - 1  # as the plan clamps them
+    if prec == "highest":
+        ec = check_pyramid(coeffs, ref_coeffs, f"{what} forward")
+        ei = check_image(out, ref.image, f"{what} denoised image")
+        er = check_image(back, img, f"{what} roundtrip")
+        kind = "max-abs"
+    else:
+        flat = [(coeffs[0], ref_coeffs[0], levels)] + [
+            (coeffs[lev], ref_coeffs[lev], lev)
+            for lev in range(1, levels + 1)]
+        ec = max(rms_gate(g, r, f"{what} level {lev}", lev)
+                 for g, r, lev in flat)
+        ei = rms_gate(out, ref.image, f"{what} denoised image", levels)
+        er = rms_gate(back, img, f"{what} roundtrip", levels)
+        kind = "relative RMS"
+    print(f"main path {what}: forward vs cpu {ec:.3e}, denoised image vs "
+          f"cpu {ei:.3e}, roundtrip {er:.3e} ({kind}), launches {launches}")
+    return launches
+
+
+def phase_main_paths_mxu1d(port, dev):
+    """Mode "mxu", both precisions, sym8: the 2048 x 2048 sinogram as
+    batched 1D, DWT L3 (3 K7a, 3 K7b, no K3/K4) and SWT L3 (3 K12a, 3
+    K12b, no K10), and one 4 Mi-sample signal, DWT L5 (5 + 5) and SWT L3
+    (3 + 3), each against the CPU plan."""
+    sino = frame(FRAME, SEED + 18)
+    sig = frame((SIGNAL,), SEED + 19)
+    launches = {}
+    for prec in PRECISIONS:
+        got = drive_mxu1d(
+            port, dev, sino, "sym8", 3, prec,
+            {"dwt1d_mxu_fused": 3, "idwt1d_mxu_fused": 3},
+            f"mxu {prec} batched-1D sym8 L3 {FRAME}", ndim=1)
+        got.update(drive_mxu1d(
+            port, dev, sino, "sym8", 3, prec,
+            {"swt1d_mxu_fused": 3, "iswt1d_mxu_fused": 3},
+            f"mxu {prec} batched-1D SWT sym8 L3 {FRAME}", ndim=1, do_swt=1))
+        if prec == "highest":
+            launches = got
+        drive_mxu1d(port, dev, sig, "sym8", 5, prec,
+                    {"dwt1d_mxu_fused": 5, "idwt1d_mxu_fused": 5},
+                    f"mxu {prec} signal sym8 L5 ({SIGNAL},)")
+        drive_mxu1d(port, dev, sig, "sym8", 3, prec,
+                    {"swt1d_mxu_fused": 3, "iswt1d_mxu_fused": 3},
+                    f"mxu {prec} signal SWT sym8 L3 ({SIGNAL},)", do_swt=1)
+    return {"K7a": launches["dwt1d_mxu_fused"],
+            "K7b": launches["idwt1d_mxu_fused"],
+            "K12a": launches["swt1d_mxu_fused"],
+            "K12b": launches["iswt1d_mxu_fused"]}
+
+
+def phase_main_paths_f64(port, dev):
+    """Float64 plans on the card in mode "auto", on the float64 instances
+    (exact launches, every level on a kernel): Wavelets(img, "db4", 3,
+    dtype=np.float64) on the 2048^2 frame, DWT (3 K1, 3 K2) and SWT (3 K8,
+    3 K9); the 2048 x 2048 sinogram as batched 1D, DWT (3 K3, 3 K4) and SWT
+    (3 K10a, 3 K10b); the non-separable plans of the db3 x coif1 bank, DWT
+    (3 K16, 3 K17) and SWT (3 K18a, 3 K18b); and pipeline.denoise2d on a
+    float64 frame (3 K1, 3 K2).  Roundtrips within 1e-10 (JAX's float64
+    gate), coefficients and the denoised image within 1e-10 of the plain
+    path on the device (mode "torch")."""
+    dwt, ops = port.dwt, port.ops
+    img = np.random.default_rng(SEED + 20).random(FRAME) * 255
+    cross = banks_2d(port)[0]
+    plans = (("2D DWT", {}, None, ("dwt2d_fused", "idwt2d_fused")),
+             ("2D SWT", dict(do_swt=1), None, ("swt2d_fused",
+                                               "iswt2d_fused")),
+             ("batched-1D DWT", dict(ndim=1), None, ("dwt1d_fused",
+                                                      "idwt1d_fused")),
+             ("batched-1D SWT", dict(ndim=1, do_swt=1), None,
+              ("swt1d_fused", "iswt1d_fused")),
+             (f"non-separable {cross.name}", dict(do_separable=0), cross,
+              ("nsdwt2d_fused", "insdwt2d_fused")),
+             (f"non-separable SWT {cross.name}",
+              dict(do_separable=0, do_swt=1), cross,
+              ("ns_swt2d_fused", "ins_swt2d_fused")))
+    launches = {}
+
+    def plan(kw, f2d):
+        W = port.Wavelets(img, "db4", 3, dtype=np.float64, device=dev, **kw)
+        if f2d is not None:
+            install_bank(f2d)(W)
+        return W
+
+    for what, kw, f2d, names in plans:
+        dwt.set_kernels("torch")
+        try:
+            R = plan(kw, f2d)
+            R.forward()
+            ref = R.coeffs
+        finally:
+            dwt.set_kernels("auto")
+        W = plan(kw, f2d)
+        ops.reset_counts()
+        W.forward()
+        coeffs = W.coeffs
+        W.inverse()
+        out = W.image
+        torch.cuda.synchronize()
+        got = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+        expect_launches(ops, {names[0]: 3, names[1]: 3},
+                        f"float64 {what}")
+        launches.update(got)
+        leaves = []
+        for g, r in zip(coeffs, ref):
+            g = g if isinstance(g, list) else [g]
+            r = r if isinstance(r, list) else [r]
+            leaves += list(zip(g, r))
+        if any(g.dtype != np.float64 for g, _ in leaves):
+            raise AssertionError(f"float64 {what}: coefficients not float64")
+        ec = max(float(np.abs(g - r).max()) for g, r in leaves)
+        er = float(np.abs(out.reshape(img.shape) - img).max())
+        if out.dtype != np.float64 or not ec <= F64_PLAN_TOL \
+                or not er < F64_PLAN_TOL:
+            raise AssertionError(f"float64 {what}: forward vs plain {ec:.3e}"
+                                 f", roundtrip {er:.3e} (limit "
+                                 f"{F64_PLAN_TOL})")
+        print(f"main path float64 {what} db4 L3 {FRAME}: forward vs plain "
+              f"on the card {ec:.3e}, roundtrip {er:.3e}, launches {got}")
+    x = torch.from_numpy(img).to(dev)
+    dwt.set_kernels("torch")
+    try:
+        ref = port.pipeline.denoise2d(x, "db2", 3, BETA)
+    finally:
+        dwt.set_kernels("auto")
+    ops.reset_counts()
+    out = port.pipeline.denoise2d(x, "db2", 3, BETA)
+    torch.cuda.synchronize()
+    expect_launches(ops, {"dwt2d_fused": 3, "idwt2d_fused": 3},
+                    "float64 denoise2d")
+    err = float((out - ref).abs().max())
+    if out.dtype != torch.float64 or not err <= F64_PLAN_TOL:
+        raise AssertionError(f"float64 denoise2d: {err:.3e}")
+    print(f"main path float64 denoise2d db2 L3 beta {BETA} {FRAME}: image vs "
+          f"plain on the card {err:.3e}, launches 3 + 3")
+    return launches
+
+
+def mxu1d_cases(port, fb, rows, level):
+    """Level ``level`` of bank ``fb`` on the sinogram's level shape (DWT:
+    2048 rows of 2048 / 2^(l-1); SWT: 2048 x 2048) of ``rows``, for
+    the tensor-core forms, their tap-loop kernels and plain versions: by
+    key, the calls that cycle over inputs beyond the L2; and the DWT
+    level's row length."""
+    km, kms, fd = port.ops.mxu_dwt, port.ops.mxu_swt, port.ops.fused_dwt
+    n = FRAME[1] >> (level - 1)
+    drows = [r[:, :n].contiguous() for r in rows]
+    nx = itertools.cycle(drows).__next__
+    dc = itertools.cycle([fd.dwt1d_fused(r, fb) for r in drows]).__next__
+    sx = itertools.cycle(rows).__next__
+    sc = itertools.cycle([fd.swt1d_fused(r, fb, level)
+                          for r in rows]).__next__
+    return n, {
+        "K7a": {"plain": lambda: km.dwt1d_mxu_plain(nx(), fb),
+                "highest": lambda: km.dwt1d_mxu_fused(nx(), fb),
+                "bf16": lambda: km.dwt1d_mxu_fused(nx(), fb, "bf16"),
+                "tap": lambda: fd.dwt1d_fused(nx(), fb)},
+        "K7b": {"plain": lambda: km.idwt1d_mxu_plain(*dc(), fb, n),
+                "highest": lambda: km.idwt1d_mxu_fused(*dc(), fb, n),
+                "bf16": lambda: km.idwt1d_mxu_fused(*dc(), fb, n, "bf16"),
+                "tap": lambda: fd.idwt1d_fused(*dc(), fb, n)},
+        "K12a": {"plain": lambda: kms.swt1d_mxu_plain(sx(), fb, level),
+                 "highest": lambda: kms.swt1d_mxu_fused(sx(), fb, level),
+                 "bf16": lambda: kms.swt1d_mxu_fused(sx(), fb, level,
+                                                     "bf16"),
+                 "tap": lambda: fd.swt1d_fused(sx(), fb, level)},
+        "K12b": {"plain": lambda: kms.iswt1d_mxu_plain(*sc(), fb, level),
+                 "highest": lambda: kms.iswt1d_mxu_fused(*sc(), fb, level),
+                 "bf16": lambda: kms.iswt1d_mxu_fused(*sc(), fb, level,
+                                                      "bf16"),
+                 "tap": lambda: fd.iswt1d_fused(*sc(), fb, level)},
+    }
+
+
+def phase_times_mxu1d(port, dev, card):
+    """K7a against K3 and K7b against K4 at sym8 levels 1-3 of the 2048 x
+    2048 sinogram (level l: 2048 rows of 2048 / 2^(l-1)), K12a against K10a
+    and K12b against K10b at levels 1-3 of 2048 x 2048, each with its plain
+    version ("highest") and its "bf16" time, in turns within this call
+    (device time: the 1D paths are host-bound); then levels 1-5 of the 4 Mi
+    signal's DWT and 1-3 of its SWT, tensor-core kernel against tap loop.
+    Level 1 of the sinogram goes to the kernels line."""
+    fb = port.get_filter_bank("sym8")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    rows = [torch.rand(FRAME, generator=gen, device=dev) * 255
+            for _ in range(4)]
+    reps = {"plain": 3, "highest": 10, "bf16": 10, "tap": 10}
+    times = {}
+    for level in (1, 2, 3):
+        n, cases = mxu1d_cases(port, fb, rows, level)
+        for key, calls in cases.items():
+            t = in_turns(calls, reps)
+            tap = {"K7a": "K3", "K7b": "K4", "K12a": "K10a",
+                   "K12b": "K10b"}[key]
+            if level == 1:
+                times[key] = (t["highest"], t["plain"])
+            shape = (FRAME[0], n) if key.startswith("K7") else FRAME
+            print(f"time {key} sym8 level {level} rows {shape}, device: "
+                  f"kernel {t['highest'] * 1e3:.1f} us, bf16 "
+                  f"{t['bf16'] * 1e3:.1f} us, {tap} {t['tap'] * 1e3:.1f} us, "
+                  f"plain {t['plain'] * 1e3:.1f} us  [{card}]")
+    km, kms, fd = port.ops.mxu_dwt, port.ops.mxu_swt, port.ops.fused_dwt
+    sigs = [torch.rand((1, SIGNAL), generator=gen, device=dev) * 255
+            for _ in range(4)]
+    for level in (1, 2, 3, 4, 5):
+        n = SIGNAL >> (level - 1)
+        parts = [s[:, :n].contiguous() for s in sigs]
+        nx = itertools.cycle(parts).__next__
+        dc = itertools.cycle([fd.dwt1d_fused(p, fb) for p in parts]).__next__
+        calls = {"K7a": lambda: km.dwt1d_mxu_fused(nx(), fb),
+                 "K3": lambda: fd.dwt1d_fused(nx(), fb),
+                 "K7b": lambda: km.idwt1d_mxu_fused(*dc(), fb, n),
+                 "K4": lambda: fd.idwt1d_fused(*dc(), fb, n)}
+        if level <= 3:
+            sx = itertools.cycle(sigs).__next__
+            sc = itertools.cycle([fd.swt1d_fused(s, fb, level)
+                                  for s in sigs]).__next__
+            calls.update({
+                "K12a": lambda: kms.swt1d_mxu_fused(sx(), fb, level),
+                "K10a": lambda: fd.swt1d_fused(sx(), fb, level),
+                "K12b": lambda: kms.iswt1d_mxu_fused(*sc(), fb, level),
+                "K10b": lambda: fd.iswt1d_fused(*sc(), fb, level)})
+        t = in_turns(calls, dict.fromkeys(calls, 10))
+        rows = f"(1, {n}) DWT" + (f", (1, {SIGNAL}) SWT" if level <= 3
+                                  else "")
+        print(f"time signal sym8 level {level} ({rows}), device us: "
+              + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in t.items())
+              + f"  [{card}]")
+    return times
+
+
+def phase_times_f64(port, dev, card):
+    """The float64 instances of K1-K4 against their float32 ones at level 0
+    of 2048^2 (2D) and 2048 rows of 2048 (1D), db2, in turns within this
+    call (device time); float64 moves twice the bytes."""
+    fd = port.ops.fused_dwt
+    fb = port.get_filter_bank("db2")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    times = {}
+    for dtype in (torch.float32, torch.float64):
+        frames = [torch.rand(FRAME, generator=gen, device=dev,
+                             dtype=dtype) * 255 for _ in range(4)]
+        nx = itertools.cycle(frames).__next__
+        c2 = itertools.cycle([fd.dwt2d_fused(f, fb) for f in frames]).__next__
+        c1 = itertools.cycle([fd.dwt1d_fused(f, fb) for f in frames]).__next__
+        times[dtype] = {
+            "K1": lambda nx=nx: fd.dwt2d_fused(nx(), fb),
+            "K2": lambda c2=c2: fd.idwt2d_fused(*c2(), fb, FRAME),
+            "K3": lambda nx=nx: fd.dwt1d_fused(nx(), fb),
+            "K4": lambda c1=c1: fd.idwt1d_fused(*c1(), fb, FRAME[1])}
+    calls = {f"{k} {str(d).split('.')[-1]}": f for d, fs in times.items()
+             for k, f in fs.items()}
+    t = in_turns(calls, dict.fromkeys(calls, 10))
+    for key in ("K1", "K2", "K3", "K4"):
+        a, b = t[f"{key} float32"], t[f"{key} float64"]
+        print(f"time {key} level 0 db2 {FRAME}, device: float64 "
+              f"{b * 1e3:.1f} us, float32 {a * 1e3:.1f} us ({b / a:.2f}x; "
+              f"bytes 2x)  [{card}]")
+
+
+def phase_sweep_mxu1d(port, dev, card):
+    """The crossover of the 1D tensor-core forms: device time of K7a/K7b
+    against K3/K4 at level l of the 2048 x 2048 sinogram (2048 rows of
+    2048 / 2^(l-1)) and of K12a/K12b against K10a/K10b at level l of 2048 x
+    2048, by bank (hlen 4, 8, 16, 20, 40) and level (1-4), both precisions,
+    in turns (CUDA events, sleep-primed, median of 11)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    rows = [torch.rand(FRAME, generator=gen, device=dev) for _ in range(4)]
+    keys = ("K7a", "K7a bf16", "K3", "K7b", "K7b bf16", "K4",
+            "K12a", "K12a bf16", "K10a", "K12b", "K12b bf16", "K10b")
+    for wname in SWEEP_MXU:
+        fb = port.get_filter_bank(wname)
+        for level in (1, 2, 3, 4):
+            n, cases = mxu1d_cases(port, fb, rows, level)
+            tap = {"K7a": "K3", "K7b": "K4", "K12a": "K10a", "K12b": "K10b"}
+            calls = {}
+            for key, c in cases.items():
+                calls[key] = c["highest"]
+                calls[key + " bf16"] = c["bf16"]
+                calls[tap[key]] = c["tap"]
+            t = in_turns(calls, dict.fromkeys(calls, 10), 11)
+            print(f"sweep crossover 1D {wname} (hlen {fb.hlen}) L{level}, "
+                  f"device us: DWT on {FRAME[0]} x {n} "
+                  + ", ".join(f"{k} {t[k] * 1e3:.1f}" for k in keys[:6])
+                  + f"; SWT on {FRAME[0]} x {FRAME[1]} "
+                  + ", ".join(f"{k} {t[k] * 1e3:.1f}" for k in keys[6:])
+                  + f"  [{card}]")
+
+
 _PK, _NSP = "ops/pallas_dwt.py", "ops/nonsep_pallas.py"
 # key, name, source under pypwt_tpu_torch/csrc/, the TPU kernel's call
 KERNEL_ROWS = (
@@ -1803,6 +2433,10 @@ KERNEL_ROWS = (
     ("K6", "idwt2d_mxu (K6)", "tc_dwt2d.cu", "ops/mxu_dwt.py:347"),
     ("K11a", "swt2d_mxu (K11a)", "tc_swt2d.cu", "ops/mxu_swt.py:315"),
     ("K11b", "iswt2d_mxu (K11b)", "tc_swt2d.cu", "ops/mxu_swt.py:410"),
+    ("K7a", "dwt1d_mxu (K7a)", "tc_dwt1d.cu", "ops/mxu_dwt.py:421"),
+    ("K7b", "idwt1d_mxu (K7b)", "tc_dwt1d.cu", "ops/mxu_dwt.py:477"),
+    ("K12a", "swt1d_mxu (K12a)", "tc_swt1d.cu", "ops/mxu_swt.py:494"),
+    ("K12b", "iswt1d_mxu (K12b)", "tc_swt1d.cu", "ops/mxu_swt.py:560"),
 )
 
 
@@ -1811,8 +2445,9 @@ def timed_work(port):
     every output written once, two flops per FMA of its map.  2D at
     2048^2 (db2; K16-K18 the db3 x coif1 bank; K5/K6 and K11a/K11b sym8,
     whose bound is that of K1/K2 and K8/K9 at sym8: the same bytes, the
-    map's flops over the float32 rate), 1D on 2048 rows of 2048; K20 with
-    its accumulator."""
+    map's flops over the float32 rate), 1D on 2048 rows of 2048 (K7a/K7b
+    and K12a/K12b at sym8, as K3/K4 and K10); K20 with its
+    accumulator."""
     n2 = FRAME[0] * FRAME[1]
     h = port.get_filter_bank("db2").hlen
     hx = banks_2d(port)[0].hlen
@@ -1828,6 +2463,8 @@ def timed_work(port):
         "K18a": (20 * n2, 8 * hx * hx * n2),
         "K18b": (20 * n2, 8 * hx * hx * n2),
         "K19": (8 * n2, 4 * h * n2), "K20": (12 * n2, 4 * h * n2),
+        "K7a": (8 * n2, 2 * hw * n2), "K7b": (8 * n2, 2 * hw * n2),
+        "K12a": (12 * n2, 4 * hw * n2), "K12b": (12 * n2, 4 * hw * n2),
     }
 
 
@@ -1841,7 +2478,8 @@ def path_bounds():
     and K23 the 4-spin static one at 2048^2, db2 L3 (per spin 8 bytes per
     input pixel of each analysis level, 8 per output pixel of each synthesis
     level, 12 at level 0 where K20 adds the accumulator); K22: one K19
-    level at 2048^2."""
+    level at 2048^2; K15: the 4 Mi-sample DWT L5 and SWT L3 roundtrips in
+    mode "mxu" (K7/K12 on a (1, n) row: the bytes of K13 and K14)."""
     n, n2 = SIGNAL, FRAME[0] * FRAME[1]
     levels = [n2 / 4 ** lev for lev in range(3)]
     spin = 8 * sum(levels) + 8 * sum(levels[1:]) + 12 * n2
@@ -1851,6 +2489,7 @@ def path_bounds():
         "K21": RANDOM_SPINS * spin,
         "K22": 8 * n2,
         "K23": len(STATIC_SPINS) * spin,
+        "K15": 16 * sum(n / 2 ** lev for lev in range(5)) + 24 * n * 3,
     }
     return {k: b / PEAK_BYTES * 1e3 for k, b in paths.items()}
 
@@ -1876,6 +2515,7 @@ def main():
     if sys.argv[1:] == ["--sweep"]:
         phase_sweep_2d_swt(port, dev, card)
         phase_sweep_mxu(port, dev, card)
+        phase_sweep_mxu1d(port, dev, card)
         print(f"sweep done in {time.perf_counter() - t0:.1f} s")
         return
     worst = phase_kernels(port, dev)
@@ -1884,16 +2524,22 @@ def main():
     worst.update(phase_kernels_nonsep(port, dev))
     worst.update(phase_kernels_shifted(port, dev))
     worst.update(phase_kernels_mxu(port, dev))
+    worst.update(phase_kernels_mxu1d(port, dev))
+    phase_kernels_f64(port, dev)
     launches = phase_main_path(port, dev)
     launches.update(phase_main_paths_1d(port, dev))
     launches.update(phase_main_paths_2d_swt(port, dev))
     launches.update(phase_main_paths_pipeline(port, dev))
     launches.update(phase_main_paths_mxu(port, dev))
+    launches.update(phase_main_paths_mxu1d(port, dev))
+    phase_main_paths_f64(port, dev)
     times = phase_times(port, dev, card)
     times.update(phase_times_1d(port, dev, card))
     times.update(phase_times_2d_swt(port, dev, card))
     times.update(phase_times_slice(port, dev, card))
     times.update(phase_times_mxu(port, dev, card))
+    times.update(phase_times_mxu1d(port, dev, card))
+    phase_times_f64(port, dev, card)
     library = phase_library(port, dev, card)
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "pypwt_tpu.")))

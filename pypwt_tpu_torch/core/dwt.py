@@ -17,27 +17,38 @@ dtype, device and shape, never by catching an error:
   K10 and K8/K9 for ``core.swt``, K16/K17 and K18a/K18b for
   ``core.nonsep``); a CPU tensor runs the plain version.  Every kernel
   takes every float32 level its plain version takes (odd sizes and filter
-  lengths included), so none declines: a level it does not cover on a
-  CUDA tensor (float64, ...) raises ``ValueError``.
+  lengths included), and the tap-loop kernels (all but K19/K20) every
+  float64 level too, on their float64 instances, so none declines: a level
+  it does not cover on a CUDA tensor (float16, ...) raises ``ValueError``.
 * ``"cuda"``: the kernel, or an error (CPU tensor, uncovered level).
 * ``"torch"``: always the plain version, on the tensor's device.
 * ``"mxu"``: the tensor-core forms where they cover a level, JAX's
   ``set_kernels("mxu")``: a 2D DWT level of float32 planes of even sizes
   and an even bank of 4 or more taps goes to K5/K6 (``ops.mxu_dwt``), a 2D
   SWT level whose dilated support fits in the plane to K11a/K11b
-  (``ops.mxu_swt``, through ``core.swt``); every other level goes where
-  ``"auto"`` sends it (K1/K2, K8/K9, ...), as JAX sends it to its VPU
+  (``ops.mxu_swt``, through ``core.swt``); in 1D a float32 level of even
+  length and such a bank to K7a, its synthesis of twice the coefficients'
+  length to K7b, and a stationary level whose support fits in the row to
+  K12a/K12b; every other level (float64 included) goes where ``"auto"``
+  sends it (K1/K2, K3/K4, K8/K9, K10, ...), as JAX sends it to its VPU
   kernels.  On a CPU tensor the tensor-core forms' banded plain versions
   run, as JAX runs its MXU kernels in interpret mode there.
   ``set_mxu_precision("highest"|"bf16")`` picks their precision.
 
 ``"auto"`` never takes the tensor-core forms: JAX's crossovers
-(``_MXU_MIN_HLEN``, the SWT support cliffs) were measured on a TPU, and a
-tensor-core form becomes a default route only once the H100 has shown it
-(ROADMAP.md).
+(``_MXU_MIN_HLEN``, ``_LONG1D_MXU_MIN_HLEN``, the SWT support cliffs) were
+measured on a TPU, and a tensor-core form becomes a default route only
+once the H100 has shown it (ROADMAP.md).
+
+The environment sets both at import, as in JAX (``pypwt_tpu/core/dwt.py``):
+``PYPWT_KERNELS`` (default ``"auto"``) and ``PYPWT_MXU_PRECISION``
+(default ``"highest"``); a value the setter refuses raises ``ValueError``
+at import, naming the variable.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -73,6 +84,20 @@ def mxu_precision() -> str:
     return _MXU_PRECISION
 
 
+def _from_env(var, setter, default):
+    """Apply environment variable ``var`` (or ``default``) through
+    ``setter``; a refused value raises ValueError naming ``var``."""
+    value = os.environ.get(var, default)
+    try:
+        setter(value)
+    except ValueError as e:
+        raise ValueError(f"{var}={value!r}: {e}") from None
+
+
+_from_env("PYPWT_KERNELS", set_kernels, "auto")
+_from_env("PYPWT_MXU_PRECISION", set_mxu_precision, "highest")
+
+
 def _route(kernel, tensor, why):
     """True if ``kernel`` takes this level.  ``why`` is the kernel's
     reason to refuse the call (None if it covers it).  No kernel declines:
@@ -95,7 +120,7 @@ def _route(kernel, tensor, why):
 
 
 def use_mxu(why) -> bool:
-    """True if a level goes to a tensor-core form (K5, K6, K11a, K11b):
+    """True if a level goes to a tensor-core form (K5, K6, K7, K11, K12):
     kernel mode "mxu" and a level the form covers (``why`` None), decided
     from shape and dtype before launch.  Its wrapper launches the kernel on
     a CUDA tensor and runs its banded plain version on the CPU."""
@@ -110,6 +135,16 @@ def use_k5(x, fb) -> bool:
 def use_k6(a, h, v, d, fb, out_shape) -> bool:
     """Routing decision for one synthesis level in mode "mxu"."""
     return use_mxu(mxu_dwt.idwt2d_mxu_unsupported(a, h, v, d, fb, out_shape))
+
+
+def use_k7a(x, fb) -> bool:
+    """Routing decision for one 1D analysis level in mode "mxu"."""
+    return use_mxu(mxu_dwt.dwt1d_mxu_unsupported(x, fb))
+
+
+def use_k7b(a, d, fb, n_out) -> bool:
+    """Routing decision for one 1D synthesis level in mode "mxu"."""
+    return use_mxu(mxu_dwt.idwt1d_mxu_unsupported(a, d, fb, n_out))
 
 
 def use_k1(x, fb) -> bool:
@@ -151,7 +186,10 @@ def use_k20(a, h, v, d, fb, out_shape, acc=None) -> bool:
 
 def dwt1d(x, fb):
     """One analysis level along the last axis -> (a, d), for one signal
-    ``(n,)`` (a ``(1, n)`` batch to K3, at any length) or rows ``(R, n)``."""
+    ``(n,)`` (a ``(1, n)`` batch to K3 or K7a, at any length) or rows
+    ``(R, n)``."""
+    if use_k7a(x, fb):
+        return mxu_dwt.dwt1d_mxu_fused(x.contiguous(), fb, _MXU_PRECISION)
     if use_k3(x, fb):
         return fused_dwt.dwt1d_fused(x.contiguous(), fb)
     return fused_dwt.dwt1d_plain(x, fb)
@@ -159,6 +197,9 @@ def dwt1d(x, fb):
 
 def idwt1d(a, d, fb, n_out):
     """One synthesis level along the last axis -> ``n_out`` samples."""
+    if use_k7b(a, d, fb, n_out):
+        return mxu_dwt.idwt1d_mxu_fused(a.contiguous(), d.contiguous(), fb,
+                                        n_out, _MXU_PRECISION)
     if use_k4(a, d, fb, n_out):
         return fused_dwt.idwt1d_fused(a.contiguous(), d.contiguous(), fb,
                                       n_out)

@@ -12,14 +12,15 @@ the last axis, as in the JAX fallback.
 
 Each level routes through ``core.dwt.set_kernels`` like the DWT: on a CUDA
 tensor to K10a/K10b (1D) or K8/K9 (2D, ``ops.fused_dwt``), which take
-every float32 level, odd filter lengths and wraps wider than the signal
-or plane included; elsewhere to their plain versions.  K8/K9 never
-decline: a level they do not cover on a CUDA tensor (float64) raises,
-unless kernel mode ``"torch"`` asks for the plain version.  In kernel mode
-``"mxu"`` a 2D level whose dilated support fits in the plane goes to the
-tensor-core forms K11a/K11b (``ops.mxu_swt``, at
-``core.dwt.mxu_precision()``; their banded plain versions on a CPU
-tensor), every other one to K8/K9, as JAX's ``swt2d_level`` routes them.
+every float32 and float64 level, odd filter lengths and wraps wider than
+the signal or plane included; elsewhere to their plain versions.  They
+never decline: a level they do not cover on a CUDA tensor (float16)
+raises, unless kernel mode ``"torch"`` asks for the plain version.  In
+kernel mode ``"mxu"`` a float32 level whose dilated support fits in the
+plane (2D) or row (1D) goes to the tensor-core forms K11a/K11b or
+K12a/K12b (``ops.mxu_swt``, at ``core.dwt.mxu_precision()``; their banded
+plain versions on a CPU tensor), every other one to K8/K9 or K10, as JAX's
+``swt2d_level`` and ``swt1d_level`` route them.
 """
 
 from __future__ import annotations
@@ -40,8 +41,23 @@ def use_k10b(a, d, fb, level) -> bool:
                       fused_dwt.iswt1d_unsupported(a, d, fb, level))
 
 
+def use_k12a(x, fb, level) -> bool:
+    """Routing decision for one stationary 1D analysis level in mode
+    "mxu"."""
+    return dwt.use_mxu(mxu_swt.swt1d_mxu_unsupported(x, fb, level))
+
+
+def use_k12b(a, d, fb, level) -> bool:
+    """Routing decision for one stationary 1D synthesis level in mode
+    "mxu"."""
+    return dwt.use_mxu(mxu_swt.iswt1d_mxu_unsupported(a, d, fb, level))
+
+
 def swt1d_level(x, fb, level):
     """One stationary analysis level along the last axis -> (a, d)."""
+    if use_k12a(x, fb, level):
+        return mxu_swt.swt1d_mxu_fused(x.contiguous(), fb, level,
+                                       dwt.mxu_precision())
     if use_k10a(x, fb, level):
         return fused_dwt.swt1d_fused(x.contiguous(), fb, level)
     return fused_dwt.swt1d_plain(x, fb, level)
@@ -49,6 +65,9 @@ def swt1d_level(x, fb, level):
 
 def iswt1d_level(a, d, fb, level):
     """One stationary synthesis level along the last axis."""
+    if use_k12b(a, d, fb, level):
+        return mxu_swt.iswt1d_mxu_fused(a.contiguous(), d.contiguous(), fb,
+                                        level, dwt.mxu_precision())
     if use_k10b(a, d, fb, level):
         return fused_dwt.iswt1d_fused(a.contiguous(), d.contiguous(), fb,
                                       level)

@@ -1,12 +1,19 @@
 // Shared pieces of the level kernels: the 2D DWT pair and its shifted
 // forms (dwt2d.cu, idwt2d.cu), the 1D DWT pair (dwt1d.cu, idwt1d.cu), the
-// 1D stationary pair (swt1d.cu), the 2D stationary pair (swt2d.cu) and the
-// non-separable pairs (nonsep_dwt2d.cu, nonsep_swt2d.cu).
+// 1D stationary pair (swt1d.cu), the 2D stationary pair (swt2d.cu), the
+// non-separable pairs (nonsep_dwt2d.cu, nonsep_swt2d.cu) and the
+// tensor-core forms (tc_*.cu).
+//
+// The tap-loop kernels are templates on the scalar type T: float, and
+// double for the float64 plans (the reference's -DDOUBLEPRECISION build).
+// A float64 instance reads its taps at the bank's float64 values, so its
+// roundtrip reaches ~1e-15, not float32's ~1e-7.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace pypwt {
 
@@ -15,15 +22,34 @@ constexpr int kMaxTaps = 40;
 constexpr int kHalfTaps = kMaxTaps / 2;
 constexpr int kThreads = 256;
 
-// The bank's two filters of one direction, float32, passed to the kernel by
-// value (kernel parameter space): no device copy of the taps per call.
-struct Taps {
-  float lo[kMaxTaps];
-  float hi[kMaxTaps];
-};
+// The scalar type's fused multiply-add (fmaf for float, as before).
+__device__ __forceinline__ float fmadd(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fmadd(double a, double b, double c) {
+  return fma(a, b, c);
+}
 
-inline Taps make_taps(const float* lo, const float* hi, int hlen) {
-  Taps t{};
+// Dynamic shared memory as an array of T: one untyped declaration serves
+// every instance of a template kernel.
+template <class T>
+__device__ __forceinline__ T* dynamic_smem() {
+  extern __shared__ __align__(16) unsigned char pypwt_smem[];
+  return reinterpret_cast<T*>(pypwt_smem);
+}
+
+// The bank's two filters of one direction, passed to the kernel by value
+// (kernel parameter space): no device copy of the taps per call.
+template <class T>
+struct TapsT {
+  T lo[kMaxTaps];
+  T hi[kMaxTaps];
+};
+using Taps = TapsT<float>;
+
+template <class T>
+inline TapsT<T> make_taps(const T* lo, const T* hi, int hlen) {
+  TapsT<T> t{};
   for (int k = 0; k < hlen; ++k) {
     t.lo[k] = lo[k];
     t.hi[k] = hi[k];
@@ -35,9 +61,10 @@ inline Taps make_taps(const float* lo, const float* hi, int hlen) {
 // tap in front (hlen + 1 taps): the analysis left pad hlen - 1 - hlen/2 is m
 // for both lengths, so the map is the same and the kernels need only handle
 // even lengths. Returns the kernel's tap count.
-inline int make_analysis_taps(const float* lo, const float* hi, int hlen,
-                              Taps* t) {
-  *t = Taps{};
+template <class T>
+inline int make_analysis_taps(const T* lo, const T* hi, int hlen,
+                              TapsT<T>* t) {
+  *t = TapsT<T>{};
   const int z = hlen & 1;
   for (int k = 0; k < hlen; ++k) {
     t->lo[k + z] = lo[k];
@@ -96,8 +123,10 @@ __host__ __device__ __forceinline__ int analysis_lpad(int hlen) {
 
 // f[j] = dec[hlen-1-j], the analysis taps in window order, into shared
 // memory (the caller synchronises before reading them).
-__device__ __forceinline__ void load_reversed_taps(const Taps& taps, int hlen,
-                                                   float* f_lo, float* f_hi) {
+template <class T>
+__device__ __forceinline__ void load_reversed_taps(const TapsT<T>& taps,
+                                                   int hlen, T* f_lo,
+                                                   T* f_hi) {
   const int tid = threadIdx.x;
   if (tid < hlen) {
     f_lo[tid] = taps.lo[hlen - 1 - tid];
@@ -125,8 +154,10 @@ struct Polyphase {
 
 // g[p * kHalfTaps + j] = rec[tap(p, j)] for both parities, into shared
 // memory (the caller synchronises before reading them).
-__device__ __forceinline__ void load_polyphase_taps(const Taps& taps, int hlen,
-                                                    float* g_lo, float* g_hi) {
+template <class T>
+__device__ __forceinline__ void load_polyphase_taps(const TapsT<T>& taps,
+                                                    int hlen, T* g_lo,
+                                                    T* g_hi) {
   const Polyphase ph(hlen);
   const int tid = threadIdx.x;
   if (tid < 2 * ph.h2) {
@@ -136,17 +167,47 @@ __device__ __forceinline__ void load_polyphase_taps(const Taps& taps, int hlen,
   }
 }
 
+// Four values of the scalar type in one shared-memory word (the
+// non-separable kernels' taps and coefficients): float4, or two 16-byte
+// words of double.
+template <class T>
+struct Vec4Of;
+template <>
+struct Vec4Of<float> {
+  using type = float4;
+};
+struct alignas(16) Double4 {
+  double x, y, z, w;
+};
+template <>
+struct Vec4Of<double> {
+  using type = Double4;
+};
+template <class T>
+using Vec4 = typename Vec4Of<T>::type;
+
 // Four hlen x hlen filters of a non-separable bank, interleaved [k][l][b]
-// (b fastest), passed to the kernel by value (kernel parameter space, up to
-// 25,600 bytes at hlen 40): no device copy of the bank per call.
-struct Bank2D {
-  float f[4 * kMaxTaps * kMaxTaps];
+// (b fastest). In float32 the kernel takes it by value (kernel parameter
+// space, up to 25,600 bytes at hlen 40): no device copy of the bank per
+// call. A float64 bank (51,200 bytes) passes CUDA's 32,764-byte parameter
+// limit, so the float64 kernels read it from device memory (BankPtr,
+// uploaded once per bank by the wrapper); both expose f[i].
+template <class T>
+struct Bank2DT {
+  T f[4 * kMaxTaps * kMaxTaps];
+};
+using Bank2D = Bank2DT<float>;
+
+template <class T>
+struct BankPtr {
+  const T* f;
 };
 
-// filters: host array of 4 * hlen * hlen floats, [b][k][l]; the bank
+// filters: host array of 4 * hlen * hlen values, [b][k][l]; the bank
 // interleaves them to [k][l][b], each scaled by `scale`.
-inline Bank2D make_bank(const float* filters, int hlen, float scale) {
-  Bank2D bank{};
+template <class T>
+inline Bank2DT<T> make_bank(const T* filters, int hlen, T scale) {
+  Bank2DT<T> bank{};
   const int n2 = hlen * hlen;
   for (int b = 0; b < 4; ++b)
     for (int i = 0; i < n2; ++i)

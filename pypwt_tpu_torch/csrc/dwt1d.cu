@@ -1,4 +1,4 @@
-// K3: one periodized batched-1D analysis level, float32.
+// K3: one periodized batched-1D analysis level, float32 or float64.
 //
 // Replaces the TPU kernel pypwt_tpu/ops/pallas_dwt.py::dwt1d_fused
 // (_build_dwt1d, :2064), and computes the map of the folded long-signal
@@ -25,7 +25,9 @@
 // with a true periodic wrap, and an in-range fast path) into shared memory
 // once, split into even and odd samples so that the decimating taps read
 // consecutive words (no bank conflicts), as K1 does along its last axis.
-// Row offsets are 64-bit.
+// Row offsets are 64-bit. A float64 instance (pypwt_dwt1d_f64) doubles
+// the bytes: its window of 2 (TC + 20) samples takes 16.6 KB of shared
+// memory, under the 48 KB a block has without opting in.
 
 #include "common.cuh"
 
@@ -35,15 +37,14 @@ namespace {
 constexpr int TC = 1024;  // outputs per block
 constexpr int kWinHalf = TC + kHalfTaps;  // window samples of one parity
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-dwt1d_kernel(const float* __restrict__ x, float* __restrict__ a,
-             float* __restrict__ d, int n, int tiles, Taps taps, int hlen,
-             long long row0) {
-  extern __shared__ float smem[];
-  float* s_ev = smem;             // [kWinHalf] even window samples
-  float* s_od = s_ev + kWinHalf;  // [kWinHalf] odd window samples
-  float* f_lo = s_od + kWinHalf;  // reversed taps: f[j] = dec[hlen-1-j]
-  float* f_hi = f_lo + kMaxTaps;
+dwt1d_kernel(const T* __restrict__ x, T* __restrict__ a, T* __restrict__ d,
+             int n, int tiles, TapsT<T> taps, int hlen, long long row0) {
+  T* s_ev = dynamic_smem<T>();    // [kWinHalf] even window samples
+  T* s_od = s_ev + kWinHalf;      // [kWinHalf] odd window samples
+  T* f_lo = s_od + kWinHalf;      // reversed taps: f[j] = dec[hlen-1-j]
+  T* f_hi = f_lo + kMaxTaps;
 
   const int tid = threadIdx.x;
   const int bt = blockIdx.x / tiles;
@@ -53,7 +54,7 @@ dwt1d_kernel(const float* __restrict__ x, float* __restrict__ a,
   const int cnt = min(TC, len - c0);    // outputs of this block
   const int wc = 2 * (cnt + hlen / 2 - 1);  // window samples
   const int col0 = 2 * c0 - analysis_lpad(hlen);
-  const float* xr = x + row * n;
+  const T* xr = x + row * n;
 
   load_reversed_taps(taps, hlen, f_lo, f_hi);
   if (col0 >= 0 && col0 + wc <= n) {
@@ -68,44 +69,59 @@ dwt1d_kernel(const float* __restrict__ x, float* __restrict__ a,
   // Window sample 2i + j feeds output i.
   const long long ob = row * len + c0;
   for (int i = tid; i < cnt; i += kThreads) {
-    const float* ev = s_ev + i;
-    const float* od = s_od + i;
-    float lo = 0.f, hi = 0.f;
+    const T* ev = s_ev + i;
+    const T* od = s_od + i;
+    T lo = 0, hi = 0;
     for (int j = 0; j < hlen; j += 2) {
-      const float e = ev[j >> 1], o = od[j >> 1];
-      lo = fmaf(e, f_lo[j], lo);
-      hi = fmaf(e, f_hi[j], hi);
-      lo = fmaf(o, f_lo[j + 1], lo);
-      hi = fmaf(o, f_hi[j + 1], hi);
+      const T e = ev[j >> 1], o = od[j >> 1];
+      lo = fmadd(e, f_lo[j], lo);
+      hi = fmadd(e, f_hi[j], hi);
+      lo = fmadd(o, f_lo[j + 1], lo);
+      hi = fmadd(o, f_hi[j + 1], hi);
     }
     a[ob + i] = lo;
     d[ob + i] = hi;
   }
 }
 
-}  // namespace
-}  // namespace pypwt
-
-// Returns a cudaError_t; launches on `stream`, does not synchronise and
-// allocates nothing. dec_lo/dec_hi are host arrays of hlen floats.
-extern "C" int pypwt_dwt1d(const float* x, float* a, float* d, int rows,
-                           int n, const float* dec_lo, const float* dec_hi,
-                           int hlen, int device, void* stream) {
-  using namespace pypwt;
+template <class T>
+int launch(const T* x, T* a, T* d, int rows, int n, const T* dec_lo,
+           const T* dec_hi, int hlen, int device, void* stream) {
   const int tiles = ((n + 1) / 2 + TC - 1) / TC;
   if (hlen < 1 || hlen > kMaxTaps || n < 1 || n > 0x3fffffff || rows < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  Taps taps;
+  TapsT<T> taps;
   hlen = make_analysis_taps(dec_lo, dec_hi, hlen, &taps);
-  const size_t smem = sizeof(float) * (2 * kWinHalf + 2 * kMaxTaps);
+  const size_t smem = sizeof(T) * (2 * kWinHalf + 2 * kMaxTaps);
   const long long chunk = 0x7fffffffLL / tiles;  // rows per launch
   for (long long r0 = 0; r0 < rows; r0 += chunk) {
     const long long nrows = std::min<long long>(rows - r0, chunk);
-    dwt1d_kernel<<<static_cast<unsigned>(nrows * tiles), kThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
+    dwt1d_kernel<T><<<static_cast<unsigned>(nrows * tiles), kThreads,
+                      smem, static_cast<cudaStream_t>(stream)>>>(
         x, a, d, n, tiles, taps, hlen, r0);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace pypwt
+
+// Both return a cudaError_t; they launch on `stream`, do not synchronise
+// and allocate nothing. dec_lo/dec_hi are host arrays of hlen values of the
+// data's type.
+extern "C" int pypwt_dwt1d(const float* x, float* a, float* d, int rows,
+                           int n, const float* dec_lo, const float* dec_hi,
+                           int hlen, int device, void* stream) {
+  return pypwt::launch(x, a, d, rows, n, dec_lo, dec_hi, hlen, device,
+                       stream);
+}
+
+extern "C" int pypwt_dwt1d_f64(const double* x, double* a, double* d,
+                               int rows, int n, const double* dec_lo,
+                               const double* dec_hi, int hlen, int device,
+                               void* stream) {
+  return pypwt::launch(x, a, d, rows, n, dec_lo, dec_hi, hlen, device,
+                       stream);
 }

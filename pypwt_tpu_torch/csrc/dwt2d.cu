@@ -1,6 +1,6 @@
-// K1: one periodized separable 2D analysis level, float32, and K19, the
-// same level of a circularly shifted plane with an optional threshold of
-// its detail subbands.
+// K1: one periodized separable 2D analysis level, float32 or float64, and
+// K19, the same level of a circularly shifted float32 plane with an
+// optional threshold of its detail subbands.
 //
 // K1 replaces the TPU kernel pypwt_tpu/ops/pallas_dwt.py::dwt2d_fused
 // (_build_dwt2d, :287; and its column-split grid _build_dwt2d_colsplit,
@@ -41,7 +41,9 @@
 // compile them in where a call needs them, and the even, unshifted K1
 // instance is the plain gather. The batch is the grid's z axis, row tiles
 // its y axis, in chunks where a level holds more than a grid's 65535
-// (launch_chunks). Offsets into the planes are 64-bit.
+// (launch_chunks). Offsets into the planes are 64-bit. The float64
+// instance (pypwt_dwt2d_f64; K1 only) stages twice the bytes: 139 KB at
+// hlen 40, within the 227 KB a block may opt into.
 
 #include "common.cuh"
 
@@ -57,9 +59,10 @@ __host__ __device__ inline int win_rows(int hlen) { return 2 * TR + hlen - 2; }
 // window columns of one parity: (2TC + hlen - 2) / 2
 __host__ __device__ inline int win_half_cols(int hlen) { return TC + hlen / 2 - 1; }
 
+template <class T>
 inline size_t smem_bytes(int hlen) {
   const size_t wr = win_rows(hlen), wc2 = win_half_cols(hlen);
-  return sizeof(float) * (2 * wr * wc2 + 2 * wr * TC + 2 * kMaxTaps);
+  return sizeof(T) * (2 * wr * wc2 + 2 * wr * TC + 2 * kMaxTaps);
 }
 
 // Source index of window sample k of an axis of n samples, for a plane
@@ -73,6 +76,7 @@ __device__ __forceinline__ int source(int k, int n, int s) {
   return i < 0 ? i + n : i;
 }
 
+// The epilogue of K19 (float32 only: the float64 instance is kNone).
 template <int kMode>
 __device__ __forceinline__ float threshold(float x, float beta) {
   if (kMode == kSoft) return copysignf(fmaxf(fabsf(x) - beta, 0.f), x);
@@ -80,33 +84,37 @@ __device__ __forceinline__ float threshold(float x, float beta) {
   return x;
 }
 
-template <bool kOdd, bool kShift, int kMode>
+template <int kMode>
+__device__ __forceinline__ double threshold(double x, float) {
+  static_assert(kMode == kNone, "K19 is float32 only");
+  return x;
+}
+
+template <class T, bool kOdd, bool kShift, int kMode>
 __global__ void __launch_bounds__(kThreads)
-dwt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
-             float* __restrict__ h, float* __restrict__ v,
-             float* __restrict__ d, int nr, int nc, Taps taps, int hlen,
-             int y0, int sr, int sc, float beta) {
-  extern __shared__ float smem[];
+dwt2d_kernel(const T* __restrict__ x, T* __restrict__ a, T* __restrict__ h,
+             T* __restrict__ v, T* __restrict__ d, int nr, int nc,
+             TapsT<T> taps, int hlen, int y0, int sr, int sc, float beta) {
   const int wr = win_rows(hlen), wc2 = win_half_cols(hlen), wc = 2 * wc2;
-  float* s_ev = smem;              // [wr][wc2] even window columns
-  float* s_od = s_ev + wr * wc2;   // [wr][wc2] odd window columns
-  float* s_lo = s_od + wr * wc2;   // [wr][TC] last-axis low-pass
-  float* s_hi = s_lo + wr * TC;    // [wr][TC] last-axis high-pass
-  float* f_lo = s_hi + wr * TC;    // reversed taps: f[j] = dec[hlen-1-j]
-  float* f_hi = f_lo + kMaxTaps;
+  T* s_ev = dynamic_smem<T>();     // [wr][wc2] even window columns
+  T* s_od = s_ev + wr * wc2;       // [wr][wc2] odd window columns
+  T* s_lo = s_od + wr * wc2;       // [wr][TC] last-axis low-pass
+  T* s_hi = s_lo + wr * TC;        // [wr][TC] last-axis high-pass
+  T* f_lo = s_hi + wr * TC;        // reversed taps: f[j] = dec[hlen-1-j]
+  T* f_hi = f_lo + kMaxTaps;
 
   const int tid = threadIdx.x;
   const int lr = (nr + 1) >> 1, lc = (nc + 1) >> 1;
   const int r0 = (y0 + blockIdx.y) * TR, c0 = blockIdx.x * TC;
   const int lpad = analysis_lpad(hlen);
-  const float* xb = x + static_cast<long long>(blockIdx.z) * nr * nc;
+  const T* xb = x + static_cast<long long>(blockIdx.z) * nr * nc;
   const long long ob = static_cast<long long>(blockIdx.z) * lr * lc;
 
   load_reversed_taps(taps, hlen, f_lo, f_hi);
   const int row0 = 2 * r0 - lpad, col0 = 2 * c0 - lpad;
   for (int i = tid; i < wr * wc; i += kThreads) {
     const int r = i / wc, c = i - r * wc;
-    const float val =
+    const T val =
         xb[static_cast<long long>(source<kOdd, kShift>(row0 + r, nr, sr)) * nc +
            source<kOdd, kShift>(col0 + c, nc, sc)];
     (c & 1 ? s_od : s_ev)[r * wc2 + (c >> 1)] = val;
@@ -116,15 +124,15 @@ dwt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
   // Last axis: window column 2c + j feeds output column c.
   for (int i = tid; i < wr * TC; i += kThreads) {
     const int r = i / TC, c = i - r * TC;
-    const float* ev = s_ev + r * wc2 + c;
-    const float* od = s_od + r * wc2 + c;
-    float lo = 0.f, hi = 0.f;
+    const T* ev = s_ev + r * wc2 + c;
+    const T* od = s_od + r * wc2 + c;
+    T lo = 0, hi = 0;
     for (int j = 0; j < hlen; j += 2) {
-      const float e = ev[j >> 1], o = od[j >> 1];
-      lo = fmaf(e, f_lo[j], lo);
-      hi = fmaf(e, f_hi[j], hi);
-      lo = fmaf(o, f_lo[j + 1], lo);
-      hi = fmaf(o, f_hi[j + 1], hi);
+      const T e = ev[j >> 1], o = od[j >> 1];
+      lo = fmadd(e, f_lo[j], lo);
+      hi = fmadd(e, f_hi[j], hi);
+      lo = fmadd(o, f_lo[j + 1], lo);
+      hi = fmadd(o, f_hi[j + 1], hi);
     }
     s_lo[i] = lo;
     s_hi[i] = hi;
@@ -136,15 +144,15 @@ dwt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
     const int r = i / TC, c = i - r * TC;
     const int orow = r0 + r, ocol = c0 + c;
     if (orow >= lr || ocol >= lc) continue;
-    const float* lo = s_lo + 2 * r * TC + c;
-    const float* hi = s_hi + 2 * r * TC + c;
-    float sa = 0.f, sh = 0.f, sv = 0.f, sd = 0.f;
+    const T* lo = s_lo + 2 * r * TC + c;
+    const T* hi = s_hi + 2 * r * TC + c;
+    T sa = 0, sh = 0, sv = 0, sd = 0;
     for (int j = 0; j < hlen; ++j) {
-      const float l = lo[j * TC], g = hi[j * TC];
-      sa = fmaf(l, f_lo[j], sa);
-      sh = fmaf(l, f_hi[j], sh);
-      sv = fmaf(g, f_lo[j], sv);
-      sd = fmaf(g, f_hi[j], sd);
+      const T l = lo[j * TC], g = hi[j * TC];
+      sa = fmadd(l, f_lo[j], sa);
+      sh = fmadd(l, f_hi[j], sh);
+      sv = fmadd(g, f_lo[j], sv);
+      sd = fmadd(g, f_hi[j], sd);
     }
     const long long o = ob + static_cast<long long>(orow) * lc + ocol;
     a[o] = sa;
@@ -154,33 +162,46 @@ dwt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
   }
 }
 
-using Kernel = void (*)(const float*, float*, float*, float*, float*, int, int,
-                        Taps, int, int, int, int, float);
+template <class T>
+using Kernel = void (*)(const T*, T*, T*, T*, T*, int, int, TapsT<T>, int,
+                        int, int, int, float);
 
-template <bool kShift, int kMode>
-Kernel pick(bool odd) {
-  return odd ? dwt2d_kernel<true, kShift, kMode>
-             : dwt2d_kernel<false, kShift, kMode>;
+template <class T, bool kShift, int kMode>
+Kernel<T> pick(bool odd) {
+  return odd ? dwt2d_kernel<T, true, kShift, kMode>
+             : dwt2d_kernel<T, false, kShift, kMode>;
 }
 
-int launch(const float* x, float* a, float* h, float* v, float* d, int batch,
-           int nr, int nc, const float* dec_lo, const float* dec_hi, int hlen,
-           int sr, int sc, int mode, float beta, int device, void* stream) {
+// K1's instance, or K19's (float32 only) for a shift or an epilogue.
+template <class T>
+Kernel<T> pick_kernel(bool odd, bool shift, int mode) {
+  if constexpr (std::is_same_v<T, float>) {
+    if (shift)
+      return mode == kSoft   ? pick<T, true, kSoft>(odd)
+             : mode == kHard ? pick<T, true, kHard>(odd)
+                             : pick<T, true, kNone>(odd);
+  }
+  return pick<T, false, kNone>(odd);
+}
+
+template <class T>
+int launch(const T* x, T* a, T* h, T* v, T* d, int batch, int nr, int nc,
+           const T* dec_lo, const T* dec_hi, int hlen, int sr, int sc,
+           int mode, float beta, int device, void* stream) {
   if (hlen < 1 || hlen > kMaxTaps || nr < 1 || nc < 1 || nr > 0x3fffffff ||
       nc > 0x3fffffff || batch < 1 || sr < 0 || sr >= nr || sc < 0 ||
       sc >= nc || mode < kNone || mode > kHard)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  Taps taps;
+  TapsT<T> taps;
   hlen = make_analysis_taps(dec_lo, dec_hi, hlen, &taps);
   const bool odd = (nr | nc) & 1;
   const bool shift = sr || sc || mode != kNone;
-  const Kernel kernel = !shift           ? pick<false, kNone>(odd)
-                        : mode == kSoft  ? pick<true, kSoft>(odd)
-                        : mode == kHard  ? pick<true, kHard>(odd)
-                                         : pick<true, kNone>(odd);
-  const size_t smem = smem_bytes(hlen);
+  if (shift && !std::is_same_v<T, float>)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Kernel<T> kernel = pick_kernel<T>(odd, shift, mode);
+  const size_t smem = smem_bytes<T>(hlen);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
@@ -201,13 +222,23 @@ int launch(const float* x, float* a, float* h, float* v, float* d, int batch,
 }  // namespace
 }  // namespace pypwt
 
-// Both return a cudaError_t; they launch on `stream`, do not synchronise
-// and allocate nothing. dec_lo/dec_hi are host arrays of hlen floats.
+// All return a cudaError_t; they launch on `stream`, do not synchronise
+// and allocate nothing. dec_lo/dec_hi are host arrays of hlen values of the
+// data's type.
 // K1: a, h, v, d of (batch, ceil(nr/2), ceil(nc/2)).
 extern "C" int pypwt_dwt2d(const float* x, float* a, float* h, float* v,
                            float* d, int batch, int nr, int nc,
                            const float* dec_lo, const float* dec_hi, int hlen,
                            int device, void* stream) {
+  return pypwt::launch(x, a, h, v, d, batch, nr, nc, dec_lo, dec_hi, hlen, 0,
+                       0, pypwt::kNone, 0.f, device, stream);
+}
+
+extern "C" int pypwt_dwt2d_f64(const double* x, double* a, double* h,
+                               double* v, double* d, int batch, int nr,
+                               int nc, const double* dec_lo,
+                               const double* dec_hi, int hlen, int device,
+                               void* stream) {
   return pypwt::launch(x, a, h, v, d, batch, nr, nc, dec_lo, dec_hi, hlen, 0,
                        0, pypwt::kNone, 0.f, device, stream);
 }

@@ -1,6 +1,6 @@
-// K2: one periodized separable 2D synthesis level, float32, and K20, the
-// same level unshifted by a circular shift, with a spin accumulator and a
-// scale fused into its store.
+// K2: one periodized separable 2D synthesis level, float32 or float64, and
+// K20, the same level of float32 planes unshifted by a circular shift, with
+// a spin accumulator and a scale fused into its store.
 //
 // K2 replaces the TPU kernel pypwt_tpu/ops/pallas_dwt.py::idwt2d_fused
 // (_build_idwt2d, :477). K20 replaces ::idwt2d_fused_unshift
@@ -45,7 +45,8 @@
 // device memory through L1, no staging), which only odd cycle-spun planes
 // reach. The batch is the grid's z axis, row tiles its y axis, in chunks
 // where a level holds more than a grid's 65535 (launch_chunks); plane
-// offsets are 64-bit.
+// offsets are 64-bit. The float64 instance (pypwt_idwt2d_f64; K2 only)
+// stages twice the bytes: 140 KB at hlen 40.
 
 #include "common.cuh"
 
@@ -57,34 +58,33 @@ constexpr int TC = 32;  // coefficient columns per block (2TC output columns)
 
 // Staged coefficient rows / columns of a block: one more for K20, whose
 // tile may start at an odd y row or column.
-template <bool kShift>
+template <class T, bool kShift>
 inline size_t smem_bytes(int hlen) {
   const size_t e = kShift ? 1 : 0, h2 = hlen / 2;
   const size_t wr = TR + e + h2, ww = TC + e + h2;
-  return sizeof(float) * (4 * wr * ww + 2 * (2 * (TR + e)) * ww +
-                          4 * kHalfTaps);
+  return sizeof(T) * (4 * wr * ww + 2 * (2 * (TR + e)) * ww +
+                      4 * kHalfTaps);
 }
 
-template <bool kShift>
+template <class T, bool kShift>
 __global__ void __launch_bounds__(kThreads)
-idwt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
-              const float* __restrict__ v, const float* __restrict__ d,
-              const float* __restrict__ acc, float* __restrict__ out, int lr,
-              int lc, int nr, int nc, Taps taps, int hlen, int y0, int sr,
+idwt2d_kernel(const T* __restrict__ a, const T* __restrict__ h,
+              const T* __restrict__ v, const T* __restrict__ d,
+              const T* __restrict__ acc, T* __restrict__ out, int lr, int lc,
+              int nr, int nc, TapsT<T> taps, int hlen, int y0, int sr,
               int sc, float scale) {
-  extern __shared__ float smem[];
   constexpr int e = kShift ? 1 : 0;
   const Polyphase ph(hlen);
   const int h2 = ph.h2, c = ph.c;
   const int wr = TR + e + h2, ww = TC + e + h2;
-  float* s_a = smem;               // [wr][ww] coefficient windows
-  float* s_h = s_a + wr * ww;
-  float* s_v = s_h + wr * ww;
-  float* s_d = s_v + wr * ww;
-  float* t1 = s_d + wr * ww;       // [2(TR+e)][ww] axis -2 synthesis of (a, h)
-  float* t2 = t1 + 2 * (TR + e) * ww;  // ... of (v, d)
-  float* g_lo = t2 + 2 * (TR + e) * ww;  // [2][kHalfTaps] taps per parity
-  float* g_hi = g_lo + 2 * kHalfTaps;
+  T* s_a = dynamic_smem<T>();      // [wr][ww] coefficient windows
+  T* s_h = s_a + wr * ww;
+  T* s_v = s_h + wr * ww;
+  T* s_d = s_v + wr * ww;
+  T* t1 = s_d + wr * ww;           // [2(TR+e)][ww] axis -2 synthesis of (a, h)
+  T* t2 = t1 + 2 * (TR + e) * ww;  // ... of (v, d)
+  T* g_lo = t2 + 2 * (TR + e) * ww;  // [2][kHalfTaps] taps per parity
+  T* g_hi = g_lo + 2 * kHalfTaps;
 
   const int tid = threadIdx.x;
   // output tile origin, and the y row / column its first pixel reads
@@ -113,15 +113,15 @@ idwt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
     const int q = i / ww, w = i - q * ww;
     const int p = q & 1;
     const int base = ((q >> 1) + ph.delta(p)) * ww + w;
-    const float* gl = g_lo + p * kHalfTaps;
-    const float* gh = g_hi + p * kHalfTaps;
-    float x1 = 0.f, x2 = 0.f;
+    const T* gl = g_lo + p * kHalfTaps;
+    const T* gh = g_hi + p * kHalfTaps;
+    T x1 = 0, x2 = 0;
     for (int j = 0; j < h2; ++j) {
       const int k = base + j * ww;
-      x1 = fmaf(s_a[k], gl[j], x1);
-      x1 = fmaf(s_h[k], gh[j], x1);
-      x2 = fmaf(s_v[k], gl[j], x2);
-      x2 = fmaf(s_d[k], gh[j], x2);
+      x1 = fmadd(s_a[k], gl[j], x1);
+      x1 = fmadd(s_h[k], gh[j], x1);
+      x2 = fmadd(s_v[k], gl[j], x2);
+      x2 = fmadd(s_d[k], gh[j], x2);
     }
     t1[i] = x1;
     t2[i] = x2;
@@ -137,12 +137,12 @@ idwt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
     const int nn = n + px;
     const int p = nn & 1;
     const int base = (q + py) * ww + (nn >> 1) + ph.delta(p);
-    const float* gl = g_lo + p * kHalfTaps;
-    const float* gh = g_hi + p * kHalfTaps;
-    float s = 0.f;
+    const T* gl = g_lo + p * kHalfTaps;
+    const T* gh = g_hi + p * kHalfTaps;
+    T s = 0;
     for (int j = 0; j < h2; ++j) {
-      s = fmaf(t1[base + j], gl[j], s);
-      s = fmaf(t2[base + j], gh[j], s);
+      s = fmadd(t1[base + j], gl[j], s);
+      s = fmadd(t2[base + j], gh[j], s);
     }
     const long long o = obase + static_cast<long long>(orow) * nc + ocol;
     if (kShift) {
@@ -199,10 +199,11 @@ idwt2d_direct_kernel(const float* __restrict__ a, const float* __restrict__ h,
   out[o] = s * scale;
 }
 
-int launch(const float* a, const float* h, const float* v, const float* d,
-           const float* acc, float* out, int batch, int lr, int lc, int nr,
-           int nc, const float* rec_lo, const float* rec_hi, int hlen, int sr,
-           int sc, float scale, bool shifted, int device, void* stream) {
+template <class T>
+int launch(const T* a, const T* h, const T* v, const T* d, const T* acc,
+           T* out, int batch, int lr, int lc, int nr, int nc, const T* rec_lo,
+           const T* rec_hi, int hlen, int sr, int sc, float scale,
+           bool shifted, int device, void* stream) {
   if (hlen < 2 || hlen > kMaxTaps || lr < 1 || lc < 1 || nr < 1 || nc < 1 ||
       lr > 0x3fffffff || lc > 0x3fffffff || nr > 0x3fffffff ||
       nc > 0x3fffffff || batch < 1 || sr < 0 || sr >= nr || sc < 0 ||
@@ -210,26 +211,32 @@ int launch(const float* a, const float* h, const float* v, const float* d,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Taps taps = make_taps(rec_lo, rec_hi, hlen);
+  const TapsT<T> taps = make_taps(rec_lo, rec_hi, hlen);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // y has period 2L along an axis of 2L samples; a shifted axis of another
-  // size takes the direct form
-  const bool direct = (sr && nr != 2 * lr) || (sc && nc != 2 * lc);
-  if (direct) {
-    launch_chunks((nc + 31) / 32, (nr + 7) / 8, batch,
-                  [&](dim3 grid, int y0, int z0) {
-                    const long long pi = static_cast<long long>(z0) * lr * lc;
-                    const long long po = static_cast<long long>(z0) * nr * nc;
-                    idwt2d_direct_kernel<<<grid, kThreads, 0, st>>>(
-                        a + pi, h + pi, v + pi, d + pi, acc ? acc + po : acc,
-                        out + po, lr, lc, nr, nc, taps, hlen, y0, sr, sc,
-                        scale);
-                  });
-    return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same_v<T, float>) {
+    // y has period 2L along an axis of 2L samples; a shifted axis of
+    // another size takes the direct form
+    const bool direct = (sr && nr != 2 * lr) || (sc && nc != 2 * lc);
+    if (direct) {
+      launch_chunks((nc + 31) / 32, (nr + 7) / 8, batch,
+                    [&](dim3 grid, int y0, int z0) {
+                      const long long pi =
+                          static_cast<long long>(z0) * lr * lc;
+                      const long long po =
+                          static_cast<long long>(z0) * nr * nc;
+                      idwt2d_direct_kernel<<<grid, kThreads, 0, st>>>(
+                          a + pi, h + pi, v + pi, d + pi,
+                          acc ? acc + po : acc, out + po, lr, lc, nr, nc,
+                          taps, hlen, y0, sr, sc, scale);
+                    });
+      return static_cast<int>(cudaGetLastError());
+    }
+  } else if (shifted) {  // K20 is float32 only
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = shifted ? idwt2d_kernel<true> : idwt2d_kernel<false>;
+  auto kernel = shifted ? idwt2d_kernel<T, true> : idwt2d_kernel<T, false>;
   const size_t smem =
-      shifted ? smem_bytes<true>(hlen) : smem_bytes<false>(hlen);
+      shifted ? smem_bytes<T, true>(hlen) : smem_bytes<T, false>(hlen);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
@@ -249,16 +256,29 @@ int launch(const float* a, const float* h, const float* v, const float* d,
 }  // namespace
 }  // namespace pypwt
 
-// Both return a cudaError_t; they launch on `stream`, do not synchronise
-// and allocate nothing. rec_lo/rec_hi are host arrays of hlen floats.
+// All return a cudaError_t; they launch on `stream`, do not synchronise
+// and allocate nothing. rec_lo/rec_hi are host arrays of hlen values of the
+// data's type.
 // K2: out of (batch, nr, nc) from coefficients of (batch, lr, lc).
 extern "C" int pypwt_idwt2d(const float* a, const float* h, const float* v,
                             const float* d, float* out, int batch, int lr,
                             int lc, int nr, int nc, const float* rec_lo,
                             const float* rec_hi, int hlen, int device,
                             void* stream) {
-  return pypwt::launch(a, h, v, d, nullptr, out, batch, lr, lc, nr, nc,
-                       rec_lo, rec_hi, hlen, 0, 0, 1.f, false, device, stream);
+  return pypwt::launch<float>(a, h, v, d, nullptr, out, batch, lr, lc, nr,
+                              nc, rec_lo, rec_hi, hlen, 0, 0, 1.f, false,
+                              device, stream);
+}
+
+extern "C" int pypwt_idwt2d_f64(const double* a, const double* h,
+                                const double* v, const double* d,
+                                double* out, int batch, int lr, int lc,
+                                int nr, int nc, const double* rec_lo,
+                                const double* rec_hi, int hlen, int device,
+                                void* stream) {
+  return pypwt::launch<double>(a, h, v, d, nullptr, out, batch, lr, lc, nr,
+                               nc, rec_lo, rec_hi, hlen, 0, 0, 1.f, false,
+                               device, stream);
 }
 
 // K20: out = scale * (roll(y, (-sr, -sc)) [+ acc]), acc of out's shape or
@@ -270,6 +290,7 @@ extern "C" int pypwt_idwt2d_unshift(const float* a, const float* h,
                                     int sc, float scale, const float* rec_lo,
                                     const float* rec_hi, int hlen, int device,
                                     void* stream) {
-  return pypwt::launch(a, h, v, d, acc, out, batch, lr, lc, nr, nc, rec_lo,
-                       rec_hi, hlen, sr, sc, scale, true, device, stream);
+  return pypwt::launch<float>(a, h, v, d, acc, out, batch, lr, lc, nr, nc,
+                              rec_lo, rec_hi, hlen, sr, sc, scale, true,
+                              device, stream);
 }

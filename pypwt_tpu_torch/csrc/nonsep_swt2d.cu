@@ -1,5 +1,6 @@
 // K18a / K18b: one periodized non-separable 2D stationary (a-trous) level
-// and its inverse, float32, with four dense hlen x hlen filters.
+// and its inverse, float32 or float64, with four dense hlen x hlen
+// filters.
 //
 // Replace the TPU kernel pypwt_tpu/ops/nonsep_pallas.py::_build_ns_swt2d
 // (:344; one build function with an `inverse` flag behind ns_swt2d_fused,
@@ -39,6 +40,10 @@
 // block copies them into shared memory once: a warp then reads the four
 // filters' taps of one (k, l) as one 16-byte word, which shared memory
 // broadcasts, so each input sample costs one tap load for its four FMAs.
+// The float64 instances (pypwt_ns_swt2d_f64, pypwt_ins_swt2d_f64) read a
+// bank the wrapper uploaded once (BankPtr): 51,200 bytes at hlen 40, past
+// the parameter limit, and as many of shared memory, past the 48 KB a
+// block gets without opting in.
 
 #include "common.cuh"
 
@@ -53,12 +58,13 @@ __device__ __forceinline__ int wrap_once(int i, int n) {
   return i >= n ? i - n : i;
 }
 
-__device__ __forceinline__ void load_bank(const Bank2D& bank, int n2,
+template <class T, class Bank>
+__device__ __forceinline__ void load_bank(const Bank& bank, int n2,
                                           const TapOffsets& roff,
                                           const TapOffsets& coff, int hlen,
-                                          float4* s_f, int* s_roff,
+                                          Vec4<T>* s_f, int* s_roff,
                                           int* s_coff) {
-  float* dst = reinterpret_cast<float*>(s_f);
+  T* dst = reinterpret_cast<T*>(s_f);
   for (int i = threadIdx.x; i < 4 * n2; i += kThreads) dst[i] = bank.f[i];
   if (threadIdx.x < hlen) {
     s_roff[threadIdx.x] = roff.k[threadIdx.x];
@@ -67,33 +73,35 @@ __device__ __forceinline__ void load_bank(const Bank2D& bank, int n2,
   __syncthreads();
 }
 
+template <class T, class Bank>
 __global__ void __launch_bounds__(kThreads)
-ns_swt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
-                float* __restrict__ h, float* __restrict__ v,
-                float* __restrict__ d, int nr, int nc, Bank2D bank,
-                TapOffsets roff, TapOffsets coff, int hlen, int y0) {
-  extern __shared__ float4 s_f[];  // [hlen][hlen], one tap of each filter
+ns_swt2d_kernel(const T* __restrict__ x, T* __restrict__ a,
+                T* __restrict__ h, T* __restrict__ v, T* __restrict__ d,
+                int nr, int nc, Bank bank, TapOffsets roff, TapOffsets coff,
+                int hlen, int y0) {
+  using V4 = Vec4<T>;
+  V4* s_f = dynamic_smem<V4>();  // [hlen][hlen], one tap of each filter
   __shared__ int s_roff[kMaxTaps], s_coff[kMaxTaps];
   const int n2 = hlen * hlen;
-  load_bank(bank, n2, roff, coff, hlen, s_f, s_roff, s_coff);
+  load_bank<T>(bank, n2, roff, coff, hlen, s_f, s_roff, s_coff);
 
   const int r = (y0 + blockIdx.y) * BR + threadIdx.x / BC;
   const int c = blockIdx.x * BC + threadIdx.x % BC;
   if (r >= nr || c >= nc) return;
   const long long plane = static_cast<long long>(nr) * nc;
-  const float* xb = x + blockIdx.z * plane;
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  const T* xb = x + blockIdx.z * plane;
+  T s0 = 0, s1 = 0, s2 = 0, s3 = 0;
   for (int k = 0; k < hlen; ++k) {
-    const float* xr =
+    const T* xr =
         xb + static_cast<long long>(wrap_once(r + s_roff[k], nr)) * nc;
-    const float4* f = s_f + k * hlen;
+    const V4* f = s_f + k * hlen;
     for (int l = 0; l < hlen; ++l) {
-      const float val = __ldg(xr + wrap_once(c + s_coff[l], nc));
-      const float4 t = f[l];
-      s0 = fmaf(val, t.x, s0);
-      s1 = fmaf(val, t.y, s1);
-      s2 = fmaf(val, t.z, s2);
-      s3 = fmaf(val, t.w, s3);
+      const T val = __ldg(xr + wrap_once(c + s_coff[l], nc));
+      const V4 t = f[l];
+      s0 = fmadd(val, t.x, s0);
+      s1 = fmadd(val, t.y, s1);
+      s2 = fmadd(val, t.z, s2);
+      s3 = fmadd(val, t.w, s3);
     }
   }
   const long long o = blockIdx.z * plane + static_cast<long long>(r) * nc + c;
@@ -103,33 +111,35 @@ ns_swt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
   d[o] = s3;
 }
 
+template <class T, class Bank>
 __global__ void __launch_bounds__(kThreads)
-ins_swt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
-                 const float* __restrict__ v, const float* __restrict__ d,
-                 float* __restrict__ out, int nr, int nc, Bank2D quarter_bank,
+ins_swt2d_kernel(const T* __restrict__ a, const T* __restrict__ h,
+                 const T* __restrict__ v, const T* __restrict__ d,
+                 T* __restrict__ out, int nr, int nc, Bank quarter_bank,
                  TapOffsets roff, TapOffsets coff, int hlen, int y0) {
-  extern __shared__ float4 s_f[];  // [hlen][hlen] x 4 filters, x 1/4
+  using V4 = Vec4<T>;
+  V4* s_f = dynamic_smem<V4>();  // [hlen][hlen] x 4 filters, x 1/4
   __shared__ int s_roff[kMaxTaps], s_coff[kMaxTaps];
   const int n2 = hlen * hlen;
-  load_bank(quarter_bank, n2, roff, coff, hlen, s_f, s_roff, s_coff);
+  load_bank<T>(quarter_bank, n2, roff, coff, hlen, s_f, s_roff, s_coff);
 
   const int r = (y0 + blockIdx.y) * BR + threadIdx.x / BC;
   const int c = blockIdx.x * BC + threadIdx.x % BC;
   if (r >= nr || c >= nc) return;
   const long long plane = static_cast<long long>(nr) * nc;
   const long long pb = blockIdx.z * plane;
-  float s = 0.f;
+  T s = 0;
   for (int k = 0; k < hlen; ++k) {
     const long long rb =
         pb + static_cast<long long>(wrap_once(r + s_roff[k], nr)) * nc;
-    const float4* f = s_f + k * hlen;
+    const V4* f = s_f + k * hlen;
     for (int l = 0; l < hlen; ++l) {
       const long long j = rb + wrap_once(c + s_coff[l], nc);
-      const float4 t = f[l];
-      s = fmaf(__ldg(a + j), t.x, s);
-      s = fmaf(__ldg(h + j), t.y, s);
-      s = fmaf(__ldg(v + j), t.z, s);
-      s = fmaf(__ldg(d + j), t.w, s);
+      const V4 t = f[l];
+      s = fmadd(__ldg(a + j), t.x, s);
+      s = fmadd(__ldg(h + j), t.y, s);
+      s = fmadd(__ldg(v + j), t.z, s);
+      s = fmadd(__ldg(d + j), t.w, s);
     }
   }
   out[pb + static_cast<long long>(r) * nc + c] = s;
@@ -146,32 +156,82 @@ bool plan_level(int batch, int nr, int nc, int level, int s, int hlen,
   return true;
 }
 
+// The level's tap offsets and the kernel's dynamic shared memory (the
+// bank: up to 25.6 KB in float32, 51.2 KB in float64 at hlen 40, opted
+// into), or an error.
+template <class T, class Kernel>
+cudaError_t prepare(Kernel kernel, int batch, int nr, int nc, int level,
+                    int centre, int hlen, int device, TapOffsets* roff,
+                    TapOffsets* coff, size_t* smem) {
+  if (!plan_level(batch, nr, nc, level, centre, hlen, roff, coff))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  *smem = sizeof(Vec4<T>) * hlen * hlen;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*smem));
+}
+
+// K18a with its bank (Bank2D by value, or BankPtr to device memory).
+template <class T, class Bank>
+int launch_swt(const T* x, T* a, T* h, T* v, T* d, int batch, int nr, int nc,
+               int level, int centre, const Bank& bank, int hlen, int device,
+               void* stream) {
+  const auto kernel = ns_swt2d_kernel<T, Bank>;
+  TapOffsets roff, coff;
+  size_t smem;
+  const cudaError_t err = prepare<T>(kernel, batch, nr, nc, level, centre,
+                                     hlen, device, &roff, &coff, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  launch_chunks((nc + BC - 1) / BC, (nr + BR - 1) / BR, batch,
+                [&](dim3 grid, int y0, int z0) {
+                  const long long p = static_cast<long long>(z0) * nr * nc;
+                  kernel<<<grid, kThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+                      x + p, a + p, h + p, v + p, d + p, nr, nc, bank, roff,
+                      coff, hlen, y0);
+                });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K18b with its bank (the synthesis filters x 1/4).
+template <class T, class Bank>
+int launch_iswt(const T* a, const T* h, const T* v, const T* d, T* out,
+                int batch, int nr, int nc, int level, int centre,
+                const Bank& bank, int hlen, int device, void* stream) {
+  const auto kernel = ins_swt2d_kernel<T, Bank>;
+  TapOffsets roff, coff;
+  size_t smem;
+  const cudaError_t err = prepare<T>(kernel, batch, nr, nc, level, centre,
+                                     hlen, device, &roff, &coff, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  launch_chunks((nc + BC - 1) / BC, (nr + BR - 1) / BR, batch,
+                [&](dim3 grid, int y0, int z0) {
+                  const long long p = static_cast<long long>(z0) * nr * nc;
+                  kernel<<<grid, kThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+                      a + p, h + p, v + p, d + p, out + p, nr, nc, bank,
+                      roff, coff, hlen, y0);
+                });
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace pypwt
 
-// Both return a cudaError_t; they launch on `stream`, do not synchronise
+// All return a cudaError_t; they launch on `stream`, do not synchronise
 // and allocate nothing. `centre` is the a-trous centre s of the direction.
+// dec/rec: host arrays of 4 * hlen * hlen floats, [b][k][l].
 extern "C" int pypwt_ns_swt2d(const float* x, float* a, float* h, float* v,
                               float* d, int batch, int nr, int nc, int level,
                               int centre, const float* dec, int hlen,
                               int device, void* stream) {
   using namespace pypwt;
-  TapOffsets roff, coff;
-  if (!plan_level(batch, nr, nc, level, centre, hlen, &roff, &coff))
+  if (hlen < 1 || hlen > kMaxTaps)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = sizeof(float) * 4 * hlen * hlen;
-  const Bank2D bank = make_bank(dec, hlen, 1.f);
-  launch_chunks((nc + BC - 1) / BC, (nr + BR - 1) / BR, batch,
-                [&](dim3 grid, int y0, int z0) {
-                  const long long p = static_cast<long long>(z0) * nr * nc;
-                  ns_swt2d_kernel<<<grid, kThreads, smem,
-                                    static_cast<cudaStream_t>(stream)>>>(
-                      x + p, a + p, h + p, v + p, d + p, nr, nc, bank, roff,
-                      coff, hlen, y0);
-                });
-  return static_cast<int>(cudaGetLastError());
+  return launch_swt(x, a, h, v, d, batch, nr, nc, level, centre,
+                    make_bank(dec, hlen, 1.f), hlen, device, stream);
 }
 
 extern "C" int pypwt_ins_swt2d(const float* a, const float* h, const float* v,
@@ -179,21 +239,31 @@ extern "C" int pypwt_ins_swt2d(const float* a, const float* h, const float* v,
                                int nc, int level, int centre, const float* rec,
                                int hlen, int device, void* stream) {
   using namespace pypwt;
-  TapOffsets roff, coff;
-  if (!plan_level(batch, nr, nc, level, centre, hlen, &roff, &coff))
+  if (hlen < 1 || hlen > kMaxTaps)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = sizeof(float) * 4 * hlen * hlen;
   // rec / 4 is exact in float32: the reference's 1/4 of the inverse
-  const Bank2D bank = make_bank(rec, hlen, 0.25f);
-  launch_chunks((nc + BC - 1) / BC, (nr + BR - 1) / BR, batch,
-                [&](dim3 grid, int y0, int z0) {
-                  const long long p = static_cast<long long>(z0) * nr * nc;
-                  ins_swt2d_kernel<<<grid, kThreads, smem,
-                                     static_cast<cudaStream_t>(stream)>>>(
-                      a + p, h + p, v + p, d + p, out + p, nr, nc, bank, roff,
-                      coff, hlen, y0);
-                });
-  return static_cast<int>(cudaGetLastError());
+  return launch_iswt(a, h, v, d, out, batch, nr, nc, level, centre,
+                     make_bank(rec, hlen, 0.25f), hlen, device, stream);
+}
+
+// The float64 K18a/K18b: `bank` is the device copy of pypwt_ns_bank_f64's
+// layout 2 (K18a) or 3 (K18b, x 1/4).
+extern "C" int pypwt_ns_swt2d_f64(const double* x, double* a, double* h,
+                                  double* v, double* d, int batch, int nr,
+                                  int nc, int level, int centre,
+                                  const double* bank, int hlen, int device,
+                                  void* stream) {
+  return pypwt::launch_swt(x, a, h, v, d, batch, nr, nc, level, centre,
+                           pypwt::BankPtr<double>{bank}, hlen, device,
+                           stream);
+}
+
+extern "C" int pypwt_ins_swt2d_f64(const double* a, const double* h,
+                                   const double* v, const double* d,
+                                   double* out, int batch, int nr, int nc,
+                                   int level, int centre, const double* bank,
+                                   int hlen, int device, void* stream) {
+  return pypwt::launch_iswt(a, h, v, d, out, batch, nr, nc, level, centre,
+                            pypwt::BankPtr<double>{bank}, hlen, device,
+                            stream);
 }

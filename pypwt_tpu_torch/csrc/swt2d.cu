@@ -1,5 +1,5 @@
 // K8 / K9: one periodized separable 2D stationary (a-trous) level and its
-// inverse, float32.
+// inverse, float32 or float64.
 //
 // Replace the TPU kernels pypwt_tpu/ops/pallas_dwt.py::swt2d_level_fused
 // (_build_swt2d, :1912) and ::iswt2d_level_fused (_build_iswt2d, :2004).
@@ -41,7 +41,8 @@
 // is its own class. Row blocks run on the grid's y axis and planes on its z
 // axis; a level with more of either than a launch holds goes in chunks
 // (launch_chunks in common.cuh), so no grid limit bounds a batch, a plane
-// or a level. Plane offsets are 64-bit.
+// or a level. Plane offsets are 64-bit. The float64 instances
+// (pypwt_swt2d_f64, pypwt_iswt2d_f64) stage 36 KB of static shared memory.
 
 #include <algorithm>
 
@@ -86,21 +87,23 @@ __device__ __forceinline__ int staged_row(const RowPlan& p, int rho, int m0,
 }
 
 // Last-axis sample j = col + off, wrapped once (col < nc, off < nc).
-__device__ __forceinline__ float col_tap(const float* __restrict__ row,
-                                         int col, int off, int nc) {
+template <class T>
+__device__ __forceinline__ T col_tap(const T* __restrict__ row, int col,
+                                     int off, int nc) {
   int j = col + off;
   if (j >= nc) j -= nc;
   return __ldg(row + j);
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-swt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
-             float* __restrict__ h, float* __restrict__ v,
-             float* __restrict__ d, int nr, int nc, RowPlan rp, Taps taps,
-             TapOffsets coff, int hlen, unsigned y0) {
-  __shared__ float s_lo[kStageRows * TC];
-  __shared__ float s_hi[kStageRows * TC];
-  __shared__ float f_lo[kMaxTaps], f_hi[kMaxTaps];
+swt2d_kernel(const T* __restrict__ x, T* __restrict__ a, T* __restrict__ h,
+             T* __restrict__ v, T* __restrict__ d, int nr, int nc,
+             RowPlan rp, TapsT<T> taps, TapOffsets coff, int hlen,
+             unsigned y0) {
+  __shared__ T s_lo[kStageRows * TC];
+  __shared__ T s_hi[kStageRows * TC];
+  __shared__ T f_lo[kMaxTaps], f_hi[kMaxTaps];
   __shared__ int s_off[kMaxTaps];
   __shared__ int s_row[kStageRows];
 
@@ -111,7 +114,7 @@ swt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
   const int c0 = blockIdx.x * TC;
   const int rows = rp.tr + hlen - 1;
   const long long plane = static_cast<long long>(nr) * nc;
-  const float* xb = x + blockIdx.z * plane;
+  const T* xb = x + blockIdx.z * plane;
 
   if (tid < hlen) {
     f_lo[tid] = taps.lo[tid];
@@ -124,13 +127,13 @@ swt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
   // Phase 1, last axis, on the staged rows.
   for (int i = tid; i < rows * TC; i += kThreads) {
     const int q = i / TC, col = c0 + i - q * TC;
-    float lo = 0.f, hi = 0.f;
+    T lo = 0, hi = 0;
     if (col < nc) {
-      const float* xr = xb + static_cast<long long>(s_row[q]) * nc;
+      const T* xr = xb + static_cast<long long>(s_row[q]) * nc;
       for (int k = 0; k < hlen; ++k) {
-        const float val = col_tap(xr, col, s_off[k], nc);
-        lo = fmaf(val, f_lo[k], lo);
-        hi = fmaf(val, f_hi[k], hi);
+        const T val = col_tap(xr, col, s_off[k], nc);
+        lo = fmadd(val, f_lo[k], lo);
+        hi = fmadd(val, f_hi[k], hi);
       }
     }
     s_lo[i] = lo;
@@ -144,14 +147,14 @@ swt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
     const long long orow = rho + static_cast<long long>(rp.cls) * (m0 + p);
     const int col = c0 + c;
     if (orow >= nr || col >= nc) continue;
-    float sa = 0.f, sh = 0.f, sv = 0.f, sd = 0.f;
+    T sa = 0, sh = 0, sv = 0, sd = 0;
     for (int k = 0; k < hlen; ++k) {
       const int q = (p + hlen - 1 - k) * TC + c;
-      const float l = s_lo[q], g = s_hi[q];
-      sa = fmaf(l, f_lo[k], sa);
-      sh = fmaf(l, f_hi[k], sh);
-      sv = fmaf(g, f_lo[k], sv);
-      sd = fmaf(g, f_hi[k], sd);
+      const T l = s_lo[q], g = s_hi[q];
+      sa = fmadd(l, f_lo[k], sa);
+      sh = fmadd(l, f_hi[k], sh);
+      sv = fmadd(g, f_lo[k], sv);
+      sd = fmadd(g, f_hi[k], sd);
     }
     const long long o = blockIdx.z * plane + orow * nc + col;
     a[o] = sa;
@@ -161,14 +164,15 @@ swt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-iswt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
-              const float* __restrict__ v, const float* __restrict__ d,
-              float* __restrict__ out, int nr, int nc, RowPlan rp,
-              Taps half_taps, TapOffsets coff, int hlen, unsigned y0) {
-  __shared__ float s_p[kStageRows * TC];  // syn_-1(a, v) on staged rows
-  __shared__ float s_q[kStageRows * TC];  // syn_-1(h, d)
-  __shared__ float g_lo[kMaxTaps], g_hi[kMaxTaps];
+iswt2d_kernel(const T* __restrict__ a, const T* __restrict__ h,
+              const T* __restrict__ v, const T* __restrict__ d,
+              T* __restrict__ out, int nr, int nc, RowPlan rp,
+              TapsT<T> half_taps, TapOffsets coff, int hlen, unsigned y0) {
+  __shared__ T s_p[kStageRows * TC];  // syn_-1(a, v) on staged rows
+  __shared__ T s_q[kStageRows * TC];  // syn_-1(h, d)
+  __shared__ T g_lo[kMaxTaps], g_hi[kMaxTaps];
   __shared__ int s_off[kMaxTaps];
   __shared__ int s_row[kStageRows];
 
@@ -191,16 +195,16 @@ iswt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
 
   for (int i = tid; i < rows * TC; i += kThreads) {
     const int q = i / TC, col = c0 + i - q * TC;
-    float sp = 0.f, sq = 0.f;
+    T sp = 0, sq = 0;
     if (col < nc) {
       const long long rb = pb + static_cast<long long>(s_row[q]) * nc;
-      const float *ar = a + rb, *hr = h + rb, *vr = v + rb, *dr = d + rb;
+      const T *ar = a + rb, *hr = h + rb, *vr = v + rb, *dr = d + rb;
       for (int k = 0; k < hlen; ++k) {
         const int off = s_off[k];
-        sp = fmaf(col_tap(ar, col, off, nc), g_lo[k], sp);
-        sp = fmaf(col_tap(vr, col, off, nc), g_hi[k], sp);
-        sq = fmaf(col_tap(hr, col, off, nc), g_lo[k], sq);
-        sq = fmaf(col_tap(dr, col, off, nc), g_hi[k], sq);
+        sp = fmadd(col_tap(ar, col, off, nc), g_lo[k], sp);
+        sp = fmadd(col_tap(vr, col, off, nc), g_hi[k], sp);
+        sq = fmadd(col_tap(hr, col, off, nc), g_lo[k], sq);
+        sq = fmadd(col_tap(dr, col, off, nc), g_hi[k], sq);
       }
     }
     s_p[i] = sp;
@@ -213,11 +217,11 @@ iswt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
     const long long orow = rho + static_cast<long long>(rp.cls) * (m0 + p);
     const int col = c0 + c;
     if (orow >= nr || col >= nc) continue;
-    float s = 0.f;
+    T s = 0;
     for (int k = 0; k < hlen; ++k) {
       const int q = (p + hlen - 1 - k) * TC + c;
-      s = fmaf(s_p[q], g_lo[k], s);
-      s = fmaf(s_q[q], g_hi[k], s);
+      s = fmadd(s_p[q], g_lo[k], s);
+      s = fmadd(s_q[q], g_hi[k], s);
     }
     out[pb + orow * nc + col] = s;
   }
@@ -236,34 +240,79 @@ bool plan_level(int batch, int nr, int nc, int level, int s, int hlen,
   return true;
 }
 
-}  // namespace
-}  // namespace pypwt
-
-// Both return a cudaError_t; they launch on `stream`, do not synchronise
-// and allocate nothing. The filters are host arrays of hlen floats; `centre`
-// is the a-trous centre s of the direction.
-extern "C" int pypwt_swt2d(const float* x, float* a, float* h, float* v,
-                           float* d, int batch, int nr, int nc, int level,
-                           int centre, const float* dec_lo,
-                           const float* dec_hi, int hlen, int device,
-                           void* stream) {
-  using namespace pypwt;
+template <class T>
+int launch_swt(const T* x, T* a, T* h, T* v, T* d, int batch, int nr, int nc,
+               int level, int centre, const T* dec_lo, const T* dec_hi,
+               int hlen, int device, void* stream) {
   RowPlan rp;
   TapOffsets coff;
   if (!plan_level(batch, nr, nc, level, centre, hlen, &rp, &coff))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Taps taps = make_taps(dec_lo, dec_hi, hlen);
+  const TapsT<T> taps = make_taps(dec_lo, dec_hi, hlen);
   launch_chunks((nc + TC - 1) / TC, rp.cls * rp.tiles, batch,
                 [&](dim3 grid, int y0, int z0) {
                   const long long p = static_cast<long long>(z0) * nr * nc;
-                  swt2d_kernel<<<grid, kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
+                  swt2d_kernel<T><<<grid, kThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
                       x + p, a + p, h + p, v + p, d + p, nr, nc, rp, taps,
                       coff, hlen, y0);
                 });
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int launch_iswt(const T* a, const T* h, const T* v, const T* d, T* out,
+                int batch, int nr, int nc, int level, int centre,
+                const T* rec_lo, const T* rec_hi, int hlen, int device,
+                void* stream) {
+  RowPlan rp;
+  TapOffsets coff;
+  if (!plan_level(batch, nr, nc, level, centre, hlen, &rp, &coff))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // rec / 2 is exact: the 1/2 of each axis pass
+  T lo2[kMaxTaps], hi2[kMaxTaps];
+  for (int k = 0; k < hlen; ++k) {
+    lo2[k] = T(0.5) * rec_lo[k];
+    hi2[k] = T(0.5) * rec_hi[k];
+  }
+  const TapsT<T> taps = make_taps<T>(lo2, hi2, hlen);
+  launch_chunks((nc + TC - 1) / TC, rp.cls * rp.tiles, batch,
+                [&](dim3 grid, int y0, int z0) {
+                  const long long p = static_cast<long long>(z0) * nr * nc;
+                  iswt2d_kernel<T><<<grid, kThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+                      a + p, h + p, v + p, d + p, out + p, nr, nc, rp, taps,
+                      coff, hlen, y0);
+                });
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace pypwt
+
+// All return a cudaError_t; they launch on `stream`, do not synchronise
+// and allocate nothing. The filters are host arrays of hlen values of the
+// data's type; `centre` is the a-trous centre s of the direction.
+extern "C" int pypwt_swt2d(const float* x, float* a, float* h, float* v,
+                           float* d, int batch, int nr, int nc, int level,
+                           int centre, const float* dec_lo,
+                           const float* dec_hi, int hlen, int device,
+                           void* stream) {
+  return pypwt::launch_swt(x, a, h, v, d, batch, nr, nc, level, centre,
+                           dec_lo, dec_hi, hlen, device, stream);
+}
+
+extern "C" int pypwt_swt2d_f64(const double* x, double* a, double* h,
+                               double* v, double* d, int batch, int nr,
+                               int nc, int level, int centre,
+                               const double* dec_lo, const double* dec_hi,
+                               int hlen, int device, void* stream) {
+  return pypwt::launch_swt(x, a, h, v, d, batch, nr, nc, level, centre,
+                           dec_lo, dec_hi, hlen, device, stream);
 }
 
 extern "C" int pypwt_iswt2d(const float* a, const float* h, const float* v,
@@ -271,27 +320,16 @@ extern "C" int pypwt_iswt2d(const float* a, const float* h, const float* v,
                             int nc, int level, int centre,
                             const float* rec_lo, const float* rec_hi,
                             int hlen, int device, void* stream) {
-  using namespace pypwt;
-  RowPlan rp;
-  TapOffsets coff;
-  if (!plan_level(batch, nr, nc, level, centre, hlen, &rp, &coff))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // rec / 2 is exact in float32: the 1/2 of each axis pass
-  float lo2[kMaxTaps], hi2[kMaxTaps];
-  for (int k = 0; k < hlen; ++k) {
-    lo2[k] = 0.5f * rec_lo[k];
-    hi2[k] = 0.5f * rec_hi[k];
-  }
-  const Taps taps = make_taps(lo2, hi2, hlen);
-  launch_chunks((nc + TC - 1) / TC, rp.cls * rp.tiles, batch,
-                [&](dim3 grid, int y0, int z0) {
-                  const long long p = static_cast<long long>(z0) * nr * nc;
-                  iswt2d_kernel<<<grid, kThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-                      a + p, h + p, v + p, d + p, out + p, nr, nc, rp, taps,
-                      coff, hlen, y0);
-                });
-  return static_cast<int>(cudaGetLastError());
+  return pypwt::launch_iswt(a, h, v, d, out, batch, nr, nc, level, centre,
+                            rec_lo, rec_hi, hlen, device, stream);
+}
+
+extern "C" int pypwt_iswt2d_f64(const double* a, const double* h,
+                                const double* v, const double* d,
+                                double* out, int batch, int nr, int nc,
+                                int level, int centre, const double* rec_lo,
+                                const double* rec_hi, int hlen, int device,
+                                void* stream) {
+  return pypwt::launch_iswt(a, h, v, d, out, batch, nr, nc, level, centre,
+                            rec_lo, rec_hi, hlen, device, stream);
 }

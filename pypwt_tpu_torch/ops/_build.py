@@ -87,7 +87,27 @@ _SIGNATURES = {
     # a, h, v, d, out, batch, nr, nc, level, centre, rec_lo, rec_hi, hlen,
     # bf16, device, stream
     "pypwt_tc_iswt2d": [_P] * 5 + [_I] * 5 + [_P, _P, _I, _I, _I, _P],
+    # x, lo, hi, rows, n, dec_lo, dec_hi, hlen, bf16, device, stream
+    "pypwt_tc_dwt1d": [_P] * 3 + [_I] * 2 + [_P, _P, _I, _I, _I, _P],
+    # a, d, out, rows, len, rec_lo, rec_hi, hlen, bf16, device, stream
+    "pypwt_tc_idwt1d": [_P] * 3 + [_I] * 2 + [_P, _P, _I, _I, _I, _P],
+    # x, lo, hi, rows, n, level, centre, dec_lo, dec_hi, hlen, bf16, device,
+    # stream
+    "pypwt_tc_swt1d": [_P] * 3 + [_I] * 4 + [_P, _P, _I, _I, _I, _P],
+    # a, d, out, rows, n, level, centre, rec_lo, rec_hi, hlen, bf16, device,
+    # stream
+    "pypwt_tc_iswt1d": [_P] * 3 + [_I] * 4 + [_P, _P, _I, _I, _I, _P],
+    # filters, hlen, layout, out (host arrays of float64)
+    "pypwt_ns_bank_f64": [_P, _I, _I, _P],
 }
+# The float64 instances of the tap-loop kernels take the same arguments,
+# with pointers to float64 data and taps (the non-separable ones: to the
+# device copy of their bank's layout).
+for _name in ("pypwt_dwt2d", "pypwt_idwt2d", "pypwt_dwt1d", "pypwt_idwt1d",
+              "pypwt_swt1d", "pypwt_iswt1d", "pypwt_swt2d", "pypwt_iswt2d",
+              "pypwt_ns_dwt2d", "pypwt_ins_dwt2d", "pypwt_ns_swt2d",
+              "pypwt_ins_swt2d"):
+    _SIGNATURES[_name + "_f64"] = _SIGNATURES[_name]
 
 _lib = None
 # Wall seconds of the compile this process ran (None: loaded a cached

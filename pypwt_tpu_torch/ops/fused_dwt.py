@@ -28,17 +28,23 @@ whose folding only fixed the TPU's lane layout.  Beside each kernel:
 * ``*_unsupported``, which says before launch, from dtype, rank, shape and
   bank, why the kernel cannot take a call (None if it can) -- the port's
   form of the JAX wrappers returning None.  Every kernel takes every
-  float32 level its plain version takes: odd sizes (the reference's
-  virtual extension, in the kernels' index), odd filter lengths, odd
-  synthesis outputs, and any batch or row count (levels past a grid's
-  limits go in several launches); only another dtype or rank, an empty or
-  over-long (2^30 samples) axis and an over-long filter refuse;
-* ``launches`` on the wrapper, its count of kernel launches.
+  float32 or float64 level its plain version takes: odd sizes (the
+  reference's virtual extension, in the kernels' index), odd filter
+  lengths, odd synthesis outputs, and any batch or row count (levels past
+  a grid's limits go in several launches); only another dtype or rank,
+  inputs of mixed dtypes, an empty or over-long (2^30 samples) axis and an
+  over-long filter refuse;
+* ``launches`` on the wrapper, its count of kernel launches (of either
+  instance).
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
-launches the kernel or raises.  Taps are float32, rounded once from the
-bank's float64 filters (as ``pallas_dwt._taps`` / ``conv._as_taps``), and
-handed to the kernel by value, so a call copies nothing to the device.
+launches the kernel or raises.  A float32 level runs the float32 instance
+with taps rounded once from the bank's float64 filters (as
+``pallas_dwt._taps`` / ``conv._as_taps``); a float64 level runs the
+float64 instance (the C entry points ``*_f64``) with the bank's float64
+values as they are, as the reference's -DDOUBLEPRECISION build and the
+plain versions do.  Taps go to the kernel by value, so a call copies
+nothing to the device.
 """
 
 from __future__ import annotations
@@ -52,6 +58,8 @@ from ..filters import MAX_FILTER_WIDTH
 from . import _build
 
 _MAX_SAMPLES = 1 << 30  # samples per axis: int indices in the kernels
+F32 = (torch.float32,)                  # the tensor-core forms, K19/K20
+F32_F64 = (torch.float32, torch.float64)  # the tap-loop kernels
 
 
 def dwt2d_plain(x, fb):
@@ -94,9 +102,17 @@ def _sizes_unsupported(sizes, what):
     return None
 
 
-def _plane_unsupported(t, what):
-    if t.dtype != torch.float32:
-        return f"{what} dtype {t.dtype} (float32 only)"
+def _dtype_unsupported(t, what, dtypes):
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).split(".")[-1] for d in dtypes)
+        return f"{what} dtype {t.dtype} ({names} only)"
+    return None
+
+
+def _plane_unsupported(t, what, dtypes=F32):
+    why = _dtype_unsupported(t, what, dtypes)
+    if why:
+        return why
     if t.ndim not in (2, 3):
         return f"{what} rank {t.ndim} (2 or 3)"
     if t.numel() == 0:
@@ -110,13 +126,13 @@ def _batch(t):
 
 def dwt2d_unsupported(x, fb):
     """Why K1 cannot take ``x`` with bank ``fb``, or None if it can."""
-    return _plane_unsupported(x, "input") or _bank_unsupported(fb)
+    return _plane_unsupported(x, "input", F32_F64) or _bank_unsupported(fb)
 
 
-def subbands_unsupported(a, h, v, d, out_shape):
+def subbands_unsupported(a, h, v, d, out_shape, dtypes=F32):
     """Why four subbands and an output shape cannot go to a 2D synthesis
-    kernel (K2, K17, K20), or None."""
-    why = _plane_unsupported(a, "coefficient")
+    kernel (K2, K17, K20, K6) of ``dtypes``, or None."""
+    why = _plane_unsupported(a, "coefficient", dtypes)
     if why:
         return why
     if not (a.shape == h.shape == v.shape == d.shape):
@@ -130,22 +146,36 @@ def subbands_unsupported(a, h, v, d, out_shape):
 
 def idwt2d_unsupported(a, h, v, d, fb, out_shape):
     """Why K2 cannot take these coefficients, or None if it can."""
-    return (subbands_unsupported(a, h, v, d, out_shape)
+    return (subbands_unsupported(a, h, v, d, out_shape, F32_F64)
             or _bank_unsupported(fb, 2))
 
 
 _HOST_TAPS: dict = {}
 
 
-def _host_taps(f):
-    """float32 taps of one float64 filter, cached by value so that the
-    pointer handed to the kernel stays alive."""
+def _host_taps(f, dtype=np.float32):
+    """The taps of one float64 filter in ``dtype`` (float32: rounded once;
+    float64: its values as they are), cached by value so that the pointer
+    handed to the kernel stays alive."""
     f = np.asarray(f, dtype=np.float64)
-    key = f.tobytes()
+    key = (f.tobytes(), np.dtype(dtype).str)
     t = _HOST_TAPS.get(key)
     if t is None:
-        t = _HOST_TAPS[key] = np.ascontiguousarray(f.astype(np.float32))
+        t = _HOST_TAPS[key] = np.ascontiguousarray(f.astype(dtype))
     return t
+
+
+def _taps(f, like):
+    """``_host_taps`` in the dtype of tensor ``like``."""
+    return _host_taps(f, np.float64 if like.dtype == torch.float64
+                      else np.float32)
+
+
+def _entry(lib, name, like):
+    """The C entry point of kernel ``name`` for ``like``'s dtype: the
+    float64 instance is ``name + "_f64"``."""
+    return getattr(lib, name + "_f64" if like.dtype == torch.float64
+                   else name)
 
 
 def _check_launch(lib, err, name):
@@ -182,8 +212,8 @@ def dwt2d_fused(x, fb):
     shape = (*x.shape[:-2], div2(nr), div2(nc))
     a, h, v, d = (torch.empty(shape, dtype=x.dtype, device=x.device)
                   for _ in range(4))
-    lo, hi = _host_taps(fb.dec_lo), _host_taps(fb.dec_hi)
-    err = lib.pypwt_dwt2d(
+    lo, hi = _taps(fb.dec_lo, x), _taps(fb.dec_hi, x)
+    err = _entry(lib, "pypwt_dwt2d", x)(
         x.data_ptr(), a.data_ptr(), h.data_ptr(), v.data_ptr(), d.data_ptr(),
         _batch(x), nr, nc, lo.ctypes.data, hi.ctypes.data, fb.hlen,
         x.device.index, _stream(x))
@@ -202,8 +232,8 @@ def idwt2d_fused(a, h, v, d, fb, out_shape):
     lib = _build.load_library()
     nr, nc = out_shape[-2], out_shape[-1]
     out = torch.empty((*a.shape[:-2], nr, nc), dtype=a.dtype, device=a.device)
-    lo, hi = _host_taps(fb.rec_lo), _host_taps(fb.rec_hi)
-    err = lib.pypwt_idwt2d(
+    lo, hi = _taps(fb.rec_lo, a), _taps(fb.rec_hi, a)
+    err = _entry(lib, "pypwt_idwt2d", a)(
         a.data_ptr(), h.data_ptr(), v.data_ptr(), d.data_ptr(),
         out.data_ptr(), _batch(a), a.shape[-2], a.shape[-1], nr, nc,
         lo.ctypes.data, hi.ctypes.data, fb.hlen, a.device.index,
@@ -241,11 +271,13 @@ def _rows(t):
     return t.shape[0] if t.ndim == 2 else 1
 
 
-def _rows_unsupported(t, what):
-    """Why rows ``t`` (``(R, n)`` or ``(n,)``) cannot go to a 1D kernel, or
-    None.  Rows past a grid's limit go in several launches."""
-    if t.dtype != torch.float32:
-        return f"{what} dtype {t.dtype} (float32 only)"
+def _rows_unsupported(t, what, dtypes=F32):
+    """Why rows ``t`` (``(R, n)`` or ``(n,)``) cannot go to a 1D kernel of
+    ``dtypes``, or None.  Rows past a grid's limit go in several
+    launches."""
+    why = _dtype_unsupported(t, what, dtypes)
+    if why:
+        return why
     if t.ndim not in (1, 2):
         return f"{what} rank {t.ndim} (1 or 2)"
     n = t.shape[-1]
@@ -274,26 +306,28 @@ def _level_unsupported(level):
 
 def dwt1d_unsupported(x, fb):
     """Why K3 cannot take ``x`` with bank ``fb``, or None if it can."""
-    return _rows_unsupported(x, "input") or _bank_unsupported(fb)
+    return _rows_unsupported(x, "input", F32_F64) or _bank_unsupported(fb)
 
 
 def idwt1d_unsupported(a, d, fb, n_out):
     """Why K4 cannot take these coefficients, or None if it can."""
-    return (_rows_unsupported(a, "coefficient") or _pair_unsupported(a, d)
+    return (_rows_unsupported(a, "coefficient", F32_F64)
+            or _pair_unsupported(a, d)
             or _bank_unsupported(fb, 2)
             or _sizes_unsupported((n_out,), "output"))
 
 
 def swt1d_unsupported(x, fb, level):
     """Why K10a cannot take ``x`` at ``level``, or None if it can."""
-    return (_rows_unsupported(x, "input") or _bank_unsupported(fb)
+    return (_rows_unsupported(x, "input", F32_F64) or _bank_unsupported(fb)
             or _level_unsupported(level))
 
 
 def iswt1d_unsupported(a, d, fb, level):
     """Why K10b cannot take these coefficients, or None if it can."""
-    return (_rows_unsupported(a, "coefficient") or _pair_unsupported(a, d)
-            or _bank_unsupported(fb) or _level_unsupported(level))
+    return (_rows_unsupported(a, "coefficient", F32_F64)
+            or _pair_unsupported(a, d) or _bank_unsupported(fb)
+            or _level_unsupported(level))
 
 
 def dwt1d_fused(x, fb):
@@ -308,8 +342,8 @@ def dwt1d_fused(x, fb):
     shape = (*x.shape[:-1], div2(n))
     a, d = (torch.empty(shape, dtype=x.dtype, device=x.device)
             for _ in range(2))
-    lo, hi = _host_taps(fb.dec_lo), _host_taps(fb.dec_hi)
-    err = lib.pypwt_dwt1d(x.data_ptr(), a.data_ptr(), d.data_ptr(), _rows(x),
+    lo, hi = _taps(fb.dec_lo, x), _taps(fb.dec_hi, x)
+    err = _entry(lib, "pypwt_dwt1d", x)(x.data_ptr(), a.data_ptr(), d.data_ptr(), _rows(x),
                           n, lo.ctypes.data, hi.ctypes.data, fb.hlen,
                           x.device.index, _stream(x))
     _check_launch(lib, err, "K3 (dwt1d)")
@@ -325,8 +359,8 @@ def idwt1d_fused(a, d, fb, n_out):
     _check_inputs("K4 (idwt1d)", idwt1d_unsupported(a, d, fb, n_out), a, d)
     lib = _build.load_library()
     out = torch.empty((*a.shape[:-1], n_out), dtype=a.dtype, device=a.device)
-    lo, hi = _host_taps(fb.rec_lo), _host_taps(fb.rec_hi)
-    err = lib.pypwt_idwt1d(a.data_ptr(), d.data_ptr(), out.data_ptr(),
+    lo, hi = _taps(fb.rec_lo, a), _taps(fb.rec_hi, a)
+    err = _entry(lib, "pypwt_idwt1d", a)(a.data_ptr(), d.data_ptr(), out.data_ptr(),
                            _rows(a), a.shape[-1], n_out, lo.ctypes.data,
                            hi.ctypes.data, fb.hlen, a.device.index,
                            _stream(a))
@@ -343,8 +377,8 @@ def swt1d_fused(x, fb, level):
     _check_inputs("K10a (swt1d)", swt1d_unsupported(x, fb, level), x)
     lib = _build.load_library()
     a, d = torch.empty_like(x), torch.empty_like(x)
-    lo, hi = _host_taps(fb.dec_lo), _host_taps(fb.dec_hi)
-    err = lib.pypwt_swt1d(x.data_ptr(), a.data_ptr(), d.data_ptr(), _rows(x),
+    lo, hi = _taps(fb.dec_lo, x), _taps(fb.dec_hi, x)
+    err = _entry(lib, "pypwt_swt1d", x)(x.data_ptr(), a.data_ptr(), d.data_ptr(), _rows(x),
                           x.shape[-1], level, lo.ctypes.data, hi.ctypes.data,
                           fb.hlen, x.device.index, _stream(x))
     _check_launch(lib, err, "K10a (swt1d)")
@@ -360,8 +394,8 @@ def iswt1d_fused(a, d, fb, level):
     _check_inputs("K10b (iswt1d)", iswt1d_unsupported(a, d, fb, level), a, d)
     lib = _build.load_library()
     out = torch.empty_like(a)
-    lo, hi = _host_taps(fb.rec_lo), _host_taps(fb.rec_hi)
-    err = lib.pypwt_iswt1d(a.data_ptr(), d.data_ptr(), out.data_ptr(),
+    lo, hi = _taps(fb.rec_lo, a), _taps(fb.rec_hi, a)
+    err = _entry(lib, "pypwt_iswt1d", a)(a.data_ptr(), d.data_ptr(), out.data_ptr(),
                            _rows(a), a.shape[-1], level, lo.ctypes.data,
                            hi.ctypes.data, fb.hlen, a.device.index,
                            _stream(a))
@@ -401,9 +435,10 @@ def swt2d_plane_unsupported(t, what, level):
     """Why a plane or stack ``t`` cannot go to a 2D stationary kernel (K8,
     K9, K18a, K18b) at ``level``, or None.  A level with more row blocks or
     planes than a grid holds is launched in chunks, so no batch, plane size
-    or level meets a grid limit: only dtype, rank, an empty input and the
-    32-bit sizes refuse."""
-    return _plane_unsupported(t, what) or _level_unsupported(level)
+    or level meets a grid limit: only dtype (float32 or float64), rank, an
+    empty input and the 32-bit sizes refuse."""
+    return (_plane_unsupported(t, what, F32_F64)
+            or _level_unsupported(level))
 
 
 def swt2d_unsupported(x, fb, level):
@@ -427,8 +462,8 @@ def swt2d_fused(x, fb, level):
     _check_inputs("K8 (swt2d)", swt2d_unsupported(x, fb, level), x)
     lib = _build.load_library()
     a, h, v, d = (torch.empty_like(x) for _ in range(4))
-    lo, hi = _host_taps(fb.dec_lo), _host_taps(fb.dec_hi)
-    err = lib.pypwt_swt2d(
+    lo, hi = _taps(fb.dec_lo, x), _taps(fb.dec_hi, x)
+    err = _entry(lib, "pypwt_swt2d", x)(
         x.data_ptr(), a.data_ptr(), h.data_ptr(), v.data_ptr(), d.data_ptr(),
         _batch(x), x.shape[-2], x.shape[-1], level,
         conv.swt_centre(fb.hlen, False), lo.ctypes.data, hi.ctypes.data,
@@ -447,8 +482,8 @@ def iswt2d_fused(a, h, v, d, fb, level):
                   a, h, v, d)
     lib = _build.load_library()
     out = torch.empty_like(a)
-    lo, hi = _host_taps(fb.rec_lo), _host_taps(fb.rec_hi)
-    err = lib.pypwt_iswt2d(
+    lo, hi = _taps(fb.rec_lo, a), _taps(fb.rec_hi, a)
+    err = _entry(lib, "pypwt_iswt2d", a)(
         a.data_ptr(), h.data_ptr(), v.data_ptr(), d.data_ptr(),
         out.data_ptr(), _batch(a), a.shape[-2], a.shape[-1], level,
         conv.swt_centre(fb.hlen, True), lo.ctypes.data, hi.ctypes.data,

@@ -1,12 +1,21 @@
-"""K5 and K6: one separable 2D DWT level as banded products on the tensor
-cores (the port of ``pypwt_tpu.ops.mxu_dwt``'s 2D kernels).
+"""K5/K6 and K7a/K7b: one separable 2D DWT level and one batched-1D DWT
+level as banded products on the tensor cores (the port of
+``pypwt_tpu.ops.mxu_dwt``'s kernels).
 
 * K5 ``dwt2d_mxu_fused`` (``csrc/tc_dwt2d.cu``) replaces
   ``pypwt_tpu/ops/mxu_dwt.py::dwt2d_fused_mxu`` (``_build_dwt2d_mxu``): one
   analysis level, ``(B?, Nr, Nc)`` -> a, h, v, d of ``(B?, Nr/2, Nc/2)``;
 * K6 ``idwt2d_mxu_fused`` (same source) replaces ``::idwt2d_fused_mxu``
   (``_build_idwt2d_mxu``): one polyphase synthesis level -> ``(B?, 2Lr,
-  2Lc)``.
+  2Lc)``;
+* K7a ``dwt1d_mxu_fused`` (``csrc/tc_dwt1d.cu``) replaces
+  ``::dwt1d_fused_mxu`` (``_build_dwt1d_mxu``): one analysis level of rows
+  ``(R, n)`` or one signal ``(n,)`` -> a, d of ``(R?, n/2)``; K7b
+  ``idwt1d_mxu_fused`` (same source) replaces ``::idwt1d_fused_mxu``
+  (``_build_idwt1d_mxu``): its synthesis -> ``(R?, 2L)``.  One signal is a
+  ``(1, n)`` row, which covers JAX's folded long-signal forms
+  ``::dwt1d_long_fused_mxu`` / ``::idwt1d_long_fused_mxu`` (K15): their
+  fold fixed the TPU's lane layout.
 
 Each pass is the banded map of the JAX kernels: a block of ``b`` outputs
 of (lo, hi) is ``D (2b, K) @ xp[2bk : 2bk + K]`` (analysis) and of ``2m``
@@ -27,10 +36,11 @@ Two precisions (``core.dwt.set_mxu_precision``):
 The plain versions (``*_plain``) need full float32 matrix products
 (PyTorch's default, ``torch.backends.cuda.matmul.allow_tf32`` False).
 ``*_unsupported`` is JAX's coverage as shape and dtype logic: float32
-planes or stacks of even sizes and an even bank of 4..40 taps; the router
-(``core.dwt``) sends every other level to K1/K2.  A wrapper given a CPU
-tensor runs the plain version; given a CUDA tensor it launches the kernel
-or raises; ``launches`` counts its launches.
+planes or stacks of even sizes (rows of even length in 1D; a synthesis
+output of twice the coefficients) and an even bank of 4..40 taps; the
+router (``core.dwt``) sends every other level to K1/K2 or K3/K4.  A
+wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
+launches the kernel or raises; ``launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -44,7 +54,8 @@ from ..core import conv
 from ..filters import MAX_FILTER_WIDTH
 from . import _build
 from .fused_dwt import (_batch, _check_inputs, _check_launch, _host_taps,
-                        _plane_unsupported, _stream, subbands_unsupported)
+                        _pair_unsupported, _plane_unsupported, _rows,
+                        _rows_unsupported, _stream, subbands_unsupported)
 
 PRECISIONS = ("highest", "bf16")
 
@@ -203,6 +214,21 @@ def idwt2d_mxu_plain(a, h, v, d, fb, out_shape, prec="highest"):
     return _syn_last(t1, t2, fb, prec)
 
 
+def dwt1d_mxu_plain(x, fb, prec="highest"):
+    """K7a's map: one batched-1D analysis level as banded products along
+    the last axis -> (a, d), each ``(R?, n/2)``."""
+    check_precision(prec)
+    return _ana_last(x, fb, prec)
+
+
+def idwt1d_mxu_plain(a, d, fb, n_out, prec="highest"):
+    """K7b's map: one batched-1D polyphase synthesis level as banded
+    products -> ``(R?, 2L)``."""
+    check_precision(prec)
+    del n_out  # 2L: the coverage rule holds it
+    return _syn_last(a, d, fb, prec)
+
+
 # -- coverage and wrappers ---------------------------------------------------
 
 
@@ -237,6 +263,31 @@ def idwt2d_mxu_unsupported(a, h, v, d, fb, out_shape):
     want = (2 * a.shape[-2], 2 * a.shape[-1])
     if tuple(out_shape[-2:]) != want:
         return f"output {tuple(out_shape[-2:])} (twice the coefficients: {want})"
+    return None
+
+
+def dwt1d_mxu_unsupported(x, fb):
+    """Why K7a cannot take ``x`` with bank ``fb``, or None if it can (JAX's
+    ``_build_dwt1d_mxu``: float32, an even row length, an even bank of 4 or
+    more taps)."""
+    why = _rows_unsupported(x, "input") or _even_bank_unsupported(fb)
+    if why:
+        return why
+    if x.shape[-1] % 2:
+        return f"{x.shape[-1]} samples per row (an even length only)"
+    return None
+
+
+def idwt1d_mxu_unsupported(a, d, fb, n_out):
+    """Why K7b cannot take these coefficients, or None if it can (JAX's
+    ``_build_idwt1d_mxu``: an output of exactly twice their length)."""
+    why = (_rows_unsupported(a, "coefficient") or _pair_unsupported(a, d)
+           or _even_bank_unsupported(fb))
+    if why:
+        return why
+    if n_out != 2 * a.shape[-1]:
+        return f"output of {n_out} samples (twice the coefficients: " \
+               f"{2 * a.shape[-1]})"
     return None
 
 
@@ -285,7 +336,52 @@ def idwt2d_mxu_fused(a, h, v, d, fb, out_shape, prec="highest"):
     return out
 
 
-KERNELS = (dwt2d_mxu_fused, idwt2d_mxu_fused)
+def dwt1d_mxu_fused(x, fb, prec="highest"):
+    """K7a: one batched-1D analysis level on the tensor cores -> (a, d),
+    each ``(R?, n/2)``.  CPU tensor: the plain version."""
+    check_precision(prec)
+    if x.device.type == "cpu":
+        return dwt1d_mxu_plain(x, fb, prec)
+    _check_inputs("K7a (dwt1d_mxu)", dwt1d_mxu_unsupported(x, fb), x)
+    lib = _build.load_library()
+    n = x.shape[-1]
+    shape = (*x.shape[:-1], n // 2)
+    a, d = (torch.empty(shape, dtype=x.dtype, device=x.device)
+            for _ in range(2))
+    lo, hi = _host_taps(fb.dec_lo), _host_taps(fb.dec_hi)
+    err = lib.pypwt_tc_dwt1d(
+        x.data_ptr(), a.data_ptr(), d.data_ptr(), _rows(x), n,
+        lo.ctypes.data, hi.ctypes.data, fb.hlen, int(prec == "bf16"),
+        x.device.index, _stream(x))
+    _check_launch(lib, err, "K7a (dwt1d_mxu)")
+    dwt1d_mxu_fused.launches += 1
+    return a, d
+
+
+def idwt1d_mxu_fused(a, d, fb, n_out, prec="highest"):
+    """K7b: one batched-1D synthesis level on the tensor cores ->
+    ``(R?, 2L)``.  CPU tensors: the plain version."""
+    check_precision(prec)
+    if a.device.type == "cpu":
+        return idwt1d_mxu_plain(a, d, fb, n_out, prec)
+    _check_inputs("K7b (idwt1d_mxu)",
+                  idwt1d_mxu_unsupported(a, d, fb, n_out), a, d)
+    lib = _build.load_library()
+    length = a.shape[-1]
+    out = torch.empty((*a.shape[:-1], 2 * length), dtype=a.dtype,
+                      device=a.device)
+    lo, hi = _host_taps(fb.rec_lo), _host_taps(fb.rec_hi)
+    err = lib.pypwt_tc_idwt1d(
+        a.data_ptr(), d.data_ptr(), out.data_ptr(), _rows(a), length,
+        lo.ctypes.data, hi.ctypes.data, fb.hlen, int(prec == "bf16"),
+        a.device.index, _stream(a))
+    _check_launch(lib, err, "K7b (idwt1d_mxu)")
+    idwt1d_mxu_fused.launches += 1
+    return out
+
+
+KERNELS = (dwt2d_mxu_fused, idwt2d_mxu_fused, dwt1d_mxu_fused,
+           idwt1d_mxu_fused)
 
 # counts start at 0; ``ops.reset_counts`` zeroes them with the others
 for _k in KERNELS:

@@ -1,6 +1,6 @@
-"""K11a and K11b: one separable 2D stationary (a-trous) level and its
-inverse as banded products on the tensor cores (the port of
-``pypwt_tpu.ops.mxu_swt``'s 2D kernels).
+"""K11a/K11b and K12a/K12b: one separable 2D and one batched-1D stationary
+(a-trous) level and their inverses as banded products on the tensor cores
+(the port of ``pypwt_tpu.ops.mxu_swt``'s kernels).
 
 * K11a ``swt2d_mxu_fused`` (``csrc/tc_swt2d.cu``) replaces
   ``pypwt_tpu/ops/mxu_swt.py::swt2d_level_fused_mxu``
@@ -8,7 +8,14 @@ inverse as banded products on the tensor cores (the port of
   input's shape ``(B?, Nr, Nc)``;
 * K11b ``iswt2d_mxu_fused`` (same source) replaces
   ``::iswt2d_level_fused_mxu`` (``_build_iswt2d_mxu``): its inverse, 1/2
-  per axis pass.
+  per axis pass;
+* K12a ``swt1d_mxu_fused`` (``csrc/tc_swt1d.cu``) replaces
+  ``::swt1d_level_fused_mxu`` (``_build_swt1d_mxu``): one level of rows
+  ``(R, n)`` or one signal ``(n,)`` -> a, d of its shape; K12b
+  ``iswt1d_mxu_fused`` (same source) replaces ``::iswt1d_level_fused_mxu``
+  (``_build_iswt1d_mxu``): its inverse, one 1/2.  One signal is a
+  ``(1, n)`` row, which covers JAX's folded forms
+  ``::swt1d_long_fused_mxu`` / ``::iswt1d_long_fused_mxu`` (K15).
 
 Each pass is the banded dilated map of the JAX kernels: a block of ``b``
 outputs of (lo, hi) is ``D (2b, K) @ xp[bq : bq + K]``, ``K = b +
@@ -23,10 +30,11 @@ the compact level-1 one at every level.  The matrix functions are copies
 of JAX's (float64 numpy, cast once to float32).  Precisions and the
 CPU/CUDA rule as in ``ops.mxu_dwt``.
 
-``*_unsupported`` covers at least what JAX covers: float32 planes or
-stacks, any bank of up to 40 taps, any level whose dilated support fits
-in the plane (JAX refuses a wider one, ``mxu_swt.py:339-341``, and so does
-this port); the router (``core.swt``) sends every other level to K8/K9.
+``*_unsupported`` covers at least what JAX covers: float32 planes, stacks
+or rows, any bank of up to 40 taps, any level whose dilated support fits
+in the plane or row (JAX refuses a wider one, ``mxu_swt.py:339-341``,
+``:511-513``, ``:577-579``, and so does this port); the router
+(``core.swt``) sends every other level to K8/K9 or K10.
 """
 
 from __future__ import annotations
@@ -36,8 +44,10 @@ import torch
 
 from ..core import conv
 from . import _build
-from .fused_dwt import (_batch, _check_inputs, _check_launch, _host_taps,
-                        _stream, iswt2d_unsupported, swt2d_unsupported)
+from .fused_dwt import (F32, _batch, _check_inputs, _check_launch,
+                        _dtype_unsupported, _host_taps, _rows, _stream,
+                        iswt1d_unsupported, iswt2d_unsupported,
+                        swt1d_unsupported, swt2d_unsupported)
 from .mxu_dwt import check_precision, matrix, operand
 
 _BLOCK = 64  # outputs per banded block of the plain versions
@@ -159,25 +169,64 @@ def iswt2d_mxu_plain(a, h, v, d, fb, level, prec="highest"):
     return _swt_syn_last(t1, t2, fb, level, prec)
 
 
-def _support_unsupported(t, fb, level, inverse):
-    nr, nc = t.shape[-2:]
+def _support_unsupported(t, fb, level, inverse, ndim=2):
+    """Why the dilated support of ``level`` passes the last ``ndim`` axes
+    of ``t`` (the plane, or the row), or None."""
+    sizes = tuple(t.shape[-ndim:])
     lp, rp = _pads(fb.hlen, level, inverse)
-    if max(lp, rp) > min(nr, nc):
+    if max(lp, rp) > min(sizes):
+        what = (f"the plane {sizes[0]} x {sizes[1]}" if ndim == 2
+                else f"the row of {sizes[0]} samples")
         return (f"dilated support of level {level} ({max(lp, rp)} samples) "
-                f"wider than the plane {nr} x {nc}")
+                f"wider than {what}")
     return None
+
+
+def _float32_unsupported(t, what):
+    return _dtype_unsupported(t, what, F32)
 
 
 def swt2d_mxu_unsupported(x, fb, level):
     """Why K11a cannot take ``x`` at ``level``, or None if it can."""
-    return (swt2d_unsupported(x, fb, level)
+    return (_float32_unsupported(x, "input")
+            or swt2d_unsupported(x, fb, level)
             or _support_unsupported(x, fb, level, False))
 
 
 def iswt2d_mxu_unsupported(a, h, v, d, fb, level):
     """Why K11b cannot take these coefficients, or None if it can."""
-    return (iswt2d_unsupported(a, h, v, d, fb, level)
+    return (_float32_unsupported(a, "coefficient")
+            or iswt2d_unsupported(a, h, v, d, fb, level)
             or _support_unsupported(a, fb, level, True))
+
+
+def swt1d_mxu_unsupported(x, fb, level):
+    """Why K12a cannot take rows ``x`` at ``level``, or None if it can
+    (JAX's ``swt1d_level_fused_mxu``: float32, the dilated support within
+    the row)."""
+    return (_float32_unsupported(x, "input")
+            or swt1d_unsupported(x, fb, level)
+            or _support_unsupported(x, fb, level, False, 1))
+
+
+def iswt1d_mxu_unsupported(a, d, fb, level):
+    """Why K12b cannot take these coefficients, or None if it can."""
+    return (_float32_unsupported(a, "coefficient")
+            or iswt1d_unsupported(a, d, fb, level)
+            or _support_unsupported(a, fb, level, True, 1))
+
+
+def swt1d_mxu_plain(x, fb, level, prec="highest"):
+    """K12a's map: one batched-1D stationary analysis level as banded
+    products along the last axis -> (a, d), each of the input's shape."""
+    check_precision(prec)
+    return _swt_ana_last(x, fb, level, prec)
+
+
+def iswt1d_mxu_plain(a, d, fb, level, prec="highest"):
+    """K12b's map: its inverse as banded products (one 1/2)."""
+    check_precision(prec)
+    return _swt_syn_last(a, d, fb, level, prec)
 
 
 def swt2d_mxu_fused(x, fb, level, prec="highest"):
@@ -221,7 +270,49 @@ def iswt2d_mxu_fused(a, h, v, d, fb, level, prec="highest"):
     return out
 
 
-KERNELS = (swt2d_mxu_fused, iswt2d_mxu_fused)
+def swt1d_mxu_fused(x, fb, level, prec="highest"):
+    """K12a: one batched-1D stationary analysis level on the tensor cores ->
+    (a, d), each of the input's shape.  CPU tensor: the plain version."""
+    check_precision(prec)
+    if x.device.type == "cpu":
+        return swt1d_mxu_plain(x, fb, level, prec)
+    _check_inputs("K12a (swt1d_mxu)", swt1d_mxu_unsupported(x, fb, level), x)
+    lib = _build.load_library()
+    a, d = torch.empty_like(x), torch.empty_like(x)
+    lo, hi = _host_taps(fb.dec_lo), _host_taps(fb.dec_hi)
+    err = lib.pypwt_tc_swt1d(
+        x.data_ptr(), a.data_ptr(), d.data_ptr(), _rows(x), x.shape[-1],
+        level, conv.swt_centre(fb.hlen, False), lo.ctypes.data,
+        hi.ctypes.data, fb.hlen, int(prec == "bf16"), x.device.index,
+        _stream(x))
+    _check_launch(lib, err, "K12a (swt1d_mxu)")
+    swt1d_mxu_fused.launches += 1
+    return a, d
+
+
+def iswt1d_mxu_fused(a, d, fb, level, prec="highest"):
+    """K12b: one batched-1D stationary synthesis level on the tensor cores
+    -> the coefficients' shape.  CPU tensors: the plain version."""
+    check_precision(prec)
+    if a.device.type == "cpu":
+        return iswt1d_mxu_plain(a, d, fb, level, prec)
+    _check_inputs("K12b (iswt1d_mxu)",
+                  iswt1d_mxu_unsupported(a, d, fb, level), a, d)
+    lib = _build.load_library()
+    out = torch.empty_like(a)
+    lo, hi = _host_taps(fb.rec_lo), _host_taps(fb.rec_hi)
+    err = lib.pypwt_tc_iswt1d(
+        a.data_ptr(), d.data_ptr(), out.data_ptr(), _rows(a), a.shape[-1],
+        level, conv.swt_centre(fb.hlen, True), lo.ctypes.data,
+        hi.ctypes.data, fb.hlen, int(prec == "bf16"), a.device.index,
+        _stream(a))
+    _check_launch(lib, err, "K12b (iswt1d_mxu)")
+    iswt1d_mxu_fused.launches += 1
+    return out
+
+
+KERNELS = (swt2d_mxu_fused, iswt2d_mxu_fused, swt1d_mxu_fused,
+           iswt1d_mxu_fused)
 
 # counts start at 0; ``ops.reset_counts`` zeroes them with the others
 for _k in KERNELS:

@@ -18,11 +18,14 @@ lowers no dense 2D stencil; the Hopper kernels are the direct stencils and
 need no factoring.  Beside each kernel, as in ``ops.fused_dwt``: its plain
 PyTorch version (the slice formulation of ``pypwt_tpu.core.nonsep``, at
 every hlen: no convolution, so no cuDNN and no TF32), ``*_unsupported``
-and the ``launches`` count.  Each kernel takes every float32 level its
-plain version takes (odd sizes, odd filter sizes, any batch).  A wrapper
-given a CPU tensor runs the plain version; given a CUDA tensor it launches
-the kernel or raises.  The bank goes to the kernel by value, rounded once
-to float32.
+and the ``launches`` count.  Each kernel takes every float32 or float64
+level its plain version takes (odd sizes, odd filter sizes, any batch).  A
+wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
+launches the kernel or raises.  A float32 level's bank goes to the kernel
+by value, rounded once to float32; a float64 level's (51,200 bytes at hlen
+40, past CUDA's parameter limit) is laid out by the library
+(``pypwt_ns_bank_f64``) from the bank's float64 values and uploaded once
+per bank and device.
 """
 
 from __future__ import annotations
@@ -35,9 +38,10 @@ from ..core.conv import (_as_taps, _odd_extend_2d, _pad2_periodic,
 from ..core.shapes import div2
 from ..filters import MAX_FILTER_WIDTH
 from . import _build
-from .fused_dwt import (_batch, _check_inputs, _check_launch,
-                        _pair_unsupported, _plane_unsupported, _stream,
-                        subbands_unsupported, swt2d_plane_unsupported)
+from .fused_dwt import (F32_F64, _batch, _check_inputs, _check_launch,
+                        _entry, _pair_unsupported, _plane_unsupported,
+                        _stream, subbands_unsupported,
+                        swt2d_plane_unsupported)
 
 
 def _weights(F, dtype):
@@ -186,12 +190,13 @@ def _filter_unsupported(f2d):
 
 def nsdwt2d_unsupported(x, f2d):
     """Why K16 cannot take ``x``, or None if it can."""
-    return _plane_unsupported(x, "input") or _filter_unsupported(f2d)
+    return (_plane_unsupported(x, "input", F32_F64)
+            or _filter_unsupported(f2d))
 
 
 def insdwt2d_unsupported(a, h, v, d, f2d, out_shape):
     """Why K17 cannot take these subbands, or None if it can."""
-    return (subbands_unsupported(a, h, v, d, out_shape)
+    return (subbands_unsupported(a, h, v, d, out_shape, F32_F64)
             or _filter_unsupported(f2d))
 
 
@@ -213,17 +218,41 @@ def ins_swt2d_unsupported(a, h, v, d, f2d, level):
 
 
 _HOST_BANKS: dict = {}
+_DEVICE_BANKS: dict = {}
+
+# pypwt_ns_bank_f64's layouts, by kernel
+_LAYOUTS = {"K16": 0, "K17": 1, "K18a": 2, "K18b": 3}
 
 
-def _host_bank(filters):
-    """The four filters as one float32 array [b][k][l], rounded once and
-    cached by value so that the pointer handed to the kernel stays alive."""
+def _host_bank(filters, dtype=np.float32):
+    """The four filters as one array [b][k][l] of ``dtype`` (float32:
+    rounded once; float64: the values as they are), cached by value so that
+    the pointer handed to the kernel stays alive."""
     f = np.ascontiguousarray(np.stack(filters), dtype=np.float64)
-    key = f.tobytes()
+    key = (f.tobytes(), f.shape, np.dtype(dtype).str)
     t = _HOST_BANKS.get(key)
     if t is None:
-        t = _HOST_BANKS[key] = np.ascontiguousarray(f.astype(np.float32))
+        t = _HOST_BANKS[key] = np.ascontiguousarray(f.astype(dtype))
     return t
+
+
+def _bank_arg(lib, filters, kernel, like):
+    """The bank argument of ``kernel`` for a level of ``like``: the host
+    float32 bank (passed by value), or for float64 the device copy of the
+    kernel's layout, made once per bank and device."""
+    if like.dtype != torch.float64:
+        return _host_bank(filters).ctypes.data
+    f = _host_bank(filters, np.float64)
+    key = (f.tobytes(), f.shape, kernel, str(like.device))
+    t = _DEVICE_BANKS.get(key)
+    if t is None:
+        hlen = f.shape[-1]
+        host = np.empty(4 * hlen * hlen, np.float64)
+        err = lib.pypwt_ns_bank_f64(f.ctypes.data, hlen, _LAYOUTS[kernel],
+                                    host.ctypes.data)
+        _check_launch(lib, err, f"{kernel} float64 bank")
+        t = _DEVICE_BANKS[key] = torch.from_numpy(host).to(like.device)
+    return t.data_ptr()
 
 
 def nsdwt2d_fused(x, f2d):
@@ -237,11 +266,10 @@ def nsdwt2d_fused(x, f2d):
     shape = (*x.shape[:-2], div2(nr), div2(nc))
     a, h, v, d = (torch.empty(shape, dtype=x.dtype, device=x.device)
                   for _ in range(4))
-    bank = _host_bank(f2d.dec)
-    err = lib.pypwt_ns_dwt2d(
+    bank = _bank_arg(lib, f2d.dec, "K16", x)
+    err = _entry(lib, "pypwt_ns_dwt2d", x)(
         x.data_ptr(), a.data_ptr(), h.data_ptr(), v.data_ptr(), d.data_ptr(),
-        _batch(x), nr, nc, bank.ctypes.data, f2d.hlen, x.device.index,
-        _stream(x))
+        _batch(x), nr, nc, bank, f2d.hlen, x.device.index, _stream(x))
     _check_launch(lib, err, "K16 (nsdwt2d)")
     nsdwt2d_fused.launches += 1
     return a, h, v, d
@@ -258,11 +286,11 @@ def insdwt2d_fused(a, h, v, d, f2d, out_shape):
     lib = _build.load_library()
     nr, nc = out_shape[-2], out_shape[-1]
     out = torch.empty((*a.shape[:-2], nr, nc), dtype=a.dtype, device=a.device)
-    bank = _host_bank(f2d.rec)
-    err = lib.pypwt_ins_dwt2d(
+    bank = _bank_arg(lib, f2d.rec, "K17", a)
+    err = _entry(lib, "pypwt_ins_dwt2d", a)(
         a.data_ptr(), h.data_ptr(), v.data_ptr(), d.data_ptr(),
-        out.data_ptr(), _batch(a), a.shape[-2], a.shape[-1], nr, nc,
-        bank.ctypes.data, f2d.hlen, a.device.index, _stream(a))
+        out.data_ptr(), _batch(a), a.shape[-2], a.shape[-1], nr, nc, bank,
+        f2d.hlen, a.device.index, _stream(a))
     _check_launch(lib, err, name)
     insdwt2d_fused.launches += 1
     return out
@@ -277,12 +305,12 @@ def ns_swt2d_fused(x, f2d, level):
     _check_inputs("K18a (ns_swt2d)", ns_swt2d_unsupported(x, f2d, level), x)
     lib = _build.load_library()
     a, h, v, d = (torch.empty_like(x) for _ in range(4))
-    bank = _host_bank(f2d.dec)
-    err = lib.pypwt_ns_swt2d(
+    bank = _bank_arg(lib, f2d.dec, "K18a", x)
+    err = _entry(lib, "pypwt_ns_swt2d", x)(
         x.data_ptr(), a.data_ptr(), h.data_ptr(), v.data_ptr(), d.data_ptr(),
         _batch(x), x.shape[-2], x.shape[-1], level,
-        swt_centre(f2d.hlen, False), bank.ctypes.data, f2d.hlen,
-        x.device.index, _stream(x))
+        swt_centre(f2d.hlen, False), bank, f2d.hlen, x.device.index,
+        _stream(x))
     _check_launch(lib, err, "K18a (ns_swt2d)")
     ns_swt2d_fused.launches += 1
     return a, h, v, d
@@ -298,12 +326,12 @@ def ins_swt2d_fused(a, h, v, d, f2d, level):
                   a, h, v, d)
     lib = _build.load_library()
     out = torch.empty_like(a)
-    bank = _host_bank(f2d.rec)
-    err = lib.pypwt_ins_swt2d(
+    bank = _bank_arg(lib, f2d.rec, "K18b", a)
+    err = _entry(lib, "pypwt_ins_swt2d", a)(
         a.data_ptr(), h.data_ptr(), v.data_ptr(), d.data_ptr(),
         out.data_ptr(), _batch(a), a.shape[-2], a.shape[-1], level,
-        swt_centre(f2d.hlen, True), bank.ctypes.data, f2d.hlen,
-        a.device.index, _stream(a))
+        swt_centre(f2d.hlen, True), bank, f2d.hlen, a.device.index,
+        _stream(a))
     _check_launch(lib, err, name)
     ins_swt2d_fused.launches += 1
     return out

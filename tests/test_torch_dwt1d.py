@@ -254,7 +254,8 @@ def test_k3_coverage_rules():
     assert fd.dwt1d_unsupported(torch.zeros(LONG), fb) is None
     assert fd.dwt1d_unsupported(torch.zeros(2), get_filter_bank("sym20")) \
         is None
-    assert "float32" in fd.dwt1d_unsupported(ok.double(), fb)
+    assert fd.dwt1d_unsupported(ok.double(), fb) is None
+    assert "float32" in fd.dwt1d_unsupported(ok.half(), fb)
     assert fd.dwt1d_unsupported(torch.zeros(8, 127), fb) is None
     assert fd.dwt1d_unsupported(torch.zeros(1), fb) is None
     assert "rank" in fd.dwt1d_unsupported(torch.zeros(2, 8, 128), fb)
@@ -275,5 +276,5 @@ def test_k4_coverage_rules():
     assert "empty" in fd.idwt1d_unsupported(a, d, fb, 0)
     assert "shapes" in fd.idwt1d_unsupported(a, torch.zeros(8, 63), fb, 128)
     assert "dtypes" in fd.idwt1d_unsupported(a, d.double(), fb, 128)
-    assert "float32" in fd.idwt1d_unsupported(a.double(), d.double(), fb,
-                                              128)
+    assert fd.idwt1d_unsupported(a.double(), d.double(), fb, 128) is None
+    assert "float32" in fd.idwt1d_unsupported(a.half(), d.half(), fb, 128)

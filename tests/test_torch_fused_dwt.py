@@ -102,14 +102,15 @@ def test_set_kernels_rejects_unknown():
 
 
 def test_k1_coverage_rules():
-    """K1 takes every float32 level its plain version takes: odd sizes and
-    odd filter lengths included, no grid limit; only dtype, rank, an empty
-    plane and an over-long filter refuse."""
+    """K1 takes every float32 or float64 level its plain version takes:
+    odd sizes and odd filter lengths included, no grid limit; only dtype,
+    rank, an empty plane and an over-long filter refuse."""
     fb = get_filter_bank("db2")
     ok = torch.zeros(64, 128)
     assert fd.dwt2d_unsupported(ok, fb) is None
     assert fd.dwt2d_unsupported(torch.zeros(3, 64, 128), fb) is None
-    assert "float32" in fd.dwt2d_unsupported(ok.double(), fb)
+    assert fd.dwt2d_unsupported(ok.double(), fb) is None
+    assert "float32 or float64" in fd.dwt2d_unsupported(ok.half(), fb)
     assert fd.dwt2d_unsupported(torch.zeros(63, 128), fb) is None
     assert fd.dwt2d_unsupported(torch.zeros(64, 127), fb) is None
     assert fd.dwt2d_unsupported(torch.zeros(1, 1), fb) is None
@@ -130,8 +131,12 @@ def test_k2_coverage_rules():
     assert fd.idwt2d_unsupported(*c, fb, (64, 127)) is None
     assert "shapes" in fd.idwt2d_unsupported(*c[:3], torch.zeros(32, 63), fb,
                                              (64, 128))
+    assert fd.idwt2d_unsupported(*(s.double() for s in c), fb,
+                                 (64, 128)) is None
     assert "float32" in fd.idwt2d_unsupported(
-        *(s.double() for s in c), fb, (64, 128))
+        *(s.half() for s in c), fb, (64, 128))
+    assert "dtypes" in fd.idwt2d_unsupported(*c[:3], c[3].double(), fb,
+                                             (64, 128))
     one = FilterBank("one", *(np.ones(1) for _ in range(4)))
     assert "filter length" in fd.idwt2d_unsupported(*c, one, (64, 128))
 

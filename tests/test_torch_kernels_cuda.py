@@ -1,9 +1,10 @@
 """K1/K2, K3/K4, K10a/K10b, K8/K9, K16/K17, K18a/K18b, K19/K20 and the
-tensor-core forms K5/K6 and K11a/K11b (both precisions) against their
-plain versions on the GPU, at small sizes (the kernel phase of
-chip_smoke.py), odd sizes and odd filter lengths included, plus the
-auto/cuda/mxu routing on CUDA tensors, the Wavelets plans and the
-denoising pipelines on the card.
+tensor-core forms K5/K6, K7a/K7b, K11a/K11b and K12a/K12b (both
+precisions) against their plain versions on the GPU, at small sizes (the
+kernel phase of chip_smoke.py), odd sizes and odd filter lengths included;
+the float64 instances of the tap-loop kernels against their float64 plain
+versions; plus the auto/cuda/mxu routing on CUDA tensors, the Wavelets
+plans (float64 ones included) and the denoising pipelines on the card.
 
 Needs an NVIDIA GPU and nvcc; skips without a GPU.  Imports no JAX, and
 needs none of the conftest's JAX set-up, so on the GPU run it without it:
@@ -87,16 +88,22 @@ def test_k2_matches_plain(dev, wname, shape):
 @pytest.mark.parametrize("shape, dtype", [((31, 22), torch.float32),
                                           ((64, 64), torch.float64)])
 def test_auto_declines_uncovered_levels(dev, shape, dtype):
-    """No level is declined: an odd float32 plane launches K1, float64
-    raises in modes "auto" and "cuda", and mode "torch" runs the plain
-    version on the device."""
+    """No level is declined: an odd float32 plane launches K1, a float64
+    one its float64 instance, float16 raises in modes "auto" and "cuda",
+    and mode "torch" runs the plain version on the device."""
     fb = get_filter_bank("db2")
     x = _rand(shape, dev).to(dtype)
     ops.reset_counts()
+    got = dwt.dwt2d(x, fb)
+    for g, r in zip(got, fd.dwt2d_plain(x, fb)):
+        assert g.dtype == dtype
+        assert float((g - r).abs().max()) <= (
+            TOL if dtype == torch.float32 else 1e-12)
+    assert fd.dwt2d_fused.launches == 1
     if dtype == torch.float32:
-        _close(dwt.dwt2d(x, fb), fd.dwt2d_plain(x, fb))
-        assert fd.dwt2d_fused.launches == 1
         return
+    x = x.half()
+    ops.reset_counts()
     for mode in ("auto", "cuda"):
         dwt.set_kernels(mode)
         try:
@@ -174,16 +181,22 @@ def test_k10_match_plain(dev, wname, shape, level):
 @pytest.mark.parametrize("shape, dtype", [((4, 31), torch.float32),
                                           ((4, 64), torch.float64)])
 def test_auto_declines_uncovered_1d_levels(dev, shape, dtype):
-    """An odd float32 row launches K3; float64 raises."""
+    """An odd float32 row launches K3, a float64 one its float64 instance;
+    float16 raises."""
     fb = get_filter_bank("db2")
     x = _rand(shape, dev).to(dtype)
     ops.reset_counts()
+    got = dwt.dwt1d(x, fb)
+    for g, r in zip(got, fd.dwt1d_plain(x, fb)):
+        assert g.dtype == dtype
+        assert float((g - r).abs().max()) <= (
+            TOL if dtype == torch.float32 else 1e-12)
+    assert fd.dwt1d_fused.launches == 1
     if dtype == torch.float32:
-        _close(dwt.dwt1d(x, fb), fd.dwt1d_plain(x, fb))
-        assert fd.dwt1d_fused.launches == 1
         return
+    ops.reset_counts()
     with pytest.raises(ValueError, match="does not cover"):
-        dwt.dwt1d(x, fb)
+        dwt.dwt1d(x.half(), fb)
     assert fd.dwt1d_fused.launches == 0
 
 
@@ -308,14 +321,27 @@ ROUTES_2D_SWT = {
 
 @pytest.mark.parametrize("route", sorted(ROUTES_2D_SWT))
 def test_2d_swt_routes_raise_on_float64(dev, route):
-    """No kernel declines: float64 on the card raises in mode "auto", and
-    mode "torch" runs the plain version on the device."""
+    """No kernel declines: float64 on the card runs on the kernel's float64
+    instance in mode "auto" (K19/K20, float32 only, raise), float16 raises,
+    and mode "torch" runs the plain version on the device."""
     call = ROUTES_2D_SWT[route]
     fb, f2d = get_filter_bank("db2"), _f2d("db3xcoif1")
     x = _rand((16, 24), dev).double()
     ops.reset_counts()
-    with pytest.raises(ValueError, match="float64"):
-        call(x, fb, f2d)
+    if route in ("K19", "K20"):
+        with pytest.raises(ValueError, match="float64"):
+            call(x, fb, f2d)
+    else:
+        got = call(x, fb, f2d)
+        want = call(x.cpu(), fb, f2d)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert g.dtype == torch.float64
+            assert float((g.cpu() - w).abs().max()) <= 1e-12
+        assert sum(k.launches for k in ops.KERNELS) == 1
+        ops.reset_counts()
+        with pytest.raises(ValueError, match="float16"):
+            call(x.half(), fb, f2d)
     dwt.set_kernels("torch")
     try:
         got = call(x, fb, f2d)
@@ -366,8 +392,11 @@ def test_non_factorable_dwt_level_raises_on_cuda(dev):
     W.inverse()
     assert np.abs(W.image - x.cpu().numpy()).max() < 7e-4
     assert (kn.nsdwt2d_fused.launches, kn.insdwt2d_fused.launches) == (3, 3)
-    with pytest.raises(ValueError, match="float64"):
-        nonsep.nsdwt2d(x.double(), f2d)
+    xd = x.double()
+    _close(nonsep.nsdwt2d(xd, f2d), kn.nsdwt2d_plain(xd, f2d))
+    assert kn.nsdwt2d_fused.launches == 4
+    with pytest.raises(ValueError, match="float16"):
+        nonsep.nsdwt2d(x.half(), f2d)
 
 
 @pytest.mark.parametrize("name", ["db3xcoif1", "dense8", "dense5"])
@@ -613,7 +642,7 @@ def test_mxu_mode_stack_and_bf16_gate(dev, prec):
 def test_mxu_mode_sends_uncovered_levels_to_jax_route(dev, case):
     """Mode "mxu" sends what K5/K6/K11 do not cover where JAX sends it:
     hlen 2 and odd planes to K1/K2, a dilated support wider than the plane
-    to K8/K9; float64 raises."""
+    to K8/K9; float64 to K1/K2's float64 instances."""
     fb = get_filter_bank("haar" if case == "haar" else "sym8")
     shape = (31, 22) if case == "odd-plane" else (32, 48)
     x = _rand(shape, dev)
@@ -621,9 +650,12 @@ def test_mxu_mode_sends_uncovered_levels_to_jax_route(dev, case):
         _mxu("mxu")
         ops.reset_counts()
         if case == "float64":
-            with pytest.raises(ValueError, match="float64"):
-                dwt.dwt2d(x.double(), fb)
-            assert sum(k.launches for k in ops.KERNELS) == 0
+            xd = x.double()
+            c = dwt.dwt2d(xd, fb)
+            _close(c, fd.dwt2d_plain(xd, fb))
+            _close(dwt.idwt2d(*c, fb, shape), fd.idwt2d_plain(*c, fb, shape))
+            assert {k.__name__: k.launches for k in ops.KERNELS
+                    if k.launches} == {"dwt2d_fused": 1, "idwt2d_fused": 1}
             return
         if case == "wide-support":
             _close(swt.swt2d_level(x, fb, 4), fd.swt2d_plain(x, fb, 4))
@@ -636,3 +668,210 @@ def test_mxu_mode_sends_uncovered_levels_to_jax_route(dev, case):
     finally:
         _mxu("auto")
     assert {k.__name__: k.launches for k in ops.KERNELS if k.launches} == want
+
+
+# -- the 1D tensor-core forms K7a/K7b, K12a/K12b -----------------------------
+
+SHAPES_MXU_1D = [(8, 256), (3, 130), (1, 4096), (5, 16), (2, 2), (300, 8),
+                 (2048, 2048), (1, 4 * 1024 * 1024)]
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+@pytest.mark.parametrize("wname", ["db2", "sym8", "db10", "sym20"])
+@pytest.mark.parametrize("shape", SHAPES_MXU_1D, ids=str)
+def test_k7_match_plain(dev, wname, shape, prec):
+    fb = get_filter_bank(wname)
+    x = _rand(shape, dev)
+    n = km.dwt1d_mxu_fused.launches + km.idwt1d_mxu_fused.launches
+    _close_prec(km.dwt1d_mxu_fused(x, fb, prec),
+                km.dwt1d_mxu_plain(x, fb, prec), prec)
+    cshape = (*shape[:-1], shape[-1] // 2)
+    a, d = _rand(cshape, dev, 1), _rand(cshape, dev, 2)
+    _close_prec(km.idwt1d_mxu_fused(a, d, fb, shape[-1], prec),
+                km.idwt1d_mxu_plain(a, d, fb, shape[-1], prec), prec)
+    assert km.dwt1d_mxu_fused.launches + km.idwt1d_mxu_fused.launches == n + 2
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+@pytest.mark.parametrize("wname", ["haar", "db2", "sym8", "odd5", "sym20"])
+@pytest.mark.parametrize("shape", SHAPES_MXU_1D + [(2, 37)], ids=str)
+@pytest.mark.parametrize("level", [1, 2, 3, 4])
+def test_k12_match_plain(dev, wname, shape, level, prec):
+    """Every level whose support fits in the row runs on K12a/K12b; a wider
+    one is refused before launch."""
+    fb = _bank(wname)
+    x = _rand(shape, dev)
+    a, d = _rand(shape, dev, 1), _rand(shape, dev, 2)
+    n = kms.swt1d_mxu_fused.launches + kms.iswt1d_mxu_fused.launches
+    if kms.swt1d_mxu_unsupported(x, fb, level):
+        with pytest.raises(ValueError, match="wider than the row"):
+            kms.swt1d_mxu_fused(x, fb, level, prec)
+        return
+    _close_prec(kms.swt1d_mxu_fused(x, fb, level, prec),
+                kms.swt1d_mxu_plain(x, fb, level, prec), prec)
+    _close_prec(kms.iswt1d_mxu_fused(a, d, fb, level, prec),
+                kms.iswt1d_mxu_plain(a, d, fb, level, prec), prec)
+    assert (kms.swt1d_mxu_fused.launches
+            + kms.iswt1d_mxu_fused.launches) == n + 2
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+@pytest.mark.parametrize("shape", [(2048,), (16, 512)],
+                         ids=["single", "batched"])
+@pytest.mark.parametrize("do_swt", [0, 1], ids=["dwt", "swt"])
+def test_mxu_mode_1d_plans(dev, shape, do_swt, prec):
+    """Wavelets sym8 L3 in 1D in mode "mxu": every level on K7a/K7b or
+    K12a/K12b (3 + 3 launches, none of K3/K4/K10), "highest" within the
+    reference envelope of the CPU plan, "bf16" within JAX's loose gate."""
+    img = (np.random.default_rng(0).random(shape) * 255).astype(np.float32)
+    kw = dict(do_swt=do_swt, ndim=1 if len(shape) == 2 else 2)
+    ref = Wavelets(img, "sym8", 3, device="cpu", **kw).forward()
+    try:
+        _mxu("mxu", prec)
+        ops.reset_counts()
+        W = Wavelets(img, "sym8", 3, device=dev, **kw).forward()
+        coeffs = W.coeffs
+        W.inverse()
+    finally:
+        _mxu("auto")
+    for lev, (g, r) in enumerate(zip(coeffs, ref.coeffs)):
+        lev = lev or 3
+        if prec == "highest":
+            assert np.abs(g - r).max() <= 3e-4 * 2 ** lev
+        else:
+            assert np.sqrt(np.mean((g - r) ** 2)) <= (
+                0.01 * 2 ** (lev - 1) * np.sqrt(np.mean(r ** 2)))
+    err = W.image.reshape(img.shape) - img
+    if prec == "highest":
+        assert np.abs(err).max() < 7e-4
+    else:
+        assert np.sqrt(np.mean(err ** 2)) <= 0.04 * np.sqrt(np.mean(img ** 2))
+    names = (("swt1d_mxu_fused", "iswt1d_mxu_fused") if do_swt
+             else ("dwt1d_mxu_fused", "idwt1d_mxu_fused"))
+    assert {k.__name__: k.launches for k in ops.KERNELS if k.launches} == {
+        names[0]: 3, names[1]: 3}
+
+
+@pytest.mark.parametrize("case", ["odd-row", "odd-output", "odd-bank",
+                                  "wide-support", "float64", "auto"])
+def test_mxu_mode_sends_uncovered_1d_levels_to_jax_route(dev, case):
+    """Mode "mxu" sends what K7/K12 do not cover to K3/K4/K10, as JAX sends
+    it to its VPU kernels; mode "auto" never takes K7/K12."""
+    fb = _bank("odd5" if case == "odd-bank" else "sym8")
+    shape = (4, 63) if case == "odd-row" else (4, 64)
+    x = _rand(shape, dev)
+    dtype = torch.float64 if case == "float64" else torch.float32
+    x = x.to(dtype)
+    try:
+        _mxu("auto" if case == "auto" else "mxu")
+        ops.reset_counts()
+        if case == "wide-support":
+            _close(swt.swt1d_level(x[:, :16], fb, 3),
+                   fd.swt1d_plain(x[:, :16], fb, 3))
+            want = {"swt1d_fused": 1}
+        elif case == "odd-output":
+            c = [_rand((4, 32), dev, s) for s in (1, 2)]
+            _close(dwt.idwt1d(*c, fb, 63), fd.idwt1d_plain(*c, fb, 63))
+            want = {"idwt1d_fused": 1}
+        else:
+            _close(dwt.dwt1d(x, fb), fd.dwt1d_plain(x, fb))
+            _close(swt.swt1d_level(x, fb, 2), fd.swt1d_plain(x, fb, 2))
+            # K12 takes odd rows and odd banks, K7 neither
+            k12 = case in ("odd-row", "odd-bank")
+            want = {"dwt1d_fused": 1,
+                    "swt1d_mxu_fused" if k12 else "swt1d_fused": 1}
+    finally:
+        _mxu("auto")
+    assert {k.__name__: k.launches for k in ops.KERNELS if k.launches} == want
+
+
+# -- float64 instances of the tap-loop kernels -------------------------------
+
+F64_TOL = 1e-12  # float64 kernel vs float64 plain, [0, 1) data
+# each kernel's input: odd planes and rows, their coefficients
+F64_SHAPES = {"K2": (32, 48), "K17": (32, 48), "K3": (3, 95), "K4": (3, 48),
+              "K10a": (3, 95), "K10b": (3, 95)}
+F64_CALLS = {
+    "K1": lambda x, fb, f2d: (fd.dwt2d_fused(x, fb), fd.dwt2d_plain(x, fb)),
+    "K2": lambda x, fb, f2d: (fd.idwt2d_fused(x, x, x, x, fb, (63, 95)),
+                              fd.idwt2d_plain(x, x, x, x, fb, (63, 95))),
+    "K3": lambda x, fb, f2d: (fd.dwt1d_fused(x, fb), fd.dwt1d_plain(x, fb)),
+    "K4": lambda x, fb, f2d: (fd.idwt1d_fused(x, x, fb, 95),
+                              fd.idwt1d_plain(x, x, fb, 95)),
+    "K10a": lambda x, fb, f2d: (fd.swt1d_fused(x, fb, 3),
+                                fd.swt1d_plain(x, fb, 3)),
+    "K10b": lambda x, fb, f2d: (fd.iswt1d_fused(x, x, fb, 3),
+                                fd.iswt1d_plain(x, x, fb, 3)),
+    "K8": lambda x, fb, f2d: (fd.swt2d_fused(x, fb, 2),
+                              fd.swt2d_plain(x, fb, 2)),
+    "K9": lambda x, fb, f2d: (fd.iswt2d_fused(x, x, x, x, fb, 2),
+                              fd.iswt2d_plain(x, x, x, x, fb, 2)),
+    "K16": lambda x, fb, f2d: (kn.nsdwt2d_fused(x, f2d),
+                               kn.nsdwt2d_plain(x, f2d)),
+    "K17": lambda x, fb, f2d: (kn.insdwt2d_fused(x, x, x, x, f2d, (63, 95)),
+                               kn.insdwt2d_plain(x, x, x, x, f2d, (63, 95))),
+    "K18a": lambda x, fb, f2d: (kn.ns_swt2d_fused(x, f2d, 2),
+                                kn.ns_swt2d_plain(x, f2d, 2)),
+    "K18b": lambda x, fb, f2d: (kn.ins_swt2d_fused(x, x, x, x, f2d, 2),
+                                kn.ins_swt2d_plain(x, x, x, x, f2d, 2)),
+}
+
+
+@pytest.mark.parametrize("wname", ["haar", "db4", "odd5", "sym20"])
+@pytest.mark.parametrize("kernel", sorted(F64_CALLS))
+def test_float64_instances_match_plain(dev, kernel, wname):
+    """Each tap-loop kernel's float64 instance against its float64 plain
+    version (the bank's float64 values, unrounded), odd sizes included; the
+    non-separable ones on a dense random bank of the same size."""
+    fb = _bank(wname)
+    rng = np.random.default_rng(fb.hlen)
+    f2d = Filters2D(list(rng.random((4, fb.hlen, fb.hlen)) / fb.hlen),
+                    list(rng.random((4, fb.hlen, fb.hlen)) / fb.hlen),
+                    f"dense{fb.hlen}")
+    x = _rand(F64_SHAPES.get(kernel, (2, 63, 95)), dev).double()
+    ops.reset_counts()
+    got, want = F64_CALLS[kernel](x, fb, f2d)
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64 and g.shape == w.shape
+        assert float((g - w).abs().max()) <= F64_TOL * (
+            fb.hlen if kernel.startswith(("K16", "K17", "K18")) else 1)
+    assert sum(k.launches for k in ops.KERNELS) == 1
+
+
+@pytest.mark.parametrize("plan", ["dwt2d", "swt2d", "batched-1d", "signal",
+                                  "signal-swt", "nonsep-custom", "haar"])
+def test_float64_plans_on_the_card(dev, plan):
+    """A float64 Wavelets plan runs on the float64 instances: roundtrip
+    below 1e-10 (JAX's float64 gate), coefficients of the CPU plan within
+    1e-11, exact launches."""
+    rng = np.random.default_rng(3)
+    img = rng.random((128, 96) if plan not in ("signal", "signal-swt")
+                     else (4096,))
+    kw = {"dwt2d": {}, "swt2d": dict(do_swt=1), "batched-1d": dict(ndim=1),
+          "signal": {}, "signal-swt": dict(do_swt=1),
+          "nonsep-custom": dict(do_separable=0), "haar": {}}[plan]
+    wname = "haar" if plan == "haar" else "db4"
+    W = Wavelets(img, wname, 3, dtype=np.float64, device=dev, **kw)
+    R = Wavelets(img, wname, 3, dtype=np.float64, device="cpu", **kw)
+    if plan == "nonsep-custom":
+        f2d = _f2d("db3xcoif1")
+        for P in (W, R):
+            P.set_wavelets_filters(f2d.name, f2d.dec[0], f2d.dec[3],
+                                   f2d.rec[0], f2d.rec[3], LH=f2d.dec[1],
+                                   HL=f2d.dec[2], i_LH=f2d.rec[1],
+                                   i_HL=f2d.rec[2])
+    ops.reset_counts()
+    W.forward()
+    R.forward()
+    got, ref = W.coeffs, R.coeffs
+    W.inverse()
+    for g, r in zip(got, ref):
+        for a, b in zip(g if isinstance(g, list) else [g],
+                        r if isinstance(r, list) else [r]):
+            assert a.dtype == np.float64 and np.abs(a - b).max() <= 1e-11
+    assert W.image.dtype == np.float64
+    assert np.abs(W.image.reshape(img.shape) - img).max() < 1e-10
+    counts = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+    assert len(counts) == 2 and set(counts.values()) == {3}

@@ -276,21 +276,32 @@ def test_mxu_mode_on_cpu_runs_the_banded_plain_versions():
 @pytest.mark.parametrize("direction", ["analysis", "synthesis"])
 def test_mxu_route_raises_on_float64_cuda_level(monkeypatch, direction):
     """Mode "mxu" never falls back: a float64 level on a CUDA tensor goes to
-    K1/K2 (K5/K6 take float32 only), which raise.  A CPU tensor poses as a
-    CUDA one, so that the routing runs without a card."""
+    K1/K2's float64 instances (K5/K6 take float32 only), and a level no
+    kernel covers (float16) raises.  A CPU tensor poses as a CUDA one, so
+    that the routing runs without a card."""
     fb = get_filter_bank("sym8")
     x = torch.from_numpy(_rand((16, 24))).double()
+    h = x.half()
     if direction == "analysis":
+        def routes(t):
+            return dwt.use_k5(t, fb), dwt.use_k1(t, fb)
+
         def call():
-            return dwt.dwt2d(x, fb)
+            return dwt.dwt2d(h, fb)
     else:
+        def routes(t):
+            return (dwt.use_k6(t, t, t, t, fb, (32, 48)),
+                    dwt.use_k2(t, t, t, t, fb, (32, 48)))
+
         def call():
-            return dwt.idwt2d(x, x, x, x, fb, (32, 48))
+            return dwt.idwt2d(h, h, h, h, fb, (32, 48))
     ops.reset_counts()
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
     dwt.set_kernels("mxu")
     try:
-        with pytest.raises(ValueError, match="float64"):
+        assert routes(x) == (False, True)
+        assert routes(x.float()) == (True, True)
+        with pytest.raises(ValueError, match="float16"):
             call()
     finally:
         dwt.set_kernels("auto")

@@ -247,21 +247,32 @@ def test_mxu_mode_on_cpu_runs_the_banded_plain_versions():
 
 @pytest.mark.parametrize("direction", ["analysis", "synthesis"])
 def test_mxu_route_raises_on_float64_cuda_level(monkeypatch, direction):
-    """A float64 level on a CUDA tensor in mode "mxu" goes to K8/K9, which
-    raise (a CPU tensor poses as a CUDA one)."""
+    """A float64 level on a CUDA tensor in mode "mxu" goes to K8/K9's
+    float64 instances (K11 takes float32 only), and a level no kernel
+    covers (float16) raises (a CPU tensor poses as a CUDA one)."""
     fb = get_filter_bank("sym8")
     x = torch.from_numpy(_rand((32, 48))).double()
+    h = x.half()
     if direction == "analysis":
+        def routes(t):
+            return swt.use_k11a(t, fb, 1), swt.use_k8(t, fb, 1)
+
         def call():
-            return swt.swt2d_level(x, fb, 1)
+            return swt.swt2d_level(h, fb, 1)
     else:
+        def routes(t):
+            return (swt.use_k11b(t, t, t, t, fb, 1),
+                    swt.use_k9(t, t, t, t, fb, 1))
+
         def call():
-            return swt.iswt2d_level(x, x, x, x, fb, 1)
+            return swt.iswt2d_level(h, h, h, h, fb, 1)
     ops.reset_counts()
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
     dwt.set_kernels("mxu")
     try:
-        with pytest.raises(ValueError, match="float64"):
+        assert routes(x) == (False, True)
+        assert routes(x.float()) == (True, True)
+        with pytest.raises(ValueError, match="float16"):
             call()
     finally:
         dwt.set_kernels("auto")

@@ -217,7 +217,8 @@ def test_k16_k17_coverage_rules():
     _, odd = _pair("dense5")
     assert kn.nsdwt2d_unsupported(x, odd) is None
     assert kn.insdwt2d_unsupported(*c, odd, (33, 47)) is None
-    assert "float32" in kn.nsdwt2d_unsupported(x.double(), tf)
+    assert kn.nsdwt2d_unsupported(x.double(), tf) is None
+    assert "float32" in kn.nsdwt2d_unsupported(x.half(), tf)
     assert "rank" in kn.nsdwt2d_unsupported(torch.zeros(4), tf)
     assert "empty" in kn.nsdwt2d_unsupported(torch.zeros(0, 4), tf)
     assert "shapes" in kn.insdwt2d_unsupported(*c[:3], torch.zeros(17, 23),
@@ -331,7 +332,8 @@ def test_k18_coverage_rules():
     assert kn.ins_swt2d_unsupported(x, x, x, x, odd, 2) is None
     assert kn.ns_swt2d_unsupported(torch.zeros(2, 8, 8), tf, 1) is None
     assert "level" in kn.ns_swt2d_unsupported(x, tf, 0)
-    assert "float32" in kn.ns_swt2d_unsupported(x.double(), tf, 1)
+    assert kn.ns_swt2d_unsupported(x.double(), tf, 1) is None
+    assert "float32" in kn.ns_swt2d_unsupported(x.half(), tf, 1)
     assert "rank" in kn.ns_swt2d_unsupported(torch.zeros(4), tf, 1)
     assert "shapes" in kn.ins_swt2d_unsupported(x, x, torch.zeros(3, 3), x,
                                                 tf, 1)
@@ -348,11 +350,12 @@ def test_k18_coverage_rules():
 @pytest.mark.parametrize("direction", ["analysis", "synthesis",
                                        "dwt-analysis", "dwt-synthesis"])
 def test_k18_route_raises_on_uncovered_cuda_level(monkeypatch, direction):
-    """K18a/K18b and K16/K17 never decline: a float64 level on a CUDA
-    tensor raises, and kernel mode "torch" runs the plain version.  A CPU
-    tensor poses as a CUDA one, so that the routing runs without a card."""
+    """K18a/K18b and K16/K17 never decline: a level they do not cover on a
+    CUDA tensor (float16: their instances are float32 and float64) raises,
+    and kernel mode "torch" runs the plain version.  A CPU tensor poses as
+    a CUDA one, so that the routing runs without a card."""
     _, tf = _pair("db3xcoif1")
-    x = torch.from_numpy(_rand((16, 24))).double()
+    x = torch.from_numpy(_rand((16, 24))).half()
     calls = {
         "analysis": lambda: nonsep.ns_swt2d_level(x, tf, 2),
         "synthesis": lambda: nonsep.ins_swt2d_level(x, x, x, x, tf, 2),
@@ -363,7 +366,7 @@ def test_k18_route_raises_on_uncovered_cuda_level(monkeypatch, direction):
     want = call()
     ops.reset_counts()
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
-    with pytest.raises(ValueError, match=r"float64.*set_kernels\('torch'\)"):
+    with pytest.raises(ValueError, match=r"float16.*set_kernels\('torch'\)"):
         call()
     dwt.set_kernels("torch")
     try:

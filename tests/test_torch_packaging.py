@@ -110,6 +110,45 @@ def test_tensor_core_mode_on_cpu_loads_no_jax():
     assert res.stdout.strip() == "ok"
 
 
+def test_1d_tensor_core_mode_and_float64_on_cpu_load_no_jax():
+    """The 1D tensor-core path in mode "mxu" (K7a/K7b and K12a/K12b's banded
+    plain versions, batched 1D and one signal, both precisions) and float64
+    plans (2D, 1D, non-separable) run without JAX."""
+    code = (
+        "import sys\n"
+        "import numpy as np, pypwt_tpu_torch as P\n"
+        "from pypwt_tpu_torch.core import dwt\n"
+        "rng = np.random.default_rng(0)\n"
+        "dwt.set_kernels('mxu')\n"
+        "for prec in ('highest', 'bf16'):\n"
+        "    dwt.set_mxu_precision(prec)\n"
+        "    for img, kw in ((rng.random((8, 256)).astype('float32'),\n"
+        "                     dict(ndim=1)),\n"
+        "                    (rng.random(1024).astype('float32'), {})):\n"
+        "        for swt in (0, 1):\n"
+        "            W = P.Wavelets(img, 'sym8', 3, device='cpu',\n"
+        "                           do_swt=swt, **kw)\n"
+        "            W.forward(); W.inverse()\n"
+        "            err = abs(W.image.reshape(img.shape) - img).max()\n"
+        "            assert err < (7e-4 if prec == 'highest' else 0.05)\n"
+        "dwt.set_kernels('auto')\n"
+        "img = rng.random((32, 48))\n"
+        "for kw in ({}, dict(do_swt=1), dict(ndim=1),\n"
+        "           dict(do_separable=0)):\n"
+        "    W = P.Wavelets(img, 'db4', 2, dtype=np.float64, device='cpu',\n"
+        "                   **kw)\n"
+        "    W.forward(); W.inverse()\n"
+        "    assert W.image.dtype == np.float64\n"
+        "    assert abs(W.image - img).max() < 1e-10\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pypwt_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    res = _run(["-c", code], ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def _imports(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):

@@ -208,7 +208,9 @@ def test_k10_coverage_rules():
     assert fd.swt1d_unsupported(torch.zeros(7), odd, 3) is None
     assert fd.swt1d_unsupported(torch.zeros(LONG), fb, 3) is None
     assert "level" in fd.swt1d_unsupported(x, fb, 0)
-    assert "float32" in fd.swt1d_unsupported(x.double(), fb, 1)
+    assert fd.swt1d_unsupported(x.double(), fb, 1) is None
+    assert fd.iswt1d_unsupported(x.double(), x.double(), fb, 1) is None
+    assert "float32" in fd.swt1d_unsupported(x.half(), fb, 1)
     assert "rank" in fd.swt1d_unsupported(torch.zeros(2, 4, 16), fb, 1)
     assert "shapes" in fd.iswt1d_unsupported(x, torch.zeros(4, 15), fb, 1)
     wide = FilterBank("wide", *(np.ones(42) for _ in range(4)))

@@ -247,7 +247,8 @@ def test_k8_k9_coverage_rules():
     assert fd.swt2d_unsupported(torch.zeros(7, 5), odd, 3) is None
     assert fd.swt2d_unsupported(torch.zeros(3, 8, 8), fb, 2) is None
     assert "level" in fd.swt2d_unsupported(x, fb, 0)
-    assert "float32" in fd.swt2d_unsupported(x.double(), fb, 1)
+    assert fd.swt2d_unsupported(x.double(), fb, 1) is None
+    assert "float32" in fd.swt2d_unsupported(x.half(), fb, 1)
     assert "rank" in fd.swt2d_unsupported(torch.zeros(16), fb, 1)
     assert "shapes" in fd.iswt2d_unsupported(x, x, x, torch.zeros(33, 46),
                                              fb, 1)
@@ -265,11 +266,12 @@ def test_k8_k9_coverage_rules():
 
 @pytest.mark.parametrize("direction", ["analysis", "synthesis"])
 def test_k8_k9_route_raises_on_uncovered_cuda_level(monkeypatch, direction):
-    """K8/K9 never decline: a float64 level on a CUDA tensor raises, and
-    kernel mode "torch" runs the plain version.  A CPU tensor poses as a
-    CUDA one, so that the routing runs without a card."""
+    """K8/K9 never decline: a level they do not cover on a CUDA tensor
+    (float16: their instances are float32 and float64) raises, and kernel
+    mode "torch" runs the plain version.  A CPU tensor poses as a CUDA one,
+    so that the routing runs without a card."""
     fb = get_filter_bank("db2")
-    x = torch.from_numpy(_rand((16, 24))).double()
+    x = torch.from_numpy(_rand((16, 24))).half()
     if direction == "analysis":
         def call():
             return swt.swt2d_level(x, fb, 2)
@@ -279,7 +281,7 @@ def test_k8_k9_route_raises_on_uncovered_cuda_level(monkeypatch, direction):
     want = call()
     ops.reset_counts()
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
-    with pytest.raises(ValueError, match=r"float64.*set_kernels\('torch'\)"):
+    with pytest.raises(ValueError, match=r"float16.*set_kernels\('torch'\)"):
         call()
     dwt.set_kernels("torch")
     try:
