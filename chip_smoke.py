@@ -10,8 +10,9 @@ prints its traceback and exits non-zero without the final ok line:
 1. device: needs CUDA (exits 1 without it); prints torch/CUDA versions,
    ``nvcc --version`` and the card's name and power limit;
 2. build: compiles every kernel (K1/K2, K3/K4, K10a/K10b, K8/K9,
-   K16/K17, K18a/K18b, K19/K20, the float64 instances of the tap loops, and
-   the tensor-core forms K5/K6, K7a/K7b, K11a/K11b, K12a/K12b) from
+   K16/K17, K18a/K18b, K19/K20, the float64 instances of the tap loops,
+   the tensor-core forms K5/K6, K7a/K7b, K11a/K11b, K12a/K12b, and the
+   whole-pyramid kernels K24/K25) from
    pypwt_tpu_torch/csrc/ with nvcc, one process per source, and prints
    each kernel's registers and spills;
 3. K1/K2 against their plain torch versions on the card, over banks hlen
@@ -39,7 +40,11 @@ prints its traceback and exits non-zero without the final ok line:
    (1, 4 Mi) row at db2, sym8 and sym20, and against the oracle; then the
    float64 instance of every tap-loop kernel (K1-K4, K10, K8/K9, K16-K18)
    against its float64 plain version (<= 1e-12) on 2048^2 and an odd
-   plane, and against the FFT oracle tests/fft_oracle.py;
+   plane, and against the FFT oracle tests/fft_oracle.py; then K24/K25
+   against their plain versions on 0..255 data (each level within
+   3e-4 * 2^level, roundtrip within 7e-4, one launch each) over db2, sym8,
+   bior4.4 and sym20, L 2, 3 and 5, 2048^2 and 256 x 512, and the stack at
+   db2 L3, and against the oracle level by level;
 4. main paths, each held against the same calls on the CPU plain path
    (coefficients within 3e-4 * 2^level, image within 7e-4) and counted
    (exact launches of every kernel): Wavelets(img, "db2", 3,
@@ -68,7 +73,13 @@ prints its traceback and exits non-zero without the final ok line:
    plans in mode "auto" (db4 L3: the 2D DWT and SWT, batched 1D DWT and
    SWT, the non-separable DWT and SWT of the db3 x coif1 bank, each 3 + 3
    launches of the float64 instances, roundtrip < 1e-10) and denoise2d on
-   a float64 frame;
+   a float64 frame; then, with tail fusion on (set_tail_fuse(True), reset
+   in finally), Wavelets(img, "db2", 3) on the frame (K1 + K24, K25 + K2),
+   in mode "mxu" at sym8 (K5 + K24, K25 + K6), on the 2047^2 frame (its
+   1024^2 level-0 approximation is covered, as in JAX: K1 + K24, K25 + K2),
+   on a 2046^2 frame and a float64 plan (refused: 3 + 3 per level), and
+   denoise2d; and the all-levels entries wavedec2_pyramid/waverec2_pyramid
+   on the frame and the stack (1 + 1);
 5. times (CUDA events, warm-up, median of 21 samples): level-0 K1/K2
    against their plain versions at 2048^2 (device time), and the L3
    roundtrip in frames/s, kernel path against plain path, at 2048^2 and on
@@ -84,10 +95,14 @@ prints its traceback and exits non-zero without the final ok line:
    its "bf16" time; K7a/K7b against K3/K4 and K12a/K12b against K10 at
    sym8, levels 1-3 of the sinogram and levels 1-5 (DWT) and 1-3 (SWT) of
    the signal; the float64 instances of K1-K4 against their float32 ones;
-   last, beside each kernel, one PyTorch call that computes the same
-   function (library_ms: a strided, transposed or dilated convolution in
-   full float32, on an input padded outside the timed window), checked
-   against the kernel's output.
+   K24/K25 against their plain versions and K1/K2 once per level, and the
+   two-level tail of tail fusion; the L3 roundtrip per level, tail-fused
+   and all-levels, device and wall, in turns, and the per-level roundtrip
+   replayed from a CUDA graph; last, beside each kernel, one PyTorch call
+   that computes the same function (library_ms: a strided, transposed or
+   dilated convolution in full float32, on an input padded outside the
+   timed window), checked against the kernel's output; none computes a
+   multi-level pyramid, so K24/K25 have none.
 
 The line before the last is one JSON object with each kernel's route,
 source, the TPU kernel it replaces, its launches in the main-path run, its
@@ -1482,12 +1497,14 @@ def phase_times_slice(port, dev, card):
     return times
 
 
-def in_turns(calls, reps, samples=SAMPLES):
-    """Device time of each call (ms): the calls in order, then in reverse
-    (a, b, c, c, b, a), each the mean of its two medians."""
+def in_turns(calls, reps, samples=SAMPLES, device_only=True):
+    """Device time (or, ``device_only`` False, wall time) of each call
+    (ms): the calls in order, then in reverse (a, b, c, c, b, a), each the
+    mean of its two medians."""
     seen = {k: [] for k in calls}
     for key in list(calls) + list(reversed(calls)):
-        seen[key].append(cuda_ms(calls[key], reps[key], True, samples))
+        seen[key].append(cuda_ms(calls[key], reps[key], device_only,
+                                 samples))
     return {k: sum(v) / 2 for k, v in seen.items()}
 
 
@@ -2412,6 +2429,331 @@ def phase_sweep_mxu1d(port, dev, card):
                   + f"  [{card}]")
 
 
+PYR_BANKS = ("db2", "sym8", "bior4.4", "sym20")  # hlen 4, 16, 10, 40
+PYR_LEVELS = (2, 3, 5)
+PYR_SHAPES = (FRAME, (256, 512))
+REFUSED_FRAME = (2046, 2046)  # its level-0 approximation is odd
+
+
+def phase_kernels_pyramid(port, dev):
+    """K24/K25 against their plain versions on the card (0..255 data:
+    each level within 3e-4 * 2^level, the roundtrip K25(K24(x)) and K25 on
+    the pyramid within 7e-4) over banks of 4 to 40 taps, L 2, 3 and 5, the
+    2048^2 frame and a 256 x 512 plane, and the (8, 2048, 2048) stack at
+    db2 L3, one launch each; then against the float64 oracle
+    tests/oracle.py level by level on a small plane."""
+    fp = port.ops.fused_pyramid
+    k24, k25 = fp.wavedec2_pyramid_fused, fp.waverec2_pyramid_fused
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    worst = {"K24": 0.0, "K25": 0.0}
+    cases = [(w, s, lev) for w in PYR_BANKS for s in PYR_SHAPES
+             for lev in PYR_LEVELS] + [("db2", (STACK, *FRAME), 3)]
+    for wname, shape, levels in cases:
+        fb = port.get_filter_bank(wname)
+        x = torch.rand(shape, generator=gen, device=dev) * 255
+        pyr = launched_once(k24, lambda: k24(x, fb, levels))
+        e24 = check_pyramid(
+            port.dwt.pyramid_to_numpy(pyr), port.dwt.pyramid_to_numpy(
+                fp.wavedec2_pyramid_plain(x, fb, levels)),
+            f"K24 {wname} {shape} L{levels}")
+        rec = launched_once(k25, lambda: k25(pyr, fb, shape))
+        e25 = max_err(rec, fp.waverec2_pyramid_plain(pyr, fb, shape))
+        ert = max_err(rec, x)
+        torch.cuda.synchronize()
+        print(f"kernel-vs-plain pyramid {wname:7s} hlen={fb.hlen:2d} "
+              f"{str(shape):17s} L{levels}: K24 {e24:.3e}  K25 {e25:.3e}  "
+              f"roundtrip {ert:.3e}")
+        if not max(e25, ert) <= ROUNDTRIP_TOL:
+            raise AssertionError(f"K25 {wname} {shape} L{levels}: "
+                                 f"{max(e25, ert):.3e} > {ROUNDTRIP_TOL}")
+        worst["K24"] = max(worst["K24"], e24)
+        worst["K25"] = max(worst["K25"], e25)
+        del x, pyr, rec
+    oracle = load_oracle()
+    rng = np.random.default_rng(SEED)
+    for name in PYR_BANKS:
+        fb = port.get_filter_bank(name)
+        x = rng.random((32, 64))
+        got = port.dwt.pyramid_to_numpy(
+            k24(torch.from_numpy(x.astype(np.float32)).to(dev), fb, 3))
+        a, ref = x, []
+        for _ in range(3):
+            a, h, v, d = oracle.ref_analysis_2d(a, fb.dec_lo, fb.dec_hi)
+            ref.append((h, v, d))
+        ref = [a] + ref
+        e24 = max(float(np.abs(g - r).max())
+                  for g, r in zip(flat(got), flat(ref)))
+        c = [rng.random((4, 8))] + [tuple(rng.random((32 >> lev, 64 >> lev))
+                                          for _ in range(3))
+                                    for lev in range(1, 4)]
+        out = k25(port.dwt.pyramid_from_numpy(
+            [c[0].astype(np.float32)] + [tuple(s.astype(np.float32)
+                                               for s in t) for t in c[1:]],
+            dev), fb, (32, 64)).cpu().numpy()
+        a = c[0]
+        for lev in range(3, 0, -1):
+            a = oracle.ref_synthesis_2d(a, *c[lev], fb.rec_lo, fb.rec_hi,
+                                        32 >> (lev - 1), 64 >> (lev - 1))
+        e25 = float(np.abs(out - a).max())
+        print(f"kernel-vs-oracle pyramid {name:7s} L3 (32, 64): K24 "
+              f"{e24:.3e}  K25 {e25:.3e}")
+        if max(e24, e25) > ORACLE_TOL:
+            raise AssertionError(f"{name}: pyramid kernels vs oracle "
+                                 f"{max(e24, e25):.3e} > {ORACLE_TOL}")
+    return worst
+
+
+def flat(pyr):
+    return [pyr[0]] + [s for t in pyr[1:] for s in t]
+
+
+def counts(ops):
+    return {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+
+
+def drive_tail(port, dev, img, wname, mode, want_fwd, want, what):
+    """Wavelets(img, wname, 3) forward -> soft_threshold(10) -> inverse on
+    the card with tail fusion on in kernel mode ``mode``, counted from 0,
+    then a plain roundtrip; against the CPU per-level plan."""
+    ops, dwt = port.ops, port.dwt
+    ref = port.Wavelets(img, wname, 3, device="cpu")
+    ref.forward()
+    ref_coeffs = ref.coeffs
+    ref.soft_threshold(10.0)
+    ref.inverse()
+    dwt.set_tail_fuse(True)
+    dwt.set_kernels(mode)
+    try:
+        W = port.Wavelets(img, wname, 3, device=dev)
+        ops.reset_counts()
+        W.forward()
+        coeffs = W.coeffs
+        expect_launches(ops, want_fwd, f"{what} forward")
+        W.soft_threshold(10.0)
+        W.inverse()
+        out = W.image
+        torch.cuda.synchronize()
+        launches = counts(ops)
+        expect_launches(ops, want, what)
+        R = port.Wavelets(img, wname, 3, device=dev)
+        R.forward()
+        R.inverse()
+        back = R.image
+    finally:
+        dwt.set_tail_fuse(False)
+        dwt.set_kernels("auto")
+    ec = check_pyramid(coeffs, ref_coeffs, f"{what} forward")
+    ei = check_image(out, ref.image, f"{what} denoised image")
+    er = check_image(back, img, f"{what} roundtrip")
+    print(f"main path {what}: forward vs cpu {ec:.3e}, denoised image vs "
+          f"cpu {ei:.3e}, roundtrip {er:.3e}, launches {launches}")
+    return launches
+
+
+def phase_main_paths_pyramid(port, dev):
+    """Tail fusion (set_tail_fuse(True), reset in finally) through
+    Wavelets on the 2048^2 frame, db2 L3 (K1 + K24, K25 + K2) and in mode
+    "mxu" at sym8 L3 (K5 + K24, K25 + K6); the all-levels entries at
+    2048^2 db2 L3 and on the stack (one launch each); denoise2d of the
+    frame; and the routes the pyramid kernels refuse (a float64 plan, a
+    2046^2 frame, whose level-0 approximation is odd: 3 + 3 per-level
+    launches), beside a 2047^2 frame, whose 1024^2 approximation they take,
+    as JAX does."""
+    ops, dwt, fp = port.ops, port.dwt, port.ops.fused_pyramid
+    img = frame(FRAME, SEED + 31)
+    tail = {"dwt2d_fused": 1, "wavedec2_pyramid_fused": 1}
+    got = drive_tail(port, dev, img, "db2", "auto", tail,
+                     {**tail, "idwt2d_fused": 1, "waverec2_pyramid_fused": 1},
+                     f"tail-fused db2 L3 {FRAME}")
+    launches = {"K24": got["wavedec2_pyramid_fused"],
+                "K25": got["waverec2_pyramid_fused"]}
+    tail = {"dwt2d_mxu_fused": 1, "wavedec2_pyramid_fused": 1}
+    drive_tail(port, dev, img, "sym8", "mxu", tail,
+               {**tail, "idwt2d_mxu_fused": 1, "waverec2_pyramid_fused": 1},
+               f"tail-fused mxu sym8 L3 {FRAME}")
+    tail = {"dwt2d_fused": 1, "wavedec2_pyramid_fused": 1}
+    drive_tail(port, dev, frame(ODD_FRAME, SEED + 32), "db2", "auto", tail,
+               {**tail, "idwt2d_fused": 1, "waverec2_pyramid_fused": 1},
+               f"tail-fused db2 L3 {ODD_FRAME}")
+    per = {"dwt2d_fused": 3}
+    drive_tail(port, dev, frame(REFUSED_FRAME, SEED + 33), "db2", "auto",
+               per, {**per, "idwt2d_fused": 3},
+               f"tail fusion refused, db2 L3 {REFUSED_FRAME}")
+
+    fb = port.get_filter_bank("db2")
+    for shape, seed in ((FRAME, SEED + 34), ((STACK, *FRAME), SEED + 35)):
+        x = frame(shape, seed)
+        ends = [0, STACK - 1] if len(shape) == 3 else slice(None)
+        ref = dwt.pyramid_to_numpy(dwt.wavedec2(torch.from_numpy(x[ends]),
+                                                fb, 3))
+        xs = torch.from_numpy(x).to(dev)
+        ops.reset_counts()
+        pyr = fp.wavedec2_pyramid(xs, fb, 3)
+        rec = fp.waverec2_pyramid(pyr, fb, xs.shape)
+        torch.cuda.synchronize()
+        expect_launches(ops, {"wavedec2_pyramid_fused": 1,
+                              "waverec2_pyramid_fused": 1},
+                        f"all-levels {shape}")
+        ec = check_pyramid(dwt.pyramid_to_numpy(
+            [pyr[0][ends]] + [tuple(s[ends] for s in t) for t in pyr[1:]]),
+            ref, f"all-levels {shape} forward")
+        er = check_image(rec.cpu().numpy(), x, f"all-levels {shape} "
+                         "roundtrip")
+        print(f"main path all-levels wavedec2_pyramid/waverec2_pyramid db2 "
+              f"L3 {shape}: forward vs cpu {ec:.3e}, roundtrip {er:.3e}, "
+              f"launches 1 + 1")
+        del xs, pyr, rec
+
+    call = lambda x: port.pipeline.denoise2d(x, "db2", 3, BETA)  # noqa: E731
+    ref = call(torch.from_numpy(img)).numpy()
+    dwt.set_tail_fuse(True)
+    try:
+        ops.reset_counts()
+        out = call(torch.from_numpy(img).to(dev))
+        torch.cuda.synchronize()
+        got = counts(ops)
+    finally:
+        dwt.set_tail_fuse(False)
+    expect_launches(ops, {"dwt2d_fused": 1, "wavedec2_pyramid_fused": 1,
+                          "idwt2d_fused": 1, "waverec2_pyramid_fused": 1},
+                    "tail-fused denoise2d")
+    err = check_image(out.cpu().numpy(), ref, "tail-fused denoise2d")
+    print(f"main path tail-fused denoise2d db2 L3 beta {BETA} {FRAME}: "
+          f"image vs cpu per-level {err:.3e}, launches {got}")
+
+    img64 = frame(FRAME, SEED + 36).astype(np.float64)
+    ref = port.Wavelets(img64, "db2", 3, dtype=np.float64, device="cpu")
+    ref.forward()
+    dwt.set_tail_fuse(True)
+    try:
+        W = port.Wavelets(img64, "db2", 3, dtype=np.float64, device=dev)
+        ops.reset_counts()
+        W.forward()
+        coeffs = W.coeffs
+        W.inverse()
+        torch.cuda.synchronize()
+        got = counts(ops)
+    finally:
+        dwt.set_tail_fuse(False)
+    expect_launches(ops, {"dwt2d_fused": 3, "idwt2d_fused": 3},
+                    "tail fusion refused, float64")
+    ec = max(float(np.abs(np.asarray(g) - np.asarray(r)).max())
+             for g, r in zip(flat(coeffs), flat(ref.coeffs)))
+    er = float(np.abs(W.image - img64).max())
+    if not (ec <= 1e-11 and er <= F64_PLAN_TOL):
+        raise AssertionError(f"float64 plan with tail fusion: {ec:.3e}, "
+                             f"{er:.3e}")
+    print(f"main path tail fusion refused, float64 db2 L3 {FRAME}: forward "
+          f"vs cpu {ec:.3e}, roundtrip {er:.3e}, launches {got}")
+    return launches
+
+
+def phase_times_pyramid(port, dev, card):
+    """K24/K25 device time at 2048^2 db2 L3 against their plain versions
+    and against K1/K2 once per level, and the two-level tail of
+    tail fusion (K24 on the 1024^2 level-0 approximation) against K1 at
+    levels 2 and 3, in turns; then the L3 roundtrip three ways, per-level,
+    tail-fused and all-levels, device and wall, in turns, and the per-level
+    roundtrip replayed from a CUDA graph (wall and device): what launch
+    savings alone are worth."""
+    fd, fp, dwt = port.ops.fused_dwt, port.ops.fused_pyramid, port.dwt
+    fb = port.get_filter_bank("db2")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 37)
+    # inputs that together exceed the 50 MB L2, as in phase_times
+    frames = [torch.rand(FRAME, generator=gen, device=dev) * 255
+              for _ in range(4)]
+    nx = itertools.cycle(frames).__next__
+    pyrs = [fp.wavedec2_pyramid_fused(f, fb, 3) for f in frames]
+    npy = itertools.cycle(pyrs).__next__
+    a0s = [fd.dwt2d_fused(f, fb)[0] for f in frames]
+    na0 = itertools.cycle(a0s).__next__
+    tails = [fp.wavedec2_pyramid_fused(a, fb, 2) for a in a0s]
+    ntl = itertools.cycle(tails).__next__
+    sizes = [FRAME] + [(FRAME[0] >> lev, FRAME[1] >> lev) for lev in (1, 2)]
+
+    def k1_levels(x, levels):
+        for _ in range(levels):
+            x = fd.dwt2d_fused(x, fb)[0]
+
+    def k2_levels(pyr, out):
+        a = pyr[0]
+        for lev in range(len(pyr) - 1, 0, -1):
+            a = fd.idwt2d_fused(a, *pyr[lev], fb, out[lev - 1])
+
+    calls = {
+        "K24": lambda: fp.wavedec2_pyramid_fused(nx(), fb, 3),
+        "K24 plain": lambda: fp.wavedec2_pyramid_plain(nx(), fb, 3),
+        "K1 x3": lambda: k1_levels(nx(), 3),
+        "K25": lambda: fp.waverec2_pyramid_fused(npy(), fb, FRAME),
+        "K25 plain": lambda: fp.waverec2_pyramid_plain(npy(), fb, FRAME),
+        "K2 x3": lambda: k2_levels(npy(), sizes),
+        "K24 tail": lambda: fp.wavedec2_pyramid_fused(na0(), fb, 2),
+        "K1 levels 2-3": lambda: k1_levels(na0(), 2),
+        "K25 tail": lambda: fp.waverec2_pyramid_fused(ntl(), fb, sizes[1]),
+        "K2 levels 3-2": lambda: k2_levels(ntl(), sizes[1:]),
+    }
+    reps = {k: 3 if "plain" in k else 10 for k in calls}
+    t = in_turns(calls, reps)
+    for key, base in (("K24", "K1 x3"), ("K25", "K2 x3"),
+                      ("K24 tail", "K1 levels 2-3"),
+                      ("K25 tail", "K2 levels 3-2")):
+        plain = t.get(f"{key} plain")
+        shown = "" if plain is None else f", plain {plain * 1e3:.1f} us"
+        print(f"time {key} db2 L3 {FRAME}, device: kernel "
+              f"{t[key] * 1e3:.1f} us, {base} {t[base] * 1e3:.1f} us"
+              f"{shown}  [{card}]")
+
+    def per_level(x):
+        return dwt.waverec2(dwt.wavedec2(x, fb, 3), fb, x.shape)
+
+    def tail_fused(x):
+        dwt.set_tail_fuse(True)
+        try:
+            return per_level(x)
+        finally:
+            dwt.set_tail_fuse(False)
+
+    def all_levels(x):
+        return fp.waverec2_pyramid(fp.wavedec2_pyramid(x, fb, 3), fb,
+                                   x.shape)
+
+    ways = {"per-level": lambda: per_level(nx()),
+            "tail-fused": lambda: tail_fused(nx()),
+            "all-levels": lambda: all_levels(nx())}
+    # the per-level roundtrip of each frame captured once
+    graphs = []
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for f in frames:
+            per_level(f)
+    torch.cuda.current_stream().wait_stream(side)
+    for f in frames:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            out = per_level(f)
+        graphs.append((g, f, out))
+    for g, f, out in graphs:
+        g.replay()
+    torch.cuda.synchronize()
+    err = max(max_err(out, per_level(f)) for g, f, out in graphs)
+    if err > 1e-6:
+        raise AssertionError(f"graph replay vs eager roundtrip {err:.3e}")
+    ng = itertools.cycle(graphs).__next__
+    ways["per-level graph"] = lambda: ng()[0].replay()
+    rt = {}
+    for clock, device_only in (("device", True), ("wall", False)):
+        rt[clock] = in_turns(ways, dict.fromkeys(ways, 3),
+                             device_only=device_only)
+    for way in ways:
+        d, w = rt["device"][way], rt["wall"][way]
+        print(f"time L3 db2 roundtrip {FRAME} {way}: device {d:.4f} ms, wall "
+              f"{w:.4f} ms ({1e3 / w:.0f} frames/s wall)  [{card}]")
+    del graphs
+    return {"K24": (t["K24"], t["K24 plain"]),
+            "K25": (t["K25"], t["K25 plain"])}
+
+
 _PK, _NSP = "ops/pallas_dwt.py", "ops/nonsep_pallas.py"
 # key, name, source under pypwt_tpu_torch/csrc/, the TPU kernel's call
 KERNEL_ROWS = (
@@ -2437,6 +2779,10 @@ KERNEL_ROWS = (
     ("K7b", "idwt1d_mxu (K7b)", "tc_dwt1d.cu", "ops/mxu_dwt.py:477"),
     ("K12a", "swt1d_mxu (K12a)", "tc_swt1d.cu", "ops/mxu_swt.py:494"),
     ("K12b", "iswt1d_mxu (K12b)", "tc_swt1d.cu", "ops/mxu_swt.py:560"),
+    ("K24", "wavedec2_pyramid (K24)", "pyramid2d.cu",
+     "ops/fused_pyramid.py:168"),
+    ("K25", "waverec2_pyramid (K25)", "pyramid2d.cu",
+     "ops/fused_pyramid.py:308"),
 )
 
 
@@ -2465,7 +2811,16 @@ def timed_work(port):
         "K19": (8 * n2, 4 * h * n2), "K20": (12 * n2, 4 * h * n2),
         "K7a": (8 * n2, 2 * hw * n2), "K7b": (8 * n2, 2 * hw * n2),
         "K12a": (12 * n2, 4 * hw * n2), "K12b": (12 * n2, 4 * hw * n2),
+        "K24": (pyr_bytes(n2, 3), 4 * h * n2 * sum(4 ** -l for l in range(3))),
+        "K25": (pyr_bytes(n2, 3), 4 * h * n2 * sum(4 ** -l for l in range(3))),
     }
+
+
+def pyr_bytes(n, levels):
+    """Bytes of a whole-pyramid kernel over ``levels`` levels of an image of
+    n float32 samples: the image once, the details of every level and the
+    deepest approximation once, 4 n (2 - 4^-L)."""
+    return 4 * n * (2 - 4.0 ** -levels)
 
 
 def path_bounds():
@@ -2490,6 +2845,11 @@ def path_bounds():
         "K22": 8 * n2,
         "K23": len(STATIC_SPINS) * spin,
         "K15": 16 * sum(n / 2 ** lev for lev in range(5)) + 24 * n * 3,
+        # the two-level tail of tail fusion: K24 on the level-0
+        # approximation of 2048^2 (and K1 at levels 2 and 3, for scale)
+        "K24 tail": pyr_bytes(n2 / 4, 2),
+        "K1 levels 2-3": 8 * (n2 / 4 + n2 / 16),
+        "K1 levels 1-3": 8 * sum(levels),
     }
     return {k: b / PEAK_BYTES * 1e3 for k, b in paths.items()}
 
@@ -2526,6 +2886,7 @@ def main():
     worst.update(phase_kernels_mxu(port, dev))
     worst.update(phase_kernels_mxu1d(port, dev))
     phase_kernels_f64(port, dev)
+    worst.update(phase_kernels_pyramid(port, dev))
     launches = phase_main_path(port, dev)
     launches.update(phase_main_paths_1d(port, dev))
     launches.update(phase_main_paths_2d_swt(port, dev))
@@ -2533,6 +2894,7 @@ def main():
     launches.update(phase_main_paths_mxu(port, dev))
     launches.update(phase_main_paths_mxu1d(port, dev))
     phase_main_paths_f64(port, dev)
+    launches.update(phase_main_paths_pyramid(port, dev))
     times = phase_times(port, dev, card)
     times.update(phase_times_1d(port, dev, card))
     times.update(phase_times_2d_swt(port, dev, card))
@@ -2540,6 +2902,7 @@ def main():
     times.update(phase_times_mxu(port, dev, card))
     times.update(phase_times_mxu1d(port, dev, card))
     phase_times_f64(port, dev, card)
+    times.update(phase_times_pyramid(port, dev, card))
     library = phase_library(port, dev, card)
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "pypwt_tpu.")))

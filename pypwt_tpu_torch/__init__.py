@@ -12,12 +12,18 @@ K16/K17 (DWT) and K18a/K18b (SWT) (``ops.nonsep``; sources in
 ``csrc/``); the threshold operators (``core.thresh``); the ``Wavelets``
 class for all of them; and the denoising pipelines (``pipeline``:
 ``denoise2d`` and the cycle-spinning ``denoise2d_cycle_spinning``, whose
-shifted levels run on K19/K20, ``ops.shifted``); and the tensor-core
-path of wide banks, ``core.dwt.set_kernels("mxu")`` with
+shifted levels run on K19/K20, ``ops.shifted``); the tensor-core path of
+wide banks, ``core.dwt.set_kernels("mxu")`` with
 ``set_mxu_precision("highest"|"bf16")``, whose 2D DWT levels run on
-K5/K6 (``ops.mxu_dwt``) and 2D SWT levels on K11a/K11b (``ops.mxu_swt``).
-This package imports neither jax nor pypwt_tpu, and builds its kernels at
-their first launch, never at import.
+K5/K6 and 1D DWT levels on K7a/K7b (``ops.mxu_dwt``), 2D SWT levels on
+K11a/K11b and 1D SWT levels on K12a/K12b (``ops.mxu_swt``); float64 plans
+on the float64 instances of the tap-loop kernels; and the whole-pyramid
+2D DWT, every level in one launch of K24 (analysis) or K25 (synthesis)
+(``ops.fused_pyramid.wavedec2_pyramid``/``waverec2_pyramid``), which
+tail-level fusion (``core.dwt.set_tail_fuse(True)`` or
+``PYPWT_TAIL_FUSE=1``, off by default) runs under ``core.dwt.wavedec2``/
+``waverec2`` for levels 2..L.  This package imports neither jax nor
+pypwt_tpu, and builds its kernels at their first launch, never at import.
 
 Quick start (mirrors the reference README):
 

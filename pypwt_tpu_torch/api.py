@@ -8,8 +8,10 @@ Mirrors the Cython class (src/pypwt.pyx:64-615) and the C++ plan object
 the level kernels: K1/K2 for the 2D DWT, K8/K9 for the 2D SWT, K3/K4 for
 the 1D DWT, K10 for the 1D SWT, K16/K17 and K18a/K18b for the
 non-separable DWT and SWT of a custom 2D bank; under
-``core.dwt.set_kernels("mxu")`` the tensor-core forms K5/K6 and K11a/K11b
-for the 2D DWT and SWT levels they cover), coefficients live on the
+``core.dwt.set_kernels("mxu")`` the tensor-core forms K5/K6, K7a/K7b,
+K11a/K11b and K12a/K12b for the levels they cover; with tail fusion on,
+``core.dwt.set_tail_fuse(True)``, the 2D DWT's levels 2..L in one launch of
+K24/K25), coefficients live on the
 device and are copied back on access, and the reference's state machine
 (coefficients are declared invalid after ``inverse()``) is kept.
 

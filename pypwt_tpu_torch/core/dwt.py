@@ -40,10 +40,21 @@ dtype, device and shape, never by catching an error:
 measured on a TPU, and a tensor-core form becomes a default route only
 once the H100 has shown it (ROADMAP.md).
 
-The environment sets both at import, as in JAX (``pypwt_tpu/core/dwt.py``):
-``PYPWT_KERNELS`` (default ``"auto"``) and ``PYPWT_MXU_PRECISION``
-(default ``"highest"``); a value the setter refuses raises ``ValueError``
-at import, naming the variable.
+Tail-level fusion (``set_tail_fuse(True)``), off by default as in JAX
+(``pypwt_tpu/core/dwt.py:226-298``): ``wavedec2`` of 3 or more levels runs
+level 0 through ``dwt2d`` (so on K1, or K5 in mode "mxu") and levels 2..L
+in one launch of K24 (``ops.fused_pyramid``), and ``waverec2`` levels L..2
+in one launch of K25, then level 0 through ``idwt2d``, wherever the
+pyramid kernels cover the tail (float32, an even bank, both sizes of the
+level-0 approximation divisible by 2^(L-1)); elsewhere, and in mode
+"torch" (JAX's "jnp"), the levels run one by one, as JAX decides, before
+any launch.  On a CPU tensor the tail runs the pyramid's plain version.
+
+The environment sets all three at import, as in JAX
+(``pypwt_tpu/core/dwt.py``): ``PYPWT_KERNELS`` (default ``"auto"``),
+``PYPWT_MXU_PRECISION`` (default ``"highest"``), where a value the setter
+refuses raises ``ValueError`` at import, naming the variable, and
+``PYPWT_TAIL_FUSE`` (on if exactly ``"1"``, off for anything else).
 """
 
 from __future__ import annotations
@@ -53,7 +64,7 @@ import os
 import numpy as np
 import torch
 
-from ..ops import fused_dwt, mxu_dwt, shifted
+from ..ops import fused_dwt, fused_pyramid, mxu_dwt, shifted
 from .shapes import div2
 
 _MODES = ("auto", "torch", "cuda", "mxu")
@@ -94,8 +105,18 @@ def _from_env(var, setter, default):
         raise ValueError(f"{var}={value!r}: {e}") from None
 
 
+_TAIL_FUSE = False
+
+
+def set_tail_fuse(on: bool):
+    """Turn tail-level fusion on or off (see the module docstring)."""
+    global _TAIL_FUSE
+    _TAIL_FUSE = bool(on)
+
+
 _from_env("PYPWT_KERNELS", set_kernels, "auto")
 _from_env("PYPWT_MXU_PRECISION", set_mxu_precision, "highest")
+set_tail_fuse(os.environ.get("PYPWT_TAIL_FUSE", "0") == "1")
 
 
 def _route(kernel, tensor, why):
@@ -157,6 +178,44 @@ def use_k2(a, h, v, d, fb, out_shape) -> bool:
     """Routing decision for one synthesis level (see module docstring)."""
     return _route(fused_dwt.idwt2d_fused, a,
                   fused_dwt.idwt2d_unsupported(a, h, v, d, fb, out_shape))
+
+
+def _pyramid_route(kernel, tensor, why):
+    """True if a pyramid's levels go to K24/K25 (``kernel``) as one launch:
+    mode is not "torch" and the kernel covers them (``why`` None; else
+    JAX's None, and the levels run one by one).  On a CPU tensor the
+    wrapper runs its plain version (mode "cuda" raises there)."""
+    if why is not None or _KERNEL_MODE == "torch":
+        return False
+    return _route(kernel, tensor, None) or not tensor.is_cuda
+
+
+def use_k24(image, fb, levels) -> bool:
+    """Routing decision for the tail of tail fusion's analysis: levels
+    2..L of ``image``'s pyramid go to K24 where it covers their input, the
+    level-0 approximation, decided from its shape and dtype before level 0
+    runs."""
+    a0 = torch.empty((*image.shape[:-2], div2(image.shape[-2]),
+                      div2(image.shape[-1])), dtype=image.dtype,
+                     device="meta")
+    return _pyramid_route(
+        fused_pyramid.wavedec2_pyramid_fused, image,
+        fused_pyramid.wavedec2_pyramid_unsupported(a0, fb, levels - 1))
+
+
+def use_k25(coeffs, fb) -> bool:
+    """Routing decision for the tail of tail fusion's synthesis: levels
+    L..2 of pyramid ``coeffs`` go to K25 where it covers them, up to the
+    level-0 approximation (of level 1's subband shape)."""
+    return _pyramid_route(
+        fused_pyramid.waverec2_pyramid_fused, coeffs[0],
+        fused_pyramid.waverec2_pyramid_unsupported(_tail(coeffs), fb,
+                                                   coeffs[1][0].shape))
+
+
+def _tail(coeffs):
+    """The pyramid of levels 2..L: ``[a_L, (h, v, d) of level 2, ...]``."""
+    return [coeffs[0]] + list(coeffs[2:])
 
 
 def use_k3(x, fb) -> bool:
@@ -249,8 +308,36 @@ def idwt2d_unshift(a, h, v, d, fb, out_shape, sr, sc, acc=None, scale=1.0):
                                         acc, scale)
 
 
+def wavedec2_tailfused(image, fb, levels: int):
+    """Level 0 on its own kernel (``dwt2d``), levels 2..L in one K24
+    launch; None where the tail is not covered, L < 3 or in mode "torch"
+    (JAX's None)."""
+    if levels < 3 or not use_k24(image, fb, levels):
+        return None
+    a0, h0, v0, d0 = dwt2d(image, fb)
+    tail = fused_pyramid.wavedec2_pyramid_fused(a0.contiguous(), fb,
+                                                levels - 1)
+    return [tail[0], (h0, v0, d0)] + tail[1:]
+
+
+def waverec2_tailfused(coeffs, fb, shape):
+    """Inverse of ``wavedec2_tailfused``: levels L..2 in one K25 launch,
+    level 0 on its own kernel (``idwt2d``); None where the tail is not
+    covered, L < 3 or in mode "torch"."""
+    if len(coeffs) - 1 < 3 or not use_k25(coeffs, fb):
+        return None
+    h0, v0, d0 = coeffs[1]
+    a1 = fused_pyramid.waverec2_pyramid_fused(
+        fused_pyramid.contiguous(_tail(coeffs)), fb, h0.shape)
+    return idwt2d(a1, h0, v0, d0, fb, shape)
+
+
 def wavedec2(image, fb, levels: int):
     """Multi-level separable 2D forward transform -> pyramid list."""
+    if _TAIL_FUSE:
+        r = wavedec2_tailfused(image, fb, levels)
+        if r is not None:
+            return r
     a = image
     details = []
     for _ in range(levels):
@@ -262,6 +349,10 @@ def wavedec2(image, fb, levels: int):
 def waverec2(coeffs, fb, shape):
     """Multi-level separable 2D inverse.  ``shape`` is the original image
     shape; per-level output sizes follow the div2 chain (wt.cu:332-342)."""
+    if _TAIL_FUSE:
+        r = waverec2_tailfused(coeffs, fb, shape)
+        if r is not None:
+            return r
     levels = len(coeffs) - 1
     sizes = [tuple(shape[-2:])]
     for _ in range(levels):

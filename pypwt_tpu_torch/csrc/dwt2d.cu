@@ -29,7 +29,8 @@
 // byte (67 TFLOP/s over 3.35 TB/s) for every hlen < 40, so memory-bound.
 // The shift and the threshold add no traffic.
 //
-// Design: each block owns a TR x TC tile of the four outputs. It stages
+// Design (ana::tile of level2d.cuh, which K24 shares): each block owns a
+// TR x TC tile of the four outputs. It stages
 // the (2TR + hlen - 2) x (2TC + hlen - 2) input window into shared memory
 // once, with a true periodic wrap, split into even and odd columns so that
 // the decimating taps read consecutive words (no bank conflicts). The
@@ -45,121 +46,25 @@
 // instance (pypwt_dwt2d_f64; K1 only) stages twice the bytes: 139 KB at
 // hlen 40, within the 227 KB a block may opt into.
 
-#include "common.cuh"
+#include "level2d.cuh"
 
 namespace pypwt {
 namespace {
-
-constexpr int TR = 32;  // output rows per block
-constexpr int TC = 32;  // output columns per block
-
-enum Thresh { kNone = 0, kSoft = 1, kHard = 2 };
-
-__host__ __device__ inline int win_rows(int hlen) { return 2 * TR + hlen - 2; }
-// window columns of one parity: (2TC + hlen - 2) / 2
-__host__ __device__ inline int win_half_cols(int hlen) { return TC + hlen / 2 - 1; }
-
-template <class T>
-inline size_t smem_bytes(int hlen) {
-  const size_t wr = win_rows(hlen), wc2 = win_half_cols(hlen);
-  return sizeof(T) * (2 * wr * wc2 + 2 * wr * TC + 2 * kMaxTaps);
-}
-
-// Source index of window sample k of an axis of n samples, for a plane
-// rolled by s in [0, n) (kShift) and extended by its last sample where n
-// is odd (kOdd).
-template <bool kOdd, bool kShift>
-__device__ __forceinline__ int source(int k, int n, int s) {
-  if (!kShift) return kOdd ? wrap_ext(k, n) : wrap(k, n);
-  if (!kOdd) return wrap(k - s, n);
-  const int i = wrap_ext(k, n) - s;
-  return i < 0 ? i + n : i;
-}
-
-// The epilogue of K19 (float32 only: the float64 instance is kNone).
-template <int kMode>
-__device__ __forceinline__ float threshold(float x, float beta) {
-  if (kMode == kSoft) return copysignf(fmaxf(fabsf(x) - beta, 0.f), x);
-  if (kMode == kHard) return fabsf(x) > beta ? x : 0.f;
-  return x;
-}
-
-template <int kMode>
-__device__ __forceinline__ double threshold(double x, float) {
-  static_assert(kMode == kNone, "K19 is float32 only");
-  return x;
-}
 
 template <class T, bool kOdd, bool kShift, int kMode>
 __global__ void __launch_bounds__(kThreads)
 dwt2d_kernel(const T* __restrict__ x, T* __restrict__ a, T* __restrict__ h,
              T* __restrict__ v, T* __restrict__ d, int nr, int nc,
              TapsT<T> taps, int hlen, int y0, int sr, int sc, float beta) {
-  const int wr = win_rows(hlen), wc2 = win_half_cols(hlen), wc = 2 * wc2;
-  T* s_ev = dynamic_smem<T>();     // [wr][wc2] even window columns
-  T* s_od = s_ev + wr * wc2;       // [wr][wc2] odd window columns
-  T* s_lo = s_od + wr * wc2;       // [wr][TC] last-axis low-pass
-  T* s_hi = s_lo + wr * TC;        // [wr][TC] last-axis high-pass
-  T* f_lo = s_hi + wr * TC;        // reversed taps: f[j] = dec[hlen-1-j]
-  T* f_hi = f_lo + kMaxTaps;
-
-  const int tid = threadIdx.x;
-  const int lr = (nr + 1) >> 1, lc = (nc + 1) >> 1;
-  const int r0 = (y0 + blockIdx.y) * TR, c0 = blockIdx.x * TC;
-  const int lpad = analysis_lpad(hlen);
-  const T* xb = x + static_cast<long long>(blockIdx.z) * nr * nc;
-  const long long ob = static_cast<long long>(blockIdx.z) * lr * lc;
-
-  load_reversed_taps(taps, hlen, f_lo, f_hi);
-  const int row0 = 2 * r0 - lpad, col0 = 2 * c0 - lpad;
-  for (int i = tid; i < wr * wc; i += kThreads) {
-    const int r = i / wc, c = i - r * wc;
-    const T val =
-        xb[static_cast<long long>(source<kOdd, kShift>(row0 + r, nr, sr)) * nc +
-           source<kOdd, kShift>(col0 + c, nc, sc)];
-    (c & 1 ? s_od : s_ev)[r * wc2 + (c >> 1)] = val;
-  }
-  __syncthreads();
-
-  // Last axis: window column 2c + j feeds output column c.
-  for (int i = tid; i < wr * TC; i += kThreads) {
-    const int r = i / TC, c = i - r * TC;
-    const T* ev = s_ev + r * wc2 + c;
-    const T* od = s_od + r * wc2 + c;
-    T lo = 0, hi = 0;
-    for (int j = 0; j < hlen; j += 2) {
-      const T e = ev[j >> 1], o = od[j >> 1];
-      lo = fmadd(e, f_lo[j], lo);
-      hi = fmadd(e, f_hi[j], hi);
-      lo = fmadd(o, f_lo[j + 1], lo);
-      hi = fmadd(o, f_hi[j + 1], hi);
-    }
-    s_lo[i] = lo;
-    s_hi[i] = hi;
-  }
-  __syncthreads();
-
-  // Axis -2: window row 2r + j feeds output row r.
-  for (int i = tid; i < TR * TC; i += kThreads) {
-    const int r = i / TC, c = i - r * TC;
-    const int orow = r0 + r, ocol = c0 + c;
-    if (orow >= lr || ocol >= lc) continue;
-    const T* lo = s_lo + 2 * r * TC + c;
-    const T* hi = s_hi + 2 * r * TC + c;
-    T sa = 0, sh = 0, sv = 0, sd = 0;
-    for (int j = 0; j < hlen; ++j) {
-      const T l = lo[j * TC], g = hi[j * TC];
-      sa = fmadd(l, f_lo[j], sa);
-      sh = fmadd(l, f_hi[j], sh);
-      sv = fmadd(g, f_lo[j], sv);
-      sd = fmadd(g, f_hi[j], sd);
-    }
-    const long long o = ob + static_cast<long long>(orow) * lc + ocol;
-    a[o] = sa;
-    h[o] = threshold<kMode>(sh, beta);
-    v[o] = threshold<kMode>(sv, beta);
-    d[o] = threshold<kMode>(sd, beta);
-  }
+  T* smem = dynamic_smem<T>();
+  T* f_lo = ana::taps(smem, hlen);
+  load_reversed_taps(taps, hlen, f_lo, f_lo + kMaxTaps);
+  const long long pi = static_cast<long long>(blockIdx.z) * nr * nc;
+  const long long po =
+      static_cast<long long>(blockIdx.z) * ((nr + 1) >> 1) * ((nc + 1) >> 1);
+  ana::tile<T, kOdd, kShift, kMode, false>(
+      x + pi, a + po, h + po, v + po, d + po, nr, nc, hlen,
+      (y0 + blockIdx.y) * ana::TR, blockIdx.x * ana::TC, sr, sc, beta, smem);
 }
 
 template <class T>
@@ -201,13 +106,14 @@ int launch(const T* x, T* a, T* h, T* v, T* d, int batch, int nr, int nc,
   if (shift && !std::is_same_v<T, float>)
     return static_cast<int>(cudaErrorInvalidValue);
   const Kernel<T> kernel = pick_kernel<T>(odd, shift, mode);
-  const size_t smem = smem_bytes<T>(hlen);
+  const size_t smem = ana::smem_bytes<T>(hlen);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int lr = (nr + 1) / 2, lc = (nc + 1) / 2;
-  launch_chunks((lc + TC - 1) / TC, (lr + TR - 1) / TR, batch,
+  launch_chunks((lc + ana::TC - 1) / ana::TC, (lr + ana::TR - 1) / ana::TR,
+                batch,
                 [&](dim3 grid, int y0, int z0) {
                   const long long pi = static_cast<long long>(z0) * nr * nc;
                   const long long po = static_cast<long long>(z0) * lr * lc;

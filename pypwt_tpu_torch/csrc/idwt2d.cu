@@ -30,8 +30,9 @@
 // in all: hlen/2 flop per byte, under the H100's float32 ridge of ~20 flop
 // per byte for every hlen < 40, so memory-bound.
 //
-// Design: each block owns a (2TR) x (2TC) output tile. It stages the
-// (TR + h2) x (TC + h2) windows of all four inputs into shared memory once,
+// Design (syn::tile of level2d.cuh, which K25 shares): each block owns a
+// (2TR) x (2TC) output tile. It stages the (TR + h2) x (TC + h2) windows
+// of all four inputs into shared memory once,
 // with a true periodic wrap, runs the axis -2 synthesis into two shared
 // tiles (t1, t2: 2TR rows x (TC + h2) columns), then the last-axis
 // synthesis, and writes the output tile with consecutive threads on
@@ -48,23 +49,10 @@
 // offsets are 64-bit. The float64 instance (pypwt_idwt2d_f64; K2 only)
 // stages twice the bytes: 140 KB at hlen 40.
 
-#include "common.cuh"
+#include "level2d.cuh"
 
 namespace pypwt {
 namespace {
-
-constexpr int TR = 32;  // coefficient rows per block (2TR output rows)
-constexpr int TC = 32;  // coefficient columns per block (2TC output columns)
-
-// Staged coefficient rows / columns of a block: one more for K20, whose
-// tile may start at an odd y row or column.
-template <class T, bool kShift>
-inline size_t smem_bytes(int hlen) {
-  const size_t e = kShift ? 1 : 0, h2 = hlen / 2;
-  const size_t wr = TR + e + h2, ww = TC + e + h2;
-  return sizeof(T) * (4 * wr * ww + 2 * (2 * (TR + e)) * ww +
-                      4 * kHalfTaps);
-}
 
 template <class T, bool kShift>
 __global__ void __launch_bounds__(kThreads)
@@ -73,84 +61,15 @@ idwt2d_kernel(const T* __restrict__ a, const T* __restrict__ h,
               const T* __restrict__ acc, T* __restrict__ out, int lr, int lc,
               int nr, int nc, TapsT<T> taps, int hlen, int y0, int sr,
               int sc, float scale) {
-  constexpr int e = kShift ? 1 : 0;
-  const Polyphase ph(hlen);
-  const int h2 = ph.h2, c = ph.c;
-  const int wr = TR + e + h2, ww = TC + e + h2;
-  T* s_a = dynamic_smem<T>();      // [wr][ww] coefficient windows
-  T* s_h = s_a + wr * ww;
-  T* s_v = s_h + wr * ww;
-  T* s_d = s_v + wr * ww;
-  T* t1 = s_d + wr * ww;           // [2(TR+e)][ww] axis -2 synthesis of (a, h)
-  T* t2 = t1 + 2 * (TR + e) * ww;  // ... of (v, d)
-  T* g_lo = t2 + 2 * (TR + e) * ww;  // [2][kHalfTaps] taps per parity
-  T* g_hi = g_lo + 2 * kHalfTaps;
-
-  const int tid = threadIdx.x;
-  // output tile origin, and the y row / column its first pixel reads
-  const int R0 = 2 * TR * (y0 + blockIdx.y), C0 = 2 * TC * blockIdx.x;
-  const int Y0 = R0 + sr, X0 = C0 + sc;
-  const int m0 = Y0 >> 1, n0 = X0 >> 1;  // first coefficient row, column
-  const int py = Y0 & 1, px = X0 & 1;    // 0 unless kShift
-  const long long ib = static_cast<long long>(blockIdx.z) * lr * lc;
-  const long long obase = static_cast<long long>(blockIdx.z) * nr * nc;
-
-  load_polyphase_taps(taps, hlen, g_lo, g_hi);
-  // window origin: coefficient (m0 - c, n0 - c)
-  for (int i = tid; i < wr * ww; i += kThreads) {
-    const int r = i / ww, q = i - r * ww;
-    const long long o = ib + static_cast<long long>(wrap(m0 - c + r, lr)) * lc +
-                        wrap(n0 - c + q, lc);
-    s_a[i] = a[o];
-    s_h[i] = h[o];
-    s_v[i] = v[o];
-    s_d[i] = d[o];
-  }
-  __syncthreads();
-
-  // Axis -2: y row 2(m0 + m) + p reads window rows m + delta_p + j.
-  for (int i = tid; i < 2 * (TR + e) * ww; i += kThreads) {
-    const int q = i / ww, w = i - q * ww;
-    const int p = q & 1;
-    const int base = ((q >> 1) + ph.delta(p)) * ww + w;
-    const T* gl = g_lo + p * kHalfTaps;
-    const T* gh = g_hi + p * kHalfTaps;
-    T x1 = 0, x2 = 0;
-    for (int j = 0; j < h2; ++j) {
-      const int k = base + j * ww;
-      x1 = fmadd(s_a[k], gl[j], x1);
-      x1 = fmadd(s_h[k], gh[j], x1);
-      x2 = fmadd(s_v[k], gl[j], x2);
-      x2 = fmadd(s_d[k], gh[j], x2);
-    }
-    t1[i] = x1;
-    t2[i] = x2;
-  }
-  __syncthreads();
-
-  // Last axis: output column C0 + n is y column 2 n0 + (n + px) = 2m + p,
-  // which reads window columns m - n0 + delta_p + j.
-  for (int i = tid; i < 4 * TR * TC; i += kThreads) {
-    const int q = i / (2 * TC), n = i - q * (2 * TC);
-    const int orow = R0 + q, ocol = C0 + n;
-    if (orow >= nr || ocol >= nc) continue;
-    const int nn = n + px;
-    const int p = nn & 1;
-    const int base = (q + py) * ww + (nn >> 1) + ph.delta(p);
-    const T* gl = g_lo + p * kHalfTaps;
-    const T* gh = g_hi + p * kHalfTaps;
-    T s = 0;
-    for (int j = 0; j < h2; ++j) {
-      s = fmadd(t1[base + j], gl[j], s);
-      s = fmadd(t2[base + j], gh[j], s);
-    }
-    const long long o = obase + static_cast<long long>(orow) * nc + ocol;
-    if (kShift) {
-      if (acc) s += acc[o];
-      s *= scale;
-    }
-    out[o] = s;
-  }
+  T* smem = dynamic_smem<T>();
+  T* g_lo = syn::taps<T, kShift>(smem, hlen);
+  load_polyphase_taps(taps, hlen, g_lo, g_lo + 2 * kHalfTaps);
+  const long long pi = static_cast<long long>(blockIdx.z) * lr * lc;
+  const long long po = static_cast<long long>(blockIdx.z) * nr * nc;
+  syn::tile<T, kShift, false>(
+      a + pi, h + pi, v + pi, d + pi, acc ? acc + po : acc, out + po, lr, lc,
+      nr, nc, hlen, 2 * syn::TR * (y0 + blockIdx.y),
+      2 * syn::TC * blockIdx.x, sr, sc, scale, smem);
 }
 
 // K20's direct form: one thread per output pixel, for a shifted odd axis.
@@ -236,13 +155,15 @@ int launch(const T* a, const T* h, const T* v, const T* d, const T* acc,
   }
   auto kernel = shifted ? idwt2d_kernel<T, true> : idwt2d_kernel<T, false>;
   const size_t smem =
-      shifted ? smem_bytes<T, true>(hlen) : smem_bytes<T, false>(hlen);
+      shifted ? syn::smem_bytes<T, true>(hlen)
+              : syn::smem_bytes<T, false>(hlen);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   // output tiles of 2TR x 2TC pixels
-  launch_chunks((nc + 2 * TC - 1) / (2 * TC), (nr + 2 * TR - 1) / (2 * TR),
+  launch_chunks((nc + 2 * syn::TC - 1) / (2 * syn::TC),
+                (nr + 2 * syn::TR - 1) / (2 * syn::TR),
                 batch, [&](dim3 grid, int y0, int z0) {
                   const long long pi = static_cast<long long>(z0) * lr * lc;
                   const long long po = static_cast<long long>(z0) * nr * nc;

@@ -1,0 +1,269 @@
+// The tile bodies of one separable 2D DWT level, analysis and synthesis,
+// shared by the one-level kernels K1/K19 (dwt2d.cu) and K2/K20
+// (idwt2d.cu) and by the whole-pyramid kernels K24/K25 (pyramid2d.cu),
+// which run them for every level of a pyramid in one launch.
+//
+// A tile is one block's share of a level: it stages its input window into
+// the block's dynamic shared memory, runs both separable passes there, with
+// a barrier after the staging and after the first pass, and stores its
+// outputs. A block may run one tile after another (the pyramid kernels'
+// grid-stride loops) with no barrier between them: a tile's staging writes
+// only the window buffers, which the tile before stopped reading at its
+// second barrier, and its first pass, which overwrites the pass buffers,
+// waits at its own first barrier for every thread to leave the tile before.
+#pragma once
+
+#include "common.cuh"
+
+namespace pypwt {
+
+enum Thresh { kNone = 0, kSoft = 1, kHard = 2 };
+
+// A load from device memory: plain, or (kCoherent) cached in L2 only
+// (ld.global.cg), for data that an earlier level of the same launch wrote
+// (the pyramid kernels' intermediate approximations), which the
+// non-coherent read-only path could serve stale.
+template <bool kCoherent, class T>
+__device__ __forceinline__ T load(const T* p) {
+  if constexpr (kCoherent) {
+    return __ldcg(p);
+  } else {
+    return *p;
+  }
+}
+
+// -- analysis: K1's level (map and design: dwt2d.cu) -----------------------
+namespace ana {
+
+constexpr int TR = 32;  // output rows per tile
+constexpr int TC = 32;  // output columns per tile
+
+__host__ __device__ inline int win_rows(int hlen) { return 2 * TR + hlen - 2; }
+// window columns of one parity: (2TC + hlen - 2) / 2
+__host__ __device__ inline int win_half_cols(int hlen) {
+  return TC + hlen / 2 - 1;
+}
+
+template <class T>
+inline size_t smem_bytes(int hlen) {
+  const size_t wr = win_rows(hlen), wc2 = win_half_cols(hlen);
+  return sizeof(T) * (2 * wr * wc2 + 2 * wr * TC + 2 * kMaxTaps);
+}
+
+// The reversed taps f_lo (f_hi = f_lo + kMaxTaps) behind the tile's
+// buffers; the kernel loads them once (load_reversed_taps).
+template <class T>
+__device__ __forceinline__ T* taps(T* smem, int hlen) {
+  const int wr = win_rows(hlen), wc2 = win_half_cols(hlen);
+  return smem + 2 * wr * wc2 + 2 * wr * TC;
+}
+
+// Source index of window sample k of an axis of n samples, for a plane
+// rolled by s in [0, n) (kShift) and extended by its last sample where n
+// is odd (kOdd).
+template <bool kOdd, bool kShift>
+__device__ __forceinline__ int source(int k, int n, int s) {
+  if (!kShift) return kOdd ? wrap_ext(k, n) : wrap(k, n);
+  if (!kOdd) return wrap(k - s, n);
+  const int i = wrap_ext(k, n) - s;
+  return i < 0 ? i + n : i;
+}
+
+// The epilogue of K19 (float32 only: the float64 instance is kNone).
+template <int kMode>
+__device__ __forceinline__ float threshold(float x, float beta) {
+  if (kMode == kSoft) return copysignf(fmaxf(fabsf(x) - beta, 0.f), x);
+  if (kMode == kHard) return fabsf(x) > beta ? x : 0.f;
+  return x;
+}
+
+template <int kMode>
+__device__ __forceinline__ double threshold(double x, float) {
+  static_assert(kMode == kNone, "K19 is float32 only");
+  return x;
+}
+
+// The TR x TC output tile at (r0, c0) of the level of plane x (nr x nc)
+// into planes a, h, v, d (ceil(nr/2) x ceil(nc/2)).
+template <class T, bool kOdd, bool kShift, int kMode, bool kCoherent>
+__device__ __forceinline__ void tile(const T* x, T* a, T* h, T* v, T* d,
+                                     int nr, int nc, int hlen, int r0,
+                                     int c0, int sr, int sc, float beta,
+                                     T* smem) {
+  const int wr = win_rows(hlen), wc2 = win_half_cols(hlen), wc = 2 * wc2;
+  T* s_ev = smem;                  // [wr][wc2] even window columns
+  T* s_od = s_ev + wr * wc2;       // [wr][wc2] odd window columns
+  T* s_lo = s_od + wr * wc2;       // [wr][TC] last-axis low-pass
+  T* s_hi = s_lo + wr * TC;        // [wr][TC] last-axis high-pass
+  const T* f_lo = s_hi + wr * TC;  // reversed taps: f[j] = dec[hlen-1-j]
+  const T* f_hi = f_lo + kMaxTaps;
+
+  const int tid = threadIdx.x;
+  const int lr = (nr + 1) >> 1, lc = (nc + 1) >> 1;
+  const int lpad = analysis_lpad(hlen);
+  const int row0 = 2 * r0 - lpad, col0 = 2 * c0 - lpad;
+  for (int i = tid; i < wr * wc; i += kThreads) {
+    const int r = i / wc, c = i - r * wc;
+    const T val = load<kCoherent>(
+        x + static_cast<long long>(source<kOdd, kShift>(row0 + r, nr, sr)) *
+                nc +
+        source<kOdd, kShift>(col0 + c, nc, sc));
+    (c & 1 ? s_od : s_ev)[r * wc2 + (c >> 1)] = val;
+  }
+  __syncthreads();
+
+  // Last axis: window column 2c + j feeds output column c.
+  for (int i = tid; i < wr * TC; i += kThreads) {
+    const int r = i / TC, c = i - r * TC;
+    const T* ev = s_ev + r * wc2 + c;
+    const T* od = s_od + r * wc2 + c;
+    T lo = 0, hi = 0;
+    for (int j = 0; j < hlen; j += 2) {
+      const T e = ev[j >> 1], o = od[j >> 1];
+      lo = fmadd(e, f_lo[j], lo);
+      hi = fmadd(e, f_hi[j], hi);
+      lo = fmadd(o, f_lo[j + 1], lo);
+      hi = fmadd(o, f_hi[j + 1], hi);
+    }
+    s_lo[i] = lo;
+    s_hi[i] = hi;
+  }
+  __syncthreads();
+
+  // Axis -2: window row 2r + j feeds output row r.
+  for (int i = tid; i < TR * TC; i += kThreads) {
+    const int r = i / TC, c = i - r * TC;
+    const int orow = r0 + r, ocol = c0 + c;
+    if (orow >= lr || ocol >= lc) continue;
+    const T* lo = s_lo + 2 * r * TC + c;
+    const T* hi = s_hi + 2 * r * TC + c;
+    T sa = 0, sh = 0, sv = 0, sd = 0;
+    for (int j = 0; j < hlen; ++j) {
+      const T l = lo[j * TC], g = hi[j * TC];
+      sa = fmadd(l, f_lo[j], sa);
+      sh = fmadd(l, f_hi[j], sh);
+      sv = fmadd(g, f_lo[j], sv);
+      sd = fmadd(g, f_hi[j], sd);
+    }
+    const long long o = static_cast<long long>(orow) * lc + ocol;
+    a[o] = sa;
+    h[o] = threshold<kMode>(sh, beta);
+    v[o] = threshold<kMode>(sv, beta);
+    d[o] = threshold<kMode>(sd, beta);
+  }
+}
+
+}  // namespace ana
+
+// -- synthesis: K2's level (map and design: idwt2d.cu) ---------------------
+namespace syn {
+
+constexpr int TR = 32;  // coefficient rows per tile (2TR output rows)
+constexpr int TC = 32;  // coefficient columns per tile (2TC output columns)
+
+// Staged coefficient rows / columns of a tile: one more for K20, whose
+// tile may start at an odd y row or column.
+template <class T, bool kShift>
+inline size_t smem_bytes(int hlen) {
+  const size_t e = kShift ? 1 : 0, h2 = hlen / 2;
+  const size_t wr = TR + e + h2, ww = TC + e + h2;
+  return sizeof(T) * (4 * wr * ww + 2 * (2 * (TR + e)) * ww +
+                      4 * kHalfTaps);
+}
+
+// The polyphase taps g_lo (g_hi = g_lo + 2 kHalfTaps) behind the tile's
+// buffers; the kernel loads them once (load_polyphase_taps).
+template <class T, bool kShift>
+__device__ __forceinline__ T* taps(T* smem, int hlen) {
+  constexpr int e = kShift ? 1 : 0;
+  const int h2 = hlen / 2, wr = TR + e + h2, ww = TC + e + h2;
+  return smem + 4 * wr * ww + 2 * (2 * (TR + e)) * ww;
+}
+
+// The 2TR x 2TC output tile at (R0, C0) of the level of planes a, h, v, d
+// (lr x lc) into plane out (nr x nc); kShift: K20's store,
+// out = scale * (y[(i + sr) mod nr, (j + sc) mod nc] [+ acc]).
+template <class T, bool kShift, bool kCoherent>
+__device__ __forceinline__ void tile(const T* a, const T* h, const T* v,
+                                     const T* d, const T* acc, T* out,
+                                     int lr, int lc, int nr, int nc,
+                                     int hlen, int R0, int C0, int sr,
+                                     int sc, float scale, T* smem) {
+  constexpr int e = kShift ? 1 : 0;
+  const Polyphase ph(hlen);
+  const int h2 = ph.h2, c = ph.c;
+  const int wr = TR + e + h2, ww = TC + e + h2;
+  T* s_a = smem;                   // [wr][ww] coefficient windows
+  T* s_h = s_a + wr * ww;
+  T* s_v = s_h + wr * ww;
+  T* s_d = s_v + wr * ww;
+  T* t1 = s_d + wr * ww;           // [2(TR+e)][ww] axis -2 synthesis of (a, h)
+  T* t2 = t1 + 2 * (TR + e) * ww;  // ... of (v, d)
+  const T* g_lo = t2 + 2 * (TR + e) * ww;  // [2][kHalfTaps] taps per parity
+  const T* g_hi = g_lo + 2 * kHalfTaps;
+
+  const int tid = threadIdx.x;
+  // the y row / column the tile's first pixel reads
+  const int Y0 = R0 + sr, X0 = C0 + sc;
+  const int m0 = Y0 >> 1, n0 = X0 >> 1;  // first coefficient row, column
+  const int py = Y0 & 1, px = X0 & 1;    // 0 unless kShift
+
+  // window origin: coefficient (m0 - c, n0 - c)
+  for (int i = tid; i < wr * ww; i += kThreads) {
+    const int r = i / ww, q = i - r * ww;
+    const long long o = static_cast<long long>(wrap(m0 - c + r, lr)) * lc +
+                        wrap(n0 - c + q, lc);
+    s_a[i] = load<kCoherent>(a + o);
+    s_h[i] = load<kCoherent>(h + o);
+    s_v[i] = load<kCoherent>(v + o);
+    s_d[i] = load<kCoherent>(d + o);
+  }
+  __syncthreads();
+
+  // Axis -2: y row 2(m0 + m) + p reads window rows m + delta_p + j.
+  for (int i = tid; i < 2 * (TR + e) * ww; i += kThreads) {
+    const int q = i / ww, w = i - q * ww;
+    const int p = q & 1;
+    const int base = ((q >> 1) + ph.delta(p)) * ww + w;
+    const T* gl = g_lo + p * kHalfTaps;
+    const T* gh = g_hi + p * kHalfTaps;
+    T x1 = 0, x2 = 0;
+    for (int j = 0; j < h2; ++j) {
+      const int k = base + j * ww;
+      x1 = fmadd(s_a[k], gl[j], x1);
+      x1 = fmadd(s_h[k], gh[j], x1);
+      x2 = fmadd(s_v[k], gl[j], x2);
+      x2 = fmadd(s_d[k], gh[j], x2);
+    }
+    t1[i] = x1;
+    t2[i] = x2;
+  }
+  __syncthreads();
+
+  // Last axis: output column C0 + n is y column 2 n0 + (n + px) = 2m + p,
+  // which reads window columns m - n0 + delta_p + j.
+  for (int i = tid; i < 4 * TR * TC; i += kThreads) {
+    const int q = i / (2 * TC), n = i - q * (2 * TC);
+    const int orow = R0 + q, ocol = C0 + n;
+    if (orow >= nr || ocol >= nc) continue;
+    const int nn = n + px;
+    const int p = nn & 1;
+    const int base = (q + py) * ww + (nn >> 1) + ph.delta(p);
+    const T* gl = g_lo + p * kHalfTaps;
+    const T* gh = g_hi + p * kHalfTaps;
+    T s = 0;
+    for (int j = 0; j < h2; ++j) {
+      s = fmadd(t1[base + j], gl[j], s);
+      s = fmadd(t2[base + j], gh[j], s);
+    }
+    const long long o = static_cast<long long>(orow) * nc + ocol;
+    if (kShift) {
+      if (acc) s += acc[o];
+      s *= scale;
+    }
+    out[o] = s;
+  }
+}
+
+}  // namespace syn
+}  // namespace pypwt

@@ -1,16 +1,17 @@
 """Hand-written CUDA kernels for Hopper and their wrappers (see
 ``pypwt_tpu_torch/KERNELS.md`` for the map from the TPU kernels).
 
-``KERNELS`` lists every kernel wrapper of the package, 22 in all
+``KERNELS`` lists every kernel wrapper of the package, 24 in all
 (``fused_dwt``: K1-K4, K10a/K10b, K8/K9; ``shifted``: K19/K20;
 ``nonsep``: K16/K17, K18a/K18b; the tensor-core forms ``mxu_dwt``:
-K5/K6, K7a/K7b and ``mxu_swt``: K11a/K11b, K12a/K12b); ``reset_counts``
-sets all their ``launches`` counts to 0."""
+K5/K6, K7a/K7b and ``mxu_swt``: K11a/K11b, K12a/K12b; the whole-pyramid
+kernels ``fused_pyramid``: K24/K25); ``reset_counts`` sets all their
+``launches`` counts to 0."""
 
-from . import fused_dwt, mxu_dwt, mxu_swt, nonsep, shifted
+from . import fused_dwt, fused_pyramid, mxu_dwt, mxu_swt, nonsep, shifted
 
 KERNELS = (fused_dwt.KERNELS + shifted.KERNELS + nonsep.KERNELS
-           + mxu_dwt.KERNELS + mxu_swt.KERNELS)
+           + mxu_dwt.KERNELS + mxu_swt.KERNELS + fused_pyramid.KERNELS)
 
 
 def reset_counts():

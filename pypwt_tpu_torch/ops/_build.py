@@ -99,6 +99,13 @@ _SIGNATURES = {
     "pypwt_tc_iswt1d": [_P] * 3 + [_I] * 4 + [_P, _P, _I, _I, _I, _P],
     # filters, hlen, layout, out (host arrays of float64)
     "pypwt_ns_bank_f64": [_P, _I, _I, _P],
+    # x, approx (host array of levels pointers), detail (host array of
+    # 3 levels pointers), batch, nr, nc, levels, dec_lo, dec_hi, hlen,
+    # device, stream
+    "pypwt_wavedec2_pyramid": [_P] * 3 + [_I] * 4 + [_P, _P, _I, _I, _P],
+    # out, approx, detail, batch, nr, nc, levels, rec_lo, rec_hi, hlen,
+    # device, stream
+    "pypwt_waverec2_pyramid": [_P] * 3 + [_I] * 4 + [_P, _P, _I, _I, _P],
 }
 # The float64 instances of the tap-loop kernels take the same arguments,
 # with pointers to float64 data and taps (the non-separable ones: to the

@@ -24,6 +24,11 @@ shift-aware kernels, as the JAX package's fused path does
   through the pyramid, with the detail planes in rolled coordinates
   (thresholding is pointwise, so the image is the same).
 
+``denoise2d`` (and the roll path below) runs its transforms through
+``core.dwt.wavedec2``/``waverec2``, so tail fusion, where it is on, runs
+their levels 2..L on K24/K25, as in JAX; the fused spins keep their own
+level loop, which tail fusion does not touch (``pipeline.py:92-112``).
+
 Both reduce a shift mod 2^L, which is exact only where 2^L divides both
 plane sizes (an L-level pyramid then commutes with translations by
 2^L); elsewhere a spin keeps its whole shift, which K19/K20 take as they

@@ -1,9 +1,11 @@
-"""The port reads JAX's two environment switches at import, as
+"""The port reads JAX's three environment switches at import, as
 ``pypwt_tpu/core/dwt.py`` does: ``PYPWT_KERNELS`` (default "auto") sets
 ``core.dwt.set_kernels`` and ``PYPWT_MXU_PRECISION`` (default "highest")
-``set_mxu_precision``; a value they refuse raises ``ValueError`` at import,
-naming the variable ("jnp" and "pallas" stay refused).  Each case imports
-the port in a fresh process."""
+``set_mxu_precision``, where a value they refuse raises ``ValueError`` at
+import, naming the variable ("jnp" and "pallas" stay refused);
+``PYPWT_TAIL_FUSE`` turns tail fusion on if it is exactly "1" and leaves
+it off for anything else.  Each case imports the port in a fresh
+process."""
 
 import os
 import subprocess
@@ -14,25 +16,32 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 SHOW = ("from pypwt_tpu_torch.core import dwt\n"
-        "print(dwt._KERNEL_MODE, dwt.mxu_precision())\n")
+        "print(dwt._KERNEL_MODE, dwt.mxu_precision(), dwt._TAIL_FUSE)\n")
 
 
 def _import(**env):
     base = {k: v for k, v in os.environ.items()
-            if k not in ("PYTHONPATH", "PYPWT_KERNELS", "PYPWT_MXU_PRECISION")}
+            if k not in ("PYTHONPATH", "PYPWT_KERNELS", "PYPWT_MXU_PRECISION",
+                         "PYPWT_TAIL_FUSE")}
     return subprocess.run([sys.executable, "-c", SHOW], cwd=ROOT,
                           env={**base, **env}, capture_output=True,
                           text=True, timeout=120)
 
 
 @pytest.mark.parametrize("env, want", [
-    ({}, "auto highest"),
-    ({"PYPWT_MXU_PRECISION": "bf16"}, "auto bf16"),
-    ({"PYPWT_KERNELS": "mxu"}, "mxu highest"),
-    ({"PYPWT_KERNELS": "mxu", "PYPWT_MXU_PRECISION": "bf16"}, "mxu bf16"),
-    ({"PYPWT_KERNELS": "torch"}, "torch highest"),
-    ({"PYPWT_KERNELS": "cuda"}, "cuda highest"),
-], ids=["defaults", "bf16", "mxu", "mxu-bf16", "torch", "cuda"])
+    ({}, "auto highest False"),
+    ({"PYPWT_MXU_PRECISION": "bf16"}, "auto bf16 False"),
+    ({"PYPWT_KERNELS": "mxu"}, "mxu highest False"),
+    ({"PYPWT_KERNELS": "mxu", "PYPWT_MXU_PRECISION": "bf16"},
+     "mxu bf16 False"),
+    ({"PYPWT_KERNELS": "torch"}, "torch highest False"),
+    ({"PYPWT_KERNELS": "cuda"}, "cuda highest False"),
+    ({"PYPWT_TAIL_FUSE": "0"}, "auto highest False"),
+    ({"PYPWT_TAIL_FUSE": "yes"}, "auto highest False"),
+    ({"PYPWT_TAIL_FUSE": "1"}, "auto highest True"),
+    ({"PYPWT_TAIL_FUSE": "1", "PYPWT_KERNELS": "mxu"}, "mxu highest True"),
+], ids=["defaults", "bf16", "mxu", "mxu-bf16", "torch", "cuda",
+        "tail-fuse-0", "tail-fuse-yes", "tail-fuse-1", "tail-fuse-1-mxu"])
 def test_env_switch_sets_the_mode(env, want):
     res = _import(**env)
     assert res.returncode == 0, res.stderr

@@ -1,9 +1,10 @@
-"""K1/K2, K3/K4, K10a/K10b, K8/K9, K16/K17, K18a/K18b, K19/K20 and the
+"""K1/K2, K3/K4, K10a/K10b, K8/K9, K16/K17, K18a/K18b, K19/K20, the
 tensor-core forms K5/K6, K7a/K7b, K11a/K11b and K12a/K12b (both
-precisions) against their plain versions on the GPU, at small sizes (the
-kernel phase of chip_smoke.py), odd sizes and odd filter lengths included;
-the float64 instances of the tap-loop kernels against their float64 plain
-versions; plus the auto/cuda/mxu routing on CUDA tensors, the Wavelets
+precisions) and the whole-pyramid kernels K24/K25 against their plain
+versions on the GPU, at small sizes (the kernel phase of chip_smoke.py),
+odd sizes and odd filter lengths included; the float64 instances of the
+tap-loop kernels against their float64 plain versions; plus the
+auto/cuda/mxu routing on CUDA tensors, tail fusion's routes, the Wavelets
 plans (float64 ones included) and the denoising pipelines on the card.
 
 Needs an NVIDIA GPU and nvcc; skips without a GPU.  Imports no JAX, and
@@ -22,6 +23,7 @@ from pypwt_tpu_torch.core import dwt, nonsep, swt
 from pypwt_tpu_torch.core.nonsep import Filters2D
 from pypwt_tpu_torch.filters import FilterBank, get_filter_bank
 from pypwt_tpu_torch.ops import fused_dwt as fd
+from pypwt_tpu_torch.ops import fused_pyramid as kp
 from pypwt_tpu_torch.ops import mxu_dwt as km
 from pypwt_tpu_torch.ops import mxu_swt as kms
 from pypwt_tpu_torch.ops import nonsep as kn
@@ -875,3 +877,107 @@ def test_float64_plans_on_the_card(dev, plan):
     assert np.abs(W.image.reshape(img.shape) - img).max() < 1e-10
     counts = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
     assert len(counts) == 2 and set(counts.values()) == {3}
+
+
+# -- the whole-pyramid kernels K24/K25 and tail fusion ---------------------
+
+PYR_BANKS = ["haar", "db2", "sym8", "bior4.4", "sym20"]
+PYR_CASES = [((64, 128), 2), ((2, 96, 64), 3), ((256, 512), 5), ((16, 32), 4),
+             ((3, 64, 32), 5)]
+
+
+def _flat(pyr):
+    return [pyr[0]] + [s for t in pyr[1:] for s in t]
+
+
+@pytest.mark.parametrize("wname", PYR_BANKS)
+@pytest.mark.parametrize("shape, levels", PYR_CASES, ids=str)
+def test_k24_k25_match_plain(dev, wname, shape, levels):
+    """One launch each for every level; deep levels of small planes wrap
+    their periodic pads more than once (sym20 at (16, 32), L4)."""
+    fb = get_filter_bank(wname)
+    x = _rand(shape, dev)
+    n = kp.wavedec2_pyramid_fused.launches
+    got = kp.wavedec2_pyramid_fused(x, fb, levels)
+    assert kp.wavedec2_pyramid_fused.launches == n + 1
+    ref = kp.wavedec2_pyramid_plain(x, fb, levels)
+    for g, r in zip(_flat(got), _flat(ref)):
+        assert g.shape == r.shape
+        assert float((g - r).abs().max()) <= TOL
+    c = [_rand(ref[0].shape, dev, 1)] + [
+        tuple(_rand(s.shape, dev, 2 + k) for k, s in enumerate(t))
+        for t in ref[1:]]
+    n = kp.waverec2_pyramid_fused.launches
+    out = kp.waverec2_pyramid_fused(c, fb, shape)
+    assert kp.waverec2_pyramid_fused.launches == n + 1
+    assert float((out - kp.waverec2_pyramid_plain(c, fb, shape)).abs()
+                 .max()) <= TOL
+    assert float((kp.waverec2_pyramid_fused(got, fb, shape) - x).abs()
+                 .max()) <= TOL
+
+
+def test_pyramid_kernels_refuse_uncovered_calls(dev):
+    """The public entries give None outside the coverage; the wrappers
+    raise rather than run the plain version on the card."""
+    fb = get_filter_bank("db2")
+    x = _rand((96, 64), dev)
+    assert kp.wavedec2_pyramid(x, fb, 6) is None
+    assert kp.wavedec2_pyramid(x.double(), fb, 2) is None
+    with pytest.raises(ValueError, match="does not take"):
+        kp.wavedec2_pyramid_fused(x, fb, 6)
+    pyr = kp.wavedec2_pyramid(x, fb, 3)
+    with pytest.raises(ValueError, match="does not take"):
+        kp.waverec2_pyramid_fused(pyr, fb, (96, 66))
+
+
+@pytest.mark.parametrize("case", ["db2", "mxu-sym8", "odd-covered", "float64",
+                                  "odd-a0", "two-levels", "torch-mode",
+                                  "stack"])
+def test_tail_fusion_routes_on_the_card(dev, case):
+    """Tail fusion on: level 0 on its own kernel and the tail on one K24 /
+    K25 launch where the pyramid kernels cover it, the per-level kernels
+    elsewhere (decided before launch), against the CPU per-level plan."""
+    shape = {"odd-covered": (255, 255), "odd-a0": (254, 254),
+             "stack": (2, 128, 128)}.get(case, (256, 256))
+    dtype = np.float64 if case == "float64" else np.float32
+    img = (np.random.default_rng(4).random(shape) * 255).astype(dtype)
+    wname = "sym8" if case == "mxu-sym8" else "db2"
+    levels = 2 if case == "two-levels" else 3
+    fb = get_filter_bank(wname)
+    ref = dwt.pyramid_to_numpy(dwt.wavedec2(torch.from_numpy(img), fb,
+                                            levels))
+    one, per = {"mxu-sym8": (("dwt2d_mxu_fused", "idwt2d_mxu_fused"), None),
+                "torch-mode": ((), ())}.get(
+        case, (("dwt2d_fused", "idwt2d_fused"), None))
+    fused = case in ("db2", "mxu-sym8", "odd-covered", "stack")
+    if fused:
+        want_f = {one[0]: 1, "wavedec2_pyramid_fused": 1}
+        want = {**want_f, one[1]: 1, "waverec2_pyramid_fused": 1}
+    elif case == "torch-mode":
+        want_f = want = {}
+    else:
+        want_f = {"dwt2d_fused": levels}
+        want = {**want_f, "idwt2d_fused": levels}
+    dwt.set_tail_fuse(True)
+    try:
+        if case == "mxu-sym8":
+            _mxu("mxu")
+        if case == "torch-mode":
+            dwt.set_kernels("torch")
+        x = torch.from_numpy(img).to(dev)
+        ops.reset_counts()
+        pyr = dwt.wavedec2(x, fb, levels)
+        counts_f = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+        back = dwt.waverec2(pyr, fb, x.shape)
+        counts = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+    finally:
+        dwt.set_tail_fuse(False)
+        _mxu("auto")
+    assert counts_f == want_f and counts == want
+    tol = 1e-11 if dtype == np.float64 else 3e-4
+    for lev, (g, r) in enumerate(zip(dwt.pyramid_to_numpy(pyr), ref)):
+        for a, b in zip(g if isinstance(g, tuple) else (g,),
+                        r if isinstance(r, tuple) else (r,)):
+            assert np.abs(a - b).max() <= tol * 2 ** (lev or levels)
+    assert np.abs(back.cpu().numpy() - img).max() < (
+        1e-10 if dtype == np.float64 else 7e-4)
