@@ -44,7 +44,12 @@ prints its traceback and exits non-zero without the final ok line:
    against their plain versions on 0..255 data (each level within
    3e-4 * 2^level, roundtrip within 7e-4, one launch each) over db2, sym8,
    bior4.4 and sym20, L 2, 3 and 5, 2048^2 and 256 x 512, and the stack at
-   db2 L3, and against the oracle level by level;
+   db2 L3, and against the oracle level by level; then the row-sharded
+   kernels K26a/K26b, K27a/K27b (float32, and float64 at db4) and K28's
+   four entries (both precisions) on 4 virtual shards of cuda:0, against
+   their plain versions on the halos the ring exchanged (db2, sym8,
+   bior4.4, sym20; DWT L1-3, SWT L1-4; 8192^2, 256 x 512, 64 x 96 with
+   multi-hop halos, a stack) and, gathered, against the oracle;
 4. main paths, each held against the same calls on the CPU plain path
    (coefficients within 3e-4 * 2^level, image within 7e-4) and counted
    (exact launches of every kernel): Wavelets(img, "db2", 3,
@@ -79,7 +84,15 @@ prints its traceback and exits non-zero without the final ok line:
    1024^2 level-0 approximation is covered, as in JAX: K1 + K24, K25 + K2),
    on a 2046^2 frame and a float64 plan (refused: 3 + 3 per level), and
    denoise2d; and the all-levels entries wavedec2_pyramid/waverec2_pyramid
-   on the frame and the stack (1 + 1);
+   on the frame and the stack (1 + 1); then the row-sharded layer on 4
+   virtual shards of cuda:0 against the unsharded plans on the card:
+   ShardedWavelets on an 8192^2 image, db2 L3 DWT (12 K26a + 12 K26b) and
+   SWT (12 K27a + 12 K27b), sym8 L3 in mode "mxu" in both precisions (12 +
+   12 of K28's entries), an 8190 x 8191 image (padded, cropped) and its
+   denoise(10, spins=4) against the unsharded denoise of the same shifts,
+   BatchedWavelets on the stack data-parallel (K1/K2, no exchange) and
+   hybrid 2 x 2 (K26), one all-reduce per norm; and the counted exchange
+   schedule of the 8192^2 DWT and SWT against audit.predict_rowsharded;
 5. times (CUDA events, warm-up, median of 21 samples): level-0 K1/K2
    against their plain versions at 2048^2 (device time), and the L3
    roundtrip in frames/s, kernel path against plain path, at 2048^2 and on
@@ -102,7 +115,11 @@ prints its traceback and exits non-zero without the final ok line:
    that computes the same function (library_ms: a strided, transposed or
    dilated convolution in full float32, on an input padded outside the
    timed window), checked against the kernel's output; none computes a
-   multi-level pyramid, so K24/K25 have none.
+   multi-level pyramid, so K24/K25 have none; then each K26-K28 entry on
+   one 2048 x 8192 shard of the 8192^2 image against its plain version,
+   its unsharded kernel on the same block and one convolution, and the
+   8192^2 db2 L3 roundtrip on 4 virtual shards against the unsharded one,
+   device and wall.
 
 The line before the last is one JSON object with each kernel's route,
 source, the TPU kernel it replaces, its launches in the main-path run, its
@@ -2754,6 +2771,665 @@ def phase_times_pyramid(port, dev, card):
             "K25": (t["K25"], t["K25 plain"])}
 
 
+# -- the row-sharded layer: K26a/K26b, K27a/K27b, K28 ------------------------
+
+N_SHARDS = 4
+BIG = (8192, 8192)         # one 256 MB float32 image, a size users shard
+BIG_ODD = (8190, 8191)     # padded to 8192^2 by ShardedWavelets
+SHARD_BANKS = ("db2", "sym8", "bior4.4", "sym20")  # hlen 4, 16, 10, 40
+# 4 virtual shards of each plane (64 x 96: 16-row shards, multi-hop halos
+# at sym20 and at SWT L4) and a stack
+SHARD_PLANES = (BIG, (256, 512), (64, 96), (2, 2048, 2048))
+SHARD_F64_PLANES = ((256, 512), (64, 96), (2, 2048, 2048))
+F64_SHARD_TOL = 1e-10
+SHARD_BLOCK = (BIG[0] // N_SHARDS, BIG[1])  # one shard of BIG: 2048 x 8192
+
+
+def vmesh(port, n_data, n_rows, dev):
+    """A (data, rows) mesh of virtual shards, all on ``dev``."""
+    return port.parallel.mesh.make_mesh(n_data, n_rows,
+                                        [dev] * (n_data * n_rows))
+
+
+def sharded_levels(port, dev, x, fb, levels, swt, kernel, prec="highest"):
+    """Run ``levels`` row-sharded levels of x (4 virtual shards) and back,
+    level by level: each shard's kernel (K26/K27, or K28 where ``kernel``
+    is "mxu") against its plain version on the same shard and halos, then
+    the synthesis levels on the kernel's coefficients.  Returns the worst
+    error of each entry, the roundtrip error and the gathered level-1
+    coefficients."""
+    par, fd = port.parallel, port.ops.fused_dwt
+    km, kms = port.ops.mxu_dwt, port.ops.mxu_swt
+    sp, ring_mod = par.spatial, par.ring
+    m = vmesh(port, 1, N_SHARDS, dev)
+    ring = ring_mod.LocalRing.for_mesh(m, batched=x.ndim == 3)
+    parts = ring_mod.shard_rows(x, m)
+    if kernel == "mxu":
+        ana = (lambda s, t, b, lev: kms.swt2d_sharded_mxu_fused(
+            s, t, b, fb, lev, prec)) if swt else (
+            lambda s, t, b, lev: km.dwt2d_sharded_mxu_fused(s, t, b, fb,
+                                                            prec))
+        ana_p = (lambda s, t, b, lev: kms.swt2d_sharded_mxu_plain(
+            s, t, b, fb, lev, prec)) if swt else (
+            lambda s, t, b, lev: km.dwt2d_sharded_mxu_plain(s, t, b, fb,
+                                                            prec))
+        syn = (lambda c, h, lev: kms.iswt2d_sharded_mxu_fused(
+            *c, h, fb, lev, prec)) if swt else (
+            lambda c, h, lev: km.idwt2d_sharded_mxu_fused(*c, h, fb, prec))
+        syn_p = (lambda c, h, lev: kms.iswt2d_sharded_mxu_plain(
+            *c, h, fb, lev, prec)) if swt else (
+            lambda c, h, lev: km.idwt2d_sharded_mxu_plain(*c, h, fb, prec))
+        keys = ("K28 swt", "K28 iswt") if swt else ("K28 dwt", "K28 idwt")
+        ka = kms.swt2d_sharded_mxu_fused if swt else km.dwt2d_sharded_mxu_fused
+        ks = (kms.iswt2d_sharded_mxu_fused if swt
+              else km.idwt2d_sharded_mxu_fused)
+    else:
+        ana = (lambda s, t, b, lev: fd.swt2d_sharded_fused(s, t, b, fb, lev)
+               ) if swt else (lambda s, t, b, lev:
+                              fd.dwt2d_sharded_fused(s, t, b, fb))
+        ana_p = (lambda s, t, b, lev: fd.swt2d_sharded_plain(s, t, b, fb,
+                                                             lev)
+                 ) if swt else (lambda s, t, b, lev:
+                                fd.dwt2d_sharded_plain(s, t, b, fb))
+        syn = (lambda c, h, lev: fd.iswt2d_sharded_fused(*c, h, fb, lev)
+               ) if swt else (lambda c, h, lev:
+                              fd.idwt2d_sharded_fused(*c, h, fb))
+        syn_p = (lambda c, h, lev: fd.iswt2d_sharded_plain(*c, h, fb, lev)
+                 ) if swt else (lambda c, h, lev:
+                                fd.idwt2d_sharded_plain(*c, h, fb))
+        keys = ("K27a", "K27b") if swt else ("K26a", "K26b")
+        ka = fd.swt2d_sharded_fused if swt else fd.dwt2d_sharded_fused
+        ks = fd.iswt2d_sharded_fused if swt else fd.idwt2d_sharded_fused
+    def close(got, ref, limit, what, level):
+        """The kernel's worst error against the plain version: within
+        ``limit`` (float32: 3e-4 * 2^level or 7e-4 on 0..255 data; float64:
+        1e-10); in "bf16" the RMS gate of ``level`` (rms_gate's rule, on the
+        device), returning the relative RMS error."""
+        if prec == "bf16":
+            if isinstance(got, torch.Tensor):
+                got, ref = (got,), (ref,)
+            worst = 0.0
+            for g, r in zip(got, ref):
+                g, r = g.double(), r.double()
+                rel = float((g - r).pow(2).mean().sqrt()
+                            / r.pow(2).mean().sqrt())
+                if not rel <= BF16_RMS * 2 ** (level - 1):
+                    raise AssertionError(f"{what}: bf16 RMS error {rel:.3e}")
+                worst = max(worst, rel)
+            return worst
+        e = max_err(got, ref)
+        if x.dtype == torch.float64:
+            limit = F64_SHARD_TOL
+        if not e <= limit:
+            raise AssertionError(f"{what}: kernel vs plain {e:.3e} > "
+                                 f"{limit:.1e}")
+        return e
+    errs = {keys[0]: 0.0, keys[1]: 0.0}
+    a, details, level1 = parts, [], None
+    for lev in range(1, levels + 1):
+        halos = sp._exchange([a], "swt" if swt else "dwt", fb, ring, lev)
+        outs = []
+        for s, hs in zip(a, halos):
+            got = launched_once(ka, lambda: ana(s, *hs, lev))
+            e = close(got, ana_p(s, *hs, lev), COEFF_TOL * 2 ** lev,
+                      f"{keys[0]} L{lev}", lev)
+            errs[keys[0]] = max(errs[keys[0]], e)
+            outs.append(got)
+        a, h, v, d = (list(t) for t in zip(*outs))
+        details.append((h, v, d))
+        if lev == 1:
+            level1 = [ring_mod.gather_rows(t) for t in (a, h, v, d)]
+    for lev in range(levels, 0, -1):
+        planes = [a, *details[lev - 1]]
+        halos = sp._exchange(planes, "iswt" if swt else "idwt", fb, ring,
+                             lev)
+        outs = []
+        for c, hs in zip(zip(*planes), halos):
+            got = launched_once(ks, lambda: syn(c, hs, lev))
+            # its output is the approximation of level lev - 1
+            e = close(got, syn_p(c, hs, lev),
+                      max(ROUNDTRIP_TOL, COEFF_TOL * 2 ** (lev - 1)),
+                      f"{keys[1]} L{lev}", max(lev - 1, 1))
+            errs[keys[1]] = max(errs[keys[1]], e)
+            outs.append(got)
+        a = outs
+    back = ring_mod.gather_rows(a)
+    ert = max_err(back, x)
+    tol = (F64_SHARD_TOL if x.dtype == torch.float64 else
+           ROUNDTRIP_TOL if prec == "highest" else None)
+    if tol is not None and not ert <= tol:
+        raise AssertionError(f"{keys} roundtrip {ert:.3e} > {tol}")
+    if tol is None:
+        rms_gate(back.cpu().numpy(), x.cpu().numpy(), f"{keys} roundtrip",
+                 levels)
+    return errs, ert, level1
+
+
+def phase_kernels_sharded(port, dev):
+    """K26a/K26b, K27a/K27b (float32 and, at db4, float64) and K28's four
+    entries (both precisions) against their plain versions on 4 virtual
+    shards of cuda:0, on the shards and halos the ring exchanged: banks
+    db2, sym8, bior4.4 and sym20, DWT L1-3 and SWT L1-4, planes 8192^2,
+    256 x 512 and 64 x 96 (16-row shards: multi-hop halos at sym20 and at
+    SWT L4) and the (2, 2048, 2048) stack, on 0..255 data (each analysis
+    level within 3e-4 * 2^level, each synthesis level within that of the
+    approximation it makes, 3e-4 * 2^(level-1), and at least 7e-4, the
+    roundtrip within 7e-4; float64 within 1e-10; "bf16" each level and
+    the roundtrip on rms_gate's rule); K28 runs the SWT levels whose
+    support fits in a shard's rows (mode "mxu" sends the others to K27).
+    Then the
+    gathered level 1 against the float64 oracle on a [0, 1) 64 x 96
+    plane."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    worst = {k: 0.0 for k in ("K26a", "K26b", "K27a", "K27b", "K28 dwt",
+                              "K28 idwt", "K28 swt", "K28 iswt")}
+    bf16 = dict.fromkeys(("K28 dwt", "K28 idwt", "K28 swt", "K28 iswt"), 0.0)
+    conv = port.conv
+    for name in SHARD_BANKS:
+        fb = port.get_filter_bank(name)
+        for shape in SHARD_PLANES:
+            x = torch.rand(shape, generator=gen, device=dev) * 255
+            line = []
+            for swt, levels in ((False, 3), (True, 4)):
+                errs, ert, _ = sharded_levels(port, dev, x, fb, levels, swt,
+                                              "cuda")
+                for k, e in errs.items():
+                    worst[k] = max(worst[k], e)
+                line.append(f"{'/'.join(errs)} {max(errs.values()):.2e} "
+                            f"rt {ert:.2e}")
+                # K28 covers the SWT levels whose support fits in a row
+                top = levels if not swt else max([0] + [
+                    lev for lev in range(1, levels + 1) if max(
+                        conv.swt_pads(fb.hlen, lev, False)
+                        + conv.swt_pads(fb.hlen, lev, True)) <= shape[-1]])
+                for prec in PRECISIONS if top else ():
+                    errs, ert, _ = sharded_levels(port, dev, x, fb, top, swt,
+                                                  "mxu", prec)
+                    for k, e in errs.items():
+                        if prec == "highest":
+                            worst[k] = max(worst[k], e)
+                        else:
+                            bf16[k] = max(bf16[k], e)
+                    line.append(f"K28 {'swt' if swt else 'dwt'} L{top} "
+                                f"{prec} {max(errs.values()):.2e} "
+                                f"rt {ert:.2e}")
+            del x
+            torch.cuda.synchronize()
+            print(f"kernel-vs-plain sharded {name:7s} {str(shape):17s} "
+                  + "; ".join(line))
+    fb = port.get_filter_bank("db4")
+    for shape in SHARD_F64_PLANES:
+        x = torch.rand(shape, generator=gen, device=dev,
+                       dtype=torch.float64) * 255
+        e1, r1, _ = sharded_levels(port, dev, x, fb, 3, False, "cuda")
+        e2, r2, _ = sharded_levels(port, dev, x, fb, 4, True, "cuda")
+        print(f"kernel-vs-plain sharded float64 db4 {str(shape):17s} "
+              f"K26 {max(e1.values()):.2e} rt {r1:.2e}, K27 "
+              f"{max(e2.values()):.2e} rt {r2:.2e}")
+
+    oracle = load_oracle()
+    rng = np.random.default_rng(SEED + 41)
+    for name in SHARD_BANKS:
+        fb = port.get_filter_bank(name)
+        xn = rng.random((64, 96))
+        x = torch.from_numpy(xn.astype(np.float32)).to(dev)
+        refs = {False: oracle.ref_analysis_2d(xn, fb.dec_lo, fb.dec_hi),
+                True: swt2d_oracle(oracle, xn, fb, 1)}
+        line = []
+        for swt in (False, True):
+            for kernel in ("cuda", "mxu"):
+                _, _, level1 = sharded_levels(port, dev, x, fb, 1, swt,
+                                              kernel)
+                e = max(float(np.abs(g.cpu().numpy() - r).max())
+                        for g, r in zip(level1, refs[swt]))
+                if e > ORACLE_TOL:
+                    raise AssertionError(f"{name} sharded {kernel} swt={swt}"
+                                         f" vs oracle {e:.3e}")
+                family = "K28" if kernel == "mxu" else "K27" if swt else "K26"
+                line.append(f"{family} {'SWT' if swt else 'DWT'} {e:.2e}")
+        print(f"kernel-vs-oracle sharded {name:7s} (64, 96) level 1, "
+              "gathered: " + "  ".join(line))
+    for key, e in bf16.items():
+        print(f"worst bf16 kernel-vs-plain sharded {key}: {e:.3e}")
+    return worst
+
+
+def phase_main_paths_sharded(port, dev):
+    """The row-sharded plans on meshes of 4 virtual shards of cuda:0,
+    counted from 0, against the unsharded plans on the card:
+    ShardedWavelets(8192^2, "db2", 3) forward -> soft_threshold(10) ->
+    inverse (12 K26a, 12 K26b, no K1/K2), do_swt=1 (12 K27a + 12 K27b), in
+    mode "mxu" sym8 L3 DWT and SWT in both precisions (12 + 12 of K28's
+    entries); the non-aligned 8190 x 8191 image (padded, cropped,
+    roundtrip) and its denoise(10, spins=4) against the unsharded denoise
+    of the same drawn shifts; BatchedWavelets on the (8, 2048, 2048) stack,
+    data-parallel over 4 shards (12 K1 + 12 K2, no exchange) and hybrid
+    over 2 x 2 (12 K26a + 12 K26b); norm1 and norm2sq one all-reduce
+    each."""
+    ops, par, dwt = port.ops, port.parallel, port.dwt
+    SW = par.ShardedWavelets
+    mesh = vmesh(port, 1, N_SHARDS, dev)
+    img = frame(BIG, SEED + 42)
+    launches = {}
+    cases = (("db2", 0, "auto", "highest",
+              {"dwt2d_sharded_fused": 12, "idwt2d_sharded_fused": 12}),
+             ("db2", 1, "auto", "highest",
+              {"swt2d_sharded_fused": 12, "iswt2d_sharded_fused": 12}),
+             ("sym8", 0, "mxu", "highest",
+              {"dwt2d_sharded_mxu_fused": 12,
+               "idwt2d_sharded_mxu_fused": 12}),
+             ("sym8", 1, "mxu", "highest",
+              {"swt2d_sharded_mxu_fused": 12,
+               "iswt2d_sharded_mxu_fused": 12}),
+             ("sym8", 0, "mxu", "bf16",
+              {"dwt2d_sharded_mxu_fused": 12,
+               "idwt2d_sharded_mxu_fused": 12}),
+             ("sym8", 1, "mxu", "bf16",
+              {"swt2d_sharded_mxu_fused": 12,
+               "iswt2d_sharded_mxu_fused": 12}))
+    for wname, do_swt, mode, prec, want in cases:
+        what = (f"ShardedWavelets {wname} L3 {'SWT' if do_swt else 'DWT'} "
+                f"{BIG} mode {mode}{' ' + prec if mode == 'mxu' else ''}")
+        dwt.set_kernels(mode)
+        dwt.set_mxu_precision(prec)
+        try:
+            ref = port.Wavelets(img, wname, 3, do_swt=do_swt, device=dev)
+            ref.forward()
+            ref_coeffs = ref.coeffs
+            ref.soft_threshold(10.0)
+            ref.inverse()
+            ref_image = ref.image
+            del ref
+            S = SW(img, wname, 3, do_swt=do_swt, mesh=mesh)
+            ops.reset_counts()
+            S.forward()
+            coeffs = S.coeffs
+            expect_launches(ops, {k: v for k, v in want.items()
+                                  if "idwt" not in k and "iswt" not in k},
+                            f"{what} forward")
+            S.soft_threshold(10.0)
+            S.inverse()
+            out = S.image
+            torch.cuda.synchronize()
+            got = counts(ops)
+            expect_launches(ops, want, what)
+        finally:
+            dwt.set_kernels("auto")
+            dwt.set_mxu_precision("highest")
+        if prec == "highest":
+            ec = check_pyramid(coeffs, ref_coeffs, f"{what} forward")
+            ei = check_image(out, ref_image, f"{what} denoised image")
+        else:
+            ec = max([rms_gate(coeffs[0], ref_coeffs[0], what, 3)] + [
+                rms_gate(g, r, f"{what} level {lev}", lev)
+                for lev in range(1, 4)
+                for g, r in zip(coeffs[lev], ref_coeffs[lev])])
+            ei = rms_gate(out, ref_image, f"{what} image", 3)
+        print(f"main path {what}: forward vs unsharded {ec:.3e}, denoised "
+              f"image vs unsharded {ei:.3e}, launches {got}")
+        if prec == "highest":
+            launches.update({
+                {"dwt2d_sharded_fused": "K26a",
+                 "idwt2d_sharded_fused": "K26b",
+                 "swt2d_sharded_fused": "K27a",
+                 "iswt2d_sharded_fused": "K27b",
+                 "dwt2d_sharded_mxu_fused": "K28 dwt",
+                 "idwt2d_sharded_mxu_fused": "K28 idwt",
+                 "swt2d_sharded_mxu_fused": "K28 swt",
+                 "iswt2d_sharded_mxu_fused": "K28 iswt"}[k]: v
+                for k, v in got.items()})
+        del coeffs, ref_coeffs, out
+
+    odd = frame(BIG_ODD, SEED + 43)
+    S = SW(odd, "db2", 3, mesh=mesh)
+    S.forward()
+    S.inverse()
+    er = check_image(S.image, odd, f"{BIG_ODD} roundtrip")
+    S = SW(odd, "db2", 3, mesh=mesh, seed=SEED)
+    ops.reset_counts()
+    S.denoise(BETA, spins=4)
+    out = S.image
+    got = counts(ops)
+    # the unsharded denoise of the same drawn shifts
+    rng = np.random.default_rng(SEED)
+    pad = np.pad(odd, [(0, p - n) for p, n in zip(S._padded, BIG_ODD)],
+                 mode="wrap")
+    acc = None
+    for _ in range(4):
+        sr, sc = int(rng.integers(0, BIG_ODD[0])), int(
+            rng.integers(0, BIG_ODD[1]))
+        W = port.Wavelets(np.roll(pad, (sr, sc), (0, 1)), "db2", 3,
+                          device=dev)
+        W.forward()
+        W.soft_threshold(BETA)
+        W.inverse()
+        y = np.roll(W.image, (-sr, -sc), (0, 1))
+        acc = y if acc is None else acc + y
+    ed = check_image(out, (acc / 4)[:BIG_ODD[0], :BIG_ODD[1]],
+                     f"{BIG_ODD} denoise spins=4")
+    if got != {"dwt2d_sharded_fused": 12 * 4, "idwt2d_sharded_fused": 12 * 4}:
+        raise AssertionError(f"denoise spins=4: launches {got}")
+    print(f"main path ShardedWavelets db2 L3 {BIG_ODD} (padded to "
+          f"{S._padded}): roundtrip {er:.3e}; denoise({BETA}, spins=4) vs "
+          f"unsharded denoise of the same shifts {ed:.3e}, launches {got}")
+
+    stack = frame((STACK, *FRAME), SEED + 44)
+    ref = port.dwt.pyramid_to_numpy(port.dwt.wavedec2(
+        torch.from_numpy(stack).to(dev), port.get_filter_bank("db2"), 3))
+    for n_data, n_rows, want, hops in (
+            (4, 1, {"dwt2d_fused": 12, "idwt2d_fused": 12}, 0),
+            (2, 2, {"dwt2d_sharded_fused": 12,
+                    "idwt2d_sharded_fused": 12}, 6 + 24)):
+        B = par.BatchedWavelets(stack, "db2", 3,
+                                mesh=vmesh(port, n_data, n_rows, dev))
+        ops.reset_counts()
+        B.ring.reset()
+        B.forward()
+        coeffs = [B.coeff_only(0)] + [
+            tuple(B.coeff_only(3 * (lev - 1) + k) for k in (1, 2, 3))
+            for lev in range(1, 4)]
+        B.inverse()
+        out = B.image
+        torch.cuda.synchronize()
+        got = counts(ops)
+        expect_launches(ops, want, f"BatchedWavelets {n_data} x {n_rows}")
+        if B.ring.counts["ppermute"] != hops:
+            raise AssertionError(f"BatchedWavelets {n_data} x {n_rows}: "
+                                 f"{B.ring.counts['ppermute']} exchanges")
+        ec = check_pyramid(coeffs, ref, f"BatchedWavelets {n_data}x{n_rows}")
+        er = check_image(out, stack, f"BatchedWavelets {n_data}x{n_rows}")
+        B.forward()
+        for norm in (B.norm1, B.norm2sq):
+            B.ring.reset()
+            norm()
+            if B.ring.counts != {"ppermute": 0, "all_gather": 0,
+                                 "all_reduce": 1, "all_to_all": 0}:
+                raise AssertionError(f"{norm.__name__}: {B.ring.counts}")
+        print(f"main path BatchedWavelets db2 L3 {stack.shape} over "
+              f"{n_data} data x {n_rows} rows: forward vs unsharded {ec:.3e}"
+              f", roundtrip {er:.3e}, launches {got}, exchanges "
+              f"{hops}, norm1/norm2sq one all-reduce each")
+        del B, coeffs, out
+    S = SW(img, "db2", 3, mesh=mesh)
+    S.forward()
+    for norm, ref_norm in ((S.norm1, port.thresh.norm1),
+                           (S.norm2sq, port.thresh.norm2sq)):
+        S.ring.reset()
+        got = norm()
+        if S.ring.counts["all_reduce"] != 1 or S.ring.counts["ppermute"]:
+            raise AssertionError(f"{norm.__name__}: {S.ring.counts}")
+        want = float(ref_norm(port.dwt.wavedec2(
+            torch.from_numpy(img).to(dev), port.get_filter_bank("db2"), 3)))
+        if abs(got - want) > 1e-4 * want:
+            raise AssertionError(f"{norm.__name__} {got} vs {want}")
+    print(f"main path ShardedWavelets {BIG} norm1/norm2sq: one all-reduce "
+          "each, within 1e-4 of the unsharded norms")
+    return launches
+
+
+def phase_audit_sharded(port, dev):
+    """The counted exchange schedule of the 8192^2 row-sharded DWT and SWT
+    (db2 L3, 4 virtual shards) against audit.predict_rowsharded: equal
+    ppermute counts each way, no all-gather, all-reduce or all-to-all;
+    the halo bytes per shard."""
+    par = port.parallel
+    audit = par.audit
+    fb = port.get_filter_bank("db2")
+    x = torch.from_numpy(frame(BIG, SEED + 45)).to(dev)
+    for swt in (False, True):
+        fwd, inv = audit.rowsharded_fns(fb, 3, vmesh(port, 1, N_SHARDS, dev),
+                                        swt)
+        fwd.ring.reset()
+        pyr = fwd(x)
+        f = audit.schedule_of(fwd.ring)
+        fwd.ring.reset()
+        inv(pyr)
+        i = audit.schedule_of(fwd.ring)
+        torch.cuda.synchronize()
+        pred = audit.predict_rowsharded(fb, 3, *BIG, N_SHARDS, swt)
+        for sched, key in ((f, "fwd_ppermute"), (i, "inv_ppermute")):
+            if sched["ppermute"] != pred[key] or any(
+                    sched[k] for k in ("all_gather", "all_reduce",
+                                       "all_to_all")):
+                raise AssertionError(f"schedule {sched} vs {pred}")
+        fwd_bytes = 4 * sum(f["ppermute_elems"])
+        if fwd_bytes != pred["fwd_halo_bytes"]:
+            raise AssertionError(f"halo bytes {fwd_bytes} vs {pred}")
+        print(f"audit {'SWT' if swt else 'DWT'} db2 L3 {BIG} on {N_SHARDS} "
+              f"shards: ppermute forward {f['ppermute']} / inverse "
+              f"{i['ppermute']} (predicted {pred['fwd_ppermute']} / "
+              f"{pred['inv_ppermute']}), all-gather 0, all-reduce 0, "
+              f"all-to-all 0; halo bytes per shard forward {fwd_bytes} "
+              f"({fwd_bytes / (4 * BIG[0] * BIG[1] / N_SHARDS):.2e} of a "
+              f"shard), inverse {4 * sum(i['ppermute_elems'])}")
+        del pyr
+
+
+def shard_rows_of(g, i, n, top, bot):
+    """Rows [i n - top, i n + n + bot) of plane(s) g, wrapped."""
+    rows = torch.arange(i * n - top, i * n + n + bot, device=g.device)
+    return g.index_select(-2, rows % g.shape[-2]).contiguous()
+
+
+def phase_times_sharded(port, dev, card):
+    """Device time of each K26-K28 entry on one 2048 x 8192 shard of the
+    8192^2 image (K26/K27 at db2, K28 at sym8 "highest", level 1 for the
+    SWT), against its plain version and against its unsharded kernel on
+    the same block (K1/K2, K8/K9, K5/K6, K11a/K11b), in turns; beside each,
+    one PyTorch convolution of the same map on the shard's rows extended
+    and padded outside the timed call (library_ms); then the 8192^2 db2 L3
+    roundtrip on 4 virtual shards against the unsharded one, device and
+    wall: the device cost of sharding on one card."""
+    par = port.parallel
+    n, nc = SHARD_BLOCK
+    gen = torch.Generator(device=dev).manual_seed(SEED + 46)
+    globs = [torch.rand(BIG, generator=gen, device=dev) * 255
+             for _ in range(2)]
+    times, library = {}, {}
+    torch.backends.cudnn.benchmark = True
+    try:
+        for key, wname, kind, mxu in (
+                ("K26a", "db2", "dwt", False), ("K26b", "db2", "idwt", False),
+                ("K27a", "db2", "swt", False), ("K27b", "db2", "iswt", False),
+                ("K28 dwt", "sym8", "dwt", True),
+                ("K28 idwt", "sym8", "idwt", True),
+                ("K28 swt", "sym8", "swt", True),
+                ("K28 iswt", "sym8", "iswt", True)):
+            fb = port.get_filter_bank(wname)
+            f2d = port.nonsep.Filters2D.from_bank(fb)
+            calls, lib = sharded_calls(port, fb, f2d, kind, mxu, globs, n,
+                                       nc, dev)
+            reps = {"kernel": 10, "unsharded": 10, "plain": 3}
+            t = in_turns(calls, reps)
+            times[key] = (t["kernel"], t["plain"])
+            library[key] = lib
+            print(f"time {key} {wname} {kind} on a {n} x {nc} shard, "
+                  f"device: kernel {t['kernel'] * 1e3:.1f} us, unsharded "
+                  f"kernel on the block {t['unsharded'] * 1e3:.1f} us, plain "
+                  f"{t['plain'] * 1e3:.1f} us, library "
+                  f"{lib * 1e3:.1f} us  [{card}]")
+    finally:
+        torch.backends.cudnn.benchmark = False
+    fb = port.get_filter_bank("db2")
+    sp, ring_mod = par.spatial, par.ring
+    mesh = vmesh(port, 1, N_SHARDS, dev)
+    ring = ring_mod.LocalRing.for_mesh(mesh, batched=False)
+    parts = [ring_mod.shard_rows(g, mesh) for g in globs]
+    nparts = itertools.cycle(parts).__next__
+    nglob = itertools.cycle(globs).__next__
+    ways = {
+        "4 virtual shards": lambda: sp._local_waverec2(
+            sp._local_wavedec2(nparts(), fb, 3, ring), fb, ring),
+        "unsharded": lambda: port.dwt.waverec2(
+            port.dwt.wavedec2(nglob(), fb, 3), fb, BIG)}
+    rt = {clock: in_turns(ways, dict.fromkeys(ways, 3), device_only=d)
+          for clock, d in (("device", True), ("wall", False))}
+    for way in ways:
+        print(f"time L3 db2 roundtrip {BIG} {way}: device "
+              f"{rt['device'][way]:.4f} ms, wall {rt['wall'][way]:.4f} ms  "
+              f"[{card}]")
+    d = rt["device"]
+    print(f"sharding overhead on one card, 8192^2 db2 L3 roundtrip: device "
+          f"{d['4 virtual shards'] / d['unsharded']:.3f}x, wall "
+          f"{rt['wall']['4 virtual shards'] / rt['wall']['unsharded']:.3f}x"
+          f"  [{card}]")
+    return times, library
+
+
+def sharded_calls(port, fb, f2d, kind, mxu, globs, n, nc, dev):
+    """(timed calls, library ms) of one entry on shard 1 of each global
+    plane: the kernel, its plain version and the unsharded kernel on the
+    same block; the library call is checked against the kernel and
+    timed here."""
+    fd, km, kms, conv = (port.ops.fused_dwt, port.ops.mxu_dwt,
+                         port.ops.mxu_swt, port.conv)
+    lev = 1
+    i = 1
+    if kind in ("dwt", "swt"):
+        top, bot = fd.halo_heights(kind, fb, n, lev)
+        ins = [(shard_rows_of(g, i, n, 0, 0), shard_rows_of(g, i, n, top, 0)
+                [..., :top, :].contiguous(),
+                shard_rows_of(g, i, n, 0, bot)[..., n:, :].contiguous())
+               for g in globs]
+        if kind == "dwt":
+            k = (lambda s, t, b: km.dwt2d_sharded_mxu_fused(s, t, b, fb)) \
+                if mxu else (lambda s, t, b: fd.dwt2d_sharded_fused(s, t, b,
+                                                                     fb))
+            p = (lambda s, t, b: km.dwt2d_sharded_mxu_plain(s, t, b, fb)) \
+                if mxu else (lambda s, t, b: fd.dwt2d_sharded_plain(s, t, b,
+                                                                     fb))
+            u = (lambda s: km.dwt2d_mxu_fused(s, fb)) if mxu else (
+                lambda s: fd.dwt2d_fused(s, fb))
+        else:
+            k = (lambda s, t, b: kms.swt2d_sharded_mxu_fused(s, t, b, fb,
+                                                             lev)) if mxu \
+                else (lambda s, t, b: fd.swt2d_sharded_fused(s, t, b, fb,
+                                                             lev))
+            p = (lambda s, t, b: kms.swt2d_sharded_mxu_plain(s, t, b, fb,
+                                                             lev)) if mxu \
+                else (lambda s, t, b: fd.swt2d_sharded_plain(s, t, b, fb,
+                                                             lev))
+            u = (lambda s: kms.swt2d_mxu_fused(s, fb, lev)) if mxu else (
+                lambda s: fd.swt2d_fused(s, fb, lev))
+        nx = itertools.cycle(ins).__next__
+        calls = {"kernel": lambda: k(*nx()), "plain": lambda: p(*nx()),
+                 "unsharded": lambda: u(nx()[0])}
+        kernel_out = torch.stack(k(*ins[0]))
+        # the library call: one convolution of the shard's rows extended by
+        # the halos and its columns padded periodically, outside the timing
+        cl, cr = ((fb.hlen - 1 - fb.hlen // 2, max(fb.hlen // 2 - 1, 0))
+                  if kind == "dwt" else conv.swt_pads(fb.hlen, lev, False))
+        padded = [conv.periodic_pad_last(shard_rows_of(g, i, n, top, bot),
+                                         cl, cr)[None, None] for g in globs]
+        w = torch.tensor(np.stack(f2d.dec), dtype=torch.float32,
+                         device=dev).flip(-1, -2)[:, None]
+        call = ((lambda z: F.conv2d(z, w, stride=2)[0]) if kind == "dwt"
+                else (lambda z: F.conv2d(z, w, dilation=1 << (lev - 1))[0]))
+        return calls, library_time(call, padded, kernel_out)
+    # syntheses: coefficient planes of each global plane's transform
+    coeffs = [(fd.dwt2d_fused(g, fb) if kind == "idwt"
+               else fd.swt2d_fused(g, fb, lev)) for g in globs]
+    rows = n // 2 if kind == "idwt" else n
+    top, bot = fd.halo_heights(kind, fb, rows, lev)
+    ins = []
+    for c in coeffs:
+        body = [shard_rows_of(p, i, rows, 0, 0) for p in c]
+        halos = []
+        for pl in c:
+            ext = shard_rows_of(pl, i, rows, top, bot)
+            halos += [ext[..., :top, :].contiguous(),
+                      ext[..., top + rows:, :].contiguous()]
+        ins.append((body, tuple(halos)))
+    if kind == "idwt":
+        k = (lambda b, h: km.idwt2d_sharded_mxu_fused(*b, h, fb)) if mxu \
+            else (lambda b, h: fd.idwt2d_sharded_fused(*b, h, fb))
+        p = (lambda b, h: km.idwt2d_sharded_mxu_plain(*b, h, fb)) if mxu \
+            else (lambda b, h: fd.idwt2d_sharded_plain(*b, h, fb))
+        u = (lambda b: km.idwt2d_mxu_fused(*b, fb, (n, nc))) if mxu else (
+            lambda b: fd.idwt2d_fused(*b, fb, (n, nc)))
+    else:
+        k = (lambda b, h: kms.iswt2d_sharded_mxu_fused(*b, h, fb, lev)) \
+            if mxu else (lambda b, h: fd.iswt2d_sharded_fused(*b, h, fb,
+                                                              lev))
+        p = (lambda b, h: kms.iswt2d_sharded_mxu_plain(*b, h, fb, lev)) \
+            if mxu else (lambda b, h: fd.iswt2d_sharded_plain(*b, h, fb,
+                                                              lev))
+        u = (lambda b: kms.iswt2d_mxu_fused(*b, fb, lev)) if mxu else (
+            lambda b: fd.iswt2d_fused(*b, fb, lev))
+    nx = itertools.cycle(ins).__next__
+    calls = {"kernel": lambda: k(*nx()), "plain": lambda: p(*nx()),
+             "unsharded": lambda: u(nx()[0])}
+    kernel_out = k(*ins[0])
+    if kind == "idwt":
+        pad = fb.hlen
+        h2 = fb.hlen // 2
+        o = fb.hlen - 2 + (1 - h2 % 2) - 2 * (h2 // 2) + 2 * pad
+        padded = [conv.periodic_pad_last(torch.stack(
+            [shard_rows_of(pl, i, rows, pad, pad) for pl in c]), pad,
+            pad)[None] for c in coeffs]
+        w = torch.tensor(np.stack(f2d.rec), dtype=torch.float32,
+                         device=dev)[:, None]
+        return calls, library_time(
+            lambda z: F.conv_transpose2d(z, w, stride=2)[0, 0,
+                                                         o:o + n, o:o + nc],
+            padded, kernel_out)
+    cl, cr = conv.swt_pads(fb.hlen, lev, True)
+    padded = [conv.periodic_pad_last(torch.stack(
+        [shard_rows_of(pl, i, rows, cl, cr) for pl in c]), cl, cr)[None]
+        for c in coeffs]
+    w = 0.25 * torch.tensor(np.stack(f2d.rec), dtype=torch.float32,
+                            device=dev).flip(-1, -2)[None]
+    return calls, library_time(
+        lambda z: F.conv2d(z, w, dilation=1 << (lev - 1))[0, 0], padded,
+        kernel_out)
+
+
+def library_time(call, inputs, kernel_out):
+    """Device time (ms) of ``call`` over ``inputs`` (wall where it waits
+    for the device), after checking its first output against the
+    kernel's."""
+    err = max_err(call(inputs[0]), kernel_out)
+    if not err <= LIBRARY_TOL:
+        raise AssertionError(f"library call vs kernel {err:.3e} > "
+                             f"{LIBRARY_TOL}")
+    nx = itertools.cycle(inputs).__next__
+    ms = cuda_ms(lambda: call(nx()), 10, True, required=False)
+    if ms is None:
+        ms = cuda_ms(lambda: call(nx()), 10, False)
+    return ms
+
+
+def sharded_work(port):
+    """(bytes, flops) of each K26-K28 entry's timed call on a 2048 x 8192
+    shard: its input and halo rows read once, its output written once; the
+    map's flops (K26/K27 at db2, K28 at sym8, as K1/K2, K8/K9)."""
+    fd = port.ops.fused_dwt
+    n, nc = SHARD_BLOCK
+    n2 = n * nc
+    out = {}
+    for key, wname, kind in (
+            ("K26a", "db2", "dwt"), ("K26b", "db2", "idwt"),
+            ("K27a", "db2", "swt"), ("K27b", "db2", "iswt"),
+            ("K28 dwt", "sym8", "dwt"), ("K28 idwt", "sym8", "idwt"),
+            ("K28 swt", "sym8", "swt"), ("K28 iswt", "sym8", "iswt")):
+        fb = port.get_filter_bank(wname)
+        h = fb.hlen
+        if kind == "dwt":
+            t, b = fd.halo_heights(kind, fb, n)
+            out[key] = (4 * (n + t + b) * nc + 4 * n2, 4 * h * n2)
+        elif kind == "idwt":
+            t, b = fd.halo_heights(kind, fb, n // 2)
+            out[key] = (4 * 4 * (n // 2 + t + b) * (nc // 2) + 4 * n2,
+                        4 * h * n2)
+        elif kind == "swt":
+            t, b = fd.halo_heights(kind, fb, n, 1)
+            out[key] = (4 * (n + t + b) * nc + 16 * n2, 12 * h * n2)
+        else:
+            t, b = fd.halo_heights(kind, fb, n, 1)
+            out[key] = (16 * (n + t + b) * nc + 4 * n2, 12 * h * n2)
+    return out
+
+
 _PK, _NSP = "ops/pallas_dwt.py", "ops/nonsep_pallas.py"
 # key, name, source under pypwt_tpu_torch/csrc/, the TPU kernel's call
 KERNEL_ROWS = (
@@ -2783,6 +3459,18 @@ KERNEL_ROWS = (
      "ops/fused_pyramid.py:168"),
     ("K25", "waverec2_pyramid (K25)", "pyramid2d.cu",
      "ops/fused_pyramid.py:308"),
+    ("K26a", "dwt2d_sharded (K26a)", "dwt2d.cu", f"{_PK}:1483"),
+    ("K26b", "idwt2d_sharded (K26b)", "idwt2d.cu", f"{_PK}:1544"),
+    ("K27a", "swt2d_sharded (K27a)", "swt2d.cu", f"{_PK}:1606"),
+    ("K27b", "iswt2d_sharded (K27b)", "swt2d.cu", f"{_PK}:1669"),
+    ("K28 dwt", "dwt2d_sharded_mxu (K28)", "tc_dwt2d.cu",
+     "ops/mxu_dwt.py:571"),
+    ("K28 idwt", "idwt2d_sharded_mxu (K28)", "tc_dwt2d.cu",
+     "ops/mxu_dwt.py:651"),
+    ("K28 swt", "swt2d_sharded_mxu (K28)", "tc_swt2d.cu",
+     "ops/mxu_swt.py:656"),
+    ("K28 iswt", "iswt2d_sharded_mxu (K28)", "tc_swt2d.cu",
+     "ops/mxu_swt.py:737"),
 )
 
 
@@ -2887,6 +3575,7 @@ def main():
     worst.update(phase_kernels_mxu1d(port, dev))
     phase_kernels_f64(port, dev)
     worst.update(phase_kernels_pyramid(port, dev))
+    worst.update(phase_kernels_sharded(port, dev))
     launches = phase_main_path(port, dev)
     launches.update(phase_main_paths_1d(port, dev))
     launches.update(phase_main_paths_2d_swt(port, dev))
@@ -2895,6 +3584,8 @@ def main():
     launches.update(phase_main_paths_mxu1d(port, dev))
     phase_main_paths_f64(port, dev)
     launches.update(phase_main_paths_pyramid(port, dev))
+    launches.update(phase_main_paths_sharded(port, dev))
+    phase_audit_sharded(port, dev)
     times = phase_times(port, dev, card)
     times.update(phase_times_1d(port, dev, card))
     times.update(phase_times_2d_swt(port, dev, card))
@@ -2903,7 +3594,10 @@ def main():
     times.update(phase_times_mxu1d(port, dev, card))
     phase_times_f64(port, dev, card)
     times.update(phase_times_pyramid(port, dev, card))
+    sharded_times, sharded_library = phase_times_sharded(port, dev, card)
+    times.update(sharded_times)
     library = phase_library(port, dev, card)
+    library.update(sharded_library)
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "pypwt_tpu.")))
     if leaked:
@@ -2911,7 +3605,7 @@ def main():
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     for key, ms in path_bounds().items():
         print(f"bound of the path holding {key}: {ms * 1e3:.1f} us (bytes)")
-    work = timed_work(port)
+    work = {**timed_work(port), **sharded_work(port)}
     kernels = []
     for key, name, source, tpu in KERNEL_ROWS:
         bound_ms, bound_by = bound(*work[key])

@@ -22,8 +22,12 @@ on the float64 instances of the tap-loop kernels; and the whole-pyramid
 (``ops.fused_pyramid.wavedec2_pyramid``/``waverec2_pyramid``), which
 tail-level fusion (``core.dwt.set_tail_fuse(True)`` or
 ``PYPWT_TAIL_FUSE=1``, off by default) runs under ``core.dwt.wavedec2``/
-``waverec2`` for levels 2..L.  This package imports neither jax nor
-pypwt_tpu, and builds its kernels at their first launch, never at import.
+``waverec2`` for levels 2..L; and the multi-device layer ``parallel``
+(the row-sharded and data-parallel layouts: ``ShardedWavelets``,
+``BatchedWavelets``, ``parallel.spatial``'s row-sharded transforms on
+K26-K28 with halo exchanges through ``parallel.ring``).  This package
+imports neither jax nor pypwt_tpu, and builds its kernels at their first
+launch, never at import.
 
 Quick start (mirrors the reference README):
 
@@ -42,6 +46,7 @@ from .version import __version__  # noqa: F401
 from . import core  # noqa: F401
 from .core import conv, dwt, haar, nonsep, shapes, swt, thresh  # noqa: F401
 from . import ops  # noqa: F401
+from . import parallel  # noqa: F401
 from . import pipeline  # noqa: F401
 
 __all__ = [
@@ -50,6 +55,7 @@ __all__ = [
     "get_filter_bank",
     "wavelist",
     "core",
+    "parallel",
     "pipeline",
     "__version__",
 ]

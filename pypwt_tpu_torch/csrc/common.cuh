@@ -237,6 +237,90 @@ __device__ __forceinline__ void batched_copy(Load load, Store store) {
   }
 }
 
+// Where the rows (axis -2) of a 2D level come from. Wrapped: the plane
+// itself, wrapped periodically (the unsharded kernels). Halo: one row shard
+// of a larger plane (K26-K28, the row-sharded levels of
+// pypwt_tpu_torch/parallel/spatial.py): row r of the extended axis
+// [-lp, n + rp) is the shard's own row r, row r + lp of the top halo or row
+// r - n of the bottom halo, the rows its neighbours exchanged. Past both
+// halos there is no row (null): a kernel stages zero there, where only a
+// zero tap or an output past the shard meets it. kPlanes planes share the
+// rows' geometry (the four coefficient planes of a synthesis), each with
+// its own halo pair.
+struct Wrapped {
+  static constexpr bool kHalo = false;
+};
+
+template <class T, int kPlanes>
+struct Halo {
+  static constexpr bool kHalo = true;
+  const T* top[kPlanes];  // (lp, nc) rows above the shard, per plane
+  const T* bot[kPlanes];  // (rp, nc) rows below it
+  int lp, rp;
+
+  // The same halos moved to plane z of a batch of nc-sample rows.
+  __host__ __device__ Halo plane(long long z, int nc) const {
+    Halo h = *this;
+    for (int p = 0; p < kPlanes; ++p) {
+      h.top[p] += z * lp * nc;
+      h.bot[p] += z * rp * nc;
+    }
+    return h;
+  }
+
+  // Row r of plane p, whose own n rows of nc samples start at `body`, or
+  // null past both halos.
+  __device__ __forceinline__ const T* row(int p, const T* body, long long r,
+                                          int n, int nc) const {
+    if (r >= 0 && r < n) return body + r * nc;
+    if (r < 0) return r >= -lp ? top[p] + (r + lp) * nc : nullptr;
+    return r - n < rp ? bot[p] + (r - n) * nc : nullptr;
+  }
+};
+
+// Host-side halo argument of one plane (K26a, K27a, K28's analyses) or of
+// four (their syntheses: a, h, v, d in that order).
+template <class T>
+inline Halo<T, 1> make_halo(const T* top, const T* bot, int lp, int rp) {
+  Halo<T, 1> h;
+  h.top[0] = top;
+  h.bot[0] = bot;
+  h.lp = lp;
+  h.rp = rp;
+  return h;
+}
+
+template <class T>
+inline Halo<T, 4> make_halo4(const T* const* tops, const T* const* bots,
+                             int lp, int rp) {
+  Halo<T, 4> h;
+  for (int p = 0; p < 4; ++p) {
+    h.top[p] = tops[p];
+    h.bot[p] = bots[p];
+  }
+  h.lp = lp;
+  h.rp = rp;
+  return h;
+}
+
+// The exact halo heights of a row-sharded level (conv.analysis_pads,
+// conv.synthesis_pads with n_out = 2L, and their dilation by 2^(level-1)
+// in the stationary levels); a kernel refuses any other.
+inline bool analysis_halos_ok(int hlen, int lp, int rp) {
+  return lp == hlen - 1 - hlen / 2 && rp == std::max(hlen / 2 - 1, 0);
+}
+
+inline bool synthesis_halos_ok(int hlen, int lp, int rp) {
+  const int h2 = hlen / 2, c = h2 / 2, sigma = (h2 & 1) ? 0 : 1;
+  return lp == c && rp == std::max(sigma - c + h2 - 1, 0);
+}
+
+inline bool stationary_halos_ok(int hlen, int s, int level, int lp, int rp) {
+  if (level < 1 || level > 31) return false;
+  const long long f = 1LL << (level - 1);
+  return lp == (hlen - 1 - s) * f && rp == s * f;
+}
+
 // Grid y and z hold at most 65535 blocks. The 2D level kernels put column
 // blocks on x, row blocks on y and planes on z; launch_chunks issues a
 // level with more row blocks or planes than that as several launches,

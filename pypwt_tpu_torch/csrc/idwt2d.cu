@@ -1,6 +1,7 @@
-// K2: one periodized separable 2D synthesis level, float32 or float64, and
-// K20, the same level of float32 planes unshifted by a circular shift, with
-// a spin accumulator and a scale fused into its store.
+// K2: one periodized separable 2D synthesis level, float32 or float64; K20,
+// the same level of float32 planes unshifted by a circular shift, with a
+// spin accumulator and a scale fused into its store; and K26b, the level of
+// one row shard's coefficient planes, float32 or float64.
 //
 // K2 replaces the TPU kernel pypwt_tpu/ops/pallas_dwt.py::idwt2d_fused
 // (_build_idwt2d, :477). K20 replaces ::idwt2d_fused_unshift
@@ -8,6 +9,8 @@
 // synthesis halves of the phase-select, dynamic-shift and multi-shift
 // kernels (_build_idwt2d_phasesel :943, _build_idwt2d_dynshift :1197,
 // _build_idwt2d_multiunshift :1384: one accumulating K20 launch per spin).
+// K26b replaces ::build_idwt2d_sharded (:1544), the shard_map-local
+// synthesis level of pypwt_tpu/parallel/spatial.py's row-sharded path.
 //
 // Map (pypwt_tpu/core/dwt.py:214-223 on conv.synthesis_core), for a, h, v,
 // d of (B?, Lr, Lc), an output y of (B?, Nr, Nc) (2Lr x 2Lc, or one less
@@ -47,7 +50,10 @@
 // reach. The batch is the grid's z axis, row tiles its y axis, in chunks
 // where a level holds more than a grid's 65535 (launch_chunks); plane
 // offsets are 64-bit. The float64 instance (pypwt_idwt2d_f64; K2 only)
-// stages twice the bytes: 140 KB at hlen 40.
+// stages twice the bytes: 140 KB at hlen 40. K26b is the unshifted body
+// with the Halo row source (common.cuh): each coefficient plane's rows
+// above and below the shard come from its own exchanged halo pair, read
+// where it lies (no padded copy of the shard); the output is 2Lr x 2Lc.
 
 #include "level2d.cuh"
 
@@ -116,6 +122,57 @@ idwt2d_direct_kernel(const float* __restrict__ a, const float* __restrict__ h,
                       static_cast<long long>(i) * nc + j;
   if (acc) s += acc[o];
   out[o] = s * scale;
+}
+
+// K26b: K2's level of one row shard's coefficient planes, their edge rows
+// from the halos.
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+idwt2d_sharded_kernel(const T* __restrict__ a, const T* __restrict__ h,
+                      const T* __restrict__ v, const T* __restrict__ d,
+                      T* __restrict__ out, int lr, int lc, Halo<T, 4> halo,
+                      TapsT<T> taps, int hlen, int y0) {
+  T* smem = dynamic_smem<T>();
+  T* g_lo = syn::taps<T, false>(smem, hlen);
+  load_polyphase_taps(taps, hlen, g_lo, g_lo + 2 * kHalfTaps);
+  const long long pi = static_cast<long long>(blockIdx.z) * lr * lc;
+  const long long po = 4 * pi;
+  syn::tile<T, false, false>(
+      a + pi, h + pi, v + pi, d + pi, nullptr, out + po, lr, lc, 2 * lr,
+      2 * lc, hlen, 2 * syn::TR * (y0 + blockIdx.y), 2 * syn::TC * blockIdx.x,
+      0, 0, 1.f, smem, halo.plane(blockIdx.z, lc));
+}
+
+template <class T>
+int launch_sharded(const T* const* planes, const T* const* tops,
+                   const T* const* bots, T* out, int batch, int lr, int lc,
+                   int lp, int rp, const T* rec_lo, const T* rec_hi, int hlen,
+                   int device, void* stream) {
+  if (hlen < 2 || hlen > kMaxTaps || lr < 1 || lc < 1 || lr > 0x1fffffff ||
+      lc > 0x1fffffff || batch < 1 || !synthesis_halos_ok(hlen, lp, rp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const TapsT<T> taps = make_taps(rec_lo, rec_hi, hlen);
+  auto kernel = idwt2d_sharded_kernel<T>;
+  const size_t smem = syn::smem_bytes<T, false>(hlen);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Halo<T, 4> halo = make_halo4(tops, bots, lp, rp);
+  const int nr = 2 * lr, nc = 2 * lc;
+  launch_chunks((nc + 2 * syn::TC - 1) / (2 * syn::TC),
+                (nr + 2 * syn::TR - 1) / (2 * syn::TR), batch,
+                [&](dim3 grid, int y0, int z0) {
+                  const long long pi = static_cast<long long>(z0) * lr * lc;
+                  kernel<<<grid, kThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+                      planes[0] + pi, planes[1] + pi, planes[2] + pi,
+                      planes[3] + pi, out + 4 * pi, lr, lc,
+                      halo.plane(z0, lc), taps, hlen, y0);
+                });
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <class T>
@@ -214,4 +271,37 @@ extern "C" int pypwt_idwt2d_unshift(const float* a, const float* h,
   return pypwt::launch<float>(a, h, v, d, acc, out, batch, lr, lc, nr, nc,
                               rec_lo, rec_hi, hlen, sr, sc, scale, true,
                               device, stream);
+}
+
+// K26b: out of (batch, 2 lr, 2 lc) from one row shard's coefficient planes
+// a, h, v, d of (batch, lr, lc); halos holds their eight halo tensors in
+// JAX's order (a_top, a_bot, h_top, h_bot, v_top, v_bot, d_top, d_bot), tops
+// of (batch, lp, lc) and bottoms of (batch, rp, lc), lp and rp the synthesis
+// pads of hlen.
+extern "C" int pypwt_idwt2d_sharded(const float* a, const float* h,
+                                    const float* v, const float* d,
+                                    const float* const* halos, float* out,
+                                    int batch, int lr, int lc, int lp, int rp,
+                                    const float* rec_lo, const float* rec_hi,
+                                    int hlen, int device, void* stream) {
+  const float* planes[4] = {a, h, v, d};
+  const float* tops[4] = {halos[0], halos[2], halos[4], halos[6]};
+  const float* bots[4] = {halos[1], halos[3], halos[5], halos[7]};
+  return pypwt::launch_sharded(planes, tops, bots, out, batch, lr, lc, lp, rp,
+                               rec_lo, rec_hi, hlen, device, stream);
+}
+
+extern "C" int pypwt_idwt2d_sharded_f64(const double* a, const double* h,
+                                        const double* v, const double* d,
+                                        const double* const* halos,
+                                        double* out, int batch, int lr,
+                                        int lc, int lp, int rp,
+                                        const double* rec_lo,
+                                        const double* rec_hi, int hlen,
+                                        int device, void* stream) {
+  const double* planes[4] = {a, h, v, d};
+  const double* tops[4] = {halos[0], halos[2], halos[4], halos[6]};
+  const double* bots[4] = {halos[1], halos[3], halos[5], halos[7]};
+  return pypwt::launch_sharded(planes, tops, bots, out, batch, lr, lc, lp, rp,
+                               rec_lo, rec_hi, hlen, device, stream);
 }

@@ -1,7 +1,10 @@
 // The tile bodies of one separable 2D DWT level, analysis and synthesis,
-// shared by the one-level kernels K1/K19 (dwt2d.cu) and K2/K20
-// (idwt2d.cu) and by the whole-pyramid kernels K24/K25 (pyramid2d.cu),
-// which run them for every level of a pyramid in one launch.
+// shared by the one-level kernels K1/K19 and K26a (dwt2d.cu), K2/K20 and
+// K26b (idwt2d.cu) and by the whole-pyramid kernels K24/K25 (pyramid2d.cu),
+// which run them for every level of a pyramid in one launch. The row
+// source (common.cuh: Wrapped, or the Halo of a row shard) is a template
+// parameter: K26a/K26b are K1/K2's bodies with the shard's edge rows read
+// from its neighbours' exchanged rows.
 //
 // A tile is one block's share of a level: it stages its input window into
 // the block's dynamic shared memory, runs both separable passes there, with
@@ -85,11 +88,14 @@ __device__ __forceinline__ double threshold(double x, float) {
 
 // The TR x TC output tile at (r0, c0) of the level of plane x (nr x nc)
 // into planes a, h, v, d (ceil(nr/2) x ceil(nc/2)).
-template <class T, bool kOdd, bool kShift, int kMode, bool kCoherent>
+// Rows: Wrapped, or a Halo<T, 1> of the shard x (K26a: kShift off, nr
+// even, kOdd for an odd nc only).
+template <class T, bool kOdd, bool kShift, int kMode, bool kCoherent,
+          class Rows = Wrapped>
 __device__ __forceinline__ void tile(const T* x, T* a, T* h, T* v, T* d,
                                      int nr, int nc, int hlen, int r0,
                                      int c0, int sr, int sc, float beta,
-                                     T* smem) {
+                                     T* smem, const Rows& rows = Rows{}) {
   const int wr = win_rows(hlen), wc2 = win_half_cols(hlen), wc = 2 * wc2;
   T* s_ev = smem;                  // [wr][wc2] even window columns
   T* s_od = s_ev + wr * wc2;       // [wr][wc2] odd window columns
@@ -104,10 +110,17 @@ __device__ __forceinline__ void tile(const T* x, T* a, T* h, T* v, T* d,
   const int row0 = 2 * r0 - lpad, col0 = 2 * c0 - lpad;
   for (int i = tid; i < wr * wc; i += kThreads) {
     const int r = i / wc, c = i - r * wc;
-    const T val = load<kCoherent>(
-        x + static_cast<long long>(source<kOdd, kShift>(row0 + r, nr, sr)) *
-                nc +
-        source<kOdd, kShift>(col0 + c, nc, sc));
+    const int col = source<kOdd, kShift>(col0 + c, nc, sc);
+    T val;
+    if constexpr (Rows::kHalo) {
+      const T* src = rows.row(0, x, row0 + r, nr, nc);
+      val = src ? load<kCoherent>(src + col) : T(0);
+    } else {
+      val = load<kCoherent>(
+          x + static_cast<long long>(source<kOdd, kShift>(row0 + r, nr, sr)) *
+                  nc +
+          col);
+    }
     (c & 1 ? s_od : s_ev)[r * wc2 + (c >> 1)] = val;
   }
   __syncthreads();
@@ -183,12 +196,15 @@ __device__ __forceinline__ T* taps(T* smem, int hlen) {
 // The 2TR x 2TC output tile at (R0, C0) of the level of planes a, h, v, d
 // (lr x lc) into plane out (nr x nc); kShift: K20's store,
 // out = scale * (y[(i + sr) mod nr, (j + sc) mod nc] [+ acc]).
-template <class T, bool kShift, bool kCoherent>
+// Rows: Wrapped, or a Halo<T, 4> of the shard's planes a, h, v, d (K26b:
+// kShift off, nr = 2 lr).
+template <class T, bool kShift, bool kCoherent, class Rows = Wrapped>
 __device__ __forceinline__ void tile(const T* a, const T* h, const T* v,
                                      const T* d, const T* acc, T* out,
                                      int lr, int lc, int nr, int nc,
                                      int hlen, int R0, int C0, int sr,
-                                     int sc, float scale, T* smem) {
+                                     int sc, float scale, T* smem,
+                                     const Rows& rows = Rows{}) {
   constexpr int e = kShift ? 1 : 0;
   const Polyphase ph(hlen);
   const int h2 = ph.h2, c = ph.c;
@@ -211,12 +227,23 @@ __device__ __forceinline__ void tile(const T* a, const T* h, const T* v,
   // window origin: coefficient (m0 - c, n0 - c)
   for (int i = tid; i < wr * ww; i += kThreads) {
     const int r = i / ww, q = i - r * ww;
-    const long long o = static_cast<long long>(wrap(m0 - c + r, lr)) * lc +
-                        wrap(n0 - c + q, lc);
-    s_a[i] = load<kCoherent>(a + o);
-    s_h[i] = load<kCoherent>(h + o);
-    s_v[i] = load<kCoherent>(v + o);
-    s_d[i] = load<kCoherent>(d + o);
+    const int col = wrap(n0 - c + q, lc);
+    if constexpr (Rows::kHalo) {
+      const T* const planes[4] = {a, h, v, d};
+      T* const staged[4] = {s_a, s_h, s_v, s_d};
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const T* src = rows.row(p, planes[p], m0 - c + r, lr, lc);
+        staged[p][i] = src ? load<kCoherent>(src + col) : T(0);
+      }
+    } else {
+      const long long o =
+          static_cast<long long>(wrap(m0 - c + r, lr)) * lc + col;
+      s_a[i] = load<kCoherent>(a + o);
+      s_h[i] = load<kCoherent>(h + o);
+      s_v[i] = load<kCoherent>(v + o);
+      s_d[i] = load<kCoherent>(d + o);
+    }
   }
   __syncthreads();
 

@@ -1,8 +1,12 @@
 // K8 / K9: one periodized separable 2D stationary (a-trous) level and its
-// inverse, float32 or float64.
+// inverse, float32 or float64; K27a / K27b: the same levels of one row
+// shard of a larger plane, float32 or float64.
 //
 // Replace the TPU kernels pypwt_tpu/ops/pallas_dwt.py::swt2d_level_fused
-// (_build_swt2d, :1912) and ::iswt2d_level_fused (_build_iswt2d, :2004).
+// (_build_swt2d, :1912) and ::iswt2d_level_fused (_build_iswt2d, :2004);
+// K27a / K27b replace ::build_swt2d_sharded (:1606) and
+// ::build_iswt2d_sharded (:1669), the shard_map-local levels of
+// pypwt_tpu/parallel/spatial.py's row-sharded path.
 //
 // Maps (pypwt_tpu/core/swt.py:143-170 on conv.swt_analysis_last and
 // swt_synthesis_last), planes of (B?, Nr, Nc), any hlen <= 40 (odd
@@ -41,7 +45,12 @@
 // is its own class. Row blocks run on the grid's y axis and planes on its z
 // axis; a level with more of either than a launch holds goes in chunks
 // (launch_chunks in common.cuh), so no grid limit bounds a batch, a plane
-// or a level. Plane offsets are 64-bit. The float64 instances
+// or a level. Plane offsets are 64-bit. K27a/K27b take the Halo row source
+// (common.cuh): their staged rows lie on the shard's extended axis
+// [-lp, nr + rp), the plane's rows plus the exchanged halos, so the row
+// plan steps by the dilation itself, not by its residue mod nr, and a row
+// is read from the shard or a halo where it lies (no padded copy); the
+// columns stay periodic. The float64 instances
 // (pypwt_swt2d_f64, pypwt_iswt2d_f64) stage 36 KB of static shared memory.
 
 #include <algorithm>
@@ -65,7 +74,11 @@ struct RowPlan {
   long long fm;   // factor mod nr
 };
 
-RowPlan row_plan(int hlen, int s, int level, int nr) {
+// halo: the rows of a shard (K27), whose staged rows are rows of the
+// extended axis [-lp, nr + rp): fm is then the dilation itself, not reduced
+// mod nr (the caller bounds it: level <= 31 and the halos' heights fit an
+// int).
+RowPlan row_plan(int hlen, int s, int level, int nr, bool halo = false) {
   RowPlan p{};
   const bool every_row = level > 31 || (1LL << (level - 1)) >= nr;
   p.cls = every_row ? nr : (1 << (level - 1));
@@ -73,15 +86,18 @@ RowPlan row_plan(int hlen, int s, int level, int nr) {
   p.tr = std::min(TR, per);
   p.tiles = (per + p.tr - 1) / p.tr;
   p.back = hlen - 1 - s;
-  p.fm = dilation_mod(level, nr);
+  p.fm = halo ? 1LL << (level - 1) : dilation_mod(level, nr);
   return p;
 }
 
-// Plane row held in staged row q of the block (rho, m0).
+// Plane row held in staged row q of the block (rho, m0): reduced mod nr, or
+// (kHalo) the row of the shard's extended axis.
+template <bool kHalo>
 __device__ __forceinline__ int staged_row(const RowPlan& p, int rho, int m0,
                                           int q, int nr) {
   long long r = rho + static_cast<long long>(p.cls) * m0 +
                 static_cast<long long>(q - p.back) * p.fm;
+  if (kHalo) return static_cast<int>(r);
   r %= nr;
   return static_cast<int>(r < 0 ? r + nr : r);
 }
@@ -95,12 +111,13 @@ __device__ __forceinline__ T col_tap(const T* __restrict__ row, int col,
   return __ldg(row + j);
 }
 
-template <class T>
+// Rows: Wrapped (K8), or the Halo<T, 1> of the shard x (K27a).
+template <class T, class Rows>
 __global__ void __launch_bounds__(kThreads)
 swt2d_kernel(const T* __restrict__ x, T* __restrict__ a, T* __restrict__ h,
              T* __restrict__ v, T* __restrict__ d, int nr, int nc,
              RowPlan rp, TapsT<T> taps, TapOffsets coff, int hlen,
-             unsigned y0) {
+             unsigned y0, Rows halo) {
   __shared__ T s_lo[kStageRows * TC];
   __shared__ T s_hi[kStageRows * TC];
   __shared__ T f_lo[kMaxTaps], f_hi[kMaxTaps];
@@ -121,15 +138,21 @@ swt2d_kernel(const T* __restrict__ x, T* __restrict__ a, T* __restrict__ h,
     f_hi[tid] = taps.hi[tid];
     s_off[tid] = coff.k[tid];
   }
-  if (tid < rows) s_row[tid] = staged_row(rp, rho, m0, tid, nr);
+  if (tid < rows) s_row[tid] = staged_row<Rows::kHalo>(rp, rho, m0, tid, nr);
   __syncthreads();
 
-  // Phase 1, last axis, on the staged rows.
+  // Phase 1, last axis, on the staged rows (zero for a row past a shard's
+  // halos).
   for (int i = tid; i < rows * TC; i += kThreads) {
     const int q = i / TC, col = c0 + i - q * TC;
     T lo = 0, hi = 0;
-    if (col < nc) {
-      const T* xr = xb + static_cast<long long>(s_row[q]) * nc;
+    const T* xr;
+    if constexpr (Rows::kHalo) {
+      xr = halo.plane(blockIdx.z, nc).row(0, xb, s_row[q], nr, nc);
+    } else {
+      xr = xb + static_cast<long long>(s_row[q]) * nc;
+    }
+    if (col < nc && xr) {
       for (int k = 0; k < hlen; ++k) {
         const T val = col_tap(xr, col, s_off[k], nc);
         lo = fmadd(val, f_lo[k], lo);
@@ -164,12 +187,15 @@ swt2d_kernel(const T* __restrict__ x, T* __restrict__ a, T* __restrict__ h,
   }
 }
 
-template <class T>
+// Rows: Wrapped (K9), or the Halo<T, 4> of the shard's planes a, h, v, d
+// (K27b).
+template <class T, class Rows>
 __global__ void __launch_bounds__(kThreads)
 iswt2d_kernel(const T* __restrict__ a, const T* __restrict__ h,
               const T* __restrict__ v, const T* __restrict__ d,
               T* __restrict__ out, int nr, int nc, RowPlan rp,
-              TapsT<T> half_taps, TapOffsets coff, int hlen, unsigned y0) {
+              TapsT<T> half_taps, TapOffsets coff, int hlen, unsigned y0,
+              Rows halo) {
   __shared__ T s_p[kStageRows * TC];  // syn_-1(a, v) on staged rows
   __shared__ T s_q[kStageRows * TC];  // syn_-1(h, d)
   __shared__ T g_lo[kMaxTaps], g_hi[kMaxTaps];
@@ -190,15 +216,27 @@ iswt2d_kernel(const T* __restrict__ a, const T* __restrict__ h,
     g_hi[tid] = half_taps.hi[tid];
     s_off[tid] = coff.k[tid];
   }
-  if (tid < rows) s_row[tid] = staged_row(rp, rho, m0, tid, nr);
+  if (tid < rows) s_row[tid] = staged_row<Rows::kHalo>(rp, rho, m0, tid, nr);
   __syncthreads();
 
   for (int i = tid; i < rows * TC; i += kThreads) {
     const int q = i / TC, col = c0 + i - q * TC;
     T sp = 0, sq = 0;
-    if (col < nc) {
+    const T *ar, *hr, *vr, *dr;
+    if constexpr (Rows::kHalo) {
+      const auto hz = halo.plane(blockIdx.z, nc);
+      ar = hz.row(0, a + pb, s_row[q], nr, nc);
+      hr = hz.row(1, h + pb, s_row[q], nr, nc);
+      vr = hz.row(2, v + pb, s_row[q], nr, nc);
+      dr = hz.row(3, d + pb, s_row[q], nr, nc);
+    } else {
       const long long rb = pb + static_cast<long long>(s_row[q]) * nc;
-      const T *ar = a + rb, *hr = h + rb, *vr = v + rb, *dr = d + rb;
+      ar = a + rb;
+      hr = h + rb;
+      vr = v + rb;
+      dr = d + rb;
+    }
+    if (col < nc && ar) {
       for (int k = 0; k < hlen; ++k) {
         const int off = s_off[k];
         sp = fmadd(col_tap(ar, col, off, nc), g_lo[k], sp);
@@ -231,11 +269,11 @@ iswt2d_kernel(const T* __restrict__ a, const T* __restrict__ h,
 // out of range. Its blocks: (nc + TC - 1) / TC columns x rp.cls * rp.tiles
 // rows (at most 2 nr) x batch planes.
 bool plan_level(int batch, int nr, int nc, int level, int s, int hlen,
-                RowPlan* rp, TapOffsets* coff) {
+                RowPlan* rp, TapOffsets* coff, bool halo = false) {
   if (hlen < 1 || hlen > kMaxTaps || s < 0 || s >= hlen || nr < 1 ||
       nc < 1 || nr > 0x3fffffff || nc > 0x3fffffff || level < 1 || batch < 1)
     return false;
-  *rp = row_plan(hlen, s, level, nr);
+  *rp = row_plan(hlen, s, level, nr, halo);
   *coff = dilated_offsets(hlen, s, level, nc);
   return true;
 }
@@ -254,10 +292,10 @@ int launch_swt(const T* x, T* a, T* h, T* v, T* d, int batch, int nr, int nc,
   launch_chunks((nc + TC - 1) / TC, rp.cls * rp.tiles, batch,
                 [&](dim3 grid, int y0, int z0) {
                   const long long p = static_cast<long long>(z0) * nr * nc;
-                  swt2d_kernel<T><<<grid, kThreads, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
+                  swt2d_kernel<T, Wrapped><<<
+                      grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
                       x + p, a + p, h + p, v + p, d + p, nr, nc, rp, taps,
-                      coff, hlen, y0);
+                      coff, hlen, y0, Wrapped{});
                 });
   return static_cast<int>(cudaGetLastError());
 }
@@ -283,10 +321,71 @@ int launch_iswt(const T* a, const T* h, const T* v, const T* d, T* out,
   launch_chunks((nc + TC - 1) / TC, rp.cls * rp.tiles, batch,
                 [&](dim3 grid, int y0, int z0) {
                   const long long p = static_cast<long long>(z0) * nr * nc;
-                  iswt2d_kernel<T><<<grid, kThreads, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
+                  iswt2d_kernel<T, Wrapped><<<
+                      grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
                       a + p, h + p, v + p, d + p, out + p, nr, nc, rp, taps,
-                      coff, hlen, y0);
+                      coff, hlen, y0, Wrapped{});
+                });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K27a: the level of one row shard x of (batch, nr, nc), its rows above and
+// below from top (batch, lp, nc) and bot (batch, rp, nc), the exact dilated
+// pads of the level.
+template <class T>
+int launch_swt_sharded(const T* x, const T* top, const T* bot, T* a, T* h,
+                       T* v, T* d, int batch, int nr, int nc, int level,
+                       int centre, int lp, int rp, const T* dec_lo,
+                       const T* dec_hi, int hlen, int device, void* stream) {
+  RowPlan rp_;
+  TapOffsets coff;
+  if (!stationary_halos_ok(hlen, centre, level, lp, rp) ||
+      !plan_level(batch, nr, nc, level, centre, hlen, &rp_, &coff, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const TapsT<T> taps = make_taps(dec_lo, dec_hi, hlen);
+  const Halo<T, 1> halo = make_halo(top, bot, lp, rp);
+  launch_chunks((nc + TC - 1) / TC, rp_.cls * rp_.tiles, batch,
+                [&](dim3 grid, int y0, int z0) {
+                  const long long p = static_cast<long long>(z0) * nr * nc;
+                  swt2d_kernel<T, Halo<T, 1>><<<
+                      grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                      x + p, a + p, h + p, v + p, d + p, nr, nc, rp_, taps,
+                      coff, hlen, y0, halo.plane(z0, nc));
+                });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K27b: the synthesis of one row shard's planes, each with its halo pair.
+template <class T>
+int launch_iswt_sharded(const T* const* planes, const T* const* tops,
+                        const T* const* bots, T* out, int batch, int nr,
+                        int nc, int level, int centre, int lp, int rp,
+                        const T* rec_lo, const T* rec_hi, int hlen,
+                        int device, void* stream) {
+  RowPlan rp_;
+  TapOffsets coff;
+  if (!stationary_halos_ok(hlen, centre, level, lp, rp) ||
+      !plan_level(batch, nr, nc, level, centre, hlen, &rp_, &coff, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  T lo2[kMaxTaps], hi2[kMaxTaps];
+  for (int k = 0; k < hlen; ++k) {
+    lo2[k] = T(0.5) * rec_lo[k];
+    hi2[k] = T(0.5) * rec_hi[k];
+  }
+  const TapsT<T> taps = make_taps<T>(lo2, hi2, hlen);
+  const Halo<T, 4> halo = make_halo4(tops, bots, lp, rp);
+  launch_chunks((nc + TC - 1) / TC, rp_.cls * rp_.tiles, batch,
+                [&](dim3 grid, int y0, int z0) {
+                  const long long p = static_cast<long long>(z0) * nr * nc;
+                  iswt2d_kernel<T, Halo<T, 4>><<<
+                      grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                      planes[0] + p, planes[1] + p, planes[2] + p,
+                      planes[3] + p, out + p, nr, nc, rp_, taps, coff, hlen,
+                      y0, halo.plane(z0, nc));
                 });
   return static_cast<int>(cudaGetLastError());
 }
@@ -332,4 +431,65 @@ extern "C" int pypwt_iswt2d_f64(const double* a, const double* h,
                                 void* stream) {
   return pypwt::launch_iswt(a, h, v, d, out, batch, nr, nc, level, centre,
                             rec_lo, rec_hi, hlen, device, stream);
+}
+
+// K27a / K27b: the levels of one row shard (K8's / K9's maps, rows read
+// through the halos): top of (batch, lp, nc) and bot of (batch, rp, nc),
+// (lp, rp) = ((hlen - 1 - centre), centre) * 2^(level-1). K27b's halos are
+// the eight halo tensors in JAX's order (a_top, a_bot, h_top, h_bot, v_top,
+// v_bot, d_top, d_bot).
+extern "C" int pypwt_swt2d_sharded(const float* x, const float* top,
+                                   const float* bot, float* a, float* h,
+                                   float* v, float* d, int batch, int nr,
+                                   int nc, int level, int centre, int lp,
+                                   int rp, const float* dec_lo,
+                                   const float* dec_hi, int hlen, int device,
+                                   void* stream) {
+  return pypwt::launch_swt_sharded(x, top, bot, a, h, v, d, batch, nr, nc,
+                                   level, centre, lp, rp, dec_lo, dec_hi,
+                                   hlen, device, stream);
+}
+
+extern "C" int pypwt_swt2d_sharded_f64(const double* x, const double* top,
+                                       const double* bot, double* a,
+                                       double* h, double* v, double* d,
+                                       int batch, int nr, int nc, int level,
+                                       int centre, int lp, int rp,
+                                       const double* dec_lo,
+                                       const double* dec_hi, int hlen,
+                                       int device, void* stream) {
+  return pypwt::launch_swt_sharded(x, top, bot, a, h, v, d, batch, nr, nc,
+                                   level, centre, lp, rp, dec_lo, dec_hi,
+                                   hlen, device, stream);
+}
+
+extern "C" int pypwt_iswt2d_sharded(const float* a, const float* h,
+                                    const float* v, const float* d,
+                                    const float* const* halos, float* out,
+                                    int batch, int nr, int nc, int level,
+                                    int centre, int lp, int rp,
+                                    const float* rec_lo, const float* rec_hi,
+                                    int hlen, int device, void* stream) {
+  const float* planes[4] = {a, h, v, d};
+  const float* tops[4] = {halos[0], halos[2], halos[4], halos[6]};
+  const float* bots[4] = {halos[1], halos[3], halos[5], halos[7]};
+  return pypwt::launch_iswt_sharded(planes, tops, bots, out, batch, nr, nc,
+                                    level, centre, lp, rp, rec_lo, rec_hi,
+                                    hlen, device, stream);
+}
+
+extern "C" int pypwt_iswt2d_sharded_f64(const double* a, const double* h,
+                                        const double* v, const double* d,
+                                        const double* const* halos,
+                                        double* out, int batch, int nr,
+                                        int nc, int level, int centre, int lp,
+                                        int rp, const double* rec_lo,
+                                        const double* rec_hi, int hlen,
+                                        int device, void* stream) {
+  const double* planes[4] = {a, h, v, d};
+  const double* tops[4] = {halos[0], halos[2], halos[4], halos[6]};
+  const double* bots[4] = {halos[1], halos[3], halos[5], halos[7]};
+  return pypwt::launch_iswt_sharded(planes, tops, bots, out, batch, nr, nc,
+                                    level, centre, lp, rp, rec_lo, rec_hi,
+                                    hlen, device, stream);
 }

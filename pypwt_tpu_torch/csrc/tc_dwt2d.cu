@@ -1,9 +1,15 @@
 // K5 / K6: one periodized separable 2D DWT level, analysis (K5) and
-// polyphase synthesis (K6), float32, as banded products on the tensor cores.
+// polyphase synthesis (K6), float32, as banded products on the tensor cores;
+// and the DWT half of K28, the same levels of one row shard.
 //
 // K5 replaces the TPU kernel pypwt_tpu/ops/mxu_dwt.py::dwt2d_fused_mxu
 // (_build_dwt2d_mxu, call :251), K6 ::idwt2d_fused_mxu (_build_idwt2d_mxu,
-// :347): both run each separable pass as banded MXU dots D @ x.
+// :347): both run each separable pass as banded MXU dots D @ x. K28's
+// pypwt_tc_dwt2d_sharded / pypwt_tc_idwt2d_sharded replace
+// ::build_dwt2d_sharded_mxu (:571) and ::build_idwt2d_sharded_mxu (:651):
+// the same kernels with the Halo row source (common.cuh), the window rows
+// above and below the shard read from its neighbours' exchanged rows where
+// they lie (no padded copy), the columns periodic as before.
 //
 // Maps (the port's plain versions in ops/mxu_dwt.py), for planes
 // (B?, Nr, Nc) with Nr and Nc even and an even hlen of 4..40 (JAX's
@@ -74,12 +80,13 @@ struct AnaGeom {
       sizeof(float) * (kWin * kLdW + 2 * kTile * kLdT + 2 * kMaxTaps);
 };
 
-template <class P, int kSteps>
+// Rows: Wrapped (K5), or the Halo<float, 1> of the shard x (K28's analysis).
+template <class P, int kSteps, class Rows>
 __global__ void __launch_bounds__(kThreads)
 tc_dwt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
                 float* __restrict__ h, float* __restrict__ v,
                 float* __restrict__ d, int nr, int nc, Taps taps, int hlen,
-                int y0) {
+                int y0, Rows rows) {
   using G = AnaGeom<P, kSteps>;
   extern __shared__ float smem[];
   float* s_w = smem;                       // [kWin][kLdW] input window
@@ -99,10 +106,15 @@ tc_dwt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
   batched_copy<G::kWin * G::kWinC, 8>(
       [&](int i) {
         const int r = i / G::kWinC, c = i - r * G::kWinC;
-        return r < ext && c < ext
-                   ? xb[static_cast<long long>(wrap(row0 + r, nr)) * nc +
-                        wrap(col0 + c, nc)]
-                   : 0.f;
+        if (r >= ext || c >= ext) return 0.f;
+        if constexpr (Rows::kHalo) {
+          const float* src =
+              rows.plane(blockIdx.z, nc).row(0, xb, row0 + r, nr, nc);
+          return src ? src[wrap(col0 + c, nc)] : 0.f;
+        } else {
+          return xb[static_cast<long long>(wrap(row0 + r, nr)) * nc +
+                    wrap(col0 + c, nc)];
+        }
       },
       [&](int i, float v) {
         const int r = i / G::kWinC;
@@ -172,12 +184,14 @@ struct SynGeom {
       sizeof(float) * (4 * kWin * kLdW + 2 * 2 * kTile * kLdT + 4 * kHalfTaps);
 };
 
-template <class P, int kSteps>
+// Rows: Wrapped (K6), or the Halo<float, 4> of the shard's planes a, h, v,
+// d (K28's synthesis).
+template <class P, int kSteps, class Rows>
 __global__ void __launch_bounds__(kThreads)
 tc_idwt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
                  const float* __restrict__ v, const float* __restrict__ d,
                  float* __restrict__ out, int lr, int lc, Taps taps, int hlen,
-                 int y0) {
+                 int y0, Rows rows) {
   using G = SynGeom<P, kSteps>;
   constexpr int kPlane = G::kWin * G::kLdW;
   constexpr int kT = 2 * kTile * G::kLdT;
@@ -202,11 +216,22 @@ tc_idwt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
         const int r = i / G::kWinC, c = i - r * G::kWinC;
         Quad q{{0.f, 0.f, 0.f, 0.f}};
         if (r < ext && c < ext) {
-          const long long o =
-              ib + static_cast<long long>(wrap(q0r - ph.c + r, lr)) * lc +
-              wrap(q0c - ph.c + c, lc);
+          const int col = wrap(q0c - ph.c + c, lc);
+          if constexpr (Rows::kHalo) {
+            const auto hz = rows.plane(blockIdx.z, lc);
 #pragma unroll
-          for (int p = 0; p < 4; ++p) q.v[p] = planes[p][o];
+            for (int p = 0; p < 4; ++p) {
+              const float* src = hz.row(p, planes[p] + ib, q0r - ph.c + r,
+                                        lr, lc);
+              q.v[p] = src ? src[col] : 0.f;
+            }
+          } else {
+            const long long o =
+                ib + static_cast<long long>(wrap(q0r - ph.c + r, lr)) * lc +
+                col;
+#pragma unroll
+            for (int p = 0; p < 4; ++p) q.v[p] = planes[p][o];
+          }
         }
         return q;
       },
@@ -267,53 +292,58 @@ tc_idwt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
   }
 }
 
+template <class Rows>
 using DwtKernel = void (*)(const float*, float*, float*, float*, float*, int,
-                           int, Taps, int, int);
+                           int, Taps, int, int, Rows);
+template <class Rows>
 using IdwtKernel = void (*)(const float*, const float*, const float*,
-                            const float*, float*, int, int, Taps, int, int);
+                            const float*, float*, int, int, Taps, int, int,
+                            Rows);
 
-template <class P, int S>
-Instance<DwtKernel> dwt_instance() {
-  return {tc_dwt2d_kernel<P, S>, AnaGeom<P, S>::kSmem};
+template <class P, int S, class Rows>
+Instance<DwtKernel<Rows>> dwt_instance() {
+  return {tc_dwt2d_kernel<P, S, Rows>, AnaGeom<P, S>::kSmem};
 }
 
-template <class P, int S>
-Instance<IdwtKernel> idwt_instance() {
-  return {tc_idwt2d_kernel<P, S>, SynGeom<P, S>::kSmem};
+template <class P, int S, class Rows>
+Instance<IdwtKernel<Rows>> idwt_instance() {
+  return {tc_idwt2d_kernel<P, S, Rows>, SynGeom<P, S>::kSmem};
 }
 
 // kSteps = ceil((14 + hlen) / kK): 3..7 (TF32), 2..4 (BF16) for hlen 4..40.
-Instance<DwtKernel> pick_dwt(bool bf16, int hlen) {
+template <class Rows>
+Instance<DwtKernel<Rows>> pick_dwt(bool bf16, int hlen) {
   if (bf16) {
     switch ((14 + hlen + 15) / 16) {
-      case 2: return dwt_instance<mma::Bf16, 2>();
-      case 3: return dwt_instance<mma::Bf16, 3>();
-      case 4: return dwt_instance<mma::Bf16, 4>();
+      case 2: return dwt_instance<mma::Bf16, 2, Rows>();
+      case 3: return dwt_instance<mma::Bf16, 3, Rows>();
+      case 4: return dwt_instance<mma::Bf16, 4, Rows>();
     }
   } else {
     switch ((14 + hlen + 7) / 8) {
-      case 3: return dwt_instance<mma::Tf32, 3>();
-      case 4: return dwt_instance<mma::Tf32, 4>();
-      case 5: return dwt_instance<mma::Tf32, 5>();
-      case 6: return dwt_instance<mma::Tf32, 6>();
-      case 7: return dwt_instance<mma::Tf32, 7>();
+      case 3: return dwt_instance<mma::Tf32, 3, Rows>();
+      case 4: return dwt_instance<mma::Tf32, 4, Rows>();
+      case 5: return dwt_instance<mma::Tf32, 5, Rows>();
+      case 6: return dwt_instance<mma::Tf32, 6, Rows>();
+      case 7: return dwt_instance<mma::Tf32, 7, Rows>();
     }
   }
   return {nullptr, 0};
 }
 
 // kSteps = ceil((hlen/2 + 4) / kK): 1..3 (TF32), 1..2 (BF16).
-Instance<IdwtKernel> pick_idwt(bool bf16, int hlen) {
+template <class Rows>
+Instance<IdwtKernel<Rows>> pick_idwt(bool bf16, int hlen) {
   if (bf16) {
     switch ((hlen / 2 + 4 + 15) / 16) {
-      case 1: return idwt_instance<mma::Bf16, 1>();
-      case 2: return idwt_instance<mma::Bf16, 2>();
+      case 1: return idwt_instance<mma::Bf16, 1, Rows>();
+      case 2: return idwt_instance<mma::Bf16, 2, Rows>();
     }
   } else {
     switch ((hlen / 2 + 4 + 7) / 8) {
-      case 1: return idwt_instance<mma::Tf32, 1>();
-      case 2: return idwt_instance<mma::Tf32, 2>();
-      case 3: return idwt_instance<mma::Tf32, 3>();
+      case 1: return idwt_instance<mma::Tf32, 1, Rows>();
+      case 2: return idwt_instance<mma::Tf32, 2, Rows>();
+      case 3: return idwt_instance<mma::Tf32, 3, Rows>();
     }
   }
   return {nullptr, 0};
@@ -349,7 +379,7 @@ extern "C" int pypwt_tc_dwt2d(const float* x, float* a, float* h, float* v,
   using namespace pypwt;
   if (!level_ok(batch, nr, nc, hlen))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto inst = pick_dwt(bf16 != 0, hlen);
+  const auto inst = pick_dwt<Wrapped>(bf16 != 0, hlen);
   cudaError_t err = prepare(inst, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Taps taps = make_taps(dec_lo, dec_hi, hlen);
@@ -361,7 +391,7 @@ extern "C" int pypwt_tc_dwt2d(const float* x, float* a, float* h, float* v,
                   inst.kernel<<<grid, kThreads, inst.smem,
                                 static_cast<cudaStream_t>(stream)>>>(
                       x + pi, a + po, h + po, v + po, d + po, nr, nc, taps,
-                      hlen, y0);
+                      hlen, y0, Wrapped{});
                 });
   return static_cast<int>(cudaGetLastError());
 }
@@ -376,7 +406,7 @@ extern "C" int pypwt_tc_idwt2d(const float* a, const float* h, const float* v,
   if (lr > 0x1fffffff || lc > 0x1fffffff ||
       !level_ok(batch, 2 * lr, 2 * lc, hlen))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto inst = pick_idwt(bf16 != 0, hlen);
+  const auto inst = pick_idwt<Wrapped>(bf16 != 0, hlen);
   cudaError_t err = prepare(inst, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Taps taps = make_taps(rec_lo, rec_hi, hlen);
@@ -387,7 +417,75 @@ extern "C" int pypwt_tc_idwt2d(const float* a, const float* h, const float* v,
                   inst.kernel<<<grid, kThreads, inst.smem,
                                 static_cast<cudaStream_t>(stream)>>>(
                       a + pi, h + pi, v + pi, d + pi, out + po, lr, lc, taps,
-                      hlen, y0);
+                      hlen, y0, Wrapped{});
+                });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K28's analysis: K5's level of one row shard x of (batch, nr, nc), its
+// rows above and below from top (batch, lp, nc) and bot (batch, rp, nc), lp
+// and rp the analysis pads of hlen.
+extern "C" int pypwt_tc_dwt2d_sharded(const float* x, const float* top,
+                                      const float* bot, float* a, float* h,
+                                      float* v, float* d, int batch, int nr,
+                                      int nc, int lp, int rp,
+                                      const float* dec_lo,
+                                      const float* dec_hi, int hlen, int bf16,
+                                      int device, void* stream) {
+  using namespace pypwt;
+  if (!level_ok(batch, nr, nc, hlen) || !analysis_halos_ok(hlen, lp, rp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using Rows = Halo<float, 1>;
+  const auto inst = pick_dwt<Rows>(bf16 != 0, hlen);
+  cudaError_t err = prepare(inst, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Taps taps = make_taps(dec_lo, dec_hi, hlen);
+  const Rows halo = make_halo(top, bot, lp, rp);
+  const int lr = nr / 2, lc = nc / 2;
+  launch_chunks((lc + kTile - 1) / kTile, (lr + kTile - 1) / kTile, batch,
+                [&](dim3 grid, int y0, int z0) {
+                  const long long pi = static_cast<long long>(z0) * nr * nc;
+                  const long long po = static_cast<long long>(z0) * lr * lc;
+                  inst.kernel<<<grid, kThreads, inst.smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+                      x + pi, a + po, h + po, v + po, d + po, nr, nc, taps,
+                      hlen, y0, halo.plane(z0, nc));
+                });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K28's synthesis: K6's level of one row shard's planes a, h, v, d of
+// (batch, lr, lc), halos their eight halo tensors in JAX's order (a_top,
+// a_bot, h_top, ...), tops of (batch, lp, lc) and bottoms of (batch, rp,
+// lc), lp and rp the synthesis pads of hlen; out of (batch, 2 lr, 2 lc).
+extern "C" int pypwt_tc_idwt2d_sharded(const float* a, const float* h,
+                                       const float* v, const float* d,
+                                       const float* const* halos, float* out,
+                                       int batch, int lr, int lc, int lp,
+                                       int rp, const float* rec_lo,
+                                       const float* rec_hi, int hlen, int bf16,
+                                       int device, void* stream) {
+  using namespace pypwt;
+  if (lr > 0x1fffffff || lc > 0x1fffffff ||
+      !level_ok(batch, 2 * lr, 2 * lc, hlen) ||
+      !synthesis_halos_ok(hlen, lp, rp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using Rows = Halo<float, 4>;
+  const auto inst = pick_idwt<Rows>(bf16 != 0, hlen);
+  cudaError_t err = prepare(inst, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Taps taps = make_taps(rec_lo, rec_hi, hlen);
+  const float* tops[4] = {halos[0], halos[2], halos[4], halos[6]};
+  const float* bots[4] = {halos[1], halos[3], halos[5], halos[7]};
+  const Rows halo = make_halo4(tops, bots, lp, rp);
+  launch_chunks((lc + kTile - 1) / kTile, (lr + kTile - 1) / kTile, batch,
+                [&](dim3 grid, int y0, int z0) {
+                  const long long pi = static_cast<long long>(z0) * lr * lc;
+                  const long long po = 4 * pi;
+                  inst.kernel<<<grid, kThreads, inst.smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+                      a + pi, h + pi, v + pi, d + pi, out + po, lr, lc, taps,
+                      hlen, y0, halo.plane(z0, lc));
                 });
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,17 @@
 // K11a / K11b: one periodized separable 2D stationary (a-trous) level and
-// its inverse, float32, as banded products on the tensor cores.
+// its inverse, float32, as banded products on the tensor cores; and the SWT
+// half of K28, the same levels of one row shard.
 //
 // K11a replaces the TPU kernel pypwt_tpu/ops/mxu_swt.py::
 // swt2d_level_fused_mxu (_build_swt2d_mxu, call :315), K11b
 // ::iswt2d_level_fused_mxu (_build_iswt2d_mxu, :410): banded (or, at deep
-// levels, polyphase) MXU dots D @ x on each axis.
+// levels, polyphase) MXU dots D @ x on each axis. K28's
+// pypwt_tc_swt2d_sharded / pypwt_tc_iswt2d_sharded replace
+// ::build_swt2d_sharded_mxu (:656) and ::build_iswt2d_sharded_mxu (:737):
+// the same kernels with the Halo row source (common.cuh). Their row windows
+// lie on the shard's extended axis [-lp, nr + rp), so the rows' plan steps
+// by the dilation itself, not its residue mod nr; a row is read from the
+// shard or a halo where it lies (no padded copy); the columns stay periodic.
 //
 // Maps (the port's plain versions in ops/mxu_swt.py), planes (B?, Nr, Nc),
 // any hlen <= 40, level l >= 1, dilation t = 2^(l-1); on either axis tap k
@@ -64,7 +71,10 @@ struct AxisPlan {
   long long fm;  // dilation mod n
 };
 
-AxisPlan axis_plan(int hlen, int s, int level, int n) {
+// halo: the rows of a shard (K28), whose window samples are rows of the
+// extended axis [-lp, n + rp): fm is then the dilation itself, not reduced
+// mod n (the caller bounds it: level <= 31, halos of int heights).
+AxisPlan axis_plan(int hlen, int s, int level, int n, bool halo = false) {
   AxisPlan p{};
   p.n = n;
   const bool every = level > 31 || (1LL << (level - 1)) >= n;
@@ -72,15 +82,18 @@ AxisPlan axis_plan(int hlen, int s, int level, int n) {
   const int per = (n + p.cls - 1) / p.cls;
   p.tiles = (per + kTile - 1) / kTile;
   p.back = hlen - 1 - s;
-  p.fm = dilation_mod(level, n);
+  p.fm = halo ? 1LL << (level - 1) : dilation_mod(level, n);
   return p;
 }
 
-// Axis sample held in window sample w of the block (rho, m0).
+// Axis sample held in window sample w of the block (rho, m0): reduced mod
+// n, or (kHalo) the row of the shard's extended axis.
+template <bool kHalo = false>
 __device__ __forceinline__ int window_index(const AxisPlan& p, int rho, int m0,
                                             int w) {
   long long i = rho + static_cast<long long>(p.cls) * m0 +
                 static_cast<long long>(w - p.back) * p.fm;
+  if (kHalo) return static_cast<int>(i);
   i %= p.n;
   return static_cast<int>(i < 0 ? i + p.n : i);
 }
@@ -121,17 +134,19 @@ struct Samples {
 
 // Stage the window of `kInputs` planes (the same rows and columns of each,
 // batched_copy: several loads in flight per thread) and the taps in window
-// order; the caller synchronises.
-template <int kInputs, int kWin, int kWinC, int kLdW>
+// order; the caller synchronises. Rows: Wrapped, or the Halo<float,
+// kInputs> of a shard's planes (K28), already moved to the block's plane.
+template <int kInputs, int kWin, int kWinC, int kLdW, class Rows>
 __device__ __forceinline__ void stage(const float* const (&planes)[kInputs],
                                       float* s_in, int* s_row, int* s_col,
                                       const AxisPlan& pr, const AxisPlan& pc,
                                       const Block& blk, int hlen,
                                       const Taps& taps, float* f_lo,
-                                      float* f_hi) {
+                                      float* f_hi, const Rows& rows) {
   const int tid = threadIdx.x;
   const int ext = kTile + hlen - 1;  // the window's extent
-  if (tid < kWin) s_row[tid] = window_index(pr, blk.rho_r, blk.m0, tid);
+  if (tid < kWin)
+    s_row[tid] = window_index<Rows::kHalo>(pr, blk.rho_r, blk.m0, tid);
   if (tid < kWinC) s_col[tid] = window_index(pc, blk.rho_c, blk.q0, tid);
   load_reversed_taps(taps, hlen, f_lo, f_hi);
   __syncthreads();
@@ -140,10 +155,18 @@ __device__ __forceinline__ void stage(const float* const (&planes)[kInputs],
         const int r = i / kWinC, c = i - r * kWinC;
         Samples<kInputs> q{};
         if (r < ext && c < ext) {
-          const long long o =
-              static_cast<long long>(s_row[r]) * pc.n + s_col[c];
+          if constexpr (Rows::kHalo) {
 #pragma unroll
-          for (int p = 0; p < kInputs; ++p) q.v[p] = __ldg(planes[p] + o);
+            for (int p = 0; p < kInputs; ++p) {
+              const float* src = rows.row(p, planes[p], s_row[r], pr.n, pc.n);
+              q.v[p] = src ? __ldg(src + s_col[c]) : 0.f;
+            }
+          } else {
+            const long long o =
+                static_cast<long long>(s_row[r]) * pc.n + s_col[c];
+#pragma unroll
+            for (int p = 0; p < kInputs; ++p) q.v[p] = __ldg(planes[p] + o);
+          }
         }
         return q;
       },
@@ -153,6 +176,26 @@ __device__ __forceinline__ void stage(const float* const (&planes)[kInputs],
         for (int p = 0; p < kInputs; ++p)
           s_in[p * kWin * kLdW + r * kLdW + c] = q.v[p];
       });
+}
+
+// The row source of the block's plane (blockIdx.z): a shard's halos move
+// with the plane, Wrapped has nothing to move.
+__device__ __forceinline__ Wrapped plane_rows(Wrapped w, int) { return w; }
+
+template <int kPlanes>
+__device__ __forceinline__ Halo<float, kPlanes> plane_rows(
+    const Halo<float, kPlanes>& h, int nc) {
+  return h.plane(blockIdx.z, nc);
+}
+
+// The synthesis taps rec / 2 (exact in float32: the 1/2 of each axis pass).
+inline Taps half_taps(const float* rec_lo, const float* rec_hi, int hlen) {
+  float lo2[kMaxTaps], hi2[kMaxTaps];
+  for (int k = 0; k < hlen; ++k) {
+    lo2[k] = 0.5f * rec_lo[k];
+    hi2[k] = 0.5f * rec_hi[k];
+  }
+  return make_taps(lo2, hi2, hlen);
 }
 
 // The compact band of both filters, B[k][n] = f[k - n].
@@ -180,12 +223,14 @@ struct Store {
   }
 };
 
-template <class P, int kSteps>
+// Rows: Wrapped (K11a), or the Halo<float, 1> of the shard x (K28's
+// stationary analysis).
+template <class P, int kSteps, class Rows>
 __global__ void __launch_bounds__(kThreads)
 tc_swt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
                 float* __restrict__ h, float* __restrict__ v,
                 float* __restrict__ d, AxisPlan pr, AxisPlan pc, Taps taps,
-                int hlen, int y0) {
+                int hlen, int y0, Rows rows) {
   using G = SwtGeom<P, kSteps, 1>;
   extern __shared__ float smem[];
   float* s_w = smem;                        // [kWin][kLdW] input window
@@ -200,7 +245,8 @@ tc_swt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
   const long long plane = static_cast<long long>(pr.n) * pc.n;
   const float* const in[1] = {x + blockIdx.z * plane};
   stage<1, G::kWin, G::kWinC, G::kLdW>(in, s_w, s_row, s_col, pr, pc, blk,
-                                       hlen, taps, f_lo, f_hi);
+                                       hlen, taps, f_lo, f_hi,
+                                       plane_rows(rows, pc.n));
   __syncthreads();
   const Band<P, kSteps> b(f_lo, f_hi, hlen);
 
@@ -247,12 +293,14 @@ tc_swt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
   }
 }
 
-template <class P, int kSteps>
+// Rows: Wrapped (K11b), or the Halo<float, 4> of the shard's planes a, h,
+// v, d (K28's stationary synthesis).
+template <class P, int kSteps, class Rows>
 __global__ void __launch_bounds__(kThreads)
 tc_iswt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
                  const float* __restrict__ v, const float* __restrict__ d,
                  float* __restrict__ out, AxisPlan pr, AxisPlan pc,
-                 Taps half_taps, int hlen, int y0) {
+                 Taps half_taps, int hlen, int y0, Rows rows) {
   using G = SwtGeom<P, kSteps, 4>;
   constexpr int kPlane = G::kWin * G::kLdW;
   constexpr int kT = kTile * G::kLdT;
@@ -270,7 +318,8 @@ tc_iswt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
   const long long pb = blockIdx.z * plane;
   const float* const in[4] = {a + pb, h + pb, v + pb, d + pb};
   stage<4, G::kWin, G::kWinC, G::kLdW>(in, s_in, s_row, s_col, pr, pc, blk,
-                                       hlen, half_taps, f_lo, f_hi);
+                                       hlen, half_taps, f_lo, f_hi,
+                                       plane_rows(rows, pc.n));
   __syncthreads();
   const Band<P, kSteps> b(f_lo, f_hi, hlen);
 
@@ -310,68 +359,75 @@ tc_iswt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
   }
 }
 
+template <class Rows>
 using SwtKernel = void (*)(const float*, float*, float*, float*, float*,
-                           AxisPlan, AxisPlan, Taps, int, int);
+                           AxisPlan, AxisPlan, Taps, int, int, Rows);
+template <class Rows>
 using IswtKernel = void (*)(const float*, const float*, const float*,
                             const float*, float*, AxisPlan, AxisPlan, Taps,
-                            int, int);
+                            int, int, Rows);
 
-template <class P, int S>
-Instance<SwtKernel> swt_instance() {
-  return {tc_swt2d_kernel<P, S>, SwtGeom<P, S, 1>::kSmem};
+template <class P, int S, class Rows>
+Instance<SwtKernel<Rows>> swt_instance() {
+  return {tc_swt2d_kernel<P, S, Rows>, SwtGeom<P, S, 1>::kSmem};
 }
 
-template <class P, int S>
-Instance<IswtKernel> iswt_instance() {
-  return {tc_iswt2d_kernel<P, S>, SwtGeom<P, S, 4>::kSmem};
+template <class P, int S, class Rows>
+Instance<IswtKernel<Rows>> iswt_instance() {
+  return {tc_iswt2d_kernel<P, S, Rows>, SwtGeom<P, S, 4>::kSmem};
 }
 
 // kSteps = ceil((hlen + 7) / kK): 1..6 (TF32), 1..3 (BF16) for hlen 1..40.
-Instance<SwtKernel> pick_swt(bool bf16, int hlen) {
+template <class Rows>
+Instance<SwtKernel<Rows>> pick_swt(bool bf16, int hlen) {
   if (bf16) {
     switch ((hlen + 7 + 15) / 16) {
-      case 1: return swt_instance<mma::Bf16, 1>();
-      case 2: return swt_instance<mma::Bf16, 2>();
-      case 3: return swt_instance<mma::Bf16, 3>();
+      case 1: return swt_instance<mma::Bf16, 1, Rows>();
+      case 2: return swt_instance<mma::Bf16, 2, Rows>();
+      case 3: return swt_instance<mma::Bf16, 3, Rows>();
     }
   } else {
     switch ((hlen + 7 + 7) / 8) {
-      case 1: return swt_instance<mma::Tf32, 1>();
-      case 2: return swt_instance<mma::Tf32, 2>();
-      case 3: return swt_instance<mma::Tf32, 3>();
-      case 4: return swt_instance<mma::Tf32, 4>();
-      case 5: return swt_instance<mma::Tf32, 5>();
-      case 6: return swt_instance<mma::Tf32, 6>();
+      case 1: return swt_instance<mma::Tf32, 1, Rows>();
+      case 2: return swt_instance<mma::Tf32, 2, Rows>();
+      case 3: return swt_instance<mma::Tf32, 3, Rows>();
+      case 4: return swt_instance<mma::Tf32, 4, Rows>();
+      case 5: return swt_instance<mma::Tf32, 5, Rows>();
+      case 6: return swt_instance<mma::Tf32, 6, Rows>();
     }
   }
   return {nullptr, 0};
 }
 
-Instance<IswtKernel> pick_iswt(bool bf16, int hlen) {
+template <class Rows>
+Instance<IswtKernel<Rows>> pick_iswt(bool bf16, int hlen) {
   if (bf16) {
     switch ((hlen + 7 + 15) / 16) {
-      case 1: return iswt_instance<mma::Bf16, 1>();
-      case 2: return iswt_instance<mma::Bf16, 2>();
-      case 3: return iswt_instance<mma::Bf16, 3>();
+      case 1: return iswt_instance<mma::Bf16, 1, Rows>();
+      case 2: return iswt_instance<mma::Bf16, 2, Rows>();
+      case 3: return iswt_instance<mma::Bf16, 3, Rows>();
     }
   } else {
     switch ((hlen + 7 + 7) / 8) {
-      case 1: return iswt_instance<mma::Tf32, 1>();
-      case 2: return iswt_instance<mma::Tf32, 2>();
-      case 3: return iswt_instance<mma::Tf32, 3>();
-      case 4: return iswt_instance<mma::Tf32, 4>();
-      case 5: return iswt_instance<mma::Tf32, 5>();
-      case 6: return iswt_instance<mma::Tf32, 6>();
+      case 1: return iswt_instance<mma::Tf32, 1, Rows>();
+      case 2: return iswt_instance<mma::Tf32, 2, Rows>();
+      case 3: return iswt_instance<mma::Tf32, 3, Rows>();
+      case 4: return iswt_instance<mma::Tf32, 4, Rows>();
+      case 5: return iswt_instance<mma::Tf32, 5, Rows>();
+      case 6: return iswt_instance<mma::Tf32, 6, Rows>();
     }
   }
   return {nullptr, 0};
 }
 
-// Launch one level: the plans of both axes, the kernel's attribute, and
-// column blocks (classes fastest) x row blocks x planes.
+// Launch one level: the plans of both axes (the rows' on a shard's extended
+// axis where halo), the kernel's attribute, and column blocks (classes
+// fastest) x row blocks x planes; call(grid, z0, pr, pc, y0) launches one
+// chunk from plane z0.
 template <class Kernel, class Call>
 int launch_level(const Instance<Kernel>& inst, int batch, int nr, int nc,
-                 int level, int centre, int hlen, int device, Call call) {
+                 int level, int centre, int hlen, int device, Call call,
+                 bool halo = false) {
   if (hlen < 1 || hlen > kMaxTaps || centre < 0 || centre >= hlen ||
       nr < 1 || nc < 1 || nr > 0x3fffffff || nc > 0x3fffffff || level < 1 ||
       batch < 1 || inst.kernel == nullptr)
@@ -382,13 +438,10 @@ int launch_level(const Instance<Kernel>& inst, int batch, int nr, int nc,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(inst.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const AxisPlan pr = axis_plan(hlen, centre, level, nr);
+  const AxisPlan pr = axis_plan(hlen, centre, level, nr, halo);
   const AxisPlan pc = axis_plan(hlen, centre, level, nc);
   launch_chunks(pc.cls * pc.tiles, pr.cls * pr.tiles, batch,
-                [&](dim3 grid, int y0, int z0) {
-                  call(grid, static_cast<long long>(z0) * nr * nc, pr, pc,
-                       y0);
-                });
+                [&](dim3 grid, int y0, int z0) { call(grid, z0, pr, pc, y0); });
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -408,14 +461,16 @@ extern "C" int pypwt_tc_swt2d(const float* x, float* a, float* h, float* v,
   using namespace pypwt;
   if (hlen < 1 || hlen > kMaxTaps)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto inst = pick_swt(bf16 != 0, hlen);
+  const auto inst = pick_swt<Wrapped>(bf16 != 0, hlen);
   const Taps taps = make_taps(dec_lo, dec_hi, hlen);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return launch_level(
       inst, batch, nr, nc, level, centre, hlen, device,
-      [&](dim3 grid, long long p, AxisPlan pr, AxisPlan pc, int y0) {
+      [&](dim3 grid, int z0, AxisPlan pr, AxisPlan pc, int y0) {
+        const long long p = static_cast<long long>(z0) * nr * nc;
         inst.kernel<<<grid, kThreads, inst.smem, st>>>(
-            x + p, a + p, h + p, v + p, d + p, pr, pc, taps, hlen, y0);
+            x + p, a + p, h + p, v + p, d + p, pr, pc, taps, hlen, y0,
+            Wrapped{});
       });
 }
 
@@ -428,19 +483,77 @@ extern "C" int pypwt_tc_iswt2d(const float* a, const float* h, const float* v,
   using namespace pypwt;
   if (hlen < 1 || hlen > kMaxTaps)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto inst = pick_iswt(bf16 != 0, hlen);
-  // rec / 2 is exact in float32: the 1/2 of each axis pass
-  float lo2[kMaxTaps], hi2[kMaxTaps];
-  for (int k = 0; k < hlen; ++k) {
-    lo2[k] = 0.5f * rec_lo[k];
-    hi2[k] = 0.5f * rec_hi[k];
-  }
-  const Taps taps = make_taps(lo2, hi2, hlen);
+  const auto inst = pick_iswt<Wrapped>(bf16 != 0, hlen);
+  const Taps taps = half_taps(rec_lo, rec_hi, hlen);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return launch_level(
       inst, batch, nr, nc, level, centre, hlen, device,
-      [&](dim3 grid, long long p, AxisPlan pr, AxisPlan pc, int y0) {
+      [&](dim3 grid, int z0, AxisPlan pr, AxisPlan pc, int y0) {
+        const long long p = static_cast<long long>(z0) * nr * nc;
         inst.kernel<<<grid, kThreads, inst.smem, st>>>(
-            a + p, h + p, v + p, d + p, out + p, pr, pc, taps, hlen, y0);
+            a + p, h + p, v + p, d + p, out + p, pr, pc, taps, hlen, y0,
+            Wrapped{});
       });
+}
+
+// K28's stationary analysis: K11a's level of one row shard x of (batch, nr,
+// nc), its rows above and below from top (batch, lp, nc) and bot (batch,
+// rp, nc), (lp, rp) = (hlen - 1 - centre, centre) * 2^(level-1).
+extern "C" int pypwt_tc_swt2d_sharded(const float* x, const float* top,
+                                      const float* bot, float* a, float* h,
+                                      float* v, float* d, int batch, int nr,
+                                      int nc, int level, int centre, int lp,
+                                      int rp, const float* dec_lo,
+                                      const float* dec_hi, int hlen, int bf16,
+                                      int device, void* stream) {
+  using namespace pypwt;
+  if (hlen < 1 || hlen > kMaxTaps ||
+      !stationary_halos_ok(hlen, centre, level, lp, rp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using Rows = Halo<float, 1>;
+  const auto inst = pick_swt<Rows>(bf16 != 0, hlen);
+  const Taps taps = make_taps(dec_lo, dec_hi, hlen);
+  const Rows halo = make_halo(top, bot, lp, rp);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return launch_level(
+      inst, batch, nr, nc, level, centre, hlen, device,
+      [&](dim3 grid, int z0, AxisPlan pr, AxisPlan pc, int y0) {
+        const long long p = static_cast<long long>(z0) * nr * nc;
+        inst.kernel<<<grid, kThreads, inst.smem, st>>>(
+            x + p, a + p, h + p, v + p, d + p, pr, pc, taps, hlen, y0,
+            halo.plane(z0, nc));
+      },
+      true);
+}
+
+// K28's stationary synthesis: K11b's level of one row shard's planes, halos
+// their eight halo tensors in JAX's order (a_top, a_bot, h_top, ...).
+extern "C" int pypwt_tc_iswt2d_sharded(const float* a, const float* h,
+                                       const float* v, const float* d,
+                                       const float* const* halos, float* out,
+                                       int batch, int nr, int nc, int level,
+                                       int centre, int lp, int rp,
+                                       const float* rec_lo,
+                                       const float* rec_hi, int hlen, int bf16,
+                                       int device, void* stream) {
+  using namespace pypwt;
+  if (hlen < 1 || hlen > kMaxTaps ||
+      !stationary_halos_ok(hlen, centre, level, lp, rp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using Rows = Halo<float, 4>;
+  const auto inst = pick_iswt<Rows>(bf16 != 0, hlen);
+  const Taps taps = half_taps(rec_lo, rec_hi, hlen);
+  const float* tops[4] = {halos[0], halos[2], halos[4], halos[6]};
+  const float* bots[4] = {halos[1], halos[3], halos[5], halos[7]};
+  const Rows halo = make_halo4(tops, bots, lp, rp);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return launch_level(
+      inst, batch, nr, nc, level, centre, hlen, device,
+      [&](dim3 grid, int z0, AxisPlan pr, AxisPlan pc, int y0) {
+        const long long p = static_cast<long long>(z0) * nr * nc;
+        inst.kernel<<<grid, kThreads, inst.smem, st>>>(
+            a + p, h + p, v + p, d + p, out + p, pr, pc, taps, hlen, y0,
+            halo.plane(z0, nc));
+      },
+      true);
 }

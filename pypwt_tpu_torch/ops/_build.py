@@ -106,6 +106,25 @@ _SIGNATURES = {
     # out, approx, detail, batch, nr, nc, levels, rec_lo, rec_hi, hlen,
     # device, stream
     "pypwt_waverec2_pyramid": [_P] * 3 + [_I] * 4 + [_P, _P, _I, _I, _P],
+    # the row-sharded levels (K26-K28); halos: host array of the eight
+    # halo pointers (a_top, a_bot, h_top, h_bot, v_top, v_bot, d_top, d_bot)
+    # x, top, bot, a, h, v, d, batch, nr, nc, lp, rp, dec_lo, dec_hi, hlen,
+    # device, stream
+    "pypwt_dwt2d_sharded": [_P] * 7 + [_I] * 5 + [_P, _P, _I, _I, _P],
+    # a, h, v, d, halos, out, batch, lr, lc, lp, rp, rec_lo, rec_hi, hlen,
+    # device, stream
+    "pypwt_idwt2d_sharded": [_P] * 6 + [_I] * 5 + [_P, _P, _I, _I, _P],
+    # x, top, bot, a, h, v, d, batch, nr, nc, level, centre, lp, rp, dec_lo,
+    # dec_hi, hlen, device, stream
+    "pypwt_swt2d_sharded": [_P] * 7 + [_I] * 7 + [_P, _P, _I, _I, _P],
+    # a, h, v, d, halos, out, batch, nr, nc, level, centre, lp, rp, rec_lo,
+    # rec_hi, hlen, device, stream
+    "pypwt_iswt2d_sharded": [_P] * 6 + [_I] * 7 + [_P, _P, _I, _I, _P],
+    # as pypwt_dwt2d_sharded, with bf16 before device
+    "pypwt_tc_dwt2d_sharded": [_P] * 7 + [_I] * 5 + [_P, _P, _I, _I, _I, _P],
+    "pypwt_tc_idwt2d_sharded": [_P] * 6 + [_I] * 5 + [_P, _P, _I, _I, _I, _P],
+    "pypwt_tc_swt2d_sharded": [_P] * 7 + [_I] * 7 + [_P, _P, _I, _I, _I, _P],
+    "pypwt_tc_iswt2d_sharded": [_P] * 6 + [_I] * 7 + [_P, _P, _I, _I, _I, _P],
 }
 # The float64 instances of the tap-loop kernels take the same arguments,
 # with pointers to float64 data and taps (the non-separable ones: to the
@@ -113,7 +132,9 @@ _SIGNATURES = {
 for _name in ("pypwt_dwt2d", "pypwt_idwt2d", "pypwt_dwt1d", "pypwt_idwt1d",
               "pypwt_swt1d", "pypwt_iswt1d", "pypwt_swt2d", "pypwt_iswt2d",
               "pypwt_ns_dwt2d", "pypwt_ins_dwt2d", "pypwt_ns_swt2d",
-              "pypwt_ins_swt2d"):
+              "pypwt_ins_swt2d", "pypwt_dwt2d_sharded",
+              "pypwt_idwt2d_sharded", "pypwt_swt2d_sharded",
+              "pypwt_iswt2d_sharded"):
     _SIGNATURES[_name + "_f64"] = _SIGNATURES[_name]
 
 _lib = None

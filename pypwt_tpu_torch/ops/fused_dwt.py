@@ -14,7 +14,15 @@ Each kernel replaces a TPU kernel of ``pypwt_tpu/ops/pallas_dwt.py``:
 * K8 ``swt2d_fused`` and K9 ``iswt2d_fused`` (``csrc/swt2d.cu``): one
   separable 2D stationary level and its inverse (``::swt2d_level_fused``,
   ``::iswt2d_level_fused``), on a plane ``(Nr, Nc)`` or a stack
-  ``(B, Nr, Nc)``.
+  ``(B, Nr, Nc)``;
+* the row-sharded levels of ``parallel.spatial``: K26a
+  ``dwt2d_sharded_fused`` (``csrc/dwt2d.cu``) and K26b
+  ``idwt2d_sharded_fused`` (``csrc/idwt2d.cu``), K1/K2's levels of one row
+  shard whose edge rows come from exchanged halo tensors
+  (``::build_dwt2d_sharded``, ``::build_idwt2d_sharded``); K27a
+  ``swt2d_sharded_fused`` and K27b ``iswt2d_sharded_fused``
+  (``csrc/swt2d.cu``), K8/K9's (``::build_swt2d_sharded``,
+  ``::build_iswt2d_sharded``); float32 and float64.
 
 The non-separable stationary kernels K18a/K18b are in ``ops.nonsep``;
 ``ops.KERNELS`` lists all of them.  The 1D kernels take rows ``(R, n)`` or
@@ -48,6 +56,8 @@ nothing to the device.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -493,8 +503,251 @@ def iswt2d_fused(a, h, v, d, fb, level):
     return out
 
 
+# -- row-sharded levels: K26a/K26b, K27a/K27b ------------------------------
+#
+# One row shard (B?, nr, nc) of a larger plane whose rows are split over a
+# ring of shards (``parallel.spatial``): the rows above and below the shard
+# come as halo tensors that its neighbours sent, of the exact heights of the
+# level's pads (``conv.analysis_pads``, ``conv.synthesis_pads`` with n_out =
+# 2L, ``conv.swt_pads``), where JAX's kernels took bands rounded up to 8
+# rows (``pallas_dwt._pick_bands``).  The row axis is not wrapped; the
+# column axis stays periodic.  A synthesis level takes JAX's 8-tuple of
+# halos ``(a_t, a_b, h_t, h_b, v_t, v_b, d_t, d_b)``.
+
+
+def _extend_rows(top, x, bot):
+    """The shard's rows with its halos above and below, on axis -2."""
+    return torch.cat([top, x, bot], dim=-2)
+
+
+def _rows_last(x):
+    return x.transpose(-1, -2)
+
+
+def dwt2d_sharded_plain(x, top, bot, fb):
+    """K26a's map in torch ops: the last axis periodically
+    (``conv.analysis_last``) on the shard and its halo rows, then axis -2
+    unwrapped on the halo-extended rows (``conv.analysis_core``) -> (a, h,
+    v, d), each (B?, nr/2, div2(nc))."""
+    t1, t2 = conv.analysis_last(_extend_rows(top, x, bot), fb.dec_lo,
+                                fb.dec_hi)
+    L = x.shape[-2] // 2
+    a, h = conv.analysis_core(_rows_last(t1), fb.dec_lo, fb.dec_hi, L)
+    v, d = conv.analysis_core(_rows_last(t2), fb.dec_lo, fb.dec_hi, L)
+    return tuple(_rows_last(s).contiguous() for s in (a, h, v, d))
+
+
+def idwt2d_sharded_plain(a, h, v, d, halos, fb):
+    """K26b's map in torch ops: along axis -2 on each plane's
+    halo-extended rows (``conv.synthesis_core``) t1 = syn(a, h), t2 =
+    syn(v, d), then the last axis periodically -> (B?, 2Lr, 2Lc)."""
+    L = a.shape[-2]
+    lp = conv.synthesis_pads(fb.hlen, L, 2 * L)[0]
+    ext = [_rows_last(_extend_rows(halos[2 * i], p, halos[2 * i + 1]))
+           for i, p in enumerate((a, h, v, d))]
+    t1, t2 = (_rows_last(conv.synthesis_core(lo, hi, fb.rec_lo, fb.rec_hi,
+                                             2 * L, L, lp))
+              for lo, hi in ((ext[0], ext[1]), (ext[2], ext[3])))
+    return conv.synthesis_last(t1, t2, fb.rec_lo, fb.rec_hi,
+                               2 * a.shape[-1]).contiguous()
+
+
+def swt2d_sharded_plain(x, top, bot, fb, level):
+    """K27a's map in torch ops: the last axis periodically
+    (``conv.swt_analysis_last``) on the shard and its halo rows, then axis
+    -2 on the halo-extended rows (``conv.swt_analysis_core``) -> (a, h, v,
+    d), each of the shard's shape."""
+    t1, t2 = conv.swt_analysis_last(_extend_rows(top, x, bot), fb.dec_lo,
+                                    fb.dec_hi, level)
+    n = x.shape[-2]
+    a, h = conv.swt_analysis_core(_rows_last(t1), fb.dec_lo, fb.dec_hi,
+                                  level, n)
+    v, d = conv.swt_analysis_core(_rows_last(t2), fb.dec_lo, fb.dec_hi,
+                                  level, n)
+    return tuple(_rows_last(s).contiguous() for s in (a, h, v, d))
+
+
+def iswt2d_sharded_plain(a, h, v, d, halos, fb, level):
+    """K27b's map in torch ops: along axis -2 on the halo-extended rows
+    (``conv.swt_synthesis_core``) t1 = syn(a, h), t2 = syn(v, d), then the
+    last axis periodically, 1/2 per pass."""
+    n = a.shape[-2]
+    ext = [_rows_last(_extend_rows(halos[2 * i], p, halos[2 * i + 1]))
+           for i, p in enumerate((a, h, v, d))]
+    t1, t2 = (_rows_last(conv.swt_synthesis_core(lo, hi, fb.rec_lo,
+                                                 fb.rec_hi, level, n))
+              for lo, hi in ((ext[0], ext[1]), (ext[2], ext[3])))
+    return conv.swt_synthesis_last(t1, t2, fb.rec_lo, fb.rec_hi,
+                                   level).contiguous()
+
+
+def halo_heights(kind, fb, rows, level=1):
+    """(top, bottom) halo rows of a row-sharded level of ``kind`` ("dwt",
+    "idwt", "swt", "iswt") on shards of ``rows`` rows (coefficient rows for
+    "idwt")."""
+    if kind == "dwt":
+        return conv.analysis_pads(fb.hlen)
+    if kind == "idwt":
+        return conv.synthesis_pads(fb.hlen, rows, 2 * rows)
+    return conv.swt_pads(fb.hlen, level, kind == "iswt")
+
+
+def halos_unsupported(x, tops_bots, heights):
+    """Why halo tensors ``tops_bots`` (top, bottom, top, bottom, ... one
+    pair per plane) cannot go with shard ``x``: each of (B?, height, nc) of
+    x's dtype and device, ``heights`` = (top, bottom); or None."""
+    for i, t in enumerate(tops_bots):
+        want = (*x.shape[:-2], heights[i % 2], x.shape[-1])
+        side = "bottom" if i % 2 else "top"
+        if tuple(t.shape) != want:
+            return f"{side} halo of shape {tuple(t.shape)} (want {want})"
+        if t.dtype != x.dtype or t.device != x.device:
+            return f"{side} halo of {t.dtype} on {t.device}"
+    return None
+
+
+def _even_rows_unsupported(x):
+    if x.shape[-2] % 2:
+        return f"{x.shape[-2]} shard rows (an even count only)"
+    return None
+
+
+def dwt2d_sharded_unsupported(x, top, bot, fb):
+    """Why K26a cannot take shard ``x`` and its halos, or None if it
+    can."""
+    return (dwt2d_unsupported(x, fb) or _even_rows_unsupported(x)
+            or halos_unsupported(x, (top, bot), halo_heights("dwt", fb, 0)))
+
+
+def idwt2d_sharded_unsupported(a, h, v, d, halos, fb):
+    """Why K26b cannot take these coefficient planes and halos, or None."""
+    out = (2 * a.shape[-2], 2 * a.shape[-1])
+    return (idwt2d_unsupported(a, h, v, d, fb, out)
+            or (len(halos) != 8 and f"{len(halos)} halos (8)")
+            or halos_unsupported(a, halos,
+                                 halo_heights("idwt", fb, a.shape[-2])))
+
+
+def swt2d_sharded_unsupported(x, top, bot, fb, level):
+    """Why K27a cannot take shard ``x`` and its halos at ``level``."""
+    return (swt2d_unsupported(x, fb, level)
+            or halos_unsupported(x, (top, bot),
+                                 halo_heights("swt", fb, 0, level)))
+
+
+def iswt2d_sharded_unsupported(a, h, v, d, halos, fb, level):
+    """Why K27b cannot take these coefficient planes and halos."""
+    return (iswt2d_unsupported(a, h, v, d, fb, level)
+            or (len(halos) != 8 and f"{len(halos)} halos (8)")
+            or halos_unsupported(a, halos,
+                                 halo_heights("iswt", fb, 0, level)))
+
+
+def halo_array(halos):
+    """The eight halo pointers as a C array (kept alive by the caller
+    during the call)."""
+    return (ctypes.c_void_p * 8)(*(t.data_ptr() for t in halos))
+
+
+def dwt2d_sharded_fused(x, top, bot, fb):
+    """K26a: one analysis level of a row shard -> (a, h, v, d), each
+    (B?, nr/2, div2(nc)).  CPU tensors: the plain version."""
+    if x.device.type == "cpu":
+        return dwt2d_sharded_plain(x, top, bot, fb)
+    name = "K26a (dwt2d_sharded)"
+    _check_inputs(name, dwt2d_sharded_unsupported(x, top, bot, fb), x, top,
+                  bot)
+    lib = _build.load_library()
+    nr, nc = x.shape[-2], x.shape[-1]
+    a, h, v, d = (torch.empty((*x.shape[:-2], nr // 2, div2(nc)),
+                              dtype=x.dtype, device=x.device)
+                  for _ in range(4))
+    lo, hi = _taps(fb.dec_lo, x), _taps(fb.dec_hi, x)
+    err = _entry(lib, "pypwt_dwt2d_sharded", x)(
+        x.data_ptr(), top.data_ptr(), bot.data_ptr(), a.data_ptr(),
+        h.data_ptr(), v.data_ptr(), d.data_ptr(), _batch(x), nr, nc,
+        top.shape[-2], bot.shape[-2], lo.ctypes.data, hi.ctypes.data,
+        fb.hlen, x.device.index, _stream(x))
+    _check_launch(lib, err, name)
+    dwt2d_sharded_fused.launches += 1
+    return a, h, v, d
+
+
+def idwt2d_sharded_fused(a, h, v, d, halos, fb):
+    """K26b: one synthesis level of a row shard's coefficient planes and
+    their eight halos -> (B?, 2Lr, 2Lc).  CPU tensors: the plain version."""
+    if a.device.type == "cpu":
+        return idwt2d_sharded_plain(a, h, v, d, halos, fb)
+    name = "K26b (idwt2d_sharded)"
+    _check_inputs(name, idwt2d_sharded_unsupported(a, h, v, d, halos, fb),
+                  a, h, v, d, *halos)
+    lib = _build.load_library()
+    lr, lc = a.shape[-2], a.shape[-1]
+    out = torch.empty((*a.shape[:-2], 2 * lr, 2 * lc), dtype=a.dtype,
+                      device=a.device)
+    lo, hi = _taps(fb.rec_lo, a), _taps(fb.rec_hi, a)
+    ptrs = halo_array(halos)
+    err = _entry(lib, "pypwt_idwt2d_sharded", a)(
+        a.data_ptr(), h.data_ptr(), v.data_ptr(), d.data_ptr(),
+        ctypes.addressof(ptrs), out.data_ptr(), _batch(a), lr, lc,
+        halos[0].shape[-2], halos[1].shape[-2], lo.ctypes.data,
+        hi.ctypes.data, fb.hlen, a.device.index, _stream(a))
+    _check_launch(lib, err, name)
+    idwt2d_sharded_fused.launches += 1
+    return out
+
+
+def swt2d_sharded_fused(x, top, bot, fb, level):
+    """K27a: one stationary analysis level of a row shard -> (a, h, v, d),
+    each of the shard's shape.  CPU tensors: the plain version."""
+    if x.device.type == "cpu":
+        return swt2d_sharded_plain(x, top, bot, fb, level)
+    name = "K27a (swt2d_sharded)"
+    _check_inputs(name, swt2d_sharded_unsupported(x, top, bot, fb, level),
+                  x, top, bot)
+    lib = _build.load_library()
+    a, h, v, d = (torch.empty_like(x) for _ in range(4))
+    lo, hi = _taps(fb.dec_lo, x), _taps(fb.dec_hi, x)
+    err = _entry(lib, "pypwt_swt2d_sharded", x)(
+        x.data_ptr(), top.data_ptr(), bot.data_ptr(), a.data_ptr(),
+        h.data_ptr(), v.data_ptr(), d.data_ptr(), _batch(x), x.shape[-2],
+        x.shape[-1], level, conv.swt_centre(fb.hlen, False), top.shape[-2],
+        bot.shape[-2], lo.ctypes.data, hi.ctypes.data, fb.hlen,
+        x.device.index, _stream(x))
+    _check_launch(lib, err, name)
+    swt2d_sharded_fused.launches += 1
+    return a, h, v, d
+
+
+def iswt2d_sharded_fused(a, h, v, d, halos, fb, level):
+    """K27b: one stationary synthesis level of a row shard's planes and
+    their eight halos -> the planes' shape.  CPU tensors: the plain
+    version."""
+    if a.device.type == "cpu":
+        return iswt2d_sharded_plain(a, h, v, d, halos, fb, level)
+    name = "K27b (iswt2d_sharded)"
+    _check_inputs(name,
+                  iswt2d_sharded_unsupported(a, h, v, d, halos, fb, level),
+                  a, h, v, d, *halos)
+    lib = _build.load_library()
+    out = torch.empty_like(a)
+    lo, hi = _taps(fb.rec_lo, a), _taps(fb.rec_hi, a)
+    ptrs = halo_array(halos)
+    err = _entry(lib, "pypwt_iswt2d_sharded", a)(
+        a.data_ptr(), h.data_ptr(), v.data_ptr(), d.data_ptr(),
+        ctypes.addressof(ptrs), out.data_ptr(), _batch(a), a.shape[-2],
+        a.shape[-1], level, conv.swt_centre(fb.hlen, True),
+        halos[0].shape[-2], halos[1].shape[-2], lo.ctypes.data,
+        hi.ctypes.data, fb.hlen, a.device.index, _stream(a))
+    _check_launch(lib, err, name)
+    iswt2d_sharded_fused.launches += 1
+    return out
+
+
 KERNELS = (dwt2d_fused, idwt2d_fused, dwt1d_fused, idwt1d_fused,
-           swt1d_fused, iswt1d_fused, swt2d_fused, iswt2d_fused)
+           swt1d_fused, iswt1d_fused, swt2d_fused, iswt2d_fused,
+           dwt2d_sharded_fused, idwt2d_sharded_fused, swt2d_sharded_fused,
+           iswt2d_sharded_fused)
 
 # counts start at 0; ``ops.reset_counts`` zeroes them with the others
 for _k in KERNELS:

@@ -15,7 +15,13 @@ level as banded products on the tensor cores (the port of
   (``_build_idwt1d_mxu``): its synthesis -> ``(R?, 2L)``.  One signal is a
   ``(1, n)`` row, which covers JAX's folded long-signal forms
   ``::dwt1d_long_fused_mxu`` / ``::idwt1d_long_fused_mxu`` (K15): their
-  fold fixed the TPU's lane layout.
+  fold fixed the TPU's lane layout;
+* K28's DWT half (same source as K5/K6): ``dwt2d_sharded_mxu_fused`` and
+  ``idwt2d_sharded_mxu_fused`` replace ``::build_dwt2d_sharded_mxu`` and
+  ``::build_idwt2d_sharded_mxu``, K5/K6's levels of one row shard with its
+  edge rows from exchanged halo tensors (``parallel.spatial``; the halo
+  layout of ``ops.fused_dwt``'s K26), axis -2 unwrapped on the
+  halo-extended rows.
 
 Each pass is the banded map of the JAX kernels: a block of ``b`` outputs
 of (lo, hi) is ``D (2b, K) @ xp[2bk : 2bk + K]`` (analysis) and of ``2m``
@@ -45,6 +51,7 @@ launches the kernel or raises; ``launches`` counts its launches.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -55,7 +62,8 @@ from ..filters import MAX_FILTER_WIDTH
 from . import _build
 from .fused_dwt import (_batch, _check_inputs, _check_launch, _host_taps,
                         _pair_unsupported, _plane_unsupported, _rows,
-                        _rows_unsupported, _stream, subbands_unsupported)
+                        _rows_unsupported, _stream, halo_array, halo_heights,
+                        halos_unsupported, subbands_unsupported)
 
 PRECISIONS = ("highest", "bf16")
 
@@ -150,19 +158,24 @@ def operand(t, prec):
 def _ana_last(x, fb, prec):
     """Banded analysis along the last axis (ops/mxu_dwt.py::_ana_dots on the
     padded plane) -> lo, hi, each (..., n/2)."""
-    hlen = fb.hlen
-    L = x.shape[-1] // 2
-    xp = operand(conv.periodic_pad_last(x, *conv.analysis_pads(hlen)), prec)
-    b = _ana_blocks(hlen)
+    xp = conv.periodic_pad_last(x, *conv.analysis_pads(fb.hlen))
+    return _ana_core(xp, fb, prec, x.shape[-1] // 2)
+
+
+def _ana_core(xp, fb, prec, L):
+    """Banded analysis of a padded signal (``conv.analysis_pads``) along
+    the last axis -> lo, hi, each (..., L)."""
+    xp = operand(xp, prec)
+    b = _ana_blocks(fb.hlen)
     nfull, r = divmod(L, b)
     los, his = [], []
     if nfull:
-        D, K = matrix(x, prec, analysis_matrix, fb.dec_lo, fb.dec_hi, b)
+        D, K = matrix(xp, prec, analysis_matrix, fb.dec_lo, fb.dec_hi, b)
         y = xp.unfold(-1, K, 2 * b) @ D.T        # (..., nfull, 2b)
         los.append(y[..., :b].flatten(-2))
         his.append(y[..., b:].flatten(-2))
     if r:
-        D, K = matrix(x, prec, analysis_matrix, fb.dec_lo, fb.dec_hi, r)
+        D, K = matrix(xp, prec, analysis_matrix, fb.dec_lo, fb.dec_hi, r)
         y = xp[..., 2 * b * nfull: 2 * b * nfull + K] @ D.T
         los.append(y[..., :r])
         his.append(y[..., r:])
@@ -172,20 +185,26 @@ def _ana_last(x, fb, prec):
 def _syn_last(lo, hi, fb, prec):
     """Banded polyphase synthesis along the last axis (ops/mxu_dwt.py::
     _syn_dots) -> (..., 2L)."""
-    hlen = fb.hlen
     L = lo.shape[-1]
-    pads = conv.synthesis_pads(hlen, L, 2 * L)
-    lop = operand(conv.periodic_pad_last(lo, *pads), prec)
-    hip = operand(conv.periodic_pad_last(hi, *pads), prec)
-    m = _syn_blocks(hlen)
+    pads = conv.synthesis_pads(fb.hlen, L, 2 * L)
+    return _syn_core(conv.periodic_pad_last(lo, *pads),
+                     conv.periodic_pad_last(hi, *pads), fb, prec, L)
+
+
+def _syn_core(lop, hip, fb, prec, L):
+    """Banded polyphase synthesis of padded coefficient signals
+    (``conv.synthesis_pads`` with n_out = 2L) along the last axis ->
+    (..., 2L)."""
+    lop, hip = operand(lop, prec), operand(hip, prec)
+    m = _syn_blocks(fb.hlen)
     nfull, r = divmod(L, m)
     outs = []
     if nfull:
-        S, Kp = matrix(lo, prec, synthesis_matrix, fb.rec_lo, fb.rec_hi, m)
+        S, Kp = matrix(lop, prec, synthesis_matrix, fb.rec_lo, fb.rec_hi, m)
         z = torch.cat([lop.unfold(-1, Kp, m), hip.unfold(-1, Kp, m)], -1)
         outs.append((z @ S.T).flatten(-2))
     if r:
-        S, Kp = matrix(lo, prec, synthesis_matrix, fb.rec_lo, fb.rec_hi, r)
+        S, Kp = matrix(lop, prec, synthesis_matrix, fb.rec_lo, fb.rec_hi, r)
         s0 = m * nfull
         z = torch.cat([lop[..., s0: s0 + Kp], hip[..., s0: s0 + Kp]], -1)
         outs.append(z @ S.T)
@@ -211,6 +230,32 @@ def idwt2d_mxu_plain(a, h, v, d, fb, out_shape, prec="highest"):
     del out_shape  # (2 Lr, 2 Lc): the coverage rule holds it
     t1, t2 = (_syn_last(p.transpose(-1, -2), q.transpose(-1, -2), fb,
                         prec).transpose(-1, -2) for p, q in ((a, h), (v, d)))
+    return _syn_last(t1, t2, fb, prec)
+
+
+def dwt2d_sharded_mxu_plain(x, top, bot, fb, prec="highest"):
+    """K28's analysis map: ``dwt2d_mxu_plain`` on a row shard, axis -2 on
+    the rows extended by its halos (unwrapped), then the last axis
+    periodically -> (a, h, v, d), each (B?, nr/2, nc/2)."""
+    check_precision(prec)
+    xp = torch.cat([top, x, bot], -2).transpose(-1, -2)
+    lo_r, hi_r = (t.transpose(-1, -2)
+                  for t in _ana_core(xp, fb, prec, x.shape[-2] // 2))
+    a, v = _ana_last(lo_r, fb, prec)
+    h, d = _ana_last(hi_r, fb, prec)
+    return a, h, v, d
+
+
+def idwt2d_sharded_mxu_plain(a, h, v, d, halos, fb, prec="highest"):
+    """K28's synthesis map: ``idwt2d_mxu_plain`` on a row shard's planes,
+    axis -2 on the rows extended by each plane's halos, then the last axis
+    -> (B?, 2Lr, 2Lc)."""
+    check_precision(prec)
+    ext = [torch.cat([halos[2 * i], p, halos[2 * i + 1]], -2).transpose(-1, -2)
+           for i, p in enumerate((a, h, v, d))]
+    L = a.shape[-2]
+    t1, t2 = (_syn_core(lo, hi, fb, prec, L).transpose(-1, -2)
+              for lo, hi in ((ext[0], ext[1]), (ext[2], ext[3])))
     return _syn_last(t1, t2, fb, prec)
 
 
@@ -380,8 +425,78 @@ def idwt1d_mxu_fused(a, d, fb, n_out, prec="highest"):
     return out
 
 
+def dwt2d_sharded_mxu_unsupported(x, top, bot, fb):
+    """Why K28's analysis cannot take shard ``x`` and its halos, or None
+    (K5's coverage, the rows from the halos)."""
+    return (dwt2d_mxu_unsupported(x, fb)
+            or halos_unsupported(x, (top, bot),
+                                 halo_heights("dwt", fb, x.shape[-2])))
+
+
+def idwt2d_sharded_mxu_unsupported(a, h, v, d, halos, fb):
+    """Why K28's synthesis cannot take these planes and halos, or None."""
+    out = (2 * a.shape[-2], 2 * a.shape[-1])
+    return (idwt2d_mxu_unsupported(a, h, v, d, fb, out)
+            or (len(halos) != 8 and f"{len(halos)} halos (8)")
+            or halos_unsupported(a, halos,
+                                 halo_heights("idwt", fb, a.shape[-2])))
+
+
+def dwt2d_sharded_mxu_fused(x, top, bot, fb, prec="highest"):
+    """K28, analysis: K5's level of a row shard -> (a, h, v, d), each
+    (B?, nr/2, nc/2).  CPU tensors: the plain version."""
+    check_precision(prec)
+    if x.device.type == "cpu":
+        return dwt2d_sharded_mxu_plain(x, top, bot, fb, prec)
+    name = "K28 (dwt2d_sharded_mxu)"
+    _check_inputs(name, dwt2d_sharded_mxu_unsupported(x, top, bot, fb), x,
+                  top, bot)
+    lib = _build.load_library()
+    nr, nc = x.shape[-2:]
+    a, h, v, d = (torch.empty((*x.shape[:-2], nr // 2, nc // 2),
+                              dtype=x.dtype, device=x.device)
+                  for _ in range(4))
+    lo, hi = _host_taps(fb.dec_lo), _host_taps(fb.dec_hi)
+    err = lib.pypwt_tc_dwt2d_sharded(
+        x.data_ptr(), top.data_ptr(), bot.data_ptr(), a.data_ptr(),
+        h.data_ptr(), v.data_ptr(), d.data_ptr(), _batch(x), nr, nc,
+        top.shape[-2], bot.shape[-2], lo.ctypes.data, hi.ctypes.data,
+        fb.hlen, int(prec == "bf16"), x.device.index, _stream(x))
+    _check_launch(lib, err, name)
+    dwt2d_sharded_mxu_fused.launches += 1
+    return a, h, v, d
+
+
+def idwt2d_sharded_mxu_fused(a, h, v, d, halos, fb, prec="highest"):
+    """K28, synthesis: K6's level of a row shard's planes and their eight
+    halos -> (B?, 2Lr, 2Lc).  CPU tensors: the plain version."""
+    check_precision(prec)
+    if a.device.type == "cpu":
+        return idwt2d_sharded_mxu_plain(a, h, v, d, halos, fb, prec)
+    name = "K28 (idwt2d_sharded_mxu)"
+    _check_inputs(name,
+                  idwt2d_sharded_mxu_unsupported(a, h, v, d, halos, fb),
+                  a, h, v, d, *halos)
+    lib = _build.load_library()
+    lr, lc = a.shape[-2:]
+    out = torch.empty((*a.shape[:-2], 2 * lr, 2 * lc), dtype=a.dtype,
+                      device=a.device)
+    lo, hi = _host_taps(fb.rec_lo), _host_taps(fb.rec_hi)
+    ptrs = halo_array(halos)
+    err = lib.pypwt_tc_idwt2d_sharded(
+        a.data_ptr(), h.data_ptr(), v.data_ptr(), d.data_ptr(),
+        ctypes.addressof(ptrs), out.data_ptr(), _batch(a), lr, lc,
+        halos[0].shape[-2], halos[1].shape[-2], lo.ctypes.data,
+        hi.ctypes.data, fb.hlen, int(prec == "bf16"), a.device.index,
+        _stream(a))
+    _check_launch(lib, err, name)
+    idwt2d_sharded_mxu_fused.launches += 1
+    return out
+
+
 KERNELS = (dwt2d_mxu_fused, idwt2d_mxu_fused, dwt1d_mxu_fused,
-           idwt1d_mxu_fused)
+           idwt1d_mxu_fused, dwt2d_sharded_mxu_fused,
+           idwt2d_sharded_mxu_fused)
 
 # counts start at 0; ``ops.reset_counts`` zeroes them with the others
 for _k in KERNELS:

@@ -15,7 +15,13 @@
   ``iswt1d_mxu_fused`` (same source) replaces ``::iswt1d_level_fused_mxu``
   (``_build_iswt1d_mxu``): its inverse, one 1/2.  One signal is a
   ``(1, n)`` row, which covers JAX's folded forms
-  ``::swt1d_long_fused_mxu`` / ``::iswt1d_long_fused_mxu`` (K15).
+  ``::swt1d_long_fused_mxu`` / ``::iswt1d_long_fused_mxu`` (K15);
+* K28's SWT half (same source as K11a/K11b): ``swt2d_sharded_mxu_fused``
+  and ``iswt2d_sharded_mxu_fused`` replace ``::build_swt2d_sharded_mxu``
+  and ``::build_iswt2d_sharded_mxu``, K11a/K11b's levels of one row shard
+  with its edge rows from exchanged halo tensors (``parallel.spatial``),
+  covered where the dilated support fits in the shard's rows (the columns;
+  the rows come from the halos).
 
 Each pass is the banded dilated map of the JAX kernels: a block of ``b``
 outputs of (lo, hi) is ``D (2b, K) @ xp[bq : bq + K]``, ``K = b +
@@ -39,6 +45,8 @@ in the plane or row (JAX refuses a wider one, ``mxu_swt.py:339-341``,
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -46,8 +54,10 @@ from ..core import conv
 from . import _build
 from .fused_dwt import (F32, _batch, _check_inputs, _check_launch,
                         _dtype_unsupported, _host_taps, _rows, _stream,
-                        iswt1d_unsupported, iswt2d_unsupported,
-                        swt1d_unsupported, swt2d_unsupported)
+                        halo_array, iswt1d_unsupported,
+                        iswt2d_sharded_unsupported, iswt2d_unsupported,
+                        swt1d_unsupported, swt2d_sharded_unsupported,
+                        swt2d_unsupported)
 from .mxu_dwt import check_precision, matrix, operand
 
 _BLOCK = 64  # outputs per banded block of the plain versions
@@ -96,13 +106,6 @@ def swt_synthesis_matrix(rec_lo, rec_hi, b, level):
     return np.ascontiguousarray(S, np.float32), K
 
 
-def _pads(hlen, level, inverse):
-    """(lpad, rpad) of the dilated map: (hlen-1-s) t and s t."""
-    t = 1 << (level - 1)
-    s = conv.swt_centre(hlen, inverse)
-    return (hlen - 1 - s) * t, s * t
-
-
 def _blocks(n):
     b = min(_BLOCK, n)
     return b, *divmod(n, b)
@@ -111,15 +114,20 @@ def _blocks(n):
 def _swt_ana_last(x, fb, level, prec):
     """Banded a-trous analysis along the last axis -> lo, hi of its
     length."""
-    n = x.shape[-1]
-    xp = operand(conv.periodic_pad_last(x, *_pads(fb.hlen, level, False)),
-                 prec)
+    xp = conv.periodic_pad_last(x, *conv.swt_pads(fb.hlen, level, False))
+    return _swt_ana_core(xp, fb, level, prec, x.shape[-1])
+
+
+def _swt_ana_core(xp, fb, level, prec, n):
+    """Banded a-trous analysis of a padded signal (``conv.swt_pads``)
+    along the last axis -> lo, hi of length n."""
+    xp = operand(xp, prec)
     b, nfull, r = _blocks(n)
     los, his = [], []
     for size, count, start in ((b, nfull, 0), (r, 1, b * nfull)):
         if not size or not count:
             continue
-        D, K = matrix(x, prec, swt_analysis_matrix, fb.dec_lo, fb.dec_hi,
+        D, K = matrix(xp, prec, swt_analysis_matrix, fb.dec_lo, fb.dec_hi,
                       size, level)
         y = xp[..., start:].unfold(-1, K, size)[..., :count, :] @ D.T
         los.append(y[..., :size].flatten(-2))
@@ -129,16 +137,22 @@ def _swt_ana_last(x, fb, level, prec):
 
 def _swt_syn_last(lo, hi, fb, level, prec):
     """Banded a-trous synthesis along the last axis (1/2 in the matrix)."""
-    n = lo.shape[-1]
-    pads = _pads(fb.hlen, level, True)
-    lop = operand(conv.periodic_pad_last(lo, *pads), prec)
-    hip = operand(conv.periodic_pad_last(hi, *pads), prec)
+    pads = conv.swt_pads(fb.hlen, level, True)
+    return _swt_syn_core(conv.periodic_pad_last(lo, *pads),
+                         conv.periodic_pad_last(hi, *pads), fb, level, prec,
+                         lo.shape[-1])
+
+
+def _swt_syn_core(lop, hip, fb, level, prec, n):
+    """Banded a-trous synthesis of padded coefficient signals
+    (``conv.swt_pads(hlen, level, True)``) -> length n."""
+    lop, hip = operand(lop, prec), operand(hip, prec)
     b, nfull, r = _blocks(n)
     outs = []
     for size, count, start in ((b, nfull, 0), (r, 1, b * nfull)):
         if not size or not count:
             continue
-        S, K = matrix(lo, prec, swt_synthesis_matrix, fb.rec_lo, fb.rec_hi,
+        S, K = matrix(lop, prec, swt_synthesis_matrix, fb.rec_lo, fb.rec_hi,
                       size, level)
         z = torch.cat([lop[..., start:].unfold(-1, K, size)[..., :count, :],
                        hip[..., start:].unfold(-1, K, size)[..., :count, :]],
@@ -169,11 +183,36 @@ def iswt2d_mxu_plain(a, h, v, d, fb, level, prec="highest"):
     return _swt_syn_last(t1, t2, fb, level, prec)
 
 
+def swt2d_sharded_mxu_plain(x, top, bot, fb, level, prec="highest"):
+    """K28's stationary analysis map: ``swt2d_mxu_plain`` on a row shard,
+    axis -2 on the rows extended by its halos (unwrapped), then the last
+    axis periodically."""
+    check_precision(prec)
+    xp = torch.cat([top, x, bot], -2).transpose(-1, -2)
+    lo_r, hi_r = (t.transpose(-1, -2) for t in _swt_ana_core(
+        xp, fb, level, prec, x.shape[-2]))
+    a, v = _swt_ana_last(lo_r, fb, level, prec)
+    h, d = _swt_ana_last(hi_r, fb, level, prec)
+    return a, h, v, d
+
+
+def iswt2d_sharded_mxu_plain(a, h, v, d, halos, fb, level, prec="highest"):
+    """K28's stationary synthesis map: ``iswt2d_mxu_plain`` on a row
+    shard's planes, axis -2 on the rows extended by each plane's halos."""
+    check_precision(prec)
+    ext = [torch.cat([halos[2 * i], p, halos[2 * i + 1]], -2).transpose(-1, -2)
+           for i, p in enumerate((a, h, v, d))]
+    n = a.shape[-2]
+    t1, t2 = (_swt_syn_core(lo, hi, fb, level, prec, n).transpose(-1, -2)
+              for lo, hi in ((ext[0], ext[1]), (ext[2], ext[3])))
+    return _swt_syn_last(t1, t2, fb, level, prec)
+
+
 def _support_unsupported(t, fb, level, inverse, ndim=2):
     """Why the dilated support of ``level`` passes the last ``ndim`` axes
     of ``t`` (the plane, or the row), or None."""
     sizes = tuple(t.shape[-ndim:])
-    lp, rp = _pads(fb.hlen, level, inverse)
+    lp, rp = conv.swt_pads(fb.hlen, level, inverse)
     if max(lp, rp) > min(sizes):
         what = (f"the plane {sizes[0]} x {sizes[1]}" if ndim == 2
                 else f"the row of {sizes[0]} samples")
@@ -311,8 +350,76 @@ def iswt1d_mxu_fused(a, d, fb, level, prec="highest"):
     return out
 
 
+def swt2d_sharded_mxu_unsupported(x, top, bot, fb, level):
+    """Why K28's stationary analysis cannot take shard ``x`` and its halos
+    at ``level``, or None (K11a's coverage along the columns)."""
+    return (_float32_unsupported(x, "input")
+            or swt2d_sharded_unsupported(x, top, bot, fb, level)
+            or _support_unsupported(x, fb, level, False, 1))
+
+
+def iswt2d_sharded_mxu_unsupported(a, h, v, d, halos, fb, level):
+    """Why K28's stationary synthesis cannot take these planes and
+    halos, or None."""
+    return (_float32_unsupported(a, "coefficient")
+            or iswt2d_sharded_unsupported(a, h, v, d, halos, fb, level)
+            or _support_unsupported(a, fb, level, True, 1))
+
+
+def swt2d_sharded_mxu_fused(x, top, bot, fb, level, prec="highest"):
+    """K28, stationary analysis: K11a's level of a row shard -> (a, h, v,
+    d), each of the shard's shape.  CPU tensors: the plain version."""
+    check_precision(prec)
+    if x.device.type == "cpu":
+        return swt2d_sharded_mxu_plain(x, top, bot, fb, level, prec)
+    name = "K28 (swt2d_sharded_mxu)"
+    _check_inputs(name,
+                  swt2d_sharded_mxu_unsupported(x, top, bot, fb, level),
+                  x, top, bot)
+    lib = _build.load_library()
+    a, h, v, d = (torch.empty_like(x) for _ in range(4))
+    lo, hi = _host_taps(fb.dec_lo), _host_taps(fb.dec_hi)
+    err = lib.pypwt_tc_swt2d_sharded(
+        x.data_ptr(), top.data_ptr(), bot.data_ptr(), a.data_ptr(),
+        h.data_ptr(), v.data_ptr(), d.data_ptr(), _batch(x), x.shape[-2],
+        x.shape[-1], level, conv.swt_centre(fb.hlen, False), top.shape[-2],
+        bot.shape[-2], lo.ctypes.data, hi.ctypes.data, fb.hlen,
+        int(prec == "bf16"), x.device.index, _stream(x))
+    _check_launch(lib, err, name)
+    swt2d_sharded_mxu_fused.launches += 1
+    return a, h, v, d
+
+
+def iswt2d_sharded_mxu_fused(a, h, v, d, halos, fb, level, prec="highest"):
+    """K28, stationary synthesis: K11b's level of a row shard's planes and
+    their eight halos -> the planes' shape.  CPU tensors: the plain
+    version."""
+    check_precision(prec)
+    if a.device.type == "cpu":
+        return iswt2d_sharded_mxu_plain(a, h, v, d, halos, fb, level, prec)
+    name = "K28 (iswt2d_sharded_mxu)"
+    _check_inputs(name, iswt2d_sharded_mxu_unsupported(a, h, v, d, halos,
+                                                       fb, level),
+                  a, h, v, d, *halos)
+    lib = _build.load_library()
+    out = torch.empty_like(a)
+    lo, hi = _host_taps(fb.rec_lo), _host_taps(fb.rec_hi)
+    ptrs = halo_array(halos)
+    err = lib.pypwt_tc_iswt2d_sharded(
+        a.data_ptr(), h.data_ptr(), v.data_ptr(), d.data_ptr(),
+        ctypes.addressof(ptrs), out.data_ptr(), _batch(a), a.shape[-2],
+        a.shape[-1], level, conv.swt_centre(fb.hlen, True),
+        halos[0].shape[-2], halos[1].shape[-2], lo.ctypes.data,
+        hi.ctypes.data, fb.hlen, int(prec == "bf16"), a.device.index,
+        _stream(a))
+    _check_launch(lib, err, name)
+    iswt2d_sharded_mxu_fused.launches += 1
+    return out
+
+
 KERNELS = (swt2d_mxu_fused, iswt2d_mxu_fused, swt1d_mxu_fused,
-           iswt1d_mxu_fused)
+           iswt1d_mxu_fused, swt2d_sharded_mxu_fused,
+           iswt2d_sharded_mxu_fused)
 
 # counts start at 0; ``ops.reset_counts`` zeroes them with the others
 for _k in KERNELS:

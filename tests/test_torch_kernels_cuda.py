@@ -981,3 +981,258 @@ def test_tail_fusion_routes_on_the_card(dev, case):
             assert np.abs(a - b).max() <= tol * 2 ** (lev or levels)
     assert np.abs(back.cpu().numpy() - img).max() < (
         1e-10 if dtype == np.float64 else 7e-4)
+
+
+# -- the row-sharded levels: K26a/K26b, K27a/K27b, K28 -----------------------
+
+from pypwt_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from pypwt_tpu_torch.parallel import ring as pring  # noqa: E402
+from pypwt_tpu_torch.parallel import ShardedWavelets, BatchedWavelets  # noqa: E402,E501
+
+SHARD_BANKS = ["haar", "db2", "sym8", "bior4.4", "odd5", "sym20"]
+# (shards, shard shape): 16-row shards make sym20's and deep SWT levels'
+# halos multi-hop; an odd column count; a batch
+SHARD_CASES = [(4, (64, 96)), (4, (16, 96)), (2, (2, 32, 47)),
+               (3, (2, 16, 64))]
+
+
+def _global(shards, shape, dev, seed=0):
+    return _rand((*shape[:-2], shards * shape[-2], shape[-1]), dev, seed)
+
+
+def _shard_halos(x, shards, i, top, bot):
+    """Shard i of plane x (rows split in ``shards``) and its periodic halo
+    rows: ``top`` above it, ``bot`` below it (wider than a shard too)."""
+    n = x.shape[-2] // shards
+    rows = torch.arange(i * n - top, i * n + n + bot, device=x.device)
+    ext = x.index_select(-2, rows % x.shape[-2])
+    return (ext[..., top:top + n, :].contiguous(),
+            ext[..., :top, :].contiguous(),
+            ext[..., top + n:, :].contiguous())
+
+
+def _coeff_halos(planes, shards, i, heights):
+    body, halos = [], []
+    for p in planes:
+        b, t, o = _shard_halos(p, shards, i, *heights)
+        body.append(b)
+        halos += [t, o]
+    return body, tuple(halos)
+
+
+@pytest.mark.parametrize("wname", SHARD_BANKS)
+@pytest.mark.parametrize("case", SHARD_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_k26_match_plain(dev, wname, case, dtype):
+    fb = _bank(wname)
+    shards, shape = case
+    x = _global(shards, shape, dev).to(dtype)
+    if shape[-1] % 2:
+        return  # the synthesis below needs even coefficient planes
+    tol = TOL if dtype == torch.float32 else 1e-12
+    n = fd.dwt2d_sharded_fused.launches + fd.idwt2d_sharded_fused.launches
+    for i in range(shards):
+        b, t, o = _shard_halos(x, shards, i, *fd.halo_heights("dwt", fb, 0))
+        got = fd.dwt2d_sharded_fused(b, t, o, fb)
+        for g, r in zip(got, fd.dwt2d_sharded_plain(b, t, o, fb)):
+            assert g.shape == r.shape and float((g - r).abs().max()) <= tol
+    c = [_rand(_half(x.shape), dev, s).to(dtype) for s in range(1, 5)]
+    lr = c[0].shape[-2] // shards
+    for i in range(shards):
+        body, halos = _coeff_halos(c, shards, i,
+                                   fd.halo_heights("idwt", fb, lr))
+        got = fd.idwt2d_sharded_fused(*body, halos, fb)
+        ref = fd.idwt2d_sharded_plain(*body, halos, fb)
+        assert got.shape == ref.shape and float((got - ref).abs().max()) <= tol
+    assert (fd.dwt2d_sharded_fused.launches
+            + fd.idwt2d_sharded_fused.launches) == n + 2 * shards
+
+
+def test_k26_odd_columns(dev):
+    fb = get_filter_bank("db2")
+    x = _global(2, (2, 32, 47), dev)
+    for i in range(2):
+        b, t, o = _shard_halos(x, 2, i, *fd.halo_heights("dwt", fb, 0))
+        for g, r in zip(fd.dwt2d_sharded_fused(b, t, o, fb),
+                        fd.dwt2d_sharded_plain(b, t, o, fb)):
+            assert float((g - r).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("wname", SHARD_BANKS)
+@pytest.mark.parametrize("case", SHARD_CASES, ids=str)
+@pytest.mark.parametrize("level", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_k27_match_plain(dev, wname, case, level, dtype):
+    fb = _bank(wname)
+    shards, shape = case
+    x = _global(shards, shape, dev).to(dtype)
+    c = [_rand(x.shape, dev, s).to(dtype) for s in range(1, 5)]
+    tol = TOL if dtype == torch.float32 else 1e-12
+    n = fd.swt2d_sharded_fused.launches + fd.iswt2d_sharded_fused.launches
+    for i in range(shards):
+        b, t, o = _shard_halos(x, shards, i,
+                               *fd.halo_heights("swt", fb, 0, level))
+        got = fd.swt2d_sharded_fused(b, t, o, fb, level)
+        for g, r in zip(got, fd.swt2d_sharded_plain(b, t, o, fb, level)):
+            assert float((g - r).abs().max()) <= tol
+        body, halos = _coeff_halos(c, shards, i,
+                                   fd.halo_heights("iswt", fb, 0, level))
+        got = fd.iswt2d_sharded_fused(*body, halos, fb, level)
+        ref = fd.iswt2d_sharded_plain(*body, halos, fb, level)
+        assert float((got - ref).abs().max()) <= tol
+    assert (fd.swt2d_sharded_fused.launches
+            + fd.iswt2d_sharded_fused.launches) == n + 2 * shards
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+@pytest.mark.parametrize("wname", ["db2", "sym8", "bior4.4", "db10", "sym20"])
+@pytest.mark.parametrize("case", [(4, (64, 96)), (4, (16, 96)),
+                                  (3, (2, 16, 64))], ids=str)
+def test_k28_dwt_match_plain(dev, wname, case, prec):
+    fb = get_filter_bank(wname)
+    shards, shape = case
+    x = _global(shards, shape, dev)
+    n = km.dwt2d_sharded_mxu_fused.launches
+    for i in range(shards):
+        b, t, o = _shard_halos(x, shards, i, *fd.halo_heights("dwt", fb, 0))
+        _close_prec(km.dwt2d_sharded_mxu_fused(b, t, o, fb, prec),
+                    km.dwt2d_sharded_mxu_plain(b, t, o, fb, prec), prec)
+    c = [_rand(_half(x.shape), dev, s) for s in range(1, 5)]
+    lr = c[0].shape[-2] // shards
+    for i in range(shards):
+        body, halos = _coeff_halos(c, shards, i,
+                                   fd.halo_heights("idwt", fb, lr))
+        _close_prec(km.idwt2d_sharded_mxu_fused(*body, halos, fb, prec),
+                    km.idwt2d_sharded_mxu_plain(*body, halos, fb, prec),
+                    prec)
+    assert km.dwt2d_sharded_mxu_fused.launches == n + shards
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+@pytest.mark.parametrize("wname", ["db2", "sym8", "odd5", "sym20"])
+@pytest.mark.parametrize("case", [(4, (64, 96)), (4, (16, 96)),
+                                  (3, (2, 16, 64))], ids=str)
+@pytest.mark.parametrize("level", [1, 2, 3, 4])
+def test_k28_swt_match_plain(dev, wname, case, level, prec):
+    """Every level whose support fits in the shard's rows runs on K28; a
+    wider one is refused before launch."""
+    fb = _bank(wname)
+    shards, shape = case
+    x = _global(shards, shape, dev)
+    c = [_rand(x.shape, dev, s) for s in range(1, 5)]
+    for i in range(shards):
+        b, t, o = _shard_halos(x, shards, i,
+                               *fd.halo_heights("swt", fb, 0, level))
+        if kms.swt2d_sharded_mxu_unsupported(b, t, o, fb, level):
+            with pytest.raises(ValueError, match="wider than"):
+                kms.swt2d_sharded_mxu_fused(b, t, o, fb, level, prec)
+            return
+        _close_prec(kms.swt2d_sharded_mxu_fused(b, t, o, fb, level, prec),
+                    kms.swt2d_sharded_mxu_plain(b, t, o, fb, level, prec),
+                    prec)
+        body, halos = _coeff_halos(c, shards, i,
+                                   fd.halo_heights("iswt", fb, 0, level))
+        _close_prec(kms.iswt2d_sharded_mxu_fused(*body, halos, fb, level,
+                                                 prec),
+                    kms.iswt2d_sharded_mxu_plain(*body, halos, fb, level,
+                                                 prec), prec)
+
+
+def test_sharded_kernels_refuse_wrong_halos(dev):
+    fb = get_filter_bank("db2")
+    x = _rand((16, 32), dev)
+    t = _rand((2, 32), dev)  # db2's analysis pads are (1, 1)
+    with pytest.raises(ValueError, match="halo"):
+        fd.dwt2d_sharded_fused(x, t, t, fb)
+    with pytest.raises(ValueError, match="shard rows"):
+        fd.dwt2d_sharded_fused(_rand((15, 32), dev), t[:1], t[:1], fb)
+
+
+def _virtual(n):
+    return [torch.device("cuda", 0)] * n
+
+
+@pytest.mark.parametrize("mode", ["auto", "mxu"])
+@pytest.mark.parametrize("do_swt", [0, 1], ids=["dwt", "swt"])
+def test_sharded_plan_launches_once_per_shard_and_level(dev, mode, do_swt):
+    """ShardedWavelets on 4 virtual shards of cuda:0: K26 (K27), or K28 in
+    mode "mxu", once per shard and level each way, and no unsharded
+    kernel; the result equals the CPU plan's."""
+    img = (np.random.default_rng(0).random((256, 192)) * 255).astype(
+        np.float32)
+    ref = ShardedWavelets(img, "sym8", 3, do_swt=do_swt,
+                          mesh=pmesh.make_mesh(1, 4, [torch.device("cpu")] * 4))
+    ref.forward()
+    try:
+        _mxu(mode)
+        ops.reset_counts()
+        W = ShardedWavelets(img, "sym8", 3, do_swt=do_swt,
+                            mesh=pmesh.make_mesh(1, 4, _virtual(4)))
+        W.forward()
+        coeffs = W.coeffs
+        W.inverse()
+        counts = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+    finally:
+        _mxu("auto")
+    fwd, inv = {("auto", 0): ("dwt2d_sharded_fused", "idwt2d_sharded_fused"),
+                ("auto", 1): ("swt2d_sharded_fused", "iswt2d_sharded_fused"),
+                ("mxu", 0): ("dwt2d_sharded_mxu_fused",
+                             "idwt2d_sharded_mxu_fused"),
+                ("mxu", 1): ("swt2d_sharded_mxu_fused",
+                             "iswt2d_sharded_mxu_fused")}[mode, do_swt]
+    assert counts == {fwd: 12, inv: 12}
+    for a, b in zip([coeffs[0]] + [s for t in coeffs[1:] for s in t],
+                    [ref.coeffs[0]] + [s for t in ref.coeffs[1:] for s in t]):
+        assert np.abs(a - b).max() < 3e-4 * 8
+    assert np.abs(W.image - img).max() < 7e-4
+
+
+def test_sharded_routes_one_shard_and_float64(dev):
+    """A ring of one shard runs the unsharded kernels (as JAX); a float64
+    sharded level runs K26's float64 instance; "mxu" sends haar to K26."""
+    fb = get_filter_bank("db4")
+    x = _rand((64, 64), dev).double()
+    from pypwt_tpu_torch.parallel import spatial
+    ops.reset_counts()
+    spatial.wavedec2_rowsharded(x, fb, 2, pmesh.make_mesh(1, 1, _virtual(1)))
+    assert {k.__name__: k.launches for k in ops.KERNELS
+            if k.launches} == {"dwt2d_fused": 2}
+    ops.reset_counts()
+    pyr = spatial.wavedec2_rowsharded(x, fb, 2,
+                                      pmesh.make_mesh(1, 4, _virtual(4)))
+    y = pring.gather_rows(spatial.waverec2_rowsharded(
+        pyr, fb, pmesh.make_mesh(1, 4, _virtual(4))))
+    assert float((y - x).abs().max()) < 1e-10
+    assert fd.dwt2d_sharded_fused.launches == 8
+    try:
+        _mxu("mxu")
+        ops.reset_counts()
+        spatial.wavedec2_rowsharded(x.float(), get_filter_bank("haar"), 2,
+                                    pmesh.make_mesh(1, 4, _virtual(4)))
+    finally:
+        _mxu("auto")
+    assert {k.__name__: k.launches for k in ops.KERNELS
+            if k.launches} == {"dwt2d_sharded_fused": 8}
+
+
+def test_batched_plans_on_the_card(dev):
+    """Data-parallel over 4 virtual shards (K1/K2 per shard, no exchange)
+    and hybrid over 2 x 2 (K26 per shard)."""
+    st = (np.random.default_rng(1).random((4, 64, 96)) * 255).astype(
+        np.float32)
+    for n_data, n_rows, want in ((4, 1, {"dwt2d_fused": 8,
+                                         "idwt2d_fused": 8}),
+                                 (2, 2, {"dwt2d_sharded_fused": 8,
+                                         "idwt2d_sharded_fused": 8})):
+        B = BatchedWavelets(st, "db2", 2,
+                            mesh=pmesh.make_mesh(n_data, n_rows, _virtual(4)))
+        ops.reset_counts()
+        B.forward()
+        B.inverse()
+        assert {k.__name__: k.launches for k in ops.KERNELS
+                if k.launches} == want
+        # db2 L2 hybrid: 2 exchanges per level forward, 8 back
+        assert B.ring.counts["ppermute"] == (0 if n_rows == 1 else 20)
+        assert np.abs(B.image - st).max() < 7e-4

@@ -32,7 +32,7 @@ from pypwt_tpu.ops import mxu_dwt as jmx
 from pypwt_tpu.ops import mxu_swt as jms
 import pypwt_tpu_torch
 from pypwt_tpu_torch import FilterBank, ops
-from pypwt_tpu_torch.core import dwt, swt
+from pypwt_tpu_torch.core import conv, dwt, swt
 from pypwt_tpu_torch.filters import get_filter_bank
 from pypwt_tpu_torch.ops import fused_dwt as fd
 from pypwt_tpu_torch.ops import mxu_dwt as km
@@ -244,8 +244,8 @@ def test_routing_picks_jax_route(wname, shape, level):
     n = shape[-1]
     c = torch.zeros(shape[0], n // 2)
     k7 = fb.hlen % 2 == 0 and fb.hlen >= 4 and n % 2 == 0
-    lp, rp = kms._pads(fb.hlen, level, False)
-    lq, rq = kms._pads(fb.hlen, level, True)
+    lp, rp = conv.swt_pads(fb.hlen, level, False)
+    lq, rq = conv.swt_pads(fb.hlen, level, True)
     k12a, k12b = max(lp, rp) <= n, max(lq, rq) <= n
     if jfb is not None:  # JAX's own rule, where its bank exists
         assert k12a == (max(jms.pk._swt_pads(fb.hlen, level, False)[:2])
