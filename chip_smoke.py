@@ -11,8 +11,9 @@ prints its traceback and exits non-zero without the final ok line:
    ``nvcc --version`` and the card's name and power limit;
 2. build: compiles every kernel (K1/K2, K3/K4, K10a/K10b, K8/K9,
    K16/K17, K18a/K18b, K19/K20, the float64 instances of the tap loops,
-   the tensor-core forms K5/K6, K7a/K7b, K11a/K11b, K12a/K12b, and the
-   whole-pyramid kernels K24/K25) from
+   the tensor-core forms K5/K6, K7a/K7b, K11a/K11b, K12a/K12b, the
+   whole-pyramid kernels K24/K25, the row-sharded K26-K28 and the grid and
+   sequence passes K29a-K29h) from
    pypwt_tpu_torch/csrc/ with nvcc, one process per source, and prints
    each kernel's registers and spills;
 3. K1/K2 against their plain torch versions on the card, over banks hlen
@@ -49,7 +50,13 @@ prints its traceback and exits non-zero without the final ok line:
    four entries (both precisions) on 4 virtual shards of cuda:0, against
    their plain versions on the halos the ring exchanged (db2, sym8,
    bior4.4, sym20; DWT L1-3, SWT L1-4; 8192^2, 256 x 512, 64 x 96 with
-   multi-hop halos, a stack) and, gathered, against the oracle;
+   multi-hop halos, a stack) and, gathered, against the oracle; then the
+   one-axis passes of the grid and sequence layouts, K29a-K29d (float32,
+   and float64 at db4) and K29e-K29h (both precisions, even banks of 4+
+   taps), pass by pass on the halos the rings exchanged (a 2 x 2 grid of
+   8192^2, 256 x 512 and 64 x 96 at L3; a 2^26-sample signal and an
+   (8, 2^24) batch on 4 shards and a 4096-sample signal on 8 at L5; haar,
+   db2, db4, sym8, sym20) and, gathered, against the oracle;
 4. main paths, each held against the same calls on the CPU plain path
    (coefficients within 3e-4 * 2^level, image within 7e-4) and counted
    (exact launches of every kernel): Wavelets(img, "db2", 3,
@@ -93,6 +100,15 @@ prints its traceback and exits non-zero without the final ok line:
    BatchedWavelets on the stack data-parallel (K1/K2, no exchange) and
    hybrid 2 x 2 (K26), one all-reduce per norm; and the counted exchange
    schedule of the 8192^2 DWT and SWT against audit.predict_rowsharded;
+   then the grid and sequence layouts on virtual shards of cuda:0:
+   ShardedWavelets on the 8192^2 image on a 2 x 2 grid, db2 L3 DWT (12
+   K29a + 24 K29c, 12 K29b + 24 K29d: 3 per shard and level each way) and
+   SWT (torch ops, as JAX), sym8 L3 in mode "mxu" in both precisions
+   (K29e-K29h), the
+   8190 x 8191 image and its 4-spin denoise; a 2^26-sample signal on 4
+   shards, db2 L5 DWT (20 + 20), db2 L3 SWT, sym8 L5 "mxu"; the (8, 2^24)
+   batch; one all-reduce per norm; and the counted exchange schedules
+   against audit.predict_gridsharded(_swt) and predict_seqsharded(_swt);
 5. times (CUDA events, warm-up, median of 21 samples): level-0 K1/K2
    against their plain versions at 2048^2 (device time), and the L3
    roundtrip in frames/s, kernel path against plain path, at 2048^2 and on
@@ -119,7 +135,10 @@ prints its traceback and exits non-zero without the final ok line:
    one 2048 x 8192 shard of the 8192^2 image against its plain version,
    its unsharded kernel on the same block and one convolution, and the
    8192^2 db2 L3 roundtrip on 4 virtual shards against the unsharded one,
-   device and wall.
+   device and wall; then each K29 entry at level 0 of one 4096^2 block of
+   the 8192^2 grid against its plain version and one convolution, K29a on
+   a 2^24-sample sequence shard against K3, and the 8192^2 db2 L3
+   roundtrip on the 2 x 2 grid, on 4 row shards and unsharded.
 
 The line before the last is one JSON object with each kernel's route,
 source, the TPU kernel it replaces, its launches in the main-path run, its
@@ -3430,6 +3449,620 @@ def sharded_work(port):
     return out
 
 
+# -- the grid and sequence layouts: K29a-K29h --------------------------------
+
+GRID_BANKS = ("haar", "db2", "db4", "sym8", "sym20")  # hlen 2, 4, 8, 16, 40
+# a 2 x 2 grid of each plane: 8192^2 (4096^2 shards), 256 x 512, and 64 x 96
+# (32 x 48 shards; sym20's halos take several hops at depth)
+GRID_PLANES = (BIG, (256, 512), (64, 96))
+GRID_SHARD = (BIG[0] // 2, BIG[1] // 2)  # one block of BIG: 4096 x 4096
+SEQ = 1 << 26               # one 256 MB float32 signal, over 4 shards
+SEQ_BATCH = (8, 1 << 24)    # JAX's leading batch axis
+SEQ_SMALL = 4096            # on 8 shards
+K29 = tuple(f"K29{c}" for c in "abcdefgh")
+_PASSES = ("ana_lanes", "syn_lanes", "ana_rows", "syn_rows")
+
+
+def k29_entry(port, kind, axis, mxu, prec="highest"):
+    """(key, wrapper, call, plain call) of one K29 entry: the pass ``kind``
+    ("ana", "syn") along ``axis`` (-1 the lanes, -2 the rows), K29a-K29d or
+    in mode "mxu" K29e-K29h."""
+    name = f"{kind}_{'lanes' if axis == -1 else 'rows'}"
+    key = K29[_PASSES.index(name) + (4 if mxu else 0)]
+    mod = port.ops.mxu_dwt if mxu else port.ops.fused_dwt
+    sfx = "_mxu" if mxu else ""
+    fused = getattr(mod, f"{name}{sfx}_fused")
+    plain = getattr(mod, f"{name}{sfx}_plain")
+    extra = (prec,) if mxu else ()
+    return (key, fused, lambda *a: fused(*a, *extra),
+            lambda *a: plain(*a, *extra))
+
+
+def k29_levels(port, dev, x, fb, levels, n_shards, mxu, prec="highest"):
+    """``levels`` levels of x on virtual shards of ``dev`` (a 2 x 2 grid of
+    a plane, or ``n_shards`` shards of a signal or rows along their
+    samples), pass by pass: each shard's K29 kernel against its plain
+    version on the same shard and the halos its ring exchanged, then the
+    synthesis back on the kernels' coefficients.  Returns the worst error
+    of each entry, the roundtrip error and the gathered level-1
+    coefficients."""
+    par, conv = port.parallel, port.conv
+    sp, rm = par.spatial, par.ring
+    grid = n_shards is None
+    if grid:
+        mesh = par.mesh.make_mesh2d(2, 2, [dev] * 4)
+        rings = rm.GridRings.for_mesh(mesh)
+        parts = rm.shard_grid(x, mesh)
+        gather = lambda p: rm.gather_grid(p, 2)  # noqa: E731
+    else:
+        ring = rm.LocalRing([dev] * n_shards, n_shards)
+        parts = rm.shard_last(x, vmesh(port, 1, n_shards, dev))
+        gather = rm.gather_last
+    f64 = x.dtype == torch.float64
+    errs = {}
+
+    def check(key, got, ref, limit, level, what):
+        if prec == "bf16":
+            if isinstance(got, torch.Tensor):
+                got, ref = (got,), (ref,)
+            e = max(rms_gate(g.cpu().numpy(), r.cpu().numpy(), what, level)
+                    for g, r in zip(got, ref))
+        else:
+            e = max_err(got, ref)
+            limit = F64_SHARD_TOL if f64 else limit
+            if not e <= limit:
+                raise AssertionError(f"{what}: kernel vs plain {e:.3e} > "
+                                     f"{limit:.1e}")
+        errs[key] = max(errs.get(key, 0.0), e)
+
+    def ana(planes, axis, rg, lev):
+        key, fused, call, plain = k29_entry(port, "ana", axis, mxu, prec)
+        lp, rp = conv.analysis_pads(fb.hlen)
+        out = []
+        for p, (b, a) in zip(planes, sp._halos(planes, lp, rp, rg, axis)):
+            got = launched_once(fused, lambda: call(p, b, a, fb))
+            check(key, got, plain(p, b, a, fb), COEFF_TOL * 2 ** lev, lev,
+                  f"{key} {fb.name} L{lev}")
+            out.append(got)
+        return [list(t) for t in zip(*out)]
+
+    def syn(lo, hi, axis, rg, lev):
+        key, fused, call, plain = k29_entry(port, "syn", axis, mxu, prec)
+        L = lo[0].shape[axis]
+        lp, rp = conv.synthesis_pads(fb.hlen, L, 2 * L)
+        hl, hh = (sp._halos(q, lp, rp, rg, axis) for q in (lo, hi))
+        out = []
+        for a, d, ha, hd in zip(lo, hi, hl, hh):
+            halos = (*ha, *hd)
+            got = launched_once(fused, lambda: call(a, d, halos, fb))
+            # its output is the approximation of level lev - 1
+            check(key, got, plain(a, d, halos, fb),
+                  max(ROUNDTRIP_TOL, COEFF_TOL * 2 ** (lev - 1)),
+                  max(lev - 1, 1), f"{key} {fb.name} L{lev}")
+            out.append(got)
+        return out
+
+    a, details, level1 = parts, [], None
+    for lev in range(1, levels + 1):
+        if grid:
+            t1, t2 = ana(a, -1, rings.cols, lev)
+            a, h = ana(t1, -2, rings.rows, lev)
+            v, d = ana(t2, -2, rings.rows, lev)
+            details.append((h, v, d))
+        else:
+            a, d = ana(a, -1, ring, lev)
+            details.append((d,))
+        if lev == 1:
+            level1 = [gather(t) for t in (a, *details[0])]
+    for lev in range(levels, 0, -1):
+        if grid:
+            h, v, d = details[lev - 1]
+            t1 = syn(a, h, -2, rings.rows, lev)
+            t2 = syn(v, d, -2, rings.rows, lev)
+            a = syn(t1, t2, -1, rings.cols, lev)
+        else:
+            a = syn(a, details[lev - 1][0], -1, ring, lev)
+    back = gather(a)
+    ert = max_err(back, x)
+    if prec == "bf16":
+        rms_gate(back.cpu().numpy(), x.cpu().numpy(), "K29 roundtrip", levels)
+    elif not ert <= (F64_SHARD_TOL if f64 else ROUNDTRIP_TOL):
+        raise AssertionError(f"K29 roundtrip {ert:.3e}")
+    return errs, ert, level1
+
+
+def _mxu_covers(fb):
+    return fb.hlen % 2 == 0 and fb.hlen >= 4
+
+
+def phase_kernels_grid(port, dev):
+    """K29a-K29d (float32, and float64 at db4) and K29e-K29h (both
+    precisions) against their plain versions on virtual shards of cuda:0,
+    on the halos the rings exchanged, level by level (L3 of a 2 x 2 grid:
+    8192^2 at db2 and sym8, 256 x 512 and 64 x 96 at haar, db2, db4, sym8
+    and sym20; L5 of the 2^26-sample signal on 4 shards at db2 and sym8 and
+    of its (8, 2^24) batch at db2; L5 of a 4096-sample signal on 8 shards
+    at every bank), on 0..255 data (each analysis pass within 3e-4 *
+    2^level, each synthesis within that of the level it makes and at least
+    7e-4, the roundtrip within 7e-4; float64 within 1e-10; "bf16" on
+    rms_gate's rule); the tensor-core forms on the even banks of 4+ taps.
+    Then the gathered level 1 against the float64 oracle on [0, 1) data (a
+    64 x 96 grid, a 4096-sample signal on 8 shards)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    worst = dict.fromkeys(K29, 0.0)
+    bf16 = dict.fromkeys(K29[4:], 0.0)
+    cases = [(BIG, None, 3, ("db2", "sym8")),
+             ((256, 512), None, 3, GRID_BANKS),
+             ((64, 96), None, 3, GRID_BANKS),
+             ((SEQ,), 4, 5, ("db2", "sym8")),
+             (SEQ_BATCH, 4, 5, ("db2",)),
+             ((SEQ_SMALL,), 8, 5, GRID_BANKS)]
+    for shape, n, levels, banks in cases:
+        for name in banks:
+            fb = port.get_filter_bank(name)
+            x = torch.rand(shape, generator=gen, device=dev) * 255
+            line = []
+            forms = [(False, "highest")]
+            if _mxu_covers(fb) and (shape != BIG or name == "sym8"):
+                forms += [(True, "highest"), (True, "bf16")]
+            if shape == BIG and name == "sym8":
+                forms = forms[1:]
+            for mxu, prec in forms:
+                errs, ert, _ = k29_levels(port, dev, x, fb, levels, n, mxu,
+                                          prec)
+                for k, e in errs.items():
+                    table = bf16 if prec == "bf16" else worst
+                    table[k] = max(table[k], e)
+                line.append(f"{'/'.join(errs)}{' ' + prec if mxu else ''} "
+                            f"{max(errs.values()):.2e} rt {ert:.2e}")
+            del x
+            torch.cuda.synchronize()
+            print(f"kernel-vs-plain {'grid 2x2' if n is None else f'seq {n}'}"
+                  f" {name:6s} {str(shape):17s} L{levels} " + "; ".join(line))
+    fb = port.get_filter_bank("db4")
+    for shape, n in (((256, 512), None), ((64, 96), None), ((SEQ_SMALL,), 8),
+                     ((3, 1024), 4)):
+        x = torch.rand(shape, generator=gen, device=dev,
+                       dtype=torch.float64) * 255
+        errs, ert, _ = k29_levels(port, dev, x, fb, 3, n, False)
+        print(f"kernel-vs-plain float64 db4 {str(shape):17s} "
+              f"{'/'.join(errs)} {max(errs.values()):.2e} rt {ert:.2e}")
+
+    oracle = load_oracle()
+    rng = np.random.default_rng(SEED + 51)
+    for name in GRID_BANKS:
+        fb = port.get_filter_bank(name)
+        xg, xs = rng.random((64, 96)), rng.random(SEQ_SMALL)
+        refs = ((xg, None, oracle.ref_analysis_2d(xg, fb.dec_lo, fb.dec_hi)),
+                (xs, 8, (oracle.ref_analysis_1d(xs, fb.dec_lo),
+                         oracle.ref_analysis_1d(xs, fb.dec_hi))))
+        line = []
+        for xn, n, ref in refs:
+            x = torch.from_numpy(xn.astype(np.float32)).to(dev)
+            for mxu in (False, True) if _mxu_covers(fb) else (False,):
+                _, _, level1 = k29_levels(port, dev, x, fb, 1, n, mxu)
+                e = max(float(np.abs(g.cpu().numpy() - r).max())
+                        for g, r in zip(level1, ref))
+                if e > ORACLE_TOL:
+                    raise AssertionError(f"{name} K29 mxu={mxu} vs oracle "
+                                         f"{e:.3e}")
+                line.append(f"{'grid' if n is None else 'seq'}"
+                            f"{' mxu' if mxu else ''} {e:.2e}")
+        print(f"kernel-vs-oracle K29 {name:6s} level 1, gathered: "
+              + "  ".join(line))
+    for key, e in bf16.items():
+        print(f"worst bf16 kernel-vs-plain {key}: {e:.3e}")
+    return worst
+
+
+def _k29_counts(mxu, lanes, rows):
+    """The launches of a grid (3 passes per shard and level) or sequence
+    DWT roundtrip: ``lanes`` lane and ``rows`` row passes each way (a
+    sequence has no row passes)."""
+    sfx = "_mxu_fused" if mxu else "_fused"
+    want = {f"ana_lanes{sfx}": lanes, f"syn_lanes{sfx}": lanes}
+    if rows:
+        want.update({f"ana_rows{sfx}": rows, f"syn_rows{sfx}": rows})
+    return want
+
+
+def _k29_names():
+    """Wrapper name -> K29 key."""
+    return {f"{p}{sfx}": K29[i + (4 if sfx.startswith("_mxu") else 0)]
+            for sfx in ("_fused", "_mxu_fused")
+            for i, p in enumerate(_PASSES)}
+
+
+def phase_main_paths_grid(port, dev):
+    """The grid and sequence plans on virtual shards of cuda:0, counted
+    from 0, against the unsharded plans on the card: ShardedWavelets of the
+    8192^2 image on a 2 x 2 grid, db2 L3 forward -> soft_threshold(10) ->
+    inverse (36 launches of K29a-K29d each way: 3 per shard and level), the
+    SWT (torch ops: no TPU kernel), sym8 L3 in mode "mxu" in both
+    precisions (36 + 36 of K29e-K29h); the 8190 x 8191 image (padded,
+    cropped, roundtrip) and its denoise(10, spins=4) against the unsharded
+    denoise of the same drawn shifts; the 2^26-sample signal on 4 shards,
+    db2 L5 (20 + 20), db2 L3 SWT, sym8 L5 in mode "mxu" (20 + 20 of
+    K29e/K29f), against the unsharded 1D plan; the (8, 2^24) batch through
+    wavedec1_seqsharded (db2 L5) against wavedec1; norm1 and norm2sq one
+    all-reduce each."""
+    ops, par, dwt = port.ops, port.parallel, port.dwt
+    SW = par.ShardedWavelets
+    grid = par.mesh.make_mesh2d(2, 2, [dev] * 4)
+    seq = vmesh(port, 1, N_SHARDS, dev)
+    img = frame(BIG, SEED + 52)
+    sig = frame((SEQ,), SEED + 53)
+    names = _k29_names()
+    launches = {}
+    cases = (("db2", 0, "auto", "highest", img, grid, 3, (12, 24)),
+             ("db2", 1, "auto", "highest", img, grid, 3, None),
+             ("sym8", 0, "mxu", "highest", img, grid, 3, (12, 24)),
+             ("sym8", 0, "mxu", "bf16", img, grid, 3, (12, 24)),
+             ("db2", 0, "auto", "highest", sig, seq, 5, (20, 0)),
+             ("db2", 1, "auto", "highest", sig, seq, 3, None),
+             ("sym8", 0, "mxu", "highest", sig, seq, 5, (20, 0)))
+    for wname, do_swt, mode, prec, x, mesh, levels, per in cases:
+        layout = "grid 2x2" if x.ndim == 2 else f"seq {N_SHARDS}"
+        what = (f"ShardedWavelets {layout} {wname} L{levels} "
+                f"{'SWT' if do_swt else 'DWT'} {x.shape} mode {mode}"
+                f"{' ' + prec if mode == 'mxu' else ''}")
+        want = {} if per is None else _k29_counts(mode == "mxu", *per)
+        dwt.set_kernels(mode)
+        dwt.set_mxu_precision(prec)
+        try:
+            ref = port.Wavelets(x, wname, levels, do_swt=do_swt, device=dev)
+            ref.forward()
+            ref_coeffs = [np.ravel(c) if x.ndim == 1 else c
+                          for c in ref.coeffs]
+            ref.soft_threshold(10.0)
+            ref.inverse()
+            ref_image = np.reshape(ref.image, x.shape)
+            del ref
+            S = SW(x, wname, levels, do_swt=do_swt, mesh=mesh)
+            ops.reset_counts()
+            S.forward()
+            coeffs = S.coeffs
+            expect_launches(ops, {k: v for k, v in want.items()
+                                  if k.startswith("ana")}, f"{what} forward")
+            S.soft_threshold(10.0)
+            S.inverse()
+            out = S.image
+            torch.cuda.synchronize()
+            got = counts(ops)
+            expect_launches(ops, want, what)
+        finally:
+            dwt.set_kernels("auto")
+            dwt.set_mxu_precision("highest")
+        if prec == "highest":
+            ec = check_pyramid(coeffs, ref_coeffs, f"{what} forward")
+            ei = check_image(out, ref_image, f"{what} denoised image")
+        else:
+            ec = max([rms_gate(coeffs[0], ref_coeffs[0], what, levels)] + [
+                rms_gate(g, r, f"{what} level {lev}", lev)
+                for lev in range(1, levels + 1)
+                for g, r in zip(coeffs[lev], ref_coeffs[lev])])
+            ei = rms_gate(out, ref_image, f"{what} image", levels)
+        print(f"main path {what}: forward vs unsharded {ec:.3e}, denoised "
+              f"image vs unsharded {ei:.3e}, launches {got}")
+        if prec == "highest":
+            for k, v in got.items():
+                launches[names[k]] = launches.get(names[k], 0) + v
+        del coeffs, out
+
+    odd = frame(BIG_ODD, SEED + 54)
+    S = SW(odd, "db2", 3, mesh=grid)
+    S.forward()
+    S.inverse()
+    er = check_image(S.image, odd, f"{BIG_ODD} grid roundtrip")
+    S = SW(odd, "db2", 3, mesh=grid, seed=SEED)
+    ops.reset_counts()
+    S.denoise(BETA, spins=4)
+    out = S.image
+    got = counts(ops)
+    rng = np.random.default_rng(SEED)
+    pad = np.pad(odd, [(0, p - n) for p, n in zip(S._padded, BIG_ODD)],
+                 mode="wrap")
+    acc = None
+    for _ in range(4):
+        sr, sc = int(rng.integers(0, BIG_ODD[0])), int(
+            rng.integers(0, BIG_ODD[1]))
+        W = port.Wavelets(np.roll(pad, (sr, sc), (0, 1)), "db2", 3,
+                          device=dev)
+        W.forward()
+        W.soft_threshold(BETA)
+        W.inverse()
+        y = np.roll(W.image, (-sr, -sc), (0, 1))
+        acc = y if acc is None else acc + y
+    ed = check_image(out, (acc / 4)[:BIG_ODD[0], :BIG_ODD[1]],
+                     f"{BIG_ODD} grid denoise spins=4")
+    if got != _k29_counts(False, 48, 96):
+        raise AssertionError(f"grid denoise spins=4: launches {got}")
+    print(f"main path ShardedWavelets grid 2x2 db2 L3 {BIG_ODD} (padded to "
+          f"{S._padded}): roundtrip {er:.3e}; denoise({BETA}, spins=4) vs "
+          f"unsharded denoise of the same shifts {ed:.3e}, launches {got}")
+    del S, W, acc, out
+
+    fb = port.get_filter_bank("db2")
+    rows = torch.from_numpy(frame(SEQ_BATCH, SEED + 55)).to(dev)
+    ops.reset_counts()
+    pyr = par.spatial.wavedec1_seqsharded(rows, fb, 5, seq)
+    back = par.ring.gather_last(par.spatial.waverec1_seqsharded(pyr, fb,
+                                                                seq))
+    torch.cuda.synchronize()
+    got = counts(ops)
+    expect_launches(ops, _k29_counts(False, 20, 0),
+                    f"{SEQ_BATCH} sequence")
+    ref = port.dwt.pyramid_to_numpy(port.dwt.wavedec1(rows, fb, 5))
+    ec = check_pyramid([par.ring.gather_last(c).cpu().numpy() for c in pyr],
+                       ref, f"{SEQ_BATCH} sequence")
+    er = check_image(back.cpu().numpy(), rows.cpu().numpy(),
+                     f"{SEQ_BATCH} sequence roundtrip")
+    print(f"main path wavedec1_seqsharded {SEQ_BATCH} db2 L5 over {N_SHARDS}"
+          f" shards: forward vs wavedec1 {ec:.3e}, roundtrip {er:.3e}, "
+          f"launches {got}")
+    del rows, pyr, back
+
+    for x, mesh in ((img, grid), (sig, seq)):
+        S = SW(x, "db2", 3, mesh=mesh)
+        S.forward()
+        ref = port.Wavelets(x, "db2", 3, device=dev)
+        ref.forward()
+        for norm in ("norm1", "norm2sq"):
+            S.ring.reset()
+            got = getattr(S, norm)()
+            if (S.ring.counts["all_reduce"], S.ring.counts["ppermute"]) != (
+                    1, 0):
+                raise AssertionError(f"{norm}: {S.ring.counts}")
+            want = getattr(ref, norm)()
+            if abs(got - want) > 1e-4 * want:
+                raise AssertionError(f"{norm} {got} vs {want}")
+        print(f"main path ShardedWavelets {S.shape} "
+              f"norm1/norm2sq: one all-reduce each, within 1e-4 of the "
+              "unsharded norms")
+        del S, ref
+    return launches
+
+
+def phase_audit_grid(port, dev):
+    """The counted exchange schedules of the 8192^2 grid DWT and SWT (db2
+    L3, 2 x 2) and of the 2^26-sample sequence DWT (db2 L5) and SWT (L3, 4
+    shards) against audit.predict_gridsharded(_swt) and
+    predict_seqsharded(_swt): equal ppermute counts each way, no
+    all-gather, all-reduce or all-to-all."""
+    par = port.parallel
+    audit = par.audit
+    fb = port.get_filter_bank("db2")
+    grid = par.mesh.make_mesh2d(2, 2, [dev] * 4)
+    img = torch.from_numpy(frame(BIG, SEED + 56)).to(dev)
+    sig = torch.from_numpy(frame((SEQ,), SEED + 57)).to(dev)
+    cases = (("grid DWT", audit.gridsharded_fns(fb, 3, grid), img,
+              audit.predict_gridsharded(fb, 3, *BIG, 2, 2)),
+             ("grid SWT", audit.gridsharded_fns(fb, 3, grid, True), img,
+              audit.predict_gridsharded_swt(fb, 3, *BIG, 2, 2)),
+             ("sequence DWT", audit.seqsharded_fns(
+                 fb, 5, vmesh(port, 1, N_SHARDS, dev)), sig,
+              audit.predict_seqsharded(fb, 5, SEQ, N_SHARDS)),
+             ("sequence SWT", audit.seqsharded_swt_fns(
+                 fb, 3, vmesh(port, 1, N_SHARDS, dev)), sig,
+              audit.predict_seqsharded_swt(fb, 3, SEQ, N_SHARDS)))
+    for what, (fwd, inv), x, pred in cases:
+        fwd.ring.reset()
+        pyr = fwd(x)
+        f = audit.schedule_of(fwd.ring)
+        fwd.ring.reset()
+        inv(pyr)
+        i = audit.schedule_of(fwd.ring)
+        torch.cuda.synchronize()
+        for sched, key in ((f, "fwd_ppermute"), (i, "inv_ppermute")):
+            if sched["ppermute"] != pred[key] or any(
+                    sched[k] for k in ("all_gather", "all_reduce",
+                                       "all_to_all")):
+                raise AssertionError(f"{what}: schedule {sched} vs {pred}")
+        print(f"audit {what} db2 {tuple(x.shape)}: ppermute forward "
+              f"{f['ppermute']} / inverse {i['ppermute']} (predicted "
+              f"{pred['fwd_ppermute']} / {pred['inv_ppermute']}), "
+              f"all-gather 0, all-reduce 0, all-to-all 0; halo bytes per "
+              f"shard forward {4 * sum(f['ppermute_elems'])}")
+        del pyr
+
+
+def _window(g, r0, nr, c0, nc, top=0, bot=0, left=0, right=0):
+    """Rows [r0 - top, r0 + nr + bot) and columns [c0 - left, c0 + nc +
+    right) of the plane g, wrapped."""
+    rows = torch.arange(r0 - top, r0 + nr + bot, device=g.device)
+    cols = torch.arange(c0 - left, c0 + nc + right, device=g.device)
+    return (g.index_select(-2, rows % g.shape[-2])
+            .index_select(-1, cols % g.shape[-1]).contiguous())
+
+
+def _split(ext, before, n, axis):
+    """(body, before, after) of a halo-extended window along ``axis``."""
+    return (ext.narrow(axis, before, n).contiguous(),
+            ext.narrow(axis, 0, before).contiguous(),
+            ext.narrow(axis, before + n, ext.shape[axis] - before - n)
+            .contiguous())
+
+
+def _syn_offset(hlen):
+    """y[n] = z[n + T + 2P] for the transposed convolution z of
+    coefficients padded by P (chip_smoke's K2/K4 library calls)."""
+    h2 = hlen // 2
+    return hlen - 2 + (1 - h2 % 2) - 2 * (h2 // 2)
+
+
+def grid_calls(port, fb, mxu, key, globs, dev):
+    """(timed calls, library ms) of one K29 entry at level 0 of
+    block (1, 1) of each global 8192^2 plane on a 2 x 2 grid: the lanes
+    pass on the 4096^2 block, the rows pass on its column pass's output t1
+    (4096 x 2048), the syntheses on the coefficients of each; the library
+    call (one convolution on the window padded outside the timed call) is
+    checked against the kernel and timed here."""
+    conv, fd = port.conv, port.ops.fused_dwt
+    n = GRID_SHARD[0]
+    h = fb.hlen
+    kind = "ana" if key in ("K29a", "K29c", "K29e", "K29g") else "syn"
+    axis = -1 if key in ("K29a", "K29b", "K29e", "K29f") else -2
+    _, _, call, plain = k29_entry(port, kind, axis, mxu)
+    wd = torch.tensor(np.stack([fb.dec_lo, fb.dec_hi]), dtype=torch.float32,
+                      device=dev).flip(-1)
+    wr = torch.tensor(np.stack([fb.rec_lo, fb.rec_hi]), dtype=torch.float32,
+                      device=dev)
+    lp, rp = conv.analysis_pads(h)
+    o = _syn_offset(h) + 2 * h
+    if axis == -1:
+        planes = globs
+        if kind == "ana":
+            ins = [_split(_window(g, n, n, n, n, 0, 0, lp, rp), lp, n, -1)
+                   for g in planes]
+            lib_in = [_window(g, n, n, n, n, 0, 0, lp, rp)[:, None]
+                      for g in planes]
+            lib = (lambda z: F.conv1d(z, wd[:, None], stride=2)
+                   .transpose(0, 1))
+            crop = None
+        else:
+            coeffs = [fd.dwt1d_fused(g, fb) for g in planes]
+            m = n // 2
+            lpi, rpi = conv.synthesis_pads(h, m, n)
+            ins = []
+            for c in coeffs:
+                pa, pd = (_split(_window(p, n, n, m, m, 0, 0, lpi, rpi), lpi,
+                                 m, -1) for p in c)
+                ins.append((pa[0], pd[0], (*pa[1:], *pd[1:])))
+            lib_in = [torch.stack([_window(p, n, n, m, m, 0, 0, h, h)
+                                   for p in c], 1) for c in coeffs]
+            lib = lambda z: F.conv_transpose1d(z, wr[:, None], stride=2)  # noqa: E731,E501
+            crop = lambda z: z[:, 0, o:o + n]  # noqa: E731
+    else:
+        t = [fd.dwt1d_fused(g, fb)[0] for g in globs]  # (8192, 4096) each
+        m = n // 2
+        if kind == "ana":
+            ins = [_split(_window(p, n, n, m, m, lp, rp), lp, n, -2)
+                   for p in t]
+            lib_in = [_window(p, n, n, m, m, lp, rp)[None, None] for p in t]
+            lib = (lambda z: F.conv2d(z, wd[:, None, :, None],
+                                      stride=(2, 1))[0])
+            crop = None
+        else:
+            coeffs = [fd.dwt1d_fused(p.T.contiguous(), fb) for p in t]
+            coeffs = [tuple(c.T.contiguous() for c in pair)
+                      for pair in coeffs]  # (4096, 4096) each, rows halved
+            lpi, rpi = conv.synthesis_pads(h, m, n)
+            ins = []
+            for c in coeffs:
+                pa, pd = (_split(_window(p, m, m, m, m, lpi, rpi), lpi, m,
+                                 -2) for p in c)
+                ins.append((pa[0], pd[0], (*pa[1:], *pd[1:])))
+            lib_in = [torch.stack([_window(p, m, m, m, m, h, h)
+                                   for p in c])[None] for c in coeffs]
+            lib = (lambda z: F.conv_transpose2d(z, wr[:, None, :, None],
+                                                stride=(2, 1)))
+            crop = lambda z: z[0, 0, o:o + n]  # noqa: E731
+    nx = itertools.cycle(ins).__next__
+    calls = {"kernel": lambda: call(*nx(), fb),
+             "plain": lambda: plain(*nx(), fb)}
+    out = call(*ins[0], fb)
+    kernel_out = torch.stack(out) if isinstance(out, tuple) else out
+    libcall = lib if crop is None else (lambda z: crop(lib(z)))
+    return calls, library_time(libcall, lib_in, kernel_out)
+
+
+def grid_work(port):
+    """(bytes, flops) of each K29 entry's timed call at level 0 of one
+    4096^2 grid block: its input and halos read once, its output written
+    once; two flops per FMA (K29a-K29d at db2, K29e-K29h at sym8)."""
+    conv = port.conv
+    n = GRID_SHARD[0]
+    m = n // 2
+    out = {}
+    for keys, wname in (("abcd", "db2"), ("efgh", "sym8")):
+        fb = port.get_filter_bank(wname)
+        h = fb.hlen
+        lp, rp = conv.analysis_pads(h)
+        lpi, rpi = conv.synthesis_pads(h, m, n)
+        ka, kb, kc, kd = (f"K29{c}" for c in keys)
+        out[ka] = (4 * n * (n + lp + rp) + 4 * n * n, 2 * h * n * n)
+        out[kb] = (4 * 2 * n * (m + lpi + rpi) + 4 * n * n, 2 * h * n * n)
+        out[kc] = (4 * (n + lp + rp) * m + 4 * n * m, 2 * h * n * m)
+        out[kd] = (4 * 2 * (m + lpi + rpi) * m + 4 * n * m, 2 * h * n * m)
+    return out
+
+
+def phase_times_grid(port, dev, card):
+    """Device time of each K29 entry at level 0 of one 4096^2 block of the
+    8192^2 grid (K29a-K29d at db2, K29e-K29h at sym8 "highest"; the lanes
+    pass on the block, the rows pass on its column pass's 4096 x 2048
+    output), against its plain version in turns, beside one PyTorch
+    convolution of the same map (library_ms: conv1d / conv_transpose1d
+    along the lanes, conv2d / conv_transpose2d with an (hlen, 1) kernel
+    along the rows); K29a on one 2^24-sample sequence shard; then the 8192^2
+    db2 L3 roundtrip three ways, device and wall: the 2 x 2 grid, 4 row
+    shards, the unsharded plan."""
+    par = port.parallel
+    gen = torch.Generator(device=dev).manual_seed(SEED + 58)
+    globs = [torch.rand(BIG, generator=gen, device=dev) * 255
+             for _ in range(2)]
+    times, library = {}, {}
+    torch.backends.cudnn.benchmark = True
+    try:
+        for i, key in enumerate(K29):
+            mxu = i >= 4
+            fb = port.get_filter_bank("sym8" if mxu else "db2")
+            calls, lib = grid_calls(port, fb, mxu, key, globs, dev)
+            t = in_turns(calls, {"kernel": 10, "plain": 3})
+            times[key] = (t["kernel"], t["plain"])
+            library[key] = lib
+            print(f"time {key} {fb.name} level 0 of a {GRID_SHARD} grid "
+                  f"block, device: kernel {t['kernel'] * 1e3:.1f} us, plain "
+                  f"{t['plain'] * 1e3:.1f} us, library {lib * 1e3:.1f} us  "
+                  f"[{card}]")
+    finally:
+        torch.backends.cudnn.benchmark = False
+    fb = port.get_filter_bank("db2")
+    conv, fd = port.conv, port.ops.fused_dwt
+    n = SEQ // N_SHARDS
+    sig = torch.rand(SEQ, generator=gen, device=dev) * 255
+    lp, rp = conv.analysis_pads(fb.hlen)
+    ins = [_split(_window(sig[None], 0, 1, c0, n, 0, 0, lp, rp)[0], lp, n,
+                  -1) for c0 in (0, n)]
+    nx = itertools.cycle(ins).__next__
+    t = in_turns({"kernel": lambda: fd.ana_lanes_fused(*nx(), fb),
+                  "K3 on the shard": lambda: fd.dwt1d_fused(nx()[0], fb)},
+                 {"kernel": 10, "K3 on the shard": 10})
+    print(f"time K29a db2 on a {n}-sample sequence shard, device: kernel "
+          f"{t['kernel'] * 1e3:.1f} us, K3 on the same shard "
+          f"{t['K3 on the shard'] * 1e3:.1f} us  [{card}]")
+    del sig, ins
+    sp, rm = par.spatial, par.ring
+    grid = par.mesh.make_mesh2d(2, 2, [dev] * 4)
+    rings = rm.GridRings.for_mesh(grid)
+    rmesh = vmesh(port, 1, N_SHARDS, dev)
+    ring = rm.LocalRing.for_mesh(rmesh, batched=False)
+    gparts = [rm.shard_grid(g, grid) for g in globs]
+    rparts = [rm.shard_rows(g, rmesh) for g in globs]
+    ng = itertools.cycle(gparts).__next__
+    nr = itertools.cycle(rparts).__next__
+    nglob = itertools.cycle(globs).__next__
+    ways = {
+        "grid 2x2": lambda: sp._local_waverec2_grid(
+            sp._local_wavedec2_grid(ng(), fb, 3, rings), fb, rings),
+        "4 row shards": lambda: sp._local_waverec2(
+            sp._local_wavedec2(nr(), fb, 3, ring), fb, ring),
+        "unsharded": lambda: port.dwt.waverec2(
+            port.dwt.wavedec2(nglob(), fb, 3), fb, BIG)}
+    rt = {clock: in_turns(ways, dict.fromkeys(ways, 1), device_only=d)
+          for clock, d in (("device", True), ("wall", False))}
+    for way in ways:
+        print(f"time L3 db2 roundtrip {BIG} {way}: device "
+              f"{rt['device'][way]:.4f} ms, wall {rt['wall'][way]:.4f} ms  "
+              f"[{card}]")
+    d, w = rt["device"], rt["wall"]
+    print(f"grid against unsharded, 8192^2 db2 L3 roundtrip on one card: "
+          f"device {d['grid 2x2'] / d['unsharded']:.3f}x, wall "
+          f"{w['grid 2x2'] / w['unsharded']:.3f}x; against the row layout: "
+          f"device {d['grid 2x2'] / d['4 row shards']:.3f}x  [{card}]")
+    return times, library
+
+
 _PK, _NSP = "ops/pallas_dwt.py", "ops/nonsep_pallas.py"
 # key, name, source under pypwt_tpu_torch/csrc/, the TPU kernel's call
 KERNEL_ROWS = (
@@ -3471,6 +4104,14 @@ KERNEL_ROWS = (
      "ops/mxu_swt.py:656"),
     ("K28 iswt", "iswt2d_sharded_mxu (K28)", "tc_swt2d.cu",
      "ops/mxu_swt.py:737"),
+    ("K29a", "ana_lanes (K29a)", "dwt1d.cu", f"{_PK}:1719"),
+    ("K29b", "syn_lanes (K29b)", "idwt1d.cu", f"{_PK}:1751"),
+    ("K29c", "ana_rows (K29c)", "axis_rows.cu", f"{_PK}:1785"),
+    ("K29d", "syn_rows (K29d)", "axis_rows.cu", f"{_PK}:1821"),
+    ("K29e", "ana_lanes_mxu (K29e)", "tc_dwt1d.cu", "ops/mxu_dwt.py:713"),
+    ("K29f", "syn_lanes_mxu (K29f)", "tc_dwt1d.cu", "ops/mxu_dwt.py:821"),
+    ("K29g", "ana_rows_mxu (K29g)", "tc_dwt2d.cu", "ops/mxu_dwt.py:763"),
+    ("K29h", "syn_rows_mxu (K29h)", "tc_dwt2d.cu", "ops/mxu_dwt.py:873"),
 )
 
 
@@ -3576,6 +4217,7 @@ def main():
     phase_kernels_f64(port, dev)
     worst.update(phase_kernels_pyramid(port, dev))
     worst.update(phase_kernels_sharded(port, dev))
+    worst.update(phase_kernels_grid(port, dev))
     launches = phase_main_path(port, dev)
     launches.update(phase_main_paths_1d(port, dev))
     launches.update(phase_main_paths_2d_swt(port, dev))
@@ -3586,6 +4228,8 @@ def main():
     launches.update(phase_main_paths_pyramid(port, dev))
     launches.update(phase_main_paths_sharded(port, dev))
     phase_audit_sharded(port, dev)
+    launches.update(phase_main_paths_grid(port, dev))
+    phase_audit_grid(port, dev)
     times = phase_times(port, dev, card)
     times.update(phase_times_1d(port, dev, card))
     times.update(phase_times_2d_swt(port, dev, card))
@@ -3596,8 +4240,11 @@ def main():
     times.update(phase_times_pyramid(port, dev, card))
     sharded_times, sharded_library = phase_times_sharded(port, dev, card)
     times.update(sharded_times)
+    grid_times, grid_library = phase_times_grid(port, dev, card)
+    times.update(grid_times)
     library = phase_library(port, dev, card)
     library.update(sharded_library)
+    library.update(grid_library)
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "pypwt_tpu.")))
     if leaked:
@@ -3605,7 +4252,7 @@ def main():
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     for key, ms in path_bounds().items():
         print(f"bound of the path holding {key}: {ms * 1e3:.1f} us (bytes)")
-    work = {**timed_work(port), **sharded_work(port)}
+    work = {**timed_work(port), **sharded_work(port), **grid_work(port)}
     kernels = []
     for key, name, source, tpu in KERNEL_ROWS:
         bound_ms, bound_by = bound(*work[key])

@@ -21,7 +21,9 @@ package:
   :553-626): the filters virtually upsampled by 2^(level-1), no
   decimation, a plain mod-N wrap, and one 1/2 in the synthesis.
 
-All functions operate on the last axis; callers transpose for other axes.
+All functions operate on the last axis, the stationary cores on any axis
+(``axis``, for the grid layout's row passes); callers transpose for other
+axes.
 ``F.conv1d`` is deliberately not used: on a GPU it runs through cuDNN in
 TF32 by default, which is outside the accuracy envelope.
 """
@@ -198,10 +200,10 @@ def swt_pads(hlen: int, level: int, inverse: bool):
     return (hlen - 1 - s) * factor, s * factor
 
 
-def swt_analysis_core(xp, dec_lo, dec_hi, level: int, n: int):
+def swt_analysis_core(xp, dec_lo, dec_hi, level: int, n: int, axis=-1):
     """Stationary analysis on an already-padded signal (``swt_pads`` on
-    the left, enough on the right): lo[i] = sum_k dec_lo[k] *
-    xp[lpad + i + (s-k)*factor] for i < n."""
+    the left, enough on the right) along ``axis``: lo[i] = sum_k dec_lo[k]
+    * xp[lpad + i + (s-k)*factor] for i < n."""
     hlen = len(dec_lo)
     s = swt_centre(hlen, False)
     factor = 1 << (level - 1)
@@ -211,8 +213,7 @@ def swt_analysis_core(xp, dec_lo, dec_hi, level: int, n: int):
     lo = None
     hi = None
     for k in range(hlen):
-        ofs = lpad + (s - k) * factor
-        seg = xp[..., ofs: ofs + n]
+        seg = xp.narrow(axis, lpad + (s - k) * factor, n)
         lo = seg * flo[k] if lo is None else lo + seg * flo[k]
         hi = seg * fhi[k] if hi is None else hi + seg * fhi[k]
     return lo, hi
@@ -229,9 +230,11 @@ def swt_analysis_last(x, dec_lo, dec_hi, level: int):
     return swt_analysis_core(xp, dec_lo, dec_hi, level, x.shape[-1])
 
 
-def swt_synthesis_core(lop, hip, rec_lo, rec_hi, level: int, n: int):
+def swt_synthesis_core(lop, hip, rec_lo, rec_hi, level: int, n: int,
+                       axis=-1):
     """Stationary synthesis on already-padded coefficient signals
-    (``swt_pads(hlen, level, True)``), with the 1/2 of one axis."""
+    (``swt_pads(hlen, level, True)``) along ``axis``, with the 1/2 of one
+    axis."""
     hlen = len(rec_lo)
     s = swt_centre(hlen, True)
     factor = 1 << (level - 1)
@@ -242,7 +245,8 @@ def swt_synthesis_core(lop, hip, rec_lo, rec_hi, level: int, n: int):
     out = None
     for k in range(hlen):
         ofs = lpad + (s - k) * factor
-        seg = lop[..., ofs: ofs + n] * flo[k] + hip[..., ofs: ofs + n] * fhi[k]
+        seg = (lop.narrow(axis, ofs, n) * flo[k]
+               + hip.narrow(axis, ofs, n) * fhi[k])
         out = seg if out is None else out + seg
     return out
 

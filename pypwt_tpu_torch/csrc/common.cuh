@@ -303,9 +303,54 @@ inline Halo<T, 4> make_halo4(const T* const* tops, const T* const* bots,
   return h;
 }
 
+// Where the samples of a 1D level's rows come from (the last axis). Wrapped:
+// the row itself, wrapped periodically (K3/K4, K7a/K7b). LaneHalo: one
+// segment of longer rows split over a ring of shards (K29a/K29b, K29e/K29f:
+// the grid's column passes and the sequence layout of
+// pypwt_tpu_torch/parallel/spatial.py): sample c of row `row` on the
+// extended axis [-lp, n + rp) is the shard's own sample c, sample c + lp of
+// the left halo (rows, lp) or sample c - n of the right halo (rows, rp), the
+// samples its neighbours exchanged. Past both halos there is no sample: the
+// kernel stages zero there, where only a zero tap or an output past the
+// shard meets it (Halo's rule along the other axis). kPlanes planes share
+// the geometry (the two coefficient rows of a synthesis), each with its own
+// halo pair.
+template <class T, int kPlanes>
+struct LaneHalo {
+  static constexpr bool kHalo = true;
+  const T* left[kPlanes];   // (rows, lp) samples before the shard, per plane
+  const T* right[kPlanes];  // (rows, rp) samples after it
+  int lp, rp;
+
+  // Sample c of row `row` of plane p, whose own n samples start at `body`.
+  __device__ __forceinline__ T at(int p, const T* body, long long row, int c,
+                                  int n) const {
+    if (c >= 0 && c < n) return body[c];
+    if (c < 0) return c >= -lp ? left[p][row * lp + c + lp] : T(0);
+    return c - n < rp ? right[p][row * rp + c - n] : T(0);
+  }
+};
+
+// Host-side lane halo argument of kPlanes planes, halos[2 p] the left and
+// halos[2 p + 1] the right halo of plane p.
+template <class T, int kPlanes>
+inline LaneHalo<T, kPlanes> make_lane_halo(const T* const* halos, int lp,
+                                           int rp) {
+  LaneHalo<T, kPlanes> h;
+  for (int p = 0; p < kPlanes; ++p) {
+    h.left[p] = halos[2 * p];
+    h.right[p] = halos[2 * p + 1];
+  }
+  h.lp = lp;
+  h.rp = rp;
+  return h;
+}
+
 // The exact halo heights of a row-sharded level (conv.analysis_pads,
 // conv.synthesis_pads with n_out = 2L, and their dilation by 2^(level-1)
-// in the stationary levels); a kernel refuses any other.
+// in the stationary levels), and the exact halo widths of a one-axis pass
+// of the grid and sequence layouts (K29, the same pads along either axis);
+// a kernel refuses any other.
 inline bool analysis_halos_ok(int hlen, int lp, int rp) {
   return lp == hlen - 1 - hlen / 2 && rp == std::max(hlen / 2 - 1, 0);
 }

@@ -1,8 +1,16 @@
-// K3: one periodized batched-1D analysis level, float32 or float64.
+// K3: one periodized batched-1D analysis level, float32 or float64; and
+// K29a, the same level of one segment of longer rows.
 //
 // Replaces the TPU kernel pypwt_tpu/ops/pallas_dwt.py::dwt1d_fused
 // (_build_dwt1d, :2064), and computes the map of the folded long-signal
 // kernel ::dwt1d_long_fused (_build_dwt1d_long, :2438) on a (1, n) view.
+// K29a (pypwt_ana_lanes) replaces ::build_ana_padded_lanes (:1719), the
+// lane-axis analysis of the grid and sequence layouts of
+// pypwt_tpu/parallel/spatial.py (_analysis_axis_sharded): the same kernel
+// with the LaneHalo sample source (common.cuh), the samples before and after
+// the shard read from its neighbours' exchanged halos where they lie (no
+// padded copy, and no fold of a long signal into per-row windows: a signal
+// shard is a (1, n) row, or (B, n) rows).
 //
 // Map (pypwt_tpu/core/conv.py:78-118, analysis_last), for x of (R, n) and
 // any hlen <= 40 (an odd one padded by make_analysis_taps), each row on its
@@ -10,24 +18,28 @@
 //   lo[r, i] = sum_j dec_lo[hlen-1-j] * x[r, (2i + j - lpad) mod M],
 //   hi the same with dec_hi, lpad = hlen - 1 - hlen/2 (common.cuh), where an
 // odd row is extended by its last sample (M = n + 1, wrap_ext) and an even
-// one has M = n; ceil(n/2) outputs per row.
+// one has M = n; ceil(n/2) outputs per row. K29a: n even, and sample k of
+// the extended axis [-lpad, n + rpad) in place of x[(k) mod M]
+// (conv.analysis_core on the halo-extended rows), n/2 outputs per row.
 //
 // Bound: per input sample a level reads 4 bytes and writes 4 (half a lo
 // and half a hi output) and does hlen FMAs: hlen/4 flop per byte, under the
 // H100's float32 ridge of ~20 flop per byte (67 TFLOP/s over 3.35 TB/s)
-// for every hlen <= 40, so memory-bound.
+// for every hlen <= 40, so memory-bound (K29a: the halos add hlen - 2
+// samples per row).
 //
 // Design: the grid is one flat axis of (row, tile) pairs, so a single
 // signal of 4 Mi samples and a 2048 x 2048 stack both give thousands of
 // blocks (grid y and z, limited to 65535, are not used; rows past the grid's
 // 2^31 - 1 blocks go in further launches). Each block owns TC
 // outputs of one row; it stages its input window (2 TC + hlen - 2 samples,
-// with a true periodic wrap, and an in-range fast path) into shared memory
-// once, split into even and odd samples so that the decimating taps read
-// consecutive words (no bank conflicts), as K1 does along its last axis.
-// Row offsets are 64-bit. A float64 instance (pypwt_dwt1d_f64) doubles
-// the bytes: its window of 2 (TC + 20) samples takes 16.6 KB of shared
-// memory, under the 48 KB a block has without opting in.
+// with a true periodic wrap or the halo source, and an in-range fast path)
+// into shared memory once, split into even and odd samples so that the
+// decimating taps read consecutive words (no bank conflicts), as K1 does
+// along its last axis. Row offsets are 64-bit. A float64 instance
+// (pypwt_dwt1d_f64, pypwt_ana_lanes_f64) doubles the bytes: its window of
+// 2 (TC + 20) samples takes 16.6 KB of shared memory, under the 48 KB a
+// block has without opting in.
 
 #include "common.cuh"
 
@@ -37,10 +49,12 @@ namespace {
 constexpr int TC = 1024;  // outputs per block
 constexpr int kWinHalf = TC + kHalfTaps;  // window samples of one parity
 
-template <class T>
+// Lanes: Wrapped (K3), or the LaneHalo<T, 1> of the rows x (K29a).
+template <class T, class Lanes>
 __global__ void __launch_bounds__(kThreads)
 dwt1d_kernel(const T* __restrict__ x, T* __restrict__ a, T* __restrict__ d,
-             int n, int tiles, TapsT<T> taps, int hlen, long long row0) {
+             int n, int tiles, TapsT<T> taps, int hlen, long long row0,
+             Lanes lanes) {
   T* s_ev = dynamic_smem<T>();    // [kWinHalf] even window samples
   T* s_od = s_ev + kWinHalf;      // [kWinHalf] odd window samples
   T* f_lo = s_od + kWinHalf;      // reversed taps: f[j] = dec[hlen-1-j]
@@ -61,8 +75,15 @@ dwt1d_kernel(const T* __restrict__ x, T* __restrict__ a, T* __restrict__ d,
     for (int i = tid; i < wc; i += kThreads)
       (i & 1 ? s_od : s_ev)[i >> 1] = xr[col0 + i];
   } else {
-    for (int i = tid; i < wc; i += kThreads)
-      (i & 1 ? s_od : s_ev)[i >> 1] = xr[wrap_ext(col0 + i, n)];
+    for (int i = tid; i < wc; i += kThreads) {
+      T v;
+      if constexpr (Lanes::kHalo) {
+        v = lanes.at(0, xr, row, col0 + i, n);
+      } else {
+        v = xr[wrap_ext(col0 + i, n)];
+      }
+      (i & 1 ? s_od : s_ev)[i >> 1] = v;
+    }
   }
   __syncthreads();
 
@@ -84,12 +105,17 @@ dwt1d_kernel(const T* __restrict__ x, T* __restrict__ a, T* __restrict__ d,
   }
 }
 
-template <class T>
+template <class T, class Lanes = Wrapped>
 int launch(const T* x, T* a, T* d, int rows, int n, const T* dec_lo,
-           const T* dec_hi, int hlen, int device, void* stream) {
+           const T* dec_hi, int hlen, int device, void* stream,
+           Lanes lanes = Lanes{}) {
   const int tiles = ((n + 1) / 2 + TC - 1) / TC;
   if (hlen < 1 || hlen > kMaxTaps || n < 1 || n > 0x3fffffff || rows < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (Lanes::kHalo) {
+    if (n % 2 || !analysis_halos_ok(hlen, lanes.lp, lanes.rp))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   TapsT<T> taps;
@@ -98,9 +124,9 @@ int launch(const T* x, T* a, T* d, int rows, int n, const T* dec_lo,
   const long long chunk = 0x7fffffffLL / tiles;  // rows per launch
   for (long long r0 = 0; r0 < rows; r0 += chunk) {
     const long long nrows = std::min<long long>(rows - r0, chunk);
-    dwt1d_kernel<T><<<static_cast<unsigned>(nrows * tiles), kThreads,
-                      smem, static_cast<cudaStream_t>(stream)>>>(
-        x, a, d, n, tiles, taps, hlen, r0);
+    dwt1d_kernel<T, Lanes><<<static_cast<unsigned>(nrows * tiles), kThreads,
+                             smem, static_cast<cudaStream_t>(stream)>>>(
+        x, a, d, n, tiles, taps, hlen, r0, lanes);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -124,4 +150,28 @@ extern "C" int pypwt_dwt1d_f64(const double* x, double* a, double* d,
                                void* stream) {
   return pypwt::launch(x, a, d, rows, n, dec_lo, dec_hi, hlen, device,
                        stream);
+}
+
+// K29a: the level of rows x of (rows, n), n even, their samples before and
+// after from left (rows, lp) and right (rows, rp), lp and rp the analysis
+// pads of hlen; a, d of (rows, n/2).
+extern "C" int pypwt_ana_lanes(const float* x, const float* left,
+                               const float* right, float* a, float* d,
+                               int rows, int n, int lp, int rp,
+                               const float* dec_lo, const float* dec_hi,
+                               int hlen, int device, void* stream) {
+  const float* halos[2] = {left, right};
+  return pypwt::launch(x, a, d, rows, n, dec_lo, dec_hi, hlen, device, stream,
+                       pypwt::make_lane_halo<float, 1>(halos, lp, rp));
+}
+
+extern "C" int pypwt_ana_lanes_f64(const double* x, const double* left,
+                                   const double* right, double* a,
+                                   double* d, int rows, int n, int lp,
+                                   int rp, const double* dec_lo,
+                                   const double* dec_hi, int hlen,
+                                   int device, void* stream) {
+  const double* halos[2] = {left, right};
+  return pypwt::launch(x, a, d, rows, n, dec_lo, dec_hi, hlen, device, stream,
+                       pypwt::make_lane_halo<double, 1>(halos, lp, rp));
 }

@@ -1,12 +1,20 @@
 // K7a / K7b: one periodized batched-1D DWT level, analysis (K7a) and
-// polyphase synthesis (K7b), float32, as banded products on the tensor cores.
+// polyphase synthesis (K7b), float32, as banded products on the tensor cores;
+// and K29e / K29f, the same levels of one segment of longer rows.
 //
 // K7a replaces the TPU kernel pypwt_tpu/ops/mxu_dwt.py::dwt1d_fused_mxu
 // (_build_dwt1d_mxu, call :421), K7b ::idwt1d_fused_mxu (_build_idwt1d_mxu,
 // :477): both run the last-axis pass as banded MXU dots D @ x. One signal is
 // a (1, n) row, which also computes the map of the folded long-signal
 // kernels ::dwt1d_long_fused_mxu / ::idwt1d_long_fused_mxu (K15, :929 and
-// :993), whose fold only fixed the TPU's lane layout.
+// :993), whose fold only fixed the TPU's lane layout. K29e
+// (pypwt_tc_ana_lanes) replaces ::build_ana_padded_lanes_mxu (:713) and
+// K29f (pypwt_tc_syn_lanes) ::build_syn_padded_lanes_mxu (:821), the
+// lane-axis passes of the grid and sequence layouts of
+// pypwt_tpu/parallel/spatial.py in mode "mxu": the same kernels with the
+// LaneHalo sample source (common.cuh), the samples before and after the
+// shard read from the exchanged halos where they lie (window samples past
+// both halos stage as zero, as past the window's extent).
 //
 // Maps (the port's plain versions in ops/mxu_dwt.py), rows (R, n) with n
 // even and an even hlen of 4..40 (JAX's coverage; the router sends every
@@ -173,11 +181,12 @@ struct AnaGeom {
   }
 };
 
-template <class P, int kSteps>
+// Lanes: Wrapped (K7a), or the LaneHalo<float, 1> of the rows x (K29e).
+template <class P, int kSteps, class Lanes>
 __global__ void __launch_bounds__(kThreads)
 tc_dwt1d_kernel(const float* __restrict__ x, float* __restrict__ lo,
                 float* __restrict__ hi, Lines ln, Taps taps, int hlen,
-                long long block0) {
+                long long block0, Lanes lanes) {
   using G = AnaGeom<P, kSteps>;
   unsigned char* smem = dynamic_smem<unsigned char>();
   const LineInfo li = line_info(smem, ln.lpb);
@@ -190,16 +199,23 @@ tc_dwt1d_kernel(const float* __restrict__ x, float* __restrict__ lo,
   load_reversed_taps(taps, hlen, f_lo, f_hi);
   __syncthreads();
 
-  // Window sample u of line l is x[(2 o0 - lpad + u) mod n], zero from the
-  // window's extent 2 cnt + hlen - 2 on.
+  // Window sample u of line l is x[(2 o0 - lpad + u) mod n] (K29e: sample
+  // 2 o0 - lpad + u of the extended axis), zero from the window's extent
+  // 2 cnt + hlen - 2 on.
   const int wl = G::window(ln.cpl);
   const int lpad = analysis_lpad(hlen);
   stage_lines<8>(
       ln.lpb, wl,
       [&](int l, int u) {
-        return li.cnt[l] > 0 && u < 2 * li.cnt[l] + hlen - 2
-                   ? __ldg(x + li.in[l] + wrap(2 * li.o0[l] - lpad + u, ln.n))
-                   : 0.f;
+        if (li.cnt[l] <= 0 || u >= 2 * li.cnt[l] + hlen - 2) return 0.f;
+        const int k = 2 * li.o0[l] - lpad + u;
+        if constexpr (Lanes::kHalo) {
+          if (static_cast<unsigned>(k) < static_cast<unsigned>(ln.n))
+            return __ldg(x + li.in[l] + k);
+          return lanes.at(0, x + li.in[l], li.in[l] / ln.n, k, ln.n);
+        } else {
+          return __ldg(x + li.in[l] + wrap(k, ln.n));
+        }
       },
       [&](int l, int u, float v) { s_w[l * ln.ldl + G::phys(u)] = v; });
   __syncthreads();
@@ -264,11 +280,12 @@ struct Pair {
   float lo, hi;
 };
 
-template <class P, int kSteps>
+// Lanes: Wrapped (K7b), or the LaneHalo<float, 2> of the rows a, d (K29f).
+template <class P, int kSteps, class Lanes>
 __global__ void __launch_bounds__(kThreads)
 tc_idwt1d_kernel(const float* __restrict__ a, const float* __restrict__ d,
                  float* __restrict__ out, Lines ln, Taps taps, int hlen,
-                 long long block0) {
+                 long long block0, Lanes lanes) {
   using G = SynGeom<P, kSteps>;
   unsigned char* smem = dynamic_smem<unsigned char>();
   const LineInfo li = line_info(smem, ln.lpb);
@@ -283,18 +300,30 @@ tc_idwt1d_kernel(const float* __restrict__ a, const float* __restrict__ d,
   load_polyphase_taps(taps, hlen, g_lo, g_hi);
   __syncthreads();
 
-  // Window sample u of line l is coefficient (o0 / 2 - c + u) mod L, zero
-  // from the window's extent cnt / 2 + h2 on.
+  // Window sample u of line l is coefficient (o0 / 2 - c + u) mod L (K29f:
+  // coefficient o0 / 2 - c + u of the extended axis), zero from the window's
+  // extent cnt / 2 + h2 on.
   const int wl = G::window(ln.cpl);
   stage_lines<4>(
       ln.lpb, wl,
       [&](int l, int u) {
         Pair v{0.f, 0.f};
         if (li.cnt[l] > 0 && u < li.cnt[l] / 2 + ph.h2) {
-          const long long k =
-              li.in[l] + wrap(li.o0[l] / 2 - ph.c + u, ln.n);
-          v.lo = __ldg(a + k);
-          v.hi = __ldg(d + k);
+          const int q = li.o0[l] / 2 - ph.c + u;
+          if constexpr (Lanes::kHalo) {
+            if (static_cast<unsigned>(q) < static_cast<unsigned>(ln.n)) {
+              v.lo = __ldg(a + li.in[l] + q);
+              v.hi = __ldg(d + li.in[l] + q);
+            } else {
+              const long long row = li.in[l] / ln.n;
+              v.lo = lanes.at(0, a + li.in[l], row, q, ln.n);
+              v.hi = lanes.at(1, d + li.in[l], row, q, ln.n);
+            }
+          } else {
+            const long long k = li.in[l] + wrap(q, ln.n);
+            v.lo = __ldg(a + k);
+            v.hi = __ldg(d + k);
+          }
         }
         return v;
       },
@@ -343,10 +372,12 @@ tc_idwt1d_kernel(const float* __restrict__ a, const float* __restrict__ d,
   }
 }
 
+template <class Lanes>
 using DwtKernel = void (*)(const float*, float*, float*, Lines, Taps, int,
-                           long long);
+                           long long, Lanes);
+template <class Lanes>
 using IdwtKernel = void (*)(const float*, const float*, float*, Lines, Taps,
-                            int, long long);
+                            int, long long, Lanes);
 
 // A kernel instance, its per-line shared floats and its shared memory.
 template <class Kernel>
@@ -356,48 +387,52 @@ struct Picked {
   size_t (*smem)(const Lines&);
 };
 
-template <class P, int S>
-Picked<DwtKernel> dwt_instance() {
-  return {tc_dwt1d_kernel<P, S>, AnaGeom<P, S>::ldl, AnaGeom<P, S>::smem};
+template <class P, int S, class Lanes>
+Picked<DwtKernel<Lanes>> dwt_instance() {
+  return {tc_dwt1d_kernel<P, S, Lanes>, AnaGeom<P, S>::ldl,
+          AnaGeom<P, S>::smem};
 }
 
-template <class P, int S>
-Picked<IdwtKernel> idwt_instance() {
-  return {tc_idwt1d_kernel<P, S>, SynGeom<P, S>::ldl, SynGeom<P, S>::smem};
+template <class P, int S, class Lanes>
+Picked<IdwtKernel<Lanes>> idwt_instance() {
+  return {tc_idwt1d_kernel<P, S, Lanes>, SynGeom<P, S>::ldl,
+          SynGeom<P, S>::smem};
 }
 
 // kSteps = ceil((14 + hlen) / kK): 3..7 (TF32), 2..4 (BF16) for hlen 4..40.
-Picked<DwtKernel> pick_dwt(bool bf16, int hlen) {
+template <class Lanes>
+Picked<DwtKernel<Lanes>> pick_dwt(bool bf16, int hlen) {
   if (bf16) {
     switch ((14 + hlen + 15) / 16) {
-      case 2: return dwt_instance<mma::Bf16, 2>();
-      case 3: return dwt_instance<mma::Bf16, 3>();
-      case 4: return dwt_instance<mma::Bf16, 4>();
+      case 2: return dwt_instance<mma::Bf16, 2, Lanes>();
+      case 3: return dwt_instance<mma::Bf16, 3, Lanes>();
+      case 4: return dwt_instance<mma::Bf16, 4, Lanes>();
     }
   } else {
     switch ((14 + hlen + 7) / 8) {
-      case 3: return dwt_instance<mma::Tf32, 3>();
-      case 4: return dwt_instance<mma::Tf32, 4>();
-      case 5: return dwt_instance<mma::Tf32, 5>();
-      case 6: return dwt_instance<mma::Tf32, 6>();
-      case 7: return dwt_instance<mma::Tf32, 7>();
+      case 3: return dwt_instance<mma::Tf32, 3, Lanes>();
+      case 4: return dwt_instance<mma::Tf32, 4, Lanes>();
+      case 5: return dwt_instance<mma::Tf32, 5, Lanes>();
+      case 6: return dwt_instance<mma::Tf32, 6, Lanes>();
+      case 7: return dwt_instance<mma::Tf32, 7, Lanes>();
     }
   }
   return {nullptr, nullptr, nullptr};
 }
 
 // kSteps = ceil((hlen/2 + 4) / kK): 1..3 (TF32), 1..2 (BF16).
-Picked<IdwtKernel> pick_idwt(bool bf16, int hlen) {
+template <class Lanes>
+Picked<IdwtKernel<Lanes>> pick_idwt(bool bf16, int hlen) {
   if (bf16) {
     switch ((hlen / 2 + 4 + 15) / 16) {
-      case 1: return idwt_instance<mma::Bf16, 1>();
-      case 2: return idwt_instance<mma::Bf16, 2>();
+      case 1: return idwt_instance<mma::Bf16, 1, Lanes>();
+      case 2: return idwt_instance<mma::Bf16, 2, Lanes>();
     }
   } else {
     switch ((hlen / 2 + 4 + 7) / 8) {
-      case 1: return idwt_instance<mma::Tf32, 1>();
-      case 2: return idwt_instance<mma::Tf32, 2>();
-      case 3: return idwt_instance<mma::Tf32, 3>();
+      case 1: return idwt_instance<mma::Tf32, 1, Lanes>();
+      case 2: return idwt_instance<mma::Tf32, 2, Lanes>();
+      case 3: return idwt_instance<mma::Tf32, 3, Lanes>();
     }
   }
   return {nullptr, nullptr, nullptr};
@@ -425,29 +460,64 @@ int launch_lines(const Picked<Kernel>& inst, long long rows, int outs, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K7a / K29e: lo, hi of (rows, n/2) from x of (rows, n), n even.
+template <class Lanes>
+int launch_dwt(const float* x, float* lo, float* hi, int rows, int n,
+               const float* dec_lo, const float* dec_hi, int hlen, int bf16,
+               int device, void* stream, Lanes lanes) {
+  if (hlen < 4 || hlen > kMaxTaps || hlen % 2 || rows < 1 || n < 2 ||
+      n % 2 || n > 0x3fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (Lanes::kHalo) {
+    if (!analysis_halos_ok(hlen, lanes.lp, lanes.rp))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Taps taps = make_taps(dec_lo, dec_hi, hlen);
+  const auto inst = pick_dwt<Lanes>(bf16 != 0, hlen);
+  return launch_lines(inst, rows, n / 2, n, device,
+                      [&](unsigned grid, size_t smem, const Lines& ln,
+                          long long b0) {
+                        inst.kernel<<<grid, kThreads, smem,
+                                      static_cast<cudaStream_t>(stream)>>>(
+                            x, lo, hi, ln, taps, hlen, b0, lanes);
+                      });
+}
+
+// K7b / K29f: out of (rows, 2 len) from lo, hi of (rows, len).
+template <class Lanes>
+int launch_idwt(const float* a, const float* d, float* out, int rows,
+                int len, const float* rec_lo, const float* rec_hi, int hlen,
+                int bf16, int device, void* stream, Lanes lanes) {
+  if (hlen < 4 || hlen > kMaxTaps || hlen % 2 || rows < 1 || len < 1 ||
+      len > 0x1fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (Lanes::kHalo) {
+    if (!synthesis_halos_ok(hlen, lanes.lp, lanes.rp))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Taps taps = make_taps(rec_lo, rec_hi, hlen);
+  const auto inst = pick_idwt<Lanes>(bf16 != 0, hlen);
+  return launch_lines(inst, rows, 2 * len, len, device,
+                      [&](unsigned grid, size_t smem, const Lines& ln,
+                          long long b0) {
+                        inst.kernel<<<grid, kThreads, smem,
+                                      static_cast<cudaStream_t>(stream)>>>(
+                            a, d, out, ln, taps, hlen, b0, lanes);
+                      });
+}
+
 }  // namespace
 }  // namespace pypwt
 
-// Both return a cudaError_t; they launch on `stream`, do not synchronise
+// All return a cudaError_t; they launch on `stream`, do not synchronise
 // and allocate nothing. The filters are host arrays of hlen floats; bf16 is
 // 1 for the "bf16" precision, 0 for "highest" (3xTF32).
 // K7a: lo, hi of (rows, n/2) from x of (rows, n), n even.
 extern "C" int pypwt_tc_dwt1d(const float* x, float* lo, float* hi, int rows,
                               int n, const float* dec_lo, const float* dec_hi,
                               int hlen, int bf16, int device, void* stream) {
-  using namespace pypwt;
-  if (hlen < 4 || hlen > kMaxTaps || hlen % 2 || rows < 1 || n < 2 ||
-      n % 2 || n > 0x3fffffff)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Taps taps = make_taps(dec_lo, dec_hi, hlen);
-  const auto inst = pick_dwt(bf16 != 0, hlen);
-  return launch_lines(inst, rows, n / 2, n, device,
-                      [&](unsigned grid, size_t smem, const Lines& ln,
-                          long long b0) {
-                        inst.kernel<<<grid, kThreads, smem,
-                                      static_cast<cudaStream_t>(stream)>>>(
-                            x, lo, hi, ln, taps, hlen, b0);
-                      });
+  return pypwt::launch_dwt(x, lo, hi, rows, n, dec_lo, dec_hi, hlen, bf16,
+                           device, stream, pypwt::Wrapped{});
 }
 
 // K7b: out of (rows, 2 len) from lo, hi of (rows, len).
@@ -455,17 +525,34 @@ extern "C" int pypwt_tc_idwt1d(const float* a, const float* d, float* out,
                                int rows, int len, const float* rec_lo,
                                const float* rec_hi, int hlen, int bf16,
                                int device, void* stream) {
-  using namespace pypwt;
-  if (hlen < 4 || hlen > kMaxTaps || hlen % 2 || rows < 1 || len < 1 ||
-      len > 0x1fffffff)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Taps taps = make_taps(rec_lo, rec_hi, hlen);
-  const auto inst = pick_idwt(bf16 != 0, hlen);
-  return launch_lines(inst, rows, 2 * len, len, device,
-                      [&](unsigned grid, size_t smem, const Lines& ln,
-                          long long b0) {
-                        inst.kernel<<<grid, kThreads, smem,
-                                      static_cast<cudaStream_t>(stream)>>>(
-                            a, d, out, ln, taps, hlen, b0);
-                      });
+  return pypwt::launch_idwt(a, d, out, rows, len, rec_lo, rec_hi, hlen, bf16,
+                            device, stream, pypwt::Wrapped{});
+}
+
+// K29e: K7a's level of rows x of (rows, n), their samples before and after
+// from left (rows, lp) and right (rows, rp), lp and rp the analysis pads.
+extern "C" int pypwt_tc_ana_lanes(const float* x, const float* left,
+                                  const float* right, float* lo, float* hi,
+                                  int rows, int n, int lp, int rp,
+                                  const float* dec_lo, const float* dec_hi,
+                                  int hlen, int bf16, int device,
+                                  void* stream) {
+  const float* halos[2] = {left, right};
+  return pypwt::launch_dwt(x, lo, hi, rows, n, dec_lo, dec_hi, hlen, bf16,
+                           device, stream,
+                           pypwt::make_lane_halo<float, 1>(halos, lp, rp));
+}
+
+// K29f: K7b's level of the rows a, d of (rows, len), halos their four halo
+// rows (a_left, a_right, d_left, d_right) of widths lp and rp, the synthesis
+// pads; out of (rows, 2 len).
+extern "C" int pypwt_tc_syn_lanes(const float* a, const float* d,
+                                  const float* const* halos, float* out,
+                                  int rows, int len, int lp, int rp,
+                                  const float* rec_lo, const float* rec_hi,
+                                  int hlen, int bf16, int device,
+                                  void* stream) {
+  return pypwt::launch_idwt(a, d, out, rows, len, rec_lo, rec_hi, hlen, bf16,
+                            device, stream,
+                            pypwt::make_lane_halo<float, 2>(halos, lp, rp));
 }

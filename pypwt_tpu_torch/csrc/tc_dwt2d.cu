@@ -1,6 +1,7 @@
 // K5 / K6: one periodized separable 2D DWT level, analysis (K5) and
 // polyphase synthesis (K6), float32, as banded products on the tensor cores;
-// and the DWT half of K28, the same levels of one row shard.
+// the DWT half of K28, the same levels of one row shard; and K29g / K29h,
+// their axis -2 pass taken alone on one shard of a grid.
 //
 // K5 replaces the TPU kernel pypwt_tpu/ops/mxu_dwt.py::dwt2d_fused_mxu
 // (_build_dwt2d_mxu, call :251), K6 ::idwt2d_fused_mxu (_build_idwt2d_mxu,
@@ -9,7 +10,14 @@
 // ::build_dwt2d_sharded_mxu (:571) and ::build_idwt2d_sharded_mxu (:651):
 // the same kernels with the Halo row source (common.cuh), the window rows
 // above and below the shard read from its neighbours' exchanged rows where
-// they lie (no padded copy), the columns periodic as before.
+// they lie (no padded copy), the columns periodic as before. K29g
+// (pypwt_tc_ana_rows) replaces ::build_ana_padded_rows_mxu (:763) and K29h
+// (pypwt_tc_syn_rows) ::build_syn_padded_rows_mxu (:873), the row passes of
+// the grid layout of pypwt_tpu/parallel/spatial.py in mode "mxu": pass 1 of
+// K5 / K6 alone, on the Halo rows, its result stored straight to device
+// memory: K29g lo, hi of (nr/2, nc) from a shard (nr, nc); K29h (2L, nc)
+// from a, d of (L, nc) (conv.analysis_core / synthesis_core along axis -2
+// on the halo-extended rows; the bytes of K29c / K29d).
 //
 // Maps (the port's plain versions in ops/mxu_dwt.py), for planes
 // (B?, Nr, Nc) with Nr and Nc even and an even hlen of 4..40 (JAX's
@@ -292,6 +300,217 @@ tc_idwt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
   }
 }
 
+// K29g / K29h's tile: kTile output rows (K29h: coefficient rows) by kCols
+// columns, the columns the A fragments' rows.
+constexpr int kCols = 64;
+
+// K29g's geometry: kSteps k-steps of kK window rows cover an 8-output tile.
+template <class P, int kSteps>
+struct AnaRowsGeom {
+  static constexpr int kSpan = kSteps * P::kK;
+  static constexpr int kWin = 2 * kTile - 16 + kSpan;  // window rows read
+  static constexpr int kLdW = mma::lead_dim<P>(kCols, true);
+  static constexpr size_t kSmem =
+      sizeof(float) * (kWin * kLdW + 2 * kMaxTaps);
+};
+
+template <class P, int kSteps>
+__global__ void __launch_bounds__(kThreads)
+tc_ana_rows_kernel(const float* __restrict__ x, float* __restrict__ lo,
+                   float* __restrict__ hi, int nr, int nc, Taps taps,
+                   int hlen, int y0, Halo<float, 1> rows) {
+  using G = AnaRowsGeom<P, kSteps>;
+  extern __shared__ float smem[];
+  float* s_w = smem;                    // [kWin][kLdW] window rows
+  float* f_lo = s_w + G::kWin * G::kLdW;  // taps in window order
+  float* f_hi = f_lo + kMaxTaps;
+
+  const int warp = threadIdx.x >> 5;
+  const int len = nr >> 1;
+  const int r0 = (y0 + blockIdx.y) * kTile, c0 = blockIdx.x * kCols;
+  const int ext = 2 * kTile + hlen - 2;  // the window's extent
+  const int row0 = 2 * r0 - analysis_lpad(hlen);
+
+  load_reversed_taps(taps, hlen, f_lo, f_hi);
+  batched_copy<G::kWin * kCols, 8>(
+      [&](int i) {
+        const int r = i / kCols, c = i - r * kCols;
+        if (r >= ext || c0 + c >= nc) return 0.f;
+        const float* src = rows.row(0, x, row0 + r, nr, nc);
+        return src ? src[c0 + c] : 0.f;
+      },
+      [&](int i, float v) {
+        const int r = i / kCols;
+        s_w[r * G::kLdW + i - r * kCols] = v;
+      });
+  __syncthreads();
+
+  typename P::B b_lo[kSteps], b_hi[kSteps];
+  mma::band_fragments<P>(
+      b_lo, [&](int k, int n) { return band(f_lo, k - 2 * n, hlen); });
+  mma::band_fragments<P>(
+      b_hi, [&](int k, int n) { return band(f_hi, k - 2 * n, hlen); });
+
+  // (columns x window rows) x band: output rows n0.. of columns m0..
+  constexpr int kN = kTile / 8;
+  for (int task = warp; task < kCols / 16 * kN; task += kWarps) {
+    const int m0 = task / kN * 16, n0 = task % kN * 8;
+    float clo[4] = {0.f, 0.f, 0.f, 0.f}, chi[4] = {0.f, 0.f, 0.f, 0.f};
+    const float* w = s_w + 2 * n0 * G::kLdW + m0;
+    mma::band_product<P>(
+        clo, chi, [&](int k, int m) { return w[k * G::kLdW + m]; }, b_lo,
+        b_hi);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int orow = r0 + n0 + mma::c_col(i);
+      const int ocol = c0 + m0 + mma::c_row(i);
+      if (orow < len && ocol < nc) {
+        const long long o = static_cast<long long>(orow) * nc + ocol;
+        lo[o] = clo[i];
+        hi[o] = chi[i];
+      }
+    }
+  }
+}
+
+// K29h's geometry: an 8-output tile reads 4 coefficient rows and the h2
+// taps of their phases, h2 + 4 rows, in kSteps k-steps.
+template <class P, int kSteps>
+struct SynRowsGeom {
+  static constexpr int kSpan = kSteps * P::kK;
+  static constexpr int kWin = kTile - 4 + kSpan;  // coefficient rows read
+  static constexpr int kLdW = mma::lead_dim<P>(kCols, true);
+  static constexpr size_t kSmem =
+      sizeof(float) * (2 * kWin * kLdW + 4 * kHalfTaps);
+};
+
+// One coefficient of each of the two planes.
+struct Duo {
+  float v[2];
+};
+
+template <class P, int kSteps>
+__global__ void __launch_bounds__(kThreads)
+tc_syn_rows_kernel(const float* __restrict__ a, const float* __restrict__ d,
+                   float* __restrict__ out, int len, int nc, Taps taps,
+                   int hlen, int y0, Halo<float, 2> rows) {
+  using G = SynRowsGeom<P, kSteps>;
+  constexpr int kPlane = G::kWin * G::kLdW;
+  extern __shared__ float smem[];
+  float* s_in = smem;                // a, d windows, [kWin][kLdW] each
+  float* g_lo = s_in + 2 * kPlane;   // [2][kHalfTaps] taps per parity
+  float* g_hi = g_lo + 2 * kHalfTaps;
+
+  const Polyphase ph(hlen);
+  const int warp = threadIdx.x >> 5;
+  const int q0 = (y0 + blockIdx.y) * kTile, c0 = blockIdx.x * kCols;
+  const int ext = kTile + ph.h2;  // the window's extent
+  const float* planes[2] = {a, d};
+
+  load_polyphase_taps(taps, hlen, g_lo, g_hi);
+  // window origin: coefficient row q0 - c
+  batched_copy<G::kWin * kCols, 4>(
+      [&](int i) {
+        const int r = i / kCols, c = i - r * kCols;
+        Duo q{{0.f, 0.f}};
+        if (r < ext && c0 + c < nc) {
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            const float* src = rows.row(p, planes[p], q0 - ph.c + r, len, nc);
+            q.v[p] = src ? src[c0 + c] : 0.f;
+          }
+        }
+        return q;
+      },
+      [&](int i, const Duo& q) {
+        const int r = i / kCols, c = i - r * kCols;
+        s_in[r * G::kLdW + c] = q.v[0];
+        s_in[kPlane + r * G::kLdW + c] = q.v[1];
+      });
+  __syncthreads();
+
+  // Output n of an 8-output tile: coefficient n / 2 of the tile, phase
+  // n & 1, which reads window row n / 2 + delta + j with tap g_p[j].
+  typename P::B b_lo[kSteps], b_hi[kSteps];
+  mma::band_fragments<P>(b_lo, [&](int k, int n) {
+    return band(g_lo + (n & 1) * kHalfTaps, k - (n >> 1) - ph.delta(n & 1),
+                ph.h2);
+  });
+  mma::band_fragments<P>(b_hi, [&](int k, int n) {
+    return band(g_hi + (n & 1) * kHalfTaps, k - (n >> 1) - ph.delta(n & 1),
+                ph.h2);
+  });
+
+  constexpr int kN = 2 * kTile / 8;
+  for (int task = warp; task < kCols / 16 * kN; task += kWarps) {
+    const int m0 = task / kN * 16, n0 = task % kN * 8;
+    const float* lo = s_in + (n0 >> 1) * G::kLdW + m0;
+    const float* hi = lo + kPlane;
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    mma::band_product_pair<P>(
+        c, [&](int k, int m) { return lo[k * G::kLdW + m]; },
+        [&](int k, int m) { return hi[k * G::kLdW + m]; }, b_lo, b_hi);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int orow = 2 * q0 + n0 + mma::c_col(i);
+      const int ocol = c0 + m0 + mma::c_row(i);
+      if (orow < 2 * len && ocol < nc)
+        out[static_cast<long long>(orow) * nc + ocol] = c[i];
+    }
+  }
+}
+
+using AnaRowsKernel = void (*)(const float*, float*, float*, int, int, Taps,
+                               int, int, Halo<float, 1>);
+using SynRowsKernel = void (*)(const float*, const float*, float*, int, int,
+                               Taps, int, int, Halo<float, 2>);
+
+template <class P, int S>
+Instance<AnaRowsKernel> ana_rows_instance() {
+  return {tc_ana_rows_kernel<P, S>, AnaRowsGeom<P, S>::kSmem};
+}
+
+template <class P, int S>
+Instance<SynRowsKernel> syn_rows_instance() {
+  return {tc_syn_rows_kernel<P, S>, SynRowsGeom<P, S>::kSmem};
+}
+
+// kSteps as pick_dwt / pick_idwt below.
+Instance<AnaRowsKernel> pick_ana_rows(bool bf16, int hlen) {
+  if (bf16) {
+    switch ((14 + hlen + 15) / 16) {
+      case 2: return ana_rows_instance<mma::Bf16, 2>();
+      case 3: return ana_rows_instance<mma::Bf16, 3>();
+      case 4: return ana_rows_instance<mma::Bf16, 4>();
+    }
+  } else {
+    switch ((14 + hlen + 7) / 8) {
+      case 3: return ana_rows_instance<mma::Tf32, 3>();
+      case 4: return ana_rows_instance<mma::Tf32, 4>();
+      case 5: return ana_rows_instance<mma::Tf32, 5>();
+      case 6: return ana_rows_instance<mma::Tf32, 6>();
+      case 7: return ana_rows_instance<mma::Tf32, 7>();
+    }
+  }
+  return {nullptr, 0};
+}
+
+Instance<SynRowsKernel> pick_syn_rows(bool bf16, int hlen) {
+  if (bf16) {
+    switch ((hlen / 2 + 4 + 15) / 16) {
+      case 1: return syn_rows_instance<mma::Bf16, 1>();
+      case 2: return syn_rows_instance<mma::Bf16, 2>();
+    }
+  } else {
+    switch ((hlen / 2 + 4 + 7) / 8) {
+      case 1: return syn_rows_instance<mma::Tf32, 1>();
+      case 2: return syn_rows_instance<mma::Tf32, 2>();
+      case 3: return syn_rows_instance<mma::Tf32, 3>();
+    }
+  }
+  return {nullptr, 0};
+}
+
 template <class Rows>
 using DwtKernel = void (*)(const float*, float*, float*, float*, float*, int,
                            int, Taps, int, int, Rows);
@@ -486,6 +705,68 @@ extern "C" int pypwt_tc_idwt2d_sharded(const float* a, const float* h,
                                 static_cast<cudaStream_t>(stream)>>>(
                       a + pi, h + pi, v + pi, d + pi, out + po, lr, lc, taps,
                       hlen, y0, halo.plane(z0, lc));
+                });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K29g: lo, hi of (nr/2, nc) from the shard x of (nr, nc), nr even, its
+// rows above from top (lp, nc) and below from bot (rp, nc), lp and rp the
+// analysis pads of hlen.
+extern "C" int pypwt_tc_ana_rows(const float* x, const float* top,
+                                 const float* bot, float* lo, float* hi,
+                                 int nr, int nc, int lp, int rp,
+                                 const float* dec_lo, const float* dec_hi,
+                                 int hlen, int bf16, int device,
+                                 void* stream) {
+  using namespace pypwt;
+  if (!level_ok(1, nr, 2, hlen) || nc < 1 || nc > 0x3fffffff ||
+      !analysis_halos_ok(hlen, lp, rp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto inst = pick_ana_rows(bf16 != 0, hlen);
+  cudaError_t err = prepare(inst, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Taps taps = make_taps(dec_lo, dec_hi, hlen);
+  const Halo<float, 1> halo = make_halo(top, bot, lp, rp);
+  launch_chunks((nc + kCols - 1) / kCols, (nr / 2 + kTile - 1) / kTile, 1,
+                [&](dim3 grid, int y0, int) {
+                  inst.kernel<<<grid, kThreads, inst.smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+                      x, lo, hi, nr, nc, taps, hlen, y0, halo);
+                });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K29h: out of (2 len, nc) from a, d of (len, nc), halos their four halo
+// tensors (a_top, a_bot, d_top, d_bot), tops of (lp, nc) and bottoms of
+// (rp, nc), lp and rp the synthesis pads of hlen.
+extern "C" int pypwt_tc_syn_rows(const float* a, const float* d,
+                                 const float* const* halos, float* out,
+                                 int len, int nc, int lp, int rp,
+                                 const float* rec_lo, const float* rec_hi,
+                                 int hlen, int bf16, int device,
+                                 void* stream) {
+  using namespace pypwt;
+  if (len > 0x1fffffff || !level_ok(1, 2 * len, 2, hlen) || nc < 1 ||
+      nc > 0x3fffffff || !synthesis_halos_ok(hlen, lp, rp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto inst = pick_syn_rows(bf16 != 0, hlen);
+  cudaError_t err = prepare(inst, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Taps taps = make_taps(rec_lo, rec_hi, hlen);
+  const float* tops[2] = {halos[0], halos[2]};
+  const float* bots[2] = {halos[1], halos[3]};
+  Halo<float, 2> halo;
+  for (int p = 0; p < 2; ++p) {
+    halo.top[p] = tops[p];
+    halo.bot[p] = bots[p];
+  }
+  halo.lp = lp;
+  halo.rp = rp;
+  launch_chunks((nc + kCols - 1) / kCols, (len + kTile - 1) / kTile, 1,
+                [&](dim3 grid, int y0, int) {
+                  inst.kernel<<<grid, kThreads, inst.smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+                      a, d, out, len, nc, taps, hlen, y0, halo);
                 });
   return static_cast<int>(cudaGetLastError());
 }

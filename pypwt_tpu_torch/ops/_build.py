@@ -125,6 +125,26 @@ _SIGNATURES = {
     "pypwt_tc_idwt2d_sharded": [_P] * 6 + [_I] * 5 + [_P, _P, _I, _I, _I, _P],
     "pypwt_tc_swt2d_sharded": [_P] * 7 + [_I] * 7 + [_P, _P, _I, _I, _I, _P],
     "pypwt_tc_iswt2d_sharded": [_P] * 6 + [_I] * 7 + [_P, _P, _I, _I, _I, _P],
+    # the one-axis passes of the grid and sequence layouts (K29); halos:
+    # host array of the four halo pointers (lo_before, lo_after, hi_before,
+    # hi_after)
+    # x, left, right, a, d, rows, n, lp, rp, dec_lo, dec_hi, hlen, device,
+    # stream
+    "pypwt_ana_lanes": [_P] * 5 + [_I] * 4 + [_P, _P, _I, _I, _P],
+    # a, d, halos, out, rows, len, lp, rp, rec_lo, rec_hi, hlen, device,
+    # stream
+    "pypwt_syn_lanes": [_P] * 4 + [_I] * 4 + [_P, _P, _I, _I, _P],
+    # x, top, bot, lo, hi, nr, nc, lp, rp, dec_lo, dec_hi, hlen, device,
+    # stream
+    "pypwt_ana_rows": [_P] * 5 + [_I] * 4 + [_P, _P, _I, _I, _P],
+    # a, d, halos, out, len, nc, lp, rp, rec_lo, rec_hi, hlen, device,
+    # stream
+    "pypwt_syn_rows": [_P] * 4 + [_I] * 4 + [_P, _P, _I, _I, _P],
+    # the same with bf16 before device (K29e-K29h)
+    "pypwt_tc_ana_lanes": [_P] * 5 + [_I] * 4 + [_P, _P, _I, _I, _I, _P],
+    "pypwt_tc_syn_lanes": [_P] * 4 + [_I] * 4 + [_P, _P, _I, _I, _I, _P],
+    "pypwt_tc_ana_rows": [_P] * 5 + [_I] * 4 + [_P, _P, _I, _I, _I, _P],
+    "pypwt_tc_syn_rows": [_P] * 4 + [_I] * 4 + [_P, _P, _I, _I, _I, _P],
 }
 # The float64 instances of the tap-loop kernels take the same arguments,
 # with pointers to float64 data and taps (the non-separable ones: to the
@@ -134,7 +154,8 @@ for _name in ("pypwt_dwt2d", "pypwt_idwt2d", "pypwt_dwt1d", "pypwt_idwt1d",
               "pypwt_ns_dwt2d", "pypwt_ins_dwt2d", "pypwt_ns_swt2d",
               "pypwt_ins_swt2d", "pypwt_dwt2d_sharded",
               "pypwt_idwt2d_sharded", "pypwt_swt2d_sharded",
-              "pypwt_iswt2d_sharded"):
+              "pypwt_iswt2d_sharded", "pypwt_ana_lanes", "pypwt_syn_lanes",
+              "pypwt_ana_rows", "pypwt_syn_rows"):
     _SIGNATURES[_name + "_f64"] = _SIGNATURES[_name]
 
 _lib = None

@@ -22,7 +22,15 @@ Each kernel replaces a TPU kernel of ``pypwt_tpu/ops/pallas_dwt.py``:
   (``::build_dwt2d_sharded``, ``::build_idwt2d_sharded``); K27a
   ``swt2d_sharded_fused`` and K27b ``iswt2d_sharded_fused``
   (``csrc/swt2d.cu``), K8/K9's (``::build_swt2d_sharded``,
-  ``::build_iswt2d_sharded``); float32 and float64.
+  ``::build_iswt2d_sharded``); float32 and float64;
+* the one-axis passes of the grid and sequence layouts of
+  ``parallel.spatial``, each on one shard with its exchanged halos: K29a
+  ``ana_lanes_fused`` (``csrc/dwt1d.cu``) and K29b ``syn_lanes_fused``
+  (``csrc/idwt1d.cu``), K3/K4's levels along the last axis
+  (``::build_ana_padded_lanes``, ``::build_syn_padded_lanes``); K29c
+  ``ana_rows_fused`` and K29d ``syn_rows_fused`` (``csrc/axis_rows.cu``),
+  the same along axis -2 (``::build_ana_padded_rows``,
+  ``::build_syn_padded_rows``); float32 and float64.
 
 The non-separable stationary kernels K18a/K18b are in ``ops.nonsep``;
 ``ops.KERNELS`` lists all of them.  The 1D kernels take rows ``(R, n)`` or
@@ -644,9 +652,9 @@ def iswt2d_sharded_unsupported(a, h, v, d, halos, fb, level):
 
 
 def halo_array(halos):
-    """The eight halo pointers as a C array (kept alive by the caller
-    during the call)."""
-    return (ctypes.c_void_p * 8)(*(t.data_ptr() for t in halos))
+    """The halo pointers (eight of a 2D synthesis, four of a one-axis one)
+    as a C array (kept alive by the caller during the call)."""
+    return (ctypes.c_void_p * len(halos))(*(t.data_ptr() for t in halos))
 
 
 def dwt2d_sharded_fused(x, top, bot, fb):
@@ -743,11 +751,234 @@ def iswt2d_sharded_fused(a, h, v, d, halos, fb, level):
     iswt2d_sharded_fused.launches += 1
     return out
 
+# -- one-axis passes of a grid or signal shard: K29a-K29d -------------------
+#
+# One shard of a plane split over both axes (the grid layout) or of rows
+# split along their samples (the sequence layout: a signal ``(n,)``, or
+# JAX's leading batch ``(B, n)``), and one decimating pass along its last
+# axis (the lanes: K29a/K29b) or along axis -2 (the rows: K29c/K29d).  The
+# samples a filter reaches past the shard's edges come as halo tensors that
+# its ring neighbours sent, of exactly the pass's pads
+# (``conv.analysis_pads``; ``conv.synthesis_pads`` with n_out = 2L), where
+# JAX folded a long signal into per-row windows (``_fold_padded``) and
+# padded the shard; both were TPU layout choices.  An analysis takes the
+# halos (before, after); a synthesis JAX's 4-tuple (lo_before, lo_after,
+# hi_before, hi_after).  The ring itself stays periodic: a halo wraps.
+
+
+def _extend(before, x, after, axis):
+    """The shard with its halos before and after it along ``axis``."""
+    return torch.cat([before, x, after], dim=axis)
+
+
+def ana_lanes_plain(x, left, right, fb):
+    """K29a's map: ``conv.analysis_core`` on the halo-extended rows ->
+    (lo, hi), each (R?, n/2)."""
+    return conv.analysis_core(_extend(left, x, right, -1), fb.dec_lo,
+                              fb.dec_hi, x.shape[-1] // 2)
+
+
+def syn_lanes_plain(a, d, halos, fb):
+    """K29b's map: ``conv.synthesis_core`` on the halo-extended coefficient
+    rows -> (R?, 2L)."""
+    L = a.shape[-1]
+    lp = conv.synthesis_pads(fb.hlen, L, 2 * L)[0]
+    return conv.synthesis_core(_extend(halos[0], a, halos[1], -1),
+                               _extend(halos[2], d, halos[3], -1), fb.rec_lo,
+                               fb.rec_hi, 2 * L, L, lp)
+
+
+def ana_rows_plain(x, top, bot, fb):
+    """K29c's map: ``conv.analysis_core`` along axis -2 on the
+    halo-extended rows -> (lo, hi), each (nr/2, nc)."""
+    lo, hi = conv.analysis_core(_rows_last(_extend(top, x, bot, -2)),
+                                fb.dec_lo, fb.dec_hi, x.shape[-2] // 2)
+    return _rows_last(lo).contiguous(), _rows_last(hi).contiguous()
+
+
+def syn_rows_plain(a, d, halos, fb):
+    """K29d's map: ``conv.synthesis_core`` along axis -2 on the
+    halo-extended coefficient rows -> (2L, nc)."""
+    L = a.shape[-2]
+    lp = conv.synthesis_pads(fb.hlen, L, 2 * L)[0]
+    out = conv.synthesis_core(_rows_last(_extend(halos[0], a, halos[1], -2)),
+                              _rows_last(_extend(halos[2], d, halos[3], -2)),
+                              fb.rec_lo, fb.rec_hi, 2 * L, L, lp)
+    return _rows_last(out).contiguous()
+
+
+def one_axis_pads(kind, fb, n):
+    """(before, after) halo widths of a one-axis pass of ``kind`` ("ana",
+    "syn") on shards of ``n`` samples (coefficients for "syn") along the
+    pass's axis."""
+    if kind == "ana":
+        return conv.analysis_pads(fb.hlen)
+    return conv.synthesis_pads(fb.hlen, n, 2 * n)
+
+
+def lane_halos_unsupported(x, halos, widths):
+    """Why halo tensors ``halos`` (before, after, before, after, ... one
+    pair per plane) cannot go with the rows ``x``: each of (R?, width) of
+    x's dtype and device, ``widths`` = (before, after); or None."""
+    for i, t in enumerate(halos):
+        want = (*x.shape[:-1], widths[i % 2])
+        side = "after" if i % 2 else "before"
+        if tuple(t.shape) != want:
+            return f"halo {side} of shape {tuple(t.shape)} (want {want})"
+        if t.dtype != x.dtype or t.device != x.device:
+            return f"halo {side} of {t.dtype} on {t.device}"
+    return None
+
+
+def _even_samples_unsupported(x):
+    if x.shape[-1] % 2:
+        return f"{x.shape[-1]} samples per row (an even count only)"
+    return None
+
+
+def _halo_count_unsupported(halos, count):
+    if len(halos) != count:
+        return f"{len(halos)} halos ({count})"
+    return None
+
+
+def shard_plane_unsupported(t, what, dtypes=F32_F64):
+    """Why ``t`` cannot go to a row pass of a grid shard: a plane (nr, nc)
+    of ``dtypes``; or None."""
+    if t.ndim != 2:
+        return f"{what} rank {t.ndim} (2)"
+    return _plane_unsupported(t, what, dtypes)
+
+
+def ana_lanes_unsupported(x, left, right, fb):
+    """Why K29a cannot take the rows ``x`` and their halos, or None."""
+    return (dwt1d_unsupported(x, fb) or _even_samples_unsupported(x)
+            or lane_halos_unsupported(x, (left, right),
+                                      one_axis_pads("ana", fb, 0)))
+
+
+def syn_lanes_unsupported(a, d, halos, fb):
+    """Why K29b cannot take the coefficient rows and their four halos."""
+    L = a.shape[-1]
+    return (idwt1d_unsupported(a, d, fb, 2 * L)
+            or _halo_count_unsupported(halos, 4)
+            or lane_halos_unsupported(a, halos, one_axis_pads("syn", fb, L)))
+
+
+def ana_rows_unsupported(x, top, bot, fb):
+    """Why K29c cannot take the shard ``x`` and its halo rows, or None."""
+    return (shard_plane_unsupported(x, "input") or _bank_unsupported(fb)
+            or _even_rows_unsupported(x)
+            or halos_unsupported(x, (top, bot), one_axis_pads("ana", fb, 0)))
+
+
+def syn_rows_unsupported(a, d, halos, fb):
+    """Why K29d cannot take the coefficient planes and their four halos."""
+    L = a.shape[-2]
+    return (shard_plane_unsupported(a, "coefficient")
+            or _pair_unsupported(a, d) or _bank_unsupported(fb, 2)
+            or _sizes_unsupported((2 * L,), "output")
+            or _halo_count_unsupported(halos, 4)
+            or halos_unsupported(a, halos, one_axis_pads("syn", fb, L)))
+
+
+def ana_lanes_fused(x, left, right, fb):
+    """K29a: one analysis level along the last axis of rows ``(R?, n)``
+    whose samples before and after come from ``left`` and ``right`` -> (lo,
+    hi), each ``(R?, n/2)``.  CPU tensors: the plain version."""
+    if x.device.type == "cpu":
+        return ana_lanes_plain(x, left, right, fb)
+    name = "K29a (ana_lanes)"
+    _check_inputs(name, ana_lanes_unsupported(x, left, right, fb), x, left,
+                  right)
+    lib = _build.load_library()
+    n = x.shape[-1]
+    lo, hi = (torch.empty((*x.shape[:-1], n // 2), dtype=x.dtype,
+                          device=x.device) for _ in range(2))
+    flo, fhi = _taps(fb.dec_lo, x), _taps(fb.dec_hi, x)
+    err = _entry(lib, "pypwt_ana_lanes", x)(
+        x.data_ptr(), left.data_ptr(), right.data_ptr(), lo.data_ptr(),
+        hi.data_ptr(), _rows(x), n, left.shape[-1], right.shape[-1],
+        flo.ctypes.data, fhi.ctypes.data, fb.hlen, x.device.index,
+        _stream(x))
+    _check_launch(lib, err, name)
+    ana_lanes_fused.launches += 1
+    return lo, hi
+
+
+def syn_lanes_fused(a, d, halos, fb):
+    """K29b: one synthesis level along the last axis of coefficient rows
+    ``(R?, L)`` and their four halos -> ``(R?, 2L)``.  CPU tensors: the
+    plain version."""
+    if a.device.type == "cpu":
+        return syn_lanes_plain(a, d, halos, fb)
+    name = "K29b (syn_lanes)"
+    _check_inputs(name, syn_lanes_unsupported(a, d, halos, fb), a, d, *halos)
+    lib = _build.load_library()
+    L = a.shape[-1]
+    out = torch.empty((*a.shape[:-1], 2 * L), dtype=a.dtype, device=a.device)
+    flo, fhi = _taps(fb.rec_lo, a), _taps(fb.rec_hi, a)
+    ptrs = halo_array(halos)
+    err = _entry(lib, "pypwt_syn_lanes", a)(
+        a.data_ptr(), d.data_ptr(), ctypes.addressof(ptrs), out.data_ptr(),
+        _rows(a), L, halos[0].shape[-1], halos[1].shape[-1],
+        flo.ctypes.data, fhi.ctypes.data, fb.hlen, a.device.index,
+        _stream(a))
+    _check_launch(lib, err, name)
+    syn_lanes_fused.launches += 1
+    return out
+
+
+def ana_rows_fused(x, top, bot, fb):
+    """K29c: one analysis level along axis -2 of a grid shard ``(nr, nc)``
+    and its halo rows -> (lo, hi), each ``(nr/2, nc)``.  CPU tensors: the
+    plain version."""
+    if x.device.type == "cpu":
+        return ana_rows_plain(x, top, bot, fb)
+    name = "K29c (ana_rows)"
+    _check_inputs(name, ana_rows_unsupported(x, top, bot, fb), x, top, bot)
+    lib = _build.load_library()
+    nr, nc = x.shape
+    lo, hi = (torch.empty((nr // 2, nc), dtype=x.dtype, device=x.device)
+              for _ in range(2))
+    flo, fhi = _taps(fb.dec_lo, x), _taps(fb.dec_hi, x)
+    err = _entry(lib, "pypwt_ana_rows", x)(
+        x.data_ptr(), top.data_ptr(), bot.data_ptr(), lo.data_ptr(),
+        hi.data_ptr(), nr, nc, top.shape[-2], bot.shape[-2],
+        flo.ctypes.data, fhi.ctypes.data, fb.hlen, x.device.index,
+        _stream(x))
+    _check_launch(lib, err, name)
+    ana_rows_fused.launches += 1
+    return lo, hi
+
+
+def syn_rows_fused(a, d, halos, fb):
+    """K29d: one synthesis level along axis -2 of a grid shard's coefficient
+    planes ``(L, nc)`` and their four halos -> ``(2L, nc)``.  CPU tensors:
+    the plain version."""
+    if a.device.type == "cpu":
+        return syn_rows_plain(a, d, halos, fb)
+    name = "K29d (syn_rows)"
+    _check_inputs(name, syn_rows_unsupported(a, d, halos, fb), a, d, *halos)
+    lib = _build.load_library()
+    L, nc = a.shape
+    out = torch.empty((2 * L, nc), dtype=a.dtype, device=a.device)
+    flo, fhi = _taps(fb.rec_lo, a), _taps(fb.rec_hi, a)
+    ptrs = halo_array(halos)
+    err = _entry(lib, "pypwt_syn_rows", a)(
+        a.data_ptr(), d.data_ptr(), ctypes.addressof(ptrs), out.data_ptr(),
+        L, nc, halos[0].shape[-2], halos[1].shape[-2], flo.ctypes.data,
+        fhi.ctypes.data, fb.hlen, a.device.index, _stream(a))
+    _check_launch(lib, err, name)
+    syn_rows_fused.launches += 1
+    return out
+
 
 KERNELS = (dwt2d_fused, idwt2d_fused, dwt1d_fused, idwt1d_fused,
            swt1d_fused, iswt1d_fused, swt2d_fused, iswt2d_fused,
            dwt2d_sharded_fused, idwt2d_sharded_fused, swt2d_sharded_fused,
-           iswt2d_sharded_fused)
+           iswt2d_sharded_fused, ana_lanes_fused, syn_lanes_fused,
+           ana_rows_fused, syn_rows_fused)
 
 # counts start at 0; ``ops.reset_counts`` zeroes them with the others
 for _k in KERNELS:

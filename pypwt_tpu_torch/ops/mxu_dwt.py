@@ -21,7 +21,16 @@ level as banded products on the tensor cores (the port of
   ``::build_idwt2d_sharded_mxu``, K5/K6's levels of one row shard with its
   edge rows from exchanged halo tensors (``parallel.spatial``; the halo
   layout of ``ops.fused_dwt``'s K26), axis -2 unwrapped on the
-  halo-extended rows.
+  halo-extended rows;
+* K29e-K29h, the one-axis passes of the grid and sequence layouts in mode
+  "mxu" (``parallel.spatial``; the halo layout of ``ops.fused_dwt``'s
+  K29a-K29d): K29e ``ana_lanes_mxu_fused`` and K29f ``syn_lanes_mxu_fused``
+  (``csrc/tc_dwt1d.cu``), K7a/K7b on the rows' halo source, replace
+  ``::build_ana_padded_lanes_mxu`` and ``::build_syn_padded_lanes_mxu``;
+  K29g ``ana_rows_mxu_fused`` and K29h ``syn_rows_mxu_fused``
+  (``csrc/tc_dwt2d.cu``), K5/K6's axis -2 pass alone on a grid shard's halo
+  rows, replace ``::build_ana_padded_rows_mxu`` and
+  ``::build_syn_padded_rows_mxu``.
 
 Each pass is the banded map of the JAX kernels: a block of ``b`` outputs
 of (lo, hi) is ``D (2b, K) @ xp[2bk : 2bk + K]`` (analysis) and of ``2m``
@@ -60,10 +69,14 @@ import torch
 from ..core import conv
 from ..filters import MAX_FILTER_WIDTH
 from . import _build
-from .fused_dwt import (_batch, _check_inputs, _check_launch, _host_taps,
+from .fused_dwt import (_batch, _check_inputs, _check_launch,
+                        _even_rows_unsupported, _extend,
+                        _halo_count_unsupported, _host_taps,
                         _pair_unsupported, _plane_unsupported, _rows,
                         _rows_unsupported, _stream, halo_array, halo_heights,
-                        halos_unsupported, subbands_unsupported)
+                        halos_unsupported, lane_halos_unsupported,
+                        one_axis_pads, shard_plane_unsupported,
+                        subbands_unsupported)
 
 PRECISIONS = ("highest", "bf16")
 
@@ -494,9 +507,182 @@ def idwt2d_sharded_mxu_fused(a, h, v, d, halos, fb, prec="highest"):
     return out
 
 
+# -- one-axis passes of a grid or signal shard: K29e-K29h -------------------
+
+
+def ana_lanes_mxu_plain(x, left, right, fb, prec="highest"):
+    """K29e's map: the banded analysis of the halo-extended rows -> (lo,
+    hi), each (R?, n/2)."""
+    check_precision(prec)
+    return _ana_core(_extend(left, x, right, -1), fb, prec, x.shape[-1] // 2)
+
+
+def syn_lanes_mxu_plain(a, d, halos, fb, prec="highest"):
+    """K29f's map: the banded synthesis of the halo-extended coefficient
+    rows -> (R?, 2L)."""
+    check_precision(prec)
+    return _syn_core(_extend(halos[0], a, halos[1], -1),
+                     _extend(halos[2], d, halos[3], -1), fb, prec,
+                     a.shape[-1])
+
+
+def ana_rows_mxu_plain(x, top, bot, fb, prec="highest"):
+    """K29g's map: the banded analysis along axis -2 of the halo-extended
+    rows -> (lo, hi), each (nr/2, nc)."""
+    check_precision(prec)
+    lo, hi = _ana_core(_extend(top, x, bot, -2).transpose(-1, -2), fb, prec,
+                       x.shape[-2] // 2)
+    return lo.transpose(-1, -2).contiguous(), hi.transpose(-1, -2).contiguous()
+
+
+def syn_rows_mxu_plain(a, d, halos, fb, prec="highest"):
+    """K29h's map: the banded synthesis along axis -2 of the halo-extended
+    coefficient rows -> (2L, nc)."""
+    check_precision(prec)
+    out = _syn_core(_extend(halos[0], a, halos[1], -2).transpose(-1, -2),
+                    _extend(halos[2], d, halos[3], -2).transpose(-1, -2), fb,
+                    prec, a.shape[-2])
+    return out.transpose(-1, -2).contiguous()
+
+
+def ana_lanes_mxu_unsupported(x, left, right, fb):
+    """Why K29e cannot take the rows ``x`` and their halos, or None (JAX's
+    ``build_ana_padded_lanes_mxu``: K7a's coverage and exact pads)."""
+    return (dwt1d_mxu_unsupported(x, fb)
+            or lane_halos_unsupported(x, (left, right),
+                                      one_axis_pads("ana", fb, 0)))
+
+
+def syn_lanes_mxu_unsupported(a, d, halos, fb):
+    """Why K29f cannot take the coefficient rows and their four halos
+    (``_syn_padded_cover``: K7b's coverage and exact pads)."""
+    L = a.shape[-1]
+    return (idwt1d_mxu_unsupported(a, d, fb, 2 * L)
+            or _halo_count_unsupported(halos, 4)
+            or lane_halos_unsupported(a, halos, one_axis_pads("syn", fb, L)))
+
+
+def ana_rows_mxu_unsupported(x, top, bot, fb):
+    """Why K29g cannot take the grid shard ``x`` and its halo rows, or None
+    (``build_ana_padded_rows_mxu``: float32, an even row count, an even bank
+    of 4 or more taps, exact pads)."""
+    return (shard_plane_unsupported(x, "input", (torch.float32,))
+            or _even_bank_unsupported(fb) or _even_rows_unsupported(x)
+            or halos_unsupported(x, (top, bot), one_axis_pads("ana", fb, 0)))
+
+
+def syn_rows_mxu_unsupported(a, d, halos, fb):
+    """Why K29h cannot take the coefficient planes and their four halos."""
+    L = a.shape[-2]
+    return (shard_plane_unsupported(a, "coefficient", (torch.float32,))
+            or _pair_unsupported(a, d) or _even_bank_unsupported(fb)
+            or _halo_count_unsupported(halos, 4)
+            or halos_unsupported(a, halos, one_axis_pads("syn", fb, L)))
+
+
+def ana_lanes_mxu_fused(x, left, right, fb, prec="highest"):
+    """K29e: K7a's level of rows whose samples before and after come from
+    ``left`` and ``right`` -> (lo, hi), each ``(R?, n/2)``.  CPU tensors:
+    the plain version."""
+    check_precision(prec)
+    if x.device.type == "cpu":
+        return ana_lanes_mxu_plain(x, left, right, fb, prec)
+    name = "K29e (ana_lanes_mxu)"
+    _check_inputs(name, ana_lanes_mxu_unsupported(x, left, right, fb), x,
+                  left, right)
+    lib = _build.load_library()
+    n = x.shape[-1]
+    lo, hi = (torch.empty((*x.shape[:-1], n // 2), dtype=x.dtype,
+                          device=x.device) for _ in range(2))
+    flo, fhi = _host_taps(fb.dec_lo), _host_taps(fb.dec_hi)
+    err = lib.pypwt_tc_ana_lanes(
+        x.data_ptr(), left.data_ptr(), right.data_ptr(), lo.data_ptr(),
+        hi.data_ptr(), _rows(x), n, left.shape[-1], right.shape[-1],
+        flo.ctypes.data, fhi.ctypes.data, fb.hlen, int(prec == "bf16"),
+        x.device.index, _stream(x))
+    _check_launch(lib, err, name)
+    ana_lanes_mxu_fused.launches += 1
+    return lo, hi
+
+
+def syn_lanes_mxu_fused(a, d, halos, fb, prec="highest"):
+    """K29f: K7b's level of coefficient rows and their four halos ->
+    ``(R?, 2L)``.  CPU tensors: the plain version."""
+    check_precision(prec)
+    if a.device.type == "cpu":
+        return syn_lanes_mxu_plain(a, d, halos, fb, prec)
+    name = "K29f (syn_lanes_mxu)"
+    _check_inputs(name, syn_lanes_mxu_unsupported(a, d, halos, fb), a, d,
+                  *halos)
+    lib = _build.load_library()
+    L = a.shape[-1]
+    out = torch.empty((*a.shape[:-1], 2 * L), dtype=a.dtype, device=a.device)
+    flo, fhi = _host_taps(fb.rec_lo), _host_taps(fb.rec_hi)
+    ptrs = halo_array(halos)
+    err = lib.pypwt_tc_syn_lanes(
+        a.data_ptr(), d.data_ptr(), ctypes.addressof(ptrs), out.data_ptr(),
+        _rows(a), L, halos[0].shape[-1], halos[1].shape[-1],
+        flo.ctypes.data, fhi.ctypes.data, fb.hlen, int(prec == "bf16"),
+        a.device.index, _stream(a))
+    _check_launch(lib, err, name)
+    syn_lanes_mxu_fused.launches += 1
+    return out
+
+
+def ana_rows_mxu_fused(x, top, bot, fb, prec="highest"):
+    """K29g: K5's axis -2 pass of a grid shard ``(nr, nc)`` and its halo
+    rows -> (lo, hi), each ``(nr/2, nc)``.  CPU tensors: the plain
+    version."""
+    check_precision(prec)
+    if x.device.type == "cpu":
+        return ana_rows_mxu_plain(x, top, bot, fb, prec)
+    name = "K29g (ana_rows_mxu)"
+    _check_inputs(name, ana_rows_mxu_unsupported(x, top, bot, fb), x, top,
+                  bot)
+    lib = _build.load_library()
+    nr, nc = x.shape
+    lo, hi = (torch.empty((nr // 2, nc), dtype=x.dtype, device=x.device)
+              for _ in range(2))
+    flo, fhi = _host_taps(fb.dec_lo), _host_taps(fb.dec_hi)
+    err = lib.pypwt_tc_ana_rows(
+        x.data_ptr(), top.data_ptr(), bot.data_ptr(), lo.data_ptr(),
+        hi.data_ptr(), nr, nc, top.shape[-2], bot.shape[-2],
+        flo.ctypes.data, fhi.ctypes.data, fb.hlen, int(prec == "bf16"),
+        x.device.index, _stream(x))
+    _check_launch(lib, err, name)
+    ana_rows_mxu_fused.launches += 1
+    return lo, hi
+
+
+def syn_rows_mxu_fused(a, d, halos, fb, prec="highest"):
+    """K29h: K6's axis -2 pass of a grid shard's coefficient planes
+    ``(L, nc)`` and their four halos -> ``(2L, nc)``.  CPU tensors: the
+    plain version."""
+    check_precision(prec)
+    if a.device.type == "cpu":
+        return syn_rows_mxu_plain(a, d, halos, fb, prec)
+    name = "K29h (syn_rows_mxu)"
+    _check_inputs(name, syn_rows_mxu_unsupported(a, d, halos, fb), a, d,
+                  *halos)
+    lib = _build.load_library()
+    L, nc = a.shape
+    out = torch.empty((2 * L, nc), dtype=a.dtype, device=a.device)
+    flo, fhi = _host_taps(fb.rec_lo), _host_taps(fb.rec_hi)
+    ptrs = halo_array(halos)
+    err = lib.pypwt_tc_syn_rows(
+        a.data_ptr(), d.data_ptr(), ctypes.addressof(ptrs), out.data_ptr(),
+        L, nc, halos[0].shape[-2], halos[1].shape[-2], flo.ctypes.data,
+        fhi.ctypes.data, fb.hlen, int(prec == "bf16"), a.device.index,
+        _stream(a))
+    _check_launch(lib, err, name)
+    syn_rows_mxu_fused.launches += 1
+    return out
+
+
 KERNELS = (dwt2d_mxu_fused, idwt2d_mxu_fused, dwt1d_mxu_fused,
            idwt1d_mxu_fused, dwt2d_sharded_mxu_fused,
-           idwt2d_sharded_mxu_fused)
+           idwt2d_sharded_mxu_fused, ana_lanes_mxu_fused,
+           syn_lanes_mxu_fused, ana_rows_mxu_fused, syn_rows_mxu_fused)
 
 # counts start at 0; ``ops.reset_counts`` zeroes them with the others
 for _k in KERNELS:

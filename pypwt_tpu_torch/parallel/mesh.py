@@ -72,8 +72,9 @@ def make_mesh(n_data: int | None = None, n_rows: int = 1,
 
 def make_mesh2d(n_rows: int, n_cols: int, devices=None) -> Mesh:
     """A (rows, cols) mesh for grid-sharding one large image in both
-    spatial dimensions (its transforms are a later slice of the port:
-    ``ShardedWavelets`` refuses such a mesh)."""
+    spatial dimensions (``ShardedWavelets``' grid layout,
+    ``spatial.wavedec2_gridsharded``), devices row-major: device
+    i * n_cols + j holds block (i, j)."""
     if devices is None:
         devices = _cuda_devices()
     use = np.empty(n_rows * n_cols, dtype=object)

@@ -20,14 +20,21 @@ implementations, both counting what they do:
 A ring's shards are ordered group-major: ``axis_size`` consecutive shards
 form one ring (the mesh's ``rows`` axis), and a stack over ``data`` x
 ``rows`` holds several independent rings that every exchange serves at
-once, as one JAX ``ppermute`` over the rows axis does.  ``counts`` holds
+once, as one JAX ``ppermute`` over the rows axis does.  A ring may also
+take every ``stride``-th shard: a (rows, cols) grid lists its shards
+row-major, so its ``cols`` rings are consecutive shards and its ``rows``
+rings have stride ``n_cols``; ``GridRings`` holds the two and a ring of all
+shards for the norms (``ProcessGroupRing.grid``: one process group per row
+and per column).  ``counts`` holds
 the calls of each collective (``ppermute``, ``all_gather``,
 ``all_reduce``, ``all_to_all``: the port makes no all-gather or
 all-to-all) and ``ppermute_elems`` the elements one shard sends in each
 ``ppermute``; ``parallel.audit`` reads them.
 
 The split and gather helpers carry whole tensors and pyramids to and from
-shards: ``shard_rows``/``gather_rows`` and
+shards: ``shard_rows``/``gather_rows`` (the row layout),
+``shard_grid``/``gather_grid`` (both image axes), ``shard_last``/
+``gather_last`` (a signal along its samples) and
 ``pyramid_to_shards``/``pyramid_from_shards`` (a sharded pyramid holds a
 list of shards at each leaf).
 """
@@ -37,7 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .mesh import ROW_AXIS
+from .mesh import COL_AXIS, ROW_AXIS
 
 COLLECTIVES = ("ppermute", "all_gather", "all_reduce", "all_to_all")
 
@@ -55,14 +62,18 @@ class _Counted:
 
 class LocalRing(_Counted):
     """Shards held by one process, ``devices[i]`` the device of shard i,
-    in rings of ``axis_size`` consecutive shards."""
+    in rings of ``axis_size`` shards ``stride`` apart: shard
+    ``g * axis_size * stride + p * stride + q`` is position p of ring
+    (g, q) (stride 1: consecutive shards)."""
 
-    def __init__(self, devices, axis_size):
+    def __init__(self, devices, axis_size, stride=1):
         self.devices = [torch.device(d) for d in devices]
         self.axis_size = int(axis_size)
-        if self.axis_size < 1 or len(self.devices) % self.axis_size:
+        self.stride = int(stride)
+        if (self.axis_size < 1 or self.stride < 1
+                or len(self.devices) % (self.axis_size * self.stride)):
             raise ValueError(f"{len(self.devices)} shards in rings of "
-                             f"{self.axis_size}")
+                             f"{self.axis_size}, stride {self.stride}")
         self.reset()
 
     @classmethod
@@ -76,12 +87,13 @@ class LocalRing(_Counted):
     def ppermute(self, parts, perm):
         """Shard ``dst`` of every ring receives shard ``src``'s tensor, for
         each (src, dst) of ``perm`` (a permutation of the ring)."""
-        n = self.axis_size
+        n, st = self.axis_size, self.stride
         out = [None] * len(parts)
-        for g in range(0, len(parts), n):
-            for src, dst in perm:
-                out[g + dst] = parts[g + src].to(self.devices[g + dst],
-                                                 non_blocking=True)
+        for g in range(0, len(parts), n * st):
+            for q in range(g, g + st):
+                for src, dst in perm:
+                    i, j = q + src * st, q + dst * st
+                    out[j] = parts[i].to(self.devices[j], non_blocking=True)
         self._count_ppermute(parts)
         return out
 
@@ -138,6 +150,64 @@ class ProcessGroupRing(_Counted):
         self.counts["all_reduce"] += 1
         return t
 
+    @classmethod
+    def grid(cls, n_rows, n_cols):
+        """This rank's ``GridRings`` in a world of n_rows * n_cols ranks,
+        rank i n_cols + j holding the shard at row i and column j: every
+        rank creates every column's and every row's group, in one order, as
+        ``torch.distributed.new_group`` asks."""
+        import torch.distributed as dist
+        rank = dist.get_rank()
+        rows = cols = None
+        for j in range(n_cols):
+            g = dist.new_group([i * n_cols + j for i in range(n_rows)])
+            if rank % n_cols == j:
+                rows = cls(g)
+        for i in range(n_rows):
+            g = dist.new_group([i * n_cols + j for j in range(n_cols)])
+            if rank // n_cols == i:
+                cols = cls(g)
+        return GridRings(rows, cols, cls())
+
+
+class GridRings:
+    """The rings of a (rows, cols) grid of shards, listed row-major: ``rows``
+    (the shards of one column), ``cols`` (the shards of one row) and
+    ``world`` (all of them: the norms' all-reduce).  ``counts``,
+    ``ppermute_elems`` and ``reset`` cover the three, so
+    ``audit.schedule_of`` reads a grid transform's whole schedule."""
+
+    def __init__(self, rows, cols, world):
+        self.rows, self.cols, self.world = rows, cols, world
+
+    @classmethod
+    def for_mesh(cls, mesh):
+        """The LocalRings of a ``make_mesh2d`` mesh."""
+        devs = list(np.asarray(mesh.devices).reshape(-1))
+        n_cols = mesh.shape[COL_AXIS]
+        return cls(LocalRing(devs, mesh.shape[ROW_AXIS], n_cols),
+                   LocalRing(devs, n_cols), LocalRing(devs, len(devs)))
+
+    def _rings(self):
+        return (self.rows, self.cols, self.world)
+
+    def reset(self):
+        for r in self._rings():
+            r.reset()
+
+    @property
+    def counts(self):
+        return {k: sum(r.counts[k] for r in self._rings())
+                for k in COLLECTIVES}
+
+    @property
+    def ppermute_elems(self):
+        return [e for r in self._rings() for e in r.ppermute_elems]
+
+    def all_reduce_sum(self, values):
+        """The sum of every shard's partial sum."""
+        return self.world.all_reduce_sum(values)
+
 
 # -- split and gather --------------------------------------------------------
 
@@ -171,6 +241,57 @@ def gather_rows(parts, n_rows=None, device=None):
     return rings[0] if len(rings) == 1 else torch.cat(rings, 0)
 
 
+def shard_grid(tensor, mesh):
+    """The shards of one image (Nr, Nc) on a (rows, cols) mesh: block
+    (i, j) on ``mesh.devices[i, j]``, listed row-major (the order of
+    ``GridRings.for_mesh``), each a contiguous tensor."""
+    t = torch.as_tensor(tensor)
+    parts = [q for p in torch.tensor_split(t, mesh.shape[ROW_AXIS], -2)
+             for q in torch.tensor_split(p, mesh.shape[COL_AXIS], -1)]
+    devices = np.asarray(mesh.devices).reshape(-1)
+    return [p.to(d).contiguous() for p, d in zip(parts, devices)]
+
+
+def gather_grid(parts, n_cols, device=None):
+    """The whole image of a grid's row-major ``parts`` (``n_cols`` per
+    row), on ``device`` (the first shard's if None)."""
+    device = parts[0].device if device is None else torch.device(device)
+    return torch.cat([torch.cat([p.to(device) for p in parts[i:i + n_cols]],
+                                -1) for i in range(0, len(parts), n_cols)],
+                     -2)
+
+
+def rows_axis_devices(mesh):
+    """The devices along ``mesh``'s rows axis at index 0 of its other
+    axes (one ring)."""
+    d = np.asarray(mesh.devices)
+    ax = mesh.axis_names.index(ROW_AXIS)
+    return list(np.moveaxis(d, ax, -1).reshape(-1, d.shape[ax])[0])
+
+
+def rows_ring(mesh):
+    """The ``LocalRing`` of ``rows_axis_devices`` (a sequence layout's
+    ring)."""
+    return LocalRing(rows_axis_devices(mesh), mesh.shape[ROW_AXIS])
+
+
+def shard_last(tensor, mesh):
+    """The shards of a signal (n,), or rows (B, n), split along their
+    samples over ``mesh``'s rows axis (the sequence layout), each a
+    contiguous tensor on its device."""
+    t = torch.as_tensor(tensor)
+    parts = torch.tensor_split(t, mesh.shape[ROW_AXIS], -1)
+    return [p.to(d).contiguous()
+            for p, d in zip(parts, rows_axis_devices(mesh))]
+
+
+def gather_last(parts, device=None):
+    """The whole signal (or rows) of sequence ``parts``, on ``device`` (the
+    first shard's if None)."""
+    device = parts[0].device if device is None else torch.device(device)
+    return torch.cat([p.to(device) for p in parts], -1)
+
+
 def gather_batch(parts, device=None):
     """The whole stack of data-parallel ``parts`` (one shard per data
     index), on ``device`` (the first shard's if None)."""
@@ -186,21 +307,24 @@ def _map_leaves(pyr, fn):
     return out
 
 
-def pyramid_to_shards(pyr, mesh):
+def pyramid_to_shards(pyr, mesh, split=shard_rows):
     """A pyramid of whole tensors (or numpy arrays, e.g. the JAX package's
     outputs through ``np.asarray``) as a sharded pyramid: each leaf split
-    by ``shard_rows``."""
+    by ``split`` (``shard_rows``, ``shard_grid`` or ``shard_last``)."""
     return _map_leaves([pyr[0]] + [tuple(c) if isinstance(c, (tuple, list))
                                    else c for c in pyr[1:]],
-                       lambda t: shard_rows(t if isinstance(t, torch.Tensor)
-                                            else torch.tensor(np.asarray(t)),
-                                            mesh))
+                       lambda t: split(t if isinstance(t, torch.Tensor)
+                                       else torch.tensor(np.asarray(t)),
+                                       mesh))
 
 
-def pyramid_from_shards(pyr, n_rows=None, device=None):
-    """The whole-tensor pyramid of a sharded one (``gather_rows`` of each
-    leaf)."""
-    return _map_leaves(pyr, lambda parts: gather_rows(parts, n_rows, device))
+def pyramid_from_shards(pyr, n_rows=None, device=None, gather=None):
+    """The whole-tensor pyramid of a sharded one: ``gather`` (a function
+    of a leaf's shards) of each leaf, ``gather_rows`` if None."""
+    if gather is None:
+        return _map_leaves(pyr, lambda parts: gather_rows(parts, n_rows,
+                                                          device))
+    return _map_leaves(pyr, gather)
 
 
 def per_shard(pyr):

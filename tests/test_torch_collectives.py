@@ -1,11 +1,13 @@
-"""The exchange schedule of the port's row-sharded path, counted on its
-own exchange layer (``parallel.ring``) and held against the analytic
-prediction (``parallel.audit.predict_rowsharded``) and against JAX's
-(``pypwt_tpu.parallel.audit``), which reads the same schedule from
-compiled HLO: per level halo-sized ring exchanges only, no all-gather or
-all-to-all, one all-reduce per norm, the same counts and per-shard halo
-bytes on rings of any size.  Last, ``ProcessGroupRing`` on 4 gloo
-processes gives exactly the results of ``LocalRing``.
+"""The exchange schedules of the port's sharded paths (row, grid and
+sequence layouts), counted on its own exchange layer (``parallel.ring``)
+and held against the analytic predictions (``parallel.audit.predict_*``)
+and against JAX's (``pypwt_tpu.parallel.audit``), which reads the same
+schedules from compiled HLO: per level halo-sized ring exchanges only, no
+all-gather or all-to-all, one all-reduce per norm, the same counts and
+per-shard halo bytes on rings of any size.  Last, ``ProcessGroupRing`` on
+4 gloo processes gives exactly the results of ``LocalRing``: the row
+layout, a 2 x 2 grid (one process group per row and per column) and a
+4-shard signal.
 """
 
 import os
@@ -144,6 +146,92 @@ def test_schedule_is_mesh_size_independent():
     assert len(seen) == 1
 
 
+def _grid_mesh(nr, nc):
+    return pmesh.make_mesh2d(nr, nc, [CPU] * (nr * nc))
+
+
+def _schedule(fwd, inv, x):
+    fwd.ring.reset()
+    pyr = fwd(x)
+    f = audit.schedule_of(fwd.ring)
+    fwd.ring.reset()
+    inv(pyr)
+    return f, audit.schedule_of(fwd.ring)
+
+
+def _no_collective_but_ppermute(*scheds, most):
+    for sched in scheds:
+        assert (sched["all_gather"], sched["all_reduce"],
+                sched["all_to_all"]) == (0, 0, 0)
+        assert all(e <= most for e in sched["ppermute_elems"])
+
+
+@pytest.mark.parametrize("swt", [False, True], ids=["dwt", "swt"])
+@pytest.mark.parametrize("mesh", [(4, 2), (2, 4), (1, 8)], ids=str)
+def test_grid_schedule_equals_prediction_and_jax(swt, mesh):
+    """JAX's cases (tests/test_collectives.py:193-228): db2 L2 on 32 x 64
+    shards; per level 1 column exchange + 2 row exchanges forward, 4 row + 2
+    column plane exchanges inverse; the same counts as JAX's prediction
+    (on a ring of one the port exchanges nothing, as JAX's
+    ``axis_size == 1`` path)."""
+    fb = get_filter_bank("db2")
+    nr, nc = mesh[0] * 32, mesh[1] * 64
+    pred = (audit.predict_gridsharded_swt if swt
+            else audit.predict_gridsharded)(fb, 2, nr, nc, *mesh)
+    fwd, inv = audit.gridsharded_fns(fb, 2, _grid_mesh(*mesh), swt)
+    f, i = _schedule(fwd, inv, torch.from_numpy(
+        np.random.default_rng(3).random((nr, nc))))
+    assert (f["ppermute"], i["ppermute"]) == (pred["fwd_ppermute"],
+                                              pred["inv_ppermute"])
+    ref = (jaudit.predict_gridsharded_swt if swt
+           else jaudit.predict_gridsharded)(jbank("db2"), 2, nr, nc, *mesh)
+    if mesh[0] > 1:
+        assert pred == ref
+    if mesh == (4, 2):
+        assert pred["fwd_ppermute"] == (12 if swt else 2 * (2 + 4))
+    _no_collective_but_ppermute(f, i, most=4 * 64)
+
+
+@pytest.mark.parametrize("swt, levels, n", [(False, 2, 4096),
+                                            (True, 3, 1024),
+                                            (False, 3, 16)], ids=str)
+def test_seq_schedule_equals_prediction_and_jax(swt, levels, n):
+    """JAX's cases (tests/test_collectives.py:231-252) on 8 shards, and a
+    signal of 16-sample shards whose db2 halos still take one hop."""
+    fb = get_filter_bank("db2")
+    N = 8 * n
+    pred = (audit.predict_seqsharded_swt if swt
+            else audit.predict_seqsharded)(fb, levels, N, 8)
+    ref = (jaudit.predict_seqsharded_swt if swt
+           else jaudit.predict_seqsharded)(jbank("db2"), levels, N, 8)
+    assert pred == ref
+    if n == 4096:
+        assert (pred["fwd_ppermute"], pred["inv_ppermute"]) == (4, 8)
+    if swt:
+        assert (pred["fwd_ppermute"], pred["inv_ppermute"]) == (6, 12)
+    fns = audit.seqsharded_swt_fns if swt else audit.seqsharded_fns
+    fwd, inv = fns(fb, levels, _mesh(1, 8))
+    f, i = _schedule(fwd, inv, torch.from_numpy(
+        np.random.default_rng(4).random(N)))
+    assert (f["ppermute"], i["ppermute"]) == (pred["fwd_ppermute"],
+                                              pred["inv_ppermute"])
+    _no_collective_but_ppermute(f, i, most=8)
+
+
+def test_grid_and_seq_norms_are_the_only_all_reduce():
+    img = np.random.default_rng(5).random((64, 64)).astype(np.float32)
+    sig = np.random.default_rng(6).random(4096).astype(np.float32)
+    for plan in (ShardedWavelets(img, "db2", 2, mesh=_grid_mesh(2, 2)),
+                 ShardedWavelets(sig, "db2", 2, mesh=_mesh(1, 8))):
+        plan.forward()
+        for norm in (plan.norm1, plan.norm2sq):
+            plan.ring.reset()
+            assert norm() > 0
+            assert audit.schedule_of(plan.ring) == {
+                "ppermute": 0, "all_gather": 0, "all_reduce": 1,
+                "all_to_all": 0, "ppermute_elems": []}
+
+
 def test_data_parallel_transforms_make_no_exchange():
     stack = np.random.default_rng(1).random((8, 32, 32)).astype(np.float32)
     B = BatchedWavelets(stack, "db2", 2, mesh=_mesh(8, 1))
@@ -208,6 +296,34 @@ WORKER = textwrap.dedent("""
     out["norm"] = ring.all_reduce_sum(
         [mine[0].abs().sum()]).numpy()
     out["counts"] = np.array([ring.counts["ppermute"]])
+    # a 2 x 2 grid, rank i * 2 + j holding block (i, j)
+    rings = pring.ProcessGroupRing.grid(2, 2)
+    i, j = divmod(rank, 2)
+    blk = [torch.from_numpy(np.ascontiguousarray(x[32 * i:32 * i + 32,
+                                                   32 * j:32 * j + 32]))]
+    fb = get_filter_bank("db3")
+    for tag, fwd, inv in (("grid", spatial.wavedec2_gridsharded,
+                           spatial.waverec2_gridsharded),
+                          ("gswt", spatial.swt2d_gridsharded,
+                           spatial.iswt2d_gridsharded)):
+        pyr = fwd(blk, fb, 2, None, rings)
+        back = inv(pyr, fb, None, rings)
+        leaves = [pyr[0]] + [s for lev in pyr[1:] for s in lev]
+        for k, leaf in enumerate(leaves):
+            out[f"{{tag}}{{k}}"] = leaf[0].numpy()
+        out[f"{{tag}}back"] = back[0].numpy()
+    out["gridcounts"] = np.array([rings.counts["ppermute"]])
+    # a signal over the 4 ranks
+    sig = np.random.default_rng(6).random(1024)
+    seg = [torch.from_numpy(np.ascontiguousarray(
+        np.array_split(sig, world)[rank]))]
+    ring = pring.ProcessGroupRing()
+    pyr = spatial.wavedec1_seqsharded(seg, fb, 3, None, ring)
+    back = spatial.waverec1_seqsharded(pyr, fb, None, ring)
+    for k, leaf in enumerate(pyr):
+        out[f"seq{{k}}"] = leaf[0].numpy()
+    out["seqback"] = back[0].numpy()
+    out["seqcounts"] = np.array([ring.counts["ppermute"]])
     np.savez({out!r} + f"/rank{{rank}}.npz", **out)
     dist.destroy_process_group()
 """)
@@ -256,3 +372,33 @@ def test_process_group_ring_equals_local_ring(tmp_path):
         assert int(got["counts"][0]) == counts
         np.testing.assert_allclose(float(got["norm"]), np.abs(x).sum(),
                                    rtol=1e-12)
+    # the grid and the signal: bit-equal to LocalRing, the same counts
+    fb = get_filter_bank("db3")
+    m = pmesh.make_mesh2d(2, 2, [CPU] * 4)
+    rings = pring.GridRings.for_mesh(m)
+    for tag, fwd, inv in (("grid", spatial.wavedec2_gridsharded,
+                           spatial.waverec2_gridsharded),
+                          ("gswt", spatial.swt2d_gridsharded,
+                           spatial.iswt2d_gridsharded)):
+        pyr = fwd(x, fb, 2, m, rings)
+        back = inv(pyr, fb, m, rings)
+        leaves = [pyr[0]] + [s for lev in pyr[1:] for s in lev]
+        for r in range(4):
+            got = np.load(tmp_path / f"rank{r}.npz")
+            for k, leaf in enumerate(leaves):
+                np.testing.assert_array_equal(got[f"{tag}{k}"],
+                                              leaf[r].numpy())
+            np.testing.assert_array_equal(got[f"{tag}back"],
+                                          back[r].numpy())
+    sig = np.random.default_rng(6).random(1024)
+    ring = pring.LocalRing([CPU] * 4, 4)
+    pyr = spatial.wavedec1_seqsharded(sig, fb, 3, _mesh(1, 4), ring)
+    back = spatial.waverec1_seqsharded(pyr, fb, _mesh(1, 4), ring)
+    for r in range(4):
+        got = np.load(tmp_path / f"rank{r}.npz")
+        for k, leaf in enumerate(pyr):
+            np.testing.assert_array_equal(got[f"seq{k}"], leaf[r].numpy())
+        np.testing.assert_array_equal(got["seqback"], back[r].numpy())
+        # one ppermute per exchange, on each rank as on the local rings
+        assert int(got["gridcounts"][0]) == rings.counts["ppermute"]
+        assert int(got["seqcounts"][0]) == ring.counts["ppermute"]

@@ -1,6 +1,7 @@
 """K1/K2, K3/K4, K10a/K10b, K8/K9, K16/K17, K18a/K18b, K19/K20, the
 tensor-core forms K5/K6, K7a/K7b, K11a/K11b and K12a/K12b (both
-precisions) and the whole-pyramid kernels K24/K25 against their plain
+precisions), the whole-pyramid kernels K24/K25, the row-sharded K26-K28
+and the grid and sequence passes K29a-K29h against their plain
 versions on the GPU, at small sizes (the kernel phase of chip_smoke.py),
 odd sizes and odd filter lengths included; the float64 instances of the
 tap-loop kernels against their float64 plain versions; plus the
@@ -1236,3 +1237,201 @@ def test_batched_plans_on_the_card(dev):
         # db2 L2 hybrid: 2 exchanges per level forward, 8 back
         assert B.ring.counts["ppermute"] == (0 if n_rows == 1 else 20)
         assert np.abs(B.image - st).max() < 7e-4
+
+
+# -- the grid and sequence passes: K29a-K29h ---------------------------------
+
+from pypwt_tpu_torch.parallel import spatial  # noqa: E402
+
+K29_BANKS = ["haar", "db2", "sym8", "odd5", "sym20"]
+# (shards, shard shape) split along the last axis: grid shards' rows, a
+# signal (1D), JAX's batch of signals; 8-sample shards make sym20's halos
+# multi-hop
+LANE_CASES = [(4, (64, 96)), (4, (3, 8)), (8, (512,)), (3, (2, 64))]
+# (shards, shard shape) split along axis -2: grid shards, an odd column
+# count, 8-row shards (multi-hop)
+ROW_CASES = [(4, (64, 96)), (4, (16, 33)), (2, (8, 40))]
+# (route, precision): the tap-loop kernels K29a-K29d, float32 and float64,
+# and the tensor-core forms K29e-K29h in both precisions
+FORMS = [("cuda", torch.float32), ("cuda", torch.float64),
+         ("highest", torch.float32), ("bf16", torch.float32)]
+
+
+def _split_halos(x, shards, i, before, after, axis):
+    """Shard i of x split along ``axis`` in ``shards`` and its periodic
+    halos (wider than a shard too): (shard, before, after)."""
+    n = x.shape[axis] // shards
+    idx = torch.arange(i * n - before, i * n + n + after,
+                       device=x.device) % x.shape[axis]
+    ext = x.index_select(axis, idx)
+    return (ext.narrow(axis, before, n).contiguous(),
+            ext.narrow(axis, 0, before).contiguous(),
+            ext.narrow(axis, before + n, after).contiguous())
+
+
+def _k29(kind, axis, form):
+    """(wrapper, plain version, coverage) of one K29 entry for ``form``."""
+    mod, suffix = (fd, "") if form == "cuda" else (km, "_mxu")
+    name = f"{kind}_{'lanes' if axis == -1 else 'rows'}{suffix}"
+    fused, plain = (getattr(mod, f"{name}_fused"),
+                    getattr(mod, f"{name}_plain"))
+    if form != "cuda":
+        return ((lambda *a: fused(*a, form)), (lambda *a: plain(*a, form)),
+                getattr(mod, f"{name}_unsupported"), fused)
+    return fused, plain, getattr(mod, f"{name}_unsupported"), fused
+
+
+def _close_k29(got, ref, form, dtype):
+    """The tensor-core forms on _close_prec's rule; K29a-K29d within TOL
+    (float32) or 1e-12 (float64)."""
+    if form != "cuda" or dtype == torch.float32:
+        return _close_prec(got, ref, "highest" if form == "cuda" else form)
+    for g, r in zip(*(((t,) if isinstance(t, torch.Tensor) else t)
+                      for t in (got, ref))):
+        assert g.shape == r.shape and float((g - r).abs().max()) <= 1e-12
+
+
+def _run_k29(dev, wname, case, form, dtype, axis):
+    """Three levels of analysis passes on the shards the previous level
+    made, and the synthesis of random coefficients at each level's size,
+    each shard's kernel against its plain version; launches counted."""
+    fb = _bank(wname)
+    shards, shape = case
+    whole = list(shape)
+    whole[axis] *= shards
+    x = _rand(tuple(whole), dev).to(dtype)
+    ana, ana_p, ana_why, ka = _k29("ana", axis, form)
+    syn, syn_p, syn_why, ks = _k29("syn", axis, form)
+    n0 = ka.launches + ks.launches
+    launched = 0
+    for _ in range(3):
+        if x.shape[axis] // shards % 2:
+            break
+        pads = fd.one_axis_pads("ana", fb, 0)
+        outs = []
+        for i in range(shards):
+            b, lo, hi = _split_halos(x, shards, i, *pads, axis)
+            if ana_why(b, lo, hi, fb):
+                assert form != "cuda"
+                with pytest.raises(ValueError):
+                    ana(b, lo, hi, fb)
+                return
+            got = ana(b, lo, hi, fb)
+            _close_k29(got, ana_p(b, lo, hi, fb), form, dtype)
+            outs.append(got[0])
+            launched += 1
+        x = torch.cat(outs, axis)
+        c = [_rand(x.shape, dev, s).to(dtype) for s in (1, 2)]
+        pads = fd.one_axis_pads("syn", fb, x.shape[axis] // shards)
+        for i in range(shards):
+            ba, la, ra = _split_halos(c[0], shards, i, *pads, axis)
+            bd, ld, rd = _split_halos(c[1], shards, i, *pads, axis)
+            halos = (la, ra, ld, rd)
+            got = syn(ba, bd, halos, fb)
+            assert got.shape[axis] == 2 * ba.shape[axis]
+            _close_k29(got, syn_p(ba, bd, halos, fb), form, dtype)
+            launched += 1
+    assert ka.launches + ks.launches == n0 + launched
+
+
+@pytest.mark.parametrize("form, dtype", FORMS, ids=lambda f: str(f))
+@pytest.mark.parametrize("wname", K29_BANKS)
+@pytest.mark.parametrize("case", LANE_CASES, ids=str)
+def test_k29_lanes_match_plain(dev, wname, case, form, dtype):
+    """K29a/K29b (K29e/K29f) on shards split along their samples."""
+    _run_k29(dev, wname, case, form, dtype, -1)
+
+
+@pytest.mark.parametrize("form, dtype", FORMS, ids=lambda f: str(f))
+@pytest.mark.parametrize("wname", K29_BANKS)
+@pytest.mark.parametrize("case", ROW_CASES, ids=str)
+def test_k29_rows_match_plain(dev, wname, case, form, dtype):
+    """K29c/K29d (K29g/K29h) on grid shards split along their rows."""
+    _run_k29(dev, wname, case, form, dtype, -2)
+
+
+def test_k29_kernels_refuse_wrong_halos(dev):
+    fb = get_filter_bank("db2")
+    x = _rand((16, 32), dev)
+    t = _rand((16, 2), dev)  # db2's analysis pads are (1, 1)
+    with pytest.raises(ValueError, match="halo"):
+        fd.ana_lanes_fused(x, t, t, fb)
+    with pytest.raises(ValueError, match="samples per row"):
+        fd.ana_lanes_fused(_rand((16, 31), dev), t[:, :1], t[:, :1], fb)
+    with pytest.raises(ValueError, match="halo"):
+        fd.ana_rows_fused(x, t.T.contiguous(), t.T.contiguous(), fb)
+    with pytest.raises(ValueError, match="rank"):
+        fd.ana_rows_fused(_rand((2, 16, 32), dev), x[:1], x[:1], fb)
+
+
+def _leaves(c):
+    """The arrays of a plan's ``coeffs``, 2D or 1D."""
+    return [c[0]] + [s for t in c[1:]
+                     for s in (t if isinstance(t, list) else [t])]
+
+
+def _counts():
+    return {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+
+
+@pytest.mark.parametrize("mode", ["auto", "mxu"])
+@pytest.mark.parametrize("layout", ["grid", "seq"])
+@pytest.mark.parametrize("do_swt", [0, 1], ids=["dwt", "swt"])
+def test_grid_and_sequence_plans_on_the_card(dev, mode, layout, do_swt):
+    """ShardedWavelets on 4 virtual shards of cuda:0 (a 2 x 2 grid, or a
+    signal over 4): the DWT launches K29a-K29d (K29e-K29h in mode "mxu")
+    once per shard and pass, 3 per shard and level each way on the grid
+    and 1 in the sequence; the SWT runs torch ops (no TPU kernel); the
+    result equals the CPU plan's."""
+    rng = np.random.default_rng(0)
+    img = ((rng.random((256, 192)) if layout == "grid" else
+            rng.random(8192)) * 255).astype(np.float32)
+
+    def mesh(d):
+        return (pmesh.make_mesh2d(2, 2, [d] * 4) if layout == "grid"
+                else pmesh.make_mesh(1, 4, [d] * 4))
+    ref = ShardedWavelets(img, "sym8", 3, do_swt=do_swt,
+                          mesh=mesh(torch.device("cpu"))).forward()
+    try:
+        _mxu(mode)
+        ops.reset_counts()
+        W = ShardedWavelets(img, "sym8", 3, do_swt=do_swt, mesh=mesh(dev))
+        W.forward()
+        coeffs = W.coeffs
+        W.inverse()
+        counts = _counts()
+    finally:
+        _mxu("auto")
+    sfx = "_mxu_fused" if mode == "mxu" else "_fused"
+    if do_swt:
+        want = {}
+    elif layout == "grid":
+        want = {f"ana_lanes{sfx}": 12, f"ana_rows{sfx}": 24,
+                f"syn_rows{sfx}": 24, f"syn_lanes{sfx}": 12}
+    else:
+        want = {f"ana_lanes{sfx}": 12, f"syn_lanes{sfx}": 12}
+    assert counts == want
+    for a, b in zip(_leaves(coeffs), _leaves(ref.coeffs)):
+        assert np.abs(a - b).max() < 3e-4 * 8
+    assert np.abs(W.image - img).max() < 7e-4
+
+
+def test_grid_routes_float64_and_uncovered_banks(dev):
+    """A float64 grid runs the float64 instances of K29a-K29d; mode "mxu"
+    sends haar (not covered by K29e-K29h) to K29a-K29d."""
+    x = _rand((64, 64), dev).double()
+    m = pmesh.make_mesh2d(2, 2, _virtual(4))
+    fb = get_filter_bank("db4")
+    ops.reset_counts()
+    pyr = spatial.wavedec2_gridsharded(x, fb, 2, m)
+    y = pring.gather_grid(spatial.waverec2_gridsharded(pyr, fb, m), 2)
+    assert float((y - x).abs().max()) < 1e-10
+    assert _counts() == {"ana_lanes_fused": 8, "ana_rows_fused": 16,
+                         "syn_rows_fused": 16, "syn_lanes_fused": 8}
+    try:
+        _mxu("mxu")
+        ops.reset_counts()
+        spatial.wavedec2_gridsharded(x.float(), get_filter_bank("haar"), 2, m)
+    finally:
+        _mxu("auto")
+    assert _counts() == {"ana_lanes_fused": 8, "ana_rows_fused": 16}

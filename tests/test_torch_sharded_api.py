@@ -1,6 +1,6 @@
-"""The port's plans ``ShardedWavelets`` (row layout) and
-``BatchedWavelets`` held against the JAX package's on the CPU: the cases
-of tests/test_sharded_api.py and tests/test_batched_api.py, run through
+"""The port's plans ``ShardedWavelets`` (row, grid and sequence layouts)
+and ``BatchedWavelets`` held against the JAX package's on the CPU: the
+cases of tests/test_sharded_api.py and tests/test_batched_api.py, run through
 both packages on the same numpy inputs (JAX on the conftest's 8 simulated
 devices, the port on meshes of repeated CPU devices).  Both run float32
 plans, JAX's on its jnp route: coefficients and images within 1e-5 (the
@@ -155,15 +155,177 @@ def test_sharded_add_wavelet():
         T.add_wavelet(bad)
 
 
-def test_unported_layouts_raise():
-    """The sequence (1D) and grid (rows x cols) layouts are a later
-    slice: they raise, naming it, and nothing else runs instead."""
-    with pytest.raises(NotImplementedError, match="sequence layout.*later"):
-        ShardedWavelets(np.zeros(256, np.float32), "db2", 2,
-                        mesh=_mesh(1, 4))
-    grid = pmesh.make_mesh2d(2, 2, [CPU] * 4)
-    with pytest.raises(NotImplementedError, match="grid layout.*ROADMAP"):
-        ShardedWavelets(_img(64, 64), "db2", 2, mesh=grid)
+def test_grid_and_sequence_layouts_construct_and_roundtrip():
+    """A 1D signal selects the sequence layout and a ``make_mesh2d`` mesh
+    the grid layout; both construct and round-trip."""
+    sig = np.random.default_rng(0).random(256).astype(np.float32)
+    S = ShardedWavelets(sig, "db2", 2, mesh=_mesh(1, 4))
+    assert (S.ndim, S.grid) == (1, False)
+    S.forward()
+    S.inverse()
+    np.testing.assert_allclose(S.image, sig, atol=TOL)
+    img = _img(64, 64)
+    G = ShardedWavelets(img, "db2", 2, mesh=_grid(2, 2))
+    assert (G.ndim, G.grid, G.n_rows, G.n_cols) == (2, True, 2, 2)
+    G.forward()
+    G.inverse()
+    np.testing.assert_allclose(G.image, img, atol=TOL)
+
+
+# -- grid and sequence layouts (tests/test_sharded_api.py:177-231, :331-377)
+
+
+def _grid(nr, nc):
+    return pmesh.make_mesh2d(nr, nc, [CPU] * (nr * nc))
+
+
+def _jgrid(nr, nc):
+    return jmesh.make_mesh2d(nr, nc, jax.devices()[:nr * nc])
+
+
+def test_sharded_grid_matches_jax_and_single_plan():
+    img = _img(128, 128, 8)
+    J = JSharded(img, "db3", 2, mesh=_jgrid(4, 2))
+    T = ShardedWavelets(img, "db3", 2, mesh=_grid(4, 2))
+    assert T.grid and J.grid
+    J.forward()
+    T.forward()
+    _same_coeffs(T, J, range(7))
+    W = Wavelets(img, "db3", 2, device="cpu").forward()
+    for num in range(7):
+        np.testing.assert_allclose(T.coeff_only(num), W.coeff_only(num),
+                                   atol=TOL)
+    J.soft_threshold(0.1)
+    T.soft_threshold(0.1)
+    W.soft_threshold(0.1)
+    assert abs(T.norm1() - J.norm1()) / J.norm1() < 1e-5
+    assert abs(T.norm2sq() - W.norm2sq()) / W.norm2sq() < 1e-5
+    J.inverse()
+    T.inverse()
+    np.testing.assert_allclose(T.image, J.image, atol=TOL)
+
+
+def test_sharded_grid_swt_matches_jax_and_roundtrips():
+    img = _img(64, 64, 9)
+    J = JSharded(img, "db2", 2, do_swt=1, mesh=_jgrid(2, 4)).forward()
+    T = ShardedWavelets(img, "db2", 2, do_swt=1, mesh=_grid(2, 4)).forward()
+    _same_coeffs(T, J, range(7))
+    T.inverse()
+    np.testing.assert_allclose(T.image, img, atol=TOL)
+
+
+@pytest.mark.parametrize("spins", [1, 2])
+def test_sharded_grid_any_size_denoise_matches_jax(spins):
+    img = _img(90, 110, 10)
+    J = JSharded(img, "db2", 2, mesh=_jgrid(2, 4), seed=1)
+    T = ShardedWavelets(img, "db2", 2, mesh=_grid(2, 4), seed=1)
+    assert T._padded == J._padded == (96, 112)
+    J.denoise(0.05, spins=spins)
+    T.denoise(0.05, spins=spins)
+    assert T.image.shape == img.shape
+    np.testing.assert_allclose(T.image, J.image, atol=TOL)
+    T.set_image(img)
+    T.forward()
+    T.inverse()
+    np.testing.assert_allclose(T.image, img, atol=TOL)
+
+
+def test_sharded_grid_cycle_spinning_set_coeff_and_add_wavelet():
+    img = _img(64, 96, 11)
+    J = JSharded(img, "db2", 2, do_cycle_spinning=1, mesh=_jgrid(2, 2),
+                 seed=4).forward()
+    T = ShardedWavelets(img, "db2", 2, do_cycle_spinning=1, mesh=_grid(2, 2),
+                        seed=4).forward()
+    assert T.current_shift == J.current_shift != (0, 0)
+    _same_coeffs(T, J, range(7))
+    T.inverse()
+    np.testing.assert_allclose(T.image, img, atol=TOL)
+    T.forward()
+    h1 = T.coeff_only(1)
+    T.set_coeff(np.zeros_like(h1), 1, check=True)
+    assert np.abs(T.coeff_only(1)).max() == 0
+    with pytest.raises(ValueError):
+        T.set_coeff(np.zeros((3, 3), np.float32), 2, check=True)
+    T.set_coeff(h1, 1)
+    T2 = ShardedWavelets(img, "db2", 2, mesh=_grid(2, 2)).forward()
+    T3 = ShardedWavelets(img, "db2", 2, mesh=_grid(2, 2)).forward()
+    T2.add_wavelet(T3, alpha=1.0)
+    np.testing.assert_allclose(T2.coeff_only(4), 2.0 * T3.coeff_only(4),
+                               atol=1e-5)
+
+
+def test_sharded_seq1d_matches_jax_and_single_plan():
+    sig = np.random.default_rng(20).random(8 * 1024).astype(np.float32)
+    J = JSharded(sig, "db3", 3, mesh=_pair_rows(8)[0])
+    T = ShardedWavelets(sig, "db3", 3, mesh=_mesh(1, 8))
+    assert T.ndim == J.ndim == 1
+    J.forward()
+    T.forward()
+    _same_coeffs(T, J, range(4))
+    W = Wavelets(sig, "db3", 3, device="cpu").forward()
+    for num in range(4):
+        np.testing.assert_allclose(T.coeff_only(num),
+                                   np.ravel(W.coeff_only(num)), atol=TOL)
+    J.soft_threshold(0.1)
+    T.soft_threshold(0.1)
+    assert abs(T.norm1() - J.norm1()) / J.norm1() < 1e-5
+    assert abs(T.norm2sq() - J.norm2sq()) / J.norm2sq() < 1e-5
+    J.inverse()
+    T.inverse()
+    np.testing.assert_allclose(T.image, J.image, atol=TOL)
+
+
+def test_sharded_seq1d_any_size_and_swt_match_jax():
+    sig = np.random.default_rng(21).random(5000).astype(np.float32)
+    jm, tm = _pair_rows(8)
+    J = JSharded(sig, "db2", 2, mesh=jm).forward()
+    T = ShardedWavelets(sig, "db2", 2, mesh=tm).forward()
+    assert T._padded == J._padded != sig.shape
+    _same_coeffs(T, J, range(3))
+    T.inverse()
+    np.testing.assert_allclose(T.image, sig, atol=TOL)
+    # stationary: dilated halos over the ring, multi-hop at depth
+    JS = JSharded(sig, "db2", 3, do_swt=1, mesh=jm).forward()
+    SS = ShardedWavelets(sig, "db2", 3, do_swt=1, mesh=tm).forward()
+    _same_coeffs(SS, JS, range(4))
+    SS.inverse()
+    np.testing.assert_allclose(SS.image, sig, atol=TOL)
+
+
+def test_sharded_seq1d_denoise_and_set_coeff_match_jax():
+    sig = np.random.default_rng(22).random(4096).astype(np.float32)
+    jm, tm = _pair_rows(8)
+    J = JSharded(sig, "sym4", 2, mesh=jm, seed=5).denoise(0.05, spins=2)
+    T = ShardedWavelets(sig, "sym4", 2, mesh=tm, seed=5).denoise(0.05,
+                                                                 spins=2)
+    assert T.image.shape == sig.shape
+    np.testing.assert_allclose(T.image, J.image, atol=TOL)
+    T.set_image(sig)
+    T.forward()
+    d1 = T.coeff_only(1)
+    T.set_coeff(np.zeros_like(d1), 1, check=True)
+    assert np.abs(T.coeff_only(1)).max() == 0
+    with pytest.raises(ValueError):
+        T.coeff_only(3)
+    C = ShardedWavelets(sig, "db2", 2, do_cycle_spinning=1, mesh=tm,
+                        seed=6).forward()
+    JC = JSharded(sig, "db2", 2, do_cycle_spinning=1, mesh=jm,
+                  seed=6).forward()
+    assert C.current_shift == JC.current_shift and C.current_shift[1] == 0
+    _same_coeffs(C, JC, range(3))
+
+
+def test_sharded_info_names_the_layout(capsys):
+    ShardedWavelets(np.zeros(4096, np.float32), "db2", 2,
+                    mesh=_mesh(1, 8)).info()
+    ShardedWavelets(_img(90, 110), "db2", 2, mesh=_grid(2, 4)).info()
+    ShardedWavelets(_img(), "db2", 2, mesh=_mesh(1, 8)).info()
+    out = capsys.readouterr().out.splitlines()
+    assert out == [
+        "ShardedWavelets: (4096,) db2 L2 swt=0 over 8 seq-shards",
+        "ShardedWavelets: (90, 110) db2 L2 swt=0 over 2x4 grid-shards "
+        "(padded to 96x112)",
+        "ShardedWavelets: (128, 64) db2 L2 swt=0 over 8 row-shards"]
 
 
 # -- BatchedWavelets ---------------------------------------------------------
