@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py           # the smoke run below
     python3 chip_smoke.py --sweep   # build, then only the sweeps
+    python3 chip_smoke.py --only K11b,K28   # build, then only these rows
 
 Run from the root of a checkout.  Phases, in order; any failure raises,
 prints its traceback and exits non-zero without the final ok line:
@@ -155,8 +156,20 @@ plane) and K11a/K11b against K8/K9 (level l of 2048^2) by hlen (4, 8, 16,
 20, 40) and level (1-4), both precisions, and the same for the 1D forms:
 K7a/K7b against K3/K4 (level l: 2048 rows of 2048 / 2^(l-1)) and
 K12a/K12b against K10 (level l of 2048 x 2048); it prints no ok line.
+
+``--only KEYS`` is the loop of a kernel redesign: KEYS, comma-separated,
+name rows of the kernels line (a family such as K28 names all of its
+rows); the tensor-core 2D forms K5/K6/K11a/K11b, the row-sharded K26-K28
+and the grid and sequence passes K29 are selectable.  It builds every
+kernel, then runs only those rows' phases: their kernel-against-plain
+checks over the cases above (both precisions), their main paths with
+exact launch counts, and their times at the table's shapes (K11b also at
+levels 1-3 of 2048^2, and the occupancy of K11b's and K28 iswt's
+synthesis instances); a K29 row runs all of the grid and sequence
+phases.  It prints the kernels line of those rows and no ok line.
 """
 
+import ctypes
 import importlib.util
 import itertools
 import json
@@ -735,12 +748,13 @@ def rms_gate(got, ref, what, level=1):
     return rel
 
 
-def phase_kernels_mxu(port, dev):
+def phase_kernels_mxu(port, dev, keys=None):
     """K5/K6 and K11a/K11b against their plain versions in both precisions
     over MXU_BANKS and SHAPES_MXU, SWT levels 1-4 (a level whose support
     passes the plane goes to K8/K9 through the router in mode "mxu"), and
     against the float64 oracle.  The worst "highest" errors go to the
-    kernels line; the "bf16" ones are printed."""
+    kernels line; the "bf16" ones are printed.  ``keys``: only those rows
+    (--only)."""
     km, kms, fd = port.ops.mxu_dwt, port.ops.mxu_swt, port.ops.fused_dwt
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     worst = {p: {"K5": 0.0, "K6": 0.0, "K11a": 0.0, "K11b": 0.0}
@@ -764,28 +778,34 @@ def phase_kernels_mxu(port, dev):
                         raise AssertionError(f"{key} {what}: {e}") from None
 
                 what = (name, shape, prec)
-                got = launched_once(km.dwt2d_mxu_fused,
-                                    lambda: km.dwt2d_mxu_fused(x, fb, prec))
-                note("K5", got, km.dwt2d_mxu_plain(x, fb, prec), what)
-                got = launched_once(km.idwt2d_mxu_fused, lambda: (
-                    km.idwt2d_mxu_fused(*c, fb, shape, prec)))
-                note("K6", got, km.idwt2d_mxu_plain(*c, fb, shape, prec),
-                     what)
+                if wanted(keys, "K5"):
+                    got = launched_once(km.dwt2d_mxu_fused, lambda: (
+                        km.dwt2d_mxu_fused(x, fb, prec)))
+                    note("K5", got, km.dwt2d_mxu_plain(x, fb, prec), what)
+                if wanted(keys, "K6"):
+                    got = launched_once(km.idwt2d_mxu_fused, lambda: (
+                        km.idwt2d_mxu_fused(*c, fb, shape, prec)))
+                    note("K6", got, km.idwt2d_mxu_plain(*c, fb, shape, prec),
+                         what)
                 for level in (1, 2, 3, 4):
                     if kms.swt2d_mxu_unsupported(x, fb, level):
                         continue
-                    got = launched_once(kms.swt2d_mxu_fused, lambda: (
-                        kms.swt2d_mxu_fused(x, fb, level, prec)))
-                    note("K11a", got, kms.swt2d_mxu_plain(x, fb, level, prec),
-                         what + (level,))
-                    got = launched_once(kms.iswt2d_mxu_fused, lambda: (
-                        kms.iswt2d_mxu_fused(*s, fb, level, prec)))
-                    note("K11b", got,
-                         kms.iswt2d_mxu_plain(*s, fb, level, prec),
-                         what + (level,))
+                    if wanted(keys, "K11a"):
+                        got = launched_once(kms.swt2d_mxu_fused, lambda: (
+                            kms.swt2d_mxu_fused(x, fb, level, prec)))
+                        note("K11a", got,
+                             kms.swt2d_mxu_plain(x, fb, level, prec),
+                             what + (level,))
+                    if wanted(keys, "K11b"):
+                        got = launched_once(kms.iswt2d_mxu_fused, lambda: (
+                            kms.iswt2d_mxu_fused(*s, fb, level, prec)))
+                        note("K11b", got,
+                             kms.iswt2d_mxu_plain(*s, fb, level, prec),
+                             what + (level,))
             # levels whose support passes the plane: K8/K9 in mode "mxu"
             for level in (1, 2, 3, 4):
-                if not kms.swt2d_mxu_unsupported(x, fb, level):
+                if not wanted(keys, "K11a", "K11b") or not (
+                        kms.swt2d_mxu_unsupported(x, fb, level)):
                     continue
                 port.dwt.set_kernels("mxu")
                 try:
@@ -828,10 +848,13 @@ def phase_kernels_mxu(port, dev):
         tx, txs, tc, tcs = dev_t[0], dev_t[1], dev_t[2:6], dev_t[6:]
         line = []
         for prec in PRECISIONS:
-            gots = {"K5": km.dwt2d_mxu_fused(tx, fb, prec),
-                    "K6": [km.idwt2d_mxu_fused(*tc, fb, (16, 24), prec)],
-                    "K11a": kms.swt2d_mxu_fused(txs, fb, 2, prec),
-                    "K11b": [kms.iswt2d_mxu_fused(*tcs, fb, 2, prec)]}
+            calls = {"K5": lambda: km.dwt2d_mxu_fused(tx, fb, prec),
+                     "K6": lambda: [km.idwt2d_mxu_fused(*tc, fb, (16, 24),
+                                                        prec)],
+                     "K11a": lambda: kms.swt2d_mxu_fused(txs, fb, 2, prec),
+                     "K11b": lambda: [kms.iswt2d_mxu_fused(*tcs, fb, 2,
+                                                           prec)]}
+            gots = {k: f() for k, f in calls.items() if wanted(keys, k)}
             for key, got in gots.items():
                 got = [g.cpu().numpy() for g in got]
                 if prec == "highest":
@@ -847,8 +870,9 @@ def phase_kernels_mxu(port, dev):
         print(f"kernel-vs-oracle tensor cores {name:8s} " + "  ".join(line)
               + "  (bf16: relative RMS)")
     for key, e in worst["bf16"].items():
-        print(f"worst bf16 kernel-vs-plain {key}: {e:.3e}")
-    return worst["highest"]
+        if wanted(keys, key):
+            print(f"worst bf16 kernel-vs-plain {key}: {e:.3e}")
+    return {k: e for k, e in worst["highest"].items() if wanted(keys, k)}
 
 
 def frame(shape, seed=SEED):
@@ -1182,21 +1206,26 @@ def drive_mxu(port, dev, img, prec, do_swt, want, what):
     return launches
 
 
-def phase_main_paths_mxu(port, dev):
+def phase_main_paths_mxu(port, dev, keys=None):
     """Mode "mxu", both precisions: the sym8 L3 frame through Wavelets, DWT
     (3 K5, 3 K6) and SWT (3 K11a, 3 K11b), and the (8, 2048, 2048) stack
     through wavedec2/waverec2 and swt2d/iswt2d, its first and last frames
-    against the CPU plain path."""
+    against the CPU plain path.  ``keys``: only the transforms whose
+    kernels are among them (--only)."""
     dwt, swt = port.dwt, port.swt
     img = frame(FRAME, SEED + 12)
     want_d = {"dwt2d_mxu_fused": 3, "idwt2d_mxu_fused": 3}
     want_s = {"swt2d_mxu_fused": 3, "iswt2d_mxu_fused": 3}
+    do_dwt, do_swt = wanted(keys, "K5", "K6"), wanted(keys, "K11a", "K11b")
     launches = {}
     for prec in PRECISIONS:
-        got = drive_mxu(port, dev, img, prec, 0, want_d,
-                        f"mxu {prec} sym8 L3 {FRAME}")
-        got.update(drive_mxu(port, dev, img, prec, 1, want_s,
-                             f"mxu {prec} 2D SWT sym8 L3 {FRAME}"))
+        got = {}
+        if do_dwt:
+            got.update(drive_mxu(port, dev, img, prec, 0, want_d,
+                                 f"mxu {prec} sym8 L3 {FRAME}"))
+        if do_swt:
+            got.update(drive_mxu(port, dev, img, prec, 1, want_s,
+                                 f"mxu {prec} 2D SWT sym8 L3 {FRAME}"))
         if prec == "highest":
             launches = got
 
@@ -1211,6 +1240,8 @@ def phase_main_paths_mxu(port, dev):
                     lambda p: dwt.waverec2(p, fb, xs.shape), want_d),
             "SWT": (lambda: swt.swt2d(xs, fb, 3), lambda p: swt.iswt2d(p, fb),
                     want_s)}
+    runs = {k: r for k, r in runs.items()
+            if (do_dwt if k == "DWT" else do_swt)}
     for prec in PRECISIONS:
         for kind, (fwd, inv, want) in runs.items():
             dwt.set_kernels("mxu")
@@ -1242,10 +1273,9 @@ def phase_main_paths_mxu(port, dev):
                   f"{ec:.3e}, roundtrip {er:.3e}, launches 3 + 3")
             del pyr, rec
     del xs
-    return {"K5": launches["dwt2d_mxu_fused"],
-            "K6": launches["idwt2d_mxu_fused"],
-            "K11a": launches["swt2d_mxu_fused"],
-            "K11b": launches["iswt2d_mxu_fused"]}
+    names = {"K5": "dwt2d_mxu_fused", "K6": "idwt2d_mxu_fused",
+             "K11a": "swt2d_mxu_fused", "K11b": "iswt2d_mxu_fused"}
+    return {k: launches[n] for k, n in names.items() if wanted(keys, k)}
 
 
 def cuda_ms(fn, reps, device_only, samples=SAMPLES, required=True):
@@ -1544,10 +1574,11 @@ def in_turns(calls, reps, samples=SAMPLES, device_only=True):
     return {k: sum(v) / 2 for k, v in seen.items()}
 
 
-def phase_times_mxu(port, dev, card):
+def phase_times_mxu(port, dev, card, keys=None):
     """K5 against K1 and K6 against K2 at sym8 level 0, K11a against K8
     and K11b against K9 at sym8 level 1, 2048^2, each with its plain
-    version ("highest") and its "bf16" time, in turns within this call."""
+    version ("highest") and its "bf16" time, in turns within this call
+    (``keys``: only those rows)."""
     km, kms, fd = port.ops.mxu_dwt, port.ops.mxu_swt, port.ops.fused_dwt
     fb = port.get_filter_bank("sym8")
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
@@ -1582,6 +1613,8 @@ def phase_times_mxu(port, dev, card):
     reps = {"plain": 3, "highest": 10, "bf16": 10, "tap": 10}
     times = {}
     for key, (tap, mib, calls) in cases.items():
+        if not wanted(keys, key):
+            continue
         t = in_turns(calls, reps)
         times[key] = (t["highest"], t["plain"])
         gbs = mib * 2 ** 20 / (t["highest"] * 1e-3) / 1e9
@@ -1593,7 +1626,49 @@ def phase_times_mxu(port, dev, card):
     return times
 
 
-def phase_library(port, dev, card):
+def phase_times_k11b_levels(port, dev, card):
+    """K11b at sym8 and levels 1-3 of 2048^2 ("highest" and "bf16"), in
+    turns (--only): the deeper levels gather windows strided by 2 and 4."""
+    kms = port.ops.mxu_swt
+    fb = port.get_filter_bank("sym8")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    frames = [torch.rand(FRAME, generator=gen, device=dev) * 255
+              for _ in range(4)]
+    nbytes, flops = timed_work(port)["K11b"]
+    bound_ms = bound(nbytes, flops)[0]
+    for level in (1, 2, 3):
+        sc = itertools.cycle([kms.swt2d_mxu_fused(f, fb, level)
+                              for f in frames]).__next__
+        t = in_turns({
+            "highest": lambda: kms.iswt2d_mxu_fused(*sc(), fb, level),
+            "bf16": lambda: kms.iswt2d_mxu_fused(*sc(), fb, level, "bf16")},
+            {"highest": 10, "bf16": 10})
+        print(f"time K11b sym8 level {level} {FRAME}, device: highest "
+              f"{t['highest'] * 1e3:.1f} us, bf16 {t['bf16'] * 1e3:.1f} us "
+              f"(bound {bound_ms * 1e3:.1f} us)  [{card}]")
+
+
+def print_iswt_occupancy(port, dev):
+    """Resident blocks per SM (the occupancy API) and dynamic shared memory
+    of the synthesis instances that K11b and K28 iswt run at sym8."""
+    from pypwt_tpu_torch.ops import _build
+    lib = _build.load_library()
+    hlen = port.get_filter_bank("sym8").hlen
+    for halo, key in ((0, "K11b"), (1, "K28 iswt")):
+        for prec in PRECISIONS:
+            blocks, smem = ctypes.c_int(), ctypes.c_int()
+            err = lib.pypwt_tc_iswt2d_occupancy(
+                hlen, int(prec == "bf16"), halo, dev.index,
+                ctypes.byref(blocks), ctypes.byref(smem))
+            if err:
+                raise RuntimeError(f"occupancy query {key} {prec}: error "
+                                   f"{err}")
+            print(f"occupancy {key} sym8 {prec}: {blocks.value} blocks of "
+                  f"256 threads per SM, {smem.value} bytes of dynamic "
+                  "shared memory each")
+
+
+def phase_library(port, dev, card, keys=None):
     """library_ms: beside each kernel, one PyTorch call that computes the
     same function at the kernel's timed shape, a strided, transposed or
     dilated convolution in full float32 (cudnn.allow_tf32 off, set in
@@ -1603,15 +1678,17 @@ def phase_library(port, dev, card):
     leaves the host no way ahead of a sleep) is timed by wall clock, and
     says so.  K19's epilogue and K20's accumulator are outside
     the convolution: those two time the level alone.  cuDNN picks each
-    call's fastest algorithm (cudnn.benchmark) in the check's call."""
+    call's fastest algorithm (cudnn.benchmark) in the check's call.
+    ``keys``: only those rows' calls (--only)."""
     torch.backends.cudnn.benchmark = True
     try:
-        return _library_calls(port, dev, card)
+        lib = _library_calls(port, dev, card, keys)
     finally:
         torch.backends.cudnn.benchmark = False
+    return {k: ms for k, ms in lib.items() if ms is not None}
 
 
-def _library_calls(port, dev, card):
+def _library_calls(port, dev, card, keys):
     fd, kn, ks = port.ops.fused_dwt, port.ops.nonsep, port.ops.shifted
     conv = port.conv
     fb = port.get_filter_bank("db2")
@@ -1634,7 +1711,9 @@ def _library_calls(port, dev, card):
 
     def timed(key, inputs, call, kernel_out, crop=lambda z: z):
         """Time ``call`` over the padded ``inputs``, after checking its
-        first output against the kernel's."""
+        first output against the kernel's (None for a row not selected)."""
+        if not wanted(keys, key.split()[0]):
+            return None
         err = max_err(crop(call(inputs[0])), kernel_out)
         if not err <= LIBRARY_TOL:
             raise AssertionError(f"{key}: library call vs kernel {err:.3e} "
@@ -2924,7 +3003,7 @@ def sharded_levels(port, dev, x, fb, levels, swt, kernel, prec="highest"):
     return errs, ert, level1
 
 
-def phase_kernels_sharded(port, dev):
+def phase_kernels_sharded(port, dev, keys=None):
     """K26a/K26b, K27a/K27b (float32 and, at db4, float64) and K28's four
     entries (both precisions) against their plain versions on 4 virtual
     shards of cuda:0, on the shards and halos the ring exchanged: banks
@@ -2938,7 +3017,7 @@ def phase_kernels_sharded(port, dev):
     support fits in a shard's rows (mode "mxu" sends the others to K27).
     Then the
     gathered level 1 against the float64 oracle on a [0, 1) 64 x 96
-    plane."""
+    plane.  ``keys``: only the kernel families of those rows (--only)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 40)
     worst = {k: 0.0 for k in ("K26a", "K26b", "K27a", "K27b", "K28 dwt",
                               "K28 idwt", "K28 swt", "K28 iswt")}
@@ -2950,12 +3029,17 @@ def phase_kernels_sharded(port, dev):
             x = torch.rand(shape, generator=gen, device=dev) * 255
             line = []
             for swt, levels in ((False, 3), (True, 4)):
-                errs, ert, _ = sharded_levels(port, dev, x, fb, levels, swt,
-                                              "cuda")
-                for k, e in errs.items():
-                    worst[k] = max(worst[k], e)
-                line.append(f"{'/'.join(errs)} {max(errs.values()):.2e} "
-                            f"rt {ert:.2e}")
+                if wanted(keys, *(("K27a", "K27b") if swt
+                                  else ("K26a", "K26b"))):
+                    errs, ert, _ = sharded_levels(port, dev, x, fb, levels,
+                                                  swt, "cuda")
+                    for k, e in errs.items():
+                        worst[k] = max(worst[k], e)
+                    line.append(f"{'/'.join(errs)} {max(errs.values()):.2e} "
+                                f"rt {ert:.2e}")
+                if not wanted(keys, *(("K28 swt", "K28 iswt") if swt
+                                      else ("K28 dwt", "K28 idwt"))):
+                    continue
                 # K28 covers the SWT levels whose support fits in a row
                 top = levels if not swt else max([0] + [
                     lev for lev in range(1, levels + 1) if max(
@@ -2977,7 +3061,7 @@ def phase_kernels_sharded(port, dev):
             print(f"kernel-vs-plain sharded {name:7s} {str(shape):17s} "
                   + "; ".join(line))
     fb = port.get_filter_bank("db4")
-    for shape in SHARD_F64_PLANES:
+    for shape in SHARD_F64_PLANES if wanted(keys, *SHARD_KEYS[:4]) else ():
         x = torch.rand(shape, generator=gen, device=dev,
                        dtype=torch.float64) * 255
         e1, r1, _ = sharded_levels(port, dev, x, fb, 3, False, "cuda")
@@ -2997,6 +3081,10 @@ def phase_kernels_sharded(port, dev):
         line = []
         for swt in (False, True):
             for kernel in ("cuda", "mxu"):
+                family = "K28" if kernel == "mxu" else "K27" if swt else "K26"
+                if not any(k.startswith(family) and wanted(keys, k)
+                           for k in SHARD_KEYS):
+                    continue
                 _, _, level1 = sharded_levels(port, dev, x, fb, 1, swt,
                                               kernel)
                 e = max(float(np.abs(g.cpu().numpy() - r).max())
@@ -3004,16 +3092,16 @@ def phase_kernels_sharded(port, dev):
                 if e > ORACLE_TOL:
                     raise AssertionError(f"{name} sharded {kernel} swt={swt}"
                                          f" vs oracle {e:.3e}")
-                family = "K28" if kernel == "mxu" else "K27" if swt else "K26"
                 line.append(f"{family} {'SWT' if swt else 'DWT'} {e:.2e}")
         print(f"kernel-vs-oracle sharded {name:7s} (64, 96) level 1, "
               "gathered: " + "  ".join(line))
     for key, e in bf16.items():
-        print(f"worst bf16 kernel-vs-plain sharded {key}: {e:.3e}")
-    return worst
+        if wanted(keys, key):
+            print(f"worst bf16 kernel-vs-plain sharded {key}: {e:.3e}")
+    return {k: e for k, e in worst.items() if wanted(keys, k)}
 
 
-def phase_main_paths_sharded(port, dev):
+def phase_main_paths_sharded(port, dev, keys=None):
     """The row-sharded plans on meshes of 4 virtual shards of cuda:0,
     counted from 0, against the unsharded plans on the card:
     ShardedWavelets(8192^2, "db2", 3) forward -> soft_threshold(10) ->
@@ -3024,12 +3112,20 @@ def phase_main_paths_sharded(port, dev):
     of the same drawn shifts; BatchedWavelets on the (8, 2048, 2048) stack,
     data-parallel over 4 shards (12 K1 + 12 K2, no exchange) and hybrid
     over 2 x 2 (12 K26a + 12 K26b); norm1 and norm2sq one all-reduce
-    each."""
+    each.  ``keys``: only the transforms whose kernels are among them, and
+    the db2 DWT plans (odd image, denoise, stack, norms) with K26
+    (--only)."""
     ops, par, dwt = port.ops, port.parallel, port.dwt
     SW = par.ShardedWavelets
     mesh = vmesh(port, 1, N_SHARDS, dev)
     img = frame(BIG, SEED + 42)
     launches = {}
+    row_of = {"dwt2d_sharded_fused": "K26a", "idwt2d_sharded_fused": "K26b",
+              "swt2d_sharded_fused": "K27a", "iswt2d_sharded_fused": "K27b",
+              "dwt2d_sharded_mxu_fused": "K28 dwt",
+              "idwt2d_sharded_mxu_fused": "K28 idwt",
+              "swt2d_sharded_mxu_fused": "K28 swt",
+              "iswt2d_sharded_mxu_fused": "K28 iswt"}
     cases = (("db2", 0, "auto", "highest",
               {"dwt2d_sharded_fused": 12, "idwt2d_sharded_fused": 12}),
              ("db2", 1, "auto", "highest",
@@ -3047,6 +3143,8 @@ def phase_main_paths_sharded(port, dev):
               {"swt2d_sharded_mxu_fused": 12,
                "iswt2d_sharded_mxu_fused": 12}))
     for wname, do_swt, mode, prec, want in cases:
+        if not wanted(keys, *(row_of[k] for k in want)):
+            continue
         what = (f"ShardedWavelets {wname} L3 {'SWT' if do_swt else 'DWT'} "
                 f"{BIG} mode {mode}{' ' + prec if mode == 'mxu' else ''}")
         dwt.set_kernels(mode)
@@ -3087,17 +3185,11 @@ def phase_main_paths_sharded(port, dev):
         print(f"main path {what}: forward vs unsharded {ec:.3e}, denoised "
               f"image vs unsharded {ei:.3e}, launches {got}")
         if prec == "highest":
-            launches.update({
-                {"dwt2d_sharded_fused": "K26a",
-                 "idwt2d_sharded_fused": "K26b",
-                 "swt2d_sharded_fused": "K27a",
-                 "iswt2d_sharded_fused": "K27b",
-                 "dwt2d_sharded_mxu_fused": "K28 dwt",
-                 "idwt2d_sharded_mxu_fused": "K28 idwt",
-                 "swt2d_sharded_mxu_fused": "K28 swt",
-                 "iswt2d_sharded_mxu_fused": "K28 iswt"}[k]: v
-                for k, v in got.items()})
+            launches.update({row_of[k]: v for k, v in got.items()
+                             if wanted(keys, row_of[k])})
         del coeffs, ref_coeffs, out
+    if not wanted(keys, "K26a", "K26b"):
+        return launches
 
     odd = frame(BIG_ODD, SEED + 43)
     S = SW(odd, "db2", 3, mesh=mesh)
@@ -3230,7 +3322,7 @@ def shard_rows_of(g, i, n, top, bot):
     return g.index_select(-2, rows % g.shape[-2]).contiguous()
 
 
-def phase_times_sharded(port, dev, card):
+def phase_times_sharded(port, dev, card, keys=None):
     """Device time of each K26-K28 entry on one 2048 x 8192 shard of the
     8192^2 image (K26/K27 at db2, K28 at sym8 "highest", level 1 for the
     SWT), against its plain version and against its unsharded kernel on
@@ -3238,7 +3330,8 @@ def phase_times_sharded(port, dev, card):
     one PyTorch convolution of the same map on the shard's rows extended
     and padded outside the timed call (library_ms); then the 8192^2 db2 L3
     roundtrip on 4 virtual shards against the unsharded one, device and
-    wall: the device cost of sharding on one card."""
+    wall: the device cost of sharding on one card.  ``keys``: only those
+    entries, and the roundtrip with K26 (--only)."""
     par = port.parallel
     n, nc = SHARD_BLOCK
     gen = torch.Generator(device=dev).manual_seed(SEED + 46)
@@ -3254,6 +3347,8 @@ def phase_times_sharded(port, dev, card):
                 ("K28 idwt", "sym8", "idwt", True),
                 ("K28 swt", "sym8", "swt", True),
                 ("K28 iswt", "sym8", "iswt", True)):
+            if not wanted(keys, key):
+                continue
             fb = port.get_filter_bank(wname)
             f2d = port.nonsep.Filters2D.from_bank(fb)
             calls, lib = sharded_calls(port, fb, f2d, kind, mxu, globs, n,
@@ -3269,6 +3364,8 @@ def phase_times_sharded(port, dev, card):
                   f"{lib * 1e3:.1f} us  [{card}]")
     finally:
         torch.backends.cudnn.benchmark = False
+    if not wanted(keys, "K26a", "K26b"):
+        return times, library
     fb = port.get_filter_bank("db2")
     sp, ring_mod = par.spatial, par.ring
     mesh = vmesh(port, 1, N_SHARDS, dev)
@@ -4191,17 +4288,103 @@ def bound(nbytes, flops):
             "bytes" if t_bytes >= t_flops else "operations")
 
 
+MXU2D_KEYS = ("K5", "K6", "K11a", "K11b")
+SHARD_KEYS = ("K26a", "K26b", "K27a", "K27b", "K28 dwt", "K28 idwt",
+              "K28 swt", "K28 iswt")
+ONLY_KEYS = MXU2D_KEYS + SHARD_KEYS + K29
+
+
+def only_keys(spec):
+    """The rows that ``--only`` names: each comma-separated item is a row's
+    key or a family (every key that starts with it and a space), or
+    SystemExit."""
+    keys = set()
+    for item in (t.strip() for t in spec.split(",")):
+        got = {k for k in ONLY_KEYS if k == item or k.startswith(item + " ")}
+        if not got:
+            print(f"chip_smoke: --only {item!r} names no selectable row "
+                  f"(one of {', '.join(ONLY_KEYS)}, or K28)", file=sys.stderr)
+            sys.exit(2)
+        keys |= got
+    return keys
+
+
+def wanted(keys, *names):
+    """Whether any of ``names`` is selected (every row when keys is None)."""
+    return keys is None or any(n in keys for n in names)
+
+
+def run_only(port, dev, card, keys):
+    """The narrow run of ``--only``: the selected rows' checks, main paths
+    and times, then their kernels line."""
+    worst, launches, times, library = {}, {}, {}, {}
+    if wanted(keys, *MXU2D_KEYS):
+        worst.update(phase_kernels_mxu(port, dev, keys))
+        launches.update(phase_main_paths_mxu(port, dev, keys))
+        times.update(phase_times_mxu(port, dev, card, keys))
+        library.update(phase_library(port, dev, card, keys))
+    if "K11b" in keys:
+        phase_times_k11b_levels(port, dev, card)
+    if wanted(keys, "K11b", "K28 iswt"):
+        print_iswt_occupancy(port, dev)
+    if wanted(keys, *SHARD_KEYS):
+        worst.update(phase_kernels_sharded(port, dev, keys))
+        launches.update(phase_main_paths_sharded(port, dev, keys))
+        sharded_times, sharded_library = phase_times_sharded(port, dev, card,
+                                                             keys)
+        times.update(sharded_times)
+        library.update(sharded_library)
+    if wanted(keys, *K29):
+        worst.update(phase_kernels_grid(port, dev))
+        launches.update(phase_main_paths_grid(port, dev))
+        phase_audit_grid(port, dev)
+        grid_times, grid_library = phase_times_grid(port, dev, card)
+        times.update(grid_times)
+        library.update(grid_library)
+    print(json.dumps({"kernels": kernel_rows(
+        port, worst, launches, times, library, keys)}))
+    print(card_line())
+
+
+def kernel_rows(port, worst, launches, times, library, keys=None):
+    """The entries of the kernels line (all rows, or those of ``keys``)."""
+    work = {**timed_work(port), **sharded_work(port), **grid_work(port)}
+    kernels = []
+    for key, name, source, tpu in KERNEL_ROWS:
+        if not wanted(keys, key):
+            continue
+        bound_ms, bound_by = bound(*work[key])
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"pypwt_tpu_torch/csrc/{source}",
+            "replaces": f"pypwt_tpu/{tpu}",
+            "launches": launches[key], "max_abs_err": worst[key],
+            "ms": times[key][0], "plain_ms": times[key][1],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library.get(key)})
+    return kernels
+
+
 def main():
-    if sys.argv[1:] not in ([], ["--sweep"]):
-        print("usage: python3 chip_smoke.py [--sweep]", file=sys.stderr)
+    args = sys.argv[1:]
+    if args not in ([], ["--sweep"]) and not (
+            len(args) == 2 and args[0] == "--only"):
+        print("usage: python3 chip_smoke.py [--sweep | --only KEYS]",
+              file=sys.stderr)
         sys.exit(2)
+    keys = only_keys(args[1]) if args[:1] == ["--only"] else None
     card = phase_device()
     port = import_port()
     from pypwt_tpu_torch.ops import _build
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     phase_build(_build)
-    if sys.argv[1:] == ["--sweep"]:
+    if keys is not None:
+        run_only(port, dev, card, keys)
+        print(f"only {', '.join(sorted(keys))} done in "
+              f"{time.perf_counter() - t0:.1f} s")
+        return
+    if args == ["--sweep"]:
         phase_sweep_2d_swt(port, dev, card)
         phase_sweep_mxu(port, dev, card)
         phase_sweep_mxu1d(port, dev, card)
@@ -4252,19 +4435,8 @@ def main():
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     for key, ms in path_bounds().items():
         print(f"bound of the path holding {key}: {ms * 1e3:.1f} us (bytes)")
-    work = {**timed_work(port), **sharded_work(port), **grid_work(port)}
-    kernels = []
-    for key, name, source, tpu in KERNEL_ROWS:
-        bound_ms, bound_by = bound(*work[key])
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"pypwt_tpu_torch/csrc/{source}",
-            "replaces": f"pypwt_tpu/{tpu}",
-            "launches": launches[key], "max_abs_err": worst[key],
-            "ms": times[key][0], "plain_ms": times[key][1],
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library.get(key)})
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernel_rows(port, worst, launches, times,
+                                             library)}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -76,6 +76,44 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 }
 #endif
 
+// Asynchronous copies from device to shared memory: one float
+// (cp.async.ca, 4 bytes) or four (cp.async.cg, 16 bytes, both addresses
+// 16-byte aligned). No register holds the samples, so a thread can have
+// all of its window in flight at once. A thread commits its copies as one
+// group and waits until at most kPending of its groups are pending; after
+// the wait, a __syncthreads makes every thread's copies visible to the
+// block. The CPU rehearsal copies at once and waits for nothing.
+#ifdef PYPWT_MMA_STANDIN
+inline void cp_async4(float* dst, const float* src) { *dst = *src; }
+inline void cp_async16(float* dst, const float* src) {
+  for (int e = 0; e < 4; ++e) dst[e] = src[e];
+}
+inline void cp_async_commit() {}
+template <int kPending>
+inline void cp_async_wait() {}
+#else
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+#endif
+
 struct Tf32 {
   static constexpr int kK = 8;  // depth of one product
   struct A {

@@ -46,6 +46,14 @@
 // neighbouring column classes are neighbours on the grid, so the sectors of
 // a strided gather or store meet in L2. Column blocks run on the grid's x
 // axis, row blocks on y, planes on z, in chunks past a grid's limits.
+//
+// The synthesis (K11b, K28's) stages four windows per tile, 2.4 samples per
+// output, and spends many instructions per sample. Its windows arrive by
+// cp.async, all in flight at once, from a table of source rows built once
+// per window row (where a shard's halos are resolved), in 16-byte copies
+// at level 1; its passes run groups of output tiles that share each A
+// fragment, so a window sample is loaded and split once per pass, not once
+// per tile.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -293,8 +301,166 @@ tc_swt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
   }
 }
 
+// Shared memory of the synthesis: the four windows (a, h, v, d; [kWin][kLdW]
+// each), t1/t2 ([kTile][kLdT] each), the taps in window order, the source
+// row of each plane and window row and the axis column of each window
+// column.
+template <class G>
+struct IswtSmem {
+  static constexpr int kPlane = G::kWin * G::kLdW;
+  static constexpr int kT = kTile * G::kLdT;
+  static constexpr int kFloats = 4 * kPlane + 2 * kT + 2 * kMaxTaps;
+  static_assert(kFloats % 2 == 0, "the row table must be 8-byte aligned");
+  static constexpr size_t kBytes = sizeof(float) * kFloats +
+                                   sizeof(const float*) * 4 * G::kWin +
+                                   sizeof(int) * G::kWinC;
+  float *in, *t, *f_lo, *f_hi;
+  const float** src;
+  int* col;
+  __device__ explicit IswtSmem(float* base)
+      : in(base),
+        t(in + 4 * kPlane),
+        f_lo(t + 2 * kT),
+        f_hi(f_lo + kMaxTaps),
+        src(reinterpret_cast<const float**>(f_hi + kMaxTaps)),
+        col(reinterpret_cast<int*>(src + 4 * G::kWin)) {}
+};
+
+// The synthesis windows' sources, resolved once per window row, not once
+// per sample: src[p kWin + r] is plane p's row of window row r, null past
+// the window's extent or (Halo) past both halos; col[c] the axis column of
+// window column c, -1 past the extent. Planes: the block's plane of a, h,
+// v, d; rows: Wrapped or the Halo<float, 4> moved to that plane.
+template <class G, class Rows>
+__device__ __forceinline__ void window_sources(
+    const float* const (&planes)[4], const float** src, int* col,
+    const AxisPlan& pr, const AxisPlan& pc, const Block& blk, int hlen,
+    const Rows& rows) {
+  const int ext = kTile + hlen - 1;
+  for (int r = threadIdx.x; r < G::kWin; r += kThreads) {
+    const int row = window_index<Rows::kHalo>(pr, blk.rho_r, blk.m0, r);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const float* s = nullptr;
+      if (r < ext) {
+        if constexpr (Rows::kHalo)
+          s = rows.row(p, planes[p], row, pr.n, pc.n);
+        else
+          s = planes[p] + static_cast<long long>(row) * pc.n;
+      }
+      src[p * G::kWin + r] = s;
+    }
+  }
+  for (int c = threadIdx.x; c < G::kWinC; c += kThreads)
+    col[c] = c < ext ? window_index(pc, blk.rho_c, blk.q0, c) : -1;
+}
+
+// Issue the asynchronous copies of the four windows into `in` (zero where
+// the source row is missing); the caller commits, waits and synchronises.
+// Every sample of the thread is in flight at once.
+// base >= 0 (level 1, rows of a multiple of 4 samples): window column c
+// holds axis column (base + c) mod n, base the window's first column
+// rounded down to a multiple of 4 (the caller reads the window shifted by
+// the remainder), in 16-byte copies, or 4-byte ones from a row that is not
+// 16-byte aligned; columns past the window's extent hold samples that only
+// zero taps meet. base < 0 (deeper levels: a gather strided by the
+// dilation): a warp takes whole window rows, a lane the same columns
+// col[c] of each, zero past the extent.
+template <class G>
+__device__ __forceinline__ void issue_windows(float* in,
+                                              const float* const* src,
+                                              const int* col, int base,
+                                              int n) {
+  constexpr int kPlane = G::kWin * G::kLdW;
+  if (base >= 0) {
+    constexpr int kQuads = (G::kWinC + 3 + 3) / 4;  // kWinC shifted by <= 3
+    static_assert(4 * kQuads <= G::kLdW, "a shifted window row must fit");
+    for (int i = threadIdx.x; i < G::kWin * kQuads; i += kThreads) {
+      const int r = i / kQuads, q = i - r * kQuads;
+      const int j = (base + 4 * q) % n;
+      float* dst = in + r * G::kLdW + 4 * q;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const float* s = src[p * G::kWin + r];
+        float* d = dst + p * kPlane;
+        if (s == nullptr) {
+          d[0] = d[1] = d[2] = d[3] = 0.f;
+        } else if ((reinterpret_cast<uintptr_t>(s) & 15) == 0) {
+          mma::cp_async16(d, s + j);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mma::cp_async4(d + e, s + j + e);
+        }
+      }
+    }
+    return;
+  }
+  constexpr int kLanes = (G::kWinC + 31) / 32;
+  const int lane = threadIdx.x & 31;
+  int j[kLanes];
+#pragma unroll
+  for (int q = 0; q < kLanes; ++q)
+    j[q] = lane + 32 * q < G::kWinC ? col[lane + 32 * q] : -1;
+  for (int r = threadIdx.x >> 5; r < G::kWin; r += kWarps) {
+    const float* s[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) s[p] = src[p * G::kWin + r];
+    float* dst = in + r * G::kLdW + lane;
+#pragma unroll
+    for (int q = 0; q < kLanes; ++q) {
+      if (lane + 32 * q >= G::kWinC) continue;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        float* d = dst + p * kPlane + 32 * q;
+        if (s[p] != nullptr && j[q] >= 0)
+          mma::cp_async4(d, s[p] + j[q]);
+        else
+          *d = 0.f;
+      }
+    }
+  }
+}
+
+// kR output tiles of a synthesis pass, kK samples apart: c[r] += the
+// products of mma::band_product_pair for the tile at r kK, in its order.
+// The A fragment of window block f serves tile r at k-step f - r, so each
+// fragment is loaded (and, in "highest", split) once for up to kR tiles.
+template <class P, int kSteps, int kR, class Elem0, class Elem1>
+__device__ __forceinline__ void band_tiles(float (&c)[kR][4], Elem0 elem0,
+                                           Elem1 elem1,
+                                           const typename P::B (&b0)[kSteps],
+                                           const typename P::B (&b1)[kSteps]) {
+#pragma unroll
+  for (int f = 0; f < kSteps + kR - 1; ++f) {
+    const auto a0 =
+        P::load_a([&](int m, int k) { return elem0(f * P::kK + k, m); });
+    const auto a1 =
+        P::load_a([&](int m, int k) { return elem1(f * P::kK + k, m); });
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int s = f - r;
+      if (s >= 0 && s < kSteps) {
+        P::mma(c[r], a0, b0[s]);
+        P::mma(c[r], a1, b1[s]);
+      }
+    }
+  }
+}
+
+// The first output (of kTile) of group g of kR tiles kK samples apart: the
+// kTile / 8 tiles of 8 fall into kTile / 8 / kR such groups.
+template <class P, int kR>
+__device__ __forceinline__ int group_first(int g) {
+  constexpr int kEvery = P::kK / 8;
+  return (g / kEvery * kR * kEvery + g % kEvery) * 8;
+}
+
 // Rows: Wrapped (K11b), or the Halo<float, 4> of the shard's planes a, h,
-// v, d (K28's stationary synthesis).
+// v, d (K28's stationary synthesis). The windows arrive by cp.async from a
+// table of source rows (window_sources, issue_windows) while the band's
+// fragments are built; the passes run tiles in groups that share A
+// fragments (band_tiles): pass 1 the kTile / 8 tiles of a window column
+// block that one fragment sequence reaches, pass 2 two.
 template <class P, int kSteps, class Rows>
 __global__ void __launch_bounds__(kThreads)
 tc_iswt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
@@ -302,60 +468,72 @@ tc_iswt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
                  float* __restrict__ out, AxisPlan pr, AxisPlan pc,
                  Taps half_taps, int hlen, int y0, Rows rows) {
   using G = SwtGeom<P, kSteps, 4>;
-  constexpr int kPlane = G::kWin * G::kLdW;
-  constexpr int kT = kTile * G::kLdT;
+  using S = IswtSmem<G>;
   extern __shared__ float smem[];
-  float* s_in = smem;              // a, h, v, d windows, [kWin][kLdW] each
-  float* s_t = s_in + 4 * kPlane;  // t1, t2: [kTile][kLdT] each
-  float* f_lo = s_t + 2 * kT;      // rec / 2 in window order
-  float* f_hi = f_lo + kMaxTaps;
-  int* s_row = reinterpret_cast<int*>(f_hi + kMaxTaps);
-  int* s_col = s_row + G::kWin;
+  const S sm(smem);
 
   const int warp = threadIdx.x >> 5;
   const Block blk(pr, pc, y0);
   const long long plane = static_cast<long long>(pr.n) * pc.n;
   const long long pb = blockIdx.z * plane;
   const float* const in[4] = {a + pb, h + pb, v + pb, d + pb};
-  stage<4, G::kWin, G::kWinC, G::kLdW>(in, s_in, s_row, s_col, pr, pc, blk,
-                                       hlen, half_taps, f_lo, f_hi,
-                                       plane_rows(rows, pc.n));
+  window_sources<G>(in, sm.src, sm.col, pr, pc, blk, hlen,
+                    plane_rows(rows, pc.n));
+  load_reversed_taps(half_taps, hlen, sm.f_lo, sm.f_hi);
   __syncthreads();
-  const Band<P, kSteps> b(f_lo, f_hi, hlen);
+  const int first = window_index(pc, blk.rho_c, blk.q0, 0);
+  const bool quads = pc.cls == 1 && pc.n % 4 == 0;
+  const int shift = quads ? first % 4 : 0;
+  issue_windows<G>(sm.in, sm.src, sm.col, quads ? first - shift : -1, pc.n);
+  mma::cp_async_commit();
+  const Band<P, kSteps> b(sm.f_lo, sm.f_hi, hlen);
+  mma::cp_async_wait<0>();
+  __syncthreads();
 
   // Pass 1, axis -2: t1 = syn(a, h), t2 = syn(v, d), on window columns.
   constexpr int kM1 = G::kWinC / 16, kN = kTile / 8;
-  for (int task = warp; task < 2 * kM1 * kN; task += kWarps) {
-    const int pair = task / (kM1 * kN), rest = task - pair * kM1 * kN;
-    const int m0 = rest / kN * 16, n0 = rest % kN * 8;
-    const float* lo = s_in + (2 * pair) * kPlane + n0 * G::kLdW + m0;
-    const float* hi = lo + kPlane;
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
-    mma::band_product_pair<P>(
+  // (two tiles a task where the band has 2 k-steps or fewer: with all
+  // four, ptxas spills there)
+  constexpr int kR1 = kSteps <= 2 ? 2 : kN * 8 / P::kK, kG1 = kN / kR1;
+  for (int task = warp; task < 2 * kM1 * kG1; task += kWarps) {
+    const int pair = task / (kM1 * kG1), rest = task - pair * kM1 * kG1;
+    const int m0 = rest / kG1 * 16, n0 = group_first<P, kR1>(rest % kG1);
+    const float* lo =
+        sm.in + (2 * pair) * S::kPlane + n0 * G::kLdW + m0 + shift;
+    const float* hi = lo + S::kPlane;
+    float c[kR1][4] = {};
+    band_tiles<P, kSteps, kR1>(
         c, [&](int k, int m) { return lo[k * G::kLdW + m]; },
         [&](int k, int m) { return hi[k * G::kLdW + m]; }, b.lo, b.hi);
-    float* t = s_t + pair * kT;
+    float* t = sm.t + pair * S::kT;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      t[(n0 + mma::c_col(i)) * G::kLdT + m0 + mma::c_row(i)] = c[i];
+    for (int r = 0; r < kR1; ++r)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        t[(n0 + r * P::kK + mma::c_col(i)) * G::kLdT + m0 + mma::c_row(i)] =
+            c[r][i];
   }
   __syncthreads();
 
   // Pass 2, last axis: out = syn(t1, t2).
-  for (int task = warp; task < kTile / 16 * kN; task += kWarps) {
-    const int m0 = task / kN * 16, n0 = task % kN * 8;
-    const float* t1 = s_t + m0 * G::kLdT + n0;
-    const float* t2 = t1 + kT;
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
-    mma::band_product_pair<P>(
+  constexpr int kR2 = 2, kG2 = kN / kR2;
+  for (int task = warp; task < kTile / 16 * kG2; task += kWarps) {
+    const int m0 = task / kG2 * 16, n0 = group_first<P, kR2>(task % kG2);
+    const float* t1 = sm.t + m0 * G::kLdT + n0;
+    const float* t2 = t1 + S::kT;
+    float c[kR2][4] = {};
+    band_tiles<P, kSteps, kR2>(
         c, [&](int k, int m) { return t1[m * G::kLdT + k]; },
         [&](int k, int m) { return t2[m * G::kLdT + k]; }, b.lo, b.hi);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      Store st;
-      if (st.at(pr, pc, blk, m0 + mma::c_row(i), n0 + mma::c_col(i)))
-        out[pb + st.row * pc.n + st.col] = c[i];
-    }
+    for (int r = 0; r < kR2; ++r)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        Store st;
+        if (st.at(pr, pc, blk, m0 + mma::c_row(i),
+                  n0 + r * P::kK + mma::c_col(i)))
+          out[pb + st.row * pc.n + st.col] = c[r][i];
+      }
   }
 }
 
@@ -374,7 +552,8 @@ Instance<SwtKernel<Rows>> swt_instance() {
 
 template <class P, int S, class Rows>
 Instance<IswtKernel<Rows>> iswt_instance() {
-  return {tc_iswt2d_kernel<P, S, Rows>, SwtGeom<P, S, 4>::kSmem};
+  return {tc_iswt2d_kernel<P, S, Rows>,
+          IswtSmem<SwtGeom<P, S, 4>>::kBytes};
 }
 
 // kSteps = ceil((hlen + 7) / kK): 1..6 (TF32), 1..3 (BF16) for hlen 1..40.
@@ -556,4 +735,27 @@ extern "C" int pypwt_tc_iswt2d_sharded(const float* a, const float* h,
             halo.plane(z0, nc));
       },
       true);
+}
+
+// The occupancy API's resident blocks per SM, and the dynamic shared memory
+// in bytes, of the synthesis instance for hlen taps (bf16 as above; halo 1
+// for K28's Halo rows, 0 for K11b's): a figure for reports.
+extern "C" int pypwt_tc_iswt2d_occupancy(int hlen, int bf16, int halo,
+                                         int device, int* blocks,
+                                         int* smem) {
+  using namespace pypwt;
+  if (hlen < 1 || hlen > kMaxTaps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto query = [&](const auto& inst) {
+    *smem = static_cast<int>(inst.smem);
+    cudaError_t e = cudaFuncSetAttribute(
+        inst.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, inst.kernel, kThreads, inst.smem));
+  };
+  return halo ? query(pick_iswt<Halo<float, 4>>(bf16 != 0, hlen))
+              : query(pick_iswt<Wrapped>(bf16 != 0, hlen));
 }

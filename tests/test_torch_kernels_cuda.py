@@ -1141,6 +1141,83 @@ def test_k28_swt_match_plain(dev, wname, case, level, prec):
                                                  prec), prec)
 
 
+# The tile walk of the synthesis kernel behind K11b and K28's stationary
+# synthesis: a plane under one 32 x 32 tile, 33 x 65 tiles at level 1 (no
+# divisor of a persistent grid), a batch of 3, levels 1-4, banks of hlen 2,
+# 4, 16 and 40 (TF32 k-steps 2-6, bf16 1-3), and 16-row shards whose halos
+# at sym8 come from both neighbours at level 2 and from two hops at level 3.
+WALK_BANKS = ["haar", "db2", "sym8", "sym20"]
+WALK_SHAPES = [(20, 24), (33 * 32, 65 * 32), (3, 96, 64)]
+WALK_SHARDS = [(4, (16, 96)), (3, (20, 24)), (2, (3, 40, 72)),
+               (2, (33 * 16, 65 * 32))]
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+@pytest.mark.parametrize("wname", WALK_BANKS)
+@pytest.mark.parametrize("shape", WALK_SHAPES, ids=str)
+@pytest.mark.parametrize("level", [1, 2, 3, 4])
+def test_k11b_tile_walk_matches_plain(dev, wname, shape, level, prec):
+    fb = get_filter_bank(wname)
+    c = [_rand(shape, dev, s) for s in range(1, 5)]
+    n = kms.iswt2d_mxu_fused.launches
+    if kms.iswt2d_mxu_unsupported(*c, fb, level):
+        with pytest.raises(ValueError, match="wider than the plane"):
+            kms.iswt2d_mxu_fused(*c, fb, level, prec)
+        return
+    _close_prec(kms.iswt2d_mxu_fused(*c, fb, level, prec),
+                kms.iswt2d_mxu_plain(*c, fb, level, prec), prec)
+    assert kms.iswt2d_mxu_fused.launches == n + 1
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+@pytest.mark.parametrize("wname", WALK_BANKS)
+@pytest.mark.parametrize("case", WALK_SHARDS, ids=str)
+@pytest.mark.parametrize("level", [1, 2, 3, 4])
+def test_k28_iswt_tile_walk_matches_plain(dev, wname, case, level, prec):
+    fb = get_filter_bank(wname)
+    shards, shape = case
+    c = [_global(shards, shape, dev, s) for s in range(1, 5)]
+    n = kms.iswt2d_sharded_mxu_fused.launches
+    for i in range(shards):
+        body, halos = _coeff_halos(c, shards, i,
+                                   fd.halo_heights("iswt", fb, 0, level))
+        if kms.iswt2d_sharded_mxu_unsupported(*body, halos, fb, level):
+            with pytest.raises(ValueError, match="wider than"):
+                kms.iswt2d_sharded_mxu_fused(*body, halos, fb, level, prec)
+            return
+        _close_prec(kms.iswt2d_sharded_mxu_fused(*body, halos, fb, level,
+                                                 prec),
+                    kms.iswt2d_sharded_mxu_plain(*body, halos, fb, level,
+                                                 prec), prec)
+    assert kms.iswt2d_sharded_mxu_fused.launches == n + shards
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+def test_k11b_k28_iswt_unaligned_planes_match_plain(dev, prec):
+    """Planes and halos one float past a 16-byte boundary: at level 1 the
+    synthesis copies their rows 4 bytes at a time, not 16."""
+    fb = get_filter_bank("sym8")
+
+    def unaligned(t):
+        flat = torch.cat([torch.zeros(1, device=dev), t.flatten()])
+        return flat[1:].view(t.shape)
+
+    c = [unaligned(_rand((64, 96), dev, s)) for s in range(1, 5)]
+    assert c[0].data_ptr() % 16 != 0
+    _close_prec(kms.iswt2d_mxu_fused(*c, fb, 1, prec),
+                kms.iswt2d_mxu_plain(*c, fb, 1, prec), prec)
+    shards = 4
+    g = [_global(shards, (16, 96), dev, s) for s in range(1, 5)]
+    for i in range(shards):
+        body, halos = _coeff_halos(g, shards, i,
+                                   fd.halo_heights("iswt", fb, 0, 1))
+        body = [unaligned(b) for b in body]
+        halos = tuple(unaligned(h) for h in halos)
+        _close_prec(kms.iswt2d_sharded_mxu_fused(*body, halos, fb, 1, prec),
+                    kms.iswt2d_sharded_mxu_plain(*body, halos, fb, 1, prec),
+                    prec)
+
+
 def test_sharded_kernels_refuse_wrong_halos(dev):
     fb = get_filter_bank("db2")
     x = _rand((16, 32), dev)

@@ -99,8 +99,9 @@ def test_k11a_plain_matches_jax_mxu_kernel(wname, shape, level):
 
 
 @pytest.mark.parametrize("wname", WIDE)
-@pytest.mark.parametrize("shape", SHAPES, ids=str)
-@pytest.mark.parametrize("level", [1, 2, 3])
+# and a plane under one 32 x 32 tile of the kernel, and level 4
+@pytest.mark.parametrize("shape", SHAPES + [(20, 24)], ids=str)
+@pytest.mark.parametrize("level", [1, 2, 3, 4])
 def test_k11b_plain_matches_jax_mxu_kernel(wname, shape, level):
     fb, jfb = get_filter_bank(wname), jbank(wname)
     c = [_rand(shape, 10 * level + s) for s in range(4)]

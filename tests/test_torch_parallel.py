@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 
 from pypwt_tpu.core import dwt as jdwt
+from pypwt_tpu.core import swt as jswt
 from pypwt_tpu.filters import get_filter_bank as jbank
 from pypwt_tpu.ops import mxu_dwt as jmx
 from pypwt_tpu.ops import mxu_swt as jmxs
@@ -298,34 +299,89 @@ def test_k28_dwt_plain_matches_jax_sharded_mxu_kernels(wname):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=5e-5)
 
 
-def test_k28_swt_plain_matches_jax_sharded_mxu_kernels():
-    S, n, nc, level = 4, 32, 128, 1
-    x = RNG.standard_normal((S * n, nc)).astype(np.float32)
-    fb, jfb = get_filter_bank("sym8"), jbank("sym8")
-    fj, hh = jmxs.build_swt2d_sharded_mxu(n, nc, _taps(jfb.dec_lo),
-                                          _taps(jfb.dec_hi), level, True)
-    gj, hj = jmxs.build_iswt2d_sharded_mxu(n, nc, _taps(jfb.rec_lo),
-                                           _taps(jfb.rec_hi), level, True)
-    coeffs = []
+# wname, shards, shard rows, columns, level, batch
+K28_SWT_CASES = [
+    ("sym8", 4, 32, 128, 1, ()),
+    ("sym8", 4, 16, 96, 2, ()),   # 16-row shards: halos from two neighbours
+    ("db2", 4, 32, 64, 4, ()),    # level 4
+    ("sym8", 3, 20, 24, 1, ()),   # a shard under one 32 x 32 tile
+    ("db4", 2, 32, 64, 1, (3,)),  # a batch of 3 planes
+]
+
+
+def _jax_jnp(fn, *args):
+    jdwt.set_kernels("jnp")
+    try:
+        return fn(*args)
+    finally:
+        jdwt.set_kernels("auto")
+
+
+@pytest.mark.parametrize("k", range(len(K28_SWT_CASES)))
+def test_k28_swt_plain_matches_jax_sharded_mxu_kernels(k):
+    """K28's stationary plain versions, shard by shard, against JAX's
+    sharded MXU kernels on their own halo bands, plane by plane; where JAX
+    builds no kernel (a shard under its band), against its jnp level of
+    the whole plane, cut into shards."""
+    wname, S, n, nc, level, batch = K28_SWT_CASES[k]
+    # the first case draws from the module's RNG, as it always has
+    rng = RNG if k == 0 else np.random.default_rng(100 + k)
+    x = rng.standard_normal((*batch, S * n, nc)).astype(np.float32)
+    fb, jfb = get_filter_bank(wname), jbank(wname)
+    ana = jmxs.build_swt2d_sharded_mxu(n, nc, _taps(jfb.dec_lo),
+                                       _taps(jfb.dec_hi), level, True)
+    syn = jmxs.build_iswt2d_sharded_mxu(n, nc, _taps(jfb.rec_lo),
+                                        _taps(jfb.rec_hi), level, True)
+
+    def per_plane(fn, planes):
+        """fn on each plane of the batch, stacked back to its shape."""
+        flat = [p.reshape(-1, S * n, nc) for p in planes]
+        outs = [fn(*(p[j] for p in flat)) for j in range(len(flat[0]))]
+        if isinstance(outs[0], list):
+            return [np.stack([o[q] for o in outs]).reshape(
+                *batch, S * n, nc) for q in range(len(outs[0]))]
+        return np.stack(outs).reshape(*batch, S * n, nc)
+
+    def jax_ana(xp):
+        if ana is None:
+            return [np.asarray(r) for r in _jax_jnp(
+                jswt.swt2d_level, jnp.asarray(xp), jfb, level)]
+        fj, hh = ana
+        outs = [fj(*(jnp.asarray(t) for t in _shard(xp, S, i, hh, hh)))
+                for i in range(S)]
+        return [np.concatenate([np.asarray(o[q]) for o in outs], 0)
+                for q in range(4)]
+
+    def jax_syn(*c):
+        if syn is None:
+            return np.asarray(_jax_jnp(jswt.iswt2d_level,
+                                       *(jnp.asarray(p) for p in c), jfb,
+                                       level))
+        gj, hj = syn
+        outs = []
+        for i in range(S):
+            parts = [_shard(p, S, i, hj, hj) for p in c]
+            outs.append(np.asarray(gj(
+                *(jnp.asarray(p[0]) for p in parts),
+                tuple(jnp.asarray(h) for p in parts for h in p[1:]))))
+        return np.concatenate(outs, 0)
+
+    coeffs = per_plane(jax_ana, [x])
     for i in range(S):
-        b, t, o = _shard(x, S, i, hh, hh)
-        ref = fj(jnp.asarray(b), jnp.asarray(t), jnp.asarray(o))
         b, t, o = _shard(x, S, i, *fd.halo_heights("swt", fb, n, level))
         got = kms.swt2d_sharded_mxu_plain(_t(b), _t(t), _t(o), fb, level)
-        for g, r in zip(got, ref):
-            np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=5e-5)
-        coeffs.append([np.asarray(r) for r in ref])
-    planes = [np.concatenate([c[k] for c in coeffs], 0) for k in range(4)]
+        for g, r in zip(got, coeffs):
+            np.testing.assert_allclose(g.numpy(), r[..., i * n:(i + 1) * n, :],
+                                       atol=5e-5)
+    ref = per_plane(jax_syn, coeffs)
     for i in range(S):
-        parts = [_shard(p, S, i, hj, hj) for p in planes]
-        ref = gj(*(jnp.asarray(p[0]) for p in parts),
-                 tuple(jnp.asarray(h) for p in parts for h in p[1:]))
         parts = [_shard(p, S, i, *fd.halo_heights("iswt", fb, n, level))
-                 for p in planes]
+                 for p in coeffs]
         got = kms.iswt2d_sharded_mxu_plain(*(_t(p[0]) for p in parts),
                                            tuple(_t(h) for p in parts
                                                  for h in p[1:]), fb, level)
-        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=5e-5)
+        np.testing.assert_allclose(got.numpy(), ref[..., i * n:(i + 1) * n, :],
+                                   atol=5e-5)
 
 
 # -- the path in kernel modes, against JAX in the same modes ---------------
