@@ -123,8 +123,8 @@ prints its traceback and exits non-zero without the final ok line:
    path; then K5 against K1 and K6 against K2 at sym8 level 0, K11a against
    K8 and K11b against K9 at sym8 level 1, each with its plain version and
    its "bf16" time; K7a/K7b against K3/K4 and K12a/K12b against K10 at
-   sym8, levels 1-3 of the sinogram and levels 1-5 (DWT) and 1-3 (SWT) of
-   the signal; the float64 instances of K1-K4 against their float32 ones;
+   sym8, levels 1-3 of the sinogram and levels 1-5 (DWT, K7a/K7b in both
+   precisions) and 1-3 (SWT) of the signal; the float64 instances of K1-K4 against their float32 ones;
    K24/K25 against their plain versions and K1/K2 once per level, and the
    two-level tail of tail fusion; the L3 roundtrip per level, tail-fused
    and all-levels, device and wall, in turns, and the per-level roundtrip
@@ -158,15 +158,20 @@ K7a/K7b against K3/K4 (level l: 2048 rows of 2048 / 2^(l-1)) and
 K12a/K12b against K10 (level l of 2048 x 2048); it prints no ok line.
 
 ``--only KEYS`` is the loop of a kernel redesign: KEYS, comma-separated,
-name rows of the kernels line (a family such as K28 names all of its
-rows); the tensor-core 2D forms K5/K6/K11a/K11b, the row-sharded K26-K28
-and the grid and sequence passes K29 are selectable.  It builds every
-kernel, then runs only those rows' phases: their kernel-against-plain
-checks over the cases above (both precisions), their main paths with
-exact launch counts, and their times at the table's shapes (K11b also at
-levels 1-3 of 2048^2, and the occupancy of K11b's and K28 iswt's
-synthesis instances); a K29 row runs all of the grid and sequence
-phases.  It prints the kernels line of those rows and no ok line.
+name rows of the kernels line (a family such as K7, K28 or K29 names all
+of its rows); the tensor-core forms K5/K6/K11a/K11b and K7a/K7b, the
+row-sharded K26-K28 and the grid and sequence passes K29 are selectable.
+It builds every kernel, then runs only those rows' phases: their
+kernel-against-plain checks over the cases above (both precisions),
+their main paths with exact launch counts, and their times at the
+table's shapes (K11b also at levels 1-3 of 2048^2, and the occupancy of
+K11b's and K28 iswt's synthesis instances; K7a/K7b at levels 1-3 of the
+sinogram and 1-5 of the signal beside K3/K4, and the occupancy of the
+tc_dwt1d.cu instances that K7a/K7b and K29e/K29f run); a K29 row runs
+all of the grid and sequence checks and main paths, but times only the
+selected rows (K29e-K29h in both precisions, K29e/K29f also on a
+sequence shard) and no roundtrip.  It prints the kernels line of those
+rows and no ok line.
 """
 
 import ctypes
@@ -1668,6 +1673,41 @@ def print_iswt_occupancy(port, dev):
                   "shared memory each")
 
 
+# (key, synthesis, halo, rows, samples or coefficients per row): the
+# launches K7a/K7b make at level 1 of the sinogram and K29e/K29f on a
+# 4096^2 grid block
+TC1D_LAUNCHES = (("K7a", 0, 0, FRAME[0], FRAME[1]),
+                 ("K7b", 1, 0, FRAME[0], FRAME[1] // 2),
+                 ("K29e", 0, 1, 4096, 4096), ("K29f", 1, 1, 4096, 2048))
+
+
+def print_tc1d_occupancy(port, dev, keys):
+    """Resident blocks per SM (the occupancy API), dynamic shared memory
+    and grid of the tc_dwt1d.cu instances that K7a/K7b and K29e/K29f run
+    at sym8 on their timed shapes (a build without the query says so)."""
+    from pypwt_tpu_torch.ops import _build
+    lib = _build.load_library()
+    if not hasattr(lib, "pypwt_tc_dwt1d_occupancy"):
+        print("occupancy tc_dwt1d.cu: not reported by this build")
+        return
+    hlen = port.get_filter_bank("sym8").hlen
+    for key, syn, halo, rows, n in TC1D_LAUNCHES:
+        if not wanted(keys, key):
+            continue
+        for prec in PRECISIONS:
+            blocks, smem, grid = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+            err = lib.pypwt_tc_dwt1d_occupancy(
+                syn, rows, n, hlen, int(prec == "bf16"), halo, dev.index,
+                ctypes.byref(blocks), ctypes.byref(smem), ctypes.byref(grid))
+            if err:
+                raise RuntimeError(f"occupancy query {key} {prec}: error "
+                                   f"{err}")
+            print(f"occupancy {key} sym8 {prec} ({rows} rows of {n}): "
+                  f"{blocks.value} blocks of 256 threads per SM, "
+                  f"{smem.value} bytes of dynamic shared memory each, grid "
+                  f"{grid.value}")
+
+
 def phase_library(port, dev, card, keys=None):
     """library_ms: beside each kernel, one PyTorch call that computes the
     same function at the kernel's timed shape, a strided, transposed or
@@ -1985,16 +2025,18 @@ def load_fft_oracle():
     return fft
 
 
-def phase_kernels_mxu1d(port, dev):
+def phase_kernels_mxu1d(port, dev, keys=None):
     """K7a/K7b and K12a/K12b (levels 1-4) against their banded plain
     versions in both precisions on 2048 rows of 2048 and a (1, 4 Mi) row, at
     db2, sym8 and sym20 (hlen 4, 16, 40), each launch counted; then against
     the float64 oracle on small rows.  The worst "highest" errors go to the
-    kernels line; the "bf16" ones are printed."""
+    kernels line; the "bf16" ones are printed.  ``keys``: only those rows
+    (--only)."""
     km, kms = port.ops.mxu_dwt, port.ops.mxu_swt
     gen = torch.Generator(device=dev).manual_seed(SEED + 16)
-    worst = {p: {"K7a": 0.0, "K7b": 0.0, "K12a": 0.0, "K12b": 0.0}
-             for p in PRECISIONS}
+    rows = [k for k in ("K7a", "K7b", "K12a", "K12b") if wanted(keys, k)]
+    k12 = wanted(keys, "K12a", "K12b")
+    worst = {p: dict.fromkeys(rows, 0.0) for p in PRECISIONS}
     for name in MXU1D_BANKS:
         fb = port.get_filter_bank(name)
         for shape in SHAPES_MXU1D:
@@ -2014,14 +2056,16 @@ def phase_kernels_mxu1d(port, dev):
                         raise AssertionError(f"{key} {what}: {e}") from None
 
                 what = (name, shape, prec)
-                got = launched_once(km.dwt1d_mxu_fused,
-                                    lambda: km.dwt1d_mxu_fused(x, fb, prec))
-                note("K7a", got, km.dwt1d_mxu_plain(x, fb, prec), what)
-                got = launched_once(km.idwt1d_mxu_fused, lambda: (
-                    km.idwt1d_mxu_fused(*c, fb, shape[1], prec)))
-                note("K7b", got, km.idwt1d_mxu_plain(*c, fb, shape[1], prec),
-                     what)
-                for level in (1, 2, 3, 4):
+                if wanted(keys, "K7a"):
+                    got = launched_once(km.dwt1d_mxu_fused, lambda: (
+                        km.dwt1d_mxu_fused(x, fb, prec)))
+                    note("K7a", got, km.dwt1d_mxu_plain(x, fb, prec), what)
+                if wanted(keys, "K7b"):
+                    got = launched_once(km.idwt1d_mxu_fused, lambda: (
+                        km.idwt1d_mxu_fused(*c, fb, shape[1], prec)))
+                    note("K7b", got,
+                         km.idwt1d_mxu_plain(*c, fb, shape[1], prec), what)
+                for level in (1, 2, 3, 4) if k12 else ():
                     if kms.swt1d_mxu_unsupported(x, fb, level):
                         continue
                     got = launched_once(kms.swt1d_mxu_fused, lambda: (
@@ -2061,11 +2105,12 @@ def phase_kernels_mxu1d(port, dev):
         ts = [torch.from_numpy(t).to(dev) for t in s]
         line = []
         for prec in PRECISIONS:
-            gots = {"K7a": km.dwt1d_mxu_fused(tx, fb, prec),
-                    "K7b": [km.idwt1d_mxu_fused(*tc, fb, 96, prec)],
-                    "K12a": kms.swt1d_mxu_fused(tx, fb, 2, prec),
-                    "K12b": [kms.iswt1d_mxu_fused(*ts, fb, 2, prec)]}
-            for key, got in gots.items():
+            gots = {"K7a": lambda: km.dwt1d_mxu_fused(tx, fb, prec),
+                    "K7b": lambda: [km.idwt1d_mxu_fused(*tc, fb, 96, prec)],
+                    "K12a": lambda: kms.swt1d_mxu_fused(tx, fb, 2, prec),
+                    "K12b": lambda: [kms.iswt1d_mxu_fused(*ts, fb, 2, prec)]}
+            for key in rows:
+                got = gots[key]()
                 got = [g.cpu().numpy() for g in got]
                 if prec == "highest":
                     e = max(float(np.abs(g - r).max())
@@ -2275,35 +2320,43 @@ def drive_mxu1d(port, dev, img, wname, levels, prec, want, what, **kw):
     return launches
 
 
-def phase_main_paths_mxu1d(port, dev):
+def phase_main_paths_mxu1d(port, dev, keys=None):
     """Mode "mxu", both precisions, sym8: the 2048 x 2048 sinogram as
     batched 1D, DWT L3 (3 K7a, 3 K7b, no K3/K4) and SWT L3 (3 K12a, 3
     K12b, no K10), and one 4 Mi-sample signal, DWT L5 (5 + 5) and SWT L3
-    (3 + 3), each against the CPU plan."""
+    (3 + 3), each against the CPU plan.  ``keys``: only the transforms
+    whose kernels are among them (--only)."""
     sino = frame(FRAME, SEED + 18)
     sig = frame((SIGNAL,), SEED + 19)
+    dwt, swt = wanted(keys, "K7a", "K7b"), wanted(keys, "K12a", "K12b")
     launches = {}
     for prec in PRECISIONS:
-        got = drive_mxu1d(
-            port, dev, sino, "sym8", 3, prec,
-            {"dwt1d_mxu_fused": 3, "idwt1d_mxu_fused": 3},
-            f"mxu {prec} batched-1D sym8 L3 {FRAME}", ndim=1)
-        got.update(drive_mxu1d(
-            port, dev, sino, "sym8", 3, prec,
-            {"swt1d_mxu_fused": 3, "iswt1d_mxu_fused": 3},
-            f"mxu {prec} batched-1D SWT sym8 L3 {FRAME}", ndim=1, do_swt=1))
+        got = {}
+        if dwt:
+            got.update(drive_mxu1d(
+                port, dev, sino, "sym8", 3, prec,
+                {"dwt1d_mxu_fused": 3, "idwt1d_mxu_fused": 3},
+                f"mxu {prec} batched-1D sym8 L3 {FRAME}", ndim=1))
+        if swt:
+            got.update(drive_mxu1d(
+                port, dev, sino, "sym8", 3, prec,
+                {"swt1d_mxu_fused": 3, "iswt1d_mxu_fused": 3},
+                f"mxu {prec} batched-1D SWT sym8 L3 {FRAME}", ndim=1,
+                do_swt=1))
         if prec == "highest":
             launches = got
-        drive_mxu1d(port, dev, sig, "sym8", 5, prec,
-                    {"dwt1d_mxu_fused": 5, "idwt1d_mxu_fused": 5},
-                    f"mxu {prec} signal sym8 L5 ({SIGNAL},)")
-        drive_mxu1d(port, dev, sig, "sym8", 3, prec,
-                    {"swt1d_mxu_fused": 3, "iswt1d_mxu_fused": 3},
-                    f"mxu {prec} signal SWT sym8 L3 ({SIGNAL},)", do_swt=1)
-    return {"K7a": launches["dwt1d_mxu_fused"],
-            "K7b": launches["idwt1d_mxu_fused"],
-            "K12a": launches["swt1d_mxu_fused"],
-            "K12b": launches["iswt1d_mxu_fused"]}
+        if dwt:
+            drive_mxu1d(port, dev, sig, "sym8", 5, prec,
+                        {"dwt1d_mxu_fused": 5, "idwt1d_mxu_fused": 5},
+                        f"mxu {prec} signal sym8 L5 ({SIGNAL},)")
+        if swt:
+            drive_mxu1d(port, dev, sig, "sym8", 3, prec,
+                        {"swt1d_mxu_fused": 3, "iswt1d_mxu_fused": 3},
+                        f"mxu {prec} signal SWT sym8 L3 ({SIGNAL},)",
+                        do_swt=1)
+    names = {"K7a": "dwt1d_mxu_fused", "K7b": "idwt1d_mxu_fused",
+             "K12a": "swt1d_mxu_fused", "K12b": "iswt1d_mxu_fused"}
+    return {k: launches[v] for k, v in names.items() if wanted(keys, k)}
 
 
 def phase_main_paths_f64(port, dev):
@@ -2429,14 +2482,15 @@ def mxu1d_cases(port, fb, rows, level):
     }
 
 
-def phase_times_mxu1d(port, dev, card):
+def phase_times_mxu1d(port, dev, card, keys=None):
     """K7a against K3 and K7b against K4 at sym8 levels 1-3 of the 2048 x
     2048 sinogram (level l: 2048 rows of 2048 / 2^(l-1)), K12a against K10a
     and K12b against K10b at levels 1-3 of 2048 x 2048, each with its plain
     version ("highest") and its "bf16" time, in turns within this call
     (device time: the 1D paths are host-bound); then levels 1-5 of the 4 Mi
-    signal's DWT and 1-3 of its SWT, tensor-core kernel against tap loop.
-    Level 1 of the sinogram goes to the kernels line."""
+    signal's DWT (K7a/K7b in both precisions) and 1-3 of its SWT,
+    tensor-core kernel against tap loop.  Level 1 of the sinogram goes to
+    the kernels line.  ``keys``: only those rows (--only)."""
     fb = port.get_filter_bank("sym8")
     gen = torch.Generator(device=dev).manual_seed(SEED + 21)
     rows = [torch.rand(FRAME, generator=gen, device=dev) * 255
@@ -2446,6 +2500,8 @@ def phase_times_mxu1d(port, dev, card):
     for level in (1, 2, 3):
         n, cases = mxu1d_cases(port, fb, rows, level)
         for key, calls in cases.items():
+            if not wanted(keys, key):
+                continue
             t = in_turns(calls, reps)
             tap = {"K7a": "K3", "K7b": "K4", "K12a": "K10a",
                    "K12b": "K10b"}[key]
@@ -2464,11 +2520,20 @@ def phase_times_mxu1d(port, dev, card):
         parts = [s[:, :n].contiguous() for s in sigs]
         nx = itertools.cycle(parts).__next__
         dc = itertools.cycle([fd.dwt1d_fused(p, fb) for p in parts]).__next__
-        calls = {"K7a": lambda: km.dwt1d_mxu_fused(nx(), fb),
-                 "K3": lambda: fd.dwt1d_fused(nx(), fb),
-                 "K7b": lambda: km.idwt1d_mxu_fused(*dc(), fb, n),
-                 "K4": lambda: fd.idwt1d_fused(*dc(), fb, n)}
-        if level <= 3:
+        calls = {}
+        if wanted(keys, "K7a"):
+            calls.update({
+                "K7a": lambda: km.dwt1d_mxu_fused(nx(), fb),
+                "K7a bf16": lambda: km.dwt1d_mxu_fused(nx(), fb, "bf16"),
+                "K3": lambda: fd.dwt1d_fused(nx(), fb)})
+        if wanted(keys, "K7b"):
+            calls.update({
+                "K7b": lambda: km.idwt1d_mxu_fused(*dc(), fb, n),
+                "K7b bf16": lambda: km.idwt1d_mxu_fused(*dc(), fb, n,
+                                                        "bf16"),
+                "K4": lambda: fd.idwt1d_fused(*dc(), fb, n)})
+        swt = level <= 3 and wanted(keys, "K12a", "K12b")
+        if swt:
             sx = itertools.cycle(sigs).__next__
             sc = itertools.cycle([fd.swt1d_fused(s, fb, level)
                                   for s in sigs]).__next__
@@ -2478,8 +2543,7 @@ def phase_times_mxu1d(port, dev, card):
                 "K12b": lambda: kms.iswt1d_mxu_fused(*sc(), fb, level),
                 "K10b": lambda: fd.iswt1d_fused(*sc(), fb, level)})
         t = in_turns(calls, dict.fromkeys(calls, 10))
-        rows = f"(1, {n}) DWT" + (f", (1, {SIGNAL}) SWT" if level <= 3
-                                  else "")
+        rows = f"(1, {n}) DWT" + (f", (1, {SIGNAL}) SWT" if swt else "")
         print(f"time signal sym8 level {level} ({rows}), device us: "
               + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in t.items())
               + f"  [{card}]")
@@ -3987,13 +4051,14 @@ def _syn_offset(hlen):
     return hlen - 2 + (1 - h2 % 2) - 2 * (h2 // 2)
 
 
-def grid_calls(port, fb, mxu, key, globs, dev):
+def grid_calls(port, fb, mxu, key, globs, dev, bf16=False):
     """(timed calls, library ms) of one K29 entry at level 0 of
     block (1, 1) of each global 8192^2 plane on a 2 x 2 grid: the lanes
     pass on the 4096^2 block, the rows pass on its column pass's output t1
     (4096 x 2048), the syntheses on the coefficients of each; the library
     call (one convolution on the window padded outside the timed call) is
-    checked against the kernel and timed here."""
+    checked against the kernel and timed here.  ``bf16``: a tensor-core
+    entry's "bf16" call too."""
     conv, fd = port.conv, port.ops.fused_dwt
     n = GRID_SHARD[0]
     h = fb.hlen
@@ -4057,10 +4122,54 @@ def grid_calls(port, fb, mxu, key, globs, dev):
     nx = itertools.cycle(ins).__next__
     calls = {"kernel": lambda: call(*nx(), fb),
              "plain": lambda: plain(*nx(), fb)}
+    if bf16:
+        _, _, call16, _ = k29_entry(port, kind, axis, mxu, "bf16")
+        calls["bf16"] = lambda: call16(*nx(), fb)
     out = call(*ins[0], fb)
     kernel_out = torch.stack(out) if isinstance(out, tuple) else out
     libcall = lib if crop is None else (lambda z: crop(lib(z)))
     return calls, library_time(libcall, lib_in, kernel_out)
+
+
+def time_seq_shard_mxu(port, dev, card, keys, gen):
+    """K29e and K29f at sym8 on one sequence shard (2^24 samples, and its
+    2^23 coefficient pairs) of a 2^26-sample signal over 4 shards, both
+    precisions, against K7a/K7b on the same shard without halos, in
+    turns."""
+    conv, km, fd = port.conv, port.ops.mxu_dwt, port.ops.fused_dwt
+    fb = port.get_filter_bank("sym8")
+    h = fb.hlen
+    n = SEQ // N_SHARDS
+    m = n // 2
+    sig = torch.rand(SEQ, generator=gen, device=dev) * 255
+    lp, rp = conv.analysis_pads(h)
+    ana = [_split(_window(sig[None], 0, 1, c0, n, 0, 0, lp, rp), lp, n, -1)
+           for c0 in (0, n)]
+    co = fd.dwt1d_fused(sig[None], fb)
+    lpi, rpi = conv.synthesis_pads(h, m, n)
+    syn = []
+    for c0 in (0, m):
+        pa, pd = (_split(_window(p, 0, 1, c0, m, 0, 0, lpi, rpi), lpi, m, -1)
+                  for p in co)
+        syn.append((pa[0], pd[0], (*pa[1:], *pd[1:])))
+    del sig, co
+    na, ns = itertools.cycle(ana).__next__, itertools.cycle(syn).__next__
+    calls = {}
+    if wanted(keys, "K29e"):
+        calls.update({
+            "K29e": lambda: km.ana_lanes_mxu_fused(*na(), fb),
+            "K29e bf16": lambda: km.ana_lanes_mxu_fused(*na(), fb, "bf16"),
+            "K7a on the shard": lambda: km.dwt1d_mxu_fused(na()[0], fb)})
+    if wanted(keys, "K29f"):
+        calls.update({
+            "K29f": lambda: km.syn_lanes_mxu_fused(*ns(), fb),
+            "K29f bf16": lambda: km.syn_lanes_mxu_fused(*ns(), fb, "bf16"),
+            "K7b on the shard": lambda: km.idwt1d_mxu_fused(
+                *ns()[:2], fb, n)})
+    t = in_turns(calls, dict.fromkeys(calls, 10))
+    print(f"time sym8 on a {n}-sample sequence shard, device us: "
+          + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in t.items())
+          + f"  [{card}]")
 
 
 def grid_work(port):
@@ -4084,7 +4193,7 @@ def grid_work(port):
     return out
 
 
-def phase_times_grid(port, dev, card):
+def phase_times_grid(port, dev, card, keys=None):
     """Device time of each K29 entry at level 0 of one 4096^2 block of the
     8192^2 grid (K29a-K29d at db2, K29e-K29h at sym8 "highest"; the lanes
     pass on the block, the rows pass on its column pass's 4096 x 2048
@@ -4093,7 +4202,9 @@ def phase_times_grid(port, dev, card):
     along the lanes, conv2d / conv_transpose2d with an (hlen, 1) kernel
     along the rows); K29a on one 2^24-sample sequence shard; then the 8192^2
     db2 L3 roundtrip three ways, device and wall: the 2 x 2 grid, 4 row
-    shards, the unsharded plan."""
+    shards, the unsharded plan.  ``keys`` (--only): those rows alone, the
+    tensor-core ones in both precisions and K29e/K29f also on a sequence
+    shard, and no roundtrip."""
     par = port.parallel
     gen = torch.Generator(device=dev).manual_seed(SEED + 58)
     globs = [torch.rand(BIG, generator=gen, device=dev) * 255
@@ -4102,18 +4213,28 @@ def phase_times_grid(port, dev, card):
     torch.backends.cudnn.benchmark = True
     try:
         for i, key in enumerate(K29):
+            if not wanted(keys, key):
+                continue
             mxu = i >= 4
             fb = port.get_filter_bank("sym8" if mxu else "db2")
-            calls, lib = grid_calls(port, fb, mxu, key, globs, dev)
-            t = in_turns(calls, {"kernel": 10, "plain": 3})
+            calls, lib = grid_calls(port, fb, mxu, key, globs, dev,
+                                    bf16=mxu and keys is not None)
+            t = in_turns(calls, dict(kernel=10, plain=3, bf16=10))
             times[key] = (t["kernel"], t["plain"])
             library[key] = lib
+            bf16 = (f", bf16 {t['bf16'] * 1e3:.1f} us" if "bf16" in t
+                    else "")
             print(f"time {key} {fb.name} level 0 of a {GRID_SHARD} grid "
-                  f"block, device: kernel {t['kernel'] * 1e3:.1f} us, plain "
-                  f"{t['plain'] * 1e3:.1f} us, library {lib * 1e3:.1f} us  "
-                  f"[{card}]")
+                  f"block, device: kernel {t['kernel'] * 1e3:.1f} us{bf16}, "
+                  f"plain {t['plain'] * 1e3:.1f} us, library "
+                  f"{lib * 1e3:.1f} us  [{card}]")
     finally:
         torch.backends.cudnn.benchmark = False
+    if keys is not None:
+        del globs
+        if wanted(keys, "K29e", "K29f"):
+            time_seq_shard_mxu(port, dev, card, keys, gen)
+        return times, library
     fb = port.get_filter_bank("db2")
     conv, fd = port.conv, port.ops.fused_dwt
     n = SEQ // N_SHARDS
@@ -4291,19 +4412,28 @@ def bound(nbytes, flops):
 MXU2D_KEYS = ("K5", "K6", "K11a", "K11b")
 SHARD_KEYS = ("K26a", "K26b", "K27a", "K27b", "K28 dwt", "K28 idwt",
               "K28 swt", "K28 iswt")
-ONLY_KEYS = MXU2D_KEYS + SHARD_KEYS + K29
+MXU1D_KEYS = ("K7a", "K7b")
+ONLY_KEYS = MXU2D_KEYS + MXU1D_KEYS + SHARD_KEYS + K29
+
+
+def in_family(key, item):
+    """Whether row ``key`` is ``item`` or of its family: ``item`` and a
+    space (K28 dwt) or ``item`` and one letter (K7a, K29e)."""
+    rest = key[len(item):] if key.startswith(item) else None
+    return rest is not None and (
+        rest == "" or rest[0] == " " or (len(rest) == 1 and rest.isalpha()))
 
 
 def only_keys(spec):
     """The rows that ``--only`` names: each comma-separated item is a row's
-    key or a family (every key that starts with it and a space), or
-    SystemExit."""
+    key or a family (K7, K28, K29), or SystemExit."""
     keys = set()
     for item in (t.strip() for t in spec.split(",")):
-        got = {k for k in ONLY_KEYS if k == item or k.startswith(item + " ")}
+        got = {k for k in ONLY_KEYS if in_family(k, item)}
         if not got:
             print(f"chip_smoke: --only {item!r} names no selectable row "
-                  f"(one of {', '.join(ONLY_KEYS)}, or K28)", file=sys.stderr)
+                  f"(one of {', '.join(ONLY_KEYS)}, or K7, K28, K29)",
+                  file=sys.stderr)
             sys.exit(2)
         keys |= got
     return keys
@@ -4327,6 +4457,13 @@ def run_only(port, dev, card, keys):
         phase_times_k11b_levels(port, dev, card)
     if wanted(keys, "K11b", "K28 iswt"):
         print_iswt_occupancy(port, dev)
+    if wanted(keys, *MXU1D_KEYS):
+        worst.update(phase_kernels_mxu1d(port, dev, keys))
+        launches.update(phase_main_paths_mxu1d(port, dev, keys))
+        times.update(phase_times_mxu1d(port, dev, card, keys))
+        library.update(phase_library(port, dev, card, keys))
+    if wanted(keys, "K7a", "K7b", "K29e", "K29f"):
+        print_tc1d_occupancy(port, dev, keys)
     if wanted(keys, *SHARD_KEYS):
         worst.update(phase_kernels_sharded(port, dev, keys))
         launches.update(phase_main_paths_sharded(port, dev, keys))
@@ -4338,7 +4475,7 @@ def run_only(port, dev, card, keys):
         worst.update(phase_kernels_grid(port, dev))
         launches.update(phase_main_paths_grid(port, dev))
         phase_audit_grid(port, dev)
-        grid_times, grid_library = phase_times_grid(port, dev, card)
+        grid_times, grid_library = phase_times_grid(port, dev, card, keys)
         times.update(grid_times)
         library.update(grid_library)
     print(json.dumps({"kernels": kernel_rows(

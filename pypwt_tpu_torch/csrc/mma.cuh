@@ -77,9 +77,11 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 #endif
 
 // Asynchronous copies from device to shared memory: one float
-// (cp.async.ca, 4 bytes) or four (cp.async.cg, 16 bytes, both addresses
-// 16-byte aligned). No register holds the samples, so a thread can have
-// all of its window in flight at once. A thread commits its copies as one
+// (cp.async.ca, 4 bytes) or four (16 bytes, both addresses 16-byte
+// aligned: cp.async.cg, through L2 only, or cp_async16_ca, cached in L1
+// too, which the 1D windows of tc_dwt1d.cu measured faster in "bf16").
+// No register holds the samples, so a thread can have all of its window
+// in flight at once. A thread commits its copies as one
 // group and waits until at most kPending of its groups are pending; after
 // the wait, a __syncthreads makes every thread's copies visible to the
 // block. The CPU rehearsal copies at once and waits for nothing.
@@ -87,6 +89,9 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 inline void cp_async4(float* dst, const float* src) { *dst = *src; }
 inline void cp_async16(float* dst, const float* src) {
   for (int e = 0; e < 4; ++e) dst[e] = src[e];
+}
+inline void cp_async16_ca(float* dst, const float* src) {
+  cp_async16(dst, src);
 }
 inline void cp_async_commit() {}
 template <int kPending>
@@ -101,6 +106,12 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16_ca(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src)
                : "memory");
 }
 

@@ -127,6 +127,9 @@ _SIGNATURES = {
     "pypwt_tc_iswt2d_sharded": [_P] * 6 + [_I] * 7 + [_P, _P, _I, _I, _I, _P],
     # hlen, bf16, halo, device, blocks (int*), smem (int*)
     "pypwt_tc_iswt2d_occupancy": [_I] * 4 + [_P, _P],
+    # synthesis, rows, n, hlen, bf16, halo, device, blocks (int*),
+    # smem (int*), grid (int*)
+    "pypwt_tc_dwt1d_occupancy": [_I] * 7 + [_P] * 3,
     # the one-axis passes of the grid and sequence layouts (K29); halos:
     # host array of the four halo pointers (lo_before, lo_after, hi_before,
     # hi_after)

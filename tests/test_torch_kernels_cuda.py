@@ -1441,6 +1441,83 @@ def test_k29_kernels_refuse_wrong_halos(dev):
         fd.ana_rows_fused(_rand((2, 16, 32), dev), x[:1], x[:1], fb)
 
 
+# -- the line walk of K7a/K7b and K29e/K29f (csrc/tc_dwt1d.cu) ---------------
+
+# banks of hlen 4, 16 and 40
+LINE_BANKS = ["db2", "sym8", "sym20"]
+# rows of n = 2 x odd samples (each row's window starts at another offset
+# from a 16-byte boundary, and so does each coefficient row), rows shorter
+# than the bank (a wrap wider than the row), one line of 1024 outputs and
+# one line plus 8, many short rows per item, row counts that are not a
+# multiple of the rows per item, one 4 Mi-sample signal (2048 lines)
+LINE_SHAPES = [(7, 74), (5, 2002), (3, 4), (2, 16), (4, 2048), (3, 2064),
+               (300, 8), (1000, 32), (37, 64), (129, 16), (1, 1 << 22)]
+# (shards, shard shape) along the samples: halos on both sides of a line
+# plus 8 outputs, of rows 2 x odd, of short rows, of one signal's shards
+LINE_SHARDS = [(4, (3, 2064)), (2, (5, 2002)), (4, (37, 64)),
+               (8, (1, 1 << 19))]
+OFFSETS = [0, 1]  # floats past a 16-byte boundary of each tensor's start
+
+
+def _offset(t, floats):
+    """t's values in a tensor whose data starts ``floats`` floats past
+    where a fresh allocation would."""
+    if floats == 0:
+        return t
+    flat = torch.cat([torch.zeros(floats, device=t.device), t.flatten()])
+    return flat[floats:].view(t.shape)
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+@pytest.mark.parametrize("wname", LINE_BANKS)
+@pytest.mark.parametrize("shape", LINE_SHAPES, ids=str)
+@pytest.mark.parametrize("offset", OFFSETS)
+def test_k7_line_walk_matches_plain(dev, wname, shape, offset, prec):
+    fb = get_filter_bank(wname)
+    x = _offset(_rand(shape, dev), offset)
+    assert x.data_ptr() % 16 == 4 * offset
+    n = km.dwt1d_mxu_fused.launches + km.idwt1d_mxu_fused.launches
+    _close_prec(km.dwt1d_mxu_fused(x, fb, prec),
+                km.dwt1d_mxu_plain(x, fb, prec), prec)
+    cshape = (*shape[:-1], shape[-1] // 2)
+    a, d = (_offset(_rand(cshape, dev, s), offset) for s in (1, 2))
+    _close_prec(km.idwt1d_mxu_fused(a, d, fb, shape[-1], prec),
+                km.idwt1d_mxu_plain(a, d, fb, shape[-1], prec), prec)
+    assert km.dwt1d_mxu_fused.launches + km.idwt1d_mxu_fused.launches == n + 2
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+@pytest.mark.parametrize("wname", LINE_BANKS)
+@pytest.mark.parametrize("case", LINE_SHARDS, ids=str)
+@pytest.mark.parametrize("offset", OFFSETS)
+def test_k29ef_line_walk_matches_plain(dev, wname, case, offset, prec):
+    """K29e/K29f on every shard of rows split along their samples, the
+    halos exchanged from both neighbours."""
+    fb = get_filter_bank(wname)
+    shards, shape = case
+    whole = (*shape[:-1], shape[-1] * shards)
+    x = _rand(whole, dev)
+    c = [_rand((*shape[:-1], shape[-1] // 2 * shards), dev, s)
+         for s in (1, 2)]
+    n = km.ana_lanes_mxu_fused.launches + km.syn_lanes_mxu_fused.launches
+    apads = fd.one_axis_pads("ana", fb, 0)
+    spads = fd.one_axis_pads("syn", fb, shape[-1] // 2)
+    for i in range(shards):
+        b, lo, hi = (_offset(t, offset)
+                     for t in _split_halos(x, shards, i, *apads, -1))
+        _close_prec(km.ana_lanes_mxu_fused(b, lo, hi, fb, prec),
+                    km.ana_lanes_mxu_plain(b, lo, hi, fb, prec), prec)
+        ba, la, ra = (_offset(t, offset)
+                      for t in _split_halos(c[0], shards, i, *spads, -1))
+        bd, ld, rd = (_offset(t, offset)
+                      for t in _split_halos(c[1], shards, i, *spads, -1))
+        halos = (la, ra, ld, rd)
+        _close_prec(km.syn_lanes_mxu_fused(ba, bd, halos, fb, prec),
+                    km.syn_lanes_mxu_plain(ba, bd, halos, fb, prec), prec)
+    assert (km.ana_lanes_mxu_fused.launches +
+            km.syn_lanes_mxu_fused.launches) == n + 2 * shards
+
+
 def _leaves(c):
     """The arrays of a plan's ``coeffs``, 2D or 1D."""
     return [c[0]] + [s for t in c[1:]
