@@ -164,8 +164,9 @@ row-sharded K26-K28 and the grid and sequence passes K29 are selectable.
 It builds every kernel, then runs only those rows' phases: their
 kernel-against-plain checks over the cases above (both precisions),
 their main paths with exact launch counts, and their times at the
-table's shapes (K11b also at levels 1-3 of 2048^2, and the occupancy of
-K11b's and K28 iswt's synthesis instances; K7a/K7b at levels 1-3 of the
+table's shapes (K11a and K11b also at levels 1-3 of 2048^2 beside K8 and
+K9, and the occupancy of the tc_swt2d.cu instances that K11a, K28 swt,
+K11b and K28 iswt run; K7a/K7b at levels 1-3 of the
 sinogram and 1-5 of the signal beside K3/K4, and the occupancy of the
 tc_dwt1d.cu instances that K7a/K7b and K29e/K29f run); a K29 row runs
 all of the grid and sequence checks and main paths, but times only the
@@ -1631,38 +1632,66 @@ def phase_times_mxu(port, dev, card, keys=None):
     return times
 
 
-def phase_times_k11b_levels(port, dev, card):
-    """K11b at sym8 and levels 1-3 of 2048^2 ("highest" and "bf16"), in
-    turns (--only): the deeper levels gather windows strided by 2 and 4."""
-    kms = port.ops.mxu_swt
+def phase_times_swt_levels(port, dev, card, key):
+    """K11a or K11b (``key``) at sym8 and levels 1-3 of 2048^2 ("highest"
+    and "bf16"), beside the tap loop on the same level (K8 or K9), in turns
+    (--only): the deeper levels gather windows and scatter outputs strided
+    by 2 and 4."""
+    kms, fd = port.ops.mxu_swt, port.ops.fused_dwt
     fb = port.get_filter_bank("sym8")
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
     frames = [torch.rand(FRAME, generator=gen, device=dev) * 255
               for _ in range(4)]
-    nbytes, flops = timed_work(port)["K11b"]
+    nbytes, flops = timed_work(port)[key]
     bound_ms = bound(nbytes, flops)[0]
+    tap = "K8" if key == "K11a" else "K9"
     for level in (1, 2, 3):
-        sc = itertools.cycle([kms.swt2d_mxu_fused(f, fb, level)
-                              for f in frames]).__next__
-        t = in_turns({
-            "highest": lambda: kms.iswt2d_mxu_fused(*sc(), fb, level),
-            "bf16": lambda: kms.iswt2d_mxu_fused(*sc(), fb, level, "bf16")},
-            {"highest": 10, "bf16": 10})
-        print(f"time K11b sym8 level {level} {FRAME}, device: highest "
-              f"{t['highest'] * 1e3:.1f} us, bf16 {t['bf16'] * 1e3:.1f} us "
-              f"(bound {bound_ms * 1e3:.1f} us)  [{card}]")
+        if key == "K11a":
+            nx = itertools.cycle(frames).__next__
+            calls = {
+                "highest": lambda: kms.swt2d_mxu_fused(nx(), fb, level),
+                "bf16": lambda: kms.swt2d_mxu_fused(nx(), fb, level, "bf16"),
+                "tap": lambda: fd.swt2d_fused(nx(), fb, level)}
+        else:
+            sc = itertools.cycle([kms.swt2d_mxu_fused(f, fb, level)
+                                  for f in frames]).__next__
+            calls = {
+                "highest": lambda: kms.iswt2d_mxu_fused(*sc(), fb, level),
+                "bf16": lambda: kms.iswt2d_mxu_fused(*sc(), fb, level,
+                                                     "bf16"),
+                "tap": lambda: fd.iswt2d_fused(*sc(), fb, level)}
+        t = in_turns(calls, {"highest": 10, "bf16": 10, "tap": 10})
+        print(f"time {key} sym8 level {level} {FRAME}, device: highest "
+              f"{t['highest'] * 1e3:.1f} us, bf16 {t['bf16'] * 1e3:.1f} us, "
+              f"{tap} {t['tap'] * 1e3:.1f} us (bound {bound_ms * 1e3:.1f} "
+              f"us)  [{card}]")
 
 
-def print_iswt_occupancy(port, dev):
+# (key, C entry, halo): the instances of tc_swt2d.cu whose occupancy
+# --only reports
+TC2D_OCCUPANCY = (("K11a", "pypwt_tc_swt2d_occupancy", 0),
+                  ("K28 swt", "pypwt_tc_swt2d_occupancy", 1),
+                  ("K11b", "pypwt_tc_iswt2d_occupancy", 0),
+                  ("K28 iswt", "pypwt_tc_iswt2d_occupancy", 1))
+
+
+def print_tc2d_occupancy(port, dev, keys):
     """Resident blocks per SM (the occupancy API) and dynamic shared memory
-    of the synthesis instances that K11b and K28 iswt run at sym8."""
+    of the tc_swt2d.cu instances that the selected rows among K11a, K28
+    swt, K11b and K28 iswt run at sym8 (a build without the query says
+    so)."""
     from pypwt_tpu_torch.ops import _build
     lib = _build.load_library()
     hlen = port.get_filter_bank("sym8").hlen
-    for halo, key in ((0, "K11b"), (1, "K28 iswt")):
+    for key, entry, halo in TC2D_OCCUPANCY:
+        if not wanted(keys, key):
+            continue
+        if not hasattr(lib, entry):
+            print(f"occupancy {key}: not reported by this build")
+            continue
         for prec in PRECISIONS:
             blocks, smem = ctypes.c_int(), ctypes.c_int()
-            err = lib.pypwt_tc_iswt2d_occupancy(
+            err = getattr(lib, entry)(
                 hlen, int(prec == "bf16"), halo, dev.index,
                 ctypes.byref(blocks), ctypes.byref(smem))
             if err:
@@ -3388,8 +3417,8 @@ def shard_rows_of(g, i, n, top, bot):
 
 def phase_times_sharded(port, dev, card, keys=None):
     """Device time of each K26-K28 entry on one 2048 x 8192 shard of the
-    8192^2 image (K26/K27 at db2, K28 at sym8 "highest", level 1 for the
-    SWT), against its plain version and against its unsharded kernel on
+    8192^2 image (K26/K27 at db2, K28 at sym8 "highest" and "bf16", level 1
+    for the SWT), against its plain version and against its unsharded kernel on
     the same block (K1/K2, K8/K9, K5/K6, K11a/K11b), in turns; beside each,
     one PyTorch convolution of the same map on the shard's rows extended
     and padded outside the timed call (library_ms); then the 8192^2 db2 L3
@@ -3417,13 +3446,15 @@ def phase_times_sharded(port, dev, card, keys=None):
             f2d = port.nonsep.Filters2D.from_bank(fb)
             calls, lib = sharded_calls(port, fb, f2d, kind, mxu, globs, n,
                                        nc, dev)
-            reps = {"kernel": 10, "unsharded": 10, "plain": 3}
+            reps = {"kernel": 10, "unsharded": 10, "plain": 3, "bf16": 10}
             t = in_turns(calls, reps)
             times[key] = (t["kernel"], t["plain"])
             library[key] = lib
+            bf16 = f"bf16 {t['bf16'] * 1e3:.1f} us, " if "bf16" in t else ""
             print(f"time {key} {wname} {kind} on a {n} x {nc} shard, "
-                  f"device: kernel {t['kernel'] * 1e3:.1f} us, unsharded "
-                  f"kernel on the block {t['unsharded'] * 1e3:.1f} us, plain "
+                  f"device: kernel {t['kernel'] * 1e3:.1f} us, {bf16}"
+                  "unsharded kernel on the block "
+                  f"{t['unsharded'] * 1e3:.1f} us, plain "
                   f"{t['plain'] * 1e3:.1f} us, library "
                   f"{lib * 1e3:.1f} us  [{card}]")
     finally:
@@ -3458,9 +3489,9 @@ def phase_times_sharded(port, dev, card, keys=None):
 
 def sharded_calls(port, fb, f2d, kind, mxu, globs, n, nc, dev):
     """(timed calls, library ms) of one entry on shard 1 of each global
-    plane: the kernel, its plain version and the unsharded kernel on the
-    same block; the library call is checked against the kernel and
-    timed here."""
+    plane: the kernel (and, for K28, its "bf16" precision), its plain
+    version and the unsharded kernel on the same block; the library call
+    is checked against the kernel and timed here."""
     fd, km, kms, conv = (port.ops.fused_dwt, port.ops.mxu_dwt,
                          port.ops.mxu_swt, port.conv)
     lev = 1
@@ -3472,7 +3503,8 @@ def sharded_calls(port, fb, f2d, kind, mxu, globs, n, nc, dev):
                 shard_rows_of(g, i, n, 0, bot)[..., n:, :].contiguous())
                for g in globs]
         if kind == "dwt":
-            k = (lambda s, t, b: km.dwt2d_sharded_mxu_fused(s, t, b, fb)) \
+            k = (lambda s, t, b, *prec: km.dwt2d_sharded_mxu_fused(
+                s, t, b, fb, *prec)) \
                 if mxu else (lambda s, t, b: fd.dwt2d_sharded_fused(s, t, b,
                                                                      fb))
             p = (lambda s, t, b: km.dwt2d_sharded_mxu_plain(s, t, b, fb)) \
@@ -3481,8 +3513,8 @@ def sharded_calls(port, fb, f2d, kind, mxu, globs, n, nc, dev):
             u = (lambda s: km.dwt2d_mxu_fused(s, fb)) if mxu else (
                 lambda s: fd.dwt2d_fused(s, fb))
         else:
-            k = (lambda s, t, b: kms.swt2d_sharded_mxu_fused(s, t, b, fb,
-                                                             lev)) if mxu \
+            k = (lambda s, t, b, *prec: kms.swt2d_sharded_mxu_fused(
+                s, t, b, fb, lev, *prec)) if mxu \
                 else (lambda s, t, b: fd.swt2d_sharded_fused(s, t, b, fb,
                                                              lev))
             p = (lambda s, t, b: kms.swt2d_sharded_mxu_plain(s, t, b, fb,
@@ -3494,6 +3526,8 @@ def sharded_calls(port, fb, f2d, kind, mxu, globs, n, nc, dev):
         nx = itertools.cycle(ins).__next__
         calls = {"kernel": lambda: k(*nx()), "plain": lambda: p(*nx()),
                  "unsharded": lambda: u(nx()[0])}
+        if mxu:
+            calls["bf16"] = lambda: k(*nx(), "bf16")
         kernel_out = torch.stack(k(*ins[0]))
         # the library call: one convolution of the shard's rows extended by
         # the halos and its columns padded periodically, outside the timing
@@ -3521,14 +3555,16 @@ def sharded_calls(port, fb, f2d, kind, mxu, globs, n, nc, dev):
                       ext[..., top + rows:, :].contiguous()]
         ins.append((body, tuple(halos)))
     if kind == "idwt":
-        k = (lambda b, h: km.idwt2d_sharded_mxu_fused(*b, h, fb)) if mxu \
+        k = (lambda b, h, *prec: km.idwt2d_sharded_mxu_fused(
+            *b, h, fb, *prec)) if mxu \
             else (lambda b, h: fd.idwt2d_sharded_fused(*b, h, fb))
         p = (lambda b, h: km.idwt2d_sharded_mxu_plain(*b, h, fb)) if mxu \
             else (lambda b, h: fd.idwt2d_sharded_plain(*b, h, fb))
         u = (lambda b: km.idwt2d_mxu_fused(*b, fb, (n, nc))) if mxu else (
             lambda b: fd.idwt2d_fused(*b, fb, (n, nc)))
     else:
-        k = (lambda b, h: kms.iswt2d_sharded_mxu_fused(*b, h, fb, lev)) \
+        k = (lambda b, h, *prec: kms.iswt2d_sharded_mxu_fused(
+            *b, h, fb, lev, *prec)) \
             if mxu else (lambda b, h: fd.iswt2d_sharded_fused(*b, h, fb,
                                                               lev))
         p = (lambda b, h: kms.iswt2d_sharded_mxu_plain(*b, h, fb, lev)) \
@@ -3539,6 +3575,8 @@ def sharded_calls(port, fb, f2d, kind, mxu, globs, n, nc, dev):
     nx = itertools.cycle(ins).__next__
     calls = {"kernel": lambda: k(*nx()), "plain": lambda: p(*nx()),
              "unsharded": lambda: u(nx()[0])}
+    if mxu:
+        calls["bf16"] = lambda: k(*nx(), "bf16")
     kernel_out = k(*ins[0])
     if kind == "idwt":
         pad = fb.hlen
@@ -4453,10 +4491,11 @@ def run_only(port, dev, card, keys):
         launches.update(phase_main_paths_mxu(port, dev, keys))
         times.update(phase_times_mxu(port, dev, card, keys))
         library.update(phase_library(port, dev, card, keys))
-    if "K11b" in keys:
-        phase_times_k11b_levels(port, dev, card)
-    if wanted(keys, "K11b", "K28 iswt"):
-        print_iswt_occupancy(port, dev)
+    for key in ("K11a", "K11b"):
+        if key in keys:
+            phase_times_swt_levels(port, dev, card, key)
+    if wanted(keys, *(row[0] for row in TC2D_OCCUPANCY)):
+        print_tc2d_occupancy(port, dev, keys)
     if wanted(keys, *MXU1D_KEYS):
         worst.update(phase_kernels_mxu1d(port, dev, keys))
         launches.update(phase_main_paths_mxu1d(port, dev, keys))

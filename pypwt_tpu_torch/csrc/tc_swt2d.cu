@@ -47,13 +47,31 @@
 // a strided gather or store meet in L2. Column blocks run on the grid's x
 // axis, row blocks on y, planes on z, in chunks past a grid's limits.
 //
+// Both directions stage their windows the same way: by cp.async, all of a
+// thread's copies in flight at once, from a table of source rows built once
+// per window row (where a shard's halos are resolved, not once per sample),
+// in 16-byte copies at level 1 (from the window's first column rounded down
+// to a multiple of 4, read shifted; 4-byte copies from a row that is not
+// 16-byte aligned) and a warp per window row in the strided gathers of
+// deeper levels; the band's fragments are built while the copies fly. The
+// passes run groups of output tiles that share each A fragment, so a window
+// sample is loaded (and, in "highest", split) once per group, not once per
+// tile; a group's accumulators take the products in band_product's order,
+// so the outputs do not depend on the grouping.
+//
+// The analysis (K11a, K28's) reads one plane and writes four: 16 of its 20
+// bytes per pixel are stores. Its pass 2 puts the C fragments into an
+// output tile in shared memory (the window's and lo_r/hi_r's space, free by
+// then), and the block then writes whole tile rows, consecutive lanes on
+// consecutive outputs: at level 1 a row of a plane is 128 contiguous bytes,
+// written in 16-byte stores where the planes' rows are 16-byte aligned
+// (scalar ones where not), instead of fragments that fill half of each
+// 32-byte sector; at deeper levels the row's outputs lie a dilation apart,
+// and only the neighbouring column classes' blocks fill the rest of their
+// sectors. Its registers, not its shared memory, bound its resident
+// blocks; the sym8 "highest" instance is promised four (swt_min_blocks).
 // The synthesis (K11b, K28's) stages four windows per tile, 2.4 samples per
-// output, and spends many instructions per sample. Its windows arrive by
-// cp.async, all in flight at once, from a table of source rows built once
-// per window row (where a shard's halos are resolved), in 16-byte copies
-// at level 1; its passes run groups of output tiles that share each A
-// fragment, so a window sample is loaded and split once per pass, not once
-// per tile.
+// output, and spends many instructions per sample.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -108,17 +126,13 @@ __device__ __forceinline__ int window_index(const AxisPlan& p, int rho, int m0,
 
 // Shared-memory geometry: kSteps k-steps of kK samples cover the hlen + 7
 // window samples of an 8-output tile.
-template <class P, int kSteps, int kInputs>
+template <class P, int kSteps>
 struct SwtGeom {
   static constexpr int kSpan = kSteps * P::kK;
   static constexpr int kWin = kTile - 8 + kSpan;  // window rows read
   static constexpr int kWinC = round16(kWin);     // window columns
   static constexpr int kLdW = mma::lead_dim<P>(kWinC, true);
   static constexpr int kLdT = mma::lead_dim<P>(kWinC, false);
-  static constexpr size_t kSmem =
-      sizeof(float) * (kInputs * kWin * kLdW + 2 * kTile * kLdT +
-                       2 * kMaxTaps) +
-      sizeof(int) * (kWin + kWinC);
 };
 
 // Block coordinates of one level: the residue class and first member of
@@ -133,58 +147,6 @@ struct Block {
     m0 = by / pr.cls * kTile;
   }
 };
-
-// One window sample of each staged plane.
-template <int kInputs>
-struct Samples {
-  float v[kInputs];
-};
-
-// Stage the window of `kInputs` planes (the same rows and columns of each,
-// batched_copy: several loads in flight per thread) and the taps in window
-// order; the caller synchronises. Rows: Wrapped, or the Halo<float,
-// kInputs> of a shard's planes (K28), already moved to the block's plane.
-template <int kInputs, int kWin, int kWinC, int kLdW, class Rows>
-__device__ __forceinline__ void stage(const float* const (&planes)[kInputs],
-                                      float* s_in, int* s_row, int* s_col,
-                                      const AxisPlan& pr, const AxisPlan& pc,
-                                      const Block& blk, int hlen,
-                                      const Taps& taps, float* f_lo,
-                                      float* f_hi, const Rows& rows) {
-  const int tid = threadIdx.x;
-  const int ext = kTile + hlen - 1;  // the window's extent
-  if (tid < kWin)
-    s_row[tid] = window_index<Rows::kHalo>(pr, blk.rho_r, blk.m0, tid);
-  if (tid < kWinC) s_col[tid] = window_index(pc, blk.rho_c, blk.q0, tid);
-  load_reversed_taps(taps, hlen, f_lo, f_hi);
-  __syncthreads();
-  batched_copy<kWin * kWinC, 8 / kInputs>(
-      [&](int i) {
-        const int r = i / kWinC, c = i - r * kWinC;
-        Samples<kInputs> q{};
-        if (r < ext && c < ext) {
-          if constexpr (Rows::kHalo) {
-#pragma unroll
-            for (int p = 0; p < kInputs; ++p) {
-              const float* src = rows.row(p, planes[p], s_row[r], pr.n, pc.n);
-              q.v[p] = src ? __ldg(src + s_col[c]) : 0.f;
-            }
-          } else {
-            const long long o =
-                static_cast<long long>(s_row[r]) * pc.n + s_col[c];
-#pragma unroll
-            for (int p = 0; p < kInputs; ++p) q.v[p] = __ldg(planes[p] + o);
-          }
-        }
-        return q;
-      },
-      [&](int i, const Samples<kInputs>& q) {
-        const int r = i / kWinC, c = i - r * kWinC;
-#pragma unroll
-        for (int p = 0; p < kInputs; ++p)
-          s_in[p * kWin * kLdW + r * kLdW + c] = q.v[p];
-      });
-}
 
 // The row source of the block's plane (blockIdx.z): a shard's halos move
 // with the plane, Wrapped has nothing to move.
@@ -231,75 +193,37 @@ struct Store {
   }
 };
 
-// Rows: Wrapped (K11a), or the Halo<float, 1> of the shard x (K28's
-// stationary analysis).
-template <class P, int kSteps, class Rows>
-__global__ void __launch_bounds__(kThreads)
-tc_swt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
-                float* __restrict__ h, float* __restrict__ v,
-                float* __restrict__ d, AxisPlan pr, AxisPlan pc, Taps taps,
-                int hlen, int y0, Rows rows) {
-  using G = SwtGeom<P, kSteps, 1>;
-  extern __shared__ float smem[];
-  float* s_w = smem;                        // [kWin][kLdW] input window
-  float* s_t = s_w + G::kWin * G::kLdW;     // [2 kTile][kLdT]: lo_r, hi_r
-  float* f_lo = s_t + 2 * kTile * G::kLdT;  // taps in window order
-  float* f_hi = f_lo + kMaxTaps;
-  int* s_row = reinterpret_cast<int*>(f_hi + kMaxTaps);
-  int* s_col = s_row + G::kWin;
-
-  const int warp = threadIdx.x >> 5;
-  const Block blk(pr, pc, y0);
-  const long long plane = static_cast<long long>(pr.n) * pc.n;
-  const float* const in[1] = {x + blockIdx.z * plane};
-  stage<1, G::kWin, G::kWinC, G::kLdW>(in, s_w, s_row, s_col, pr, pc, blk,
-                                       hlen, taps, f_lo, f_hi,
-                                       plane_rows(rows, pc.n));
-  __syncthreads();
-  const Band<P, kSteps> b(f_lo, f_hi, hlen);
-
-  // Pass 1, axis -2: (window columns x window rows) x band.
-  constexpr int kN = kTile / 8;
-  for (int task = warp; task < G::kWinC / 16 * kN; task += kWarps) {
-    const int m0 = task / kN * 16, n0 = task % kN * 8;
-    float clo[4] = {0.f, 0.f, 0.f, 0.f}, chi[4] = {0.f, 0.f, 0.f, 0.f};
-    const float* w = s_w + n0 * G::kLdW + m0;
-    mma::band_product<P>(
-        clo, chi, [&](int k, int m) { return w[k * G::kLdW + m]; }, b.lo,
-        b.hi);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = (n0 + mma::c_col(i)) * G::kLdT + m0 + mma::c_row(i);
-      s_t[t] = clo[i];
-      s_t[kTile * G::kLdT + t] = chi[i];
-    }
-  }
-  __syncthreads();
-
-  // Pass 2, last axis: (lo_r and hi_r rows x window columns) x band.
-  const long long ob = blockIdx.z * plane;
-  for (int task = warp; task < 2 * kTile / 16 * kN; task += kWarps) {
-    const int m0 = task / kN * 16, n0 = task % kN * 8;
-    float clo[4] = {0.f, 0.f, 0.f, 0.f}, chi[4] = {0.f, 0.f, 0.f, 0.f};
-    const float* t = s_t + m0 * G::kLdT + n0;
-    mma::band_product<P>(
-        clo, chi, [&](int k, int m) { return t[m * G::kLdT + k]; }, b.lo,
-        b.hi);
-    const bool low = m0 < kTile;
-    float* out_lo = low ? a : h;
-    float* out_hi = low ? v : d;
-    const int mbase = low ? m0 : m0 - kTile;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      Store st;
-      if (st.at(pr, pc, blk, mbase + mma::c_row(i), n0 + mma::c_col(i))) {
-        const long long o = ob + st.row * pc.n + st.col;
-        out_lo[o] = clo[i];
-        out_hi[o] = chi[i];
-      }
-    }
-  }
-}
+// Shared memory of the analysis: the window ([kWin][kLdW]) and lo_r/hi_r
+// ([2 kTile][kLdT]), whose space the output tile takes after pass 2 (a, h,
+// v, d; [kTile][kLdO] each: rows 8 floats apart mod 32, so that the C
+// fragments' 8-byte stores meet each bank once per half-warp), the taps in
+// window order, the source row of each window row and the axis column of
+// each window column.
+template <class G>
+struct SwtSmem {
+  static constexpr int kPlane = G::kWin * G::kLdW;
+  static constexpr int kT = kTile * G::kLdT;
+  static constexpr int kLdO = kTile + 8;
+  static constexpr int kO = kTile * kLdO;
+  static constexpr int kWork =
+      kPlane + 2 * kT > 4 * kO ? kPlane + 2 * kT : 4 * kO;
+  static constexpr int kFloats = kWork + 2 * kMaxTaps;
+  static_assert(kFloats % 2 == 0, "the row table must be 8-byte aligned");
+  static constexpr size_t kBytes = sizeof(float) * kFloats +
+                                   sizeof(const float*) * G::kWin +
+                                   sizeof(int) * G::kWinC;
+  float *in, *t, *out, *f_lo, *f_hi;
+  const float** src;
+  int* col;
+  __device__ explicit SwtSmem(float* base)
+      : in(base),
+        t(in + kPlane),
+        out(base),
+        f_lo(base + kWork),
+        f_hi(f_lo + kMaxTaps),
+        src(reinterpret_cast<const float**>(f_hi + kMaxTaps)),
+        col(reinterpret_cast<int*>(src + G::kWin)) {}
+};
 
 // Shared memory of the synthesis: the four windows (a, h, v, d; [kWin][kLdW]
 // each), t1/t2 ([kTile][kLdT] each), the taps in window order, the source
@@ -326,21 +250,22 @@ struct IswtSmem {
         col(reinterpret_cast<int*>(src + 4 * G::kWin)) {}
 };
 
-// The synthesis windows' sources, resolved once per window row, not once
-// per sample: src[p kWin + r] is plane p's row of window row r, null past
-// the window's extent or (Halo) past both halos; col[c] the axis column of
-// window column c, -1 past the extent. Planes: the block's plane of a, h,
-// v, d; rows: Wrapped or the Halo<float, 4> moved to that plane.
-template <class G, class Rows>
+// The windows' sources, resolved once per window row, not once per sample:
+// src[p kWin + r] is plane p's row of window row r, null past the window's
+// extent or (Halo) past both halos; col[c] the axis column of window
+// column c, -1 past the extent. Planes: the block's plane of each of
+// kPlanes inputs (x; or a, h, v, d); rows: Wrapped or the Halo<float,
+// kPlanes> moved to that plane.
+template <class G, int kPlanes, class Rows>
 __device__ __forceinline__ void window_sources(
-    const float* const (&planes)[4], const float** src, int* col,
+    const float* const (&planes)[kPlanes], const float** src, int* col,
     const AxisPlan& pr, const AxisPlan& pc, const Block& blk, int hlen,
     const Rows& rows) {
   const int ext = kTile + hlen - 1;
   for (int r = threadIdx.x; r < G::kWin; r += kThreads) {
     const int row = window_index<Rows::kHalo>(pr, blk.rho_r, blk.m0, r);
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
+    for (int p = 0; p < kPlanes; ++p) {
       const float* s = nullptr;
       if (r < ext) {
         if constexpr (Rows::kHalo)
@@ -355,9 +280,9 @@ __device__ __forceinline__ void window_sources(
     col[c] = c < ext ? window_index(pc, blk.rho_c, blk.q0, c) : -1;
 }
 
-// Issue the asynchronous copies of the four windows into `in` (zero where
-// the source row is missing); the caller commits, waits and synchronises.
-// Every sample of the thread is in flight at once.
+// Issue the asynchronous copies of the kPlanes windows into `in` (zero
+// where the source row is missing); the caller commits, waits and
+// synchronises. Every sample of the thread is in flight at once.
 // base >= 0 (level 1, rows of a multiple of 4 samples): window column c
 // holds axis column (base + c) mod n, base the window's first column
 // rounded down to a multiple of 4 (the caller reads the window shifted by
@@ -366,7 +291,7 @@ __device__ __forceinline__ void window_sources(
 // zero taps meet. base < 0 (deeper levels: a gather strided by the
 // dilation): a warp takes whole window rows, a lane the same columns
 // col[c] of each, zero past the extent.
-template <class G>
+template <class G, int kPlanes>
 __device__ __forceinline__ void issue_windows(float* in,
                                               const float* const* src,
                                               const int* col, int base,
@@ -380,7 +305,7 @@ __device__ __forceinline__ void issue_windows(float* in,
       const int j = (base + 4 * q) % n;
       float* dst = in + r * G::kLdW + 4 * q;
 #pragma unroll
-      for (int p = 0; p < 4; ++p) {
+      for (int p = 0; p < kPlanes; ++p) {
         const float* s = src[p * G::kWin + r];
         float* d = dst + p * kPlane;
         if (s == nullptr) {
@@ -402,15 +327,15 @@ __device__ __forceinline__ void issue_windows(float* in,
   for (int q = 0; q < kLanes; ++q)
     j[q] = lane + 32 * q < G::kWinC ? col[lane + 32 * q] : -1;
   for (int r = threadIdx.x >> 5; r < G::kWin; r += kWarps) {
-    const float* s[4];
+    const float* s[kPlanes];
 #pragma unroll
-    for (int p = 0; p < 4; ++p) s[p] = src[p * G::kWin + r];
+    for (int p = 0; p < kPlanes; ++p) s[p] = src[p * G::kWin + r];
     float* dst = in + r * G::kLdW + lane;
 #pragma unroll
     for (int q = 0; q < kLanes; ++q) {
       if (lane + 32 * q >= G::kWinC) continue;
 #pragma unroll
-      for (int p = 0; p < 4; ++p) {
+      for (int p = 0; p < kPlanes; ++p) {
         float* d = dst + p * kPlane + 32 * q;
         if (s[p] != nullptr && j[q] >= 0)
           mma::cp_async4(d, s[p] + j[q]);
@@ -419,6 +344,32 @@ __device__ __forceinline__ void issue_windows(float* in,
       }
     }
   }
+}
+
+// Stage the windows of kPlanes planes: their sources, the taps in window
+// order, the asynchronous copies, and the band's fragments (returned),
+// built while the copies fly; on return the windows are in shared memory,
+// visible to the block, to be read shifted by `shift` columns
+// (issue_windows).
+template <class P, int kSteps, int kPlanes, class Rows>
+__device__ __forceinline__ Band<P, kSteps> stage_windows(
+    const float* const (&planes)[kPlanes], float* in, const float** src,
+    int* col, float* f_lo, float* f_hi, const AxisPlan& pr,
+    const AxisPlan& pc, const Block& blk, const Taps& taps, int hlen,
+    const Rows& rows, int& shift) {
+  using G = SwtGeom<P, kSteps>;
+  window_sources<G>(planes, src, col, pr, pc, blk, hlen, rows);
+  load_reversed_taps(taps, hlen, f_lo, f_hi);
+  __syncthreads();
+  const int first = window_index(pc, blk.rho_c, blk.q0, 0);
+  const bool quads = pc.cls == 1 && pc.n % 4 == 0;
+  shift = quads ? first % 4 : 0;
+  issue_windows<G, kPlanes>(in, src, col, quads ? first - shift : -1, pc.n);
+  mma::cp_async_commit();
+  const Band<P, kSteps> b(f_lo, f_hi, hlen);
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  return b;
 }
 
 // kR output tiles of a synthesis pass, kK samples apart: c[r] += the
@@ -447,6 +398,29 @@ __device__ __forceinline__ void band_tiles(float (&c)[kR][4], Elem0 elem0,
   }
 }
 
+// kR output tiles of an analysis pass, kK samples apart: lo[r] and hi[r]
+// get the products of mma::band_product for the tile at r kK, in its order
+// (k-step 0 first, both bands from one A fragment). The A fragment of
+// window block f serves tile r at k-step f - r.
+template <class P, int kSteps, int kR, class Elem>
+__device__ __forceinline__ void band_tiles_lohi(
+    float (&lo)[kR][4], float (&hi)[kR][4], Elem elem,
+    const typename P::B (&b_lo)[kSteps], const typename P::B (&b_hi)[kSteps]) {
+#pragma unroll
+  for (int f = 0; f < kSteps + kR - 1; ++f) {
+    const auto a =
+        P::load_a([&](int m, int k) { return elem(f * P::kK + k, m); });
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int s = f - r;
+      if (s >= 0 && s < kSteps) {
+        P::mma(lo[r], a, b_lo[s]);
+        P::mma(hi[r], a, b_hi[s]);
+      }
+    }
+  }
+}
+
 // The first output (of kTile) of group g of kR tiles kK samples apart: the
 // kTile / 8 tiles of 8 fall into kTile / 8 / kR such groups.
 template <class P, int kR>
@@ -455,10 +429,182 @@ __device__ __forceinline__ int group_first(int g) {
   return (g / kEvery * kR * kEvery + g % kEvery) * 8;
 }
 
+// Write the block's output tile (a, h, v, d; [kTile][kLdO] each in `tile`)
+// to the planes outs[p]: whole tile rows, consecutive lanes on consecutive
+// outputs, the same tile position of each plane in turn. vec (level 1,
+// rows of a multiple of 4 samples, every plane 16-byte aligned): 16-byte
+// stores, 8 threads a row; else one sample a lane, a warp a row, the row's
+// outputs a dilation apart.
+template <int kLdO>
+__device__ __forceinline__ void store_tile(float* const (&outs)[4],
+                                           const float* tile,
+                                           const AxisPlan& pr,
+                                           const AxisPlan& pc,
+                                           const Block& blk, bool vec) {
+  constexpr int kO = kTile * kLdO;
+  if (vec) {
+    constexpr int kQ = kTile / 4;
+    static_assert(kTile * kQ == kThreads, "a quad of each plane a thread");
+    const int q = threadIdx.x % kQ, m = threadIdx.x / kQ;
+    const long long row =
+        blk.rho_r + static_cast<long long>(pr.cls) * (blk.m0 + m);
+    const int c = blk.q0 + 4 * q;
+    if (row < pr.n && c < pc.n) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        *reinterpret_cast<float4*>(outs[p] + row * pc.n + c) =
+            *reinterpret_cast<const float4*>(tile + p * kO + m * kLdO +
+                                             4 * q);
+    }
+    return;
+  }
+  const int n = threadIdx.x % kTile;
+  const long long c =
+      blk.rho_c + static_cast<long long>(pc.cls) * (blk.q0 + n);
+  if (c >= pc.n) return;
+#pragma unroll
+  for (int j = 0; j < kTile / kWarps; ++j) {
+    const int m = threadIdx.x / kTile + kWarps * j;
+    const long long row =
+        blk.rho_r + static_cast<long long>(pr.cls) * (blk.m0 + m);
+    if (row < pr.n) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        outs[p][row * pc.n + c] = tile[p * kO + m * kLdO + n];
+    }
+  }
+}
+
+// The analysis level of one block. Rows: Wrapped (K11a), or the
+// Halo<float, 1> of the shard x (K28's stationary analysis). The window
+// arrives by cp.async from a table of source rows while the band's
+// fragments are built (stage_windows); the passes run tiles in groups that
+// share A fragments (band_tiles_lohi), two a task; pass 2's C fragments go
+// through an output tile in shared memory to whole-row stores
+// (store_tile).
+template <class P, int kSteps, class Rows>
+__device__ __forceinline__ void swt_level(const float* __restrict__ x,
+                                          float* __restrict__ a,
+                                          float* __restrict__ h,
+                                          float* __restrict__ v,
+                                          float* __restrict__ d,
+                                          const AxisPlan& pr,
+                                          const AxisPlan& pc,
+                                          const Taps& taps, int hlen, int y0,
+                                          const Rows& rows) {
+  using G = SwtGeom<P, kSteps>;
+  using S = SwtSmem<G>;
+  extern __shared__ float smem[];
+  const S sm(smem);
+
+  const int warp = threadIdx.x >> 5;
+  const Block blk(pr, pc, y0);
+  const long long plane = static_cast<long long>(pr.n) * pc.n;
+  const long long pb = blockIdx.z * plane;
+  const float* const in[1] = {x + pb};
+  int shift;
+  const Band<P, kSteps> b = stage_windows<P, kSteps>(
+      in, sm.in, sm.src, sm.col, sm.f_lo, sm.f_hi, pr, pc, blk, taps, hlen,
+      plane_rows(rows, pc.n), shift);
+
+  // Pass 1, axis -2: (window columns x window rows) x band, in groups of
+  // two tiles (one where a tile's band has a single TF32 k-step: the 8
+  // warps then have a task each).
+  constexpr int kM1 = G::kWinC / 16, kN = kTile / 8;
+  constexpr int kR1 = P::kK == 8 && kSteps == 1 ? 1 : 2, kG1 = kN / kR1;
+  for (int task = warp; task < kM1 * kG1; task += kWarps) {
+    const int m0 = task / kG1 * 16, n0 = group_first<P, kR1>(task % kG1);
+    const float* w = sm.in + n0 * G::kLdW + m0 + shift;
+    float clo[kR1][4] = {}, chi[kR1][4] = {};
+    band_tiles_lohi<P, kSteps, kR1>(
+        clo, chi, [&](int k, int m) { return w[k * G::kLdW + m]; }, b.lo,
+        b.hi);
+#pragma unroll
+    for (int r = 0; r < kR1; ++r)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = (n0 + r * P::kK + mma::c_col(i)) * G::kLdT + m0 +
+                      mma::c_row(i);
+        sm.t[t] = clo[r][i];
+        sm.t[S::kT + t] = chi[r][i];
+      }
+  }
+  __syncthreads();
+
+  // Pass 2, last axis: (lo_r and hi_r rows x window columns) x band; one
+  // task a warp: 16 rows and two tiles of columns.
+  constexpr int kR2 = 2, kG2 = kN / kR2;
+  static_assert(2 * kTile / 16 * kG2 == kWarps, "one pass-2 task a warp");
+  const int m0 = warp / kG2 * 16, n0 = group_first<P, kR2>(warp % kG2);
+  const float* t = sm.t + m0 * G::kLdT + n0;
+  float clo[kR2][4] = {}, chi[kR2][4] = {};
+  band_tiles_lohi<P, kSteps, kR2>(
+      clo, chi, [&](int k, int m) { return t[m * G::kLdT + k]; }, b.lo, b.hi);
+  __syncthreads();  // the window and lo_r/hi_r are read: the tile's space
+
+  // lo_r rows: a = lo, v = hi; hi_r rows: h = lo, d = hi (tile planes a,
+  // h, v, d), two C elements of a row in one 8-byte store.
+  const bool low = m0 < kTile;
+  float* t_lo = sm.out + (low ? 0 : 1) * S::kO;
+  float* t_hi = sm.out + (low ? 2 : 3) * S::kO;
+  const int mb = low ? m0 : m0 - kTile;
+#pragma unroll
+  for (int r = 0; r < kR2; ++r)
+#pragma unroll
+    for (int i = 0; i < 4; i += 2) {
+      const int o = (mb + mma::c_row(i)) * S::kLdO + n0 + r * P::kK +
+                    mma::c_col(i);
+      *reinterpret_cast<float2*>(t_lo + o) = make_float2(clo[r][i],
+                                                         clo[r][i + 1]);
+      *reinterpret_cast<float2*>(t_hi + o) = make_float2(chi[r][i],
+                                                         chi[r][i + 1]);
+    }
+  __syncthreads();
+  float* const outs[4] = {a + pb, h + pb, v + pb, d + pb};
+  const bool vec =
+      pc.cls == 1 && pc.n % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(outs[0]) |
+        reinterpret_cast<uintptr_t>(outs[1]) |
+        reinterpret_cast<uintptr_t>(outs[2]) |
+        reinterpret_cast<uintptr_t>(outs[3])) & 15) == 0;
+  store_tile<S::kLdO>(outs, sm.out, pr, pc, blk, vec);
+}
+
+// Resident blocks per SM promised to ptxas (__launch_bounds__) by the
+// instances that run faster with more blocks than their registers leave:
+// 4 for TF32 with 3 k-steps (sym8 "highest": 64 registers and a spill of
+// 12-20 bytes, where left to itself ptxas takes 72-80 and 3 blocks fit;
+// the spilling build measured faster). 0: no promise (a promise on every
+// instance took the bf16 ones from 5 blocks to 4, and spilled hundreds of
+// bytes in TF32 with 4-6 k-steps).
+template <class P, int kSteps>
+__host__ __device__ constexpr int swt_min_blocks() {
+  return P::kK == 8 && kSteps == 3 ? 4 : 0;
+}
+
+template <class P, int kSteps, class Rows>
+__global__ void __launch_bounds__(kThreads)
+tc_swt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
+                float* __restrict__ h, float* __restrict__ v,
+                float* __restrict__ d, AxisPlan pr, AxisPlan pc, Taps taps,
+                int hlen, int y0, Rows rows) {
+  swt_level<P, kSteps>(x, a, h, v, d, pr, pc, taps, hlen, y0, rows);
+}
+
+// The same with kMinBlocks blocks per SM promised (swt_min_blocks).
+template <class P, int kSteps, class Rows, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+tc_swt2d_kernel_bounded(const float* __restrict__ x, float* __restrict__ a,
+                        float* __restrict__ h, float* __restrict__ v,
+                        float* __restrict__ d, AxisPlan pr, AxisPlan pc,
+                        Taps taps, int hlen, int y0, Rows rows) {
+  swt_level<P, kSteps>(x, a, h, v, d, pr, pc, taps, hlen, y0, rows);
+}
+
 // Rows: Wrapped (K11b), or the Halo<float, 4> of the shard's planes a, h,
 // v, d (K28's stationary synthesis). The windows arrive by cp.async from a
-// table of source rows (window_sources, issue_windows) while the band's
-// fragments are built; the passes run tiles in groups that share A
+// table of source rows while the band's fragments are built
+// (stage_windows); the passes run tiles in groups that share A
 // fragments (band_tiles): pass 1 the kTile / 8 tiles of a window column
 // block that one fragment sequence reaches, pass 2 two.
 template <class P, int kSteps, class Rows>
@@ -467,7 +613,7 @@ tc_iswt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
                  const float* __restrict__ v, const float* __restrict__ d,
                  float* __restrict__ out, AxisPlan pr, AxisPlan pc,
                  Taps half_taps, int hlen, int y0, Rows rows) {
-  using G = SwtGeom<P, kSteps, 4>;
+  using G = SwtGeom<P, kSteps>;
   using S = IswtSmem<G>;
   extern __shared__ float smem[];
   const S sm(smem);
@@ -477,18 +623,10 @@ tc_iswt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
   const long long plane = static_cast<long long>(pr.n) * pc.n;
   const long long pb = blockIdx.z * plane;
   const float* const in[4] = {a + pb, h + pb, v + pb, d + pb};
-  window_sources<G>(in, sm.src, sm.col, pr, pc, blk, hlen,
-                    plane_rows(rows, pc.n));
-  load_reversed_taps(half_taps, hlen, sm.f_lo, sm.f_hi);
-  __syncthreads();
-  const int first = window_index(pc, blk.rho_c, blk.q0, 0);
-  const bool quads = pc.cls == 1 && pc.n % 4 == 0;
-  const int shift = quads ? first % 4 : 0;
-  issue_windows<G>(sm.in, sm.src, sm.col, quads ? first - shift : -1, pc.n);
-  mma::cp_async_commit();
-  const Band<P, kSteps> b(sm.f_lo, sm.f_hi, hlen);
-  mma::cp_async_wait<0>();
-  __syncthreads();
+  int shift;
+  const Band<P, kSteps> b = stage_windows<P, kSteps>(
+      in, sm.in, sm.src, sm.col, sm.f_lo, sm.f_hi, pr, pc, blk, half_taps,
+      hlen, plane_rows(rows, pc.n), shift);
 
   // Pass 1, axis -2: t1 = syn(a, h), t2 = syn(v, d), on window columns.
   constexpr int kM1 = G::kWinC / 16, kN = kTile / 8;
@@ -547,13 +685,19 @@ using IswtKernel = void (*)(const float*, const float*, const float*,
 
 template <class P, int S, class Rows>
 Instance<SwtKernel<Rows>> swt_instance() {
-  return {tc_swt2d_kernel<P, S, Rows>, SwtGeom<P, S, 1>::kSmem};
+  constexpr int kMin = swt_min_blocks<P, S>();
+  SwtKernel<Rows> kernel;
+  if constexpr (kMin > 0)
+    kernel = tc_swt2d_kernel_bounded<P, S, Rows, kMin>;
+  else
+    kernel = tc_swt2d_kernel<P, S, Rows>;
+  return {kernel, SwtSmem<SwtGeom<P, S>>::kBytes};
 }
 
 template <class P, int S, class Rows>
 Instance<IswtKernel<Rows>> iswt_instance() {
   return {tc_iswt2d_kernel<P, S, Rows>,
-          IswtSmem<SwtGeom<P, S, 4>>::kBytes};
+          IswtSmem<SwtGeom<P, S>>::kBytes};
 }
 
 // kSteps = ceil((hlen + 7) / kK): 1..6 (TF32), 1..3 (BF16) for hlen 1..40.
@@ -738,24 +882,48 @@ extern "C" int pypwt_tc_iswt2d_sharded(const float* a, const float* h,
 }
 
 // The occupancy API's resident blocks per SM, and the dynamic shared memory
-// in bytes, of the synthesis instance for hlen taps (bf16 as above; halo 1
-// for K28's Halo rows, 0 for K11b's): a figure for reports.
+// in bytes, of the analysis (pypwt_tc_swt2d_occupancy) or synthesis
+// (pypwt_tc_iswt2d_occupancy) instance for hlen taps (bf16 as above; halo 1
+// for K28's Halo rows, 0 for K11a's / K11b's): a figure for reports.
+namespace pypwt {
+namespace {
+
+template <class Kernel>
+int occupancy(const Instance<Kernel>& inst, int device, int* blocks,
+              int* smem) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *smem = static_cast<int>(inst.smem);
+  err = cudaFuncSetAttribute(inst.kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             *smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, inst.kernel, kThreads, inst.smem));
+}
+
+}  // namespace
+}  // namespace pypwt
+
+extern "C" int pypwt_tc_swt2d_occupancy(int hlen, int bf16, int halo,
+                                        int device, int* blocks, int* smem) {
+  using namespace pypwt;
+  if (hlen < 1 || hlen > kMaxTaps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return halo ? occupancy(pick_swt<Halo<float, 1>>(bf16 != 0, hlen), device,
+                          blocks, smem)
+              : occupancy(pick_swt<Wrapped>(bf16 != 0, hlen), device, blocks,
+                          smem);
+}
+
 extern "C" int pypwt_tc_iswt2d_occupancy(int hlen, int bf16, int halo,
                                          int device, int* blocks,
                                          int* smem) {
   using namespace pypwt;
   if (hlen < 1 || hlen > kMaxTaps)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const auto query = [&](const auto& inst) {
-    *smem = static_cast<int>(inst.smem);
-    cudaError_t e = cudaFuncSetAttribute(
-        inst.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, inst.kernel, kThreads, inst.smem));
-  };
-  return halo ? query(pick_iswt<Halo<float, 4>>(bf16 != 0, hlen))
-              : query(pick_iswt<Wrapped>(bf16 != 0, hlen));
+  return halo ? occupancy(pick_iswt<Halo<float, 4>>(bf16 != 0, hlen), device,
+                          blocks, smem)
+              : occupancy(pick_iswt<Wrapped>(bf16 != 0, hlen), device,
+                          blocks, smem);
 }

@@ -126,6 +126,7 @@ _SIGNATURES = {
     "pypwt_tc_swt2d_sharded": [_P] * 7 + [_I] * 7 + [_P, _P, _I, _I, _I, _P],
     "pypwt_tc_iswt2d_sharded": [_P] * 6 + [_I] * 7 + [_P, _P, _I, _I, _I, _P],
     # hlen, bf16, halo, device, blocks (int*), smem (int*)
+    "pypwt_tc_swt2d_occupancy": [_I] * 4 + [_P, _P],
     "pypwt_tc_iswt2d_occupancy": [_I] * 4 + [_P, _P],
     # synthesis, rows, n, hlen, bf16, halo, device, blocks (int*),
     # smem (int*), grid (int*)

@@ -1218,6 +1218,80 @@ def test_k11b_k28_iswt_unaligned_planes_match_plain(dev, prec):
                     prec)
 
 
+# The same tile walk through the analysis kernel behind K11a and K28's
+# stationary analysis (windows staged from a row table, tile groups, the
+# output tile stored row by row).
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+@pytest.mark.parametrize("wname", WALK_BANKS)
+@pytest.mark.parametrize("shape", WALK_SHAPES, ids=str)
+@pytest.mark.parametrize("level", [1, 2, 3, 4])
+def test_k11a_tile_walk_matches_plain(dev, wname, shape, level, prec):
+    fb = get_filter_bank(wname)
+    x = _rand(shape, dev)
+    n = kms.swt2d_mxu_fused.launches
+    if kms.swt2d_mxu_unsupported(x, fb, level):
+        with pytest.raises(ValueError, match="wider than the plane"):
+            kms.swt2d_mxu_fused(x, fb, level, prec)
+        return
+    _close_prec(kms.swt2d_mxu_fused(x, fb, level, prec),
+                kms.swt2d_mxu_plain(x, fb, level, prec), prec)
+    assert kms.swt2d_mxu_fused.launches == n + 1
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+@pytest.mark.parametrize("wname", WALK_BANKS)
+@pytest.mark.parametrize("case", WALK_SHARDS, ids=str)
+@pytest.mark.parametrize("level", [1, 2, 3, 4])
+def test_k28_swt_tile_walk_matches_plain(dev, wname, case, level, prec):
+    fb = get_filter_bank(wname)
+    shards, shape = case
+    x = _global(shards, shape, dev)
+    n = kms.swt2d_sharded_mxu_fused.launches
+    for i in range(shards):
+        b, t, o = _shard_halos(x, shards, i,
+                               *fd.halo_heights("swt", fb, 0, level))
+        if kms.swt2d_sharded_mxu_unsupported(b, t, o, fb, level):
+            with pytest.raises(ValueError, match="wider than"):
+                kms.swt2d_sharded_mxu_fused(b, t, o, fb, level, prec)
+            return
+        _close_prec(kms.swt2d_sharded_mxu_fused(b, t, o, fb, level, prec),
+                    kms.swt2d_sharded_mxu_plain(b, t, o, fb, level, prec),
+                    prec)
+    assert kms.swt2d_sharded_mxu_fused.launches == n + shards
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+def test_k11a_k28_swt_unaligned_planes_match_plain(dev, prec):
+    """An input plane and halos one float past a 16-byte boundary (4-byte
+    window copies at level 1), a plane whose rows are not a multiple of 4
+    samples at level 1 and a (3, 255, 257) batch whose later planes start
+    unaligned (4-byte copies and one-sample stores)."""
+    fb = get_filter_bank("sym8")
+
+    def unaligned(t):
+        flat = torch.cat([torch.zeros(1, device=dev), t.flatten()])
+        return flat[1:].view(t.shape)
+
+    x = unaligned(_rand((64, 96), dev))
+    assert x.data_ptr() % 16 != 0
+    for y in (x, _rand((70, 99), dev), _rand((3, 255, 257), dev)):
+        n = kms.swt2d_mxu_fused.launches
+        _close_prec(kms.swt2d_mxu_fused(y, fb, 1, prec),
+                    kms.swt2d_mxu_plain(y, fb, 1, prec), prec)
+        assert kms.swt2d_mxu_fused.launches == n + 1
+    shards = 4
+    for shape in ((16, 96), (3, 40, 99)):
+        g = _global(shards, shape, dev)
+        for i in range(shards):
+            b, t, o = (unaligned(z) for z in _shard_halos(
+                g, shards, i, *fd.halo_heights("swt", fb, 0, 1)))
+            n = kms.swt2d_sharded_mxu_fused.launches
+            _close_prec(kms.swt2d_sharded_mxu_fused(b, t, o, fb, 1, prec),
+                        kms.swt2d_sharded_mxu_plain(b, t, o, fb, 1, prec),
+                        prec)
+            assert kms.swt2d_sharded_mxu_fused.launches == n + 1
+
+
 def test_sharded_kernels_refuse_wrong_halos(dev):
     fb = get_filter_bank("db2")
     x = _rand((16, 32), dev)
