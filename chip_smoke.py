@@ -159,12 +159,16 @@ K12a/K12b against K10 (level l of 2048 x 2048); it prints no ok line.
 
 ``--only KEYS`` is the loop of a kernel redesign: KEYS, comma-separated,
 name rows of the kernels line (a family such as K7, K28 or K29 names all
-of its rows); the tensor-core forms K5/K6/K11a/K11b and K7a/K7b, the
-row-sharded K26-K28 and the grid and sequence passes K29 are selectable.
+of its rows); the tap-loop SWT synthesis K9, the tensor-core forms
+K5/K6/K11a/K11b and K7a/K7b, the row-sharded K26-K28 and the grid and
+sequence passes K29 are selectable.
 It builds every kernel, then runs only those rows' phases: their
 kernel-against-plain checks over the cases above (both precisions),
 their main paths with exact launch counts, and their times at the
-table's shapes (K11a and K11b also at levels 1-3 of 2048^2 beside K8 and
+table's shapes (K9 at levels 1 and 3 of 2048^2; K9 and K27b also print
+the occupancy and phase-1 path of their synthesis levels and a SHA-256
+digest of their outputs on seeded cases, equal from two builds that are
+bit-identical; K11a and K11b also at levels 1-3 of 2048^2 beside K8 and
 K9, and the occupancy of the tc_swt2d.cu instances that K11a, K28 swt,
 K11b and K28 iswt run; K7a/K7b at levels 1-3 of the
 sinogram and 1-5 of the signal beside K3/K4, and the occupancy of the
@@ -176,6 +180,7 @@ rows and no ok line.
 """
 
 import ctypes
+import hashlib
 import importlib.util
 import itertools
 import json
@@ -488,11 +493,12 @@ def iswt2d_oracle(oracle, a, h, v, d, fb, level):
     return syn(t1, t2)
 
 
-def phase_kernels_swt2d(port, dev):
+def phase_kernels_swt2d(port, dev, keys=None):
     """K8/K9 against their plain versions over the banks (the odd 5-tap one
     included), every level the clamp allows (at 2048^2 for db2 and sym20;
     levels 1-2 for the others there), a wrap wider than the plane, and the
-    float64 oracle."""
+    float64 oracle.  ``keys``: K8's sweep only where K8 is selected
+    (--only)."""
     fd = port.ops.fused_dwt
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     worst = {"K8": 0.0, "K9": 0.0}
@@ -509,12 +515,13 @@ def phase_kernels_swt2d(port, dev):
             if shape == FRAME and fb.name not in ("db2", "sym20"):
                 top = min(top, 2)
             for level in range(1, top + 1):
-                x = torch.rand(shape, generator=gen, device=dev)
-                got = launched_once(fd.swt2d_fused,
-                                    lambda: fd.swt2d_fused(x, fb, level))
-                note("K8", max_err(got, fd.swt2d_plain(x, fb, level)),
-                     (fb.name, shape, level))
-                del x, got
+                if wanted(keys, "K8"):
+                    x = torch.rand(shape, generator=gen, device=dev)
+                    got = launched_once(fd.swt2d_fused,
+                                        lambda: fd.swt2d_fused(x, fb, level))
+                    note("K8", max_err(got, fd.swt2d_plain(x, fb, level)),
+                         (fb.name, shape, level))
+                    del x, got
                 c = [torch.rand(shape, generator=gen, device=dev)
                      for _ in range(4)]
                 got = launched_once(fd.iswt2d_fused,
@@ -553,7 +560,7 @@ def phase_kernels_swt2d(port, dev):
         if max(e8, e9) > ORACLE_TOL:
             raise AssertionError(f"{fb.name}: 2D SWT kernel vs oracle "
                                  f"{max(e8, e9):.3e} > {ORACLE_TOL}")
-    return worst
+    return {k: e for k, e in worst.items() if wanted(keys, k)}
 
 
 def banks_2d(port):
@@ -1051,7 +1058,10 @@ def install_bank(f2d):
     return setup
 
 
-def phase_main_paths_2d_swt(port, dev):
+def phase_main_paths_2d_swt(port, dev, keys=None):
+    """The 2D SWT (db2 L3 on the frame and the stack) and the
+    non-separable plans; ``keys``: the non-separable ones only where K18a
+    or K18b is selected (--only)."""
     img = frame(FRAME, SEED + 4)
     swt = drive(port, dev, img, "db2", 3, {"swt2d_fused": 3},
                 {"swt2d_fused": 3, "iswt2d_fused": 3},
@@ -1080,6 +1090,10 @@ def phase_main_paths_2d_swt(port, dev):
           f"{STACK - 1} vs cpu {ec:.3e}, roundtrip {er:.3e}, details "
           f"{gib:.2f} GiB, launches 3 + 3")
     del xs, pyr, rec
+    if not wanted(keys, "K18a", "K18b"):
+        return {k: v for k, v in (("K8", swt["swt2d_fused"]),
+                                  ("K9", swt["iswt2d_fused"]))
+                if wanted(keys, k)}
 
     drive(port, dev, img, "db2", 3, {"dwt2d_fused": 3},
           {"dwt2d_fused": 3, "idwt2d_fused": 3},
@@ -1447,7 +1461,9 @@ def phase_times_1d(port, dev, card):
     return times
 
 
-def phase_times_2d_swt(port, dev, card):
+def phase_times_2d_swt(port, dev, card, keys=None):
+    """K8/K9 at levels 1 and 3 of the frame (db2), K18a/K18b at level 1,
+    and the L3 roundtrip; ``keys``: only K8's or K9's levels (--only)."""
     fd, kn = port.ops.fused_dwt, port.ops.nonsep
     swt = port.swt
     fb = port.get_filter_bank("db2")
@@ -1461,17 +1477,24 @@ def phase_times_2d_swt(port, dev, card):
     for level in (1, 3):
         coef = itertools.cycle([fd.swt2d_fused(f, fb, level)
                                 for f in frames]).__next__
-        k8 = turns(lambda: fd.swt2d_plain(nx(), fb, level),
-                   lambda: fd.swt2d_fused(nx(), fb, level), 10, True)
-        k9 = turns(lambda: fd.iswt2d_plain(*coef(), fb, level),
-                   lambda: fd.iswt2d_fused(*coef(), fb, level), 10, True)
-        for name, (ms, plain) in (("K8 swt2d", k8), ("K9 iswt2d", k9)):
+        got = {}
+        if wanted(keys, "K8"):
+            got["K8 swt2d"] = turns(lambda: fd.swt2d_plain(nx(), fb, level),
+                                    lambda: fd.swt2d_fused(nx(), fb, level),
+                                    10, True)
+        if wanted(keys, "K9"):
+            got["K9 iswt2d"] = turns(
+                lambda: fd.iswt2d_plain(*coef(), fb, level),
+                lambda: fd.iswt2d_fused(*coef(), fb, level), 10, True)
+        for name, (ms, plain) in got.items():
             gbs = level_mib * 2 ** 20 / (ms * 1e-3) / 1e9
             print(f"time {name} level {level} db2 {FRAME}, device: kernel "
                   f"{ms * 1e3:.1f} us ({gbs:.0f} GB/s, {gbs / 3350:.1%} of "
                   f"3.35 TB/s), plain {plain * 1e3:.1f} us  [{card}]")
-        if level == 1:
-            times["K8"], times["K9"] = k8, k9
+            if level == 1:
+                times[name.split()[0]] = got[name]
+    if keys is not None:
+        return times
     cross = banks_2d(port)[0]
     coef = itertools.cycle([kn.ns_swt2d_fused(f, cross, 1)
                             for f in frames]).__next__
@@ -1735,6 +1758,131 @@ def print_tc1d_occupancy(port, dev, keys):
                   f"{blocks.value} blocks of 256 threads per SM, "
                   f"{smem.value} bytes of dynamic shared memory each, grid "
                   f"{grid.value}")
+
+
+# (key, halo): the instances of K9's and K27b's kernel body; their levels
+# whose occupancy and phase-1 path --only reports: (bank, level, dtype)
+ISWT2D_ROWS = (("K9", 0), ("K27b", 1))
+ISWT2D_LEVELS = (("db2", 1, torch.float32), ("db2", 3, torch.float32),
+                 ("sym8", 1, torch.float32), ("db4", 1, torch.float64))
+
+
+def print_iswt2d_occupancy(port, dev, keys):
+    """Resident blocks per SM (the occupancy API), dynamic shared memory and
+    phase-1 path (staged windows or direct reads) of the swt2d.cu synthesis
+    levels that K9 runs on the frame and K27b on the 2048 x 8192 shard (a
+    build without the query says so)."""
+    from pypwt_tpu_torch.ops import _build
+    lib = _build.load_library()
+    if not hasattr(lib, "pypwt_iswt2d_occupancy"):
+        print("occupancy iswt2d (K9, K27b): not reported by this build")
+        return
+    for key, halo in ISWT2D_ROWS:
+        if not wanted(keys, key):
+            continue
+        nr, nc = SHARD_BLOCK if halo else FRAME
+        for wname, level, dtype in ISWT2D_LEVELS:
+            fb = port.get_filter_bank(wname)
+            blocks, smem, staged = (ctypes.c_int() for _ in range(3))
+            err = lib.pypwt_iswt2d_occupancy(
+                nr, nc, level, port.conv.swt_centre(fb.hlen, True), fb.hlen,
+                int(dtype == torch.float64), halo, dev.index,
+                ctypes.byref(blocks), ctypes.byref(smem),
+                ctypes.byref(staged))
+            if err:
+                raise RuntimeError(f"occupancy query {key} {wname} L{level}: "
+                                   f"error {err}")
+            path = "staged windows" if staged.value else "direct reads"
+            print(f"occupancy {key} {wname} level {level} "
+                  f"{str(dtype)[6:]} ({nr}, {nc}): {blocks.value} blocks of "
+                  f"256 threads per SM, {smem.value} bytes of dynamic shared "
+                  f"memory each, phase 1 {path}")
+
+
+# The synthesis levels whose outputs --only K9 / K27b digest, so that two
+# builds of swt2d.cu compare bit for bit: widths around a 64-column tile
+# (63, 64, 65, 131), rows that are not a multiple of 4 samples (99, 257),
+# planes one sample past a 16-byte boundary, a (3, 255, 257) batch whose
+# later planes start unaligned, levels 1-4, float32 and float64, sym20's
+# windows past the staging budget, and the timed shapes.
+DIGEST_SHAPES = ((40, 63), (40, 64), (40, 65), (40, 131), (70, 99),
+                 (3, 255, 257))
+DIGEST_BANKS = (("haar", torch.float32), ("db2", torch.float32),
+                ("sym8", torch.float32), ("sym20", torch.float32),
+                ("db4", torch.float64), ("sym20", torch.float64))
+DIGEST_SHARDS = ((4, (16, 96)), (2, (3, 40, 257)), (3, (20, 131)))
+
+
+def unaligned(t, floats):
+    """t's values in a tensor whose data starts ``floats`` elements past
+    where a fresh allocation would."""
+    if floats == 0:
+        return t
+    flat = torch.cat([torch.zeros(floats, device=t.device, dtype=t.dtype),
+                      t.flatten()])
+    return flat[floats:].view(t.shape)
+
+
+def digest(t):
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def print_iswt2d_digests(port, dev, keys):
+    """SHA-256 of K9's and K27b's outputs on seeded inputs (DIGEST_*, and
+    K9 at levels 1-3 of the frame, K27b on shard 1 of 8192^2 at levels
+    1-3, db2 and, in float64, db4): equal lines from two trees mean
+    bit-identical kernels."""
+    fd = port.ops.fused_dwt
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+
+    def rand(shape, dtype):
+        return torch.rand(shape, generator=gen, device=dev, dtype=dtype)
+
+    n = 0
+    if wanted(keys, "K9"):
+        cases = [(w, dt, shape, level, off)
+                 for w, dt in DIGEST_BANKS for shape in DIGEST_SHAPES
+                 for level in (1, 2, 3, 4) for off in (0, 1)
+                 if off == 0 or shape in ((40, 64), (70, 99))]
+        cases += [(w, dt, FRAME, level, 0) for w, dt in (
+            ("db2", torch.float32), ("db4", torch.float64))
+            for level in (1, 2, 3)]
+        for wname, dtype, shape, level, off in cases:
+            fb = port.get_filter_bank(wname)
+            c = [unaligned(rand(shape, dtype), off) for _ in range(4)]
+            out = fd.iswt2d_fused(*c, fb, level)
+            print(f"digest K9 {wname} level {level} {str(dtype)[6:]} "
+                  f"{shape} +{off}: {digest(out)}")
+            n += 1
+    if wanted(keys, "K27b"):
+        cases = [(w, dt, shards, shape, level, off)
+                 for w, dt in DIGEST_BANKS for shards, shape in DIGEST_SHARDS
+                 for level in (1, 2, 3, 4) for off in (0, 1)
+                 if off == 0 or shape == (16, 96)]
+        cases += [(w, dt, N_SHARDS, SHARD_BLOCK, level, 0) for w, dt in (
+            ("db2", torch.float32), ("db4", torch.float64))
+            for level in (1, 2, 3)]
+        for wname, dtype, shards, shape, level, off in cases:
+            fb = port.get_filter_bank(wname)
+            top, bot = fd.halo_heights("iswt", fb, 0, level)
+            rows = shape[-2]
+            body, halos = [], []
+            for _ in range(4):
+                ext = shard_rows_of(
+                    rand((*shape[:-2], shards * rows, shape[-1]), dtype), 1,
+                    rows, top, bot)
+                body.append(unaligned(ext[..., top:top + rows, :]
+                                      .contiguous(), off))
+                halos += [unaligned(ext[..., :top, :].contiguous(), off),
+                          unaligned(ext[..., top + rows:, :].contiguous(),
+                                    off)]
+                del ext
+            out = fd.iswt2d_sharded_fused(*body, tuple(halos), fb, level)
+            print(f"digest K27b {wname} level {level} {str(dtype)[6:]} "
+                  f"shard 1 of {shards} x {shape} +{off}: {digest(out)}")
+            del body, halos, out
+            n += 1
+    print(f"digests of the synthesis: {n}")
 
 
 def phase_library(port, dev, card, keys=None):
@@ -4451,7 +4599,7 @@ MXU2D_KEYS = ("K5", "K6", "K11a", "K11b")
 SHARD_KEYS = ("K26a", "K26b", "K27a", "K27b", "K28 dwt", "K28 idwt",
               "K28 swt", "K28 iswt")
 MXU1D_KEYS = ("K7a", "K7b")
-ONLY_KEYS = MXU2D_KEYS + MXU1D_KEYS + SHARD_KEYS + K29
+ONLY_KEYS = ("K9",) + MXU2D_KEYS + MXU1D_KEYS + SHARD_KEYS + K29
 
 
 def in_family(key, item):
@@ -4486,11 +4634,17 @@ def run_only(port, dev, card, keys):
     """The narrow run of ``--only``: the selected rows' checks, main paths
     and times, then their kernels line."""
     worst, launches, times, library = {}, {}, {}, {}
+    if "K9" in keys:
+        worst.update(phase_kernels_swt2d(port, dev, keys))
+        launches.update(phase_main_paths_2d_swt(port, dev, keys))
+        times.update(phase_times_2d_swt(port, dev, card, keys))
+    if wanted(keys, "K9", "K27b"):
+        print_iswt2d_occupancy(port, dev, keys)
+        print_iswt2d_digests(port, dev, keys)
     if wanted(keys, *MXU2D_KEYS):
         worst.update(phase_kernels_mxu(port, dev, keys))
         launches.update(phase_main_paths_mxu(port, dev, keys))
         times.update(phase_times_mxu(port, dev, card, keys))
-        library.update(phase_library(port, dev, card, keys))
     for key in ("K11a", "K11b"):
         if key in keys:
             phase_times_swt_levels(port, dev, card, key)
@@ -4500,6 +4654,7 @@ def run_only(port, dev, card, keys):
         worst.update(phase_kernels_mxu1d(port, dev, keys))
         launches.update(phase_main_paths_mxu1d(port, dev, keys))
         times.update(phase_times_mxu1d(port, dev, card, keys))
+    if wanted(keys, "K9", *MXU2D_KEYS, *MXU1D_KEYS):
         library.update(phase_library(port, dev, card, keys))
     if wanted(keys, "K7a", "K7b", "K29e", "K29f"):
         print_tc1d_occupancy(port, dev, keys)

@@ -23,9 +23,12 @@ on the float64 instances of the tap-loop kernels; and the whole-pyramid
 tail-level fusion (``core.dwt.set_tail_fuse(True)`` or
 ``PYPWT_TAIL_FUSE=1``, off by default) runs under ``core.dwt.wavedec2``/
 ``waverec2`` for levels 2..L; and the multi-device layer ``parallel``
-(the row-sharded and data-parallel layouts: ``ShardedWavelets``,
-``BatchedWavelets``, ``parallel.spatial``'s row-sharded transforms on
-K26-K28 with halo exchanges through ``parallel.ring``).  This package
+(the row-sharded, grid, sequence and data-parallel layouts:
+``ShardedWavelets`` on a row mesh, on a ``make_mesh2d`` grid or, for a
+1D input, over a signal's samples; ``BatchedWavelets``;
+``parallel.spatial``'s row-sharded transforms on K26-K28, its
+grid-sharded and sequence-sharded transforms on the one-axis passes
+K29a-K29h, all with halo exchanges through ``parallel.ring``).  This package
 imports neither jax nor pypwt_tpu, and builds its kernels at their first
 launch, never at import.
 

@@ -84,11 +84,18 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 // in flight at once. A thread commits its copies as one
 // group and waits until at most kPending of its groups are pending; after
 // the wait, a __syncthreads makes every thread's copies visible to the
-// block. The CPU rehearsal copies at once and waits for nothing.
+// block. The CPU rehearsal copies at once and waits for nothing. The
+// float64 windows of the tap-loop synthesis (swt2d.cu) copy one double
+// (cp_async8, 8 bytes) or two (cp_async16 on doubles).
 #ifdef PYPWT_MMA_STANDIN
 inline void cp_async4(float* dst, const float* src) { *dst = *src; }
+inline void cp_async8(double* dst, const double* src) { *dst = *src; }
 inline void cp_async16(float* dst, const float* src) {
   for (int e = 0; e < 4; ++e) dst[e] = src[e];
+}
+inline void cp_async16(double* dst, const double* src) {
+  dst[0] = src[0];
+  dst[1] = src[1];
 }
 inline void cp_async16_ca(float* dst, const float* src) {
   cp_async16(dst, src);
@@ -113,6 +120,17 @@ __device__ __forceinline__ void cp_async16_ca(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src)
                : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(double* dst, const double* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(double* dst, const double* src) {
+  cp_async16(reinterpret_cast<float*>(dst),
+             reinterpret_cast<const float*>(src));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -50,12 +50,29 @@
 // [-lp, nr + rp), the plane's rows plus the exchanged halos, so the row
 // plan steps by the dilation itself, not by its residue mod nr, and a row
 // is read from the shard or a halo where it lies (no padded copy); the
-// columns stay periodic. The float64 instances
-// (pypwt_swt2d_f64, pypwt_iswt2d_f64) stage 36 KB of static shared memory.
+// columns stay periodic. The analysis's float64 instance (pypwt_swt2d_f64)
+// stages 36 KB of static shared memory.
+//
+// The synthesis (K9, K27b) reads four planes per output and is the
+// costlier of the two. Its blocks are kSynTR rows of one class by kSynTC
+// columns. A table of each staged row's four source rows is built once per
+// block (a shard's halos resolved there, not once per sample). Where the
+// four column windows, kSynTC + (hlen - 1) * (dilation mod nc) samples
+// wide, fit kStageBudget, the block stages them in dynamic shared memory
+// by cp.async, every copy of a thread in flight at once and the period
+// wrap resolved per copy (16-byte copies from the window's first column
+// rounded down to 16 bytes, read shifted, where nc allows; one-sample
+// copies otherwise), so phase 1 reads shared memory with no wrap test;
+// wider windows (sym20 and deep levels) keep phase 1's reads through the
+// read-only cache, from the same table. Phase 2 gives a thread kOutRows
+// rows of one column, loading each staged row once. Both phases take
+// their taps from the kernel's parameters and keep the tap loop's order
+// of accumulation, so the outputs do not depend on the path or the tile.
 
 #include <algorithm>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace pypwt {
 namespace {
@@ -77,13 +94,14 @@ struct RowPlan {
 // halo: the rows of a shard (K27), whose staged rows are rows of the
 // extended axis [-lp, nr + rp): fm is then the dilation itself, not reduced
 // mod nr (the caller bounds it: level <= 31 and the halos' heights fit an
-// int).
-RowPlan row_plan(int hlen, int s, int level, int nr, bool halo = false) {
+// int). tile: the rows of a block at most; tr a multiple of `step`.
+RowPlan row_plan(int hlen, int s, int level, int nr, bool halo = false,
+                 int tile = TR, int step = 1) {
   RowPlan p{};
   const bool every_row = level > 31 || (1LL << (level - 1)) >= nr;
   p.cls = every_row ? nr : (1 << (level - 1));
   const int per = (nr + p.cls - 1) / p.cls;  // rows of class 0, the longest
-  p.tr = std::min(TR, per);
+  p.tr = std::min(tile, (per + step - 1) / step * step);
   p.tiles = (per + p.tr - 1) / p.tr;
   p.back = hlen - 1 - s;
   p.fm = halo ? 1LL << (level - 1) : dilation_mod(level, nr);
@@ -187,62 +205,185 @@ swt2d_kernel(const T* __restrict__ x, T* __restrict__ a, T* __restrict__ h,
   }
 }
 
+// The synthesis (K9, K27b) and its tiles: kSynTR output rows of one
+// residue class by kSynTC consecutive columns, kOutRows rows of one column
+// per thread in phase 2. At db2 level 1 a block stages 45.8 KB and 4 stay
+// resident per SM; 16, 20 and 32 rows measured slower on the 2048 x 8192
+// shard (PERF.md), and 32 or 128 columns slower than 64.
+constexpr int kSynTR = 24;
+constexpr int kSynTC = 64;
+constexpr int kOutRows = 4;
+// Dynamic shared memory a block with staged windows may take: two such
+// blocks, with the 1 KB the runtime keeps for each, fit in an SM's 228 KB.
+// A level whose windows need more reads its taps from device memory.
+constexpr int kStageBudget = 113 * 1024;
+
+// One synthesis level's column windows, from the host. Window column w of
+// the block at column c0 holds plane column c0 - back + w (mod nc), so tap
+// k of output column c0 + c reads window column c + (hlen - 1 - k) fm.
+struct SynPlan {
+  int rows;   // staged rows of a block: rp.tr + hlen - 1
+  int fm;     // the dilation mod nc
+  int back;   // (hlen - 1 - s) fm mod nc
+  int ldw;    // window row stride in samples; 0: no windows (direct reads)
+  int quads;  // 16-byte copies: nc a multiple of 16 bytes of samples
+  int nq;     // copies per window row and plane
+};
+
+constexpr int kWarps = kThreads / 32;
+// Taps whose loads a thread issues together in the direct phase 1 (device
+// memory) and in phase 2 (one staged row per tap); the staged phase 1
+// measured faster one tap per trip.
+constexpr int kTapChunk = 4;
+static_assert(kMaxTaps % kTapChunk == 0, "whole chunks of taps");
+
+// One sample into shared memory, asynchronously.
+__device__ __forceinline__ void copy_sample(float* dst, const float* src) {
+  mma::cp_async4(dst, src);
+}
+__device__ __forceinline__ void copy_sample(double* dst, const double* src) {
+  mma::cp_async8(dst, src);
+}
+
 // Rows: Wrapped (K9), or the Halo<T, 4> of the shard's planes a, h, v, d
-// (K27b).
-template <class T, class Rows>
+// (K27b). kStaged: the four windows are staged in shared memory (SynPlan
+// ldw > 0); else phase 1 reads its taps through the read-only cache.
+// Dynamic shared memory: the windows (kStaged: 4 planes of rows x ldw),
+// syn_-1(a, v) and syn_-1(h, d) on the staged rows (rows x kSynTC each),
+// and the row table (4 x rows pointers).
+template <class T, class Rows, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 iswt2d_kernel(const T* __restrict__ a, const T* __restrict__ h,
               const T* __restrict__ v, const T* __restrict__ d,
-              T* __restrict__ out, int nr, int nc, RowPlan rp,
+              T* __restrict__ out, int nr, int nc, RowPlan rp, SynPlan sy,
               TapsT<T> half_taps, TapOffsets coff, int hlen, unsigned y0,
               Rows halo) {
-  __shared__ T s_p[kStageRows * TC];  // syn_-1(a, v) on staged rows
-  __shared__ T s_q[kStageRows * TC];  // syn_-1(h, d)
-  __shared__ T g_lo[kMaxTaps], g_hi[kMaxTaps];
-  __shared__ int s_off[kMaxTaps];
-  __shared__ int s_row[kStageRows];
-
   const int tid = threadIdx.x;
   const unsigned by = y0 + blockIdx.y;  // unsigned: the cheaper division
   const int rho = by / rp.tiles;
   const int m0 = (by - rho * rp.tiles) * rp.tr;
-  const int c0 = blockIdx.x * TC;
-  const int rows = rp.tr + hlen - 1;
-  const long long plane = static_cast<long long>(nr) * nc;
-  const long long pb = blockIdx.z * plane;
+  const int c0 = blockIdx.x * kSynTC;
+  const int rows = sy.rows;
+  const int plane_w = kStaged ? rows * sy.ldw : 0;
+  const long long pb = blockIdx.z * (static_cast<long long>(nr) * nc);
+  T* win = dynamic_smem<T>();
+  T* s_p = win + 4 * plane_w;
+  T* s_q = s_p + rows * kSynTC;
+  const T** src = reinterpret_cast<const T**>(s_q + rows * kSynTC);
 
-  if (tid < hlen) {
-    g_lo[tid] = half_taps.lo[tid];
-    g_hi[tid] = half_taps.hi[tid];
-    s_off[tid] = coff.k[tid];
-  }
-  if (tid < rows) s_row[tid] = staged_row<Rows::kHalo>(rp, rho, m0, tid, nr);
-  __syncthreads();
-
-  for (int i = tid; i < rows * TC; i += kThreads) {
-    const int q = i / TC, col = c0 + i - q * TC;
-    T sp = 0, sq = 0;
-    const T *ar, *hr, *vr, *dr;
+  // The row table, once per staged row: src[p rows + q] is plane p's row
+  // of staged row q (a, h, v, d), null past a shard's halos.
+  if (tid < rows) {
+    const int r = staged_row<Rows::kHalo>(rp, rho, m0, tid, nr);
+    const T* const body[4] = {a + pb, h + pb, v + pb, d + pb};
     if constexpr (Rows::kHalo) {
       const auto hz = halo.plane(blockIdx.z, nc);
-      ar = hz.row(0, a + pb, s_row[q], nr, nc);
-      hr = hz.row(1, h + pb, s_row[q], nr, nc);
-      vr = hz.row(2, v + pb, s_row[q], nr, nc);
-      dr = hz.row(3, d + pb, s_row[q], nr, nc);
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        src[p * rows + tid] = hz.row(p, body[p], r, nr, nc);
     } else {
-      const long long rb = pb + static_cast<long long>(s_row[q]) * nc;
-      ar = a + rb;
-      hr = h + rb;
-      vr = v + rb;
-      dr = d + rb;
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        src[p * rows + tid] = body[p] + static_cast<long long>(r) * nc;
     }
-    if (col < nc && ar) {
-      for (int k = 0; k < hlen; ++k) {
-        const int off = s_off[k];
-        sp = fmadd(col_tap(ar, col, off, nc), g_lo[k], sp);
-        sp = fmadd(col_tap(vr, col, off, nc), g_hi[k], sp);
-        sq = fmadd(col_tap(hr, col, off, nc), g_lo[k], sq);
-        sq = fmadd(col_tap(dr, col, off, nc), g_hi[k], sq);
+  }
+  __syncthreads();
+
+  // The windows, every copy of the thread in flight at once, the period
+  // wrap resolved per copy: 16-byte copies from the window's first column
+  // rounded down to a multiple of kVec samples (read shifted by the
+  // remainder; sample copies from a row that is not 16-byte aligned), or
+  // sample copies where nc is not a multiple of kVec; zero for a row past
+  // the halos. A warp copies whole rows.
+  int shift = 0;
+  if constexpr (kStaged) {
+    constexpr int kVec = 16 / sizeof(T);
+    int first = c0 - sy.back;
+    if (first < 0) first += nc;
+    if (sy.quads) {
+      shift = first % kVec;
+      first -= shift;
+    }
+    const int step = sy.quads ? kVec : 1;
+    for (int r = tid >> 5; r < rows; r += kWarps) {
+      const T* s[4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) s[p] = src[p * rows + r];
+      T* dst = win + r * sy.ldw;
+      for (int q = tid & 31; q < sy.nq; q += 32) {
+        int j = first + step * q;
+        if (j >= nc) j %= nc;
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          T* t = dst + p * plane_w + step * q;
+          if (s[p] == nullptr) {
+            for (int e = 0; e < step; ++e) t[e] = T(0);
+          } else if (!sy.quads) {
+            copy_sample(t, s[p] + j);
+          } else if ((reinterpret_cast<uintptr_t>(s[p]) & 15) == 0) {
+            mma::cp_async16(t, s[p] + j);
+          } else {
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) copy_sample(t + e, s[p] + j + e);
+          }
+        }
+      }
+    }
+    mma::cp_async_commit();
+    mma::cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  // Phase 1, last axis, on the staged rows (zero for a row past a shard's
+  // halos and for a column past nc): sp <- a, v and sq <- h, d, tap by tap.
+  for (int i = tid; i < rows * kSynTC; i += kThreads) {
+    const int q = i / kSynTC, c = i - q * kSynTC, col = c0 + c;
+    T sp = 0, sq = 0;
+    if (col < nc && src[q] != nullptr) {
+      if constexpr (kStaged) {
+        // tap k reads window column c + (hlen - 1 - k) fm
+        const T* w = win + q * sy.ldw + shift + c + (hlen - 1) * sy.fm;
+#pragma unroll
+        for (int k = 0; k < kMaxTaps; ++k) {
+          if (k >= hlen) break;
+          sp = fmadd(w[0], half_taps.lo[k], sp);
+          sp = fmadd(w[2 * plane_w], half_taps.hi[k], sp);
+          sq = fmadd(w[plane_w], half_taps.lo[k], sq);
+          sq = fmadd(w[3 * plane_w], half_taps.hi[k], sq);
+          w -= sy.fm;
+        }
+      } else {
+        // tap k reads plane column col + coff.k[k], wrapped once; the
+        // loads of kTapChunk taps go out together (a tap k >= hlen reads
+        // column col, never summed)
+        const T* ar = src[q];
+        const T* hr = src[rows + q];
+        const T* vr = src[2 * rows + q];
+        const T* dr = src[3 * rows + q];
+#pragma unroll
+        for (int k0 = 0; k0 < kMaxTaps; k0 += kTapChunk) {
+          if (k0 >= hlen) break;
+          T va[kTapChunk], vh[kTapChunk], vv[kTapChunk], vd[kTapChunk];
+#pragma unroll
+          for (int e = 0; e < kTapChunk; ++e) {
+            int j = col + coff.k[k0 + e];
+            if (j >= nc) j -= nc;
+            va[e] = __ldg(ar + j);
+            vh[e] = __ldg(hr + j);
+            vv[e] = __ldg(vr + j);
+            vd[e] = __ldg(dr + j);
+          }
+#pragma unroll
+          for (int e = 0; e < kTapChunk; ++e) {
+            const int k = k0 + e;
+            if (k < hlen) {
+              sp = fmadd(va[e], half_taps.lo[k], sp);
+              sp = fmadd(vv[e], half_taps.hi[k], sp);
+              sq = fmadd(vh[e], half_taps.lo[k], sq);
+              sq = fmadd(vd[e], half_taps.hi[k], sq);
+            }
+          }
+        }
       }
     }
     s_p[i] = sp;
@@ -250,18 +391,59 @@ iswt2d_kernel(const T* __restrict__ a, const T* __restrict__ h,
   }
   __syncthreads();
 
-  for (int i = tid; i < rp.tr * TC; i += kThreads) {
-    const int p = i / TC, c = i - p * TC;
-    const long long orow = rho + static_cast<long long>(rp.cls) * (m0 + p);
-    const int col = c0 + c;
-    if (orow >= nr || col >= nc) continue;
-    T s = 0;
-    for (int k = 0; k < hlen; ++k) {
-      const int q = (p + hlen - 1 - k) * TC + c;
-      s = fmadd(s_p[q], g_lo[k], s);
-      s = fmadd(s_q[q], g_hi[k], s);
+  // Phase 2, axis -2: kOutRows outputs p0 + r of one column per thread; tap
+  // k of output p0 + r reads staged row p0 + r + hlen - 1 - k, so the
+  // thread loads each staged row once, kTapChunk rows at a time, and slides
+  // it through registers.
+  constexpr int R = kOutRows;
+  for (int i = tid; i < rp.tr / R * kSynTC; i += kThreads) {
+    const int g = i / kSynTC, c = i - g * kSynTC, col = c0 + c;
+    if (col >= nc) continue;
+    const int p0 = g * R;
+    const T* bp = s_p + (p0 + hlen - 1) * kSynTC + c;
+    const T* bq = s_q + (p0 + hlen - 1) * kSynTC + c;
+    T wp[R], wq[R], acc[R];  // wp[r]: staged row p0 + r + hlen - 1 - k
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      wp[r] = bp[r * kSynTC];
+      wq[r] = bq[r * kSynTC];
+      acc[r] = 0;
     }
-    out[pb + orow * nc + col] = s;
+#pragma unroll
+    for (int k0 = 0; k0 < kMaxTaps; k0 += kTapChunk) {
+      if (k0 >= hlen) break;
+      T np[kTapChunk], nq[kTapChunk];  // the row entering after tap k0 + e
+#pragma unroll
+      for (int e = 0; e < kTapChunk; ++e) {
+        const int o = min(k0 + e + 1, hlen - 1) * kSynTC;
+        np[e] = bp[-o];
+        nq[e] = bq[-o];
+      }
+#pragma unroll
+      for (int e = 0; e < kTapChunk; ++e) {
+        const int k = k0 + e;
+        if (k < hlen) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            acc[r] = fmadd(wp[r], half_taps.lo[k], acc[r]);
+            acc[r] = fmadd(wq[r], half_taps.hi[k], acc[r]);
+          }
+        }
+#pragma unroll
+        for (int r = R - 1; r > 0; --r) {
+          wp[r] = wp[r - 1];
+          wq[r] = wq[r - 1];
+        }
+        wp[0] = np[e];
+        wq[0] = nq[e];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const long long orow =
+          rho + static_cast<long long>(rp.cls) * (m0 + p0 + r);
+      if (orow < nr) out[pb + orow * nc + col] = acc[r];
+    }
   }
 }
 
@@ -269,11 +451,12 @@ iswt2d_kernel(const T* __restrict__ a, const T* __restrict__ h,
 // out of range. Its blocks: (nc + TC - 1) / TC columns x rp.cls * rp.tiles
 // rows (at most 2 nr) x batch planes.
 bool plan_level(int batch, int nr, int nc, int level, int s, int hlen,
-                RowPlan* rp, TapOffsets* coff, bool halo = false) {
+                RowPlan* rp, TapOffsets* coff, bool halo = false,
+                int tile = TR, int step = 1) {
   if (hlen < 1 || hlen > kMaxTaps || s < 0 || s >= hlen || nr < 1 ||
       nc < 1 || nr > 0x3fffffff || nc > 0x3fffffff || level < 1 || batch < 1)
     return false;
-  *rp = row_plan(hlen, s, level, nr, halo);
+  *rp = row_plan(hlen, s, level, nr, halo, tile, step);
   *coff = dilated_offsets(hlen, s, level, nc);
   return true;
 }
@@ -300,16 +483,79 @@ int launch_swt(const T* x, T* a, T* h, T* v, T* d, int batch, int nr, int nc,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The synthesis's windows for the rows of rp at columns nc (s the
+// centre): staged where they fit kStageBudget, else none; *smem the
+// block's dynamic shared memory in bytes.
 template <class T>
-int launch_iswt(const T* a, const T* h, const T* v, const T* d, T* out,
-                int batch, int nr, int nc, int level, int centre,
-                const T* rec_lo, const T* rec_hi, int hlen, int device,
-                void* stream) {
+SynPlan syn_plan(const RowPlan& rp, int hlen, int s, int level, int nc,
+                 size_t* smem) {
+  constexpr int kVec = 16 / sizeof(T);
+  SynPlan p{};
+  p.rows = rp.tr + hlen - 1;
+  const long long fm = dilation_mod(level, nc);
+  p.fm = static_cast<int>(fm);
+  p.back = static_cast<int>((hlen - 1 - s) * fm % nc);
+  const size_t rest = (2 * sizeof(T) * kSynTC + 4 * sizeof(const T*)) *
+                      static_cast<size_t>(p.rows);
+  const long long width = kSynTC + (hlen - 1) * fm;
+  const long long ldw = (width + kVec - 1 + 3) / 4 * 4;
+  const long long staged = 4 * sizeof(T) * p.rows * ldw + rest;
+  *smem = rest;
+  if (staged <= kStageBudget) {
+    p.ldw = static_cast<int>(ldw);
+    p.quads = nc % kVec == 0;
+    p.nq = static_cast<int>(p.quads ? ldw / kVec : width);
+    *smem = static_cast<size_t>(staged);
+  }
+  return p;
+}
+
+template <class T, class Rows>
+using IswtKernel = void (*)(const T*, const T*, const T*, const T*, T*, int,
+                            int, RowPlan, SynPlan, TapsT<T>, TapOffsets, int,
+                            unsigned, Rows);
+
+// The kernel, plans and dynamic shared memory of one synthesis level, or
+// false if the arguments are out of range.
+template <class T, class Rows>
+bool iswt_level(int batch, int nr, int nc, int level, int centre, int hlen,
+                RowPlan* rp, SynPlan* sp, TapOffsets* coff, size_t* smem,
+                IswtKernel<T, Rows>* kernel) {
+  if (!plan_level(batch, nr, nc, level, centre, hlen, rp, coff, Rows::kHalo,
+                  kSynTR, kOutRows))
+    return false;
+  *sp = syn_plan<T>(*rp, hlen, centre, level, nc, smem);
+  *kernel = sp->ldw ? iswt2d_kernel<T, Rows, true>
+                    : iswt2d_kernel<T, Rows, false>;
+  return true;
+}
+
+inline Wrapped at_plane(const Wrapped& rows, long long, int) { return rows; }
+template <class T, int kPlanes>
+Halo<T, kPlanes> at_plane(const Halo<T, kPlanes>& rows, long long z, int nc) {
+  return rows.plane(z, nc);
+}
+
+// K9 (Wrapped) and K27b (Halo<T, 4>): one synthesis level of the planes a,
+// h, v, d. Blocks: column tiles x row tiles x planes.
+template <class T, class Rows>
+int launch_iswt(const T* const (&planes)[4], T* out, int batch, int nr,
+                int nc, int level, int centre, const T* rec_lo,
+                const T* rec_hi, int hlen, int device, void* stream,
+                const Rows& rows) {
   RowPlan rp;
+  SynPlan sp;
   TapOffsets coff;
-  if (!plan_level(batch, nr, nc, level, centre, hlen, &rp, &coff))
+  size_t smem;
+  IswtKernel<T, Rows> kernel;
+  if (!iswt_level<T, Rows>(batch, nr, nc, level, centre, hlen, &rp, &sp,
+                           &coff, &smem, &kernel))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   // rec / 2 is exact: the 1/2 of each axis pass
   T lo2[kMaxTaps], hi2[kMaxTaps];
@@ -318,13 +564,14 @@ int launch_iswt(const T* a, const T* h, const T* v, const T* d, T* out,
     hi2[k] = T(0.5) * rec_hi[k];
   }
   const TapsT<T> taps = make_taps<T>(lo2, hi2, hlen);
-  launch_chunks((nc + TC - 1) / TC, rp.cls * rp.tiles, batch,
+  launch_chunks((nc + kSynTC - 1) / kSynTC, rp.cls * rp.tiles, batch,
                 [&](dim3 grid, int y0, int z0) {
                   const long long p = static_cast<long long>(z0) * nr * nc;
-                  iswt2d_kernel<T, Wrapped><<<
-                      grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-                      a + p, h + p, v + p, d + p, out + p, nr, nc, rp, taps,
-                      coff, hlen, y0, Wrapped{});
+                  kernel<<<grid, kThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+                      planes[0] + p, planes[1] + p, planes[2] + p,
+                      planes[3] + p, out + p, nr, nc, rp, sp, taps, coff,
+                      hlen, y0, at_plane(rows, z0, nc));
                 });
   return static_cast<int>(cudaGetLastError());
 }
@@ -357,37 +604,46 @@ int launch_swt_sharded(const T* x, const T* top, const T* bot, T* a, T* h,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K27b: the synthesis of one row shard's planes, each with its halo pair.
+// K27b: the synthesis of one row shard's planes, each with its halo pair
+// (halos in JAX's order: a_top, a_bot, h_top, ..., d_bot).
 template <class T>
-int launch_iswt_sharded(const T* const* planes, const T* const* tops,
-                        const T* const* bots, T* out, int batch, int nr,
-                        int nc, int level, int centre, int lp, int rp,
-                        const T* rec_lo, const T* rec_hi, int hlen,
-                        int device, void* stream) {
-  RowPlan rp_;
+int launch_iswt_sharded(const T* const (&planes)[4], const T* const* halos,
+                        T* out, int batch, int nr, int nc, int level,
+                        int centre, int lp, int rp, const T* rec_lo,
+                        const T* rec_hi, int hlen, int device, void* stream) {
+  if (!stationary_halos_ok(hlen, centre, level, lp, rp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const T* tops[4] = {halos[0], halos[2], halos[4], halos[6]};
+  const T* bots[4] = {halos[1], halos[3], halos[5], halos[7]};
+  return launch_iswt(planes, out, batch, nr, nc, level, centre, rec_lo,
+                     rec_hi, hlen, device, stream,
+                     make_halo4(tops, bots, lp, rp));
+}
+
+// The occupancy API's resident blocks per SM, the dynamic shared memory
+// and the phase-1 path (1: staged windows) of the synthesis level that
+// launch_iswt runs on (nr, nc) planes.
+template <class T, class Rows>
+int iswt_occupancy(int nr, int nc, int level, int centre, int hlen,
+                   int device, int* blocks, int* smem, int* staged) {
+  RowPlan rp;
+  SynPlan sp;
   TapOffsets coff;
-  if (!stationary_halos_ok(hlen, centre, level, lp, rp) ||
-      !plan_level(batch, nr, nc, level, centre, hlen, &rp_, &coff, true))
+  size_t bytes;
+  IswtKernel<T, Rows> kernel;
+  if (!iswt_level<T, Rows>(1, nr, nc, level, centre, hlen, &rp, &sp, &coff,
+                           &bytes, &kernel))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  T lo2[kMaxTaps], hi2[kMaxTaps];
-  for (int k = 0; k < hlen; ++k) {
-    lo2[k] = T(0.5) * rec_lo[k];
-    hi2[k] = T(0.5) * rec_hi[k];
-  }
-  const TapsT<T> taps = make_taps<T>(lo2, hi2, hlen);
-  const Halo<T, 4> halo = make_halo4(tops, bots, lp, rp);
-  launch_chunks((nc + TC - 1) / TC, rp_.cls * rp_.tiles, batch,
-                [&](dim3 grid, int y0, int z0) {
-                  const long long p = static_cast<long long>(z0) * nr * nc;
-                  iswt2d_kernel<T, Halo<T, 4>><<<
-                      grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-                      planes[0] + p, planes[1] + p, planes[2] + p,
-                      planes[3] + p, out + p, nr, nc, rp_, taps, coff, hlen,
-                      y0, halo.plane(z0, nc));
-                });
-  return static_cast<int>(cudaGetLastError());
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *smem = static_cast<int>(bytes);
+  *staged = sp.ldw > 0;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, kThreads, bytes));
 }
 
 }  // namespace
@@ -419,8 +675,9 @@ extern "C" int pypwt_iswt2d(const float* a, const float* h, const float* v,
                             int nc, int level, int centre,
                             const float* rec_lo, const float* rec_hi,
                             int hlen, int device, void* stream) {
-  return pypwt::launch_iswt(a, h, v, d, out, batch, nr, nc, level, centre,
-                            rec_lo, rec_hi, hlen, device, stream);
+  const float* planes[4] = {a, h, v, d};
+  return pypwt::launch_iswt(planes, out, batch, nr, nc, level, centre, rec_lo,
+                            rec_hi, hlen, device, stream, pypwt::Wrapped{});
 }
 
 extern "C" int pypwt_iswt2d_f64(const double* a, const double* h,
@@ -429,8 +686,9 @@ extern "C" int pypwt_iswt2d_f64(const double* a, const double* h,
                                 int level, int centre, const double* rec_lo,
                                 const double* rec_hi, int hlen, int device,
                                 void* stream) {
-  return pypwt::launch_iswt(a, h, v, d, out, batch, nr, nc, level, centre,
-                            rec_lo, rec_hi, hlen, device, stream);
+  const double* planes[4] = {a, h, v, d};
+  return pypwt::launch_iswt(planes, out, batch, nr, nc, level, centre, rec_lo,
+                            rec_hi, hlen, device, stream, pypwt::Wrapped{});
 }
 
 // K27a / K27b: the levels of one row shard (K8's / K9's maps, rows read
@@ -471,11 +729,9 @@ extern "C" int pypwt_iswt2d_sharded(const float* a, const float* h,
                                     const float* rec_lo, const float* rec_hi,
                                     int hlen, int device, void* stream) {
   const float* planes[4] = {a, h, v, d};
-  const float* tops[4] = {halos[0], halos[2], halos[4], halos[6]};
-  const float* bots[4] = {halos[1], halos[3], halos[5], halos[7]};
-  return pypwt::launch_iswt_sharded(planes, tops, bots, out, batch, nr, nc,
-                                    level, centre, lp, rp, rec_lo, rec_hi,
-                                    hlen, device, stream);
+  return pypwt::launch_iswt_sharded(planes, halos, out, batch, nr, nc, level,
+                                    centre, lp, rp, rec_lo, rec_hi, hlen,
+                                    device, stream);
 }
 
 extern "C" int pypwt_iswt2d_sharded_f64(const double* a, const double* h,
@@ -487,9 +743,29 @@ extern "C" int pypwt_iswt2d_sharded_f64(const double* a, const double* h,
                                         const double* rec_hi, int hlen,
                                         int device, void* stream) {
   const double* planes[4] = {a, h, v, d};
-  const double* tops[4] = {halos[0], halos[2], halos[4], halos[6]};
-  const double* bots[4] = {halos[1], halos[3], halos[5], halos[7]};
-  return pypwt::launch_iswt_sharded(planes, tops, bots, out, batch, nr, nc,
-                                    level, centre, lp, rp, rec_lo, rec_hi,
-                                    hlen, device, stream);
+  return pypwt::launch_iswt_sharded(planes, halos, out, batch, nr, nc, level,
+                                    centre, lp, rp, rec_lo, rec_hi, hlen,
+                                    device, stream);
+}
+
+// K9's / K27b's instance for one level of (nr, nc) planes (f64 1: the
+// float64 one; halo 1: K27b's Halo rows): resident blocks per SM, dynamic
+// shared memory in bytes, and 1 where phase 1 reads staged windows, 0 where
+// it reads through the read-only cache. A figure for reports.
+extern "C" int pypwt_iswt2d_occupancy(int nr, int nc, int level, int centre,
+                                      int hlen, int f64, int halo,
+                                      int device, int* blocks, int* smem,
+                                      int* staged) {
+  using namespace pypwt;
+  if (f64)
+    return halo ? iswt_occupancy<double, Halo<double, 4>>(
+                      nr, nc, level, centre, hlen, device, blocks, smem,
+                      staged)
+                : iswt_occupancy<double, Wrapped>(nr, nc, level, centre,
+                                                  hlen, device, blocks, smem,
+                                                  staged);
+  return halo ? iswt_occupancy<float, Halo<float, 4>>(
+                    nr, nc, level, centre, hlen, device, blocks, smem, staged)
+              : iswt_occupancy<float, Wrapped>(nr, nc, level, centre, hlen,
+                                               device, blocks, smem, staged);
 }

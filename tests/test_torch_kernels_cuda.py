@@ -1292,6 +1292,60 @@ def test_k11a_k28_swt_unaligned_planes_match_plain(dev, prec):
             assert kms.swt2d_sharded_mxu_fused.launches == n + 1
 
 
+# The tile walk of the tap-loop synthesis behind K9 and K27b (swt2d.cu):
+# widths around its 64-column tile (63, 64, 65, 131), rows that are not a
+# multiple of 4 samples (99, 257), levels 1-4 in both precisions, sym20's
+# windows past the staging budget (its phase 1 reads through the cache),
+# planes and halos one sample past a 16-byte boundary, and a (3, 255, 257)
+# batch whose later planes start unaligned.
+SYN_WALK_BANKS = ["db2", "sym8", "odd5", "sym20"]
+SYN_WALK_SHAPES = [(40, 63), (40, 64), (40, 65), (40, 131), (70, 99),
+                   (3, 255, 257)]
+SYN_WALK_SHARDS = [(4, (16, 64)), (4, (16, 63)), (3, (20, 131)),
+                   (2, (3, 40, 99))]
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("wname", SYN_WALK_BANKS)
+@pytest.mark.parametrize("shape", SYN_WALK_SHAPES, ids=str)
+@pytest.mark.parametrize("level", [1, 2, 3, 4])
+def test_k9_tile_walk_matches_plain(dev, wname, shape, level, offset, dtype):
+    fb = _bank(wname)
+    c = [_offset(_rand(shape, dev, s).to(dtype), offset)
+         for s in range(1, 5)]
+    assert (c[0].data_ptr() % 16 != 0) == bool(offset)
+    tol = TOL if dtype == torch.float32 else 1e-12
+    n = fd.iswt2d_fused.launches
+    got = fd.iswt2d_fused(*c, fb, level)
+    assert fd.iswt2d_fused.launches == n + 1
+    assert float((got - fd.iswt2d_plain(*c, fb, level)).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("wname", SYN_WALK_BANKS)
+@pytest.mark.parametrize("case", SYN_WALK_SHARDS, ids=str)
+@pytest.mark.parametrize("level", [1, 2, 3, 4])
+def test_k27b_tile_walk_matches_plain(dev, wname, case, level, offset,
+                                      dtype):
+    fb = _bank(wname)
+    shards, shape = case
+    c = [_global(shards, shape, dev, s).to(dtype) for s in range(1, 5)]
+    tol = TOL if dtype == torch.float32 else 1e-12
+    n = fd.iswt2d_sharded_fused.launches
+    for i in range(shards):
+        body, halos = _coeff_halos(c, shards, i,
+                                   fd.halo_heights("iswt", fb, 0, level))
+        body = [_offset(b, offset) for b in body]
+        halos = tuple(_offset(h, offset) for h in halos)
+        got = fd.iswt2d_sharded_fused(*body, halos, fb, level)
+        ref = fd.iswt2d_sharded_plain(*body, halos, fb, level)
+        assert float((got - ref).abs().max()) <= tol
+    assert fd.iswt2d_sharded_fused.launches == n + shards
+
+
 def test_sharded_kernels_refuse_wrong_halos(dev):
     fb = get_filter_bank("db2")
     x = _rand((16, 32), dev)
@@ -1534,11 +1588,12 @@ OFFSETS = [0, 1]  # floats past a 16-byte boundary of each tensor's start
 
 
 def _offset(t, floats):
-    """t's values in a tensor whose data starts ``floats`` floats past
+    """t's values in a tensor whose data starts ``floats`` elements past
     where a fresh allocation would."""
     if floats == 0:
         return t
-    flat = torch.cat([torch.zeros(floats, device=t.device), t.flatten()])
+    flat = torch.cat([torch.zeros(floats, device=t.device, dtype=t.dtype),
+                      t.flatten()])
     return flat[floats:].view(t.shape)
 
 
