@@ -170,7 +170,9 @@ the occupancy and phase-1 path of their synthesis levels and a SHA-256
 digest of their outputs on seeded cases, equal from two builds that are
 bit-identical; K11a and K11b also at levels 1-3 of 2048^2 beside K8 and
 K9, and the occupancy of the tc_swt2d.cu instances that K11a, K28 swt,
-K11b and K28 iswt run; K7a/K7b at levels 1-3 of the
+K11b and K28 iswt run; K6 also at levels 0-2 of 2048^2 beside K2, and K6
+and K28 idwt the occupancy of their tc_dwt2d.cu instances and digests of
+their outputs on seeded cases; K7a/K7b at levels 1-3 of the
 sinogram and 1-5 of the signal beside K3/K4, and the occupancy of the
 tc_dwt1d.cu instances that K7a/K7b and K29e/K29f run); a K29 row runs
 all of the grid and sequence checks and main paths, but times only the
@@ -1690,19 +1692,46 @@ def phase_times_swt_levels(port, dev, card, key):
               f"us)  [{card}]")
 
 
-# (key, C entry, halo): the instances of tc_swt2d.cu whose occupancy
-# --only reports
+def phase_times_k6_levels(port, dev, card):
+    """K6 at sym8 and levels 0-2 of 2048^2 ("highest" and "bf16"), beside
+    the tap loop on the same level (K2), in turns (--only): coefficient
+    planes of 1024^2, 512^2 and 256^2."""
+    km, fd = port.ops.mxu_dwt, port.ops.fused_dwt
+    fb = port.get_filter_bank("sym8")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    for level in (0, 1, 2):
+        shape = (FRAME[0] >> level, FRAME[1] >> level)
+        coeffs = [km.dwt2d_mxu_fused(torch.rand(shape, generator=gen,
+                                                device=dev) * 255, fb)
+                  for _ in range(4)]
+        dc = itertools.cycle(coeffs).__next__
+        calls = {
+            "highest": lambda: km.idwt2d_mxu_fused(*dc(), fb, shape),
+            "bf16": lambda: km.idwt2d_mxu_fused(*dc(), fb, shape, "bf16"),
+            "tap": lambda: fd.idwt2d_fused(*dc(), fb, shape)}
+        t = in_turns(calls, {"highest": 10, "bf16": 10, "tap": 10})
+        nbytes = 8 * shape[0] * shape[1]
+        print(f"time K6 sym8 level {level} {shape}, device: highest "
+              f"{t['highest'] * 1e3:.1f} us, bf16 {t['bf16'] * 1e3:.1f} us, "
+              f"K2 {t['tap'] * 1e3:.1f} us (bound "
+              f"{nbytes / PEAK_BYTES * 1e6:.1f} us)  [{card}]")
+
+
+# (key, C entry, halo): the instances of tc_swt2d.cu and of K6's body in
+# tc_dwt2d.cu whose occupancy --only reports
 TC2D_OCCUPANCY = (("K11a", "pypwt_tc_swt2d_occupancy", 0),
                   ("K28 swt", "pypwt_tc_swt2d_occupancy", 1),
                   ("K11b", "pypwt_tc_iswt2d_occupancy", 0),
-                  ("K28 iswt", "pypwt_tc_iswt2d_occupancy", 1))
+                  ("K28 iswt", "pypwt_tc_iswt2d_occupancy", 1),
+                  ("K6", "pypwt_tc_idwt2d_occupancy", 0),
+                  ("K28 idwt", "pypwt_tc_idwt2d_occupancy", 1))
 
 
 def print_tc2d_occupancy(port, dev, keys):
     """Resident blocks per SM (the occupancy API) and dynamic shared memory
-    of the tc_swt2d.cu instances that the selected rows among K11a, K28
-    swt, K11b and K28 iswt run at sym8 (a build without the query says
-    so)."""
+    of the 2D tensor-core instances that the selected rows among K11a, K28
+    swt, K11b, K28 iswt, K6 and K28 idwt run at sym8 (a build without the
+    query says so)."""
     from pypwt_tpu_torch.ops import _build
     lib = _build.load_library()
     hlen = port.get_filter_bank("sym8").hlen
@@ -1883,6 +1912,75 @@ def print_iswt2d_digests(port, dev, keys):
             del body, halos, out
             n += 1
     print(f"digests of the synthesis: {n}")
+
+
+# The synthesis levels whose outputs --only K6 / "K28 idwt" digest, so that
+# two builds of tc_dwt2d.cu compare bit for bit: banks that reach every
+# instance (TF32 k-steps 1-3, bf16 1-2), coefficient planes under one
+# 32 x 32 tile, across tile edges, tiny ones whose window wraps more than
+# once, column counts that are not a multiple of 4, a batch, planes one
+# float past a 16-byte boundary, shards with their halos, both precisions,
+# and the timed shapes.
+IDWT_DIGEST_BANKS = ("db2", "sym4", "sym8", "db10", "coif5", "sym20")
+IDWT_DIGEST_SHAPES = ((1, 1), (3, 2), (20, 24), (33, 65), (40, 72),
+                      (3, 20, 36), (31, 64), (70, 100), (2, 34, 130))
+IDWT_DIGEST_SHARDS = ((4, (16, 96)), (3, (20, 24)), (2, (3, 40, 72)),
+                      (3, (8, 34)))
+
+
+def print_idwt2d_digests(port, dev, keys):
+    """SHA-256 of K6's and K28 idwt's outputs on seeded inputs
+    (IDWT_DIGEST_*, and K6 at level 0 of the frame, K28 idwt on shard 1 of
+    8192^2, sym8), both precisions: equal lines from two trees mean
+    bit-identical kernels."""
+    km, fd = port.ops.mxu_dwt, port.ops.fused_dwt
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    n = 0
+    if wanted(keys, "K6"):
+        cases = [(w, prec, shape, off)
+                 for w in IDWT_DIGEST_BANKS for prec in PRECISIONS
+                 for shape in IDWT_DIGEST_SHAPES for off in (0, 1)
+                 if off == 0 or shape in ((33, 65), (40, 72))]
+        cases += [("sym8", prec, half(FRAME), 0) for prec in PRECISIONS]
+        for wname, prec, shape, off in cases:
+            fb = port.get_filter_bank(wname)
+            c = [unaligned(rand(shape), off) for _ in range(4)]
+            out = km.idwt2d_mxu_fused(*c, fb, (2 * shape[-2], 2 * shape[-1]),
+                                      prec)
+            print(f"digest K6 {wname} {prec} {shape} +{off}: {digest(out)}")
+            n += 1
+    if wanted(keys, "K28 idwt"):
+        cases = [(w, prec, shards, shape, off)
+                 for w in IDWT_DIGEST_BANKS for prec in PRECISIONS
+                 for shards, shape in IDWT_DIGEST_SHARDS for off in (0, 1)
+                 if off == 0 or shape == (16, 96)]
+        cases += [("sym8", prec, N_SHARDS, half(SHARD_BLOCK), 0)
+                  for prec in PRECISIONS]
+        for wname, prec, shards, shape, off in cases:
+            fb = port.get_filter_bank(wname)
+            rows = shape[-2]
+            top, bot = fd.halo_heights("idwt", fb, rows)
+            body, halos = [], []
+            for _ in range(4):
+                ext = shard_rows_of(
+                    rand((*shape[:-2], shards * rows, shape[-1])), 1, rows,
+                    top, bot)
+                body.append(unaligned(ext[..., top:top + rows, :]
+                                      .contiguous(), off))
+                halos += [unaligned(ext[..., :top, :].contiguous(), off),
+                          unaligned(ext[..., top + rows:, :].contiguous(),
+                                    off)]
+                del ext
+            out = km.idwt2d_sharded_mxu_fused(*body, tuple(halos), fb, prec)
+            print(f"digest K28 idwt {wname} {prec} shard 1 of {shards} x "
+                  f"{shape} +{off}: {digest(out)}")
+            del body, halos, out
+            n += 1
+    print(f"digests of the tensor-core DWT synthesis: {n}")
 
 
 def phase_library(port, dev, card, keys=None):
@@ -4648,6 +4746,10 @@ def run_only(port, dev, card, keys):
     for key in ("K11a", "K11b"):
         if key in keys:
             phase_times_swt_levels(port, dev, card, key)
+    if "K6" in keys:
+        phase_times_k6_levels(port, dev, card)
+    if wanted(keys, "K6", "K28 idwt"):
+        print_idwt2d_digests(port, dev, keys)
     if wanted(keys, *(row[0] for row in TC2D_OCCUPANCY)):
         print_tc2d_occupancy(port, dev, keys)
     if wanted(keys, *MXU1D_KEYS):

@@ -1,0 +1,189 @@
+"""Time the tensor-core DWT synthesis of several source trees in turns, in
+one process, on one NVIDIA GPU:
+
+    python3 chip_turns.py PARENT_TREE TREE [TREE ...]
+
+A tree is a directory holding a ``pypwt_tpu_torch`` package: an unpacked
+commit, or a copy whose ``csrc/`` holds a variant of a kernel. Each tree is
+built by its own ``ops/_build.py`` (in a process of its own, all at once),
+and its C entries are called through ctypes, so the timed code differs only
+in the trees' sources. Timed: K6 (``pypwt_tc_idwt2d``) at levels 0-2 of a
+2048^2 frame and K28's synthesis (``pypwt_tc_idwt2d_sharded``) on shard 1
+of 4 of an 8192^2 image (a 2048 x 8192 output), sym8, "highest" and
+"bf16". Device time by CUDA events behind a sleep kernel, the median of 21
+samples of 10 launches; the trees in order, then in reverse, each the mean
+of its two medians. Each line also says whether every tree's output is bit
+for bit the first tree's, and the trees that report it print their
+instances' occupancy (``pypwt_tc_idwt2d_occupancy``).
+"""
+
+import ctypes
+import hashlib
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+SEED = 1234
+FRAME = 2048                 # K6: coefficients of (FRAME >> level + 1)^2
+SHARD = (1024, 4096)         # K28: coefficient rows and columns of a shard
+N_SHARDS = 4
+SAMPLES, REPS = 21, 10
+SLEEP_CYCLES = 2_000_000
+
+
+def load(trees):
+    """Each tree's built library, with the argument types of its entries."""
+    build = ("import sys; sys.path.insert(0, '.'); "
+             "from pypwt_tpu_torch.ops import _build; "
+             "print(_build.load_library()._name)")
+    procs = [subprocess.Popen([sys.executable, "-c", build], cwd=t,
+                              stdout=subprocess.PIPE, text=True)
+             for t in trees]
+    outs = [p.communicate()[0] for p in procs]
+    sys.path.insert(0, str(Path(trees[0]).resolve()))
+    from pypwt_tpu_torch.ops import _build
+    libs = []
+    for tree, proc, out in zip(trees, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"the build of {tree} failed")
+        lib = ctypes.CDLL(out.strip().splitlines()[-1])
+        for name in ("pypwt_tc_idwt2d", "pypwt_tc_idwt2d_sharded",
+                     "pypwt_tc_idwt2d_occupancy"):
+            if hasattr(lib, name):
+                getattr(lib, name).argtypes = _build._SIGNATURES.get(
+                    name, [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+                getattr(lib, name).restype = ctypes.c_int
+        libs.append(lib)
+    return libs
+
+
+def cases(port, dev):
+    """name -> call(lib, i, bf16): one launch on input set i."""
+    fd = port.ops.fused_dwt
+    fb = port.get_filter_bank("sym8")
+    lo, hi = fd._host_taps(fb.rec_lo), fd._host_taps(fb.rec_hi)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=dev) * 255
+
+    def k6(level):
+        n = FRAME >> (level + 1)
+        sets = [[rand((n, n)) for _ in range(4)] for _ in range(4)]
+        out = torch.empty((2 * n, 2 * n), device=dev)
+
+        def call(lib, i, bf16):
+            err = lib.pypwt_tc_idwt2d(
+                *(p.data_ptr() for p in sets[i % 4]), out.data_ptr(), 1, n,
+                n, lo.ctypes.data, hi.ctypes.data, fb.hlen, bf16, dev.index,
+                stream)
+            if err:
+                raise RuntimeError(f"K6 level {level}: error {err}")
+            return out
+        return call
+
+    def k28():
+        lr, lc = SHARD
+        top, bot = fd.halo_heights("idwt", fb, lr)
+        rows = torch.arange(lr - top, 2 * lr + bot, device=dev) % (
+            N_SHARDS * lr)
+        sets = []
+        for _ in range(2):
+            body, halos = [], []
+            for _ in range(4):
+                ext = rand((N_SHARDS * lr, lc)).index_select(0, rows)
+                body.append(ext[top:top + lr].contiguous())
+                halos += [ext[:top].contiguous(),
+                          ext[top + lr:].contiguous()]
+            sets.append((body, halos, fd.halo_array(halos)))
+        out = torch.empty((2 * lr, 2 * lc), device=dev)
+
+        def call(lib, i, bf16):
+            body, _, ptrs = sets[i % 2]
+            err = lib.pypwt_tc_idwt2d_sharded(
+                *(p.data_ptr() for p in body), ctypes.addressof(ptrs),
+                out.data_ptr(), 1, lr, lc, top, bot, lo.ctypes.data,
+                hi.ctypes.data, fb.hlen, bf16, dev.index, stream)
+            if err:
+                raise RuntimeError(f"K28 idwt: error {err}")
+            return out
+        return call
+
+    got = {f"K6 level {lev}": k6(lev) for lev in (0, 1, 2)}
+    got["K28 idwt shard"] = k28()
+    return got, fb.hlen
+
+
+def ms(call, lib, bf16):
+    for i in range(3):
+        call(lib, i, bf16)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(SAMPLES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for i in range(REPS):
+            call(lib, i, bf16)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / REPS)
+    return statistics.median(times)
+
+
+def main():
+    trees = sys.argv[1:]
+    if len(trees) < 2:
+        print("usage: python3 chip_turns.py PARENT_TREE TREE [TREE ...]",
+              file=sys.stderr)
+        sys.exit(2)
+    if not torch.cuda.is_available():
+        print("chip_turns: torch.cuda.is_available() is False: this run "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        sys.exit(1)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+    libs = load(trees)
+    import pypwt_tpu_torch as port
+    dev = torch.device("cuda", 0)
+    calls, hlen = cases(port, dev)
+    for tree, lib in zip(trees, libs):
+        if not hasattr(lib, "pypwt_tc_idwt2d_occupancy"):
+            continue
+        for halo in (0, 1):
+            for bf16 in (0, 1):
+                blocks, smem = ctypes.c_int(), ctypes.c_int()
+                err = lib.pypwt_tc_idwt2d_occupancy(
+                    hlen, bf16, halo, dev.index, ctypes.byref(blocks),
+                    ctypes.byref(smem))
+                if err:
+                    raise RuntimeError(f"occupancy query: error {err}")
+                print(f"occupancy {tree} {'K28 idwt' if halo else 'K6'} "
+                      f"{'bf16' if bf16 else 'highest'}: {blocks.value} "
+                      f"blocks per SM, {smem.value} bytes")
+    for name, call in calls.items():
+        for bf16 in (0, 1):
+            digests = {hashlib.sha256(call(lib, 0, bf16).cpu().numpy()
+                                      .tobytes()).hexdigest()
+                       for lib in libs}
+            seen = {t: [] for t in trees}
+            order = list(range(len(trees)))
+            for k in order + order[::-1]:
+                seen[trees[k]].append(ms(call, libs[k], bf16))
+            row = "  ".join(f"{t} {sum(v) / 2 * 1e3:.1f}"
+                            for t, v in seen.items())
+            same = "bit-equal" if len(digests) == 1 else "DIFFER"
+            print(f"{name} sym8 {'bf16' if bf16 else 'highest'}, device us: "
+                  f"{row}  (outputs {same})  [{card}]", flush=True)
+
+
+if __name__ == "__main__":
+    main()

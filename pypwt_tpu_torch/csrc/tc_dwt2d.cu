@@ -41,39 +41,46 @@
 //
 // Design: each block owns a tile of kTile x kTile outputs (of each subband
 // for K5; of coefficients, so 2kTile x 2kTile pixels, for K6). It stages
-// the window in shared memory once (batched_copy: several loads in flight
-// per thread) with a true periodic wrap, and zero past
-// the window's extent, where the band's zero entries meet it (so a NaN
-// outside an output's support cannot reach it). Pass 1 runs along axis -2
-// as the window read transposed (A: columns x rows) times the band B (rows
-// x outputs) and leaves its result in shared memory; pass 2 runs along the
-// last axis as that result (rows x columns) times the band. Nothing else
-// goes to device memory. The band of a decimating filter is the same for
-// every 8-output tile when the tile's k-range starts at window sample 2 n0
-// (K6: coefficient n0 / 2): B[k][n] = f[k - 2n] (K6: the polyphase taps of
-// output parity n & 1 at k - n/2 - delta). So each thread builds its B
-// fragments once, in registers, for both filters and every k-step, and both
-// passes reuse them. Warps take (16-row, 8-column) product tiles in turn.
-// Row tiles run on the grid's y axis, planes on z, in chunks past a grid's
-// limits (launch_chunks).
+// the window in shared memory once, zero past the window's rows and, in
+// K5, its columns, where the band's zero entries meet them. Pass 1 runs
+// along axis -2 as the window read transposed (A: columns x rows) times the
+// band B (rows x outputs) and leaves its result in shared memory; pass 2
+// runs along the last axis as that result (rows x columns) times the band.
+// Nothing else goes to device memory. The band of a decimating filter is
+// the same for every 8-output tile when the tile's k-range starts at window
+// sample 2 n0 (K6: coefficient n0 / 2): B[k][n] = f[k - 2n] (K6: the
+// polyphase taps of output parity n & 1 at k - n/2 - delta). So each thread
+// builds its B fragments once, in registers, for both filters and every
+// k-step, and both passes reuse them. Row tiles run on the grid's y axis,
+// planes on z, in chunks past a grid's limits (launch_chunks).
+//
+// K5 copies its window with a true periodic wrap (batched_copy: several
+// loads in flight per thread), and its warps take (16-row, 8-column)
+// product tiles in turn. K6 stages its four windows as the stationary
+// kernels of tc_swt2d.cu do (tc_window.cuh): a table of source rows built
+// once per block in 32-bit index arithmetic (UnitPlan; a shard's halos
+// resolved there, not once per sample), every sample in flight at once by
+// cp.async (16-byte copies read shifted where the rows are 16-byte aligned
+// and lc % 4 == 0; the columns past the extent then hold samples that only
+// zero taps meet), the band's fragments built while they fly. Its rows in
+// shared memory take the shortest conflict-free lead dimension (sym8 in
+// TF32: 56 floats for 48 staged columns, not 72), so that its sym8
+// instances fit three blocks per SM, not two. Tiles 2 kK outputs apart
+// read windows one k-step apart: a task runs all such tiles of a pass (four
+// in TF32, two in bf16), each A fragment loaded and, in "highest", split
+// once for the group (band_tiles). Each accumulator takes
+// band_product_pair's products in its order, so the grouping leaves every
+// output bit as it was. Pass 2 stores a row's two C elements in one 8-byte
+// store.
 
-#include "common.cuh"
-#include "mma.cuh"
+#include "tc_window.cuh"
 
 namespace pypwt {
 namespace {
 
-constexpr int kTile = 32;
-constexpr int kWarps = kThreads / 32;
-
 using mma::band;
 using mma::Instance;
 using mma::round16;
-
-// One sample of each of the four subbands.
-struct Quad {
-  float v[4];
-};
 
 // K5's shared-memory geometry: kSteps k-steps of kK samples cover the
 // 14 + hlen window samples of an 8-output tile.
@@ -179,21 +186,79 @@ tc_dwt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
   }
 }
 
+// The shortest leading dimension (in floats) of at least `cols` columns
+// whose fragments are read without bank conflicts: mma::lead_dim's residue
+// w (4 or 8) asks only for ld / w odd (the lanes that read one fragment
+// register then still meet distinct banks), so ld = w mod 2w serves, not
+// only ld = w mod 32.
+template <class P>
+__host__ __device__ constexpr int short_lead_dim(int cols, bool transposed) {
+  const int want = (P::kK == 8) != transposed ? 4 : 8;
+  return cols + ((want - cols) % (2 * want) + 2 * want) % (2 * want);
+}
+
 // K6's geometry: an 8-output tile reads 4 coefficients and the h2 taps of
-// their phases, h2 + 4 samples, in kSteps k-steps.
+// their phases, h2 + 4 samples, in kSteps k-steps. The windows' rows hold
+// kWinC columns read shifted by up to 3 (issue_windows), t1/t2's kWinC, in
+// the shortest rows whose fragments are read without bank conflicts.
 template <class P, int kSteps>
 struct SynGeom {
   static constexpr int kSpan = kSteps * P::kK;
   static constexpr int kWin = kTile - 4 + kSpan;  // coefficient rows read
   static constexpr int kWinC = round16(kWin);     // coefficient columns
-  static constexpr int kLdW = mma::lead_dim<P>(kWinC, true);
-  static constexpr int kLdT = mma::lead_dim<P>(kWinC, false);
-  static constexpr size_t kSmem =
-      sizeof(float) * (4 * kWin * kLdW + 2 * 2 * kTile * kLdT + 4 * kHalfTaps);
+  static constexpr int kLdW = short_lead_dim<P>(kWinC + 4, true);
+  static constexpr int kLdT = short_lead_dim<P>(kWinC, false);
+};
+
+// Shared memory of K6: the four windows (a, h, v, d; [kWin][kLdW] each),
+// t1/t2 ([2 kTile][kLdT] each), the taps of each output parity, the source
+// row of each plane and window row and the column of each window column.
+template <class G>
+struct IdwtSmem {
+  static constexpr int kPlane = G::kWin * G::kLdW;
+  static constexpr int kT = 2 * kTile * G::kLdT;
+  static constexpr int kFloats = 4 * kPlane + 2 * kT + 4 * kHalfTaps;
+  static_assert(kFloats % 2 == 0, "the row table must be 8-byte aligned");
+  static constexpr size_t kBytes = sizeof(float) * kFloats +
+                                   sizeof(const float*) * 4 * G::kWin +
+                                   sizeof(int) * G::kWinC;
+  float *in, *t, *g_lo, *g_hi;
+  const float** src;
+  int* col;
+  __device__ explicit IdwtSmem(float* base)
+      : in(base),
+        t(in + 4 * kPlane),
+        g_lo(t + 2 * kT),
+        g_hi(g_lo + 2 * kHalfTaps),
+        src(reinterpret_cast<const float**>(g_hi + 2 * kHalfTaps)),
+        col(reinterpret_cast<int*>(src + 4 * G::kWin)) {}
+};
+
+// The polyphase band of both filters: output n of an 8-output tile is
+// coefficient n / 2 of the tile, phase n & 1, which reads window sample
+// n / 2 + delta + j with tap g_p[j].
+template <class P, int kSteps>
+struct PolyBand {
+  typename P::B lo[kSteps], hi[kSteps];
+  __device__ __forceinline__ PolyBand(const float* g_lo, const float* g_hi,
+                                      const Polyphase& ph) {
+    mma::band_fragments<P>(lo, [&](int k, int n) {
+      return band(g_lo + (n & 1) * kHalfTaps, k - (n >> 1) - ph.delta(n & 1),
+                  ph.h2);
+    });
+    mma::band_fragments<P>(hi, [&](int k, int n) {
+      return band(g_hi + (n & 1) * kHalfTaps, k - (n >> 1) - ph.delta(n & 1),
+                  ph.h2);
+    });
+  }
 };
 
 // Rows: Wrapped (K6), or the Halo<float, 4> of the shard's planes a, h, v,
-// d (K28's synthesis).
+// d (K28's synthesis). The window starts at coefficient (q0r - c, q0c - c)
+// and steps by 1 on both axes, as a level-1 stationary window does: it
+// arrives by cp.async from a table of source rows while the band's
+// fragments are built (stage_windows, tc_window.cuh), and the passes run
+// groups of tiles that share A fragments (band_tiles).
 template <class P, int kSteps, class Rows>
 __global__ void __launch_bounds__(kThreads)
 tc_idwt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
@@ -201,102 +266,74 @@ tc_idwt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
                  float* __restrict__ out, int lr, int lc, Taps taps, int hlen,
                  int y0, Rows rows) {
   using G = SynGeom<P, kSteps>;
-  constexpr int kPlane = G::kWin * G::kLdW;
-  constexpr int kT = 2 * kTile * G::kLdT;
+  using S = IdwtSmem<G>;
   extern __shared__ float smem[];
-  float* s_in = smem;            // a, h, v, d windows, [kWin][kLdW] each
-  float* s_t = s_in + 4 * kPlane;  // t1, t2: [2 kTile][kLdT] each
-  float* g_lo = s_t + 2 * kT;      // [2][kHalfTaps] taps per output parity
-  float* g_hi = g_lo + 2 * kHalfTaps;
+  const S sm(smem);
 
   const Polyphase ph(hlen);
   const int warp = threadIdx.x >> 5;
   const int nr = 2 * lr, nc = 2 * lc;
-  const int q0r = (y0 + blockIdx.y) * kTile, q0c = blockIdx.x * kTile;
-  const int ext = kTile + ph.h2;  // the window's extent
+  // window sample w holds coefficient q0 - c + w on both axes
+  const UnitPlan pr{lr, ph.c}, pc{lc, ph.c};
+  const Block blk(pr, pc, y0);
   const long long ib = blockIdx.z * static_cast<long long>(lr) * lc;
-  const float* planes[4] = {a, h, v, d};
-
-  load_polyphase_taps(taps, hlen, g_lo, g_hi);
-  // window origin: coefficient (q0r - c, q0c - c)
-  batched_copy<G::kWin * G::kWinC, 4>(
-      [&](int i) {
-        const int r = i / G::kWinC, c = i - r * G::kWinC;
-        Quad q{{0.f, 0.f, 0.f, 0.f}};
-        if (r < ext && c < ext) {
-          const int col = wrap(q0c - ph.c + c, lc);
-          if constexpr (Rows::kHalo) {
-            const auto hz = rows.plane(blockIdx.z, lc);
-#pragma unroll
-            for (int p = 0; p < 4; ++p) {
-              const float* src = hz.row(p, planes[p] + ib, q0r - ph.c + r,
-                                        lr, lc);
-              q.v[p] = src ? src[col] : 0.f;
-            }
-          } else {
-            const long long o =
-                ib + static_cast<long long>(wrap(q0r - ph.c + r, lr)) * lc +
-                col;
-#pragma unroll
-            for (int p = 0; p < 4; ++p) q.v[p] = planes[p][o];
-          }
-        }
-        return q;
-      },
-      [&](int i, const Quad& q) {
-        const int r = i / G::kWinC, c = i - r * G::kWinC;
-#pragma unroll
-        for (int p = 0; p < 4; ++p) s_in[p * kPlane + r * G::kLdW + c] = q.v[p];
-      });
-  __syncthreads();
-
-  // Output n of an 8-output tile: coefficient n / 2 of the tile, phase
-  // n & 1, which reads window sample n / 2 + delta + j with tap g_p[j].
-  typename P::B b_lo[kSteps], b_hi[kSteps];
-  mma::band_fragments<P>(b_lo, [&](int k, int n) {
-    return band(g_lo + (n & 1) * kHalfTaps, k - (n >> 1) - ph.delta(n & 1),
-                ph.h2);
-  });
-  mma::band_fragments<P>(b_hi, [&](int k, int n) {
-    return band(g_hi + (n & 1) * kHalfTaps, k - (n >> 1) - ph.delta(n & 1),
-                ph.h2);
-  });
+  const float* const in[4] = {a + ib, h + ib, v + ib, d + ib};
+  int shift;
+  const PolyBand<P, kSteps> b = stage_windows<G>(
+      in, sm.in, sm.src, sm.col, pr, pc, blk, kTile + ph.h2,
+      plane_rows(rows, lc), shift,
+      [&] { load_polyphase_taps(taps, hlen, sm.g_lo, sm.g_hi); },
+      [&] { return PolyBand<P, kSteps>(sm.g_lo, sm.g_hi, ph); });
 
   // Pass 1, axis -2: t1 = syn(a, h), t2 = syn(v, d), on window columns.
+  // Tiles of 8 outputs kEvery tiles (2 kK outputs) apart read windows one
+  // k-step apart: a task runs all kR such tiles of a pass.
   constexpr int kM1 = G::kWinC / 16, kN = 2 * kTile / 8;
-  for (int task = warp; task < 2 * kM1 * kN; task += kWarps) {
-    const int pair = task / (kM1 * kN), rest = task - pair * kM1 * kN;
-    const int m0 = rest / kN * 16, n0 = rest % kN * 8;
-    const float* lo = s_in + (2 * pair) * kPlane + (n0 >> 1) * G::kLdW + m0;
-    const float* hi = lo + kPlane;
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
-    mma::band_product_pair<P>(
+  constexpr int kEvery = P::kK / 4, kR = kN / kEvery, kG = kN / kR;
+  for (int task = warp; task < 2 * kM1 * kG; task += kWarps) {
+    const int pair = task / (kM1 * kG), rest = task - pair * kM1 * kG;
+    const int m0 = rest / kG * 16, n0 = group_first<kEvery, kR>(rest % kG);
+    const float* lo =
+        sm.in + (2 * pair) * S::kPlane + (n0 >> 1) * G::kLdW + m0 + shift;
+    const float* hi = lo + S::kPlane;
+    float c[kR][4] = {};
+    band_tiles<P, kSteps, kR>(
         c, [&](int k, int m) { return lo[k * G::kLdW + m]; },
-        [&](int k, int m) { return hi[k * G::kLdW + m]; }, b_lo, b_hi);
-    float* t = s_t + pair * kT;
+        [&](int k, int m) { return hi[k * G::kLdW + m]; }, b.lo, b.hi);
+    float* t = sm.t + pair * S::kT;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      t[(n0 + mma::c_col(i)) * G::kLdT + m0 + mma::c_row(i)] = c[i];
+    for (int r = 0; r < kR; ++r)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        t[(n0 + 2 * r * P::kK + mma::c_col(i)) * G::kLdT + m0 +
+          mma::c_row(i)] = c[r][i];
   }
   __syncthreads();
 
-  // Pass 2, last axis: out = syn(t1, t2), on the 2 kTile output rows.
+  // Pass 2, last axis: out = syn(t1, t2), on the 2 kTile output rows; the
+  // two C elements of a row (an even column of an even row length: both in
+  // the plane, 8-byte aligned) in one store.
   const long long ob = blockIdx.z * static_cast<long long>(nr) * nc;
-  const int R0 = 2 * q0r, C0 = 2 * q0c;
-  for (int task = warp; task < 2 * kTile / 16 * kN; task += kWarps) {
-    const int m0 = task / kN * 16, n0 = task % kN * 8;
-    const float* t1 = s_t + m0 * G::kLdT + (n0 >> 1);
-    const float* t2 = t1 + kT;
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
-    mma::band_product_pair<P>(
+  const int R0 = 2 * blk.m0, C0 = 2 * blk.q0;
+  for (int task = warp; task < 2 * kTile / 16 * kG; task += kWarps) {
+    const int m0 = task / kG * 16, n0 = group_first<kEvery, kR>(task % kG);
+    const float* t1 = sm.t + m0 * G::kLdT + (n0 >> 1);
+    const float* t2 = t1 + S::kT;
+    float c[kR][4] = {};
+    band_tiles<P, kSteps, kR>(
         c, [&](int k, int m) { return t1[m * G::kLdT + k]; },
-        [&](int k, int m) { return t2[m * G::kLdT + k]; }, b_lo, b_hi);
+        [&](int k, int m) { return t2[m * G::kLdT + k]; }, b.lo, b.hi);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int orow = R0 + m0 + mma::c_row(i), ocol = C0 + n0 + mma::c_col(i);
-      if (orow < nr && ocol < nc)
-        out[ob + static_cast<long long>(orow) * nc + ocol] = c[i];
-    }
+    for (int r = 0; r < kR; ++r)
+#pragma unroll
+      for (int i = 0; i < 4; i += 2) {
+        const int orow = R0 + m0 + mma::c_row(i);
+        const int ocol = C0 + n0 + 2 * r * P::kK + mma::c_col(i);
+        if (orow < nr && ocol < nc)
+          *reinterpret_cast<float2*>(out + ob +
+                                     static_cast<long long>(orow) * nc +
+                                     ocol) = make_float2(c[r][i], c[r][i + 1]);
+      }
   }
 }
 
@@ -526,7 +563,7 @@ Instance<DwtKernel<Rows>> dwt_instance() {
 
 template <class P, int S, class Rows>
 Instance<IdwtKernel<Rows>> idwt_instance() {
-  return {tc_idwt2d_kernel<P, S, Rows>, SynGeom<P, S>::kSmem};
+  return {tc_idwt2d_kernel<P, S, Rows>, IdwtSmem<SynGeom<P, S>>::kBytes};
 }
 
 // kSteps = ceil((14 + hlen) / kK): 3..7 (TF32), 2..4 (BF16) for hlen 4..40.
@@ -574,6 +611,11 @@ bool level_ok(int batch, int nr, int nc, int hlen) {
          nr <= 0x3fffffff && nc <= 0x3fffffff;
 }
 
+// K6's output takes 8-byte stores.
+bool pair_aligned(const float* out) {
+  return (reinterpret_cast<uintptr_t>(out) & 7) == 0;
+}
+
 template <class Kernel>
 cudaError_t prepare(const Instance<Kernel>& inst, int device) {
   if (inst.kernel == nullptr) return cudaErrorInvalidValue;
@@ -615,7 +657,8 @@ extern "C" int pypwt_tc_dwt2d(const float* x, float* a, float* h, float* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K6: out of (batch, 2 lr, 2 lc) from coefficients of (batch, lr, lc).
+// K6: out of (batch, 2 lr, 2 lc) from coefficients of (batch, lr, lc); out
+// 8-byte aligned (the kernel stores pairs of outputs).
 extern "C" int pypwt_tc_idwt2d(const float* a, const float* h, const float* v,
                                const float* d, float* out, int batch, int lr,
                                int lc, const float* rec_lo,
@@ -623,7 +666,7 @@ extern "C" int pypwt_tc_idwt2d(const float* a, const float* h, const float* v,
                                int device, void* stream) {
   using namespace pypwt;
   if (lr > 0x1fffffff || lc > 0x1fffffff ||
-      !level_ok(batch, 2 * lr, 2 * lc, hlen))
+      !level_ok(batch, 2 * lr, 2 * lc, hlen) || !pair_aligned(out))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto inst = pick_idwt<Wrapped>(bf16 != 0, hlen);
   cudaError_t err = prepare(inst, device);
@@ -676,7 +719,8 @@ extern "C" int pypwt_tc_dwt2d_sharded(const float* x, const float* top,
 // K28's synthesis: K6's level of one row shard's planes a, h, v, d of
 // (batch, lr, lc), halos their eight halo tensors in JAX's order (a_top,
 // a_bot, h_top, ...), tops of (batch, lp, lc) and bottoms of (batch, rp,
-// lc), lp and rp the synthesis pads of hlen; out of (batch, 2 lr, 2 lc).
+// lc), lp and rp the synthesis pads of hlen; out of (batch, 2 lr, 2 lc),
+// 8-byte aligned.
 extern "C" int pypwt_tc_idwt2d_sharded(const float* a, const float* h,
                                        const float* v, const float* d,
                                        const float* const* halos, float* out,
@@ -687,7 +731,7 @@ extern "C" int pypwt_tc_idwt2d_sharded(const float* a, const float* h,
   using namespace pypwt;
   if (lr > 0x1fffffff || lc > 0x1fffffff ||
       !level_ok(batch, 2 * lr, 2 * lc, hlen) ||
-      !synthesis_halos_ok(hlen, lp, rp))
+      !synthesis_halos_ok(hlen, lp, rp) || !pair_aligned(out))
     return static_cast<int>(cudaErrorInvalidValue);
   using Rows = Halo<float, 4>;
   const auto inst = pick_idwt<Rows>(bf16 != 0, hlen);
@@ -769,4 +813,18 @@ extern "C" int pypwt_tc_syn_rows(const float* a, const float* d,
                       a, d, out, len, nc, taps, hlen, y0, halo);
                 });
   return static_cast<int>(cudaGetLastError());
+}
+
+// The occupancy API's resident blocks per SM, and the dynamic shared memory
+// in bytes, of K6's instance for hlen taps (halo 0) or K28's synthesis
+// (halo 1), bf16 as above: a figure for reports.
+extern "C" int pypwt_tc_idwt2d_occupancy(int hlen, int bf16, int halo,
+                                         int device, int* blocks,
+                                         int* smem) {
+  using namespace pypwt;
+  if (!level_ok(1, 2, 2, hlen)) return static_cast<int>(cudaErrorInvalidValue);
+  return halo ? occupancy(pick_idwt<Halo<float, 4>>(bf16 != 0, hlen), device,
+                          blocks, smem)
+              : occupancy(pick_idwt<Wrapped>(bf16 != 0, hlen), device,
+                          blocks, smem);
 }

@@ -73,33 +73,19 @@
 // The synthesis (K11b, K28's) stages four windows per tile, 2.4 samples per
 // output, and spends many instructions per sample.
 
-#include "common.cuh"
-#include "mma.cuh"
+#include "tc_window.cuh"
 
 namespace pypwt {
 namespace {
-
-constexpr int kTile = 32;
-constexpr int kWarps = kThreads / 32;
 
 using mma::band;
 using mma::Instance;
 using mma::round16;
 
-// Tiling of one axis of n samples at a level: residue classes rho < cls
-// (the dilation, or n where the dilation reaches it) hold samples
-// rho + cls * m; `tiles` tiles of kTile per class (of class 0, the longest).
-struct AxisPlan {
-  int n;
-  int cls;
-  int tiles;
-  int back;      // hlen - 1 - s: window sample w serves offset w - back
-  long long fm;  // dilation mod n
-};
-
-// halo: the rows of a shard (K28), whose window samples are rows of the
-// extended axis [-lp, n + rp): fm is then the dilation itself, not reduced
-// mod n (the caller bounds it: level <= 31, halos of int heights).
+// The plan of one axis at a level (tc_window.cuh). halo: the rows of a
+// shard (K28), whose window samples are rows of the extended axis
+// [-lp, n + rp): fm is then the dilation itself, not reduced mod n (the
+// caller bounds it: level <= 31, halos of int heights).
 AxisPlan axis_plan(int hlen, int s, int level, int n, bool halo = false) {
   AxisPlan p{};
   p.n = n;
@@ -112,18 +98,6 @@ AxisPlan axis_plan(int hlen, int s, int level, int n, bool halo = false) {
   return p;
 }
 
-// Axis sample held in window sample w of the block (rho, m0): reduced mod
-// n, or (kHalo) the row of the shard's extended axis.
-template <bool kHalo = false>
-__device__ __forceinline__ int window_index(const AxisPlan& p, int rho, int m0,
-                                            int w) {
-  long long i = rho + static_cast<long long>(p.cls) * m0 +
-                static_cast<long long>(w - p.back) * p.fm;
-  if (kHalo) return static_cast<int>(i);
-  i %= p.n;
-  return static_cast<int>(i < 0 ? i + p.n : i);
-}
-
 // Shared-memory geometry: kSteps k-steps of kK samples cover the hlen + 7
 // window samples of an 8-output tile.
 template <class P, int kSteps>
@@ -134,29 +108,6 @@ struct SwtGeom {
   static constexpr int kLdW = mma::lead_dim<P>(kWinC, true);
   static constexpr int kLdT = mma::lead_dim<P>(kWinC, false);
 };
-
-// Block coordinates of one level: the residue class and first member of
-// its rows and columns.
-struct Block {
-  int rho_r, m0, rho_c, q0;
-  __device__ Block(const AxisPlan& pr, const AxisPlan& pc, int y0) {
-    const int bx = blockIdx.x, by = y0 + blockIdx.y;
-    rho_c = bx % pc.cls;
-    q0 = bx / pc.cls * kTile;
-    rho_r = by % pr.cls;
-    m0 = by / pr.cls * kTile;
-  }
-};
-
-// The row source of the block's plane (blockIdx.z): a shard's halos move
-// with the plane, Wrapped has nothing to move.
-__device__ __forceinline__ Wrapped plane_rows(Wrapped w, int) { return w; }
-
-template <int kPlanes>
-__device__ __forceinline__ Halo<float, kPlanes> plane_rows(
-    const Halo<float, kPlanes>& h, int nc) {
-  return h.plane(blockIdx.z, nc);
-}
 
 // The synthesis taps rec / 2 (exact in float32: the 1/2 of each axis pass).
 inline Taps half_taps(const float* rec_lo, const float* rec_hi, int hlen) {
@@ -250,152 +201,18 @@ struct IswtSmem {
         col(reinterpret_cast<int*>(src + 4 * G::kWin)) {}
 };
 
-// The windows' sources, resolved once per window row, not once per sample:
-// src[p kWin + r] is plane p's row of window row r, null past the window's
-// extent or (Halo) past both halos; col[c] the axis column of window
-// column c, -1 past the extent. Planes: the block's plane of each of
-// kPlanes inputs (x; or a, h, v, d); rows: Wrapped or the Halo<float,
-// kPlanes> moved to that plane.
-template <class G, int kPlanes, class Rows>
-__device__ __forceinline__ void window_sources(
-    const float* const (&planes)[kPlanes], const float** src, int* col,
-    const AxisPlan& pr, const AxisPlan& pc, const Block& blk, int hlen,
-    const Rows& rows) {
-  const int ext = kTile + hlen - 1;
-  for (int r = threadIdx.x; r < G::kWin; r += kThreads) {
-    const int row = window_index<Rows::kHalo>(pr, blk.rho_r, blk.m0, r);
-#pragma unroll
-    for (int p = 0; p < kPlanes; ++p) {
-      const float* s = nullptr;
-      if (r < ext) {
-        if constexpr (Rows::kHalo)
-          s = rows.row(p, planes[p], row, pr.n, pc.n);
-        else
-          s = planes[p] + static_cast<long long>(row) * pc.n;
-      }
-      src[p * G::kWin + r] = s;
-    }
-  }
-  for (int c = threadIdx.x; c < G::kWinC; c += kThreads)
-    col[c] = c < ext ? window_index(pc, blk.rho_c, blk.q0, c) : -1;
-}
-
-// Issue the asynchronous copies of the kPlanes windows into `in` (zero
-// where the source row is missing); the caller commits, waits and
-// synchronises. Every sample of the thread is in flight at once.
-// base >= 0 (level 1, rows of a multiple of 4 samples): window column c
-// holds axis column (base + c) mod n, base the window's first column
-// rounded down to a multiple of 4 (the caller reads the window shifted by
-// the remainder), in 16-byte copies, or 4-byte ones from a row that is not
-// 16-byte aligned; columns past the window's extent hold samples that only
-// zero taps meet. base < 0 (deeper levels: a gather strided by the
-// dilation): a warp takes whole window rows, a lane the same columns
-// col[c] of each, zero past the extent.
-template <class G, int kPlanes>
-__device__ __forceinline__ void issue_windows(float* in,
-                                              const float* const* src,
-                                              const int* col, int base,
-                                              int n) {
-  constexpr int kPlane = G::kWin * G::kLdW;
-  if (base >= 0) {
-    constexpr int kQuads = (G::kWinC + 3 + 3) / 4;  // kWinC shifted by <= 3
-    static_assert(4 * kQuads <= G::kLdW, "a shifted window row must fit");
-    for (int i = threadIdx.x; i < G::kWin * kQuads; i += kThreads) {
-      const int r = i / kQuads, q = i - r * kQuads;
-      const int j = (base + 4 * q) % n;
-      float* dst = in + r * G::kLdW + 4 * q;
-#pragma unroll
-      for (int p = 0; p < kPlanes; ++p) {
-        const float* s = src[p * G::kWin + r];
-        float* d = dst + p * kPlane;
-        if (s == nullptr) {
-          d[0] = d[1] = d[2] = d[3] = 0.f;
-        } else if ((reinterpret_cast<uintptr_t>(s) & 15) == 0) {
-          mma::cp_async16(d, s + j);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) mma::cp_async4(d + e, s + j + e);
-        }
-      }
-    }
-    return;
-  }
-  constexpr int kLanes = (G::kWinC + 31) / 32;
-  const int lane = threadIdx.x & 31;
-  int j[kLanes];
-#pragma unroll
-  for (int q = 0; q < kLanes; ++q)
-    j[q] = lane + 32 * q < G::kWinC ? col[lane + 32 * q] : -1;
-  for (int r = threadIdx.x >> 5; r < G::kWin; r += kWarps) {
-    const float* s[kPlanes];
-#pragma unroll
-    for (int p = 0; p < kPlanes; ++p) s[p] = src[p * G::kWin + r];
-    float* dst = in + r * G::kLdW + lane;
-#pragma unroll
-    for (int q = 0; q < kLanes; ++q) {
-      if (lane + 32 * q >= G::kWinC) continue;
-#pragma unroll
-      for (int p = 0; p < kPlanes; ++p) {
-        float* d = dst + p * kPlane + 32 * q;
-        if (s[p] != nullptr && j[q] >= 0)
-          mma::cp_async4(d, s[p] + j[q]);
-        else
-          *d = 0.f;
-      }
-    }
-  }
-}
-
-// Stage the windows of kPlanes planes: their sources, the taps in window
-// order, the asynchronous copies, and the band's fragments (returned),
-// built while the copies fly; on return the windows are in shared memory,
-// visible to the block, to be read shifted by `shift` columns
-// (issue_windows).
+// Stage the windows of kPlanes planes (tc_window.cuh) with the taps in
+// window order and the compact band, whose fragments are returned.
 template <class P, int kSteps, int kPlanes, class Rows>
 __device__ __forceinline__ Band<P, kSteps> stage_windows(
     const float* const (&planes)[kPlanes], float* in, const float** src,
     int* col, float* f_lo, float* f_hi, const AxisPlan& pr,
     const AxisPlan& pc, const Block& blk, const Taps& taps, int hlen,
     const Rows& rows, int& shift) {
-  using G = SwtGeom<P, kSteps>;
-  window_sources<G>(planes, src, col, pr, pc, blk, hlen, rows);
-  load_reversed_taps(taps, hlen, f_lo, f_hi);
-  __syncthreads();
-  const int first = window_index(pc, blk.rho_c, blk.q0, 0);
-  const bool quads = pc.cls == 1 && pc.n % 4 == 0;
-  shift = quads ? first % 4 : 0;
-  issue_windows<G, kPlanes>(in, src, col, quads ? first - shift : -1, pc.n);
-  mma::cp_async_commit();
-  const Band<P, kSteps> b(f_lo, f_hi, hlen);
-  mma::cp_async_wait<0>();
-  __syncthreads();
-  return b;
-}
-
-// kR output tiles of a synthesis pass, kK samples apart: c[r] += the
-// products of mma::band_product_pair for the tile at r kK, in its order.
-// The A fragment of window block f serves tile r at k-step f - r, so each
-// fragment is loaded (and, in "highest", split) once for up to kR tiles.
-template <class P, int kSteps, int kR, class Elem0, class Elem1>
-__device__ __forceinline__ void band_tiles(float (&c)[kR][4], Elem0 elem0,
-                                           Elem1 elem1,
-                                           const typename P::B (&b0)[kSteps],
-                                           const typename P::B (&b1)[kSteps]) {
-#pragma unroll
-  for (int f = 0; f < kSteps + kR - 1; ++f) {
-    const auto a0 =
-        P::load_a([&](int m, int k) { return elem0(f * P::kK + k, m); });
-    const auto a1 =
-        P::load_a([&](int m, int k) { return elem1(f * P::kK + k, m); });
-#pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      const int s = f - r;
-      if (s >= 0 && s < kSteps) {
-        P::mma(c[r], a0, b0[s]);
-        P::mma(c[r], a1, b1[s]);
-      }
-    }
-  }
+  return pypwt::stage_windows<SwtGeom<P, kSteps>>(
+      planes, in, src, col, pr, pc, blk, kTile + hlen - 1, rows, shift,
+      [&] { load_reversed_taps(taps, hlen, f_lo, f_hi); },
+      [&] { return Band<P, kSteps>(f_lo, f_hi, hlen); });
 }
 
 // kR output tiles of an analysis pass, kK samples apart: lo[r] and hi[r]
@@ -419,14 +236,6 @@ __device__ __forceinline__ void band_tiles_lohi(
       }
     }
   }
-}
-
-// The first output (of kTile) of group g of kR tiles kK samples apart: the
-// kTile / 8 tiles of 8 fall into kTile / 8 / kR such groups.
-template <class P, int kR>
-__device__ __forceinline__ int group_first(int g) {
-  constexpr int kEvery = P::kK / 8;
-  return (g / kEvery * kR * kEvery + g % kEvery) * 8;
 }
 
 // Write the block's output tile (a, h, v, d; [kTile][kLdO] each in `tile`)
@@ -513,7 +322,7 @@ __device__ __forceinline__ void swt_level(const float* __restrict__ x,
   constexpr int kM1 = G::kWinC / 16, kN = kTile / 8;
   constexpr int kR1 = P::kK == 8 && kSteps == 1 ? 1 : 2, kG1 = kN / kR1;
   for (int task = warp; task < kM1 * kG1; task += kWarps) {
-    const int m0 = task / kG1 * 16, n0 = group_first<P, kR1>(task % kG1);
+    const int m0 = task / kG1 * 16, n0 = group_first<P::kK / 8, kR1>(task % kG1);
     const float* w = sm.in + n0 * G::kLdW + m0 + shift;
     float clo[kR1][4] = {}, chi[kR1][4] = {};
     band_tiles_lohi<P, kSteps, kR1>(
@@ -535,7 +344,7 @@ __device__ __forceinline__ void swt_level(const float* __restrict__ x,
   // task a warp: 16 rows and two tiles of columns.
   constexpr int kR2 = 2, kG2 = kN / kR2;
   static_assert(2 * kTile / 16 * kG2 == kWarps, "one pass-2 task a warp");
-  const int m0 = warp / kG2 * 16, n0 = group_first<P, kR2>(warp % kG2);
+  const int m0 = warp / kG2 * 16, n0 = group_first<P::kK / 8, kR2>(warp % kG2);
   const float* t = sm.t + m0 * G::kLdT + n0;
   float clo[kR2][4] = {}, chi[kR2][4] = {};
   band_tiles_lohi<P, kSteps, kR2>(
@@ -635,7 +444,7 @@ tc_iswt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
   constexpr int kR1 = kSteps <= 2 ? 2 : kN * 8 / P::kK, kG1 = kN / kR1;
   for (int task = warp; task < 2 * kM1 * kG1; task += kWarps) {
     const int pair = task / (kM1 * kG1), rest = task - pair * kM1 * kG1;
-    const int m0 = rest / kG1 * 16, n0 = group_first<P, kR1>(rest % kG1);
+    const int m0 = rest / kG1 * 16, n0 = group_first<P::kK / 8, kR1>(rest % kG1);
     const float* lo =
         sm.in + (2 * pair) * S::kPlane + n0 * G::kLdW + m0 + shift;
     const float* hi = lo + S::kPlane;
@@ -656,7 +465,7 @@ tc_iswt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
   // Pass 2, last axis: out = syn(t1, t2).
   constexpr int kR2 = 2, kG2 = kN / kR2;
   for (int task = warp; task < kTile / 16 * kG2; task += kWarps) {
-    const int m0 = task / kG2 * 16, n0 = group_first<P, kR2>(task % kG2);
+    const int m0 = task / kG2 * 16, n0 = group_first<P::kK / 8, kR2>(task % kG2);
     const float* t1 = sm.t + m0 * G::kLdT + n0;
     const float* t2 = t1 + S::kT;
     float c[kR2][4] = {};
@@ -885,26 +694,6 @@ extern "C" int pypwt_tc_iswt2d_sharded(const float* a, const float* h,
 // in bytes, of the analysis (pypwt_tc_swt2d_occupancy) or synthesis
 // (pypwt_tc_iswt2d_occupancy) instance for hlen taps (bf16 as above; halo 1
 // for K28's Halo rows, 0 for K11a's / K11b's): a figure for reports.
-namespace pypwt {
-namespace {
-
-template <class Kernel>
-int occupancy(const Instance<Kernel>& inst, int device, int* blocks,
-              int* smem) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *smem = static_cast<int>(inst.smem);
-  err = cudaFuncSetAttribute(inst.kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             *smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, inst.kernel, kThreads, inst.smem));
-}
-
-}  // namespace
-}  // namespace pypwt
-
 extern "C" int pypwt_tc_swt2d_occupancy(int hlen, int bf16, int halo,
                                         int device, int* blocks, int* smem) {
   using namespace pypwt;

@@ -1292,6 +1292,80 @@ def test_k11a_k28_swt_unaligned_planes_match_plain(dev, prec):
             assert kms.swt2d_sharded_mxu_fused.launches == n + 1
 
 
+# The tile walk of the tensor-core DWT synthesis behind K6 and K28's
+# synthesis (tc_dwt2d.cu: windows staged from a row table, tile groups that
+# share A fragments): banks that reach every instance (TF32 k-steps 1-3,
+# bf16 1-2), coefficient planes under one 32 x 32 tile, tiny ones whose
+# window wraps more than once, 33 x 65 tiles with a partial tile on each
+# axis, column counts that are not a multiple of 4 (4-byte copies), a
+# batch; shards whose halos come from two hops (8-row shards at sym20).
+IDWT_WALK_BANKS = ["db2", "sym4", "sym8", "db10", "coif5", "sym20"]
+IDWT_WALK_SHAPES = [(1, 1), (3, 2), (20, 24), (33, 65), (3, 40, 72),
+                    (33 * 32 + 1, 65 * 32 - 2)]
+IDWT_WALK_SHARDS = [(4, (16, 96)), (3, (20, 24)), (2, (3, 40, 72)),
+                    (3, (8, 34)), (2, (33 * 16, 65 * 32))]
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+@pytest.mark.parametrize("wname", IDWT_WALK_BANKS)
+@pytest.mark.parametrize("shape", IDWT_WALK_SHAPES, ids=str)
+def test_k6_tile_walk_matches_plain(dev, wname, shape, prec):
+    fb = get_filter_bank(wname)
+    c = [_rand(shape, dev, s) for s in range(1, 5)]
+    out = (*shape[:-2], 2 * shape[-2], 2 * shape[-1])
+    n = km.idwt2d_mxu_fused.launches
+    _close_prec(km.idwt2d_mxu_fused(*c, fb, out, prec),
+                km.idwt2d_mxu_plain(*c, fb, out, prec), prec)
+    assert km.idwt2d_mxu_fused.launches == n + 1
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+@pytest.mark.parametrize("wname", IDWT_WALK_BANKS)
+@pytest.mark.parametrize("case", IDWT_WALK_SHARDS, ids=str)
+def test_k28_idwt_tile_walk_matches_plain(dev, wname, case, prec):
+    fb = get_filter_bank(wname)
+    shards, shape = case
+    c = [_global(shards, shape, dev, s) for s in range(1, 5)]
+    n = km.idwt2d_sharded_mxu_fused.launches
+    for i in range(shards):
+        body, halos = _coeff_halos(c, shards, i,
+                                   fd.halo_heights("idwt", fb, shape[-2]))
+        _close_prec(km.idwt2d_sharded_mxu_fused(*body, halos, fb, prec),
+                    km.idwt2d_sharded_mxu_plain(*body, halos, fb, prec),
+                    prec)
+    assert km.idwt2d_sharded_mxu_fused.launches == n + shards
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+@pytest.mark.parametrize("wname", ["sym8", "sym20"])
+def test_k6_k28_idwt_unaligned_planes_match_plain(dev, wname, prec):
+    """Planes and halos one float past a 16-byte boundary: the synthesis
+    copies their rows 4 bytes at a time, not 16."""
+    fb = get_filter_bank(wname)
+
+    def unaligned(t):
+        flat = torch.cat([torch.zeros(1, device=dev), t.flatten()])
+        return flat[1:].view(t.shape)
+
+    c = [unaligned(_rand((40, 72), dev, s)) for s in range(1, 5)]
+    assert c[0].data_ptr() % 16 != 0
+    n = km.idwt2d_mxu_fused.launches + km.idwt2d_sharded_mxu_fused.launches
+    _close_prec(km.idwt2d_mxu_fused(*c, fb, (80, 144), prec),
+                km.idwt2d_mxu_plain(*c, fb, (80, 144), prec), prec)
+    shards = 4
+    g = [_global(shards, (16, 96), dev, s) for s in range(1, 5)]
+    for i in range(shards):
+        body, halos = _coeff_halos(g, shards, i,
+                                   fd.halo_heights("idwt", fb, 16))
+        body = [unaligned(b) for b in body]
+        halos = tuple(unaligned(h) for h in halos)
+        _close_prec(km.idwt2d_sharded_mxu_fused(*body, halos, fb, prec),
+                    km.idwt2d_sharded_mxu_plain(*body, halos, fb, prec),
+                    prec)
+    assert (km.idwt2d_mxu_fused.launches +
+            km.idwt2d_sharded_mxu_fused.launches) == n + 1 + shards
+
+
 # The tile walk of the tap-loop synthesis behind K9 and K27b (swt2d.cu):
 # widths around its 64-column tile (63, 64, 65, 131), rows that are not a
 # multiple of 4 samples (99, 257), levels 1-4 in both precisions, sym20's
