@@ -1717,12 +1717,38 @@ def phase_times_k6_levels(port, dev, card):
               f"{nbytes / PEAK_BYTES * 1e6:.1f} us)  [{card}]")
 
 
-# (key, C entry, halo): the instances of tc_swt2d.cu and of K6's body in
-# tc_dwt2d.cu whose occupancy --only reports
+def phase_times_k5_levels(port, dev, card):
+    """K5 at sym8 and levels 0-2 of 2048^2 ("highest" and "bf16"), beside
+    the tap loop on the same level (K1), in turns (--only): planes of
+    2048^2, 1024^2 and 512^2."""
+    km, fd = port.ops.mxu_dwt, port.ops.fused_dwt
+    fb = port.get_filter_bank("sym8")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    for level in (0, 1, 2):
+        shape = (FRAME[0] >> level, FRAME[1] >> level)
+        frames = [torch.rand(shape, generator=gen, device=dev) * 255
+                  for _ in range(4)]
+        nx = itertools.cycle(frames).__next__
+        calls = {
+            "highest": lambda: km.dwt2d_mxu_fused(nx(), fb),
+            "bf16": lambda: km.dwt2d_mxu_fused(nx(), fb, "bf16"),
+            "tap": lambda: fd.dwt2d_fused(nx(), fb)}
+        t = in_turns(calls, {"highest": 10, "bf16": 10, "tap": 10})
+        nbytes = 8 * shape[0] * shape[1]
+        print(f"time K5 sym8 level {level} {shape}, device: highest "
+              f"{t['highest'] * 1e3:.1f} us, bf16 {t['bf16'] * 1e3:.1f} us, "
+              f"K1 {t['tap'] * 1e3:.1f} us (bound "
+              f"{nbytes / PEAK_BYTES * 1e6:.1f} us)  [{card}]")
+
+
+# (key, C entry, halo): the instances of tc_swt2d.cu and of K5's and K6's
+# bodies in tc_dwt2d.cu whose occupancy --only reports
 TC2D_OCCUPANCY = (("K11a", "pypwt_tc_swt2d_occupancy", 0),
                   ("K28 swt", "pypwt_tc_swt2d_occupancy", 1),
                   ("K11b", "pypwt_tc_iswt2d_occupancy", 0),
                   ("K28 iswt", "pypwt_tc_iswt2d_occupancy", 1),
+                  ("K5", "pypwt_tc_dwt2d_occupancy", 0),
+                  ("K28 dwt", "pypwt_tc_dwt2d_occupancy", 1),
                   ("K6", "pypwt_tc_idwt2d_occupancy", 0),
                   ("K28 idwt", "pypwt_tc_idwt2d_occupancy", 1))
 
@@ -1730,8 +1756,8 @@ TC2D_OCCUPANCY = (("K11a", "pypwt_tc_swt2d_occupancy", 0),
 def print_tc2d_occupancy(port, dev, keys):
     """Resident blocks per SM (the occupancy API) and dynamic shared memory
     of the 2D tensor-core instances that the selected rows among K11a, K28
-    swt, K11b, K28 iswt, K6 and K28 idwt run at sym8 (a build without the
-    query says so)."""
+    swt, K11b, K28 iswt, K5, K28 dwt, K6 and K28 idwt run at sym8 (a build
+    without the query says so)."""
     from pypwt_tpu_torch.ops import _build
     lib = _build.load_library()
     hlen = port.get_filter_bank("sym8").hlen
@@ -1981,6 +2007,73 @@ def print_idwt2d_digests(port, dev, keys):
             del body, halos, out
             n += 1
     print(f"digests of the tensor-core DWT synthesis: {n}")
+
+
+# The analysis levels whose outputs --only K5 / "K28 dwt" digest, so that
+# two builds of tc_dwt2d.cu compare bit for bit: banks that reach every
+# instance (TF32 k-steps 3-7, bf16 2-4), planes under one 32 x 32 output
+# tile, tiny ones whose window wraps more than once, planes across tile
+# edges, column counts that are not a multiple of 4, odd output widths, a
+# batch whose later planes start at odd offsets, planes one float past a
+# 16-byte boundary, shards with their halos (two hops at sym20), both
+# precisions, and the timed shapes.
+DWT_DIGEST_SHAPES = ((2, 2), (6, 4), (40, 48), (66, 130), (64, 72),
+                     (3, 22, 38), (70, 100), (130, 68), (2, 80, 144))
+DWT_DIGEST_SHARDS = ((4, (16, 96)), (3, (20, 24)), (2, (3, 40, 72)),
+                     (3, (8, 34)), (5, (4, 40)))
+
+
+def print_dwt2d_digests(port, dev, keys):
+    """SHA-256 of K5's and K28 dwt's outputs on seeded inputs
+    (DWT_DIGEST_*, and K5 at level 0 of the frame, K28 dwt on shard 1 of
+    8192^2, sym8), both precisions: equal lines from two trees mean
+    bit-identical kernels."""
+    km, fd = port.ops.mxu_dwt, port.ops.fused_dwt
+    gen = torch.Generator(device=dev).manual_seed(SEED + 62)
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def digest4(planes):
+        return digest(torch.stack([p.contiguous() for p in planes]))
+
+    n = 0
+    if wanted(keys, "K5"):
+        cases = [(w, prec, shape, off)
+                 for w in IDWT_DIGEST_BANKS for prec in PRECISIONS
+                 for shape in DWT_DIGEST_SHAPES for off in (0, 1)
+                 if off == 0 or shape in ((66, 130), (64, 72), (3, 22, 38))]
+        cases += [("sym8", prec, FRAME, 0) for prec in PRECISIONS]
+        for wname, prec, shape, off in cases:
+            fb = port.get_filter_bank(wname)
+            x = unaligned(rand(shape), off)
+            out = km.dwt2d_mxu_fused(x, fb, prec)
+            print(f"digest K5 {wname} {prec} {shape} +{off}: "
+                  f"{digest4(out)}")
+            n += 1
+    if wanted(keys, "K28 dwt"):
+        cases = [(w, prec, shards, shape, off)
+                 for w in IDWT_DIGEST_BANKS for prec in PRECISIONS
+                 for shards, shape in DWT_DIGEST_SHARDS for off in (0, 1)
+                 if off == 0 or shape in ((16, 96), (8, 34))]
+        cases += [("sym8", prec, N_SHARDS, SHARD_BLOCK, 0)
+                  for prec in PRECISIONS]
+        for wname, prec, shards, shape, off in cases:
+            fb = port.get_filter_bank(wname)
+            rows = shape[-2]
+            top, bot = fd.halo_heights("dwt", fb, 0)
+            ext = shard_rows_of(rand((*shape[:-2], shards * rows,
+                                      shape[-1])), 1, rows, top, bot)
+            body = unaligned(ext[..., top:top + rows, :].contiguous(), off)
+            up = unaligned(ext[..., :top, :].contiguous(), off)
+            down = unaligned(ext[..., top + rows:, :].contiguous(), off)
+            del ext
+            out = km.dwt2d_sharded_mxu_fused(body, up, down, fb, prec)
+            print(f"digest K28 dwt {wname} {prec} shard 1 of {shards} x "
+                  f"{shape} +{off}: {digest4(out)}")
+            del body, up, down, out
+            n += 1
+    print(f"digests of the tensor-core DWT analysis: {n}")
 
 
 def phase_library(port, dev, card, keys=None):
@@ -4746,6 +4839,10 @@ def run_only(port, dev, card, keys):
     for key in ("K11a", "K11b"):
         if key in keys:
             phase_times_swt_levels(port, dev, card, key)
+    if "K5" in keys:
+        phase_times_k5_levels(port, dev, card)
+    if wanted(keys, "K5", "K28 dwt"):
+        print_dwt2d_digests(port, dev, keys)
     if "K6" in keys:
         phase_times_k6_levels(port, dev, card)
     if wanted(keys, "K6", "K28 idwt"):

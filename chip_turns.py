@@ -1,20 +1,24 @@
-"""Time the tensor-core DWT synthesis of several source trees in turns, in
-one process, on one NVIDIA GPU:
+"""Time the tensor-core 2D DWT analysis and synthesis of several source
+trees in turns, in one process, on one NVIDIA GPU:
 
-    python3 chip_turns.py PARENT_TREE TREE [TREE ...]
+    python3 chip_turns.py [--only dwt|idwt] PARENT_TREE TREE [TREE ...]
 
 A tree is a directory holding a ``pypwt_tpu_torch`` package: an unpacked
 commit, or a copy whose ``csrc/`` holds a variant of a kernel. Each tree is
 built by its own ``ops/_build.py`` (in a process of its own, all at once),
 and its C entries are called through ctypes, so the timed code differs only
-in the trees' sources. Timed: K6 (``pypwt_tc_idwt2d``) at levels 0-2 of a
-2048^2 frame and K28's synthesis (``pypwt_tc_idwt2d_sharded``) on shard 1
-of 4 of an 8192^2 image (a 2048 x 8192 output), sym8, "highest" and
-"bf16". Device time by CUDA events behind a sleep kernel, the median of 21
-samples of 10 launches; the trees in order, then in reverse, each the mean
-of its two medians. Each line also says whether every tree's output is bit
-for bit the first tree's, and the trees that report it print their
-instances' occupancy (``pypwt_tc_idwt2d_occupancy``).
+in the trees' sources. Timed (``--only dwt``: the analysis alone,
+``idwt``: the synthesis alone): K5 (``pypwt_tc_dwt2d``) at levels 0-2 of a
+2048^2 frame and K28's analysis (``pypwt_tc_dwt2d_sharded``) on shard 1 of
+4 of an 8192^2 image (a 2048 x 8192 input); K6 (``pypwt_tc_idwt2d``) at
+levels 0-2 of a 2048^2 frame and K28's synthesis
+(``pypwt_tc_idwt2d_sharded``) on the same shard (a 2048 x 8192 output);
+sym8, "highest" and "bf16". Device time by CUDA events behind a sleep
+kernel, the median of 21 samples of 10 launches; the trees in order, then
+in reverse, each the mean of its two medians. Each line also says whether
+every tree's output is bit for bit the first tree's, and the trees that
+report it print their instances' occupancy (``pypwt_tc_dwt2d_occupancy``,
+``pypwt_tc_idwt2d_occupancy``).
 """
 
 import ctypes
@@ -50,7 +54,9 @@ def load(trees):
         if proc.returncode != 0:
             raise RuntimeError(f"the build of {tree} failed")
         lib = ctypes.CDLL(out.strip().splitlines()[-1])
-        for name in ("pypwt_tc_idwt2d", "pypwt_tc_idwt2d_sharded",
+        for name in ("pypwt_tc_dwt2d", "pypwt_tc_dwt2d_sharded",
+                     "pypwt_tc_idwt2d", "pypwt_tc_idwt2d_sharded",
+                     "pypwt_tc_dwt2d_occupancy",
                      "pypwt_tc_idwt2d_occupancy"):
             if hasattr(lib, name):
                 getattr(lib, name).argtypes = _build._SIGNATURES.get(
@@ -60,16 +66,59 @@ def load(trees):
     return libs
 
 
-def cases(port, dev):
-    """name -> call(lib, i, bf16): one launch on input set i."""
+def cases(port, dev, only):
+    """name -> call(lib, i, bf16): one launch on input set i, which
+    returns its output (a list of the four subbands of an analysis)."""
     fd = port.ops.fused_dwt
     fb = port.get_filter_bank("sym8")
     lo, hi = fd._host_taps(fb.rec_lo), fd._host_taps(fb.rec_hi)
+    dlo, dhi = fd._host_taps(fb.dec_lo), fd._host_taps(fb.dec_hi)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def rand(shape):
         return torch.rand(shape, generator=gen, device=dev) * 255
+
+    def k5(level):
+        n = FRAME >> level
+        sets = [rand((n, n)) for _ in range(4)]
+        out = [torch.empty((n // 2, n // 2), device=dev) for _ in range(4)]
+
+        def call(lib, i, bf16):
+            err = lib.pypwt_tc_dwt2d(
+                sets[i % 4].data_ptr(), *(o.data_ptr() for o in out), 1, n,
+                n, dlo.ctypes.data, dhi.ctypes.data, fb.hlen, bf16,
+                dev.index, stream)
+            if err:
+                raise RuntimeError(f"K5 level {level}: error {err}")
+            return out
+        return call
+
+    def k28_dwt():
+        nr, nc = 2 * SHARD[0], 2 * SHARD[1]
+        top, bot = fd.halo_heights("dwt", fb, 0)
+        rows = torch.arange(nr - top, 2 * nr + bot, device=dev) % (
+            N_SHARDS * nr)
+        sets = []
+        for _ in range(2):
+            ext = rand((N_SHARDS * nr, nc)).index_select(0, rows)
+            sets.append([ext[top:top + nr].contiguous(),
+                         ext[:top].contiguous(),
+                         ext[top + nr:].contiguous()])
+            del ext
+        out = [torch.empty(SHARD, device=dev) for _ in range(4)]
+
+        def call(lib, i, bf16):
+            body, up, down = sets[i % 2]
+            err = lib.pypwt_tc_dwt2d_sharded(
+                body.data_ptr(), up.data_ptr(), down.data_ptr(),
+                *(o.data_ptr() for o in out), 1, nr, nc, top, bot,
+                dlo.ctypes.data, dhi.ctypes.data, fb.hlen, bf16, dev.index,
+                stream)
+            if err:
+                raise RuntimeError(f"K28 dwt: error {err}")
+            return out
+        return call
 
     def k6(level):
         n = FRAME >> (level + 1)
@@ -113,9 +162,19 @@ def cases(port, dev):
             return out
         return call
 
-    got = {f"K6 level {lev}": k6(lev) for lev in (0, 1, 2)}
-    got["K28 idwt shard"] = k28()
+    got = {}
+    if only in (None, "dwt"):
+        got.update({f"K5 level {lev}": k5(lev) for lev in (0, 1, 2)})
+        got["K28 dwt shard"] = k28_dwt()
+    if only in (None, "idwt"):
+        got.update({f"K6 level {lev}": k6(lev) for lev in (0, 1, 2)})
+        got["K28 idwt shard"] = k28()
     return got, fb.hlen
+
+
+def flat(out):
+    """One tensor of a call's output or outputs."""
+    return torch.stack(out) if isinstance(out, list) else out
 
 
 def ms(call, lib, bf16):
@@ -137,10 +196,12 @@ def ms(call, lib, bf16):
 
 
 def main():
-    trees = sys.argv[1:]
-    if len(trees) < 2:
-        print("usage: python3 chip_turns.py PARENT_TREE TREE [TREE ...]",
-              file=sys.stderr)
+    trees, only = sys.argv[1:], None
+    if trees[:1] == ["--only"]:
+        only, trees = (trees[1:2] or [""])[0], trees[2:]
+    if len(trees) < 2 or only not in (None, "dwt", "idwt"):
+        print("usage: python3 chip_turns.py [--only dwt|idwt] PARENT_TREE "
+              "TREE [TREE ...]", file=sys.stderr)
         sys.exit(2)
     if not torch.cuda.is_available():
         print("chip_turns: torch.cuda.is_available() is False: this run "
@@ -154,25 +215,30 @@ def main():
     libs = load(trees)
     import pypwt_tpu_torch as port
     dev = torch.device("cuda", 0)
-    calls, hlen = cases(port, dev)
+    calls, hlen = cases(port, dev, only)
+    queries = [(entry, key) for entry, key, kind in (
+        ("pypwt_tc_dwt2d_occupancy", ("K5", "K28 dwt"), "dwt"),
+        ("pypwt_tc_idwt2d_occupancy", ("K6", "K28 idwt"), "idwt"))
+        if only in (None, kind)]
     for tree, lib in zip(trees, libs):
-        if not hasattr(lib, "pypwt_tc_idwt2d_occupancy"):
-            continue
-        for halo in (0, 1):
-            for bf16 in (0, 1):
-                blocks, smem = ctypes.c_int(), ctypes.c_int()
-                err = lib.pypwt_tc_idwt2d_occupancy(
-                    hlen, bf16, halo, dev.index, ctypes.byref(blocks),
-                    ctypes.byref(smem))
-                if err:
-                    raise RuntimeError(f"occupancy query: error {err}")
-                print(f"occupancy {tree} {'K28 idwt' if halo else 'K6'} "
-                      f"{'bf16' if bf16 else 'highest'}: {blocks.value} "
-                      f"blocks per SM, {smem.value} bytes")
+        for entry, key in queries:
+            if not hasattr(lib, entry):
+                continue
+            for halo in (0, 1):
+                for bf16 in (0, 1):
+                    blocks, smem = ctypes.c_int(), ctypes.c_int()
+                    err = getattr(lib, entry)(
+                        hlen, bf16, halo, dev.index, ctypes.byref(blocks),
+                        ctypes.byref(smem))
+                    if err:
+                        raise RuntimeError(f"occupancy query: error {err}")
+                    print(f"occupancy {tree} {key[halo]} "
+                          f"{'bf16' if bf16 else 'highest'}: {blocks.value} "
+                          f"blocks per SM, {smem.value} bytes")
     for name, call in calls.items():
         for bf16 in (0, 1):
-            digests = {hashlib.sha256(call(lib, 0, bf16).cpu().numpy()
-                                      .tobytes()).hexdigest()
+            digests = {hashlib.sha256(flat(call(lib, 0, bf16)).cpu()
+                                      .numpy().tobytes()).hexdigest()
                        for lib in libs}
             seen = {t: [] for t in trees}
             order = list(range(len(trees)))

@@ -41,8 +41,8 @@
 //
 // Design: each block owns a tile of kTile x kTile outputs (of each subband
 // for K5; of coefficients, so 2kTile x 2kTile pixels, for K6). It stages
-// the window in shared memory once, zero past the window's rows and, in
-// K5, its columns, where the band's zero entries meet them. Pass 1 runs
+// the window in shared memory once, zero past the window's rows, where the
+// band's zero entries meet them (its columns below). Pass 1 runs
 // along axis -2 as the window read transposed (A: columns x rows) times the
 // band B (rows x outputs) and leaves its result in shared memory; pass 2
 // runs along the last axis as that result (rows x columns) times the band.
@@ -54,24 +54,27 @@
 // k-step, and both passes reuse them. Row tiles run on the grid's y axis,
 // planes on z, in chunks past a grid's limits (launch_chunks).
 //
-// K5 copies its window with a true periodic wrap (batched_copy: several
-// loads in flight per thread), and its warps take (16-row, 8-column)
-// product tiles in turn. K6 stages its four windows as the stationary
-// kernels of tc_swt2d.cu do (tc_window.cuh): a table of source rows built
-// once per block in 32-bit index arithmetic (UnitPlan; a shard's halos
-// resolved there, not once per sample), every sample in flight at once by
-// cp.async (16-byte copies read shifted where the rows are 16-byte aligned
-// and lc % 4 == 0; the columns past the extent then hold samples that only
-// zero taps meet), the band's fragments built while they fly. Its rows in
-// shared memory take the shortest conflict-free lead dimension (sym8 in
-// TF32: 56 floats for 48 staged columns, not 72), so that its sym8
-// instances fit three blocks per SM, not two. Tiles 2 kK outputs apart
-// read windows one k-step apart: a task runs all such tiles of a pass (four
-// in TF32, two in bf16), each A fragment loaded and, in "highest", split
-// once for the group (band_tiles). Each accumulator takes
-// band_product_pair's products in its order, so the grouping leaves every
-// output bit as it was. Pass 2 stores a row's two C elements in one 8-byte
-// store.
+// Both stage their windows as the stationary kernels of tc_swt2d.cu do
+// (tc_window.cuh): a table of source rows built once per block in 32-bit
+// index arithmetic (K5's HalfPlan: window sample w of the block at output
+// m0 holds sample 2 m0 + w - lpad; K6's UnitPlan: coefficient m0 + w - c; a
+// shard's halos resolved there, not once per sample), every sample in
+// flight at once by cp.async (16-byte copies read shifted where the rows
+// are 16-byte aligned and the row length % 4 == 0; the columns past the
+// extent then hold samples that only zero taps meet), the band's fragments
+// built while they fly. Their rows in shared memory take the shortest
+// conflict-free lead dimension (sym8 in TF32: K5 88 floats for 80 staged
+// columns, not 104; K6 56 for 48, not 72), so that K5's sym8 instances fit
+// three blocks per SM in "highest" and four in "bf16", K6's three. In K6,
+// tiles 2 kK outputs apart read windows one k-step apart: a task runs all
+// such tiles of a pass (four in TF32, two in bf16), each A fragment loaded
+// and, in "highest", split once for the group (band_tiles). Each
+// accumulator takes band_product_pair's products in its order, so the
+// grouping leaves every output bit as it was. K5's tiles run one per task
+// (band_product): groups of its tiles, 16 window samples apart, took its
+// TF32 instances to two blocks per SM and gained nothing in "bf16". Pass 2
+// of both stores a row's two C elements in one 8-byte store (K5: where
+// its subbands' rows start 8-byte aligned, else one float at a time).
 
 #include "tc_window.cuh"
 
@@ -82,110 +85,6 @@ using mma::band;
 using mma::Instance;
 using mma::round16;
 
-// K5's shared-memory geometry: kSteps k-steps of kK samples cover the
-// 14 + hlen window samples of an 8-output tile.
-template <class P, int kSteps>
-struct AnaGeom {
-  static constexpr int kSpan = kSteps * P::kK;
-  static constexpr int kWin = 2 * kTile - 16 + kSpan;  // window rows read
-  static constexpr int kWinC = round16(kWin);          // window columns
-  static constexpr int kLdW = mma::lead_dim<P>(kWinC, true);
-  static constexpr int kLdT = mma::lead_dim<P>(kWinC, false);
-  static constexpr size_t kSmem =
-      sizeof(float) * (kWin * kLdW + 2 * kTile * kLdT + 2 * kMaxTaps);
-};
-
-// Rows: Wrapped (K5), or the Halo<float, 1> of the shard x (K28's analysis).
-template <class P, int kSteps, class Rows>
-__global__ void __launch_bounds__(kThreads)
-tc_dwt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
-                float* __restrict__ h, float* __restrict__ v,
-                float* __restrict__ d, int nr, int nc, Taps taps, int hlen,
-                int y0, Rows rows) {
-  using G = AnaGeom<P, kSteps>;
-  extern __shared__ float smem[];
-  float* s_w = smem;                       // [kWin][kLdW] input window
-  float* s_t = s_w + G::kWin * G::kLdW;    // [2 kTile][kLdT]: lo_r, hi_r
-  float* f_lo = s_t + 2 * kTile * G::kLdT;  // taps in window order
-  float* f_hi = f_lo + kMaxTaps;
-
-  const int warp = threadIdx.x >> 5;
-  const int lr = nr >> 1, lc = nc >> 1;
-  const int r0 = (y0 + blockIdx.y) * kTile, c0 = blockIdx.x * kTile;
-  const int ext = 2 * kTile + hlen - 2;  // the window's extent
-  const int row0 = 2 * r0 - analysis_lpad(hlen);
-  const int col0 = 2 * c0 - analysis_lpad(hlen);
-  const float* xb = x + blockIdx.z * static_cast<long long>(nr) * nc;
-
-  load_reversed_taps(taps, hlen, f_lo, f_hi);
-  batched_copy<G::kWin * G::kWinC, 8>(
-      [&](int i) {
-        const int r = i / G::kWinC, c = i - r * G::kWinC;
-        if (r >= ext || c >= ext) return 0.f;
-        if constexpr (Rows::kHalo) {
-          const float* src =
-              rows.plane(blockIdx.z, nc).row(0, xb, row0 + r, nr, nc);
-          return src ? src[wrap(col0 + c, nc)] : 0.f;
-        } else {
-          return xb[static_cast<long long>(wrap(row0 + r, nr)) * nc +
-                    wrap(col0 + c, nc)];
-        }
-      },
-      [&](int i, float v) {
-        const int r = i / G::kWinC;
-        s_w[r * G::kLdW + i - r * G::kWinC] = v;
-      });
-  __syncthreads();
-
-  typename P::B b_lo[kSteps], b_hi[kSteps];
-  mma::band_fragments<P>(
-      b_lo, [&](int k, int n) { return band(f_lo, k - 2 * n, hlen); });
-  mma::band_fragments<P>(
-      b_hi, [&](int k, int n) { return band(f_hi, k - 2 * n, hlen); });
-
-  // Pass 1, axis -2: (window columns x window rows) x band.
-  constexpr int kN = kTile / 8;
-  for (int task = warp; task < G::kWinC / 16 * kN; task += kWarps) {
-    const int m0 = task / kN * 16, n0 = task % kN * 8;
-    float clo[4] = {0.f, 0.f, 0.f, 0.f}, chi[4] = {0.f, 0.f, 0.f, 0.f};
-    const float* w = s_w + 2 * n0 * G::kLdW + m0;
-    mma::band_product<P>(
-        clo, chi, [&](int k, int m) { return w[k * G::kLdW + m]; }, b_lo,
-        b_hi);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = (n0 + mma::c_col(i)) * G::kLdT + m0 + mma::c_row(i);
-      s_t[t] = clo[i];
-      s_t[kTile * G::kLdT + t] = chi[i];
-    }
-  }
-  __syncthreads();
-
-  // Pass 2, last axis: (lo_r and hi_r rows x window columns) x band.
-  const long long ob = blockIdx.z * static_cast<long long>(lr) * lc;
-  for (int task = warp; task < 2 * kTile / 16 * kN; task += kWarps) {
-    const int m0 = task / kN * 16, n0 = task % kN * 8;
-    float clo[4] = {0.f, 0.f, 0.f, 0.f}, chi[4] = {0.f, 0.f, 0.f, 0.f};
-    const float* t = s_t + m0 * G::kLdT + 2 * n0;
-    mma::band_product<P>(
-        clo, chi, [&](int k, int m) { return t[m * G::kLdT + k]; }, b_lo,
-        b_hi);
-    const bool low = m0 < kTile;  // a 16-row tile lies in one half
-    float* out_lo = low ? a : h;
-    float* out_hi = low ? v : d;
-    const int rbase = r0 + (low ? m0 : m0 - kTile);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int orow = rbase + mma::c_row(i), ocol = c0 + n0 + mma::c_col(i);
-      if (orow < lr && ocol < lc) {
-        const long long o = ob + static_cast<long long>(orow) * lc + ocol;
-        out_lo[o] = clo[i];
-        out_hi[o] = chi[i];
-      }
-    }
-  }
-}
-
 // The shortest leading dimension (in floats) of at least `cols` columns
 // whose fragments are read without bank conflicts: mma::lead_dim's residue
 // w (4 or 8) asks only for ld / w odd (the lanes that read one fragment
@@ -195,6 +94,148 @@ template <class P>
 __host__ __device__ constexpr int short_lead_dim(int cols, bool transposed) {
   const int want = (P::kK == 8) != transposed ? 4 : 8;
   return cols + ((want - cols) % (2 * want) + 2 * want) % (2 * want);
+}
+
+// K5's geometry: kSteps k-steps of kK samples cover the 14 + hlen window
+// samples of an 8-output tile. The window's rows hold kWinC columns read
+// shifted by up to 3 (the staging's 16-byte copies), lo_r/hi_r's kWinC, in
+// the shortest rows whose fragments are read without bank conflicts.
+template <class P, int kSteps>
+struct AnaGeom {
+  static constexpr int kSpan = kSteps * P::kK;
+  static constexpr int kWin = 2 * kTile - 16 + kSpan;  // window rows read
+  static constexpr int kWinC = round16(kWin);          // window columns
+  static constexpr int kLdW = short_lead_dim<P>(kWinC + 4, true);
+  static constexpr int kLdT = short_lead_dim<P>(kWinC, false);
+};
+
+// Shared memory of K5: the window ([kWin][kLdW]), lo_r and hi_r ([kTile]
+// [kLdT] each), the taps in window order, the source row of each window row
+// and the column of each window column.
+template <class G>
+struct DwtSmem {
+  static constexpr int kPlane = G::kWin * G::kLdW;
+  static constexpr int kT = kTile * G::kLdT;
+  static constexpr int kFloats = kPlane + 2 * kT + 2 * kMaxTaps;
+  static_assert(kFloats % 2 == 0, "the row table must be 8-byte aligned");
+  static constexpr size_t kBytes = sizeof(float) * kFloats +
+                                   sizeof(const float*) * G::kWin +
+                                   sizeof(int) * G::kWinC;
+  float *in, *t, *f_lo, *f_hi;
+  const float** src;
+  int* col;
+  __device__ explicit DwtSmem(float* base)
+      : in(base),
+        t(in + kPlane),
+        f_lo(t + 2 * kT),
+        f_hi(f_lo + kMaxTaps),
+        src(reinterpret_cast<const float**>(f_hi + kMaxTaps)),
+        col(reinterpret_cast<int*>(src + G::kWin)) {}
+};
+
+// The decimating band of both filters: output n of an 8-output tile reads
+// window samples 2 n + j with tap f[j].
+template <class P, int kSteps>
+struct AnaBand {
+  typename P::B lo[kSteps], hi[kSteps];
+  __device__ __forceinline__ AnaBand(const float* f_lo, const float* f_hi,
+                                     int hlen) {
+    mma::band_fragments<P>(
+        lo, [&](int k, int n) { return band(f_lo, k - 2 * n, hlen); });
+    mma::band_fragments<P>(
+        hi, [&](int k, int n) { return band(f_hi, k - 2 * n, hlen); });
+  }
+};
+
+// Rows: Wrapped (K5), or the Halo<float, 1> of the shard x (K28's analysis).
+// Window sample w of the block at output (m0, q0) holds sample 2 m0 + w -
+// lpad of the rows and 2 q0 + w - lpad of the columns: it arrives by
+// cp.async from a table of source rows while the band's fragments are built
+// (stage_windows, tc_window.cuh).
+template <class P, int kSteps, class Rows>
+__global__ void __launch_bounds__(kThreads)
+tc_dwt2d_kernel(const float* __restrict__ x, float* __restrict__ a,
+                float* __restrict__ h, float* __restrict__ v,
+                float* __restrict__ d, int nr, int nc, Taps taps, int hlen,
+                int y0, Rows rows) {
+  using G = AnaGeom<P, kSteps>;
+  using S = DwtSmem<G>;
+  extern __shared__ float smem[];
+  const S sm(smem);
+
+  const int warp = threadIdx.x >> 5;
+  const int lr = nr >> 1, lc = nc >> 1;
+  const HalfPlan pr{nr, analysis_lpad(hlen)}, pc{nc, analysis_lpad(hlen)};
+  const Block blk(pr, pc, y0);
+  const int ext = 2 * kTile + hlen - 2;  // the window's extent
+  const float* const in[1] = {x + blockIdx.z * static_cast<long long>(nr) *
+                                      nc};
+  int shift;
+  const AnaBand<P, kSteps> b = stage_windows<G>(
+      in, sm.in, sm.src, sm.col, pr, pc, blk, ext, plane_rows(rows, nc),
+      shift, [&] { load_reversed_taps(taps, hlen, sm.f_lo, sm.f_hi); },
+      [&] { return AnaBand<P, kSteps>(sm.f_lo, sm.f_hi, hlen); });
+
+  // Pass 1, axis -2: (window columns x window rows) x band -> lo_r, hi_r.
+  constexpr int kN = kTile / 8;
+  for (int task = warp; task < G::kWinC / 16 * kN; task += kWarps) {
+    const int m0 = task / kN * 16, n0 = task % kN * 8;
+    float clo[4] = {0.f, 0.f, 0.f, 0.f}, chi[4] = {0.f, 0.f, 0.f, 0.f};
+    const float* w = sm.in + 2 * n0 * G::kLdW + m0 + shift;
+    mma::band_product<P>(
+        clo, chi, [&](int k, int m) { return w[k * G::kLdW + m]; }, b.lo,
+        b.hi);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = (n0 + mma::c_col(i)) * G::kLdT + m0 + mma::c_row(i);
+      sm.t[t] = clo[i];
+      sm.t[S::kT + t] = chi[i];
+    }
+  }
+  __syncthreads();
+
+  // Pass 2, last axis: (lo_r and hi_r rows x window columns) x band. A
+  // row's two C elements (an even column) go in one 8-byte store where the
+  // subbands' rows start 8-byte aligned (lc even, planes aligned), else one
+  // float at a time.
+  const long long ob = blockIdx.z * static_cast<long long>(lr) * lc;
+  const bool pairs =
+      lc % 2 == 0 &&
+      ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(h) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(d)) &
+       7) == 0;
+  const int r0 = blk.m0, c0 = blk.q0;
+  for (int task = warp; task < 2 * kTile / 16 * kN; task += kWarps) {
+    const int m0 = task / kN * 16, n0 = task % kN * 8;
+    float clo[4] = {0.f, 0.f, 0.f, 0.f}, chi[4] = {0.f, 0.f, 0.f, 0.f};
+    const float* t = sm.t + m0 * G::kLdT + 2 * n0;
+    mma::band_product<P>(
+        clo, chi, [&](int k, int m) { return t[m * G::kLdT + k]; }, b.lo,
+        b.hi);
+    const bool low = m0 < kTile;  // a 16-row tile lies in one half
+    float* out_lo = (low ? a : h) + ob;
+    float* out_hi = (low ? v : d) + ob;
+    const int rbase = r0 + (low ? m0 : m0 - kTile);
+#pragma unroll
+    for (int i = 0; i < 4; i += 2) {
+      const int orow = rbase + mma::c_row(i), ocol = c0 + n0 + mma::c_col(i);
+      if (orow >= lr || ocol >= lc) continue;
+      const long long o = static_cast<long long>(orow) * lc + ocol;
+      if (pairs) {
+        *reinterpret_cast<float2*>(out_lo + o) =
+            make_float2(clo[i], clo[i + 1]);
+        *reinterpret_cast<float2*>(out_hi + o) =
+            make_float2(chi[i], chi[i + 1]);
+      } else {
+        out_lo[o] = clo[i];
+        out_hi[o] = chi[i];
+        if (ocol + 1 < lc) {
+          out_lo[o + 1] = clo[i + 1];
+          out_hi[o + 1] = chi[i + 1];
+        }
+      }
+    }
+  }
 }
 
 // K6's geometry: an 8-output tile reads 4 coefficients and the h2 taps of
@@ -558,7 +599,7 @@ using IdwtKernel = void (*)(const float*, const float*, const float*,
 
 template <class P, int S, class Rows>
 Instance<DwtKernel<Rows>> dwt_instance() {
-  return {tc_dwt2d_kernel<P, S, Rows>, AnaGeom<P, S>::kSmem};
+  return {tc_dwt2d_kernel<P, S, Rows>, DwtSmem<AnaGeom<P, S>>::kBytes};
 }
 
 template <class P, int S, class Rows>
@@ -816,8 +857,20 @@ extern "C" int pypwt_tc_syn_rows(const float* a, const float* d,
 }
 
 // The occupancy API's resident blocks per SM, and the dynamic shared memory
-// in bytes, of K6's instance for hlen taps (halo 0) or K28's synthesis
-// (halo 1), bf16 as above: a figure for reports.
+// in bytes, of K5's instance for hlen taps (halo 0) or K28's analysis (halo
+// 1), bf16 as above: a figure for reports.
+extern "C" int pypwt_tc_dwt2d_occupancy(int hlen, int bf16, int halo,
+                                        int device, int* blocks, int* smem) {
+  using namespace pypwt;
+  if (!level_ok(1, 2, 2, hlen)) return static_cast<int>(cudaErrorInvalidValue);
+  return halo ? occupancy(pick_dwt<Halo<float, 1>>(bf16 != 0, hlen), device,
+                          blocks, smem)
+              : occupancy(pick_dwt<Wrapped>(bf16 != 0, hlen), device, blocks,
+                          smem);
+}
+
+// The same figure of K6's instance for hlen taps (halo 0) or K28's
+// synthesis (halo 1).
 extern "C" int pypwt_tc_idwt2d_occupancy(int hlen, int bf16, int halo,
                                          int device, int* blocks,
                                          int* smem) {

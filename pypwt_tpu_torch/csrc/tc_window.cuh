@@ -1,7 +1,8 @@
 // Shared pieces of the 2D tensor-core level kernels whose windows start on
 // a coefficient and step by one or by a dilation on both axes: the
 // stationary pair K11a / K11b and K28's stationary halves (tc_swt2d.cu),
-// and the decimating synthesis K6 with K28's synthesis (tc_dwt2d.cu).
+// and the decimating pair K5 / K6 with K28's DWT halves (tc_dwt2d.cu),
+// whose analysis window starts on sample 2 m0 of its first output m0.
 //
 // A block owns kTile x kTile outputs of one residue class per axis (the
 // synthesis: kTile x kTile coefficients). It stages one window per input
@@ -44,6 +45,15 @@ struct UnitPlan {
   int back;
 };
 
+// One axis of the decimating analysis: one class, window samples a sample
+// apart, window sample w of the block at output m0 holding axis sample
+// 2 m0 + w - back (analysis_lpad); 32-bit index arithmetic.
+struct HalfPlan {
+  static constexpr int cls = 1;
+  int n;
+  int back;
+};
+
 // Axis sample held in window sample w of the block (rho, m0): reduced mod
 // n, or (kHalo) the row of the shard's extended axis.
 template <bool kHalo = false>
@@ -60,6 +70,13 @@ template <bool kHalo = false>
 __device__ __forceinline__ int window_index(const UnitPlan& p, int, int m0,
                                             int w) {
   const int i = m0 + w - p.back;
+  return kHalo ? i : wrap(i, p.n);
+}
+
+template <bool kHalo = false>
+__device__ __forceinline__ int window_index(const HalfPlan& p, int, int m0,
+                                            int w) {
+  const int i = 2 * m0 + w - p.back;
   return kHalo ? i : wrap(i, p.n);
 }
 

@@ -128,6 +128,7 @@ _SIGNATURES = {
     # hlen, bf16, halo, device, blocks (int*), smem (int*)
     "pypwt_tc_swt2d_occupancy": [_I] * 4 + [_P, _P],
     "pypwt_tc_iswt2d_occupancy": [_I] * 4 + [_P, _P],
+    "pypwt_tc_dwt2d_occupancy": [_I] * 4 + [_P, _P],
     "pypwt_tc_idwt2d_occupancy": [_I] * 4 + [_P, _P],
     # nr, nc, level, centre, hlen, f64, halo, device, blocks (int*),
     # smem (int*), staged (int*)

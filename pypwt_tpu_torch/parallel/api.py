@@ -146,7 +146,8 @@ class BatchedWavelets:
         if self.hybrid:
             if self.do_swt:
                 return spatial._local_iswt2(coeffs, self._fb, self.ring)
-            return spatial._local_waverec2(coeffs, self._fb, self.ring)
+            return spatial._local_waverec2(coeffs, self._fb, self.ring,
+                                           (self._Nrp, self.Nc))
         return [self._inv_shard(p) for p in _ring.per_shard(coeffs)]
 
     def _shift(self, parts, sr, sc):

@@ -59,6 +59,7 @@ import torch
 from ..core import conv
 from ..core import dwt as _dwt
 from ..core import swt as _swt
+from ..core.shapes import div2
 from ..ops import fused_dwt, mxu_dwt, mxu_swt
 from . import ring as _ring
 from .mesh import COL_AXIS, ROW_AXIS
@@ -255,10 +256,24 @@ def _local_wavedec2(parts, fb, levels, ring):
     return [a] + details
 
 
-def _local_waverec2(coeffs, fb, ring):
+def _local_waverec2(coeffs, fb, ring, shape=None):
+    """The sharded inverse -> list of shards.  ``shape`` is the whole
+    frame's (rows, cols): each level's output is cropped to its div2 chain
+    of widths (``core.dwt.waverec2``), so a width that 2^levels does not
+    divide comes back; rows split evenly at every level and need no crop.
+    Without it every level doubles the width."""
     a = coeffs[0]
-    for lev in range(len(coeffs) - 1, 0, -1):
+    levels = len(coeffs) - 1
+    widths = [None] * (levels + 1)
+    if shape is not None:
+        widths[0] = shape[-1]
+        for lev in range(1, levels + 1):
+            widths[lev] = div2(widths[lev - 1])
+    for lev in range(levels, 0, -1):
         a = _idwt2d_level_sharded(a, *coeffs[lev], fb, ring)
+        w = widths[lev - 1]
+        if w is not None and a[0].shape[-1] != w:  # local: columns unsplit
+            a = [x[..., :w].contiguous() for x in a]
     return a
 
 

@@ -1366,6 +1366,106 @@ def test_k6_k28_idwt_unaligned_planes_match_plain(dev, wname, prec):
             km.idwt2d_sharded_mxu_fused.launches) == n + 1 + shards
 
 
+# The tile walk of the tensor-core DWT analysis behind K5 and K28's
+# analysis (tc_dwt2d.cu: windows staged from a row table, tile groups that
+# share A fragments, pair stores): banks that reach every instance (TF32
+# k-steps 3-7, bf16 2-4), planes under one 32 x 32 output tile, tiny ones
+# whose window wraps more than once, planes with a partial tile on each
+# axis, column counts that are not a multiple of 4 (4-byte copies), odd
+# output widths (scalar stores), a batch whose later planes start at odd
+# offsets; shards whose halos come from two hops (4-row shards at sym20).
+DWT_WALK_BANKS = IDWT_WALK_BANKS
+DWT_WALK_SHAPES = [(2, 2), (6, 4), (40, 48), (66, 130), (3, 22, 38),
+                   (2, 80, 144), (33 * 64 + 2, 65 * 64 - 4)]
+DWT_WALK_SHARDS = [(4, (16, 96)), (3, (20, 24)), (2, (3, 40, 72)),
+                   (3, (8, 34)), (5, (4, 40)), (2, (33 * 32, 65 * 64))]
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+@pytest.mark.parametrize("wname", DWT_WALK_BANKS)
+@pytest.mark.parametrize("shape", DWT_WALK_SHAPES, ids=str)
+def test_k5_tile_walk_matches_plain(dev, wname, shape, prec):
+    fb = get_filter_bank(wname)
+    x = _rand(shape, dev, 7)
+    n = km.dwt2d_mxu_fused.launches
+    _close_prec(km.dwt2d_mxu_fused(x, fb, prec),
+                km.dwt2d_mxu_plain(x, fb, prec), prec)
+    assert km.dwt2d_mxu_fused.launches == n + 1
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+@pytest.mark.parametrize("wname", DWT_WALK_BANKS)
+@pytest.mark.parametrize("case", DWT_WALK_SHARDS, ids=str)
+def test_k28_dwt_tile_walk_matches_plain(dev, wname, case, prec):
+    fb = get_filter_bank(wname)
+    shards, shape = case
+    x = _global(shards, shape, dev, 8)
+    n = km.dwt2d_sharded_mxu_fused.launches
+    for i in range(shards):
+        body, top, bot = _shard_halos(x, shards, i,
+                                      *fd.halo_heights("dwt", fb, 0))
+        _close_prec(km.dwt2d_sharded_mxu_fused(body, top, bot, fb, prec),
+                    km.dwt2d_sharded_mxu_plain(body, top, bot, fb, prec),
+                    prec)
+    assert km.dwt2d_sharded_mxu_fused.launches == n + shards
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+@pytest.mark.parametrize("wname", ["sym8", "sym20"])
+def test_k5_k28_dwt_unaligned_planes_match_plain(dev, wname, prec):
+    """Planes and halos one float past a 16-byte boundary (the analysis
+    copies their rows 4 bytes at a time, not 16), and outputs one float
+    past an 8-byte boundary through the C entries (stored one float at a
+    time, not in pairs)."""
+    from pypwt_tpu_torch.ops import _build
+    fb = get_filter_bank(wname)
+    lib = _build.load_library()
+    lo, hi = km._host_taps(fb.dec_lo), km._host_taps(fb.dec_hi)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    bf16 = int(prec == "bf16")
+
+    def unaligned(t):
+        flat = torch.cat([torch.zeros(1, device=dev), t.flatten()])
+        return flat[1:].view(t.shape)
+
+    def odd_outputs(shape):
+        return [torch.empty(int(np.prod(shape)) + 1, device=dev)[1:]
+                .view(shape) for _ in range(4)]
+
+    x = unaligned(_rand((2, 40, 72), dev, 9))
+    assert x.data_ptr() % 16 != 0
+    n = km.dwt2d_mxu_fused.launches + km.dwt2d_sharded_mxu_fused.launches
+    ref = km.dwt2d_mxu_plain(x, fb, prec)
+    _close_prec(km.dwt2d_mxu_fused(x, fb, prec), ref, prec)
+    out = odd_outputs((2, 20, 36))
+    assert out[0].data_ptr() % 8 != 0
+    assert lib.pypwt_tc_dwt2d(
+        x.data_ptr(), *(o.data_ptr() for o in out), 2, 40, 72,
+        lo.ctypes.data, hi.ctypes.data, fb.hlen, bf16, dev.index,
+        stream) == 0
+    torch.cuda.synchronize(dev)
+    _close_prec(tuple(out), ref, prec)
+    shards = 4
+    g = _global(shards, (16, 96), dev, 10)
+    lp, rp = fd.halo_heights("dwt", fb, 0)
+    for i in range(shards):
+        body, top, bot = (unaligned(t)
+                          for t in _shard_halos(g, shards, i, lp, rp))
+        ref = km.dwt2d_sharded_mxu_plain(body, top, bot, fb, prec)
+        _close_prec(km.dwt2d_sharded_mxu_fused(body, top, bot, fb, prec),
+                    ref, prec)
+        out = odd_outputs((8, 48))
+        assert lib.pypwt_tc_dwt2d_sharded(
+            body.data_ptr(), top.data_ptr(), bot.data_ptr(),
+            *(o.data_ptr() for o in out), 1, 16, 96, lp, rp,
+            lo.ctypes.data, hi.ctypes.data, fb.hlen, bf16, dev.index,
+            stream) == 0
+        torch.cuda.synchronize(dev)
+        _close_prec(tuple(out), ref, prec)
+    assert (km.dwt2d_mxu_fused.launches +
+            km.dwt2d_sharded_mxu_fused.launches) == n + 1 + shards
+
+
 # The tile walk of the tap-loop synthesis behind K9 and K27b (swt2d.cu):
 # widths around its 64-column tile (63, 64, 65, 131), rows that are not a
 # multiple of 4 samples (99, 257), levels 1-4 in both precisions, sym20's

@@ -389,6 +389,46 @@ def test_batched_hybrid_any_rows_swt_and_cycle_spin_match_jax():
         np.testing.assert_allclose(T.image, stack, atol=TOL)
 
 
+@pytest.mark.parametrize("shape, levels, jax_fault", [
+    ((4, 48, 36), 3, TypeError),
+    ((4, 40, 36), 3, TypeError),
+    ((4, 48, 35), 1, 36),
+    ((4, 48, 64), 3, None)])
+def test_batched_hybrid_inverse_any_width(shape, levels, jax_fault):
+    """The hybrid layout pads rows only: its inverse crops each level to
+    the div2 chain of widths, so a width 2^levels does not divide comes
+    back.  JAX's plan raises there, or at one level returns frames of the
+    doubled width (``jax_fault``); width 64 is the case that worked."""
+    stack = _stack(*shape, seed=41)
+    J = JBatched(stack, "db2", levels, mesh=jmesh.make_mesh(2, 2)).forward()
+    T = BatchedWavelets(stack, "db2", levels, mesh=_mesh(2, 2)).forward()
+    assert T.hybrid and T._Nrp == J._Nrp
+    _same_coeffs(T, J, range(3 * levels + 1))
+    T.inverse()
+    np.testing.assert_allclose(T.image, stack, atol=7e-4)
+    if jax_fault is TypeError:
+        with pytest.raises(TypeError):
+            J.inverse()
+    elif jax_fault is not None:
+        assert J.inverse().image.shape[-1] == jax_fault != shape[-1]
+    else:
+        J.inverse()
+        np.testing.assert_allclose(T.image, J.image, atol=TOL)
+    # thresholded: the single-device plan on each row-padded frame, cropped
+    T.forward()
+    T.soft_threshold(0.1)
+    T.inverse()
+    padded = np.pad(stack, ((0, 0), (0, T._Nrp - shape[1]), (0, 0)),
+                    mode="wrap")
+    for b in range(shape[0]):
+        W = Wavelets(padded[b], "db2", levels, device="cpu").forward()
+        assert W.levels == levels
+        W.soft_threshold(0.1)
+        W.inverse()
+        np.testing.assert_allclose(T.image[b], W.image[: shape[1]],
+                                   atol=TOL)
+
+
 def test_batched_denoise_matches_jax():
     stack = _stack(b=4, nr=64, nc=64, seed=32)
     for n_data, n_rows in ((4, 2), (4, 1)):
