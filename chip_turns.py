@@ -1,7 +1,9 @@
-"""Time the tensor-core 2D DWT analysis and synthesis of several source
-trees in turns, in one process, on one NVIDIA GPU:
+"""Time the tensor-core 2D DWT analysis and synthesis, or the tap-loop 2D
+DWT synthesis, of several source trees in turns, in one process, on one
+NVIDIA GPU, or compare their kernels' machine code:
 
-    python3 chip_turns.py [--only dwt|idwt] PARENT_TREE TREE [TREE ...]
+    python3 chip_turns.py [--only dwt|idwt|syn2d] PARENT_TREE TREE [TREE ...]
+    python3 chip_turns.py --sass PARENT_TREE TREE [TREE ...]
 
 A tree is a directory holding a ``pypwt_tpu_torch`` package: an unpacked
 commit, or a copy whose ``csrc/`` holds a variant of a kernel. Each tree is
@@ -13,16 +15,29 @@ in the trees' sources. Timed (``--only dwt``: the analysis alone,
 4 of an 8192^2 image (a 2048 x 8192 input); K6 (``pypwt_tc_idwt2d``) at
 levels 0-2 of a 2048^2 frame and K28's synthesis
 (``pypwt_tc_idwt2d_sharded``) on the same shard (a 2048 x 8192 output);
-sym8, "highest" and "bf16". Device time by CUDA events behind a sleep
-kernel, the median of 21 samples of 10 launches; the trees in order, then
-in reverse, each the mean of its two medians. Each line also says whether
-every tree's output is bit for bit the first tree's, and the trees that
-report it print their instances' occupancy (``pypwt_tc_dwt2d_occupancy``,
-``pypwt_tc_idwt2d_occupancy``).
+sym8, "highest" and "bf16". ``--only syn2d`` (not in the default run):
+K2 (``pypwt_idwt2d``) at levels 0-2 of a 2048^2 frame and K26b
+(``pypwt_idwt2d_sharded``) on the same shard, db2 and sym20, float32 and
+float64. Device time by CUDA events behind a sleep kernel, the median of
+21 samples of 10 launches; the trees in order, then in reverse, each the
+mean of its two medians. Each line also says whether every tree's output
+is bit for bit the first tree's, and the trees that report it print their
+instances' occupancy (``pypwt_tc_dwt2d_occupancy``,
+``pypwt_tc_idwt2d_occupancy``, ``pypwt_idwt2d_occupancy``: blocks per SM,
+dynamic shared memory and, for the tap loop, the tile shape).
+
+``--sass`` times nothing: it disassembles each tree's library
+(``cuobjdump -sass``) and prints, for every kernel of the first tree,
+whether its SASS is the same in every other tree (kernel names with the
+anonymous namespace's per-file tag removed), and the kernels that only
+the later trees have.
 """
 
 import ctypes
 import hashlib
+import itertools
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -32,10 +47,16 @@ import torch
 
 SEED = 1234
 FRAME = 2048                 # K6: coefficients of (FRAME >> level + 1)^2
-SHARD = (1024, 4096)         # K28: coefficient rows and columns of a shard
+SHARD = (1024, 4096)         # K28, K26b: coefficient rows and columns of a
+                             # shard
 N_SHARDS = 4
 SAMPLES, REPS = 21, 10
 SLEEP_CYCLES = 2_000_000
+SYN2D_BANKS = ("db2", "sym20")
+SYN2D_TYPES = (torch.float32, torch.float64)
+# entries that a parent tree's _build may not declare
+ENTRY_TYPES = {
+    "pypwt_idwt2d_occupancy": [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4}
 
 
 def load(trees):
@@ -57,18 +78,23 @@ def load(trees):
         for name in ("pypwt_tc_dwt2d", "pypwt_tc_dwt2d_sharded",
                      "pypwt_tc_idwt2d", "pypwt_tc_idwt2d_sharded",
                      "pypwt_tc_dwt2d_occupancy",
-                     "pypwt_tc_idwt2d_occupancy"):
+                     "pypwt_tc_idwt2d_occupancy", "pypwt_idwt2d",
+                     "pypwt_idwt2d_f64", "pypwt_idwt2d_sharded",
+                     "pypwt_idwt2d_sharded_f64", "pypwt_idwt2d_occupancy"):
             if hasattr(lib, name):
                 getattr(lib, name).argtypes = _build._SIGNATURES.get(
-                    name, [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+                    name, ENTRY_TYPES.get(
+                        name, [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2))
                 getattr(lib, name).restype = ctypes.c_int
         libs.append(lib)
     return libs
 
 
 def cases(port, dev, only):
-    """name -> call(lib, i, bf16): one launch on input set i, which
-    returns its output (a list of the four subbands of an analysis)."""
+    """name -> (call(lib, i, variant), variants): one launch on input set
+    i, which returns its output (a list of the four subbands of an
+    analysis); the variants are the precisions ("highest" 0, "bf16" 1) of
+    a tensor-core case, none (None) of a tap-loop one."""
     fd = port.ops.fused_dwt
     fb = port.get_filter_bank("sym8")
     lo, hi = fd._host_taps(fb.rec_lo), fd._host_taps(fb.rec_hi)
@@ -76,8 +102,8 @@ def cases(port, dev, only):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def rand(shape):
-        return torch.rand(shape, generator=gen, device=dev) * 255
+    def rand(shape, dtype=torch.float32):
+        return torch.rand(shape, generator=gen, device=dev, dtype=dtype) * 255
 
     def k5(level):
         n = FRAME >> level
@@ -162,13 +188,79 @@ def cases(port, dev, only):
             return out
         return call
 
+    def entry(lib, name, dtype):
+        return getattr(lib, name + ("_f64" if dtype == torch.float64
+                                    else ""))
+
+    def host_taps(f, dtype):
+        return fd._host_taps(f, "float64" if dtype == torch.float64
+                             else "float32")
+
+    def k2(wname, level, dtype):
+        fbw = port.get_filter_bank(wname)
+        lo2, hi2 = host_taps(fbw.rec_lo, dtype), host_taps(fbw.rec_hi, dtype)
+        n = FRAME >> (level + 1)
+        sets = [[rand((n, n), dtype) for _ in range(4)] for _ in range(4)]
+        out = torch.empty((2 * n, 2 * n), device=dev, dtype=dtype)
+
+        def call(lib, i, _):
+            err = entry(lib, "pypwt_idwt2d", dtype)(
+                *(p.data_ptr() for p in sets[i % 4]), out.data_ptr(), 1, n,
+                n, 2 * n, 2 * n, lo2.ctypes.data, hi2.ctypes.data, fbw.hlen,
+                dev.index, stream)
+            if err:
+                raise RuntimeError(f"K2 level {level}: error {err}")
+            return out
+        return call
+
+    def k26b(wname, dtype):
+        fbw = port.get_filter_bank(wname)
+        lo2, hi2 = host_taps(fbw.rec_lo, dtype), host_taps(fbw.rec_hi, dtype)
+        lr, lc = SHARD
+        top, bot = fd.halo_heights("idwt", fbw, lr)
+        rows = torch.arange(lr - top, 2 * lr + bot, device=dev) % (
+            N_SHARDS * lr)
+        sets = []
+        for _ in range(2):
+            body, halos = [], []
+            for _ in range(4):
+                ext = rand((N_SHARDS * lr, lc), dtype).index_select(0, rows)
+                body.append(ext[top:top + lr].contiguous())
+                halos += [ext[:top].contiguous(),
+                          ext[top + lr:].contiguous()]
+            sets.append((body, halos, fd.halo_array(halos)))
+        out = torch.empty((2 * lr, 2 * lc), device=dev, dtype=dtype)
+
+        def call(lib, i, _):
+            body, _, ptrs = sets[i % 2]
+            err = entry(lib, "pypwt_idwt2d_sharded", dtype)(
+                *(p.data_ptr() for p in body), ctypes.addressof(ptrs),
+                out.data_ptr(), 1, lr, lc, top, bot, lo2.ctypes.data,
+                hi2.ctypes.data, fbw.hlen, dev.index, stream)
+            if err:
+                raise RuntimeError(f"K26b: error {err}")
+            return out
+        return call
+
     got = {}
+    precisions = (0, 1)
     if only in (None, "dwt"):
-        got.update({f"K5 level {lev}": k5(lev) for lev in (0, 1, 2)})
-        got["K28 dwt shard"] = k28_dwt()
+        got.update({f"K5 level {lev} sym8": (k5(lev), precisions)
+                    for lev in (0, 1, 2)})
+        got["K28 dwt shard sym8"] = (k28_dwt(), precisions)
     if only in (None, "idwt"):
-        got.update({f"K6 level {lev}": k6(lev) for lev in (0, 1, 2)})
-        got["K28 idwt shard"] = k28()
+        got.update({f"K6 level {lev} sym8": (k6(lev), precisions)
+                    for lev in (0, 1, 2)})
+        got["K28 idwt shard sym8"] = (k28(), precisions)
+    if only == "syn2d":
+        for wname in SYN2D_BANKS:
+            for dtype in SYN2D_TYPES:
+                kind = str(dtype)[6:]
+                got.update({f"K2 level {lev} {wname} {kind}":
+                            (k2(wname, lev, dtype), (None,))
+                            for lev in (0, 1, 2)})
+                got[f"K26b shard {wname} {kind}"] = (k26b(wname, dtype),
+                                                     (None,))
     return got, fb.hlen
 
 
@@ -195,13 +287,78 @@ def ms(call, lib, bf16):
     return statistics.median(times)
 
 
+def strip_anonymous(name):
+    """A mangled name with each anonymous namespace component (whose tag
+    differs from build to build) replaced by the component "anon"."""
+    while m := re.search(r"(\d+)_GLOBAL__N_", name):
+        end = m.start() + len(m.group(1)) + int(m.group(1))
+        name = name[:m.start()] + "4anon" + name[end:]
+    return name
+
+
+def sass_of(path):
+    """{kernel name: SASS text} of a shared library, each line's runs of
+    blanks made one (cuobjdump pads its columns to the widest instruction
+    of the whole library)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    kernels = {}
+    for part in text.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        kernels[strip_anonymous(name.strip())] = "\n".join(
+            " ".join(line.split()) for line in body.strip().splitlines())
+    return kernels
+
+
+def demangle(names):
+    tool = shutil.which("cu++filt") or shutil.which("c++filt")
+    if tool is None:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True).stdout.splitlines()
+    return out if len(out) == len(names) else list(names)
+
+
+def print_sass(trees, libs):
+    """Each kernel of the first tree: the same SASS in every later tree, or
+    which trees differ or lack it; then the later trees' new kernels."""
+    sass = [sass_of(lib._name) for lib in libs]
+    names = sorted(sass[0])
+    same = 0
+    for name, shown in zip(names, demangle(names)):
+        differ = [t for t, k in zip(trees[1:], sass[1:])
+                  if name in k and k[name] != sass[0][name]]
+        missing = [t for t, k in zip(trees[1:], sass[1:]) if name not in k]
+        state = ("same" if not differ and not missing else
+                 "; ".join(s for s in (
+                     differ and "differs in " + ", ".join(differ),
+                     missing and "missing in " + ", ".join(missing)) if s))
+        same += state == "same"
+        print(f"sass {shown}: {state}")
+    for tree, k in zip(trees[1:], sass[1:]):
+        new = sorted(set(k) - set(sass[0]))
+        for shown in demangle(new):
+            print(f"sass {shown}: only in {tree}")
+    print(f"sass: {same} of the first tree's {len(names)} kernels the same "
+          "in every tree")
+
+
 def main():
     trees, only = sys.argv[1:], None
+    if trees[:1] == ["--sass"]:
+        trees = trees[1:]
+        if len(trees) < 2:
+            print("usage: python3 chip_turns.py --sass PARENT_TREE TREE "
+                  "[TREE ...]", file=sys.stderr)
+            sys.exit(2)
+        print_sass(trees, load(trees))
+        return
     if trees[:1] == ["--only"]:
         only, trees = (trees[1:2] or [""])[0], trees[2:]
-    if len(trees) < 2 or only not in (None, "dwt", "idwt"):
-        print("usage: python3 chip_turns.py [--only dwt|idwt] PARENT_TREE "
-              "TREE [TREE ...]", file=sys.stderr)
+    if len(trees) < 2 or only not in (None, "dwt", "idwt", "syn2d"):
+        print("usage: python3 chip_turns.py [--only dwt|idwt|syn2d] "
+              "PARENT_TREE TREE [TREE ...]", file=sys.stderr)
         sys.exit(2)
     if not torch.cuda.is_available():
         print("chip_turns: torch.cuda.is_available() is False: this run "
@@ -235,8 +392,10 @@ def main():
                     print(f"occupancy {tree} {key[halo]} "
                           f"{'bf16' if bf16 else 'highest'}: {blocks.value} "
                           f"blocks per SM, {smem.value} bytes")
-    for name, call in calls.items():
-        for bf16 in (0, 1):
+    if only == "syn2d":
+        print_syn2d_occupancy(trees, libs, port, dev)
+    for name, (call, variants) in calls.items():
+        for bf16 in variants:
             digests = {hashlib.sha256(flat(call(lib, 0, bf16)).cpu()
                                       .numpy().tobytes()).hexdigest()
                        for lib in libs}
@@ -247,8 +406,35 @@ def main():
             row = "  ".join(f"{t} {sum(v) / 2 * 1e3:.1f}"
                             for t, v in seen.items())
             same = "bit-equal" if len(digests) == 1 else "DIFFER"
-            print(f"{name} sym8 {'bf16' if bf16 else 'highest'}, device us: "
-                  f"{row}  (outputs {same})  [{card}]", flush=True)
+            prec = ("" if bf16 is None
+                    else " bf16" if bf16 else " highest")
+            print(f"{name}{prec}, device us: {row}  (outputs {same})  "
+                  f"[{card}]", flush=True)
+
+
+def print_syn2d_occupancy(trees, libs, port, dev):
+    """Blocks per SM, dynamic shared memory and tile shape of each tree's
+    K2 and K26b instances at the timed banks, where the tree reports
+    them."""
+    for tree, lib in zip(trees, libs):
+        if not hasattr(lib, "pypwt_idwt2d_occupancy"):
+            print(f"occupancy {tree} K2, K26b: not reported by this tree")
+            continue
+        levels = [("K2", 0, FRAME >> lev, FRAME >> lev) for lev in range(3)]
+        levels.append(("K26b", 1, 2 * SHARD[0], 2 * SHARD[1]))
+        for (key, halo, nr, nc), wname, dtype in itertools.product(
+                levels, SYN2D_BANKS, SYN2D_TYPES):
+            out = [ctypes.c_int() for _ in range(4)]
+            err = lib.pypwt_idwt2d_occupancy(
+                nr, nc, port.get_filter_bank(wname).hlen,
+                int(dtype == torch.float64), halo, dev.index,
+                *(ctypes.byref(o) for o in out))
+            if err:
+                raise RuntimeError(f"occupancy query: error {err}")
+            blocks, smem, tr, tc = (o.value for o in out)
+            print(f"occupancy {tree} {key} ({nr}, {nc}) {wname} "
+                  f"{str(dtype)[6:]}: {blocks} blocks per SM, {smem} bytes, "
+                  f"tiles of {tr} x {tc} coefficients")
 
 
 if __name__ == "__main__":

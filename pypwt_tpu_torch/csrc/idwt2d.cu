@@ -33,27 +33,48 @@
 // in all: hlen/2 flop per byte, under the H100's float32 ridge of ~20 flop
 // per byte for every hlen < 40, so memory-bound.
 //
-// Design (syn::tile of level2d.cuh, which K25 shares): each block owns a
-// (2TR) x (2TC) output tile. It stages the (TR + h2) x (TC + h2) windows
-// of all four inputs into shared memory once,
-// with a true periodic wrap, runs the axis -2 synthesis into two shared
-// tiles (t1, t2: 2TR rows x (TC + h2) columns), then the last-axis
-// synthesis, and writes the output tile with consecutive threads on
-// consecutive columns. A crop handles an odd axis. K20's staged form
-// (kShift) computes y from row and column R0 + sr, C0 + sc on: an odd
-// shift starts the tile at an odd y row, so it stages one coefficient row
-// and column more and reads t1/t2 one row or column further on. That holds
+// Design. K2 and K26b run pair::tile (level2d.cuh): each block owns 16 x 64
+// coefficients in float32 where the level gives every SM such a block, 8 x
+// 64 on smaller levels, and 16 x 32 in float64, 2x that in outputs, picked
+// on the host (pick_pair): 39,744 bytes of dynamic shared memory at db2
+// (five blocks per SM in either type), 74,368 at hlen 40 in float32 (three)
+// and 91,008 in float64 (two). A table of the window's source rows is
+// built once per block (the plane's rows wrapped, or the shard's own rows
+// and its halos' rows, null past both halos: no per-sample halo test or row
+// wrap), then the four coefficient windows of (tile rows + h2 + sigma - 1)
+// rows are staged by cp.async, every copy of a thread in flight before one
+// wait: 16-byte copies from the window's first column rounded down to 16
+// bytes, read shifted, where lc allows, else sample copies with the column
+// wrap resolved once per copy; zero for a row past the halos. A thread then
+// computes both parities of one coefficient row and window column along
+// axis -2 into t1/t2, loading the h2 + sigma window samples they share
+// once, and both parities of one coefficient column along the last axis,
+// stored as one 8-byte (float) or 16-byte (double) pair where nc is even
+// and the plane aligned; an odd output axis stores scalars within its crop.
+// The taps are kernel parameters indexed by window sample (pair::Taps), so
+// the unrolled tap loops read them as operands. Each output keeps
+// syn::tile's order of summation, so the outputs are bit for bit those of
+// the body before.
+//
+// K20 runs syn::tile (which K25 shares): each block owns a (2TR) x (2TC)
+// output tile, TR = TC = 32. It stages the (TR + 1 + h2) x (TC + 1 + h2)
+// windows of all four inputs into shared memory once, with a true periodic
+// wrap per sample, runs the axis -2 synthesis into two shared tiles (t1,
+// t2), then the last-axis synthesis, one output per thread and item, and
+// writes the output tile with consecutive threads on consecutive columns;
+// it computes y from row and column R0 + sr, C0 + sc on: an odd shift
+// starts the tile at an odd y row, so it stages one coefficient row and
+// column more and reads t1/t2 one row or column further on. That holds
 // where y has period Nr = 2Lr along a shifted axis; a shifted odd axis,
 // whose y has period 2Lr - 1, takes the direct form instead
 // (idwt2d_direct_kernel: each thread sums its pixel's 4 h2^2 taps from
 // device memory through L1, no staging), which only odd cycle-spun planes
-// reach. The batch is the grid's z axis, row tiles its y axis, in chunks
+// reach. idwt2d_kernel keeps its type parameter, though only its float32
+// shifted instance is built, so that K20's machine code stays as it was.
+//
+// All: the batch is the grid's z axis, row tiles its y axis, in chunks
 // where a level holds more than a grid's 65535 (launch_chunks); plane
-// offsets are 64-bit. The float64 instance (pypwt_idwt2d_f64; K2 only)
-// stages twice the bytes: 140 KB at hlen 40. K26b is the unshifted body
-// with the Halo row source (common.cuh): each coefficient plane's rows
-// above and below the shard come from its own exchanged halo pair, read
-// where it lies (no padded copy of the shard); the output is 2Lr x 2Lc.
+// offsets are 64-bit. K26b's output is 2Lr x 2Lc.
 
 #include "level2d.cuh"
 
@@ -124,23 +145,127 @@ idwt2d_direct_kernel(const float* __restrict__ a, const float* __restrict__ h,
   out[o] = s * scale;
 }
 
-// K26b: K2's level of one row shard's coefficient planes, their edge rows
-// from the halos.
-template <class T>
+// K2 and K26b: one level on the pair body (level2d.cuh) in tiles of kTR x
+// kTC coefficients; Rows: Wrapped (K2), or the Halo<T, 4> of a shard's
+// planes (K26b), moved to the block's plane here.
+template <class T, int kTR, int kTC, class Rows>
 __global__ void __launch_bounds__(kThreads)
-idwt2d_sharded_kernel(const T* __restrict__ a, const T* __restrict__ h,
-                      const T* __restrict__ v, const T* __restrict__ d,
-                      T* __restrict__ out, int lr, int lc, Halo<T, 4> halo,
-                      TapsT<T> taps, int hlen, int y0) {
-  T* smem = dynamic_smem<T>();
-  T* g_lo = syn::taps<T, false>(smem, hlen);
-  load_polyphase_taps(taps, hlen, g_lo, g_lo + 2 * kHalfTaps);
+idwt2d_pair_kernel(const T* __restrict__ a, const T* __restrict__ h,
+                   const T* __restrict__ v, const T* __restrict__ d,
+                   T* __restrict__ out, int lr, int lc, int nr, int nc,
+                   pair::Taps<T> taps, int hlen, int y0, Rows rows) {
   const long long pi = static_cast<long long>(blockIdx.z) * lr * lc;
-  const long long po = 4 * pi;
-  syn::tile<T, false, false>(
-      a + pi, h + pi, v + pi, d + pi, nullptr, out + po, lr, lc, 2 * lr,
-      2 * lc, hlen, 2 * syn::TR * (y0 + blockIdx.y), 2 * syn::TC * blockIdx.x,
-      0, 0, 1.f, smem, halo.plane(blockIdx.z, lc));
+  const long long po = static_cast<long long>(blockIdx.z) * nr * nc;
+  const int m0 = kTR * (y0 + blockIdx.y), n0 = kTC * blockIdx.x;
+  T* smem = dynamic_smem<T>();
+  if constexpr (Rows::kHalo) {
+    pair::tile<T, kTR, kTC>(a + pi, h + pi, v + pi, d + pi, out + po, lr, lc,
+                            nr, nc, hlen, taps, m0, n0, smem,
+                            rows.plane(blockIdx.z, lc));
+  } else {
+    pair::tile<T, kTR, kTC>(a + pi, h + pi, v + pi, d + pi, out + po, lr, lc,
+                            nr, nc, hlen, taps, m0, n0, smem, rows);
+  }
+}
+
+template <class T, class Rows>
+using PairKernel = void (*)(const T*, const T*, const T*, const T*, T*, int,
+                            int, int, int, pair::Taps<T>, int, int, Rows);
+
+// One instance of the pair kernel: its tile shape and dynamic shared
+// memory at the level's hlen.
+template <class T, class Rows>
+struct PairInstance {
+  PairKernel<T, Rows> kernel;
+  size_t smem;
+  int tr, tc;
+};
+
+template <class T, class Rows, int kTR, int kTC>
+PairInstance<T, Rows> pair_instance(int hlen) {
+  return {idwt2d_pair_kernel<T, kTR, kTC, Rows>,
+          pair::Geometry<T>(kTR, kTC, hlen).smem_bytes(), kTR, kTC};
+}
+
+// The tile shape of a level of (batch, nr, nc) outputs, in coefficients. In
+// float32, 64 columns (512-byte output row segments) and 16 rows where the
+// level gives each of the device's `sms` SMs such a block, else 8 rows
+// (small levels, such as 512^2 outputs); three 16 x 64 blocks fit an SM's
+// shared memory up to hlen 40. In float64, 16 x 32. Tiles of 32 rows,
+// which stage fewer halo rows, measured slower (PERF.md).
+template <class T, class Rows>
+PairInstance<T, Rows> pick_pair(int hlen, int batch, int nr, int nc,
+                                int sms) {
+  if constexpr (std::is_same_v<T, float>) {
+    const long long blocks = static_cast<long long>(batch) *
+                             ((nr + 31) / 32) * ((nc + 127) / 128);
+    if (blocks >= sms) return pair_instance<T, Rows, 16, 64>(hlen);
+    return pair_instance<T, Rows, 8, 64>(hlen);
+  } else {
+    return pair_instance<T, Rows, 16, 32>(hlen);
+  }
+}
+
+// Launch one level of (batch, lr, lc) coefficient planes into (batch, nr,
+// nc) outputs on the pair body (the caller validated the arguments).
+template <class T, class Rows>
+int launch_pair(const T* a, const T* h, const T* v, const T* d, T* out,
+                int batch, int lr, int lc, int nr, int nc, const T* rec_lo,
+                const T* rec_hi, int hlen, const Rows& rows, int device,
+                void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  int sms = 0;
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const PairInstance<T, Rows> inst = pick_pair<T, Rows>(hlen, batch, nr, nc,
+                                                        sms);
+  err = cudaFuncSetAttribute(inst.kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(inst.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const pair::Taps<T> taps = pair::make_taps(rec_lo, rec_hi, hlen);
+  // output tiles of 2 tr x 2 tc pixels
+  launch_chunks(
+      (nc + 2 * inst.tc - 1) / (2 * inst.tc),
+      (nr + 2 * inst.tr - 1) / (2 * inst.tr), batch,
+      [&](dim3 grid, int y0, int z0) {
+        const long long pi = static_cast<long long>(z0) * lr * lc;
+        const long long po = static_cast<long long>(z0) * nr * nc;
+        Rows rz = rows;
+        if constexpr (Rows::kHalo) rz = rows.plane(z0, lc);
+        inst.kernel<<<grid, kThreads, inst.smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+            a + pi, h + pi, v + pi, d + pi, out + po, lr, lc, nr, nc, taps,
+            hlen, y0, rz);
+      });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The occupancy API's resident blocks per SM of the instance that a level
+// of nr x nc outputs at hlen runs, its dynamic shared memory in bytes and
+// its tile shape in coefficients: figures for reports.
+template <class T, class Rows>
+int pair_occupancy(int nr, int nc, int hlen, int device, int* blocks,
+                   int* smem, int* tr, int* tc) {
+  if (hlen < 2 || hlen > kMaxTaps || nr < 1 || nc < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  int sms = 0;
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const PairInstance<T, Rows> inst = pick_pair<T, Rows>(hlen, 1, nr, nc,
+                                                        sms);
+  err = cudaFuncSetAttribute(inst.kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(inst.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *smem = static_cast<int>(inst.smem);
+  *tr = inst.tr;
+  *tc = inst.tc;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, inst.kernel, kThreads, inst.smem));
 }
 
 template <class T>
@@ -151,28 +276,9 @@ int launch_sharded(const T* const* planes, const T* const* tops,
   if (hlen < 2 || hlen > kMaxTaps || lr < 1 || lc < 1 || lr > 0x1fffffff ||
       lc > 0x1fffffff || batch < 1 || !synthesis_halos_ok(hlen, lp, rp))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const TapsT<T> taps = make_taps(rec_lo, rec_hi, hlen);
-  auto kernel = idwt2d_sharded_kernel<T>;
-  const size_t smem = syn::smem_bytes<T, false>(hlen);
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Halo<T, 4> halo = make_halo4(tops, bots, lp, rp);
-  const int nr = 2 * lr, nc = 2 * lc;
-  launch_chunks((nc + 2 * syn::TC - 1) / (2 * syn::TC),
-                (nr + 2 * syn::TR - 1) / (2 * syn::TR), batch,
-                [&](dim3 grid, int y0, int z0) {
-                  const long long pi = static_cast<long long>(z0) * lr * lc;
-                  kernel<<<grid, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-                      planes[0] + pi, planes[1] + pi, planes[2] + pi,
-                      planes[3] + pi, out + 4 * pi, lr, lc,
-                      halo.plane(z0, lc), taps, hlen, y0);
-                });
-  return static_cast<int>(cudaGetLastError());
+  return launch_pair(planes[0], planes[1], planes[2], planes[3], out, batch,
+                     lr, lc, 2 * lr, 2 * lc, rec_lo, rec_hi, hlen,
+                     make_halo4(tops, bots, lp, rp), device, stream);
 }
 
 template <class T>
@@ -185,11 +291,16 @@ int launch(const T* a, const T* h, const T* v, const T* d, const T* acc,
       nc > 0x3fffffff || batch < 1 || sr < 0 || sr >= nr || sc < 0 ||
       sc >= nc)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const TapsT<T> taps = make_taps(rec_lo, rec_hi, hlen);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if constexpr (std::is_same_v<T, float>) {
+  if (!shifted)
+    return launch_pair(a, h, v, d, out, batch, lr, lc, nr, nc, rec_lo, rec_hi,
+                       hlen, Wrapped{}, device, stream);
+  if constexpr (!std::is_same_v<T, float>) {
+    return static_cast<int>(cudaErrorInvalidValue);  // K20 is float32 only
+  } else {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const Taps taps = make_taps(rec_lo, rec_hi, hlen);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
     // y has period 2L along an axis of 2L samples; a shifted axis of
     // another size takes the direct form
     const bool direct = (sr && nr != 2 * lr) || (sc && nc != 2 * lc);
@@ -207,28 +318,25 @@ int launch(const T* a, const T* h, const T* v, const T* d, const T* acc,
                     });
       return static_cast<int>(cudaGetLastError());
     }
-  } else if (shifted) {  // K20 is float32 only
-    return static_cast<int>(cudaErrorInvalidValue);
+    auto kernel = idwt2d_kernel<float, true>;
+    const size_t smem = syn::smem_bytes<float, true>(hlen);
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // output tiles of 2TR x 2TC pixels
+    launch_chunks((nc + 2 * syn::TC - 1) / (2 * syn::TC),
+                  (nr + 2 * syn::TR - 1) / (2 * syn::TR), batch,
+                  [&](dim3 grid, int y0, int z0) {
+                    const long long pi = static_cast<long long>(z0) * lr * lc;
+                    const long long po = static_cast<long long>(z0) * nr * nc;
+                    kernel<<<grid, kThreads, smem, st>>>(
+                        a + pi, h + pi, v + pi, d + pi, acc ? acc + po : acc,
+                        out + po, lr, lc, nr, nc, taps, hlen, y0, sr, sc,
+                        scale);
+                  });
+    return static_cast<int>(cudaGetLastError());
   }
-  auto kernel = shifted ? idwt2d_kernel<T, true> : idwt2d_kernel<T, false>;
-  const size_t smem =
-      shifted ? syn::smem_bytes<T, true>(hlen)
-              : syn::smem_bytes<T, false>(hlen);
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // output tiles of 2TR x 2TC pixels
-  launch_chunks((nc + 2 * syn::TC - 1) / (2 * syn::TC),
-                (nr + 2 * syn::TR - 1) / (2 * syn::TR),
-                batch, [&](dim3 grid, int y0, int z0) {
-                  const long long pi = static_cast<long long>(z0) * lr * lc;
-                  const long long po = static_cast<long long>(z0) * nr * nc;
-                  kernel<<<grid, kThreads, smem, st>>>(
-                      a + pi, h + pi, v + pi, d + pi, acc ? acc + po : acc,
-                      out + po, lr, lc, nr, nc, taps, hlen, y0, sr, sc, scale);
-                });
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -304,4 +412,25 @@ extern "C" int pypwt_idwt2d_sharded_f64(const double* a, const double* h,
   const double* bots[4] = {halos[1], halos[3], halos[5], halos[7]};
   return pypwt::launch_sharded(planes, tops, bots, out, batch, lr, lc, lp, rp,
                                rec_lo, rec_hi, hlen, device, stream);
+}
+
+// K2's and K26b's instance on a level of nr x nc outputs at hlen (f64: the
+// float64 one; halo: K26b's): resident blocks per SM, dynamic shared memory
+// in bytes, and the tile's coefficient rows and columns.
+extern "C" int pypwt_idwt2d_occupancy(int nr, int nc, int hlen, int f64,
+                                      int halo, int device, int* blocks,
+                                      int* smem, int* tile_rows,
+                                      int* tile_cols) {
+  using namespace pypwt;
+  if (f64)
+    return halo ? pair_occupancy<double, Halo<double, 4>>(
+                      nr, nc, hlen, device, blocks, smem, tile_rows,
+                      tile_cols)
+                : pair_occupancy<double, Wrapped>(nr, nc, hlen, device,
+                                                  blocks, smem, tile_rows,
+                                                  tile_cols);
+  return halo ? pair_occupancy<float, Halo<float, 4>>(
+                    nr, nc, hlen, device, blocks, smem, tile_rows, tile_cols)
+              : pair_occupancy<float, Wrapped>(nr, nc, hlen, device, blocks,
+                                               smem, tile_rows, tile_cols);
 }

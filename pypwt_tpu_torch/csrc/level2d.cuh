@@ -1,7 +1,9 @@
 // The tile bodies of one separable 2D DWT level, analysis and synthesis,
-// shared by the one-level kernels K1/K19 and K26a (dwt2d.cu), K2/K20 and
-// K26b (idwt2d.cu) and by the whole-pyramid kernels K24/K25 (pyramid2d.cu),
-// which run them for every level of a pyramid in one launch. The row
+// and the kernels that run them:
+//   ana::tile   K1/K19 and K26a (dwt2d.cu), K24 (pyramid2d.cu);
+//   syn::tile   K20's staged form (idwt2d.cu) and K25 (pyramid2d.cu);
+//   pair::tile  K2 and K26b (idwt2d.cu).
+// K24/K25 run theirs for every level of a pyramid in one launch. The row
 // source (common.cuh: Wrapped, or the Halo of a row shard) is a template
 // parameter: K26a/K26b are K1/K2's bodies with the shard's edge rows read
 // from its neighbours' exchanged rows.
@@ -9,14 +11,18 @@
 // A tile is one block's share of a level: it stages its input window into
 // the block's dynamic shared memory, runs both separable passes there, with
 // a barrier after the staging and after the first pass, and stores its
-// outputs. A block may run one tile after another (the pyramid kernels'
-// grid-stride loops) with no barrier between them: a tile's staging writes
-// only the window buffers, which the tile before stopped reading at its
-// second barrier, and its first pass, which overwrites the pass buffers,
-// waits at its own first barrier for every thread to leave the tile before.
+// outputs. An ana:: or syn:: block may run one tile after another (the
+// pyramid kernels' grid-stride loops) with no barrier between them: a
+// tile's staging writes only the window buffers, which the tile before
+// stopped reading at its second barrier, and its first pass, which
+// overwrites the pass buffers, waits at its own first barrier for every
+// thread to leave the tile before. A pair:: block runs one tile.
 #pragma once
 
+#include <cstdint>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace pypwt {
 
@@ -293,4 +299,231 @@ __device__ __forceinline__ void tile(const T* a, const T* h, const T* v,
 }
 
 }  // namespace syn
+
+// -- synthesis in pairs: K2's and K26b's level (map: idwt2d.cu) ------------
+//
+// The map and the order of every sum are syn::tile's; only the work is
+// grouped otherwise. A tile is kTR x kTC coefficients (2 kTR x 2 kTC
+// outputs), a shape the host picks by type and level size (idwt2d.cu's
+// pick_pair). The block resolves the source rows of its windows
+// once, into a table in shared memory (the plane's rows wrapped, or a
+// shard's rows and halos, null past them), then stages the four windows by
+// cp.async, every copy of a thread in flight before one wait. Output 2m + p
+// of an axis meets window samples m + k for delta(p) <= k < delta(p) + h2
+// (Polyphase), so the two parities share all but one of their h2 + sigma
+// samples: in the axis -2 pass a thread computes both parities of one
+// coefficient row and window column, in the last-axis pass both of one
+// coefficient column, stored as one 8-byte (float) or 16-byte (double)
+// pair where the output rows allow. The taps are kernel parameters,
+// indexed by k (Taps), so the unrolled tap loops take them as operands.
+namespace pair {
+
+// g[p][k]: the tap of parity p that meets window sample m + k, the
+// polyphase tap g_p[k - delta(p)] (zero outside delta(p) <= k <
+// delta(p) + h2, where no term is summed).
+template <class T>
+struct Taps {
+  T lo[2][kHalfTaps + 1];
+  T hi[2][kHalfTaps + 1];
+};
+
+template <class T>
+inline Taps<T> make_taps(const T* rec_lo, const T* rec_hi, int hlen) {
+  const Polyphase ph(hlen);
+  Taps<T> g{};
+  for (int p = 0; p < 2; ++p)
+    for (int j = 0; j < ph.h2; ++j) {
+      g.lo[p][j + ph.delta(p)] = rec_lo[ph.tap(p, j)];
+      g.hi[p][j + ph.delta(p)] = rec_hi[ph.tap(p, j)];
+    }
+  return g;
+}
+
+// The staged extent of a tile of tr x tc coefficients: span = h2 + sigma
+// window samples per coefficient and axis, wr rows and ww columns per
+// window, rows ldw samples apart (a whole number of 16-byte copies, room
+// for a window copied from the 16-byte boundary below its first sample).
+template <class T>
+struct Geometry {
+  static constexpr int kVec = 16 / sizeof(T);  // samples per 16-byte copy
+  int span, wr, ww, ldw, tr;
+  __host__ __device__ Geometry(int tr, int tc, int hlen)
+      : span((hlen >> 1) + Polyphase(hlen).sigma),
+        wr(tr + span - 1),
+        ww(tc + span - 1),
+        ldw((ww + 2 * kVec - 2) / kVec * kVec),
+        tr(tr) {}
+  // Dynamic shared memory: the four windows [wr][ldw], the axis -2 pass's
+  // t1 and t2 [2 tr][ldw], and the row table (4 wr pointers).
+  __host__ __device__ size_t smem_bytes() const {
+    return sizeof(T) * (4 * wr * ldw + 2 * 2 * tr * ldw) +
+           sizeof(const T*) * 4 * wr;
+  }
+};
+
+template <class T>
+__device__ __forceinline__ void store_pair(T* o, T x, T y);
+template <>
+__device__ __forceinline__ void store_pair(float* o, float x, float y) {
+  *reinterpret_cast<float2*>(o) = make_float2(x, y);
+}
+template <>
+__device__ __forceinline__ void store_pair(double* o, double x, double y) {
+  *reinterpret_cast<double2*>(o) = make_double2(x, y);
+}
+
+// The outputs of coefficient rows m0.. and columns n0.. of planes a, h, v,
+// d (lr x lc) into plane out (nr x nc: 2lr x 2lc, or one less on an odd
+// axis, cropped). Rows: Wrapped, or the Halo<T, 4> of the shard's planes
+// moved to this plane (K26b: nr = 2 lr, nc = 2 lc).
+template <class T, int kTR, int kTC, class Rows>
+__device__ __forceinline__ void tile(const T* a, const T* h, const T* v,
+                                     const T* d, T* out, int lr, int lc,
+                                     int nr, int nc, int hlen,
+                                     const Taps<T>& g, int m0, int n0,
+                                     T* smem, const Rows& rows) {
+  constexpr int kVec = Geometry<T>::kVec;
+  const Geometry<T> geo(kTR, kTC, hlen);
+  const int h2 = hlen >> 1, span = geo.span, sigma = span - h2;
+  const int c = h2 >> 1;
+  const int wr = geo.wr, ww = geo.ww, ldw = geo.ldw, plane = wr * ldw;
+  T* win = smem;                   // [4][wr][ldw] windows of a, h, v, d
+  T* t1 = win + 4 * plane;         // [2 kTR][ldw] axis -2 synthesis of (a, h)
+  T* t2 = t1 + 2 * kTR * ldw;      // ... of (v, d)
+  const T** src = reinterpret_cast<const T**>(t2 + 2 * kTR * ldw);
+  const int tid = threadIdx.x;
+
+  // The row table: src[p wr + r] is plane p's row of window row r, the
+  // coefficient row m0 - c + r (wrapped; or a shard's row or halo row,
+  // null past both halos).
+  if (tid < wr) {
+    const T* const planes[4] = {a, h, v, d};
+    const int r = m0 - c + tid;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      if constexpr (Rows::kHalo)
+        src[p * wr + tid] = rows.row(p, planes[p], r, lr, lc);
+      else
+        src[p * wr + tid] =
+            planes[p] + static_cast<long long>(wrap(r, lr)) * lc;
+    }
+  }
+  __syncthreads();
+
+  // The windows: window column q holds coefficient column n0 - c + q (mod
+  // lc), the wrap resolved once per copy. Where lc is a multiple of 16
+  // bytes of samples, 16-byte copies from the window's first column
+  // rounded down to 16 bytes (read shifted by the remainder; sample copies
+  // from a row that is not 16-byte aligned); otherwise sample copies. Zero
+  // for a row past the halos. A warp copies whole rows.
+  const bool quads = lc % kVec == 0;
+  int first = wrap(n0 - c, lc), shift = 0;
+  if (quads) {
+    shift = first % kVec;
+    first -= shift;
+  }
+  const int step = quads ? kVec : 1;
+  const int nq = quads ? (shift + ww + kVec - 1) / kVec : ww;
+  for (int r = tid >> 5; r < wr; r += kThreads / 32) {
+    const T* s[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) s[p] = src[p * wr + r];
+    T* dst = win + r * ldw;
+    for (int q = tid & 31; q < nq; q += 32) {
+      int j = first + step * q;
+      if (j >= lc) j %= lc;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        T* t = dst + p * plane + step * q;
+        if (s[p] == nullptr) {
+          for (int e = 0; e < step; ++e) t[e] = T(0);
+        } else if (!quads) {
+          mma::cp_async_sample(t, s[p] + j);
+        } else if ((reinterpret_cast<uintptr_t>(s[p]) & 15) == 0) {
+          mma::cp_async16(t, s[p] + j);
+        } else {
+#pragma unroll
+          for (int e = 0; e < kVec; ++e)
+            mma::cp_async_sample(t + e, s[p] + j + e);
+        }
+      }
+    }
+  }
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+
+  // Axis -2: output rows 2(m0 + m) + p of window column w; parity p meets
+  // window rows m + k with tap g[p][k]. Per parity and j: a then h into
+  // t1, v then d into t2. The items run over whole rows of ldw columns, so
+  // a warp reads consecutive words (no bank conflict where it crosses a
+  // row); columns w >= ww are computed and never read.
+  for (int i = tid; i < kTR * ldw; i += kThreads) {
+    const int m = i / ldw, w = i - m * ldw;
+    const T* s = win + i + shift;
+    T x1e = 0, x1o = 0, x2e = 0, x2o = 0;
+#pragma unroll
+    for (int k = 0; k <= kHalfTaps; ++k) {
+      if (k >= span) break;
+      const T va = s[k * ldw], vh = s[plane + k * ldw];
+      const T vv = s[2 * plane + k * ldw], vd = s[3 * plane + k * ldw];
+      if (k < h2) {
+        x1e = fmadd(va, g.lo[0][k], x1e);
+        x1e = fmadd(vh, g.hi[0][k], x1e);
+        x2e = fmadd(vv, g.lo[0][k], x2e);
+        x2e = fmadd(vd, g.hi[0][k], x2e);
+      }
+      if (k >= sigma) {
+        x1o = fmadd(va, g.lo[1][k], x1o);
+        x1o = fmadd(vh, g.hi[1][k], x1o);
+        x2o = fmadd(vv, g.lo[1][k], x2o);
+        x2o = fmadd(vd, g.hi[1][k], x2o);
+      }
+    }
+    T* o1 = t1 + 2 * m * ldw + w;
+    T* o2 = t2 + 2 * m * ldw + w;
+    o1[0] = x1e;
+    o1[ldw] = x1o;
+    o2[0] = x2e;
+    o2[ldw] = x2o;
+  }
+  __syncthreads();
+
+  // Last axis: output columns 2(n0 + m) + p of output row 2 m0 + q read t
+  // columns m + k with tap g[p][k], t1 then t2 per j; one pair store where
+  // nc is even and the plane's rows start 2-sample aligned, else one
+  // store per column within the crop.
+  const bool pairs = (nc & 1) == 0 &&
+      (reinterpret_cast<uintptr_t>(out) & (2 * sizeof(T) - 1)) == 0;
+  for (int i = tid; i < 2 * kTR * kTC; i += kThreads) {
+    const int q = i / kTC, m = i - q * kTC;
+    const int orow = 2 * m0 + q, ocol = 2 * (n0 + m);
+    if (orow >= nr || ocol >= nc) continue;
+    const T* r1 = t1 + q * ldw + m;
+    const T* r2 = t2 + q * ldw + m;
+    T se = 0, so = 0;
+#pragma unroll
+    for (int k = 0; k <= kHalfTaps; ++k) {
+      if (k >= span) break;
+      const T u = r1[k], z = r2[k];
+      if (k < h2) {
+        se = fmadd(u, g.lo[0][k], se);
+        se = fmadd(z, g.hi[0][k], se);
+      }
+      if (k >= sigma) {
+        so = fmadd(u, g.lo[1][k], so);
+        so = fmadd(z, g.hi[1][k], so);
+      }
+    }
+    T* o = out + static_cast<long long>(orow) * nc + ocol;
+    if (pairs) {
+      store_pair(o, se, so);
+    } else {
+      o[0] = se;
+      if (ocol + 1 < nc) o[1] = so;
+    }
+  }
+}
+
+}  // namespace pair
 }  // namespace pypwt

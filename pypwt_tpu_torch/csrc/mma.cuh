@@ -85,8 +85,9 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 // group and waits until at most kPending of its groups are pending; after
 // the wait, a __syncthreads makes every thread's copies visible to the
 // block. The CPU rehearsal copies at once and waits for nothing. The
-// float64 windows of the tap-loop synthesis (swt2d.cu) copy one double
-// (cp_async8, 8 bytes) or two (cp_async16 on doubles).
+// float64 windows of the tap-loop syntheses (swt2d.cu, level2d.cuh's
+// pair::tile) copy one double (cp_async8, 8 bytes) or two (cp_async16 on
+// doubles).
 #ifdef PYPWT_MMA_STANDIN
 inline void cp_async4(float* dst, const float* src) { *dst = *src; }
 inline void cp_async8(double* dst, const double* src) { *dst = *src; }
@@ -142,6 +143,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
 }
 #endif
+
+// One sample of either type (the tap-loop windows of swt2d.cu and
+// level2d.cuh): cp_async4 or cp_async8.
+__device__ __forceinline__ void cp_async_sample(float* dst,
+                                                const float* src) {
+  cp_async4(dst, src);
+}
+__device__ __forceinline__ void cp_async_sample(double* dst,
+                                                const double* src) {
+  cp_async8(dst, src);
+}
 
 struct Tf32 {
   static constexpr int kK = 8;  // depth of one product

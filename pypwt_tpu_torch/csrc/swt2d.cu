@@ -237,14 +237,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTapChunk = 4;
 static_assert(kMaxTaps % kTapChunk == 0, "whole chunks of taps");
 
-// One sample into shared memory, asynchronously.
-__device__ __forceinline__ void copy_sample(float* dst, const float* src) {
-  mma::cp_async4(dst, src);
-}
-__device__ __forceinline__ void copy_sample(double* dst, const double* src) {
-  mma::cp_async8(dst, src);
-}
-
 // Rows: Wrapped (K9), or the Halo<T, 4> of the shard's planes a, h, v, d
 // (K27b). kStaged: the four windows are staged in shared memory (SynPlan
 // ldw > 0); else phase 1 reads its taps through the read-only cache.
@@ -319,12 +311,13 @@ iswt2d_kernel(const T* __restrict__ a, const T* __restrict__ h,
           if (s[p] == nullptr) {
             for (int e = 0; e < step; ++e) t[e] = T(0);
           } else if (!sy.quads) {
-            copy_sample(t, s[p] + j);
+            mma::cp_async_sample(t, s[p] + j);
           } else if ((reinterpret_cast<uintptr_t>(s[p]) & 15) == 0) {
             mma::cp_async16(t, s[p] + j);
           } else {
 #pragma unroll
-            for (int e = 0; e < kVec; ++e) copy_sample(t + e, s[p] + j + e);
+            for (int e = 0; e < kVec; ++e)
+              mma::cp_async_sample(t + e, s[p] + j + e);
           }
         }
       }

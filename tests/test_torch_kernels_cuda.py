@@ -15,6 +15,8 @@ needs none of the conftest's JAX set-up, so on the GPU run it without it:
         tests/test_torch_kernels_cuda.py
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -1892,3 +1894,281 @@ def test_grid_routes_float64_and_uncovered_banks(dev):
     finally:
         _mxu("auto")
     assert _counts() == {"ana_lanes_fused": 8, "ana_rows_fused": 16}
+
+
+# K2 and K26b on idwt2d.cu's pair body: each output against its plain
+# version and against the SHA-256 of the output that the body before it
+# (level2d.cuh's syn::tile, which K20 and K25 still run) gave on the card
+# for the same seeded inputs; `python tests/test_torch_kernels_cuda.py
+# digests` prints a tree's digests in PAIR_DIGESTS's form. Banks of hlen
+# 2, 4, 10, 16, 40 and 5.
+PAIR_BANKS = ["haar", "db2", "bior4.4", "sym8", "sym20", "odd5"]
+# K2: (type, output shape, offset): whole tiles, rows of 65 coefficients
+# (not a multiple of 4: sample copies), odd outputs (the crop), a batch of
+# 3, planes one sample past a 16-byte boundary
+K2_PAIR_CASES = [("f32", (64, 128), 0), ("f32", (66, 130), 0),
+                 ("f32", (2047, 2047), 0), ("f32", (2046, 2047), 0),
+                 ("f32", (3, 40, 72), 0), ("f32", (66, 132), 1),
+                 ("f64", (66, 130), 0), ("f64", (63, 127), 0),
+                 ("f64", (3, 40, 72), 1)]
+# K26b: (type, shards, coefficient shape of a shard, offset), shard 1: of
+# 8 rows (a 16-row image shard: sym20's bottom halo of 15 rows spans two
+# neighbours), of 131 columns, a batch of 3, offsets of one sample
+K26B_PAIR_CASES = [("f32", 4, (8, 48), 0), ("f32", 4, (16, 64), 0),
+                   ("f32", 4, (16, 64), 1), ("f32", 3, (10, 131), 0),
+                   ("f32", 2, (3, 20, 36), 0), ("f64", 4, (8, 48), 0),
+                   ("f64", 2, (3, 20, 36), 1)]
+PAIR_CASES = ([("K2", c) for c in K2_PAIR_CASES]
+              + [("K26b", c) for c in K26B_PAIR_CASES])
+
+
+def _pair_id(kind, case, wname):
+    return "-".join([kind, wname, *(str(v) for v in case)])
+
+
+def _pair_output(kind, case, wname, dev):
+    """(kernel output, plain output) of one case, the kernel launched
+    once."""
+    dtype = torch.float64 if case[0] == "f64" else torch.float32
+    fb = _bank(wname)
+    if kind == "K2":
+        _, shape, off = case
+        c = [_offset(_rand(_half(shape), dev, s).to(dtype), off)
+             for s in range(1, 5)]
+        n = fd.idwt2d_fused.launches
+        got = fd.idwt2d_fused(*c, fb, shape)
+        assert fd.idwt2d_fused.launches == n + 1
+        return got, fd.idwt2d_plain(*c, fb, shape)
+    _, shards, shape, off = case
+    c = [_global(shards, shape, dev, s).to(dtype) for s in range(1, 5)]
+    body, halos = _coeff_halos(c, shards, 1,
+                               fd.halo_heights("idwt", fb, shape[-2]))
+    body = [_offset(b, off) for b in body]
+    halos = tuple(_offset(h, off) for h in halos)
+    n = fd.idwt2d_sharded_fused.launches
+    got = fd.idwt2d_sharded_fused(*body, halos, fb)
+    assert fd.idwt2d_sharded_fused.launches == n + 1
+    return got, fd.idwt2d_sharded_plain(*body, halos, fb)
+
+
+def _sha256(t):
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+@pytest.mark.parametrize("wname", PAIR_BANKS)
+@pytest.mark.parametrize("kind, case", PAIR_CASES, ids=str)
+def test_k2_k26b_pair_body_matches_plain_and_parent(dev, kind, case, wname):
+    got, ref = _pair_output(kind, case, wname, dev)
+    tol = TOL if got.dtype == torch.float32 else 1e-12
+    assert got.shape == ref.shape and float((got - ref).abs().max()) <= tol
+    assert _sha256(got) == PAIR_DIGESTS[_pair_id(kind, case, wname)]
+
+
+PAIR_DIGESTS = {
+    'K2-haar-f32-(64, 128)-0':
+        'ff17202fd61c767efb3051d03c3e8d33176746d137ee067cfaa6c7584fd55054',
+    'K2-db2-f32-(64, 128)-0':
+        'b0562b6420a0386d9f2e26cafa3d07f81838be095755b6d6677f877300cd5e47',
+    'K2-bior4.4-f32-(64, 128)-0':
+        '076e0f0b3d021ec8a38e547235d36597f6d66d3385c698d8f09786bfd15d9f72',
+    'K2-sym8-f32-(64, 128)-0':
+        '00d73533b1a9b808ac081ca785e98dc481234b19101536b5c53aee355582c362',
+    'K2-sym20-f32-(64, 128)-0':
+        '025d968c99fde269765250492e71e95f7f1c2087bccd0bef0fe688f1bfb1cf22',
+    'K2-odd5-f32-(64, 128)-0':
+        'ff52801ce738ca255966caadc17fd502769959917a572fb408911a47ae668262',
+    'K2-haar-f32-(66, 130)-0':
+        '86f2a0fcb9bb38e52eb520b8e8ced8b0fc577a85ac8f7ea59e015941436bd787',
+    'K2-db2-f32-(66, 130)-0':
+        '50da0a69a76fba5e7c0669eb1e8c1ac009485b5593f445e4f8a7ac7407f07581',
+    'K2-bior4.4-f32-(66, 130)-0':
+        'c2d723ef9c3ed9d614b79bc81fc33de112e303a955a118ae6863bb8f2192fc39',
+    'K2-sym8-f32-(66, 130)-0':
+        '4aa92c1a3c39490c2360f2df17f188dd0e54dc30a71cf71dd723bb54f40f2472',
+    'K2-sym20-f32-(66, 130)-0':
+        '0deefd306507b803eaad4b56a79667b54b38b8b3cb55e3398c6c59a6be08d00f',
+    'K2-odd5-f32-(66, 130)-0':
+        '3be6e2355e3308cf0c9da7c90ebe4602a50d0194223b2fffd2ff25d9fdb01be9',
+    'K2-haar-f32-(2047, 2047)-0':
+        '3e10c3fe8b36dece81810fe23d81f93d3f5031e312c54bafd7bf0d1286411d5b',
+    'K2-db2-f32-(2047, 2047)-0':
+        '21f8cd2bfc7f5127e9f4774aa9059f2ff14fdcd185f9a443908aa4b2565fa150',
+    'K2-bior4.4-f32-(2047, 2047)-0':
+        '93c7520b05cf46dc435cbb2a02b0fba71f5bffb614cac2cbfca44f976003f426',
+    'K2-sym8-f32-(2047, 2047)-0':
+        '8e5ce887d31f0a54f69b42b83e331920264f4a26b4857c1893cdf8200232a053',
+    'K2-sym20-f32-(2047, 2047)-0':
+        '505c94a96cbbf54c1837078a1038748ddbc3688021c5a72609d30c31a181dfad',
+    'K2-odd5-f32-(2047, 2047)-0':
+        '1b259b728efad39dba523aa38d89f6ee68235817a3f8211ab9e5ef989f5a9044',
+    'K2-haar-f32-(2046, 2047)-0':
+        'b8a074bc54710005cd3727eceed2dc90519ce99d8a311fbf7d8bbbe9c4e1d421',
+    'K2-db2-f32-(2046, 2047)-0':
+        'a10ab970ad49c20acb9cdd528eda92b8e67fdfcaa0bfa9a6ecde1ecb80a80d65',
+    'K2-bior4.4-f32-(2046, 2047)-0':
+        '74713cf6e8eb10bf85d24202fb06465878143b73704dad3c7b6d02ce45ae7d64',
+    'K2-sym8-f32-(2046, 2047)-0':
+        '1e658b80671a8b6371716e93ead1712b9dcfbf49326b985db2f0e326e537ae3f',
+    'K2-sym20-f32-(2046, 2047)-0':
+        '411d7258c7f82384d0ba74356cacdf901c418703b6dd310860b735a904bf2496',
+    'K2-odd5-f32-(2046, 2047)-0':
+        '0ecacca67aa6597f14f97d57d51a89157970efae7b915a21a76a3a179a7b943f',
+    'K2-haar-f32-(3, 40, 72)-0':
+        '1f078ba8dcb932b53f663a37ebb05db41c484638b4be675b3224ff14e462a173',
+    'K2-db2-f32-(3, 40, 72)-0':
+        '6e6b8b920264d39241153fab73285dad0de8cde98704c889aa1ec07377051b23',
+    'K2-bior4.4-f32-(3, 40, 72)-0':
+        'a3129fcccfcc2a00989033131b35022b243a62b72900cd978f0ad7de3bd4e44f',
+    'K2-sym8-f32-(3, 40, 72)-0':
+        'c1e69a52e89d1981711420466dcb87cd6dc2d4e02dbba09b483b5ec81616dd31',
+    'K2-sym20-f32-(3, 40, 72)-0':
+        '2ac7855c079eb085d480e07cb6fb9670635a5c8bfa0853d3a459e8d6018b5520',
+    'K2-odd5-f32-(3, 40, 72)-0':
+        'c9c961289d6bcb92c539b2a6ddca902bdcd0f71f5265de7a506dbbdde41b5046',
+    'K2-haar-f32-(66, 132)-1':
+        '41205655d3d0b3ff63873d1636315b4c4326ab3a63e1c1648489f9fc9d42d19f',
+    'K2-db2-f32-(66, 132)-1':
+        '4f0331411ab1a36ced4f5f66f01a35c178f009f73e2a8ac2c3820435c3a8c90a',
+    'K2-bior4.4-f32-(66, 132)-1':
+        'f8b3745acba9e301ba4e97f457f90d7e4467d1983956441af06ae5e42049c806',
+    'K2-sym8-f32-(66, 132)-1':
+        'b44cc351f3eb8ccdb6334e48ed9ee77b0f7f63010e173166ac0c7119cad78cdd',
+    'K2-sym20-f32-(66, 132)-1':
+        'eaa6bd8b739a7fa0ff53ec1bf669882150d1a5977841dc3ec0f840948df37164',
+    'K2-odd5-f32-(66, 132)-1':
+        '1ba2957b4b306f1118b61345f8eaf8a1a7682dbc61d7cb7ec6ed216efffc8966',
+    'K2-haar-f64-(66, 130)-0':
+        '292c1ffd72d3411bf5d2632d73621edf1c817700c950185aeba8805ac3e970b4',
+    'K2-db2-f64-(66, 130)-0':
+        '01094aa65994cccae02cb561cf3f3e359eb3129df72e745e6f4f892303e6b17d',
+    'K2-bior4.4-f64-(66, 130)-0':
+        'd5e023df97831f31db5c26197ddd1581dfe9435b3a7f806d761a901f05d6b475',
+    'K2-sym8-f64-(66, 130)-0':
+        'd0f17ed3ddfe784c1f86c97231bc38aa798d0f5df9833b4cde4a2ab043baefc6',
+    'K2-sym20-f64-(66, 130)-0':
+        '915f9903ed8a8ef1c1a4580170e21d0bc961785d32542f355bd0b45dee9bd110',
+    'K2-odd5-f64-(66, 130)-0':
+        '97bb95a4447ddddcafabe803781b3c924c8763b253cfd453b48bcc132bd6e729',
+    'K2-haar-f64-(63, 127)-0':
+        '78858aefa4cc5b68744dddba29c69bd868742eb3dcff74b0f64eeca378b3c12d',
+    'K2-db2-f64-(63, 127)-0':
+        'd0818560b884175ccb79a0bf62d6d85cf6cac7da3a4313d92effdccad6b0135b',
+    'K2-bior4.4-f64-(63, 127)-0':
+        'a4ba7bb6804acdd9896681320d3284a6cb97c3c5eecdc25564bd301846fd9ac1',
+    'K2-sym8-f64-(63, 127)-0':
+        '3f9a342069eda59b882c8f0535b5e467f4c16f3e3ea0b1628104b77c6f4f9bb9',
+    'K2-sym20-f64-(63, 127)-0':
+        '08fe77326e06d036285382b3dc179fd5324610d13edef8775a853d7fc1c5b51b',
+    'K2-odd5-f64-(63, 127)-0':
+        '081c31756abaccab4dc38746377ae7ce13d669546fcbd9c585af9eb85aa4e60f',
+    'K2-haar-f64-(3, 40, 72)-1':
+        'bb26c7637bb8fe906192d311c0c3a36e10666127fcdd8319d17148fa77b90a6d',
+    'K2-db2-f64-(3, 40, 72)-1':
+        'ee64b0b63fde444bcbf29fa5558acc4428a1abe91ae3759d72f2c9de92d11b17',
+    'K2-bior4.4-f64-(3, 40, 72)-1':
+        'a830f9f316020390fa878c4887313dd55a12dab731b4798b179c1117a35ce472',
+    'K2-sym8-f64-(3, 40, 72)-1':
+        '7b61958f50116165142f06eaf5a70e42fd870f64d69843df717f436419442bb8',
+    'K2-sym20-f64-(3, 40, 72)-1':
+        '5bd93f3cc5429efad386f1bcf9779c130fb36b6654792c4a3b792d123a50c942',
+    'K2-odd5-f64-(3, 40, 72)-1':
+        '0e370315f8fa7ca95bfd50e067e263136e18cfdef2656dd744bbd52bc2224833',
+    'K26b-haar-f32-4-(8, 48)-0':
+        '255143e27c3bbb98e6576e5ef198b0ee03056c53c0857c90ee3dbe23bf93ddeb',
+    'K26b-db2-f32-4-(8, 48)-0':
+        'a79fa0c19e16ed738574f5248c2f0d8fd77afdf63f1ba41623162417df07d9ee',
+    'K26b-bior4.4-f32-4-(8, 48)-0':
+        'ab99753c7980affc42d31af687c89e69b779b587cdf384438189927c926d91fc',
+    'K26b-sym8-f32-4-(8, 48)-0':
+        '54f1be5d64d016790a71ba0407c95c6712197c0997b767014dad142c6c901789',
+    'K26b-sym20-f32-4-(8, 48)-0':
+        '32d616468f1c1c5133ba7d2e5bada51a27e2e56a50404b6045b5616581db3740',
+    'K26b-odd5-f32-4-(8, 48)-0':
+        'cd983e9d6011f1b94130a137f0a8e8674883afdf5f5130601722b303971806f7',
+    'K26b-haar-f32-4-(16, 64)-0':
+        '11a9f624ecc53a47146ebc634bf7756f8a01b699304663de3d885d4d813bb714',
+    'K26b-db2-f32-4-(16, 64)-0':
+        'f185f6b0494d52078a083595c59f1c01d7a74eebb020e65951f537f75ce5ca07',
+    'K26b-bior4.4-f32-4-(16, 64)-0':
+        'c714ef81ba5331b262815bcb828f8f14b64f01fce31f8acca71bfc8b74b537a4',
+    'K26b-sym8-f32-4-(16, 64)-0':
+        '87fd973e0675d791d1a40f0e4fa1d5e2c1f19168f547996570ead777f9ae1619',
+    'K26b-sym20-f32-4-(16, 64)-0':
+        'd83c87b7a5645ee4ccdc73d090cb2bb17dc339b922af193da6bfad0a45404f25',
+    'K26b-odd5-f32-4-(16, 64)-0':
+        '0f836afad6dff29f6714d9000da6d8cb19ac38c7181b074122353c404e9d4af3',
+    'K26b-haar-f32-4-(16, 64)-1':
+        '11a9f624ecc53a47146ebc634bf7756f8a01b699304663de3d885d4d813bb714',
+    'K26b-db2-f32-4-(16, 64)-1':
+        'f185f6b0494d52078a083595c59f1c01d7a74eebb020e65951f537f75ce5ca07',
+    'K26b-bior4.4-f32-4-(16, 64)-1':
+        'c714ef81ba5331b262815bcb828f8f14b64f01fce31f8acca71bfc8b74b537a4',
+    'K26b-sym8-f32-4-(16, 64)-1':
+        '87fd973e0675d791d1a40f0e4fa1d5e2c1f19168f547996570ead777f9ae1619',
+    'K26b-sym20-f32-4-(16, 64)-1':
+        'd83c87b7a5645ee4ccdc73d090cb2bb17dc339b922af193da6bfad0a45404f25',
+    'K26b-odd5-f32-4-(16, 64)-1':
+        '0f836afad6dff29f6714d9000da6d8cb19ac38c7181b074122353c404e9d4af3',
+    'K26b-haar-f32-3-(10, 131)-0':
+        '2a88298a9a12a45fcd2a0999f79461b9749a1274d3523f40efa03cfbd9bff23e',
+    'K26b-db2-f32-3-(10, 131)-0':
+        'b5c614aa19eb336b7ee12b9fe330ddf0d2c93c2752d88ad745e50b5a76f50cc5',
+    'K26b-bior4.4-f32-3-(10, 131)-0':
+        'e714b997cb48a63c6c816ee3681defe297b29b7c857c16f1a51d0187d8ef5c67',
+    'K26b-sym8-f32-3-(10, 131)-0':
+        '7505b3c0ae074dcd343fc6e491090c4c7acc5e5470266c7b497eea388d6cdfd4',
+    'K26b-sym20-f32-3-(10, 131)-0':
+        'c948dcd947ad0cce77528ecabc1fc240c2bd74402cf2e4cdab127c85633315a7',
+    'K26b-odd5-f32-3-(10, 131)-0':
+        '5df0c8929dcf0d7eebf6d58aec16344def400f8030a71e6bc6783e8f280d4cc7',
+    'K26b-haar-f32-2-(3, 20, 36)-0':
+        '9ba9a3ec9d488b81f1c2d57ea004c6c55c9fc97dbc701981bb2e33e1567ea90e',
+    'K26b-db2-f32-2-(3, 20, 36)-0':
+        '8c54ce4f70d2864488c528096b001d1b1c1f6ff6a0b9488a90e50916d79d0d96',
+    'K26b-bior4.4-f32-2-(3, 20, 36)-0':
+        'aa1fd42ccedcec5af8024fa56b33a169367a21f8d221deca185d64b6c994238c',
+    'K26b-sym8-f32-2-(3, 20, 36)-0':
+        '1c5b52584171476e2c1a4e93baf1017e26eadad545652bf70037dc83d6bd8fc1',
+    'K26b-sym20-f32-2-(3, 20, 36)-0':
+        'bcb4a7afcdd97b22d573f139d3964315035add8aa2d028d970926f92232ecfc1',
+    'K26b-odd5-f32-2-(3, 20, 36)-0':
+        '8a13dbb3ff65bd53e334a5dd5245361c57d7c202e42a0cf3ab6b16427fe79dab',
+    'K26b-haar-f64-4-(8, 48)-0':
+        '8543bbeb4a2b7655212a2ebf9b2d3d35eb2c22540120af128eead0e2e4e94c21',
+    'K26b-db2-f64-4-(8, 48)-0':
+        '2a97582f4b67482f3201e5ef6a6ac815154e8ac4cfcb7581f4ab8b9c2c798cfc',
+    'K26b-bior4.4-f64-4-(8, 48)-0':
+        'd3d513453818dd36c230f35a992b649daa5c66b5d5d8b34f9c52937395c95e1e',
+    'K26b-sym8-f64-4-(8, 48)-0':
+        'd22b666c4aa0480302d3468e1f0239b716624412311b0f8ff0fef1525081bbde',
+    'K26b-sym20-f64-4-(8, 48)-0':
+        '93666b65c312c7c7b25cde45f5dcacff5eabeb4a78109960172ede312ab44c0a',
+    'K26b-odd5-f64-4-(8, 48)-0':
+        'ddc161dfc38be98d05e78dcd58e48300936ca9dcd9b3921853a65601f97b1373',
+    'K26b-haar-f64-2-(3, 20, 36)-1':
+        '630e2098ce1007da1ceacf46dbaaceb4a4f441b840826b102bf43547086a6dfa',
+    'K26b-db2-f64-2-(3, 20, 36)-1':
+        'fd479d9036ca29a0193e329a3123e0332993f2eecb5856cd24ad4315d10daf8d',
+    'K26b-bior4.4-f64-2-(3, 20, 36)-1':
+        '00af70bbbb05912fa2e01c61a4b9f4235d76741bd0f3a1d5924287f70116e026',
+    'K26b-sym8-f64-2-(3, 20, 36)-1':
+        '997c97ad6647aabd8ab249efd6a1edbc94f4c2841a5c38227f6df05e7fe5119a',
+    'K26b-sym20-f64-2-(3, 20, 36)-1':
+        '206752cf980a5bfba41ec66a165253e7c33e7427a4f4946f025a40c37d23a5ed',
+    'K26b-odd5-f64-2-(3, 20, 36)-1':
+        'bf014defb404706892361b65d82f428f8f902485fc3f60c8901773d096f896cd',
+}
+
+
+if __name__ == "__main__":
+    import sys
+
+    if sys.argv[1:] != ["digests"] or not torch.cuda.is_available():
+        sys.exit("usage, on a machine with a GPU: python "
+                 "tests/test_torch_kernels_cuda.py digests")
+    for kind_, case_ in PAIR_CASES:
+        for wname_ in PAIR_BANKS:
+            out_, _ = _pair_output(kind_, case_, wname_,
+                                   torch.device("cuda", 0))
+            print(f"    {_pair_id(kind_, case_, wname_)!r}:\n"
+                  f"        {_sha256(out_)!r},")
