@@ -159,9 +159,9 @@ K12a/K12b against K10 (level l of 2048 x 2048); it prints no ok line.
 
 ``--only KEYS`` is the loop of a kernel redesign: KEYS, comma-separated,
 name rows of the kernels line (a family such as K7, K28 or K29 names all
-of its rows); the tap-loop DWT synthesis K2, the tap-loop SWT synthesis
-K9, the tensor-core forms K5/K6/K11a/K11b and K7a/K7b, the row-sharded
-K26-K28 and the grid and sequence passes K29 are selectable.
+of its rows); the tap-loop DWT analysis K1 and synthesis K2, the tap-loop
+SWT synthesis K9, the tensor-core forms K5/K6/K11a/K11b and K7a/K7b, the
+row-sharded K26-K28 and the grid and sequence passes K29 are selectable.
 It builds every kernel, then runs only those rows' phases: their
 kernel-against-plain checks over the cases above (both precisions),
 their main paths with exact launch counts, and their times at the
@@ -175,9 +175,10 @@ and K28 idwt the occupancy of their tc_dwt2d.cu instances and digests of
 their outputs on seeded cases; K2 at levels 0-2 of 2048^2, db2 and
 sym20, float32 and float64, and K2 and K26b the occupancy and tile shape
 of their idwt2d.cu instances and digests of their outputs on seeded
-cases; K7a/K7b at levels 1-3 of the
-sinogram and 1-5 of the signal beside K3/K4, and the occupancy of the
-tc_dwt1d.cu instances that K7a/K7b and K29e/K29f run); a K29 row runs
+cases; K1 and K26a the same for dwt2d.cu's analysis; K7a/K7b at levels
+1-3 of the sinogram and 1-5 of the signal beside K3/K4, and the
+occupancy of the tc_dwt1d.cu instances that K7a/K7b and K29e/K29f run);
+a K29 row runs
 all of the grid and sequence checks and main paths, but times only the
 selected rows (K29e-K29h in both precisions, K29e/K29f also on a
 sequence shard) and no roundtrip.  It prints the kernels line of those
@@ -2014,78 +2015,102 @@ def print_idwt2d_digests(port, dev, keys):
     print(f"digests of the tensor-core DWT synthesis: {n}")
 
 
-# -- K2 and K26b, the tap-loop synthesis on idwt2d.cu's pair body (--only) --
+# -- K1/K26a and K2/K26b, the tap-loop DWT on the pair bodies (--only) ------
 
 SYN2D_TIMED_BANKS = ("db2", "sym20")  # hlen 4 and 40
 F32_F64 = (torch.float32, torch.float64)
 
 
-def phase_times_k2_levels(port, dev, card):
-    """K2 at levels 0-2 of 2048^2 (coefficient planes of 1024^2, 512^2 and
-    256^2), db2 and sym20, float32 and float64, in turns, and its plain
-    version at level 0, db2, float32, the kernels line's shape (--only).
-    Returns {"K2": (kernel ms, plain ms)} at that shape."""
+def phase_times_tap_levels(port, dev, card, key):
+    """K1 (inputs of 2048^2, 1024^2 and 512^2) or K2 (coefficient planes of
+    1024^2, 512^2 and 256^2) at levels 0-2 of 2048^2, db2 and sym20,
+    float32 and float64, in turns, and its plain version at level 0, db2,
+    float32, the kernels line's shape (--only).  Returns {key: (kernel ms,
+    plain ms)} at that shape."""
     fd = port.ops.fused_dwt
-    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    gen = torch.Generator(device=dev).manual_seed(
+        SEED + (19 if key == "K1" else 18))
     times = {}
     for wname in SYN2D_TIMED_BANKS:
         fb = port.get_filter_bank(wname)
         for level in (0, 1, 2):
             shape = (FRAME[0] >> level, FRAME[1] >> level)
+            if key == "K1":
+                def inputs(dtype, shape=shape):
+                    return torch.rand(shape, generator=gen, device=dev,
+                                      dtype=dtype) * 255
+
+                def kernel(x, fb=fb):
+                    return fd.dwt2d_fused(x, fb)
+
+                def plain(x, fb=fb):
+                    return fd.dwt2d_plain(x, fb)
+            else:
+                def inputs(dtype, shape=shape):
+                    return [torch.rand(half(shape), generator=gen,
+                                       device=dev, dtype=dtype) * 255
+                            for _ in range(4)]
+
+                def kernel(c, fb=fb, shape=shape):
+                    return fd.idwt2d_fused(*c, fb, shape)
+
+                def plain(c, fb=fb, shape=shape):
+                    return fd.idwt2d_plain(*c, fb, shape)
             calls, reps, sets = {}, {}, {}
             for dtype in F32_F64:
                 name = str(dtype)[6:]
-                sets[name] = itertools.cycle([
-                    [torch.rand(half(shape), generator=gen, device=dev,
-                                dtype=dtype) * 255 for _ in range(4)]
-                    for _ in range(4)]).__next__
-                calls[name] = (lambda nx=sets[name]:
-                               fd.idwt2d_fused(*nx(), fb, shape))
+                sets[name] = itertools.cycle(
+                    [inputs(dtype) for _ in range(4)]).__next__
+                calls[name] = lambda nx=sets[name]: kernel(nx())
                 reps[name] = 10
             if wname == "db2" and level == 0:
-                calls["plain"] = lambda: fd.idwt2d_plain(
-                    *sets["float32"](), fb, shape)
+                calls["plain"] = lambda: plain(sets["float32"]())
                 reps["plain"] = 3
             t = in_turns(calls, reps)
             n2 = shape[0] * shape[1]
             bounds = {name: bound(8 * n2 * (2 if name == "float64" else 1),
                                   4 * fb.hlen * n2)[0] for name in sets}
-            plain = (f", plain {t['plain'] * 1e3:.1f} us" if "plain" in t
-                     else "")
-            print(f"time K2 {wname} level {level} {shape}, device: "
+            plain_us = (f", plain {t['plain'] * 1e3:.1f} us" if "plain" in t
+                        else "")
+            print(f"time {key} {wname} level {level} {shape}, device: "
                   + ", ".join(f"{name} {t[name] * 1e3:.1f} us (bound "
                               f"{bounds[name] * 1e3:.1f} us)"
                               for name in sets)
-                  + f"{plain}  [{card}]")
+                  + f"{plain_us}  [{card}]")
             if "plain" in t:
-                times["K2"] = (t["float32"], t["plain"])
+                times[key] = (t["float32"], t["plain"])
             del calls, sets
     return times
 
 
-# (key, halo): K2's and K26b's instances, whose occupancy --only reports
-SYN2D_OCCUPANCY = (("K2", 0), ("K26b", 1))
+# key: (C entry, halo flag, tile unit) of the tap-loop 2D DWT instances
+# whose occupancy --only reports
+TAP2D_OCCUPANCY = {"K1": ("pypwt_dwt2d_occupancy", 0, "outputs"),
+                   "K26a": ("pypwt_dwt2d_occupancy", 1, "outputs"),
+                   "K2": ("pypwt_idwt2d_occupancy", 0, "coefficients"),
+                   "K26b": ("pypwt_idwt2d_occupancy", 1, "coefficients")}
 
 
-def print_idwt2d_occupancy(port, dev, keys):
+def print_tap2d_occupancy(port, dev, keys):
     """Resident blocks per SM (the occupancy API), dynamic shared memory and
-    tile shape of the idwt2d.cu instances that K2 runs at levels 0-2 of
-    2048^2 and K26b on the 2048 x 8192 shard, db2 and sym20, float32 and
-    float64 (a build without the query says so)."""
+    tile shape of the dwt2d.cu / idwt2d.cu instances that K1 / K2 run at
+    levels 0-2 of 2048^2 and K26a / K26b on the 2048 x 8192 shard, db2 and
+    sym20, float32 and float64, for the selected rows (a build without the
+    query says so)."""
     from pypwt_tpu_torch.ops import _build
     lib = _build.load_library()
-    if not hasattr(lib, "pypwt_idwt2d_occupancy"):
-        print("occupancy idwt2d (K2, K26b): not reported by this build")
-        return
-    levels = {"K2": [(FRAME[0] >> lev, FRAME[1] >> lev) for lev in range(3)],
-              "K26b": [SHARD_BLOCK]}
-    for key, halo in SYN2D_OCCUPANCY:
+    for key, (query, halo, unit) in TAP2D_OCCUPANCY.items():
         if not wanted(keys, key):
             continue
+        if not hasattr(lib, query):
+            print(f"occupancy {key}: not reported by this build")
+            continue
+        levels = ([SHARD_BLOCK] if halo else
+                  [(FRAME[0] >> lev, FRAME[1] >> lev) for lev in range(3)])
         for (nr, nc), wname, dtype in itertools.product(
-                levels[key], SYN2D_TIMED_BANKS, F32_F64):
+                levels, SYN2D_TIMED_BANKS, F32_F64):
             out = [ctypes.c_int() for _ in range(4)]
-            err = lib.pypwt_idwt2d_occupancy(
+            err = getattr(lib, query)(
                 nr, nc, port.get_filter_bank(wname).hlen,
                 int(dtype == torch.float64), halo, dev.index,
                 *(ctypes.byref(o) for o in out))
@@ -2095,8 +2120,7 @@ def print_idwt2d_occupancy(port, dev, keys):
             blocks, smem, tr, tc = (o.value for o in out)
             print(f"occupancy {key} {wname} {str(dtype)[6:]} ({nr}, {nc}): "
                   f"{blocks} blocks of 256 threads per SM, {smem} bytes of "
-                  f"dynamic shared memory each, tiles of {tr} x {tc} "
-                  "coefficients")
+                  f"dynamic shared memory each, tiles of {tr} x {tc} {unit}")
 
 
 # The levels whose outputs --only K2 / K26b digest, so that two builds of
@@ -2164,6 +2188,72 @@ def print_idwt2d_tap_digests(port, dev, keys):
             del body, halos, out
             n += 1
     print(f"digests of the tap-loop DWT synthesis: {n}")
+
+
+# The levels whose outputs --only K1 / K26a digest, so that two builds of
+# dwt2d.cu compare bit for bit: banks of hlen 2, 4, 10, 16 and 40 and odd
+# ones (banks_1d), tiny planes whose windows wrap more than once, planes
+# across tile edges, odd ones on either or both axes (wrap_ext), rows that
+# are not a multiple of 4 samples, a batch of 3, planes one sample past a
+# 16-byte boundary, shards of 8 and 16 rows (multi-hop halos at sym20),
+# float32 and float64, and the timed shapes.
+ANA2D_DIGEST_INPUTS = ((2, 2), (3, 5), (40, 72), (66, 130), (63, 127),
+                       (130, 258), (3, 40, 72), (2, 66, 130), (2047, 2046))
+ANA2D_DIGEST_SHARDS = ((4, (16, 96)), (4, (8, 48)), (3, (20, 131)),
+                       (2, (3, 40, 72)))
+
+
+def print_dwt2d_tap_digests(port, dev, keys):
+    """SHA-256 of K1's and K26a's outputs (a, h, v, d) on seeded inputs
+    (ANA2D_DIGEST_*, and K1 at level 0 of the frame and of a 2047^2 one,
+    K26a on shard 1 of 8192^2, db2): equal lines from two trees mean
+    bit-identical kernels."""
+    fd = port.ops.fused_dwt
+    gen = torch.Generator(device=dev).manual_seed(SEED + 63)
+    banks = [fb for fb in banks_1d(port) if fb.name != "db8"] + [
+        port.get_filter_bank("bior4.4"), port.get_filter_bank("sym8")]
+
+    def rand(shape, dtype):
+        return torch.rand(shape, generator=gen, device=dev, dtype=dtype)
+
+    def digest4(planes):
+        return digest(torch.stack([p.contiguous() for p in planes]))
+
+    n = 0
+    if wanted(keys, "K1"):
+        cases = [(fb, dt, shape, off) for fb in banks for dt in F32_F64
+                 for shape in ANA2D_DIGEST_INPUTS for off in (0, 1)
+                 if off == 0 or shape in ((66, 130), (2, 66, 130))]
+        db2 = port.get_filter_bank("db2")
+        cases += [(db2, dt, FRAME, 0) for dt in F32_F64]
+        cases += [(db2, torch.float32, ODD_FRAME, 0)]
+        for fb, dtype, shape, off in cases:
+            x = unaligned(rand(shape, dtype), off)
+            out = fd.dwt2d_fused(x, fb)
+            print(f"digest K1 {fb.name} {str(dtype)[6:]} {shape} +{off}: "
+                  f"{digest4(out)}")
+            n += 1
+    if wanted(keys, "K26a"):
+        cases = [(fb, dt, shards, shape, off) for fb in banks
+                 for dt in F32_F64 for shards, shape in ANA2D_DIGEST_SHARDS
+                 for off in (0, 1) if off == 0 or shape == (16, 96)]
+        cases += [(port.get_filter_bank("db2"), dt, N_SHARDS, SHARD_BLOCK, 0)
+                  for dt in F32_F64]
+        for fb, dtype, shards, shape, off in cases:
+            rows = shape[-2]
+            top, bot = fd.halo_heights("dwt", fb, 0)
+            ext = shard_rows_of(rand((*shape[:-2], shards * rows,
+                                      shape[-1]), dtype), 1, rows, top, bot)
+            body = unaligned(ext[..., top:top + rows, :].contiguous(), off)
+            up = unaligned(ext[..., :top, :].contiguous(), off)
+            down = unaligned(ext[..., top + rows:, :].contiguous(), off)
+            del ext
+            out = fd.dwt2d_sharded_fused(body, up, down, fb)
+            print(f"digest K26a {fb.name} {str(dtype)[6:]} shard 1 of "
+                  f"{shards} x {shape} +{off}: {digest4(out)}")
+            del body, up, down, out
+            n += 1
+    print(f"digests of the tap-loop DWT analysis: {n}")
 
 
 # The analysis levels whose outputs --only K5 / "K28 dwt" digest, so that
@@ -4947,7 +5037,7 @@ MXU2D_KEYS = ("K5", "K6", "K11a", "K11b")
 SHARD_KEYS = ("K26a", "K26b", "K27a", "K27b", "K28 dwt", "K28 idwt",
               "K28 swt", "K28 iswt")
 MXU1D_KEYS = ("K7a", "K7b")
-ONLY_KEYS = ("K2", "K9") + MXU2D_KEYS + MXU1D_KEYS + SHARD_KEYS + K29
+ONLY_KEYS = ("K1", "K2", "K9") + MXU2D_KEYS + MXU1D_KEYS + SHARD_KEYS + K29
 
 
 def in_family(key, item):
@@ -5000,12 +5090,16 @@ def run_only(port, dev, card, keys):
         phase_times_k5_levels(port, dev, card)
     if wanted(keys, "K5", "K28 dwt"):
         print_dwt2d_digests(port, dev, keys)
-    if "K2" in keys:
+    if "K1" in keys or "K2" in keys:
         worst.update(phase_kernels(port, dev, keys))
         launches.update(phase_main_path(port, dev))
-        times.update(phase_times_k2_levels(port, dev, card))
+    for key in ("K1", "K2"):
+        if key in keys:
+            times.update(phase_times_tap_levels(port, dev, card, key))
+    print_tap2d_occupancy(port, dev, keys)
+    if wanted(keys, "K1", "K26a"):
+        print_dwt2d_tap_digests(port, dev, keys)
     if wanted(keys, "K2", "K26b"):
-        print_idwt2d_occupancy(port, dev, keys)
         print_idwt2d_tap_digests(port, dev, keys)
     if "K6" in keys:
         phase_times_k6_levels(port, dev, card)
@@ -5017,7 +5111,7 @@ def run_only(port, dev, card, keys):
         worst.update(phase_kernels_mxu1d(port, dev, keys))
         launches.update(phase_main_paths_mxu1d(port, dev, keys))
         times.update(phase_times_mxu1d(port, dev, card, keys))
-    if wanted(keys, "K2", "K9", *MXU2D_KEYS, *MXU1D_KEYS):
+    if wanted(keys, "K1", "K2", "K9", *MXU2D_KEYS, *MXU1D_KEYS):
         library.update(phase_library(port, dev, card, keys))
     if wanted(keys, "K7a", "K7b", "K29e", "K29f"):
         print_tc1d_occupancy(port, dev, keys)

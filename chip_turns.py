@@ -1,8 +1,9 @@
 """Time the tensor-core 2D DWT analysis and synthesis, or the tap-loop 2D
-DWT synthesis, of several source trees in turns, in one process, on one
-NVIDIA GPU, or compare their kernels' machine code:
+DWT synthesis or analysis, of several source trees in turns, in one
+process, on one NVIDIA GPU, or compare their kernels' machine code:
 
-    python3 chip_turns.py [--only dwt|idwt|syn2d] PARENT_TREE TREE [TREE ...]
+    python3 chip_turns.py [--only dwt|idwt|syn2d|ana2d] [--banks B,...]
+        PARENT_TREE TREE [TREE ...]
     python3 chip_turns.py --sass PARENT_TREE TREE [TREE ...]
 
 A tree is a directory holding a ``pypwt_tpu_torch`` package: an unpacked
@@ -18,13 +19,18 @@ levels 0-2 of a 2048^2 frame and K28's synthesis
 sym8, "highest" and "bf16". ``--only syn2d`` (not in the default run):
 K2 (``pypwt_idwt2d``) at levels 0-2 of a 2048^2 frame and K26b
 (``pypwt_idwt2d_sharded``) on the same shard, db2 and sym20, float32 and
-float64. Device time by CUDA events behind a sleep kernel, the median of
-21 samples of 10 launches; the trees in order, then in reverse, each the
+float64. ``--only ana2d`` (not in the default run): K1 (``pypwt_dwt2d``)
+at levels 0-2 of a 2048^2 frame and K26a (``pypwt_dwt2d_sharded``) on
+the same shard (a 2048 x 8192 input), db2 and sym20, float32 and float64
+(``--banks``: these banks instead, comma-separated, for syn2d and ana2d).
+Device time by CUDA events behind a sleep kernel, the median of 21
+samples of 10 launches; the trees in order, then in reverse, each the
 mean of its two medians. Each line also says whether every tree's output
 is bit for bit the first tree's, and the trees that report it print their
 instances' occupancy (``pypwt_tc_dwt2d_occupancy``,
-``pypwt_tc_idwt2d_occupancy``, ``pypwt_idwt2d_occupancy``: blocks per SM,
-dynamic shared memory and, for the tap loop, the tile shape).
+``pypwt_tc_idwt2d_occupancy``, ``pypwt_idwt2d_occupancy``,
+``pypwt_dwt2d_occupancy``: blocks per SM, dynamic shared memory and, for
+the tap loop, the tile shape).
 
 ``--sass`` times nothing: it disassembles each tree's library
 (``cuobjdump -sass``) and prints, for every kernel of the first tree,
@@ -52,11 +58,12 @@ SHARD = (1024, 4096)         # K28, K26b: coefficient rows and columns of a
 N_SHARDS = 4
 SAMPLES, REPS = 21, 10
 SLEEP_CYCLES = 2_000_000
-SYN2D_BANKS = ("db2", "sym20")
+SYN2D_BANKS = ["db2", "sym20"]  # also the tap-loop analysis's (--banks)
 SYN2D_TYPES = (torch.float32, torch.float64)
 # entries that a parent tree's _build may not declare
 ENTRY_TYPES = {
-    "pypwt_idwt2d_occupancy": [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4}
+    "pypwt_idwt2d_occupancy": [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4,
+    "pypwt_dwt2d_occupancy": [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4}
 
 
 def load(trees):
@@ -80,7 +87,10 @@ def load(trees):
                      "pypwt_tc_dwt2d_occupancy",
                      "pypwt_tc_idwt2d_occupancy", "pypwt_idwt2d",
                      "pypwt_idwt2d_f64", "pypwt_idwt2d_sharded",
-                     "pypwt_idwt2d_sharded_f64", "pypwt_idwt2d_occupancy"):
+                     "pypwt_idwt2d_sharded_f64", "pypwt_idwt2d_occupancy",
+                     "pypwt_dwt2d", "pypwt_dwt2d_f64",
+                     "pypwt_dwt2d_sharded", "pypwt_dwt2d_sharded_f64",
+                     "pypwt_dwt2d_occupancy"):
             if hasattr(lib, name):
                 getattr(lib, name).argtypes = _build._SIGNATURES.get(
                     name, ENTRY_TYPES.get(
@@ -242,6 +252,52 @@ def cases(port, dev, only):
             return out
         return call
 
+    def k1(wname, level, dtype):
+        fbw = port.get_filter_bank(wname)
+        lo2, hi2 = host_taps(fbw.dec_lo, dtype), host_taps(fbw.dec_hi, dtype)
+        n = FRAME >> level
+        sets = [rand((n, n), dtype) for _ in range(4)]
+        out = [torch.empty((n // 2, n // 2), device=dev, dtype=dtype)
+               for _ in range(4)]
+
+        def call(lib, i, _):
+            err = entry(lib, "pypwt_dwt2d", dtype)(
+                sets[i % 4].data_ptr(), *(o.data_ptr() for o in out), 1, n,
+                n, lo2.ctypes.data, hi2.ctypes.data, fbw.hlen, dev.index,
+                stream)
+            if err:
+                raise RuntimeError(f"K1 level {level}: error {err}")
+            return out
+        return call
+
+    def k26a(wname, dtype):
+        fbw = port.get_filter_bank(wname)
+        lo2, hi2 = host_taps(fbw.dec_lo, dtype), host_taps(fbw.dec_hi, dtype)
+        nr, nc = 2 * SHARD[0], 2 * SHARD[1]
+        top, bot = fd.halo_heights("dwt", fbw, 0)
+        rows = torch.arange(nr - top, 2 * nr + bot, device=dev) % (
+            N_SHARDS * nr)
+        sets = []
+        for _ in range(2):
+            ext = rand((N_SHARDS * nr, nc), dtype).index_select(0, rows)
+            sets.append([ext[top:top + nr].contiguous(),
+                         ext[:top].contiguous(),
+                         ext[top + nr:].contiguous()])
+            del ext
+        out = [torch.empty(SHARD, device=dev, dtype=dtype) for _ in range(4)]
+
+        def call(lib, i, _):
+            body, up, down = sets[i % 2]
+            err = entry(lib, "pypwt_dwt2d_sharded", dtype)(
+                body.data_ptr(), up.data_ptr(), down.data_ptr(),
+                *(o.data_ptr() for o in out), 1, nr, nc, top, bot,
+                lo2.ctypes.data, hi2.ctypes.data, fbw.hlen, dev.index,
+                stream)
+            if err:
+                raise RuntimeError(f"K26a: error {err}")
+            return out
+        return call
+
     got = {}
     precisions = (0, 1)
     if only in (None, "dwt"):
@@ -260,6 +316,15 @@ def cases(port, dev, only):
                             (k2(wname, lev, dtype), (None,))
                             for lev in (0, 1, 2)})
                 got[f"K26b shard {wname} {kind}"] = (k26b(wname, dtype),
+                                                     (None,))
+    if only == "ana2d":
+        for wname in SYN2D_BANKS:
+            for dtype in SYN2D_TYPES:
+                kind = str(dtype)[6:]
+                got.update({f"K1 level {lev} {wname} {kind}":
+                            (k1(wname, lev, dtype), (None,))
+                            for lev in (0, 1, 2)})
+                got[f"K26a shard {wname} {kind}"] = (k26a(wname, dtype),
                                                      (None,))
     return got, fb.hlen
 
@@ -306,6 +371,7 @@ def sass_of(path):
     kernels = {}
     for part in text.split("Function : ")[1:]:
         name, _, body = part.partition("\n")
+        body = body.split("Fatbin ")[0]  # the next cubin's header
         kernels[strip_anonymous(name.strip())] = "\n".join(
             " ".join(line.split()) for line in body.strip().splitlines())
     return kernels
@@ -356,9 +422,13 @@ def main():
         return
     if trees[:1] == ["--only"]:
         only, trees = (trees[1:2] or [""])[0], trees[2:]
-    if len(trees) < 2 or only not in (None, "dwt", "idwt", "syn2d"):
-        print("usage: python3 chip_turns.py [--only dwt|idwt|syn2d] "
-              "PARENT_TREE TREE [TREE ...]", file=sys.stderr)
+    if trees[:1] == ["--banks"] and only in ("syn2d", "ana2d"):
+        SYN2D_BANKS[:] = (trees[1:2] or [""])[0].split(",")
+        trees = trees[2:]
+    if len(trees) < 2 or only not in (None, "dwt", "idwt", "syn2d",
+                                      "ana2d"):
+        print("usage: python3 chip_turns.py [--only dwt|idwt|syn2d|ana2d] "
+              "[--banks B,...] PARENT_TREE TREE [TREE ...]", file=sys.stderr)
         sys.exit(2)
     if not torch.cuda.is_available():
         print("chip_turns: torch.cuda.is_available() is False: this run "
@@ -392,8 +462,8 @@ def main():
                     print(f"occupancy {tree} {key[halo]} "
                           f"{'bf16' if bf16 else 'highest'}: {blocks.value} "
                           f"blocks per SM, {smem.value} bytes")
-    if only == "syn2d":
-        print_syn2d_occupancy(trees, libs, port, dev)
+    if only in ("syn2d", "ana2d"):
+        print_tap2d_occupancy(trees, libs, port, dev, only)
     for name, (call, variants) in calls.items():
         for bf16 in variants:
             digests = {hashlib.sha256(flat(call(lib, 0, bf16)).cpu()
@@ -412,20 +482,26 @@ def main():
                   f"[{card}]", flush=True)
 
 
-def print_syn2d_occupancy(trees, libs, port, dev):
+def print_tap2d_occupancy(trees, libs, port, dev, only):
     """Blocks per SM, dynamic shared memory and tile shape of each tree's
-    K2 and K26b instances at the timed banks, where the tree reports
-    them."""
+    K2 and K26b instances (syn2d) or K1 and K26a instances (ana2d) at the
+    timed banks, where the tree reports them."""
+    query, keys, unit = (
+        ("pypwt_idwt2d_occupancy", ("K2", "K26b"), "coefficients")
+        if only == "syn2d" else
+        ("pypwt_dwt2d_occupancy", ("K1", "K26a"), "outputs"))
     for tree, lib in zip(trees, libs):
-        if not hasattr(lib, "pypwt_idwt2d_occupancy"):
-            print(f"occupancy {tree} K2, K26b: not reported by this tree")
+        if not hasattr(lib, query):
+            print(f"occupancy {tree} {', '.join(keys)}: not reported by "
+                  "this tree")
             continue
-        levels = [("K2", 0, FRAME >> lev, FRAME >> lev) for lev in range(3)]
-        levels.append(("K26b", 1, 2 * SHARD[0], 2 * SHARD[1]))
+        levels = [(keys[0], 0, FRAME >> lev, FRAME >> lev)
+                  for lev in range(3)]
+        levels.append((keys[1], 1, 2 * SHARD[0], 2 * SHARD[1]))
         for (key, halo, nr, nc), wname, dtype in itertools.product(
                 levels, SYN2D_BANKS, SYN2D_TYPES):
             out = [ctypes.c_int() for _ in range(4)]
-            err = lib.pypwt_idwt2d_occupancy(
+            err = getattr(lib, query)(
                 nr, nc, port.get_filter_bank(wname).hlen,
                 int(dtype == torch.float64), halo, dev.index,
                 *(ctypes.byref(o) for o in out))
@@ -434,7 +510,7 @@ def print_syn2d_occupancy(trees, libs, port, dev):
             blocks, smem, tr, tc = (o.value for o in out)
             print(f"occupancy {tree} {key} ({nr}, {nc}) {wname} "
                   f"{str(dtype)[6:]}: {blocks} blocks per SM, {smem} bytes, "
-                  f"tiles of {tr} x {tc} coefficients")
+                  f"tiles of {tr} x {tc} {unit}")
 
 
 if __name__ == "__main__":

@@ -366,6 +366,46 @@ inline bool stationary_halos_ok(int hlen, int s, int level, int lp, int rp) {
   return lp == (hlen - 1 - s) * f && rp == s * f;
 }
 
+// One instance of a tiled level kernel, picked on the host by type, bank
+// and level size (idwt2d.cu's pick_pair, dwt2d.cu's pick_ana): the kernel,
+// its dynamic shared memory and its tile shape.
+template <class Kernel>
+struct TileInstance {
+  Kernel kernel;
+  size_t smem;
+  int tr, tc;
+};
+
+// Select `device` and read its SM count.
+inline cudaError_t device_sms(int device, int* sms) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  return err;
+}
+
+// Let an instance take its dynamic shared memory.
+template <class Kernel>
+cudaError_t allow_smem(const TileInstance<Kernel>& inst) {
+  return cudaFuncSetAttribute(inst.kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(inst.smem));
+}
+
+// The occupancy API's resident blocks per SM of an instance, its dynamic
+// shared memory in bytes and its tile shape: figures for reports.
+template <class Kernel>
+int report_occupancy(const TileInstance<Kernel>& inst, int* blocks,
+                     int* smem, int* tr, int* tc) {
+  const cudaError_t err = allow_smem(inst);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *smem = static_cast<int>(inst.smem);
+  *tr = inst.tr;
+  *tc = inst.tc;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, inst.kernel, kThreads, inst.smem));
+}
+
 // Grid y and z hold at most 65535 blocks. The 2D level kernels put column
 // blocks on x, row blocks on y and planes on z; launch_chunks issues a
 // level with more row blocks or planes than that as several launches,

@@ -32,28 +32,51 @@
 // byte (67 TFLOP/s over 3.35 TB/s) for every hlen < 40, so memory-bound.
 // The shift and the threshold add no traffic.
 //
-// Design (ana::tile of level2d.cuh, which K24 shares): each block owns a
-// TR x TC tile of the four outputs. It stages
-// the (2TR + hlen - 2) x (2TC + hlen - 2) input window into shared memory
-// once, with a true periodic wrap, split into even and odd columns so that
-// the decimating taps read consecutive words (no bank conflicts). The
-// last-axis pass writes lo/hi rows into shared memory, the axis -2 pass
-// reads them and writes a, h, v, d. Each input element is read from device
-// memory once (plus the halo), and the intermediate never leaves the SM.
-// The shift and the odd extension only change the index of the staging
-// gather, so K19 is this kernel with another source index: template flags
-// compile them in where a call needs them, and the even, unshifted K1
-// instance is the plain gather. K26a is the even unshifted instance with
-// the Halo row source (common.cuh): window rows above and below the shard
-// are read from the halo tensors where they lie, so the shard is never
-// copied into a padded buffer (the TPU kernel's _edge_override did the same
-// for its edge bands); its bytes are K1's plus the halo rows, 2 (hlen/2 - 1)
-// rows per shard, read once per tile that meets them. The batch is the
-// grid's z axis, row tiles
-// its y axis, in chunks where a level holds more than a grid's 65535
-// (launch_chunks). Offsets into the planes are 64-bit. The float64
-// instance (pypwt_dwt2d_f64; K1 only) stages twice the bytes: 139 KB at
-// hlen 40, within the 227 KB a block may opt into.
+// Design. K1 and K26a run ana_pair::tile (level2d.cuh). Each block owns a
+// tile of the four outputs, a shape picked on the host by type, hlen and
+// level size (pick_ana): up to hlen 10, 16 x 64 outputs in float32 and 16 x
+// 32 in float64; from hlen 12, 32 x 32 and 32 x 16, whose taller windows
+// hold fewer halo rows per output row; a level that would give an SM less
+// than one such block takes 8 x 64 or 16 x 32 (float64: 8 x 32). A table of
+// the window's source rows is built once per block (the plane's rows
+// wrapped, wrap_ext on an odd axis, or the shard's own rows and its halos'
+// rows, null past both halos: no per-sample halo test, row wrap or
+// division), then the (2 tile rows + hlen - 2)-row input window is staged
+// by cp.async, every copy of a thread in flight before one wait: 16-byte
+// copies from the 16-byte boundary below the window's first column where
+// nc allows, else sample copies with the column wrap resolved once per
+// copy; zero for a row past the halos. Every block of a launch starts its
+// window the same number of samples before its first output's first
+// sample, (-lpad) mod 16 bytes, so that shift is a template parameter
+// (dispatched on the host) and the tap loops index the window by constants.
+// The window stays contiguous: in the last-axis pass each thread reads a
+// 16-byte aligned run of its window row as 16-byte words (consecutive
+// threads on consecutive words, no bank conflict) and computes lo and hi of
+// the 2 (float) or 1 (double) output columns it holds; in the axis -2 pass
+// each thread reads two adjacent columns of lo and hi as pairs and
+// computes a, h, v, d of those columns for 1 or 2 output rows, stored as
+// one 8-byte (float) or 16-byte (double) pair per plane where lc is even
+// and the planes aligned, else one store per column within the crop. The
+// taps are kernel parameters (ana_pair::Taps), so the unrolled tap loops
+// take them as operands, and each loop runs over an output's own taps
+// only. Each output keeps ana::tile's order of summation (j ascending per
+// accumulator), so the outputs are bit for bit those of the body before.
+// The intermediate never leaves the SM; each input sample is read from
+// device memory once per tile that meets it (the tiles' overlap, and for
+// K26a the halo rows, 2 (hlen/2 - 1) per shard).
+//
+// K19 runs ana::tile (which K24 shares): a TR x TC = 32 x 32 output tile, its
+// (2TR + hlen - 2) x (2TC + hlen - 2) window staged by a gather, one sample
+// per thread and step, with the shift and the odd extension in the gather's
+// source index, split into even and odd columns so that the decimating taps
+// read consecutive words; the taps from shared memory; one output per thread
+// and item in each pass, and the threshold before the store. dwt2d_kernel
+// keeps its type and shift parameters, though only its float32 shifted
+// instances are built, so that K19's machine code stays as it was.
+//
+// All: the batch is the grid's z axis, row tiles its y axis, in chunks
+// where a level holds more than a grid's 65535 (launch_chunks). Offsets
+// into the planes are 64-bit.
 
 #include "level2d.cuh"
 
@@ -76,45 +99,134 @@ dwt2d_kernel(const T* __restrict__ x, T* __restrict__ a, T* __restrict__ h,
       (y0 + blockIdx.y) * ana::TR, blockIdx.x * ana::TC, sr, sc, beta, smem);
 }
 
+// K1 and K26a: one level on the pair body (level2d.cuh) in tiles of kTR x
+// kTC outputs, kShift = ana_pair::shift_of<T>(hlen); Rows: Wrapped (K1), or
+// the Halo<T, 1> of a shard (K26a), moved to the block's plane here.
+template <class T, int kTR, int kTC, int kShift, class Rows>
+__global__ void __launch_bounds__(kThreads)
+dwt2d_pair_kernel(const T* __restrict__ x, T* __restrict__ a,
+                  T* __restrict__ h, T* __restrict__ v, T* __restrict__ d,
+                  int nr, int nc, ana_pair::Taps<T> taps, int hlen, int y0,
+                  Rows rows) {
+  const long long pi = static_cast<long long>(blockIdx.z) * nr * nc;
+  const long long po =
+      static_cast<long long>(blockIdx.z) * ((nr + 1) >> 1) * ((nc + 1) >> 1);
+  const int r0 = kTR * (y0 + blockIdx.y), c0 = kTC * blockIdx.x;
+  T* smem = dynamic_smem<T>();
+  if constexpr (Rows::kHalo) {
+    ana_pair::tile<T, kTR, kTC, kShift>(x + pi, a + po, h + po, v + po,
+                                        d + po, nr, nc, hlen, taps, r0, c0,
+                                        smem, rows.plane(blockIdx.z, nc));
+  } else {
+    ana_pair::tile<T, kTR, kTC, kShift>(x + pi, a + po, h + po, v + po,
+                                        d + po, nr, nc, hlen, taps, r0, c0,
+                                        smem, rows);
+  }
+}
+
+template <class T, class Rows>
+using PairKernel = void (*)(const T*, T*, T*, T*, T*, int, int,
+                            ana_pair::Taps<T>, int, int, Rows);
+
+template <class T, class Rows>
+using PairInstance = TileInstance<PairKernel<T, Rows>>;
+
+template <class T, class Rows, int kTR, int kTC, int kShift = 0>
+PairInstance<T, Rows> ana_instance(int hlen) {
+  if constexpr (kShift + 1 < 16 / static_cast<int>(sizeof(T))) {
+    if (ana_pair::shift_of<T>(hlen) != kShift)
+      return ana_instance<T, Rows, kTR, kTC, kShift + 1>(hlen);
+  }
+  return {dwt2d_pair_kernel<T, kTR, kTC, kShift, Rows>,
+          ana_pair::Geometry<T>(kTR, kTC, hlen).smem_bytes(), kTR, kTC};
+}
+
+// The tile shape of a level of (batch, nr, nc) inputs at the padded hlen,
+// in outputs (PERF.md: the shapes measured). Narrow banks take wide tiles
+// (64 float32 or 32 float64 columns: fewer column halos); banks of
+// kWideHlen taps or more take 32-row tiles, whose 2 tr + hlen - 2 window
+// rows hold fewer halo rows per output row, and fewer columns, which keep
+// two or more blocks per SM. A level that would give an SM less than one
+// such block takes the shape with half the rows (float64: 8 x 32).
+constexpr int kWideHlen = 12;
+
+template <class T, class Rows>
+PairInstance<T, Rows> pick_ana(int hlen, int batch, int nr, int nc,
+                               int sms) {
+  const int lr = (nr + 1) / 2, lc = (nc + 1) / 2;
+  const auto fills = [&](int tr, int tc) {
+    return static_cast<long long>(batch) * ((lr + tr - 1) / tr) *
+               ((lc + tc - 1) / tc) >= sms;
+  };
+  if constexpr (std::is_same_v<T, float>) {
+    if (hlen >= kWideHlen)
+      return fills(32, 32) ? ana_instance<T, Rows, 32, 32>(hlen)
+                           : ana_instance<T, Rows, 16, 32>(hlen);
+    return fills(16, 64) ? ana_instance<T, Rows, 16, 64>(hlen)
+                         : ana_instance<T, Rows, 8, 64>(hlen);
+  } else {
+    if (hlen >= kWideHlen)
+      return fills(32, 16) ? ana_instance<T, Rows, 32, 16>(hlen)
+                           : ana_instance<T, Rows, 8, 32>(hlen);
+    return fills(16, 32) ? ana_instance<T, Rows, 16, 32>(hlen)
+                         : ana_instance<T, Rows, 8, 32>(hlen);
+  }
+}
+
+// Launch one analysis level of (batch, nr, nc) inputs on the pair body (the
+// caller validated the arguments).
+template <class T, class Rows>
+int launch_pair(const T* x, T* a, T* h, T* v, T* d, int batch, int nr,
+                int nc, const T* dec_lo, const T* dec_hi, int hlen,
+                const Rows& rows, int device, void* stream) {
+  int sms = 0;
+  cudaError_t err = device_sms(device, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  TapsT<T> padded;
+  hlen = make_analysis_taps(dec_lo, dec_hi, hlen, &padded);
+  const PairInstance<T, Rows> inst =
+      pick_ana<T, Rows>(hlen, batch, nr, nc, sms);
+  err = allow_smem(inst);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const ana_pair::Taps<T> taps = ana_pair::make_taps(padded, hlen);
+  const int lr = (nr + 1) / 2, lc = (nc + 1) / 2;
+  launch_chunks((lc + inst.tc - 1) / inst.tc, (lr + inst.tr - 1) / inst.tr,
+                batch, [&](dim3 grid, int y0, int z0) {
+                  const long long pi = static_cast<long long>(z0) * nr * nc;
+                  const long long po = static_cast<long long>(z0) * lr * lc;
+                  Rows rz = rows;
+                  if constexpr (Rows::kHalo) rz = rows.plane(z0, nc);
+                  inst.kernel<<<grid, kThreads, inst.smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+                      x + pi, a + po, h + po, v + po, d + po, nr, nc, taps,
+                      hlen, y0, rz);
+                });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// report_occupancy of the instance that a level of nr x nc inputs at hlen
+// runs (tile shape in outputs).
+template <class T, class Rows>
+int pair_occupancy(int nr, int nc, int hlen, int device, int* blocks,
+                   int* smem, int* tr, int* tc) {
+  if (hlen < 1 || hlen > kMaxTaps || nr < 1 || nc < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  const cudaError_t err = device_sms(device, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return report_occupancy(pick_ana<T, Rows>(hlen + (hlen & 1), 1, nr, nc, sms),
+                          blocks, smem, tr, tc);
+}
+
 template <class T>
 using Kernel = void (*)(const T*, T*, T*, T*, T*, int, int, TapsT<T>, int,
                         int, int, int, float);
 
-template <class T, bool kShift, int kMode>
-Kernel<T> pick(bool odd) {
-  return odd ? dwt2d_kernel<T, true, kShift, kMode>
-             : dwt2d_kernel<T, false, kShift, kMode>;
-}
-
-// K1's instance, or K19's (float32 only) for a shift or an epilogue.
-template <class T>
-Kernel<T> pick_kernel(bool odd, bool shift, int mode) {
-  if constexpr (std::is_same_v<T, float>) {
-    if (shift)
-      return mode == kSoft   ? pick<T, true, kSoft>(odd)
-             : mode == kHard ? pick<T, true, kHard>(odd)
-                             : pick<T, true, kNone>(odd);
-  }
-  return pick<T, false, kNone>(odd);
-}
-
-// K26a: K1's level of one row shard, its edge rows from the halos.
-template <class T, bool kOdd>
-__global__ void __launch_bounds__(kThreads)
-dwt2d_sharded_kernel(const T* __restrict__ x, T* __restrict__ a,
-                     T* __restrict__ h, T* __restrict__ v, T* __restrict__ d,
-                     int nr, int nc, Halo<T, 1> halo, TapsT<T> taps,
-                     int hlen, int y0) {
-  T* smem = dynamic_smem<T>();
-  T* f_lo = ana::taps(smem, hlen);
-  load_reversed_taps(taps, hlen, f_lo, f_lo + kMaxTaps);
-  const long long pi = static_cast<long long>(blockIdx.z) * nr * nc;
-  const long long po =
-      static_cast<long long>(blockIdx.z) * (nr >> 1) * ((nc + 1) >> 1);
-  ana::tile<T, kOdd, false, kNone, false>(
-      x + pi, a + po, h + po, v + po, d + po, nr, nc, hlen,
-      (y0 + blockIdx.y) * ana::TR, blockIdx.x * ana::TC, 0, 0, 0.f, smem,
-      halo.plane(blockIdx.z, nc));
+// K19's instance (float32): a shift, an epilogue, or both.
+template <int kMode>
+Kernel<float> pick(bool odd) {
+  return odd ? dwt2d_kernel<float, true, true, kMode>
+             : dwt2d_kernel<float, false, true, kMode>;
 }
 
 template <class T>
@@ -126,30 +238,8 @@ int launch_sharded(const T* x, const T* top, const T* bot, T* a, T* h, T* v,
       nr > 0x3fffffff || nc > 0x3fffffff || batch < 1 ||
       !analysis_halos_ok(hlen, lp, rp))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  TapsT<T> taps;
-  hlen = make_analysis_taps(dec_lo, dec_hi, hlen, &taps);
-  auto kernel = (nc & 1) ? dwt2d_sharded_kernel<T, true>
-                         : dwt2d_sharded_kernel<T, false>;
-  const size_t smem = ana::smem_bytes<T>(hlen);
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Halo<T, 1> halo = make_halo(top, bot, lp, rp);
-  const int lr = nr / 2, lc = (nc + 1) / 2;
-  launch_chunks((lc + ana::TC - 1) / ana::TC, (lr + ana::TR - 1) / ana::TR,
-                batch,
-                [&](dim3 grid, int y0, int z0) {
-                  const long long pi = static_cast<long long>(z0) * nr * nc;
-                  const long long po = static_cast<long long>(z0) * lr * lc;
-                  kernel<<<grid, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-                      x + pi, a + po, h + po, v + po, d + po, nr, nc,
-                      halo.plane(z0, nc), taps, hlen, y0);
-                });
-  return static_cast<int>(cudaGetLastError());
+  return launch_pair(x, a, h, v, d, batch, nr, nc, dec_lo, dec_hi, hlen,
+                     make_halo(top, bot, lp, rp), device, stream);
 }
 
 template <class T>
@@ -160,32 +250,38 @@ int launch(const T* x, T* a, T* h, T* v, T* d, int batch, int nr, int nc,
       nc > 0x3fffffff || batch < 1 || sr < 0 || sr >= nr || sc < 0 ||
       sc >= nc || mode < kNone || mode > kHard)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  TapsT<T> taps;
-  hlen = make_analysis_taps(dec_lo, dec_hi, hlen, &taps);
-  const bool odd = (nr | nc) & 1;
   const bool shift = sr || sc || mode != kNone;
-  if (shift && !std::is_same_v<T, float>)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Kernel<T> kernel = pick_kernel<T>(odd, shift, mode);
-  const size_t smem = ana::smem_bytes<T>(hlen);
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int lr = (nr + 1) / 2, lc = (nc + 1) / 2;
-  launch_chunks((lc + ana::TC - 1) / ana::TC, (lr + ana::TR - 1) / ana::TR,
-                batch,
-                [&](dim3 grid, int y0, int z0) {
-                  const long long pi = static_cast<long long>(z0) * nr * nc;
-                  const long long po = static_cast<long long>(z0) * lr * lc;
-                  kernel<<<grid, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-                      x + pi, a + po, h + po, v + po, d + po, nr, nc, taps,
-                      hlen, y0, sr, sc, beta);
-                });
-  return static_cast<int>(cudaGetLastError());
+  if (!shift)
+    return launch_pair(x, a, h, v, d, batch, nr, nc, dec_lo, dec_hi, hlen,
+                       Wrapped{}, device, stream);
+  if constexpr (!std::is_same_v<T, float>) {
+    return static_cast<int>(cudaErrorInvalidValue);  // K19 is float32 only
+  } else {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    TapsT<T> taps;
+    hlen = make_analysis_taps(dec_lo, dec_hi, hlen, &taps);
+    const bool odd = (nr | nc) & 1;
+    const Kernel<T> kernel = mode == kSoft   ? pick<kSoft>(odd)
+                             : mode == kHard ? pick<kHard>(odd)
+                                             : pick<kNone>(odd);
+    const size_t smem = ana::smem_bytes<T>(hlen);
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int lr = (nr + 1) / 2, lc = (nc + 1) / 2;
+    launch_chunks((lc + ana::TC - 1) / ana::TC, (lr + ana::TR - 1) / ana::TR,
+                  batch, [&](dim3 grid, int y0, int z0) {
+                    const long long pi = static_cast<long long>(z0) * nr * nc;
+                    const long long po = static_cast<long long>(z0) * lr * lc;
+                    kernel<<<grid, kThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+                        x + pi, a + po, h + po, v + po, d + po, nr, nc, taps,
+                        hlen, y0, sr, sc, beta);
+                  });
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 }  // namespace
@@ -248,6 +344,27 @@ extern "C" int pypwt_dwt2d_sharded_f64(const double* x, const double* top,
                                        int device, void* stream) {
   return pypwt::launch_sharded(x, top, bot, a, h, v, d, batch, nr, nc, lp,
                                rp, dec_lo, dec_hi, hlen, device, stream);
+}
+
+// K1's and K26a's instance on a level of nr x nc inputs at hlen (f64: the
+// float64 one; halo: K26a's): resident blocks per SM, dynamic shared memory
+// in bytes, and the tile's output rows and columns.
+extern "C" int pypwt_dwt2d_occupancy(int nr, int nc, int hlen, int f64,
+                                     int halo, int device, int* blocks,
+                                     int* smem, int* tile_rows,
+                                     int* tile_cols) {
+  using namespace pypwt;
+  if (f64)
+    return halo ? pair_occupancy<double, Halo<double, 1>>(
+                      nr, nc, hlen, device, blocks, smem, tile_rows,
+                      tile_cols)
+                : pair_occupancy<double, Wrapped>(nr, nc, hlen, device,
+                                                  blocks, smem, tile_rows,
+                                                  tile_cols);
+  return halo ? pair_occupancy<float, Halo<float, 1>>(
+                    nr, nc, hlen, device, blocks, smem, tile_rows, tile_cols)
+              : pair_occupancy<float, Wrapped>(nr, nc, hlen, device, blocks,
+                                               smem, tile_rows, tile_cols);
 }
 
 extern "C" const char* pypwt_error_string(int err) {

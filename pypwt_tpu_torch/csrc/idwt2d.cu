@@ -172,14 +172,8 @@ template <class T, class Rows>
 using PairKernel = void (*)(const T*, const T*, const T*, const T*, T*, int,
                             int, int, int, pair::Taps<T>, int, int, Rows);
 
-// One instance of the pair kernel: its tile shape and dynamic shared
-// memory at the level's hlen.
 template <class T, class Rows>
-struct PairInstance {
-  PairKernel<T, Rows> kernel;
-  size_t smem;
-  int tr, tc;
-};
+using PairInstance = TileInstance<PairKernel<T, Rows>>;
 
 template <class T, class Rows, int kTR, int kTC>
 PairInstance<T, Rows> pair_instance(int hlen) {
@@ -213,16 +207,12 @@ int launch_pair(const T* a, const T* h, const T* v, const T* d, T* out,
                 int batch, int lr, int lc, int nr, int nc, const T* rec_lo,
                 const T* rec_hi, int hlen, const Rows& rows, int device,
                 void* stream) {
-  cudaError_t err = cudaSetDevice(device);
   int sms = 0;
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaError_t err = device_sms(device, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   const PairInstance<T, Rows> inst = pick_pair<T, Rows>(hlen, batch, nr, nc,
                                                         sms);
-  err = cudaFuncSetAttribute(inst.kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(inst.smem));
+  err = allow_smem(inst);
   if (err != cudaSuccess) return static_cast<int>(err);
   const pair::Taps<T> taps = pair::make_taps(rec_lo, rec_hi, hlen);
   // output tiles of 2 tr x 2 tc pixels
@@ -242,30 +232,18 @@ int launch_pair(const T* a, const T* h, const T* v, const T* d, T* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The occupancy API's resident blocks per SM of the instance that a level
-// of nr x nc outputs at hlen runs, its dynamic shared memory in bytes and
-// its tile shape in coefficients: figures for reports.
+// report_occupancy of the instance that a level of nr x nc outputs at hlen
+// runs (tile shape in coefficients).
 template <class T, class Rows>
 int pair_occupancy(int nr, int nc, int hlen, int device, int* blocks,
                    int* smem, int* tr, int* tc) {
   if (hlen < 2 || hlen > kMaxTaps || nr < 1 || nc < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
   int sms = 0;
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const cudaError_t err = device_sms(device, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const PairInstance<T, Rows> inst = pick_pair<T, Rows>(hlen, 1, nr, nc,
-                                                        sms);
-  err = cudaFuncSetAttribute(inst.kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(inst.smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *smem = static_cast<int>(inst.smem);
-  *tr = inst.tr;
-  *tc = inst.tc;
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, inst.kernel, kThreads, inst.smem));
+  return report_occupancy(pick_pair<T, Rows>(hlen, 1, nr, nc, sms), blocks,
+                          smem, tr, tc);
 }
 
 template <class T>

@@ -1,12 +1,14 @@
 // The tile bodies of one separable 2D DWT level, analysis and synthesis,
 // and the kernels that run them:
-//   ana::tile   K1/K19 and K26a (dwt2d.cu), K24 (pyramid2d.cu);
-//   syn::tile   K20's staged form (idwt2d.cu) and K25 (pyramid2d.cu);
-//   pair::tile  K2 and K26b (idwt2d.cu).
+//   ana::tile       K19 (dwt2d.cu) and K24 (pyramid2d.cu);
+//   ana_pair::tile  K1 and K26a (dwt2d.cu);
+//   syn::tile       K20's staged form (idwt2d.cu) and K25 (pyramid2d.cu);
+//   pair::tile      K2 and K26b (idwt2d.cu).
 // K24/K25 run theirs for every level of a pyramid in one launch. The row
 // source (common.cuh: Wrapped, or the Halo of a row shard) is a template
 // parameter: K26a/K26b are K1/K2's bodies with the shard's edge rows read
-// from its neighbours' exchanged rows.
+// from its neighbours' exchanged rows. ana_pair:: and pair:: stage their
+// windows through stage:: (a row table, then cp.async copies).
 //
 // A tile is one block's share of a level: it stages its input window into
 // the block's dynamic shared memory, runs both separable passes there, with
@@ -16,7 +18,8 @@
 // tile's staging writes only the window buffers, which the tile before
 // stopped reading at its second barrier, and its first pass, which
 // overwrites the pass buffers, waits at its own first barrier for every
-// thread to leave the tile before. A pair:: block runs one tile.
+// thread to leave the tile before. An ana_pair:: or pair:: block runs one
+// tile.
 #pragma once
 
 #include <cstdint>
@@ -41,7 +44,100 @@ __device__ __forceinline__ T load(const T* p) {
   }
 }
 
-// -- analysis: K1's level (map and design: dwt2d.cu) -----------------------
+// Two adjacent samples as one 8-byte (float) or 16-byte (double) store.
+template <class T>
+__device__ __forceinline__ void store_pair(T* o, T x, T y);
+template <>
+__device__ __forceinline__ void store_pair(float* o, float x, float y) {
+  *reinterpret_cast<float2*>(o) = make_float2(x, y);
+}
+template <>
+__device__ __forceinline__ void store_pair(double* o, double x, double y) {
+  *reinterpret_cast<double2*>(o) = make_double2(x, y);
+}
+
+// -- staging shared by the tap-loop bodies pair:: and ana_pair:: -----------
+//
+// A block stages its windows in two steps. It resolves the source row of
+// each window row once, into a table in shared memory (row_table: the
+// plane's rows wrapped, or a shard's own rows and its halos' rows, null past
+// both halos), so no copy tests a halo, wraps a row or divides. Then its
+// warps copy whole window rows by cp.async, every copy of a thread in
+// flight before one wait (copy_windows).
+namespace stage {
+
+// src[p wr + r], r < wr <= kThreads: plane p's row of window row r, the
+// axis row first + r of n rows of nc samples: wrapped, or (kExt) extended
+// by its last row where n is odd (wrap_ext); Rows: Wrapped, or the Halo of
+// a shard (null past both halos). The caller synchronises.
+template <class T, int kPlanes, bool kExt, class Rows>
+__device__ __forceinline__ void row_table(const T* const (&planes)[kPlanes],
+                                          const T** src, int first, int wr,
+                                          int n, int nc, const Rows& rows) {
+  const int tid = threadIdx.x;
+  if (tid < wr) {
+    const int r = first + tid;
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p) {
+      if constexpr (Rows::kHalo)
+        src[p * wr + tid] = rows.row(p, planes[p], r, n, nc);
+      else
+        src[p * wr + tid] =
+            planes[p] +
+            static_cast<long long>(kExt ? wrap_ext(r, n) : wrap(r, n)) * nc;
+    }
+  }
+}
+
+// Window row r of plane p (ldw samples apart, planes `plane` samples apart)
+// from the row src[p wr + r]: copy q of nq is the axis sample j = first +
+// step q reduced mod `period` (and, kExt, clamped to `last`, the sample
+// that extends an odd axis), resolved once per copy. quads: 16-byte copies
+// (step = 16 bytes of samples; first and period multiples of it), sample
+// copies from a row that is not 16-byte aligned; else one sample per copy
+// (step 1). Zero for a missing row. Waits for its own copies; the caller
+// synchronises.
+template <class T, int kPlanes, bool kExt>
+__device__ __forceinline__ void copy_windows(const T* const* src, T* win,
+                                             int wr, int ldw, int plane,
+                                             int first, int nq, bool quads,
+                                             int period, int last) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int tid = threadIdx.x;
+  const int step = quads ? kVec : 1;
+  for (int r = tid >> 5; r < wr; r += kThreads / 32) {
+    const T* s[kPlanes];
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p) s[p] = src[p * wr + r];
+    T* dst = win + r * ldw;
+    for (int q = tid & 31; q < nq; q += 32) {
+      int j = first + step * q;
+      if (j >= period) j %= period;
+      if (kExt) j = min(j, last);
+#pragma unroll
+      for (int p = 0; p < kPlanes; ++p) {
+        T* t = dst + p * plane + step * q;
+        if (s[p] == nullptr) {
+          for (int e = 0; e < step; ++e) t[e] = T(0);
+        } else if (!quads) {
+          mma::cp_async_sample(t, s[p] + j);
+        } else if ((reinterpret_cast<uintptr_t>(s[p]) & 15) == 0) {
+          mma::cp_async16(t, s[p] + j);
+        } else {
+#pragma unroll
+          for (int e = 0; e < kVec; ++e)
+            mma::cp_async_sample(t + e, s[p] + j + e);
+        }
+      }
+    }
+  }
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+}
+
+}  // namespace stage
+
+// -- analysis: K19's and K24's level (map and design: dwt2d.cu) ------------
 namespace ana {
 
 constexpr int TR = 32;  // output rows per tile
@@ -78,7 +174,7 @@ __device__ __forceinline__ int source(int k, int n, int s) {
   return i < 0 ? i + n : i;
 }
 
-// The epilogue of K19 (float32 only: the float64 instance is kNone).
+// The epilogue of K19.
 template <int kMode>
 __device__ __forceinline__ float threshold(float x, float beta) {
   if (kMode == kSoft) return copysignf(fmaxf(fabsf(x) - beta, 0.f), x);
@@ -86,22 +182,13 @@ __device__ __forceinline__ float threshold(float x, float beta) {
   return x;
 }
 
-template <int kMode>
-__device__ __forceinline__ double threshold(double x, float) {
-  static_assert(kMode == kNone, "K19 is float32 only");
-  return x;
-}
-
 // The TR x TC output tile at (r0, c0) of the level of plane x (nr x nc)
 // into planes a, h, v, d (ceil(nr/2) x ceil(nc/2)).
-// Rows: Wrapped, or a Halo<T, 1> of the shard x (K26a: kShift off, nr
-// even, kOdd for an odd nc only).
-template <class T, bool kOdd, bool kShift, int kMode, bool kCoherent,
-          class Rows = Wrapped>
+template <class T, bool kOdd, bool kShift, int kMode, bool kCoherent>
 __device__ __forceinline__ void tile(const T* x, T* a, T* h, T* v, T* d,
                                      int nr, int nc, int hlen, int r0,
                                      int c0, int sr, int sc, float beta,
-                                     T* smem, const Rows& rows = Rows{}) {
+                                     T* smem) {
   const int wr = win_rows(hlen), wc2 = win_half_cols(hlen), wc = 2 * wc2;
   T* s_ev = smem;                  // [wr][wc2] even window columns
   T* s_od = s_ev + wr * wc2;       // [wr][wc2] odd window columns
@@ -117,16 +204,10 @@ __device__ __forceinline__ void tile(const T* x, T* a, T* h, T* v, T* d,
   for (int i = tid; i < wr * wc; i += kThreads) {
     const int r = i / wc, c = i - r * wc;
     const int col = source<kOdd, kShift>(col0 + c, nc, sc);
-    T val;
-    if constexpr (Rows::kHalo) {
-      const T* src = rows.row(0, x, row0 + r, nr, nc);
-      val = src ? load<kCoherent>(src + col) : T(0);
-    } else {
-      val = load<kCoherent>(
-          x + static_cast<long long>(source<kOdd, kShift>(row0 + r, nr, sr)) *
-                  nc +
-          col);
-    }
+    const T val = load<kCoherent>(
+        x + static_cast<long long>(source<kOdd, kShift>(row0 + r, nr, sr)) *
+                nc +
+        col);
     (c & 1 ? s_od : s_ev)[r * wc2 + (c >> 1)] = val;
   }
   __syncthreads();
@@ -173,6 +254,253 @@ __device__ __forceinline__ void tile(const T* x, T* a, T* h, T* v, T* d,
 }
 
 }  // namespace ana
+
+// -- analysis in pairs: K1's and K26a's level (map and design: dwt2d.cu) ---
+//
+// The map and the order of every sum are ana::tile's; only the work is
+// grouped otherwise. A tile is kTR x kTC outputs, a shape the host picks by
+// type, hlen and level size (dwt2d.cu's pick_ana). The block stages its
+// input window (2 kTR + hlen - 2 rows) by stage::: the row table, then
+// cp.async copies of whole rows, window column q holding axis column 2 c0 -
+// lpad - kShift + q, where kShift = (-lpad) mod 16 bytes of samples puts the
+// window's first column on a 16-byte boundary of the axis (2 c0 is a
+// multiple of 16 bytes of samples, so every block of a launch has the same
+// shift, a template parameter). The last-axis pass gives each thread a
+// 16-byte aligned run of its window row, read as 16-byte words as the tap
+// loop reaches them (consecutive threads on consecutive words: no bank
+// conflict), from which it computes lo and hi of kP = 16 / (2 sizeof(T))
+// adjacent output columns; the axis -2 pass gives each thread two adjacent
+// columns of kR output rows, read as pairs, whose a, h, v, d it stores as
+// one 8-byte (float) or 16-byte (double) pair where lc is even and the
+// planes aligned. The taps are kernel parameters (Taps), so the unrolled
+// tap loops take them as operands; a loop runs over an output's own taps
+// only (j < hlen), so no zero product is summed.
+namespace ana_pair {
+
+// f[j] = dec[hlen - 1 - j], the taps in window order (hlen even:
+// make_analysis_taps).
+template <class T>
+struct Taps {
+  T lo[kMaxTaps], hi[kMaxTaps];
+};
+
+// taps: the padded bank of make_analysis_taps, hlen its (even) length.
+template <class T>
+inline Taps<T> make_taps(const TapsT<T>& taps, int hlen) {
+  Taps<T> f{};
+  for (int j = 0; j < hlen; ++j) {
+    f.lo[j] = taps.lo[hlen - 1 - j];
+    f.hi[j] = taps.hi[hlen - 1 - j];
+  }
+  return f;
+}
+
+// The samples by which a window starts before its first output's first
+// sample: (-lpad) mod 16 bytes of samples.
+template <class T>
+__host__ __device__ constexpr int shift_of(int hlen) {
+  return (16 / static_cast<int>(sizeof(T)) -
+          analysis_lpad(hlen) % (16 / static_cast<int>(sizeof(T)))) %
+         (16 / static_cast<int>(sizeof(T)));
+}
+
+// The staged extent of a tile of tr x tc outputs: wr window rows of ldw
+// samples (the shift and 2 tc + hlen - 2 columns, rounded up to 16 bytes).
+template <class T>
+struct Geometry {
+  static constexpr int kVec = 16 / sizeof(T);
+  int wr, ww, ldw, tc;
+  __host__ __device__ Geometry(int tr, int tc, int hlen)
+      : wr(2 * tr + hlen - 2),
+        ww(shift_of<T>(hlen) + 2 * tc + hlen - 2),
+        ldw((ww + kVec - 1) / kVec * kVec),
+        tc(tc) {}
+  // Dynamic shared memory: the window [wr][ldw], the last-axis pass's lo
+  // and hi [wr][tc], and the row table (wr pointers).
+  __host__ __device__ size_t smem_bytes() const {
+    return sizeof(T) * (wr * ldw + 2 * wr * tc) + sizeof(const T*) * wr;
+  }
+};
+
+// 16 bytes of samples, and two samples, of shared memory.
+template <class T>
+struct Words;
+template <>
+struct Words<float> {
+  using Run = float4;
+  using Pair = float2;
+  __device__ static void unpack(const float4& w, float* x) {
+    x[0] = w.x;
+    x[1] = w.y;
+    x[2] = w.z;
+    x[3] = w.w;
+  }
+};
+template <>
+struct Words<double> {
+  using Run = double2;
+  using Pair = double2;
+  __device__ static void unpack(const double2& w, double* x) {
+    x[0] = w.x;
+    x[1] = w.y;
+  }
+};
+
+// The kTR x kTC output tile at (r0, c0) of the level of plane x (nr x nc)
+// into planes a, h, v, d (ceil(nr/2) x ceil(nc/2)), odd axes extended by
+// their last sample (wrap_ext: on an even axis, the plain wrap); kShift:
+// shift_of<T>(hlen). Rows: Wrapped, or the Halo<T, 1> of the shard x moved
+// to this plane (K26a: nr even).
+template <class T, int kTR, int kTC, int kShift, class Rows>
+__device__ __forceinline__ void tile(const T* x, T* a, T* h, T* v, T* d,
+                                     int nr, int nc, int hlen,
+                                     const Taps<T>& f, int r0, int c0,
+                                     T* smem, const Rows& rows) {
+  using W = Words<T>;
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kP = kVec / 2;  // last-axis outputs per thread
+  constexpr int kR = kTR * kTC >= 4 * kThreads ? 2 : 1;  // axis -2 rows
+  static_assert(kTC % (2 * kP) == 0 && kTR % kR == 0, "tile shape");
+  const Geometry<T> geo(kTR, kTC, hlen);
+  const int wr = geo.wr, ldw = geo.ldw;
+  T* win = smem;                 // [wr][ldw] input window
+  T* s_lo = win + wr * ldw;      // [wr][kTC] last-axis low-pass
+  T* s_hi = s_lo + wr * kTC;     // [wr][kTC] last-axis high-pass
+  const T** src = reinterpret_cast<const T**>(s_hi + wr * kTC);
+  const int tid = threadIdx.x;
+  const int lr = (nr + 1) >> 1, lc = (nc + 1) >> 1;
+  const int lpad = analysis_lpad(hlen);
+
+  // Window row r holds axis row 2 r0 - lpad + r.
+  const T* const planes[1] = {x};
+  stage::row_table<T, 1, true>(planes, src, 2 * r0 - lpad, wr, nr, nc,
+                               rows);
+  __syncthreads();
+  // Window column q holds axis column 2 c0 - lpad - kShift + q, a 16-byte
+  // boundary where nc is a multiple of 16 bytes of samples (16-byte copies).
+  const int period = nc + (nc & 1);
+  const bool quads = nc % kVec == 0;
+  const int first = wrap(2 * c0 - lpad - kShift, period);
+  stage::copy_windows<T, 1, true>(src, win, wr, ldw, 0, first,
+                                  quads ? ldw / kVec : geo.ww, quads, period,
+                                  nc - 1);
+  __syncthreads();
+
+  // Last axis: output column kP u + p of window row r meets window columns
+  // 2 (kP u + p) + kShift + j, that is sample 2p + kShift + j of the
+  // thread's run, which starts at column kVec u; per output, j ascending.
+  {
+    constexpr int kU = kTC / kP;  // threads per window row
+    constexpr int kRun = kMaxTaps + 2 * kVec;  // samples a run may hold
+    for (int i = tid; i < wr * kU; i += kThreads) {
+      const int r = i / kU, u = i - r * kU;
+      const typename W::Run* run = reinterpret_cast<const typename W::Run*>(
+          win + r * ldw + kVec * u);
+      T xs[kRun];
+      T lo[kP], hi[kP];
+#pragma unroll
+      for (int p = 0; p < kP; ++p) lo[p] = hi[p] = T(0);
+#pragma unroll
+      for (int j = 0; j < kMaxTaps; ++j) {
+        if (j >= hlen) break;
+        // the word holding the last sample tap j meets, read as it is
+        // reached
+        constexpr int kFirst = 2 * (kP - 1) + kShift;
+        if (j == 0) {
+#pragma unroll
+          for (int q = 0; q <= kFirst / kVec; ++q)
+            W::unpack(run[q], xs + q * kVec);
+        } else if ((kFirst + j) % kVec == 0) {
+          W::unpack(run[(kFirst + j) / kVec], xs + kFirst + j);
+        }
+#pragma unroll
+        for (int p = 0; p < kP; ++p) {
+          lo[p] = fmadd(xs[2 * p + kShift + j], f.lo[j], lo[p]);
+          hi[p] = fmadd(xs[2 * p + kShift + j], f.hi[j], hi[p]);
+        }
+      }
+      T* ol = s_lo + r * kTC + kP * u;
+      T* oh = s_hi + r * kTC + kP * u;
+      if constexpr (kP == 2) {
+        store_pair(ol, lo[0], lo[1]);
+        store_pair(oh, hi[0], hi[1]);
+      } else {
+        *ol = lo[0];
+        *oh = hi[0];
+      }
+    }
+  }
+  __syncthreads();
+
+  // Axis -2: output row kR g + s of columns 2u, 2u + 1 meets pass-1 rows
+  // 2 kR g + 2s + j; per output, j ascending: a and h from lo, v and d from
+  // hi.
+  const bool pairs =
+      (lc & 1) == 0 &&
+      ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(h) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(d)) &
+       (2 * sizeof(T) - 1)) == 0;
+  constexpr int kG = kTC / 2;  // threads per output row group
+  const int span = hlen + 2 * kR - 2;  // pass-1 rows a thread meets
+  for (int i = tid; i < (kTR / kR) * kG; i += kThreads) {
+    const int g = i / kG, u = i - g * kG;
+    const T* lo = s_lo + 2 * kR * g * kTC + 2 * u;
+    const T* hi = s_hi + 2 * kR * g * kTC + 2 * u;
+    T sa[kR][2], sh[kR][2], sv[kR][2], sd[kR][2];
+#pragma unroll
+    for (int s = 0; s < kR; ++s)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) sa[s][c] = sh[s][c] = sv[s][c] = sd[s][c] = 0;
+#pragma unroll
+    for (int k = 0; k < kMaxTaps + 2 * kR - 2; ++k) {
+      if (k >= span) break;
+      const typename W::Pair l =
+          *reinterpret_cast<const typename W::Pair*>(lo + k * kTC);
+      const typename W::Pair m =
+          *reinterpret_cast<const typename W::Pair*>(hi + k * kTC);
+      const T lx[2] = {l.x, l.y}, mx[2] = {m.x, m.y};
+#pragma unroll
+      for (int s = 0; s < kR; ++s) {
+        const int j = k - 2 * s;
+        if (j < 0 || j >= hlen) continue;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          sa[s][c] = fmadd(lx[c], f.lo[j], sa[s][c]);
+          sh[s][c] = fmadd(lx[c], f.hi[j], sh[s][c]);
+          sv[s][c] = fmadd(mx[c], f.lo[j], sv[s][c]);
+          sd[s][c] = fmadd(mx[c], f.hi[j], sd[s][c]);
+        }
+      }
+    }
+    const int ocol = c0 + 2 * u;
+    if (ocol >= lc) continue;
+#pragma unroll
+    for (int s = 0; s < kR; ++s) {
+      const int orow = r0 + kR * g + s;
+      if (orow >= lr) break;
+      const long long o = static_cast<long long>(orow) * lc + ocol;
+      if (pairs) {
+        store_pair(a + o, sa[s][0], sa[s][1]);
+        store_pair(h + o, sh[s][0], sh[s][1]);
+        store_pair(v + o, sv[s][0], sv[s][1]);
+        store_pair(d + o, sd[s][0], sd[s][1]);
+      } else {
+        a[o] = sa[s][0];
+        h[o] = sh[s][0];
+        v[o] = sv[s][0];
+        d[o] = sd[s][0];
+        if (ocol + 1 < lc) {
+          a[o + 1] = sa[s][1];
+          h[o + 1] = sh[s][1];
+          v[o + 1] = sv[s][1];
+          d[o + 1] = sd[s][1];
+        }
+      }
+    }
+  }
+}
+
+}  // namespace ana_pair
 
 // -- synthesis: K2's level (map and design: idwt2d.cu) ---------------------
 namespace syn {
@@ -361,17 +689,6 @@ struct Geometry {
   }
 };
 
-template <class T>
-__device__ __forceinline__ void store_pair(T* o, T x, T y);
-template <>
-__device__ __forceinline__ void store_pair(float* o, float x, float y) {
-  *reinterpret_cast<float2*>(o) = make_float2(x, y);
-}
-template <>
-__device__ __forceinline__ void store_pair(double* o, double x, double y) {
-  *reinterpret_cast<double2*>(o) = make_double2(x, y);
-}
-
 // The outputs of coefficient rows m0.. and columns n0.. of planes a, h, v,
 // d (lr x lc) into plane out (nr x nc: 2lr x 2lc, or one less on an odd
 // axis, cropped). Rows: Wrapped, or the Halo<T, 4> of the shard's planes
@@ -396,61 +713,23 @@ __device__ __forceinline__ void tile(const T* a, const T* h, const T* v,
   // The row table: src[p wr + r] is plane p's row of window row r, the
   // coefficient row m0 - c + r (wrapped; or a shard's row or halo row,
   // null past both halos).
-  if (tid < wr) {
-    const T* const planes[4] = {a, h, v, d};
-    const int r = m0 - c + tid;
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      if constexpr (Rows::kHalo)
-        src[p * wr + tid] = rows.row(p, planes[p], r, lr, lc);
-      else
-        src[p * wr + tid] =
-            planes[p] + static_cast<long long>(wrap(r, lr)) * lc;
-    }
-  }
+  const T* const planes[4] = {a, h, v, d};
+  stage::row_table<T, 4, false>(planes, src, m0 - c, wr, lr, lc, rows);
   __syncthreads();
 
   // The windows: window column q holds coefficient column n0 - c + q (mod
-  // lc), the wrap resolved once per copy. Where lc is a multiple of 16
-  // bytes of samples, 16-byte copies from the window's first column
-  // rounded down to 16 bytes (read shifted by the remainder; sample copies
-  // from a row that is not 16-byte aligned); otherwise sample copies. Zero
-  // for a row past the halos. A warp copies whole rows.
+  // lc). Where lc is a multiple of 16 bytes of samples, 16-byte copies from
+  // the window's first column rounded down to 16 bytes (read shifted by the
+  // remainder); otherwise sample copies.
   const bool quads = lc % kVec == 0;
   int first = wrap(n0 - c, lc), shift = 0;
   if (quads) {
     shift = first % kVec;
     first -= shift;
   }
-  const int step = quads ? kVec : 1;
   const int nq = quads ? (shift + ww + kVec - 1) / kVec : ww;
-  for (int r = tid >> 5; r < wr; r += kThreads / 32) {
-    const T* s[4];
-#pragma unroll
-    for (int p = 0; p < 4; ++p) s[p] = src[p * wr + r];
-    T* dst = win + r * ldw;
-    for (int q = tid & 31; q < nq; q += 32) {
-      int j = first + step * q;
-      if (j >= lc) j %= lc;
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        T* t = dst + p * plane + step * q;
-        if (s[p] == nullptr) {
-          for (int e = 0; e < step; ++e) t[e] = T(0);
-        } else if (!quads) {
-          mma::cp_async_sample(t, s[p] + j);
-        } else if ((reinterpret_cast<uintptr_t>(s[p]) & 15) == 0) {
-          mma::cp_async16(t, s[p] + j);
-        } else {
-#pragma unroll
-          for (int e = 0; e < kVec; ++e)
-            mma::cp_async_sample(t + e, s[p] + j + e);
-        }
-      }
-    }
-  }
-  mma::cp_async_commit();
-  mma::cp_async_wait<0>();
+  stage::copy_windows<T, 4, false>(src, win, wr, ldw, plane, first, nq,
+                                   quads, lc, lc - 1);
   __syncthreads();
 
   // Axis -2: output rows 2(m0 + m) + p of window column w; parity p meets

@@ -30,7 +30,8 @@
 // port does not carry that layout over. Instead the grid is launched
 // cooperatively (cudaLaunchCooperativeKernel), sized from the occupancy of
 // the kernel at its shared memory (every block co-resident), and each level
-// is a grid-stride loop over K1's 32 x 32 output tiles (K25: 64 x 64 of
+// is a grid-stride loop over 32 x 32 output tiles of ana::tile, the body
+// K1 ran before its pair body and K19 still runs (K25: 64 x 64 of
 // syn::tile, the body K2 ran before its pair body; level2d.cuh), followed
 // by a grid-wide barrier
 // (cooperative_groups::this_grid().sync()) before the next level reads what

@@ -136,6 +136,7 @@ _SIGNATURES = {
     # nr, nc, hlen, f64, halo, device, blocks (int*), smem (int*), tile
     # rows (int*), tile columns (int*)
     "pypwt_idwt2d_occupancy": [_I] * 6 + [_P] * 4,
+    "pypwt_dwt2d_occupancy": [_I] * 6 + [_P] * 4,
     # synthesis, rows, n, hlen, bf16, halo, device, blocks (int*),
     # smem (int*), grid (int*)
     "pypwt_tc_dwt1d_occupancy": [_I] * 7 + [_P] * 3,

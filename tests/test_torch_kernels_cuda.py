@@ -2160,15 +2160,302 @@ PAIR_DIGESTS = {
 }
 
 
+# K1 and K26a on dwt2d.cu's pair analysis body: each output against its
+# plain version and against the SHA-256 of the outputs (a, h, v, d in that
+# order) that the body before it (level2d.cuh's ana::tile, which K19 and
+# K24 still run) gave on the card for the same seeded inputs; `python
+# tests/test_torch_kernels_cuda.py digests` prints a tree's digests in
+# PAIR_DIGESTS's and ANA_DIGESTS's form. Banks: PAIR_BANKS.
+# K1: (type, input shape, offset): whole tiles, rows of 130 samples (not a
+# multiple of 4: sample copies), odd planes on either or both axes
+# (wrap_ext), a batch of 3, planes one sample past a 16-byte boundary
+K1_ANA_CASES = [("f32", (64, 128), 0), ("f32", (66, 130), 0),
+                ("f32", (2047, 2047), 0), ("f32", (2046, 2047), 0),
+                ("f32", (2047, 2046), 0), ("f32", (3, 40, 72), 0),
+                ("f32", (66, 132), 1), ("f64", (66, 130), 0),
+                ("f64", (63, 127), 0), ("f64", (3, 40, 72), 1),
+                ("f64", (2047, 2046), 0)]
+# K26a: (type, shards, input shape of a shard, offset), shard 1: of 16 and
+# 8 rows (sym20's top halo of 19 rows spans two or three neighbours), of
+# 131 columns, a batch of 3, offsets of one sample
+K26A_ANA_CASES = [("f32", 4, (16, 64), 0), ("f32", 4, (8, 48), 0),
+                  ("f32", 4, (16, 64), 1), ("f32", 3, (10, 131), 0),
+                  ("f32", 2, (3, 20, 36), 0), ("f64", 4, (8, 48), 0),
+                  ("f64", 2, (3, 20, 36), 1)]
+ANA_CASES = ([("K1", c) for c in K1_ANA_CASES]
+             + [("K26a", c) for c in K26A_ANA_CASES])
+
+
+def _ana_output(kind, case, wname, dev):
+    """(kernel outputs, plain outputs) of one case, the kernel launched
+    once."""
+    dtype = torch.float64 if case[0] == "f64" else torch.float32
+    fb = _bank(wname)
+    if kind == "K1":
+        _, shape, off = case
+        x = _offset(_rand(shape, dev, 5).to(dtype), off)
+        n = fd.dwt2d_fused.launches
+        got = fd.dwt2d_fused(x, fb)
+        assert fd.dwt2d_fused.launches == n + 1
+        return got, fd.dwt2d_plain(x, fb)
+    _, shards, shape, off = case
+    x = _global(shards, shape, dev, 5).to(dtype)
+    b, t, o = (_offset(p, off) for p in _shard_halos(
+        x, shards, 1, *fd.halo_heights("dwt", fb, 0)))
+    n = fd.dwt2d_sharded_fused.launches
+    got = fd.dwt2d_sharded_fused(b, t, o, fb)
+    assert fd.dwt2d_sharded_fused.launches == n + 1
+    return got, fd.dwt2d_sharded_plain(b, t, o, fb)
+
+
+@pytest.mark.parametrize("wname", PAIR_BANKS)
+@pytest.mark.parametrize("kind, case", ANA_CASES, ids=str)
+def test_k1_k26a_ana_body_matches_plain_and_parent(dev, kind, case, wname):
+    got, ref = _ana_output(kind, case, wname, dev)
+    tol = TOL if got[0].dtype == torch.float32 else 1e-12
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and float((g - r).abs().max()) <= tol
+    assert _sha256(torch.stack(got)) == ANA_DIGESTS[
+        _pair_id(kind, case, wname)]
+
+
+ANA_DIGESTS = {
+    'K1-haar-f32-(64, 128)-0':
+        '08bf384180e0d3214e65275020c5dfe5913d2f6954948540fa744736caa8c1c2',
+    'K1-db2-f32-(64, 128)-0':
+        '197d5789dda03c35531d2f3cc397f1d09fabc099a1685f25c37bb19f462382b0',
+    'K1-bior4.4-f32-(64, 128)-0':
+        'e5792a9330faa208cc7cb8850586c9c2d2c3d26ce5cadcf9e26dca94de7dcbeb',
+    'K1-sym8-f32-(64, 128)-0':
+        'b1c2dc7a95d9058ddeac4a6c1bb6520e80bd70738f65d7772c218ef95123802a',
+    'K1-sym20-f32-(64, 128)-0':
+        '6fdf9c879f88d8c075a6eb1f300c87de8d45c011bbecc42020df4135055c9502',
+    'K1-odd5-f32-(64, 128)-0':
+        '5887de3fa74c4d5e8670c2aae5d83b6806b43c8d2e863ccfcaee606355c7d72a',
+    'K1-haar-f32-(66, 130)-0':
+        '31a4e7a0528af752cdfac1335e420007b3049637ece124c1ca21c5783e104f74',
+    'K1-db2-f32-(66, 130)-0':
+        'cbd5fa58773a96301264cf36985b28dff19f4f049375661f0258c207081f33af',
+    'K1-bior4.4-f32-(66, 130)-0':
+        'fd51f13b633b2304acc803afbb136899de41edd58aca1e0639273fc254a238d8',
+    'K1-sym8-f32-(66, 130)-0':
+        '91de3dfb98b9d073da78f36d58254c63377e75749008cdc3630f44f2c8eb8a38',
+    'K1-sym20-f32-(66, 130)-0':
+        '16fd4bbe4e200a4365557aa9f54fb5d14ffd789411db8de75e1a22f06369d8dc',
+    'K1-odd5-f32-(66, 130)-0':
+        '52bab42b8cd1984053601ccf56f6b8d7b9c7cbe4b1dc1a87ba5ea864b23946af',
+    'K1-haar-f32-(2047, 2047)-0':
+        '4b502bf6dfa3e8bdbc8b398c85401652d6a0f944aac8486e3aa63776693e2a4e',
+    'K1-db2-f32-(2047, 2047)-0':
+        '05670c7729ac75ec9f7ea82b13d7603d6090edaed88cee8bcff215963fe8e6cf',
+    'K1-bior4.4-f32-(2047, 2047)-0':
+        '0756ddfaacb2dd967089e38cf62d5a97f3b573e58250b82cb8532eac585e56ba',
+    'K1-sym8-f32-(2047, 2047)-0':
+        '5ec68a6a92625ff88093aa378acf3adf5784462c792e60095c79322325ff7f9d',
+    'K1-sym20-f32-(2047, 2047)-0':
+        '7071359fa475d3de71c3aef97a96b356273dbc4def23976e59478080b939857c',
+    'K1-odd5-f32-(2047, 2047)-0':
+        '3fa683108a18c481e19c15f9186297c5f0a76b2e0845feae36adc5547c6c209e',
+    'K1-haar-f32-(2046, 2047)-0':
+        'd54e779dbb83c92a19156a16ea2856ceb2ab162048359eb06147eb77e3332fbe',
+    'K1-db2-f32-(2046, 2047)-0':
+        '6365498c845a5537524e1456eed688076b99b811a07ce4ed693971b9b7e94a83',
+    'K1-bior4.4-f32-(2046, 2047)-0':
+        'e4c136185d6118fd47a4fe56fd753dc0277c1697a479a76139c89d3a5913334c',
+    'K1-sym8-f32-(2046, 2047)-0':
+        '762ed967f2d861d8f6f17cb4a0b1a3078113a83c4049cbf3f0df9666bf4f4949',
+    'K1-sym20-f32-(2046, 2047)-0':
+        '8e4909577e097a2e2c3a984bb1961b70e73d21654d6246fd41112322826ee66f',
+    'K1-odd5-f32-(2046, 2047)-0':
+        '201322510e4b5d0dfb582cef2c4cc9ebdb8ca4f644af6bb33df4ed651773dd69',
+    'K1-haar-f32-(2047, 2046)-0':
+        'b83cd04b137b8cc60fbc90519ee24cd7dc55aa04fd47ce1f63cb1dbdc2465086',
+    'K1-db2-f32-(2047, 2046)-0':
+        '6747fd4341c0f097765d441b869d511fe87bb587cc9ce095c550bf9de777dd25',
+    'K1-bior4.4-f32-(2047, 2046)-0':
+        '8b58cb88f60d83f92ca3f53d131dabbf7091470e903b924c8aa852219367da75',
+    'K1-sym8-f32-(2047, 2046)-0':
+        '75dd59b262146c11e3f320fcb82a252ad3c159e5ffbb90636d020b4c3c94bc5f',
+    'K1-sym20-f32-(2047, 2046)-0':
+        'aff6aab85986b68cdab33ea4374682685f254c879e0d41fcb0d920f9dbae9fc6',
+    'K1-odd5-f32-(2047, 2046)-0':
+        '3880bda46aaaa18533bb8e90d2b20bf1b071adf22fae65c3530f4349f41376a2',
+    'K1-haar-f32-(3, 40, 72)-0':
+        '40d2fb0d1fb71068af2988bf379316e149cb74de1fb710282cfe5dee41879902',
+    'K1-db2-f32-(3, 40, 72)-0':
+        'e3782bbc598d9c9802f1224eb0d568ecb587803cdcfc1e0ba5166d4c123dc0af',
+    'K1-bior4.4-f32-(3, 40, 72)-0':
+        'e28fee7154cd7f155cd385fa0cd948ebda0ae5c2d4d291aae2ca944cfad9b670',
+    'K1-sym8-f32-(3, 40, 72)-0':
+        '33ae8f5bd5d97de812db7c7e76e9f41e6278b407ce6fb390343c9d494b2769f9',
+    'K1-sym20-f32-(3, 40, 72)-0':
+        '969243ab01494dfad6a5d08fb020891da034d6781147841408f8489819b14a1c',
+    'K1-odd5-f32-(3, 40, 72)-0':
+        '91a44670e84d1cf2a5d902c91aba46d14f11f3f3940c1612ce97cc63d972521d',
+    'K1-haar-f32-(66, 132)-1':
+        '21894554810ca61287825c28d4b0b10ff17abe8505d57769f5d102109d015462',
+    'K1-db2-f32-(66, 132)-1':
+        '44beb63c09d55eb32b4abac475ce32d3afc18d2f8ea514036cdcd56912ae4686',
+    'K1-bior4.4-f32-(66, 132)-1':
+        'b5af24a9105fd1f705b92b1a28f56473dde94227c76a218a0b89b2252cc68885',
+    'K1-sym8-f32-(66, 132)-1':
+        'c68feaf11b94a57f6b4f2453fbd1979929e2ca43a4ced45e7ca5412710d3d939',
+    'K1-sym20-f32-(66, 132)-1':
+        '30f675406e843af917244a3bc24ac60a85bccc5bbc64a298f9a37a23b0a9c91f',
+    'K1-odd5-f32-(66, 132)-1':
+        '1e35e31b3bc7f440b3af99c4c3cc141cb26f8edcb931ae94749a01c3c3d158aa',
+    'K1-haar-f64-(66, 130)-0':
+        '8984275dfc139fdbfcb375613980e2c9f850cc59bb54b2d1e8fa4a64906e2aa6',
+    'K1-db2-f64-(66, 130)-0':
+        '062dee563c9b9caeda9c8415a50d633b9fe022d0ae9b2e0cc62e42d7786c7c4f',
+    'K1-bior4.4-f64-(66, 130)-0':
+        '2edf10400a3bc6e225ec06069612b8b9ede7c9ed5814da6d63e6db87bcf99b30',
+    'K1-sym8-f64-(66, 130)-0':
+        '303d7b967d2a6a7cd5ec7e7dcf6de498d99198f9684b8e31cc79eb80aa9b1179',
+    'K1-sym20-f64-(66, 130)-0':
+        '1a8709ff195b45c05bada46b955b0a2016429b5d2137c4f57a9ed3379f14bdb7',
+    'K1-odd5-f64-(66, 130)-0':
+        'e6d05129f85b9b776c05fe26308932f1f9fab5b7d7b2f962c953df95934e4ce6',
+    'K1-haar-f64-(63, 127)-0':
+        '903087fc5f6f5b365fb6848dcab4846660d01f71e762fa65a1fa9ee15e6f9d44',
+    'K1-db2-f64-(63, 127)-0':
+        'cc07bdd60fedf46a1b60ca6c7b0cba2cbb0bf42df18b8386e80e16ff588e9b88',
+    'K1-bior4.4-f64-(63, 127)-0':
+        '6127c47af64ec3594dc83b1a1b228717b9910ca59aaf07aef54e66cbc4347c3f',
+    'K1-sym8-f64-(63, 127)-0':
+        '2df91af53ac01768ccaaeb6abd3c0cbd081b26f1cc7455a492b127239258eae6',
+    'K1-sym20-f64-(63, 127)-0':
+        '1ee0c33a0f0807c2ae94447f738707eeb5274af8257b7b446d0b833b9c3d4180',
+    'K1-odd5-f64-(63, 127)-0':
+        'f158266bd8010da4b31fdb04d291f5a43c3439e0ab60aef2f5fe444a19246c0b',
+    'K1-haar-f64-(3, 40, 72)-1':
+        'ee9a993aabeec0d8a9037e53a6eadad1ceb9dcf23f68d2930410c1ceba2af092',
+    'K1-db2-f64-(3, 40, 72)-1':
+        '158485310d818be89376b7e62281ecaaa1296d9358de0253a7761e269dcf1913',
+    'K1-bior4.4-f64-(3, 40, 72)-1':
+        '1fcc9252692ee6fbb86145dca9500c21f75f767a638a1edd05adafffa3f1624a',
+    'K1-sym8-f64-(3, 40, 72)-1':
+        'ce417cb06b60f59138c7c02ff79843db3b13d42abfe352a506c71610891b9fca',
+    'K1-sym20-f64-(3, 40, 72)-1':
+        '8af50c088100d2630985f6422587f3c4e16192aaaf2a53612b6ae8ec9bfd3fda',
+    'K1-odd5-f64-(3, 40, 72)-1':
+        '44844da90aca73938de6e8a57390d088d7f0d5d4adeab2d84861243f887a7c3f',
+    'K1-haar-f64-(2047, 2046)-0':
+        'ed32aa3cdeda7edf5f9dfe96bd80cbca75e82e9ea0c70c918a4bc9da91baa8b9',
+    'K1-db2-f64-(2047, 2046)-0':
+        'd0a3eed9364d717b0f4a26c766a64d247cd690e6e617ed2f3709d026a161dd6d',
+    'K1-bior4.4-f64-(2047, 2046)-0':
+        'baa6926f21e61185680f5e857201c7853596522a0fe126b0cc251bc892b1fde6',
+    'K1-sym8-f64-(2047, 2046)-0':
+        'f409912e6b8ef06bd735ca1ad328373163f8980a41f682f169e4b3d1832a58fc',
+    'K1-sym20-f64-(2047, 2046)-0':
+        '27849f07d069ae1f977a9184bda214df2c5e57069b12b1bdcb6d80f36ef2d967',
+    'K1-odd5-f64-(2047, 2046)-0':
+        '24128d81577d7bd64321f42f18af6493b8f989ce050a4c70ae339e8323031dee',
+    'K26a-haar-f32-4-(16, 64)-0':
+        'd585400b28a1f0088efaccbb0efad46c6b3f9f8ac8e1febc3dab05df41449a01',
+    'K26a-db2-f32-4-(16, 64)-0':
+        'aa3fcef7984414138a580fd3a2d7d76c753d596ffc7542ea93d26b36ee1f7bbe',
+    'K26a-bior4.4-f32-4-(16, 64)-0':
+        'ab951dcf6340a0f709a8fbce187aaf2ca940543836c3eab141456f8bd7e97ab2',
+    'K26a-sym8-f32-4-(16, 64)-0':
+        '9fa27f57fa1a8d3a8f1945e662a2f3b93eceb17bbcccd758f4e279685ed7ea5b',
+    'K26a-sym20-f32-4-(16, 64)-0':
+        '439831010124082c420fbcbcb0db945fa3fdacb2db16c98ccd0b00d2c1e32d11',
+    'K26a-odd5-f32-4-(16, 64)-0':
+        '6882c86c6fbe70c74d447287c2b7e76523b6ff6575997b422dde3bbb3f6e35b4',
+    'K26a-haar-f32-4-(8, 48)-0':
+        '8b7abccd758f777b7db0025abde128536adf3667557c592fcd0194ff902fd23b',
+    'K26a-db2-f32-4-(8, 48)-0':
+        'c36b9eebd044d1eafa4e5ef53dded011e9dd6d7f8c7c1534921539bdcfe0cbab',
+    'K26a-bior4.4-f32-4-(8, 48)-0':
+        'fd070d818bce244645c3b9b59b7694df5c55322d8e816810e4949cec86f69900',
+    'K26a-sym8-f32-4-(8, 48)-0':
+        '221ef883e2bd1858423e31deb9764c8b36ee65ba78dd13c854f96b0596e25ba2',
+    'K26a-sym20-f32-4-(8, 48)-0':
+        'e833863e59e4a296b16af2c720140bd72c5f3530fae5df086f088b1421646fb0',
+    'K26a-odd5-f32-4-(8, 48)-0':
+        '0ccc618ab38c82bdc95b1b585d69160e7bd3cd36112e6cd3c0ee66def5dc79cb',
+    'K26a-haar-f32-4-(16, 64)-1':
+        'd585400b28a1f0088efaccbb0efad46c6b3f9f8ac8e1febc3dab05df41449a01',
+    'K26a-db2-f32-4-(16, 64)-1':
+        'aa3fcef7984414138a580fd3a2d7d76c753d596ffc7542ea93d26b36ee1f7bbe',
+    'K26a-bior4.4-f32-4-(16, 64)-1':
+        'ab951dcf6340a0f709a8fbce187aaf2ca940543836c3eab141456f8bd7e97ab2',
+    'K26a-sym8-f32-4-(16, 64)-1':
+        '9fa27f57fa1a8d3a8f1945e662a2f3b93eceb17bbcccd758f4e279685ed7ea5b',
+    'K26a-sym20-f32-4-(16, 64)-1':
+        '439831010124082c420fbcbcb0db945fa3fdacb2db16c98ccd0b00d2c1e32d11',
+    'K26a-odd5-f32-4-(16, 64)-1':
+        '6882c86c6fbe70c74d447287c2b7e76523b6ff6575997b422dde3bbb3f6e35b4',
+    'K26a-haar-f32-3-(10, 131)-0':
+        '811867f2912f5c641471d2df956f746b6a2f94032047e368a7e5bb44c8277e8f',
+    'K26a-db2-f32-3-(10, 131)-0':
+        '36569fd94e9c5e1f7a502a4f35e21bdf2300f63f9233cccddf101de44f173e5c',
+    'K26a-bior4.4-f32-3-(10, 131)-0':
+        '9abd2c30bee3aa1f773dea843859d7fb460fd20e46270faf6e258925b34bbdb2',
+    'K26a-sym8-f32-3-(10, 131)-0':
+        '5fa84006599748ed01653fc1cf9aa519684329c9f53df7da12f3ea63b07395a8',
+    'K26a-sym20-f32-3-(10, 131)-0':
+        'c3854c9d3334a1be119dd461fb7b9e64249f5811aa342816a047002bc3c844cc',
+    'K26a-odd5-f32-3-(10, 131)-0':
+        '2edbd40416076aa13645bc43683d58fb87afec188034dfd405eead214c88efea',
+    'K26a-haar-f32-2-(3, 20, 36)-0':
+        '3bf8798ee019306768bf9004ea462cb2e49f557873c1d5697cb67810848f8eb5',
+    'K26a-db2-f32-2-(3, 20, 36)-0':
+        'a2352d42a21e89c0c14be06982ed78961c3a29e3bb3f523e5700260df6592c33',
+    'K26a-bior4.4-f32-2-(3, 20, 36)-0':
+        '61dadf47c9b3b2ea400e01b3a2ee5d74046fa5148a93fe1b335c0eac31dd4bf8',
+    'K26a-sym8-f32-2-(3, 20, 36)-0':
+        'dabb05dcabb99a5d0760c11ce3a2d06c10223a488eed6124bef0d9dbe2c979a4',
+    'K26a-sym20-f32-2-(3, 20, 36)-0':
+        'ed0082459c1eff30b6917c53a799dd5ddeab29b3377964ca40ac1b5c6c5ab5a3',
+    'K26a-odd5-f32-2-(3, 20, 36)-0':
+        '1093b44f78c15dd318fe1226102875e8ab9d30de6d2c1e362cd08a35446efc7b',
+    'K26a-haar-f64-4-(8, 48)-0':
+        'cf1f3680f8e3c2cfadb9c0a6703f9cd2c7562c549234f2ef9faa5c4bc784374b',
+    'K26a-db2-f64-4-(8, 48)-0':
+        'c2f596128627d3ed395fd4ffde17335af7899dd3f8a1000304dd877f04e08abd',
+    'K26a-bior4.4-f64-4-(8, 48)-0':
+        'e0e877ecf8fee06726da13243a3564ee34d75a6a9028818db3767721697ba773',
+    'K26a-sym8-f64-4-(8, 48)-0':
+        'f7e6ddd47c7996b9e56704ad92b1e302d67bf92d3fbcce0ebb8843f9a3758987',
+    'K26a-sym20-f64-4-(8, 48)-0':
+        '160e0e8bc0dc2d1581774deabfbbaacbef10859da893ca93efde3645f4910294',
+    'K26a-odd5-f64-4-(8, 48)-0':
+        'ff9a7e1c148b9acf0cd8d0643ed8a4179c22ebb8abf01b3cd53fd05af4324087',
+    'K26a-haar-f64-2-(3, 20, 36)-1':
+        '43bca12c29c08567d0d5aa8f071687c66b0addca2799fb8c0cdbceeaf98d1aa1',
+    'K26a-db2-f64-2-(3, 20, 36)-1':
+        'a7eb1b21bd89f67ed9a9979220b09dabe6f6de8886c86c004e70e0c1ba158453',
+    'K26a-bior4.4-f64-2-(3, 20, 36)-1':
+        'c0c8f16f39c486560becc5537d55f1fb68dc322af1dbf157343329d36af25589',
+    'K26a-sym8-f64-2-(3, 20, 36)-1':
+        '40e3a31b4245c9729ec19a1fdb0bbf8651e9c8c019d9dd534efb09ed1bc37c55',
+    'K26a-sym20-f64-2-(3, 20, 36)-1':
+        '832e81bbe60d6dcb2113738e5b644123d10baa76fbf3fcd415240f86d9330679',
+    'K26a-odd5-f64-2-(3, 20, 36)-1':
+        'f83e737a215dff0bc73b69bc50950ec565d8abed2bfb66aec56cf9491e42daf8',
+}
+
+
 if __name__ == "__main__":
     import sys
 
     if sys.argv[1:] != ["digests"] or not torch.cuda.is_available():
         sys.exit("usage, on a machine with a GPU: python "
                  "tests/test_torch_kernels_cuda.py digests")
+    dev_ = torch.device("cuda", 0)
+    print("PAIR_DIGESTS = {")
     for kind_, case_ in PAIR_CASES:
         for wname_ in PAIR_BANKS:
-            out_, _ = _pair_output(kind_, case_, wname_,
-                                   torch.device("cuda", 0))
+            out_, _ = _pair_output(kind_, case_, wname_, dev_)
             print(f"    {_pair_id(kind_, case_, wname_)!r}:\n"
                   f"        {_sha256(out_)!r},")
+    print("}\nANA_DIGESTS = {")
+    for kind_, case_ in ANA_CASES:
+        for wname_ in PAIR_BANKS:
+            out_, _ = _ana_output(kind_, case_, wname_, dev_)
+            print(f"    {_pair_id(kind_, case_, wname_)!r}:\n"
+                  f"        {_sha256(torch.stack(out_))!r},")
+    print("}")
