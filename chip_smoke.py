@@ -139,7 +139,8 @@ prints its traceback and exits non-zero without the final ok line:
    device and wall; then each K29 entry at level 0 of one 4096^2 block of
    the 8192^2 grid against its plain version and one convolution, K29a on
    a 2^24-sample sequence shard against K3, and the 8192^2 db2 L3
-   roundtrip on the 2 x 2 grid, on 4 row shards and unsharded.
+   roundtrip on the 2 x 2 grid, on 4 row shards and unsharded, beside the
+   sym8 L3 roundtrip on the grid in mode "mxu" (K29e-K29h).
 
 The line before the last is one JSON object with each kernel's route,
 source, the TPU kernel it replaces, its launches in the main-path run, its
@@ -181,8 +182,12 @@ occupancy of the tc_dwt1d.cu instances that K7a/K7b and K29e/K29f run);
 a K29 row runs
 all of the grid and sequence checks and main paths, but times only the
 selected rows (K29e-K29h in both precisions, K29e/K29f also on a
-sequence shard) and no roundtrip.  It prints the kernels line of those
-rows and no ok line.
+sequence shard) and no roundtrip; K29g and K29h also print the occupancy
+and tile shape of their tc_dwt2d.cu instances and digests of their
+outputs on seeded cases (banks of hlen 4-40, rows of 2048, 33 and 4094
+samples, inputs and outputs one float past a 16-byte boundary, shards
+with multi-hop halos, both precisions).  It prints the kernels line of
+those rows and no ok line.
 """
 
 import ctypes
@@ -4826,9 +4831,10 @@ def phase_times_grid(port, dev, card, keys=None):
     along the lanes, conv2d / conv_transpose2d with an (hlen, 1) kernel
     along the rows); K29a on one 2^24-sample sequence shard; then the 8192^2
     db2 L3 roundtrip three ways, device and wall: the 2 x 2 grid, 4 row
-    shards, the unsharded plan.  ``keys`` (--only): those rows alone, the
-    tensor-core ones in both precisions and K29e/K29f also on a sequence
-    shard, and no roundtrip."""
+    shards, the unsharded plan; and the sym8 L3 roundtrip on the grid in
+    mode "mxu" ("highest": 36 + 36 launches of K29e-K29h).  ``keys``
+    (--only): those rows alone, the tensor-core ones in both precisions
+    and K29e/K29f also on a sequence shard, and no roundtrip."""
     par = port.parallel
     gen = torch.Generator(device=dev).manual_seed(SEED + 58)
     globs = [torch.rand(BIG, generator=gen, device=dev) * 255
@@ -4884,25 +4890,155 @@ def phase_times_grid(port, dev, card, keys=None):
     ng = itertools.cycle(gparts).__next__
     nr = itertools.cycle(rparts).__next__
     nglob = itertools.cycle(globs).__next__
+    fb8 = port.get_filter_bank("sym8")
+
+    def grid_sym8_mxu():
+        port.dwt.set_kernels("mxu")
+        try:
+            return sp._local_waverec2_grid(
+                sp._local_wavedec2_grid(ng(), fb8, 3, rings), fb8, rings)
+        finally:
+            port.dwt.set_kernels("auto")
+
     ways = {
         "grid 2x2": lambda: sp._local_waverec2_grid(
             sp._local_wavedec2_grid(ng(), fb, 3, rings), fb, rings),
         "4 row shards": lambda: sp._local_waverec2(
             sp._local_wavedec2(nr(), fb, 3, ring), fb, ring),
         "unsharded": lambda: port.dwt.waverec2(
-            port.dwt.wavedec2(nglob(), fb, 3), fb, BIG)}
+            port.dwt.wavedec2(nglob(), fb, 3), fb, BIG),
+        "grid 2x2 sym8 mxu": grid_sym8_mxu}
     rt = {clock: in_turns(ways, dict.fromkeys(ways, 1), device_only=d)
           for clock, d in (("device", True), ("wall", False))}
     for way in ways:
-        print(f"time L3 db2 roundtrip {BIG} {way}: device "
-              f"{rt['device'][way]:.4f} ms, wall {rt['wall'][way]:.4f} ms  "
-              f"[{card}]")
+        what = (f'L3 sym8 "mxu" roundtrip {BIG} grid 2x2'
+                if way == "grid 2x2 sym8 mxu"
+                else f"L3 db2 roundtrip {BIG} {way}")
+        print(f"time {what}: device {rt['device'][way]:.4f} ms, wall "
+              f"{rt['wall'][way]:.4f} ms  [{card}]")
     d, w = rt["device"], rt["wall"]
     print(f"grid against unsharded, 8192^2 db2 L3 roundtrip on one card: "
           f"device {d['grid 2x2'] / d['unsharded']:.3f}x, wall "
           f"{w['grid 2x2'] / w['unsharded']:.3f}x; against the row layout: "
           f"device {d['grid 2x2'] / d['4 row shards']:.3f}x  [{card}]")
     return times, library
+
+
+# The row passes whose outputs --only K29g / K29h digest, so that two
+# builds of tc_dwt2d.cu compare bit for bit: banks that reach instances of
+# both kernels in both precisions (hlen 4, 10, 16 and 40), input shards of
+# 64 and of 8 rows (K29h: 32 and 4 coefficient rows; sym20's halos then
+# take several hops), rows of 2048, 33 and 4094 samples (nc % 4 of 0, 1
+# and 2), inputs or outputs one float past a 16-byte boundary, and the
+# timed shapes (level 0 of one 4096^2 grid block, sym8).
+ROWS_DIGEST_BANKS = ("db2", "db5", "sym8", "sym20")
+ROWS_DIGEST_SHARDS = ((2, 64), (4, 8))  # (shards, input rows of a shard)
+ROWS_DIGEST_NC = (2048, 33, 4094)
+ROWS_DIGEST_OFFSETS = ((0, 0), (1, 0), (0, 1))  # floats past: in, out
+
+
+def print_rows_occupancy(port, dev, keys):
+    """Resident blocks per SM (the occupancy API), dynamic shared memory and
+    tile shape of the K29g / K29h instances of ROWS_DIGEST_BANKS in both
+    precisions (a build without the query says so)."""
+    from pypwt_tpu_torch.ops import _build
+    lib = _build.load_library()
+    entry = "pypwt_tc_rows_occupancy"
+    for syn, key in ((0, "K29g"), (1, "K29h")):
+        if not wanted(keys, key):
+            continue
+        if not hasattr(lib, entry):
+            print(f"occupancy {key}: not reported by this build")
+            continue
+        for wname in ROWS_DIGEST_BANKS:
+            for prec in PRECISIONS:
+                out = [ctypes.c_int() for _ in range(4)]
+                err = getattr(lib, entry)(
+                    syn, port.get_filter_bank(wname).hlen,
+                    int(prec == "bf16"), dev.index,
+                    *(ctypes.byref(o) for o in out))
+                if err:
+                    raise RuntimeError(f"occupancy query {key} {wname} "
+                                       f"{prec}: error {err}")
+                blocks, smem, tr, tc = (o.value for o in out)
+                unit = "coefficients" if syn else "outputs"
+                print(f"occupancy {key} {wname} {prec}: {blocks} blocks of "
+                      f"256 threads per SM, {smem} bytes of dynamic shared "
+                      f"memory each, tiles of {tr} x {tc} {unit}")
+
+
+def print_rows_digests(port, dev, keys):
+    """SHA-256 of K29g's and K29h's outputs on seeded inputs
+    (ROWS_DIGEST_*), both precisions, each C entry called on the shard,
+    its halo rows and outputs made here: equal lines from two trees mean
+    bit-identical kernels."""
+    fd = port.ops.fused_dwt
+    from pypwt_tpu_torch.ops import _build
+    lib = _build.load_library()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 64)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def empty(shape, off):
+        n = shape[0] * shape[1]
+        return torch.empty(n + off, device=dev)[off:].view(shape)
+
+    def split(g, shards, rows, top, bot, off):
+        ext = shard_rows_of(g, 1, rows, top, bot)
+        return [unaligned(t.contiguous(), off) for t in
+                (ext[top:top + rows], ext[:top], ext[top + rows:])]
+
+    cases = [(w, prec, shards, rows, nc, oi, oo)
+             for w in ROWS_DIGEST_BANKS for prec in PRECISIONS
+             for shards, rows in ROWS_DIGEST_SHARDS
+             for nc in ROWS_DIGEST_NC for oi, oo in ROWS_DIGEST_OFFSETS]
+    cases += [("sym8", prec, 2, GRID_SHARD[0], GRID_SHARD[1] // 2, 0, 0)
+              for prec in PRECISIONS]
+    n = 0
+    for wname, prec, shards, rows, nc, oi, oo in cases:
+        fb = port.get_filter_bank(wname)
+        bf16 = int(prec == "bf16")
+        what = (f"{wname} {prec} shard 1 of {shards} x ({rows}, {nc}) "
+                f"+{oi}/+{oo}")
+        if wanted(keys, "K29g"):
+            top, bot = fd.one_axis_pads("ana", fb, 0)
+            x, up, down = split(rand((shards * rows, nc)), shards, rows, top,
+                                bot, oi)
+            out = [empty((rows // 2, nc), oo) for _ in range(2)]
+            taps = [fd._host_taps(f) for f in (fb.dec_lo, fb.dec_hi)]
+            err = lib.pypwt_tc_ana_rows(
+                x.data_ptr(), up.data_ptr(), down.data_ptr(),
+                *(o.data_ptr() for o in out), rows, nc, top, bot,
+                *(t.ctypes.data for t in taps), fb.hlen, bf16, dev.index,
+                stream)
+            if err:
+                raise RuntimeError(f"K29g {what}: error {err}")
+            print(f"digest K29g {what}: {digest(torch.stack(out))}")
+            n += 1
+            del x, up, down, out
+        if wanted(keys, "K29h"):
+            L = rows // 2
+            top, bot = fd.one_axis_pads("syn", fb, L)
+            (a, at, ab), (d, dt, db) = (
+                split(rand((shards * L, nc)), shards, L, top, bot, oi)
+                for _ in range(2))
+            halos = (at, ab, dt, db)
+            ptrs = fd.halo_array(halos)
+            out = empty((2 * L, nc), oo)
+            taps = [fd._host_taps(f) for f in (fb.rec_lo, fb.rec_hi)]
+            err = lib.pypwt_tc_syn_rows(
+                a.data_ptr(), d.data_ptr(), ctypes.addressof(ptrs),
+                out.data_ptr(), L, nc, top, bot,
+                *(t.ctypes.data for t in taps), fb.hlen, bf16, dev.index,
+                stream)
+            if err:
+                raise RuntimeError(f"K29h {what}: error {err}")
+            print(f"digest K29h {what}: {digest(out)}")
+            n += 1
+            del a, d, halos, out
+    print(f"digests of the tensor-core row passes: {n}")
 
 
 _PK, _NSP = "ops/pallas_dwt.py", "ops/nonsep_pallas.py"
@@ -5122,6 +5258,9 @@ def run_only(port, dev, card, keys):
                                                              keys)
         times.update(sharded_times)
         library.update(sharded_library)
+    if wanted(keys, "K29g", "K29h"):
+        print_rows_occupancy(port, dev, keys)
+        print_rows_digests(port, dev, keys)
     if wanted(keys, *K29):
         worst.update(phase_kernels_grid(port, dev))
         launches.update(phase_main_paths_grid(port, dev))

@@ -1,8 +1,9 @@
-"""Time the tensor-core 2D DWT analysis and synthesis, or the tap-loop 2D
-DWT synthesis or analysis, of several source trees in turns, in one
-process, on one NVIDIA GPU, or compare their kernels' machine code:
+"""Time the tensor-core 2D DWT analysis and synthesis, the tap-loop 2D
+DWT synthesis or analysis, or the tensor-core row passes of the grid
+layout, of several source trees in turns, in one process, on one NVIDIA
+GPU, or compare their kernels' machine code:
 
-    python3 chip_turns.py [--only dwt|idwt|syn2d|ana2d] [--banks B,...]
+    python3 chip_turns.py [--only dwt|idwt|syn2d|ana2d|rows] [--banks B,...]
         PARENT_TREE TREE [TREE ...]
     python3 chip_turns.py --sass PARENT_TREE TREE [TREE ...]
 
@@ -22,15 +23,24 @@ K2 (``pypwt_idwt2d``) at levels 0-2 of a 2048^2 frame and K26b
 float64. ``--only ana2d`` (not in the default run): K1 (``pypwt_dwt2d``)
 at levels 0-2 of a 2048^2 frame and K26a (``pypwt_dwt2d_sharded``) on
 the same shard (a 2048 x 8192 input), db2 and sym20, float32 and float64
-(``--banks``: these banks instead, comma-separated, for syn2d and ana2d).
+(``--banks``: these banks instead, comma-separated). ``--only rows`` (not
+in the default run): K29g (``pypwt_tc_ana_rows``) at levels 0-2 of one
+4096^2 block of an 8192^2 image on a 2 x 2 grid (its column pass's
+outputs, inputs of 4096 x 2048, 2048 x 1024 and 1024 x 512, with their
+halo rows) and K29h (``pypwt_tc_syn_rows``) on the matching coefficients
+(2048^2, 1024^2 and 512^2 of each plane), sym8 (``--banks``: these banks
+instead), "highest" and "bf16".
 Device time by CUDA events behind a sleep kernel, the median of 21
-samples of 10 launches; the trees in order, then in reverse, each the
-mean of its two medians. Each line also says whether every tree's output
-is bit for bit the first tree's, and the trees that report it print their
+samples of 10 launches, and the host time of one call (entry to return,
+the device idle before it), the median of 21; the trees in order, then
+in reverse, each the mean of its two medians. Each line also says
+whether every tree's output is bit for bit the first tree's, and the
+trees that report it print their
 instances' occupancy (``pypwt_tc_dwt2d_occupancy``,
 ``pypwt_tc_idwt2d_occupancy``, ``pypwt_idwt2d_occupancy``,
-``pypwt_dwt2d_occupancy``: blocks per SM, dynamic shared memory and, for
-the tap loop, the tile shape).
+``pypwt_dwt2d_occupancy``, ``pypwt_tc_rows_occupancy``: blocks per SM,
+dynamic shared memory and, for the tap loop and the row passes, the tile
+shape).
 
 ``--sass`` times nothing: it disassembles each tree's library
 (``cuobjdump -sass``) and prints, for every kernel of the first tree,
@@ -47,6 +57,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -59,11 +70,14 @@ N_SHARDS = 4
 SAMPLES, REPS = 21, 10
 SLEEP_CYCLES = 2_000_000
 SYN2D_BANKS = ["db2", "sym20"]  # also the tap-loop analysis's (--banks)
+ROWS_BANKS = ["sym8"]           # the row passes' (--banks)
+ROWS_BLOCK = (4096, 4096)       # one block of an 8192^2 image on a 2 x 2 grid
 SYN2D_TYPES = (torch.float32, torch.float64)
 # entries that a parent tree's _build may not declare
 ENTRY_TYPES = {
     "pypwt_idwt2d_occupancy": [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4,
-    "pypwt_dwt2d_occupancy": [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4}
+    "pypwt_dwt2d_occupancy": [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4,
+    "pypwt_tc_rows_occupancy": [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4}
 
 
 def load(trees):
@@ -90,7 +104,8 @@ def load(trees):
                      "pypwt_idwt2d_sharded_f64", "pypwt_idwt2d_occupancy",
                      "pypwt_dwt2d", "pypwt_dwt2d_f64",
                      "pypwt_dwt2d_sharded", "pypwt_dwt2d_sharded_f64",
-                     "pypwt_dwt2d_occupancy"):
+                     "pypwt_dwt2d_occupancy", "pypwt_tc_ana_rows",
+                     "pypwt_tc_syn_rows", "pypwt_tc_rows_occupancy"):
             if hasattr(lib, name):
                 getattr(lib, name).argtypes = _build._SIGNATURES.get(
                     name, ENTRY_TYPES.get(
@@ -298,6 +313,65 @@ def cases(port, dev, only):
             return out
         return call
 
+    def block_halos(planes, before, after):
+        """Each (rows, nc) plane as the middle of three blocks along axis
+        -2 of a 2-block column (the blocks above and below it wrap to the
+        other block): (plane, its rows above, its rows below)."""
+        out = []
+        for g in planes:
+            n = g.shape[0]
+            rows = torch.arange(n - before, 2 * n + after, device=dev) % (
+                2 * n)
+            ext = torch.cat([g, rand(g.shape)]).index_select(0, rows)
+            out.append([ext[before:before + n].contiguous(),
+                        ext[:before].contiguous(),
+                        ext[before + n:].contiguous()])
+        return out
+
+    def k29g(wname, level):
+        fbw = port.get_filter_bank(wname)
+        lo2, hi2 = fd._host_taps(fbw.dec_lo), fd._host_taps(fbw.dec_hi)
+        nr, nc = ROWS_BLOCK[0] >> level, ROWS_BLOCK[1] >> (level + 1)
+        top, bot = fd.one_axis_pads("ana", fbw, 0)
+        sets = block_halos([rand((nr, nc)) for _ in range(2)], top, bot)
+        out = [torch.empty((nr // 2, nc), device=dev) for _ in range(2)]
+
+        def call(lib, i, bf16):
+            body, up, down = sets[i % 2]
+            err = lib.pypwt_tc_ana_rows(
+                body.data_ptr(), up.data_ptr(), down.data_ptr(),
+                *(o.data_ptr() for o in out), nr, nc, top, bot,
+                lo2.ctypes.data, hi2.ctypes.data, fbw.hlen, bf16, dev.index,
+                stream)
+            if err:
+                raise RuntimeError(f"K29g level {level}: error {err}")
+            return out
+        return call
+
+    def k29h(wname, level):
+        fbw = port.get_filter_bank(wname)
+        lo2, hi2 = fd._host_taps(fbw.rec_lo), fd._host_taps(fbw.rec_hi)
+        n, nc = ROWS_BLOCK[0] >> (level + 1), ROWS_BLOCK[1] >> (level + 1)
+        top, bot = fd.one_axis_pads("syn", fbw, n)
+        sets = []
+        for _ in range(2):
+            (a, at, ab), (d, dt, db) = block_halos(
+                [rand((n, nc)) for _ in range(2)], top, bot)
+            sets.append((a, d, (at, ab, dt, db),
+                         fd.halo_array((at, ab, dt, db))))
+        out = torch.empty((2 * n, nc), device=dev)
+
+        def call(lib, i, bf16):
+            a, d, _, ptrs = sets[i % 2]
+            err = lib.pypwt_tc_syn_rows(
+                a.data_ptr(), d.data_ptr(), ctypes.addressof(ptrs),
+                out.data_ptr(), n, nc, top, bot, lo2.ctypes.data,
+                hi2.ctypes.data, fbw.hlen, bf16, dev.index, stream)
+            if err:
+                raise RuntimeError(f"K29h level {level}: error {err}")
+            return out
+        return call
+
     got = {}
     precisions = (0, 1)
     if only in (None, "dwt"):
@@ -326,6 +400,12 @@ def cases(port, dev, only):
                             for lev in (0, 1, 2)})
                 got[f"K26a shard {wname} {kind}"] = (k26a(wname, dtype),
                                                      (None,))
+    if only == "rows":
+        for wname in ROWS_BANKS:
+            for key, make in (("K29g", k29g), ("K29h", k29h)):
+                got.update({f"{key} level {lev} {wname}":
+                            (make(wname, lev), precisions)
+                            for lev in (0, 1, 2)})
     return got, fb.hlen
 
 
@@ -350,6 +430,19 @@ def ms(call, lib, bf16):
         end.synchronize()
         times.append(start.elapsed_time(end) / REPS)
     return statistics.median(times)
+
+
+def host_ms(call, lib, bf16):
+    """Host time (ms) of one call from entry to return, the device idle
+    before it: what a launch costs the host. The median of SAMPLES."""
+    times = []
+    for i in range(SAMPLES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call(lib, i, bf16)
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
 
 
 def strip_anonymous(name):
@@ -422,13 +515,15 @@ def main():
         return
     if trees[:1] == ["--only"]:
         only, trees = (trees[1:2] or [""])[0], trees[2:]
-    if trees[:1] == ["--banks"] and only in ("syn2d", "ana2d"):
-        SYN2D_BANKS[:] = (trees[1:2] or [""])[0].split(",")
+    if trees[:1] == ["--banks"] and only in ("syn2d", "ana2d", "rows"):
+        banks = ROWS_BANKS if only == "rows" else SYN2D_BANKS
+        banks[:] = (trees[1:2] or [""])[0].split(",")
         trees = trees[2:]
     if len(trees) < 2 or only not in (None, "dwt", "idwt", "syn2d",
-                                      "ana2d"):
-        print("usage: python3 chip_turns.py [--only dwt|idwt|syn2d|ana2d] "
-              "[--banks B,...] PARENT_TREE TREE [TREE ...]", file=sys.stderr)
+                                      "ana2d", "rows"):
+        print("usage: python3 chip_turns.py [--only dwt|idwt|syn2d|ana2d|"
+              "rows] [--banks B,...] PARENT_TREE TREE [TREE ...]",
+              file=sys.stderr)
         sys.exit(2)
     if not torch.cuda.is_available():
         print("chip_turns: torch.cuda.is_available() is False: this run "
@@ -464,22 +559,27 @@ def main():
                           f"blocks per SM, {smem.value} bytes")
     if only in ("syn2d", "ana2d"):
         print_tap2d_occupancy(trees, libs, port, dev, only)
+    if only == "rows":
+        print_rows_occupancy(trees, libs, port, dev)
     for name, (call, variants) in calls.items():
         for bf16 in variants:
             digests = {hashlib.sha256(flat(call(lib, 0, bf16)).cpu()
                                       .numpy().tobytes()).hexdigest()
                        for lib in libs}
             seen = {t: [] for t in trees}
+            host = {t: [] for t in trees}
             order = list(range(len(trees)))
             for k in order + order[::-1]:
                 seen[trees[k]].append(ms(call, libs[k], bf16))
-            row = "  ".join(f"{t} {sum(v) / 2 * 1e3:.1f}"
-                            for t, v in seen.items())
+                host[trees[k]].append(host_ms(call, libs[k], bf16))
+            row, hrow = ("  ".join(f"{t} {sum(v) / 2 * 1e3:.1f}"
+                                   for t, v in d.items())
+                         for d in (seen, host))
             same = "bit-equal" if len(digests) == 1 else "DIFFER"
             prec = ("" if bf16 is None
                     else " bf16" if bf16 else " highest")
-            print(f"{name}{prec}, device us: {row}  (outputs {same})  "
-                  f"[{card}]", flush=True)
+            print(f"{name}{prec}, device us: {row}  (outputs {same}); host "
+                  f"us per call: {hrow}  [{card}]", flush=True)
 
 
 def print_tap2d_occupancy(trees, libs, port, dev, only):
@@ -511,6 +611,30 @@ def print_tap2d_occupancy(trees, libs, port, dev, only):
             print(f"occupancy {tree} {key} ({nr}, {nc}) {wname} "
                   f"{str(dtype)[6:]}: {blocks} blocks per SM, {smem} bytes, "
                   f"tiles of {tr} x {tc} {unit}")
+
+
+def print_rows_occupancy(trees, libs, port, dev):
+    """Blocks per SM, dynamic shared memory and tile shape of each tree's
+    K29g and K29h instances at the timed banks, where the tree reports
+    them."""
+    query = "pypwt_tc_rows_occupancy"
+    for tree, lib in zip(trees, libs):
+        if not hasattr(lib, query):
+            print(f"occupancy {tree} K29g, K29h: not reported by this tree")
+            continue
+        for (syn, key), wname, bf16 in itertools.product(
+                ((0, "K29g"), (1, "K29h")), ROWS_BANKS, (0, 1)):
+            out = [ctypes.c_int() for _ in range(4)]
+            err = getattr(lib, query)(
+                syn, port.get_filter_bank(wname).hlen, bf16, dev.index,
+                *(ctypes.byref(o) for o in out))
+            if err:
+                raise RuntimeError(f"occupancy query: error {err}")
+            blocks, smem, tr, tc = (o.value for o in out)
+            print(f"occupancy {tree} {key} {wname} "
+                  f"{'bf16' if bf16 else 'highest'}: {blocks} blocks per SM, "
+                  f"{smem} bytes, tiles of {tr} x {tc} "
+                  f"{'coefficients' if syn else 'outputs'}")
 
 
 if __name__ == "__main__":

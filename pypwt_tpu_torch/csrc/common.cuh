@@ -215,28 +215,6 @@ inline Bank2DT<T> make_bank(const T* filters, int hlen, T scale) {
   return bank;
 }
 
-// Copy kN elements with the block's threads: element i = tid + j kThreads
-// is store(i, load(i)). kBatch loads per thread are in flight before their
-// stores, so a staging loop waits for device memory once per batch, not
-// once per element (the tensor-core kernels' windows).
-template <int kN, int kBatch, class Load, class Store>
-__device__ __forceinline__ void batched_copy(Load load, Store store) {
-  constexpr int kIters = (kN + kThreads - 1) / kThreads;
-  for (int j0 = 0; j0 < kIters; j0 += kBatch) {
-    decltype(load(0)) v[kBatch];
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      const int i = threadIdx.x + (j0 + j) * kThreads;
-      if (i < kN) v[j] = load(i);
-    }
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      const int i = threadIdx.x + (j0 + j) * kThreads;
-      if (i < kN) store(i, v[j]);
-    }
-  }
-}
-
 // Where the rows (axis -2) of a 2D level come from. Wrapped: the plane
 // itself, wrapped periodically (the unsharded kernels). Halo: one row shard
 // of a larger plane (K26-K28, the row-sharded levels of

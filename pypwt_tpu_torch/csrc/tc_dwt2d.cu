@@ -75,6 +75,24 @@
 // TF32 instances to two blocks per SM and gained nothing in "bf16". Pass 2
 // of both stores a row's two C elements in one 8-byte store (K5: where
 // its subbands' rows start 8-byte aligned, else one float at a time).
+//
+// K29g / K29h are one pass, bound by their bytes alone (the column pass's
+// 4096 x 2048 output of a 4096^2 grid block and its two halves: 64 MiB,
+// 20 us at 3.35 TB/s). Their blocks are persistent (the grid is what the
+// SMs hold at once, by the occupancy API): a block walks tiles of 32
+// output rows (K29h: coefficient rows) by 64 columns, and while its warps
+// compute one tile, the window of its next tile is in flight in the other
+// of two slots, staged by cp.async from a table of that tile's source rows
+// (the shard's rows and halo rows resolved once per window row, in 32-bit
+// arithmetic; 16-byte copies where nc % 4 == 0 and the row is 16-byte
+// aligned; zero past nc and past both halos). The band's fragments are
+// built once per block, while the first tile's copies fly. K29h's tiles
+// 2 kK outputs apart run in groups that share A fragments (band_tiles), as
+// many as fit 32 registers beside the band. The C fragments go straight to
+// device memory: a warp's store covers four rows of 32 bytes, whole
+// sectors. A staged output tile with 16-byte stores, tiles of 64 rows or
+// 128 columns and the band's fragments in shared memory (a block per SM
+// more) all measured slower (PERF.md §6).
 
 #include "tc_window.cuh"
 
@@ -378,183 +396,275 @@ tc_idwt2d_kernel(const float* __restrict__ a, const float* __restrict__ h,
   }
 }
 
-// K29g / K29h's tile: kTile output rows (K29h: coefficient rows) by kCols
-// columns, the columns the A fragments' rows.
-constexpr int kCols = 64;
+// K29g / K29h's tile: kRows output rows (K29h: coefficient rows, so
+// 2 kRows output rows) by kCols columns of a shard, the columns the A
+// fragments' rows. Window row r holds columns c0 .. c0 + kCols - 1 of a
+// shard or halo row, zero past nc (the columns are not periodic), in rows
+// of kLdW floats (the shortest whose fragments are read without bank
+// conflicts).
+constexpr int kRows = 32, kCols = 64;
 
-// K29g's geometry: kSteps k-steps of kK window rows cover an 8-output tile.
-template <class P, int kSteps>
+// K29g's geometry: kSteps k-steps of kK window rows cover an 8-output
+// tile; one input plane.
+template <class P, int kStepsT>
 struct AnaRowsGeom {
-  static constexpr int kSpan = kSteps * P::kK;
-  static constexpr int kWin = 2 * kTile - 16 + kSpan;  // window rows read
-  static constexpr int kLdW = mma::lead_dim<P>(kCols, true);
-  static constexpr size_t kSmem =
-      sizeof(float) * (kWin * kLdW + 2 * kMaxTaps);
+  using Prec = P;
+  static constexpr int kSteps = kStepsT;
+  static constexpr int kWin = 2 * kRows - 16 + kSteps * P::kK;  // rows read
+  static constexpr int kPlanes = 1;
+  static constexpr int kLdW = short_lead_dim<P>(kCols, true);
 };
 
-template <class P, int kSteps>
-__global__ void __launch_bounds__(kThreads)
-tc_ana_rows_kernel(const float* __restrict__ x, float* __restrict__ lo,
-                   float* __restrict__ hi, int nr, int nc, Taps taps,
-                   int hlen, int y0, Halo<float, 1> rows) {
-  using G = AnaRowsGeom<P, kSteps>;
-  extern __shared__ float smem[];
-  float* s_w = smem;                    // [kWin][kLdW] window rows
-  float* f_lo = s_w + G::kWin * G::kLdW;  // taps in window order
-  float* f_hi = f_lo + kMaxTaps;
+// K29h's geometry: an 8-output tile reads 4 coefficient rows and the h2
+// taps of their phases, h2 + 4 rows, in kSteps k-steps; two coefficient
+// planes. A task runs kGroup tiles 2 kK outputs apart, whose windows start
+// a k-step apart (band_tiles).
+template <class P, int kStepsT, int kGroupT>
+struct SynRowsGeom {
+  using Prec = P;
+  static constexpr int kSteps = kStepsT;
+  static constexpr int kWin = kRows - 4 + kSteps * P::kK;  // rows read
+  static constexpr int kPlanes = 2;
+  static constexpr int kGroup = kGroupT;
+  static constexpr int kLdW = short_lead_dim<P>(kCols, true);
+};
 
-  const int warp = threadIdx.x >> 5;
-  const int len = nr >> 1;
-  const int r0 = (y0 + blockIdx.y) * kTile, c0 = blockIdx.x * kCols;
-  const int ext = 2 * kTile + hlen - 2;  // the window's extent
-  const int row0 = 2 * r0 - analysis_lpad(hlen);
+// Shared memory of K29g / K29h: two slots of windows ([kWin][kLdW] a
+// plane), the taps (K29g in window order, K29h per output parity) and two
+// slots of the source row of each plane and window row.
+template <class G>
+struct RowsSmem {
+  static constexpr int kPlane = G::kWin * G::kLdW;
+  static constexpr int kSlot = G::kPlanes * kPlane;
+  static constexpr int kTable = G::kPlanes * G::kWin;
+  static constexpr int kFloats = 2 * kSlot + 2 * kMaxTaps;
+  static_assert(kFloats % 2 == 0, "the row table must be 8-byte aligned");
+  static constexpr size_t kBytes =
+      sizeof(float) * kFloats + sizeof(const float*) * 2 * kTable;
+  float *in, *f_lo, *f_hi;
+  const float** src;
+  __device__ explicit RowsSmem(float* base)
+      : in(base),
+        f_lo(base + 2 * kSlot),
+        f_hi(f_lo + kMaxTaps),
+        src(reinterpret_cast<const float**>(f_hi + kMaxTaps)) {}
+};
 
-  load_reversed_taps(taps, hlen, f_lo, f_hi);
-  batched_copy<G::kWin * kCols, 8>(
-      [&](int i) {
-        const int r = i / kCols, c = i - r * kCols;
-        if (r >= ext || c0 + c >= nc) return 0.f;
-        const float* src = rows.row(0, x, row0 + r, nr, nc);
-        return src ? src[c0 + c] : 0.f;
-      },
-      [&](int i, float v) {
-        const int r = i / kCols;
-        s_w[r * G::kLdW + i - r * kCols] = v;
-      });
-  __syncthreads();
+// The tiles of one launch, row tile t / col_tiles and column tile t %
+// col_tiles; block b takes tiles b + j gridDim.x.
+struct RowsPlan {
+  long long tiles;
+  int col_tiles;
+};
 
-  typename P::B b_lo[kSteps], b_hi[kSteps];
-  mma::band_fragments<P>(
-      b_lo, [&](int k, int n) { return band(f_lo, k - 2 * n, hlen); });
-  mma::band_fragments<P>(
-      b_hi, [&](int k, int n) { return band(f_hi, k - 2 * n, hlen); });
-
-  // (columns x window rows) x band: output rows n0.. of columns m0..
-  constexpr int kN = kTile / 8;
-  for (int task = warp; task < kCols / 16 * kN; task += kWarps) {
-    const int m0 = task / kN * 16, n0 = task % kN * 8;
-    float clo[4] = {0.f, 0.f, 0.f, 0.f}, chi[4] = {0.f, 0.f, 0.f, 0.f};
-    const float* w = s_w + 2 * n0 * G::kLdW + m0;
-    mma::band_product<P>(
-        clo, chi, [&](int k, int m) { return w[k * G::kLdW + m]; }, b_lo,
-        b_hi);
+// Issue the asynchronous copies of the kPlanes windows of one slot into
+// `in`: window row r of plane p holds columns c0 .. c0 + kCols - 1 of row
+// src[p kWin + r], zero where that row is missing and past nc. Rows of a
+// multiple of 4 samples go in 16-byte copies (c0 is a multiple of 4) where
+// the row is 16-byte aligned, every other row in 4-byte ones.
+template <class G>
+__device__ __forceinline__ void issue_rows(float* in, const float* const* src,
+                                           int c0, int nc) {
+  constexpr int kQ = kCols / 4;
+  constexpr int kPlane = RowsSmem<G>::kPlane;
+  const bool quads = nc % 4 == 0;
+  for (int i = threadIdx.x; i < G::kWin * kQ; i += kThreads) {
+    const int r = i / kQ, q = i - r * kQ;
+    const int c = c0 + 4 * q;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int orow = r0 + n0 + mma::c_col(i);
-      const int ocol = c0 + m0 + mma::c_row(i);
-      if (orow < len && ocol < nc) {
-        const long long o = static_cast<long long>(orow) * nc + ocol;
-        lo[o] = clo[i];
-        hi[o] = chi[i];
+    for (int p = 0; p < G::kPlanes; ++p) {
+      const float* s = src[p * G::kWin + r];
+      float* d = in + p * kPlane + r * G::kLdW + 4 * q;
+      if (s == nullptr || c >= nc) {
+        d[0] = d[1] = d[2] = d[3] = 0.f;
+      } else if (quads && (reinterpret_cast<uintptr_t>(s) & 15) == 0) {
+        mma::cp_async16(d, s + c);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (c + e < nc)
+            mma::cp_async4(d + e, s + c + e);
+          else
+            d[e] = 0.f;
+        }
       }
     }
   }
 }
 
-// K29h's geometry: an 8-output tile reads 4 coefficient rows and the h2
-// taps of their phases, h2 + 4 rows, in kSteps k-steps.
-template <class P, int kSteps>
-struct SynRowsGeom {
-  static constexpr int kSpan = kSteps * P::kK;
-  static constexpr int kWin = kTile - 4 + kSpan;  // coefficient rows read
-  static constexpr int kLdW = mma::lead_dim<P>(kCols, true);
-  static constexpr size_t kSmem =
-      sizeof(float) * (2 * kWin * kLdW + 4 * kHalfTaps);
-};
-
-// One coefficient of each of the two planes.
-struct Duo {
-  float v[2];
-};
-
-template <class P, int kSteps>
-__global__ void __launch_bounds__(kThreads)
-tc_syn_rows_kernel(const float* __restrict__ a, const float* __restrict__ d,
-                   float* __restrict__ out, int len, int nc, Taps taps,
-                   int hlen, int y0, Halo<float, 2> rows) {
-  using G = SynRowsGeom<P, kSteps>;
-  constexpr int kPlane = G::kWin * G::kLdW;
-  extern __shared__ float smem[];
-  float* s_in = smem;                // a, d windows, [kWin][kLdW] each
-  float* g_lo = s_in + 2 * kPlane;   // [2][kHalfTaps] taps per parity
-  float* g_hi = g_lo + 2 * kHalfTaps;
-
-  const Polyphase ph(hlen);
-  const int warp = threadIdx.x >> 5;
-  const int q0 = (y0 + blockIdx.y) * kTile, c0 = blockIdx.x * kCols;
-  const int ext = kTile + ph.h2;  // the window's extent
-  const float* planes[2] = {a, d};
-
-  load_polyphase_taps(taps, hlen, g_lo, g_hi);
-  // window origin: coefficient row q0 - c
-  batched_copy<G::kWin * kCols, 4>(
-      [&](int i) {
-        const int r = i / kCols, c = i - r * kCols;
-        Duo q{{0.f, 0.f}};
-        if (r < ext && c0 + c < nc) {
-#pragma unroll
-          for (int p = 0; p < 2; ++p) {
-            const float* src = rows.row(p, planes[p], q0 - ph.c + r, len, nc);
-            q.v[p] = src ? src[c0 + c] : 0.f;
-          }
-        }
-        return q;
-      },
-      [&](int i, const Duo& q) {
-        const int r = i / kCols, c = i - r * kCols;
-        s_in[r * G::kLdW + c] = q.v[0];
-        s_in[kPlane + r * G::kLdW + c] = q.v[1];
-      });
+// Walk the block's tiles t = b, b + gridDim.x, ..., the tile at rows r0 ..
+// (K29h: coefficient rows) and columns c0 ..: table(r0, src) fills a
+// slot's source rows (kPlanes x kWin), issue_rows its copies, one commit
+// group per tile; product(r0, c0, in, band) computes the tile from its
+// slot's windows once they have landed, while the next tile's fly. The
+// band (make_band()) is built while the first tile's copies fly. Two
+// barriers a tile: the next table visible (and the slot it fills read by
+// the tile before), the tile's windows visible.
+template <class G, class Table, class MakeBand, class Product>
+__device__ __forceinline__ void walk_tiles(const RowsSmem<G>& sm,
+                                           const RowsPlan& plan, int nc,
+                                           Table table, MakeBand make_band,
+                                           Product product) {
+  using S = RowsSmem<G>;
+  const auto r0 = [&](long long t) {
+    return static_cast<int>(t / plan.col_tiles) * kRows;
+  };
+  const auto c0 = [&](long long t) {
+    return static_cast<int>(t % plan.col_tiles) * kCols;
+  };
+  long long t = blockIdx.x;
+  if (t < plan.tiles) table(r0(t), sm.src);
   __syncthreads();
-
-  // Output n of an 8-output tile: coefficient n / 2 of the tile, phase
-  // n & 1, which reads window row n / 2 + delta + j with tap g_p[j].
-  typename P::B b_lo[kSteps], b_hi[kSteps];
-  mma::band_fragments<P>(b_lo, [&](int k, int n) {
-    return band(g_lo + (n & 1) * kHalfTaps, k - (n >> 1) - ph.delta(n & 1),
-                ph.h2);
-  });
-  mma::band_fragments<P>(b_hi, [&](int k, int n) {
-    return band(g_hi + (n & 1) * kHalfTaps, k - (n >> 1) - ph.delta(n & 1),
-                ph.h2);
-  });
-
-  constexpr int kN = 2 * kTile / 8;
-  for (int task = warp; task < kCols / 16 * kN; task += kWarps) {
-    const int m0 = task / kN * 16, n0 = task % kN * 8;
-    const float* lo = s_in + (n0 >> 1) * G::kLdW + m0;
-    const float* hi = lo + kPlane;
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
-    mma::band_product_pair<P>(
-        c, [&](int k, int m) { return lo[k * G::kLdW + m]; },
-        [&](int k, int m) { return hi[k * G::kLdW + m]; }, b_lo, b_hi);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int orow = 2 * q0 + n0 + mma::c_col(i);
-      const int ocol = c0 + m0 + mma::c_row(i);
-      if (orow < 2 * len && ocol < nc)
-        out[static_cast<long long>(orow) * nc + ocol] = c[i];
-    }
+  if (t < plan.tiles) issue_rows<G>(sm.in, sm.src, c0(t), nc);
+  mma::cp_async_commit();
+  const auto band = make_band();
+  for (int slot = 0; t < plan.tiles; t += gridDim.x, slot ^= 1) {
+    const long long next = t + gridDim.x;
+    const float** src = sm.src + (slot ^ 1) * S::kTable;
+    if (next < plan.tiles) table(r0(next), src);
+    __syncthreads();
+    if (next < plan.tiles)
+      issue_rows<G>(sm.in + (slot ^ 1) * S::kSlot, src, c0(next), nc);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();
+    __syncthreads();
+    product(r0(t), c0(t), static_cast<const float*>(sm.in + slot * S::kSlot),
+            band);
   }
 }
 
+// K29g: window row r of the tile at output rows r0 .. holds shard row
+// 2 r0 - lpad + r (a halo row past the shard, zero past both halos and
+// past the window's extent). Each task's products are mma::band_product's,
+// in its order (both bands from one A fragment).
+template <class G>
+__global__ void __launch_bounds__(kThreads)
+tc_ana_rows_kernel(const float* __restrict__ x, float* __restrict__ lo,
+                   float* __restrict__ hi, int nr, int nc, Taps taps,
+                   int hlen, RowsPlan plan, Halo<float, 1> rows) {
+  using P = typename G::Prec;
+  extern __shared__ float smem[];
+  const RowsSmem<G> sm(smem);
+  const int warp = threadIdx.x >> 5;
+  const int len = nr >> 1;
+  const int ext = 2 * kRows + hlen - 2;  // the window's extent
+  const int lpad = analysis_lpad(hlen);
+  load_reversed_taps(taps, hlen, sm.f_lo, sm.f_hi);
+  walk_tiles<G>(
+      sm, plan, nc,
+      [&](int r0, const float** src) {
+        for (int r = threadIdx.x; r < G::kWin; r += kThreads)
+          src[r] = r < ext ? rows.row(0, x, 2 * r0 - lpad + r, nr, nc)
+                           : nullptr;
+      },
+      [&] { return AnaBand<P, G::kSteps>(sm.f_lo, sm.f_hi, hlen); },
+      [&](int r0, int c0, const float* in, const AnaBand<P, G::kSteps>& b) {
+        // (columns x window rows) x band: output rows n0.. of columns m0..
+        constexpr int kN = kRows / 8;
+        for (int task = warp; task < kCols / 16 * kN; task += kWarps) {
+          const int m0 = task / kN * 16, n0 = task % kN * 8;
+          float clo[4] = {0.f, 0.f, 0.f, 0.f}, chi[4] = {0.f, 0.f, 0.f, 0.f};
+          const float* w = in + 2 * n0 * G::kLdW + m0;
+          mma::band_product<P>(
+              clo, chi, [&](int k, int m) { return w[k * G::kLdW + m]; },
+              b.lo, b.hi);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int orow = r0 + n0 + mma::c_col(i);
+            const int ocol = c0 + m0 + mma::c_row(i);
+            if (orow < len && ocol < nc) {
+              const long long o = static_cast<long long>(orow) * nc + ocol;
+              lo[o] = clo[i];
+              hi[o] = chi[i];
+            }
+          }
+        }
+      });
+}
+
+// K29h: window row r of the tile at coefficient rows q0 .. holds
+// coefficient row q0 - c + r of a and d (the polyphase centre c; a halo
+// row past the shard, zero past both halos and past the window's extent).
+// Each accumulator takes mma::band_product_pair's products in its order
+// (band_tiles).
+template <class G>
+__global__ void __launch_bounds__(kThreads)
+tc_syn_rows_kernel(const float* __restrict__ a, const float* __restrict__ d,
+                   float* __restrict__ out, int len, int nc, Taps taps,
+                   int hlen, RowsPlan plan, Halo<float, 2> rows) {
+  using P = typename G::Prec;
+  extern __shared__ float smem[];
+  const RowsSmem<G> sm(smem);
+  const Polyphase ph(hlen);
+  const int warp = threadIdx.x >> 5;
+  const int ext = kRows + ph.h2;  // the window's extent
+  const float* const planes[2] = {a, d};
+  load_polyphase_taps(taps, hlen, sm.f_lo, sm.f_hi);
+  walk_tiles<G>(
+      sm, plan, nc,
+      [&](int q0, const float** src) {
+        for (int r = threadIdx.x; r < G::kWin; r += kThreads) {
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+            src[p * G::kWin + r] =
+                r < ext ? rows.row(p, planes[p], q0 - ph.c + r, len, nc)
+                        : nullptr;
+        }
+      },
+      [&] { return PolyBand<P, G::kSteps>(sm.f_lo, sm.f_hi, ph); },
+      [&](int q0, int c0, const float* in, const PolyBand<P, G::kSteps>& b) {
+        // (columns x window rows) x band: output rows n0.. of columns
+        // m0..; a task runs kR tiles 2 kK outputs apart
+        constexpr int kN = 2 * kRows / 8, kR = G::kGroup;
+        constexpr int kEvery = P::kK / 4, kG = kN / kR;
+        static_assert(kR == 1 || kN % (kR * kEvery) == 0, "whole groups");
+        for (int task = warp; task < kCols / 16 * kG; task += kWarps) {
+          const int m0 = task / kG * 16;
+          const int n0 = group_first<kEvery, kR>(task % kG);
+          const float* lo = in + (n0 >> 1) * G::kLdW + m0;
+          const float* hi = lo + RowsSmem<G>::kPlane;
+          float c[kR][4] = {};
+          band_tiles<P, G::kSteps, kR>(
+              c, [&](int k, int m) { return lo[k * G::kLdW + m]; },
+              [&](int k, int m) { return hi[k * G::kLdW + m]; }, b.lo, b.hi);
+#pragma unroll
+          for (int r = 0; r < kR; ++r)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int orow = 2 * q0 + n0 + 2 * r * P::kK + mma::c_col(i);
+              const int ocol = c0 + m0 + mma::c_row(i);
+              if (orow < 2 * len && ocol < nc)
+                out[static_cast<long long>(orow) * nc + ocol] = c[r][i];
+            }
+        }
+      });
+}
+
 using AnaRowsKernel = void (*)(const float*, float*, float*, int, int, Taps,
-                               int, int, Halo<float, 1>);
+                               int, RowsPlan, Halo<float, 1>);
 using SynRowsKernel = void (*)(const float*, const float*, float*, int, int,
-                               Taps, int, int, Halo<float, 2>);
+                               Taps, int, RowsPlan, Halo<float, 2>);
 
 template <class P, int S>
-Instance<AnaRowsKernel> ana_rows_instance() {
-  return {tc_ana_rows_kernel<P, S>, AnaRowsGeom<P, S>::kSmem};
+TileInstance<AnaRowsKernel> ana_rows_instance() {
+  using G = AnaRowsGeom<P, S>;
+  return {tc_ana_rows_kernel<G>, RowsSmem<G>::kBytes, kRows, kCols};
 }
 
 template <class P, int S>
-Instance<SynRowsKernel> syn_rows_instance() {
-  return {tc_syn_rows_kernel<P, S>, SynRowsGeom<P, S>::kSmem};
+TileInstance<SynRowsKernel> syn_rows_instance() {
+  // K29h's tile groups where a tile spans more than one k-step: as many
+  // tiles as share a fragment, within 32 registers of accumulators (4 a
+  // tile) and band (8 a k-step in TF32, 4 in bf16)
+  constexpr int kMax = 2 * kRows / 8 / (P::kK / 4);
+  constexpr int kFit = (32 - S * (P::kK == 8 ? 8 : 4)) / 4;
+  constexpr int kGroup = S == 1 ? 1 : kMax < kFit ? kMax : kFit;
+  using G = SynRowsGeom<P, S, kGroup>;
+  return {tc_syn_rows_kernel<G>, RowsSmem<G>::kBytes, kRows, kCols};
 }
 
 // kSteps as pick_dwt / pick_idwt below.
-Instance<AnaRowsKernel> pick_ana_rows(bool bf16, int hlen) {
+TileInstance<AnaRowsKernel> pick_ana_rows(bool bf16, int hlen) {
   if (bf16) {
     switch ((14 + hlen + 15) / 16) {
       case 2: return ana_rows_instance<mma::Bf16, 2>();
@@ -570,10 +680,10 @@ Instance<AnaRowsKernel> pick_ana_rows(bool bf16, int hlen) {
       case 7: return ana_rows_instance<mma::Tf32, 7>();
     }
   }
-  return {nullptr, 0};
+  return {nullptr, 0, 0, 0};
 }
 
-Instance<SynRowsKernel> pick_syn_rows(bool bf16, int hlen) {
+TileInstance<SynRowsKernel> pick_syn_rows(bool bf16, int hlen) {
   if (bf16) {
     switch ((hlen / 2 + 4 + 15) / 16) {
       case 1: return syn_rows_instance<mma::Bf16, 1>();
@@ -586,7 +696,7 @@ Instance<SynRowsKernel> pick_syn_rows(bool bf16, int hlen) {
       case 3: return syn_rows_instance<mma::Tf32, 3>();
     }
   }
-  return {nullptr, 0};
+  return {nullptr, 0, 0, 0};
 }
 
 template <class Rows>
@@ -665,6 +775,29 @@ cudaError_t prepare(const Instance<Kernel>& inst, int device) {
   return cudaFuncSetAttribute(inst.kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(inst.smem));
+}
+
+// K29g / K29h's persistent launch: the tiles of `rows` output rows (K29h:
+// coefficient rows) of nc samples, and a grid of what the SMs hold at once
+// (the occupancy API), at most a block a tile.
+template <class Kernel>
+cudaError_t plan_rows(const TileInstance<Kernel>& inst, int rows, int nc,
+                      int device, RowsPlan* plan, unsigned* grid) {
+  if (inst.kernel == nullptr) return cudaErrorInvalidValue;
+  int sms = 0, per_sm = 0;
+  cudaError_t err = device_sms(device, &sms);
+  if (err == cudaSuccess) err = allow_smem(inst);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, inst.kernel,
+                                                        kThreads, inst.smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  plan->col_tiles = (nc + inst.tc - 1) / inst.tc;
+  plan->tiles = static_cast<long long>((rows + inst.tr - 1) / inst.tr) *
+                plan->col_tiles;
+  *grid = static_cast<unsigned>(std::min<long long>(
+      static_cast<long long>(per_sm) * sms, plan->tiles));
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -808,16 +941,14 @@ extern "C" int pypwt_tc_ana_rows(const float* x, const float* top,
       !analysis_halos_ok(hlen, lp, rp))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto inst = pick_ana_rows(bf16 != 0, hlen);
-  cudaError_t err = prepare(inst, device);
+  RowsPlan plan;
+  unsigned grid = 0;
+  const cudaError_t err = plan_rows(inst, nr / 2, nc, device, &plan, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Taps taps = make_taps(dec_lo, dec_hi, hlen);
   const Halo<float, 1> halo = make_halo(top, bot, lp, rp);
-  launch_chunks((nc + kCols - 1) / kCols, (nr / 2 + kTile - 1) / kTile, 1,
-                [&](dim3 grid, int y0, int) {
-                  inst.kernel<<<grid, kThreads, inst.smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-                      x, lo, hi, nr, nc, taps, hlen, y0, halo);
-                });
+  inst.kernel<<<grid, kThreads, inst.smem, static_cast<cudaStream_t>(stream)>>>(
+      x, lo, hi, nr, nc, taps, hlen, plan, halo);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -835,7 +966,9 @@ extern "C" int pypwt_tc_syn_rows(const float* a, const float* d,
       nc > 0x3fffffff || !synthesis_halos_ok(hlen, lp, rp))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto inst = pick_syn_rows(bf16 != 0, hlen);
-  cudaError_t err = prepare(inst, device);
+  RowsPlan plan;
+  unsigned grid = 0;
+  const cudaError_t err = plan_rows(inst, len, nc, device, &plan, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Taps taps = make_taps(rec_lo, rec_hi, hlen);
   const float* tops[2] = {halos[0], halos[2]};
@@ -847,12 +980,8 @@ extern "C" int pypwt_tc_syn_rows(const float* a, const float* d,
   }
   halo.lp = lp;
   halo.rp = rp;
-  launch_chunks((nc + kCols - 1) / kCols, (len + kTile - 1) / kTile, 1,
-                [&](dim3 grid, int y0, int) {
-                  inst.kernel<<<grid, kThreads, inst.smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-                      a, d, out, len, nc, taps, hlen, y0, halo);
-                });
+  inst.kernel<<<grid, kThreads, inst.smem, static_cast<cudaStream_t>(stream)>>>(
+      a, d, out, len, nc, taps, hlen, plan, halo);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -880,4 +1009,21 @@ extern "C" int pypwt_tc_idwt2d_occupancy(int hlen, int bf16, int halo,
                           blocks, smem)
               : occupancy(pick_idwt<Wrapped>(bf16 != 0, hlen), device,
                           blocks, smem);
+}
+
+// The occupancy API's resident blocks per SM, the dynamic shared memory in
+// bytes and the tile shape (rows and columns: K29g's of outputs, K29h's of
+// coefficients) of K29g's instance (synthesis 0) or K29h's (synthesis 1)
+// for hlen taps, bf16 as above: figures for reports.
+extern "C" int pypwt_tc_rows_occupancy(int synthesis, int hlen, int bf16,
+                                       int device, int* blocks, int* smem,
+                                       int* tile_rows, int* tile_cols) {
+  using namespace pypwt;
+  if (!level_ok(1, 2, 2, hlen)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return synthesis ? report_occupancy(pick_syn_rows(bf16 != 0, hlen), blocks,
+                                      smem, tile_rows, tile_cols)
+                   : report_occupancy(pick_ana_rows(bf16 != 0, hlen), blocks,
+                                      smem, tile_rows, tile_cols);
 }

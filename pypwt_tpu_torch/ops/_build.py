@@ -140,6 +140,9 @@ _SIGNATURES = {
     # synthesis, rows, n, hlen, bf16, halo, device, blocks (int*),
     # smem (int*), grid (int*)
     "pypwt_tc_dwt1d_occupancy": [_I] * 7 + [_P] * 3,
+    # synthesis, hlen, bf16, device, blocks (int*), smem (int*), tile rows
+    # (int*), tile columns (int*) (K29g / K29h)
+    "pypwt_tc_rows_occupancy": [_I] * 4 + [_P] * 4,
     # the one-axis passes of the grid and sequence layouts (K29); halos:
     # host array of the four halo pointers (lo_before, lo_after, hi_before,
     # hi_after)

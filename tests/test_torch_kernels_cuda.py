@@ -15,6 +15,7 @@ needs none of the conftest's JAX set-up, so on the GPU run it without it:
         tests/test_torch_kernels_cuda.py
 """
 
+import ctypes
 import hashlib
 
 import numpy as np
@@ -25,6 +26,7 @@ from pypwt_tpu_torch import Wavelets, ops, pipeline
 from pypwt_tpu_torch.core import dwt, nonsep, swt
 from pypwt_tpu_torch.core.nonsep import Filters2D
 from pypwt_tpu_torch.filters import FilterBank, get_filter_bank
+from pypwt_tpu_torch.ops import _build
 from pypwt_tpu_torch.ops import fused_dwt as fd
 from pypwt_tpu_torch.ops import fused_pyramid as kp
 from pypwt_tpu_torch.ops import mxu_dwt as km
@@ -2439,6 +2441,469 @@ ANA_DIGESTS = {
 }
 
 
+# K29g and K29h, tc_dwt2d.cu's row passes: each output against its plain
+# version and against the SHA-256 of the output that the kernels before
+# their redesign (windows staged through registers, stores straight from
+# the C fragments) gave on the card for the same seeded inputs; `python
+# tests/test_torch_kernels_cuda.py digests` prints ROWS_DIGESTS's form too.
+# Banks of hlen 4, 10, 18, 26, 34 and 40 reach every instance (k-steps:
+# K29g TF32 3-7 and bf16 2-4, K29h TF32 1-3 and bf16 1-2).
+ROWS_BANKS = ["db2", "db5", "db9", "db13", "db17", "sym20"]
+# (shards, input rows of a shard, nc, input offset, output offset); K29h
+# takes half the rows: whole and crossed tiles, nc % 4 of 1, 2 and 3 and nc
+# below 64, 8-row shards (multi-hop halos), inputs or outputs or both one
+# float past a 16-byte boundary
+ROWS_CASES = [(4, 64, 96, 0, 0), (3, 130, 130, 0, 0), (4, 8, 33, 0, 0),
+              (2, 66, 35, 0, 0), (4, 8, 40, 0, 0), (2, 64, 64, 1, 0),
+              (2, 64, 68, 0, 1), (2, 70, 129, 1, 1)]
+
+
+def _rows_id(kind, case, wname, prec):
+    return "-".join([kind, wname, prec, *(str(v) for v in case)])
+
+
+def _rows_output(kind, case, wname, prec, dev):
+    """(kernel output, plain output) of one case: the C entry launched once
+    on the shard, its halo rows and NaN-filled outputs made here."""
+    fb = _bank(wname)
+    shards, rows, nc, oi, oo = case
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    bf16 = int(prec == "bf16")
+
+    def empty(n, m):
+        return torch.full((n * m + oo,), float("nan"),
+                          device=dev)[oo:].view(n, m)
+
+    if kind == "K29g":
+        pads = fd.one_axis_pads("ana", fb, 0)
+        b, t, o = (_offset(v, oi) for v in _shard_halos(
+            _rand((shards * rows, nc), dev, 7), shards, 1, *pads))
+        out = [empty(rows // 2, nc) for _ in range(2)]
+        taps = [fd._host_taps(f) for f in (fb.dec_lo, fb.dec_hi)]
+        err = lib.pypwt_tc_ana_rows(
+            b.data_ptr(), t.data_ptr(), o.data_ptr(),
+            *(v.data_ptr() for v in out), rows, nc, *pads,
+            *(v.ctypes.data for v in taps), fb.hlen, bf16, dev.index, stream)
+        assert err == 0
+        return (torch.stack(out),
+                torch.stack(km.ana_rows_mxu_plain(b, t, o, fb, prec)))
+    L = rows // 2
+    pads = fd.one_axis_pads("syn", fb, L)
+    body, halos = _coeff_halos(
+        [_rand((shards * L, nc), dev, s) for s in (8, 9)], shards, 1, pads)
+    body = [_offset(v, oi) for v in body]
+    halos = tuple(_offset(v, oi) for v in halos)
+    out = empty(2 * L, nc)
+    ptrs = fd.halo_array(halos)
+    taps = [fd._host_taps(f) for f in (fb.rec_lo, fb.rec_hi)]
+    err = lib.pypwt_tc_syn_rows(
+        body[0].data_ptr(), body[1].data_ptr(), ctypes.addressof(ptrs),
+        out.data_ptr(), L, nc, *pads, *(v.ctypes.data for v in taps),
+        fb.hlen, bf16, dev.index, stream)
+    assert err == 0
+    return out, km.syn_rows_mxu_plain(*body, halos, fb, prec)
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+@pytest.mark.parametrize("wname", ROWS_BANKS)
+@pytest.mark.parametrize("case", ROWS_CASES, ids=str)
+@pytest.mark.parametrize("kind", ["K29g", "K29h"])
+def test_k29g_k29h_row_body_matches_plain_and_parent(dev, kind, case, wname,
+                                                     prec):
+    got, ref = _rows_output(kind, case, wname, prec, dev)
+    _close_prec(got, ref, prec)
+    assert _sha256(got) == ROWS_DIGESTS[_rows_id(kind, case, wname, prec)]
+
+
+ROWS_DIGESTS = {
+    'K29g-db2-highest-4-64-96-0-0':
+        'e251c35566bb7fc648535accbfbe383608eae5c3c17768a3a17cd05309229816',
+    'K29g-db2-bf16-4-64-96-0-0':
+        'dbcd8d59cf1dc763fc56d56e64ae1483607a69e9bcbe5f6f3873e121dca68e88',
+    'K29g-db5-highest-4-64-96-0-0':
+        'b8cd29ee03f8b75bcdf38601e8e0cb58ad0119898639606afc65d0fccfbecab9',
+    'K29g-db5-bf16-4-64-96-0-0':
+        '2132f6fa150b8986fac43cd827f0d86ee8d847de472abec7f2e043b985f20dae',
+    'K29g-db9-highest-4-64-96-0-0':
+        '88c3661baa10eb3663a52948d3657a3e4fc0be71b09f875892863f297f94f7aa',
+    'K29g-db9-bf16-4-64-96-0-0':
+        '3b5fb30b2869e6edc3fe6d3a07aeebf53bc9ffe50df786453ad646bb7dc0bc29',
+    'K29g-db13-highest-4-64-96-0-0':
+        '26ad6c285708488a588d4317d9ec67f2995c25c4cb8c962107471d749a400757',
+    'K29g-db13-bf16-4-64-96-0-0':
+        '13f8a0ab914e9f1c6bed7ef46259f62fd0dc480841b1a63fce2f1eb953f6df69',
+    'K29g-db17-highest-4-64-96-0-0':
+        '97feabd5376faf0fc2e6669d5de825dcf2f5430f37e088075305d2fede35a5b9',
+    'K29g-db17-bf16-4-64-96-0-0':
+        '67255a393e257bf747d5fa8c2c6fa76dd5c4bc2208772d86710b2be322d43d28',
+    'K29g-sym20-highest-4-64-96-0-0':
+        '1ec8d725dc5fda7322ccd973f78c8478027bc4b8034f8797c2e7fc10f9e81f02',
+    'K29g-sym20-bf16-4-64-96-0-0':
+        'f541acd55190a7846135ba900f85e9bf27b84c7fc70da5aa09f87ca03c9cba8c',
+    'K29g-db2-highest-3-130-130-0-0':
+        'd09058986b17dda5de3c93a50d6ae272cce7b981052e778b7f939c9f7a607d59',
+    'K29g-db2-bf16-3-130-130-0-0':
+        '655490749d21f895290014e1df59f779ba311edd01b9dd9cab3d62443cecb553',
+    'K29g-db5-highest-3-130-130-0-0':
+        '231ac41819177409de2ebb4d7c1f010767dca13da4b6a5dfae9499a9af75d59e',
+    'K29g-db5-bf16-3-130-130-0-0':
+        'e0b60fa5c7977fe7ae57e101ab8dbc99f09134aeaca7f0252d5387b0d43a6cfd',
+    'K29g-db9-highest-3-130-130-0-0':
+        '7d69635bf8c5cc282e52e106a42afad3f5880e504a6ef3d54c0b7a7232ae99df',
+    'K29g-db9-bf16-3-130-130-0-0':
+        '2ee705e2973a009f5da1900c40057ba96250188253d58b4dc6d29b8e5f345855',
+    'K29g-db13-highest-3-130-130-0-0':
+        '0428c15cb8fb12a330a332ba277fc77627aa1e486832666f8076c23dc88d54ee',
+    'K29g-db13-bf16-3-130-130-0-0':
+        '324a4a4a6eb7dfb41995da45bba46977110f310f2eb0d09ae872294bedbf8942',
+    'K29g-db17-highest-3-130-130-0-0':
+        '10701b01f1c2ea4ffc73ca7e64a9f31e0a1d26db803a5a33a53c5718a51b93fc',
+    'K29g-db17-bf16-3-130-130-0-0':
+        '5423b73c7c0d0d6c3f6fa60cb514806f6f5c34aeaf90d25d4cf785d7816c514c',
+    'K29g-sym20-highest-3-130-130-0-0':
+        '2b33701c2abb286e7fa4206dd0eb10783a8d3d8622f6468a4dae4520f4ba61b9',
+    'K29g-sym20-bf16-3-130-130-0-0':
+        '52cc9c3d15c17076078f6ecfd65f1a5bb99352b7c7c29064d33f2bc3bd2e2e6b',
+    'K29g-db2-highest-4-8-33-0-0':
+        'd72d4f1932591dc72dff143ac930fedd1a71df22a690a21788eca0751973b89b',
+    'K29g-db2-bf16-4-8-33-0-0':
+        '205316504df8ce7de4c840b0199abb20d9327b3739fbfe5139098b10c00f6ce1',
+    'K29g-db5-highest-4-8-33-0-0':
+        '8fd35c94e0366a774946e667d90b1d3d1b1189fb8b93426dbcd8bbb461435d90',
+    'K29g-db5-bf16-4-8-33-0-0':
+        'f85df028babc695c432e3a34184cee48537ba54bab86f9f4e3e46df0e15012dc',
+    'K29g-db9-highest-4-8-33-0-0':
+        'b249850bb7098ff9e53d8ea668d8ece1c5013991e34fc963fbc97af2f4aa8f46',
+    'K29g-db9-bf16-4-8-33-0-0':
+        'a9b92cf016fdce1bd5a44fb64d33a7f661f3df188c6701139f62bc7fa173557c',
+    'K29g-db13-highest-4-8-33-0-0':
+        'b16483ab29d90224fd23e92de64cb69e8da1f451adc91e3bffe1a9f4d08f7a71',
+    'K29g-db13-bf16-4-8-33-0-0':
+        '3f10830bbb5473d0cc0533ac639e331759d2edc2f0cd7f930118886dc3059f1b',
+    'K29g-db17-highest-4-8-33-0-0':
+        '60e5724d96b363a1df216d8b06a2579e30b810970c6d8465b4bd0a5497f248ee',
+    'K29g-db17-bf16-4-8-33-0-0':
+        '13443bdb2beda1bd68ad3110ade9389b12f4f589d718d96204e975ac1cce1339',
+    'K29g-sym20-highest-4-8-33-0-0':
+        'e1dffa3e6c7f1163fa598a93c4c37cbad429292495ed162fe6985272a8daa80e',
+    'K29g-sym20-bf16-4-8-33-0-0':
+        'b2c82deb597ae98f7045f4994bd5c6c3b6a9f811c3e183b6b7fa96bb5fe6e29e',
+    'K29g-db2-highest-2-66-35-0-0':
+        'd7a0a94d348a9b9619e1abaa31a23f11ff0126d3eb449447b801626730569c7a',
+    'K29g-db2-bf16-2-66-35-0-0':
+        'af770a3b8bdacd57102f6c7f4b0886efb87084a94a2289ede009646ff06e6765',
+    'K29g-db5-highest-2-66-35-0-0':
+        '6235409cc85b3d27732d055bdb8eca8141c9e15562f971206ccc1cf2612ee166',
+    'K29g-db5-bf16-2-66-35-0-0':
+        'ca0e2d01e2f5b341149291f5ce71920df85f5d4dcd806ebb013d09bf0b7c9a32',
+    'K29g-db9-highest-2-66-35-0-0':
+        '88975ab3650513d64ec55a08204da45a5f8c773b061bc6b1923709bdb5548b85',
+    'K29g-db9-bf16-2-66-35-0-0':
+        'f34d8366b736353c0a43b2f38045fb5553b9cb03fa2243fc09efba8295b546ab',
+    'K29g-db13-highest-2-66-35-0-0':
+        '47e31b6dd8340c43a530e2f4595359d3bcbdf5b5db8c1b3e6cbc1de4899d2967',
+    'K29g-db13-bf16-2-66-35-0-0':
+        '510a405e0e55964e870fee8f1994b4f203fcf7da419ba295de8f9dd0f65c932e',
+    'K29g-db17-highest-2-66-35-0-0':
+        '33a267f6e31fd808da4de1f391a61e445bc4472c27e490a3eba779b9342f0167',
+    'K29g-db17-bf16-2-66-35-0-0':
+        'ef660556a7e48d42c37c50001e8ec0736deb4e1dedac400ad1f51f3faecbd160',
+    'K29g-sym20-highest-2-66-35-0-0':
+        '2a25f043734eb51055e9dcd2337659a0b0b5ca17a1e25e2e804248fe09d1075e',
+    'K29g-sym20-bf16-2-66-35-0-0':
+        '12c4079b406a520779c7ec27ab86fd22619c5f37ad7ef20fc290051d1a6ef22a',
+    'K29g-db2-highest-4-8-40-0-0':
+        '8be05327da932ad9a3e3cc6f43d5a2769240550b78519073bf65dbdcc3777ba4',
+    'K29g-db2-bf16-4-8-40-0-0':
+        '316842e31ef184f265e67658f14d97844d1cd6ef3c3c9e4c7dc7d59607d5c5c6',
+    'K29g-db5-highest-4-8-40-0-0':
+        'cd2bbb49a96ed7fb3d38ce5dd044aa9f7764dcc835698a2fa99b3fe7fb37bfcf',
+    'K29g-db5-bf16-4-8-40-0-0':
+        'f44e42d07f0c5265974210e52bf0b25cbbe636ce1092b652bc618d9757d5082e',
+    'K29g-db9-highest-4-8-40-0-0':
+        '339e8eeda1f24773fcfce231f58fe78cdd4f7e8d3a02d6400370b9035e1c5774',
+    'K29g-db9-bf16-4-8-40-0-0':
+        '51646e5ad77269d84cc98486740272cb1e69997e77affe0998a92735f88fe458',
+    'K29g-db13-highest-4-8-40-0-0':
+        '6386d12a6f8eeb0fcde12f303e1552c4add9ac0cc1afc75a5587a0596b749a78',
+    'K29g-db13-bf16-4-8-40-0-0':
+        'fc62697e9bbdc59b24852a76603b8706064ef6e8627d84af87a4f989f3dec652',
+    'K29g-db17-highest-4-8-40-0-0':
+        '0f4f086e43c341b82a3c27644842fbde1d6ec5d9b14fb759940fe2a46515e3ef',
+    'K29g-db17-bf16-4-8-40-0-0':
+        'ec3f4933f305bcbb5e3a96367e21bba87087abd229ae7a0a89adf44a534a282e',
+    'K29g-sym20-highest-4-8-40-0-0':
+        '6ece617b700c854350c710619120adfda0d69f901df292d0b55c8d5541017ced',
+    'K29g-sym20-bf16-4-8-40-0-0':
+        '398663abc1a7460983c01a3e92256e8c6aa6b5cd884a1d9ccac6b095b2731a44',
+    'K29g-db2-highest-2-64-64-1-0':
+        '4c5b3adfb3efa82c67ba483aeec188572eb609d452a025b4fc4fa043886710b9',
+    'K29g-db2-bf16-2-64-64-1-0':
+        '2831012a9d8291f65e9bea578d25c7aef6123d177ce2851d2fcb983fca594c25',
+    'K29g-db5-highest-2-64-64-1-0':
+        'ee7e2e02c96ead9e55f1b8854cc2b24a92d1044ddea82102255a27248be2c7ff',
+    'K29g-db5-bf16-2-64-64-1-0':
+        'c384d7b268f3bd27c2e6927a1a174bc36e92fd53d661459966ffc157ccc31e13',
+    'K29g-db9-highest-2-64-64-1-0':
+        '403db7dda5111949345a6e7feafeb771d0c92a64831fc1537db361a370b4122e',
+    'K29g-db9-bf16-2-64-64-1-0':
+        'f6b9e3c35f9358a8cdeb7eccc8ac570937d0b2524f96a03a7d7d184d1dfd708a',
+    'K29g-db13-highest-2-64-64-1-0':
+        '77878220a40e8507eec8fc736822e577f13df655b4ba6df36a6d5d66ec873f5a',
+    'K29g-db13-bf16-2-64-64-1-0':
+        'af8408a5e058fba463d56593f9e7a90cc83a5d3b09dd7a684ae7ea12fe008009',
+    'K29g-db17-highest-2-64-64-1-0':
+        '17fc192724ff79250e443850c78e12eebe54f4805876d9c3dc19f7172335e491',
+    'K29g-db17-bf16-2-64-64-1-0':
+        '6e30ceea3494eebaf79b4e37bb6ab029f4368cddac4b15e46f53a2f29a4a5204',
+    'K29g-sym20-highest-2-64-64-1-0':
+        '0fb3b6e90a9e7453dbd200fb57ef89867cf8ff1b0ee4f33bfb9d6593ee7ad708',
+    'K29g-sym20-bf16-2-64-64-1-0':
+        'cd797d9f342d7ae47f70489bc318d03ef00e326e71afc10712c0f61fd2b9829d',
+    'K29g-db2-highest-2-64-68-0-1':
+        '0cc548ce380c6575c945c24729cebc833f569ba187d1d327fcfb38d6cb72b6d2',
+    'K29g-db2-bf16-2-64-68-0-1':
+        '3a3d95b43b26a14965a430e8a98dfbcaf41322905d3a7976d67e70c6fa30eb4d',
+    'K29g-db5-highest-2-64-68-0-1':
+        'a673a3ee0b5b0bf7ae8469d0e7b01e8d4607682fc1471d23b8e927f58a2b7fb6',
+    'K29g-db5-bf16-2-64-68-0-1':
+        '8670f4f74a08f3175d7b48f04da4b4080b3912345f85edcc6eb80c3947cc4e2a',
+    'K29g-db9-highest-2-64-68-0-1':
+        'acb0cf70851c2836a10507e241e6971a507c0b10fc3e2f221b75657980409306',
+    'K29g-db9-bf16-2-64-68-0-1':
+        '862707560940f6986e95754f5955c6f51a0b21e34c33b8f55675242fa6ba7f18',
+    'K29g-db13-highest-2-64-68-0-1':
+        '230b2f4b8bd122891548bfe404245ad0abeaec957019b887b669a761cbf0ecb1',
+    'K29g-db13-bf16-2-64-68-0-1':
+        '70660e37db90bedad1b592e3a3d9ccc2b7d1dd5ff9b50ac0f4362310ee283a6e',
+    'K29g-db17-highest-2-64-68-0-1':
+        '6d1c48192230999d7221e597b81fe8387757be34483d203d9df4429e3dad572f',
+    'K29g-db17-bf16-2-64-68-0-1':
+        '2a975f40f2dcc6407018d493c9e39b7fcdf85065f7d01d0c010ce2457e08f621',
+    'K29g-sym20-highest-2-64-68-0-1':
+        '1568b5cff9261940554bdedc0db5bfbb21a5f3d36efe685414b975fbcdba9ed8',
+    'K29g-sym20-bf16-2-64-68-0-1':
+        '2952a469d84bdd3a6a30034ed02ddb358486b42fe23c90e385590a3a22a26985',
+    'K29g-db2-highest-2-70-129-1-1':
+        'a5125b7b502531644ef79a9444524678afda2b6438224a3b867227c8377d5746',
+    'K29g-db2-bf16-2-70-129-1-1':
+        '946296b028c759ef2f3ffe840833df4a8067a58f8308d79f6843bd788599fb2d',
+    'K29g-db5-highest-2-70-129-1-1':
+        '02b87804c2509a24145d7c4050cf5dfc003ed88c829f421da6c888e762f949d7',
+    'K29g-db5-bf16-2-70-129-1-1':
+        '3bb84c44b8c8c8cd89c0709d6164e9480281877254c9951f25d22dc6c119fb67',
+    'K29g-db9-highest-2-70-129-1-1':
+        '3a3a00b8c1616f56dd8340d51ac23e5a058311b5b3a10d09321b5dc8084dcc37',
+    'K29g-db9-bf16-2-70-129-1-1':
+        '03aa661619bd05d5fc714f9276f5c5ded482f62e34a90c0c2a479b4263c32245',
+    'K29g-db13-highest-2-70-129-1-1':
+        '1958671ff336175b101d4c8a02bc901d24ed22c2aa495c4965b9084ebee97f37',
+    'K29g-db13-bf16-2-70-129-1-1':
+        '20efff036e7dde62fe82d5094f5ee99b23ebd8e366987511c5acda8dfb23c798',
+    'K29g-db17-highest-2-70-129-1-1':
+        '71e7c4f98f8deb7589b2f551cb095676c6479a8d503f82cfd7f201faa392b455',
+    'K29g-db17-bf16-2-70-129-1-1':
+        'f5a8c45900d8dfc3fa21ae495729c96523ab9036f1ac5b8b7242ed7c1c704e94',
+    'K29g-sym20-highest-2-70-129-1-1':
+        '02c086f52c12dff34627d6881fbe32a36181647bc56e2684b7cb690b31a0a917',
+    'K29g-sym20-bf16-2-70-129-1-1':
+        '478ce4233a2a0a707a79fe05521025cd4d83a6f35f1010aff6ed438378c07b9b',
+    'K29h-db2-highest-4-64-96-0-0':
+        '94f2177afac7d495e4256bf6ffc2b8c5cca4f7ae61c8d19448bc5f9ef6c43745',
+    'K29h-db2-bf16-4-64-96-0-0':
+        '795a8093e75fb840a253da9553f8e435a7ea26bd8c4b4d60cec9062d704e7da1',
+    'K29h-db5-highest-4-64-96-0-0':
+        '2134f70a1f6113ad38271658c0f2d51ae9f3da367fab358713f5de9343363f4f',
+    'K29h-db5-bf16-4-64-96-0-0':
+        '13aed5cd8dfa339bc0f76f9c9fa023e5eb889a23f779363dfbb6efa23243b15f',
+    'K29h-db9-highest-4-64-96-0-0':
+        'ce7f1d0d1ae6c23cddf5254e0c27bc4e199ad876e46c3560fd98d07090271499',
+    'K29h-db9-bf16-4-64-96-0-0':
+        '2493e5293cdfc1a5df2c70cb68c5bcbf50f8ff6b981f66c6d9e0e65e1ec81e54',
+    'K29h-db13-highest-4-64-96-0-0':
+        'fc2c192cf1ac60bdbad65f7377244ab243b0c6b0bd4b01ccc681b1e5bfb37715',
+    'K29h-db13-bf16-4-64-96-0-0':
+        '27894b5c7365c0bc9a8bc75f7c546661adbacc55a7597f96642dd2e26ede6116',
+    'K29h-db17-highest-4-64-96-0-0':
+        '9a58d8e96270e0f1aa6becb4e2773c0023cd8137546b7e084a08c6241244fe18',
+    'K29h-db17-bf16-4-64-96-0-0':
+        '53712500cc85124de11791902b43d5427e6308879ab040353edde1091a77514c',
+    'K29h-sym20-highest-4-64-96-0-0':
+        'c7df1d4f21ecd424dc57887e3f983df205f71aa8e46728683505fd0f32b0b11d',
+    'K29h-sym20-bf16-4-64-96-0-0':
+        '7bf9a827102fb4ce00d0024d8c272631e35929ae3a89732ed9e90dba00b99ced',
+    'K29h-db2-highest-3-130-130-0-0':
+        'b6b222a98b388e1085aae8b826e85afabc14f3dbbdcc3fce49f56c603b426f37',
+    'K29h-db2-bf16-3-130-130-0-0':
+        'c5b6d5c61d045445915f6132981eb02b1cc4932929420a62f2f7fb364bf4d685',
+    'K29h-db5-highest-3-130-130-0-0':
+        '277786e42c71ff6c5b5b637fc0a9e980be758115933a0634a6be5249602ccbbc',
+    'K29h-db5-bf16-3-130-130-0-0':
+        'e33e3a1afecab407299ceb6121b19a824bf5fd487eb4589c01ccbf0ec87368d4',
+    'K29h-db9-highest-3-130-130-0-0':
+        '5d194861bb24107b2045e3d5cb574d30cae1c669783f04b7bf8b5fdf6953e607',
+    'K29h-db9-bf16-3-130-130-0-0':
+        'a17b5ffee42cf74bc896a29af397382e952a04fc2412febc3409ef2b9a0892ec',
+    'K29h-db13-highest-3-130-130-0-0':
+        '62a5eb8ded86f481f6dd733f6cb3ad821ad61115be2e966d6edd68d76ce71246',
+    'K29h-db13-bf16-3-130-130-0-0':
+        '7164b59cfc941b3c387e23974fe2569bcae28b9b7dbfd7a545f79a85335774c0',
+    'K29h-db17-highest-3-130-130-0-0':
+        'd8d6865fdb1f807644474f025326da14b9505a7f8ef10111c9282558e01e6ecb',
+    'K29h-db17-bf16-3-130-130-0-0':
+        '833f252f17ba5a6b5496cf39cbec075412286f183a713f89514bec8a20979908',
+    'K29h-sym20-highest-3-130-130-0-0':
+        '89988dd4f43faf711c561ed6cfebd212b1fd10fb4686bfc1739a230c12ba98e6',
+    'K29h-sym20-bf16-3-130-130-0-0':
+        'cca2c35d9a955ee3a14f0aa27ddb1b156b75df24ea76a07f1afbe6900974eb84',
+    'K29h-db2-highest-4-8-33-0-0':
+        '38fdd03bea4ab789cf5ae8d69502014db5b3ad0c42da14b8fcde6a106021d088',
+    'K29h-db2-bf16-4-8-33-0-0':
+        'b53df7cf5370bdde4e1d98df69ebb8f4793d66679d392ecaa636dfb0ea8b3a06',
+    'K29h-db5-highest-4-8-33-0-0':
+        '80ab3452e0ef3b979ef6efd93f71f6b3251d34228c21023e5843e9b56da7fa3e',
+    'K29h-db5-bf16-4-8-33-0-0':
+        '6e36684ba12f95a8877cd11bf4c4dc26090418a18b633fd3ab74200dcb9e8504',
+    'K29h-db9-highest-4-8-33-0-0':
+        '06cc50858d473695ae70583c139256b2347164d48f152cf3813ab844e1ac8660',
+    'K29h-db9-bf16-4-8-33-0-0':
+        'bd91be0115092a540dc735fa950de469d8de9709cae016a2a0c6e4a2d7296089',
+    'K29h-db13-highest-4-8-33-0-0':
+        '74ec4297988d26933a7cde6050530e676aa115b5ae088c87e1f88b3ce1b6571a',
+    'K29h-db13-bf16-4-8-33-0-0':
+        '61a75122e1d0534b65ee55277161b630e29949a6839f65e951940de8907767aa',
+    'K29h-db17-highest-4-8-33-0-0':
+        '4fb17a4f0dccd70f61b4925579ff3843ee4c97e7b2cf4c3196f1153755cbf573',
+    'K29h-db17-bf16-4-8-33-0-0':
+        '5fb44829e2997b61fe2d5e8341570424730eb911beebb2bf7d768cff1e40dd9b',
+    'K29h-sym20-highest-4-8-33-0-0':
+        'd9afac613757dbbeedf8b5fd56980222ca8cd10df21fa40b8d5d7811ef81b026',
+    'K29h-sym20-bf16-4-8-33-0-0':
+        '6010fb3baf56b69658641bb0ada9e1ed7f86402fbbea4f4a0779cb974a17275a',
+    'K29h-db2-highest-2-66-35-0-0':
+        '5747e70813adac7e75f9649618d350429f2734dd860256a2d01b69480e25a0b3',
+    'K29h-db2-bf16-2-66-35-0-0':
+        '32f5143c72b5a19983a66c29dd8d95e4923b30042f0a0cee97d1040b3d80f59f',
+    'K29h-db5-highest-2-66-35-0-0':
+        '6c66f6ab65486ecc4e9c8859ec8962a0832d8c7436575b3e78774b3e4ad5e9ee',
+    'K29h-db5-bf16-2-66-35-0-0':
+        '4233d0a53ec9ef18c0d953367b1cf257e5d907c96546fa3a556b57a6605661eb',
+    'K29h-db9-highest-2-66-35-0-0':
+        '62c12d58b543e24c30d86c4f3e7af2422059ca8818faedcd0856d8babab2e7f2',
+    'K29h-db9-bf16-2-66-35-0-0':
+        'dd9b07df4d98dcd23e1ce7a652245b382926df158d8748fa2903f6265927b0c8',
+    'K29h-db13-highest-2-66-35-0-0':
+        'ed8641f842b1157e5f4e1083eb1e9254928ae77ab0cebdd05f2e6c9943840056',
+    'K29h-db13-bf16-2-66-35-0-0':
+        '89f1d4559413b92b4b7dd4041f2dc2be93a72ca538bbf0980efe4a580de9962f',
+    'K29h-db17-highest-2-66-35-0-0':
+        '648e970d29051996c5e459ea5b91c27076555add49ab6d419598123139f377f3',
+    'K29h-db17-bf16-2-66-35-0-0':
+        '86e28e97f949dbd1b726fdee727c27e69f2490d4d5b97a16c06e8973ac77c71c',
+    'K29h-sym20-highest-2-66-35-0-0':
+        'f7c2f9429467c277eb172a9fc40bee3a05bf961ba26bd5a901b0ae337bf35990',
+    'K29h-sym20-bf16-2-66-35-0-0':
+        '970b8e896b8ae476245315b93406d35a9a243719d185831a985dc354f426ee3c',
+    'K29h-db2-highest-4-8-40-0-0':
+        '86071447fbc92f6d4bb393f1e18f26496c132fa34b552c0a39fa5bc739d97741',
+    'K29h-db2-bf16-4-8-40-0-0':
+        'd180d721ed368862038ef775e3c307b3b09c93b89a0314ed8ff82679fa630054',
+    'K29h-db5-highest-4-8-40-0-0':
+        '8d72551ea425b933b0ce3318390cf289e0a7571ba107950ba7ce110fb2268a11',
+    'K29h-db5-bf16-4-8-40-0-0':
+        'd8b4ade641c36ab9fc4e25e38d3a9fc23683249d7d2226b8751886865d8cb7f6',
+    'K29h-db9-highest-4-8-40-0-0':
+        'ccce8ebca9eb43202a880be6b3e2fbaec2bfa8c7ed4be63e51c4dce4f733f742',
+    'K29h-db9-bf16-4-8-40-0-0':
+        '64d0871f8d1106f6ed4400ee4b05504306b00432a11e12c46835e8345e420c92',
+    'K29h-db13-highest-4-8-40-0-0':
+        '7e869497aef46224eaf859e8ec39c4ced1aed93cbcf4da3bd95404a61e264918',
+    'K29h-db13-bf16-4-8-40-0-0':
+        '79248ef59b0e10f3eb505c50e399d3c7f682f3b6a1e9e2f15c9bcb91db0cd6d2',
+    'K29h-db17-highest-4-8-40-0-0':
+        '516fc40fca16f175d858acef07ffb61d625eb5db2385153a1c65a29e02fa73e5',
+    'K29h-db17-bf16-4-8-40-0-0':
+        'c3064c59a3ac0c3ddd855af9f47e94c269daa3a8946481b2fd7a8ce3bf702126',
+    'K29h-sym20-highest-4-8-40-0-0':
+        'ad3320b5aae84e07cf63b3c14c5d9b19cb6ee315e5be16429921267cd91d02af',
+    'K29h-sym20-bf16-4-8-40-0-0':
+        'a5584a325145ec9ce17ba279f9e4b13fce8761506212b1ccee20fd348ebab023',
+    'K29h-db2-highest-2-64-64-1-0':
+        '967bae5b2df02e7de72156b4f6d2e6e4427307f0ee99bb1643bb0a4e972196a9',
+    'K29h-db2-bf16-2-64-64-1-0':
+        'abdee2265ec9676f891c02e05d89a19b9564d915688672ef07e677904c45291c',
+    'K29h-db5-highest-2-64-64-1-0':
+        '621aa5f6f45d67d2478168ce5a9dbfb070f43f6d2e270e1575f60230ad309d77',
+    'K29h-db5-bf16-2-64-64-1-0':
+        '1c1bdbe36d801e3c70f05587a7849742deb82cd33c729bc5872758c6f61c0b26',
+    'K29h-db9-highest-2-64-64-1-0':
+        'b57afe6ee4ab62cbb769f4aba3a47be2896879409c11b23e30caf974fdf48bca',
+    'K29h-db9-bf16-2-64-64-1-0':
+        'bc98f765e6b1f89f2a23b8d1c4fbe7d9463ed96023a2641e90093343e9af9c5a',
+    'K29h-db13-highest-2-64-64-1-0':
+        '9808a89bab010b8b615e1b15eee4421c1456c93e03f7ba981168439fe316295f',
+    'K29h-db13-bf16-2-64-64-1-0':
+        '9ac5ef9fae41a12ca7cb181d7f8a9b8a9f9f2bf68aecab0147b3154ad43c3d3a',
+    'K29h-db17-highest-2-64-64-1-0':
+        '40140d8a1bb7131933d41394c86de04632eeff53c3a2c3744c9d28933da4a8cc',
+    'K29h-db17-bf16-2-64-64-1-0':
+        'e16a60d885b21824941bb30120b7599a7a4c2c01325f0a0859492d930f8f4b54',
+    'K29h-sym20-highest-2-64-64-1-0':
+        '0fbef6549ff28ecdfe8ae68a8cf6c7483a079280998eed707a5f39803ad43ed4',
+    'K29h-sym20-bf16-2-64-64-1-0':
+        '9fbce1bcf1317d651b259714dbe922c983328743519e41b4deaae8d6c09193b0',
+    'K29h-db2-highest-2-64-68-0-1':
+        '30521a4abec61e3c81dc4641695dae80dbec752a689cabb9630d47dbe5b36778',
+    'K29h-db2-bf16-2-64-68-0-1':
+        '5625019c3cf1e2c437375aee6bdfa647af8d643008c84d98f31eaffd20695465',
+    'K29h-db5-highest-2-64-68-0-1':
+        '9742bc9b9b0d7d5c01c74347e4e1cc727253fd00e95b804dacfdd4741205ff0c',
+    'K29h-db5-bf16-2-64-68-0-1':
+        '2d9a5d5389bee7c3952fc3161e69c79b99b97436c8968957cd62f123e923594e',
+    'K29h-db9-highest-2-64-68-0-1':
+        'c6fc567d753e5615051a8e6332ed04ad99fa18fedc609c42aa5bebef255021e4',
+    'K29h-db9-bf16-2-64-68-0-1':
+        '602e7b7c55df1d96e38febf504bc49b8e9486db009e509b6fd9be275c374e7ab',
+    'K29h-db13-highest-2-64-68-0-1':
+        '5606993e85c067004250cc9cc0f857da9f388f74048a602bc411b59652181e2e',
+    'K29h-db13-bf16-2-64-68-0-1':
+        '95aeb0d22c9a229e3d71a3aa234eeec28bce6c7807ef6e8c1fcdb3c24e61c8b4',
+    'K29h-db17-highest-2-64-68-0-1':
+        'ba42efc34cbca53c25f93644251a555f8c9f059cbcee7a99dce67c834fcd09b4',
+    'K29h-db17-bf16-2-64-68-0-1':
+        '6ab4cb1d5a0e0d548035fe6e2fc85d7f4886c613da55a9afa5cb6ecae890c289',
+    'K29h-sym20-highest-2-64-68-0-1':
+        'a62e2d71214d52a3b22d1817748628c5c5c9fb83907f7d6e3e1f4deb841fc9e0',
+    'K29h-sym20-bf16-2-64-68-0-1':
+        'd2a7da35be9ef85e38aeec3df76707ee63dd91b5d6b8677ad46ad8e648b58a18',
+    'K29h-db2-highest-2-70-129-1-1':
+        '24cce0d603a58613c32bdebad08eb5ad0ac5e8c57ea628f5c183cf742d8a4b21',
+    'K29h-db2-bf16-2-70-129-1-1':
+        '9957e7e03456a02296e517140fa3da9f3e1818b478bd29598d39a7836e6856d6',
+    'K29h-db5-highest-2-70-129-1-1':
+        '6e370e88c3c43f18a64e384b74517387150701a219e05c0bc626a43e2da32fdc',
+    'K29h-db5-bf16-2-70-129-1-1':
+        '8c9f62ea48bb8d8fedada0227f3420b6ad60d35fa7d29cb6be8f45fa8e8c017a',
+    'K29h-db9-highest-2-70-129-1-1':
+        '6ea6cac3159d8c41fd341a15464406aa9fd56d715510e255d40c95e7d9400129',
+    'K29h-db9-bf16-2-70-129-1-1':
+        '09cd50c348b325137e15387bf27ff4a66c03563d7659882a4fdcee1cf725c63a',
+    'K29h-db13-highest-2-70-129-1-1':
+        'd4cddff962fadbda77cb07b298cc07abd384b7a4aae04c80754b401407a1406c',
+    'K29h-db13-bf16-2-70-129-1-1':
+        'c28a59af3131bed2cfa66abf68cb30cd1bfb19e15381221353981622d9c5b837',
+    'K29h-db17-highest-2-70-129-1-1':
+        'f6b59a99c1b1958a779df702fa3c74abafcc97d87bd2e91975d8504926233420',
+    'K29h-db17-bf16-2-70-129-1-1':
+        '7b9f5baba68a35e761a76791f87d518d8769dc4179eb6dc81dd9f99b627696ee',
+    'K29h-sym20-highest-2-70-129-1-1':
+        'f40fe650f7d3b79dc9faabfe586721a134f18bbba4325e20d5db98c18919d012',
+    'K29h-sym20-bf16-2-70-129-1-1':
+        '3e3e743eca876c96888877bfd64779ad08f0da9c2741d4bc4a83ea04b7e1b9ca',
+}
+
+
 if __name__ == "__main__":
     import sys
 
@@ -2458,4 +2923,12 @@ if __name__ == "__main__":
             out_, _ = _ana_output(kind_, case_, wname_, dev_)
             print(f"    {_pair_id(kind_, case_, wname_)!r}:\n"
                   f"        {_sha256(torch.stack(out_))!r},")
+    print("}\nROWS_DIGESTS = {")
+    for kind_ in ("K29g", "K29h"):
+        for case_ in ROWS_CASES:
+            for wname_ in ROWS_BANKS:
+                for prec_ in ("highest", "bf16"):
+                    out_, _ = _rows_output(kind_, case_, wname_, prec_, dev_)
+                    print(f"    {_rows_id(kind_, case_, wname_, prec_)!r}:"
+                          f"\n        {_sha256(out_)!r},")
     print("}")

@@ -3,6 +3,8 @@ nothing, its build directory is git-ignored, its sources import neither
 jax nor pypwt_tpu, and chip_smoke.py refuses to run without a GPU."""
 
 import ast
+import ctypes
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -182,6 +184,21 @@ def test_pyproject_ships_the_port():
                for m in tools["pytest"]["ini_options"]["markers"])
     for pattern in ("csrc/*.cu", "csrc/*.cuh"):
         assert list(PKG.glob(pattern))
+
+
+def test_rows_occupancy_entry_is_declared_as_chip_turns_calls_it():
+    """K29g / K29h's occupancy query has the ctypes signature in _build
+    that chip_turns.py gives it where a parent tree's _build lacks it:
+    synthesis, hlen, bf16 and device, then four int pointers (blocks per
+    SM, shared memory, tile rows, tile columns)."""
+    from pypwt_tpu_torch.ops import _build
+    spec = importlib.util.spec_from_file_location("chip_turns",
+                                                  ROOT / "chip_turns.py")
+    turns = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(turns)
+    name = "pypwt_tc_rows_occupancy"
+    want = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+    assert _build._SIGNATURES[name] == turns.ENTRY_TYPES[name] == want
 
 
 def test_chip_smoke_fails_without_cuda():
