@@ -160,8 +160,9 @@ K12a/K12b against K10 (level l of 2048 x 2048); it prints no ok line.
 
 ``--only KEYS`` is the loop of a kernel redesign: KEYS, comma-separated,
 name rows of the kernels line (a family such as K7, K28 or K29 names all
-of its rows); the tap-loop DWT analysis K1 and synthesis K2, the tap-loop
-SWT synthesis K9, the tensor-core forms K5/K6/K11a/K11b and K7a/K7b, the
+of its rows); the tap-loop DWT analysis K1 and synthesis K2, the
+cycle-spin synthesis K20, the tap-loop SWT synthesis K9, the tensor-core
+forms K5/K6/K11a/K11b and K7a/K7b, the
 row-sharded K26-K28 and the grid and sequence passes K29 are selectable.
 It builds every kernel, then runs only those rows' phases: their
 kernel-against-plain checks over the cases above (both precisions),
@@ -176,7 +177,11 @@ and K28 idwt the occupancy of their tc_dwt2d.cu instances and digests of
 their outputs on seeded cases; K2 at levels 0-2 of 2048^2, db2 and
 sym20, float32 and float64, and K2 and K26b the occupancy and tile shape
 of their idwt2d.cu instances and digests of their outputs on seeded
-cases; K1 and K26a the same for dwt2d.cu's analysis; K7a/K7b at levels
+cases; K1 and K26a the same for dwt2d.cu's analysis; K20 runs phase 3's
+shifted checks, the spins of phase 4 with their launches and phase 5's
+slice times, and prints the occupancy and tile shape of its idwt2d.cu
+instances at levels 0-2 of 2048^2 for each parity of the shift and
+digests of its outputs on seeded cases; K7a/K7b at levels
 1-3 of the sinogram and 1-5 of the signal beside K3/K4, and the
 occupancy of the tc_dwt1d.cu instances that K7a/K7b and K29e/K29f run);
 a K29 row runs
@@ -2193,6 +2198,74 @@ def print_idwt2d_tap_digests(port, dev, keys):
             del body, halos, out
             n += 1
     print(f"digests of the tap-loop DWT synthesis: {n}")
+
+
+# The levels whose outputs --only K20 digests, so that two builds of
+# idwt2d.cu compare bit for bit: SYN2D_DIGEST_OUTPUTS at each parity of the
+# shift, one wider than a tile and the SHIFTS beside them (reduced mod the
+# plane), with and without the accumulator (scale 0.25), planes one sample
+# past a 16-byte boundary, and K20's timed level (the frame at (1, 1)), an
+# odd unshifted axis (the pair body's crop) and a shifted odd one (the
+# direct form).
+K20_DIGEST_SHIFTS = ((0, 0), (1, 0), (0, 1), (1, 1), (5, 3), (70, 131),
+                     (127, 1), (4101, 4099))
+
+
+def print_k20_occupancy(port, dev):
+    """Resident blocks per SM (the occupancy API), dynamic shared memory
+    and tile shape of the idwt2d.cu instances that K20 runs at levels 0-2
+    of 2048^2 for each parity of the shift, db2 and sym20 (a build without
+    the query says so)."""
+    from pypwt_tpu_torch.ops import _build
+    lib = _build.load_library()
+    query = "pypwt_idwt2d_unshift_occupancy"
+    if not hasattr(lib, query):
+        print("occupancy K20: not reported by this build")
+        return
+    for lev, wname, (sr, sc) in itertools.product(
+            range(3), SYN2D_TIMED_BANKS, ((0, 0), (1, 0), (0, 1), (1, 1))):
+        nr, nc = FRAME[0] >> lev, FRAME[1] >> lev
+        out = [ctypes.c_int() for _ in range(4)]
+        err = getattr(lib, query)(nr, nc, port.get_filter_bank(wname).hlen,
+                                  sr, sc, dev.index,
+                                  *(ctypes.byref(o) for o in out))
+        if err:
+            raise RuntimeError(f"occupancy query K20 {wname}: error {err}")
+        blocks, smem, tr, tc = (o.value for o in out)
+        print(f"occupancy K20 {wname} ({nr}, {nc}) shift ({sr}, {sc}): "
+              f"{blocks} blocks of 256 threads per SM, {smem} bytes of "
+              f"dynamic shared memory each, tiles of {tr} x {tc} "
+              "coefficients")
+
+
+def print_k20_digests(port, dev):
+    """SHA-256 of K20's outputs on seeded inputs (K20_DIGEST_SHIFTS on
+    SYN2D_DIGEST_OUTPUTS, and the frame-sized levels): equal lines from two
+    trees mean bit-identical kernels."""
+    ks = port.ops.shifted
+    gen = torch.Generator(device=dev).manual_seed(SEED + 63)
+    banks = [fb for fb in banks_1d(port) if fb.name != "db8"] + [
+        port.get_filter_bank("bior4.4"), port.get_filter_bank("sym8")]
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    cases = [(fb, shape, shift, acc, off) for fb in banks
+             for shape in SYN2D_DIGEST_OUTPUTS for shift in K20_DIGEST_SHIFTS
+             for acc in (False, True) for off in (0, 1)
+             if off == 0 or (acc and shape in ((66, 130), (2, 66, 130)))]
+    db2 = port.get_filter_bank("db2")
+    cases += [(db2, FRAME, (1, 1), True, 0), (db2, FRAME, (5, 3), True, 0),
+              (db2, (ODD_FRAME[0], FRAME[1]), (0, 1), True, 0),
+              (db2, ODD_FRAME, (1, 1), True, 0)]
+    for fb, shape, (sr, sc), acc, off in cases:
+        c = [unaligned(rand(half(shape)), off) for _ in range(4)]
+        a = unaligned(rand(shape), off) if acc else None
+        out = ks.idwt2d_unshift_fused(*c, fb, shape, sr, sc, a,
+                                      0.25 if acc else 1.0)
+        print(f"digest K20 {fb.name} {shape} ({sr}, {sc}) "
+              f"{'acc' if acc else 'store'} +{off}: {digest(out)}")
+    print(f"digests of K20: {len(cases)}")
 
 
 # The levels whose outputs --only K1 / K26a digest, so that two builds of
@@ -5173,7 +5246,8 @@ MXU2D_KEYS = ("K5", "K6", "K11a", "K11b")
 SHARD_KEYS = ("K26a", "K26b", "K27a", "K27b", "K28 dwt", "K28 idwt",
               "K28 swt", "K28 iswt")
 MXU1D_KEYS = ("K7a", "K7b")
-ONLY_KEYS = ("K1", "K2", "K9") + MXU2D_KEYS + MXU1D_KEYS + SHARD_KEYS + K29
+ONLY_KEYS = (("K1", "K2", "K9", "K20") + MXU2D_KEYS + MXU1D_KEYS
+             + SHARD_KEYS + K29)
 
 
 def in_family(key, item):
@@ -5247,7 +5321,13 @@ def run_only(port, dev, card, keys):
         worst.update(phase_kernels_mxu1d(port, dev, keys))
         launches.update(phase_main_paths_mxu1d(port, dev, keys))
         times.update(phase_times_mxu1d(port, dev, card, keys))
-    if wanted(keys, "K1", "K2", "K9", *MXU2D_KEYS, *MXU1D_KEYS):
+    if "K20" in keys:
+        worst.update(phase_kernels_shifted(port, dev))
+        launches.update(phase_main_paths_pipeline(port, dev))
+        times.update(phase_times_slice(port, dev, card))
+        print_k20_occupancy(port, dev)
+        print_k20_digests(port, dev)
+    if wanted(keys, "K1", "K2", "K9", "K20", *MXU2D_KEYS, *MXU1D_KEYS):
         library.update(phase_library(port, dev, card, keys))
     if wanted(keys, "K7a", "K7b", "K29e", "K29f"):
         print_tc1d_occupancy(port, dev, keys)

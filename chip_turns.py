@@ -1,10 +1,10 @@
 """Time the tensor-core 2D DWT analysis and synthesis, the tap-loop 2D
-DWT synthesis or analysis, or the tensor-core row passes of the grid
-layout, of several source trees in turns, in one process, on one NVIDIA
-GPU, or compare their kernels' machine code:
+DWT synthesis or analysis, the tensor-core row passes of the grid layout,
+or the cycle-spin synthesis, of several source trees in turns, in one
+process, on one NVIDIA GPU, or compare their kernels' machine code:
 
-    python3 chip_turns.py [--only dwt|idwt|syn2d|ana2d|rows] [--banks B,...]
-        PARENT_TREE TREE [TREE ...]
+    python3 chip_turns.py [--only dwt|idwt|syn2d|ana2d|rows|spin]
+        [--banks B,...] PARENT_TREE TREE [TREE ...]
     python3 chip_turns.py --sass PARENT_TREE TREE [TREE ...]
 
 A tree is a directory holding a ``pypwt_tpu_torch`` package: an unpacked
@@ -29,7 +29,12 @@ in the default run): K29g (``pypwt_tc_ana_rows``) at levels 0-2 of one
 outputs, inputs of 4096 x 2048, 2048 x 1024 and 1024 x 512, with their
 halo rows) and K29h (``pypwt_tc_syn_rows``) on the matching coefficients
 (2048^2, 1024^2 and 512^2 of each plane), sym8 (``--banks``: these banks
-instead), "highest" and "bf16".
+instead), "highest" and "bf16". ``--only spin`` (not in the default run):
+K20 (``pypwt_idwt2d_unshift``) at the levels of a 2048^2 frame that the
+cycle spins give it (SPIN_LEVELS: the random spin's level 0 at shift (1,
+1) with the accumulator and scale 0.25, its levels 1 and 2 at each pair of
+phase bits, a static spin's level 0 at (5, 3) with the accumulator), db2,
+sym8 and sym20 (``--banks``: these banks instead).
 Device time by CUDA events behind a sleep kernel, the median of 21
 samples of 10 launches, and the host time of one call (entry to return,
 the device idle before it), the median of 21; the trees in order, then
@@ -38,7 +43,8 @@ whether every tree's output is bit for bit the first tree's, and the
 trees that report it print their
 instances' occupancy (``pypwt_tc_dwt2d_occupancy``,
 ``pypwt_tc_idwt2d_occupancy``, ``pypwt_idwt2d_occupancy``,
-``pypwt_dwt2d_occupancy``, ``pypwt_tc_rows_occupancy``: blocks per SM,
+``pypwt_dwt2d_occupancy``, ``pypwt_tc_rows_occupancy``,
+``pypwt_idwt2d_unshift_occupancy``: blocks per SM,
 dynamic shared memory and, for the tap loop and the row passes, the tile
 shape).
 
@@ -71,12 +77,23 @@ SAMPLES, REPS = 21, 10
 SLEEP_CYCLES = 2_000_000
 SYN2D_BANKS = ["db2", "sym20"]  # also the tap-loop analysis's (--banks)
 ROWS_BANKS = ["sym8"]           # the row passes' (--banks)
+SPIN_BANKS = ["db2", "sym8", "sym20"]  # K20's (--banks)
+# K20's timed levels: (level of the 2048^2 frame, shift, accumulator): the
+# random spin's level 0 (its phase bits (1, 1), accumulating) and levels
+# 1-2 (each pair of phase bits, no accumulator), and a static spin's level
+# 0 (its whole shift, accumulating)
+SPIN_LEVELS = ([(0, (1, 1), True)]
+               + [(lev, s, False) for lev in (1, 2)
+                  for s in ((1, 0), (0, 1), (0, 0), (1, 1))]
+               + [(0, (5, 3), True)])
 ROWS_BLOCK = (4096, 4096)       # one block of an 8192^2 image on a 2 x 2 grid
 SYN2D_TYPES = (torch.float32, torch.float64)
 # entries that a parent tree's _build may not declare
 ENTRY_TYPES = {
     "pypwt_idwt2d_occupancy": [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4,
     "pypwt_dwt2d_occupancy": [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4,
+    "pypwt_idwt2d_unshift_occupancy": [ctypes.c_int] * 6
+    + [ctypes.c_void_p] * 4,
     "pypwt_tc_rows_occupancy": [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4}
 
 
@@ -105,7 +122,9 @@ def load(trees):
                      "pypwt_dwt2d", "pypwt_dwt2d_f64",
                      "pypwt_dwt2d_sharded", "pypwt_dwt2d_sharded_f64",
                      "pypwt_dwt2d_occupancy", "pypwt_tc_ana_rows",
-                     "pypwt_tc_syn_rows", "pypwt_tc_rows_occupancy"):
+                     "pypwt_tc_syn_rows", "pypwt_tc_rows_occupancy",
+                     "pypwt_idwt2d_unshift",
+                     "pypwt_idwt2d_unshift_occupancy"):
             if hasattr(lib, name):
                 getattr(lib, name).argtypes = _build._SIGNATURES.get(
                     name, ENTRY_TYPES.get(
@@ -372,6 +391,27 @@ def cases(port, dev, only):
             return out
         return call
 
+    def k20(wname, level, shift, acc):
+        fbw = port.get_filter_bank(wname)
+        lo2, hi2 = fd._host_taps(fbw.rec_lo), fd._host_taps(fbw.rec_hi)
+        n = FRAME >> (level + 1)
+        sets = [[rand((n, n)) for _ in range(4)] for _ in range(4)]
+        accs = [rand((2 * n, 2 * n)) for _ in range(2)] if acc else [None]
+        out = torch.empty((2 * n, 2 * n), device=dev)
+        sr, sc = shift
+
+        def call(lib, i, _):
+            a = accs[i % len(accs)]
+            err = lib.pypwt_idwt2d_unshift(
+                *(p.data_ptr() for p in sets[i % 4]),
+                None if a is None else a.data_ptr(), out.data_ptr(), 1, n, n,
+                2 * n, 2 * n, sr, sc, 0.25 if acc else 1.0, lo2.ctypes.data,
+                hi2.ctypes.data, fbw.hlen, dev.index, stream)
+            if err:
+                raise RuntimeError(f"K20 level {level}: error {err}")
+            return out
+        return call
+
     got = {}
     precisions = (0, 1)
     if only in (None, "dwt"):
@@ -406,6 +446,12 @@ def cases(port, dev, only):
                 got.update({f"{key} level {lev} {wname}":
                             (make(wname, lev), precisions)
                             for lev in (0, 1, 2)})
+    if only == "spin":
+        for wname in SPIN_BANKS:
+            for lev, shift, acc in SPIN_LEVELS:
+                got[f"K20 level {lev} {wname} {shift}"
+                    + (" acc" if acc else "")] = (k20(wname, lev, shift, acc),
+                                                  (None,))
     return got, fb.hlen
 
 
@@ -515,14 +561,16 @@ def main():
         return
     if trees[:1] == ["--only"]:
         only, trees = (trees[1:2] or [""])[0], trees[2:]
-    if trees[:1] == ["--banks"] and only in ("syn2d", "ana2d", "rows"):
-        banks = ROWS_BANKS if only == "rows" else SYN2D_BANKS
+    if trees[:1] == ["--banks"] and only in ("syn2d", "ana2d", "rows",
+                                             "spin"):
+        banks = {"rows": ROWS_BANKS, "spin": SPIN_BANKS}.get(only,
+                                                             SYN2D_BANKS)
         banks[:] = (trees[1:2] or [""])[0].split(",")
         trees = trees[2:]
     if len(trees) < 2 or only not in (None, "dwt", "idwt", "syn2d",
-                                      "ana2d", "rows"):
+                                      "ana2d", "rows", "spin"):
         print("usage: python3 chip_turns.py [--only dwt|idwt|syn2d|ana2d|"
-              "rows] [--banks B,...] PARENT_TREE TREE [TREE ...]",
+              "rows|spin] [--banks B,...] PARENT_TREE TREE [TREE ...]",
               file=sys.stderr)
         sys.exit(2)
     if not torch.cuda.is_available():
@@ -561,6 +609,8 @@ def main():
         print_tap2d_occupancy(trees, libs, port, dev, only)
     if only == "rows":
         print_rows_occupancy(trees, libs, port, dev)
+    if only == "spin":
+        print_spin_occupancy(trees, libs, port, dev)
     for name, (call, variants) in calls.items():
         for bf16 in variants:
             digests = {hashlib.sha256(flat(call(lib, 0, bf16)).cpu()
@@ -635,6 +685,30 @@ def print_rows_occupancy(trees, libs, port, dev):
                   f"{'bf16' if bf16 else 'highest'}: {blocks} blocks per SM, "
                   f"{smem} bytes, tiles of {tr} x {tc} "
                   f"{'coefficients' if syn else 'outputs'}")
+
+
+def print_spin_occupancy(trees, libs, port, dev):
+    """Blocks per SM, dynamic shared memory and tile shape of each tree's
+    K20 instances at the timed levels, shifts and banks, where the tree
+    reports them."""
+    query = "pypwt_idwt2d_unshift_occupancy"
+    for tree, lib in zip(trees, libs):
+        if not hasattr(lib, query):
+            print(f"occupancy {tree} K20: not reported by this tree")
+            continue
+        for (lev, (sr, sc), _), wname in itertools.product(SPIN_LEVELS,
+                                                          SPIN_BANKS):
+            n = FRAME >> lev
+            out = [ctypes.c_int() for _ in range(4)]
+            err = getattr(lib, query)(
+                n, n, port.get_filter_bank(wname).hlen, sr, sc, dev.index,
+                *(ctypes.byref(o) for o in out))
+            if err:
+                raise RuntimeError(f"occupancy query: error {err}")
+            blocks, smem, tr, tc = (o.value for o in out)
+            print(f"occupancy {tree} K20 ({n}, {n}) {wname} ({sr}, {sc}): "
+                  f"{blocks} blocks per SM, {smem} bytes, tiles of {tr} x "
+                  f"{tc} coefficients")
 
 
 if __name__ == "__main__":

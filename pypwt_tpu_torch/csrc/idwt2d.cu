@@ -56,21 +56,22 @@
 // syn::tile's order of summation, so the outputs are bit for bit those of
 // the body before.
 //
-// K20 runs syn::tile (which K25 shares): each block owns a (2TR) x (2TC)
-// output tile, TR = TC = 32. It stages the (TR + 1 + h2) x (TC + 1 + h2)
-// windows of all four inputs into shared memory once, with a true periodic
-// wrap per sample, runs the axis -2 synthesis into two shared tiles (t1,
-// t2), then the last-axis synthesis, one output per thread and item, and
-// writes the output tile with consecutive threads on consecutive columns;
-// it computes y from row and column R0 + sr, C0 + sc on: an odd shift
-// starts the tile at an odd y row, so it stages one coefficient row and
-// column more and reads t1/t2 one row or column further on. That holds
-// where y has period Nr = 2Lr along a shifted axis; a shifted odd axis,
-// whose y has period 2Lr - 1, takes the direct form instead
-// (idwt2d_direct_kernel: each thread sums its pixel's 4 h2^2 taps from
-// device memory through L1, no staging), which only odd cycle-spun planes
-// reach. idwt2d_kernel keeps its type parameter, though only its float32
-// shifted instance is built, so that K20's machine code stays as it was.
+// K20 runs the same pair body with its unshift (idwt2d_unshift_kernel,
+// float32, K2's tile shapes): along an axis shifted by s = 2q + e, output
+// 2m + p is y's 2(m + q) + p + e, so the window's origin moves by q
+// coefficients and an odd s swaps the parities, one window sample on for
+// output parity 1: a tap table per axis (pair::make_taps with odd),
+// kernel parameters as K2's, and an odd row or column shift a template
+// parameter (four instances per tile shape), the span h2 + 1 along an odd
+// shift. Each output adds the accumulator, read as an 8-byte pair where
+// the store is one and acc is aligned, then takes the scale, in
+// syn::tile's order, so the outputs are bit for bit those of K20's body
+// before (syn::tile, now K25's alone). That holds where y has period Nr =
+// 2Lr along a shifted axis; an odd axis that is not shifted is cropped as
+// K2 crops it, and a shifted odd axis, whose y has period 2Lr - 1, takes
+// the direct form instead (idwt2d_direct_kernel: each thread sums its
+// pixel's 4 h2^2 taps from device memory through L1, no staging), which
+// only odd cycle-spun planes reach.
 //
 // All: the batch is the grid's z axis, row tiles its y axis, in chunks
 // where a level holds more than a grid's 65535 (launch_chunks); plane
@@ -80,24 +81,6 @@
 
 namespace pypwt {
 namespace {
-
-template <class T, bool kShift>
-__global__ void __launch_bounds__(kThreads)
-idwt2d_kernel(const T* __restrict__ a, const T* __restrict__ h,
-              const T* __restrict__ v, const T* __restrict__ d,
-              const T* __restrict__ acc, T* __restrict__ out, int lr, int lc,
-              int nr, int nc, TapsT<T> taps, int hlen, int y0, int sr,
-              int sc, float scale) {
-  T* smem = dynamic_smem<T>();
-  T* g_lo = syn::taps<T, kShift>(smem, hlen);
-  load_polyphase_taps(taps, hlen, g_lo, g_lo + 2 * kHalfTaps);
-  const long long pi = static_cast<long long>(blockIdx.z) * lr * lc;
-  const long long po = static_cast<long long>(blockIdx.z) * nr * nc;
-  syn::tile<T, kShift, false>(
-      a + pi, h + pi, v + pi, d + pi, acc ? acc + po : acc, out + po, lr, lc,
-      nr, nc, hlen, 2 * syn::TR * (y0 + blockIdx.y),
-      2 * syn::TC * blockIdx.x, sr, sc, scale, smem);
-}
 
 // K20's direct form: one thread per output pixel, for a shifted odd axis.
 __global__ void __launch_bounds__(kThreads)
@@ -160,11 +143,11 @@ idwt2d_pair_kernel(const T* __restrict__ a, const T* __restrict__ h,
   T* smem = dynamic_smem<T>();
   if constexpr (Rows::kHalo) {
     pair::tile<T, kTR, kTC>(a + pi, h + pi, v + pi, d + pi, out + po, lr, lc,
-                            nr, nc, hlen, taps, m0, n0, smem,
+                            nr, nc, hlen, taps, taps, m0, n0, smem,
                             rows.plane(blockIdx.z, lc));
   } else {
     pair::tile<T, kTR, kTC>(a + pi, h + pi, v + pi, d + pi, out + po, lr, lc,
-                            nr, nc, hlen, taps, m0, n0, smem, rows);
+                            nr, nc, hlen, taps, taps, m0, n0, smem, rows);
   }
 }
 
@@ -181,6 +164,60 @@ PairInstance<T, Rows> pair_instance(int hlen) {
           pair::Geometry<T>(kTR, kTC, hlen).smem_bytes(), kTR, kTC};
 }
 
+// K20: one level on the pair body with K20's unshift (u: the window's
+// origin moved by qr, qc coefficients, the accumulator and the scale), an
+// odd row (kOddR) or column (kOddC) shift read through the taps gr / gc.
+template <int kTR, int kTC, bool kOddR, bool kOddC>
+__global__ void __launch_bounds__(kThreads)
+idwt2d_unshift_kernel(const float* __restrict__ a,
+                      const float* __restrict__ h,
+                      const float* __restrict__ v,
+                      const float* __restrict__ d,
+                      const float* __restrict__ acc,
+                      float* __restrict__ out, int lr, int lc, int nr,
+                      int nc, pair::Taps<float> gr, pair::Taps<float> gc,
+                      int hlen, int y0, int qr, int qc, float scale) {
+  const long long pi = static_cast<long long>(blockIdx.z) * lr * lc;
+  const long long po = static_cast<long long>(blockIdx.z) * nr * nc;
+  const pair::Unshift<float> u{qr, qc, acc ? acc + po : acc, scale};
+  pair::tile<float, kTR, kTC, Wrapped, kOddR, kOddC, true>(
+      a + pi, h + pi, v + pi, d + pi, out + po, lr, lc, nr, nc, hlen, gr, gc,
+      kTR * (y0 + blockIdx.y), kTC * blockIdx.x, dynamic_smem<float>(),
+      Wrapped{}, u);
+}
+
+using UnshiftKernel = void (*)(const float*, const float*, const float*,
+                               const float*, const float*, float*, int, int,
+                               int, int, pair::Taps<float>,
+                               pair::Taps<float>, int, int, int, int, float);
+using UnshiftInstance = TileInstance<UnshiftKernel>;
+
+template <int kTR, int kTC>
+UnshiftInstance unshift_instance(int hlen, bool odd_r, bool odd_c) {
+  const UnshiftKernel k =
+      odd_r ? (odd_c ? idwt2d_unshift_kernel<kTR, kTC, true, true>
+                     : idwt2d_unshift_kernel<kTR, kTC, true, false>)
+            : (odd_c ? idwt2d_unshift_kernel<kTR, kTC, false, true>
+                     : idwt2d_unshift_kernel<kTR, kTC, false, false>);
+  return {k, pair::Geometry<float>(kTR, kTC, hlen, odd_r, odd_c).smem_bytes(),
+          kTR, kTC};
+}
+
+// Whether a float32 level of (batch, nr, nc) outputs gives each of the
+// device's `sms` SMs a block of 16 x 64 coefficients (pick_pair).
+inline bool fills_sms(int batch, int nr, int nc, int sms) {
+  return static_cast<long long>(batch) * ((nr + 31) / 32) *
+             ((nc + 127) / 128) >= sms;
+}
+
+// K20's instance: K2's tile shape, the parities of the shifts (sr, sc).
+inline UnshiftInstance pick_unshift(int hlen, int batch, int nr, int nc,
+                                    int sr, int sc, int sms) {
+  if (fills_sms(batch, nr, nc, sms))
+    return unshift_instance<16, 64>(hlen, sr & 1, sc & 1);
+  return unshift_instance<8, 64>(hlen, sr & 1, sc & 1);
+}
+
 // The tile shape of a level of (batch, nr, nc) outputs, in coefficients. In
 // float32, 64 columns (512-byte output row segments) and 16 rows where the
 // level gives each of the device's `sms` SMs such a block, else 8 rows
@@ -191,9 +228,8 @@ template <class T, class Rows>
 PairInstance<T, Rows> pick_pair(int hlen, int batch, int nr, int nc,
                                 int sms) {
   if constexpr (std::is_same_v<T, float>) {
-    const long long blocks = static_cast<long long>(batch) *
-                             ((nr + 31) / 32) * ((nc + 127) / 128);
-    if (blocks >= sms) return pair_instance<T, Rows, 16, 64>(hlen);
+    if (fills_sms(batch, nr, nc, sms))
+      return pair_instance<T, Rows, 16, 64>(hlen);
     return pair_instance<T, Rows, 8, 64>(hlen);
   } else {
     return pair_instance<T, Rows, 16, 32>(hlen);
@@ -275,14 +311,13 @@ int launch(const T* a, const T* h, const T* v, const T* d, const T* acc,
   if constexpr (!std::is_same_v<T, float>) {
     return static_cast<int>(cudaErrorInvalidValue);  // K20 is float32 only
   } else {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const Taps taps = make_taps(rec_lo, rec_hi, hlen);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     // y has period 2L along an axis of 2L samples; a shifted axis of
     // another size takes the direct form
-    const bool direct = (sr && nr != 2 * lr) || (sc && nc != 2 * lc);
-    if (direct) {
+    if ((sr && nr != 2 * lr) || (sc && nc != 2 * lc)) {
+      const cudaError_t err = cudaSetDevice(device);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const Taps taps = make_taps(rec_lo, rec_hi, hlen);
       launch_chunks((nc + 31) / 32, (nr + 7) / 8, batch,
                     [&](dim3 grid, int y0, int z0) {
                       const long long pi =
@@ -296,22 +331,27 @@ int launch(const T* a, const T* h, const T* v, const T* d, const T* acc,
                     });
       return static_cast<int>(cudaGetLastError());
     }
-    auto kernel = idwt2d_kernel<float, true>;
-    const size_t smem = syn::smem_bytes<float, true>(hlen);
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+    int sms = 0;
+    cudaError_t err = device_sms(device, &sms);
     if (err != cudaSuccess) return static_cast<int>(err);
-    // output tiles of 2TR x 2TC pixels
-    launch_chunks((nc + 2 * syn::TC - 1) / (2 * syn::TC),
-                  (nr + 2 * syn::TR - 1) / (2 * syn::TR), batch,
+    const UnshiftInstance inst =
+        pick_unshift(hlen, batch, nr, nc, sr, sc, sms);
+    err = allow_smem(inst);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const pair::Taps<float> gr = pair::make_taps(rec_lo, rec_hi, hlen,
+                                                 sr & 1);
+    const pair::Taps<float> gc = pair::make_taps(rec_lo, rec_hi, hlen,
+                                                 sc & 1);
+    // output tiles of 2 tr x 2 tc pixels
+    launch_chunks((nc + 2 * inst.tc - 1) / (2 * inst.tc),
+                  (nr + 2 * inst.tr - 1) / (2 * inst.tr), batch,
                   [&](dim3 grid, int y0, int z0) {
                     const long long pi = static_cast<long long>(z0) * lr * lc;
                     const long long po = static_cast<long long>(z0) * nr * nc;
-                    kernel<<<grid, kThreads, smem, st>>>(
+                    inst.kernel<<<grid, kThreads, inst.smem, st>>>(
                         a + pi, h + pi, v + pi, d + pi, acc ? acc + po : acc,
-                        out + po, lr, lc, nr, nc, taps, hlen, y0, sr, sc,
-                        scale);
+                        out + po, lr, lc, nr, nc, gr, gc, hlen, y0, sr >> 1,
+                        sc >> 1, scale);
                   });
     return static_cast<int>(cudaGetLastError());
   }
@@ -411,4 +451,23 @@ extern "C" int pypwt_idwt2d_occupancy(int nr, int nc, int hlen, int f64,
                     nr, nc, hlen, device, blocks, smem, tile_rows, tile_cols)
               : pair_occupancy<float, Wrapped>(nr, nc, hlen, device, blocks,
                                                smem, tile_rows, tile_cols);
+}
+
+// K20's instance on a level of nr x nc outputs at hlen and shift (sr, sc)
+// (the pair body's; a shifted odd axis takes the direct form instead):
+// resident blocks per SM, dynamic shared memory in bytes, and the tile's
+// coefficient rows and columns.
+extern "C" int pypwt_idwt2d_unshift_occupancy(int nr, int nc, int hlen,
+                                              int sr, int sc, int device,
+                                              int* blocks, int* smem,
+                                              int* tile_rows,
+                                              int* tile_cols) {
+  using namespace pypwt;
+  if (hlen < 2 || hlen > kMaxTaps || nr < 1 || nc < 1 || sr < 0 || sc < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  const cudaError_t err = device_sms(device, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return report_occupancy(pick_unshift(hlen, 1, nr, nc, sr, sc, sms), blocks,
+                          smem, tile_rows, tile_cols);
 }

@@ -2,8 +2,8 @@
 // and the kernels that run them:
 //   ana::tile       K19 (dwt2d.cu) and K24 (pyramid2d.cu);
 //   ana_pair::tile  K1 and K26a (dwt2d.cu);
-//   syn::tile       K20's staged form (idwt2d.cu) and K25 (pyramid2d.cu);
-//   pair::tile      K2 and K26b (idwt2d.cu).
+//   syn::tile       K25 (pyramid2d.cu) alone;
+//   pair::tile      K2, K26b and K20 (idwt2d.cu; K20 with its unshift).
 // K24/K25 run theirs for every level of a pyramid in one launch. The row
 // source (common.cuh: Wrapped, or the Halo of a row shard) is a template
 // parameter: K26a/K26b are K1/K2's bodies with the shard's edge rows read
@@ -502,87 +502,64 @@ __device__ __forceinline__ void tile(const T* x, T* a, T* h, T* v, T* d,
 
 }  // namespace ana_pair
 
-// -- synthesis: K2's level (map and design: idwt2d.cu) ---------------------
+// -- synthesis: K25's level (map: idwt2d.cu) --------------------------------
 namespace syn {
 
 constexpr int TR = 32;  // coefficient rows per tile (2TR output rows)
 constexpr int TC = 32;  // coefficient columns per tile (2TC output columns)
 
-// Staged coefficient rows / columns of a tile: one more for K20, whose
-// tile may start at an odd y row or column.
-template <class T, bool kShift>
+template <class T>
 inline size_t smem_bytes(int hlen) {
-  const size_t e = kShift ? 1 : 0, h2 = hlen / 2;
-  const size_t wr = TR + e + h2, ww = TC + e + h2;
-  return sizeof(T) * (4 * wr * ww + 2 * (2 * (TR + e)) * ww +
-                      4 * kHalfTaps);
+  const size_t h2 = hlen / 2;
+  const size_t wr = TR + h2, ww = TC + h2;
+  return sizeof(T) * (4 * wr * ww + 2 * (2 * TR) * ww + 4 * kHalfTaps);
 }
 
 // The polyphase taps g_lo (g_hi = g_lo + 2 kHalfTaps) behind the tile's
 // buffers; the kernel loads them once (load_polyphase_taps).
-template <class T, bool kShift>
+template <class T>
 __device__ __forceinline__ T* taps(T* smem, int hlen) {
-  constexpr int e = kShift ? 1 : 0;
-  const int h2 = hlen / 2, wr = TR + e + h2, ww = TC + e + h2;
-  return smem + 4 * wr * ww + 2 * (2 * (TR + e)) * ww;
+  const int h2 = hlen / 2, wr = TR + h2, ww = TC + h2;
+  return smem + 4 * wr * ww + 2 * (2 * TR) * ww;
 }
 
 // The 2TR x 2TC output tile at (R0, C0) of the level of planes a, h, v, d
-// (lr x lc) into plane out (nr x nc); kShift: K20's store,
-// out = scale * (y[(i + sr) mod nr, (j + sc) mod nc] [+ acc]).
-// Rows: Wrapped, or a Halo<T, 4> of the shard's planes a, h, v, d (K26b:
-// kShift off, nr = 2 lr).
-template <class T, bool kShift, bool kCoherent, class Rows = Wrapped>
+// (lr x lc) into plane out (nr x nc).
+template <class T, bool kCoherent>
 __device__ __forceinline__ void tile(const T* a, const T* h, const T* v,
-                                     const T* d, const T* acc, T* out,
-                                     int lr, int lc, int nr, int nc,
-                                     int hlen, int R0, int C0, int sr,
-                                     int sc, float scale, T* smem,
-                                     const Rows& rows = Rows{}) {
-  constexpr int e = kShift ? 1 : 0;
+                                     const T* d, T* out, int lr, int lc,
+                                     int nr, int nc, int hlen, int R0,
+                                     int C0, T* smem) {
   const Polyphase ph(hlen);
   const int h2 = ph.h2, c = ph.c;
-  const int wr = TR + e + h2, ww = TC + e + h2;
-  T* s_a = smem;                   // [wr][ww] coefficient windows
+  const int wr = TR + h2, ww = TC + h2;
+  T* s_a = smem;               // [wr][ww] coefficient windows
   T* s_h = s_a + wr * ww;
   T* s_v = s_h + wr * ww;
   T* s_d = s_v + wr * ww;
-  T* t1 = s_d + wr * ww;           // [2(TR+e)][ww] axis -2 synthesis of (a, h)
-  T* t2 = t1 + 2 * (TR + e) * ww;  // ... of (v, d)
-  const T* g_lo = t2 + 2 * (TR + e) * ww;  // [2][kHalfTaps] taps per parity
+  T* t1 = s_d + wr * ww;       // [2TR][ww] axis -2 synthesis of (a, h)
+  T* t2 = t1 + 2 * TR * ww;    // ... of (v, d)
+  const T* g_lo = t2 + 2 * TR * ww;  // [2][kHalfTaps] taps per parity
   const T* g_hi = g_lo + 2 * kHalfTaps;
 
   const int tid = threadIdx.x;
-  // the y row / column the tile's first pixel reads
-  const int Y0 = R0 + sr, X0 = C0 + sc;
-  const int m0 = Y0 >> 1, n0 = X0 >> 1;  // first coefficient row, column
-  const int py = Y0 & 1, px = X0 & 1;    // 0 unless kShift
+  const int m0 = R0 >> 1, n0 = C0 >> 1;  // first coefficient row, column
 
   // window origin: coefficient (m0 - c, n0 - c)
   for (int i = tid; i < wr * ww; i += kThreads) {
     const int r = i / ww, q = i - r * ww;
     const int col = wrap(n0 - c + q, lc);
-    if constexpr (Rows::kHalo) {
-      const T* const planes[4] = {a, h, v, d};
-      T* const staged[4] = {s_a, s_h, s_v, s_d};
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        const T* src = rows.row(p, planes[p], m0 - c + r, lr, lc);
-        staged[p][i] = src ? load<kCoherent>(src + col) : T(0);
-      }
-    } else {
-      const long long o =
-          static_cast<long long>(wrap(m0 - c + r, lr)) * lc + col;
-      s_a[i] = load<kCoherent>(a + o);
-      s_h[i] = load<kCoherent>(h + o);
-      s_v[i] = load<kCoherent>(v + o);
-      s_d[i] = load<kCoherent>(d + o);
-    }
+    const long long o =
+        static_cast<long long>(wrap(m0 - c + r, lr)) * lc + col;
+    s_a[i] = load<kCoherent>(a + o);
+    s_h[i] = load<kCoherent>(h + o);
+    s_v[i] = load<kCoherent>(v + o);
+    s_d[i] = load<kCoherent>(d + o);
   }
   __syncthreads();
 
   // Axis -2: y row 2(m0 + m) + p reads window rows m + delta_p + j.
-  for (int i = tid; i < 2 * (TR + e) * ww; i += kThreads) {
+  for (int i = tid; i < 2 * TR * ww; i += kThreads) {
     const int q = i / ww, w = i - q * ww;
     const int p = q & 1;
     const int base = ((q >> 1) + ph.delta(p)) * ww + w;
@@ -601,15 +578,14 @@ __device__ __forceinline__ void tile(const T* a, const T* h, const T* v,
   }
   __syncthreads();
 
-  // Last axis: output column C0 + n is y column 2 n0 + (n + px) = 2m + p,
-  // which reads window columns m - n0 + delta_p + j.
+  // Last axis: output column C0 + n = 2m + p reads window columns
+  // m - n0 + delta_p + j.
   for (int i = tid; i < 4 * TR * TC; i += kThreads) {
     const int q = i / (2 * TC), n = i - q * (2 * TC);
     const int orow = R0 + q, ocol = C0 + n;
     if (orow >= nr || ocol >= nc) continue;
-    const int nn = n + px;
-    const int p = nn & 1;
-    const int base = (q + py) * ww + (nn >> 1) + ph.delta(p);
+    const int p = n & 1;
+    const int base = q * ww + (n >> 1) + ph.delta(p);
     const T* gl = g_lo + p * kHalfTaps;
     const T* gh = g_hi + p * kHalfTaps;
     T s = 0;
@@ -617,18 +593,13 @@ __device__ __forceinline__ void tile(const T* a, const T* h, const T* v,
       s = fmadd(t1[base + j], gl[j], s);
       s = fmadd(t2[base + j], gh[j], s);
     }
-    const long long o = static_cast<long long>(orow) * nc + ocol;
-    if (kShift) {
-      if (acc) s += acc[o];
-      s *= scale;
-    }
-    out[o] = s;
+    out[static_cast<long long>(orow) * nc + ocol] = s;
   }
 }
 
 }  // namespace syn
 
-// -- synthesis in pairs: K2's and K26b's level (map: idwt2d.cu) ------------
+// -- synthesis in pairs: K2's, K26b's and K20's level (map: idwt2d.cu) -----
 //
 // The map and the order of every sum are syn::tile's; only the work is
 // grouped otherwise. A tile is kTR x kTC coefficients (2 kTR x 2 kTC
@@ -644,11 +615,23 @@ __device__ __forceinline__ void tile(const T* a, const T* h, const T* v,
 // coefficient column, stored as one 8-byte (float) or 16-byte (double)
 // pair where the output rows allow. The taps are kernel parameters,
 // indexed by k (Taps), so the unrolled tap loops take them as operands.
+//
+// K20 (kUnshift) stores scale * (y[(i + sr) mod nr, (j + sc) mod nc] [+
+// acc[i, j]]) where y has period 2L along each shifted axis. Along an axis
+// shifted by s = 2q + e, output 2m + p is y's 2(m + q) + p + e: y parity
+// (p + e) & 1 of coefficient m + q + ((p + e) >> 1). So the window's origin
+// moves by q coefficients, and an odd s (kOddR, kOddC) gives output parity
+// 0 y's parity-1 taps on window samples [sigma, sigma + h2) and output
+// parity 1 y's parity-0 taps on [1, h2 + 1): a span of h2 + 1, both
+// parities of a thread still on shared samples and still one stored pair.
+// The accumulator is read as a pair where the store is one, before the
+// sums; each output adds it, then scales, as syn::tile did.
 namespace pair {
 
-// g[p][k]: the tap of parity p that meets window sample m + k, the
-// polyphase tap g_p[k - delta(p)] (zero outside delta(p) <= k <
-// delta(p) + h2, where no term is summed).
+// g[p][k]: the tap of output parity p that meets window sample m + k, zero
+// where no term is summed: the polyphase tap g_p[k - delta(p)], or, along
+// an axis shifted by an odd s, y's tap of parity 1 - p one sample on for p
+// = 1 (make_taps).
 template <class T>
 struct Taps {
   T lo[2][kHalfTaps + 1];
@@ -656,29 +639,63 @@ struct Taps {
 };
 
 template <class T>
-inline Taps<T> make_taps(const T* rec_lo, const T* rec_hi, int hlen) {
+inline Taps<T> make_taps(const T* rec_lo, const T* rec_hi, int hlen,
+                         bool odd = false) {
   const Polyphase ph(hlen);
   Taps<T> g{};
-  for (int p = 0; p < 2; ++p)
+  for (int p = 0; p < 2; ++p) {
+    const int e = p + (odd ? 1 : 0), yp = e & 1;  // y's parity
+    const int k0 = ph.delta(yp) + (e >> 1);
     for (int j = 0; j < ph.h2; ++j) {
-      g.lo[p][j + ph.delta(p)] = rec_lo[ph.tap(p, j)];
-      g.hi[p][j + ph.delta(p)] = rec_hi[ph.tap(p, j)];
+      g.lo[p][j + k0] = rec_lo[ph.tap(yp, j)];
+      g.hi[p][j + k0] = rec_hi[ph.tap(yp, j)];
     }
+  }
   return g;
 }
 
-// The staged extent of a tile of tr x tc coefficients: span = h2 + sigma
-// window samples per coefficient and axis, wr rows and ww columns per
-// window, rows ldw samples apart (a whole number of 16-byte copies, room
-// for a window copied from the 16-byte boundary below its first sample).
+// The window samples a coefficient of an axis meets: h2 + sigma, or h2 + 1
+// along an axis shifted by an odd s.
+__host__ __device__ inline int span_of(int hlen, bool odd) {
+  return (hlen >> 1) + (odd ? 1 : Polyphase(hlen).sigma);
+}
+
+// Whether window sample k (< the axis's span) meets output parity 0 of an
+// axis: k < h2, or sigma <= k < sigma + h2 shifted by an odd s.
+template <bool kOdd>
+__device__ __forceinline__ bool meets_even(int k, int h2, int sigma) {
+  if constexpr (kOdd) {
+    return k >= sigma && k < sigma + h2;
+  } else {
+    return k < h2;
+  }
+}
+
+// ... output parity 1: k >= sigma, or k >= 1 shifted by an odd s.
+template <bool kOdd>
+__device__ __forceinline__ bool meets_odd(int k, int sigma) {
+  if constexpr (kOdd) {
+    return k >= 1;
+  } else {
+    return k >= sigma;
+  }
+}
+
+// The staged extent of a tile of tr x tc coefficients: span_r and span_c
+// window samples per coefficient along axis -2 and the last axis (span_of),
+// wr rows and ww columns per window, rows ldw samples apart (a whole number
+// of 16-byte copies, room for a window copied from the 16-byte boundary
+// below its first sample).
 template <class T>
 struct Geometry {
   static constexpr int kVec = 16 / sizeof(T);  // samples per 16-byte copy
-  int span, wr, ww, ldw, tr;
-  __host__ __device__ Geometry(int tr, int tc, int hlen)
-      : span((hlen >> 1) + Polyphase(hlen).sigma),
-        wr(tr + span - 1),
-        ww(tc + span - 1),
+  int span_r, span_c, wr, ww, ldw, tr;
+  __host__ __device__ Geometry(int tr, int tc, int hlen, bool odd_r = false,
+                               bool odd_c = false)
+      : span_r(span_of(hlen, odd_r)),
+        span_c(span_of(hlen, odd_c)),
+        wr(tr + span_r - 1),
+        ww(tc + span_c - 1),
         ldw((ww + 2 * kVec - 2) / kVec * kVec),
         tr(tr) {}
   // Dynamic shared memory: the four windows [wr][ldw], the axis -2 pass's
@@ -689,40 +706,73 @@ struct Geometry {
   }
 };
 
+// K20's unshift of a tile: the window's origin moved by qr coefficient
+// rows and qc columns (sr >> 1, sc >> 1), and the store's accumulator (of
+// out's shape, or null) and scale.
+template <class T>
+struct Unshift {
+  int qr, qc;
+  const T* acc;
+  float scale;
+};
+
+// Two adjacent samples of one 8-byte load (K20 is float32 only).
+template <class T>
+__device__ __forceinline__ void load_pair(const T* p, T& x, T& y);
+template <>
+__device__ __forceinline__ void load_pair(const float* p, float& x,
+                                          float& y) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  x = v.x;
+  y = v.y;
+}
+
 // The outputs of coefficient rows m0.. and columns n0.. of planes a, h, v,
 // d (lr x lc) into plane out (nr x nc: 2lr x 2lc, or one less on an odd
-// axis, cropped). Rows: Wrapped, or the Halo<T, 4> of the shard's planes
-// moved to this plane (K26b: nr = 2 lr, nc = 2 lc).
-template <class T, int kTR, int kTC, class Rows>
+// axis, cropped), with taps gr along axis -2 and gc along the last axis
+// (the same Taps but in K20). Rows: Wrapped, or the Halo<T, 4> of the
+// shard's planes moved to this plane (K26b: nr = 2 lr, nc = 2 lc).
+// kUnshift: K20's store, with u's origin, accumulator and scale, and an odd
+// shift along axis -2 (kOddR) or the last axis (kOddC).
+template <class T, int kTR, int kTC, class Rows, bool kOddR = false,
+          bool kOddC = false, bool kUnshift = false>
 __device__ __forceinline__ void tile(const T* a, const T* h, const T* v,
                                      const T* d, T* out, int lr, int lc,
                                      int nr, int nc, int hlen,
-                                     const Taps<T>& g, int m0, int n0,
-                                     T* smem, const Rows& rows) {
+                                     const Taps<T>& gr, const Taps<T>& gc,
+                                     int m0, int n0, T* smem,
+                                     const Rows& rows,
+                                     const Unshift<T>& u = Unshift<T>{}) {
   constexpr int kVec = Geometry<T>::kVec;
-  const Geometry<T> geo(kTR, kTC, hlen);
-  const int h2 = hlen >> 1, span = geo.span, sigma = span - h2;
-  const int c = h2 >> 1;
+  const Geometry<T> geo(kTR, kTC, hlen, kOddR, kOddC);
+  const int h2 = hlen >> 1, sigma = Polyphase(hlen).sigma;
+  const int span_r = geo.span_r, span_c = geo.span_c, c = h2 >> 1;
   const int wr = geo.wr, ww = geo.ww, ldw = geo.ldw, plane = wr * ldw;
   T* win = smem;                   // [4][wr][ldw] windows of a, h, v, d
   T* t1 = win + 4 * plane;         // [2 kTR][ldw] axis -2 synthesis of (a, h)
   T* t2 = t1 + 2 * kTR * ldw;      // ... of (v, d)
   const T** src = reinterpret_cast<const T**>(t2 + 2 * kTR * ldw);
   const int tid = threadIdx.x;
+  // the window's first coefficient row and column, before the halo of c
+  int wm0 = m0, wn0 = n0;
+  if constexpr (kUnshift) {
+    wm0 += u.qr;
+    wn0 += u.qc;
+  }
 
   // The row table: src[p wr + r] is plane p's row of window row r, the
-  // coefficient row m0 - c + r (wrapped; or a shard's row or halo row,
+  // coefficient row wm0 - c + r (wrapped; or a shard's row or halo row,
   // null past both halos).
   const T* const planes[4] = {a, h, v, d};
-  stage::row_table<T, 4, false>(planes, src, m0 - c, wr, lr, lc, rows);
+  stage::row_table<T, 4, false>(planes, src, wm0 - c, wr, lr, lc, rows);
   __syncthreads();
 
-  // The windows: window column q holds coefficient column n0 - c + q (mod
+  // The windows: window column q holds coefficient column wn0 - c + q (mod
   // lc). Where lc is a multiple of 16 bytes of samples, 16-byte copies from
   // the window's first column rounded down to 16 bytes (read shifted by the
   // remainder); otherwise sample copies.
   const bool quads = lc % kVec == 0;
-  int first = wrap(n0 - c, lc), shift = 0;
+  int first = wrap(wn0 - c, lc), shift = 0;
   if (quads) {
     shift = first % kVec;
     first -= shift;
@@ -733,7 +783,7 @@ __device__ __forceinline__ void tile(const T* a, const T* h, const T* v,
   __syncthreads();
 
   // Axis -2: output rows 2(m0 + m) + p of window column w; parity p meets
-  // window rows m + k with tap g[p][k]. Per parity and j: a then h into
+  // window rows m + k with tap gr[p][k]. Per parity and j: a then h into
   // t1, v then d into t2. The items run over whole rows of ldw columns, so
   // a warp reads consecutive words (no bank conflict where it crosses a
   // row); columns w >= ww are computed and never read.
@@ -743,20 +793,20 @@ __device__ __forceinline__ void tile(const T* a, const T* h, const T* v,
     T x1e = 0, x1o = 0, x2e = 0, x2o = 0;
 #pragma unroll
     for (int k = 0; k <= kHalfTaps; ++k) {
-      if (k >= span) break;
+      if (k >= span_r) break;
       const T va = s[k * ldw], vh = s[plane + k * ldw];
       const T vv = s[2 * plane + k * ldw], vd = s[3 * plane + k * ldw];
-      if (k < h2) {
-        x1e = fmadd(va, g.lo[0][k], x1e);
-        x1e = fmadd(vh, g.hi[0][k], x1e);
-        x2e = fmadd(vv, g.lo[0][k], x2e);
-        x2e = fmadd(vd, g.hi[0][k], x2e);
+      if (meets_even<kOddR>(k, h2, sigma)) {
+        x1e = fmadd(va, gr.lo[0][k], x1e);
+        x1e = fmadd(vh, gr.hi[0][k], x1e);
+        x2e = fmadd(vv, gr.lo[0][k], x2e);
+        x2e = fmadd(vd, gr.hi[0][k], x2e);
       }
-      if (k >= sigma) {
-        x1o = fmadd(va, g.lo[1][k], x1o);
-        x1o = fmadd(vh, g.hi[1][k], x1o);
-        x2o = fmadd(vv, g.lo[1][k], x2o);
-        x2o = fmadd(vd, g.hi[1][k], x2o);
+      if (meets_odd<kOddR>(k, sigma)) {
+        x1o = fmadd(va, gr.lo[1][k], x1o);
+        x1o = fmadd(vh, gr.hi[1][k], x1o);
+        x2o = fmadd(vv, gr.lo[1][k], x2o);
+        x2o = fmadd(vd, gr.hi[1][k], x2o);
       }
     }
     T* o1 = t1 + 2 * m * ldw + w;
@@ -769,30 +819,56 @@ __device__ __forceinline__ void tile(const T* a, const T* h, const T* v,
   __syncthreads();
 
   // Last axis: output columns 2(n0 + m) + p of output row 2 m0 + q read t
-  // columns m + k with tap g[p][k], t1 then t2 per j; one pair store where
+  // columns m + k with tap gc[p][k], t1 then t2 per j; one pair store where
   // nc is even and the plane's rows start 2-sample aligned, else one
-  // store per column within the crop.
+  // store per column within the crop. K20's accumulator: a pair load where
+  // the store is one and the accumulator is aligned as out, else one load
+  // per column within the crop.
   const bool pairs = (nc & 1) == 0 &&
       (reinterpret_cast<uintptr_t>(out) & (2 * sizeof(T) - 1)) == 0;
+  bool acc_pairs = false;
+  if constexpr (kUnshift)
+    acc_pairs = pairs &&
+        (reinterpret_cast<uintptr_t>(u.acc) & (2 * sizeof(T) - 1)) == 0;
   for (int i = tid; i < 2 * kTR * kTC; i += kThreads) {
     const int q = i / kTC, m = i - q * kTC;
     const int orow = 2 * m0 + q, ocol = 2 * (n0 + m);
     if (orow >= nr || ocol >= nc) continue;
+    T ae = 0, ao = 0;
+    if constexpr (kUnshift) {
+      if (u.acc) {
+        const T* pa = u.acc + static_cast<long long>(orow) * nc + ocol;
+        if (acc_pairs) {
+          load_pair(pa, ae, ao);
+        } else {
+          ae = pa[0];
+          if (ocol + 1 < nc) ao = pa[1];
+        }
+      }
+    }
     const T* r1 = t1 + q * ldw + m;
     const T* r2 = t2 + q * ldw + m;
     T se = 0, so = 0;
 #pragma unroll
     for (int k = 0; k <= kHalfTaps; ++k) {
-      if (k >= span) break;
-      const T u = r1[k], z = r2[k];
-      if (k < h2) {
-        se = fmadd(u, g.lo[0][k], se);
-        se = fmadd(z, g.hi[0][k], se);
+      if (k >= span_c) break;
+      const T z1 = r1[k], z2 = r2[k];
+      if (meets_even<kOddC>(k, h2, sigma)) {
+        se = fmadd(z1, gc.lo[0][k], se);
+        se = fmadd(z2, gc.hi[0][k], se);
       }
-      if (k >= sigma) {
-        so = fmadd(u, g.lo[1][k], so);
-        so = fmadd(z, g.hi[1][k], so);
+      if (meets_odd<kOddC>(k, sigma)) {
+        so = fmadd(z1, gc.lo[1][k], so);
+        so = fmadd(z2, gc.hi[1][k], so);
       }
+    }
+    if constexpr (kUnshift) {
+      if (u.acc) {
+        se += ae;
+        so += ao;
+      }
+      se *= u.scale;
+      so *= u.scale;
     }
     T* o = out + static_cast<long long>(orow) * nc + ocol;
     if (pairs) {

@@ -105,7 +105,7 @@ waverec2_kernel(PyramidPlanes p, int batch, int nr, int nc, int levels,
                 Taps taps, int hlen) {
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   float* smem = dynamic_smem<float>();
-  float* g_lo = syn::taps<float, false>(smem, hlen);
+  float* g_lo = syn::taps<float>(smem, hlen);
   load_polyphase_taps(taps, hlen, g_lo, g_lo + 2 * kHalfTaps);
   for (int l = levels; l >= 1; --l) {
     // level l: four planes of lr x lc -> approx[l - 1] of rows x cols
@@ -118,11 +118,10 @@ waverec2_kernel(PyramidPlanes p, int batch, int nr, int nc, int levels,
       const TileOf k(t, per_plane, tc);
       const long long pi = static_cast<long long>(k.b) * lr * lc;
       const long long po = static_cast<long long>(k.b) * rows * cols;
-      syn::tile<float, false, true>(
+      syn::tile<float, true>(
           p.approx[l] + pi, p.detail[k0] + pi, p.detail[k0 + 1] + pi,
-          p.detail[k0 + 2] + pi, nullptr, p.approx[l - 1] + po, lr, lc,
-          rows, cols, hlen, 2 * syn::TR * k.ty, 2 * syn::TC * k.tx, 0, 0,
-          1.f, smem);
+          p.detail[k0 + 2] + pi, p.approx[l - 1] + po, lr, lc, rows, cols,
+          hlen, 2 * syn::TR * k.ty, 2 * syn::TC * k.tx, smem);
     }
     if (l > 1) grid.sync();
   }
@@ -237,7 +236,7 @@ extern "C" int pypwt_waverec2_pyramid(float* out, float* const* approx,
   const Taps taps = make_taps(rec_lo, rec_hi, hlen);
   const long long tiles = batch * div_up(nr, 2 * syn::TR) *
                           div_up(nc, 2 * syn::TC);
-  return launch(waverec2_kernel, syn::smem_bytes<float, false>(hlen), tiles,
+  return launch(waverec2_kernel, syn::smem_bytes<float>(hlen), tiles,
                 planes_of(out, approx, detail, levels), batch, nr, nc,
                 levels, taps, hlen, device, stream);
 }

@@ -1900,7 +1900,7 @@ def test_grid_routes_float64_and_uncovered_banks(dev):
 
 # K2 and K26b on idwt2d.cu's pair body: each output against its plain
 # version and against the SHA-256 of the output that the body before it
-# (level2d.cuh's syn::tile, which K20 and K25 still run) gave on the card
+# (level2d.cuh's syn::tile, which K25 still runs) gave on the card
 # for the same seeded inputs; `python tests/test_torch_kernels_cuda.py
 # digests` prints a tree's digests in PAIR_DIGESTS's form. Banks of hlen
 # 2, 4, 10, 16, 40 and 5.
@@ -2904,6 +2904,287 @@ ROWS_DIGESTS = {
 }
 
 
+
+# K20 on idwt2d.cu's pair body with its unshift: each output against its
+# plain version and against the SHA-256 of the output that K20's body
+# before it (level2d.cuh's syn::tile) gave on the card for the same seeded
+# inputs; `python tests/test_torch_kernels_cuda.py digests` prints a tree's
+# digests in K20_DIGESTS's form. Banks: PAIR_BANKS. Cases: (output shape,
+# shift, accumulator and scale 0.25, offset): every parity of the shift
+# and shifts wider than a tile (reduced mod the plane) on (64, 128), with
+# and without the accumulator; rows of 65 coefficients (sample copies); a
+# 2048^2 level; a batch; an odd unshifted axis (the pair body's crop); a
+# shifted odd axis (the direct form); inputs and accumulator one sample
+# past a 16-byte boundary
+K20_SHIFTS = [(0, 0), (1, 0), (0, 1), (1, 1), (5, 3), (70, 131)]
+K20_CASES = ([((64, 128), s, acc, 0) for s in K20_SHIFTS
+              for acc in (False, True)]
+             + [((66, 130), (1, 1), True, 0),
+                ((2048, 2048), (1, 1), True, 0),
+                ((3, 40, 72), (1, 1), True, 0),
+                ((2047, 2048), (0, 1), True, 0),
+                ((2047, 2047), (1, 1), True, 0),
+                ((64, 128), (1, 1), True, 1),
+                ((66, 132), (5, 3), True, 1)])
+
+
+def _k20_id(case, wname):
+    return "-".join(["K20", wname, *(str(v) for v in case)])
+
+
+def _k20_output(case, wname, dev):
+    """(kernel output, plain output) of one case, the kernel launched
+    once."""
+    shape, (sr, sc), acc, off = case
+    fb = _bank(wname)
+    c = [_offset(_rand(_half(shape), dev, s), off) for s in range(1, 5)]
+    a = _offset(_rand(shape, dev, 5), off) if acc else None
+    scale = 0.25 if acc else 1.0
+    n = ks.idwt2d_unshift_fused.launches
+    got = ks.idwt2d_unshift_fused(*c, fb, shape, sr, sc, a, scale)
+    assert ks.idwt2d_unshift_fused.launches == n + 1
+    return got, ks.idwt2d_unshift_plain(*c, fb, shape, sr, sc, a, scale)
+
+
+@pytest.mark.parametrize("wname", PAIR_BANKS)
+@pytest.mark.parametrize("case", K20_CASES, ids=str)
+def test_k20_pair_body_matches_plain_and_parent(dev, case, wname):
+    got, ref = _k20_output(case, wname, dev)
+    assert got.shape == ref.shape and float((got - ref).abs().max()) <= TOL
+    assert _sha256(got) == K20_DIGESTS[_k20_id(case, wname)]
+
+
+K20_DIGESTS = {
+    'K20-haar-(64, 128)-(0, 0)-False-0':
+        'ff17202fd61c767efb3051d03c3e8d33176746d137ee067cfaa6c7584fd55054',
+    'K20-db2-(64, 128)-(0, 0)-False-0':
+        'b0562b6420a0386d9f2e26cafa3d07f81838be095755b6d6677f877300cd5e47',
+    'K20-bior4.4-(64, 128)-(0, 0)-False-0':
+        '076e0f0b3d021ec8a38e547235d36597f6d66d3385c698d8f09786bfd15d9f72',
+    'K20-sym8-(64, 128)-(0, 0)-False-0':
+        '00d73533b1a9b808ac081ca785e98dc481234b19101536b5c53aee355582c362',
+    'K20-sym20-(64, 128)-(0, 0)-False-0':
+        '025d968c99fde269765250492e71e95f7f1c2087bccd0bef0fe688f1bfb1cf22',
+    'K20-odd5-(64, 128)-(0, 0)-False-0':
+        'ff52801ce738ca255966caadc17fd502769959917a572fb408911a47ae668262',
+    'K20-haar-(64, 128)-(0, 0)-True-0':
+        '7c33227419d4375abfcdae8efc22c07e46b3f94259a5ff496d55c34ea2735a58',
+    'K20-db2-(64, 128)-(0, 0)-True-0':
+        '2a06168a7e1f1d297d98ec0bedb62446dbe794db2d23489a2f59a6ee925b2dcd',
+    'K20-bior4.4-(64, 128)-(0, 0)-True-0':
+        '0601922a7f165451d7e9d9e290ba05eb08ba1316d4e9db985956966f82940117',
+    'K20-sym8-(64, 128)-(0, 0)-True-0':
+        '6406590419bc727865e8b5afb88aae5be368ec5be94194a4a2963c1513ffc5f8',
+    'K20-sym20-(64, 128)-(0, 0)-True-0':
+        '5f327bc77f03965761ce78a7988fc5af2cfbc1ea63f43da3888000afc253ccf3',
+    'K20-odd5-(64, 128)-(0, 0)-True-0':
+        'e3d7a14dc8115a2c84906083ffc8a7158e3576c2022d1d89d869b2130b4ff856',
+    'K20-haar-(64, 128)-(1, 0)-False-0':
+        'eac4035550cf1ee2c28b8e019c630870139b341351b92e2f3085db52fc19454e',
+    'K20-db2-(64, 128)-(1, 0)-False-0':
+        'de54e17fb56df8fd81242794844ccbbf0205f3b4e80f0c85d164ecbef60672a4',
+    'K20-bior4.4-(64, 128)-(1, 0)-False-0':
+        '5fbd335d77c43a1ae6850688b2729e0b534222a8fe0d6cd18c9f0f39b81ff07a',
+    'K20-sym8-(64, 128)-(1, 0)-False-0':
+        'fe40d520d8f4a2166a2e595beda870c077101a14d5548550f1711c95839e5f96',
+    'K20-sym20-(64, 128)-(1, 0)-False-0':
+        'd608bf478deecf752071a34a2daaae31853032d5d6af781be1bc73372feae0dd',
+    'K20-odd5-(64, 128)-(1, 0)-False-0':
+        '8bf007dc5074fe77d044fa13d98009e63afe10944e8c30dd661dd04c871e5232',
+    'K20-haar-(64, 128)-(1, 0)-True-0':
+        '333f4ee13310918a4744aee6da96afe7ab1e0243695810602e32c8a0520f5d04',
+    'K20-db2-(64, 128)-(1, 0)-True-0':
+        '35c60b9e56467aa8d101f639440fd5c446fda7b0011e538171cdef57fd24235d',
+    'K20-bior4.4-(64, 128)-(1, 0)-True-0':
+        'ab51b6592f5e1deff3b98402a1bc4b560501bfb914f4d9b0819de14e88756f43',
+    'K20-sym8-(64, 128)-(1, 0)-True-0':
+        'fd8d5d488476a79546597a6d0d8132cca9b72b97fa8756cba27b5c007d9949cd',
+    'K20-sym20-(64, 128)-(1, 0)-True-0':
+        '841372069936f2a9fafa658bef24266b0d44e8a7647efb6b17e0dff53d220a29',
+    'K20-odd5-(64, 128)-(1, 0)-True-0':
+        'a3e498c0d34cae8f85b29b4f68cd7344a36785c2cd8a8c7c905fd99c7d5e0ccb',
+    'K20-haar-(64, 128)-(0, 1)-False-0':
+        '133f983d812620aec18932aa575ac3a9f2d6a76791b6d7aa1781ac9762688322',
+    'K20-db2-(64, 128)-(0, 1)-False-0':
+        '2878f9127ba8c245105895475958b0231089f54bf08d8baeb0ca4137e482e61d',
+    'K20-bior4.4-(64, 128)-(0, 1)-False-0':
+        '69dda06bc8846a28c3ebf33fdc4e4e649285ef4956f2db17959fe5c4154ce131',
+    'K20-sym8-(64, 128)-(0, 1)-False-0':
+        '168271c09114145b49886e9ddc698a51592eb1dd551d470aba16b2717cceb636',
+    'K20-sym20-(64, 128)-(0, 1)-False-0':
+        '2706d76d864df1c4906870299ce0d0e0454e59d63fd9fe5c0eae915e22318712',
+    'K20-odd5-(64, 128)-(0, 1)-False-0':
+        'f2e9e62d06812c8d80ed0fd41a0066d6d1c5c294c3e74388699c7cd04f3fe0e1',
+    'K20-haar-(64, 128)-(0, 1)-True-0':
+        '1359205dac934849fcd39bcc5b052542935c62631ebb082b243827ab5638beb6',
+    'K20-db2-(64, 128)-(0, 1)-True-0':
+        '10c7ad419e7b1bcc529e1ec1df44b259d02f971b8077bfad1001a90038dd82e6',
+    'K20-bior4.4-(64, 128)-(0, 1)-True-0':
+        '39c213f89b3e4d2475b30c192bc8c2a0fafba05279357b100106e0fcba204216',
+    'K20-sym8-(64, 128)-(0, 1)-True-0':
+        'ef7f38ccdeb1381ecda8b374e94816af5b03f4e152f0cd15e8d5d8eecdd23a4f',
+    'K20-sym20-(64, 128)-(0, 1)-True-0':
+        '72470015ecad3ff961f0d19150cd6ca0ba377ece267e7321d03e229bf1e01648',
+    'K20-odd5-(64, 128)-(0, 1)-True-0':
+        'e5dab064809897e9af7b0f2c762e16aa5675d83feb365a53d636abb51d3ed74d',
+    'K20-haar-(64, 128)-(1, 1)-False-0':
+        '32c982d2a5a8d29aee418d2716e0d09451d4e505bd51442874b351d6c0f8568b',
+    'K20-db2-(64, 128)-(1, 1)-False-0':
+        'f78d8cb2586871efff1609856cc9aae609f602eee795e3970e7aad185611943d',
+    'K20-bior4.4-(64, 128)-(1, 1)-False-0':
+        '99c192f70cba5c901a702f1ec71dec906d2943a124c59890eccad6c23973a66a',
+    'K20-sym8-(64, 128)-(1, 1)-False-0':
+        'fede9f86d3d0409e8a918e738575fd3f0d3b8922c7d42da71486fe43255d6009',
+    'K20-sym20-(64, 128)-(1, 1)-False-0':
+        'dbe30c0dbf3c2120bf504030ddd47f9e47d10928075548aa95392fcb1100b6e2',
+    'K20-odd5-(64, 128)-(1, 1)-False-0':
+        'e5049400cf1513e8abf383e5f4c8eed68d71dc54d6ec35ce3bbb8748a7ac5f0c',
+    'K20-haar-(64, 128)-(1, 1)-True-0':
+        '2b7c52ae35695f9783f58b35797b477a0ae2387e16fc77c20960c90c4525ce8c',
+    'K20-db2-(64, 128)-(1, 1)-True-0':
+        '3f86877c88aae74aa65b2432b253dd3a36d9f6f2c12c672a895cef40ff5e4f59',
+    'K20-bior4.4-(64, 128)-(1, 1)-True-0':
+        '2f4b1c860387ad98fe1207c35e3c5b6267d081e3186f76added88c494bf843c6',
+    'K20-sym8-(64, 128)-(1, 1)-True-0':
+        'ae2acdc00dd563328a3de7ab41992b55fe1910beb8eca8ba3c1e8156f237953e',
+    'K20-sym20-(64, 128)-(1, 1)-True-0':
+        '5a53b4e5e2b2267ea22bcf7c2527e2b8233cb3c8eb939d59372359fb65a48c7e',
+    'K20-odd5-(64, 128)-(1, 1)-True-0':
+        '4301dcc582da7fa0e7e09ffe73c63df4fa31f3366eea9ce72d254b9b91074bbe',
+    'K20-haar-(64, 128)-(5, 3)-False-0':
+        '2e66d48d6cfa16a3b6ac0031bd5b60efead2a150be8189a168f40ea669b9ce56',
+    'K20-db2-(64, 128)-(5, 3)-False-0':
+        '4505b60cb15751d2c81dcbf3118b0d1898b0dac18b6e2e506843693a9d0381ca',
+    'K20-bior4.4-(64, 128)-(5, 3)-False-0':
+        '7d9027c1717f163bcb08b2c68cac59fe64c162b786a2feae827afb12e41d8c70',
+    'K20-sym8-(64, 128)-(5, 3)-False-0':
+        '99124dd6ba52eae878f7a7ccf606f856b7e24c1dfe496f57a77395f72df2aacb',
+    'K20-sym20-(64, 128)-(5, 3)-False-0':
+        '4888853f90265c3645cc0ba009cbe5f727c4241fee5bf00c77112f0dddbd062e',
+    'K20-odd5-(64, 128)-(5, 3)-False-0':
+        '3d352ec2d6e5b1323494c7585714a4e6cf1ef13c047fc991a2553664c787bae3',
+    'K20-haar-(64, 128)-(5, 3)-True-0':
+        '8bfb0d4fe05986a9d8db22a218741702f3c8f3fe49f9c37632e5a33d50d152ec',
+    'K20-db2-(64, 128)-(5, 3)-True-0':
+        '9ed9a09166ebed1bbe7983d8d51d06a85665164ba704e60fc218bd1c566fa895',
+    'K20-bior4.4-(64, 128)-(5, 3)-True-0':
+        '1d4abcaa853d9df506959fa4a623b1f65680ab2ba0a173fea27fa6f21485b0ca',
+    'K20-sym8-(64, 128)-(5, 3)-True-0':
+        '9ad40161c7aeac9809b8a54f725347336dcbc9609d693ee2e3d8502dc24842a7',
+    'K20-sym20-(64, 128)-(5, 3)-True-0':
+        'a3d530a0e2678b7efad4a68079f5ab1dcd2c341611aec6466d4695bea3d003e4',
+    'K20-odd5-(64, 128)-(5, 3)-True-0':
+        '8cf3662ec7f68f6e4744cc884c02b8c218a1bdf748a43821c24dc36729e40370',
+    'K20-haar-(64, 128)-(70, 131)-False-0':
+        'f072eff75468a01a33efb3123ed220c1f0dcdab73e13e04253d660025f89a708',
+    'K20-db2-(64, 128)-(70, 131)-False-0':
+        '88b889e81c4edc01365046375dd44cf4fb2b345537134583e631be2732a92920',
+    'K20-bior4.4-(64, 128)-(70, 131)-False-0':
+        'eacf936231fb823a025a57466cb8d4d9fb23ed67ab0672195f1991da631b33f6',
+    'K20-sym8-(64, 128)-(70, 131)-False-0':
+        '320439708ae85033e6d9dc07f4bd122bb0df11ab721b20f4c8ed6104441cadf1',
+    'K20-sym20-(64, 128)-(70, 131)-False-0':
+        '8cff3351f53114bd34aea1db7b9546c62dfcd28c18eb2bf1247df956f55dc57c',
+    'K20-odd5-(64, 128)-(70, 131)-False-0':
+        '60f1899d8b81c266b9fe942cc4408e7fd34d640d21b778214f3e5c24430d0e23',
+    'K20-haar-(64, 128)-(70, 131)-True-0':
+        '0638ac55bd3a98ee526fd17a63e0e7c27e1d10aac25446cfe0bf942265eb6bfd',
+    'K20-db2-(64, 128)-(70, 131)-True-0':
+        '6d7a5f38ff4da969fe7bf205990e0938cf6cbacfebd04767e6579ea0a802bc5c',
+    'K20-bior4.4-(64, 128)-(70, 131)-True-0':
+        '65e716b3e249b9aad8381747e16bbe6d9b1c2c2f19c95837027b190d6c031429',
+    'K20-sym8-(64, 128)-(70, 131)-True-0':
+        '9f92fe263f04b00fa04d6bace260bd09ac1c6cd30bf63bc816e7a6d9ef056afe',
+    'K20-sym20-(64, 128)-(70, 131)-True-0':
+        '504535ff3a91ee6477b1255018b0ce1c25570bd948a2cb0cb6c9369308eab228',
+    'K20-odd5-(64, 128)-(70, 131)-True-0':
+        '4b7275155139bd2401d8b4576fe84630b9eaddef9ea1dc916d680476361da0cd',
+    'K20-haar-(66, 130)-(1, 1)-True-0':
+        '142eca5f3d23079f64aabad5d94d56d44796ea91997ed5531c968f095adcfe7e',
+    'K20-db2-(66, 130)-(1, 1)-True-0':
+        'ead32908869be1efb3456d3ce4e779e82715170f92d92553b6fdd25e354ea9d3',
+    'K20-bior4.4-(66, 130)-(1, 1)-True-0':
+        'f3b41d063a61eb58fc1871842fecfa17c74fb07d82f3166b5970a26ea64d7d72',
+    'K20-sym8-(66, 130)-(1, 1)-True-0':
+        '2c599787da435cb3606cda04ffdaeabc297dd395bee9d9f65832643139d19bf0',
+    'K20-sym20-(66, 130)-(1, 1)-True-0':
+        'c73da5354a4edd54c372af4652971459d17b8657b3c483d45d907b3fe0ee2d3e',
+    'K20-odd5-(66, 130)-(1, 1)-True-0':
+        '372b05b5985145113ec2d2bf4787da4cc263fd48b67e5f53f178cb6704d9e499',
+    'K20-haar-(2048, 2048)-(1, 1)-True-0':
+        'c73c969682b26949361f79fac1a8a6808fedc79b179bc2dcbdf02a3264d78c07',
+    'K20-db2-(2048, 2048)-(1, 1)-True-0':
+        '98e0fe587606617647040e66282447a34286753714ae9250c43cb645e0a8b166',
+    'K20-bior4.4-(2048, 2048)-(1, 1)-True-0':
+        '6fcc13047993a82c5164488c910599e9942a228d8abddc87c2baef3604beb607',
+    'K20-sym8-(2048, 2048)-(1, 1)-True-0':
+        '094d5fe1c14a8a0f538277509ba90175a1d34082b2db2f8ddf63734f933ec797',
+    'K20-sym20-(2048, 2048)-(1, 1)-True-0':
+        'db7ebd32fe0544e5ebd7a56d20f308a2bc747f0822b5d6f62fc0b4c6ac92f430',
+    'K20-odd5-(2048, 2048)-(1, 1)-True-0':
+        'e5fae2d58522326fd61cbf95d96f7c00a5af9a5066123639322a22a9ced3adb3',
+    'K20-haar-(3, 40, 72)-(1, 1)-True-0':
+        '83c2720b0ed43941439f70e95d1292573450f2ba070892d92b19c41e6a1ad23f',
+    'K20-db2-(3, 40, 72)-(1, 1)-True-0':
+        '994ef16d61b0866c6a49e611e6acff35773abb511aa6e21ce0de2d5007a84656',
+    'K20-bior4.4-(3, 40, 72)-(1, 1)-True-0':
+        '86adddd721233bd0c1477f1a2fac4fa4048f2227c1981f1c07ddae9440a00639',
+    'K20-sym8-(3, 40, 72)-(1, 1)-True-0':
+        'e6deaff4d03c837bf25dcf36a9ca9524c317e8f0f2f621d89ac2c4820c063ff2',
+    'K20-sym20-(3, 40, 72)-(1, 1)-True-0':
+        'f347b33d5437f5ae643136a8a0cbf6151b18ab436342c5feed9a5bc4163f9b1e',
+    'K20-odd5-(3, 40, 72)-(1, 1)-True-0':
+        '08ec9ea5f5d18b277c3c3b11162e2a65f3c921e07d8342008ab9c9995e86214f',
+    'K20-haar-(2047, 2048)-(0, 1)-True-0':
+        '46be21b1ca7b9d2ecc3a1d1f703c69da797630e0d414e01e8da7bd298e5058be',
+    'K20-db2-(2047, 2048)-(0, 1)-True-0':
+        'dc1d7e8d27536d6bdc853f9cc23147774341c049bc4f59dff10a4c5777ebc03f',
+    'K20-bior4.4-(2047, 2048)-(0, 1)-True-0':
+        '675d96758cef1689c77469704cf5168e2ef41e99f690e69f739f3e4edb165ddc',
+    'K20-sym8-(2047, 2048)-(0, 1)-True-0':
+        'b931d47449465dde605cca98e50fb0af9adcf9c406f54d6cb34aa779b2597a92',
+    'K20-sym20-(2047, 2048)-(0, 1)-True-0':
+        '89f1fec1c012268f943695102bdcea6cbdb621e56e69d3a05258486c824f39fe',
+    'K20-odd5-(2047, 2048)-(0, 1)-True-0':
+        '66dace99c737fa5eccbaf2cf6edfe10c6cc784154b38acdeeb9c8b907b4b17eb',
+    'K20-haar-(2047, 2047)-(1, 1)-True-0':
+        'd309cc96e669aa57f4bf8efdce38e7f57610462e12f34ee09d321362fd9c8b9f',
+    'K20-db2-(2047, 2047)-(1, 1)-True-0':
+        'c3c726d4339771feb54aabee78fea5b771b4b42f0dfc14b25eedd559fdbbb6cb',
+    'K20-bior4.4-(2047, 2047)-(1, 1)-True-0':
+        '47cac6d0ec5ec0da482ac00016eb0fadb4f592ebeb8e60bb2f5a89c005cc6d6d',
+    'K20-sym8-(2047, 2047)-(1, 1)-True-0':
+        'e7e460622b6df0022e0e29d5065eadc9c7236e0150bb4acc76890e1851ac08b2',
+    'K20-sym20-(2047, 2047)-(1, 1)-True-0':
+        '9c13e7219f26199eded18e11161a6dc0db6c9f32237fe1c44eacbfbe1eb44467',
+    'K20-odd5-(2047, 2047)-(1, 1)-True-0':
+        'e38f459ad3761601aa54835625c3bd3d0169295600ac661677962acb62ccc967',
+    'K20-haar-(64, 128)-(1, 1)-True-1':
+        '2b7c52ae35695f9783f58b35797b477a0ae2387e16fc77c20960c90c4525ce8c',
+    'K20-db2-(64, 128)-(1, 1)-True-1':
+        '3f86877c88aae74aa65b2432b253dd3a36d9f6f2c12c672a895cef40ff5e4f59',
+    'K20-bior4.4-(64, 128)-(1, 1)-True-1':
+        '2f4b1c860387ad98fe1207c35e3c5b6267d081e3186f76added88c494bf843c6',
+    'K20-sym8-(64, 128)-(1, 1)-True-1':
+        'ae2acdc00dd563328a3de7ab41992b55fe1910beb8eca8ba3c1e8156f237953e',
+    'K20-sym20-(64, 128)-(1, 1)-True-1':
+        '5a53b4e5e2b2267ea22bcf7c2527e2b8233cb3c8eb939d59372359fb65a48c7e',
+    'K20-odd5-(64, 128)-(1, 1)-True-1':
+        '4301dcc582da7fa0e7e09ffe73c63df4fa31f3366eea9ce72d254b9b91074bbe',
+    'K20-haar-(66, 132)-(5, 3)-True-1':
+        'd65de20ae7fa110b5dcb9e20b75f47962f24939f8321bad806b628716ac7383f',
+    'K20-db2-(66, 132)-(5, 3)-True-1':
+        '4bac6224888677227d9ac6bbb954f2b1620eda0f6ce0b5698c622cbefdd9662b',
+    'K20-bior4.4-(66, 132)-(5, 3)-True-1':
+        '9164278e20b34668b57cb4784b0f9d74a292970a7d4357188a8cf748e27881b0',
+    'K20-sym8-(66, 132)-(5, 3)-True-1':
+        '11ccfd4f4a3c04e9f9f22b13c1b4bfbbf49a42785854d69a4e1cbc90a7343597',
+    'K20-sym20-(66, 132)-(5, 3)-True-1':
+        'b56caf5a321b7f904d0a6192f47c247fd9151b0111c421c959be63f704877bc6',
+    'K20-odd5-(66, 132)-(5, 3)-True-1':
+        'a0b4afeaaf24309d56e22c5f18a47406f9e6aecfcc3b7ff583d3ab1e436b5f10',
+}
+
 if __name__ == "__main__":
     import sys
 
@@ -2931,4 +3212,10 @@ if __name__ == "__main__":
                     out_, _ = _rows_output(kind_, case_, wname_, prec_, dev_)
                     print(f"    {_rows_id(kind_, case_, wname_, prec_)!r}:"
                           f"\n        {_sha256(out_)!r},")
+    print("}\nK20_DIGESTS = {")
+    for case_ in K20_CASES:
+        for wname_ in PAIR_BANKS:
+            out_, _ = _k20_output(case_, wname_, dev_)
+            print(f"    {_k20_id(case_, wname_)!r}:\n"
+                  f"        {_sha256(out_)!r},")
     print("}")

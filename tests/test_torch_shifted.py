@@ -101,6 +101,51 @@ def test_k20_plain_matches_jax(shift, acc):
         assert _err(got, ref) <= TOL
 
 
+def _k20_against_jax(shape, sr, sc, acc, wname):
+    """K20's plain version on coefficients of a level of ``shape`` against
+    roll + JAX's jnp level, and against JAX's Pallas kernel (interpret
+    mode) where it covers the shift and the plane."""
+    half = ((shape[0] + 1) // 2, (shape[1] + 1) // 2)
+    c = [_f32(half, 30 + s) for s in range(4)]
+    fb, jfb = get_filter_bank(wname), jbank(wname)
+    accum = _f32(shape, 40) if acc else None
+    scale = 0.25 if acc else 1.0
+    got = ks.idwt2d_unshift_plain(
+        *(torch.from_numpy(s) for s in c), fb, shape, sr, sc,
+        None if accum is None else torch.from_numpy(accum), scale)
+    y = jnp.roll(_jnp(jdwt.idwt2d, *(jnp.asarray(s) for s in c), jfb,
+                      shape), (-sr, -sc), (-2, -1))
+    want = y if accum is None else (jnp.asarray(accum) + y) * scale
+    assert got.shape == shape and _err(got, want) <= TOL
+    ref = pk.idwt2d_fused_unshift(
+        *(jnp.asarray(s) for s in c), jfb, shape, sr, sc,
+        acc=None if accum is None else jnp.asarray(accum), scale=scale)
+    if ref is not None:
+        assert _err(got, ref) <= TOL
+
+
+# shifts wider than one 16 x 64-coefficient tile of K20's pair body (32 x
+# 128 outputs), on a plane of 3 x 3 such tiles; the last two past it
+WIDE_SHIFTS = [(70, 131), (33, 257), (95, 383), (101, 400)]
+
+
+@pytest.mark.parametrize("shift", WIDE_SHIFTS, ids=str)
+@pytest.mark.parametrize("acc", [False, True], ids=["store", "acc"])
+def test_k20_plain_matches_jax_at_shifts_wider_than_a_tile(shift, acc):
+    _k20_against_jax((96, 384), *shift, acc, "db4")
+
+
+@pytest.mark.parametrize("shape, shift", [((65, 128), (0, 3)),
+                                          ((65, 128), (0, 131)),
+                                          ((64, 129), (70, 0))], ids=str)
+@pytest.mark.parametrize("wname", ["db2", "sym4"])
+def test_k20_plain_matches_jax_on_an_odd_unshifted_axis(shape, shift,
+                                                         wname):
+    """An axis of odd length that is not shifted, beside a shifted even
+    one: the pair body's crop on the card."""
+    _k20_against_jax(shape, *shift, True, wname)
+
+
 @pytest.mark.parametrize("idx", [0, 1, 2, 3])
 def test_phase_bits_match_phase_switch(idx):
     """A phase-select level is K19/K20 shifted by its phase bits."""
