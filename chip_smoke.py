@@ -116,8 +116,9 @@ prints its traceback and exits non-zero without the final ok line:
    the stack, both as device time and as wall time (host launch overhead
    included); then level 0 of K3/K4/K10a/K10b at 2048 x 2048 against their
    plain versions, and the batched-1D and 4 Mi-signal roundtrips; then
-   K8/K9 at levels 1 and 3 and K18a/K18b at level 1, 2048^2, and the 2D
-   SWT L3 roundtrip; then K16/K17 (db3 x coif1) and K19 (soft epilogue) /
+   K8/K9 at levels 1 and 3 and K18a/K18b at level 1, 2048^2, the 2D SWT
+   L3 roundtrip and the L3 non-separable SWT roundtrip (db3 x coif1: 3
+   K18a + 3 K18b), device and wall; then K16/K17 (db3 x coif1) and K19 (soft epilogue) /
    K20 (accumulating) at level 0 of 2048^2, and the 4-spin static and
    8-spin random cycle spinning in frames/s, kernel path against plain
    path; then K5 against K1 and K6 against K2 at sym8 level 0, K11a against
@@ -161,9 +162,9 @@ K12a/K12b against K10 (level l of 2048 x 2048); it prints no ok line.
 ``--only KEYS`` is the loop of a kernel redesign: KEYS, comma-separated,
 name rows of the kernels line (a family such as K7, K28 or K29 names all
 of its rows); the tap-loop DWT analysis K1 and synthesis K2, the
-cycle-spin synthesis K20, the tap-loop SWT synthesis K9, the tensor-core
-forms K5/K6/K11a/K11b and K7a/K7b, the
-row-sharded K26-K28 and the grid and sequence passes K29 are selectable.
+cycle-spin synthesis K20, the tap-loop SWT synthesis K9, the
+non-separable SWT pair K18a/K18b, the tensor-core forms K5/K6/K11a/K11b
+and K7a/K7b, the row-sharded K26-K28 and the grid and sequence passes K29 are selectable.
 It builds every kernel, then runs only those rows' phases: their
 kernel-against-plain checks over the cases above (both precisions),
 their main paths with exact launch counts, and their times at the
@@ -181,7 +182,13 @@ cases; K1 and K26a the same for dwt2d.cu's analysis; K20 runs phase 3's
 shifted checks, the spins of phase 4 with their launches and phase 5's
 slice times, and prints the occupancy and tile shape of its idwt2d.cu
 instances at levels 0-2 of 2048^2 for each parity of the shift and
-digests of its outputs on seeded cases; K7a/K7b at levels
+digests of its outputs on seeded cases; K18a/K18b run phase 3's K18
+checks, the non-separable SWT of phase 4 (db3 x coif1 L3, 3 + 3
+launches) and their times at levels 1-3 of 2048^2 (db3 x coif1 and
+dense8; K18b in float32 and float64), and print the occupancy, tile
+shape and window path of K18b's nonsep_swt2d.cu instances at levels 1-8
+of 2048^2 (hlen 6, 8, 40) and digests of its outputs on seeded cases;
+K7a/K7b at levels
 1-3 of the sinogram and 1-5 of the signal beside K3/K4, and the
 occupancy of the tc_dwt1d.cu instances that K7a/K7b and K29e/K29f run);
 a K29 row runs
@@ -604,13 +611,15 @@ def banks_2d(port):
     return [cross, f2d(mix, mix, "rank2mix"), dense]
 
 
-def phase_kernels_nonsep(port, dev):
+def phase_kernels_nonsep(port, dev, keys=None):
+    """K16/K17 and K18a/K18b against their plain versions on the custom
+    2D banks; ``keys``: only K18a/K18b's checks (--only)."""
     kn = port.ops.nonsep
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     worst = {"K16": 0.0, "K17": 0.0, "K18a": 0.0, "K18b": 0.0}
     # K16/K17: three levels down from each plane, every level's analysis
     # of the last one's approximation and a synthesis back to its shape
-    for f2d in banks_2d(port):
+    for f2d in banks_2d(port) if keys is None else ():
         for shape in ((64, 128), ODD_PLANE, FRAME):
             x = torch.rand(shape, generator=gen, device=dev)
             for level in (1, 2, 3):
@@ -655,7 +664,7 @@ def phase_kernels_nonsep(port, dev):
                         f"{max(ea, eb):.3e} > {KERNEL_TOL}")
                 worst["K18a"] = max(worst["K18a"], ea)
                 worst["K18b"] = max(worst["K18b"], eb)
-    return worst
+    return {k: e for k, e in worst.items() if wanted(keys, k)}
 
 
 def thresh_err(got, ref, bare, beta):
@@ -1078,9 +1087,19 @@ def install_bank(f2d):
 
 def phase_main_paths_2d_swt(port, dev, keys=None):
     """The 2D SWT (db2 L3 on the frame and the stack) and the
-    non-separable plans; ``keys``: the non-separable ones only where K18a
-    or K18b is selected (--only)."""
+    non-separable plans; ``keys``: the separable SWT only where K8 or K9
+    is selected, the non-separable SWT of the custom bank only where K18a
+    or K18b is (--only)."""
     img = frame(FRAME, SEED + 4)
+    cross = banks_2d(port)[0]
+    if keys is not None and not wanted(keys, "K8", "K9"):
+        k18 = drive(port, dev, img, "db2", 3, {"ns_swt2d_fused": 3},
+                    {"ns_swt2d_fused": 3, "ins_swt2d_fused": 3},
+                    f"non-separable SWT {cross.name} L3 {FRAME}",
+                    setup=install_bank(cross), do_separable=0, do_swt=1)
+        return {k: v for k, v in (("K18a", k18["ns_swt2d_fused"]),
+                                  ("K18b", k18["ins_swt2d_fused"]))
+                if wanted(keys, k)}
     swt = drive(port, dev, img, "db2", 3, {"swt2d_fused": 3},
                 {"swt2d_fused": 3, "iswt2d_fused": 3},
                 f"2D SWT db2 L3 {FRAME}", do_swt=1)
@@ -1119,7 +1138,6 @@ def phase_main_paths_2d_swt(port, dev, keys=None):
     drive(port, dev, img, "db2", 3, {"swt2d_fused": 3},
           {"swt2d_fused": 3, "iswt2d_fused": 3},
           f"non-separable SWT db2 L3 {FRAME}", do_separable=0, do_swt=1)
-    cross = banks_2d(port)[0]
     k18 = drive(port, dev, img, "db2", 3, {"ns_swt2d_fused": 3},
                 {"ns_swt2d_fused": 3, "ins_swt2d_fused": 3},
                 f"non-separable SWT {cross.name} L3 {FRAME}",
@@ -1538,8 +1556,34 @@ def phase_times_2d_swt(port, dev, card, keys=None):
         print(f"time L3 db2 2D SWT roundtrip {FRAME}, {clock}: kernel path "
               f"{ms:.3f} ms ({1e3 / ms:.0f} frames/s), plain path "
               f"{plain:.3f} ms ({1e3 / plain:.0f} frames/s)  [{card}]")
+    nsswt_roundtrip(port, nx, cross, card)
     port.dwt.set_kernels("auto")
     return times
+
+
+def nsswt_roundtrip(port, nx, f2d, card):
+    """Device and wall time of the L3 non-separable SWT roundtrip
+    (core.nonsep: 3 K18a + 3 K18b) of the frames ``nx`` gives, on the
+    kernels against the plain path, in turns."""
+    ns = port.nonsep
+
+    def with_mode(mode):
+        def run():
+            port.dwt.set_kernels(mode)
+            ns.ins_swt2d(ns.ns_swt2d(nx(), f2d, 3), f2d)
+        return run
+
+    # the plain path's thousands of launches outrun the device's launch
+    # queue behind a sleep: it has a wall time only
+    kernel, plain = with_mode("cuda"), with_mode("torch")
+    try:
+        device = (cuda_ms(kernel, 3, True) + cuda_ms(kernel, 3, True)) / 2
+        wall, plain_wall = turns(plain, kernel, 1, False)
+    finally:
+        port.dwt.set_kernels("auto")
+    print(f"time L3 {f2d.name} non-separable SWT roundtrip {FRAME}: kernel "
+          f"path {device:.3f} ms device, {wall:.3f} ms wall ({1e3 / wall:.0f} "
+          f"frames/s), plain path {plain_wall:.3f} ms wall  [{card}]")
 
 
 def phase_times_slice(port, dev, card):
@@ -2198,6 +2242,113 @@ def print_idwt2d_tap_digests(port, dev, keys):
             del body, halos, out
             n += 1
     print(f"digests of the tap-loop DWT synthesis: {n}")
+
+
+# -- K18b, the non-separable SWT synthesis (--only) ------------------------
+
+def phase_times_nsswt_levels(port, dev, card, keys):
+    """K18b at levels 1-3 of the frame on db3xcoif1 and dense8, float32 and
+    float64, K18a beside it in float32 (--only): the kernels line's shape
+    (level 1, db3xcoif1, float32) against the plain version in turns, the
+    rest the kernel alone (CUDA events, sleep-primed, the mean of two
+    medians of 21). Returns {key: (kernel ms, plain ms)} of that shape."""
+    kn = port.ops.nonsep
+    gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+    frames = [torch.rand(FRAME, generator=gen, device=dev) * 255
+              for _ in range(4)]
+    cross, _, dense = banks_2d(port)
+    times = {}
+    for f2d, level, dtype in itertools.product((cross, dense), (1, 2, 3),
+                                               (torch.float32, torch.float64)):
+        xs = [f.to(dtype) for f in frames]
+        nx = itertools.cycle(xs).__next__
+        coef = itertools.cycle([kn.ns_swt2d_fused(x, f2d, level)
+                                for x in xs]).__next__
+        calls = {"K18b": (lambda: kn.ins_swt2d_plain(*coef(), f2d, level),
+                          lambda: kn.ins_swt2d_fused(*coef(), f2d, level))}
+        if dtype == torch.float32:
+            calls["K18a"] = (lambda: kn.ns_swt2d_plain(nx(), f2d, level),
+                             lambda: kn.ns_swt2d_fused(nx(), f2d, level))
+        for key, (plain, kernel) in calls.items():
+            if not wanted(keys, key):
+                continue
+            line = (f"time {key} level {level} {f2d.name} {str(dtype)[6:]} "
+                    f"{FRAME}, device: kernel")
+            if (f2d, level, dtype) == (cross, 1, torch.float32):
+                times[key] = turns(plain, kernel, 3, True)
+                print(f"{line} {times[key][0] * 1e3:.1f} us, plain "
+                      f"{times[key][1] * 1e3:.1f} us  [{card}]")
+            else:
+                ms = (cuda_ms(kernel, 3, True) + cuda_ms(kernel, 3, True)) / 2
+                print(f"{line} {ms * 1e3:.1f} us  [{card}]")
+        del xs, coef
+    return times
+
+
+def print_k18b_occupancy(port, dev):
+    """Resident blocks per SM (the occupancy API), dynamic shared memory,
+    tile shape and window path (staged in shared memory, or read through
+    the cache) of the nonsep_swt2d.cu instance K18b runs at levels 1-8 of
+    the frame for hlen 6, 8 and 40, float32 and float64 (a build without
+    the query says so)."""
+    from pypwt_tpu_torch.ops import _build
+    lib = _build.load_library()
+    query = "pypwt_ins_swt2d_occupancy"
+    if not hasattr(lib, query):
+        print("occupancy K18b: not reported by this build")
+        return
+    for hlen, f64, level in itertools.product((6, 8, 40), (0, 1),
+                                              range(1, 9)):
+        out = [ctypes.c_int() for _ in range(5)]
+        err = getattr(lib, query)(*FRAME, level,
+                                  port.conv.swt_centre(hlen, True), hlen, f64,
+                                  dev.index, *(ctypes.byref(o) for o in out))
+        if err:
+            raise RuntimeError(f"occupancy query K18b hlen {hlen}: error "
+                               f"{err}")
+        blocks, smem, tr, tc, staged = (o.value for o in out)
+        print(f"occupancy K18b hlen {hlen} {'float64' if f64 else 'float32'} "
+              f"level {level} {FRAME}: {blocks} blocks of 256 threads per SM, "
+              f"{smem} bytes of dynamic shared memory each, tiles of {tr} x "
+              f"{tc} outputs, {'staged' if staged else 'direct'}")
+
+
+# The levels whose outputs --only K18b digests, so that two builds of
+# nonsep_swt2d.cu compare bit for bit: (type, shape, level, offset) on the
+# custom 2D banks and dense ones of hlen 5 and 40: levels 1-3 of (64, 128)
+# and of the frame, a dilation that reaches the plane, odd planes, rows
+# of 70 samples, a batch, planes one sample past a 16-byte boundary.
+K18B_DIGEST_CASES = (
+    [("f32", (64, 128), lev, 0) for lev in (1, 2, 3)]
+    + [("f32", FRAME, lev, 0) for lev in (1, 2, 3)]
+    + [("f32", (16, 64), 6, 0), ("f32", ODD_FRAME, 1, 0),
+       ("f32", (33, 47), 2, 0), ("f32", (40, 70), 1, 0),
+       ("f32", (3, 40, 72), 2, 0), ("f32", (64, 128), 1, 1),
+       ("f64", (64, 128), 1, 0), ("f64", FRAME, 1, 0),
+       ("f64", (16, 64), 6, 0), ("f64", (3, 40, 72), 2, 1)])
+
+
+def print_k18b_digests(port, dev):
+    """SHA-256 of K18b's outputs on seeded inputs (K18B_DIGEST_CASES):
+    equal lines from two trees mean bit-identical kernels."""
+    kn = port.ops.nonsep
+    rng = np.random.default_rng(SEED + 72)
+    banks = banks_2d(port) + [
+        port.nonsep.Filters2D(list(rng.random((4, n, n)) / n ** 2),
+                              list(rng.random((4, n, n)) / n ** 2),
+                              f"dense{n}") for n in (5, 40)]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 73)
+    n = 0
+    for (kind, shape, level, off), f2d in itertools.product(
+            K18B_DIGEST_CASES, banks):
+        dtype = torch.float64 if kind == "f64" else torch.float32
+        c = [unaligned(torch.rand(shape, generator=gen, device=dev,
+                                  dtype=dtype), off) for _ in range(4)]
+        out = kn.ins_swt2d_fused(*c, f2d, level)
+        print(f"digest K18b {f2d.name} {kind} {shape} L{level} +{off}: "
+              f"{digest(out)}")
+        n += 1
+    print(f"digests of K18b: {n}")
 
 
 # The levels whose outputs --only K20 digests, so that two builds of
@@ -5246,8 +5397,8 @@ MXU2D_KEYS = ("K5", "K6", "K11a", "K11b")
 SHARD_KEYS = ("K26a", "K26b", "K27a", "K27b", "K28 dwt", "K28 idwt",
               "K28 swt", "K28 iswt")
 MXU1D_KEYS = ("K7a", "K7b")
-ONLY_KEYS = (("K1", "K2", "K9", "K20") + MXU2D_KEYS + MXU1D_KEYS
-             + SHARD_KEYS + K29)
+ONLY_KEYS = (("K1", "K2", "K9", "K18a", "K18b", "K20") + MXU2D_KEYS
+             + MXU1D_KEYS + SHARD_KEYS + K29)
 
 
 def in_family(key, item):
@@ -5327,7 +5478,15 @@ def run_only(port, dev, card, keys):
         times.update(phase_times_slice(port, dev, card))
         print_k20_occupancy(port, dev)
         print_k20_digests(port, dev)
-    if wanted(keys, "K1", "K2", "K9", "K20", *MXU2D_KEYS, *MXU1D_KEYS):
+    if wanted(keys, "K18a", "K18b"):
+        worst.update(phase_kernels_nonsep(port, dev, keys))
+        if "K9" not in keys:  # else K9's main paths drove them
+            launches.update(phase_main_paths_2d_swt(port, dev, keys))
+        times.update(phase_times_nsswt_levels(port, dev, card, keys))
+        print_k18b_occupancy(port, dev)
+        print_k18b_digests(port, dev)
+    if wanted(keys, "K1", "K2", "K9", "K18a", "K18b", "K20", *MXU2D_KEYS,
+              *MXU1D_KEYS):
         library.update(phase_library(port, dev, card, keys))
     if wanted(keys, "K7a", "K7b", "K29e", "K29f"):
         print_tc1d_occupancy(port, dev, keys)

@@ -3,7 +3,7 @@ DWT synthesis or analysis, the tensor-core row passes of the grid layout,
 or the cycle-spin synthesis, of several source trees in turns, in one
 process, on one NVIDIA GPU, or compare their kernels' machine code:
 
-    python3 chip_turns.py [--only dwt|idwt|syn2d|ana2d|rows|spin]
+    python3 chip_turns.py [--only dwt|idwt|syn2d|ana2d|rows|spin|nsswt]
         [--banks B,...] PARENT_TREE TREE [TREE ...]
     python3 chip_turns.py --sass PARENT_TREE TREE [TREE ...]
 
@@ -34,7 +34,14 @@ K20 (``pypwt_idwt2d_unshift``) at the levels of a 2048^2 frame that the
 cycle spins give it (SPIN_LEVELS: the random spin's level 0 at shift (1,
 1) with the accumulator and scale 0.25, its levels 1 and 2 at each pair of
 phase bits, a static spin's level 0 at (5, 3) with the accumulator), db2,
-sym8 and sym20 (``--banks``: these banks instead).
+sym8 and sym20 (``--banks``: these banks instead). ``--only nsswt``
+(not in the default run): K18b (``pypwt_ins_swt2d``,
+``pypwt_ins_swt2d_f64``) at levels 1-3 of a 2048^2 frame, float32 and
+float64, with K18a (``pypwt_ns_swt2d``, float32) at the same levels as a
+control, on the custom 2D banks db3xcoif1 (db3 rows x coif1 columns, hlen
+6) and dense8 (``--banks``: these instead; ``denseN`` is a dense random
+N x N bank), and the L3 non-separable SWT roundtrip of the frame on the
+first bank (3 K18a, then 3 K18b, float32).
 Device time by CUDA events behind a sleep kernel, the median of 21
 samples of 10 launches, and the host time of one call (entry to return,
 the device idle before it), the median of 21; the trees in order, then
@@ -44,9 +51,10 @@ trees that report it print their
 instances' occupancy (``pypwt_tc_dwt2d_occupancy``,
 ``pypwt_tc_idwt2d_occupancy``, ``pypwt_idwt2d_occupancy``,
 ``pypwt_dwt2d_occupancy``, ``pypwt_tc_rows_occupancy``,
-``pypwt_idwt2d_unshift_occupancy``: blocks per SM,
-dynamic shared memory and, for the tap loop and the row passes, the tile
-shape).
+``pypwt_idwt2d_unshift_occupancy``, ``pypwt_ins_swt2d_occupancy``:
+blocks per SM, dynamic shared memory and, for the tap loop, the row
+passes and K18b, the tile shape; K18b also whether its windows are
+staged).
 
 ``--sass`` times nothing: it disassembles each tree's library
 (``cuobjdump -sass``) and prints, for every kernel of the first tree,
@@ -66,6 +74,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 SEED = 1234
@@ -86,6 +95,7 @@ SPIN_LEVELS = ([(0, (1, 1), True)]
                + [(lev, s, False) for lev in (1, 2)
                   for s in ((1, 0), (0, 1), (0, 0), (1, 1))]
                + [(0, (5, 3), True)])
+NSSWT_BANKS = ["db3xcoif1", "dense8"]  # K18a/K18b's (--banks)
 ROWS_BLOCK = (4096, 4096)       # one block of an 8192^2 image on a 2 x 2 grid
 SYN2D_TYPES = (torch.float32, torch.float64)
 # entries that a parent tree's _build may not declare
@@ -94,7 +104,9 @@ ENTRY_TYPES = {
     "pypwt_dwt2d_occupancy": [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4,
     "pypwt_idwt2d_unshift_occupancy": [ctypes.c_int] * 6
     + [ctypes.c_void_p] * 4,
-    "pypwt_tc_rows_occupancy": [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4}
+    "pypwt_tc_rows_occupancy": [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4,
+    "pypwt_ins_swt2d_occupancy": [ctypes.c_int] * 7
+    + [ctypes.c_void_p] * 5}
 
 
 def load(trees):
@@ -124,7 +136,9 @@ def load(trees):
                      "pypwt_dwt2d_occupancy", "pypwt_tc_ana_rows",
                      "pypwt_tc_syn_rows", "pypwt_tc_rows_occupancy",
                      "pypwt_idwt2d_unshift",
-                     "pypwt_idwt2d_unshift_occupancy"):
+                     "pypwt_idwt2d_unshift_occupancy", "pypwt_ns_swt2d",
+                     "pypwt_ins_swt2d", "pypwt_ins_swt2d_f64",
+                     "pypwt_ins_swt2d_occupancy"):
             if hasattr(lib, name):
                 getattr(lib, name).argtypes = _build._SIGNATURES.get(
                     name, ENTRY_TYPES.get(
@@ -412,6 +426,75 @@ def cases(port, dev, only):
             return out
         return call
 
+    def k18(bname, level, dtype, synthesis):
+        dec, rec = ns_bank(port, bname)
+        hlen = dec.shape[-1]
+        centre = port.conv.swt_centre(hlen, synthesis)
+        n = FRAME
+        if synthesis and dtype == torch.float64:
+            # pypwt_ns_bank_f64's layout 3 ([k][l][b], x 1/4) on the device
+            keep = torch.from_numpy(np.ascontiguousarray(
+                (0.25 * rec.reshape(4, -1)).T.reshape(-1))).to(dev)
+            ptr = keep.data_ptr()
+        else:
+            keep = np.ascontiguousarray(
+                (rec if synthesis else dec).astype(np.float32))
+            ptr = keep.ctypes.data
+        sets = [[rand((n, n), dtype) for _ in range(4 if synthesis else 1)]
+                for _ in range(2)]
+        outs = [torch.empty((n, n), device=dev, dtype=dtype)
+                for _ in range(1 if synthesis else 4)]
+
+        def call(lib, i, _):
+            if synthesis:
+                err = entry(lib, "pypwt_ins_swt2d", dtype)(
+                    *(p.data_ptr() for p in sets[i % 2]),
+                    outs[0].data_ptr(), 1, n, n, level, centre, ptr, hlen,
+                    dev.index, stream)
+            else:
+                err = lib.pypwt_ns_swt2d(
+                    sets[i % 2][0].data_ptr(), *(o.data_ptr() for o in outs),
+                    1, n, n, level, centre, ptr, hlen, dev.index, stream)
+            if err:
+                raise RuntimeError(f"K18 level {level}: error {err}")
+            return outs[0] if synthesis else outs
+        call.bank = keep  # alive as long as the call
+        return call
+
+    def k18_roundtrip(bname):
+        """The L3 non-separable SWT roundtrip of a frame: K18a at levels
+        1-3, each on the approximation before, then K18b at levels 3-1."""
+        dec, rec = ns_bank(port, bname)
+        hlen = dec.shape[-1]
+        dec32, rec32 = (np.ascontiguousarray(f.astype(np.float32))
+                        for f in (dec, rec))
+        frames = [rand((FRAME, FRAME)) for _ in range(2)]
+        levels = [[torch.empty((FRAME, FRAME), device=dev) for _ in range(4)]
+                  for _ in range(3)]
+        outs = [torch.empty((FRAME, FRAME), device=dev) for _ in range(3)]
+
+        def call(lib, i, _):
+            x, err = frames[i % 2], 0
+            for lev, planes in enumerate(levels, 1):
+                err = err or lib.pypwt_ns_swt2d(
+                    x.data_ptr(), *(p.data_ptr() for p in planes), 1, FRAME,
+                    FRAME, lev, port.conv.swt_centre(hlen, False),
+                    dec32.ctypes.data, hlen, dev.index, stream)
+                x = planes[0]
+            for lev in (3, 2, 1):
+                _, h, v, d = levels[lev - 1]
+                err = err or lib.pypwt_ins_swt2d(
+                    x.data_ptr(), h.data_ptr(), v.data_ptr(), d.data_ptr(),
+                    outs[lev - 1].data_ptr(), 1, FRAME, FRAME, lev,
+                    port.conv.swt_centre(hlen, True), rec32.ctypes.data,
+                    hlen, dev.index, stream)
+                x = outs[lev - 1]
+            if err:
+                raise RuntimeError(f"K18 roundtrip: error {err}")
+            return x
+        call.banks = (dec32, rec32)  # alive as long as the call
+        return call
+
     got = {}
     precisions = (0, 1)
     if only in (None, "dwt"):
@@ -452,7 +535,33 @@ def cases(port, dev, only):
                 got[f"K20 level {lev} {wname} {shift}"
                     + (" acc" if acc else "")] = (k20(wname, lev, shift, acc),
                                                   (None,))
+    if only == "nsswt":
+        got[f"K18 L3 roundtrip {NSSWT_BANKS[0]} float32"] = (
+            k18_roundtrip(NSSWT_BANKS[0]), (None,))
+        for bname in NSSWT_BANKS:
+            for lev in (1, 2, 3):
+                for dtype in SYN2D_TYPES:
+                    got[f"K18b level {lev} {bname} {str(dtype)[6:]}"] = (
+                        k18(bname, lev, dtype, True), (None,))
+                got[f"K18a level {lev} {bname} float32"] = (
+                    k18(bname, lev, torch.float32, False), (None,))
     return got, fb.hlen
+
+
+def ns_bank(port, name):
+    """(dec, rec) of a custom 2D bank, each (4, hlen, hlen) float64:
+    db3xcoif1 (db3 along axis -2 x coif1 along the last axis, the a, h, v,
+    d outer products) or denseN (dense random taps, seeded)."""
+    if name == "db3xcoif1":
+        fr, fc = port.get_filter_bank("db3"), port.get_filter_bank("coif1")
+        parts = (("lo", "lo"), ("hi", "lo"), ("lo", "hi"), ("hi", "hi"))
+        return tuple(np.stack([np.outer(getattr(fr, f"{kind}_{p}"),
+                                        getattr(fc, f"{kind}_{q}"))
+                               for p, q in parts])
+                     for kind in ("dec", "rec"))
+    n = int(name.removeprefix("dense"))
+    rng = np.random.default_rng(SEED + n)
+    return tuple(rng.random((4, n, n)) / (n * n) for _ in range(2))
 
 
 def flat(out):
@@ -562,16 +671,16 @@ def main():
     if trees[:1] == ["--only"]:
         only, trees = (trees[1:2] or [""])[0], trees[2:]
     if trees[:1] == ["--banks"] and only in ("syn2d", "ana2d", "rows",
-                                             "spin"):
-        banks = {"rows": ROWS_BANKS, "spin": SPIN_BANKS}.get(only,
-                                                             SYN2D_BANKS)
+                                             "spin", "nsswt"):
+        banks = {"rows": ROWS_BANKS, "spin": SPIN_BANKS,
+                 "nsswt": NSSWT_BANKS}.get(only, SYN2D_BANKS)
         banks[:] = (trees[1:2] or [""])[0].split(",")
         trees = trees[2:]
     if len(trees) < 2 or only not in (None, "dwt", "idwt", "syn2d",
-                                      "ana2d", "rows", "spin"):
+                                      "ana2d", "rows", "spin", "nsswt"):
         print("usage: python3 chip_turns.py [--only dwt|idwt|syn2d|ana2d|"
-              "rows|spin] [--banks B,...] PARENT_TREE TREE [TREE ...]",
-              file=sys.stderr)
+              "rows|spin|nsswt] [--banks B,...] PARENT_TREE TREE "
+              "[TREE ...]", file=sys.stderr)
         sys.exit(2)
     if not torch.cuda.is_available():
         print("chip_turns: torch.cuda.is_available() is False: this run "
@@ -611,6 +720,8 @@ def main():
         print_rows_occupancy(trees, libs, port, dev)
     if only == "spin":
         print_spin_occupancy(trees, libs, port, dev)
+    if only == "nsswt":
+        print_nsswt_occupancy(trees, libs, port, dev)
     for name, (call, variants) in calls.items():
         for bf16 in variants:
             digests = {hashlib.sha256(flat(call(lib, 0, bf16)).cpu()
@@ -709,6 +820,33 @@ def print_spin_occupancy(trees, libs, port, dev):
             print(f"occupancy {tree} K20 ({n}, {n}) {wname} ({sr}, {sc}): "
                   f"{blocks} blocks per SM, {smem} bytes, tiles of {tr} x "
                   f"{tc} coefficients")
+
+
+
+def print_nsswt_occupancy(trees, libs, port, dev):
+    """Blocks per SM, dynamic shared memory, tile shape and window path of
+    each tree's K18b instances at the timed levels, banks and types, where
+    the tree reports them."""
+    query = "pypwt_ins_swt2d_occupancy"
+    for tree, lib in zip(trees, libs):
+        if not hasattr(lib, query):
+            print(f"occupancy {tree} K18b: not reported by this tree")
+            continue
+        for bname, lev, dtype in itertools.product(NSSWT_BANKS, (1, 2, 3),
+                                                   SYN2D_TYPES):
+            hlen = ns_bank(port, bname)[1].shape[-1]
+            out = [ctypes.c_int() for _ in range(5)]
+            err = getattr(lib, query)(
+                FRAME, FRAME, lev, port.conv.swt_centre(hlen, True), hlen,
+                int(dtype == torch.float64), dev.index,
+                *(ctypes.byref(o) for o in out))
+            if err:
+                raise RuntimeError(f"occupancy query: error {err}")
+            blocks, smem, tr, tc, staged = (o.value for o in out)
+            print(f"occupancy {tree} K18b ({FRAME}, {FRAME}) level {lev} "
+                  f"{bname} {str(dtype)[6:]}: {blocks} blocks per SM, {smem} "
+                  f"bytes, tiles of {tr} x {tc} outputs, "
+                  f"{'staged' if staged else 'direct'}")
 
 
 if __name__ == "__main__":

@@ -3185,37 +3185,300 @@ K20_DIGESTS = {
         'a0b4afeaaf24309d56e22c5f18a47406f9e6aecfcc3b7ff583d3ab1e436b5f10',
 }
 
+# K18b on nonsep_swt2d.cu's stencil body: each output against its plain
+# version and against the SHA-256 of the output that K18b's body before it
+# (one thread per pixel, every tap through L1) gave on the card for the
+# same seeded inputs; `python tests/test_torch_kernels_cuda.py digests`
+# prints a tree's digests in K18B_DIGESTS's form. Banks: hlen 6, 4, 8, an
+# odd 5 and a dense 40 (read through the cache, not staged). Cases: (type,
+# shape, level, offset): levels 1-3 of (64, 128) and of a 2048^2 frame; a
+# dilation that reaches the plane; odd planes; rows of 70 samples (sample
+# copies); a batch; a plane of more row tiles than one launch's grid holds;
+# planes one sample past a 16-byte boundary; float32 and float64.
+K18B_BANKS = ["db3xcoif1", "rank2mix", "dense8", "dense5", "dense40"]
+K18B_TALL = (65535 * 32 + 5, 3)
+K18B_CASES = ([("f32", (64, 128), lev, 0) for lev in (1, 2, 3)]
+              + [("f32", (2048, 2048), lev, 0) for lev in (1, 2, 3)]
+              + [("f32", (16, 64), 6, 0), ("f32", (2047, 2047), 1, 0),
+                 ("f32", (33, 47), 2, 0), ("f32", (40, 70), 1, 0),
+                 ("f32", (3, 40, 72), 2, 0), ("f32", K18B_TALL, 1, 0),
+                 ("f32", (64, 128), 1, 1),
+                 ("f64", (64, 128), 1, 0), ("f64", (2048, 2048), 1, 0),
+                 ("f64", (16, 64), 6, 0), ("f64", (33, 47), 2, 0),
+                 ("f64", (3, 40, 72), 2, 1)])
+
+
+def _k18b_bank(name):
+    if name in ("db3xcoif1", "dense8"):
+        return _f2d(name)
+    if name == "rank2mix":
+        f = get_filter_bank("db2")
+        lo, hi, o = f.dec_lo, f.dec_hi, np.outer
+        mix = [0.8 * o(lo, lo) + 0.2 * o(hi, hi),
+               0.8 * o(hi, lo) + 0.2 * o(lo, hi),
+               0.8 * o(lo, hi) + 0.2 * o(hi, lo),
+               0.8 * o(hi, hi) + 0.2 * o(lo, lo)]
+        return Filters2D(mix, mix, name)
+    n = int(name.removeprefix("dense"))
+    g = np.random.default_rng(n)  # taps / n^2: outputs of order 1
+    return Filters2D(list(g.random((4, n, n)) / n ** 2),
+                     list(g.random((4, n, n)) / n ** 2), name)
+
+
+def _k18b_id(case, name):
+    return "-".join(["K18b", name, *(str(v) for v in case)])
+
+
+def _k18b_output(case, name, dev):
+    """(kernel output, plain output) of one case, the kernel launched
+    once."""
+    kind, shape, level, off = case
+    dtype = torch.float64 if kind == "f64" else torch.float32
+    f2d = _k18b_bank(name)
+    c = [_offset(_rand(shape, dev, s).to(dtype), off) for s in range(1, 5)]
+    n = kn.ins_swt2d_fused.launches
+    got = kn.ins_swt2d_fused(*c, f2d, level)
+    assert kn.ins_swt2d_fused.launches == n + 1
+    return got, kn.ins_swt2d_plain(*c, f2d, level)
+
+
+@pytest.mark.parametrize("name", K18B_BANKS)
+@pytest.mark.parametrize("case", K18B_CASES, ids=str)
+def test_k18b_stencil_body_matches_plain_and_parent(dev, case, name):
+    got, ref = _k18b_output(case, name, dev)
+    tol = TOL if got.dtype == torch.float32 else 1e-12
+    assert got.shape == ref.shape and float((got - ref).abs().max()) <= tol
+    assert _sha256(got) == K18B_DIGESTS[_k18b_id(case, name)]
+
+
+K18B_DIGESTS = {
+    'K18b-db3xcoif1-f32-(64, 128)-1-0':
+        '5c7e2dfae213399988b584444a08a8d3322b148bfb5d9e05f2430febc83b1735',
+    'K18b-rank2mix-f32-(64, 128)-1-0':
+        '7100acb71420927b0c3d2daf70300ea14def4a53776cb046a04e654c3c5e0aed',
+    'K18b-dense8-f32-(64, 128)-1-0':
+        '65912972cfcb6e692f59d11c43e0f99b563c01533efca04c6bc243524179d51a',
+    'K18b-dense5-f32-(64, 128)-1-0':
+        '604257d257401cb37f7241365b7cbf672d0bf309f23b9b2718737c1d7e2d83fb',
+    'K18b-dense40-f32-(64, 128)-1-0':
+        'e188d2dc4f5eaeb661dddf99c1bc582a0fda26a8bfe0c09cd3d3cd19c281bcc5',
+    'K18b-db3xcoif1-f32-(64, 128)-2-0':
+        'd4be833986b9dcb0ff3a36890a46a6c76b967d228baad49b8a14cfed907da293',
+    'K18b-rank2mix-f32-(64, 128)-2-0':
+        'a39b8139c6a8f5da51c00410afe883d0f6f50e6bdb6e1796e7b373037c6e8a81',
+    'K18b-dense8-f32-(64, 128)-2-0':
+        '948ebcec0f98198d92ab1bcb67a5a3c224fe326a9b201a37b987dc49d4dde2d3',
+    'K18b-dense5-f32-(64, 128)-2-0':
+        '04946f88031b23300d7c69f9a84107bb5bc04ab6aeca862c7afd97eeca2ef495',
+    'K18b-dense40-f32-(64, 128)-2-0':
+        '0d4ef0a59bcf2841d78f0507e1b738e5a3a4f18fe6bad989723f568ede131f13',
+    'K18b-db3xcoif1-f32-(64, 128)-3-0':
+        '4d37782410f50fbd277832ce8690fc76e6d0fb4710ae3c5737a88cba9f199b2a',
+    'K18b-rank2mix-f32-(64, 128)-3-0':
+        'a0d849beb4c7152b133a9d9bdf38f03beed93ad355c9c7a5d9559a1b375780b6',
+    'K18b-dense8-f32-(64, 128)-3-0':
+        '5f8357909476a0ca9f8842aeb2cabd65d30460e56726bec42b882efa7e1707a2',
+    'K18b-dense5-f32-(64, 128)-3-0':
+        '0ea31c149639a9ef58835d30c7252bcc87a274ad07f2c8d87220ab56954c8166',
+    'K18b-dense40-f32-(64, 128)-3-0':
+        '8fbecb2a9e6722b9d2a26645a78b9a4e203231bea3c704d6cf38abb566437a41',
+    'K18b-db3xcoif1-f32-(2048, 2048)-1-0':
+        '3d29b8a1072cad941d2561a8b722a121ad0cd546150f7c84f9b5fceb6d16baac',
+    'K18b-rank2mix-f32-(2048, 2048)-1-0':
+        '9256aca8a9680ee4088ff827fb97640869be8b8e1b1f1da17f5fb34425efbe6d',
+    'K18b-dense8-f32-(2048, 2048)-1-0':
+        '278524c0db3993254e50ec706550c86d3029690a34b055178c178bad18bf400e',
+    'K18b-dense5-f32-(2048, 2048)-1-0':
+        'cb16131a106ef6767e52702be86de131ec2dc5164f0bcd44cb5c2e815e95a63d',
+    'K18b-dense40-f32-(2048, 2048)-1-0':
+        '68d2ccfcfa3a8be57d781cbf49dca25f97875c5c9a42f7db4f86f8e78ffc78de',
+    'K18b-db3xcoif1-f32-(2048, 2048)-2-0':
+        '7e45a34a3e123fb11b1a8e0952dbd28a604af66a0fd4c94098e440bebc7b3c20',
+    'K18b-rank2mix-f32-(2048, 2048)-2-0':
+        '56c4dc1a0e7a41da1c79d7f990e912a3c1906142f3d7290d9d3ef3bceba9c15b',
+    'K18b-dense8-f32-(2048, 2048)-2-0':
+        'a9b45af9b92542688fea8eb4f7644e8ee350112afcaa207de6c8bd209b5be453',
+    'K18b-dense5-f32-(2048, 2048)-2-0':
+        'e055c6b400b1018aecf9a2440e2ad28fa34a92871ab5247bc50033494ae2fd38',
+    'K18b-dense40-f32-(2048, 2048)-2-0':
+        '34c169f4a85dada9bd01bfbc6735eb4eb6ef20dde66df5f3b9879197afbe3381',
+    'K18b-db3xcoif1-f32-(2048, 2048)-3-0':
+        '01e029a82feaba6ce87eae5ca4f2e8befb78d7fcab4866c9829aaaeaf77b4dfd',
+    'K18b-rank2mix-f32-(2048, 2048)-3-0':
+        '87b9dae9cf1f853d806691f82f8d157f07ae6b8dd4da59fa2e3bce138eff7915',
+    'K18b-dense8-f32-(2048, 2048)-3-0':
+        '3c986c3e1cbb91f3fbabc08ce72e2d7ce6ddeb2b5f49d25261fefc6be2a79e27',
+    'K18b-dense5-f32-(2048, 2048)-3-0':
+        '4c048ce257f53ad6b552ec09e920c9a200d36153c3d0d56563abc233e754a4e2',
+    'K18b-dense40-f32-(2048, 2048)-3-0':
+        'e682b2f7fc108214bf30d38d984e756d00b74de1044190b7e76ec72e39a5e96f',
+    'K18b-db3xcoif1-f32-(16, 64)-6-0':
+        '44edb70ba4a094d0c7b2381ef746d7e2de6ca77bca0804ccaf85b4c5c648f3eb',
+    'K18b-rank2mix-f32-(16, 64)-6-0':
+        'c2c4e22c609cb84d583391ea932255147ec42e4704fc4ba5aa8c47be955f8d42',
+    'K18b-dense8-f32-(16, 64)-6-0':
+        '7c112c82c7cd20de44ea7c22ad338416ca5262c5e01fc327f5559283bd968458',
+    'K18b-dense5-f32-(16, 64)-6-0':
+        '5df885f856ae6a2066180855bc09fd10452c5c84c901a86d02a72399c5a60042',
+    'K18b-dense40-f32-(16, 64)-6-0':
+        'da95d966a5a9f9b6ef3068323581dd70242c287019010f2bbcb1d4be592e2fd3',
+    'K18b-db3xcoif1-f32-(2047, 2047)-1-0':
+        '1105c4b33625648aa2c2c06847a167000eb79f196faae2a39e897ca82ca0150a',
+    'K18b-rank2mix-f32-(2047, 2047)-1-0':
+        '4a05f77cc70afe6694426902260004f4bab8eade7b82a202c985b40507ee8f69',
+    'K18b-dense8-f32-(2047, 2047)-1-0':
+        '78c2130ab9c1ba48a59cf11ffd66f403f2ce24ec23f05051f4d2dc02977d322b',
+    'K18b-dense5-f32-(2047, 2047)-1-0':
+        '7ce9f6a61e7be5c37b361157ba1574020822822d5d67758ceaa1c6c55536c83a',
+    'K18b-dense40-f32-(2047, 2047)-1-0':
+        '425752f8593cc27fd457182e49d1c23e0ee8a0e8d7ed39582f6d0f2f21748cac',
+    'K18b-db3xcoif1-f32-(33, 47)-2-0':
+        '608a74005ff67b01e1986d3a52d739d6e4426dfda7307a14503f13440034be8f',
+    'K18b-rank2mix-f32-(33, 47)-2-0':
+        '94febc9ce82ca27136d41b189dc3ebd57e6dcaa7d82b5f7db91213eb96b0544a',
+    'K18b-dense8-f32-(33, 47)-2-0':
+        '65427ee38db7944571cf86664f146a1955c668f26187ac18fd0e1749fc5bec24',
+    'K18b-dense5-f32-(33, 47)-2-0':
+        '992e3f2abf823cd97f3cb797a0917806297defc28456c788d7f8183b063348f9',
+    'K18b-dense40-f32-(33, 47)-2-0':
+        '947f25bf202107f71a0cac128e7b905dee1b7a64d730857f7ccdd54d18136d20',
+    'K18b-db3xcoif1-f32-(40, 70)-1-0':
+        '516367d4411ae5fa8ace9587d74c9c872ee328e6e328cec2dd0ef397dd9549db',
+    'K18b-rank2mix-f32-(40, 70)-1-0':
+        'd14c023bfb81b472765512816e35bf2df706abe0c098dd0a406c5097e6da8f32',
+    'K18b-dense8-f32-(40, 70)-1-0':
+        '989ee0b2ba87762ccb090eebd8f85793e60fd13eee1732d41c4664024a294548',
+    'K18b-dense5-f32-(40, 70)-1-0':
+        'e8ce1675cef3a4b055e43b00cd34cce76ba26f95aa6266d82d13d5125728a5c6',
+    'K18b-dense40-f32-(40, 70)-1-0':
+        'd518f2da17aa51561aaf03e2503be02e3eded9ea938ef8bba558b89f24d17044',
+    'K18b-db3xcoif1-f32-(3, 40, 72)-2-0':
+        '2d0f127e025cffac6f576f28d1ad5ab17863b357d241ad440c79cc1813be811e',
+    'K18b-rank2mix-f32-(3, 40, 72)-2-0':
+        'bc3a2b1f4b4816914a8891c7873842bb1826b17fed09824d28be52913c1191ec',
+    'K18b-dense8-f32-(3, 40, 72)-2-0':
+        '1578beb15cdc545ff91b7c5ec1ff60738487a4e15949dfec1c5350538db5c5cb',
+    'K18b-dense5-f32-(3, 40, 72)-2-0':
+        'ed1546b0090fcb15ba7dd66179057add2b60a6510dd1fbf2d9c5583fbb439c98',
+    'K18b-dense40-f32-(3, 40, 72)-2-0':
+        '1de482becd91b4bc084297c8a5ac6640690b8277be63a919d960b5262a86ebb6',
+    'K18b-db3xcoif1-f32-(2097125, 3)-1-0':
+        '00705716989d76f836e06537fad0b1a341edb2e2406c0479b9dbffab7018c905',
+    'K18b-rank2mix-f32-(2097125, 3)-1-0':
+        '94d9f1e479bc7e53bb90eef0c4bfc50e13afac8a8127479ebf1ed3ddf858d0a3',
+    'K18b-dense8-f32-(2097125, 3)-1-0':
+        '410bcd0889bffb34995de0ca12a9b4194fd302ac11db22c23778436868b57aa8',
+    'K18b-dense5-f32-(2097125, 3)-1-0':
+        '0c77227e45f13827a20b6b793ae1e02dafbe3b905a8f2356cbc5c689e98424fe',
+    'K18b-dense40-f32-(2097125, 3)-1-0':
+        '458caa6e80db26d8bddad425871ea6af091bb9dbce659213d63a192edc592734',
+    'K18b-db3xcoif1-f32-(64, 128)-1-1':
+        '5c7e2dfae213399988b584444a08a8d3322b148bfb5d9e05f2430febc83b1735',
+    'K18b-rank2mix-f32-(64, 128)-1-1':
+        '7100acb71420927b0c3d2daf70300ea14def4a53776cb046a04e654c3c5e0aed',
+    'K18b-dense8-f32-(64, 128)-1-1':
+        '65912972cfcb6e692f59d11c43e0f99b563c01533efca04c6bc243524179d51a',
+    'K18b-dense5-f32-(64, 128)-1-1':
+        '604257d257401cb37f7241365b7cbf672d0bf309f23b9b2718737c1d7e2d83fb',
+    'K18b-dense40-f32-(64, 128)-1-1':
+        'e188d2dc4f5eaeb661dddf99c1bc582a0fda26a8bfe0c09cd3d3cd19c281bcc5',
+    'K18b-db3xcoif1-f64-(64, 128)-1-0':
+        'c19d731c0f1e3d7368884da5ecbd6832514d1c15f37d6ec97b37ed17506d58d0',
+    'K18b-rank2mix-f64-(64, 128)-1-0':
+        'e27fe6c97ec0a4dff61d80360c0dad1efa946cfe0a56221c02838dac13af2a89',
+    'K18b-dense8-f64-(64, 128)-1-0':
+        'ef0f6d6009ede769a1aa3893d2e95c7f0c39cd72cf46f2c9121f0fdce06330e2',
+    'K18b-dense5-f64-(64, 128)-1-0':
+        '1ae7bcfb2888b05580bdd5c0213da7cff61e09a73593323df6dedd994bb6c3c3',
+    'K18b-dense40-f64-(64, 128)-1-0':
+        'ee6ce1af7470151a84cd7357b64de09e86e4d9070eee2e644925fa2ec9b95e29',
+    'K18b-db3xcoif1-f64-(2048, 2048)-1-0':
+        '3b48cc290b646c87451b876814ccc524a46e2b08c9e989c0a60251b42f6af5ae',
+    'K18b-rank2mix-f64-(2048, 2048)-1-0':
+        '21a716a0a98c1dbeb1a092f7389e246fc67d3455361fd638675477195a8fb21b',
+    'K18b-dense8-f64-(2048, 2048)-1-0':
+        'ce269bb4985ab837ebbdb20343e2507235930756721ac2ec6f60ed51915dbc46',
+    'K18b-dense5-f64-(2048, 2048)-1-0':
+        '050531ce07cb42982abe4cc387801e64d2288c2306a4c940cfd50d2c4526893b',
+    'K18b-dense40-f64-(2048, 2048)-1-0':
+        '1a677de7b0940711f91c53a4607c8b739bd5a55b915f6c8f3af898fc631be641',
+    'K18b-db3xcoif1-f64-(16, 64)-6-0':
+        '883642a96d95823560f14773b732b1be0a4ac6c0c00bcd9f0584c5c88c060040',
+    'K18b-rank2mix-f64-(16, 64)-6-0':
+        '045653a42cda32cfaa296606fd5c0178d9c00363a19f5c55a7da0a892eb4d4e8',
+    'K18b-dense8-f64-(16, 64)-6-0':
+        '6c52e85cfbe845dedbee311d453cbcf8b6be629d53ef6411523cb23dfc03dacc',
+    'K18b-dense5-f64-(16, 64)-6-0':
+        '79c762d9bfa4a2c79f846af5109929868af0a6e965cbb32b9638c6fb190cb63c',
+    'K18b-dense40-f64-(16, 64)-6-0':
+        '330ca9d073131d0571948d5c9e4a3fe365538932a8932b04f02937b5863b8907',
+    'K18b-db3xcoif1-f64-(33, 47)-2-0':
+        'd7d98d684d5e513073da3f7549bacaeba1f62fd696010810bf85a58147d2a550',
+    'K18b-rank2mix-f64-(33, 47)-2-0':
+        '1e4e55793b9c95af9eb0de77de41cdd2fd3901d30bf9ce0dd98f36e9f2f9cbdc',
+    'K18b-dense8-f64-(33, 47)-2-0':
+        'c45e553b8fd86ccdbca94d845ad2d84b44785782e003bf79f5e5ccc25285eb7d',
+    'K18b-dense5-f64-(33, 47)-2-0':
+        '7a4c13e6a7c7410b7fca9ca4442d5682485de26b5019d20e4514bdc5cde9c264',
+    'K18b-dense40-f64-(33, 47)-2-0':
+        'd94efc600fca0393cccf50ce786298fc5d1b54cc73f620ad03f67841ce5301c1',
+    'K18b-db3xcoif1-f64-(3, 40, 72)-2-1':
+        '8fa438ad7cbb502092d185f8ee3a829b36f4e00a953d414614e6e0db31b2c4b6',
+    'K18b-rank2mix-f64-(3, 40, 72)-2-1':
+        '2982883baa5a0babfcc502143427558159ebce694e4e8247eaebd27c0f7aec78',
+    'K18b-dense8-f64-(3, 40, 72)-2-1':
+        'dab104a84cdbc17011d15c8bdf0ac9f8400b1e885168154fb9c1e33b0a2a1e8f',
+    'K18b-dense5-f64-(3, 40, 72)-2-1':
+        '47b7fb09c947e6d289af285ae6af99e498bab929f578a52d112c6f6f87e51aef',
+    'K18b-dense40-f64-(3, 40, 72)-2-1':
+        '69d99daa01ea8b34388e39734473d215adb5b0726e53f03071df397f09530995',
+}
+
 if __name__ == "__main__":
     import sys
 
-    if sys.argv[1:] != ["digests"] or not torch.cuda.is_available():
+    def _pair_lines(dev):
+        for kind, case in PAIR_CASES:
+            for wname in PAIR_BANKS:
+                out, _ = _pair_output(kind, case, wname, dev)
+                yield _pair_id(kind, case, wname), out
+
+    def _ana_lines(dev):
+        for kind, case in ANA_CASES:
+            for wname in PAIR_BANKS:
+                out, _ = _ana_output(kind, case, wname, dev)
+                yield _pair_id(kind, case, wname), torch.stack(out)
+
+    def _rows_lines(dev):
+        for kind in ("K29g", "K29h"):
+            for case in ROWS_CASES:
+                for wname in ROWS_BANKS:
+                    for prec in ("highest", "bf16"):
+                        out, _ = _rows_output(kind, case, wname, prec, dev)
+                        yield _rows_id(kind, case, wname, prec), out
+
+    def _k20_lines(dev):
+        for case in K20_CASES:
+            for wname in PAIR_BANKS:
+                out, _ = _k20_output(case, wname, dev)
+                yield _k20_id(case, wname), out
+
+    def _k18b_lines(dev):
+        for case in K18B_CASES:
+            for name in K18B_BANKS:
+                out, _ = _k18b_output(case, name, dev)
+                yield _k18b_id(case, name), out
+
+    tables = {"PAIR": _pair_lines, "ANA": _ana_lines, "ROWS": _rows_lines,
+              "K20": _k20_lines, "K18B": _k18b_lines}
+    want = sys.argv[2:] or list(tables)
+    if (sys.argv[1:2] != ["digests"] or not set(want) <= set(tables)
+            or not torch.cuda.is_available()):
         sys.exit("usage, on a machine with a GPU: python "
-                 "tests/test_torch_kernels_cuda.py digests")
-    dev_ = torch.device("cuda", 0)
-    print("PAIR_DIGESTS = {")
-    for kind_, case_ in PAIR_CASES:
-        for wname_ in PAIR_BANKS:
-            out_, _ = _pair_output(kind_, case_, wname_, dev_)
-            print(f"    {_pair_id(kind_, case_, wname_)!r}:\n"
-                  f"        {_sha256(out_)!r},")
-    print("}\nANA_DIGESTS = {")
-    for kind_, case_ in ANA_CASES:
-        for wname_ in PAIR_BANKS:
-            out_, _ = _ana_output(kind_, case_, wname_, dev_)
-            print(f"    {_pair_id(kind_, case_, wname_)!r}:\n"
-                  f"        {_sha256(torch.stack(out_))!r},")
-    print("}\nROWS_DIGESTS = {")
-    for kind_ in ("K29g", "K29h"):
-        for case_ in ROWS_CASES:
-            for wname_ in ROWS_BANKS:
-                for prec_ in ("highest", "bf16"):
-                    out_, _ = _rows_output(kind_, case_, wname_, prec_, dev_)
-                    print(f"    {_rows_id(kind_, case_, wname_, prec_)!r}:"
-                          f"\n        {_sha256(out_)!r},")
-    print("}\nK20_DIGESTS = {")
-    for case_ in K20_CASES:
-        for wname_ in PAIR_BANKS:
-            out_, _ = _k20_output(case_, wname_, dev_)
-            print(f"    {_k20_id(case_, wname_)!r}:\n"
-                  f"        {_sha256(out_)!r},")
-    print("}")
+                 "tests/test_torch_kernels_cuda.py digests [TABLE ...] "
+                 f"(of {', '.join(tables)}; all by default)")
+    for table in want:
+        print(f"{table}_DIGESTS = {{")
+        for key, out in tables[table](torch.device("cuda", 0)):
+            print(f"    {key!r}:\n        {_sha256(out)!r},")
+        print("}")

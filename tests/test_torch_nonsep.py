@@ -379,3 +379,31 @@ def test_k18_route_raises_on_uncovered_cuda_level(monkeypatch, direction):
         assert torch.equal(g, w)
     for k in ops.KERNELS:
         assert k.launches == 0
+
+
+# K18b's tiles hold output rows of one residue class mod the dilation f
+# and stage column windows kTC + (hlen - 1) (f mod Nc) samples wide. The
+# geometries where that tiling is hard: a dilation at or past Nr (every row
+# its own class), odd planes, a width that is not a multiple of four
+# samples (no 16-byte copies), an odd hlen (the other synthesis centre),
+# and a column window wider than the plane (taps wrapping more than once).
+K18B_GEOMETRIES = [((16, 64), 5), ((16, 64), 6), ((33, 47), 2),
+                   ((31, 17), 3), ((40, 70), 1), ((2, 20, 9), 4),
+                   ((6, 5), 3)]
+
+
+@pytest.mark.parametrize("name", ["db3xcoif1", "dense5", "dense8"])
+@pytest.mark.parametrize("shape, level", K18B_GEOMETRIES, ids=str)
+def test_k18b_plain_matches_jax_at_hard_geometries(name, shape, level):
+    """K18b's plain version against JAX's jnp level, and against the JAX
+    Pallas kernel in interpret mode where that covers the level (an even
+    hlen, its dilated pads within the plane, row bands that divide it)."""
+    jf, tf = _pair(name)
+    c = [_rand(shape, 7 * level + s) for s in range(4)]
+    got = kn.ins_swt2d_plain(*(torch.from_numpy(s) for s in c), tf, level)
+    ref = _jnp(jns.ins_swt2d_level, *(jnp.asarray(s) for s in c), jf, level)
+    assert got.shape == shape and _err(got, ref) <= KERNEL_TOL
+    if tf.hlen % 2 == 0:
+        fused = nsp.ins_swt2d_fused(*(jnp.asarray(s) for s in c), jf, level)
+        if fused is not None:
+            assert _err(got, fused) <= KERNEL_TOL
