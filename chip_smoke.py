@@ -185,9 +185,9 @@ instances at levels 0-2 of 2048^2 for each parity of the shift and
 digests of its outputs on seeded cases; K18a/K18b run phase 3's K18
 checks, the non-separable SWT of phase 4 (db3 x coif1 L3, 3 + 3
 launches) and their times at levels 1-3 of 2048^2 (db3 x coif1 and
-dense8; K18b in float32 and float64), and print the occupancy, tile
-shape and window path of K18b's nonsep_swt2d.cu instances at levels 1-8
-of 2048^2 (hlen 6, 8, 40) and digests of its outputs on seeded cases;
+dense8; float32 and float64), and print the occupancy, tile shape and
+window path of their nonsep_swt2d.cu instances at levels 1-8 of 2048^2
+(hlen 6, 8, 40) and digests of their outputs on seeded cases;
 K7a/K7b at levels
 1-3 of the sinogram and 1-5 of the signal beside K3/K4, and the
 occupancy of the tc_dwt1d.cu instances that K7a/K7b and K29e/K29f run);
@@ -2244,11 +2244,11 @@ def print_idwt2d_tap_digests(port, dev, keys):
     print(f"digests of the tap-loop DWT synthesis: {n}")
 
 
-# -- K18b, the non-separable SWT synthesis (--only) ------------------------
+# -- K18a/K18b, the non-separable SWT pair (--only) -------------------------
 
 def phase_times_nsswt_levels(port, dev, card, keys):
-    """K18b at levels 1-3 of the frame on db3xcoif1 and dense8, float32 and
-    float64, K18a beside it in float32 (--only): the kernels line's shape
+    """K18a and K18b at levels 1-3 of the frame on db3xcoif1 and dense8,
+    float32 and float64 (--only): the kernels line's shape
     (level 1, db3xcoif1, float32) against the plain version in turns, the
     rest the kernel alone (CUDA events, sleep-primed, the mean of two
     medians of 21). Returns {key: (kernel ms, plain ms)} of that shape."""
@@ -2264,11 +2264,10 @@ def phase_times_nsswt_levels(port, dev, card, keys):
         nx = itertools.cycle(xs).__next__
         coef = itertools.cycle([kn.ns_swt2d_fused(x, f2d, level)
                                 for x in xs]).__next__
-        calls = {"K18b": (lambda: kn.ins_swt2d_plain(*coef(), f2d, level),
+        calls = {"K18a": (lambda: kn.ns_swt2d_plain(nx(), f2d, level),
+                          lambda: kn.ns_swt2d_fused(nx(), f2d, level)),
+                 "K18b": (lambda: kn.ins_swt2d_plain(*coef(), f2d, level),
                           lambda: kn.ins_swt2d_fused(*coef(), f2d, level))}
-        if dtype == torch.float32:
-            calls["K18a"] = (lambda: kn.ns_swt2d_plain(nx(), f2d, level),
-                             lambda: kn.ns_swt2d_fused(nx(), f2d, level))
         for key, (plain, kernel) in calls.items():
             if not wanted(keys, key):
                 continue
@@ -2285,35 +2284,40 @@ def phase_times_nsswt_levels(port, dev, card, keys):
     return times
 
 
-def print_k18b_occupancy(port, dev):
+def print_k18_occupancy(port, dev, keys):
     """Resident blocks per SM (the occupancy API), dynamic shared memory,
     tile shape and window path (staged in shared memory, or read through
-    the cache) of the nonsep_swt2d.cu instance K18b runs at levels 1-8 of
-    the frame for hlen 6, 8 and 40, float32 and float64 (a build without
-    the query says so)."""
+    the cache) of the nonsep_swt2d.cu instance K18a or K18b runs at levels
+    1-8 of the frame for hlen 6, 8 and 40, float32 and float64 (a build
+    without the query says so)."""
     from pypwt_tpu_torch.ops import _build
     lib = _build.load_library()
-    query = "pypwt_ins_swt2d_occupancy"
-    if not hasattr(lib, query):
-        print("occupancy K18b: not reported by this build")
-        return
-    for hlen, f64, level in itertools.product((6, 8, 40), (0, 1),
-                                              range(1, 9)):
-        out = [ctypes.c_int() for _ in range(5)]
-        err = getattr(lib, query)(*FRAME, level,
-                                  port.conv.swt_centre(hlen, True), hlen, f64,
-                                  dev.index, *(ctypes.byref(o) for o in out))
-        if err:
-            raise RuntimeError(f"occupancy query K18b hlen {hlen}: error "
-                               f"{err}")
-        blocks, smem, tr, tc, staged = (o.value for o in out)
-        print(f"occupancy K18b hlen {hlen} {'float64' if f64 else 'float32'} "
-              f"level {level} {FRAME}: {blocks} blocks of 256 threads per SM, "
-              f"{smem} bytes of dynamic shared memory each, tiles of {tr} x "
-              f"{tc} outputs, {'staged' if staged else 'direct'}")
+    for key, query, synthesis in (
+            ("K18a", "pypwt_ns_swt2d_occupancy", False),
+            ("K18b", "pypwt_ins_swt2d_occupancy", True)):
+        if not wanted(keys, key):
+            continue
+        if not hasattr(lib, query):
+            print(f"occupancy {key}: not reported by this build")
+            continue
+        for hlen, f64, level in itertools.product((6, 8, 40), (0, 1),
+                                                  range(1, 9)):
+            out = [ctypes.c_int() for _ in range(5)]
+            err = getattr(lib, query)(
+                *FRAME, level, port.conv.swt_centre(hlen, synthesis), hlen,
+                f64, dev.index, *(ctypes.byref(o) for o in out))
+            if err:
+                raise RuntimeError(f"occupancy query {key} hlen {hlen}: "
+                                   f"error {err}")
+            blocks, smem, tr, tc, staged = (o.value for o in out)
+            print(f"occupancy {key} hlen {hlen} "
+                  f"{'float64' if f64 else 'float32'} level {level} "
+                  f"{FRAME}: {blocks} blocks of 256 threads per SM, {smem} "
+                  f"bytes of dynamic shared memory each, tiles of {tr} x "
+                  f"{tc} outputs, {'staged' if staged else 'direct'}")
 
 
-# The levels whose outputs --only K18b digests, so that two builds of
+# The levels whose outputs --only K18a/K18b digests, so that two builds of
 # nonsep_swt2d.cu compare bit for bit: (type, shape, level, offset) on the
 # custom 2D banks and dense ones of hlen 5 and 40: levels 1-3 of (64, 128)
 # and of the frame, a dilation that reaches the plane, odd planes, rows
@@ -2328,27 +2332,33 @@ K18B_DIGEST_CASES = (
        ("f64", (16, 64), 6, 0), ("f64", (3, 40, 72), 2, 1)])
 
 
-def print_k18b_digests(port, dev):
-    """SHA-256 of K18b's outputs on seeded inputs (K18B_DIGEST_CASES):
-    equal lines from two trees mean bit-identical kernels."""
+def print_k18_digests(port, dev, keys):
+    """SHA-256 of K18b's outputs, and of K18a's four stacked, on seeded
+    inputs (K18B_DIGEST_CASES): equal lines from two trees mean
+    bit-identical kernels."""
     kn = port.ops.nonsep
     rng = np.random.default_rng(SEED + 72)
     banks = banks_2d(port) + [
         port.nonsep.Filters2D(list(rng.random((4, n, n)) / n ** 2),
                               list(rng.random((4, n, n)) / n ** 2),
                               f"dense{n}") for n in (5, 40)]
-    gen = torch.Generator(device=dev).manual_seed(SEED + 73)
-    n = 0
-    for (kind, shape, level, off), f2d in itertools.product(
-            K18B_DIGEST_CASES, banks):
-        dtype = torch.float64 if kind == "f64" else torch.float32
-        c = [unaligned(torch.rand(shape, generator=gen, device=dev,
-                                  dtype=dtype), off) for _ in range(4)]
-        out = kn.ins_swt2d_fused(*c, f2d, level)
-        print(f"digest K18b {f2d.name} {kind} {shape} L{level} +{off}: "
-              f"{digest(out)}")
-        n += 1
-    print(f"digests of K18b: {n}")
+    for key, seed in (("K18b", SEED + 73), ("K18a", SEED + 74)):
+        if not wanted(keys, key):
+            continue
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        n = 0
+        for (kind, shape, level, off), f2d in itertools.product(
+                K18B_DIGEST_CASES, banks):
+            dtype = torch.float64 if kind == "f64" else torch.float32
+            c = [unaligned(torch.rand(shape, generator=gen, device=dev,
+                                      dtype=dtype), off)
+                 for _ in range(4 if key == "K18b" else 1)]
+            out = (kn.ins_swt2d_fused(*c, f2d, level) if key == "K18b"
+                   else torch.stack(kn.ns_swt2d_fused(c[0], f2d, level)))
+            print(f"digest {key} {f2d.name} {kind} {shape} L{level} +{off}: "
+                  f"{digest(out)}")
+            n += 1
+        print(f"digests of {key}: {n}")
 
 
 # The levels whose outputs --only K20 digests, so that two builds of
@@ -5483,8 +5493,8 @@ def run_only(port, dev, card, keys):
         if "K9" not in keys:  # else K9's main paths drove them
             launches.update(phase_main_paths_2d_swt(port, dev, keys))
         times.update(phase_times_nsswt_levels(port, dev, card, keys))
-        print_k18b_occupancy(port, dev)
-        print_k18b_digests(port, dev)
+        print_k18_occupancy(port, dev, keys)
+        print_k18_digests(port, dev, keys)
     if wanted(keys, "K1", "K2", "K9", "K18a", "K18b", "K20", *MXU2D_KEYS,
               *MXU1D_KEYS):
         library.update(phase_library(port, dev, card, keys))

@@ -4,7 +4,7 @@ or the cycle-spin synthesis, of several source trees in turns, in one
 process, on one NVIDIA GPU, or compare their kernels' machine code:
 
     python3 chip_turns.py [--only dwt|idwt|syn2d|ana2d|rows|spin|nsswt]
-        [--banks B,...] PARENT_TREE TREE [TREE ...]
+        [--banks B,...] [--levels L,...] PARENT_TREE TREE [TREE ...]
     python3 chip_turns.py --sass PARENT_TREE TREE [TREE ...]
 
 A tree is a directory holding a ``pypwt_tpu_torch`` package: an unpacked
@@ -35,13 +35,14 @@ cycle spins give it (SPIN_LEVELS: the random spin's level 0 at shift (1,
 1) with the accumulator and scale 0.25, its levels 1 and 2 at each pair of
 phase bits, a static spin's level 0 at (5, 3) with the accumulator), db2,
 sym8 and sym20 (``--banks``: these banks instead). ``--only nsswt``
-(not in the default run): K18b (``pypwt_ins_swt2d``,
+(not in the default run): K18a (``pypwt_ns_swt2d``,
+``pypwt_ns_swt2d_f64``) and K18b (``pypwt_ins_swt2d``,
 ``pypwt_ins_swt2d_f64``) at levels 1-3 of a 2048^2 frame, float32 and
-float64, with K18a (``pypwt_ns_swt2d``, float32) at the same levels as a
-control, on the custom 2D banks db3xcoif1 (db3 rows x coif1 columns, hlen
+float64, on the custom 2D banks db3xcoif1 (db3 rows x coif1 columns, hlen
 6) and dense8 (``--banks``: these instead; ``denseN`` is a dense random
-N x N bank), and the L3 non-separable SWT roundtrip of the frame on the
-first bank (3 K18a, then 3 K18b, float32).
+N x N bank; ``--levels``: these levels instead), and the L3
+non-separable SWT roundtrip of the frame on the first bank (3 K18a, then
+3 K18b, float32).
 Device time by CUDA events behind a sleep kernel, the median of 21
 samples of 10 launches, and the host time of one call (entry to return,
 the device idle before it), the median of 21; the trees in order, then
@@ -51,10 +52,10 @@ trees that report it print their
 instances' occupancy (``pypwt_tc_dwt2d_occupancy``,
 ``pypwt_tc_idwt2d_occupancy``, ``pypwt_idwt2d_occupancy``,
 ``pypwt_dwt2d_occupancy``, ``pypwt_tc_rows_occupancy``,
-``pypwt_idwt2d_unshift_occupancy``, ``pypwt_ins_swt2d_occupancy``:
-blocks per SM, dynamic shared memory and, for the tap loop, the row
-passes and K18b, the tile shape; K18b also whether its windows are
-staged).
+``pypwt_idwt2d_unshift_occupancy``, ``pypwt_ns_swt2d_occupancy``,
+``pypwt_ins_swt2d_occupancy``: blocks per SM, dynamic shared memory and,
+for the tap loop, the row passes, K18a and K18b, the tile shape; K18a
+and K18b also whether their windows are staged).
 
 ``--sass`` times nothing: it disassembles each tree's library
 (``cuobjdump -sass``) and prints, for every kernel of the first tree,
@@ -96,6 +97,7 @@ SPIN_LEVELS = ([(0, (1, 1), True)]
                   for s in ((1, 0), (0, 1), (0, 0), (1, 1))]
                + [(0, (5, 3), True)])
 NSSWT_BANKS = ["db3xcoif1", "dense8"]  # K18a/K18b's (--banks)
+NSSWT_LEVELS = [1, 2, 3]                # their levels (--levels)
 ROWS_BLOCK = (4096, 4096)       # one block of an 8192^2 image on a 2 x 2 grid
 SYN2D_TYPES = (torch.float32, torch.float64)
 # entries that a parent tree's _build may not declare
@@ -105,6 +107,7 @@ ENTRY_TYPES = {
     "pypwt_idwt2d_unshift_occupancy": [ctypes.c_int] * 6
     + [ctypes.c_void_p] * 4,
     "pypwt_tc_rows_occupancy": [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4,
+    "pypwt_ns_swt2d_occupancy": [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5,
     "pypwt_ins_swt2d_occupancy": [ctypes.c_int] * 7
     + [ctypes.c_void_p] * 5}
 
@@ -137,6 +140,7 @@ def load(trees):
                      "pypwt_tc_syn_rows", "pypwt_tc_rows_occupancy",
                      "pypwt_idwt2d_unshift",
                      "pypwt_idwt2d_unshift_occupancy", "pypwt_ns_swt2d",
+                     "pypwt_ns_swt2d_f64", "pypwt_ns_swt2d_occupancy",
                      "pypwt_ins_swt2d", "pypwt_ins_swt2d_f64",
                      "pypwt_ins_swt2d_occupancy"):
             if hasattr(lib, name):
@@ -431,10 +435,12 @@ def cases(port, dev, only):
         hlen = dec.shape[-1]
         centre = port.conv.swt_centre(hlen, synthesis)
         n = FRAME
-        if synthesis and dtype == torch.float64:
-            # pypwt_ns_bank_f64's layout 3 ([k][l][b], x 1/4) on the device
+        if dtype == torch.float64:
+            # pypwt_ns_bank_f64's layout 3 ([k][l][b], x 1/4) or 2 (K18a,
+            # [k][l][b]) on the device
+            scaled = 0.25 * rec if synthesis else dec
             keep = torch.from_numpy(np.ascontiguousarray(
-                (0.25 * rec.reshape(4, -1)).T.reshape(-1))).to(dev)
+                scaled.reshape(4, -1).T.reshape(-1))).to(dev)
             ptr = keep.data_ptr()
         else:
             keep = np.ascontiguousarray(
@@ -452,7 +458,7 @@ def cases(port, dev, only):
                     outs[0].data_ptr(), 1, n, n, level, centre, ptr, hlen,
                     dev.index, stream)
             else:
-                err = lib.pypwt_ns_swt2d(
+                err = entry(lib, "pypwt_ns_swt2d", dtype)(
                     sets[i % 2][0].data_ptr(), *(o.data_ptr() for o in outs),
                     1, n, n, level, centre, ptr, hlen, dev.index, stream)
             if err:
@@ -539,12 +545,12 @@ def cases(port, dev, only):
         got[f"K18 L3 roundtrip {NSSWT_BANKS[0]} float32"] = (
             k18_roundtrip(NSSWT_BANKS[0]), (None,))
         for bname in NSSWT_BANKS:
-            for lev in (1, 2, 3):
+            for lev in NSSWT_LEVELS:
                 for dtype in SYN2D_TYPES:
+                    got[f"K18a level {lev} {bname} {str(dtype)[6:]}"] = (
+                        k18(bname, lev, dtype, False), (None,))
                     got[f"K18b level {lev} {bname} {str(dtype)[6:]}"] = (
                         k18(bname, lev, dtype, True), (None,))
-                got[f"K18a level {lev} {bname} float32"] = (
-                    k18(bname, lev, torch.float32, False), (None,))
     return got, fb.hlen
 
 
@@ -676,11 +682,14 @@ def main():
                  "nsswt": NSSWT_BANKS}.get(only, SYN2D_BANKS)
         banks[:] = (trees[1:2] or [""])[0].split(",")
         trees = trees[2:]
+    if trees[:1] == ["--levels"] and only == "nsswt":
+        NSSWT_LEVELS[:] = [int(v) for v in (trees[1:2] or [""])[0].split(",")]
+        trees = trees[2:]
     if len(trees) < 2 or only not in (None, "dwt", "idwt", "syn2d",
                                       "ana2d", "rows", "spin", "nsswt"):
         print("usage: python3 chip_turns.py [--only dwt|idwt|syn2d|ana2d|"
-              "rows|spin|nsswt] [--banks B,...] PARENT_TREE TREE "
-              "[TREE ...]", file=sys.stderr)
+              "rows|spin|nsswt] [--banks B,...] [--levels L,... (nsswt)] "
+              "PARENT_TREE TREE [TREE ...]", file=sys.stderr)
         sys.exit(2)
     if not torch.cuda.is_available():
         print("chip_turns: torch.cuda.is_available() is False: this run "
@@ -825,28 +834,30 @@ def print_spin_occupancy(trees, libs, port, dev):
 
 def print_nsswt_occupancy(trees, libs, port, dev):
     """Blocks per SM, dynamic shared memory, tile shape and window path of
-    each tree's K18b instances at the timed levels, banks and types, where
-    the tree reports them."""
-    query = "pypwt_ins_swt2d_occupancy"
-    for tree, lib in zip(trees, libs):
-        if not hasattr(lib, query):
-            print(f"occupancy {tree} K18b: not reported by this tree")
-            continue
-        for bname, lev, dtype in itertools.product(NSSWT_BANKS, (1, 2, 3),
-                                                   SYN2D_TYPES):
-            hlen = ns_bank(port, bname)[1].shape[-1]
-            out = [ctypes.c_int() for _ in range(5)]
-            err = getattr(lib, query)(
-                FRAME, FRAME, lev, port.conv.swt_centre(hlen, True), hlen,
-                int(dtype == torch.float64), dev.index,
-                *(ctypes.byref(o) for o in out))
-            if err:
-                raise RuntimeError(f"occupancy query: error {err}")
-            blocks, smem, tr, tc, staged = (o.value for o in out)
-            print(f"occupancy {tree} K18b ({FRAME}, {FRAME}) level {lev} "
-                  f"{bname} {str(dtype)[6:]}: {blocks} blocks per SM, {smem} "
-                  f"bytes, tiles of {tr} x {tc} outputs, "
-                  f"{'staged' if staged else 'direct'}")
+    each tree's K18a and K18b instances at the timed levels, banks and
+    types, where the tree reports them."""
+    for key, query, synthesis in (
+            ("K18a", "pypwt_ns_swt2d_occupancy", False),
+            ("K18b", "pypwt_ins_swt2d_occupancy", True)):
+        for tree, lib in zip(trees, libs):
+            if not hasattr(lib, query):
+                print(f"occupancy {tree} {key}: not reported by this tree")
+                continue
+            for bname, lev, dtype in itertools.product(
+                    NSSWT_BANKS, NSSWT_LEVELS, SYN2D_TYPES):
+                hlen = ns_bank(port, bname)[1].shape[-1]
+                out = [ctypes.c_int() for _ in range(5)]
+                err = getattr(lib, query)(
+                    FRAME, FRAME, lev, port.conv.swt_centre(hlen, synthesis),
+                    hlen, int(dtype == torch.float64), dev.index,
+                    *(ctypes.byref(o) for o in out))
+                if err:
+                    raise RuntimeError(f"occupancy query: error {err}")
+                blocks, smem, tr, tc, staged = (o.value for o in out)
+                print(f"occupancy {tree} {key} ({FRAME}, {FRAME}) level "
+                      f"{lev} {bname} {str(dtype)[6:]}: {blocks} blocks per "
+                      f"SM, {smem} bytes, tiles of {tr} x {tc} outputs, "
+                      f"{'staged' if staged else 'direct'}")
 
 
 if __name__ == "__main__":

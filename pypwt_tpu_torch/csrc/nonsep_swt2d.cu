@@ -22,60 +22,56 @@
 // factoring and takes every bank.
 //
 // Bound: 4 hlen^2 FMAs per pixel against 20 bytes moved to and from device
-// memory: at hlen 6, 144 FMAs, 18 us of float32 FMAs at 2048^2 against 25
-// us of bytes, so device memory bounds both kernels at small banks and the
-// FMAs at hlen 8 and up.
+// memory (K18a: 4 in, 16 out; K18b: 16 in, 4 out): at hlen 6, 144 FMAs, 18
+// us of float32 FMAs at 2048^2 against 25 us of bytes, so device memory
+// bounds both kernels at small banks and the FMAs at hlen 8 and up (32 us
+// at hlen 8).
 //
-// K18a's design: one thread per output pixel, a block a BR x BC tile; row
-// tiles on the grid's y axis and planes on its z axis, in chunks where a
-// launch cannot hold them all (launch_chunks in common.cuh). Each tap of
-// a warp reads 32 consecutive words of one plane row through the read-only
-// cache; neighbouring taps hit the same lines in L1. Row and column tap
-// offsets are reduced mod Nr and Nc on the host, so any level and any wrap
-// wider than the plane take one conditional subtraction.
-// The bank (4 hlen^2 floats, up to 25,600 bytes at hlen 40) is a kernel
-// parameter struct: CUDA 12.1+ on sm_90 takes up to 32,764 bytes of
-// parameters, so a call copies nothing to the device and two launches with
-// different banks cannot race, as a __constant__ bank set per call could.
-// The host interleaves the four filters tap by tap ([k][l][b]), and the
-// block copies them into shared memory once: a warp then reads the four
-// filters' taps of one (k, l) as one 16-byte word, which shared memory
-// broadcasts, so each input sample costs one tap load for its four FMAs.
-// The float64 instances (pypwt_ns_swt2d_f64, pypwt_ins_swt2d_f64) read a
-// bank the wrapper uploaded once (BankPtr): 51,200 bytes at hlen 40, past
-// the parameter limit.
-//
-// K18b's design: a block owns output rows of one residue class mod the
-// dilation (K9's tiling, swt2d.cu), so its taps read only tr + hlen - 1
-// rows at any level; it resolves each staged row's four source rows once
-// (a row table) and stages the four planes' column windows, tc + (hlen -
-// 1) (f mod Nc) samples wide, in shared memory by cp.async
-// (stage::copy_windows of level2d.cuh: 16-byte copies from the 16-byte
-// boundary below the window where Nc and the plane allow, read shifted;
-// one-sample copies otherwise), or, where the windows do not fit
-// kStencilBudget (deep levels, wide banks, float64), reads the same rows
-// through the read-only cache. A thread computes several rows of one
-// column and walks its staged rows once, loading each sample once for
-// every output it meets: (8 + hlen - 1) 4 hlen shared-memory loads per 8
-// outputs, 39 a pixel at hlen 6, not the 144 through L1 of one thread per
-// pixel. Each output keeps one
-// accumulator and sums by fmadd in the map's order (k, then l, then a, h,
-// v, d), whatever the form or tile. Two forms run this walk:
+// Both kernels run one stencil body, the mirror image of each other: K18a
+// reads one plane and writes four, K18b reads four and writes one. A block
+// owns output rows of one residue class mod the dilation (K9's tiling,
+// swt2d.cu), so its taps read only tr + hlen - 1 rows at any level; it
+// resolves each staged row's source rows once (a row table) and stages the
+// input planes' column windows, tc + (hlen - 1) (f mod Nc) samples wide, in
+// shared memory by cp.async (stage::copy_windows of level2d.cuh: 16-byte
+// copies from the 16-byte boundary below the window where Nc and the plane
+// allow, read shifted; one-sample copies otherwise), or, where the windows
+// do not fit kStencilBudget (deep levels, wide banks, float64), reads the
+// same rows through the read-only cache. A thread computes several rows of
+// one column and walks its staged rows once, loading each sample once for
+// every output row it meets: (r + hlen - 1) hlen loads of each input plane
+// per r rows, at hlen 6 about 14 a pixel for K18a (4 rows a thread) and 39
+// for K18b (8 rows), not the 36 and 144 through L1 of one thread per pixel. Each output keeps one
+// accumulator and sums by fmadd in the map's order (k, then l, then, in
+// K18b, a, h, v, d), whatever the form or tile, so both kernels give the
+// outputs of one thread per pixel bit for bit. Two forms run this walk:
 // - the fast form (float32, hlen <= 8, levels whose dilation mod Nc is at
 //   most 4, so levels 1-3 of any plane): one instance per hlen, the walk
 //   unrolled whole, the taps kernel parameters that the FMAs take as
 //   operands, windows at compile-time strides, so each sample is one
 //   shared-memory load at a constant offset from one of hlen column
-//   pointers; 32 x 64 tiles of 8 rows a thread (16 x 64, 4 rows, at hlen
-//   7-8, whose walk would spill), two blocks per SM;
+//   pointers; K18b: 32 x 64 tiles of 8 rows a thread (16 x 64, 4 rows, at
+//   hlen 7-8, whose walk would spill), two blocks per SM; K18a: 16 x 64
+//   tiles of 4 rows a thread (16 accumulators), four blocks per SM (three
+//   at hlen 7, which spills at four);
 // - the generic form (any level, bank and type): taps copied to shared
-//   memory per block, the walk unrolled for hlen <= 8 (else over the taps of
-//   a row only), 32 x 64 tiles of 8 rows a thread staged, else 16 x 64 of 4
-//   staged, else 32 x 64 read directly.
-// Measured on an H100 (PERF.md): the staging and the walk take about 45
-// and 39 us of a 2048^2 level alone and overlap only in part; persistent
+//   memory per block as one Vec4 per (k, l), which a warp reads as one
+//   broadcast word for its four FMAs; the walk unrolled for hlen <= 8 (else
+//   over the taps of a row only); 32 x 64 tiles of 8 rows a thread staged,
+//   else 16 x 64 of 4 staged, else 32 x 64 read directly (K18a in float64
+//   at hlen <= 8: 16 x 64 of 4 rows staged at two blocks per SM while f mod
+//   Nc < 64, else 4 x 64 of 1 read directly at six: GenericRows). Its
+//   taps: the float32 bank by value (Bank2D: CUDA 12.1+ on sm_90 takes up
+//   to 32,764 bytes of parameters, so a call copies nothing to the
+//   device), the float64 one from the device copy that the wrapper
+//   uploaded once (BankPtr: 51,200 bytes at hlen 40, past the parameter
+//   limit).
+// Measured on an H100 (PERF.md): K18b's staging and walk take about 45 and
+// 39 us of a 2048^2 level alone and overlap only in part; persistent
 // blocks with two window buffers, bulk copies (cp.async.bulk) and 128-
-// column tiles did not shorten the level.
+// column tiles did not shorten the level. K18a at level 1 of 2048^2 (hlen
+// 6) takes about 52 us in float32 and 122 in float64, where the walk's
+// Double4 tap loads (two a four FMAs) hold it.
 
 #include <algorithm>
 #include <type_traits>
@@ -85,67 +81,6 @@
 
 namespace pypwt {
 namespace {
-
-constexpr int BR = 8;   // output rows per block
-constexpr int BC = 32;  // output columns per block: one warp per row
-static_assert(BR * BC == kThreads, "one thread per output pixel");
-
-__device__ __forceinline__ int wrap_once(int i, int n) {
-  return i >= n ? i - n : i;
-}
-
-template <class T, class Bank>
-__device__ __forceinline__ void load_bank(const Bank& bank, int n2,
-                                          const TapOffsets& roff,
-                                          const TapOffsets& coff, int hlen,
-                                          Vec4<T>* s_f, int* s_roff,
-                                          int* s_coff) {
-  T* dst = reinterpret_cast<T*>(s_f);
-  for (int i = threadIdx.x; i < 4 * n2; i += kThreads) dst[i] = bank.f[i];
-  if (threadIdx.x < hlen) {
-    s_roff[threadIdx.x] = roff.k[threadIdx.x];
-    s_coff[threadIdx.x] = coff.k[threadIdx.x];
-  }
-  __syncthreads();
-}
-
-template <class T, class Bank>
-__global__ void __launch_bounds__(kThreads)
-ns_swt2d_kernel(const T* __restrict__ x, T* __restrict__ a,
-                T* __restrict__ h, T* __restrict__ v, T* __restrict__ d,
-                int nr, int nc, Bank bank, TapOffsets roff, TapOffsets coff,
-                int hlen, int y0) {
-  using V4 = Vec4<T>;
-  V4* s_f = dynamic_smem<V4>();  // [hlen][hlen], one tap of each filter
-  __shared__ int s_roff[kMaxTaps], s_coff[kMaxTaps];
-  const int n2 = hlen * hlen;
-  load_bank<T>(bank, n2, roff, coff, hlen, s_f, s_roff, s_coff);
-
-  const int r = (y0 + blockIdx.y) * BR + threadIdx.x / BC;
-  const int c = blockIdx.x * BC + threadIdx.x % BC;
-  if (r >= nr || c >= nc) return;
-  const long long plane = static_cast<long long>(nr) * nc;
-  const T* xb = x + blockIdx.z * plane;
-  T s0 = 0, s1 = 0, s2 = 0, s3 = 0;
-  for (int k = 0; k < hlen; ++k) {
-    const T* xr =
-        xb + static_cast<long long>(wrap_once(r + s_roff[k], nr)) * nc;
-    const V4* f = s_f + k * hlen;
-    for (int l = 0; l < hlen; ++l) {
-      const T val = __ldg(xr + wrap_once(c + s_coff[l], nc));
-      const V4 t = f[l];
-      s0 = fmadd(val, t.x, s0);
-      s1 = fmadd(val, t.y, s1);
-      s2 = fmadd(val, t.z, s2);
-      s3 = fmadd(val, t.w, s3);
-    }
-  }
-  const long long o = blockIdx.z * plane + static_cast<long long>(r) * nc + c;
-  a[o] = s0;
-  h[o] = s1;
-  v[o] = s2;
-  d[o] = s3;
-}
 
 // The level's tap offsets, or false if the arguments are out of range.
 bool plan_level(int batch, int nr, int nc, int level, int s, int hlen,
@@ -158,49 +93,10 @@ bool plan_level(int batch, int nr, int nc, int level, int s, int hlen,
   return true;
 }
 
-// The level's tap offsets and the kernel's dynamic shared memory (the
-// bank: up to 25.6 KB in float32, 51.2 KB in float64 at hlen 40, opted
-// into), or an error.
-template <class T, class Kernel>
-cudaError_t prepare(Kernel kernel, int batch, int nr, int nc, int level,
-                    int centre, int hlen, int device, TapOffsets* roff,
-                    TapOffsets* coff, size_t* smem) {
-  if (!plan_level(batch, nr, nc, level, centre, hlen, roff, coff))
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  *smem = sizeof(Vec4<T>) * hlen * hlen;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*smem));
-}
-
-// K18a with its bank (Bank2D by value, or BankPtr to device memory).
-template <class T, class Bank>
-int launch_swt(const T* x, T* a, T* h, T* v, T* d, int batch, int nr, int nc,
-               int level, int centre, const Bank& bank, int hlen, int device,
-               void* stream) {
-  const auto kernel = ns_swt2d_kernel<T, Bank>;
-  TapOffsets roff, coff;
-  size_t smem;
-  const cudaError_t err = prepare<T>(kernel, batch, nr, nc, level, centre,
-                                     hlen, device, &roff, &coff, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  launch_chunks((nc + BC - 1) / BC, (nr + BR - 1) / BR, batch,
-                [&](dim3 grid, int y0, int z0) {
-                  const long long p = static_cast<long long>(z0) * nr * nc;
-                  kernel<<<grid, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-                      x + p, a + p, h + p, v + p, d + p, nr, nc, bank, roff,
-                      coff, hlen, y0);
-                });
-  return static_cast<int>(cudaGetLastError());
-}
-
-// -- K18b: the stencil synthesis ---------------------------------------------
+// -- the stencil body ---------------------------------------------------------
 //
-// One level of K18b's tiling (host): output rows of one residue class, as
-// K9's RowPlan (swt2d.cu), and the column windows of its SynPlan.
+// One level's tiling (host): output rows of one residue class, as K9's
+// RowPlan (swt2d.cu), and the column windows of its SynPlan.
 struct StencilPlan {
   int cls;        // residue classes of the rows: the dilation, or nr
   int tr;         // output rows of a block, a multiple of its rows per thread
@@ -216,6 +112,24 @@ struct StencilPlan {
   int nq;         // copies per window row and plane
 };
 
+// The planes of one level: kIn in (K18a: x; K18b: a, h, v, d), 4 / kIn out
+// (K18a: a, h, v, d; K18b: the synthesis). Tap b of each (k, l) takes input
+// plane b % kIn into output b % kOut.
+template <class T, int kIn>
+struct StencilIo {
+  static constexpr int kOut = 4 / kIn;
+  const T* in[kIn];
+  T* out[kOut];
+
+  // The same planes, p samples on (a chunk of a batch).
+  StencilIo plus(long long p) const {
+    StencilIo io = *this;
+    for (auto& q : io.in) q += p;
+    for (auto& q : io.out) q += p;
+    return io;
+  }
+};
+
 // Banks of at most kSmallTaps x kSmallTaps taps run walks unrolled over
 // both tap indices.
 constexpr int kSmallTaps = 8;
@@ -227,14 +141,14 @@ struct FastTaps {
   float f[4 * kHl * kHl];
 };
 
-// K18b's tiles: kStencilTC columns, kR rows per thread, so kThreads /
+// The tiles: kStencilTC columns, kR rows per thread, so kThreads /
 // kStencilTC * kR rows of one residue class.
 constexpr int kStencilTC = 64;
 // Dynamic shared memory a block with staged windows may take: two such
 // blocks, with the 1 KB the runtime keeps for each, fit in an SM's 228 KB.
 constexpr int kStencilBudget = 113 * 1024;
-// The fast form (ins_swt2d_fast) takes levels whose dilation mod nc is at
-// most kFastFm: levels 1-3 of any plane.
+// The fast form takes levels whose dilation mod nc is at most kFastFm:
+// levels 1-3 of any plane.
 constexpr int kFastFm = 4;
 
 // The fast form's window row stride for hl taps: kStencilTC + (hl - 1)
@@ -244,23 +158,38 @@ __host__ __device__ constexpr int fast_ldw(int hl) {
   return (kStencilTC + (hl - 1) * kFastFm + 3 + 3) / 4 * 4;
 }
 
-// The fast form's rows a thread: 8, or 4 for banks of 7 or 8 taps, whose
-// walk at 8 rows outgrows the registers of two blocks per SM.
-__host__ __device__ constexpr int fast_rows(int hl) { return hl <= 6 ? 8 : 4; }
+// The fast form's rows a thread for in planes of hl taps: K18b 8, or 4 at
+// 7 or 8 taps, whose walk at 8 rows outgrows the registers of two blocks
+// per SM; K18a 4, at four blocks per SM (three at 7 taps, which spill at
+// four).
+__host__ __device__ constexpr int fast_rows(int in, int hl) {
+  return in == 1 ? 4 : hl <= 6 ? 8 : 4;
+}
 
-// A block's staging: the row table (src[p rows + q]: plane p's row of
-// staged row q, for a, h, v, d), the bank's taps where kTaps (Vec4 per
-// (k, l) into s_f, `stride` a row k), then, where ldw > 0, the four
-// windows by stage::copy_windows (K9's): window column w holds plane column
-// c0 - cback + w (mod nc), from the 16-byte boundary at or below it where
-// the copies are 16 bytes. Returns the window's shift: the samples it
-// starts before column c0 - cback.
-template <class T, bool kTaps, class Bank>
+// One tap (k, l) of the four filters, t0..t3, on the samples x of the kIn
+// input planes into the kOut accumulators of one output, b ascending.
+template <int kIn, class T, int kOut>
+__device__ __forceinline__ void add_taps(T (&acc)[kOut], const T (&x)[kIn],
+                                         T t0, T t1, T t2, T t3) {
+  const T t[4] = {t0, t1, t2, t3};
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    acc[b % kOut] = fmadd(x[b % kIn], t[b], acc[b % kOut]);
+}
+
+// A block's staging: the row table (src[p rows + q]: input plane p's row of
+// staged row q), the bank's taps where kTaps (Vec4 per (k, l) into s_f,
+// `stride` a row k), then, where ldw > 0, the input windows by
+// stage::copy_windows (K9's): window column w holds plane column c0 -
+// cback + w (mod nc), from the 16-byte boundary at or below it where the
+// copies are 16 bytes. Returns the window's shift: the samples it starts
+// before column c0 - cback.
+template <class T, int kIn, bool kTaps, class Bank>
 __device__ __forceinline__ int stage_block(
-    const T* a, const T* h, const T* v, const T* d, int nr, int nc,
-    const Bank& bank, const StencilPlan& sp, int hlen, int stride, int ldw,
-    int plane_w, int rho, int m0, int c0, long long pb, T* win,
-    Vec4<T>* s_f, const T** src) {
+    const T* const (&in)[kIn], int nr, int nc, const Bank& bank,
+    const StencilPlan& sp, int hlen, int stride, int ldw, int plane_w,
+    int rho, int m0, int c0, long long pb, T* win, Vec4<T>* s_f,
+    const T** src) {
   const int tid = threadIdx.x;
   const int rows = sp.rows;
   if (tid < rows) {
@@ -268,9 +197,8 @@ __device__ __forceinline__ int stage_block(
                   static_cast<long long>(tid - sp.back) * sp.fmr;
     r %= nr;
     if (r < 0) r += nr;
-    const T* const body[4] = {a + pb, h + pb, v + pb, d + pb};
 #pragma unroll
-    for (int p = 0; p < 4; ++p) src[p * rows + tid] = body[p] + r * nc;
+    for (int p = 0; p < kIn; ++p) src[p * rows + tid] = in[p] + pb + r * nc;
   }
   if constexpr (kTaps) {
     T* f = reinterpret_cast<T*>(s_f);
@@ -289,34 +217,30 @@ __device__ __forceinline__ int stage_block(
       shift = first % kVec;
       first -= shift;
     }
-    stage::copy_windows<T, 4, false>(src, win, rows, ldw, plane_w, first,
-                                     sp.nq, sp.quads, nc, 0);
+    stage::copy_windows<T, kIn, false>(src, win, rows, ldw, plane_w, first,
+                                       sp.nq, sp.quads, nc, 0);
     __syncthreads();
   }
   return shift;
 }
 
-// The generic form, any level and bank. Output p0 + i of a thread (i < kR)
-// at tap (k, l) reads staged row p0 + hlen - 1 - u, u = k - i, at window
-// column c + (hlen - 1 - l) fmc (kStaged) or plane column col + coff[l]
-// (direct, through the read-only cache). The thread walks its staged rows
-// once, u ascending (staged rows descending), each row's taps l ascending
-// and the planes a, h, v, d, and adds every sample to each output that
-// meets it: each output keeps one accumulator and sums k, then l, then a,
-// h, v, d, ascending, so that no output depends on the form, the tile or
-// the rows a thread takes. The taps: the bank
-// (Bank2D, or BankPtr in float64) that the block copies to shared memory as
-// Vec4 per (k, l), kH taps a row where kH = kSmallTaps, else hlen. kH =
-// kSmallTaps unrolls the walk; kH = kMaxTaps unrolls only the taps l of a
-// row. Dynamic shared memory: the windows (kStaged: 4 planes of rows x
-// ldw), the taps and the row table (4 x rows pointers).
-template <class T, int kH, int kR, bool kStaged, class Bank>
-__global__ void __launch_bounds__(kThreads)
-ins_swt2d_kernel(const T* __restrict__ a, const T* __restrict__ h,
-                 const T* __restrict__ v, const T* __restrict__ d,
-                 T* __restrict__ out, int nr, int nc, Bank bank,
-                 StencilPlan sp, TapOffsets coff, int hlen, unsigned y0) {
+// The generic form, any level and bank. Output row p0 + i of a thread (i <
+// kR) at tap (k, l) reads staged row p0 + hlen - 1 - u, u = k - i, at
+// window column c + (hlen - 1 - l) fmc (kStaged) or plane column col +
+// coff[l] (direct, through the read-only cache). The thread walks its
+// staged rows once, u ascending (staged rows descending), each row's taps
+// l ascending, and adds every sample to each output that meets it. The
+// taps: the bank (Bank2D, or BankPtr in float64) that the block copies to
+// shared memory as Vec4 per (k, l), kH taps a row where kH = kSmallTaps,
+// else hlen. kH = kSmallTaps unrolls the walk; kH = kMaxTaps unrolls only
+// the taps l of a row. Dynamic shared memory: the windows (kStaged: kIn
+// planes of rows x ldw), the taps and the row table (kIn x rows pointers).
+template <class T, int kIn, int kH, int kR, bool kStaged, class Bank>
+__device__ __forceinline__ void stencil_generic(
+    const StencilIo<T, kIn>& io, int nr, int nc, const Bank& bank,
+    const StencilPlan& sp, const TapOffsets& coff, int hlen, unsigned y0) {
   using V4 = Vec4<T>;
+  constexpr int kOut = StencilIo<T, kIn>::kOut;
   constexpr bool kUnrolled = kH <= kSmallTaps;
   constexpr int kTC = kStencilTC;
   const int tid = threadIdx.x;
@@ -329,51 +253,49 @@ ins_swt2d_kernel(const T* __restrict__ a, const T* __restrict__ h,
   const int stride = kUnrolled ? kH : hlen;  // taps of a row k in s_f
   const long long pb = blockIdx.z * (static_cast<long long>(nr) * nc);
   T* win = dynamic_smem<T>();
-  V4* s_f = reinterpret_cast<V4*>(win + 4 * plane_w);
+  V4* s_f = reinterpret_cast<V4*>(win + kIn * plane_w);
   const T** src = reinterpret_cast<const T**>(s_f + hlen * stride);
-  const int shift = stage_block<T, true>(a, h, v, d, nr, nc, bank, sp, hlen,
-                                         stride, kStaged ? sp.ldw : 0,
-                                         plane_w, rho, m0, c0, pb, win, s_f,
-                                         src);
+  const int shift = stage_block<T, kIn, true>(
+      io.in, nr, nc, bank, sp, hlen, stride, kStaged ? sp.ldw : 0, plane_w,
+      rho, m0, c0, pb, win, s_f, src);
 
   const int c = tid % kTC, p0 = tid / kTC * kR, col = c0 + c;
   if (col >= nc || p0 >= sp.tr) return;
-  T acc[kR];
+  T acc[kR][kOut];
 #pragma unroll
-  for (int i = 0; i < kR; ++i) acc[i] = T(0);
+  for (int i = 0; i < kR; ++i)
+#pragma unroll
+    for (int o = 0; o < kOut; ++o) acc[i][o] = T(0);
 
   // Staged row p0 + hlen - 1 - u into the outputs i that meet it, at tap
   // k = u + i.
   const auto row = [&](int u) {
     const int q = p0 + hlen - 1 - u;
     const T* w = win + q * sp.ldw + shift + c + (hlen - 1) * sp.fmc;
-    const T* s[4];
+    const T* s[kIn];
     if constexpr (!kStaged) {
 #pragma unroll
-      for (int p = 0; p < 4; ++p) s[p] = src[p * rows + q];
+      for (int p = 0; p < kIn; ++p) s[p] = src[p * rows + q];
     }
 #pragma unroll
     for (int l = 0; l < kH; ++l) {
       if (l >= hlen) break;
-      T x[4];
+      T x[kIn];
       if constexpr (kStaged) {
 #pragma unroll
-        for (int p = 0; p < 4; ++p) x[p] = w[p * plane_w - l * sp.fmc];
+        for (int p = 0; p < kIn; ++p) x[p] = w[p * plane_w - l * sp.fmc];
       } else {
         int j = col + coff.k[l];
         if (j >= nc) j -= nc;
 #pragma unroll
-        for (int p = 0; p < 4; ++p) x[p] = __ldg(s[p] + j);
+        for (int p = 0; p < kIn; ++p) x[p] = __ldg(s[p] + j);
       }
 #pragma unroll
       for (int i = 0; i < kR; ++i) {
         const int k = u + i;
         if (k < 0 || k >= hlen) continue;
         const V4 t = s_f[k * stride + l];
-        acc[i] = fmadd(x[0], t.x, acc[i]);
-        acc[i] = fmadd(x[1], t.y, acc[i]);
-        acc[i] = fmadd(x[2], t.z, acc[i]);
-        acc[i] = fmadd(x[3], t.w, acc[i]);
+        add_taps<kIn>(acc[i], x, t.x, t.y, t.z, t.w);
       }
     }
   };
@@ -391,25 +313,28 @@ ins_swt2d_kernel(const T* __restrict__ a, const T* __restrict__ h,
 #pragma unroll
   for (int i = 0; i < kR; ++i) {
     const long long orow = rho + static_cast<long long>(sp.cls) * (m0 + p0 + i);
-    if (orow < nr) out[pb + orow * nc + col] = acc[i];
+    if (orow < nr) {
+#pragma unroll
+      for (int o = 0; o < kOut; ++o) io.out[o][pb + orow * nc + col] = acc[i][o];
+    }
   }
 }
 
 // The fast form, float32: a bank of exactly kHl <= kSmallTaps taps as
 // operands, windows staged at the strides fast_ldw (levels whose dilation
-// mod nc is at most kFastFm), fast_rows(kHl) rows a thread. The walk is
-// the generic form's, with every bound and every offset but the dilation a
-// constant: the thread holds one window pointer per tap l, and each sample
-// is one shared-memory load at a constant offset from it (the row, the
-// plane).
-template <int kHl>
-__global__ void __launch_bounds__(kThreads, 2)
-ins_swt2d_fast(const float* __restrict__ a, const float* __restrict__ h,
-               const float* __restrict__ v, const float* __restrict__ d,
-               float* __restrict__ out, int nr, int nc,
-               FastTaps<kHl> taps, StencilPlan sp, TapOffsets, int,
-               unsigned y0) {
-  constexpr int kTC = kStencilTC, kR = fast_rows(kHl);
+// mod nc is at most kFastFm), fast_rows(kIn, kHl) rows a thread. The walk
+// is the generic form's, with every bound and every offset but the
+// dilation a constant: the thread holds one window pointer per tap l, and
+// each sample is one shared-memory load at a constant offset from it (the
+// row, the plane).
+template <int kIn, int kHl>
+__device__ __forceinline__ void stencil_fast(const StencilIo<float, kIn>& io,
+                                             int nr, int nc,
+                                             const FastTaps<kHl>& taps,
+                                             const StencilPlan& sp,
+                                             unsigned y0) {
+  constexpr int kOut = StencilIo<float, kIn>::kOut;
+  constexpr int kTC = kStencilTC, kR = fast_rows(kIn, kHl);
   constexpr int kLdw = fast_ldw(kHl);
   constexpr int kPlane = (kThreads / kTC * kR + kHl - 1) * kLdw;
   const int tid = threadIdx.x;
@@ -419,10 +344,10 @@ ins_swt2d_fast(const float* __restrict__ a, const float* __restrict__ h,
   const int c0 = blockIdx.x * kTC;
   const long long pb = blockIdx.z * (static_cast<long long>(nr) * nc);
   float* win = dynamic_smem<float>();
-  const float** src = reinterpret_cast<const float**>(win + 4 * kPlane);
-  const int shift = stage_block<float, false>(
-      a, h, v, d, nr, nc, taps, sp, kHl, kHl, kLdw, kPlane, rho, m0, c0, pb,
-      win, nullptr, src);
+  const float** src = reinterpret_cast<const float**>(win + kIn * kPlane);
+  const int shift = stage_block<float, kIn, false>(
+      io.in, nr, nc, taps, sp, kHl, kHl, kLdw, kPlane, rho, m0, c0, pb, win,
+      nullptr, src);
 
   const int c = tid % kTC, p0 = tid / kTC * kR, col = c0 + c;
   if (col >= nc || p0 >= sp.tr) return;
@@ -431,41 +356,132 @@ ins_swt2d_fast(const float* __restrict__ a, const float* __restrict__ h,
 #pragma unroll
   for (int l = 0; l < kHl; ++l)
     at[l] = win + (p0 + kHl - 1) * kLdw + shift + c + (kHl - 1 - l) * sp.fmc;
-  float acc[kR];
+  float acc[kR][kOut];
 #pragma unroll
-  for (int i = 0; i < kR; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kR; ++i)
+#pragma unroll
+    for (int o = 0; o < kOut; ++o) acc[i][o] = 0.f;
 #pragma unroll
   for (int u = 1 - kR; u < kHl; ++u) {
 #pragma unroll
     for (int l = 0; l < kHl; ++l) {
-      float x[4];
+      float x[kIn];
 #pragma unroll
-      for (int p = 0; p < 4; ++p) x[p] = at[l][p * kPlane - u * kLdw];
+      for (int p = 0; p < kIn; ++p) x[p] = at[l][p * kPlane - u * kLdw];
 #pragma unroll
       for (int i = 0; i < kR; ++i) {
         const int k = u + i;
         if (k < 0 || k >= kHl) continue;
         const int t = 4 * (k * kHl + l);
-        acc[i] = fmadd(x[0], taps.f[t], acc[i]);
-        acc[i] = fmadd(x[1], taps.f[t + 1], acc[i]);
-        acc[i] = fmadd(x[2], taps.f[t + 2], acc[i]);
-        acc[i] = fmadd(x[3], taps.f[t + 3], acc[i]);
+        add_taps<kIn>(acc[i], x, taps.f[t], taps.f[t + 1], taps.f[t + 2],
+                      taps.f[t + 3]);
       }
     }
   }
 #pragma unroll
   for (int i = 0; i < kR; ++i) {
     const long long orow = rho + static_cast<long long>(sp.cls) * (m0 + p0 + i);
-    if (orow < nr) out[pb + orow * nc + col] = acc[i];
+    if (orow < nr) {
+#pragma unroll
+      for (int o = 0; o < kOut; ++o) io.out[o][pb + orow * nc + col] = acc[i][o];
+    }
   }
 }
 
-// The plan of a level of (nr, nc) planes for tiles of `tile` rows, r a
-// thread (s the centre), its windows staged where they fit kStencilBudget
-// (at the row stride `ldw` where it is given, else the least that holds
-// them); *smem the block's dynamic shared memory in bytes, `taps` of them
-// the taps', `planes` rows x stride samples a plane where given.
-template <class T>
+// The kernels: K18b's forms (a, h, v, d in, out) and K18a's (x in, a, h,
+// v, d out), each the stencil body on its planes. The trailing arguments
+// are those of every form, unused by some: the bank or taps, the plan, the
+// column offsets (direct reads), hlen, the first row block of the launch.
+template <class T, int kH, int kR, bool kStaged, class Bank>
+__global__ void __launch_bounds__(kThreads)
+ins_swt2d_kernel(const T* __restrict__ a, const T* __restrict__ h,
+                 const T* __restrict__ v, const T* __restrict__ d,
+                 T* __restrict__ out, int nr, int nc, Bank bank,
+                 StencilPlan sp, TapOffsets coff, int hlen, unsigned y0) {
+  stencil_generic<T, 4, kH, kR, kStaged>(StencilIo<T, 4>{{a, h, v, d}, {out}},
+                                         nr, nc, bank, sp, coff, hlen, y0);
+}
+
+template <class T, int kH, int kR, bool kStaged, class Bank>
+__global__ void __launch_bounds__(kThreads)
+ns_swt2d_stencil(const T* __restrict__ x, T* __restrict__ a,
+                 T* __restrict__ h, T* __restrict__ v, T* __restrict__ d,
+                 int nr, int nc, Bank bank, StencilPlan sp, TapOffsets coff,
+                 int hlen, unsigned y0) {
+  stencil_generic<T, 1, kH, kR, kStaged>(StencilIo<T, 1>{{x}, {a, h, v, d}},
+                                         nr, nc, bank, sp, coff, hlen, y0);
+}
+
+// K18a's float64 generic form for hlen <= 8 (GenericRows<double, 1,
+// kSmallTaps>): two blocks per SM at 4 rows a thread (left to itself,
+// ptxas holds the walk to fewer registers and runs it slower; at three it
+// spills), six at 1 (8 bytes spilled, and still faster than four without).
+template <class T, int kH, int kR, bool kStaged, class Bank>
+__global__ void __launch_bounds__(kThreads, kR >= 4 ? 2 : 6)
+ns_swt2d_stencil_f64(const T* __restrict__ x, T* __restrict__ a,
+                     T* __restrict__ h, T* __restrict__ v,
+                     T* __restrict__ d, int nr, int nc, Bank bank,
+                     StencilPlan sp, TapOffsets coff, int hlen,
+                     unsigned y0) {
+  stencil_generic<T, 1, kH, kR, kStaged>(StencilIo<T, 1>{{x}, {a, h, v, d}},
+                                         nr, nc, bank, sp, coff, hlen, y0);
+}
+
+template <int kHl>
+__global__ void __launch_bounds__(kThreads, 2)
+ins_swt2d_fast(const float* __restrict__ a, const float* __restrict__ h,
+               const float* __restrict__ v, const float* __restrict__ d,
+               float* __restrict__ out, int nr, int nc,
+               FastTaps<kHl> taps, StencilPlan sp, TapOffsets, int,
+               unsigned y0) {
+  stencil_fast<4, kHl>(StencilIo<float, 4>{{a, h, v, d}, {out}}, nr, nc,
+                       taps, sp, y0);
+}
+
+template <int kHl>
+__global__ void __launch_bounds__(kThreads, kHl == 7 ? 3 : 4)
+ns_swt2d_fast(const float* __restrict__ x, float* __restrict__ a,
+              float* __restrict__ h, float* __restrict__ v,
+              float* __restrict__ d, int nr, int nc, FastTaps<kHl> taps,
+              StencilPlan sp, TapOffsets, int, unsigned y0) {
+  stencil_fast<1, kHl>(StencilIo<float, 1>{{x}, {a, h, v, d}}, nr, nc, taps,
+                       sp, y0);
+}
+
+// The kernels' type: K18b's or K18a's arguments, taps as Taps.
+template <class T, int kIn, class Taps>
+using StencilKernel = std::conditional_t<
+    kIn == 4,
+    void (*)(const T*, const T*, const T*, const T*, T*, int, int, Taps,
+             StencilPlan, TapOffsets, int, unsigned),
+    void (*)(const T*, T*, T*, T*, T*, int, int, Taps, StencilPlan,
+             TapOffsets, int, unsigned)>;
+
+template <class T, int kIn, int kH, int kR, bool kStaged, class Bank>
+StencilKernel<T, kIn, Bank> generic_kernel() {
+  if constexpr (kIn == 4)
+    return ins_swt2d_kernel<T, kH, kR, kStaged, Bank>;
+  else if constexpr (std::is_same_v<T, double> && kH == kSmallTaps)
+    return ns_swt2d_stencil_f64<T, kH, kR, kStaged, Bank>;
+  else
+    return ns_swt2d_stencil<T, kH, kR, kStaged, Bank>;
+}
+
+template <int kIn, int kHl>
+StencilKernel<float, kIn, FastTaps<kHl>> fast_kernel() {
+  if constexpr (kIn == 4)
+    return ins_swt2d_fast<kHl>;
+  else
+    return ns_swt2d_fast<kHl>;
+}
+
+// The plan of a level of (nr, nc) planes, kIn of them in, for tiles of
+// `tile` rows, r a thread (s the centre), its windows staged where they
+// fit kStencilBudget (at the row stride `ldw` where it is given, never
+// where it is -1, else the least that holds them); *smem the block's
+// dynamic shared memory in bytes, `taps` of them the taps', `planes` rows
+// x stride samples a plane where given.
+template <class T, int kIn>
 StencilPlan stencil_plan(int nr, int nc, int level, int s, int hlen,
                          int tile, int r, size_t taps, size_t* smem,
                          int ldw_fixed = 0, long long plane_fixed = 0) {
@@ -482,14 +498,14 @@ StencilPlan stencil_plan(int nr, int nc, int level, int s, int hlen,
   const long long fm = dilation_mod(level, nc);
   p.fmc = static_cast<int>(fm);
   p.cback = static_cast<int>((hlen - 1 - s) * fm % nc);
-  const size_t rest = taps + 4 * sizeof(const T*) * p.rows;
+  const size_t rest = taps + kIn * sizeof(const T*) * p.rows;
   const long long width = kStencilTC + (hlen - 1) * fm;
   const long long least = (width + kVec - 1 + 3) / 4 * 4;
   const long long ldw = ldw_fixed ? ldw_fixed : least;
   const long long plane = plane_fixed ? plane_fixed : p.rows * ldw;
-  const long long staged = 4 * sizeof(T) * plane + rest;
+  const long long staged = kIn * sizeof(T) * plane + rest;
   *smem = rest;
-  if (least <= ldw && staged <= kStencilBudget) {
+  if (ldw_fixed >= 0 && least <= ldw && staged <= kStencilBudget) {
     p.ldw = static_cast<int>(ldw);
     p.quads = nc % kVec == 0;
     p.nq = static_cast<int>(p.quads ? ldw / kVec : width);
@@ -498,83 +514,105 @@ StencilPlan stencil_plan(int nr, int nc, int level, int s, int hlen,
   return p;
 }
 
-template <class T, class Taps>
-using StencilKernel = void (*)(const T*, const T*, const T*, const T*, T*,
-                               int, int, Taps, StencilPlan, TapOffsets, int,
-                               unsigned);
-
 // One level's instance: the kernel (taking its taps as Taps), its plan and
 // dynamic shared memory.
-template <class T, class Taps>
+template <class T, int kIn, class Taps>
 struct Stencil {
-  StencilKernel<T, Taps> kernel;
+  StencilKernel<T, kIn, Taps> kernel;
   StencilPlan plan;
   size_t smem;
 };
 
-// The generic form's instance of a level: 32-row tiles, 8 rows a thread,
-// with staged windows; else 16-row tiles, 4 rows a thread, with staged
-// windows (deeper levels); else 32-row tiles reading through the read-only
-// cache.
-template <class T, int kH, class Bank>
-Stencil<T, Bank> pick_stencil(int nr, int nc, int level, int centre,
-                              int hlen) {
+// The generic form's rows a thread (kIn planes in, T samples, kH taps a
+// row): with the larger staged tiles, the smaller staged tiles, and direct
+// reads; and the largest dilation mod nc at which it stages windows.
+template <class T, int kIn, int kH>
+struct GenericRows {
+  static constexpr int kLarge = 8, kSmall = 4, kDirect = 8;
+  static constexpr long long kStagedFm = 0x3fffffff;
+};
+
+// K18a in float64 at hlen <= 8: 4 rows a thread staged, 1 direct; staged
+// only while the taps of a row share window columns (f mod nc <
+// kStencilTC): a wider window is mostly columns no output reads, and
+// direct reads were faster there. (Wider banks keep 8 rows: at 4 their
+// walk ran 1.5x slower.)
+template <>
+struct GenericRows<double, 1, kSmallTaps> {
+  static constexpr int kLarge = 4, kSmall = 4, kDirect = 1;
+  static constexpr long long kStagedFm = kStencilTC - 1;
+};
+
+// The generic form's instance of a level: tiles of GenericRows::kLarge rows
+// a thread (4 kLarge rows) with staged windows; else of kSmall rows with
+// staged windows (deeper levels); else of kDirect rows reading through the
+// read-only cache.
+template <class T, int kIn, int kH, class Bank>
+Stencil<T, kIn, Bank> pick_stencil(int nr, int nc, int level, int centre,
+                                   int hlen) {
+  using Rows = GenericRows<T, kIn, kH>;
+  constexpr int kTile = kThreads / kStencilTC;  // rows per row a thread
   const size_t taps =
       sizeof(Vec4<T>) * hlen * (kH <= kSmallTaps ? kH : hlen);
-  Stencil<T, Bank> st;
-  st.plan = stencil_plan<T>(nr, nc, level, centre, hlen, 32, 8, taps,
-                            &st.smem);
-  if (st.plan.ldw) {
-    st.kernel = ins_swt2d_kernel<T, kH, 8, true, Bank>;
-    return st;
+  Stencil<T, kIn, Bank> st;
+  if (dilation_mod(level, nc) <= Rows::kStagedFm) {
+    st.plan = stencil_plan<T, kIn>(nr, nc, level, centre, hlen,
+                                   kTile * Rows::kLarge, Rows::kLarge, taps,
+                                   &st.smem);
+    if (st.plan.ldw) {
+      st.kernel = generic_kernel<T, kIn, kH, Rows::kLarge, true, Bank>();
+      return st;
+    }
+    st.plan = stencil_plan<T, kIn>(nr, nc, level, centre, hlen,
+                                   kTile * Rows::kSmall, Rows::kSmall, taps,
+                                   &st.smem);
+    if (st.plan.ldw) {
+      st.kernel = generic_kernel<T, kIn, kH, Rows::kSmall, true, Bank>();
+      return st;
+    }
   }
-  size_t smem;
-  const StencilPlan small =
-      stencil_plan<T>(nr, nc, level, centre, hlen, 16, 4, taps, &smem);
-  if (small.ldw) {
-    st.plan = small;
-    st.smem = smem;
-    st.kernel = ins_swt2d_kernel<T, kH, 4, true, Bank>;
-    return st;
-  }
-  st.kernel = ins_swt2d_kernel<T, kH, 8, false, Bank>;
+  st.plan = stencil_plan<T, kIn>(nr, nc, level, centre, hlen,
+                                 kTile * Rows::kDirect, Rows::kDirect, taps,
+                                 &st.smem, -1);
+  st.kernel = generic_kernel<T, kIn, kH, Rows::kDirect, false, Bank>();
   return st;
 }
 
 // The fast form's instance of a level, or none (kernel null) where the
 // level's dilation mod nc passes kFastFm.
-template <int kHl>
-Stencil<float, FastTaps<kHl>> pick_fast(int nr, int nc, int level,
-                                        int centre) {
-  constexpr int kLdw = fast_ldw(kHl), kTR = 4 * fast_rows(kHl);
-  Stencil<float, FastTaps<kHl>> st{};
-  st.plan = stencil_plan<float>(nr, nc, level, centre, kHl, kTR,
-                                fast_rows(kHl), 0, &st.smem, kLdw,
-                                (kTR + kHl - 1LL) * kLdw);
+template <int kIn, int kHl>
+Stencil<float, kIn, FastTaps<kHl>> pick_fast(int nr, int nc, int level,
+                                             int centre) {
+  constexpr int kR = fast_rows(kIn, kHl), kTR = kThreads / kStencilTC * kR;
+  constexpr int kLdw = fast_ldw(kHl);
+  Stencil<float, kIn, FastTaps<kHl>> st{};
+  st.plan = stencil_plan<float, kIn>(nr, nc, level, centre, kHl, kTR, kR, 0,
+                                     &st.smem, kLdw,
+                                     (kTR + kHl - 1LL) * kLdw);
   if (st.plan.ldw && st.plan.fmc <= kFastFm)
-    st.kernel = ins_swt2d_fast<kHl>;
+    st.kernel = fast_kernel<kIn, kHl>();
   return st;
 }
 
-// A level's call: its arguments, and where the caller asks for them in
-// place of a launch, the figures of its instance (occupancy: resident
-// blocks per SM, dynamic shared memory, tile rows and columns, staged).
-template <class T>
-struct IswtCall {
-  const T *a, *h, *v, *d;
-  T* out;
+// A level's call: its planes and arguments, and where the caller asks for
+// them in place of a launch, the figures of its instance (occupancy:
+// resident blocks per SM, dynamic shared memory, tile rows and columns,
+// staged).
+template <class T, int kIn>
+struct StencilCall {
+  StencilIo<T, kIn> io;
   int batch, nr, nc, level, centre, hlen, device;
   void* stream;
   int* occupancy;   // null: launch
   TapOffsets coff;  // the level's column offsets (plan_level)
 };
 
-// K18b's level on the picked instance: launched (blocks: column tiles x
-// row tiles x planes, in chunks where a launch cannot hold them all), or
-// its occupancy reported.
-template <class T, class Taps>
-int run_stencil(const Stencil<T, Taps>& st, const Taps& taps,
-                const IswtCall<T>& call) {
+// A level on the picked instance: launched (blocks: column tiles x row
+// tiles x planes, in chunks where a launch cannot hold them all), or its
+// occupancy reported.
+template <class T, int kIn, class Taps>
+int run_stencil(const Stencil<T, kIn, Taps>& st, const Taps& taps,
+                const StencilCall<T, kIn>& call) {
   const auto kernel = st.kernel;
   cudaError_t err = cudaSetDevice(call.device);
   if (err == cudaSuccess)
@@ -592,35 +630,41 @@ int run_stencil(const Stencil<T, Taps>& st, const Taps& taps,
         o, kernel, kThreads, st.smem));
   }
   const int nr = call.nr, nc = call.nc;
-  launch_chunks((nc + kStencilTC - 1) / kStencilTC, sp.cls * sp.tiles,
-                call.batch, [&](dim3 grid, int y0, int z0) {
-                  const long long p = static_cast<long long>(z0) * nr * nc;
-                  kernel<<<grid, kThreads, st.smem,
-                           static_cast<cudaStream_t>(call.stream)>>>(
-                      call.a + p, call.h + p, call.v + p, call.d + p,
-                      call.out + p, nr, nc, taps, sp, call.coff, call.hlen,
-                      y0);
-                });
+  launch_chunks(
+      (nc + kStencilTC - 1) / kStencilTC, sp.cls * sp.tiles, call.batch,
+      [&](dim3 grid, int y0, int z0) {
+        const StencilIo<T, kIn> io =
+            call.io.plus(static_cast<long long>(z0) * nr * nc);
+        const auto stream = static_cast<cudaStream_t>(call.stream);
+        if constexpr (kIn == 4)
+          kernel<<<grid, kThreads, st.smem, stream>>>(
+              io.in[0], io.in[1], io.in[2], io.in[3], io.out[0], nr, nc, taps,
+              sp, call.coff, call.hlen, y0);
+        else
+          kernel<<<grid, kThreads, st.smem, stream>>>(
+              io.in[0], io.out[0], io.out[1], io.out[2], io.out[3], nr, nc,
+              taps, sp, call.coff, call.hlen, y0);
+      });
   return static_cast<int>(cudaGetLastError());
 }
 
 // The call's column offsets, or false if its arguments are out of range.
-template <class T>
-bool check(IswtCall<T>* call) {
+template <class T, int kIn>
+bool check(StencilCall<T, kIn>* call) {
   TapOffsets roff;
   return plan_level(call->batch, call->nr, call->nc, call->level,
                     call->centre, call->hlen, &roff, &call->coff);
 }
 
 // The generic form on the bank (Bank2D, or BankPtr in float64).
-template <class T, class Bank>
-int run_generic(const Bank& bank, const IswtCall<T>& call) {
+template <class T, int kIn, class Bank>
+int run_generic(const Bank& bank, const StencilCall<T, kIn>& call) {
   const int nr = call.nr, nc = call.nc, level = call.level, hlen = call.hlen;
   return hlen > kSmallTaps
-             ? run_stencil(pick_stencil<T, kMaxTaps, Bank>(
+             ? run_stencil(pick_stencil<T, kIn, kMaxTaps, Bank>(
                                nr, nc, level, call.centre, hlen),
                            bank, call)
-             : run_stencil(pick_stencil<T, kSmallTaps, Bank>(
+             : run_stencil(pick_stencil<T, kIn, kSmallTaps, Bank>(
                                nr, nc, level, call.centre, hlen),
                            bank, call);
 }
@@ -633,34 +677,58 @@ int with_hlen(int hlen, Fn fn) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K18b in float32: the fast form where it takes the level, else the
-// generic one; rec the synthesis filters (null for an occupancy query),
-// scaled here by 1/4 (exact in float32: the reference's 1/4 of the
-// inverse).
-inline int iswt_f32(const float* rec, IswtCall<float> call) {
+// A level in float32: the fast form where it takes the level, else the
+// generic one; `filters` the four filters [b][k][l] (null for an occupancy
+// query), scaled here by `scale` (K18b's 1/4, exact in float32: the
+// reference's 1/4 of the inverse; K18a's 1).
+template <int kIn>
+int stencil_f32(const float* filters, float scale,
+                StencilCall<float, kIn> call) {
   if (!check(&call)) return static_cast<int>(cudaErrorInvalidValue);
   const int hlen = call.hlen;
   if (hlen <= kSmallTaps) {
     const int err = with_hlen(hlen, [&](auto hl) {
       constexpr int kHl = decltype(hl)::value;
-      const Stencil<float, FastTaps<kHl>> st =
-          pick_fast<kHl>(call.nr, call.nc, call.level, call.centre);
+      const Stencil<float, kIn, FastTaps<kHl>> st =
+          pick_fast<kIn, kHl>(call.nr, call.nc, call.level, call.centre);
       if (!st.kernel) return -1;
       FastTaps<kHl> taps{};
-      for (int b = 0; rec && b < 4; ++b)
+      for (int b = 0; filters && b < 4; ++b)
         for (int i = 0; i < kHl * kHl; ++i)
-          taps.f[4 * i + b] = 0.25f * rec[b * kHl * kHl + i];
+          taps.f[4 * i + b] = scale * filters[b * kHl * kHl + i];
       return run_stencil(st, taps, call);
     });
     if (err != -1) return err;
   }
-  return run_generic(rec ? make_bank(rec, hlen, 0.25f) : Bank2D{}, call);
+  return run_generic(filters ? make_bank(filters, hlen, scale) : Bank2D{},
+                     call);
 }
 
-// K18b in float64 on the device bank (BankPtr, x 1/4): the generic form.
-inline int iswt_f64(const double* bank, IswtCall<double> call) {
+// A level in float64 on the device bank (BankPtr, pypwt_ns_bank_f64's
+// layout: K18a's 2, K18b's 3, x 1/4): the generic form.
+template <int kIn>
+int stencil_f64(const double* bank, StencilCall<double, kIn> call) {
   if (!check(&call)) return static_cast<int>(cudaErrorInvalidValue);
   return run_generic(BankPtr<double>{bank}, call);
+}
+
+// The figures of a level's instance (pypwt_ns_swt2d_occupancy).
+template <int kIn>
+int stencil_occupancy(int nr, int nc, int level, int centre, int hlen,
+                      int f64, int device, int* blocks, int* smem, int* tr,
+                      int* tc, int* staged) {
+  int o[5] = {};
+  const int err =
+      f64 ? stencil_f64<kIn>(nullptr, {{}, 1, nr, nc, level, centre, hlen,
+                                       device, nullptr, o})
+          : stencil_f32<kIn>(nullptr, 1.f, {{}, 1, nr, nc, level, centre,
+                                            hlen, device, nullptr, o});
+  *blocks = o[0];
+  *smem = o[1];
+  *tr = o[2];
+  *tc = o[3];
+  *staged = o[4];
+  return err;
 }
 
 }  // namespace
@@ -673,19 +741,18 @@ extern "C" int pypwt_ns_swt2d(const float* x, float* a, float* h, float* v,
                               float* d, int batch, int nr, int nc, int level,
                               int centre, const float* dec, int hlen,
                               int device, void* stream) {
-  using namespace pypwt;
-  if (hlen < 1 || hlen > kMaxTaps)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch_swt(x, a, h, v, d, batch, nr, nc, level, centre,
-                    make_bank(dec, hlen, 1.f), hlen, device, stream);
+  return pypwt::stencil_f32<1>(dec, 1.f, {{{x}, {a, h, v, d}}, batch, nr, nc,
+                                          level, centre, hlen, device,
+                                          stream, nullptr});
 }
 
 extern "C" int pypwt_ins_swt2d(const float* a, const float* h, const float* v,
                                const float* d, float* out, int batch, int nr,
                                int nc, int level, int centre, const float* rec,
                                int hlen, int device, void* stream) {
-  return pypwt::iswt_f32(rec, {a, h, v, d, out, batch, nr, nc, level,
-                               centre, hlen, device, stream, nullptr});
+  return pypwt::stencil_f32<4>(rec, 0.25f, {{{a, h, v, d}, {out}}, batch, nr,
+                                            nc, level, centre, hlen, device,
+                                            stream, nullptr});
 }
 
 // The float64 K18a/K18b: `bank` is the device copy of pypwt_ns_bank_f64's
@@ -695,9 +762,9 @@ extern "C" int pypwt_ns_swt2d_f64(const double* x, double* a, double* h,
                                   int nc, int level, int centre,
                                   const double* bank, int hlen, int device,
                                   void* stream) {
-  return pypwt::launch_swt(x, a, h, v, d, batch, nr, nc, level, centre,
-                           pypwt::BankPtr<double>{bank}, hlen, device,
-                           stream);
+  return pypwt::stencil_f64<1>(bank, {{{x}, {a, h, v, d}}, batch, nr, nc,
+                                      level, centre, hlen, device, stream,
+                                      nullptr});
 }
 
 extern "C" int pypwt_ins_swt2d_f64(const double* a, const double* h,
@@ -705,32 +772,29 @@ extern "C" int pypwt_ins_swt2d_f64(const double* a, const double* h,
                                    double* out, int batch, int nr, int nc,
                                    int level, int centre, const double* bank,
                                    int hlen, int device, void* stream) {
-  return pypwt::iswt_f64(bank, {a, h, v, d, out, batch, nr, nc, level,
-                                centre, hlen, device, stream, nullptr});
+  return pypwt::stencil_f64<4>(bank, {{{a, h, v, d}, {out}}, batch, nr, nc,
+                                      level, centre, hlen, device, stream,
+                                      nullptr});
 }
 
-// K18b's instance for one level of (nr, nc) planes (f64 1: the float64
-// one): resident blocks per SM, dynamic shared memory in bytes, the tile's
-// rows and columns, and 1 where its windows are staged in shared memory,
-// 0 where it reads through the read-only cache. A figure for reports; no
+// K18a's (pypwt_ns_swt2d_occupancy) and K18b's (pypwt_ins_swt2d_occupancy)
+// instance for one level of (nr, nc) planes (f64 1: the float64 one):
+// resident blocks per SM, dynamic shared memory in bytes, the tile's rows
+// and columns, and 1 where its windows are staged in shared memory, 0
+// where it reads through the read-only cache. A figure for reports; no
 // bank is read.
+extern "C" int pypwt_ns_swt2d_occupancy(int nr, int nc, int level,
+                                        int centre, int hlen, int f64,
+                                        int device, int* blocks, int* smem,
+                                        int* tr, int* tc, int* staged) {
+  return pypwt::stencil_occupancy<1>(nr, nc, level, centre, hlen, f64,
+                                     device, blocks, smem, tr, tc, staged);
+}
+
 extern "C" int pypwt_ins_swt2d_occupancy(int nr, int nc, int level,
                                          int centre, int hlen, int f64,
                                          int device, int* blocks, int* smem,
                                          int* tr, int* tc, int* staged) {
-  using namespace pypwt;
-  int o[5] = {};
-  const int err =
-      f64 ? iswt_f64(nullptr, {nullptr, nullptr, nullptr, nullptr, nullptr,
-                               1, nr, nc, level, centre, hlen, device,
-                               nullptr, o})
-          : iswt_f32(nullptr, {nullptr, nullptr, nullptr, nullptr, nullptr,
-                               1, nr, nc, level, centre, hlen, device,
-                               nullptr, o});
-  *blocks = o[0];
-  *smem = o[1];
-  *tr = o[2];
-  *tc = o[3];
-  *staged = o[4];
-  return err;
+  return pypwt::stencil_occupancy<4>(nr, nc, level, centre, hlen, f64,
+                                     device, blocks, smem, tr, tc, staged);
 }

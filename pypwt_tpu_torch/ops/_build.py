@@ -134,7 +134,8 @@ _SIGNATURES = {
     # smem (int*), staged (int*)
     "pypwt_iswt2d_occupancy": [_I] * 8 + [_P] * 3,
     # nr, nc, level, centre, hlen, f64, device, blocks (int*), smem (int*),
-    # tile rows (int*), tile columns (int*), staged (int*) (K18b)
+    # tile rows (int*), tile columns (int*), staged (int*) (K18a, K18b)
+    "pypwt_ns_swt2d_occupancy": [_I] * 7 + [_P] * 5,
     "pypwt_ins_swt2d_occupancy": [_I] * 7 + [_P] * 5,
     # nr, nc, hlen, f64, halo, device, blocks (int*), smem (int*), tile
     # rows (int*), tile columns (int*)

@@ -3251,6 +3251,222 @@ def test_k18b_stencil_body_matches_plain_and_parent(dev, case, name):
     assert _sha256(got) == K18B_DIGESTS[_k18b_id(case, name)]
 
 
+# K18a on the same stencil body, on the same banks and cases: its four
+# outputs against their plain versions and against the SHA-256 of the four
+# (stacked) that K18a's body before it (one thread per pixel, every tap
+# through L1) gave on the card for the same seeded input; `python
+# tests/test_torch_kernels_cuda.py digests K18A` prints a tree's digests in
+# K18A_DIGESTS's form.
+def _k18a_id(case, name):
+    return "-".join(["K18a", name, *(str(v) for v in case)])
+
+
+def _k18a_output(case, name, dev):
+    """(kernel outputs, plain outputs) of one case, the kernel launched
+    once."""
+    kind, shape, level, off = case
+    dtype = torch.float64 if kind == "f64" else torch.float32
+    f2d = _k18b_bank(name)
+    x = _offset(_rand(shape, dev, 5).to(dtype), off)
+    n = kn.ns_swt2d_fused.launches
+    got = kn.ns_swt2d_fused(x, f2d, level)
+    assert kn.ns_swt2d_fused.launches == n + 1
+    return got, kn.ns_swt2d_plain(x, f2d, level)
+
+
+@pytest.mark.parametrize("name", K18B_BANKS)
+@pytest.mark.parametrize("case", K18B_CASES, ids=str)
+def test_k18a_stencil_body_matches_plain_and_parent(dev, case, name):
+    got, ref = _k18a_output(case, name, dev)
+    tol = TOL if got[0].dtype == torch.float32 else 1e-12
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and float((g - r).abs().max()) <= tol
+    assert _sha256(torch.stack(got)) == K18A_DIGESTS[_k18a_id(case, name)]
+
+
+K18A_DIGESTS = {
+    'K18a-db3xcoif1-f32-(64, 128)-1-0':
+        '31e76b77b9c6ff347577d951e547a451bca9cae34001a49a312e9d295439dd11',
+    'K18a-rank2mix-f32-(64, 128)-1-0':
+        '6dcfce85a20875832aeba0f1b73a7deeeb9d9ad276bef595defbf104f98b5cf6',
+    'K18a-dense8-f32-(64, 128)-1-0':
+        'fb8dcdc63813158ad0b8633c34b343273b5e0f82bc9866d61b6abcc0372d4a5d',
+    'K18a-dense5-f32-(64, 128)-1-0':
+        '7f5c7419d85866ce742ca073b47b3e5effc8fa725a46834cdaa1d4f3ec63ef41',
+    'K18a-dense40-f32-(64, 128)-1-0':
+        'ecac75128f2a75c9f99e2ba83ddcadb3201389171e4499f6d539e03aa2846dba',
+    'K18a-db3xcoif1-f32-(64, 128)-2-0':
+        '46092d59872e639f5bdb4df357fa5ab7d33a5065e5b36e35aa7274659bbdf241',
+    'K18a-rank2mix-f32-(64, 128)-2-0':
+        'cf8c5d7d3959dc5dab45087a061711aecac1e6bbdc2e2fe776d3ee60b2b60649',
+    'K18a-dense8-f32-(64, 128)-2-0':
+        '0fa00a4a3871cfb030a4ffb6e2cf32470c174b991d29cdbd0f6b77fe4d947ec8',
+    'K18a-dense5-f32-(64, 128)-2-0':
+        '946073bcd09f5ccf298eace268186f3c22ee4dc093ee7d887ca4184b94dd8141',
+    'K18a-dense40-f32-(64, 128)-2-0':
+        '2497aaf200ef4248c34f8f85bbe2208ed884cbcd555cc1cfc5472d429d6cd06b',
+    'K18a-db3xcoif1-f32-(64, 128)-3-0':
+        '0efb2f78be36a7eac7a6bd6d860110768f1b7210a59964eb6c4017fb7a40c53a',
+    'K18a-rank2mix-f32-(64, 128)-3-0':
+        'd7189c2b68b86e50d2321ca2b88edbe35b5d89ac5297a92dcbf9410834bdc9ec',
+    'K18a-dense8-f32-(64, 128)-3-0':
+        '2e266a2c7f5c94a70ded3619b007f82b7e3157e6f4f85e556f59abb751404c19',
+    'K18a-dense5-f32-(64, 128)-3-0':
+        'bd99222d27c8123176c7831eaff7b7b52c413e53b07d6e5e02d3e4637106538e',
+    'K18a-dense40-f32-(64, 128)-3-0':
+        '04214202092c48a1526244a90905c48634274ceb428b8f04ad26052d95124d17',
+    'K18a-db3xcoif1-f32-(2048, 2048)-1-0':
+        '14677c2b57a080b15d5370c3121646f28bb7669b482660bd3c0f7f7d95d067a3',
+    'K18a-rank2mix-f32-(2048, 2048)-1-0':
+        'b82296b89a3e61bbea1ac0049761ffb56460fef9c561ed536f674e6937f03165',
+    'K18a-dense8-f32-(2048, 2048)-1-0':
+        'f38d242997339312bf5df96c2a7d6a07c902186b4c86563e7935694122861228',
+    'K18a-dense5-f32-(2048, 2048)-1-0':
+        '1cb73ccab14ed5edb54413fbcdf267f55979224b62e870b255275eecad1598fc',
+    'K18a-dense40-f32-(2048, 2048)-1-0':
+        '75e719c66a97bf8e5058320323411bafeaa578e118e287f01ad6dcbd96ddecf7',
+    'K18a-db3xcoif1-f32-(2048, 2048)-2-0':
+        'd67bef7e8d0d5a7e5f1431e5d14c8609948a909cd90d062bb7905a070d8170a1',
+    'K18a-rank2mix-f32-(2048, 2048)-2-0':
+        'd3a36f4c318fdcd3f6761e0acd09009d928990e0411330fdb20fbb9b1e41451c',
+    'K18a-dense8-f32-(2048, 2048)-2-0':
+        '44342adda90a513317305038b100b9a8c55bb3a99be5aaf1280219fc61ee5f75',
+    'K18a-dense5-f32-(2048, 2048)-2-0':
+        '33805c93c719f80d1310fc122f0981ee77ba026f90a8beba8aedcbbc84ee30dc',
+    'K18a-dense40-f32-(2048, 2048)-2-0':
+        'b63f87e102448ea176d79b8958ae5048994aa2186411d8d9b366f3eb6ee2419d',
+    'K18a-db3xcoif1-f32-(2048, 2048)-3-0':
+        'daa259aab28fe646489296696ad633e0f185c0806d3b03716a30e87f8e99bc7c',
+    'K18a-rank2mix-f32-(2048, 2048)-3-0':
+        'e71d42289a7298cf7b27ad74d102fa6952de1a0dc3df06def2e489fe4a0684ec',
+    'K18a-dense8-f32-(2048, 2048)-3-0':
+        'a812b2f16181cfcdc26401ceeaae2b0831275df1bbebc63d404ea745d5a64fa5',
+    'K18a-dense5-f32-(2048, 2048)-3-0':
+        'f197e3722a6747d7fba27bed5d8b6c5682ed1ace25e7181a3ad4bc35c882f128',
+    'K18a-dense40-f32-(2048, 2048)-3-0':
+        '4b8d8f315981f3858c3ed32c31371fdc075eaacdaf21a39d21fceea201b42e50',
+    'K18a-db3xcoif1-f32-(16, 64)-6-0':
+        'c383715d6a7a3e38d8141a4c6237f9f257fadec5910fa8bb90f01d98b2661400',
+    'K18a-rank2mix-f32-(16, 64)-6-0':
+        '13cfbfc4c7acff042feb77eaa69256d6f2d542577e94284199b33f8f7b65c1f2',
+    'K18a-dense8-f32-(16, 64)-6-0':
+        '0158a192f53a02c4f84e8a48898d0ec37cedfce94ff5f8652f150602f884fad2',
+    'K18a-dense5-f32-(16, 64)-6-0':
+        'd9d23b5936b052893b527d1cc023282f24f5660de82fd1a7aae8810d5c2f0488',
+    'K18a-dense40-f32-(16, 64)-6-0':
+        '99fcd27c1a342bb09a1e1965fae681ca25800ad01397f3a5a83b36084f954c30',
+    'K18a-db3xcoif1-f32-(2047, 2047)-1-0':
+        'd55ef5d8a7b09d907bbaa95869b18d852e8b7f8750a31080ed5375f1e1afc30b',
+    'K18a-rank2mix-f32-(2047, 2047)-1-0':
+        '7ef3139b8bb8fc1f584f070a2bb879697823810ab34d8ecf4015c9ac0190b7d5',
+    'K18a-dense8-f32-(2047, 2047)-1-0':
+        '24c88fab65b86d0246a9a7af2882f2cc26547b07920e7137f5fff4132d33ba17',
+    'K18a-dense5-f32-(2047, 2047)-1-0':
+        '0f7d5ee05e333e77c50249f6450f3fdd9167c2f69cbbca680572dc47d3334312',
+    'K18a-dense40-f32-(2047, 2047)-1-0':
+        'ee59d44a94e91b369c25242f704a73d017b26de7d56dcbc8b87e212bb3323407',
+    'K18a-db3xcoif1-f32-(33, 47)-2-0':
+        '4480ecb22229c0e087a0b3c604932e4d776fa40774a9dfc3fbfb073f5a9354b5',
+    'K18a-rank2mix-f32-(33, 47)-2-0':
+        '71191706eb061b527ebcc9745f9310ca66ecc630728ad3b03019456550e4781c',
+    'K18a-dense8-f32-(33, 47)-2-0':
+        'c4535b9f6b8eeee4f6cfbbbe1f99ef1aec2368d4dcec7326d398968ea2a205a2',
+    'K18a-dense5-f32-(33, 47)-2-0':
+        'e2884a804a3d4eeee2d5ce9ae94b776a621dc29d1e7ea12e43e8ae0584e79464',
+    'K18a-dense40-f32-(33, 47)-2-0':
+        '064198ecd2ae904d64e109b2b8c9e9d52d10acd92a893f3679d8f95db0363e37',
+    'K18a-db3xcoif1-f32-(40, 70)-1-0':
+        'f7d55404868470ec0b0fa92bd5725b613d8a8247366db8d99bacccf5bc1dc16b',
+    'K18a-rank2mix-f32-(40, 70)-1-0':
+        'ba4bf8d810a094511a897882bd3b9603ab1b1cfa92922511d2f8334241f5804e',
+    'K18a-dense8-f32-(40, 70)-1-0':
+        'f92eaf1dab3a61ba128732da675d1981b2125b38e5abfd1830d83705a1124784',
+    'K18a-dense5-f32-(40, 70)-1-0':
+        '3f29a4cc0fc390a80a755afc4ae48aa4bb1eba53f85b7f6a1a93a4e424ee0f75',
+    'K18a-dense40-f32-(40, 70)-1-0':
+        '6cafb07e0767626f958206827a46009b935037be028348afd4093dc3f3e6a88a',
+    'K18a-db3xcoif1-f32-(3, 40, 72)-2-0':
+        '18d0a28bf91775f663d6d1ff09e2884a7c015b5bac50962d5de677eeaa4fb4d0',
+    'K18a-rank2mix-f32-(3, 40, 72)-2-0':
+        '24afece9c431874901fbe1e1b4e0046e8fec1425c85f8fe649a6b57fb57fe8b8',
+    'K18a-dense8-f32-(3, 40, 72)-2-0':
+        '96b65edf9f552f3e431ee55486f325aa3d87dcbb271478416043bc68be1ccb63',
+    'K18a-dense5-f32-(3, 40, 72)-2-0':
+        '457d01801adf149801f0129abe016de8bd502419ec40886412a3a2fbbf22c6e0',
+    'K18a-dense40-f32-(3, 40, 72)-2-0':
+        '058e19a790a8bdba11873a23f2bc4ba43b0d098afe0f177331e1dae4c89c4271',
+    'K18a-db3xcoif1-f32-(2097125, 3)-1-0':
+        '7e64cc5ff1b32c1a20863fd4f24556920f2e29022f5f66dad1e2cb0c91fb1d6a',
+    'K18a-rank2mix-f32-(2097125, 3)-1-0':
+        'c934ceb4e2f7b0f578fa41e6937d6d8ff1c015f47ebfd40836d3014d43dd1e8d',
+    'K18a-dense8-f32-(2097125, 3)-1-0':
+        '44fba6024dc93d0f799e25ced7d470121175b25e7f8e2b806da9a72dc9813c06',
+    'K18a-dense5-f32-(2097125, 3)-1-0':
+        'b5640c4ab8b1f76e58b9815178b372013c78e3960f55af658e067d780e7094c3',
+    'K18a-dense40-f32-(2097125, 3)-1-0':
+        'c3e2403944a455d54fcb3c47736722a8ba890f8f585beee7bcc90db471df1dbd',
+    'K18a-db3xcoif1-f32-(64, 128)-1-1':
+        '31e76b77b9c6ff347577d951e547a451bca9cae34001a49a312e9d295439dd11',
+    'K18a-rank2mix-f32-(64, 128)-1-1':
+        '6dcfce85a20875832aeba0f1b73a7deeeb9d9ad276bef595defbf104f98b5cf6',
+    'K18a-dense8-f32-(64, 128)-1-1':
+        'fb8dcdc63813158ad0b8633c34b343273b5e0f82bc9866d61b6abcc0372d4a5d',
+    'K18a-dense5-f32-(64, 128)-1-1':
+        '7f5c7419d85866ce742ca073b47b3e5effc8fa725a46834cdaa1d4f3ec63ef41',
+    'K18a-dense40-f32-(64, 128)-1-1':
+        'ecac75128f2a75c9f99e2ba83ddcadb3201389171e4499f6d539e03aa2846dba',
+    'K18a-db3xcoif1-f64-(64, 128)-1-0':
+        '1e17e8ecd5b34983c01bb579004e1f3290d0eead1bfd2bf99326e1ec9629fbab',
+    'K18a-rank2mix-f64-(64, 128)-1-0':
+        '92c8840bc36e68d1822c7866c4ee52419eaec7132e89cdf07ec46d828fc68ec0',
+    'K18a-dense8-f64-(64, 128)-1-0':
+        '5f178a8a01dfb10a75dd4cc63968732f0eab9d8e9d09116116827d1c013c82bc',
+    'K18a-dense5-f64-(64, 128)-1-0':
+        '76aa4189fae3858e82b026682490f3d233fae612c4e8fb4f26b4453bd4f08dd8',
+    'K18a-dense40-f64-(64, 128)-1-0':
+        '28d94298f62933a3720af98219d8fb8ba67a1cad74d98bb128123fdc776d22d8',
+    'K18a-db3xcoif1-f64-(2048, 2048)-1-0':
+        'e22c98f4c745e2de470afc8db953101e6f5a2f9cd7a1166731d6e37ca4483eab',
+    'K18a-rank2mix-f64-(2048, 2048)-1-0':
+        '677afc902421235aa6f7d805da265d6c6a173a4cea18a7810f77b478c5cdf43b',
+    'K18a-dense8-f64-(2048, 2048)-1-0':
+        'a77f273b1604387b75ffb0c1a9062a0fdce9b85fbf3cbdb88c45482639374fc9',
+    'K18a-dense5-f64-(2048, 2048)-1-0':
+        '9ede8f231d4c06f75027ffcba6e33263c1da26bcd2e91546226606949e547d47',
+    'K18a-dense40-f64-(2048, 2048)-1-0':
+        'ca5ac26318a88cf0eab56604ddcd95ff6ff1d52a33872943a10945f60763eeca',
+    'K18a-db3xcoif1-f64-(16, 64)-6-0':
+        '4be9ca59175dd6fb4111984bb7d61a9d68e5b361b8c417e674c7e9e80d725072',
+    'K18a-rank2mix-f64-(16, 64)-6-0':
+        'b3b39197428da050aa6d222d27355aaa98bdcee99a4a73ba0f1bdbd8e2142ba2',
+    'K18a-dense8-f64-(16, 64)-6-0':
+        'fe391c49bbb26b8d37be2e7e537821a8ad92444471679d2f78c763c0a5560565',
+    'K18a-dense5-f64-(16, 64)-6-0':
+        'e7a19bc6e0dc0fa26a83560cf1a423fafb40a5fa85f22a804c8021d1e396098c',
+    'K18a-dense40-f64-(16, 64)-6-0':
+        '8f11d1a0d2976d17d357a758af0b612a0873e33aeabf54f8c2afa19e009ec7f0',
+    'K18a-db3xcoif1-f64-(33, 47)-2-0':
+        '85c68aaf1278965bedb9328de4afe31cfbb503cd031a774c5112381c48364d56',
+    'K18a-rank2mix-f64-(33, 47)-2-0':
+        '8fcf6b7a99bdab4d92c5dc49a12fea19d2425d22d2ce67cffa60b86b90f00518',
+    'K18a-dense8-f64-(33, 47)-2-0':
+        'b6e7c8b5245e04f50b22b6d38a72ab308f7f049604f074c8e88d7369c9f65675',
+    'K18a-dense5-f64-(33, 47)-2-0':
+        '75a874946c3aca156653aeb28f1b92cadc2856eb5908c46a604fec20a8615a3a',
+    'K18a-dense40-f64-(33, 47)-2-0':
+        'd694302cb9a00698422f6cf3bec6c402f7eb92088bb319c10df4d7ddb0587348',
+    'K18a-db3xcoif1-f64-(3, 40, 72)-2-1':
+        'f70a0ad6a91b4974113e4256c10080d1a51decdc3fcfe86c275aaf331c2ea34a',
+    'K18a-rank2mix-f64-(3, 40, 72)-2-1':
+        'fc677f452a189258ab18834a26b149b97eaaa1dedb4e6ff1e4b045f8cce5059a',
+    'K18a-dense8-f64-(3, 40, 72)-2-1':
+        '0bb57fdfd0ae2115f5df2d12e9e88a686394ef4046029d11eeeca9a4a9f43826',
+    'K18a-dense5-f64-(3, 40, 72)-2-1':
+        'ef84831c0ce7cbbaebb5c7ad8e5f66dc637adf5fa85bd57f2397bd17f7f5ea70',
+    'K18a-dense40-f64-(3, 40, 72)-2-1':
+        '108f356958d1653059fc236c3d98e1cf06b458ed370c9f09770a1d6debd857cf',
+}
+
 K18B_DIGESTS = {
     'K18b-db3xcoif1-f32-(64, 128)-1-0':
         '5c7e2dfae213399988b584444a08a8d3322b148bfb5d9e05f2430febc83b1735',
@@ -3469,8 +3685,14 @@ if __name__ == "__main__":
                 out, _ = _k18b_output(case, name, dev)
                 yield _k18b_id(case, name), out
 
+    def _k18a_lines(dev):
+        for case in K18B_CASES:
+            for name in K18B_BANKS:
+                out, _ = _k18a_output(case, name, dev)
+                yield _k18a_id(case, name), torch.stack(out)
+
     tables = {"PAIR": _pair_lines, "ANA": _ana_lines, "ROWS": _rows_lines,
-              "K20": _k20_lines, "K18B": _k18b_lines}
+              "K20": _k20_lines, "K18B": _k18b_lines, "K18A": _k18a_lines}
     want = sys.argv[2:] or list(tables)
     if (sys.argv[1:2] != ["digests"] or not set(want) <= set(tables)
             or not torch.cuda.is_available()):

@@ -407,3 +407,25 @@ def test_k18b_plain_matches_jax_at_hard_geometries(name, shape, level):
         fused = nsp.ins_swt2d_fused(*(jnp.asarray(s) for s in c), jf, level)
         if fused is not None:
             assert _err(got, fused) <= KERNEL_TOL
+
+
+@pytest.mark.parametrize("name", ["db3xcoif1", "dense5", "dense8"])
+@pytest.mark.parametrize("shape, level", K18B_GEOMETRIES, ids=str)
+def test_k18a_plain_matches_jax_at_hard_geometries(name, shape, level):
+    """K18a's plain version against JAX's jnp level, and against the JAX
+    Pallas kernel in interpret mode where that covers the level (an even
+    hlen, its dilated pads within the plane, row bands that divide it), on
+    K18b's geometries: K18a runs the same tiling, with the analysis centre
+    hlen/2."""
+    jf, tf = _pair(name)
+    x = _rand(shape, 7 * level + 5)
+    got = kn.ns_swt2d_plain(torch.from_numpy(x), tf, level)
+    ref = _jnp(jns.ns_swt2d_level, jnp.asarray(x), jf, level)
+    assert len(got) == len(ref) == 4
+    for g, r in zip(got, ref):
+        assert g.shape == shape and _err(g, r) <= KERNEL_TOL
+    if tf.hlen % 2 == 0:
+        fused = nsp.ns_swt2d_fused(jnp.asarray(x), jf, level)
+        if fused is not None:
+            for g, r in zip(got, fused):
+                assert _err(g, r) <= KERNEL_TOL

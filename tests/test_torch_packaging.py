@@ -231,6 +231,22 @@ def test_stencil_occupancy_entry_is_declared_as_chip_turns_calls_it():
     want = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
     assert _build._SIGNATURES[name] == turns.ENTRY_TYPES[name] == want
 
+
+def test_ns_stencil_occupancy_entry_is_declared_as_chip_turns_calls_it():
+    """K18a's occupancy query has the ctypes signature in _build that
+    chip_turns.py gives it where a parent tree's _build lacks it, K18b's:
+    nr, nc, level, centre, hlen, f64 and device, then five int pointers
+    (blocks per SM, shared memory, tile rows, tile columns, staged)."""
+    from pypwt_tpu_torch.ops import _build
+    spec = importlib.util.spec_from_file_location("chip_turns",
+                                                  ROOT / "chip_turns.py")
+    turns = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(turns)
+    name = "pypwt_ns_swt2d_occupancy"
+    want = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
+    assert _build._SIGNATURES[name] == turns.ENTRY_TYPES[name] == want
+    assert _build._SIGNATURES["pypwt_ins_swt2d_occupancy"] == want
+
 def test_chip_smoke_fails_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: this test checks the refusal "
