@@ -162,7 +162,7 @@ K12a/K12b against K10 (level l of 2048 x 2048); it prints no ok line.
 ``--only KEYS`` is the loop of a kernel redesign: KEYS, comma-separated,
 name rows of the kernels line (a family such as K7, K28 or K29 names all
 of its rows); the tap-loop DWT analysis K1 and synthesis K2, the
-cycle-spin synthesis K20, the tap-loop SWT synthesis K9, the
+cycle-spin analysis K19 and synthesis K20, the tap-loop SWT synthesis K9, the
 non-separable SWT pair K18a/K18b, the tensor-core forms K5/K6/K11a/K11b
 and K7a/K7b, the row-sharded K26-K28 and the grid and sequence passes K29 are selectable.
 It builds every kernel, then runs only those rows' phases: their
@@ -182,7 +182,10 @@ cases; K1 and K26a the same for dwt2d.cu's analysis; K20 runs phase 3's
 shifted checks, the spins of phase 4 with their launches and phase 5's
 slice times, and prints the occupancy and tile shape of its idwt2d.cu
 instances at levels 0-2 of 2048^2 for each parity of the shift and
-digests of its outputs on seeded cases; K18a/K18b run phase 3's K18
+digests of its outputs on seeded cases; K19 the same phases, and the
+same of its dwt2d.cu instances (tiles in outputs) and digests of its
+outputs on seeded cases;
+K18a/K18b run phase 3's K18
 checks, the non-separable SWT of phase 4 (db3 x coif1 L3, 3 + 3
 launches) and their times at levels 1-3 of 2048^2 (db3 x coif1 and
 dense8; float32 and float64), and print the occupancy, tile shape and
@@ -2372,16 +2375,18 @@ K20_DIGEST_SHIFTS = ((0, 0), (1, 0), (0, 1), (1, 1), (5, 3), (70, 131),
                      (127, 1), (4101, 4099))
 
 
-def print_k20_occupancy(port, dev):
+def print_shifted_occupancy(port, dev, key):
     """Resident blocks per SM (the occupancy API), dynamic shared memory
-    and tile shape of the idwt2d.cu instances that K20 runs at levels 0-2
-    of 2048^2 for each parity of the shift, db2 and sym20 (a build without
-    the query says so)."""
+    and tile shape of the instances that K20 (idwt2d.cu) or K19
+    (dwt2d.cu) runs at levels 0-2 of 2048^2 for each parity of the shift,
+    db2 and sym20 (a build without the query says so)."""
     from pypwt_tpu_torch.ops import _build
     lib = _build.load_library()
-    query = "pypwt_idwt2d_unshift_occupancy"
+    query, unit = (("pypwt_idwt2d_unshift_occupancy", "coefficients")
+                   if key == "K20" else
+                   ("pypwt_dwt2d_shifted_occupancy", "outputs"))
     if not hasattr(lib, query):
-        print("occupancy K20: not reported by this build")
+        print(f"occupancy {key}: not reported by this build")
         return
     for lev, wname, (sr, sc) in itertools.product(
             range(3), SYN2D_TIMED_BANKS, ((0, 0), (1, 0), (0, 1), (1, 1))):
@@ -2391,12 +2396,11 @@ def print_k20_occupancy(port, dev):
                                   sr, sc, dev.index,
                                   *(ctypes.byref(o) for o in out))
         if err:
-            raise RuntimeError(f"occupancy query K20 {wname}: error {err}")
+            raise RuntimeError(f"occupancy query {key} {wname}: error {err}")
         blocks, smem, tr, tc = (o.value for o in out)
-        print(f"occupancy K20 {wname} ({nr}, {nc}) shift ({sr}, {sc}): "
+        print(f"occupancy {key} {wname} ({nr}, {nc}) shift ({sr}, {sc}): "
               f"{blocks} blocks of 256 threads per SM, {smem} bytes of "
-              f"dynamic shared memory each, tiles of {tr} x {tc} "
-              "coefficients")
+              f"dynamic shared memory each, tiles of {tr} x {tc} {unit}")
 
 
 def print_k20_digests(port, dev):
@@ -2427,6 +2431,40 @@ def print_k20_digests(port, dev):
         print(f"digest K20 {fb.name} {shape} ({sr}, {sc}) "
               f"{'acc' if acc else 'store'} +{off}: {digest(out)}")
     print(f"digests of K20: {len(cases)}")
+
+
+# The levels whose outputs --only K19 digests, so that two builds of
+# dwt2d.cu compare bit for bit: ANA2D_DIGEST_INPUTS at K20_DIGEST_SHIFTS in
+# the three epilogues, planes one sample past a 16-byte boundary, and the
+# frame at the spins' level-0 shifts, an odd frame and a frame with one
+# odd axis.
+K19_DIGEST_MODES = (None, "soft", "hard")
+
+
+def print_k19_digests(port, dev):
+    """SHA-256 of K19's outputs (a, h, v, d) on seeded inputs
+    (K20_DIGEST_SHIFTS on ANA2D_DIGEST_INPUTS in each epilogue, and the
+    frame-sized levels): equal lines from two trees mean bit-identical
+    kernels."""
+    ks = port.ops.shifted
+    gen = torch.Generator(device=dev).manual_seed(SEED + 64)
+    banks = [fb for fb in banks_1d(port) if fb.name != "db8"] + [
+        port.get_filter_bank("bior4.4"), port.get_filter_bank("sym8")]
+    cases = [(fb, shape, shift, mode, off) for fb in banks
+             for shape in ANA2D_DIGEST_INPUTS for shift in K20_DIGEST_SHIFTS
+             for mode in K19_DIGEST_MODES for off in (0, 1)
+             if off == 0 or (mode == "soft"
+                             and shape in ((66, 130), (2, 66, 130)))]
+    db2 = port.get_filter_bank("db2")
+    cases += [(db2, FRAME, (1, 1), "soft", 0), (db2, FRAME, (3, 3), "soft", 0),
+              (db2, ODD_FRAME, (1, 1), "soft", 0),
+              (db2, (ODD_FRAME[0], FRAME[1]), (0, 1), "hard", 0)]
+    for fb, shape, (sr, sc), mode, off in cases:
+        x = unaligned(torch.rand(shape, generator=gen, device=dev), off)
+        out = ks.dwt2d_shifted_fused(x, fb, sr, sc, mode, THRESH_BETA)
+        print(f"digest K19 {fb.name} {shape} ({sr}, {sc}) {mode} +{off}: "
+              f"{digest(torch.stack(out))}")
+    print(f"digests of K19: {len(cases)}")
 
 
 # The levels whose outputs --only K1 / K26a digest, so that two builds of
@@ -5407,7 +5445,7 @@ MXU2D_KEYS = ("K5", "K6", "K11a", "K11b")
 SHARD_KEYS = ("K26a", "K26b", "K27a", "K27b", "K28 dwt", "K28 idwt",
               "K28 swt", "K28 iswt")
 MXU1D_KEYS = ("K7a", "K7b")
-ONLY_KEYS = (("K1", "K2", "K9", "K18a", "K18b", "K20") + MXU2D_KEYS
+ONLY_KEYS = (("K1", "K2", "K9", "K18a", "K18b", "K19", "K20") + MXU2D_KEYS
              + MXU1D_KEYS + SHARD_KEYS + K29)
 
 
@@ -5482,12 +5520,16 @@ def run_only(port, dev, card, keys):
         worst.update(phase_kernels_mxu1d(port, dev, keys))
         launches.update(phase_main_paths_mxu1d(port, dev, keys))
         times.update(phase_times_mxu1d(port, dev, card, keys))
-    if "K20" in keys:
+    if wanted(keys, "K19", "K20"):
         worst.update(phase_kernels_shifted(port, dev))
         launches.update(phase_main_paths_pipeline(port, dev))
         times.update(phase_times_slice(port, dev, card))
-        print_k20_occupancy(port, dev)
+    if "K20" in keys:
+        print_shifted_occupancy(port, dev, "K20")
         print_k20_digests(port, dev)
+    if "K19" in keys:
+        print_shifted_occupancy(port, dev, "K19")
+        print_k19_digests(port, dev)
     if wanted(keys, "K18a", "K18b"):
         worst.update(phase_kernels_nonsep(port, dev, keys))
         if "K9" not in keys:  # else K9's main paths drove them
@@ -5495,8 +5537,8 @@ def run_only(port, dev, card, keys):
         times.update(phase_times_nsswt_levels(port, dev, card, keys))
         print_k18_occupancy(port, dev, keys)
         print_k18_digests(port, dev, keys)
-    if wanted(keys, "K1", "K2", "K9", "K18a", "K18b", "K20", *MXU2D_KEYS,
-              *MXU1D_KEYS):
+    if wanted(keys, "K1", "K2", "K9", "K18a", "K18b", "K19", "K20",
+              *MXU2D_KEYS, *MXU1D_KEYS):
         library.update(phase_library(port, dev, card, keys))
     if wanted(keys, "K7a", "K7b", "K29e", "K29f"):
         print_tc1d_occupancy(port, dev, keys)

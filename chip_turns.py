@@ -1,9 +1,9 @@
 """Time the tensor-core 2D DWT analysis and synthesis, the tap-loop 2D
-DWT synthesis or analysis, the tensor-core row passes of the grid layout,
-or the cycle-spin synthesis, of several source trees in turns, in one
+DWT synthesis or analysis, the row passes of the grid layout, or the
+cycle-spin synthesis or analysis, of several source trees in turns, in one
 process, on one NVIDIA GPU, or compare their kernels' machine code:
 
-    python3 chip_turns.py [--only dwt|idwt|syn2d|ana2d|rows|spin|nsswt]
+    python3 chip_turns.py [--only dwt|idwt|syn2d|ana2d|rows|spin|shift|nsswt]
         [--banks B,...] [--levels L,...] PARENT_TREE TREE [TREE ...]
     python3 chip_turns.py --sass PARENT_TREE TREE [TREE ...]
 
@@ -29,12 +29,19 @@ in the default run): K29g (``pypwt_tc_ana_rows``) at levels 0-2 of one
 outputs, inputs of 4096 x 2048, 2048 x 1024 and 1024 x 512, with their
 halo rows) and K29h (``pypwt_tc_syn_rows``) on the matching coefficients
 (2048^2, 1024^2 and 512^2 of each plane), sym8 (``--banks``: these banks
-instead), "highest" and "bf16". ``--only spin`` (not in the default run):
+instead), "highest" and "bf16", and the tap-loop K29d (``pypwt_syn_rows``)
+on K29h's inputs. ``--only spin`` (not in the default run):
 K20 (``pypwt_idwt2d_unshift``) at the levels of a 2048^2 frame that the
 cycle spins give it (SPIN_LEVELS: the random spin's level 0 at shift (1,
 1) with the accumulator and scale 0.25, its levels 1 and 2 at each pair of
 phase bits, a static spin's level 0 at (5, 3) with the accumulator), db2,
-sym8 and sym20 (``--banks``: these banks instead). ``--only nsswt``
+sym8 and sym20 (``--banks``: these banks instead). ``--only shift`` (not
+in the default run): K19 (``pypwt_dwt2d_shifted``) at the levels of a
+2048^2 frame that the cycle spins give it (SHIFT_LEVELS: the random
+spin's level 0 at shift (1, 1), soft-thresholded, its levels 1 and 2 at
+each pair of phase bits but (0, 0), which is K1's, with no epilogue, a
+static spin's level 0 at (3, 3), soft), db2, sym8 and sym20
+(``--banks``: these banks instead). ``--only nsswt``
 (not in the default run): K18a (``pypwt_ns_swt2d``,
 ``pypwt_ns_swt2d_f64``) and K18b (``pypwt_ins_swt2d``,
 ``pypwt_ins_swt2d_f64``) at levels 1-3 of a 2048^2 frame, float32 and
@@ -52,7 +59,8 @@ trees that report it print their
 instances' occupancy (``pypwt_tc_dwt2d_occupancy``,
 ``pypwt_tc_idwt2d_occupancy``, ``pypwt_idwt2d_occupancy``,
 ``pypwt_dwt2d_occupancy``, ``pypwt_tc_rows_occupancy``,
-``pypwt_idwt2d_unshift_occupancy``, ``pypwt_ns_swt2d_occupancy``,
+``pypwt_idwt2d_unshift_occupancy``, ``pypwt_dwt2d_shifted_occupancy``,
+``pypwt_ns_swt2d_occupancy``,
 ``pypwt_ins_swt2d_occupancy``: blocks per SM, dynamic shared memory and,
 for the tap loop, the row passes, K18a and K18b, the tile shape; K18a
 and K18b also whether their windows are staged).
@@ -88,6 +96,7 @@ SLEEP_CYCLES = 2_000_000
 SYN2D_BANKS = ["db2", "sym20"]  # also the tap-loop analysis's (--banks)
 ROWS_BANKS = ["sym8"]           # the row passes' (--banks)
 SPIN_BANKS = ["db2", "sym8", "sym20"]  # K20's (--banks)
+SHIFT_BANKS = ["db2", "sym8", "sym20"]  # K19's (--banks)
 # K20's timed levels: (level of the 2048^2 frame, shift, accumulator): the
 # random spin's level 0 (its phase bits (1, 1), accumulating) and levels
 # 1-2 (each pair of phase bits, no accumulator), and a static spin's level
@@ -96,6 +105,14 @@ SPIN_LEVELS = ([(0, (1, 1), True)]
                + [(lev, s, False) for lev in (1, 2)
                   for s in ((1, 0), (0, 1), (0, 0), (1, 1))]
                + [(0, (5, 3), True)])
+# K19's timed levels: (level of the 2048^2 frame, shift, threshold mode):
+# the random spin's level 0 (its phase bits (1, 1), soft) and levels 1-2
+# (each pair of phase bits but (0, 0), which runs K1; no epilogue), and a
+# static spin's level 0 (its whole shift, soft)
+SHIFT_LEVELS = ([(0, (1, 1), 1)]
+                + [(lev, s, 0) for lev in (1, 2)
+                   for s in ((1, 0), (0, 1), (1, 1))]
+                + [(0, (3, 3), 1)])
 NSSWT_BANKS = ["db3xcoif1", "dense8"]  # K18a/K18b's (--banks)
 NSSWT_LEVELS = [1, 2, 3]                # their levels (--levels)
 ROWS_BLOCK = (4096, 4096)       # one block of an 8192^2 image on a 2 x 2 grid
@@ -105,6 +122,8 @@ ENTRY_TYPES = {
     "pypwt_idwt2d_occupancy": [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4,
     "pypwt_dwt2d_occupancy": [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4,
     "pypwt_idwt2d_unshift_occupancy": [ctypes.c_int] * 6
+    + [ctypes.c_void_p] * 4,
+    "pypwt_dwt2d_shifted_occupancy": [ctypes.c_int] * 6
     + [ctypes.c_void_p] * 4,
     "pypwt_tc_rows_occupancy": [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4,
     "pypwt_ns_swt2d_occupancy": [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5,
@@ -139,7 +158,9 @@ def load(trees):
                      "pypwt_dwt2d_occupancy", "pypwt_tc_ana_rows",
                      "pypwt_tc_syn_rows", "pypwt_tc_rows_occupancy",
                      "pypwt_idwt2d_unshift",
-                     "pypwt_idwt2d_unshift_occupancy", "pypwt_ns_swt2d",
+                     "pypwt_idwt2d_unshift_occupancy", "pypwt_dwt2d_shifted",
+                     "pypwt_dwt2d_shifted_occupancy", "pypwt_syn_rows",
+                     "pypwt_ns_swt2d",
                      "pypwt_ns_swt2d_f64", "pypwt_ns_swt2d_occupancy",
                      "pypwt_ins_swt2d", "pypwt_ins_swt2d_f64",
                      "pypwt_ins_swt2d_occupancy"):
@@ -409,6 +430,48 @@ def cases(port, dev, only):
             return out
         return call
 
+    def k29d(wname, level):
+        fbw = port.get_filter_bank(wname)
+        lo2, hi2 = fd._host_taps(fbw.rec_lo), fd._host_taps(fbw.rec_hi)
+        n, nc = ROWS_BLOCK[0] >> (level + 1), ROWS_BLOCK[1] >> (level + 1)
+        top, bot = fd.one_axis_pads("syn", fbw, n)
+        sets = []
+        for _ in range(2):
+            (a, at, ab), (d, dt, db) = block_halos(
+                [rand((n, nc)) for _ in range(2)], top, bot)
+            sets.append((a, d, fd.halo_array((at, ab, dt, db)),
+                         (at, ab, dt, db)))
+        out = torch.empty((2 * n, nc), device=dev)
+
+        def call(lib, i, _):
+            a, d, ptrs, _ = sets[i % 2]
+            err = lib.pypwt_syn_rows(
+                a.data_ptr(), d.data_ptr(), ctypes.addressof(ptrs),
+                out.data_ptr(), n, nc, top, bot, lo2.ctypes.data,
+                hi2.ctypes.data, fbw.hlen, dev.index, stream)
+            if err:
+                raise RuntimeError(f"K29d level {level}: error {err}")
+            return out
+        return call
+
+    def k19(wname, level, shift, mode):
+        fbw = port.get_filter_bank(wname)
+        lo2, hi2 = fd._host_taps(fbw.dec_lo), fd._host_taps(fbw.dec_hi)
+        n = FRAME >> level
+        sets = [rand((n, n)) for _ in range(4)]
+        out = [torch.empty((n // 2, n // 2), device=dev) for _ in range(4)]
+        sr, sc = shift
+
+        def call(lib, i, _):
+            err = lib.pypwt_dwt2d_shifted(
+                sets[i % 4].data_ptr(), *(o.data_ptr() for o in out), 1, n,
+                n, sr, sc, mode, 0.3 * 255, lo2.ctypes.data,
+                hi2.ctypes.data, fbw.hlen, dev.index, stream)
+            if err:
+                raise RuntimeError(f"K19 level {level}: error {err}")
+            return out
+        return call
+
     def k20(wname, level, shift, acc):
         fbw = port.get_filter_bank(wname)
         lo2, hi2 = fd._host_taps(fbw.rec_lo), fd._host_taps(fbw.rec_hi)
@@ -535,12 +598,21 @@ def cases(port, dev, only):
                 got.update({f"{key} level {lev} {wname}":
                             (make(wname, lev), precisions)
                             for lev in (0, 1, 2)})
+            got.update({f"K29d level {lev} {wname}": (k29d(wname, lev),
+                                                      (None,))
+                        for lev in (0, 1, 2)})
     if only == "spin":
         for wname in SPIN_BANKS:
             for lev, shift, acc in SPIN_LEVELS:
                 got[f"K20 level {lev} {wname} {shift}"
                     + (" acc" if acc else "")] = (k20(wname, lev, shift, acc),
                                                   (None,))
+    if only == "shift":
+        for wname in SHIFT_BANKS:
+            for lev, shift, mode in SHIFT_LEVELS:
+                got[f"K19 level {lev} {wname} {shift}"
+                    + (" soft" if mode else "")] = (
+                        k19(wname, lev, shift, mode), (None,))
     if only == "nsswt":
         got[f"K18 L3 roundtrip {NSSWT_BANKS[0]} float32"] = (
             k18_roundtrip(NSSWT_BANKS[0]), (None,))
@@ -677,8 +749,9 @@ def main():
     if trees[:1] == ["--only"]:
         only, trees = (trees[1:2] or [""])[0], trees[2:]
     if trees[:1] == ["--banks"] and only in ("syn2d", "ana2d", "rows",
-                                             "spin", "nsswt"):
+                                             "spin", "shift", "nsswt"):
         banks = {"rows": ROWS_BANKS, "spin": SPIN_BANKS,
+                 "shift": SHIFT_BANKS,
                  "nsswt": NSSWT_BANKS}.get(only, SYN2D_BANKS)
         banks[:] = (trees[1:2] or [""])[0].split(",")
         trees = trees[2:]
@@ -686,9 +759,11 @@ def main():
         NSSWT_LEVELS[:] = [int(v) for v in (trees[1:2] or [""])[0].split(",")]
         trees = trees[2:]
     if len(trees) < 2 or only not in (None, "dwt", "idwt", "syn2d",
-                                      "ana2d", "rows", "spin", "nsswt"):
+                                      "ana2d", "rows", "spin", "shift",
+                                      "nsswt"):
         print("usage: python3 chip_turns.py [--only dwt|idwt|syn2d|ana2d|"
-              "rows|spin|nsswt] [--banks B,...] [--levels L,... (nsswt)] "
+              "rows|spin|shift|nsswt] [--banks B,...] "
+              "[--levels L,... (nsswt)] "
               "PARENT_TREE TREE [TREE ...]", file=sys.stderr)
         sys.exit(2)
     if not torch.cuda.is_available():
@@ -727,8 +802,8 @@ def main():
         print_tap2d_occupancy(trees, libs, port, dev, only)
     if only == "rows":
         print_rows_occupancy(trees, libs, port, dev)
-    if only == "spin":
-        print_spin_occupancy(trees, libs, port, dev)
+    if only in ("spin", "shift"):
+        print_spin_occupancy(trees, libs, port, dev, only)
     if only == "nsswt":
         print_nsswt_occupancy(trees, libs, port, dev)
     for name, (call, variants) in calls.items():
@@ -807,17 +882,20 @@ def print_rows_occupancy(trees, libs, port, dev):
                   f"{'coefficients' if syn else 'outputs'}")
 
 
-def print_spin_occupancy(trees, libs, port, dev):
+def print_spin_occupancy(trees, libs, port, dev, only):
     """Blocks per SM, dynamic shared memory and tile shape of each tree's
-    K20 instances at the timed levels, shifts and banks, where the tree
-    reports them."""
-    query = "pypwt_idwt2d_unshift_occupancy"
+    K20 (spin) or K19 (shift) instances at the timed levels, shifts and
+    banks, where the tree reports them."""
+    key, query, levels, banks, unit = (
+        ("K20", "pypwt_idwt2d_unshift_occupancy", SPIN_LEVELS, SPIN_BANKS,
+         "coefficients") if only == "spin" else
+        ("K19", "pypwt_dwt2d_shifted_occupancy", SHIFT_LEVELS, SHIFT_BANKS,
+         "outputs"))
     for tree, lib in zip(trees, libs):
         if not hasattr(lib, query):
-            print(f"occupancy {tree} K20: not reported by this tree")
+            print(f"occupancy {tree} {key}: not reported by this tree")
             continue
-        for (lev, (sr, sc), _), wname in itertools.product(SPIN_LEVELS,
-                                                          SPIN_BANKS):
+        for (lev, (sr, sc), _), wname in itertools.product(levels, banks):
             n = FRAME >> lev
             out = [ctypes.c_int() for _ in range(4)]
             err = getattr(lib, query)(
@@ -826,10 +904,9 @@ def print_spin_occupancy(trees, libs, port, dev):
             if err:
                 raise RuntimeError(f"occupancy query: error {err}")
             blocks, smem, tr, tc = (o.value for o in out)
-            print(f"occupancy {tree} K20 ({n}, {n}) {wname} ({sr}, {sc}): "
+            print(f"occupancy {tree} {key} ({n}, {n}) {wname} ({sr}, {sc}): "
                   f"{blocks} blocks per SM, {smem} bytes, tiles of {tr} x "
-                  f"{tc} coefficients")
-
+                  f"{tc} {unit}")
 
 
 def print_nsswt_occupancy(trees, libs, port, dev):

@@ -32,10 +32,10 @@
 // byte (67 TFLOP/s over 3.35 TB/s) for every hlen < 40, so memory-bound.
 // The shift and the threshold add no traffic.
 //
-// Design. K1 and K26a run ana_pair::tile (level2d.cuh). Each block owns a
-// tile of the four outputs, a shape picked on the host by type, hlen and
-// level size (pick_ana): up to hlen 10, 16 x 64 outputs in float32 and 16 x
-// 32 in float64; from hlen 12, 32 x 32 and 32 x 16, whose taller windows
+// Design. K1, K26a and K19 run ana_pair::tile (level2d.cuh). Each block
+// owns a tile of the four outputs, a shape picked on the host by type, hlen
+// and level size (pick_ana): up to hlen 10, 16 x 64 outputs in float32 and
+// 16 x 32 in float64; from hlen 12, 32 x 32 and 32 x 16, whose taller windows
 // hold fewer halo rows per output row; a level that would give an SM less
 // than one such block takes 8 x 64 or 16 x 32 (float64: 8 x 32). A table of
 // the window's source rows is built once per block (the plane's rows
@@ -65,14 +65,21 @@
 // device memory once per tile that meets it (the tiles' overlap, and for
 // K26a the halo rows, 2 (hlen/2 - 1) per shard).
 //
-// K19 runs ana::tile (which K24 shares): a TR x TC = 32 x 32 output tile, its
-// (2TR + hlen - 2) x (2TC + hlen - 2) window staged by a gather, one sample
-// per thread and step, with the shift and the odd extension in the gather's
-// source index, split into even and odd columns so that the decimating taps
-// read consecutive words; the taps from shared memory; one output per thread
-// and item in each pass, and the threshold before the store. dwt2d_kernel
-// keeps its type and shift parameters, though only its float32 shifted
-// instances are built, so that K19's machine code stays as it was.
+// K19 is K1's kernel with a Roll for its rows (level2d.cuh), float32 only,
+// in K1's tile shapes: the row table holds the rolled plane's rows, each
+// resolved once as the extension, then the roll (wrap_ext, then minus sr);
+// the window starts kShift = (-lpad - sc) mod 4 samples before its first
+// output's first sample in the rolled plane, which puts its first source
+// column on a 16-byte boundary where nc is a multiple of 4, so a launch's
+// blocks share that read shift and the four instances of each tile shape
+// cover every sc; rows of another length take sample copies, each column
+// rolled after the odd extension's clamp, once per copy, so an odd axis,
+// shifted or not, runs the same body. The soft or hard threshold of h, v
+// and d runs on the values of each pair store, by a runtime mode (16
+// instances, one per tile shape and read shift; a template mode would make
+// 48).
+// Each output keeps ana::tile's order of summation, so K19's outputs are
+// ana::tile's bit for bit.
 //
 // All: the batch is the grid's z axis, row tiles its y axis, in chunks
 // where a level holds more than a grid's 65535 (launch_chunks). Offsets
@@ -83,25 +90,10 @@
 namespace pypwt {
 namespace {
 
-template <class T, bool kOdd, bool kShift, int kMode>
-__global__ void __launch_bounds__(kThreads)
-dwt2d_kernel(const T* __restrict__ x, T* __restrict__ a, T* __restrict__ h,
-             T* __restrict__ v, T* __restrict__ d, int nr, int nc,
-             TapsT<T> taps, int hlen, int y0, int sr, int sc, float beta) {
-  T* smem = dynamic_smem<T>();
-  T* f_lo = ana::taps(smem, hlen);
-  load_reversed_taps(taps, hlen, f_lo, f_lo + kMaxTaps);
-  const long long pi = static_cast<long long>(blockIdx.z) * nr * nc;
-  const long long po =
-      static_cast<long long>(blockIdx.z) * ((nr + 1) >> 1) * ((nc + 1) >> 1);
-  ana::tile<T, kOdd, kShift, kMode, false>(
-      x + pi, a + po, h + po, v + po, d + po, nr, nc, hlen,
-      (y0 + blockIdx.y) * ana::TR, blockIdx.x * ana::TC, sr, sc, beta, smem);
-}
-
-// K1 and K26a: one level on the pair body (level2d.cuh) in tiles of kTR x
-// kTC outputs, kShift = ana_pair::shift_of<T>(hlen); Rows: Wrapped (K1), or
-// the Halo<T, 1> of a shard (K26a), moved to the block's plane here.
+// K1, K26a and K19: one level on the pair body (level2d.cuh) in tiles of
+// kTR x kTC outputs, kShift = ana_pair::shift_of<T>(hlen) (K19's: of hlen
+// and sc); Rows: Wrapped (K1), the Halo<T, 1> of a shard (K26a), moved to
+// the block's plane here, or a Roll (K19).
 template <class T, int kTR, int kTC, int kShift, class Rows>
 __global__ void __launch_bounds__(kThreads)
 dwt2d_pair_kernel(const T* __restrict__ x, T* __restrict__ a,
@@ -132,13 +124,14 @@ template <class T, class Rows>
 using PairInstance = TileInstance<PairKernel<T, Rows>>;
 
 template <class T, class Rows, int kTR, int kTC, int kShift = 0>
-PairInstance<T, Rows> ana_instance(int hlen) {
+PairInstance<T, Rows> ana_instance(int hlen, int shift) {
   if constexpr (kShift + 1 < 16 / static_cast<int>(sizeof(T))) {
-    if (ana_pair::shift_of<T>(hlen) != kShift)
-      return ana_instance<T, Rows, kTR, kTC, kShift + 1>(hlen);
+    if (shift != kShift)
+      return ana_instance<T, Rows, kTR, kTC, kShift + 1>(hlen, shift);
   }
   return {dwt2d_pair_kernel<T, kTR, kTC, kShift, Rows>,
-          ana_pair::Geometry<T>(kTR, kTC, hlen).smem_bytes(), kTR, kTC};
+          ana_pair::Geometry<T>(kTR, kTC, hlen, kShift).smem_bytes(), kTR,
+          kTC};
 }
 
 // The tile shape of a level of (batch, nr, nc) inputs at the padded hlen,
@@ -147,12 +140,13 @@ PairInstance<T, Rows> ana_instance(int hlen) {
 // kWideHlen taps or more take 32-row tiles, whose 2 tr + hlen - 2 window
 // rows hold fewer halo rows per output row, and fewer columns, which keep
 // two or more blocks per SM. A level that would give an SM less than one
-// such block takes the shape with half the rows (float64: 8 x 32).
+// such block takes the shape with half the rows (float64: 8 x 32). shift:
+// the window's read shift, ana_pair::shift_of<T>(hlen), or K19's.
 constexpr int kWideHlen = 12;
 
 template <class T, class Rows>
-PairInstance<T, Rows> pick_ana(int hlen, int batch, int nr, int nc,
-                               int sms) {
+PairInstance<T, Rows> pick_ana(int hlen, int shift, int batch, int nr,
+                               int nc, int sms) {
   const int lr = (nr + 1) / 2, lc = (nc + 1) / 2;
   const auto fills = [&](int tr, int tc) {
     return static_cast<long long>(batch) * ((lr + tr - 1) / tr) *
@@ -160,17 +154,26 @@ PairInstance<T, Rows> pick_ana(int hlen, int batch, int nr, int nc,
   };
   if constexpr (std::is_same_v<T, float>) {
     if (hlen >= kWideHlen)
-      return fills(32, 32) ? ana_instance<T, Rows, 32, 32>(hlen)
-                           : ana_instance<T, Rows, 16, 32>(hlen);
-    return fills(16, 64) ? ana_instance<T, Rows, 16, 64>(hlen)
-                         : ana_instance<T, Rows, 8, 64>(hlen);
+      return fills(32, 32) ? ana_instance<T, Rows, 32, 32>(hlen, shift)
+                           : ana_instance<T, Rows, 16, 32>(hlen, shift);
+    return fills(16, 64) ? ana_instance<T, Rows, 16, 64>(hlen, shift)
+                         : ana_instance<T, Rows, 8, 64>(hlen, shift);
   } else {
     if (hlen >= kWideHlen)
-      return fills(32, 16) ? ana_instance<T, Rows, 32, 16>(hlen)
-                           : ana_instance<T, Rows, 8, 32>(hlen);
-    return fills(16, 32) ? ana_instance<T, Rows, 16, 32>(hlen)
-                         : ana_instance<T, Rows, 8, 32>(hlen);
+      return fills(32, 16) ? ana_instance<T, Rows, 32, 16>(hlen, shift)
+                           : ana_instance<T, Rows, 8, 32>(hlen, shift);
+    return fills(16, 32) ? ana_instance<T, Rows, 16, 32>(hlen, shift)
+                         : ana_instance<T, Rows, 8, 32>(hlen, shift);
   }
+}
+
+// The window's read shift of a level of the padded hlen on rows `rows`.
+template <class T, class Rows>
+int read_shift(int hlen, const Rows& rows) {
+  if constexpr (std::is_same_v<Rows, Roll>)
+    return ana_pair::shift_of<T>(hlen, rows.sc);
+  else
+    return ana_pair::shift_of<T>(hlen);
 }
 
 // Launch one analysis level of (batch, nr, nc) inputs on the pair body (the
@@ -184,8 +187,8 @@ int launch_pair(const T* x, T* a, T* h, T* v, T* d, int batch, int nr,
   if (err != cudaSuccess) return static_cast<int>(err);
   TapsT<T> padded;
   hlen = make_analysis_taps(dec_lo, dec_hi, hlen, &padded);
-  const PairInstance<T, Rows> inst =
-      pick_ana<T, Rows>(hlen, batch, nr, nc, sms);
+  const PairInstance<T, Rows> inst = pick_ana<T, Rows>(
+      hlen, read_shift<T>(hlen, rows), batch, nr, nc, sms);
   err = allow_smem(inst);
   if (err != cudaSuccess) return static_cast<int>(err);
   const ana_pair::Taps<T> taps = ana_pair::make_taps(padded, hlen);
@@ -205,28 +208,19 @@ int launch_pair(const T* x, T* a, T* h, T* v, T* d, int batch, int nr,
 }
 
 // report_occupancy of the instance that a level of nr x nc inputs at hlen
-// runs (tile shape in outputs).
+// runs on rows `rows` (tile shape in outputs).
 template <class T, class Rows>
-int pair_occupancy(int nr, int nc, int hlen, int device, int* blocks,
-                   int* smem, int* tr, int* tc) {
+int pair_occupancy(int nr, int nc, int hlen, const Rows& rows, int device,
+                   int* blocks, int* smem, int* tr, int* tc) {
   if (hlen < 1 || hlen > kMaxTaps || nr < 1 || nc < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   int sms = 0;
   const cudaError_t err = device_sms(device, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return report_occupancy(pick_ana<T, Rows>(hlen + (hlen & 1), 1, nr, nc, sms),
-                          blocks, smem, tr, tc);
-}
-
-template <class T>
-using Kernel = void (*)(const T*, T*, T*, T*, T*, int, int, TapsT<T>, int,
-                        int, int, int, float);
-
-// K19's instance (float32): a shift, an epilogue, or both.
-template <int kMode>
-Kernel<float> pick(bool odd) {
-  return odd ? dwt2d_kernel<float, true, true, kMode>
-             : dwt2d_kernel<float, false, true, kMode>;
+  hlen += hlen & 1;
+  return report_occupancy(
+      pick_ana<T, Rows>(hlen, read_shift<T>(hlen, rows), 1, nr, nc, sms),
+      blocks, smem, tr, tc);
 }
 
 template <class T>
@@ -257,30 +251,8 @@ int launch(const T* x, T* a, T* h, T* v, T* d, int batch, int nr, int nc,
   if constexpr (!std::is_same_v<T, float>) {
     return static_cast<int>(cudaErrorInvalidValue);  // K19 is float32 only
   } else {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    TapsT<T> taps;
-    hlen = make_analysis_taps(dec_lo, dec_hi, hlen, &taps);
-    const bool odd = (nr | nc) & 1;
-    const Kernel<T> kernel = mode == kSoft   ? pick<kSoft>(odd)
-                             : mode == kHard ? pick<kHard>(odd)
-                                             : pick<kNone>(odd);
-    const size_t smem = ana::smem_bytes<T>(hlen);
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int lr = (nr + 1) / 2, lc = (nc + 1) / 2;
-    launch_chunks((lc + ana::TC - 1) / ana::TC, (lr + ana::TR - 1) / ana::TR,
-                  batch, [&](dim3 grid, int y0, int z0) {
-                    const long long pi = static_cast<long long>(z0) * nr * nc;
-                    const long long po = static_cast<long long>(z0) * lr * lc;
-                    kernel<<<grid, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-                        x + pi, a + po, h + po, v + po, d + po, nr, nc, taps,
-                        hlen, y0, sr, sc, beta);
-                  });
-    return static_cast<int>(cudaGetLastError());
+    return launch_pair(x, a, h, v, d, batch, nr, nc, dec_lo, dec_hi, hlen,
+                       Roll{sr, sc, mode, beta}, device, stream);
   }
 }
 
@@ -355,16 +327,28 @@ extern "C" int pypwt_dwt2d_occupancy(int nr, int nc, int hlen, int f64,
                                      int* tile_cols) {
   using namespace pypwt;
   if (f64)
-    return halo ? pair_occupancy<double, Halo<double, 1>>(
-                      nr, nc, hlen, device, blocks, smem, tile_rows,
-                      tile_cols)
-                : pair_occupancy<double, Wrapped>(nr, nc, hlen, device,
-                                                  blocks, smem, tile_rows,
-                                                  tile_cols);
-  return halo ? pair_occupancy<float, Halo<float, 1>>(
-                    nr, nc, hlen, device, blocks, smem, tile_rows, tile_cols)
-              : pair_occupancy<float, Wrapped>(nr, nc, hlen, device, blocks,
-                                               smem, tile_rows, tile_cols);
+    return halo ? pair_occupancy<double>(nr, nc, hlen, Halo<double, 1>{},
+                                         device, blocks, smem, tile_rows,
+                                         tile_cols)
+                : pair_occupancy<double>(nr, nc, hlen, Wrapped{}, device,
+                                         blocks, smem, tile_rows, tile_cols);
+  return halo ? pair_occupancy<float>(nr, nc, hlen, Halo<float, 1>{}, device,
+                                      blocks, smem, tile_rows, tile_cols)
+              : pair_occupancy<float>(nr, nc, hlen, Wrapped{}, device, blocks,
+                                      smem, tile_rows, tile_cols);
+}
+
+// K19's instance on a level of nr x nc inputs at hlen rolled by (sr, sc),
+// each in [0, n): as pypwt_dwt2d_occupancy.
+extern "C" int pypwt_dwt2d_shifted_occupancy(int nr, int nc, int hlen,
+                                             int sr, int sc, int device,
+                                             int* blocks, int* smem,
+                                             int* tile_rows, int* tile_cols) {
+  using namespace pypwt;
+  if (sr < 0 || sr >= nr || sc < 0 || sc >= nc)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return pair_occupancy<float>(nr, nc, hlen, Roll{sr, sc, kNone, 0.f}, device,
+                               blocks, smem, tile_rows, tile_cols);
 }
 
 extern "C" const char* pypwt_error_string(int err) {

@@ -1,14 +1,16 @@
 // The tile bodies of one separable 2D DWT level, analysis and synthesis,
 // and the kernels that run them:
-//   ana::tile       K19 (dwt2d.cu) and K24 (pyramid2d.cu);
-//   ana_pair::tile  K1 and K26a (dwt2d.cu);
+//   ana::tile       K24 (pyramid2d.cu) alone;
+//   ana_pair::tile  K1, K26a and K19 (dwt2d.cu; K19 with its roll and
+//                   threshold);
 //   syn::tile       K25 (pyramid2d.cu) alone;
 //   pair::tile      K2, K26b and K20 (idwt2d.cu; K20 with its unshift).
 // K24/K25 run theirs for every level of a pyramid in one launch. The row
-// source (common.cuh: Wrapped, or the Halo of a row shard) is a template
-// parameter: K26a/K26b are K1/K2's bodies with the shard's edge rows read
-// from its neighbours' exchanged rows. ana_pair:: and pair:: stage their
-// windows through stage:: (a row table, then cp.async copies).
+// source (common.cuh: Wrapped, or the Halo of a row shard; here, Roll) is a
+// template parameter: K26a/K26b are K1/K2's bodies with the shard's edge
+// rows read from its neighbours' exchanged rows, K19 is K1's with the plane
+// read rolled. ana_pair:: and pair:: stage their windows through stage:: (a
+// row table, then cp.async copies).
 //
 // A tile is one block's share of a level: it stages its input window into
 // the block's dynamic shared memory, runs both separable passes there, with
@@ -30,6 +32,16 @@
 namespace pypwt {
 
 enum Thresh { kNone = 0, kSoft = 1, kHard = 2 };
+
+// K19's row source and epilogue (a Rows of ana_pair::tile): the plane read
+// rolled by (sr, sc) in [0, nr) x [0, nc), x_s[i, j] = x[(i - sr) mod nr,
+// (j - sc) mod nc], before an odd axis's extension, and h, v and d
+// thresholded by beta at the store (mode: Thresh).
+struct Roll {
+  static constexpr bool kHalo = false;
+  int sr, sc, mode;
+  float beta;
+};
 
 // A load from device memory: plain, or (kCoherent) cached in L2 only
 // (ld.global.cg), for data that an earlier level of the same launch wrote
@@ -68,8 +80,9 @@ namespace stage {
 
 // src[p wr + r], r < wr <= kThreads: plane p's row of window row r, the
 // axis row first + r of n rows of nc samples: wrapped, or (kExt) extended
-// by its last row where n is odd (wrap_ext); Rows: Wrapped, or the Halo of
-// a shard (null past both halos). The caller synchronises.
+// by its last row where n is odd (wrap_ext); Rows: Wrapped, the Halo of a
+// shard (null past both halos), or a Roll (that row of the rolled plane,
+// the extension resolved before the roll). The caller synchronises.
 template <class T, int kPlanes, bool kExt, class Rows>
 __device__ __forceinline__ void row_table(const T* const (&planes)[kPlanes],
                                           const T** src, int first, int wr,
@@ -79,12 +92,16 @@ __device__ __forceinline__ void row_table(const T* const (&planes)[kPlanes],
     const int r = first + tid;
 #pragma unroll
     for (int p = 0; p < kPlanes; ++p) {
-      if constexpr (Rows::kHalo)
+      if constexpr (Rows::kHalo) {
         src[p * wr + tid] = rows.row(p, planes[p], r, n, nc);
-      else
-        src[p * wr + tid] =
-            planes[p] +
-            static_cast<long long>(kExt ? wrap_ext(r, n) : wrap(r, n)) * nc;
+      } else {
+        int i = kExt ? wrap_ext(r, n) : wrap(r, n);
+        if constexpr (std::is_same_v<Rows, Roll>) {
+          i -= rows.sr;
+          if (i < 0) i += n;
+        }
+        src[p * wr + tid] = planes[p] + static_cast<long long>(i) * nc;
+      }
     }
   }
 }
@@ -92,16 +109,17 @@ __device__ __forceinline__ void row_table(const T* const (&planes)[kPlanes],
 // Window row r of plane p (ldw samples apart, planes `plane` samples apart)
 // from the row src[p wr + r]: copy q of nq is the axis sample j = first +
 // step q reduced mod `period` (and, kExt, clamped to `last`, the sample
-// that extends an odd axis), resolved once per copy. quads: 16-byte copies
-// (step = 16 bytes of samples; first and period multiples of it), sample
-// copies from a row that is not 16-byte aligned; else one sample per copy
-// (step 1). Zero for a missing row. Waits for its own copies; the caller
-// synchronises.
-template <class T, int kPlanes, bool kExt>
+// that extends an odd axis; and, kRoll, then rolled by `roll` in [0, last
+// + 1)), resolved once per copy. quads: 16-byte copies (step = 16 bytes of
+// samples; first and period multiples of it, roll 0), sample copies from a
+// row that is not 16-byte aligned; else one sample per copy (step 1). Zero
+// for a missing row. Waits for its own copies; the caller synchronises.
+template <class T, int kPlanes, bool kExt, bool kRoll = false>
 __device__ __forceinline__ void copy_windows(const T* const* src, T* win,
                                              int wr, int ldw, int plane,
                                              int first, int nq, bool quads,
-                                             int period, int last) {
+                                             int period, int last,
+                                             int roll = 0) {
   constexpr int kVec = 16 / sizeof(T);
   const int tid = threadIdx.x;
   const int step = quads ? kVec : 1;
@@ -114,6 +132,10 @@ __device__ __forceinline__ void copy_windows(const T* const* src, T* win,
       int j = first + step * q;
       if (j >= period) j %= period;
       if (kExt) j = min(j, last);
+      if constexpr (kRoll) {
+        j -= roll;
+        if (j < 0) j += last + 1;
+      }
 #pragma unroll
       for (int p = 0; p < kPlanes; ++p) {
         T* t = dst + p * plane + step * q;
@@ -137,7 +159,14 @@ __device__ __forceinline__ void copy_windows(const T* const* src, T* win,
 
 }  // namespace stage
 
-// -- analysis: K19's and K24's level (map and design: dwt2d.cu) ------------
+// -- analysis: K24's level (map: dwt2d.cu) ---------------------------------
+//
+// A TR x TC = 32 x 32 output tile: its (2TR + hlen - 2) x (2TC + hlen - 2)
+// window staged by a gather, one sample per thread and step, split into
+// even and odd columns so that the decimating taps read consecutive words;
+// the taps from shared memory; one output per thread and item in each
+// pass. K24 instantiates it with kOdd and kShift false and kMode kNone: a
+// shifted, extended or thresholded level runs ana_pair::tile (K19).
 namespace ana {
 
 constexpr int TR = 32;  // output rows per tile
@@ -174,12 +203,17 @@ __device__ __forceinline__ int source(int k, int n, int s) {
   return i < 0 ? i + n : i;
 }
 
-// The epilogue of K19.
+// The epilogue of K19: soft or hard thresholding of a detail coefficient.
 template <int kMode>
 __device__ __forceinline__ float threshold(float x, float beta) {
   if (kMode == kSoft) return copysignf(fmaxf(fabsf(x) - beta, 0.f), x);
   if (kMode == kHard) return fabsf(x) > beta ? x : 0.f;
   return x;
+}
+
+// ... with the mode a runtime value, kSoft or kHard.
+__device__ __forceinline__ float threshold(float x, int mode, float beta) {
+  return mode == kSoft ? threshold<kSoft>(x, beta) : threshold<kHard>(x, beta);
 }
 
 // The TR x TC output tile at (r0, c0) of the level of plane x (nr x nc)
@@ -255,7 +289,8 @@ __device__ __forceinline__ void tile(const T* x, T* a, T* h, T* v, T* d,
 
 }  // namespace ana
 
-// -- analysis in pairs: K1's and K26a's level (map and design: dwt2d.cu) ---
+// -- analysis in pairs: K1's, K26a's and K19's level (map and design:
+// dwt2d.cu) ------------------------------------------------------------------
 //
 // The map and the order of every sum are ana::tile's; only the work is
 // grouped otherwise. A tile is kTR x kTC outputs, a shape the host picks by
@@ -275,6 +310,16 @@ __device__ __forceinline__ void tile(const T* x, T* a, T* h, T* v, T* d,
 // planes aligned. The taps are kernel parameters (Taps), so the unrolled
 // tap loops take them as operands; a loop runs over an output's own taps
 // only (j < hlen), so no zero product is summed.
+//
+// K19 (Rows: Roll) reads the plane rolled by (sr, sc). Window row r holds
+// rolled row 2 r0 - lpad + r, resolved once in the row table (extended,
+// then rolled). Window column q holds rolled column 2 c0 - lpad - kShift +
+// q, that is source column (2 c0 - lpad - kShift + q - sc) mod nc on an
+// even axis, so kShift = (-lpad - sc) mod 16 bytes of samples puts the
+// window's first source column on a 16-byte boundary where nc is a
+// multiple of 16 bytes of samples (16-byte copies); otherwise sample
+// copies roll each column after the odd extension's clamp. h, v and d are
+// thresholded at the store, by a runtime mode.
 namespace ana_pair {
 
 // f[j] = dec[hlen - 1 - j], the taps in window order (hlen even:
@@ -304,15 +349,26 @@ __host__ __device__ constexpr int shift_of(int hlen) {
          (16 / static_cast<int>(sizeof(T)));
 }
 
+// K19's, for a plane rolled by sc in [0, nc) columns: (-lpad - sc) mod 16
+// bytes of samples.
+template <class T>
+inline int shift_of(int hlen, int sc) {
+  constexpr int kVec = 16 / sizeof(T);
+  return (kVec - (analysis_lpad(hlen) + sc) % kVec) % kVec;
+}
+
 // The staged extent of a tile of tr x tc outputs: wr window rows of ldw
-// samples (the shift and 2 tc + hlen - 2 columns, rounded up to 16 bytes).
+// samples (the shift and 2 tc + hlen - 2 columns, rounded up to 16 bytes);
+// the shift shift_of<T>(hlen), or K19's.
 template <class T>
 struct Geometry {
   static constexpr int kVec = 16 / sizeof(T);
   int wr, ww, ldw, tc;
   __host__ __device__ Geometry(int tr, int tc, int hlen)
+      : Geometry(tr, tc, hlen, shift_of<T>(hlen)) {}
+  __host__ __device__ Geometry(int tr, int tc, int hlen, int shift)
       : wr(2 * tr + hlen - 2),
-        ww(shift_of<T>(hlen) + 2 * tc + hlen - 2),
+        ww(shift + 2 * tc + hlen - 2),
         ldw((ww + kVec - 1) / kVec * kVec),
         tc(tc) {}
   // Dynamic shared memory: the window [wr][ldw], the last-axis pass's lo
@@ -349,8 +405,9 @@ struct Words<double> {
 // The kTR x kTC output tile at (r0, c0) of the level of plane x (nr x nc)
 // into planes a, h, v, d (ceil(nr/2) x ceil(nc/2)), odd axes extended by
 // their last sample (wrap_ext: on an even axis, the plain wrap); kShift:
-// shift_of<T>(hlen). Rows: Wrapped, or the Halo<T, 1> of the shard x moved
-// to this plane (K26a: nr even).
+// shift_of<T>(hlen). Rows: Wrapped, the Halo<T, 1> of the shard x moved
+// to this plane (K26a: nr even), or K19's Roll (float; kShift:
+// shift_of<T>(hlen, sc)).
 template <class T, int kTR, int kTC, int kShift, class Rows>
 __device__ __forceinline__ void tile(const T* x, T* a, T* h, T* v, T* d,
                                      int nr, int nc, int hlen,
@@ -361,7 +418,9 @@ __device__ __forceinline__ void tile(const T* x, T* a, T* h, T* v, T* d,
   constexpr int kP = kVec / 2;  // last-axis outputs per thread
   constexpr int kR = kTR * kTC >= 4 * kThreads ? 2 : 1;  // axis -2 rows
   static_assert(kTC % (2 * kP) == 0 && kTR % kR == 0, "tile shape");
-  const Geometry<T> geo(kTR, kTC, hlen);
+  constexpr bool kRoll = std::is_same_v<Rows, Roll>;
+  const Geometry<T> geo =
+      kRoll ? Geometry<T>(kTR, kTC, hlen, kShift) : Geometry<T>(kTR, kTC, hlen);
   const int wr = geo.wr, ldw = geo.ldw;
   T* win = smem;                 // [wr][ldw] input window
   T* s_lo = win + wr * ldw;      // [wr][kTC] last-axis low-pass
@@ -378,12 +437,20 @@ __device__ __forceinline__ void tile(const T* x, T* a, T* h, T* v, T* d,
   __syncthreads();
   // Window column q holds axis column 2 c0 - lpad - kShift + q, a 16-byte
   // boundary where nc is a multiple of 16 bytes of samples (16-byte copies).
+  // K19: of the rolled plane; the roll moves the first column of 16-byte
+  // copies, and sample copies roll each column after the extension.
   const int period = nc + (nc & 1);
   const bool quads = nc % kVec == 0;
-  const int first = wrap(2 * c0 - lpad - kShift, period);
-  stage::copy_windows<T, 1, true>(src, win, wr, ldw, 0, first,
-                                  quads ? ldw / kVec : geo.ww, quads, period,
-                                  nc - 1);
+  int first = wrap(2 * c0 - lpad - kShift, period), roll = 0;
+  if constexpr (kRoll) {
+    if (quads)
+      first = wrap(first - rows.sc, period);
+    else
+      roll = rows.sc;
+  }
+  stage::copy_windows<T, 1, true, kRoll>(src, win, wr, ldw, 0, first,
+                                         quads ? ldw / kVec : geo.ww, quads,
+                                         period, nc - 1, roll);
   __syncthreads();
 
   // Last axis: output column kP u + p of window row r meets window columns
@@ -474,6 +541,18 @@ __device__ __forceinline__ void tile(const T* x, T* a, T* h, T* v, T* d,
     }
     const int ocol = c0 + 2 * u;
     if (ocol >= lc) continue;
+    if constexpr (kRoll) {  // K19's epilogue
+      if (rows.mode != kNone) {
+#pragma unroll
+        for (int s = 0; s < kR; ++s)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            sh[s][c] = ana::threshold(sh[s][c], rows.mode, rows.beta);
+            sv[s][c] = ana::threshold(sv[s][c], rows.mode, rows.beta);
+            sd[s][c] = ana::threshold(sd[s][c], rows.mode, rows.beta);
+          }
+      }
+    }
 #pragma unroll
     for (int s = 0; s < kR; ++s) {
       const int orow = r0 + kR * g + s;

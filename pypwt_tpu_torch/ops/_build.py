@@ -144,6 +144,9 @@ _SIGNATURES = {
     # nr, nc, hlen, sr, sc, device, blocks (int*), smem (int*), tile rows
     # (int*), tile columns (int*) (K20)
     "pypwt_idwt2d_unshift_occupancy": [_I] * 6 + [_P] * 4,
+    # the same for K19: nr, nc, hlen, sr, sc, device, then the four int
+    # pointers
+    "pypwt_dwt2d_shifted_occupancy": [_I] * 6 + [_P] * 4,
     # synthesis, rows, n, hlen, bf16, halo, device, blocks (int*),
     # smem (int*), grid (int*)
     "pypwt_tc_dwt1d_occupancy": [_I] * 7 + [_P] * 3,

@@ -1,11 +1,11 @@
 """The shift-aware 2D DWT level kernels of cycle spinning: wrappers, plain
 versions, counts.
 
-* K19 ``dwt2d_shifted_fused`` (``csrc/dwt2d.cu``, K1's kernel with a
-  shifted source index): one separable analysis level of
-  ``roll(x, (sr, sc), (-2, -1))`` without materialising the roll, with an
-  optional soft or hard threshold of h, v and d by ``beta`` before the
-  store.  It replaces ``pypwt_tpu/ops/pallas_dwt.py::dwt2d_fused_shifted``
+* K19 ``dwt2d_shifted_fused`` (``csrc/dwt2d.cu``, K1's pair body with
+  the roll in its row table and its window's read shift): one separable
+  analysis level of ``roll(x, (sr, sc), (-2, -1))`` without materialising
+  the roll, with an optional soft or hard threshold of h, v and d by
+  ``beta`` at the store.  It replaces ``pypwt_tpu/ops/pallas_dwt.py::dwt2d_fused_shifted``
   (``_build_dwt2d_shifted``), and, the shift being a runtime integer, the
   analysis halves of the phase-select (``_build_dwt2d_phasesel``: shift =
   the phase bits), dynamic-shift (``_build_dwt2d_dynshift``) and

@@ -3185,6 +3185,282 @@ K20_DIGESTS = {
         'a0b4afeaaf24309d56e22c5f18a47406f9e6aecfcc3b7ff583d3ab1e436b5f10',
 }
 
+
+# K19 on dwt2d.cu's pair analysis body with its roll and threshold: each
+# output against its plain version and against the SHA-256 of the outputs
+# (a, h, v, d in that order) that K19's body before it (level2d.cuh's
+# ana::tile, now K24's alone) gave on the card for the same seeded inputs;
+# `python tests/test_torch_kernels_cuda.py digests K19` prints a tree's
+# digests in K19_DIGESTS's form. Banks: db2, sym8, sym20. Cases: (input
+# shape, shift, threshold mode, offset): chip_smoke.py's K20 digest shifts
+# (each parity, (5, 3), wider than a tile, a row shift past the TPU
+# kernel's halo, wider than the plane; reduced mod the plane) in the three
+# epilogues on (64, 128); rows of 130 samples (sample copies); the 2048^2
+# frame at the random spin's level-0 shift, a static spin's (3, 3) and a
+# phase-bit one; 2047^2 and 2046 x 2047 (odd axes, shifted and not); a
+# batch of 3; planes one sample past a 16-byte boundary
+K19_BANKS = ["db2", "sym8", "sym20"]
+K19_SHIFTS = [(0, 0), (1, 0), (0, 1), (1, 1), (5, 3), (70, 131), (127, 1),
+              (4101, 4099)]
+K19_CASES = ([((64, 128), s, mode, 0) for s in K19_SHIFTS
+              for mode in (None, "soft", "hard")]
+             + [((66, 130), (1, 1), "soft", 0),
+                ((66, 130), (5, 3), "hard", 0),
+                ((2048, 2048), (1, 1), "soft", 0),
+                ((2048, 2048), (3, 3), "soft", 0),
+                ((2048, 2048), (1, 0), None, 0),
+                ((2047, 2047), (1, 1), "soft", 0),
+                ((2046, 2047), (0, 1), "hard", 0),
+                ((2046, 2047), (5, 3), None, 0),
+                ((3, 40, 72), (5, 3), "soft", 0),
+                ((64, 128), (1, 1), "soft", 1),
+                ((66, 132), (5, 3), "hard", 1)])
+K19_BETA = 0.3
+HARD_MARGIN = 1e-5  # a hard threshold may fall on either side this near
+
+
+def _k19_id(case, wname):
+    return "-".join(["K19", wname, *(str(v) for v in case)])
+
+
+def _k19_output(case, wname, dev):
+    """(kernel outputs, plain outputs, plain outputs before the threshold)
+    of one case, the kernel launched once."""
+    shape, (sr, sc), mode, off = case
+    fb = _bank(wname)
+    x = _offset(_rand(shape, dev, 5), off)
+    n = ks.dwt2d_shifted_fused.launches
+    got = ks.dwt2d_shifted_fused(x, fb, sr, sc, mode, K19_BETA)
+    assert ks.dwt2d_shifted_fused.launches == n + 1
+    sr, sc = sr % shape[-2], sc % shape[-1]
+    return (got, ks.dwt2d_shifted_plain(x, fb, sr, sc, mode, K19_BETA),
+            ks.dwt2d_shifted_plain(x, fb, sr, sc))
+
+
+@pytest.mark.parametrize("wname", K19_BANKS)
+@pytest.mark.parametrize("case", K19_CASES, ids=str)
+def test_k19_ana_body_matches_plain_and_parent(dev, case, wname):
+    got, ref, bare = _k19_output(case, wname, dev)
+    for g, r, b in zip(got, ref, bare):
+        keep = (b.abs() - K19_BETA).abs() > HARD_MARGIN
+        assert g.shape == r.shape
+        assert float(((g - r).abs() * keep).max()) <= TOL
+    assert _sha256(torch.stack(got)) == K19_DIGESTS[_k19_id(case, wname)]
+
+
+K19_DIGESTS = {
+    'K19-db2-(64, 128)-(0, 0)-None-0':
+        '197d5789dda03c35531d2f3cc397f1d09fabc099a1685f25c37bb19f462382b0',
+    'K19-sym8-(64, 128)-(0, 0)-None-0':
+        'b1c2dc7a95d9058ddeac4a6c1bb6520e80bd70738f65d7772c218ef95123802a',
+    'K19-sym20-(64, 128)-(0, 0)-None-0':
+        '6fdf9c879f88d8c075a6eb1f300c87de8d45c011bbecc42020df4135055c9502',
+    'K19-db2-(64, 128)-(0, 0)-soft-0':
+        '98351165885ab59cf12cded0a5205789e21957c716755381460274f1158567c3',
+    'K19-sym8-(64, 128)-(0, 0)-soft-0':
+        'ba9a88e72090f4269e7313d402aa59f34b35d647c96f62fd3361db730984cc18',
+    'K19-sym20-(64, 128)-(0, 0)-soft-0':
+        '27bcdfee2253d0f849f24e6f5d3bb151f93c060a8b2408e26d046d215688f5b9',
+    'K19-db2-(64, 128)-(0, 0)-hard-0':
+        '32fd185b7c9c58d8bf5a2f66c5a24f0e0502208788b3123ae889ee533035444b',
+    'K19-sym8-(64, 128)-(0, 0)-hard-0':
+        'f013099eb06d50780f25c58c15c1b20157cb4922e02634847d5a64039dda8366',
+    'K19-sym20-(64, 128)-(0, 0)-hard-0':
+        '1dfba2bd4928b15bca62e8626eccabb919139f98e71107af534980ff5c324c18',
+    'K19-db2-(64, 128)-(1, 0)-None-0':
+        '0f157fa29ef30dec64a5ad99c00a40d4a005f0aadb9d212ef98a8e814ef8969b',
+    'K19-sym8-(64, 128)-(1, 0)-None-0':
+        '65c9bc5c12ee8b1e47ba58acdbbeb25b4f0091fb550346a636588f2fcf253237',
+    'K19-sym20-(64, 128)-(1, 0)-None-0':
+        'b69ee3522fd807845895a3e9f919fc2c9fdebfb5b9317b34f9bc24c82e143d14',
+    'K19-db2-(64, 128)-(1, 0)-soft-0':
+        '1adf15adc937e1816ea6e6f50c4d6db6ff28991f0aff9aa49de9300794c83c7c',
+    'K19-sym8-(64, 128)-(1, 0)-soft-0':
+        'fc97658cca9ac855056e93c6be2824405930a67dd03115ccc5d6ddbd5c340e2d',
+    'K19-sym20-(64, 128)-(1, 0)-soft-0':
+        'b90b24d398fe97edf26ac05831c29cc229de034d488047c8a1a4cd44820a5af3',
+    'K19-db2-(64, 128)-(1, 0)-hard-0':
+        '1363fff3f2d47c0e3e1e59f790084eb96c67031a4cfdace9ff35ac9a495ce327',
+    'K19-sym8-(64, 128)-(1, 0)-hard-0':
+        'e8130129fdad1b0d8766473a1c5f8120305005537503729777534d001b19f4bb',
+    'K19-sym20-(64, 128)-(1, 0)-hard-0':
+        'a60f6dd58bdc326b0e4dfbc5ce7788aa6ee431ede0ebd8b5727ce412194ca0d7',
+    'K19-db2-(64, 128)-(0, 1)-None-0':
+        'e042bcb2b84ba63533dfd389e3f81317f53566b0605244e250826b5f26128bf7',
+    'K19-sym8-(64, 128)-(0, 1)-None-0':
+        '7da7f68c769ebfa7b92cb129970466ee5711861c5ccd577ca1e6f8ce4eef2505',
+    'K19-sym20-(64, 128)-(0, 1)-None-0':
+        '4423dfc230d44d80b2bb6808357463db69225d2f24f66ed530c0a7bfa2feeb57',
+    'K19-db2-(64, 128)-(0, 1)-soft-0':
+        'cd62b1c3501a0b77a931d7db24c29e5382e8b964ae374479a93fd427163cb647',
+    'K19-sym8-(64, 128)-(0, 1)-soft-0':
+        'c3871eef40ff5b41866a01ecc5f9a14e24555c315aa82f66aab65f400e0db089',
+    'K19-sym20-(64, 128)-(0, 1)-soft-0':
+        '7a9b642bdebaf4c3d986ad391429395a78ea7922a43edbaaa27489d14fc82c12',
+    'K19-db2-(64, 128)-(0, 1)-hard-0':
+        '32c77cadad4826205896fb9b455b14a33c848798bca679108a955d9e4a3425d3',
+    'K19-sym8-(64, 128)-(0, 1)-hard-0':
+        '3d2a582105aa5ffc1a8dce023cc08cfb522d7373e017bd0b64d0b36ad24b4a6e',
+    'K19-sym20-(64, 128)-(0, 1)-hard-0':
+        '95ff3fc3baa19cd786fc1b7ebb92c8c7fcf4fcd17cab64df4e1d1d3e64fbaf29',
+    'K19-db2-(64, 128)-(1, 1)-None-0':
+        'a783d36984bacb56ea04b7e63a59cfd4437254966519fd8c2942da456997443a',
+    'K19-sym8-(64, 128)-(1, 1)-None-0':
+        '6fe29858520eb53dd244db0afe8d69e7dd6d921b337f1046dc11840434a6eff0',
+    'K19-sym20-(64, 128)-(1, 1)-None-0':
+        '116ab5da303c7a090b400faea4ef1e0ae12a6dc718b923639e9aafac8b56367c',
+    'K19-db2-(64, 128)-(1, 1)-soft-0':
+        '17c7dd0fd02b2f95dc770e2d4473aec580437774b1f737add863abd19758230f',
+    'K19-sym8-(64, 128)-(1, 1)-soft-0':
+        '05ee16df2fc12f67118d92a3405c28fe0c441e164268a338b05c3e38bbc7cfd6',
+    'K19-sym20-(64, 128)-(1, 1)-soft-0':
+        '02b9144c2100b1730751cb3c1b19e2391ad865b13e7f0d5b5e3e672a475b5a3c',
+    'K19-db2-(64, 128)-(1, 1)-hard-0':
+        'd03255d1ed79a7e707b94326d85485fa0e6e4f4c4d8eeff3307416cda21dca1e',
+    'K19-sym8-(64, 128)-(1, 1)-hard-0':
+        'defaf9726738ac30535224ec2d215ad518889d6a1ff0839ff499aab8a3bdadf3',
+    'K19-sym20-(64, 128)-(1, 1)-hard-0':
+        '9255d21d00e440ffa0dd619ce54bc6cb6f90d39c37436d66d52cc3d1eac3e4e1',
+    'K19-db2-(64, 128)-(5, 3)-None-0':
+        'ef0cd7d34508ef1343a1aea9f0b7e9d4c8495745df444f5ff95446ac8a1f2485',
+    'K19-sym8-(64, 128)-(5, 3)-None-0':
+        '2f466283bf7214b0e67ac80b3109bccab15faf32b34a14625b9398595281ea0a',
+    'K19-sym20-(64, 128)-(5, 3)-None-0':
+        '08f22f3231e0c0e89eedf43f9374c6928d83a382fffe30e90a6e2cac5bd4d226',
+    'K19-db2-(64, 128)-(5, 3)-soft-0':
+        '710b87595f66ad7f4157efcf8f5e8df237669059efe4365dafa35287cd6c3f96',
+    'K19-sym8-(64, 128)-(5, 3)-soft-0':
+        '3e471a9adedb063d106c2278862bcafa67c8f25f43b51e2c571d9454273790b9',
+    'K19-sym20-(64, 128)-(5, 3)-soft-0':
+        '63f65d8619e6274e748b19834cf8bdeba24aa5afcfdd0b4be8be7e9a52325d3b',
+    'K19-db2-(64, 128)-(5, 3)-hard-0':
+        '8351dff3c9e70ca973915742cc80f7514ff5aa0c690155896621055bcd110f56',
+    'K19-sym8-(64, 128)-(5, 3)-hard-0':
+        '32127c41c98e7f8feafb2027e2176ccbc52885f6b0527144ff40e430ce6e6bf6',
+    'K19-sym20-(64, 128)-(5, 3)-hard-0':
+        '6a5b151937fe8ae19bf22bb4d38c8eba6085f80e7d45e2aeed0f51defd2342e0',
+    'K19-db2-(64, 128)-(70, 131)-None-0':
+        '2624fd5f258c857d46c2181bb7d25cd90f104a1c1ac0fcb30d9690ec6aeb31b2',
+    'K19-sym8-(64, 128)-(70, 131)-None-0':
+        '3a14ee741059ea6f66b9daaec15b12716aafe9a9ce860d5c0f4a376df74fb8c4',
+    'K19-sym20-(64, 128)-(70, 131)-None-0':
+        'c2c692bdfeae69a91ed80189b0db656617f89f41a1fe9ae15a87573957b1182a',
+    'K19-db2-(64, 128)-(70, 131)-soft-0':
+        '53d594594556726dffdbb4541841a90b6d2f2a190bd5c7ca166278cb6e629a45',
+    'K19-sym8-(64, 128)-(70, 131)-soft-0':
+        '21f8a735c393af46f761ad7259048f6fcf7a77b71f6a6336c788137428a1ff34',
+    'K19-sym20-(64, 128)-(70, 131)-soft-0':
+        '22fc72ab3f4452ec0ddc9ba4ea9522289527c660c8f73d62df291c75bcec532e',
+    'K19-db2-(64, 128)-(70, 131)-hard-0':
+        'c029fded2b58ef220f8b60d8a8a529641d40b42f5ecd6a8c44baaf01d666f2b3',
+    'K19-sym8-(64, 128)-(70, 131)-hard-0':
+        'ef3ef8facce543567caea270ef981ddf2a102faa6a2acebcc673156125d988ce',
+    'K19-sym20-(64, 128)-(70, 131)-hard-0':
+        'bbcd5c8fb2c1b0f95f11a799b4a01713935e8896d9c0332f2bb0288590cdef31',
+    'K19-db2-(64, 128)-(127, 1)-None-0':
+        'e1996d30aabc1d181e2ea7f215d3ffa8f226fc56149cd2c69fcf3457c0c81dc6',
+    'K19-sym8-(64, 128)-(127, 1)-None-0':
+        '624f888c6f2e73bb491574d1917def05424ba6af4dfd89e7938f5e7ad325082a',
+    'K19-sym20-(64, 128)-(127, 1)-None-0':
+        '425d9ea29462a294b00d7dd61afe4ca38567c0bea049a24754b2c8bcc0839d9c',
+    'K19-db2-(64, 128)-(127, 1)-soft-0':
+        'b6be03d26301a83d580e70565da29b4c43b79223eea62def3816cfc8eb9b9275',
+    'K19-sym8-(64, 128)-(127, 1)-soft-0':
+        'b7605bdab51bf504f74700f4c1eed8e6a5b68657ebe138976b4bace8db03301a',
+    'K19-sym20-(64, 128)-(127, 1)-soft-0':
+        '3bc8aede8f4b9b10aa53063d24b158787c78c3ba5d7b3464a3101e041edf01a7',
+    'K19-db2-(64, 128)-(127, 1)-hard-0':
+        'c5fe0117dabd3105ae649a8227a5b93366723e7de0139d467b15feda37c9c849',
+    'K19-sym8-(64, 128)-(127, 1)-hard-0':
+        '5b375df0c7bd7dda62c4c177993f924ff8c7d33550845d49e3326e426967e5ce',
+    'K19-sym20-(64, 128)-(127, 1)-hard-0':
+        'ec64e25d64e83a00de481726873758166f6db3d1b06b10131d2095e35d56a589',
+    'K19-db2-(64, 128)-(4101, 4099)-None-0':
+        'ef0cd7d34508ef1343a1aea9f0b7e9d4c8495745df444f5ff95446ac8a1f2485',
+    'K19-sym8-(64, 128)-(4101, 4099)-None-0':
+        '2f466283bf7214b0e67ac80b3109bccab15faf32b34a14625b9398595281ea0a',
+    'K19-sym20-(64, 128)-(4101, 4099)-None-0':
+        '08f22f3231e0c0e89eedf43f9374c6928d83a382fffe30e90a6e2cac5bd4d226',
+    'K19-db2-(64, 128)-(4101, 4099)-soft-0':
+        '710b87595f66ad7f4157efcf8f5e8df237669059efe4365dafa35287cd6c3f96',
+    'K19-sym8-(64, 128)-(4101, 4099)-soft-0':
+        '3e471a9adedb063d106c2278862bcafa67c8f25f43b51e2c571d9454273790b9',
+    'K19-sym20-(64, 128)-(4101, 4099)-soft-0':
+        '63f65d8619e6274e748b19834cf8bdeba24aa5afcfdd0b4be8be7e9a52325d3b',
+    'K19-db2-(64, 128)-(4101, 4099)-hard-0':
+        '8351dff3c9e70ca973915742cc80f7514ff5aa0c690155896621055bcd110f56',
+    'K19-sym8-(64, 128)-(4101, 4099)-hard-0':
+        '32127c41c98e7f8feafb2027e2176ccbc52885f6b0527144ff40e430ce6e6bf6',
+    'K19-sym20-(64, 128)-(4101, 4099)-hard-0':
+        '6a5b151937fe8ae19bf22bb4d38c8eba6085f80e7d45e2aeed0f51defd2342e0',
+    'K19-db2-(66, 130)-(1, 1)-soft-0':
+        '97b28903a5a5d1ab8c34fa460d0494dbe1d93dba13ad6374f7c6e1105b7e538d',
+    'K19-sym8-(66, 130)-(1, 1)-soft-0':
+        'fc13b534d314e3e66c811cf57b0410719b957cd3f2cdbfd8c6385b792b8b4488',
+    'K19-sym20-(66, 130)-(1, 1)-soft-0':
+        '66fe6b3584b316a012bc2b7e6290c4ca4a00556cb344ce6dc1e00679f295333a',
+    'K19-db2-(66, 130)-(5, 3)-hard-0':
+        '01173728e7f66a71068574b0a3f2e573f1db25f3d580eb2acc7f2b4db76702cf',
+    'K19-sym8-(66, 130)-(5, 3)-hard-0':
+        'a55b868b8c662b23137b38097a1a59aa93ab1eeb130c44a403d1dab8b480207d',
+    'K19-sym20-(66, 130)-(5, 3)-hard-0':
+        '9b09d2605bbea234f05f45ce91b350a9868847649d68937436b1a7723414430e',
+    'K19-db2-(2048, 2048)-(1, 1)-soft-0':
+        '1d482143a711d63f8e82e6a528eacbfde88daf1f2c139f9e1933c42d269fb861',
+    'K19-sym8-(2048, 2048)-(1, 1)-soft-0':
+        '60f23121343a23e9b5923ae80210cd390e1da658ef9de9191b44ea21bff6eabe',
+    'K19-sym20-(2048, 2048)-(1, 1)-soft-0':
+        'afee914f50acbf68d39d5797975a7d773b9f9d4ed564f7ac4cd8bb0118ccb6a7',
+    'K19-db2-(2048, 2048)-(3, 3)-soft-0':
+        'e7d849be1d47245855b8d341aebe67b579a17f0c22c22aef4d9a70d6a1dd527f',
+    'K19-sym8-(2048, 2048)-(3, 3)-soft-0':
+        '06318df7dbbff16177207cec971a16a47d95447ec4b853a99a380d86f4532482',
+    'K19-sym20-(2048, 2048)-(3, 3)-soft-0':
+        'abdbea5df69207c175fc5853a1d94b749f5210a3a1a815cb6f0f994e94e00aad',
+    'K19-db2-(2048, 2048)-(1, 0)-None-0':
+        'fdc6ab0e255f13a7d6e2794bed02a9e7628eb3af45a8d886c736c7e0a77877d1',
+    'K19-sym8-(2048, 2048)-(1, 0)-None-0':
+        'f495fbffc28e664ad99938dff677a8eb64c5b9325de9c4174b9fb791fdc57b1c',
+    'K19-sym20-(2048, 2048)-(1, 0)-None-0':
+        '87e89cf123013283d7d8854fe3234d00cc3be56f716cd9078546dc24ad24e29e',
+    'K19-db2-(2047, 2047)-(1, 1)-soft-0':
+        '6cd1a21e9ca6cee610c6dc360be49b38820bacab1a4fe7d32c57c74c0ea74a17',
+    'K19-sym8-(2047, 2047)-(1, 1)-soft-0':
+        'ef2a854a2c0c13bfde210b7a9c40f068d9342c6aae2d4bad3055cc62431a25fb',
+    'K19-sym20-(2047, 2047)-(1, 1)-soft-0':
+        'f8b94834e62db52cfc8452672031900ecabeb7fa8f443122ddc71c5b75cb2f53',
+    'K19-db2-(2046, 2047)-(0, 1)-hard-0':
+        'f5fe68b08ac118e5b37b28936cfab686b0d39d3171a75ed706b613c85e6650e9',
+    'K19-sym8-(2046, 2047)-(0, 1)-hard-0':
+        '5ce20691ef4b6803f36fd0e81d8b6bb180929524d8965c197b448bfd71434b07',
+    'K19-sym20-(2046, 2047)-(0, 1)-hard-0':
+        'c53143e7c200fd2fd8dc11646a735aac0c8e31a0311f3d614e46d15d81abe523',
+    'K19-db2-(2046, 2047)-(5, 3)-None-0':
+        'd9afc0dba3dd415e58caa2abb5e0f02056e615b57e2742dfa114a753bec4fadd',
+    'K19-sym8-(2046, 2047)-(5, 3)-None-0':
+        '5d6cc102e373a4953f038a44c7dd16e6516a4aa3d4ec92ba81eeff8e7519960e',
+    'K19-sym20-(2046, 2047)-(5, 3)-None-0':
+        '376afaa06e03ff443f0d7dc5d64417257492e05595800e22b87eee601d9b7892',
+    'K19-db2-(3, 40, 72)-(5, 3)-soft-0':
+        '86ccddd8e03ac1904dd5169478739d0864355791b12c923b1934c2cc7b20cabc',
+    'K19-sym8-(3, 40, 72)-(5, 3)-soft-0':
+        '557ae6d65b471c26d2fda80d50478c5a7ace8e0f869256854c65a82873d2f71a',
+    'K19-sym20-(3, 40, 72)-(5, 3)-soft-0':
+        '7cb2c32b1afb77493867a09122a96b001fc4c5f6ffb012c5bdeaf660d35204f4',
+    'K19-db2-(64, 128)-(1, 1)-soft-1':
+        '17c7dd0fd02b2f95dc770e2d4473aec580437774b1f737add863abd19758230f',
+    'K19-sym8-(64, 128)-(1, 1)-soft-1':
+        '05ee16df2fc12f67118d92a3405c28fe0c441e164268a338b05c3e38bbc7cfd6',
+    'K19-sym20-(64, 128)-(1, 1)-soft-1':
+        '02b9144c2100b1730751cb3c1b19e2391ad865b13e7f0d5b5e3e672a475b5a3c',
+    'K19-db2-(66, 132)-(5, 3)-hard-1':
+        '0a1f26456c36ace09cbda8f796a2d903c03cc671867b06b4fcbeaa0c54ec9331',
+    'K19-sym8-(66, 132)-(5, 3)-hard-1':
+        'a20c72d4984650c5c10175ecf420b08225e545342f151b7d4ceb8d2ea0d5082d',
+    'K19-sym20-(66, 132)-(5, 3)-hard-1':
+        '931512d43d9bfb6735c3d0460eb51c5fa2bd4262c4928d161f40364d79e53f56',
+}
+
 # K18b on nonsep_swt2d.cu's stencil body: each output against its plain
 # version and against the SHA-256 of the output that K18b's body before it
 # (one thread per pixel, every tap through L1) gave on the card for the
@@ -3679,6 +3955,12 @@ if __name__ == "__main__":
                 out, _ = _k20_output(case, wname, dev)
                 yield _k20_id(case, wname), out
 
+    def _k19_lines(dev):
+        for case in K19_CASES:
+            for wname in K19_BANKS:
+                out, _, _ = _k19_output(case, wname, dev)
+                yield _k19_id(case, wname), torch.stack(out)
+
     def _k18b_lines(dev):
         for case in K18B_CASES:
             for name in K18B_BANKS:
@@ -3692,7 +3974,8 @@ if __name__ == "__main__":
                 yield _k18a_id(case, name), torch.stack(out)
 
     tables = {"PAIR": _pair_lines, "ANA": _ana_lines, "ROWS": _rows_lines,
-              "K20": _k20_lines, "K18B": _k18b_lines, "K18A": _k18a_lines}
+              "K20": _k20_lines, "K19": _k19_lines, "K18B": _k18b_lines,
+              "K18A": _k18a_lines}
     want = sys.argv[2:] or list(tables)
     if (sys.argv[1:2] != ["digests"] or not set(want) <= set(tables)
             or not torch.cuda.is_available()):

@@ -216,6 +216,20 @@ def test_unshift_occupancy_entry_is_declared_as_chip_turns_calls_it():
     assert _build._SIGNATURES[name] == turns.ENTRY_TYPES[name] == want
 
 
+def test_shifted_occupancy_entry_is_declared_as_chip_turns_calls_it():
+    """K19's occupancy query has the ctypes signature in _build that
+    chip_turns.py gives it where a parent tree's _build lacks it, K20's:
+    nr, nc, hlen, sr, sc and device, then four int pointers (blocks per
+    SM, shared memory, tile rows, tile columns)."""
+    from pypwt_tpu_torch.ops import _build
+    spec = importlib.util.spec_from_file_location("chip_turns",
+                                                  ROOT / "chip_turns.py")
+    turns = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(turns)
+    name = "pypwt_dwt2d_shifted_occupancy"
+    want = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4
+    assert _build._SIGNATURES[name] == turns.ENTRY_TYPES[name] == want
+
 
 def test_stencil_occupancy_entry_is_declared_as_chip_turns_calls_it():
     """K18b's occupancy query has the ctypes signature in _build that

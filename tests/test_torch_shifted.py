@@ -3,9 +3,11 @@ shifted Pallas kernels (interpret mode on the CPU) and against roll +
 ``pypwt_tpu.core.dwt``: the statically shifted analysis with and without
 its threshold epilogue, the unshifting synthesis with and without the
 accumulator and scale, the phase-bit (phase-select) levels, shifts wider
-than the plane and an odd plane.  Tolerance 3e-5 on standard-normal
-float32 data, the JAX package's own (tests/test_shifted_kernels.py); the
-routing of the shifted levels on CPU tensors."""
+than the plane or than a tile of the pair bodies, every column shift mod
+4, odd axes beside even ones, rows of 130 samples and an odd plane.
+Tolerance 3e-5 on standard-normal float32 data, the JAX package's own
+(tests/test_shifted_kernels.py); the routing of the shifted levels on CPU
+tensors."""
 
 import numpy as np
 import pytest
@@ -144,6 +146,65 @@ def test_k20_plain_matches_jax_on_an_odd_unshifted_axis(shape, shift,
     """An axis of odd length that is not shifted, beside a shifted even
     one: the pair body's crop on the card."""
     _k20_against_jax(shape, *shift, True, wname)
+
+
+def _k19_against_jax(shape, sr, sc, mode, wname):
+    """K19's plain version on a plane of ``shape`` against roll + JAX's jnp
+    level and threshold, and against JAX's Pallas kernel (interpret mode)
+    where it covers the shift and the plane."""
+    x = _f32(shape, 50)
+    fb, jfb = get_filter_bank(wname), jbank(wname)
+    beta = 0.7
+    got = ks.dwt2d_shifted_plain(torch.from_numpy(x), fb, sr, sc, mode, beta)
+    a, h, v, d = _jnp(jdwt.dwt2d, jnp.roll(jnp.asarray(x), (sr, sc),
+                                           (-2, -1)), jfb)
+    th = {None: lambda t, b: t, "soft": _soft, "hard": _hard}[mode]
+    half = ((shape[0] + 1) // 2, (shape[1] + 1) // 2)
+    for g, r in zip(got, (a, th(h, beta), th(v, beta), th(d, beta))):
+        assert g.shape == half and _err(g, r) <= TOL
+    ref = pk.dwt2d_fused_shifted(jnp.asarray(x), jfb, sr, sc,
+                                 thresh_mode=mode, beta=beta)
+    if ref is not None:
+        for g, r in zip(got, ref):
+            assert _err(g, r) <= TOL
+
+
+@pytest.mark.parametrize("shift", WIDE_SHIFTS, ids=str)
+@pytest.mark.parametrize("mode", [None, "soft", "hard"])
+def test_k19_plain_matches_jax_at_shifts_wider_than_a_tile(shift, mode):
+    """Shifts wider than one 16 x 64-output tile of K19's pair body (32 x
+    128 input samples), on a plane of 3 x 3 such tiles."""
+    _k19_against_jax((96, 384), *shift, mode, "db4")
+
+
+# every column shift mod 4 (the pair body's four read shifts on rows of a
+# multiple of 4 samples) beside both parities of the row shift
+PHASE_SHIFTS = [(sr, sc) for sr in (2, 5) for sc in (4, 5, 6, 7)]
+
+
+@pytest.mark.parametrize("shift", PHASE_SHIFTS, ids=str)
+@pytest.mark.parametrize("wname", ["db2", "sym4"])
+def test_k19_plain_matches_jax_at_every_column_phase(shift, wname):
+    _k19_against_jax((64, 128), *shift, "soft", wname)
+
+
+@pytest.mark.parametrize("shape, shift", [((65, 128), (3, 0)),
+                                          ((65, 128), (0, 6)),
+                                          ((64, 129), (0, 5)),
+                                          ((64, 129), (70, 0))], ids=str)
+@pytest.mark.parametrize("wname", ["db2", "sym4"])
+def test_k19_plain_matches_jax_beside_an_odd_axis(shape, shift, wname):
+    """A shifted odd axis beside an unshifted even one, and an unshifted
+    odd axis beside a shifted even one: the odd extension after the roll."""
+    _k19_against_jax(shape, *shift, "hard", wname)
+
+
+@pytest.mark.parametrize("shift", [(1, 1), (0, 3), (5, 129)], ids=str)
+@pytest.mark.parametrize("mode", [None, "soft", "hard"])
+def test_k19_plain_matches_jax_on_rows_of_130(shift, mode):
+    """Rows of 130 samples, not a multiple of 4: the pair body's sample
+    copies on the card."""
+    _k19_against_jax((66, 130), *shift, mode, "sym4")
 
 
 @pytest.mark.parametrize("idx", [0, 1, 2, 3])
