@@ -5196,13 +5196,14 @@ def phase_times_grid(port, dev, card, keys=None):
     return times, library
 
 
-# The row passes whose outputs --only K29g / K29h digest, so that two
-# builds of tc_dwt2d.cu compare bit for bit: banks that reach instances of
-# both kernels in both precisions (hlen 4, 10, 16 and 40), input shards of
-# 64 and of 8 rows (K29h: 32 and 4 coefficient rows; sym20's halos then
-# take several hops), rows of 2048, 33 and 4094 samples (nc % 4 of 0, 1
-# and 2), inputs or outputs one float past a 16-byte boundary, and the
-# timed shapes (level 0 of one 4096^2 grid block, sym8).
+# The row passes whose outputs --only K29g / K29h / K29d digest, so that
+# two builds of tc_dwt2d.cu or axis_rows.cu compare bit for bit: banks that
+# reach instances of both tensor-core kernels in both precisions (hlen 4,
+# 10, 16 and 40; K29d: h2 2, 5, 8 and 20, float32 and float64), input
+# shards of 64 and of 8 rows (K29h, K29d: 32 and 4 coefficient rows;
+# sym20's halos then take several hops), rows of 2048, 33 and 4094 samples
+# (nc % 4 of 0, 1 and 2), inputs or outputs one sample past a 16-byte
+# boundary, and the timed shapes (level 0 of one 4096^2 grid block, sym8).
 ROWS_DIGEST_BANKS = ("db2", "db5", "sym8", "sym20")
 ROWS_DIGEST_SHARDS = ((2, 64), (4, 8))  # (shards, input rows of a shard)
 ROWS_DIGEST_NC = (2048, 33, 4094)
@@ -5212,7 +5213,8 @@ ROWS_DIGEST_OFFSETS = ((0, 0), (1, 0), (0, 1))  # floats past: in, out
 def print_rows_occupancy(port, dev, keys):
     """Resident blocks per SM (the occupancy API), dynamic shared memory and
     tile shape of the K29g / K29h instances of ROWS_DIGEST_BANKS in both
-    precisions (a build without the query says so)."""
+    precisions, and of K29d's in both types (a build without the query
+    says so)."""
     from pypwt_tpu_torch.ops import _build
     lib = _build.load_library()
     entry = "pypwt_tc_rows_occupancy"
@@ -5237,13 +5239,33 @@ def print_rows_occupancy(port, dev, keys):
                 print(f"occupancy {key} {wname} {prec}: {blocks} blocks of "
                       f"256 threads per SM, {smem} bytes of dynamic shared "
                       f"memory each, tiles of {tr} x {tc} {unit}")
+    entry = "pypwt_syn_rows_occupancy"
+    if not wanted(keys, "K29d"):
+        return
+    if not hasattr(lib, entry):
+        print("occupancy K29d: not reported by this build")
+        return
+    for wname in ROWS_DIGEST_BANKS:
+        for f64 in (0, 1):
+            out = [ctypes.c_int() for _ in range(4)]
+            err = getattr(lib, entry)(
+                port.get_filter_bank(wname).hlen, f64, dev.index,
+                *(ctypes.byref(o) for o in out))
+            if err:
+                raise RuntimeError(f"occupancy query K29d {wname}: error "
+                                   f"{err}")
+            blocks, smem, tr, tc = (o.value for o in out)
+            print(f"occupancy K29d {wname} {'float64' if f64 else 'float32'}"
+                  f": {blocks} blocks of 256 threads per SM, {smem} bytes of "
+                  f"dynamic shared memory each, tiles of {tr} x {tc} "
+                  "coefficients")
 
 
 def print_rows_digests(port, dev, keys):
     """SHA-256 of K29g's and K29h's outputs on seeded inputs
-    (ROWS_DIGEST_*), both precisions, each C entry called on the shard,
-    its halo rows and outputs made here: equal lines from two trees mean
-    bit-identical kernels."""
+    (ROWS_DIGEST_*), both precisions, and of K29d's in float32 and float64,
+    each C entry called on the shard, its halo rows and outputs made here:
+    equal lines from two trees mean bit-identical kernels."""
     fd = port.ops.fused_dwt
     from pypwt_tpu_torch.ops import _build
     lib = _build.load_library()
@@ -5310,7 +5332,35 @@ def print_rows_digests(port, dev, keys):
             print(f"digest K29h {what}: {digest(out)}")
             n += 1
             del a, d, halos, out
-    print(f"digests of the tensor-core row passes: {n}")
+    gen_d = torch.Generator(device=dev).manual_seed(SEED + 65)
+    for wname, prec, shards, rows, nc, oi, oo in cases:
+        if prec != PRECISIONS[0] or not wanted(keys, "K29d"):
+            continue
+        fb = port.get_filter_bank(wname)
+        L = rows // 2
+        top, bot = fd.one_axis_pads("syn", fb, L)
+        for dtype in (torch.float32, torch.float64):
+            (a, at, ab), (d, dt, db) = (
+                split(torch.rand((shards * L, nc), generator=gen_d,
+                                 device=dev).to(dtype), shards, L, top, bot,
+                      oi) for _ in range(2))
+            halos = (at, ab, dt, db)
+            ptrs = fd.halo_array(halos)
+            out = torch.empty(2 * L * nc + oo, device=dev,
+                              dtype=dtype)[oo:].view(2 * L, nc)
+            taps = [fd._taps(f, out) for f in (fb.rec_lo, fb.rec_hi)]
+            what = (f"{wname} {str(dtype)[6:]} shard 1 of {shards} x ({L}, "
+                    f"{nc}) +{oi}/+{oo}")
+            err = fd._entry(lib, "pypwt_syn_rows", out)(
+                a.data_ptr(), d.data_ptr(), ctypes.addressof(ptrs),
+                out.data_ptr(), L, nc, top, bot,
+                *(t.ctypes.data for t in taps), fb.hlen, dev.index, stream)
+            if err:
+                raise RuntimeError(f"K29d {what}: error {err}")
+            print(f"digest K29d {what}: {digest(out)}")
+            n += 1
+            del a, d, halos, out
+    print(f"digests of the row passes: {n}")
 
 
 _PK, _NSP = "ops/pallas_dwt.py", "ops/nonsep_pallas.py"
@@ -5549,7 +5599,7 @@ def run_only(port, dev, card, keys):
                                                              keys)
         times.update(sharded_times)
         library.update(sharded_library)
-    if wanted(keys, "K29g", "K29h"):
+    if wanted(keys, "K29g", "K29h", "K29d"):
         print_rows_occupancy(port, dev, keys)
         print_rows_digests(port, dev, keys)
     if wanted(keys, *K29):

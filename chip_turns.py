@@ -30,7 +30,10 @@ outputs, inputs of 4096 x 2048, 2048 x 1024 and 1024 x 512, with their
 halo rows) and K29h (``pypwt_tc_syn_rows``) on the matching coefficients
 (2048^2, 1024^2 and 512^2 of each plane), sym8 (``--banks``: these banks
 instead), "highest" and "bf16", and the tap-loop K29d (``pypwt_syn_rows``)
-on K29h's inputs. ``--only spin`` (not in the default run):
+on K29h's inputs, at the same banks and sym20, and at db4 in float64
+(``pypwt_syn_rows_f64``); then, on every tree, K12a and K12b
+(``pypwt_tc_swt1d``, ``pypwt_tc_iswt1d``) at levels 1-3 of the 2048 x 2048
+sinogram, sym8, "highest" and "bf16". ``--only spin`` (not in the default run):
 K20 (``pypwt_idwt2d_unshift``) at the levels of a 2048^2 frame that the
 cycle spins give it (SPIN_LEVELS: the random spin's level 0 at shift (1,
 1) with the accumulator and scale 0.25, its levels 1 and 2 at each pair of
@@ -59,6 +62,7 @@ trees that report it print their
 instances' occupancy (``pypwt_tc_dwt2d_occupancy``,
 ``pypwt_tc_idwt2d_occupancy``, ``pypwt_idwt2d_occupancy``,
 ``pypwt_dwt2d_occupancy``, ``pypwt_tc_rows_occupancy``,
+``pypwt_syn_rows_occupancy``,
 ``pypwt_idwt2d_unshift_occupancy``, ``pypwt_dwt2d_shifted_occupancy``,
 ``pypwt_ns_swt2d_occupancy``,
 ``pypwt_ins_swt2d_occupancy``: blocks per SM, dynamic shared memory and,
@@ -69,7 +73,9 @@ and K18b also whether their windows are staged).
 (``cuobjdump -sass``) and prints, for every kernel of the first tree,
 whether its SASS is the same in every other tree (kernel names with the
 anonymous namespace's per-file tag removed), and the kernels that only
-the later trees have.
+the later trees have, each with the first tree's kernel whose SASS it
+has where one of those lacking from its tree has it (a kernel whose
+parameter types were renamed).
 """
 
 import ctypes
@@ -116,6 +122,9 @@ SHIFT_LEVELS = ([(0, (1, 1), 1)]
 NSSWT_BANKS = ["db3xcoif1", "dense8"]  # K18a/K18b's (--banks)
 NSSWT_LEVELS = [1, 2, 3]                # their levels (--levels)
 ROWS_BLOCK = (4096, 4096)       # one block of an 8192^2 image on a 2 x 2 grid
+K29D_BANKS = ["sym20"]          # K29d's rows beside ROWS_BANKS
+ROWS_F64_BANKS = ["db4"]        # K29d's float64 rows
+SINOGRAM = (2048, 2048)         # K12a/K12b's rows
 SYN2D_TYPES = (torch.float32, torch.float64)
 # entries that a parent tree's _build may not declare
 ENTRY_TYPES = {
@@ -126,6 +135,7 @@ ENTRY_TYPES = {
     "pypwt_dwt2d_shifted_occupancy": [ctypes.c_int] * 6
     + [ctypes.c_void_p] * 4,
     "pypwt_tc_rows_occupancy": [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4,
+    "pypwt_syn_rows_occupancy": [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4,
     "pypwt_ns_swt2d_occupancy": [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5,
     "pypwt_ins_swt2d_occupancy": [ctypes.c_int] * 7
     + [ctypes.c_void_p] * 5}
@@ -160,6 +170,8 @@ def load(trees):
                      "pypwt_idwt2d_unshift",
                      "pypwt_idwt2d_unshift_occupancy", "pypwt_dwt2d_shifted",
                      "pypwt_dwt2d_shifted_occupancy", "pypwt_syn_rows",
+                     "pypwt_syn_rows_f64", "pypwt_syn_rows_occupancy",
+                     "pypwt_tc_swt1d", "pypwt_tc_iswt1d",
                      "pypwt_ns_swt2d",
                      "pypwt_ns_swt2d_f64", "pypwt_ns_swt2d_occupancy",
                      "pypwt_ins_swt2d", "pypwt_ins_swt2d_f64",
@@ -430,27 +442,67 @@ def cases(port, dev, only):
             return out
         return call
 
-    def k29d(wname, level):
+    def k29d(wname, level, dtype=torch.float32):
         fbw = port.get_filter_bank(wname)
-        lo2, hi2 = fd._host_taps(fbw.rec_lo), fd._host_taps(fbw.rec_hi)
+        lo2, hi2 = (fd._host_taps(f, np.float64 if dtype == torch.float64
+                                  else np.float32)
+                    for f in (fbw.rec_lo, fbw.rec_hi))
         n, nc = ROWS_BLOCK[0] >> (level + 1), ROWS_BLOCK[1] >> (level + 1)
         top, bot = fd.one_axis_pads("syn", fbw, n)
         sets = []
         for _ in range(2):
-            (a, at, ab), (d, dt, db) = block_halos(
-                [rand((n, nc)) for _ in range(2)], top, bot)
+            (a, at, ab), (d, dt, db) = (
+                [t.to(dtype) for t in part] for part in block_halos(
+                    [rand((n, nc)) for _ in range(2)], top, bot))
             sets.append((a, d, fd.halo_array((at, ab, dt, db)),
                          (at, ab, dt, db)))
-        out = torch.empty((2 * n, nc), device=dev)
+        out = torch.empty((2 * n, nc), device=dev, dtype=dtype)
+        entry = ("pypwt_syn_rows" if dtype == torch.float32
+                 else "pypwt_syn_rows_f64")
 
         def call(lib, i, _):
             a, d, ptrs, _ = sets[i % 2]
-            err = lib.pypwt_syn_rows(
+            err = getattr(lib, entry)(
                 a.data_ptr(), d.data_ptr(), ctypes.addressof(ptrs),
                 out.data_ptr(), n, nc, top, bot, lo2.ctypes.data,
                 hi2.ctypes.data, fbw.hlen, dev.index, stream)
             if err:
                 raise RuntimeError(f"K29d level {level}: error {err}")
+            return out
+        return call
+
+    def k12a(level):
+        fbw = port.get_filter_bank("sym8")
+        lo2, hi2 = fd._host_taps(fbw.dec_lo), fd._host_taps(fbw.dec_hi)
+        xs = [rand(SINOGRAM) for _ in range(2)]
+        out = [torch.empty(SINOGRAM, device=dev) for _ in range(2)]
+
+        def call(lib, i, bf16):
+            err = lib.pypwt_tc_swt1d(
+                xs[i % 2].data_ptr(), *(o.data_ptr() for o in out),
+                SINOGRAM[0], SINOGRAM[1], level,
+                port.conv.swt_centre(fbw.hlen, False), lo2.ctypes.data,
+                hi2.ctypes.data, fbw.hlen, bf16, dev.index, stream)
+            if err:
+                raise RuntimeError(f"K12a level {level}: error {err}")
+            return out
+        return call
+
+    def k12b(level):
+        fbw = port.get_filter_bank("sym8")
+        lo2, hi2 = fd._host_taps(fbw.rec_lo), fd._host_taps(fbw.rec_hi)
+        sets = [[rand(SINOGRAM) for _ in range(2)] for _ in range(2)]
+        out = torch.empty(SINOGRAM, device=dev)
+
+        def call(lib, i, bf16):
+            a, d = sets[i % 2]
+            err = lib.pypwt_tc_iswt1d(
+                a.data_ptr(), d.data_ptr(), out.data_ptr(), SINOGRAM[0],
+                SINOGRAM[1], level, port.conv.swt_centre(fbw.hlen, True),
+                lo2.ctypes.data, hi2.ctypes.data, fbw.hlen, bf16, dev.index,
+                stream)
+            if err:
+                raise RuntimeError(f"K12b level {level}: error {err}")
             return out
         return call
 
@@ -598,9 +650,18 @@ def cases(port, dev, only):
                 got.update({f"{key} level {lev} {wname}":
                             (make(wname, lev), precisions)
                             for lev in (0, 1, 2)})
+        for wname in dict.fromkeys(ROWS_BANKS + K29D_BANKS):
             got.update({f"K29d level {lev} {wname}": (k29d(wname, lev),
                                                       (None,))
                         for lev in (0, 1, 2)})
+        for wname in ROWS_F64_BANKS:
+            got.update({f"K29d level {lev} {wname} float64": (
+                k29d(wname, lev, torch.float64), (None,))
+                for lev in (0, 1, 2)})
+        for lev in (1, 2, 3):
+            for key, make in (("K12a", k12a), ("K12b", k12b)):
+                got[f"{key} sinogram level {lev} sym8"] = (make(lev),
+                                                           precisions)
     if only == "spin":
         for wname in SPIN_BANKS:
             for lev, shift, acc in SPIN_LEVELS:
@@ -728,12 +789,21 @@ def print_sass(trees, libs):
                      missing and "missing in " + ", ".join(missing)) if s))
         same += state == "same"
         print(f"sass {shown}: {state}")
+    renamed = 0
     for tree, k in zip(trees[1:], sass[1:]):
         new = sorted(set(k) - set(sass[0]))
-        for shown in demangle(new):
-            print(f"sass {shown}: only in {tree}")
+        gone = {sass[0][n]: n for n in names if n not in k}
+        for name, shown in zip(new, demangle(new)):
+            old = gone.get(k[name])
+            if old is None:
+                print(f"sass {shown}: only in {tree}")
+            else:
+                renamed += 1
+                print(f"sass {shown}: only in {tree}, the SASS of the first "
+                      f"tree's {demangle([old])[0]}")
     print(f"sass: {same} of the first tree's {len(names)} kernels the same "
-          "in every tree")
+          f"in every tree; {renamed} of the later trees' kernels the SASS of "
+          "one of its kernels under another name")
 
 
 def main():
@@ -802,6 +872,7 @@ def main():
         print_tap2d_occupancy(trees, libs, port, dev, only)
     if only == "rows":
         print_rows_occupancy(trees, libs, port, dev)
+        print_syn_rows_occupancy(trees, libs, port, dev)
     if only in ("spin", "shift"):
         print_spin_occupancy(trees, libs, port, dev, only)
     if only == "nsswt":
@@ -880,6 +951,32 @@ def print_rows_occupancy(trees, libs, port, dev):
                   f"{'bf16' if bf16 else 'highest'}: {blocks} blocks per SM, "
                   f"{smem} bytes, tiles of {tr} x {tc} "
                   f"{'coefficients' if syn else 'outputs'}")
+
+
+def print_syn_rows_occupancy(trees, libs, port, dev):
+    """Blocks per SM, dynamic shared memory and tile shape of each tree's
+    K29d instances at the timed banks and types, where the tree reports
+    them."""
+    query = "pypwt_syn_rows_occupancy"
+    timed = ([(w, torch.float32)
+              for w in dict.fromkeys(ROWS_BANKS + K29D_BANKS)]
+             + [(w, torch.float64) for w in ROWS_F64_BANKS])
+    for tree, lib in zip(trees, libs):
+        if not hasattr(lib, query):
+            print(f"occupancy {tree} K29d: not reported by this tree")
+            continue
+        for wname, dtype in timed:
+            out = [ctypes.c_int() for _ in range(4)]
+            err = getattr(lib, query)(
+                port.get_filter_bank(wname).hlen,
+                int(dtype == torch.float64), dev.index,
+                *(ctypes.byref(o) for o in out))
+            if err:
+                raise RuntimeError(f"occupancy query: error {err}")
+            blocks, smem, tr, tc = (o.value for o in out)
+            print(f"occupancy {tree} K29d {wname} {str(dtype)[6:]}: "
+                  f"{blocks} blocks per SM, {smem} bytes, tiles of {tr} x "
+                  f"{tc} coefficients")
 
 
 def print_spin_occupancy(trees, libs, port, dev, only):

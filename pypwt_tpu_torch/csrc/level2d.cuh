@@ -795,13 +795,21 @@ struct Unshift {
   float scale;
 };
 
-// Two adjacent samples of one 8-byte load (K20 is float32 only).
+// Two adjacent samples of one 8-byte (float) or 16-byte (double) load:
+// K20's accumulator (float32 only), K29d's window reads (axis_rows.cu).
 template <class T>
 __device__ __forceinline__ void load_pair(const T* p, T& x, T& y);
 template <>
 __device__ __forceinline__ void load_pair(const float* p, float& x,
                                           float& y) {
   const float2 v = *reinterpret_cast<const float2*>(p);
+  x = v.x;
+  y = v.y;
+}
+template <>
+__device__ __forceinline__ void load_pair(const double* p, double& x,
+                                          double& y) {
+  const double2 v = *reinterpret_cast<const double2*>(p);
   x = v.x;
   y = v.y;
 }

@@ -78,9 +78,10 @@
 //
 // K29g / K29h are one pass, bound by their bytes alone (the column pass's
 // 4096 x 2048 output of a 4096^2 grid block and its two halves: 64 MiB,
-// 20 us at 3.35 TB/s). Their blocks are persistent (the grid is what the
-// SMs hold at once, by the occupancy API): a block walks tiles of 32
-// output rows (K29h: coefficient rows) by 64 columns, and while its warps
+// 20 us at 3.35 TB/s). Their blocks are persistent and walk tiles of 32
+// output rows (K29h: coefficient rows) by 64 columns on row_walk.cuh's
+// walk, which the tap-loop K29d (axis_rows.cu) shares: the grid is what
+// the SMs hold at once, by the occupancy API, and while a block's warps
 // compute one tile, the window of its next tile is in flight in the other
 // of two slots, staged by cp.async from a table of that tile's source rows
 // (the shard's rows and halo rows resolved once per window row, in 32-bit
@@ -94,6 +95,7 @@
 // 128 columns and the band's fragments in shared memory (a block per SM
 // more) all measured slower (PERF.md §6).
 
+#include "row_walk.cuh"
 #include "tc_window.cuh"
 
 namespace pypwt {
@@ -431,7 +433,8 @@ struct SynRowsGeom {
 
 // Shared memory of K29g / K29h: two slots of windows ([kWin][kLdW] a
 // plane), the taps (K29g in window order, K29h per output parity) and two
-// slots of the source row of each plane and window row.
+// slots of the source row of each plane and window row; slots() is their
+// form for the walk (row_walk.cuh).
 template <class G>
 struct RowsSmem {
   static constexpr int kPlane = G::kWin * G::kLdW;
@@ -448,90 +451,10 @@ struct RowsSmem {
         f_lo(base + 2 * kSlot),
         f_hi(f_lo + kMaxTaps),
         src(reinterpret_cast<const float**>(f_hi + kMaxTaps)) {}
-};
-
-// The tiles of one launch, row tile t / col_tiles and column tile t %
-// col_tiles; block b takes tiles b + j gridDim.x.
-struct RowsPlan {
-  long long tiles;
-  int col_tiles;
-};
-
-// Issue the asynchronous copies of the kPlanes windows of one slot into
-// `in`: window row r of plane p holds columns c0 .. c0 + kCols - 1 of row
-// src[p kWin + r], zero where that row is missing and past nc. Rows of a
-// multiple of 4 samples go in 16-byte copies (c0 is a multiple of 4) where
-// the row is 16-byte aligned, every other row in 4-byte ones.
-template <class G>
-__device__ __forceinline__ void issue_rows(float* in, const float* const* src,
-                                           int c0, int nc) {
-  constexpr int kQ = kCols / 4;
-  constexpr int kPlane = RowsSmem<G>::kPlane;
-  const bool quads = nc % 4 == 0;
-  for (int i = threadIdx.x; i < G::kWin * kQ; i += kThreads) {
-    const int r = i / kQ, q = i - r * kQ;
-    const int c = c0 + 4 * q;
-#pragma unroll
-    for (int p = 0; p < G::kPlanes; ++p) {
-      const float* s = src[p * G::kWin + r];
-      float* d = in + p * kPlane + r * G::kLdW + 4 * q;
-      if (s == nullptr || c >= nc) {
-        d[0] = d[1] = d[2] = d[3] = 0.f;
-      } else if (quads && (reinterpret_cast<uintptr_t>(s) & 15) == 0) {
-        mma::cp_async16(d, s + c);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (c + e < nc)
-            mma::cp_async4(d + e, s + c + e);
-          else
-            d[e] = 0.f;
-        }
-      }
-    }
+  __device__ row_walk::Slots<float> slots() const {
+    return {in, src, G::kWin, G::kLdW, kPlane, kSlot, kTable};
   }
-}
-
-// Walk the block's tiles t = b, b + gridDim.x, ..., the tile at rows r0 ..
-// (K29h: coefficient rows) and columns c0 ..: table(r0, src) fills a
-// slot's source rows (kPlanes x kWin), issue_rows its copies, one commit
-// group per tile; product(r0, c0, in, band) computes the tile from its
-// slot's windows once they have landed, while the next tile's fly. The
-// band (make_band()) is built while the first tile's copies fly. Two
-// barriers a tile: the next table visible (and the slot it fills read by
-// the tile before), the tile's windows visible.
-template <class G, class Table, class MakeBand, class Product>
-__device__ __forceinline__ void walk_tiles(const RowsSmem<G>& sm,
-                                           const RowsPlan& plan, int nc,
-                                           Table table, MakeBand make_band,
-                                           Product product) {
-  using S = RowsSmem<G>;
-  const auto r0 = [&](long long t) {
-    return static_cast<int>(t / plan.col_tiles) * kRows;
-  };
-  const auto c0 = [&](long long t) {
-    return static_cast<int>(t % plan.col_tiles) * kCols;
-  };
-  long long t = blockIdx.x;
-  if (t < plan.tiles) table(r0(t), sm.src);
-  __syncthreads();
-  if (t < plan.tiles) issue_rows<G>(sm.in, sm.src, c0(t), nc);
-  mma::cp_async_commit();
-  const auto band = make_band();
-  for (int slot = 0; t < plan.tiles; t += gridDim.x, slot ^= 1) {
-    const long long next = t + gridDim.x;
-    const float** src = sm.src + (slot ^ 1) * S::kTable;
-    if (next < plan.tiles) table(r0(next), src);
-    __syncthreads();
-    if (next < plan.tiles)
-      issue_rows<G>(sm.in + (slot ^ 1) * S::kSlot, src, c0(next), nc);
-    mma::cp_async_commit();
-    mma::cp_async_wait<1>();
-    __syncthreads();
-    product(r0(t), c0(t), static_cast<const float*>(sm.in + slot * S::kSlot),
-            band);
-  }
-}
+};
 
 // K29g: window row r of the tile at output rows r0 .. holds shard row
 // 2 r0 - lpad + r (a halo row past the shard, zero past both halos and
@@ -541,7 +464,7 @@ template <class G>
 __global__ void __launch_bounds__(kThreads)
 tc_ana_rows_kernel(const float* __restrict__ x, float* __restrict__ lo,
                    float* __restrict__ hi, int nr, int nc, Taps taps,
-                   int hlen, RowsPlan plan, Halo<float, 1> rows) {
+                   int hlen, row_walk::Plan plan, Halo<float, 1> rows) {
   using P = typename G::Prec;
   extern __shared__ float smem[];
   const RowsSmem<G> sm(smem);
@@ -550,8 +473,8 @@ tc_ana_rows_kernel(const float* __restrict__ x, float* __restrict__ lo,
   const int ext = 2 * kRows + hlen - 2;  // the window's extent
   const int lpad = analysis_lpad(hlen);
   load_reversed_taps(taps, hlen, sm.f_lo, sm.f_hi);
-  walk_tiles<G>(
-      sm, plan, nc,
+  row_walk::walk_tiles<float, kCols, G::kPlanes>(
+      sm.slots(), plan, kRows, nc,
       [&](int r0, const float** src) {
         for (int r = threadIdx.x; r < G::kWin; r += kThreads)
           src[r] = r < ext ? rows.row(0, x, 2 * r0 - lpad + r, nr, nc)
@@ -591,7 +514,7 @@ template <class G>
 __global__ void __launch_bounds__(kThreads)
 tc_syn_rows_kernel(const float* __restrict__ a, const float* __restrict__ d,
                    float* __restrict__ out, int len, int nc, Taps taps,
-                   int hlen, RowsPlan plan, Halo<float, 2> rows) {
+                   int hlen, row_walk::Plan plan, Halo<float, 2> rows) {
   using P = typename G::Prec;
   extern __shared__ float smem[];
   const RowsSmem<G> sm(smem);
@@ -600,8 +523,8 @@ tc_syn_rows_kernel(const float* __restrict__ a, const float* __restrict__ d,
   const int ext = kRows + ph.h2;  // the window's extent
   const float* const planes[2] = {a, d};
   load_polyphase_taps(taps, hlen, sm.f_lo, sm.f_hi);
-  walk_tiles<G>(
-      sm, plan, nc,
+  row_walk::walk_tiles<float, kCols, G::kPlanes>(
+      sm.slots(), plan, kRows, nc,
       [&](int q0, const float** src) {
         for (int r = threadIdx.x; r < G::kWin; r += kThreads) {
 #pragma unroll
@@ -641,9 +564,9 @@ tc_syn_rows_kernel(const float* __restrict__ a, const float* __restrict__ d,
 }
 
 using AnaRowsKernel = void (*)(const float*, float*, float*, int, int, Taps,
-                               int, RowsPlan, Halo<float, 1>);
+                               int, row_walk::Plan, Halo<float, 1>);
 using SynRowsKernel = void (*)(const float*, const float*, float*, int, int,
-                               Taps, int, RowsPlan, Halo<float, 2>);
+                               Taps, int, row_walk::Plan, Halo<float, 2>);
 
 template <class P, int S>
 TileInstance<AnaRowsKernel> ana_rows_instance() {
@@ -775,29 +698,6 @@ cudaError_t prepare(const Instance<Kernel>& inst, int device) {
   return cudaFuncSetAttribute(inst.kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(inst.smem));
-}
-
-// K29g / K29h's persistent launch: the tiles of `rows` output rows (K29h:
-// coefficient rows) of nc samples, and a grid of what the SMs hold at once
-// (the occupancy API), at most a block a tile.
-template <class Kernel>
-cudaError_t plan_rows(const TileInstance<Kernel>& inst, int rows, int nc,
-                      int device, RowsPlan* plan, unsigned* grid) {
-  if (inst.kernel == nullptr) return cudaErrorInvalidValue;
-  int sms = 0, per_sm = 0;
-  cudaError_t err = device_sms(device, &sms);
-  if (err == cudaSuccess) err = allow_smem(inst);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, inst.kernel,
-                                                        kThreads, inst.smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  plan->col_tiles = (nc + inst.tc - 1) / inst.tc;
-  plan->tiles = static_cast<long long>((rows + inst.tr - 1) / inst.tr) *
-                plan->col_tiles;
-  *grid = static_cast<unsigned>(std::min<long long>(
-      static_cast<long long>(per_sm) * sms, plan->tiles));
-  return cudaSuccess;
 }
 
 }  // namespace
@@ -941,9 +841,10 @@ extern "C" int pypwt_tc_ana_rows(const float* x, const float* top,
       !analysis_halos_ok(hlen, lp, rp))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto inst = pick_ana_rows(bf16 != 0, hlen);
-  RowsPlan plan;
+  row_walk::Plan plan;
   unsigned grid = 0;
-  const cudaError_t err = plan_rows(inst, nr / 2, nc, device, &plan, &grid);
+  const cudaError_t err =
+      row_walk::plan_tiles(inst, nr / 2, nc, device, &plan, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Taps taps = make_taps(dec_lo, dec_hi, hlen);
   const Halo<float, 1> halo = make_halo(top, bot, lp, rp);
@@ -966,9 +867,10 @@ extern "C" int pypwt_tc_syn_rows(const float* a, const float* d,
       nc > 0x3fffffff || !synthesis_halos_ok(hlen, lp, rp))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto inst = pick_syn_rows(bf16 != 0, hlen);
-  RowsPlan plan;
+  row_walk::Plan plan;
   unsigned grid = 0;
-  const cudaError_t err = plan_rows(inst, len, nc, device, &plan, &grid);
+  const cudaError_t err =
+      row_walk::plan_tiles(inst, len, nc, device, &plan, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Taps taps = make_taps(rec_lo, rec_hi, hlen);
   const float* tops[2] = {halos[0], halos[2]};

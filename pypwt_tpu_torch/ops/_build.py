@@ -153,6 +153,9 @@ _SIGNATURES = {
     # synthesis, hlen, bf16, device, blocks (int*), smem (int*), tile rows
     # (int*), tile columns (int*) (K29g / K29h)
     "pypwt_tc_rows_occupancy": [_I] * 4 + [_P] * 4,
+    # hlen, f64, device, blocks (int*), smem (int*), tile rows (int*), tile
+    # columns (int*) (K29d)
+    "pypwt_syn_rows_occupancy": [_I] * 3 + [_P] * 4,
     # the one-axis passes of the grid and sequence layouts (K29); halos:
     # host array of the four halo pointers (lo_before, lo_after, hi_before,
     # hi_after)

@@ -256,40 +256,61 @@ def test_k29_lanes_plain_match_jax_padded_kernels(wname):
         np.asarray(gm(jnp.asarray(ap), jnp.asarray(dp))), atol=5e-5)
 
 
-@pytest.mark.parametrize("wname", ["db2", "sym4", "db10"])
-def test_k29_rows_plain_match_jax_padded_kernels(wname):
+# (bank, coefficient rows L, columns nc): haar to sym20 (h2 1 to 20), L not
+# a multiple of 32 (K29d's tile rows) and one 8-row shard whose sym20
+# halos (10 rows) are wider than it, nc % 4 of 1, 2 and 3. JAX's
+# padded-core kernels take nc in whole 128-lane blocks; the other widths
+# are held against their bodies (``_analysis_sub`` / ``_synthesis_sub``,
+# jnp), which the kernels run per block.
+@pytest.mark.parametrize("wname, L, nc", [
+    pytest.param("db2", 32, 128, id="db2"),
+    pytest.param("sym4", 32, 128, id="sym4"),
+    pytest.param("db10", 32, 128, id="db10"),
+    pytest.param("haar", 37, 128, id="haar-37x128"),
+    pytest.param("sym20", 45, 256, id="sym20-45x256"),
+    pytest.param("sym20", 8, 129, id="sym20-8x129"),
+    pytest.param("db2", 37, 130, id="db2-37x130"),
+    pytest.param("sym8", 33, 131, id="sym8-33x131")])
+def test_k29_rows_plain_match_jax_padded_kernels(wname, L, nc):
     """K29c/K29d against ``build_ana_padded_rows`` /
     ``build_syn_padded_rows`` (interpret mode), K29g/K29h against their
-    MXU twins."""
+    MXU twins where those take the bank and width."""
     fb, jfb = get_filter_bank(wname), jbank(wname)
-    nc, L = 128, 32
+    flo, fhi = _taps(jfb.dec_lo), _taps(jfb.dec_hi)
+    glo, ghi = _taps(jfb.rec_lo), _taps(jfb.rec_hi)
     lp, rp = conv.analysis_pads(fb.hlen)
     xp = RNG.standard_normal((2 * L + lp + rp, nc)).astype(np.float32)
     body, top, bot = _row_parts(xp, lp, rp)
-    fj = jpk.build_ana_padded_rows(xp.shape[0], nc, L, _taps(jfb.dec_lo),
-                                   _taps(jfb.dec_hi), True)
-    _close(fd.ana_rows_plain(body, top, bot, fb), fj(jnp.asarray(xp)), 3e-5)
-    fm = jmx.build_ana_padded_rows_mxu(xp.shape[0], nc, L,
-                                       _taps(jfb.dec_lo), _taps(jfb.dec_hi),
-                                       True)
-    _close(km.ana_rows_mxu_plain(body, top, bot, fb), fm(jnp.asarray(xp)),
-           5e-5)
+    if nc % 128 == 0:
+        ref = jpk.build_ana_padded_rows(xp.shape[0], nc, L, flo, fhi,
+                                        True)(jnp.asarray(xp))
+    else:
+        ref = jpk._analysis_sub(jnp.asarray(xp), flo, fhi, L)
+    _close(fd.ana_rows_plain(body, top, bot, fb), ref, 3e-5)
+    fm = jmx.build_ana_padded_rows_mxu(xp.shape[0], nc, L, flo, fhi, True)
+    if fm is not None:
+        _close(km.ana_rows_mxu_plain(body, top, bot, fb),
+               fm(jnp.asarray(xp)), 5e-5)
     lpi, rpi = conv.synthesis_pads(fb.hlen, L, 2 * L)
     ap, dp = (RNG.standard_normal((L + lpi + rpi, nc)).astype(np.float32)
               for _ in range(2))
     (a, at, ab), (d, dt, db) = (_row_parts(p, lpi, rpi) for p in (ap, dp))
-    gj = jpk.build_syn_padded_rows(ap.shape[0], nc, 2 * L, lpi,
-                                   _taps(jfb.rec_lo), _taps(jfb.rec_hi),
-                                   True)
+    if nc % 128 == 0:
+        ref = jpk.build_syn_padded_rows(ap.shape[0], nc, 2 * L, lpi, glo,
+                                        ghi, True)(jnp.asarray(ap),
+                                                   jnp.asarray(dp))
+    else:
+        ref = jpk._synthesis_sub(jnp.asarray(ap), jnp.asarray(dp), glo,
+                                 ghi, L, lpi)
     np.testing.assert_allclose(
         fd.syn_rows_plain(a, d, (at, ab, dt, db), fb).numpy(),
-        np.asarray(gj(jnp.asarray(ap), jnp.asarray(dp))), atol=3e-5)
-    gm = jmx.build_syn_padded_rows_mxu(ap.shape[0], nc, 2 * L, lpi,
-                                       _taps(jfb.rec_lo), _taps(jfb.rec_hi),
-                                       True)
-    np.testing.assert_allclose(
-        km.syn_rows_mxu_plain(a, d, (at, ab, dt, db), fb).numpy(),
-        np.asarray(gm(jnp.asarray(ap), jnp.asarray(dp))), atol=5e-5)
+        np.asarray(ref), atol=3e-5)
+    gm = jmx.build_syn_padded_rows_mxu(ap.shape[0], nc, 2 * L, lpi, glo,
+                                       ghi, True)
+    if gm is not None:
+        np.testing.assert_allclose(
+            km.syn_rows_mxu_plain(a, d, (at, ab, dt, db), fb).numpy(),
+            np.asarray(gm(jnp.asarray(ap), jnp.asarray(dp))), atol=5e-5)
 
 
 def test_k29_plain_versions_take_odd_banks():
@@ -361,6 +382,30 @@ def test_grid_dwt_float64_matches_jax_jnp_route():
     pyr = spatial.wavedec2_gridsharded(img, fb, 3, m)
     _close(_whole_grid(pyr, 4), jax.tree_util.tree_leaves(ref), 1e-12)
     y = pring.gather_grid(spatial.waverec2_gridsharded(pyr, fb, m), 4)
+    np.testing.assert_allclose(y.numpy(), img, atol=1e-10)
+
+
+@pytest.mark.parametrize("width", [20, 24, 28], ids=lambda w: f"nc{w // 4}")
+def test_grid_sym20_multi_hop_float64_matches_jax_jnp_route(width):
+    """sym20 on (64, width) float64 grids of 4 x 2 shards: the row passes
+    see 8-row coefficient shards whose 10-row halos take two hops, on
+    shard widths of 5, 6 and 7 columns (nc % 4 of 1, 2 and 3), against
+    JAX's (jnp) route; the port's inverse of JAX's coefficients and its
+    own roundtrip."""
+    img = RNG.standard_normal((64, width))
+    jm = jmesh.make_mesh2d(4, 2, devices=jax.devices())
+    ref = jspatial.wavedec2_gridsharded(jnp.asarray(img), jbank("sym20"), 1,
+                                        jm)
+    fb = get_filter_bank("sym20")
+    m = _grid(4, 2)
+    pyr = spatial.wavedec2_gridsharded(img, fb, 1, m)
+    _close(_whole_grid(pyr, 2), jax.tree_util.tree_leaves(ref), 1e-12)
+    back = spatial.waverec2_gridsharded(
+        [np.asarray(ref[0])] + [tuple(np.asarray(s) for s in lev)
+                                for lev in ref[1:]], fb, m)
+    np.testing.assert_allclose(pring.gather_grid(back, 2).numpy(), img,
+                               atol=1e-10)
+    y = pring.gather_grid(spatial.waverec2_gridsharded(pyr, fb, m), 2)
     np.testing.assert_allclose(y.numpy(), img, atol=1e-10)
 
 

@@ -2904,6 +2904,244 @@ ROWS_DIGESTS = {
 }
 
 
+# K29d, axis_rows.cu's row synthesis: each output against its plain version
+# and against the SHA-256 of the output that its first body (32 x 32 tiles,
+# one output a thread, windows staged sample by sample) gave on the card for
+# the same seeded inputs; `python tests/test_torch_kernels_cuda.py digests
+# K29D` prints K29D_DIGESTS's form. Banks of h2 1, 2, 8 and 20 and an odd
+# one; ROWS_CASES (whole and crossed tiles, nc % 4 of 1, 2 and 3, 8-row
+# shards, inputs or outputs one sample past a 16-byte boundary) and the
+# timed shape, level 0 of one 4096^2 grid block (2048 coefficient rows of
+# 2048); float32 and float64.
+K29D_BANKS = ["haar", "db2", "odd5", "sym8", "sym20"]
+K29D_CASES = ROWS_CASES + [(2, 4096, 2048, 0, 0)]
+
+
+def _k29d_id(case, wname, dtype):
+    return "-".join(["K29d", wname, "f64" if dtype == torch.float64 else "f32",
+                     *(str(v) for v in case)])
+
+
+def _k29d_output(case, wname, dtype, dev):
+    """(kernel output, plain output) of one case: the C entry launched once
+    on shard 1 of the coefficient planes, its halo rows and a NaN-filled
+    output made here."""
+    fb = _bank(wname)
+    shards, rows, nc, oi, oo = case
+    L = rows // 2
+    pads = fd.one_axis_pads("syn", fb, L)
+    body, halos = _coeff_halos(
+        [_rand((shards * L, nc), dev, s).to(dtype) for s in (8, 9)], shards,
+        1, pads)
+    body = [_offset(v, oi) for v in body]
+    halos = tuple(_offset(v, oi) for v in halos)
+    out = torch.full((2 * L * nc + oo,), float("nan"), dtype=dtype,
+                     device=dev)[oo:].view(2 * L, nc)
+    ptrs = fd.halo_array(halos)
+    taps = [fd._taps(f, out) for f in (fb.rec_lo, fb.rec_hi)]
+    err = fd._entry(_build.load_library(), "pypwt_syn_rows", out)(
+        body[0].data_ptr(), body[1].data_ptr(), ctypes.addressof(ptrs),
+        out.data_ptr(), L, nc, *pads, *(v.ctypes.data for v in taps),
+        fb.hlen, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    assert err == 0
+    return out, fd.syn_rows_plain(*body, halos, fb)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("wname", K29D_BANKS)
+@pytest.mark.parametrize("case", K29D_CASES, ids=str)
+def test_k29d_row_body_matches_plain_and_parent(dev, case, wname, dtype):
+    got, ref = _k29d_output(case, wname, dtype, dev)
+    tol = TOL if dtype == torch.float32 else 1e-12
+    assert got.shape == ref.shape and float((got - ref).abs().max()) <= tol
+    assert _sha256(got) == K29D_DIGESTS[_k29d_id(case, wname, dtype)]
+
+
+K29D_DIGESTS = {
+    'K29d-haar-f32-4-64-96-0-0':
+        '7ffa19cafc8f3e4757324e24621a086fdf5886d6ec56cd26b309fef0fec8d2de',
+    'K29d-haar-f64-4-64-96-0-0':
+        '04458d96e4c288ab910650845fb8c07d2a7d7fa9e4283169f7ebc4b3611205de',
+    'K29d-db2-f32-4-64-96-0-0':
+        'b6d41990bbc6955af5ba00b6eb945976c5aaf7ec3e1c3568a65d055056b9a6fc',
+    'K29d-db2-f64-4-64-96-0-0':
+        'acf47bf3dae2127d4817ddc20aedbb3efe1f72d9cf7fc27648ed986e9d1445c1',
+    'K29d-odd5-f32-4-64-96-0-0':
+        'bf314bfc860846873734cf962f4cee1e5c718ab2cd49305fa18aa9b496e3689d',
+    'K29d-odd5-f64-4-64-96-0-0':
+        '27fb6999fe71b101b741b8a6f253e8e89a5d96f8788364361beba2f320af1855',
+    'K29d-sym8-f32-4-64-96-0-0':
+        '45a0f7f4002bbce6338155214fd1b3711ed45ae5cc4ba12e75df87faf2ff4dce',
+    'K29d-sym8-f64-4-64-96-0-0':
+        '9c91a21aaecb9b41a42042316b44998a30b9817fd71ce42aaf4dfef2fdc27709',
+    'K29d-sym20-f32-4-64-96-0-0':
+        '92524cfe7a54f87dc5ba3772078c6d3bb6d4528d2d46d2ee7ca6919c025de06c',
+    'K29d-sym20-f64-4-64-96-0-0':
+        '5e7f062ee80114660156dd8d518cd31a1e24a8b324cf5c88699b956dfc47a176',
+    'K29d-haar-f32-3-130-130-0-0':
+        '8c989b4cd91b4b50e71598b199c2ffd8ddf0a34b0aa53ad1d76452145d2f8af9',
+    'K29d-haar-f64-3-130-130-0-0':
+        '13009d3bb297c3799e0134286f7eee612d231cd983cb8fe4e8e6d24d834795ec',
+    'K29d-db2-f32-3-130-130-0-0':
+        '790d425644ea6075db5c4102294ecd0e3044803a7180826c2901c63a75f1c6d9',
+    'K29d-db2-f64-3-130-130-0-0':
+        'c2ebfd21d4df4d877f89a07e63d17df6e157f95105305adf2ae1571dbbd833cb',
+    'K29d-odd5-f32-3-130-130-0-0':
+        '92bd5cf3c5789ea858cac29d7e896c2ac14cf32e5940194f9978e576aee43341',
+    'K29d-odd5-f64-3-130-130-0-0':
+        '24cb359d125b7c149158b384ef7baec688c3d64800a7d453159133f2701b285d',
+    'K29d-sym8-f32-3-130-130-0-0':
+        '42cd4fa70fe98bf6fdb439d373404678bbcf1e792d904ffc199c024aefc2d1ef',
+    'K29d-sym8-f64-3-130-130-0-0':
+        '1c1c8ec1d48108063efe1c1abaf5c7918b000d5146bf00f522fa95e13ce49aff',
+    'K29d-sym20-f32-3-130-130-0-0':
+        '91783c444b281b34cb93e31e3107b17ee7d152a58624fc00ef4fff814a432cb9',
+    'K29d-sym20-f64-3-130-130-0-0':
+        '588d3c495b8dcd412007f2643457cfb6d19994fd0fe709e4c1676365bf877d6d',
+    'K29d-haar-f32-4-8-33-0-0':
+        '660362ac66994010cc9db83ea638e560e7bd0d8ee737fa542baaf88c3ca28a1f',
+    'K29d-haar-f64-4-8-33-0-0':
+        '36472ceb4304e9b85011b4d615a7c99ed30020bd3c4b99d30058b822a6fae1b9',
+    'K29d-db2-f32-4-8-33-0-0':
+        '496bb02f49e2c66ebd38a3a93f58aa7da3ff8186f57c7cfbad503ac08805acfd',
+    'K29d-db2-f64-4-8-33-0-0':
+        'b97243b01b0718821fa57dd3dbcaabf0b56f0781dade663a3951da49f1a76b95',
+    'K29d-odd5-f32-4-8-33-0-0':
+        '8e8accedac218aedd18fceaef48e4fd56b695da7ba985a81d716039e36be7b71',
+    'K29d-odd5-f64-4-8-33-0-0':
+        '871fd819f3337ae43cc2237f68921ca7c3684d32bfbd6e3e6833a457c5b5d325',
+    'K29d-sym8-f32-4-8-33-0-0':
+        '99e4f859f4d75c24d669242170943f5cc55cb7defc907d9cc0a0e026d7983202',
+    'K29d-sym8-f64-4-8-33-0-0':
+        'b001dbaf17442161b8000f3fce82989bb86aeb412dc61d89ce161b4a927657a6',
+    'K29d-sym20-f32-4-8-33-0-0':
+        '82bf419be5174843e5878dacb254db0d37ccc8b82403396671eec6bc1062d4d9',
+    'K29d-sym20-f64-4-8-33-0-0':
+        '6211f0a141030c458e31c2f740fd7dfa5c8f8232c98b939d746d9f58bd8f44ad',
+    'K29d-haar-f32-2-66-35-0-0':
+        '495cfbf429a5ab3c5f73ec7bd64603bfea91f6f38f1f40730e896db6fb6c6aa1',
+    'K29d-haar-f64-2-66-35-0-0':
+        'ad65432182e135e30b7f72b3d7229e89bcf9f8601446b02169c095a8d6939e79',
+    'K29d-db2-f32-2-66-35-0-0':
+        '05823c51406b02615aa16884ad72607d121d03ab76d4f1097339926209afdbc7',
+    'K29d-db2-f64-2-66-35-0-0':
+        '9041190fe78a9af1163772f707a53fd5245dc9f7fd5a21005f557d5cc6e72862',
+    'K29d-odd5-f32-2-66-35-0-0':
+        '1e121bf92f09352448c4a70497cb49f1f14a00a0fca969c6f0924f9d0ea713d5',
+    'K29d-odd5-f64-2-66-35-0-0':
+        '050f48848e5d780141889ad199c60074840c047113fe07ce453e980eb41ae41a',
+    'K29d-sym8-f32-2-66-35-0-0':
+        '19dfa99ff40a11a215bdc8d7917c43dfe6abf8d4f3fefaacd69ea47a05dd64be',
+    'K29d-sym8-f64-2-66-35-0-0':
+        'b78f0a9aed9cfc3c97ec9ac29fff80075a3cb5c4e7362c1b4ee5fc6bf0e455f8',
+    'K29d-sym20-f32-2-66-35-0-0':
+        '3d45720c1feb03e3063ebcbba0040fa0600648d7071d05b90c323fb5a9ba310c',
+    'K29d-sym20-f64-2-66-35-0-0':
+        'f182d9a5934c71645bab132595484e727c34e17dece8152f92db2ff3e3c2aca7',
+    'K29d-haar-f32-4-8-40-0-0':
+        '7fcf969bf4bdb54b8f7a9a7af959a6a58cf382944707f1360c557096526d1c75',
+    'K29d-haar-f64-4-8-40-0-0':
+        '5ea8f3df23ab9944a094463045def165163cb06f8e6bbcb3d896b533e1ad52c4',
+    'K29d-db2-f32-4-8-40-0-0':
+        '01cc3b9d3d3754fc1b7bb8a8bfd08fa62248652840e5645e04f39ad6d856fa0b',
+    'K29d-db2-f64-4-8-40-0-0':
+        '12e1e37f6fea63b5f6b77bccec05826bfc0f77111cb3ad11ce9f405e797c69aa',
+    'K29d-odd5-f32-4-8-40-0-0':
+        '2ad802f9048a912042e6de0adf84e0c288b446ba59a2bc97beff4afcd6e2e40e',
+    'K29d-odd5-f64-4-8-40-0-0':
+        '63653c5e7386595f92615d0208fdc8e0a9e163f1732e7aedf4ce0c36daa6acd5',
+    'K29d-sym8-f32-4-8-40-0-0':
+        '16f247770f675e22c4bcec1398f25a1c0efc8e06de161e720eb004e0329990c3',
+    'K29d-sym8-f64-4-8-40-0-0':
+        'da95c0f4a0ebf98cbbf8824a7d9d25d43ae34664591aa83006e9a9a943d95225',
+    'K29d-sym20-f32-4-8-40-0-0':
+        '960179250c738ff579e2406f4ce8a2124d2b1c64373515bae6e3f4b803693ca6',
+    'K29d-sym20-f64-4-8-40-0-0':
+        'c1ddcc551957bf7860129c49e233abd736e52d38158f187bb95972d9032afbf9',
+    'K29d-haar-f32-2-64-64-1-0':
+        '37b077ebf9d7ef72f3d6dfd8e98970531ed97b37f92acaf17b641985d6108124',
+    'K29d-haar-f64-2-64-64-1-0':
+        'bf7adce605d26e26d4ec09f2dba3e643605034951187c1a3c76e884749ee5249',
+    'K29d-db2-f32-2-64-64-1-0':
+        'd7dcdc29d22c5b2bedf21e82847c737d6c56baf6f6d4de76f74d5a36338cce3c',
+    'K29d-db2-f64-2-64-64-1-0':
+        'b1c3a4cf608aa8074f55d25e21e2c56a4deda4c5858915ccd7004734996bda58',
+    'K29d-odd5-f32-2-64-64-1-0':
+        '66e8d2fdb1eb820d84a7bf9c2a85879bec8cf9c1ffeb75b17ff9ee633b6069fc',
+    'K29d-odd5-f64-2-64-64-1-0':
+        '64de8a56d9bd6bd4f231b27ca44d6135c8f14956e6d05ecda904c792e1000fdb',
+    'K29d-sym8-f32-2-64-64-1-0':
+        'f9e97cb906aa711ae6ae00ad8c269454e167a22d9adcda4db9ccffdae461a33c',
+    'K29d-sym8-f64-2-64-64-1-0':
+        '3a9eb31259624d736021ac74363b08290e7ab32779d7f349b9f1863cf0d9c377',
+    'K29d-sym20-f32-2-64-64-1-0':
+        '25175f74ece6203457a0741387d72b7e8120778138a5cf6c5412cfce06845b50',
+    'K29d-sym20-f64-2-64-64-1-0':
+        'a094d2921c4a328ad460ef7809b88cd569f6792a6e1b0cbbdfdfcc052841f495',
+    'K29d-haar-f32-2-64-68-0-1':
+        '73f0b935123225a07bcd6c4fd7f96bdd9773082702d151909d8c0f77c94e025c',
+    'K29d-haar-f64-2-64-68-0-1':
+        'dcf8871942825b1ba7a8d92702f067bcd4f2e0209c5aeddf5c937c3978331032',
+    'K29d-db2-f32-2-64-68-0-1':
+        '85bfac883fa7ca7301792f5684a5b84ca2b95f63247a80f04904c09d492aee29',
+    'K29d-db2-f64-2-64-68-0-1':
+        '4f1d39aab3f8218faccbf32508b361c7329072f90ba795c5dc59bda0f1daf83b',
+    'K29d-odd5-f32-2-64-68-0-1':
+        '5ec49f5eed04cc97c0fc5a57d843f954e6475f3be002c00a3fe20b1c5e13cb72',
+    'K29d-odd5-f64-2-64-68-0-1':
+        '3716a569d939cac6ef08992444f41916dd0b08b517f18d52475b803deee214dc',
+    'K29d-sym8-f32-2-64-68-0-1':
+        '37659eb76e216afeed7ff6f3dcbcaf5698cde2e115442f6ec8999f825cdec487',
+    'K29d-sym8-f64-2-64-68-0-1':
+        'ab9def5dedab3391914530eb67947ac68b4e9ebcb312353ec1c269114b7c45e8',
+    'K29d-sym20-f32-2-64-68-0-1':
+        'fd03add4a44c8c8ff58ff321a734a173bac44887c6421d08e311b26852a03c86',
+    'K29d-sym20-f64-2-64-68-0-1':
+        '77d5198ed54fc75068395866dc185d5bb1118bdbd14eb80c36622d971508f735',
+    'K29d-haar-f32-2-70-129-1-1':
+        '367f3916780b438ca9e0e0b24a5ac9d82a4d1f4677f6a569be9cecbec14b4de0',
+    'K29d-haar-f64-2-70-129-1-1':
+        'ffd4ef21292c1f544ef710c3ede71be268de9faa39b4945c045edd8c3981ebc6',
+    'K29d-db2-f32-2-70-129-1-1':
+        'e4ee73fd61f5eab95ba09d8348b0a223493d56d82ec3f234bc739c886e296dfd',
+    'K29d-db2-f64-2-70-129-1-1':
+        '15d5637e8cae5eb3ba8680c2933700f15dfa73bcc6c6e5888d47d42d4aa1b7e5',
+    'K29d-odd5-f32-2-70-129-1-1':
+        'b87ea9f459a71bc811bcaa42b4093cb8131d1ec798cf411fbfc6f5f639180e94',
+    'K29d-odd5-f64-2-70-129-1-1':
+        '0693bd714065899266c2e2d77a7b38dc048962cc951c563cf7c3facae701bf5a',
+    'K29d-sym8-f32-2-70-129-1-1':
+        'c7c385d3f41c8945b64903b886797bd2a323fb7b6e84bab43e45465ceb7b18b0',
+    'K29d-sym8-f64-2-70-129-1-1':
+        'd121dfeecfe585c622262ca2419cfb9140db820f02dc99c8aa4b6b1c7c0c7393',
+    'K29d-sym20-f32-2-70-129-1-1':
+        '98c0d47da5955d3184d8c9d1b3f247e38330b7896683d000d741c2ba62c2f72c',
+    'K29d-sym20-f64-2-70-129-1-1':
+        '089ade022dcde62dadc8394aec928b1a4051f4af9ee19df23bd97411e6ba3542',
+    'K29d-haar-f32-2-4096-2048-0-0':
+        'a9dd6611f0308783c47a4efecaaee4e5055918e4dd28405b7f25666ad5b5a8c1',
+    'K29d-haar-f64-2-4096-2048-0-0':
+        '607413ee84cc43efcb784ec5e18aaa890c18221bf711364ed8ef9caeb08636a8',
+    'K29d-db2-f32-2-4096-2048-0-0':
+        'c7785b6e17982a1380f19d439af50e97bb783ee2af9767b65035e48a6b539fa0',
+    'K29d-db2-f64-2-4096-2048-0-0':
+        '4850a2eccfc9b761e5ceebde6b2d01b2f8fdfe53942e05a76d987b6a85432a09',
+    'K29d-odd5-f32-2-4096-2048-0-0':
+        '466c5f9b6ad5e2114b189c779c97650ece8255f5bfd34a778da3e29610b02f14',
+    'K29d-odd5-f64-2-4096-2048-0-0':
+        '9260cb8ce97e011ae77a9239efe3990c74da4a516fc082adb325e80da2c005f3',
+    'K29d-sym8-f32-2-4096-2048-0-0':
+        '26a32754199ae25be21a0f3bc94d3bcbecd23e00ed164050cc9fe0101aba5b58',
+    'K29d-sym8-f64-2-4096-2048-0-0':
+        '74b853e80090ff8bf0cf91c62f94a7b3be2281d14bb92e161241d034e29c5d78',
+    'K29d-sym20-f32-2-4096-2048-0-0':
+        'a11bc94de447ea5fb2a3bad1f7d58913bd658bd36a7cf626f9676481476b1346',
+    'K29d-sym20-f64-2-4096-2048-0-0':
+        '387e248f2cd30f5148559edcd750344aa3e2e3ec3dea80ce5130e7d26e1f1b34',
+}
+
+
 
 # K20 on idwt2d.cu's pair body with its unshift: each output against its
 # plain version and against the SHA-256 of the output that K20's body
@@ -3949,6 +4187,13 @@ if __name__ == "__main__":
                         out, _ = _rows_output(kind, case, wname, prec, dev)
                         yield _rows_id(kind, case, wname, prec), out
 
+    def _k29d_lines(dev):
+        for case in K29D_CASES:
+            for wname in K29D_BANKS:
+                for dtype in (torch.float32, torch.float64):
+                    out, _ = _k29d_output(case, wname, dtype, dev)
+                    yield _k29d_id(case, wname, dtype), out
+
     def _k20_lines(dev):
         for case in K20_CASES:
             for wname in PAIR_BANKS:
@@ -3974,7 +4219,7 @@ if __name__ == "__main__":
                 yield _k18a_id(case, name), torch.stack(out)
 
     tables = {"PAIR": _pair_lines, "ANA": _ana_lines, "ROWS": _rows_lines,
-              "K20": _k20_lines, "K19": _k19_lines, "K18B": _k18b_lines,
+              "K29D": _k29d_lines, "K20": _k20_lines, "K19": _k19_lines, "K18B": _k18b_lines,
               "K18A": _k18a_lines}
     want = sys.argv[2:] or list(tables)
     if (sys.argv[1:2] != ["digests"] or not set(want) <= set(tables)

@@ -201,6 +201,21 @@ def test_rows_occupancy_entry_is_declared_as_chip_turns_calls_it():
     assert _build._SIGNATURES[name] == turns.ENTRY_TYPES[name] == want
 
 
+def test_syn_rows_occupancy_entry_is_declared_as_chip_turns_calls_it():
+    """K29d's occupancy query has the ctypes signature in _build that
+    chip_turns.py gives it where a parent tree's _build lacks it: hlen, f64
+    and device, then four int pointers (blocks per SM, shared memory, tile
+    rows, tile columns)."""
+    from pypwt_tpu_torch.ops import _build
+    spec = importlib.util.spec_from_file_location("chip_turns",
+                                                  ROOT / "chip_turns.py")
+    turns = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(turns)
+    name = "pypwt_syn_rows_occupancy"
+    want = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+    assert _build._SIGNATURES[name] == turns.ENTRY_TYPES[name] == want
+
+
 def test_unshift_occupancy_entry_is_declared_as_chip_turns_calls_it():
     """K20's occupancy query has the ctypes signature in _build that
     chip_turns.py gives it where a parent tree's _build lacks it: nr, nc,
