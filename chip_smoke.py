@@ -160,11 +160,12 @@ K7a/K7b against K3/K4 (level l: 2048 rows of 2048 / 2^(l-1)) and
 K12a/K12b against K10 (level l of 2048 x 2048); it prints no ok line.
 
 ``--only KEYS`` is the loop of a kernel redesign: KEYS, comma-separated,
-name rows of the kernels line (a family such as K7, K28 or K29 names all
-of its rows); the tap-loop DWT analysis K1 and synthesis K2, the
+name rows of the kernels line (a family such as K7, K12, K28 or K29 names
+all of its rows); the tap-loop DWT analysis K1 and synthesis K2, the
 cycle-spin analysis K19 and synthesis K20, the tap-loop SWT synthesis K9, the
-non-separable SWT pair K18a/K18b, the tensor-core forms K5/K6/K11a/K11b
-and K7a/K7b, the row-sharded K26-K28 and the grid and sequence passes K29 are selectable.
+non-separable SWT pair K18a/K18b, the tensor-core forms K5/K6/K11a/K11b,
+K7a/K7b and K12a/K12b, the row-sharded K26-K28 and the grid and sequence
+passes K29 are selectable.
 It builds every kernel, then runs only those rows' phases: their
 kernel-against-plain checks over the cases above (both precisions),
 their main paths with exact launch counts, and their times at the
@@ -193,7 +194,10 @@ window path of their nonsep_swt2d.cu instances at levels 1-8 of 2048^2
 (hlen 6, 8, 40) and digests of their outputs on seeded cases;
 K7a/K7b at levels
 1-3 of the sinogram and 1-5 of the signal beside K3/K4, and the
-occupancy of the tc_dwt1d.cu instances that K7a/K7b and K29e/K29f run);
+occupancy of the tc_dwt1d.cu instances that K7a/K7b and K29e/K29f run;
+K12a/K12b at levels 1-3 of the sinogram and of the signal beside K10,
+the occupancy and grid of their tc_swt1d.cu instances at sym8 on those
+rows, and digests of their outputs on seeded rows, K12_DIGEST_CASES);
 a K29 row runs
 all of the grid and sequence checks and main paths, but times only the
 selected rows (K29e-K29h in both precisions, K29e/K29f also on a
@@ -1878,6 +1882,96 @@ def print_tc1d_occupancy(port, dev, keys):
                   f"{grid.value}")
 
 
+# (rows, samples per row, levels): the launches of K12a/K12b whose
+# occupancy --only reports, the sinogram's and the 4 Mi signal's
+TC_SWT1D_LAUNCHES = ((FRAME[0], FRAME[1], (1, 2, 3, 4)),
+                     (1, SIGNAL, (1, 2, 3)))
+# (rows, n, level, input offset, output offset): the rows whose K12a/K12b
+# outputs --only digests, so that two builds of tc_swt1d.cu compare bit
+# for bit: levels 1-4, n not a multiple of 4 and odd (the dilation does not
+# divide it), short rows packed several to an item, 32 classes an item,
+# inputs or outputs one float past a 16-byte boundary, the timed shapes
+K12_DIGEST_CASES = ([(8, 256, lev, 0, 0) for lev in (1, 2, 3, 4)]
+                    + [(3, 130, 1, 1, 0), (3, 130, 3, 0, 1),
+                       (2, 75, 2, 1, 1), (64, 40, 1, 0, 0),
+                       (64, 40, 2, 0, 0), (5, 72, 2, 1, 0),
+                       (2, 4096, 7, 0, 0), (1, 1000, 1, 1, 1)]
+                    + [(FRAME[0], FRAME[1], lev, 0, 0) for lev in (1, 2, 3)]
+                    + [(1, SIGNAL, lev, 0, 0) for lev in (1, 2, 3)])
+K12_DIGEST_BANKS = ("haar", "db2", "sym8", "sym20")
+
+
+def print_k12_occupancy(port, dev):
+    """Resident blocks per SM (the occupancy API), dynamic shared memory
+    and grid of the tc_swt1d.cu instances that K12a/K12b run at sym8 on
+    their timed rows (a build without the query says so)."""
+    from pypwt_tpu_torch.ops import _build
+    lib = _build.load_library()
+    if not hasattr(lib, "pypwt_tc_swt1d_occupancy"):
+        print("occupancy tc_swt1d.cu (K12a, K12b): not reported by this "
+              "build")
+        return
+    hlen = port.get_filter_bank("sym8").hlen
+    for (rows, n, levels), syn, prec in itertools.product(
+            TC_SWT1D_LAUNCHES, (0, 1), PRECISIONS):
+        for level in levels:
+            out = [ctypes.c_int() for _ in range(3)]
+            err = lib.pypwt_tc_swt1d_occupancy(
+                syn, rows, n, level, hlen, int(prec == "bf16"), dev.index,
+                *(ctypes.byref(o) for o in out))
+            if err:
+                raise RuntimeError(f"occupancy query K12 level {level}: "
+                                   f"error {err}")
+            blocks, smem, grid = (o.value for o in out)
+            print(f"occupancy {'K12b' if syn else 'K12a'} sym8 {prec} level "
+                  f"{level} ({rows} rows of {n}): {blocks} blocks of 256 "
+                  f"threads per SM, {smem} bytes of dynamic shared memory "
+                  f"each, grid {grid}")
+
+
+def print_k12_digests(port, dev, keys):
+    """SHA-256 of K12a's outputs (lo and hi stacked) and K12b's on seeded
+    rows (K12_DIGEST_CASES, K12_DIGEST_BANKS, both precisions), each C
+    entry called on outputs made here, NaN-filled; a case whose dilated
+    support passes the row is left out: equal lines from two trees mean
+    bit-identical kernels."""
+    fd, conv = port.ops.fused_dwt, port.conv
+    from pypwt_tpu_torch.ops import _build
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for key, seed in (("K12a", SEED + 80), ("K12b", SEED + 81)):
+        if not wanted(keys, key):
+            continue
+        syn = key == "K12b"
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        n_cases = 0
+        for (rows, n, level, oi, oo), wname, prec in itertools.product(
+                K12_DIGEST_CASES, K12_DIGEST_BANKS, PRECISIONS):
+            fb = port.get_filter_bank(wname)
+            if max(conv.swt_pads(fb.hlen, level, syn)) > n:
+                continue
+            ins = [unaligned(torch.rand((rows, n), generator=gen,
+                                        device=dev), oi)
+                   for _ in range(2 if syn else 1)]
+            outs = [torch.full((rows * n + oo,), float("nan"),
+                               device=dev)[oo:].view(rows, n)
+                    for _ in range(1 if syn else 2)]
+            taps = [fd._host_taps(f) for f in (
+                (fb.rec_lo, fb.rec_hi) if syn else (fb.dec_lo, fb.dec_hi))]
+            entry = lib.pypwt_tc_iswt1d if syn else lib.pypwt_tc_swt1d
+            err = entry(*(t.data_ptr() for t in ins + outs), rows, n, level,
+                        conv.swt_centre(fb.hlen, syn),
+                        *(t.ctypes.data for t in taps), fb.hlen,
+                        int(prec == "bf16"), dev.index, stream)
+            what = f"{wname} {prec} ({rows}, {n}) L{level} +{oi}/+{oo}"
+            if err:
+                raise RuntimeError(f"{key} {what}: error {err}")
+            print(f"digest {key} {what}: {digest(torch.stack(outs))}")
+            n_cases += 1
+            del ins, outs
+        print(f"digests of {key}: {n_cases}")
+
+
 # (key, halo): the instances of K9's and K27b's kernel body; their levels
 # whose occupancy and phase-1 path --only reports: (bank, level, dtype)
 ISWT2D_ROWS = (("K9", 0), ("K27b", 1))
@@ -3434,6 +3528,8 @@ def phase_times_mxu1d(port, dev, card, keys=None):
                 "K10a": lambda: fd.swt1d_fused(sx(), fb, level),
                 "K12b": lambda: kms.iswt1d_mxu_fused(*sc(), fb, level),
                 "K10b": lambda: fd.iswt1d_fused(*sc(), fb, level)})
+        if not calls:  # --only K12: no DWT rows past level 3
+            continue
         t = in_turns(calls, dict.fromkeys(calls, 10))
         rows = f"(1, {n}) DWT" + (f", (1, {SIGNAL}) SWT" if swt else "")
         print(f"time signal sym8 level {level} ({rows}), device us: "
@@ -5494,7 +5590,7 @@ def bound(nbytes, flops):
 MXU2D_KEYS = ("K5", "K6", "K11a", "K11b")
 SHARD_KEYS = ("K26a", "K26b", "K27a", "K27b", "K28 dwt", "K28 idwt",
               "K28 swt", "K28 iswt")
-MXU1D_KEYS = ("K7a", "K7b")
+MXU1D_KEYS = ("K7a", "K7b", "K12a", "K12b")
 ONLY_KEYS = (("K1", "K2", "K9", "K18a", "K18b", "K19", "K20") + MXU2D_KEYS
              + MXU1D_KEYS + SHARD_KEYS + K29)
 
@@ -5509,13 +5605,13 @@ def in_family(key, item):
 
 def only_keys(spec):
     """The rows that ``--only`` names: each comma-separated item is a row's
-    key or a family (K7, K28, K29), or SystemExit."""
+    key or a family (K7, K12, K28, K29), or SystemExit."""
     keys = set()
     for item in (t.strip() for t in spec.split(",")):
         got = {k for k in ONLY_KEYS if in_family(k, item)}
         if not got:
             print(f"chip_smoke: --only {item!r} names no selectable row "
-                  f"(one of {', '.join(ONLY_KEYS)}, or K7, K28, K29)",
+                  f"(one of {', '.join(ONLY_KEYS)}, or K7, K12, K28, K29)",
                   file=sys.stderr)
             sys.exit(2)
         keys |= got
@@ -5592,6 +5688,9 @@ def run_only(port, dev, card, keys):
         library.update(phase_library(port, dev, card, keys))
     if wanted(keys, "K7a", "K7b", "K29e", "K29f"):
         print_tc1d_occupancy(port, dev, keys)
+    if wanted(keys, "K12a", "K12b"):
+        print_k12_occupancy(port, dev)
+        print_k12_digests(port, dev, keys)
     if wanted(keys, *SHARD_KEYS):
         worst.update(phase_kernels_sharded(port, dev, keys))
         launches.update(phase_main_paths_sharded(port, dev, keys))

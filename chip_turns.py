@@ -3,8 +3,8 @@ DWT synthesis or analysis, the row passes of the grid layout, or the
 cycle-spin synthesis or analysis, of several source trees in turns, in one
 process, on one NVIDIA GPU, or compare their kernels' machine code:
 
-    python3 chip_turns.py [--only dwt|idwt|syn2d|ana2d|rows|spin|shift|nsswt]
-        [--banks B,...] [--levels L,...] PARENT_TREE TREE [TREE ...]
+    python3 chip_turns.py [--only dwt|idwt|syn2d|ana2d|rows|spin|shift|nsswt|
+        swt1d] [--banks B,...] [--levels L,...] PARENT_TREE TREE [TREE ...]
     python3 chip_turns.py --sass PARENT_TREE TREE [TREE ...]
 
 A tree is a directory holding a ``pypwt_tpu_torch`` package: an unpacked
@@ -52,7 +52,13 @@ float64, on the custom 2D banks db3xcoif1 (db3 rows x coif1 columns, hlen
 6) and dense8 (``--banks``: these instead; ``denseN`` is a dense random
 N x N bank; ``--levels``: these levels instead), and the L3
 non-separable SWT roundtrip of the frame on the first bank (3 K18a, then
-3 K18b, float32).
+3 K18b, float32). ``--only swt1d`` (not in the default run): K12a
+(``pypwt_tc_swt1d``) and K12b (``pypwt_tc_iswt1d``) at levels 1-4 of the
+2048 x 2048 sinogram (``--levels``: these levels instead), haar, db2,
+sym8 and sym20 (``--banks``: these banks instead), and at levels 1-3 of
+the (1, 4 Mi) signal, sym8, "highest" and "bf16", with each tree's
+``pypwt_tc_swt1d_occupancy`` at those rows; first, the sinogram's sym8
+L3 SWT roundtrip of mode "mxu" (3 K12a, then 3 K12b).
 Device time by CUDA events behind a sleep kernel, the median of 21
 samples of 10 launches, and the host time of one call (entry to return,
 the device idle before it), the median of 21; the trees in order, then
@@ -65,7 +71,8 @@ instances' occupancy (``pypwt_tc_dwt2d_occupancy``,
 ``pypwt_syn_rows_occupancy``,
 ``pypwt_idwt2d_unshift_occupancy``, ``pypwt_dwt2d_shifted_occupancy``,
 ``pypwt_ns_swt2d_occupancy``,
-``pypwt_ins_swt2d_occupancy``: blocks per SM, dynamic shared memory and,
+``pypwt_ins_swt2d_occupancy``, ``pypwt_tc_swt1d_occupancy``: blocks per
+SM, dynamic shared memory and,
 for the tap loop, the row passes, K18a and K18b, the tile shape; K18a
 and K18b also whether their windows are staged).
 
@@ -125,6 +132,10 @@ ROWS_BLOCK = (4096, 4096)       # one block of an 8192^2 image on a 2 x 2 grid
 K29D_BANKS = ["sym20"]          # K29d's rows beside ROWS_BANKS
 ROWS_F64_BANKS = ["db4"]        # K29d's float64 rows
 SINOGRAM = (2048, 2048)         # K12a/K12b's rows
+SIGNAL = (1, 4 << 20)           # K12a/K12b's signal (K15's map)
+SWT1D_BANKS = ["haar", "db2", "sym8", "sym20"]  # K12a/K12b's (--banks)
+SWT1D_LEVELS = [1, 2, 3, 4]     # their sinogram levels (--levels)
+SIGNAL_LEVELS = [1, 2, 3]       # their signal levels
 SYN2D_TYPES = (torch.float32, torch.float64)
 # entries that a parent tree's _build may not declare
 ENTRY_TYPES = {
@@ -137,6 +148,7 @@ ENTRY_TYPES = {
     "pypwt_tc_rows_occupancy": [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4,
     "pypwt_syn_rows_occupancy": [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4,
     "pypwt_ns_swt2d_occupancy": [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5,
+    "pypwt_tc_swt1d_occupancy": [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3,
     "pypwt_ins_swt2d_occupancy": [ctypes.c_int] * 7
     + [ctypes.c_void_p] * 5}
 
@@ -172,6 +184,7 @@ def load(trees):
                      "pypwt_dwt2d_shifted_occupancy", "pypwt_syn_rows",
                      "pypwt_syn_rows_f64", "pypwt_syn_rows_occupancy",
                      "pypwt_tc_swt1d", "pypwt_tc_iswt1d",
+                     "pypwt_tc_swt1d_occupancy",
                      "pypwt_ns_swt2d",
                      "pypwt_ns_swt2d_f64", "pypwt_ns_swt2d_occupancy",
                      "pypwt_ins_swt2d", "pypwt_ins_swt2d_f64",
@@ -471,16 +484,16 @@ def cases(port, dev, only):
             return out
         return call
 
-    def k12a(level):
-        fbw = port.get_filter_bank("sym8")
+    def k12a(wname, level, shape=SINOGRAM):
+        fbw = port.get_filter_bank(wname)
         lo2, hi2 = fd._host_taps(fbw.dec_lo), fd._host_taps(fbw.dec_hi)
-        xs = [rand(SINOGRAM) for _ in range(2)]
-        out = [torch.empty(SINOGRAM, device=dev) for _ in range(2)]
+        xs = [rand(shape) for _ in range(2)]
+        out = [torch.empty(shape, device=dev) for _ in range(2)]
 
         def call(lib, i, bf16):
             err = lib.pypwt_tc_swt1d(
                 xs[i % 2].data_ptr(), *(o.data_ptr() for o in out),
-                SINOGRAM[0], SINOGRAM[1], level,
+                shape[0], shape[1], level,
                 port.conv.swt_centre(fbw.hlen, False), lo2.ctypes.data,
                 hi2.ctypes.data, fbw.hlen, bf16, dev.index, stream)
             if err:
@@ -488,22 +501,56 @@ def cases(port, dev, only):
             return out
         return call
 
-    def k12b(level):
-        fbw = port.get_filter_bank("sym8")
+    def k12b(wname, level, shape=SINOGRAM):
+        fbw = port.get_filter_bank(wname)
         lo2, hi2 = fd._host_taps(fbw.rec_lo), fd._host_taps(fbw.rec_hi)
-        sets = [[rand(SINOGRAM) for _ in range(2)] for _ in range(2)]
-        out = torch.empty(SINOGRAM, device=dev)
+        sets = [[rand(shape) for _ in range(2)] for _ in range(2)]
+        out = torch.empty(shape, device=dev)
 
         def call(lib, i, bf16):
             a, d = sets[i % 2]
             err = lib.pypwt_tc_iswt1d(
-                a.data_ptr(), d.data_ptr(), out.data_ptr(), SINOGRAM[0],
-                SINOGRAM[1], level, port.conv.swt_centre(fbw.hlen, True),
+                a.data_ptr(), d.data_ptr(), out.data_ptr(), shape[0],
+                shape[1], level, port.conv.swt_centre(fbw.hlen, True),
                 lo2.ctypes.data, hi2.ctypes.data, fbw.hlen, bf16, dev.index,
                 stream)
             if err:
                 raise RuntimeError(f"K12b level {level}: error {err}")
             return out
+        return call
+
+    def k12_roundtrip():
+        """The sym8 L3 SWT roundtrip of the sinogram in mode "mxu": K12a at
+        levels 1-3, each on the approximation before, then K12b at levels
+        3-1 (3 + 3 launches)."""
+        fbw = port.get_filter_bank("sym8")
+        dec = [fd._host_taps(f) for f in (fbw.dec_lo, fbw.dec_hi)]
+        rec = [fd._host_taps(f) for f in (fbw.rec_lo, fbw.rec_hi)]
+        xs = [rand(SINOGRAM) for _ in range(2)]
+        levels = [[torch.empty(SINOGRAM, device=dev) for _ in range(2)]
+                  for _ in range(3)]
+        outs = [torch.empty(SINOGRAM, device=dev) for _ in range(3)]
+
+        def call(lib, i, bf16):
+            x, err = xs[i % 2], 0
+            for lev, (a, d) in enumerate(levels, 1):
+                err = err or lib.pypwt_tc_swt1d(
+                    x.data_ptr(), a.data_ptr(), d.data_ptr(), *SINOGRAM, lev,
+                    port.conv.swt_centre(fbw.hlen, False),
+                    *(t.ctypes.data for t in dec), fbw.hlen, bf16, dev.index,
+                    stream)
+                x = a
+            for lev in (3, 2, 1):
+                err = err or lib.pypwt_tc_iswt1d(
+                    x.data_ptr(), levels[lev - 1][1].data_ptr(),
+                    outs[lev - 1].data_ptr(), *SINOGRAM, lev,
+                    port.conv.swt_centre(fbw.hlen, True),
+                    *(t.ctypes.data for t in rec), fbw.hlen, bf16, dev.index,
+                    stream)
+                x = outs[lev - 1]
+            if err:
+                raise RuntimeError(f"K12 roundtrip: error {err}")
+            return x
         return call
 
     def k19(wname, level, shift, mode):
@@ -660,8 +707,20 @@ def cases(port, dev, only):
                 for lev in (0, 1, 2)})
         for lev in (1, 2, 3):
             for key, make in (("K12a", k12a), ("K12b", k12b)):
-                got[f"{key} sinogram level {lev} sym8"] = (make(lev),
+                got[f"{key} sinogram level {lev} sym8"] = (make("sym8", lev),
                                                            precisions)
+    if only == "swt1d":
+        got["K12 sinogram SWT L3 roundtrip sym8"] = (k12_roundtrip(),
+                                                     precisions)
+        for wname in SWT1D_BANKS:
+            for lev in SWT1D_LEVELS:
+                for key, make in (("K12a", k12a), ("K12b", k12b)):
+                    got[f"{key} sinogram level {lev} {wname}"] = (
+                        make(wname, lev), precisions)
+        for lev in SIGNAL_LEVELS:
+            for key, make in (("K12a", k12a), ("K12b", k12b)):
+                got[f"{key} signal level {lev} sym8"] = (
+                    make("sym8", lev, SIGNAL), precisions)
     if only == "spin":
         for wname in SPIN_BANKS:
             for lev, shift, acc in SPIN_LEVELS:
@@ -819,21 +878,23 @@ def main():
     if trees[:1] == ["--only"]:
         only, trees = (trees[1:2] or [""])[0], trees[2:]
     if trees[:1] == ["--banks"] and only in ("syn2d", "ana2d", "rows",
-                                             "spin", "shift", "nsswt"):
+                                             "spin", "shift", "nsswt",
+                                             "swt1d"):
         banks = {"rows": ROWS_BANKS, "spin": SPIN_BANKS,
-                 "shift": SHIFT_BANKS,
-                 "nsswt": NSSWT_BANKS}.get(only, SYN2D_BANKS)
+                 "shift": SHIFT_BANKS, "nsswt": NSSWT_BANKS,
+                 "swt1d": SWT1D_BANKS}.get(only, SYN2D_BANKS)
         banks[:] = (trees[1:2] or [""])[0].split(",")
         trees = trees[2:]
-    if trees[:1] == ["--levels"] and only == "nsswt":
-        NSSWT_LEVELS[:] = [int(v) for v in (trees[1:2] or [""])[0].split(",")]
+    if trees[:1] == ["--levels"] and only in ("nsswt", "swt1d"):
+        levels = NSSWT_LEVELS if only == "nsswt" else SWT1D_LEVELS
+        levels[:] = [int(v) for v in (trees[1:2] or [""])[0].split(",")]
         trees = trees[2:]
     if len(trees) < 2 or only not in (None, "dwt", "idwt", "syn2d",
                                       "ana2d", "rows", "spin", "shift",
-                                      "nsswt"):
+                                      "nsswt", "swt1d"):
         print("usage: python3 chip_turns.py [--only dwt|idwt|syn2d|ana2d|"
-              "rows|spin|shift|nsswt] [--banks B,...] "
-              "[--levels L,... (nsswt)] "
+              "rows|spin|shift|nsswt|swt1d] [--banks B,...] "
+              "[--levels L,... (nsswt, swt1d)] "
               "PARENT_TREE TREE [TREE ...]", file=sys.stderr)
         sys.exit(2)
     if not torch.cuda.is_available():
@@ -877,6 +938,8 @@ def main():
         print_spin_occupancy(trees, libs, port, dev, only)
     if only == "nsswt":
         print_nsswt_occupancy(trees, libs, port, dev)
+    if only == "swt1d":
+        print_swt1d_occupancy(trees, libs, port, dev)
     for name, (call, variants) in calls.items():
         for bf16 in variants:
             digests = {hashlib.sha256(flat(call(lib, 0, bf16)).cpu()
@@ -1032,6 +1095,31 @@ def print_nsswt_occupancy(trees, libs, port, dev):
                       f"{lev} {bname} {str(dtype)[6:]}: {blocks} blocks per "
                       f"SM, {smem} bytes, tiles of {tr} x {tc} outputs, "
                       f"{'staged' if staged else 'direct'}")
+
+
+def print_swt1d_occupancy(trees, libs, port, dev):
+    """Blocks per SM, dynamic shared memory and grid of each tree's K12a
+    and K12b instances at the timed banks, levels and rows, both
+    precisions, where the tree reports them."""
+    query = "pypwt_tc_swt1d_occupancy"
+    launches = ([(SINOGRAM, lev) for lev in SWT1D_LEVELS]
+                + [(SIGNAL, lev) for lev in SIGNAL_LEVELS])
+    for tree, lib in zip(trees, libs):
+        if not hasattr(lib, query):
+            print(f"occupancy {tree} K12a, K12b: not reported by this tree")
+            continue
+        for (syn, key), wname, ((rows, n), lev), bf16 in itertools.product(
+                ((0, "K12a"), (1, "K12b")), SWT1D_BANKS, launches, (0, 1)):
+            out = [ctypes.c_int() for _ in range(3)]
+            err = getattr(lib, query)(
+                syn, rows, n, lev, port.get_filter_bank(wname).hlen, bf16,
+                dev.index, *(ctypes.byref(o) for o in out))
+            if err:
+                raise RuntimeError(f"occupancy query: error {err}")
+            blocks, smem, grid = (o.value for o in out)
+            print(f"occupancy {tree} {key} ({rows}, {n}) level {lev} "
+                  f"{wname} {'bf16' if bf16 else 'highest'}: {blocks} blocks "
+                  f"per SM, {smem} bytes, grid {grid}")
 
 
 if __name__ == "__main__":

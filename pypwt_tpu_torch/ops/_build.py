@@ -150,6 +150,9 @@ _SIGNATURES = {
     # synthesis, rows, n, hlen, bf16, halo, device, blocks (int*),
     # smem (int*), grid (int*)
     "pypwt_tc_dwt1d_occupancy": [_I] * 7 + [_P] * 3,
+    # synthesis, rows, n, level, hlen, bf16, device, blocks (int*), smem
+    # (int*), grid (int*) (K12a / K12b)
+    "pypwt_tc_swt1d_occupancy": [_I] * 7 + [_P] * 3,
     # synthesis, hlen, bf16, device, blocks (int*), smem (int*), tile rows
     # (int*), tile columns (int*) (K29g / K29h)
     "pypwt_tc_rows_occupancy": [_I] * 4 + [_P] * 4,

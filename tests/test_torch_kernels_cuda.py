@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from pypwt_tpu_torch import Wavelets, ops, pipeline
-from pypwt_tpu_torch.core import dwt, nonsep, swt
+from pypwt_tpu_torch.core import conv, dwt, nonsep, swt
 from pypwt_tpu_torch.core.nonsep import Filters2D
 from pypwt_tpu_torch.filters import FilterBank, get_filter_bank
 from pypwt_tpu_torch.ops import _build
@@ -4164,6 +4164,853 @@ K18B_DIGESTS = {
         '69d99daa01ea8b34388e39734473d215adb5b0726e53f03071df397f09530995',
 }
 
+
+# K12a / K12b, tc_swt1d.cu's class-window body: each output against its
+# plain version and against the SHA-256 of the output that the body before
+# its redesign (a block per item, windows staged sample by sample through
+# registers, every output through a shared tile) gave on the card for the
+# same seeded inputs; `python tests/test_torch_kernels_cuda.py digests K12`
+# prints K12_DIGESTS's form. Banks of hlen 2, 4, 5, 16 and 40, both
+# precisions; (rows, n, level, input offset, output offset): levels 1-4 of
+# 8 rows of 256; n not a multiple of 4 (130) and odd (75: the dilation
+# does not divide it); short rows packed 25 and 21 to an item (64 x 40 at
+# levels 1 and 2); rows that wrap within an item (5 x 72); 32 classes an
+# item (2 x 4096 at level 7); inputs or outputs one float past a 16-byte
+# boundary; and the timed shapes, levels 1-3 of the 2048 x 2048 sinogram
+# and of the (1, 4 Mi) signal. The C entries are called on outputs made
+# here, NaN-filled; a case whose dilated support passes the row (which the
+# wrappers refuse) is left out.
+K12_BANKS = ["haar", "db2", "odd5", "sym8", "sym20"]
+K12_CASES = ([(8, 256, lev, 0, 0) for lev in (1, 2, 3, 4)]
+             + [(3, 130, 1, 1, 0), (3, 130, 3, 0, 1), (2, 75, 1, 0, 1),
+                (2, 75, 2, 1, 1), (64, 40, 1, 0, 0), (64, 40, 2, 0, 0),
+                (5, 72, 2, 1, 0), (2, 4096, 7, 0, 0), (1, 1000, 1, 1, 1)]
+             + [(2048, 2048, lev, 0, 0) for lev in (1, 2, 3)]
+             + [(1, 4 << 20, lev, 0, 0) for lev in (1, 2, 3)])
+
+
+def _k12_fits(case, wname):
+    hlen, level = _bank(wname).hlen, case[2]
+    return max(*conv.swt_pads(hlen, level, False),
+               *conv.swt_pads(hlen, level, True)) <= case[1]
+
+
+K12_PARAMS = [(kind, case, wname) for kind in ("K12a", "K12b")
+              for case in K12_CASES for wname in K12_BANKS
+              if _k12_fits(case, wname)]
+
+
+def _k12_id(kind, case, wname, prec):
+    return "-".join([kind, wname, prec, *(str(v) for v in case)])
+
+
+def _k12_output(kind, case, wname, prec, dev):
+    """(kernel output, plain output) of one case (K12a: lo and hi stacked):
+    the C entry launched once on seeded rows at the case's input offset,
+    into NaN-filled outputs at its output offset."""
+    fb = _bank(wname)
+    rows, n, level, oi, oo = case
+    bf16 = int(prec == "bf16")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.load_library()
+
+    def empty():
+        return torch.full((rows * n + oo,), float("nan"),
+                          device=dev)[oo:].view(rows, n)
+
+    if kind == "K12a":
+        x = _offset(_rand((rows, n), dev, 12), oi)
+        lo, hi = empty(), empty()
+        taps = [fd._host_taps(f) for f in (fb.dec_lo, fb.dec_hi)]
+        err = lib.pypwt_tc_swt1d(
+            x.data_ptr(), lo.data_ptr(), hi.data_ptr(), rows, n, level,
+            conv.swt_centre(fb.hlen, False), *(t.ctypes.data for t in taps),
+            fb.hlen, bf16, dev.index, stream)
+        assert err == 0
+        return (torch.stack([lo, hi]),
+                torch.stack(kms.swt1d_mxu_plain(x, fb, level, prec)))
+    a, d = (_offset(_rand((rows, n), dev, s), oi) for s in (13, 14))
+    out = empty()
+    taps = [fd._host_taps(f) for f in (fb.rec_lo, fb.rec_hi)]
+    err = lib.pypwt_tc_iswt1d(
+        a.data_ptr(), d.data_ptr(), out.data_ptr(), rows, n, level,
+        conv.swt_centre(fb.hlen, True), *(t.ctypes.data for t in taps),
+        fb.hlen, bf16, dev.index, stream)
+    assert err == 0
+    return out, kms.iswt1d_mxu_plain(a, d, fb, level, prec)
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+@pytest.mark.parametrize("kind, case, wname", K12_PARAMS, ids=str)
+def test_k12_body_matches_plain_and_parent(dev, kind, case, wname, prec):
+    got, ref = _k12_output(kind, case, wname, prec, dev)
+    _close_prec(got, ref, prec)
+    assert _sha256(got) == K12_DIGESTS[_k12_id(kind, case, wname, prec)]
+
+
+K12_DIGESTS = {
+    'K12a-haar-highest-8-256-1-0-0':
+        '14e4b3bc91cdb03a804e1ed8cc6502a9322bb11f649df23e4b2ccd15baaf9d42',
+    'K12a-haar-bf16-8-256-1-0-0':
+        '1f72941e8d224f3b3133537edb0c5515903deb83548c483e6f27dab8d7bf19df',
+    'K12a-db2-highest-8-256-1-0-0':
+        'c45f8960bc707decf6947dc5f6c7641a98b550c20d46124142d6cd8155e2f661',
+    'K12a-db2-bf16-8-256-1-0-0':
+        '20f08d116d330e62611e1c38cc7697946b1a9540c88263020c3f46e36ef80065',
+    'K12a-odd5-highest-8-256-1-0-0':
+        '6a18948469864e7d991cc687a75ae794c853f0ab2011ee3170e646ac934b8dd2',
+    'K12a-odd5-bf16-8-256-1-0-0':
+        '776d125c95a3b51863fdd548ec06e49d8cedbb6cecd27d6d1cfe7540e32485a5',
+    'K12a-sym8-highest-8-256-1-0-0':
+        '2ecd9a67a4fd53cb04f63e57f1f06816eb45897cf7ba2684341371b942ee6aa5',
+    'K12a-sym8-bf16-8-256-1-0-0':
+        '3b8fb89d4e66825a7c189179f4934121886b2be90802a4a707f831c6ad4bde51',
+    'K12a-sym20-highest-8-256-1-0-0':
+        '9865cea19efafac779cdfc45e24334ed2972c80941bf24ccec2feb3d95c1178b',
+    'K12a-sym20-bf16-8-256-1-0-0':
+        '9b8f6658c34812f8286d5ee6ac79c7ce0b74b6ad11306614f39dbea053f85d3d',
+    'K12a-haar-highest-8-256-2-0-0':
+        '1db62bca6ea305842159a6c2b35bcf5b53ac40a27cefa2f247d17a0dab95ade4',
+    'K12a-haar-bf16-8-256-2-0-0':
+        'd468c5d62b6047af68f8f88eccaf3c6df103fe43ea5ac612aab9e0479e42ca0e',
+    'K12a-db2-highest-8-256-2-0-0':
+        '61fdbf55c292ae200743017ae4bbc345f011a8d6b7099ede308c6bffaf1f0be4',
+    'K12a-db2-bf16-8-256-2-0-0':
+        '3380936fb1454ea8257a314e75e4f9699b724751ee35622c05797a6fa8b7b959',
+    'K12a-odd5-highest-8-256-2-0-0':
+        '4c30721a5183d84368770e19d0015d540e422808abab4c5b07e302cdc1e4c8a5',
+    'K12a-odd5-bf16-8-256-2-0-0':
+        'dd128a8015d815d4113dca4ae9fe62cd9edffc848fea69f2735189b4c9c26b07',
+    'K12a-sym8-highest-8-256-2-0-0':
+        '3a02fa87db9937de6dffa8d9a8d6b378eb2475735484cc031b1640a7f6a17d5f',
+    'K12a-sym8-bf16-8-256-2-0-0':
+        'd81fbc8ec966bde3d63282aac401f8da6ab307ac0fcd76adbf5b158d27dff4f4',
+    'K12a-sym20-highest-8-256-2-0-0':
+        '97ad35bb834a926fbd6453c6f3b8a1ff0e19ed47a5a4864e9533badc8259b6c2',
+    'K12a-sym20-bf16-8-256-2-0-0':
+        'c06d100a155d81afc6fea70bf4ee7f2a390fd075894522d3b995614aa5f21848',
+    'K12a-haar-highest-8-256-3-0-0':
+        '2cb67cc678a4e2512fb37b1aea16f3d3efb474e48d2a014d6e26a3623e6b60e7',
+    'K12a-haar-bf16-8-256-3-0-0':
+        'dc5f35db7438a354081870fc036dd8c2ba0e50264c4087a9c73878eee03b7c41',
+    'K12a-db2-highest-8-256-3-0-0':
+        'db1b04843408131fd09b5609d55d79a644d6dc5225281fc530fa593e318e9df2',
+    'K12a-db2-bf16-8-256-3-0-0':
+        '1c7aeb70d96d45d7e93e939b4639b8f3dfffc161cb14605cedb39480a692c17a',
+    'K12a-odd5-highest-8-256-3-0-0':
+        'd5fbb72f481e7ac6161756e15aa77488d3688ed88440bf56b003dc3ed8a18b35',
+    'K12a-odd5-bf16-8-256-3-0-0':
+        '929f24489bbadfebf28ddd7759221292e310042293adef7be46893ee6da0590c',
+    'K12a-sym8-highest-8-256-3-0-0':
+        'aead391863692f3243ee713ac79356ba37444037292d297f0cb99c21b366103a',
+    'K12a-sym8-bf16-8-256-3-0-0':
+        'e551526095226b547fa3bd6272c14e2504ab47574f5d2b264625f4cd48687595',
+    'K12a-sym20-highest-8-256-3-0-0':
+        'f0f6ddc2df08dcc164fe72bb482c627d6a07db5f270af308745e99204da2cc15',
+    'K12a-sym20-bf16-8-256-3-0-0':
+        '9e94a6ecccaba65165082d14adb7a997581138a42e77083f82ac5d3b5c052b94',
+    'K12a-haar-highest-8-256-4-0-0':
+        '3dd2b47c394bb208d9a6c3336d4afa1f6a72a4e383d51bde9c61c429c6cf7682',
+    'K12a-haar-bf16-8-256-4-0-0':
+        '10a3be69ed77b98d281516623f4d606881161a947e3da0ab2d94ba5caae4a7d4',
+    'K12a-db2-highest-8-256-4-0-0':
+        'e979db00063640ccfecd56c74c9a095a544db745b1bc2cea1cd09f88eb5a3ee6',
+    'K12a-db2-bf16-8-256-4-0-0':
+        '888ab20e30edb19432107f690d0c405fc96699293be2645414b04ceba2b16f41',
+    'K12a-odd5-highest-8-256-4-0-0':
+        '0e7897537a47146dae4bc0248e73d89b998460eef1e737ac7741cdded17b2040',
+    'K12a-odd5-bf16-8-256-4-0-0':
+        'e3bef1315371ef5789cb2e7ee4c7d2739f92b486d41b8157986f63a698866e6e',
+    'K12a-sym8-highest-8-256-4-0-0':
+        '8df96e8a73e36bcf87d55050d4a5f5d9d0cb73e9d4f9d21170bd168d9794aa71',
+    'K12a-sym8-bf16-8-256-4-0-0':
+        'b3ee2620dec0eab2914f741d3accfeb2458842f688787f51751d6469f99e9422',
+    'K12a-sym20-highest-8-256-4-0-0':
+        '37b8e9655bd1e7aa5ca5ea82286740016c64169de73cac847020a61c1e76849b',
+    'K12a-sym20-bf16-8-256-4-0-0':
+        'ea47b7876bf66505c7294d6c33e433082d2b1bd4c9cd41060ad13b6f8c4040d9',
+    'K12a-haar-highest-3-130-1-1-0':
+        'a488612834786ef3568d545086c83e9b15ef24ca92d7875d7abd45a00728ab2c',
+    'K12a-haar-bf16-3-130-1-1-0':
+        '164697975bc4865b7e0d0dc3dfe62c02217ecce724675836d7d1962b08e5a454',
+    'K12a-db2-highest-3-130-1-1-0':
+        '4b343204d03418a0a8c818c3f6411e0d27c097b979d65742dccb789de41fac11',
+    'K12a-db2-bf16-3-130-1-1-0':
+        'cbf8f03cc44cfe715144d0433f0069ed646fe4643c30677777c3d0d02eea9b17',
+    'K12a-odd5-highest-3-130-1-1-0':
+        'd1f697bf4fbe4bd616b021fd0187b698347a9aa2ab7b1b2e2938fb064bea6aeb',
+    'K12a-odd5-bf16-3-130-1-1-0':
+        '96f53290a82b277e71b6d0a37a47156c76e6d6101efa581e7ff8b8c31ac9f372',
+    'K12a-sym8-highest-3-130-1-1-0':
+        'bbb4974120139e5bf92f43e735d750dff5a8268ab15befff4c6861a24c514c48',
+    'K12a-sym8-bf16-3-130-1-1-0':
+        '72cc5724a2be66f98967a9abb0e8236dfa783f9da811ff2ba32d3bdb23858c37',
+    'K12a-sym20-highest-3-130-1-1-0':
+        'eb99a1ec47531da949c88b0193d64c322d14ea75fe544df4274e24134a764557',
+    'K12a-sym20-bf16-3-130-1-1-0':
+        'c102b72659c75d078c0c45cb960c30f8364d7b14538b695716758c8f075f0b49',
+    'K12a-haar-highest-3-130-3-0-1':
+        '51af3cfa7eaf5d3619f9160f1b05e41ba44c00d2a5bdb3d35b03e07f53dec5df',
+    'K12a-haar-bf16-3-130-3-0-1':
+        '9e3bc9f212e01852d3728e59caef13a9a67113d24c1954031309a6cfe4fb8c7a',
+    'K12a-db2-highest-3-130-3-0-1':
+        '0898014446ef0dfd6c0f1f235c56e9e21b544d65be5dcd31c65df865665bee45',
+    'K12a-db2-bf16-3-130-3-0-1':
+        '0887bed601e7b45024b5ce298e64082f652f6d965039b0d24fe01a8a7213dcd4',
+    'K12a-odd5-highest-3-130-3-0-1':
+        '22b0121445637517a2986993cccac40d0529c488b9e4d3890447d9929fca411c',
+    'K12a-odd5-bf16-3-130-3-0-1':
+        '773a2f135d735a99b91d6e4c6627fc4ada1b6ba38714cf5000f135ac04efc464',
+    'K12a-sym8-highest-3-130-3-0-1':
+        '2ab9220c64184df2875d7c551640bd73d1416dcc2aaeb25baf9415cde896a61f',
+    'K12a-sym8-bf16-3-130-3-0-1':
+        '792c623b47a7374bcf22fde7ea2c242aa7cc7f93b5096411d6a128b0a5234bc9',
+    'K12a-sym20-highest-3-130-3-0-1':
+        '5f97047f663c9889e9109e06b4e7cae5b6a915e3fc9ea7658e8914b2fa11e77e',
+    'K12a-sym20-bf16-3-130-3-0-1':
+        '5b467685ff7160c1e63213ac1bf600c28040bcfc12375744aebe0e07fd1a52ec',
+    'K12a-haar-highest-2-75-1-0-1':
+        '8f1006bde2ebc10f5da25023e605167619070a5da73b69dbc6fdbd309ce3fff0',
+    'K12a-haar-bf16-2-75-1-0-1':
+        '4b10dd30f5302f66e76106eae6e99d656745008e1734a573875360707eb01d69',
+    'K12a-db2-highest-2-75-1-0-1':
+        'bac03707968f885382c8666d839dd6bbaf7e760a26464e3d0e6581cda3f05f9c',
+    'K12a-db2-bf16-2-75-1-0-1':
+        '3c85a0a4b61aab8c697c3db8697112bccb6ebc9f3bc8f0da83f7de8a2fbf6bff',
+    'K12a-odd5-highest-2-75-1-0-1':
+        '1b715e4df27837944a1c148b7f0fa9aad73841ec9fc0671d82fa667d175602e8',
+    'K12a-odd5-bf16-2-75-1-0-1':
+        '65657916ee6b6bc3115edd126bda60e87427579482fcb14d9d1085f05fa9007a',
+    'K12a-sym8-highest-2-75-1-0-1':
+        '6642d901a5cd497331c479309ee28fd014814cbc4e2605f4bfcda54951314baf',
+    'K12a-sym8-bf16-2-75-1-0-1':
+        '1e079d3951eff23ad06f1d144b13e8e7b0fe8317ae52c7fc604d03f353cca35e',
+    'K12a-sym20-highest-2-75-1-0-1':
+        'fd7394520ee3560450657a6c288269dd3763cac7478c88b5a6df5531c3cd740d',
+    'K12a-sym20-bf16-2-75-1-0-1':
+        'a064491924f435183897a20ff6fbfc1891636a67d32bd7b45322a51fd30a46c3',
+    'K12a-haar-highest-2-75-2-1-1':
+        'a1ccc0ea53ad725a56ffe55b8ec58e11acf9997f757b8e7ab548f81e254d0c97',
+    'K12a-haar-bf16-2-75-2-1-1':
+        '02f4f91605e717954bcd50a79c4ed9718d7944d7c92564880f817397838571a7',
+    'K12a-db2-highest-2-75-2-1-1':
+        '5bfd45f031507e0aad57744336cd54f036fe2b9a770226e8bbf030ee53b02b0d',
+    'K12a-db2-bf16-2-75-2-1-1':
+        '6f4ef7643f4d937f899dd3cc248f6b3e2fda982d2f621c0dc0fc92bfaf138b66',
+    'K12a-odd5-highest-2-75-2-1-1':
+        '40040fd362973ae6353e09253355e5df0e4179c93617dc3c1085d7b7a95bc478',
+    'K12a-odd5-bf16-2-75-2-1-1':
+        '7a055e8472344b72811b18148851dd2243de9de20bb76e54e94d9c439b4b01f1',
+    'K12a-sym8-highest-2-75-2-1-1':
+        '309827921da0f4221ee6779812fc61b501a033efe7ea6138b655f31a09aef09f',
+    'K12a-sym8-bf16-2-75-2-1-1':
+        'fec3a2689e49bfb132d69bafe9bcba1d90890e274ac575e47e340a37e478be65',
+    'K12a-sym20-highest-2-75-2-1-1':
+        'ca21a2f73b96f4113b53828e3f8bb4c430c13fc1e8ba4d18c445cfb270ca69b5',
+    'K12a-sym20-bf16-2-75-2-1-1':
+        '394296c9c2b7079a96ee7b11f28b9f251f7f9ad156dba5a529192d5ff8540c69',
+    'K12a-haar-highest-64-40-1-0-0':
+        '565fa0c352c6d9ce8445754783bc4fe6e077a6117ce99e107ce5fe8200e42b22',
+    'K12a-haar-bf16-64-40-1-0-0':
+        '028deb90e9e0005c5ce837d5f9917101028595c2acb5313242cc9a0446520b34',
+    'K12a-db2-highest-64-40-1-0-0':
+        '18314ecf2456667ff8045c3a2e037b21e66c4363aa1c4cfc461f6987d865e7b6',
+    'K12a-db2-bf16-64-40-1-0-0':
+        '02712c665b9794026375510119b010b070c97c66c9e1c844fcdbb829a58dc988',
+    'K12a-odd5-highest-64-40-1-0-0':
+        '558a999746de382b8a5d326d5647d6f53fa77452a2d5bfb8b22a5e8e1c2f5f4f',
+    'K12a-odd5-bf16-64-40-1-0-0':
+        'f5d1706ffc9fe755c4de66b7a329e3ee79dccba773ebc8c8fa2239954f0bc68e',
+    'K12a-sym8-highest-64-40-1-0-0':
+        '89c4daa699fc4545275110803074fdec08c61af5411109da3b456bb54c1fae3e',
+    'K12a-sym8-bf16-64-40-1-0-0':
+        '27706eebe2f2a46fa8fc00c2f3e66c6fa7793b14cd711701e39e757f0005d044',
+    'K12a-sym20-highest-64-40-1-0-0':
+        '77622390503f6e78584856a7da97726db1ed7ff6078d32c7acdd768dbddd992d',
+    'K12a-sym20-bf16-64-40-1-0-0':
+        '04220f760080d20feeb617ca2e27170e8699e60a5b357768e5f6da54cbfe358e',
+    'K12a-haar-highest-64-40-2-0-0':
+        'c3d9a3bca225000e9a8cf02f9a1656b21d5b71eb716f1b4df3a6239b59064b05',
+    'K12a-haar-bf16-64-40-2-0-0':
+        'be579ce19f2ec0321c8cba59deb1834e521940c550a7daf296cddb1fa541a0dd',
+    'K12a-db2-highest-64-40-2-0-0':
+        '4db259d5375af9543f2ecb5683ec2f45bd679318829cb8c5e51aa2cf32257430',
+    'K12a-db2-bf16-64-40-2-0-0':
+        '835e4d5e8ed9aa7ccad09e182de0389ce80ebc85793e90a4d9fccba42ac9457c',
+    'K12a-odd5-highest-64-40-2-0-0':
+        'f9dfb0b9fd843678d14d4e893aa83417f247d0827066c0bf2bc23ea3924b10bf',
+    'K12a-odd5-bf16-64-40-2-0-0':
+        '38b977537799af9831b49acbf5d03a06250a835a76a3f0d11060054d014b8c14',
+    'K12a-sym8-highest-64-40-2-0-0':
+        '2183ca52a8d442590079e36c1a39fcc8716196058bc171a53c50a76a176ebf4f',
+    'K12a-sym8-bf16-64-40-2-0-0':
+        '5b18e09031fc2f0896e8bde8fa23ecbdfcd6562789b50672e614dec4d54ac249',
+    'K12a-sym20-highest-64-40-2-0-0':
+        '320b5efa2280582f105258d2f8eef6ff47285dbd79004832f2ede67078705a46',
+    'K12a-sym20-bf16-64-40-2-0-0':
+        '0fcbb2b5ab5fe094d93f192cb347a56baaa036055b66a581a4fdea09dd4134d8',
+    'K12a-haar-highest-5-72-2-1-0':
+        '782ef7703cfc7bec9d3c3b304a6238797ba4c4ac3e74200ad76a9fccc5f1e01a',
+    'K12a-haar-bf16-5-72-2-1-0':
+        '3f0fd6a151f1b51ead9da8a72893836925580463c73055d8092e21590ac167a1',
+    'K12a-db2-highest-5-72-2-1-0':
+        '7e7bf4862488491da0a4a3e3017fe9403fdba0b44176b3322a22a3a8d5931b96',
+    'K12a-db2-bf16-5-72-2-1-0':
+        'c571c11bb146a370eacbfe91c741e838a8d358a72f096986e2d3c98681eefa22',
+    'K12a-odd5-highest-5-72-2-1-0':
+        '474d42f42d761be4c2b29c4c0d4bc77bf326bd6e487463ad73e6a11d2eead3e5',
+    'K12a-odd5-bf16-5-72-2-1-0':
+        '0e5a8628f4b9c7aa878faafde138a55dfab0efc9f0cfe23a021379bd94c92c88',
+    'K12a-sym8-highest-5-72-2-1-0':
+        '2e93dc17c800861f292e2b5d8a2a8a3caa5f7a4de1e1b18425f33d8a59935008',
+    'K12a-sym8-bf16-5-72-2-1-0':
+        '9a50b8e7d368d0e32333fd84638729cdbf19a520331cce229eff2fab7044e66a',
+    'K12a-sym20-highest-5-72-2-1-0':
+        '93ff820b63935f1baa7f96d4e87629b496b0b124caca250619cf8c5513b52686',
+    'K12a-sym20-bf16-5-72-2-1-0':
+        'e0c82a4d96e17aaf336956394dd0b12d2416b0b80562052c34769b513c9151c6',
+    'K12a-haar-highest-2-4096-7-0-0':
+        '385f0b98afb0366c43fdd790d7c45e41cee9d6b05345615a4397f2624e61cb78',
+    'K12a-haar-bf16-2-4096-7-0-0':
+        'ac38e8e10f44023a00f4b0a61ffd48b80c854522219de1c74822799196318b9e',
+    'K12a-db2-highest-2-4096-7-0-0':
+        'b24c1c9f8c785aa36cdf8e25890a3cf314e77a7db95e56786153a19c41f19612',
+    'K12a-db2-bf16-2-4096-7-0-0':
+        'b8f4713120455e91d16577d3a34d6330d2d5865caf3c7d27c032e8649c7ffdfa',
+    'K12a-odd5-highest-2-4096-7-0-0':
+        '4c7b2d419caa666b9088ce7dad3b20b58755e09859d5af54c6179f09f4f74516',
+    'K12a-odd5-bf16-2-4096-7-0-0':
+        'f0812e203de4e759355dee5525023aa088e8819f6a4d225f6b9b8b7a24dacb54',
+    'K12a-sym8-highest-2-4096-7-0-0':
+        '1302229bae6642bf5ee5b5f2461b7190cc5abcd907fcae9dd28a2da7f012b1fb',
+    'K12a-sym8-bf16-2-4096-7-0-0':
+        'b378f2a19e911634046186c9b68fb69904b1ed345ddae04df78a12df97403804',
+    'K12a-sym20-highest-2-4096-7-0-0':
+        '50ae40049fcdf10e6374c05925208dde72eebd0b4554b8caa3ae6d33dd974f91',
+    'K12a-sym20-bf16-2-4096-7-0-0':
+        '94e0106e37d77420d41dcac64b115847aa8e312a1c5d26c4412c73dda45b47d7',
+    'K12a-haar-highest-1-1000-1-1-1':
+        '8f650c43ec34c29bb6e1878f2ecd5105a4225c29c6a04725a3aa00d4ae692c2a',
+    'K12a-haar-bf16-1-1000-1-1-1':
+        'd44f13546a4189d34bbb7176542ea709b8215e8a6bdec60915a2639d574b7794',
+    'K12a-db2-highest-1-1000-1-1-1':
+        'a17b07752aac2887e49e5fc99a56192ac19f67981e2250d519ffc6d1e9b56673',
+    'K12a-db2-bf16-1-1000-1-1-1':
+        'ffbc9ea432bc7087e659283ab66dfcf8db12d38792bcdb7a4fd88f5898f1d88f',
+    'K12a-odd5-highest-1-1000-1-1-1':
+        'b6819c4606c9157673aa7d403f806278ee65184d5cc3fe6b457fc90135b9377f',
+    'K12a-odd5-bf16-1-1000-1-1-1':
+        '7922fc86c6053085a251e9e17cb4e5f4f3b6d3d01e8442e2eaf080af77130b6c',
+    'K12a-sym8-highest-1-1000-1-1-1':
+        '9621d68fda2f7ba56190d310b43c1c59893b90bf79500738da87ca77fe613fa5',
+    'K12a-sym8-bf16-1-1000-1-1-1':
+        '2e1e2d70a593acd4e2e24096afe6abc7c5f0a61d9ceb38846156af82965ecd53',
+    'K12a-sym20-highest-1-1000-1-1-1':
+        '68b3efcbca85d32a4623ec25a70b27f4aaa536f2b5e0abf3e89d5b6edf368bfd',
+    'K12a-sym20-bf16-1-1000-1-1-1':
+        '9657d72bc8a32be3e3b4d7501367e949bf1288f90ab862118d8adef8b38245d4',
+    'K12a-haar-highest-2048-2048-1-0-0':
+        'e3dfa6f5b53b4bff5b14f409d0762385daa0a0d2132a7fc6b5af060e3985dd49',
+    'K12a-haar-bf16-2048-2048-1-0-0':
+        '817f28ef09e20f475874ffeccd1a95b11d758e49320ccbbc8d5605b02ac8a4ef',
+    'K12a-db2-highest-2048-2048-1-0-0':
+        'c1d765f2f672dba47418943a92b9368af4a314c7f2ad392285740ad64fd02208',
+    'K12a-db2-bf16-2048-2048-1-0-0':
+        'a59ec7cc79ad5ff90c6b97f06995ef4a39b00cd6b9fd57efd4543a84d26a8223',
+    'K12a-odd5-highest-2048-2048-1-0-0':
+        '13a97134b93e33ffb37b715f3c72ba59d62a9dd2ba74d9ada368239f41725e5a',
+    'K12a-odd5-bf16-2048-2048-1-0-0':
+        'cf9d551582c2951669f90c41f387683023d386e0b97f906ff7c0cb13f33c2eea',
+    'K12a-sym8-highest-2048-2048-1-0-0':
+        'e3034c7095743d6dee5818277dd67771f12d3724376e50636a50b19f6c00a13e',
+    'K12a-sym8-bf16-2048-2048-1-0-0':
+        '50375443dd3acfe713339ee552015a0aec720a61c558899ff0f29dc63802860c',
+    'K12a-sym20-highest-2048-2048-1-0-0':
+        '291dfc1c9c0ca8292fea86b173272e220f28636f77940765c53a3b88e283014e',
+    'K12a-sym20-bf16-2048-2048-1-0-0':
+        '74393e0734730c9b6896b3922e9201d7acd7eeef649502e9d0ebcb2c0f774bef',
+    'K12a-haar-highest-2048-2048-2-0-0':
+        '512879f0fdd00e07c6648c6fd0a8309ee97941098ee9f920b57d29564e4f293f',
+    'K12a-haar-bf16-2048-2048-2-0-0':
+        'd15507f7647a4da66bbe039725e37ee89e4c1966bec06643071387288f89fa8e',
+    'K12a-db2-highest-2048-2048-2-0-0':
+        '245f9f7a17f7038243d988bc5cf90fb0505c467c34e55795ca50e217459f5e59',
+    'K12a-db2-bf16-2048-2048-2-0-0':
+        '3f6197bb538bcf801484f22bc44fb85b1bffb64846a7a424e002242cfb0d63aa',
+    'K12a-odd5-highest-2048-2048-2-0-0':
+        '234000eda75d2359d623170ca5beb792195139a72e7e5158905901f7d3251f4b',
+    'K12a-odd5-bf16-2048-2048-2-0-0':
+        '83c228e443e3f03b0835cf3b8d54fa87972846f5204f7ec70e3a849d00251e15',
+    'K12a-sym8-highest-2048-2048-2-0-0':
+        'ee022cfc7f14b23d1677b08e83246d7fcb19febfca158108c54d385d213bc64b',
+    'K12a-sym8-bf16-2048-2048-2-0-0':
+        'b7487ccc4424ed1a2ba7b48c4c60ba94a7cd7180de6acb5b582a44c6a3dc2d23',
+    'K12a-sym20-highest-2048-2048-2-0-0':
+        '2c0300a1da94aadb2c50877c4ea1073a50187c31fa0d350816e1025d1b54b873',
+    'K12a-sym20-bf16-2048-2048-2-0-0':
+        '4ab121da8e988aab73424020e891494f44929711639532e4c204992b5bbaf650',
+    'K12a-haar-highest-2048-2048-3-0-0':
+        '1e5c6b4b6972730ecbe06c3ccf6fb832ebed34bc3305df5f9f73d4c9c1120019',
+    'K12a-haar-bf16-2048-2048-3-0-0':
+        '0c2973bb261217cfc110182f1f8727bfa143ab5f59aa0c037eeecfce64ce783d',
+    'K12a-db2-highest-2048-2048-3-0-0':
+        '4eaa805c38f7d7a7750c7cccb1c680255f4952be4a2ffd7a40b2241e8e5ea4b0',
+    'K12a-db2-bf16-2048-2048-3-0-0':
+        'c781b923b914ab4b8e36af1c42f7d4330863fa300fe33767f25181ccd764c13d',
+    'K12a-odd5-highest-2048-2048-3-0-0':
+        '0ec0d2088f9b381cfe99c19ea61a410bc4ddf5f0f7901daca52955848b475828',
+    'K12a-odd5-bf16-2048-2048-3-0-0':
+        '21d717b812b59d4f9f005ed60f88da7a3ac15e2f431d5e584b326405fc19b0b4',
+    'K12a-sym8-highest-2048-2048-3-0-0':
+        '248c28784473eda499779d1bb8aeb2f9f25dfc2636cb0ae46d9f4b5ef6bdc1a5',
+    'K12a-sym8-bf16-2048-2048-3-0-0':
+        '0e2f039e6f3d378fb2cafab909f81c3765a2d6bf743550f90224392e076ac33d',
+    'K12a-sym20-highest-2048-2048-3-0-0':
+        '2e3306a06bbc7bae7b34c03081e74f6cff7cf499255f6c4a04aeb0879882122b',
+    'K12a-sym20-bf16-2048-2048-3-0-0':
+        '71ba10ef8554f6057c7e61af8eacf805c78ca4d97998d02cf1d47a3df802b2a7',
+    'K12a-haar-highest-1-4194304-1-0-0':
+        'e37cdafb62446c7fe88a2461dd792d39b3153712557b3580f548d01fd7280bf5',
+    'K12a-haar-bf16-1-4194304-1-0-0':
+        'fe29e800f781a0776d25a901b168c5b9087aa44e43fccd32abdd689240dc9d96',
+    'K12a-db2-highest-1-4194304-1-0-0':
+        'df2393fb3bd04732688bf5a136d4e56f5fda03c8ec83a0ac4646a6e11f545bd5',
+    'K12a-db2-bf16-1-4194304-1-0-0':
+        'a50461425fdb3a3de7e5fc73d9c1b40f704a4f68e61aa44d9d22504986a4192a',
+    'K12a-odd5-highest-1-4194304-1-0-0':
+        '614a9cb0ad717453debe4879c38eaa5edfd1f1bbbd706be67321c0e1751d356c',
+    'K12a-odd5-bf16-1-4194304-1-0-0':
+        '6193c24783d70df6c990677953c0b8bbc53f8f11b097b61675093b20f86b4147',
+    'K12a-sym8-highest-1-4194304-1-0-0':
+        '2e13932a4114765ce3146dd62ea5656cb8b57234a721157a69324ee82b8a13fc',
+    'K12a-sym8-bf16-1-4194304-1-0-0':
+        'bd12f48c86f63e73bb086f02e194b9d97a1fb6c2566b1deb965c9189a7653bf2',
+    'K12a-sym20-highest-1-4194304-1-0-0':
+        '65d75aa2557786c55855ccc5b54712336fe41ca853cdd8ada63892c5356a42c3',
+    'K12a-sym20-bf16-1-4194304-1-0-0':
+        'e1cf71d74567d1b9485bcddbaa083ef2ef62f9ad19dee056671068019648580e',
+    'K12a-haar-highest-1-4194304-2-0-0':
+        '1ff5989afbff13315b07b3f0ea3d59efcdec2436c98b6426f28a1aff9c172bc1',
+    'K12a-haar-bf16-1-4194304-2-0-0':
+        '323b963d2143af076171a1b5cb321931aa0a4eb101a5e2a0db6cc49dda09b7f8',
+    'K12a-db2-highest-1-4194304-2-0-0':
+        '211cefa177aed6c87a55addd1f23a56934284963136d96edb88b7f287590ed8d',
+    'K12a-db2-bf16-1-4194304-2-0-0':
+        'c27f0165e41c243eb6011ac12c2f0403d92e5951beb75c48610cc292f82fa5f3',
+    'K12a-odd5-highest-1-4194304-2-0-0':
+        '65c97eee72c4272966f222b70df4aa06fe28fd13c9881c05c8a1473fee344377',
+    'K12a-odd5-bf16-1-4194304-2-0-0':
+        'cfff9e4ba9df98991c026e05afcc74a047f5cccd346b1c45e6b6ac2eff47836e',
+    'K12a-sym8-highest-1-4194304-2-0-0':
+        '7db68ea34d723db4a7077c55661cdbfd542dd05f904318220949f2dff692b124',
+    'K12a-sym8-bf16-1-4194304-2-0-0':
+        'f561a411475c723f329d362620bb86c4feded8068755528a432daaea28ed97ca',
+    'K12a-sym20-highest-1-4194304-2-0-0':
+        '4a144060403059fd997bada60b9cd74a7f9936f889ceb528de603ffd8267e946',
+    'K12a-sym20-bf16-1-4194304-2-0-0':
+        '8ee4303a8155fc5f596bc99bfe9439fb1808044e9566754ba7352e4b018c4baf',
+    'K12a-haar-highest-1-4194304-3-0-0':
+        'e46abbfb49c2d0cd400a5a5bf7c7994ca68a55f2bae5a6c54230aaf355318e2d',
+    'K12a-haar-bf16-1-4194304-3-0-0':
+        '6cdbc77dd25d24cdbcf3c8eef5d195be53b0176fb03085a4139278b10eba8e6e',
+    'K12a-db2-highest-1-4194304-3-0-0':
+        '640fb57168d272d5f46a6d3bf072c08bdbba9b6355fc34a8f11116f4524bb239',
+    'K12a-db2-bf16-1-4194304-3-0-0':
+        '000a814da52a9891c721172bcf91cd06867bf320236601b250327cdd3ac98670',
+    'K12a-odd5-highest-1-4194304-3-0-0':
+        '299d030751e7b5303de645d68878af354a64873536340a533e796104c925fe89',
+    'K12a-odd5-bf16-1-4194304-3-0-0':
+        '58d00205553c6cf65187f4953e54d611daa8413110f9b3a3a520a3fab58b2204',
+    'K12a-sym8-highest-1-4194304-3-0-0':
+        'f78dd62a0a4fa82ddcdf8cb6d907fd0f88292fbabcce8c333e57aa86dc72263c',
+    'K12a-sym8-bf16-1-4194304-3-0-0':
+        '7e6ba4ce69c6d3be8be05deb2ae5633395f05234f51e2a3bfeeecda821085342',
+    'K12a-sym20-highest-1-4194304-3-0-0':
+        'dafc80bfdafdb9057c1b2a167d8ea458395cfb648dc922bb65b89038ba810ab3',
+    'K12a-sym20-bf16-1-4194304-3-0-0':
+        '19ebf4cbe8983d997fe00ac3bdb8a0d9b73f68f9204cec1518e70d1caa928813',
+    'K12b-haar-highest-8-256-1-0-0':
+        '837226106eff1f5621cba3fa9009de19091fcd318bc9c0ed84555357217af157',
+    'K12b-haar-bf16-8-256-1-0-0':
+        'e0375a48ce6365c121096f9e09bcf0aff386aa8cd2bfe1cc627691718fab968e',
+    'K12b-db2-highest-8-256-1-0-0':
+        '9625e7c71c49aea48103ad94769022ef96d72c5580e7ff79644c636d27c570da',
+    'K12b-db2-bf16-8-256-1-0-0':
+        'deb7f2172a2783f3b0504a8b2d349bde6f7638e2993d40e6013f05d28a1141d4',
+    'K12b-odd5-highest-8-256-1-0-0':
+        '3b6a59c0985713f03f7ec20824c2a2b0efb5a40d6e1022c1bb7a06548b4f5a70',
+    'K12b-odd5-bf16-8-256-1-0-0':
+        '266fdda4f8a46a8894203116fa266cb49971996c4b599ea1caffb2d72a0f66cf',
+    'K12b-sym8-highest-8-256-1-0-0':
+        '03af36d35fafface9c452c926acd7fc6d4642ff94179ce60ad43386a8335ea05',
+    'K12b-sym8-bf16-8-256-1-0-0':
+        'bdbac005e2682e6c24afc8cea2cfb9dd9af036786b6491d1fd5accf6da7cfdd7',
+    'K12b-sym20-highest-8-256-1-0-0':
+        'bd52b1993891fab05fffcf2352d7e1afd819221cec84971d41993a23e17484d3',
+    'K12b-sym20-bf16-8-256-1-0-0':
+        '710151063db63b976bece2b1529dc2ac866dc6a5fba2bb87f908bd5831cb6d07',
+    'K12b-haar-highest-8-256-2-0-0':
+        '8baf1e3d5c0e4de18c10517e90eeaf20b4a6c1de4b6a9d0e6f6462e7b7f3d8bb',
+    'K12b-haar-bf16-8-256-2-0-0':
+        'd7a429b8544533cb340f920cfdc08d2df14afd863d58a0dd052d153273dcdc9c',
+    'K12b-db2-highest-8-256-2-0-0':
+        'b75ca41fad0384e5fcfecb9bab937fd8ee95b7f704f4dbe6fb524d2c876970cb',
+    'K12b-db2-bf16-8-256-2-0-0':
+        'ea628346cdc723acba391214763e587259b88aea649fb33aa874d82893236ad3',
+    'K12b-odd5-highest-8-256-2-0-0':
+        'af1b32334e7384344b3a0ca910c870abf8cc24ded98a147ea832d11c628752d1',
+    'K12b-odd5-bf16-8-256-2-0-0':
+        'f3f2949c9176784ebb0c545c8e49873c4e942421baad289d029632ffb8849c0d',
+    'K12b-sym8-highest-8-256-2-0-0':
+        '84f3e37cea98be353e6715d499b0c47211e62168a654b25b41ab22157e7be36f',
+    'K12b-sym8-bf16-8-256-2-0-0':
+        '69341fdc03f5f476b13c41c2cc095f7808aeaae65464d0034d3a2b78c348e251',
+    'K12b-sym20-highest-8-256-2-0-0':
+        'be4d062d53426a0975cd08f9a74d719e94fc1134a014027cc912f91e8aca6106',
+    'K12b-sym20-bf16-8-256-2-0-0':
+        'cf115add2d28a83b5a0d1a8a3728c62443d7872f7ede4b15de0fcd524727ad4f',
+    'K12b-haar-highest-8-256-3-0-0':
+        '9e0480cd30a0c6dbb0737bf8ec22e8125cefa238b75bb7308d35036c542f7773',
+    'K12b-haar-bf16-8-256-3-0-0':
+        'a5161879acee96f901beafc3625ce91afe3b89ea66324e4de00b15e9be99baf3',
+    'K12b-db2-highest-8-256-3-0-0':
+        'e03d98a9e176c408b787cca6729a7a238ac9ce6932bf00ffed70502280f1cb63',
+    'K12b-db2-bf16-8-256-3-0-0':
+        'c3618aa0357f46544264279085420cb5676cb1008926d44519a0e90dbded8098',
+    'K12b-odd5-highest-8-256-3-0-0':
+        '2c8732795aeb727215de1e952bd64bccd74273b8915733f2f300c0b278ceca2a',
+    'K12b-odd5-bf16-8-256-3-0-0':
+        '0a8e20720c892ae40c0be9b5de75c0507814ec171e50a71f2cdfe3d78af52191',
+    'K12b-sym8-highest-8-256-3-0-0':
+        '4fb211e00f8456c22e462664d10b51f4be3fcacae96b8afe036acd6df872bff4',
+    'K12b-sym8-bf16-8-256-3-0-0':
+        '030cbaf443e3fff54f6ab9140d07e346f8651e5b1a45297d5d8a3db7be94966a',
+    'K12b-sym20-highest-8-256-3-0-0':
+        '671f59cd12dd3acb959e07779ebfc1c44c9c9879e9951e8eab12082e4a2c2ec0',
+    'K12b-sym20-bf16-8-256-3-0-0':
+        '7094d30a214ddbdc4b69f97a840a4bc0eabf92c049cff9992c26e70ceaa335a5',
+    'K12b-haar-highest-8-256-4-0-0':
+        '17de7d7242f8de1e81775d3b37a2886c4f927903733c98724047226f8d002dd1',
+    'K12b-haar-bf16-8-256-4-0-0':
+        '25a3d0245419e5ac29bab8ad91819308537b8532c1c49e6634d20d71b5e8c002',
+    'K12b-db2-highest-8-256-4-0-0':
+        '1ca62d9b3e4f0bb5735b5c44a725cc5c5a3cf187065fbdfe975a669570c0929b',
+    'K12b-db2-bf16-8-256-4-0-0':
+        '95769936bd8b168bf7711a6b29f02b6ba69529101d8d495009ef56c83f343db0',
+    'K12b-odd5-highest-8-256-4-0-0':
+        '2da97bc048f195bb09b65fbdea9dd9a596a635b3fa873b073ec28e62d9ad795c',
+    'K12b-odd5-bf16-8-256-4-0-0':
+        '514b17951c7cd61c373015e67d9d8b80b9c00b3413a799197e244ac0d56770d4',
+    'K12b-sym8-highest-8-256-4-0-0':
+        'f69b1826dc8b72a7aff2a7d51e081c01b4a8283a58285771dc84a5e0e7951646',
+    'K12b-sym8-bf16-8-256-4-0-0':
+        'b1e630ab4a85f49204634898a2443bf367049f5076425754310125406e4f835f',
+    'K12b-sym20-highest-8-256-4-0-0':
+        '04ccf72b1630039a594583d3c6663567650387982f8248df588c590ca0b68580',
+    'K12b-sym20-bf16-8-256-4-0-0':
+        'bdc74e25415faaf944ab7f267f83b353a4e740fd9403b6edfebe814df1f23518',
+    'K12b-haar-highest-3-130-1-1-0':
+        '68a00e245f729ddc751412367a52344e4bc576a2c05c4c65ef12610d703022c2',
+    'K12b-haar-bf16-3-130-1-1-0':
+        'b33694f9100b738c7e5bb783648cca5b78b7f10e7279b29f1014d62599a817ec',
+    'K12b-db2-highest-3-130-1-1-0':
+        '3771d4b7d970663f146a23ba6754f0ae492b89ccf3eb87ceecdfd04a4b30843c',
+    'K12b-db2-bf16-3-130-1-1-0':
+        'a30773adc23c3efbbbebaac752654d0a84f155002d2b25368fdac90604c97ca4',
+    'K12b-odd5-highest-3-130-1-1-0':
+        'b15655994e2102dcd474c654fe0da8b3b5b0e9e82bd479be9d64cb9a2ca272be',
+    'K12b-odd5-bf16-3-130-1-1-0':
+        '2372f246125117ac9d52add4f2d65e8481110695a30adfc771591203ae7eb389',
+    'K12b-sym8-highest-3-130-1-1-0':
+        '928d3a410fb44c7fa270e7b841c718fb8a159fd1d7c1d4ce1a74ef0aa2fe07a8',
+    'K12b-sym8-bf16-3-130-1-1-0':
+        '3f61e3dee6dc1ee10f9f75ccefc3e5a66a89b7920e766fc6c061e44cfdfb40ea',
+    'K12b-sym20-highest-3-130-1-1-0':
+        'a23fdf28b08f7983486e7684018b16318cf5a670b839bab2dbc11ef1eb44a796',
+    'K12b-sym20-bf16-3-130-1-1-0':
+        '01abd884d9b37437eb0cd068e94233732d423bedf0aa268135ef6d8b48057e1b',
+    'K12b-haar-highest-3-130-3-0-1':
+        '612a0759512edbaaecd4e7ba9469edb10079a0ac3f31a90cd66cb623b71a5c6b',
+    'K12b-haar-bf16-3-130-3-0-1':
+        '68c1c570c11ff17a522e72f2e6c883e993bb4fa68004eafdb1b8454fd7e7ee0d',
+    'K12b-db2-highest-3-130-3-0-1':
+        'c6c25b86441dd936537c946b134735700dfdc12a490cc735b8faf7a853f2f6f4',
+    'K12b-db2-bf16-3-130-3-0-1':
+        '80ee2a3d9037ed7fa351c500853528ba23f7eeb09f8fd013a781ca04c863d58a',
+    'K12b-odd5-highest-3-130-3-0-1':
+        '2560896b35363da0e4f1f62f47c66ea7c54da05091bc05d5b1af8c980b4f849d',
+    'K12b-odd5-bf16-3-130-3-0-1':
+        '5c9ff704a2d1de3b04422e9dddac7ce9b45256926e48a81408fe6693aefdf477',
+    'K12b-sym8-highest-3-130-3-0-1':
+        '03202ea2e1fa61e254ab7cdafa0a9dab1e25c596fc33891b03f36aade21d535c',
+    'K12b-sym8-bf16-3-130-3-0-1':
+        '04c8d0ef075bdc16f2f3ad945bea460b611043360763146456dfa6184585fc33',
+    'K12b-sym20-highest-3-130-3-0-1':
+        '57baeefc07fb012149edf05814833e68f1589184f908809a401e69365c5e8845',
+    'K12b-sym20-bf16-3-130-3-0-1':
+        'b12e84bbade86cb3c4ac19adb148d4ea9e59f7dc3977ef31e74a25de7768be11',
+    'K12b-haar-highest-2-75-1-0-1':
+        'c34a234c57b15ca9a43b09cd266a29fbf67bea4770590c1f21ffaeabe2be33b8',
+    'K12b-haar-bf16-2-75-1-0-1':
+        '8ed90ccd676db7c3277d7d7cb74eae78ee01630f449394f99e99c0d059b951fe',
+    'K12b-db2-highest-2-75-1-0-1':
+        '043023e58997206da427c5e7173cb328ccb438d0e95671e84d11d3881616cea1',
+    'K12b-db2-bf16-2-75-1-0-1':
+        'a5300e051b790f7e4e22074bc0ca39236455223f2b5110ac6d648de167fd04f5',
+    'K12b-odd5-highest-2-75-1-0-1':
+        '5da07291280b315185dc8de2862097ea0bf94b4b6fb000c10b287bffe059e64c',
+    'K12b-odd5-bf16-2-75-1-0-1':
+        '8963f982ba95bc24c9c50eeded91b44e8c496f9d42c1fbf95124f059bd28d1bc',
+    'K12b-sym8-highest-2-75-1-0-1':
+        '683e97dfa80c6bacf8d7cf428304c1fc09a74c9ed59a36d0185488bb9b1b70ac',
+    'K12b-sym8-bf16-2-75-1-0-1':
+        '9f8a074c72c72d51bedcfc4b4e5d5ad3c231a1306184170a13e686be438996c8',
+    'K12b-sym20-highest-2-75-1-0-1':
+        '699d08328ac21b22975c578d88af4bc320a82d84d081aa457d3cb891e7c6b87c',
+    'K12b-sym20-bf16-2-75-1-0-1':
+        '3682997b9326ae39536b97b47f0a67341405030727d2270bd73816ca97fbde76',
+    'K12b-haar-highest-2-75-2-1-1':
+        '0112a8813ac7b296c4f05a340473be34ac9f7ddffce56df5fb171e29bc933889',
+    'K12b-haar-bf16-2-75-2-1-1':
+        '0e9d8e744643f121091e004360f4a601617355477e0c729dfdddbb0f5efb6a20',
+    'K12b-db2-highest-2-75-2-1-1':
+        'a062672389032dd778da748b5959c991c5451e3ed924b76dad960f94895aed1b',
+    'K12b-db2-bf16-2-75-2-1-1':
+        'bf1048e465c4e00275529b71fab2278dd381dd7490c3c01094f6754208a67da6',
+    'K12b-odd5-highest-2-75-2-1-1':
+        '0e6575c5abbe374d02512d5cab3ab035f5cb9ff19e6fffc0a0ac87427c8780a6',
+    'K12b-odd5-bf16-2-75-2-1-1':
+        '2cc79c2ba8b36f1d2f93b24c73d0dfbb42779281cf90cbb12ec0b7e0a9b89e5f',
+    'K12b-sym8-highest-2-75-2-1-1':
+        'cbdb5226fd5c9556677f7851aa29bc51792f9bd6ca68cd72d98699d9d4eb1fea',
+    'K12b-sym8-bf16-2-75-2-1-1':
+        '2180cfca18748a130a10b360532719e9c12e990a6dad702e5ebfc07adc0d6539',
+    'K12b-sym20-highest-2-75-2-1-1':
+        'c24d65cff2215d8afb15eef80d143c36a06f4b828551ba85c438cce9d38dba89',
+    'K12b-sym20-bf16-2-75-2-1-1':
+        'ec83d6b046ba0890f9f76ff6ee0b98bed60255d541d8ddc266060910f3ff84ca',
+    'K12b-haar-highest-64-40-1-0-0':
+        'f2e1787b06b78651d44f6c58383567996a5177e42bb9fcc713201aee81024c41',
+    'K12b-haar-bf16-64-40-1-0-0':
+        '35b8eb002c2da514c976d8e0c2bbc78c52208e61604ea94e2ac5081eb1aeeacf',
+    'K12b-db2-highest-64-40-1-0-0':
+        'e11bd8e81b6e284c62d307ebf2606713248dc066d493ca7c2b20f040f00185b8',
+    'K12b-db2-bf16-64-40-1-0-0':
+        '5129c1ad1ebade5126a0f66a066546fa43071d55ef8bd58dedf186a0604e8b1b',
+    'K12b-odd5-highest-64-40-1-0-0':
+        '46fb3816303a5b6f424614c40441a1d05a2f8212f5c52563f76dc5fc8ff72ec1',
+    'K12b-odd5-bf16-64-40-1-0-0':
+        'a8c3fb07351d74f3e67edca07d2e20a3daa8e685b3c1f0c5ee025c7c43efdefe',
+    'K12b-sym8-highest-64-40-1-0-0':
+        '3ac32b1f8f9a6ad67e67a5a5b853c1d833db4ac2a47d6f177e73016072881626',
+    'K12b-sym8-bf16-64-40-1-0-0':
+        '4525535803cd6c3f185251267992b2fed29ab5f22884d2f589940b2db2723e5a',
+    'K12b-sym20-highest-64-40-1-0-0':
+        'd716fd228aa1e1e14c257c924beb19e771e1301033a9cc5f30caf2abd8c35ed4',
+    'K12b-sym20-bf16-64-40-1-0-0':
+        '34c66727b0c27c025648a3f8f484cd397b91f462511a1356420df6f34fed032f',
+    'K12b-haar-highest-64-40-2-0-0':
+        '63d9e6b864d83d99cbaefc572457903acde5a44383c0fce9c0c1409b08f58710',
+    'K12b-haar-bf16-64-40-2-0-0':
+        'd60728d0b9800d264bfffb223dc61ddd8edd11aac07fad51e9479114ad49aca9',
+    'K12b-db2-highest-64-40-2-0-0':
+        'cbea281cee3786e908dc9b9a77d01b269ddef73e7becfcb245f714312ff6f832',
+    'K12b-db2-bf16-64-40-2-0-0':
+        '06072fd73c8947feafcca463ff131c5f26aa88f8bf75bfeedcf717b9ec45d4e5',
+    'K12b-odd5-highest-64-40-2-0-0':
+        '17d82fa601289d561b99fff2d2ad2817c4fe8762e2851cce1cc706b6006baa10',
+    'K12b-odd5-bf16-64-40-2-0-0':
+        '0b7a92a6650d1da4f162678713659935f08809fb61328e36d3920b296c7e5b1e',
+    'K12b-sym8-highest-64-40-2-0-0':
+        '88ad1243e64d7cd557af0985b0434852d6ecaf75a9cf446badbf2632def69672',
+    'K12b-sym8-bf16-64-40-2-0-0':
+        'c9d16f5b08d0a66ca4b1fd6a43c619f17dc563517af0377c858f7220b72a0edc',
+    'K12b-sym20-highest-64-40-2-0-0':
+        '8847dc4ca32ecf9484d178ffa8dc2e4cff2c1f48284e01d0495bc84633c32835',
+    'K12b-sym20-bf16-64-40-2-0-0':
+        '5ea83e36a0fe1ce7df201673a6f0f1269a5481e23a6daf7c3a336317427dad1c',
+    'K12b-haar-highest-5-72-2-1-0':
+        '8b8575bb18f522fc5398e5ec71f4d0c1c81559b48d9a27f34d58e813fd048687',
+    'K12b-haar-bf16-5-72-2-1-0':
+        '05c34ce64fea6d45e60a3602ad704f527b4c765ae9dcee45b210e43a5c9efc6d',
+    'K12b-db2-highest-5-72-2-1-0':
+        '29e86fa074528315d31871dbf95654df9f11873b1ac3ea5c7bf94cacdd2de7fe',
+    'K12b-db2-bf16-5-72-2-1-0':
+        '256cbcca4f3142dc66455558d32ef106a7273ce6f176492b39097e9d76816cdc',
+    'K12b-odd5-highest-5-72-2-1-0':
+        'a77aa582cf3c1764c3abc567d5ccafa0ace4ea01a86419b93ca5c9886307245b',
+    'K12b-odd5-bf16-5-72-2-1-0':
+        'cf3aa6f6968dcd48da5dbdea17a3c2bbc65d14297882fd677e4971dbdf0edecc',
+    'K12b-sym8-highest-5-72-2-1-0':
+        'ff364fa10702c4ea085cc5615bfccff2ef74e26010240a88adeac0d6cdf1ab11',
+    'K12b-sym8-bf16-5-72-2-1-0':
+        '4f4c87e8b2c9be6e552e2bd4be470aa4818b87a320b32977b8ef62ab5f10a81f',
+    'K12b-sym20-highest-5-72-2-1-0':
+        '427815ba3d25f1e8e818447c693beee242ce2e69cf42a2e71c4023a9409f1e92',
+    'K12b-sym20-bf16-5-72-2-1-0':
+        '65d9124ab0b96d5c0c1fe29648129b80d74316817820f927f553cb809d78fe2e',
+    'K12b-haar-highest-2-4096-7-0-0':
+        'b070be4263f2d48656b336daf3c25298b1290b1146af70062ebcefd39dac5278',
+    'K12b-haar-bf16-2-4096-7-0-0':
+        'ff9a91864d92a089962e2432f663d50045a247a918ffe8cb55a3bd45abbef1ff',
+    'K12b-db2-highest-2-4096-7-0-0':
+        'd97dd5b980c3fb753c42c3a8bf476522fa7f16c4c0d1310dfc9330e2f490e3f8',
+    'K12b-db2-bf16-2-4096-7-0-0':
+        '197e36e9920d1b06c46f082e939e6f287c077faaf70dcc88bac1d4682644ea6a',
+    'K12b-odd5-highest-2-4096-7-0-0':
+        'aa03471e3ccc17c6354a0e9b61918159d91b5e07588547c8f5d3d64ab117afc6',
+    'K12b-odd5-bf16-2-4096-7-0-0':
+        '91a393cdd54de405856e16e4baac987e3eaa61278e2500cbc07ab2817f2ce1ba',
+    'K12b-sym8-highest-2-4096-7-0-0':
+        '4280b9711308ca982727cf8c67cd12764c746437178461f736ac51950fe92f92',
+    'K12b-sym8-bf16-2-4096-7-0-0':
+        'c4254e3bc927e8d916a2c318700263e84aff1fced47dd83daf854a05fbbe7c4f',
+    'K12b-sym20-highest-2-4096-7-0-0':
+        'edc329878029ad0f9ae1f09f7d08bccc9c8c4515e4695fa2b04aaefbec411a50',
+    'K12b-sym20-bf16-2-4096-7-0-0':
+        '8e4a8c64c5d0e813479317f18e012a730a5f00f7cc9a401f778cc1e8d11ccd17',
+    'K12b-haar-highest-1-1000-1-1-1':
+        'ed6f964ea495b3e41014688ea3fe67120f9b23af0ba839718f6a5abc7db5c0d5',
+    'K12b-haar-bf16-1-1000-1-1-1':
+        '6e23a7cc59d1a8884e2d6aab8b8d88a84980b91caca530b678d450dd29617609',
+    'K12b-db2-highest-1-1000-1-1-1':
+        '8269622f24d795bdf90bf31973c32d84bc5736bde7dc535d6e947890d457e311',
+    'K12b-db2-bf16-1-1000-1-1-1':
+        '896d3bb9c2c20dea3cd0a7f6c8dc4d6cb48cbbe7251beeb60447841ac46c03d7',
+    'K12b-odd5-highest-1-1000-1-1-1':
+        '23f174df350c8744fc3706a0c7a77130541fcbdd0f7aa50784470fb41acfb4b4',
+    'K12b-odd5-bf16-1-1000-1-1-1':
+        'c6a8f25eeee620402972fc29af5e1909597f303ac125a103aa2c2358a993454f',
+    'K12b-sym8-highest-1-1000-1-1-1':
+        '0e07e4821533472116c3d0c407c076f4f51c827687de0839af42799d7fa1abdc',
+    'K12b-sym8-bf16-1-1000-1-1-1':
+        'd9537dfa631667390ba36f027af54c95fa680cfa06c0232cdb76672240079040',
+    'K12b-sym20-highest-1-1000-1-1-1':
+        '80e4578395ea8e3ef39483e39c1122a0c150206811ae508af256a6b5d41e1e39',
+    'K12b-sym20-bf16-1-1000-1-1-1':
+        'be08317bfa18c89599292e29c1e99f48f96af5816263f460f97fc69da6e82086',
+    'K12b-haar-highest-2048-2048-1-0-0':
+        'f82f47691c88ea8b90479348f6d91ea651bd1ba76567af27a7cce1c4c2c32253',
+    'K12b-haar-bf16-2048-2048-1-0-0':
+        '27f88cdba4f0912b543251407f60ea941d68b5e397da60244781f7396e9df025',
+    'K12b-db2-highest-2048-2048-1-0-0':
+        '5ea3f9c6d25562928d1591e7d196ccd64d917f1d6d158a67f9d269e984140b4e',
+    'K12b-db2-bf16-2048-2048-1-0-0':
+        '4762bc8e5e817917d2728eec39404a05f13d5b08fe3ecca9f88438ec18fa108e',
+    'K12b-odd5-highest-2048-2048-1-0-0':
+        '471d0e22db4ce6d6bce8b3dbb13969ae82ce13a5d8ccb89ee27181f94d5a04b8',
+    'K12b-odd5-bf16-2048-2048-1-0-0':
+        'daa6abf69be5e81869d6017102e174946feb000738f782a79ca5342dda9f0f89',
+    'K12b-sym8-highest-2048-2048-1-0-0':
+        '5c8119a04caf63eee4e2e91cb26c1d94b2430c4f44bcc455a5ee5602923f9742',
+    'K12b-sym8-bf16-2048-2048-1-0-0':
+        'c82b4e22ad3673015eb8bd644d8b36f80c21f6a44beb842aa26ec1f85ad95172',
+    'K12b-sym20-highest-2048-2048-1-0-0':
+        'be6f2692932f5ca7e78181512adf0b2c1b892a409fa2d75733940464583ba6ba',
+    'K12b-sym20-bf16-2048-2048-1-0-0':
+        '5822e3a172885191b9f1f03813aa6df383f67f386c9c08ade45496952d83bd63',
+    'K12b-haar-highest-2048-2048-2-0-0':
+        'bf26c69b401a523e6912686dda5cfc2c9d25e8b54914f5bef09e0d1579322b14',
+    'K12b-haar-bf16-2048-2048-2-0-0':
+        '9dfdcb274f8d854e3b54e19630eff32f286f7e0aede4ab5e0b367c0bc8989664',
+    'K12b-db2-highest-2048-2048-2-0-0':
+        'f3fa8a84162d5e7ad4ac2958fcc9d42505915a4be90668ae7e9273a0d77a5d88',
+    'K12b-db2-bf16-2048-2048-2-0-0':
+        '3d9c3741d251034ca021a3d500b4a1bad4978927b661014bbec135b9ed60c46a',
+    'K12b-odd5-highest-2048-2048-2-0-0':
+        'dec1fd66c771f213f3be37ad634f24906112d7e43b4dcb04d35ace38e0ddf8d6',
+    'K12b-odd5-bf16-2048-2048-2-0-0':
+        'ec31de34da9b432fefc5ac698ed16f083e0cdef6c6b6c5ed4e2758367d2b3a1c',
+    'K12b-sym8-highest-2048-2048-2-0-0':
+        '96d3dad2002bdd9918ee0b634add1350b4b3b91f710d2003314b5cb04849a7c9',
+    'K12b-sym8-bf16-2048-2048-2-0-0':
+        '8cc18712f2276fedd002f2b12e3492bb2ff86a33d0c98331f9f47494bbc1cb88',
+    'K12b-sym20-highest-2048-2048-2-0-0':
+        '962b07ff4378d763887dff6169fee0fe3999b78f66c159bb04fcb1ea1658b115',
+    'K12b-sym20-bf16-2048-2048-2-0-0':
+        '75df06f115fb883d6e3f77516c69f78a5204fd86109ef62bf0623b62fbabfe51',
+    'K12b-haar-highest-2048-2048-3-0-0':
+        '5afaca0067dd7e0fb80113b885c47750e115df5e2c7e4ed9eca6237e75419d44',
+    'K12b-haar-bf16-2048-2048-3-0-0':
+        '6199103d86a060eda5ba20ee0330fe018642935c0e352594d7a9e432e7f1b937',
+    'K12b-db2-highest-2048-2048-3-0-0':
+        'a460ced08479f661d2c1a06294923ba2db86f6c9932c480c1af0b606effaf6b9',
+    'K12b-db2-bf16-2048-2048-3-0-0':
+        '591dd13e4c3f445bc712bda2ac4a6138d2eaf162b349784a37dcd2ef3cdd4f95',
+    'K12b-odd5-highest-2048-2048-3-0-0':
+        '50b9b35d1037518ac97fd74a061ad3d220d44c0348487df6ac161c4ce0400b6d',
+    'K12b-odd5-bf16-2048-2048-3-0-0':
+        'bca961989a77ff424abaaec21747e0307565a3bfaf86db7a94f45af24a282226',
+    'K12b-sym8-highest-2048-2048-3-0-0':
+        '5f8a7787e446b977d6bdde2a79742bcccfb5cf899ab1e063d1be8b8af9290799',
+    'K12b-sym8-bf16-2048-2048-3-0-0':
+        'aebb8b884d2b9f5dcd247ce12c3c83ea5b8faa074bc85b0872b291398351f7c8',
+    'K12b-sym20-highest-2048-2048-3-0-0':
+        'bddd15875c0f39275521413a5657ddd91b88bb7e7b4d05bd8e62c3485bcd8790',
+    'K12b-sym20-bf16-2048-2048-3-0-0':
+        '652438ab705fba478128ee3528283fcb820b4cc2c5b216d6826ae36338bd21dd',
+    'K12b-haar-highest-1-4194304-1-0-0':
+        'abb7a5106e01bd8d9da5cd24b4ab27096268a29babcde265c3c53f93906f6b30',
+    'K12b-haar-bf16-1-4194304-1-0-0':
+        '5948d8e444f8c0c2be8090085e8aab36b7e7cf290d8e75e3a22d9238137d1489',
+    'K12b-db2-highest-1-4194304-1-0-0':
+        'f37ed11e158c7b5d5faea3fb03dbcebba0931dff25f9fb59be758343cc89c282',
+    'K12b-db2-bf16-1-4194304-1-0-0':
+        'b6f7ff9947e0c145becc9b3c43f6005002290ebc2562cafb2fb2649591ba364c',
+    'K12b-odd5-highest-1-4194304-1-0-0':
+        'dd2cce1cddbe98ce0625dd42f39840f349fe326ad5f8953155998354af2e06ea',
+    'K12b-odd5-bf16-1-4194304-1-0-0':
+        'e97003234ed08eac4eb090a045fd3bfce0ee4e64948dc41fe28c837cca5620a7',
+    'K12b-sym8-highest-1-4194304-1-0-0':
+        '2c07f162e5a8ca97e94d29d0cdbe77020c3145f0a0a7a85286beb20659cfced4',
+    'K12b-sym8-bf16-1-4194304-1-0-0':
+        'f4d961a5e982936b40d44374c9fadbfa21d2b82b0ab589e1bf40598bc7af3338',
+    'K12b-sym20-highest-1-4194304-1-0-0':
+        '0f83c4c1bb97847d790d3fa1998e7eaaff7f052d2dfa5efc8294e964a4903469',
+    'K12b-sym20-bf16-1-4194304-1-0-0':
+        '21f4a4bc5298711788ca0ba02dfb40617bc537d76fa3de45e2c86de1a52371b9',
+    'K12b-haar-highest-1-4194304-2-0-0':
+        'b17482cb9e8b525dc4d305f1ec0d1e466bd3b23bdb25e7dc563ff65067b72bcb',
+    'K12b-haar-bf16-1-4194304-2-0-0':
+        'd06f6a9ee4607d39c69c5c0a552ea2d6127e9f791425d76614946bf70550c064',
+    'K12b-db2-highest-1-4194304-2-0-0':
+        'e9120b20f413206d41122a5c9a2eb77a94658dbd235720dec9ef7be17edebe80',
+    'K12b-db2-bf16-1-4194304-2-0-0':
+        'ddad6ae062cf2492b50c8ca3fb25b1bbef16c2e7cd2916853685bde95e583935',
+    'K12b-odd5-highest-1-4194304-2-0-0':
+        '4d2b4f16d7f655f59e5d55ceb85d9cc77f82d3aa0d5498921ff5cc4361afcda5',
+    'K12b-odd5-bf16-1-4194304-2-0-0':
+        '41a843340a96f9b394e92fa4848585f88390789f92a22c88711cb01405403052',
+    'K12b-sym8-highest-1-4194304-2-0-0':
+        'b1391ed1ff36fe320a4fbbac59da04de25ccc7354d888e6c0c88c6604f7b6f97',
+    'K12b-sym8-bf16-1-4194304-2-0-0':
+        'e6d0458b386a91a5c29f1416bcc62c142322194ce4cf98870b4ebd2d03fef39b',
+    'K12b-sym20-highest-1-4194304-2-0-0':
+        'cb96585f91916af269e3dcdf06978b87a28bde6a961f6b567e356a947f05cd16',
+    'K12b-sym20-bf16-1-4194304-2-0-0':
+        'c77bf1a5cd8ce1235bc33bea62fa7ece50943ed6978d7f8e96771f4e43f2bd39',
+    'K12b-haar-highest-1-4194304-3-0-0':
+        'bb4d78f785f7a47bccdde3468a2f9dedf33cbfa5cba613da47103746495cc198',
+    'K12b-haar-bf16-1-4194304-3-0-0':
+        '606d5c8cea78685ba4ec569b999fb784ed14902c5a8f457ea36a438a14a908b6',
+    'K12b-db2-highest-1-4194304-3-0-0':
+        'a891b715c9011db2386faa916d56084c2a0a697ed8d9419894b09315cdb30dfb',
+    'K12b-db2-bf16-1-4194304-3-0-0':
+        'fc42d378e371a23be7d3f563ad48362878053da48c2f2b9edfc54f188efd6fcf',
+    'K12b-odd5-highest-1-4194304-3-0-0':
+        'a2fe897e2a444a4ec3bb4d187026f999ea37bf726abe32e50b23e9934c9b220b',
+    'K12b-odd5-bf16-1-4194304-3-0-0':
+        '50720230c16e40b380279fa0eac07234259890e38171821563837bfec7900a18',
+    'K12b-sym8-highest-1-4194304-3-0-0':
+        '2af4883347145bcacf002fd0da4a10871801411f727b1bb946d2f991096a0ad9',
+    'K12b-sym8-bf16-1-4194304-3-0-0':
+        '16f6fe5a59716884a18a1bd8def71d6fda020bb22162a8ec62b77968d5335b0f',
+    'K12b-sym20-highest-1-4194304-3-0-0':
+        '3dfa83d314ef56577056c0c7c242e2d61a415aa7779b28c2bc94f4ec1a48f1e6',
+    'K12b-sym20-bf16-1-4194304-3-0-0':
+        '8b31080dddbd57b851a1c07b28067b86985c460476c2076eae851476abaaf82e',
+}
+
 if __name__ == "__main__":
     import sys
 
@@ -4218,9 +5065,15 @@ if __name__ == "__main__":
                 out, _ = _k18a_output(case, name, dev)
                 yield _k18a_id(case, name), torch.stack(out)
 
+    def _k12_lines(dev):
+        for kind, case, wname in K12_PARAMS:
+            for prec in ("highest", "bf16"):
+                out, _ = _k12_output(kind, case, wname, prec, dev)
+                yield _k12_id(kind, case, wname, prec), out
+
     tables = {"PAIR": _pair_lines, "ANA": _ana_lines, "ROWS": _rows_lines,
               "K29D": _k29d_lines, "K20": _k20_lines, "K19": _k19_lines, "K18B": _k18b_lines,
-              "K18A": _k18a_lines}
+              "K18A": _k18a_lines, "K12": _k12_lines}
     want = sys.argv[2:] or list(tables)
     if (sys.argv[1:2] != ["digests"] or not set(want) <= set(tables)
             or not torch.cuda.is_available()):

@@ -133,6 +133,19 @@ def test_k12_plain_matches_jax_mxu_kernel(wname, shape, level):
     assert got.shape == shape and _err(got, ref) <= KERNEL_TOL
 
 
+# (bank, rows, level) whose K12a/K12b items cross what one item holds:
+# short rows packed 21 to an item (db2, 64 x 40 at level 2), 32 classes an
+# item in two groups (db2, 2 x 4096 at level 7), rows whose windows wrap
+# around the row within one item (sym8, 5 x 72 at level 2)
+K12_ITEM_CASES = [("db2", (64, 40), 2), ("db2", (2, 4096), 7),
+                  ("sym8", (5, 72), 2)]
+
+
+@pytest.mark.parametrize("wname, shape, level", K12_ITEM_CASES, ids=str)
+def test_k12_plain_matches_jax_mxu_kernel_across_items(wname, shape, level):
+    test_k12_plain_matches_jax_mxu_kernel(wname, shape, level)
+
+
 @pytest.mark.parametrize("wname", ["sym8", "db10"])
 def test_plain_roundtrip_and_tap_path(wname):
     """The banded levels against K3/K4's and K10's plain versions (the tap
