@@ -160,12 +160,12 @@ K7a/K7b against K3/K4 (level l: 2048 rows of 2048 / 2^(l-1)) and
 K12a/K12b against K10 (level l of 2048 x 2048); it prints no ok line.
 
 ``--only KEYS`` is the loop of a kernel redesign: KEYS, comma-separated,
-name rows of the kernels line (a family such as K7, K12, K28 or K29 names
-all of its rows); the tap-loop DWT analysis K1 and synthesis K2, the
-cycle-spin analysis K19 and synthesis K20, the tap-loop SWT synthesis K9, the
-non-separable SWT pair K18a/K18b, the tensor-core forms K5/K6/K11a/K11b,
-K7a/K7b and K12a/K12b, the row-sharded K26-K28 and the grid and sequence
-passes K29 are selectable.
+name rows of the kernels line (a family such as K7, K10, K12, K28 or K29
+names all of its rows); the tap-loop DWT analysis K1 and synthesis K2, the
+cycle-spin analysis K19 and synthesis K20, the tap-loop SWT synthesis K9,
+the tap-loop 1D SWT pair K10a/K10b, the non-separable SWT pair K18a/K18b,
+the tensor-core forms K5/K6/K11a/K11b, K7a/K7b and K12a/K12b, the
+row-sharded K26-K28 and the grid and sequence passes K29 are selectable.
 It builds every kernel, then runs only those rows' phases: their
 kernel-against-plain checks over the cases above (both precisions),
 their main paths with exact launch counts, and their times at the
@@ -197,7 +197,14 @@ K7a/K7b at levels
 occupancy of the tc_dwt1d.cu instances that K7a/K7b and K29e/K29f run;
 K12a/K12b at levels 1-3 of the sinogram and of the signal beside K10,
 the occupancy and grid of their tc_swt1d.cu instances at sym8 on those
-rows, and digests of their outputs on seeded rows, K12_DIGEST_CASES);
+rows, and digests of their outputs on seeded rows, K12_DIGEST_CASES;
+K10a/K10b run phase 3's 1D SWT checks and the 1D main paths (3 + 3
+launches), and time both at levels 1-3 of the sinogram and of the signal
+(haar, db2, sym8 and sym20 in float32, db4 in float64; db2 level 1 also
+against the plain versions, and the sum of launches x (time - bound)
+over the sinogram's sym8 L3 roundtrip), and print the occupancy and grid
+of their swt1d.cu instances on those rows and digests of their outputs
+on seeded rows, K10_DIGEST_CASES, both types);
 a K29 row runs
 all of the grid and sequence checks and main paths, but times only the
 selected rows (K29e-K29h in both precisions, K29e/K29f also on a
@@ -412,8 +419,12 @@ def launched_once(kernel, call):
     return got
 
 
-def phase_kernels_1d(port, dev):
+def phase_kernels_1d(port, dev, keys=None):
+    """K3/K4 and K10a/K10b against their plain versions and the oracle;
+    ``keys``: K10a/K10b's checks alone unless K3 or K4 is among them
+    (--only)."""
     fd = port.ops.fused_dwt
+    k34 = wanted(keys, "K3", "K4")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     worst = {"K3": 0.0, "K4": 0.0, "K10a": 0.0, "K10b": 0.0}
 
@@ -428,14 +439,18 @@ def phase_kernels_1d(port, dev):
             x = torch.rand(shape, generator=gen, device=dev)
             a, d = (torch.rand(shape, generator=gen, device=dev)
                     for _ in range(2))
-            got = launched_once(fd.dwt1d_fused, lambda: fd.dwt1d_fused(x, fb))
-            note("K3", max_err(got, fd.dwt1d_plain(x, fb)), (fb.name, shape))
-            m = (shape[1] + 1) // 2
-            ca, cd = a[:, :m].contiguous(), d[:, :m].contiguous()
-            got = launched_once(fd.idwt1d_fused, lambda: fd.idwt1d_fused(
-                ca, cd, fb, shape[1]))
-            note("K4", max_err(got, fd.idwt1d_plain(ca, cd, fb, shape[1])),
-                 (fb.name, shape))
+            if k34:
+                got = launched_once(fd.dwt1d_fused,
+                                    lambda: fd.dwt1d_fused(x, fb))
+                note("K3", max_err(got, fd.dwt1d_plain(x, fb)),
+                     (fb.name, shape))
+                m = (shape[1] + 1) // 2
+                ca, cd = a[:, :m].contiguous(), d[:, :m].contiguous()
+                got = launched_once(fd.idwt1d_fused, lambda: fd.idwt1d_fused(
+                    ca, cd, fb, shape[1]))
+                note("K4", max_err(got, fd.idwt1d_plain(ca, cd, fb,
+                                                        shape[1])),
+                     (fb.name, shape))
             top = port.shapes.clamp_levels(99, shape, fb.hlen, 1)
             for level in range(1, top + 1):
                 got = launched_once(fd.swt1d_fused,
@@ -470,7 +485,7 @@ def phase_kernels_1d(port, dev):
         c = [rng.random((3, 12), dtype=np.float32) for _ in range(2)]
         xt = torch.from_numpy(x).to(dev)
         errs = {}
-        if fb.hlen % 2 == 0:
+        if fb.hlen % 2 == 0 and k34:
             a, d = (t.cpu().numpy() for t in fd.dwt1d_fused(xt, fb))
             out = fd.idwt1d_fused(*(torch.from_numpy(s).to(dev) for s in c),
                                   fb, 24).cpu().numpy()
@@ -1964,6 +1979,155 @@ def print_k12_digests(port, dev, keys):
                         *(t.ctypes.data for t in taps), fb.hlen,
                         int(prec == "bf16"), dev.index, stream)
             what = f"{wname} {prec} ({rows}, {n}) L{level} +{oi}/+{oo}"
+            if err:
+                raise RuntimeError(f"{key} {what}: error {err}")
+            print(f"digest {key} {what}: {digest(torch.stack(outs))}")
+            n_cases += 1
+            del ins, outs
+        print(f"digests of {key}: {n_cases}")
+
+
+# -- K10a/K10b, the tap-loop 1D SWT pair (--only K10) ------------------------
+
+# (bank, dtype): the rows that --only K10 times at levels 1-3 of the
+# sinogram and of the signal
+K10_TIMED = (("haar", torch.float32), ("db2", torch.float32),
+             ("sym8", torch.float32), ("sym20", torch.float32),
+             ("db4", torch.float64))
+# (rows, n, level, input offset, output offset): the rows whose K10a/K10b
+# outputs --only K10 digests (the card test's K10_CASES), so that two
+# builds of swt1d.cu compare bit for bit: levels 1-4, a dilation equal to
+# the row and past it, n not a multiple of 4 and odd (the dilation does not
+# divide it), short rows packed to an item, a wrap wider than the row,
+# classes wider than a warp, inputs or outputs one sample past a 16-byte
+# boundary, the timed shapes
+K10_DIGEST_CASES = ([(8, 256, lev, 0, 0) for lev in (1, 2, 3, 4)]
+                    + [(4, 16, 5, 0, 0), (3, 10, 6, 0, 0), (3, 130, 1, 1, 0),
+                       (3, 130, 3, 0, 1), (2, 75, 1, 0, 1), (2, 75, 2, 1, 1),
+                       (64, 40, 1, 0, 0), (64, 40, 2, 0, 0),
+                       (300, 8, 1, 1, 1), (4, 16, 3, 0, 0),
+                       (2, 4096, 7, 0, 0), (2, 1000, 8, 1, 0)]
+                    + [(FRAME[0], FRAME[1], lev, 0, 0) for lev in (1, 2, 3)]
+                    + [(1, SIGNAL, lev, 0, 0) for lev in (1, 2, 3)])
+K10_DIGEST_BANKS = ("haar", "db2", "odd5", "sym8", "sym20")
+
+
+def k10_bound_ms(rows, n, dtype):
+    """Bound of one K10a or K10b level on rows x n samples: 3 arrays of n
+    samples each (one in, two out, or the reverse) over 3.35 TB/s."""
+    return 3 * rows * n * torch.finfo(dtype).bits / 8 / PEAK_BYTES * 1e3
+
+
+def phase_times_k10_levels(port, dev, card):
+    """K10a and K10b at levels 1-3 of the 2048 x 2048 sinogram and of the
+    (1, 4 Mi) signal, K10_TIMED's banks, in turns within this call (device
+    time), each beside its bound; db2 level 1 of the sinogram also against
+    its plain version (the kernels line); and the sum of launches x (time -
+    bound) over the sinogram's sym8 L3 roundtrip (--only K10).  Inputs
+    cycle over copies that together exceed the 50 MB L2."""
+    fd = port.ops.fused_dwt
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    times, excess = {}, 0.0
+    for (what, shape), (wname, dtype) in itertools.product(
+            (("sinogram", FRAME), ("signal", (1, SIGNAL))), K10_TIMED):
+        fb = port.get_filter_bank(wname)
+        copies = 4 if dtype == torch.float32 else 2
+        xs = [torch.rand(shape, generator=gen, device=dev, dtype=dtype) * 255
+              for _ in range(copies)]
+        bound = k10_bound_ms(*shape, dtype)
+        for level in (1, 2, 3):
+            sx = itertools.cycle(xs).__next__
+            sc = itertools.cycle([fd.swt1d_fused(x, fb, level)
+                                  for x in xs]).__next__
+            calls = {"K10a": lambda: fd.swt1d_fused(sx(), fb, level),
+                     "K10b": lambda: fd.iswt1d_fused(*sc(), fb, level)}
+            line = (what == "sinogram" and wname == "db2" and level == 1
+                    and dtype == torch.float32)
+            if line:
+                calls["K10a plain"] = lambda: fd.swt1d_plain(sx(), fb, 1)
+                calls["K10b plain"] = lambda: fd.iswt1d_plain(*sc(), fb, 1)
+            reps = {k: 3 if k.endswith("plain") else 10 for k in calls}
+            t = in_turns(calls, reps)
+            if line:
+                times = {k: (t[k], t[f"{k} plain"])
+                         for k in ("K10a", "K10b")}
+            if what == "sinogram" and wname == "sym8":
+                excess += sum(t[k] - bound for k in ("K10a", "K10b"))
+            print(f"time K10 {what} {shape} level {level} {wname} "
+                  f"{str(dtype)[6:]}, device: "
+                  + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in t.items())
+                  + f"; bound {bound * 1e3:.1f} us each, K10a "
+                  f"{bound / t['K10a']:.0%} of it, K10b "
+                  f"{bound / t['K10b']:.0%}  [{card}]")
+        del xs
+    print(f"time K10 sinogram sym8 L3 roundtrip (3 K10a + 3 K10b): sum of "
+          f"launches x (time - bound) {excess * 1e3:.1f} us  [{card}]")
+    return times
+
+
+def print_k10_occupancy(port, dev):
+    """Resident blocks per SM (the occupancy API), dynamic shared memory
+    and grid of the swt1d.cu instances that K10a/K10b run at K10_TIMED's
+    banks on the timed rows (a build without the query says so)."""
+    from pypwt_tpu_torch.ops import _build
+    lib = _build.load_library()
+    if not hasattr(lib, "pypwt_swt1d_occupancy"):
+        print("occupancy swt1d.cu (K10a, K10b): not reported by this build")
+        return
+    for (rows, n), (wname, dtype), syn in itertools.product(
+            (FRAME, (1, SIGNAL)), K10_TIMED, (0, 1)):
+        hlen = port.get_filter_bank(wname).hlen
+        for level in (1, 2, 3):
+            out = [ctypes.c_int() for _ in range(3)]
+            err = lib.pypwt_swt1d_occupancy(
+                syn, rows, n, level, hlen, int(dtype == torch.float64),
+                dev.index, *(ctypes.byref(o) for o in out))
+            if err:
+                raise RuntimeError(f"occupancy query K10 level {level}: "
+                                   f"error {err}")
+            blocks, smem, grid = (o.value for o in out)
+            print(f"occupancy {'K10b' if syn else 'K10a'} {wname} "
+                  f"{str(dtype)[6:]} level {level} ({rows} rows of {n}): "
+                  f"{blocks} blocks of 256 threads per SM, {smem} bytes of "
+                  f"dynamic shared memory each, grid {grid}")
+
+
+def print_k10_digests(port, dev, keys):
+    """SHA-256 of K10a's outputs (lo and hi stacked) and K10b's on seeded
+    rows (K10_DIGEST_CASES, K10_DIGEST_BANKS, float32 and float64), each C
+    entry called on outputs made here, NaN-filled: equal lines from two
+    trees mean bit-identical kernels."""
+    fd = port.ops.fused_dwt
+    from pypwt_tpu_torch.ops import _build
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    banks = {fb.name: fb for fb in banks_1d(port)}
+    for key, seed in (("K10a", SEED + 82), ("K10b", SEED + 83)):
+        if not wanted(keys, key):
+            continue
+        syn = key == "K10b"
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        n_cases = 0
+        for (rows, n, level, oi, oo), wname, dtype in itertools.product(
+                K10_DIGEST_CASES, K10_DIGEST_BANKS,
+                (torch.float32, torch.float64)):
+            fb = banks.get(wname) or port.get_filter_bank(wname)
+            npt = np.float64 if dtype == torch.float64 else np.float32
+            ins = [unaligned(torch.rand((rows, n), generator=gen, device=dev,
+                                        dtype=dtype), oi)
+                   for _ in range(2 if syn else 1)]
+            outs = [torch.full((rows * n + oo,), float("nan"), dtype=dtype,
+                               device=dev)[oo:].view(rows, n)
+                    for _ in range(1 if syn else 2)]
+            taps = [fd._host_taps(f, npt) for f in (
+                (fb.rec_lo, fb.rec_hi) if syn else (fb.dec_lo, fb.dec_hi))]
+            entry = getattr(lib, ("pypwt_iswt1d" if syn else "pypwt_swt1d")
+                            + ("_f64" if dtype == torch.float64 else ""))
+            err = entry(*(t.data_ptr() for t in ins + outs), rows, n, level,
+                        *(t.ctypes.data for t in taps), fb.hlen, dev.index,
+                        stream)
+            what = (f"{wname} {str(dtype)[6:]} ({rows}, {n}) L{level} "
+                    f"+{oi}/+{oo}")
             if err:
                 raise RuntimeError(f"{key} {what}: error {err}")
             print(f"digest {key} {what}: {digest(torch.stack(outs))}")
@@ -5591,8 +5755,8 @@ MXU2D_KEYS = ("K5", "K6", "K11a", "K11b")
 SHARD_KEYS = ("K26a", "K26b", "K27a", "K27b", "K28 dwt", "K28 idwt",
               "K28 swt", "K28 iswt")
 MXU1D_KEYS = ("K7a", "K7b", "K12a", "K12b")
-ONLY_KEYS = (("K1", "K2", "K9", "K18a", "K18b", "K19", "K20") + MXU2D_KEYS
-             + MXU1D_KEYS + SHARD_KEYS + K29)
+ONLY_KEYS = (("K1", "K2", "K9", "K10a", "K10b", "K18a", "K18b", "K19", "K20")
+             + MXU2D_KEYS + MXU1D_KEYS + SHARD_KEYS + K29)
 
 
 def in_family(key, item):
@@ -5605,13 +5769,14 @@ def in_family(key, item):
 
 def only_keys(spec):
     """The rows that ``--only`` names: each comma-separated item is a row's
-    key or a family (K7, K12, K28, K29), or SystemExit."""
+    key or a family (K7, K10, K12, K28, K29), or SystemExit."""
     keys = set()
     for item in (t.strip() for t in spec.split(",")):
         got = {k for k in ONLY_KEYS if in_family(k, item)}
         if not got:
             print(f"chip_smoke: --only {item!r} names no selectable row "
-                  f"(one of {', '.join(ONLY_KEYS)}, or K7, K12, K28, K29)",
+                  f"(one of {', '.join(ONLY_KEYS)}, or K7, K10, K12, K28, "
+                  f"K29)",
                   file=sys.stderr)
             sys.exit(2)
         keys |= got
@@ -5683,8 +5848,14 @@ def run_only(port, dev, card, keys):
         times.update(phase_times_nsswt_levels(port, dev, card, keys))
         print_k18_occupancy(port, dev, keys)
         print_k18_digests(port, dev, keys)
-    if wanted(keys, "K1", "K2", "K9", "K18a", "K18b", "K19", "K20",
-              *MXU2D_KEYS, *MXU1D_KEYS):
+    if wanted(keys, "K10a", "K10b"):
+        worst.update(phase_kernels_1d(port, dev, keys))
+        launches.update(phase_main_paths_1d(port, dev))
+        times.update(phase_times_k10_levels(port, dev, card))
+        print_k10_occupancy(port, dev)
+        print_k10_digests(port, dev, keys)
+    if wanted(keys, "K1", "K2", "K9", "K10a", "K10b", "K18a", "K18b", "K19",
+              "K20", *MXU2D_KEYS, *MXU1D_KEYS):
         library.update(phase_library(port, dev, card, keys))
     if wanted(keys, "K7a", "K7b", "K29e", "K29f"):
         print_tc1d_occupancy(port, dev, keys)

@@ -4,7 +4,8 @@ cycle-spin synthesis or analysis, of several source trees in turns, in one
 process, on one NVIDIA GPU, or compare their kernels' machine code:
 
     python3 chip_turns.py [--only dwt|idwt|syn2d|ana2d|rows|spin|shift|nsswt|
-        swt1d] [--banks B,...] [--levels L,...] PARENT_TREE TREE [TREE ...]
+        swt1d|k10|nsdwt] [--banks B,...] [--levels L,...] PARENT_TREE TREE
+        [TREE ...]
     python3 chip_turns.py --sass PARENT_TREE TREE [TREE ...]
 
 A tree is a directory holding a ``pypwt_tpu_torch`` package: an unpacked
@@ -58,7 +59,18 @@ non-separable SWT roundtrip of the frame on the first bank (3 K18a, then
 sym8 and sym20 (``--banks``: these banks instead), and at levels 1-3 of
 the (1, 4 Mi) signal, sym8, "highest" and "bf16", with each tree's
 ``pypwt_tc_swt1d_occupancy`` at those rows; first, the sinogram's sym8
-L3 SWT roundtrip of mode "mxu" (3 K12a, then 3 K12b).
+L3 SWT roundtrip of mode "mxu" (3 K12a, then 3 K12b). ``--only k10``
+(not in the default run): K10a (``pypwt_swt1d``) and K10b
+(``pypwt_iswt1d``) at levels 1-3 (``--levels``: these levels instead) of
+the 2048 x 2048 sinogram and of the (1, 4 Mi) signal, haar, db2, sym8 and
+sym20 (``--banks``: these banks instead) in float32 and db4 in float64
+(``pypwt_swt1d_f64``, ``pypwt_iswt1d_f64``), inputs cycling over four
+sets (float64: two) beyond the L2, with each tree's
+``pypwt_swt1d_occupancy`` at those rows; first, the sinogram's sym8 L3
+SWT roundtrip of mode "auto" (3 K10a, then 3 K10b). ``--only nsdwt``
+(not in the default run): K16 (``pypwt_ns_dwt2d``) and K17
+(``pypwt_ins_dwt2d``) at levels 0-2 of a 2048^2 frame (level l: a (2048 /
+2^l)^2 plane, K17 its synthesis), db3 x coif1, float32.
 Device time by CUDA events behind a sleep kernel, the median of 21
 samples of 10 launches, and the host time of one call (entry to return,
 the device idle before it), the median of 21; the trees in order, then
@@ -136,6 +148,10 @@ SIGNAL = (1, 4 << 20)           # K12a/K12b's signal (K15's map)
 SWT1D_BANKS = ["haar", "db2", "sym8", "sym20"]  # K12a/K12b's (--banks)
 SWT1D_LEVELS = [1, 2, 3, 4]     # their sinogram levels (--levels)
 SIGNAL_LEVELS = [1, 2, 3]       # their signal levels
+K10_BANKS = ["haar", "db2", "sym8", "sym20"]  # K10a/K10b's (--banks)
+K10_F64_BANKS = ["db4"]         # their float64 rows
+K10_LEVELS = [1, 2, 3]          # their levels (--levels)
+NSDWT_LEVELS = (0, 1, 2)        # K16/K17's levels of a 2048^2 frame
 SYN2D_TYPES = (torch.float32, torch.float64)
 # entries that a parent tree's _build may not declare
 ENTRY_TYPES = {
@@ -149,6 +165,7 @@ ENTRY_TYPES = {
     "pypwt_syn_rows_occupancy": [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4,
     "pypwt_ns_swt2d_occupancy": [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5,
     "pypwt_tc_swt1d_occupancy": [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3,
+    "pypwt_swt1d_occupancy": [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3,
     "pypwt_ins_swt2d_occupancy": [ctypes.c_int] * 7
     + [ctypes.c_void_p] * 5}
 
@@ -184,8 +201,10 @@ def load(trees):
                      "pypwt_dwt2d_shifted_occupancy", "pypwt_syn_rows",
                      "pypwt_syn_rows_f64", "pypwt_syn_rows_occupancy",
                      "pypwt_tc_swt1d", "pypwt_tc_iswt1d",
-                     "pypwt_tc_swt1d_occupancy",
-                     "pypwt_ns_swt2d",
+                     "pypwt_tc_swt1d_occupancy", "pypwt_swt1d",
+                     "pypwt_swt1d_f64", "pypwt_iswt1d", "pypwt_iswt1d_f64",
+                     "pypwt_swt1d_occupancy", "pypwt_ns_dwt2d",
+                     "pypwt_ins_dwt2d", "pypwt_ns_swt2d",
                      "pypwt_ns_swt2d_f64", "pypwt_ns_swt2d_occupancy",
                      "pypwt_ins_swt2d", "pypwt_ins_swt2d_f64",
                      "pypwt_ins_swt2d_occupancy"):
@@ -553,6 +572,92 @@ def cases(port, dev, only):
             return x
         return call
 
+    def k10(wname, level, shape, dtype, synthesis):
+        """K10a (pypwt_swt1d) or K10b (pypwt_iswt1d) at one level of rows
+        ``shape``, cycling over four input sets (float64: two) that
+        together exceed the 50 MB L2."""
+        fbw = port.get_filter_bank(wname)
+        npt = np.float64 if dtype == torch.float64 else np.float32
+        taps = [fd._host_taps(f, npt) for f in (
+            (fbw.rec_lo, fbw.rec_hi) if synthesis else
+            (fbw.dec_lo, fbw.dec_hi))]
+        sets = [[rand(shape, dtype) for _ in range(2 if synthesis else 1)]
+                for _ in range(4 if dtype == torch.float32 else 2)]
+        outs = [torch.empty(shape, device=dev, dtype=dtype)
+                for _ in range(1 if synthesis else 2)]
+        name = "pypwt_iswt1d" if synthesis else "pypwt_swt1d"
+
+        def call(lib, i, _):
+            err = entry(lib, name, dtype)(
+                *(t.data_ptr() for t in sets[i % len(sets)] + outs),
+                shape[0], shape[1], level, *(t.ctypes.data for t in taps),
+                fbw.hlen, dev.index, stream)
+            if err:
+                raise RuntimeError(f"K10 level {level}: error {err}")
+            return outs
+        return call
+
+    def k10_roundtrip():
+        """The sinogram's sym8 L3 SWT roundtrip of mode "auto": K10a at
+        levels 1-3, each on the approximation before, then K10b at levels
+        3-1 (3 + 3 launches)."""
+        fbw = port.get_filter_bank("sym8")
+        dec = [fd._host_taps(f) for f in (fbw.dec_lo, fbw.dec_hi)]
+        rec = [fd._host_taps(f) for f in (fbw.rec_lo, fbw.rec_hi)]
+        xs = [rand(SINOGRAM) for _ in range(2)]
+        levels = [[torch.empty(SINOGRAM, device=dev) for _ in range(2)]
+                  for _ in range(3)]
+        outs = [torch.empty(SINOGRAM, device=dev) for _ in range(3)]
+
+        def call(lib, i, _):
+            x, err = xs[i % 2], 0
+            for lev, (a, d) in enumerate(levels, 1):
+                err = err or lib.pypwt_swt1d(
+                    x.data_ptr(), a.data_ptr(), d.data_ptr(), *SINOGRAM, lev,
+                    *(t.ctypes.data for t in dec), fbw.hlen, dev.index,
+                    stream)
+                x = a
+            for lev in (3, 2, 1):
+                err = err or lib.pypwt_iswt1d(
+                    x.data_ptr(), levels[lev - 1][1].data_ptr(),
+                    outs[lev - 1].data_ptr(), *SINOGRAM, lev,
+                    *(t.ctypes.data for t in rec), fbw.hlen, dev.index,
+                    stream)
+                x = outs[lev - 1]
+            if err:
+                raise RuntimeError(f"K10 roundtrip: error {err}")
+            return x
+        return call
+
+    def k16_k17(level, synthesis):
+        """K16 (pypwt_ns_dwt2d) or K17 (pypwt_ins_dwt2d) at one level of a
+        2048^2 frame (level l: a (2048 / 2^l)^2 plane), db3 x coif1."""
+        dec, rec = ns_bank(port, "db3xcoif1")
+        hlen = dec.shape[-1]
+        bank = np.ascontiguousarray((rec if synthesis else dec)
+                                    .astype(np.float32))
+        n = FRAME >> level
+        m = (n + 1) // 2
+        sets = [[rand((m, m) if synthesis else (n, n))
+                 for _ in range(4 if synthesis else 1)] for _ in range(2)]
+        outs = [torch.empty((n, n) if synthesis else (m, m), device=dev)
+                for _ in range(1 if synthesis else 4)]
+
+        def call(lib, i, _):
+            if synthesis:
+                err = lib.pypwt_ins_dwt2d(
+                    *(p.data_ptr() for p in sets[i % 2]), outs[0].data_ptr(),
+                    1, m, m, n, n, bank.ctypes.data, hlen, dev.index, stream)
+            else:
+                err = lib.pypwt_ns_dwt2d(
+                    sets[i % 2][0].data_ptr(), *(o.data_ptr() for o in outs),
+                    1, n, n, bank.ctypes.data, hlen, dev.index, stream)
+            if err:
+                raise RuntimeError(f"K16/K17 level {level}: error {err}")
+            return outs[0] if synthesis else outs
+        call.bank = bank  # alive as long as the call
+        return call
+
     def k19(wname, level, shift, mode):
         fbw = port.get_filter_bank(wname)
         lo2, hi2 = fd._host_taps(fbw.dec_lo), fd._host_taps(fbw.dec_hi)
@@ -721,6 +826,22 @@ def cases(port, dev, only):
             for key, make in (("K12a", k12a), ("K12b", k12b)):
                 got[f"{key} signal level {lev} sym8"] = (
                     make("sym8", lev, SIGNAL), precisions)
+    if only == "k10":
+        got["K10 sinogram SWT L3 roundtrip sym8"] = (k10_roundtrip(), (None,))
+        rows = ([(wname, torch.float32) for wname in K10_BANKS]
+                + [(wname, torch.float64) for wname in K10_F64_BANKS])
+        for (what, shape), (wname, dtype) in itertools.product(
+                (("sinogram", SINOGRAM), ("signal", SIGNAL)), rows):
+            for lev in K10_LEVELS:
+                for key, syn in (("K10a", False), ("K10b", True)):
+                    got[f"{key} {what} level {lev} {wname} "
+                        f"{str(dtype)[6:]}"] = (
+                            k10(wname, lev, shape, dtype, syn), (None,))
+    if only == "nsdwt":
+        for lev in NSDWT_LEVELS:
+            for key, syn in (("K16", False), ("K17", True)):
+                got[f"{key} level {lev} db3xcoif1"] = (k16_k17(lev, syn),
+                                                       (None,))
     if only == "spin":
         for wname in SPIN_BANKS:
             for lev, shift, acc in SPIN_LEVELS:
@@ -879,22 +1000,24 @@ def main():
         only, trees = (trees[1:2] or [""])[0], trees[2:]
     if trees[:1] == ["--banks"] and only in ("syn2d", "ana2d", "rows",
                                              "spin", "shift", "nsswt",
-                                             "swt1d"):
+                                             "swt1d", "k10"):
         banks = {"rows": ROWS_BANKS, "spin": SPIN_BANKS,
                  "shift": SHIFT_BANKS, "nsswt": NSSWT_BANKS,
-                 "swt1d": SWT1D_BANKS}.get(only, SYN2D_BANKS)
+                 "swt1d": SWT1D_BANKS, "k10": K10_BANKS}.get(only,
+                                                             SYN2D_BANKS)
         banks[:] = (trees[1:2] or [""])[0].split(",")
         trees = trees[2:]
-    if trees[:1] == ["--levels"] and only in ("nsswt", "swt1d"):
-        levels = NSSWT_LEVELS if only == "nsswt" else SWT1D_LEVELS
+    if trees[:1] == ["--levels"] and only in ("nsswt", "swt1d", "k10"):
+        levels = {"nsswt": NSSWT_LEVELS, "swt1d": SWT1D_LEVELS,
+                  "k10": K10_LEVELS}[only]
         levels[:] = [int(v) for v in (trees[1:2] or [""])[0].split(",")]
         trees = trees[2:]
     if len(trees) < 2 or only not in (None, "dwt", "idwt", "syn2d",
                                       "ana2d", "rows", "spin", "shift",
-                                      "nsswt", "swt1d"):
+                                      "nsswt", "swt1d", "k10", "nsdwt"):
         print("usage: python3 chip_turns.py [--only dwt|idwt|syn2d|ana2d|"
-              "rows|spin|shift|nsswt|swt1d] [--banks B,...] "
-              "[--levels L,... (nsswt, swt1d)] "
+              "rows|spin|shift|nsswt|swt1d|k10|nsdwt] [--banks B,...] "
+              "[--levels L,... (nsswt, swt1d, k10)] "
               "PARENT_TREE TREE [TREE ...]", file=sys.stderr)
         sys.exit(2)
     if not torch.cuda.is_available():
@@ -940,6 +1063,8 @@ def main():
         print_nsswt_occupancy(trees, libs, port, dev)
     if only == "swt1d":
         print_swt1d_occupancy(trees, libs, port, dev)
+    if only == "k10":
+        print_k10_occupancy(trees, libs, port, dev)
     for name, (call, variants) in calls.items():
         for bf16 in variants:
             digests = {hashlib.sha256(flat(call(lib, 0, bf16)).cpu()
@@ -1120,6 +1245,33 @@ def print_swt1d_occupancy(trees, libs, port, dev):
             print(f"occupancy {tree} {key} ({rows}, {n}) level {lev} "
                   f"{wname} {'bf16' if bf16 else 'highest'}: {blocks} blocks "
                   f"per SM, {smem} bytes, grid {grid}")
+
+
+
+def print_k10_occupancy(trees, libs, port, dev):
+    """Blocks per SM, dynamic shared memory and grid of each tree's K10a
+    and K10b instances at the timed banks, levels and rows, where the tree
+    reports them."""
+    query = "pypwt_swt1d_occupancy"
+    rows = ([(wname, 0) for wname in K10_BANKS]
+            + [(wname, 1) for wname in K10_F64_BANKS])
+    for tree, lib in zip(trees, libs):
+        if not hasattr(lib, query):
+            print(f"occupancy {tree} K10a, K10b: not reported by this tree")
+            continue
+        for (syn, key), (wname, f64), (rn, lev) in itertools.product(
+                ((0, "K10a"), (1, "K10b")), rows,
+                itertools.product((SINOGRAM, SIGNAL), K10_LEVELS)):
+            out = [ctypes.c_int() for _ in range(3)]
+            err = getattr(lib, query)(
+                syn, *rn, lev, port.get_filter_bank(wname).hlen, f64,
+                dev.index, *(ctypes.byref(o) for o in out))
+            if err:
+                raise RuntimeError(f"occupancy query: error {err}")
+            blocks, smem, grid = (o.value for o in out)
+            print(f"occupancy {tree} {key} {rn} level {lev} {wname} "
+                  f"{'float64' if f64 else 'float32'}: {blocks} blocks per "
+                  f"SM, {smem} bytes, grid {grid}")
 
 
 if __name__ == "__main__":

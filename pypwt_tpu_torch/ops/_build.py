@@ -153,6 +153,9 @@ _SIGNATURES = {
     # synthesis, rows, n, level, hlen, bf16, device, blocks (int*), smem
     # (int*), grid (int*) (K12a / K12b)
     "pypwt_tc_swt1d_occupancy": [_I] * 7 + [_P] * 3,
+    # synthesis, rows, n, level, hlen, f64, device, blocks (int*), smem
+    # (int*), grid (int*) (K10a / K10b)
+    "pypwt_swt1d_occupancy": [_I] * 7 + [_P] * 3,
     # synthesis, hlen, bf16, device, blocks (int*), smem (int*), tile rows
     # (int*), tile columns (int*) (K29g / K29h)
     "pypwt_tc_rows_occupancy": [_I] * 4 + [_P] * 4,

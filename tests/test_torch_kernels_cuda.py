@@ -5011,6 +5011,970 @@ K12_DIGESTS = {
         '8b31080dddbd57b851a1c07b28067b86985c460476c2076eae851476abaaf82e',
 }
 
+
+# K10a / K10b, swt1d.cu's persistent window body: each output against its
+# plain version and against the SHA-256 of the output that the first body
+# (a block per 1024-output tile, the window staged by scalar loads, the
+# taps and their offsets read from shared memory) gave on the card for the
+# same seeded inputs; `python tests/test_torch_kernels_cuda.py digests K10`
+# prints K10_DIGESTS's form. Banks of hlen 2, 4, 5, 16 and 40, float32 and
+# float64; (rows, n, level, input offset, output offset): levels 1-4 of 8
+# rows of 256; a dilation equal to the row (4 x 16 at level 5) and past it
+# (3 x 10 at level 6); n not a multiple of 4 (130) and odd (75), where the
+# dilation does not divide it; short rows packed to an item (64 x 40 at
+# levels 1 and 2, 300 x 8); a wrap wider than the row (4 x 16 at level 3);
+# classes wider than a warp (2 x 4096 at level 7, 2 x 1000 at level 8);
+# inputs or outputs one sample past a 16-byte boundary; and the timed
+# shapes, levels 1-3 of the 2048 x 2048 sinogram and of the (1, 4 Mi)
+# signal. The C entries are called on outputs made here, NaN-filled.
+K10_BANKS = ["haar", "db2", "odd5", "sym8", "sym20"]
+K10_CASES = ([(8, 256, lev, 0, 0) for lev in (1, 2, 3, 4)]
+             + [(4, 16, 5, 0, 0), (3, 10, 6, 0, 0), (3, 130, 1, 1, 0),
+                (3, 130, 3, 0, 1), (2, 75, 1, 0, 1), (2, 75, 2, 1, 1),
+                (64, 40, 1, 0, 0), (64, 40, 2, 0, 0), (300, 8, 1, 1, 1),
+                (4, 16, 3, 0, 0), (2, 4096, 7, 0, 0), (2, 1000, 8, 1, 0)]
+             + [(2048, 2048, lev, 0, 0) for lev in (1, 2, 3)]
+             + [(1, 4 << 20, lev, 0, 0) for lev in (1, 2, 3)])
+K10_TYPES = {"f32": torch.float32, "f64": torch.float64}
+
+
+def _k10_id(kind, case, wname, dt):
+    return "-".join([kind, wname, dt, *(str(v) for v in case)])
+
+
+def _k10_output(kind, case, wname, dt, dev):
+    """(kernel output, plain output) of one case (K10a: lo and hi stacked):
+    the C entry launched once on seeded rows at the case's input offset,
+    into NaN-filled outputs at its output offset."""
+    fb = _bank(wname)
+    rows, n, level, oi, oo = case
+    dtype = K10_TYPES[dt]
+    npt = np.float64 if dtype == torch.float64 else np.float32
+    suffix = "_f64" if dtype == torch.float64 else ""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.load_library()
+
+    def rand(seed):
+        return _offset(_rand((rows, n), dev, seed).to(dtype), oi)
+
+    def empty():
+        return torch.full((rows * n + oo,), float("nan"), dtype=dtype,
+                          device=dev)[oo:].view(rows, n)
+
+    if kind == "K10a":
+        x = rand(10)
+        lo, hi = empty(), empty()
+        taps = [fd._host_taps(f, npt) for f in (fb.dec_lo, fb.dec_hi)]
+        err = getattr(lib, "pypwt_swt1d" + suffix)(
+            x.data_ptr(), lo.data_ptr(), hi.data_ptr(), rows, n, level,
+            *(t.ctypes.data for t in taps), fb.hlen, dev.index, stream)
+        assert err == 0
+        return (torch.stack([lo, hi]),
+                torch.stack(fd.swt1d_plain(x, fb, level)))
+    a, d = rand(11), rand(12)
+    out = empty()
+    taps = [fd._host_taps(f, npt) for f in (fb.rec_lo, fb.rec_hi)]
+    err = getattr(lib, "pypwt_iswt1d" + suffix)(
+        a.data_ptr(), d.data_ptr(), out.data_ptr(), rows, n, level,
+        *(t.ctypes.data for t in taps), fb.hlen, dev.index, stream)
+    assert err == 0
+    return out, fd.iswt1d_plain(a, d, fb, level)
+
+
+@pytest.mark.parametrize("dt", list(K10_TYPES))
+@pytest.mark.parametrize("wname", K10_BANKS)
+@pytest.mark.parametrize("kind", ["K10a", "K10b"])
+@pytest.mark.parametrize("case", K10_CASES, ids=str)
+def test_k10_body_matches_plain_and_parent(dev, case, kind, wname, dt):
+    got, ref = _k10_output(kind, case, wname, dt, dev)
+    tol = TOL if dt == "f32" else 1e-12
+    assert got.shape == ref.shape and float((got - ref).abs().max()) <= tol
+    assert _sha256(got) == K10_DIGESTS[_k10_id(kind, case, wname, dt)]
+
+
+K10_DIGESTS = {
+    'K10a-haar-f32-8-256-1-0-0':
+        '595f28468ce763312cf6d7ccaa08d974946513ce95c625013a4998c77c4f95ab',
+    'K10a-haar-f64-8-256-1-0-0':
+        '7897f2c9398073761bd58ae26210df991b294893b8b07d4c6c3f91648a12aa8f',
+    'K10a-db2-f32-8-256-1-0-0':
+        '5610c0abcdda4c60dfb3abae3935bb48b4d0021f615ec0e3838ceaf838a17d8d',
+    'K10a-db2-f64-8-256-1-0-0':
+        '5fa0cd0120e7ddb58946da93b163d9d5b250ad45655972d29440bed615c4f812',
+    'K10a-odd5-f32-8-256-1-0-0':
+        '7e48879284ecf050a357c701e02ef6be79709d4a1f6b7eef210607c2c2ddf050',
+    'K10a-odd5-f64-8-256-1-0-0':
+        'ecbcbffdbc4df186e8f880cea4cd1c0bf27e3ff1b08bceba14a76667608f84e2',
+    'K10a-sym8-f32-8-256-1-0-0':
+        'f73a31da11c8bcf5ea19bbf7ee7be5a2037038caa9a96440ab4d3cc2da0eba20',
+    'K10a-sym8-f64-8-256-1-0-0':
+        '303c1dd1b81a110f50acff24378f8b11eaf237c2d7c09f667620ca22d9e2b3c3',
+    'K10a-sym20-f32-8-256-1-0-0':
+        '779a06fecec79d901ee6374c3c8495f29e337d83919c90b5aa442d401233ebb9',
+    'K10a-sym20-f64-8-256-1-0-0':
+        '0bddad97f7dbf8514bd80397d76a6a446ca07d687e9e0666d4565ace4a0e0472',
+    'K10b-haar-f32-8-256-1-0-0':
+        '5d9c13689a81d3e1f66a92e8c325b5d7c25acd0d230f3f44a7408718f1de66ed',
+    'K10b-haar-f64-8-256-1-0-0':
+        '149a7eb8df90d2763052b18ea833e07aa9aa4c0e1a606c72cc6c53c728a7e04e',
+    'K10b-db2-f32-8-256-1-0-0':
+        '6dcc2caeaf20189e38e1baaef1a0b1fc80a8a82a830f9963113cc5a3508a49be',
+    'K10b-db2-f64-8-256-1-0-0':
+        'dc9b2cb00c4ab3a172a073df2a2772c4703bb3cad8cc36117cdd7e7760470d21',
+    'K10b-odd5-f32-8-256-1-0-0':
+        '85e465edde3b372fbb3d14f48d512d483643fc6291f0573932dc041da4f16940',
+    'K10b-odd5-f64-8-256-1-0-0':
+        'f421f2b7c48d87e6b9d2bb94429041bfceed9dc7cde89e319e9ff6baaa373ed9',
+    'K10b-sym8-f32-8-256-1-0-0':
+        '0d245f7cbe92d1c7cb54a0f5452c1b960f1ffcb12051b1c3231f8e4b2b9bfe18',
+    'K10b-sym8-f64-8-256-1-0-0':
+        'eb572466e55b3d4750bdec31c135f84fe5b6c63dcf1daa490c8ef057b0d97a09',
+    'K10b-sym20-f32-8-256-1-0-0':
+        'be4417912ca9b4991d80d07c6d70e7f70fe231ee78c7ba0df1be6731718f05b6',
+    'K10b-sym20-f64-8-256-1-0-0':
+        'a7c878d44c9b1327d93bb49c2ec0f843ec5c36c21fe358ae4981061e26627b1f',
+    'K10a-haar-f32-8-256-2-0-0':
+        'fe3dd8e8ae685689b3dba84e9aec542db138692b8e729d2b6daa96110fac7531',
+    'K10a-haar-f64-8-256-2-0-0':
+        'faf02d58d85099325af9045d56bc8300c68a2b582cbb161a82289e0841d75f3b',
+    'K10a-db2-f32-8-256-2-0-0':
+        'b3db85830bf738ca787ef55eb1072e347ac78104b71e33d1742a3a1eb5800219',
+    'K10a-db2-f64-8-256-2-0-0':
+        '94478ed408a92af178b56e13d3e0464e654c569501efa54c7f61ae9e75b3faac',
+    'K10a-odd5-f32-8-256-2-0-0':
+        '21851fee1d3cdf1e420826af4ec780347f7b0f6d6cb08cbf15e98b5c4919eac3',
+    'K10a-odd5-f64-8-256-2-0-0':
+        'f718c9ace36b34f7d40395550b569c5df2acf9abdf54c4d4f4c6686474c8c577',
+    'K10a-sym8-f32-8-256-2-0-0':
+        '94e64088681fa3f6e2ddb7cf8590025f39181688c552c215d1b00dea63e50b40',
+    'K10a-sym8-f64-8-256-2-0-0':
+        '38eeef12c60b4b845a4ad6a3b2fb4647c6eb7d950d44aeabff74b6db7b80c8b4',
+    'K10a-sym20-f32-8-256-2-0-0':
+        'e8a592b14729b46154f835e972890b600612e0554c86d8c271f6e0eebaedd399',
+    'K10a-sym20-f64-8-256-2-0-0':
+        'fcee4d473f3aa1b41c60b35f388ac65d49f4f9adcbb54491d6fa118ff55f3c50',
+    'K10b-haar-f32-8-256-2-0-0':
+        '2cfd098c9d0f5f54896b0da22b159b65c4026efcd6f6eb7f3115de687140fd41',
+    'K10b-haar-f64-8-256-2-0-0':
+        'f6aa1b65e7da389d7fee2f8992eac750594ff2d9faa687c1be3e4340aa69ec80',
+    'K10b-db2-f32-8-256-2-0-0':
+        '5005f8a8d9f758dfc109fc732c284f64795c040d7fdc0dd9ebc8e34b25c1f191',
+    'K10b-db2-f64-8-256-2-0-0':
+        '732f3d9652e409fca89acf4adccf22a061f705f9cb6544e7edcc413c618f9496',
+    'K10b-odd5-f32-8-256-2-0-0':
+        'f7f8ebbc9ec3821f45dbe14443b6426568084cfa8ed1f060c088c0d53e0c7e88',
+    'K10b-odd5-f64-8-256-2-0-0':
+        '5162d497a67d79f2399dcb3f1b230f1a0876c4b3cb278b3dfe5ef4cb56382b1e',
+    'K10b-sym8-f32-8-256-2-0-0':
+        'dbfe56ae592e73237e4bb5a78dabc067b8e23eb2b8069ddba2cd708cb4f4ec85',
+    'K10b-sym8-f64-8-256-2-0-0':
+        '272ac46334df4dbca509713b8727c879a0d4f8191b5e4d789a77b023eab8aa02',
+    'K10b-sym20-f32-8-256-2-0-0':
+        '9ebbbd623ba165a16c0baf829448e0c99268637d8a75a5f55a48d061421e6bac',
+    'K10b-sym20-f64-8-256-2-0-0':
+        'a80da2cfef34575929f73f9fa8833746da1fc30bddc57f8f7173231afa3d6829',
+    'K10a-haar-f32-8-256-3-0-0':
+        '27059de5a9485f4ba7394f69a8288e6be132107f9b4ac50441fe14968ecc68dc',
+    'K10a-haar-f64-8-256-3-0-0':
+        '901eec9f7ce600dd23cc7e8974287b418debbdb1a4eade43a10bd9acd8628f07',
+    'K10a-db2-f32-8-256-3-0-0':
+        '2855647a921455e8c2c742289a054dac1fbbaedae87a9e1b6e266a9ba8ab9731',
+    'K10a-db2-f64-8-256-3-0-0':
+        '0e7184ea353c6b2020e952452ff39d0b878ba0604a071a7a3eeb682672bb80d4',
+    'K10a-odd5-f32-8-256-3-0-0':
+        '872ebdb5177a8465326b269c7028da0382d621ed56c2a2d5c0c94fce28aa996b',
+    'K10a-odd5-f64-8-256-3-0-0':
+        '63f20f2c1ad09a9b1bb79d8fb49b12240ddd7621ee734348683adc7d4a7a34e6',
+    'K10a-sym8-f32-8-256-3-0-0':
+        '13e61c0cfa6e45d3213f57a5214779871364ba6ea4c462e2f99008895964c88d',
+    'K10a-sym8-f64-8-256-3-0-0':
+        'c2af5237e6a243a0a271c8152870a94db0f6834f5691c5778439493a1eab2ac2',
+    'K10a-sym20-f32-8-256-3-0-0':
+        '14a449e80a8c340e6b9c119de0948f5ab14cbee3840edc35a56f3d017fed1340',
+    'K10a-sym20-f64-8-256-3-0-0':
+        'e9cca161d384063f6d36a7bb5019ed34d65778a24893c61974d2e651e99ac8e2',
+    'K10b-haar-f32-8-256-3-0-0':
+        '81759c2d60184ce0dd0745130fe1aaf015b9f106f87da77c11163f8f29fd78f7',
+    'K10b-haar-f64-8-256-3-0-0':
+        'ff1a6401ca3a1a4b613d18c662020c7d02295e009e7c26b55bd2dfe43b0d8636',
+    'K10b-db2-f32-8-256-3-0-0':
+        'fc65baa37c8ad34aaf65812e265457e525b736b4d6754d605d3a21daedc0c842',
+    'K10b-db2-f64-8-256-3-0-0':
+        'efbe54a2164b86ee25b8e5797e511b09171a6930b7323e88969c58139ec67146',
+    'K10b-odd5-f32-8-256-3-0-0':
+        '0712e1ef69a4375b6587d33eba40f4a52d72306ee1b60de997fbd99be558b463',
+    'K10b-odd5-f64-8-256-3-0-0':
+        '68092b7907bba97b6c12ab3a7417b425288066f5c03677664312fe07099f174d',
+    'K10b-sym8-f32-8-256-3-0-0':
+        '3f46036c3e48b2bf07a34e9032a76d99f5d9bb8152780ec4e2dab3eb797cc727',
+    'K10b-sym8-f64-8-256-3-0-0':
+        'dc782a70f61b4162e2b90fa03bfaec1f61475fae79bef3936fb9c322c1d4bb91',
+    'K10b-sym20-f32-8-256-3-0-0':
+        '0be31adf11d9ac14bafe610f4e8c9d411b4b740aef614ca7152fd90c0dfba85d',
+    'K10b-sym20-f64-8-256-3-0-0':
+        '7f5512ad9161087dfb6101f736f42ad0600f1f32a3e987fea9bcf6744f574b6a',
+    'K10a-haar-f32-8-256-4-0-0':
+        'e5e8eb183f3dea5447e908200604ac4737b99eeb9d713eab2a86474e5dca7c06',
+    'K10a-haar-f64-8-256-4-0-0':
+        '5709dcd6532033f666da4ce0e5dc2cf459f64649420459d30d0ab7b50cf52b47',
+    'K10a-db2-f32-8-256-4-0-0':
+        '62679d18dd832ac216b203a7c88e70be3a0a6bf2e4441e6eb6c1a2a11fb5af28',
+    'K10a-db2-f64-8-256-4-0-0':
+        '81a82147fd1d08f2003c934aa6a9a223a84fe54481793675c4d3f96088a8a9a8',
+    'K10a-odd5-f32-8-256-4-0-0':
+        '684f186bf60909c70bbf1b3b7c2b52c3e7fe6fe51feedfc5292fb73ee916614f',
+    'K10a-odd5-f64-8-256-4-0-0':
+        '600f5261d4abb0547664cb865c4ca578599f6c59e78fcde2945451b6ef140c5f',
+    'K10a-sym8-f32-8-256-4-0-0':
+        '99d940569a3f0031dda6b0a255fa1a89b3c90bc0aaf5cfa73f078660890aca29',
+    'K10a-sym8-f64-8-256-4-0-0':
+        '6bd234efc21a04d4daca2a6ecb73cb490034d34573fafbb185b47ceb6af086f3',
+    'K10a-sym20-f32-8-256-4-0-0':
+        '8a1479bc73b0545c9e7bb7f3b741cd3ab26b6c7b93af1877d6c8c6b9a3c07bb3',
+    'K10a-sym20-f64-8-256-4-0-0':
+        'b816c8061764e37d19a8f29ef138dee333dd65075b8dabe5094289902b5048aa',
+    'K10b-haar-f32-8-256-4-0-0':
+        'f91201d61598e594ebf1526c687ec844e020d29a1b873caea0091acc759c9aeb',
+    'K10b-haar-f64-8-256-4-0-0':
+        '9200c39635749fea80026bee0eaf1bf4d020c9cbbdeda0fff6f131f4be92be08',
+    'K10b-db2-f32-8-256-4-0-0':
+        'af1cc817c03884a082bbe54240dd75dd762c169c490e859c593b6841f09ce7e2',
+    'K10b-db2-f64-8-256-4-0-0':
+        'cca977c8d70e70b2fcfd0600c396bd9c6e376eb3ee717106c8017d3fe232b7de',
+    'K10b-odd5-f32-8-256-4-0-0':
+        'f7283fa0dfe1946edc20f4f435eacba74c7d00825f6a728d885b204897ac5dde',
+    'K10b-odd5-f64-8-256-4-0-0':
+        'b158f88c0b6fa84c4e080574c9888a95ca489aef4e0100441d76b2577ae18a6c',
+    'K10b-sym8-f32-8-256-4-0-0':
+        'ecf008adc1f06e43aacb73b0ff24ee40bc78231ca08c37c514444b19442226ca',
+    'K10b-sym8-f64-8-256-4-0-0':
+        '22a6dbc67c81bac281f2c7f1c15046d300f6484e61ed52717436f88be5875cb3',
+    'K10b-sym20-f32-8-256-4-0-0':
+        'de58b4b6f30248089d0664ced856b1a4143c8245ff164a9135d35a03d095f944',
+    'K10b-sym20-f64-8-256-4-0-0':
+        '2184c230405ac2ccb73142750b2aaff099461ea19611bcc1710e2f41ebe4d919',
+    'K10a-haar-f32-4-16-5-0-0':
+        '17079b3add79e8ad6b3e497bb73b056db473522a6ae6b933371271ea5a8d3ac4',
+    'K10a-haar-f64-4-16-5-0-0':
+        '2e0cd02c5b3e24d7b1116f253d3bcf66f8efa74e1e1cd1ef0688c3b6670dd86c',
+    'K10a-db2-f32-4-16-5-0-0':
+        '9adc385af013901782b7ded4390c2256ee331c197bf9741d27caba52a1afa18d',
+    'K10a-db2-f64-4-16-5-0-0':
+        'ef5690b71b0981d6c3ca919ad46d23ad7a30c19728993efaf2dcbcf6d8338ac0',
+    'K10a-odd5-f32-4-16-5-0-0':
+        'a8484fc54c9bdcf8e4cad7a7cdc7345d1e47d368fe5eba8dcdc0e93ecec0de06',
+    'K10a-odd5-f64-4-16-5-0-0':
+        '7f0d035be6e90a9cb2f97354fa20292605667d35d27632ac4efd29b0bdd7db9d',
+    'K10a-sym8-f32-4-16-5-0-0':
+        '577542519217176fd9be28f3b1504423297bfdd7112cc0fe0551f4f731aa9165',
+    'K10a-sym8-f64-4-16-5-0-0':
+        'a47d848bda413d88a3858ed999f3eeb11963b534bb85ce29d8f566118f1f20ed',
+    'K10a-sym20-f32-4-16-5-0-0':
+        '08c1cb5259a90bc8943309ffe53a683d05eb0141961693a6e1c35663f89890fe',
+    'K10a-sym20-f64-4-16-5-0-0':
+        'ac2c0dfb64ff26e417d12ffca07c78b35ac167e1a8426285b2000eab8771e18f',
+    'K10b-haar-f32-4-16-5-0-0':
+        'de8fb6933fff28eaaaba39cb2c261022778dbe5929789fe5bce69912f2c021ce',
+    'K10b-haar-f64-4-16-5-0-0':
+        'bf020f1ea8e34e0e6ab9fb5b10b44b8ce1c457a1da0ba114f2d4d5e7fa1581f5',
+    'K10b-db2-f32-4-16-5-0-0':
+        'd2c21ba6dbf7ea82b6fc4d2053ea3f75993f7aa04e638b7f70d5abf29b13fb8f',
+    'K10b-db2-f64-4-16-5-0-0':
+        '5a1fcaf68c936a8af6b3cd0138f16ba50771b887c5959f15177a728df213261c',
+    'K10b-odd5-f32-4-16-5-0-0':
+        '5927280ad9fad52fe93fbf8bab6ae43e51a5b6beda4c64667a6ee3212c5a89e9',
+    'K10b-odd5-f64-4-16-5-0-0':
+        '40096641a9301d161fc6fb152da09c78c094b20dde58c32801700034a7297119',
+    'K10b-sym8-f32-4-16-5-0-0':
+        '8f99408a5fea16d414feadc0c7bb4f5d0030b872177bd1ee70f34ec9314a4e87',
+    'K10b-sym8-f64-4-16-5-0-0':
+        'ede5397782772267094913d2e67ab222225ad376a7023974508fbefd3b5896d5',
+    'K10b-sym20-f32-4-16-5-0-0':
+        '80e657a9710eca08aeb3526776033f53c6b5a0c97c1db99cad2fbb3e05fa35fc',
+    'K10b-sym20-f64-4-16-5-0-0':
+        '2e72cc6c84ad29b464bc3cd23707fbf8456890c5a6a522a13ca9de34e58c9ebe',
+    'K10a-haar-f32-3-10-6-0-0':
+        '44ff8a79bacb127c57fd18d5d4d3d1f71e23f6b312975bc5a2e3b1b0422b4dfc',
+    'K10a-haar-f64-3-10-6-0-0':
+        '6a184093861aa244bcece1e1158a21396d08200795f14d45a1e0e2e296636300',
+    'K10a-db2-f32-3-10-6-0-0':
+        '177916131364d2bbb309503d138bff92c5a7308f71cf63ca10dd1af26cc6bafe',
+    'K10a-db2-f64-3-10-6-0-0':
+        '15b9363e5a51b92a5f0ba445a61c5fe37264aa580080edf6179d7be1eac12859',
+    'K10a-odd5-f32-3-10-6-0-0':
+        '23d1880cc079247cd2ec4e1ed554f8018d6b89f352edc83b747bffa69bdb83b0',
+    'K10a-odd5-f64-3-10-6-0-0':
+        'd615b6d2477dc15f2d55f2e48e3e4b78bd31ef855049a5887f86d461558bf8aa',
+    'K10a-sym8-f32-3-10-6-0-0':
+        '802e732eaec8c2dacc8b796755c78c7659358ab313104647386a0e8746b083ef',
+    'K10a-sym8-f64-3-10-6-0-0':
+        '5579bcb5b2a1a2832e4e408c43f49e3d04bd92552d9c843d794da46fc0ca8445',
+    'K10a-sym20-f32-3-10-6-0-0':
+        '9ca83bace48931dde917dbd62d820fd190135f164cbf3e80cf155f5462cbf8cd',
+    'K10a-sym20-f64-3-10-6-0-0':
+        '2f96d7d7b72b2d25b327a35268a136aed787363f1dc0faddc4685835e040bff1',
+    'K10b-haar-f32-3-10-6-0-0':
+        'fcc85af055ace657b3d65d8c8d8e2a16b4d598bc2b5130a2bca818444086188b',
+    'K10b-haar-f64-3-10-6-0-0':
+        'ed37084a697350731a383c584c86e8cc4748ef70cf72276e7507a8e67ecbec9f',
+    'K10b-db2-f32-3-10-6-0-0':
+        '8a685dbe603866e91871074249ca5c8dcf88aef2985afe7b4fecf50fc3b2b7c5',
+    'K10b-db2-f64-3-10-6-0-0':
+        '1256041d5d1fb4b5b04f23480c101d0fcaeffce0ccd37c56d95ac5994521b8e5',
+    'K10b-odd5-f32-3-10-6-0-0':
+        'b11c36647c5c48bebbf59697a05ed9e3fc186e96d86dee6569ad58f8da9904e3',
+    'K10b-odd5-f64-3-10-6-0-0':
+        '24ca8243878349bf97941fab47e94d405c16df114236ff42758d69d1e1ea5c5e',
+    'K10b-sym8-f32-3-10-6-0-0':
+        'a1c042ea51df8a75982e5c1ca9e24d6beb939c8c74df0057a4d3a159d43d3456',
+    'K10b-sym8-f64-3-10-6-0-0':
+        'f67659856d415ec53554c0ecda1cfcfe18af3636d0c91eae2754f714f2202816',
+    'K10b-sym20-f32-3-10-6-0-0':
+        '09349f766c4924a4f59a3e472d9adf6075dda130868eede4364dd6445cb5556c',
+    'K10b-sym20-f64-3-10-6-0-0':
+        'c3781986fc0314e68794d87c670369bfa7627b14aeb257d1a9bc4a59ad5fcd65',
+    'K10a-haar-f32-3-130-1-1-0':
+        '906a84eedcc9a08ee1f74e4edc18416ae7d9c6722b13bd25cddf915e7a933e73',
+    'K10a-haar-f64-3-130-1-1-0':
+        '695d1165d5145310297bdfdd87fcf5383074119c6e4d038b76880bed6923b803',
+    'K10a-db2-f32-3-130-1-1-0':
+        'bc108e4145ae2d90a3d33d1a23911b42d44e4c7dfca2699c8c7686a5c7ef368a',
+    'K10a-db2-f64-3-130-1-1-0':
+        '4ba946921432e50640057bb678cbaeabd2f37b448d979810c611e6e441e7c5a0',
+    'K10a-odd5-f32-3-130-1-1-0':
+        '63ae19798dad3161ed664e1364a7ef2e3e6d1a7a7425291ea27bef9ab36af627',
+    'K10a-odd5-f64-3-130-1-1-0':
+        '185e01d94b6e475fbe903644b6af3d8ad914831aefdf901ffdd2f259ccd93112',
+    'K10a-sym8-f32-3-130-1-1-0':
+        '19babf967d8ba0f956088efd630971b62aed5d6a9dca95a4e05c5642ace238e9',
+    'K10a-sym8-f64-3-130-1-1-0':
+        'eda26186e55d3595955030b48a5bd2baed2437d3479286a92098af9656e0e4c4',
+    'K10a-sym20-f32-3-130-1-1-0':
+        'c46e66ecb5204e3f95f163152362ecbf6349c5d58625d4c1733263b24990085b',
+    'K10a-sym20-f64-3-130-1-1-0':
+        '6d78b17b267ec903e4b31cc1c01e86be684de64bf688eaaba424bf0bfce078e9',
+    'K10b-haar-f32-3-130-1-1-0':
+        '7596b7c29a84e4bc2bb3cf3dd7aca13dc02fc49d3072d0fd88b2aa82f2d35324',
+    'K10b-haar-f64-3-130-1-1-0':
+        '95b55a5dee93244f93d7c0d1458c43ff8eabfa349e678ab3400ea1a393438334',
+    'K10b-db2-f32-3-130-1-1-0':
+        '125c49cd2bc066b7184f156631f7a568e6c73456e4d2c6abd38a17e753a68a2c',
+    'K10b-db2-f64-3-130-1-1-0':
+        '5b41ea659920ff55ef02b87be539dc9b45bb4b9551572789f489b2fbb5699f48',
+    'K10b-odd5-f32-3-130-1-1-0':
+        '2872b9d82b434f9f07caee9d558b5afe3a29e1d178cb10bd7268c4002ec7a1da',
+    'K10b-odd5-f64-3-130-1-1-0':
+        'f0cdc822fb0d4100a8bd4ddda2e0a2054cd2e9727b99c778e83c14da661433a0',
+    'K10b-sym8-f32-3-130-1-1-0':
+        '2bf94fc519c75723c408420190c7aedee71d1306339078ee36ab4f12b1075b88',
+    'K10b-sym8-f64-3-130-1-1-0':
+        'f9fc732440f5d929d07eaeba7d841f670ac2d331842ddeb09b19783ad6f21846',
+    'K10b-sym20-f32-3-130-1-1-0':
+        '24947c5fb1ac4c3abc2ea71a55dd879731bee3ae9a73b52fb985481e643a2587',
+    'K10b-sym20-f64-3-130-1-1-0':
+        '8f5588575602e3ea706684804f2f7427e32a9839b5bd6e844cacd719975cf6eb',
+    'K10a-haar-f32-3-130-3-0-1':
+        '802ab28b33cad31121f4650388802b963e4477a98db2cd3c8a5e67147e936b7f',
+    'K10a-haar-f64-3-130-3-0-1':
+        '9153631024b9bbc924bc05ad0507d4ce26ed54c920d34954628ae36297b57b74',
+    'K10a-db2-f32-3-130-3-0-1':
+        'e66f2f8ca6d90c6d3343dcc4e04d95282ccc8c820235b643392e684c2ad9ed1b',
+    'K10a-db2-f64-3-130-3-0-1':
+        '45590f143c77570fa8ddde69e64b10a8db28aa64c7b272847ab055fde996e31a',
+    'K10a-odd5-f32-3-130-3-0-1':
+        '2e884f1f0f8be97bbf5d1327393f30def9fd3d1c4764858d382e3b99e337880d',
+    'K10a-odd5-f64-3-130-3-0-1':
+        'c7102259ce46985e23d6e0261c0efd617b500f9afb1b7315d0b5f6f3cd2acb09',
+    'K10a-sym8-f32-3-130-3-0-1':
+        '59c35eddf4b83d4c4b467955d3aad02d0112c29c6c7ec65d475fad731a70bb48',
+    'K10a-sym8-f64-3-130-3-0-1':
+        'ae43ee6e274c23c6e38bb0a4a80278f8f2e36ffb841e6e46df506fd0240a6436',
+    'K10a-sym20-f32-3-130-3-0-1':
+        '632b8e303705302d3aa3ea5ce1d1a04f59e5c7bd3c9c0df80d304b08c70a7cfc',
+    'K10a-sym20-f64-3-130-3-0-1':
+        'd63b4dbf30984d05ea60c090b2a9ab25521f7cd9761975e9c96e1f3482ce4a58',
+    'K10b-haar-f32-3-130-3-0-1':
+        '0165207a166eefafee9d319fa79234a2e134775dfbda6e1c0ed152f9f491e364',
+    'K10b-haar-f64-3-130-3-0-1':
+        'dda718f683c545b1ed0e67b4645385c506e769ad4f376c097f452a48aff15dc0',
+    'K10b-db2-f32-3-130-3-0-1':
+        'aa6538ac1559475c218afb269a3f049b58c225f0bdc19e759a9438f8b44b9047',
+    'K10b-db2-f64-3-130-3-0-1':
+        'ebbcbdc28104b65d0acab935509498360c86c8792746f9e6e241c62a4174cf2b',
+    'K10b-odd5-f32-3-130-3-0-1':
+        '0f3af7e41dee21b45d0cde51d00f7a605cf7fbc3097eeb6f0bd1998d7e707a99',
+    'K10b-odd5-f64-3-130-3-0-1':
+        'e68173212ea200d284f60ae4a9375e8140db431ee60d0a66bec6fb43c329cdea',
+    'K10b-sym8-f32-3-130-3-0-1':
+        '4b4f0300298c6859439aee817ae0356fc4fe9e7ee61855cf529eb66a0339458e',
+    'K10b-sym8-f64-3-130-3-0-1':
+        'c0400ab88c8a822ed6bf0370e2c75c54477d5fbb75c4c8640f175d4012dcaf20',
+    'K10b-sym20-f32-3-130-3-0-1':
+        '2e1395ff28e2048f1c25db92c8850b16fdd50ec8f3d3c790e2cf3cd9cdfa8b46',
+    'K10b-sym20-f64-3-130-3-0-1':
+        'ded3ad95062e3af51f656d4d2583824b7324ad636ad62d5e39caa37dc1b67b5c',
+    'K10a-haar-f32-2-75-1-0-1':
+        '2e683a083602b865ff1029608cdedfde86d9fadfb5be92b28e1d961ea64eb741',
+    'K10a-haar-f64-2-75-1-0-1':
+        '1f89909601eb7bc6b975721b3b90c8ac44f2066b844e401ef5080ab5817a00e0',
+    'K10a-db2-f32-2-75-1-0-1':
+        '5f5723d9567ac2695038f35078792f00bb1f04cf61999c66bbb45d9679e2e7c3',
+    'K10a-db2-f64-2-75-1-0-1':
+        'a9ce46f886a7899260cada2eb0eaab7c96927ebf2b046db0c0dc52b79ab52825',
+    'K10a-odd5-f32-2-75-1-0-1':
+        '0b2d50e4acff9e68d87406a9006d31a84227c20bf591d1559271e022ae54de09',
+    'K10a-odd5-f64-2-75-1-0-1':
+        '15c3011468d815c71ffa61d620de4977347ed72344ccedf159ce4b84ecc86fa4',
+    'K10a-sym8-f32-2-75-1-0-1':
+        '0c7dca8d163fd1c9ba92e4c9ebcf88556ec81e9b7688e03d069e613966a6b945',
+    'K10a-sym8-f64-2-75-1-0-1':
+        '8dfe81642bef659ce4ce1f763759c4a00929c148c9bb36c646b390558390c85f',
+    'K10a-sym20-f32-2-75-1-0-1':
+        '4099477fd0346323bdaec7724ad78a5e621daeed914f513c3afb510b353713c2',
+    'K10a-sym20-f64-2-75-1-0-1':
+        'cda4d0580771abf7798c488c1976a2d71bcf5b215bdce8ae0afbb4837c198a69',
+    'K10b-haar-f32-2-75-1-0-1':
+        'afff104b5e3762413ad0b22cff0d5fce461df01748a453e6e6bef69cc2b94d58',
+    'K10b-haar-f64-2-75-1-0-1':
+        '598b58a7bfa13877721f2524eae63395e26b488a48208d2ed03e0b1b9d3d7a82',
+    'K10b-db2-f32-2-75-1-0-1':
+        '725cf9fb5d00738f220a57781e2d04a4f5a2d495d47089af7be15052f91831a9',
+    'K10b-db2-f64-2-75-1-0-1':
+        '971efdc88720af988177efef10e532abdc452df0621383bb0d7ad3eda6c20150',
+    'K10b-odd5-f32-2-75-1-0-1':
+        '037f2fa310ff90944ee9240f9ac5d9f6ef5ee6321c37befde3c50828825ff40f',
+    'K10b-odd5-f64-2-75-1-0-1':
+        '1fdde76b5e33b580aea4a92106d8993112890dbeae2103dbe0245784a71d6b01',
+    'K10b-sym8-f32-2-75-1-0-1':
+        '668281184653452c9ba30f5259f01f8d7c58be539baaa7889f53b85aa8067251',
+    'K10b-sym8-f64-2-75-1-0-1':
+        'fff241f245047ad066d90e70153e45091fc96bf7dddae6aa9c9d3167d3ce2b4d',
+    'K10b-sym20-f32-2-75-1-0-1':
+        '4d01e0e96cdf03465bed1eaef52db100b6be8891ecfc7afc72d165e407ccbd69',
+    'K10b-sym20-f64-2-75-1-0-1':
+        '59adaddf7c8eab46abc7c518a33391b99ad232d94f6b1762ea3ff6e467c648c3',
+    'K10a-haar-f32-2-75-2-1-1':
+        'a4717bb06ce7f838415742c8f34cd50308c57f2bd2e123087565c2488bfa86d6',
+    'K10a-haar-f64-2-75-2-1-1':
+        'b4f887b2393a87c716e0090b4d2b577dbef6bf288341e044c31784425c458053',
+    'K10a-db2-f32-2-75-2-1-1':
+        '31b4aee6435e6417b97bad79df9e5a6d6e5b2f443a66695568e77496d7a351c0',
+    'K10a-db2-f64-2-75-2-1-1':
+        '16ef0661e56d04448ad497f70f8198c3e5d7b19f009bdcfe8308d46a7fb40271',
+    'K10a-odd5-f32-2-75-2-1-1':
+        '0c385844bdbb8b05572e55875cf95f895ae68241f3acdd89b8497ecc2b347473',
+    'K10a-odd5-f64-2-75-2-1-1':
+        '34f5519cef9037dc45c7bb9a6d4066a192169575dc7fe7bdfc7f1025ccd1fb3d',
+    'K10a-sym8-f32-2-75-2-1-1':
+        'a114299c00893da8b761f4375b3e1191ad355cd7756963fe5906d855adddc5ac',
+    'K10a-sym8-f64-2-75-2-1-1':
+        '42b8c33dbb7108bc6b84004a7befa079394d47b242be026f4790e79ca5959820',
+    'K10a-sym20-f32-2-75-2-1-1':
+        '29519e1189b1d9823da9406ad39ba8efbae62bfe15f20ced0cf1e128ee1e6cb1',
+    'K10a-sym20-f64-2-75-2-1-1':
+        'b6c60bf2fb56caf4cf64f0bd599003a626a63fe74ffc61a89b65b35a62334250',
+    'K10b-haar-f32-2-75-2-1-1':
+        '925fc501edfaeedba01e77b5b1853d09c09208b0b9855c1d4bd6269ecce52f17',
+    'K10b-haar-f64-2-75-2-1-1':
+        'cedcc563e1821ccb3e423391b8416ceb55ea14cacd88a4d0bcc01a52b8039d71',
+    'K10b-db2-f32-2-75-2-1-1':
+        'bdeb418b8da6b0eaecd8bd44060970685e519e9e7e0f3b7492800f8dd8031776',
+    'K10b-db2-f64-2-75-2-1-1':
+        'dc2984525e4ee932cbbbf3e66cd5e8cdd90576b9c224c19d14ebded928daf303',
+    'K10b-odd5-f32-2-75-2-1-1':
+        '255cbba126f26e4a475b79470cde8531fb7e5f125ffe7f7200b91933f4f20176',
+    'K10b-odd5-f64-2-75-2-1-1':
+        '09812ac810380a8cb158dd8cf3b7fe7bde73b6bdd2638717b5b7ee0be092e28b',
+    'K10b-sym8-f32-2-75-2-1-1':
+        '9230e47ebeb06bccefc794e64c2ca85b5d2a6601fa0f13b405f718dfeb595c3a',
+    'K10b-sym8-f64-2-75-2-1-1':
+        'e6b3ff2d5b9594302bf99eacb045571a080499d08e73768f2498e24dfa171abc',
+    'K10b-sym20-f32-2-75-2-1-1':
+        '0d19072e1c6ab02b5c4ff8639eb8ac9b3b98e16333746d8c2b824af10e03e7ca',
+    'K10b-sym20-f64-2-75-2-1-1':
+        '756d2e8e46e9ab557ea00f2aba204c96bf3e61fb205551da34237bb5cfc0ff4b',
+    'K10a-haar-f32-64-40-1-0-0':
+        '338ff266f48cf06c09841e4789db5d1782e0c4d92c68b7cacf4e7e582b3ca26c',
+    'K10a-haar-f64-64-40-1-0-0':
+        '1abae9c7ec818bee87ed509675815e976809225ee45af975e1ee3e6a9e305797',
+    'K10a-db2-f32-64-40-1-0-0':
+        'c84573f16f3e9d14a32eb2cc1baf951c739ca73a57db3ee72df308609ebaf855',
+    'K10a-db2-f64-64-40-1-0-0':
+        '3aff83cde3c21ddc95adcb4cb3866fc4abf25ff6d39c9e040a24e7a5edf53de0',
+    'K10a-odd5-f32-64-40-1-0-0':
+        '6fb67fa8c56cc0264e70dd4a4391e94bf6d9857532a6562672e8947ef85f951a',
+    'K10a-odd5-f64-64-40-1-0-0':
+        '47eb0eec8be4f7a603ab64de6948e5d86f21088f587611a5ea67ca9a1f216e64',
+    'K10a-sym8-f32-64-40-1-0-0':
+        '5cfa32f38c728bb4c3c2d56168a91e92d535a1e059f89d0b11ce1b202778bbe3',
+    'K10a-sym8-f64-64-40-1-0-0':
+        'a4482da97601a4b6f8ac9b0c3c8204c28d1dfd5994943bd184d3dd8c9e9e87c6',
+    'K10a-sym20-f32-64-40-1-0-0':
+        'ac5f85f1bea669405eb2bb46e9daa4707b4686452025e29e526a15b923effa1f',
+    'K10a-sym20-f64-64-40-1-0-0':
+        '0e88ec907b1c5af8c56ffa8c8b9e4829c32ecb2e2da476275cba6c5c2c5feaac',
+    'K10b-haar-f32-64-40-1-0-0':
+        '9b43873ef96355d3084e022c1e329462f6496ed8112b71dec2dba82ba81c90e2',
+    'K10b-haar-f64-64-40-1-0-0':
+        '64db500ed49be5f925b2e1b8bd7137c6b09c0c919641d19068e3d9d164a45c5c',
+    'K10b-db2-f32-64-40-1-0-0':
+        '163c0ff2a8f3459f1a1bca6d9bebbd9fe0362d589733da5b8e05932400ef86f1',
+    'K10b-db2-f64-64-40-1-0-0':
+        'cbce02abe1f068d266ab623cb924fd821129e40bff66430cf17a48f640ba43a1',
+    'K10b-odd5-f32-64-40-1-0-0':
+        '7ab03b409fbda6f499010f60451884c6d8b15044bc9b72258221cffc96055b52',
+    'K10b-odd5-f64-64-40-1-0-0':
+        '1b00b9465d2fe63ede478666745be45667636fbcbf68b8967d6c1601843daf00',
+    'K10b-sym8-f32-64-40-1-0-0':
+        '200ad2a776f8e335c8a6983b61a4794b6f886325722e38962038d6bea527cc32',
+    'K10b-sym8-f64-64-40-1-0-0':
+        'de4f6a2a02c1d5e27ab27a05970387f2fb35318eda442887dcdd9d9752bba1b6',
+    'K10b-sym20-f32-64-40-1-0-0':
+        '2741a017375e31a5205aafe55293c4a1cea62528298879ca0e4b0dacca1558fd',
+    'K10b-sym20-f64-64-40-1-0-0':
+        'c11f3416162f728631408798251df140d2b190d230cfb277012fbe758955f8f4',
+    'K10a-haar-f32-64-40-2-0-0':
+        '09ed8765e0ce1999a975526a7d17698f19fa1688e8c565e831e5385fd816fa7d',
+    'K10a-haar-f64-64-40-2-0-0':
+        'a1fe4c7bd9eb4de3a4a22a9515668625aced83ac0e23d34c9ed539c4478b901e',
+    'K10a-db2-f32-64-40-2-0-0':
+        'b5a673c8f3c262fb677256ccfaa51d19125feccb9fa2ba2cd62298910e47634d',
+    'K10a-db2-f64-64-40-2-0-0':
+        'e21177553bd3b930d451535d87a34d7b9ee2b3b9623a530fdb28052256864d06',
+    'K10a-odd5-f32-64-40-2-0-0':
+        '197e7666a2b9174e229d774962cd9144250250903fa253cde87bb09f5f6e4248',
+    'K10a-odd5-f64-64-40-2-0-0':
+        '5a37a381d23b529a9b6e8e0ec27e831a8c2500c724b1f958f852317a2bd2a6c4',
+    'K10a-sym8-f32-64-40-2-0-0':
+        '15c7d892d5feeb38d4859236243fb121e37beb1e8b42ba24a20e280361e5a871',
+    'K10a-sym8-f64-64-40-2-0-0':
+        'bbcaaf9457ed20fad70c2be2c2a45faa455f2b5ccd88d3f90b6b347bf81667d0',
+    'K10a-sym20-f32-64-40-2-0-0':
+        '4138f854d5fee6102d2abc3bf1c144eaafcde9e88c505d40930ddfae0b49d30d',
+    'K10a-sym20-f64-64-40-2-0-0':
+        'd8cb66297ae0c33ce4dad24fe8af2247b1651d2fc9b68224acc493b94a7b55a2',
+    'K10b-haar-f32-64-40-2-0-0':
+        '164c90b21c6eac2413639507c68ca35706c3821ad0aa6ce191e4e3072e62020a',
+    'K10b-haar-f64-64-40-2-0-0':
+        '7719bb404742821940fab8e8da9f5c6fa6af558e2c0ef144e8064d4972cb682e',
+    'K10b-db2-f32-64-40-2-0-0':
+        'd3d72410f1b557300ada32f4e28590e35f390efa884993134da3394c881dc7b9',
+    'K10b-db2-f64-64-40-2-0-0':
+        '98886ad9aaec3975cc2d89ceca048e2cfafe91106c835d0783d70ac0380f58ba',
+    'K10b-odd5-f32-64-40-2-0-0':
+        '31fe4dbdbd8ba5278e0177eaa64700b97fd8bb9c1b89d718b4d3646524ef2a12',
+    'K10b-odd5-f64-64-40-2-0-0':
+        'bb39501efd35f03bbdde6f22f8eaf92d03a917a9de0aaafcc6430ef1c87c60a7',
+    'K10b-sym8-f32-64-40-2-0-0':
+        '80fdba4b0b5a95a3bfe88baa819f88418289cac684258fefda531ac1a3fdd51f',
+    'K10b-sym8-f64-64-40-2-0-0':
+        '4a915cd2e4c11e1393691dcfa71e67c992ffa8637940cdb1430adb31edd3bb92',
+    'K10b-sym20-f32-64-40-2-0-0':
+        '1f07760421810d66846c04914598a82e60da6de7480801837b369006e3be41a7',
+    'K10b-sym20-f64-64-40-2-0-0':
+        'c05609ced9abe65a0eaac0b2a5f08313c990008c602e92ab709ae25c86fc00bf',
+    'K10a-haar-f32-300-8-1-1-1':
+        '46702a5791190df32a7766df99ff3f0304f7d37db6102fa3b6e88045b920eafe',
+    'K10a-haar-f64-300-8-1-1-1':
+        'b6edb76bb21e8b7a72806a4901553a75af0c0449dac412fd0d07fd43f2b6260e',
+    'K10a-db2-f32-300-8-1-1-1':
+        '4bd0ec7eec3cd75f553bd5b9ca6d65c17a96213d3ef1fe99e6445a79398c8623',
+    'K10a-db2-f64-300-8-1-1-1':
+        'e9f736dd0fa3de97641df54221cebc31b0ae38aca281789aef0dd9aef323da91',
+    'K10a-odd5-f32-300-8-1-1-1':
+        'af93b0948f96015d2920797f6dc5e7871c85cf7e191493eeec16485845fdc4f6',
+    'K10a-odd5-f64-300-8-1-1-1':
+        '45aa066e0268381db0aaf52ef4a8d1978b508cc000ab027a3c9b0ad713ca04eb',
+    'K10a-sym8-f32-300-8-1-1-1':
+        '714ca55096f64196f464e988cc04c9a90836ddc0d670ceb970035c8bc126b06b',
+    'K10a-sym8-f64-300-8-1-1-1':
+        '59eaab466baebf7b11838a98fc43db53b81008626bff639c7c760bcf436ee261',
+    'K10a-sym20-f32-300-8-1-1-1':
+        '78227c9fe9a3c41e652187cda644f4cdf086a4da3b87039f0ca16613ba18fbfb',
+    'K10a-sym20-f64-300-8-1-1-1':
+        '2bdb05ba55d19f4049f132f67f5360e02b1363a6c54f84b79ba366a3c7fba166',
+    'K10b-haar-f32-300-8-1-1-1':
+        '4c7bc9d307c5e62d74baaad8682e0892c73777733315baf6f51be9c84f4308fc',
+    'K10b-haar-f64-300-8-1-1-1':
+        '7619621a7740460cd4e1dd9080b68c18dd90be5dc0e90e799c3847a824ad416f',
+    'K10b-db2-f32-300-8-1-1-1':
+        '137128e8bb230b519c38f5d2572db0f19326cf32b43d3825591c4eaddb2d5796',
+    'K10b-db2-f64-300-8-1-1-1':
+        '98a26d567894ad4c50b89667ce4f3f7bac664bfe96f1027ced8b6aea3f189a3e',
+    'K10b-odd5-f32-300-8-1-1-1':
+        '3a729b0aab52566a0571d468832b3b74f9af13c5d694ca7f9e4048058ef46e08',
+    'K10b-odd5-f64-300-8-1-1-1':
+        '7220e55e8eba1f0c58150a19f21a77a00ae0d9cd4d0b17b2a69db8fe5bd40367',
+    'K10b-sym8-f32-300-8-1-1-1':
+        '444080bed1ac82a6456717d7001c652266a1da18e39a885a3949a0296033e14a',
+    'K10b-sym8-f64-300-8-1-1-1':
+        'e213e62bbbb8dee669f0596931f1109e76278e6908b0f1392b00f6aef27137d7',
+    'K10b-sym20-f32-300-8-1-1-1':
+        '64b6c15231e88cdd9d9b0815fc5bf1b82d00b44e5824042851beae5b420e43e6',
+    'K10b-sym20-f64-300-8-1-1-1':
+        'd94773d5ae69e16a99ed266ebb4f4ecf3439bbae674a1954f1573b1549e9fc2d',
+    'K10a-haar-f32-4-16-3-0-0':
+        'ead563fcffd75ae6a28aff42f481562686f7bab5a4df1860835e0736dd5b82f5',
+    'K10a-haar-f64-4-16-3-0-0':
+        '29434bb82a7756ca874034654b5df0d53bf4068b56263913ef57b71dff34992b',
+    'K10a-db2-f32-4-16-3-0-0':
+        'ab690cd663c40b31cf15e86ff315729795a13daf55d0303d4b5655fddb2f6b3d',
+    'K10a-db2-f64-4-16-3-0-0':
+        'e9bef2a466daf0aa625fa73f76255d7550c35705bc636dffaff5f48c91072857',
+    'K10a-odd5-f32-4-16-3-0-0':
+        '2de21dfc508fac9153e3833ebfe080bcb66614fcdc7daae31d43f4761edb1fa2',
+    'K10a-odd5-f64-4-16-3-0-0':
+        'd7be64db8c1c995f8f11834b8e88b77c64f516ce0033379aededdf81b58dcca1',
+    'K10a-sym8-f32-4-16-3-0-0':
+        'cfd4d6618850150c4341bcc44c4db3fe7c5361562250bd1177894f9ff2da1501',
+    'K10a-sym8-f64-4-16-3-0-0':
+        'a8111b73de965ef6c83e20502a240b904caa7b5568c4f9f0212ab1d3a39af18e',
+    'K10a-sym20-f32-4-16-3-0-0':
+        'dd478e8aa6cff2b5174fdc4ecf6eb7d44f3d188d1350db9645d7d42d1423d746',
+    'K10a-sym20-f64-4-16-3-0-0':
+        'a7ea5dd0e2fc1a838cbdcbb11c10da54c1b355e2fecf494646a87a93d2762f50',
+    'K10b-haar-f32-4-16-3-0-0':
+        '2c7c931507460497dabfa373af6e2b0b9eb62b33b7ac5b1b82e3e3e72fdb37ca',
+    'K10b-haar-f64-4-16-3-0-0':
+        '0c0131453ec668ce20604f024c67087faedf999318b0514953d7ed13f6ea4af2',
+    'K10b-db2-f32-4-16-3-0-0':
+        '64cdff55045b969dc28958960f24a1b92746cddebaa667e86cb784a4bdb64e24',
+    'K10b-db2-f64-4-16-3-0-0':
+        'd64a0fd678530df80774c1263b8f79164ac73b82bc5bdeb6c0a9de6e1e76912e',
+    'K10b-odd5-f32-4-16-3-0-0':
+        '917acad96cca65438cc5c30750cb223d92a25d13b7753ffe73f50afa319d8e20',
+    'K10b-odd5-f64-4-16-3-0-0':
+        '151f8adadd509c778c20b8e6674edc63b43db2e0779ccafa2a97712a8208f5f0',
+    'K10b-sym8-f32-4-16-3-0-0':
+        'f42c48c1519757c326a83900771e1a593157e7eb7f5af8df6e5767a1d2a8ef4a',
+    'K10b-sym8-f64-4-16-3-0-0':
+        '07ec6ee60a6028d1f01d880dc8d9f1593143fe400ac6e4134c53b67b1d37b001',
+    'K10b-sym20-f32-4-16-3-0-0':
+        'da696fb8425dbe9729cf3fe2158a3d11ed75b19a670f23ef065c8760592e838c',
+    'K10b-sym20-f64-4-16-3-0-0':
+        '4813ee7b75c4cdeb4ad0c6807bad99dc5c1b6b59384b3336fdec99f9a30dd84b',
+    'K10a-haar-f32-2-4096-7-0-0':
+        '5ab81fdcb0058f44c9081741e044124306c81d2cb6d020954c5fb2d3df026222',
+    'K10a-haar-f64-2-4096-7-0-0':
+        'ac44e67e539575c3eb62a33f0724b9712e122c2f931bb4a5087747bfa7296248',
+    'K10a-db2-f32-2-4096-7-0-0':
+        '075a00e0789181710f79a448df03561c3b3c2f9c3798163a2034f9702daee3aa',
+    'K10a-db2-f64-2-4096-7-0-0':
+        '15d8cfbeb6b0a45d3cf7ea07c655ac0230271ce6046b9d7360ce62439ca98732',
+    'K10a-odd5-f32-2-4096-7-0-0':
+        '3a8b4fa72d14c24162fb50d8c817883081fc560802909b505f4bed261680a979',
+    'K10a-odd5-f64-2-4096-7-0-0':
+        'd6d69898734884df5ac3eabfe3faed8b400937b2bf2aa59f39a243189798fbfe',
+    'K10a-sym8-f32-2-4096-7-0-0':
+        '4c9bd0514e3fe22d4b91d93064614c75324a9cd31798cc372ad0914893fce76f',
+    'K10a-sym8-f64-2-4096-7-0-0':
+        'b69f990f489d5dd83ad9f13f67bb2373efd38e3d84c515f4d8adf75b96f8e802',
+    'K10a-sym20-f32-2-4096-7-0-0':
+        'a47a4b538abfb15bb3afb39e6e7e33ac8d955fc9e7d6a1e023fe5e1366a9efe9',
+    'K10a-sym20-f64-2-4096-7-0-0':
+        'bf634ba42e3a9814e874b086ebace7e6d4c885769c72d19e6391b23d3ea0001a',
+    'K10b-haar-f32-2-4096-7-0-0':
+        'c431ed240e6e7f02e7cae54bde66a09017d0d608124b4cdfc6cd854239e9eb03',
+    'K10b-haar-f64-2-4096-7-0-0':
+        '85cd36d2b002e09f846840b4c77220707107fa2836a15d0d4e0636235f3772d4',
+    'K10b-db2-f32-2-4096-7-0-0':
+        '8659bdb40ce5c9075fe3aa01ae0f283d8ef9d92293780c8df40eb8735a1a020f',
+    'K10b-db2-f64-2-4096-7-0-0':
+        '3595b617b5af58af64e0759ccc359769016790cc460daebc2de93507729fff3c',
+    'K10b-odd5-f32-2-4096-7-0-0':
+        '72c4a8e52d38ab119501a59df006341e59a13e46c28bf038b3c8b657e34f33fb',
+    'K10b-odd5-f64-2-4096-7-0-0':
+        'cd0d7dd770ae5c0e5ba1b26896f5eb22d9d56599428822720afd9881a73fe28a',
+    'K10b-sym8-f32-2-4096-7-0-0':
+        'c8567dae91b8bb939f3f1fdb263a6c6b3467f3540ed613a0ec6f6c112c38bc49',
+    'K10b-sym8-f64-2-4096-7-0-0':
+        'ee8e9769e4c5719248eb60f90bdd1f86f73f3b188d3dfc615edb3dacb875331c',
+    'K10b-sym20-f32-2-4096-7-0-0':
+        '892778efd9f715c4aef183d1fef781f9648af9b82609287fcae4cf807f5ddd1c',
+    'K10b-sym20-f64-2-4096-7-0-0':
+        '818cc2e6d3e71405dc7b977ed8fd21d73736c91e1b49facc603aea4869444a5d',
+    'K10a-haar-f32-2-1000-8-1-0':
+        '2ad2b64d7869b9da8962bd13469e886761912282f0744d4f44b09384b2637e7b',
+    'K10a-haar-f64-2-1000-8-1-0':
+        '8681ef8fe48efdf6b0c6f066845946b94e4f8ff47c85f3f50bda59061e3bda9c',
+    'K10a-db2-f32-2-1000-8-1-0':
+        '920716f001faf7386653576152f7d0e30845617d22569eb23f8b52ef55335e67',
+    'K10a-db2-f64-2-1000-8-1-0':
+        '4a340d0a2d6766366655328f96cb283819d91e1cf8745d1cb1de5a4fe3b08da3',
+    'K10a-odd5-f32-2-1000-8-1-0':
+        'c00a8b0438fd4950dc3e79dc915db037a09550e729d6313c76525937a06b025c',
+    'K10a-odd5-f64-2-1000-8-1-0':
+        'c111410615162c6c5196f521cbf3200b4a8b5e36dfb8891d4fffc4abc67ca3e8',
+    'K10a-sym8-f32-2-1000-8-1-0':
+        '867f71a7bf79bb6bb39601d89b8b81c1c76d510d92aaa9c5d213f99eb38b1189',
+    'K10a-sym8-f64-2-1000-8-1-0':
+        '8739a5d6efc91a013e9e6b57a1e508e82b230cb4bc0bef76d759a19dcbdb678e',
+    'K10a-sym20-f32-2-1000-8-1-0':
+        '3a062362d72b766425303bb79116d27efcf24d78253bafb452b6dcd4d6f374e3',
+    'K10a-sym20-f64-2-1000-8-1-0':
+        '415923971e2b98c88e1157c6c95df38610ff38b9047e28160d9c82bc52d83b95',
+    'K10b-haar-f32-2-1000-8-1-0':
+        'de2aeeba5152dfd4ba6be8e6dd01f7d4be842ca3d2827186e589e795edb1950b',
+    'K10b-haar-f64-2-1000-8-1-0':
+        'ec0c86fa5b071df126423e483360a879f0c1b560a9b4a5c18ed1c1b777993980',
+    'K10b-db2-f32-2-1000-8-1-0':
+        'f8b4ecd6bc77f71183b5e52622e051ee65b787008905f55aeff9151319970b70',
+    'K10b-db2-f64-2-1000-8-1-0':
+        'a6498a8cb6eac94a976f76d514eed25ae77ba20befa11a3b5b140f16c59e2251',
+    'K10b-odd5-f32-2-1000-8-1-0':
+        'c5bff382a653e443c2f76514f9abfd9bee3ddae9bedb975ed49a0c9d430386f7',
+    'K10b-odd5-f64-2-1000-8-1-0':
+        'e053bdc38c809f9222983f994217433543ec8165ed74c1d0579cd9337a16f082',
+    'K10b-sym8-f32-2-1000-8-1-0':
+        '2789b39005eae50b1f10fed071f39fd449141e7f5b6c9d751342cae02c7826de',
+    'K10b-sym8-f64-2-1000-8-1-0':
+        '588baba3e9d48c54ac2425aa886fddfc48025842235c6f7182863737fc27b987',
+    'K10b-sym20-f32-2-1000-8-1-0':
+        '7f5ab4444de046e4bd2e8a32efd137770340b7e419bef930d0aba62fe2c4fc8a',
+    'K10b-sym20-f64-2-1000-8-1-0':
+        '7f47aa8c605a141e2f240c82c5b55d2e2a20c14feb074c1ce7f1466bb5416e20',
+    'K10a-haar-f32-2048-2048-1-0-0':
+        '46d8271b4422136f3a5144521e1823a8accbb9092e4f611328233835662b6872',
+    'K10a-haar-f64-2048-2048-1-0-0':
+        '5dd15b2179e273b33fb944da3a44d857c534128f57d0f23d1a5c6d3b5afa494b',
+    'K10a-db2-f32-2048-2048-1-0-0':
+        '48381633ab49dd152fe449181382b88c493f4500ebca49919d3f55b50b28ed70',
+    'K10a-db2-f64-2048-2048-1-0-0':
+        '90c7369790819e45aa832b5252092335e35899bd318b9bf681994334dc234cae',
+    'K10a-odd5-f32-2048-2048-1-0-0':
+        'fccd8f96821716ad5b323fd7c511f68b07ea8870fe5c11d8c80c5dda01dcc652',
+    'K10a-odd5-f64-2048-2048-1-0-0':
+        'c59458eb047e8d46a8958735bed1e2e9e7bc4496369c3f1751a67871d8176e58',
+    'K10a-sym8-f32-2048-2048-1-0-0':
+        '1ffe17f30cfa7dac26040ecdde7926fff96ac54dcd1fb6426cfe7752b72963c4',
+    'K10a-sym8-f64-2048-2048-1-0-0':
+        '5abf4e27039fdace7e1f955e77b7d1a266666cf4ca3e600a0a2615dc87c0e931',
+    'K10a-sym20-f32-2048-2048-1-0-0':
+        '1bcc4c93dac9ddfbfe3c6665d2ca2245084e0ab21c54b0b149708400f66d8838',
+    'K10a-sym20-f64-2048-2048-1-0-0':
+        'a5527076d04f9098f722cc2c0088bb313513580d6e21e4d63240f40e5612d111',
+    'K10b-haar-f32-2048-2048-1-0-0':
+        'c6e145b40f28e81b88d1b55320c69d1aa196fcb29f689f607af8f96c0168cfa8',
+    'K10b-haar-f64-2048-2048-1-0-0':
+        'd404aaa3b60b5d5a136ed5e3a98ac591e376f8ea5b91c4e5a26b99c884365387',
+    'K10b-db2-f32-2048-2048-1-0-0':
+        'e10ba6c6a2024b83d7090b05c5a39b3c3a72c3c7320a226b55cbe3e059916a6e',
+    'K10b-db2-f64-2048-2048-1-0-0':
+        'fcd37f84dcde0a6d4242ed6f4da42d4dfa6b940c4ba6c33208286c91ab7032ee',
+    'K10b-odd5-f32-2048-2048-1-0-0':
+        '1906c6933f524206883a2bc3e13f8ee872ef2748a7225754df3b1fbfd1693d9d',
+    'K10b-odd5-f64-2048-2048-1-0-0':
+        '0f112124c56884864dbacfcf424ea9adbac61b27a0e9c9d26d03eb67de0348ad',
+    'K10b-sym8-f32-2048-2048-1-0-0':
+        '964854527a0a031483a08b2f56a126c096aa33100d5c4cb8eecd45d0747be8fa',
+    'K10b-sym8-f64-2048-2048-1-0-0':
+        '5d05ac877a4e7b64a9bfa1cfb4fa3ff12bfde84cc6ccdb146e80aa9324191966',
+    'K10b-sym20-f32-2048-2048-1-0-0':
+        '8846b3f37c030fa70e9f1e593a96a11d7a6226039977acebb50d3384e224eb40',
+    'K10b-sym20-f64-2048-2048-1-0-0':
+        'ae33c095eaa6ee92cdada8eb0f95c74f2ed1b978af26153fbb30de0e3172fd6c',
+    'K10a-haar-f32-2048-2048-2-0-0':
+        '88e157580b5db0b6ef1934157a4326c81f45855f87ac6435a17a2399c897e216',
+    'K10a-haar-f64-2048-2048-2-0-0':
+        'c72ed1e08ef8c934aafc4339ab94aa36d9a15d9761506c206b4e800505e4ab77',
+    'K10a-db2-f32-2048-2048-2-0-0':
+        'e49d71dab79ee4c9633e43dca6ea308f99f5478fd89f08c7524ad98c33f985c8',
+    'K10a-db2-f64-2048-2048-2-0-0':
+        'd9dd5c66245291ce05a3159b48b48a341e48fd487a007a312615c87234d58c67',
+    'K10a-odd5-f32-2048-2048-2-0-0':
+        '7768955b07c3b23df12130b00f2db47f215afdefece9c202e8d00c08339f6a41',
+    'K10a-odd5-f64-2048-2048-2-0-0':
+        '75bde84d0842dc7616f99e7f1c5bcb7bd1602affad1f1ed0969549d1244324a2',
+    'K10a-sym8-f32-2048-2048-2-0-0':
+        'a05c306526b2698cb2b7d714dafc2e1e2fdf739b57a9f0def0ac7f47cf64672e',
+    'K10a-sym8-f64-2048-2048-2-0-0':
+        '3a740d426d8617d935461502ebefb053df541af4346ed162b10ff72ce74ddac8',
+    'K10a-sym20-f32-2048-2048-2-0-0':
+        '4e63969e09fffdec1ec07cd8a2622f173ac545f8ec16e539801353c82821a526',
+    'K10a-sym20-f64-2048-2048-2-0-0':
+        '71a471e9b59ebcf0f07ce14c2cc0685b6f2ab0457e1bcacd7be0e1dcbcdf1262',
+    'K10b-haar-f32-2048-2048-2-0-0':
+        '1b15244d9351f17bd6e8f9595c0ec184e28e48bbbf8553a67e139d3a6fc89bff',
+    'K10b-haar-f64-2048-2048-2-0-0':
+        'faa3e8a7297e277338528127e19cd1a5f2265bf83ac80808dd80fe0120b4bced',
+    'K10b-db2-f32-2048-2048-2-0-0':
+        '3771e5b1793696f1d4697e4e2410c07fcfdf8bc0da548c87a1e9e2b4b12f61cd',
+    'K10b-db2-f64-2048-2048-2-0-0':
+        '80dd746d205034815f72e8ea9b7bc304ff11744573610ee8bbf6db5e724f10d3',
+    'K10b-odd5-f32-2048-2048-2-0-0':
+        '88d605a99f13c77889f6e390a7e836628eb2b64d473af2195043b5690bae6411',
+    'K10b-odd5-f64-2048-2048-2-0-0':
+        'daed9958dabbc0b9877b11956441bfaeb0e7130cd7bb75b5962fcfa26ebb1c95',
+    'K10b-sym8-f32-2048-2048-2-0-0':
+        '5a57747fc347270754a374b8c58bbc82a8db0125dce0d1ebbb92567668c99390',
+    'K10b-sym8-f64-2048-2048-2-0-0':
+        '2e1466cd19bd2b21396c134481230b8585b4a7bc6db7d7fa861287574783117f',
+    'K10b-sym20-f32-2048-2048-2-0-0':
+        '7809ee5dd9008c77c7e6c6521ce71d6a75d75b4672659cef5f40fac703a97537',
+    'K10b-sym20-f64-2048-2048-2-0-0':
+        '81ea653788a69e87a41f58e05d41f703b7e6d85a5342da75ccf6579ea9ec32f9',
+    'K10a-haar-f32-2048-2048-3-0-0':
+        '56d40a6674d7cfc4d93f6524f1cf091b97a04cb7aa80e524117f7614f4734878',
+    'K10a-haar-f64-2048-2048-3-0-0':
+        '20d2d87b36f72127d8c2c8328791583e5d7a87bcda77d10f070359d43eb7749c',
+    'K10a-db2-f32-2048-2048-3-0-0':
+        'b2e1160ea78617d3ec042f2ea63895905e363fece2d1df86a7ec3b5adad1fd57',
+    'K10a-db2-f64-2048-2048-3-0-0':
+        'd32c5fd1872761bc87b7bead7b35a090af814dcbf7e6e395728c4af770106ba4',
+    'K10a-odd5-f32-2048-2048-3-0-0':
+        'e125149dc61986c6fb9968f26d1c12176c7be3a782170fb9bc82beb903cf8b36',
+    'K10a-odd5-f64-2048-2048-3-0-0':
+        '4bbe26675fd3d1acf71483338a5e94ac6d732880490caa53a0dc00d99ecf9814',
+    'K10a-sym8-f32-2048-2048-3-0-0':
+        '6d346e880bc2da7457f8c7bf2888e5600c8b4fb36f00bd85d2ed6b0f839fecd5',
+    'K10a-sym8-f64-2048-2048-3-0-0':
+        'db6ecdc8010838f19dd8dbf378567a8bfff0fc9369e8fb36f8836e60796c25ea',
+    'K10a-sym20-f32-2048-2048-3-0-0':
+        'bfa1ec19e9a3016f1c73cbdfa0174bc259cc4dd2f683f986ab8e18424c86cdcf',
+    'K10a-sym20-f64-2048-2048-3-0-0':
+        '8b2bb45781e191a30a7cfb49aa019092771a5d83dcd184706e39a1243939a8aa',
+    'K10b-haar-f32-2048-2048-3-0-0':
+        '1209aa96fd8a70e9d3ab9ee0e5330d91389dbcdacdb073dc5a2c57e77a5d4dfe',
+    'K10b-haar-f64-2048-2048-3-0-0':
+        'a406195e0d882b93b93b7453c333c0b48edb6f27d88eb833b5760cebd75a8d67',
+    'K10b-db2-f32-2048-2048-3-0-0':
+        '8b7c7779bb201faa00443c41c1277d09401b413e45a3a16b516a2deed37b2430',
+    'K10b-db2-f64-2048-2048-3-0-0':
+        '649eeffaaa385686e87c78497283fe22183cfcb7f63bf5f42a3a214ef1247136',
+    'K10b-odd5-f32-2048-2048-3-0-0':
+        'c570404ee8e3dbd126fa1cceecd519e85949210b5035d541fe2f9b83185e83ec',
+    'K10b-odd5-f64-2048-2048-3-0-0':
+        '3caba5bb1c65ca77dea02960d1ae989968cad9f5ad07abe7e83c6fbe33633ca1',
+    'K10b-sym8-f32-2048-2048-3-0-0':
+        '4eb5ad0b5e8df7e30f874f386563ff28b1a38fcce1afd3de2bbc757f0811af3c',
+    'K10b-sym8-f64-2048-2048-3-0-0':
+        '157e4ef31146dc574e29114c2948b3f70007a8a989770bd5af5256c2b8e7c936',
+    'K10b-sym20-f32-2048-2048-3-0-0':
+        '5a52a5d27da351aaa6e6e33d77748f61274381c4eb266f8ceb6bf4717cc864dd',
+    'K10b-sym20-f64-2048-2048-3-0-0':
+        '4078b536f19118b96ef73c0dad3560b3d1b46b37d77ff86115ea114138e47497',
+    'K10a-haar-f32-1-4194304-1-0-0':
+        'e00ab98db61f8ed5f8151967b4b9793b6e78c0d2a1adb57306aac04f81f7b94e',
+    'K10a-haar-f64-1-4194304-1-0-0':
+        'f0fb4ad4953bc4c926c37c97db46f038c64eb9f89dff58da6c98f228e19b2bdb',
+    'K10a-db2-f32-1-4194304-1-0-0':
+        '1abec18327c11c00caacae6a80f9d0dc8483e3cd3ea77da82a610e71e0ea0239',
+    'K10a-db2-f64-1-4194304-1-0-0':
+        '3f9259ee05477f072d087f7aad7298b1eaf62c5340e1dddc2bd624d69c936944',
+    'K10a-odd5-f32-1-4194304-1-0-0':
+        '75fc452c2bcfbce47c7b351631df9020debfbbbbce87e6ad614745d27eff4cdf',
+    'K10a-odd5-f64-1-4194304-1-0-0':
+        'a56501ab59791cec612601e9a98092a093a559625144fc80402e462c1d3ad952',
+    'K10a-sym8-f32-1-4194304-1-0-0':
+        '1996f920829341f13a3e2da57719321e45d03e784552e7d161c08a53237fbc53',
+    'K10a-sym8-f64-1-4194304-1-0-0':
+        '41d509c8ffdaa4e5c31360c0d3000f61b20d17b7d4d9a8138cf9524af2310da0',
+    'K10a-sym20-f32-1-4194304-1-0-0':
+        '245ab25f4897590ebe2e9cba6d78ffa7dbaa78b26ab7f1d1a73ee6be91983891',
+    'K10a-sym20-f64-1-4194304-1-0-0':
+        '706917aa9bd9d680597936f7b797842051a7e8f45630819702bee3842be0a84a',
+    'K10b-haar-f32-1-4194304-1-0-0':
+        '894156422b8808df4fdcfd16275a77aaf331d29f1fd49f1b29c41c02af265646',
+    'K10b-haar-f64-1-4194304-1-0-0':
+        '46b70f7a7ab3a7d1ea36343af4698eee945deeefee3ac7a7494d3d9efad86b72',
+    'K10b-db2-f32-1-4194304-1-0-0':
+        'e591e0461a832f0dd3ce7b5ad19b1540b91048b06a0f5d7e3994ee6359f60d30',
+    'K10b-db2-f64-1-4194304-1-0-0':
+        '23ae0b72e698f6df150d93cbb4e403c0e7f717521d869844436f9f7909c1f125',
+    'K10b-odd5-f32-1-4194304-1-0-0':
+        '6a903eeb747ff99a53986b66641c5ad55c9f73b6121e34be55fa7b5b67950542',
+    'K10b-odd5-f64-1-4194304-1-0-0':
+        '4e865a79f8dd1405ca9e851827b0462eca51c9d15c4c33ec48f025baa354b3a4',
+    'K10b-sym8-f32-1-4194304-1-0-0':
+        'bac8966d9ee14c810e8aefdd690e941c05cb55d461b818e02350e0ed21070462',
+    'K10b-sym8-f64-1-4194304-1-0-0':
+        '61888c6aec1e0f2915f83b8fec1ffe10b79c028c514a82d876ffe0d4ed925ef2',
+    'K10b-sym20-f32-1-4194304-1-0-0':
+        '6dc95d2bf8ca6b3065cced781adf5fdeae4ca409947adf0938d134394810b2ac',
+    'K10b-sym20-f64-1-4194304-1-0-0':
+        '0c1627d20cb27f42a8270b280cb0ecb17993b491e94ca8a40905d6962a2ffb66',
+    'K10a-haar-f32-1-4194304-2-0-0':
+        'b9a4f976a9d3a5e75e1ee2c19763e729cd72d4c7b7a40e05602eb76f92f07d9a',
+    'K10a-haar-f64-1-4194304-2-0-0':
+        'f6e67536da00c7b284933eea0729cb30741baef2b2861174b37a107e09dc2d33',
+    'K10a-db2-f32-1-4194304-2-0-0':
+        'bbf95844625f78f671009a8b955b5ab45f5a92f05f14475a8de084fa685e02b2',
+    'K10a-db2-f64-1-4194304-2-0-0':
+        '4bc0bc58e08980a30139b020fe3be0ec388113066936bf49fbef5ca40b6a0457',
+    'K10a-odd5-f32-1-4194304-2-0-0':
+        'f33f72f33a5b6e07e1dd80c5d22318293f522783a4b68047dd76a18e0d1d8e90',
+    'K10a-odd5-f64-1-4194304-2-0-0':
+        '44e2ed6ee2f0e19c5634c62d446426f0a03dd39ff8d22792a581868d9ca5a47b',
+    'K10a-sym8-f32-1-4194304-2-0-0':
+        '4fb935377fc898f68bcc335bc9c020543b306baf936e121ae8515cdd6d0c7c8d',
+    'K10a-sym8-f64-1-4194304-2-0-0':
+        '7f07b624e8a267efae31da20611a7fd36e2c724e62537dee4bdbee9dcb1361f3',
+    'K10a-sym20-f32-1-4194304-2-0-0':
+        '063f45e3e80b234273a0c250aee33e4ffe59d57326af5ee6f9febbab7e8482a9',
+    'K10a-sym20-f64-1-4194304-2-0-0':
+        '301905bb86b3407e00eeac1906c105084d3e77b4d01b518881a78e637da68510',
+    'K10b-haar-f32-1-4194304-2-0-0':
+        '342078f8c4a572bff8d3a0d7098aebf0c680168bc0b638221da8d24f80086c41',
+    'K10b-haar-f64-1-4194304-2-0-0':
+        '663eb88a88316b572651a8824b00ec4131af2be7d641bf1a6a820607a915211a',
+    'K10b-db2-f32-1-4194304-2-0-0':
+        '18043ef22beaeb065f61713bca25065e84f19f21376b81ddb9564fb5441ce593',
+    'K10b-db2-f64-1-4194304-2-0-0':
+        '760e4d47d0b5c7f8353e3f15d855a81f003d2c9e0c3f2440cda408ee5e924451',
+    'K10b-odd5-f32-1-4194304-2-0-0':
+        '6f09d1c10b88ddb30838364e820a32f434cd0e340beed1b52a7abdea3179d3cb',
+    'K10b-odd5-f64-1-4194304-2-0-0':
+        'c0b83aec9f7033ec437a9f6dc075223260a51cd1594808bbb64e5a5dc0ce4084',
+    'K10b-sym8-f32-1-4194304-2-0-0':
+        'c9f44d734b1ffd7a1476923ddf7f1292c3ca280b95490e7576b860148a5ce7ba',
+    'K10b-sym8-f64-1-4194304-2-0-0':
+        'c4edad896ad16b8217bb9146e663fdc4dcc7f91ed425799e2b72661c94eefe2a',
+    'K10b-sym20-f32-1-4194304-2-0-0':
+        'bf58e567bd5a78697f19688bcfea54f0d26602680e30364407cdd3232c008f25',
+    'K10b-sym20-f64-1-4194304-2-0-0':
+        '85a3b722e3526655c4eec6d93a60118243be3bab4e451ee1aee10451180c1cc8',
+    'K10a-haar-f32-1-4194304-3-0-0':
+        'ca507f9c96c07af1aede077e3d4099ca1e0d91dd75a7ff6e7e2be11fc7dfcffe',
+    'K10a-haar-f64-1-4194304-3-0-0':
+        '27e3ee0e7c629b6f31a83e97d59a9f95c418b02a4ab773b0642367e236f895d6',
+    'K10a-db2-f32-1-4194304-3-0-0':
+        '0d69136556ea7d8c16425c06b24e8516b4cde6b648e83f846cf94a7de848a561',
+    'K10a-db2-f64-1-4194304-3-0-0':
+        '5064f44a28d390d7a4a0fbbbb4fd91b41a739d1ad97b4fee43e6d3ef964ac098',
+    'K10a-odd5-f32-1-4194304-3-0-0':
+        '21f32a6068b0fd75cac56f9c23a259023f686d5e4fdafa63fe8f67919d2668b1',
+    'K10a-odd5-f64-1-4194304-3-0-0':
+        '55458e35c62437fbca56f566302c216c8352b671de6d5b45b91cba2cbcb48970',
+    'K10a-sym8-f32-1-4194304-3-0-0':
+        '8844437aef631eb1df0f5f7c7e23ee3301d11b074cac288e2d1a269eed684cbd',
+    'K10a-sym8-f64-1-4194304-3-0-0':
+        '947ef58d0423a55d0cbeac7b6b454d1a9a32b7ff324bca13014128f24dc4bd4f',
+    'K10a-sym20-f32-1-4194304-3-0-0':
+        '235863cd6fc8df4d716070fd56c49780b672c3904729f842323f0fda109b19b5',
+    'K10a-sym20-f64-1-4194304-3-0-0':
+        '0f5253f42f7f9724c4b0ccd56f7f198acffcb9acae8190ffde37abd5f2c5a586',
+    'K10b-haar-f32-1-4194304-3-0-0':
+        '5f8df865f38ab7df1b54b5383e75693cf0289e0acfd3dc63a90a25bda6542761',
+    'K10b-haar-f64-1-4194304-3-0-0':
+        '493e19b2ce2fb9cb3351aa46a9053c5bd3c812f3e3fe238d2424bd86d75b35cd',
+    'K10b-db2-f32-1-4194304-3-0-0':
+        '281e42cf0ef61de368e321b8f110f082691e2a62c1fabe1e3fa70ad092763d0d',
+    'K10b-db2-f64-1-4194304-3-0-0':
+        '678c4596527006d311400997a05459bbcb95d15bf1e12b12beb02ec71892e052',
+    'K10b-odd5-f32-1-4194304-3-0-0':
+        '013fa565e9669b87f6ff0144e8e9f166d7d6bcffb5da9c73bef442aa1e8afb0a',
+    'K10b-odd5-f64-1-4194304-3-0-0':
+        'ea4eeea5e6b2a72b5081d12e9831569b15f359c394c97d1cad5a5d624189e440',
+    'K10b-sym8-f32-1-4194304-3-0-0':
+        '5f4e8cab74dbe4d5ef19379d61552ecdb6cffb374535b7d72957222f3a990ed3',
+    'K10b-sym8-f64-1-4194304-3-0-0':
+        '22caf7718b39b5b5bdf4fbd16cf7a9fcd58d53b3d3ae6de50c4032af657c31d4',
+    'K10b-sym20-f32-1-4194304-3-0-0':
+        'a8c3f71d1bc2e5edca1f710797c434c31a5d4a8d892dfd267cb35c5e8f169435',
+    'K10b-sym20-f64-1-4194304-3-0-0':
+        '78c564c2e32e832b4a8f8bc676ecbd8bb4bd95c54565a6d5de8f867051414059',
+}
+
 if __name__ == "__main__":
     import sys
 
@@ -5071,9 +6035,17 @@ if __name__ == "__main__":
                 out, _ = _k12_output(kind, case, wname, prec, dev)
                 yield _k12_id(kind, case, wname, prec), out
 
+    def _k10_lines(dev):
+        for case in K10_CASES:
+            for kind in ("K10a", "K10b"):
+                for wname in K10_BANKS:
+                    for dt in K10_TYPES:
+                        out, _ = _k10_output(kind, case, wname, dt, dev)
+                        yield _k10_id(kind, case, wname, dt), out
+
     tables = {"PAIR": _pair_lines, "ANA": _ana_lines, "ROWS": _rows_lines,
               "K29D": _k29d_lines, "K20": _k20_lines, "K19": _k19_lines, "K18B": _k18b_lines,
-              "K18A": _k18a_lines, "K12": _k12_lines}
+              "K18A": _k18a_lines, "K12": _k12_lines, "K10": _k10_lines}
     want = sys.argv[2:] or list(tables)
     if (sys.argv[1:2] != ["digests"] or not set(want) <= set(tables)
             or not torch.cuda.is_available()):

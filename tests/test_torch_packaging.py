@@ -216,6 +216,21 @@ def test_swt1d_occupancy_entry_is_declared_as_chip_turns_calls_it():
     assert _build._SIGNATURES[name] == turns.ENTRY_TYPES[name] == want
 
 
+def test_k10_occupancy_entry_is_declared_as_chip_turns_calls_it():
+    """K10a / K10b's occupancy query has the ctypes signature in _build
+    that chip_turns.py gives it where a parent tree's _build lacks it:
+    synthesis, rows, n, level, hlen, f64 and device, then three int
+    pointers (blocks per SM, shared memory, grid)."""
+    from pypwt_tpu_torch.ops import _build
+    spec = importlib.util.spec_from_file_location("chip_turns",
+                                                  ROOT / "chip_turns.py")
+    turns = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(turns)
+    name = "pypwt_swt1d_occupancy"
+    want = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
+    assert _build._SIGNATURES[name] == turns.ENTRY_TYPES[name] == want
+
+
 def test_syn_rows_occupancy_entry_is_declared_as_chip_turns_calls_it():
     """K29d's occupancy query has the ctypes signature in _build that
     chip_turns.py gives it where a parent tree's _build lacks it: hlen, f64

@@ -78,6 +78,31 @@ def test_k10_plain_matches_pallas(wname, level):
     assert _err(got, ref) <= KERNEL_TOL
 
 
+# The edge shapes of K10's window body: rows shorter than a tile (40
+# samples, several rows an item), a dilation that does not divide the row
+# (75 at level 2, 130 at level 3), one equal to it (haar, 16 at level 5
+# and 8 at level 4: JAX's kernel takes a wrap no wider than the row), odd
+# hlen and the widest bank.
+@pytest.mark.parametrize("wname, n, level", [
+    ("db2", 40, 1), ("sym8", 40, 2), ("odd5", 40, 3), ("odd5", 75, 2),
+    ("sym8", 130, 3), ("odd5", 130, 3), ("sym20", 130, 2), ("haar", 16, 5),
+    ("haar", 8, 4)])
+def test_k10_plain_matches_pallas_at_edge_shapes(wname, n, level):
+    jfb, fb = _banks(wname)
+    x = _rand((8, n), 6)
+    ref = pk.swt1d_level_fused(jnp.asarray(x), jfb, level)
+    assert ref is not None
+    got = fd.swt1d_plain(torch.from_numpy(x), fb, level)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and _err(g, r) <= KERNEL_TOL
+    a, d = _rand((8, n), 7), _rand((8, n), 8)
+    ref = pk.iswt1d_level_fused(jnp.asarray(a), jnp.asarray(d), jfb, level)
+    assert ref is not None
+    got = fd.iswt1d_plain(torch.from_numpy(a), torch.from_numpy(d), fb,
+                          level)
+    assert _err(got, ref) <= KERNEL_TOL
+
+
 # (n, level): (16, 3) with sym8 and sym20 wraps wider than the signal
 @pytest.mark.parametrize("wname", ["haar", "db2", "sym8", "sym20", "bior3.5",
                                    "odd5"])
